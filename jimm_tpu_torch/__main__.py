@@ -1,0 +1,6 @@
+"""``python -m jimm_tpu_torch serve ...``"""
+
+from jimm_tpu_torch.cli import main
+
+if __name__ == "__main__":
+    raise SystemExit(main())

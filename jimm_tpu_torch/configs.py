@@ -1,0 +1,254 @@
+"""Model configuration dataclasses and the SigLIP presets.
+
+The port's own copy of the parts of ``jimm_tpu/configs.py`` it uses: the
+tower dataclasses with the same fields and defaults (so a config means the
+same thing to both packages), the runtime-field rule, ``with_runtime``,
+``normalize_act`` and the SigLIP presets. The tests hold this copy equal to
+the JAX package's field by field.
+
+Fields that select a JAX execution strategy the port has not ported yet
+(``pipeline``, ``remat``, ``scan_unroll``, ``precision`` and the
+``pp_*`` family) are kept for that equality; the port's modules reject the
+values they cannot honour.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Literal
+
+Pooling = Literal["cls", "map", "last", "eot", "none"]
+Activation = Literal["gelu", "gelu_tanh", "quick_gelu"]
+AttnImpl = Literal["auto", "xla", "flash", "flash_masked", "flash_bias",
+                   "flash_int8", "sigmoid", "ring", "ulysses", "saveable"]
+Precision = Literal["bf16", "fp8_hybrid", "int8_qk"]
+RematPolicy = str
+
+
+def normalize_act(name: str | None, default: str = "gelu") -> str:
+    """HF ``hidden_act`` -> canonical Activation name."""
+    if name is None:
+        return default
+    return {"gelu": "gelu", "gelu_new": "gelu_tanh",
+            "gelu_pytorch_tanh": "gelu_tanh",
+            "quick_gelu": "quick_gelu"}.get(name, name)
+
+
+#: Tower fields that select execution strategy, not architecture — safe to
+#: override on a preset or a loaded checkpoint
+RUNTIME_FIELDS = frozenset({
+    "attn_impl", "ln_impl", "fused_qkv", "remat", "remat_policy", "scan_unroll",
+    "dropout", "pipeline", "pp_microbatches", "pp_virtual", "pp_stages",
+    "precision",
+})
+
+
+def with_runtime(cfg, **fields):
+    """Return ``cfg`` with runtime (non-architecture) fields replaced in the
+    vision and, if present, text tower. Rejects architecture fields.
+
+    Flat fields apply to both towers; ``vision=dict(...)`` /
+    ``text=dict(...)`` target one tower."""
+    per_tower = {t: dict(fields.pop(t, None) or {})
+                 for t in ("vision", "text")}
+    bad = (set(fields) | set(per_tower["vision"]) | set(per_tower["text"])
+           ) - RUNTIME_FIELDS
+    if bad:
+        raise ValueError(f"not runtime-overridable: {sorted(bad)} "
+                         f"(allowed: {sorted(RUNTIME_FIELDS)})")
+    cfg = dataclasses.replace(cfg, vision=dataclasses.replace(
+        cfg.vision, **fields, **per_tower["vision"]))
+    if hasattr(cfg, "text"):
+        cfg = dataclasses.replace(cfg, text=dataclasses.replace(
+            cfg.text, **fields, **per_tower["text"]))
+    elif per_tower["text"]:
+        raise ValueError("config has no text tower to override")
+    return cfg
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    """Shared encoder-stack hyperparameters (vision or text tower)."""
+
+    width: int = 768
+    depth: int = 12
+    num_heads: int = 12
+    mlp_dim: int = 3072
+    act: Activation = "gelu"
+    ln_eps: float = 1e-6
+    dropout: float = 0.0
+    causal: bool = False
+    attn_impl: AttnImpl = "auto"
+    pipeline: bool = False
+    pp_microbatches: int = 4
+    pp_virtual: int = 1
+    pp_stages: int = 0
+    remat: bool = False
+    remat_policy: RematPolicy = "none"
+    #: LayerNorm: "xla" (plain torch LayerNorm) or "fused" (the LayerNorm
+    #: kernel, `jimm_tpu_torch/ops/layer_norm.py`)
+    ln_impl: Literal["xla", "fused"] = "xla"
+    #: compute q/k/v as one (H, 3H) matmul (call-time weight concat)
+    fused_qkv: bool = False
+    scan_unroll: int = 1
+    precision: Precision = "bf16"
+
+    @property
+    def head_dim(self) -> int:
+        return self.width // self.num_heads
+
+
+@dataclass(frozen=True)
+class VisionConfig:
+    """Vision tower (fixed resolution)."""
+
+    image_size: int = 224
+    patch_size: int = 16
+    channels: int = 3
+    num_frames: int = 1
+    width: int = 768
+    depth: int = 12
+    num_heads: int = 12
+    mlp_dim: int = 3072
+    act: Activation = "gelu"
+    ln_eps: float = 1e-6
+    dropout: float = 0.0
+    pooling: Pooling = "cls"
+    pre_norm: bool = False
+    patch_bias: bool = True
+    attn_impl: AttnImpl = "auto"
+    pipeline: bool = False
+    pp_microbatches: int = 4
+    pp_virtual: int = 1
+    pp_stages: int = 0
+    remat: bool = False
+    remat_policy: RematPolicy = "none"
+    ln_impl: Literal["xla", "fused"] = "xla"
+    fused_qkv: bool = False
+    scan_unroll: int = 1
+    precision: Precision = "bf16"
+
+    @property
+    def grid(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def num_patches(self) -> int:
+        return self.grid * self.grid * self.num_frames
+
+    @property
+    def seq_len(self) -> int:
+        return self.num_patches + (1 if self.pooling == "cls" else 0)
+
+    def encoder(self) -> TransformerConfig:
+        return TransformerConfig(
+            width=self.width, depth=self.depth, num_heads=self.num_heads,
+            mlp_dim=self.mlp_dim, act=self.act, ln_eps=self.ln_eps,
+            dropout=self.dropout, causal=False, attn_impl=self.attn_impl,
+            pipeline=self.pipeline, pp_microbatches=self.pp_microbatches,
+            pp_virtual=self.pp_virtual, pp_stages=self.pp_stages,
+            remat=self.remat, remat_policy=self.remat_policy,
+            ln_impl=self.ln_impl, fused_qkv=self.fused_qkv,
+            scan_unroll=self.scan_unroll, precision=self.precision,
+        )
+
+
+@dataclass(frozen=True)
+class TextConfig:
+    """Text tower. SigLIP: bidirectional + last-token pooling; CLIP: causal
+    + EOT pooling."""
+
+    vocab_size: int = 49408
+    context_length: int = 77
+    width: int = 512
+    depth: int = 12
+    num_heads: int = 8
+    mlp_dim: int = 2048
+    act: Activation = "quick_gelu"
+    ln_eps: float = 1e-5
+    dropout: float = 0.0
+    causal: bool = True
+    pooling: Pooling = "eot"
+    proj_bias: bool = False
+    eos_token_id: int | None = None
+    attn_impl: AttnImpl = "auto"
+    pipeline: bool = False
+    pp_microbatches: int = 4
+    pp_virtual: int = 1
+    pp_stages: int = 0
+    remat: bool = False
+    remat_policy: RematPolicy = "none"
+    ln_impl: Literal["xla", "fused"] = "xla"
+    fused_qkv: bool = False
+    scan_unroll: int = 1
+    precision: Precision = "bf16"
+
+    def encoder(self) -> TransformerConfig:
+        return TransformerConfig(
+            width=self.width, depth=self.depth, num_heads=self.num_heads,
+            mlp_dim=self.mlp_dim, act=self.act, ln_eps=self.ln_eps,
+            dropout=self.dropout, causal=self.causal, attn_impl=self.attn_impl,
+            pipeline=self.pipeline, pp_microbatches=self.pp_microbatches,
+            pp_virtual=self.pp_virtual, pp_stages=self.pp_stages,
+            remat=self.remat, remat_policy=self.remat_policy,
+            ln_impl=self.ln_impl, fused_qkv=self.fused_qkv,
+            scan_unroll=self.scan_unroll, precision=self.precision,
+        )
+
+
+@dataclass(frozen=True)
+class SigLIPConfig:
+    """SigLIP dual tower: MAP-pooled vision tower (gelu_tanh, eps 1e-6),
+    bidirectional text tower with last-token pooling and a biased
+    projection, ``logit_scale`` and ``logit_bias``."""
+
+    vision: VisionConfig = field(default_factory=lambda: VisionConfig(
+        image_size=256, patch_size=16, width=768, depth=12, num_heads=12,
+        mlp_dim=3072, act="gelu_tanh", ln_eps=1e-6, pooling="map",
+        pre_norm=False, patch_bias=True))
+    text: TextConfig = field(default_factory=lambda: TextConfig(
+        vocab_size=32000, context_length=64, width=768, depth=12, num_heads=12,
+        mlp_dim=3072, act="gelu_tanh", ln_eps=1e-6, causal=False,
+        pooling="last", proj_bias=True))
+    projection_dim: int = 768
+    logit_scale_init: float = 2.3026  # ln(10), SigLIP paper init
+    logit_bias_init: float = -10.0
+
+
+def _siglip(size: str, patch: int, image: int, vocab: int = 32000,
+            ctx: int = 64) -> SigLIPConfig:
+    w, d, h, m = {
+        "B": (768, 12, 12, 3072),
+        "L": (1024, 24, 16, 4096),
+        "So400m": (1152, 27, 16, 4304),
+    }[size]
+    return SigLIPConfig(
+        vision=VisionConfig(image_size=image, patch_size=patch, width=w, depth=d,
+                            num_heads=h, mlp_dim=m, act="gelu_tanh", ln_eps=1e-6,
+                            pooling="map"),
+        text=TextConfig(vocab_size=vocab, context_length=ctx, width=w, depth=d,
+                        num_heads=h, mlp_dim=m, act="gelu_tanh", ln_eps=1e-6,
+                        causal=False, pooling="last", proj_bias=True),
+        projection_dim=w)
+
+
+#: Named SigLIP presets (the same names and shapes as the JAX package's)
+PRESETS: dict[str, SigLIPConfig] = {
+    "siglip-base-patch16-224": _siglip("B", 16, 224),
+    "siglip-base-patch16-256": _siglip("B", 16, 256),
+    "siglip-base-patch16-384": _siglip("B", 16, 384),
+    "siglip-large-patch16-256": _siglip("L", 16, 256),
+    "siglip-large-patch16-384": _siglip("L", 16, 384),
+    "siglip-so400m-patch14-384": _siglip("So400m", 14, 384),
+    "siglip2-base-patch16-256": _siglip("B", 16, 256, vocab=256000),
+    "siglip2-large-patch16-512": _siglip("L", 16, 512, vocab=256000),
+    "siglip2-so400m-patch14-384": _siglip("So400m", 14, 384, vocab=256000),
+    "siglip2-so400m-patch16-256": _siglip("So400m", 16, 256, vocab=256000),
+}
+
+
+def preset(name: str, **overrides: Any) -> SigLIPConfig:
+    """Fetch a named preset, optionally overriding top-level fields."""
+    cfg = PRESETS[name]
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg

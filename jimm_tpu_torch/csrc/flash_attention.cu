@@ -1,0 +1,268 @@
+// Softmax flash-attention forward for Hopper (sm_90a).
+//
+// Replaces the TPU kernel jimm_tpu/ops/flash_attention.py::_fwd_kernel,
+// softmax kind without mask or bias (launched by _fwd_pallas through
+// pl.pallas_call). Same numerics: the q.k score is accumulated in f32 and
+// scaled after the dot; masked scores are -1e30, not -inf; the running max
+// starts at -1e30 and the running sum at 0; a row with l == 0 divides by 1;
+// o = acc / l is stored in the input dtype and lse = m + log(l) in f32.
+//
+// Design (the FA2 arrangement): one CTA of 256 threads per (batch*head,
+// 64-row q tile). The TPU kernel makes the kv loop a sequential grid axis
+// and carries m/l/acc in VMEM scratch between grid steps; here the kv loop
+// runs inside the CTA over 64-row k/v tiles staged in shared memory, and
+// m/l/acc live in registers. Thread (ty, tx) of the 16 x 16 layout owns
+// q rows 4*ty..4*ty+3: it computes the scores of those rows against keys
+// tx + 16*j, and accumulates those rows of o over output columns
+// 64*g + 4*tx..+3. Row max and row sum are reduced across the 16 threads of
+// a half-warp with shuffles. The head dim is zero-padded to 64/128/256 in
+// shared memory only; device memory is read at its real width D. q/k/v are
+// read through their (B, S, N, D) strides, so the caller's layout needs no
+// transposed copy. Ragged Sq and Sk are masked inside; causal skips the k/v
+// tiles past the q tile's last row (top-left aligned, as on the TPU).
+//
+// What bounds it on the H100: at the served shapes (S <= 256, D = 64) the
+// bytes: ~4 bytes an element of q/k/v/o in f32, 2 in bf16, against
+// 4*Sq*Sk*D flops, under the ~295 flops a byte where the tensor cores would
+// be the limit. This first version computes with f32 FMAs (f32 inputs must
+// not round to TF32, and one code path serves both dtypes), so at S=256 its
+// time is set by those FMAs rather than by the bytes; the tensor-core
+// (mma/wgmma) version is later work. f32 tiles in shared memory keep each
+// input element converted once, and row strides padded by 4 floats keep the
+// float4 reads free of bank conflicts.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kBQ = 64;       // q rows per CTA
+constexpr int kBK = 64;       // k/v rows per tile
+constexpr int kThreads = 256;
+constexpr float kNegInf = -1e30f;
+
+// rows [r0, r0 + 64) of one head's (S, D) slice -> f32 shared tile with row
+// stride DP + 4; rows >= n and columns >= d are zero
+template <typename T, int DP>
+__device__ __forceinline__ void load_tile(float* dst, const T* src,
+                                          long long row_stride, int r0, int n,
+                                          int d) {
+  constexpr int LD = DP + 4;
+  for (int idx = threadIdx.x; idx < kBK * DP; idx += kThreads) {
+    const int r = idx / DP, c = idx % DP;
+    float val = 0.f;
+    if (r0 + r < n && c < d)
+      val = jimm::to_f32(src[static_cast<long long>(r0 + r) * row_stride + c]);
+    dst[r * LD + c] = val;
+  }
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ o, float* __restrict__ lse, int heads, int sq, int sk,
+    int d, long long q_sb, long long q_ss, long long q_sn, long long k_sb,
+    long long k_ss, long long k_sn, long long v_sb, long long v_ss,
+    long long v_sn, float scale, int causal) {
+  constexpr int LD = DP + 4;    // q/k/v tile row stride (floats)
+  constexpr int LDP = kBK + 4;  // probability tile row stride
+  constexpr int DG = DP / 64;   // float4 column groups of o per thread
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;
+  float* ks = qs + kBQ * LD;
+  float* vs = ks + kBK * LD;
+  float* ps = vs + kBK * LD;
+
+  const int bh = blockIdx.x;
+  const int bi = bh / heads, h = bh % heads;
+  const int q0 = blockIdx.y * kBQ;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const T* qb = q + bi * q_sb + h * q_sn;
+  const T* kb = k + bi * k_sb + h * k_sn;
+  const T* vb = v + bi * v_sb + h * v_sn;
+
+  load_tile<T, DP>(qs, qb, q_ss, q0, sq, d);
+
+  float m[4], l[4], acc[4][DG * 4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DG * 4; ++c) acc[i][c] = 0.f;
+  }
+
+  // causal: keys past the tile's last query row are masked for every row
+  const int kv_end = causal ? min(sk, q0 + kBQ) : sk;
+  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
+    __syncthreads();  // the previous tile's k/v/p are no longer read
+    load_tile<T, DP>(ks, kb, k_ss, k0, sk, d);
+    load_tile<T, DP>(vs, vb, v_ss, k0, sk, d);
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < DP; c += 4) {
+      float4 qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qs + (ty * 4 + i) * LD + c);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * LD + c);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty * 4 + i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx + 16 * j;
+        const bool keep = col < sk && (!causal || col <= row);
+        s[i][j] = keep ? s[i][j] * scale : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float corr = expf(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = expf(s[i][j] - m_new);
+        rs += s[i][j];
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      l[i] = l[i] * corr + rs;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < DG * 4; ++c) acc[i][c] *= corr;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ps[(ty * 4 + i) * LDP + tx + 16 * j] = s[i][j];
+    }
+    __syncthreads();
+
+#pragma unroll 2
+    for (int c = 0; c < kBK; c += 4) {
+      float p[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 t =
+            *reinterpret_cast<const float4*>(ps + (ty * 4 + i) * LDP + c);
+        p[i][0] = t.x;
+        p[i][1] = t.y;
+        p[i][2] = t.z;
+        p[i][3] = t.w;
+      }
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc)
+#pragma unroll
+        for (int g = 0; g < DG; ++g) {
+          const float4 vv = *reinterpret_cast<const float4*>(
+              vs + (c + cc) * LD + g * 64 + tx * 4);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[i][g * 4 + 0] = fmaf(p[i][cc], vv.x, acc[i][g * 4 + 0]);
+            acc[i][g * 4 + 1] = fmaf(p[i][cc], vv.y, acc[i][g * 4 + 1]);
+            acc[i][g * 4 + 2] = fmaf(p[i][cc], vv.z, acc[i][g * 4 + 2]);
+            acc[i][g * 4 + 3] = fmaf(p[i][cc], vv.w, acc[i][g * 4 + 3]);
+          }
+        }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    if (row >= sq) continue;
+    const float ll = l[i] == 0.f ? 1.f : l[i];
+    T* orow = o + (static_cast<long long>(bi) * sq + row) * heads * d +
+              static_cast<long long>(h) * d;
+#pragma unroll
+    for (int g = 0; g < DG; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = g * 64 + tx * 4 + e;
+        if (col < d) orow[col] = jimm::from_f32<T>(acc[i][g * 4 + e] / ll);
+      }
+    if (tx == 0) lse[static_cast<long long>(bh) * sq + row] = m[i] + logf(ll);
+  }
+}
+
+struct Args {
+  const void *q, *k, *v;
+  void *o, *lse;
+  int batch, heads, sq, sk, d;
+  long long q_sb, q_ss, q_sn, k_sb, k_ss, k_sn, v_sb, v_ss, v_sn;
+  float scale;
+  int causal;
+  cudaStream_t stream;
+};
+
+template <typename T, int DP>
+cudaError_t launch(const Args& a) {
+  auto kernel = flash_fwd_kernel<T, DP>;
+  const int smem =
+      ((kBQ + 2 * kBK) * (DP + 4) + kBQ * (kBK + 4)) * sizeof(float);
+  cudaError_t err = jimm::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.batch * a.heads, (a.sq + kBQ - 1) / kBQ);
+  kernel<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.o),
+      static_cast<float*>(a.lse), a.heads, a.sq, a.sk, a.d, a.q_sb, a.q_ss,
+      a.q_sn, a.k_sb, a.k_ss, a.k_sn, a.v_sb, a.v_ss, a.v_sn, a.scale,
+      a.causal);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const Args& a) {
+  if (a.d <= 64) return launch<T, 64>(a);
+  if (a.d <= 128) return launch<T, 128>(a);
+  return launch<T, 256>(a);
+}
+
+}  // namespace
+
+// q: (B, Sq, N, D), k/v: (B, Sk, N, D) in `dtype`, unit stride over D, the
+// other strides in elements. o: (B, Sq, N, D) contiguous in `dtype`;
+// lse: (B, N, Sq) contiguous f32. Returns the launch's cudaError_t.
+extern "C" int jimm_flash_attention_fwd(
+    const void* q, const void* k, const void* v, void* o, void* lse, int batch,
+    int heads, int sq, int sk, int d, long long q_sb, long long q_ss,
+    long long q_sn, long long k_sb, long long k_ss, long long k_sn,
+    long long v_sb, long long v_ss, long long v_sn, float scale, int causal,
+    int dtype, void* stream) {
+  if (batch < 1 || heads < 1 || sq < 1 || sk < 1 || d < 1 || d > 256 ||
+      static_cast<long long>(batch) * heads > 0x7fffffffLL ||
+      (sq + kBQ - 1) / kBQ > 65535)
+    return cudaErrorInvalidValue;
+  const Args a{q,    k,    v,    o,    lse,  batch, heads, sq,
+               sk,   d,    q_sb, q_ss, q_sn, k_sb,  k_ss,  k_sn,
+               v_sb, v_ss, v_sn, scale, causal, static_cast<cudaStream_t>(stream)};
+  switch (dtype) {
+    case jimm::kF32:
+      return dispatch<float>(a);
+    case jimm::kBF16:
+      return dispatch<__nv_bfloat16>(a);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}

@@ -1,0 +1,130 @@
+"""Transformer encoder stack; the counterpart of
+``jimm_tpu/nn/transformer.py``.
+
+The JAX package stacks the layers (one parameter set with a leading
+``layers`` axis, scanned); here each layer is its own module in an
+``nn.ModuleList`` and the forward is a Python loop. ``load_jax_params``
+(`jimm_tpu_torch/models/siglip.py`) unstacks at the weight edge.
+
+Parity-preserved semantics: pre-LN residual order ``x + attn(ln1(x))``;
+``x + mlp(ln2(x))``; attention over explicit ``(B, S, N, D)`` tensors
+with plain ``(H, H)`` q/k/v/out projections.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from jimm_tpu_torch.configs import TransformerConfig
+from jimm_tpu_torch.nn.norm import FusedLayerNorm
+from jimm_tpu_torch.ops.activations import get_activation
+from jimm_tpu_torch.ops.attention import dot_product_attention
+
+
+def _layernorm(dim: int, eps: float, *, impl: str = "xla", device=None,
+               dtype=None) -> nn.Module:
+    if impl == "fused":
+        return FusedLayerNorm(dim, eps=eps, device=device, dtype=dtype)
+    if impl != "xla":
+        raise ValueError(f"unknown ln_impl {impl!r}")
+    return nn.LayerNorm(dim, eps=eps, device=device, dtype=dtype)
+
+
+class Attention(nn.Module):
+    """Multi-head attention with (H, H) q/k/v/out projections; self- or
+    cross-attention (the MAP pooling probe).
+
+    ``fused_qkv`` computes the three projections as one ``(H, 3H)`` matmul
+    over weights concatenated at call time; the parameters stay separate.
+    The q/k/v it hands to attention are then strided views of one tensor,
+    which the flash kernel reads in place."""
+
+    def __init__(self, width: int, num_heads: int, *, is_causal: bool = False,
+                 impl: str = "auto", fused_qkv: bool = False, device=None,
+                 dtype=None):
+        super().__init__()
+        if width % num_heads:
+            raise ValueError(f"width {width} not divisible by heads {num_heads}")
+        self.num_heads = num_heads
+        self.head_dim = width // num_heads
+        self.is_causal = is_causal
+        self.impl = impl
+        self.fused_qkv = fused_qkv
+        kw = {"device": device, "dtype": dtype}
+        self.q = nn.Linear(width, width, **kw)
+        self.k = nn.Linear(width, width, **kw)
+        self.v = nn.Linear(width, width, **kw)
+        self.out = nn.Linear(width, width, **kw)
+
+    def forward(self, x: torch.Tensor, kv: torch.Tensor | None = None,
+                mask: torch.Tensor | None = None) -> torch.Tensor:
+        b, sq, _ = x.shape
+        if kv is None and self.fused_qkv:
+            w = torch.cat([self.q.weight, self.k.weight, self.v.weight])
+            bias = torch.cat([self.q.bias, self.k.bias, self.v.bias])
+            q, k, v = F.linear(x, w, bias).chunk(3, dim=-1)
+            sk = sq
+        else:
+            kv = x if kv is None else kv
+            sk = kv.shape[1]
+            q, k, v = self.q(x), self.k(kv), self.v(kv)
+        q = q.reshape(b, sq, self.num_heads, self.head_dim)
+        k = k.reshape(b, sk, self.num_heads, self.head_dim)
+        v = v.reshape(b, sk, self.num_heads, self.head_dim)
+        o = dot_product_attention(q, k, v, is_causal=self.is_causal,
+                                  mask=mask, impl=self.impl)
+        return self.out(o.reshape(b, sq, self.num_heads * self.head_dim))
+
+
+class Mlp(nn.Module):
+    def __init__(self, width: int, mlp_dim: int, act: str, *, device=None,
+                 dtype=None):
+        super().__init__()
+        self.fc1 = nn.Linear(width, mlp_dim, device=device, dtype=dtype)
+        self.fc2 = nn.Linear(mlp_dim, width, device=device, dtype=dtype)
+        self.act = get_activation(act)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(self.act(self.fc1(x)))
+
+
+class Block(nn.Module):
+    """Pre-LN residual block."""
+
+    def __init__(self, cfg: TransformerConfig, *, device=None, dtype=None):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        self.ln1 = _layernorm(cfg.width, cfg.ln_eps, impl=cfg.ln_impl, **kw)
+        self.attn = Attention(cfg.width, cfg.num_heads, is_causal=cfg.causal,
+                              impl=cfg.attn_impl, fused_qkv=cfg.fused_qkv,
+                              **kw)
+        self.ln2 = _layernorm(cfg.width, cfg.ln_eps, impl=cfg.ln_impl, **kw)
+        self.mlp = Mlp(cfg.width, cfg.mlp_dim, cfg.act, **kw)
+
+    def forward(self, x: torch.Tensor,
+                mask: torch.Tensor | None = None) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), mask=mask)
+        return x + self.mlp(self.ln2(x))
+
+
+class Transformer(nn.Module):
+    """``depth`` blocks applied in order. Inference only: the training-time
+    strategies of the JAX config (remat, pipeline, dropout) are rejected."""
+
+    def __init__(self, cfg: TransformerConfig, *, device=None, dtype=None):
+        super().__init__()
+        if cfg.pipeline or cfg.remat or cfg.dropout:
+            raise NotImplementedError(
+                "pipeline, remat and dropout wait for the training slice "
+                "(ROADMAP.md queue 1)")
+        self.cfg = cfg
+        self.blocks = nn.ModuleList(
+            Block(cfg, device=device, dtype=dtype) for _ in range(cfg.depth))
+
+    def forward(self, x: torch.Tensor,
+                mask: torch.Tensor | None = None) -> torch.Tensor:
+        for block in self.blocks:
+            x = block(x, mask=mask)
+        return x

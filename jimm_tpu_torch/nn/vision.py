@@ -1,0 +1,81 @@
+"""Vision tower at fixed resolution: patch embedding, learned positions,
+encoder, post-LN, MAP pooling; the counterpart of ``jimm_tpu/nn/vision.py``
+for SigLIP-style towers. Temporal clips and the NaFlex path are not ported
+yet (ROADMAP.md)."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from jimm_tpu_torch.configs import VisionConfig
+from jimm_tpu_torch.nn.transformer import Attention, Mlp, Transformer, _layernorm
+
+
+class PatchEmbed(nn.Module):
+    """Non-overlapping conv patchifier: (B, H, W, C) -> (B, N, width), tokens
+    in row-major (grid row, grid column) order like the JAX NHWC conv."""
+
+    def __init__(self, cfg: VisionConfig, *, device=None, dtype=None):
+        super().__init__()
+        self.conv = nn.Conv2d(cfg.channels, cfg.width,
+                              kernel_size=cfg.patch_size,
+                              stride=cfg.patch_size, bias=cfg.patch_bias,
+                              device=device, dtype=dtype)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        x = self.conv(images.permute(0, 3, 1, 2).to(self.conv.weight.dtype))
+        return x.flatten(2).transpose(1, 2)
+
+
+class MAPHead(nn.Module):
+    """SigLIP multi-head attention pooling. The residual is the *pre-LN*
+    attention output::
+
+        x = attn(probe, h, h); res = x; x = res + mlp(ln(x)); return x[:, 0]
+    """
+
+    def __init__(self, cfg: VisionConfig, *, device=None, dtype=None):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        self.probe = nn.Parameter(torch.zeros(1, 1, cfg.width, **kw))
+        self.attn = Attention(cfg.width, cfg.num_heads, impl=cfg.attn_impl,
+                              **kw)
+        self.ln = _layernorm(cfg.width, cfg.ln_eps, **kw)
+        self.mlp = Mlp(cfg.width, cfg.mlp_dim, cfg.act, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        probe = self.probe.expand(x.shape[0], 1, x.shape[-1]).to(x.dtype)
+        x = self.attn(probe, kv=x)                    # (B, 1, width)
+        x = x + self.mlp(self.ln(x))
+        return x[:, 0]
+
+
+class VisionTower(nn.Module):
+    """(B, H, W, C) images -> pooled (B, width) features."""
+
+    def __init__(self, cfg: VisionConfig, *, device=None, dtype=None):
+        super().__init__()
+        if cfg.pooling != "map" or cfg.pre_norm or cfg.num_frames != 1:
+            raise NotImplementedError(
+                "the port's vision tower is SigLIP's (MAP pooling, post-norm, "
+                "single images); ViT/CLIP towers and clips are ROADMAP.md "
+                "queue 1 work")
+        kw = {"device": device, "dtype": dtype}
+        self.cfg = cfg
+        self.patch_embed = PatchEmbed(cfg, **kw)
+        self.pos_embed = nn.Parameter(
+            torch.zeros(1, cfg.seq_len, cfg.width, **kw))
+        self.encoder = Transformer(cfg.encoder(), **kw)
+        self.ln_post = _layernorm(cfg.width, cfg.ln_eps, **kw)
+        self.head = MAPHead(cfg, **kw)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        size = self.cfg.image_size
+        if images.ndim != 4 or images.shape[1:3] != (size, size):
+            raise ValueError(f"expected {size}x{size} input images (NHWC), "
+                             f"got {tuple(images.shape)}")
+        x = self.patch_embed(images)
+        x = x + self.pos_embed.to(x.dtype)
+        x = self.encoder(x)
+        return self.head(self.ln_post(x))

@@ -1,0 +1,118 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: run with ``python -m pytest -m cuda tests/test_torch_cuda.py``
+on a machine with an H100. Elsewhere every test skips (decided in the
+``card`` fixture, never at import or collection). f32 runs with TF32 off and
+must agree to 1e-4; bf16 must keep cosine >= 0.999 against the plain version
+computed from the same bf16 inputs, and a max abs error within one bf16 step
+(2**-7) of the largest reference value, which a uniformly scaled output fails.
+"""
+
+import pytest
+import torch
+
+from jimm_tpu_torch.ops import flash_attention as fa
+from jimm_tpu_torch.ops import layer_norm as ln
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    return torch.device("cuda")
+
+
+def _close(got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype) -> None:
+    got, want = got.float().flatten(), want.float().flatten()
+    assert torch.isfinite(got).all()
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-4
+    else:
+        cos = torch.nn.functional.cosine_similarity(got, want, dim=0)
+        assert cos.item() >= 0.999
+        peak = want.abs().max().item()
+        assert (got - want).abs().max().item() <= 2.0**-7 * peak + 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,f", [(1, 64), (7, 80), (300, 768),
+                                    (8192, 768), (3, 5000)])
+def test_layer_norm_kernel(card, rows, f, dtype):
+    g = torch.Generator(device=card).manual_seed(rows + f)
+    x = (torch.randn(rows, f, generator=g, device=card) * 3 + 0.5).to(dtype)
+    w = torch.randn(f, generator=g, device=card).to(dtype)
+    b = torch.randn(f, generator=g, device=card).to(dtype)
+    before = ln.launches
+    y, mu, rstd = ln.layer_norm_fwd(x, w, b, 1e-6)
+    torch.cuda.synchronize()
+    assert ln.launches == before + 1
+    want_y, want_mu, want_rstd = ln.layer_norm_plain(x, w, b, 1e-6)
+    assert y.dtype == dtype and mu.dtype == rstd.dtype == torch.float32
+    _close(y, want_y, dtype)
+    _close(mu, want_mu, torch.float32)
+    torch.testing.assert_close(rstd, want_rstd, atol=1e-4, rtol=1e-4)
+
+
+_FLASH = [((32, 256, 12, 64), 256, False),   # image self-attention
+          ((32, 1, 12, 64), 256, False),     # MAP probe
+          ((32, 64, 12, 64), 64, False),     # text self-attention
+          ((2, 5, 2, 80), 5, True), ((2, 257, 2, 64), 257, True),
+          ((2, 1, 2, 32), 257, False), ((2, 257, 2, 80), 257, False),
+          ((1, 70, 1, 256), 130, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qshape,sk,causal", _FLASH)
+def test_flash_attention_kernel(card, qshape, sk, causal, dtype):
+    g = torch.Generator(device=card).manual_seed(sum(qshape) + sk)
+    b, sq, n, d = qshape
+    q = torch.randn(b, sq, n, d, generator=g, device=card).to(dtype)
+    k, v = (torch.randn(b, sk, n, d, generator=g, device=card).to(dtype)
+            for _ in range(2))
+    before = fa.launches
+    o, lse = fa.flash_attention_lse(q, k, v, is_causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want_o, want_lse = fa.flash_attention_plain(q, k, v, is_causal=causal)
+    assert o.shape == q.shape and lse.shape == (b, n, sq)
+    _close(o, want_o, dtype)
+    # both widen bf16 to f32 exactly and run the softmax in f32
+    _close(lse, want_lse, torch.float32)
+
+
+def test_flash_reads_strided_views(card):
+    """fused q/k/v: strided views of one (B, S, 3, N, D) tensor, no copy."""
+    g = torch.Generator(device=card).manual_seed(5)
+    qkv = torch.randn(4, 100, 3 * 6 * 64, generator=g, device=card)
+    q, k, v = (t.reshape(4, 100, 6, 64) for t in qkv.chunk(3, dim=-1))
+    assert not q.is_contiguous()
+    o = fa.flash_attention(q, k, v)
+    _close(o, fa.flash_attention_plain(q, k, v)[0], torch.float32)
+
+
+def test_siglip_forward_on_the_card(card):
+    """A small SigLIP through both kernels matches the same model with the
+    attention and LayerNorm on the plain path."""
+    from jimm_tpu_torch import configs
+    from jimm_tpu_torch.models.siglip import SigLIP
+    cfg = configs.SigLIPConfig(
+        vision=configs.VisionConfig(image_size=64, patch_size=16, width=128,
+                                    depth=2, num_heads=2, mlp_dim=256,
+                                    act="gelu_tanh", pooling="map"))
+    kernels = SigLIP(configs.with_runtime(cfg, attn_impl="flash",
+                                          ln_impl="fused"), device=card)
+    plain = SigLIP(configs.with_runtime(cfg, attn_impl="xla",
+                                        ln_impl="xla"), device=card)
+    plain.load_state_dict(kernels.state_dict())
+    images = torch.randn(3, 64, 64, 3, device=card)
+    f0, l0 = fa.launches, ln.launches
+    with torch.no_grad():
+        got = kernels.encode_image(images)
+        want = plain.encode_image(images)
+    assert fa.launches - f0 == 3 and ln.launches - l0 == 4
+    _close(got, want, torch.float32)

@@ -1,0 +1,86 @@
+"""The port stands alone: `jimm_tpu_torch` and `chip_smoke.py` import
+nothing of JAX and nothing of `jimm_tpu`; entry points default to the card
+and refuse to carry on without it; the kernel build names sm_90a and every
+CUDA source."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from jimm_tpu_torch import _build, configs
+from jimm_tpu_torch.models.siglip import SigLIP
+from test_torch_siglip import tiny_config
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "jimm_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+MODULES = sorted(
+    ".".join(p.relative_to(REPO).with_suffix("").parts)
+    for p in (REPO / "jimm_tpu_torch").rglob("*.py")
+    if p.name != "__main__.py")
+
+
+def _forbidden(name: str) -> bool:
+    root = name.split(".")[0]
+    return root in ("jax", "jaxlib", "flax", "optax") or root == "jimm_tpu"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import importlib, sys\n"
+            f"for m in {MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
+            "                                    'optax', 'jimm_tpu'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert len(MODULES) >= 20
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_forbidden_import_in_source(path):
+    tree = ast.parse(path.read_text(), str(path))
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    assert not [n for n in names if _forbidden(n)], names
+
+
+def test_default_device_is_the_card():
+    cfg = tiny_config(configs)
+    if torch.cuda.is_available():
+        model = SigLIP(cfg)
+        assert next(model.parameters()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            SigLIP(cfg)
+    assert next(SigLIP(cfg, device="cpu").parameters()).device.type == "cpu"
+
+
+def test_serve_cli_defaults_to_the_card():
+    from jimm_tpu_torch.cli import build_parser
+    args = build_parser().parse_args(["serve"])
+    assert args.device == "cuda"
+    assert args.preset == "siglip-base-patch16-256"
+
+
+def test_build_command_names_sm90a_and_every_source():
+    out = REPO / "build" / "x.so"
+    cmd = _build.build_command(out)
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
+    cus = sorted(str(p) for p in (REPO / "jimm_tpu_torch" / "csrc").glob("*.cu"))
+    assert len(cus) == 2 and sorted(c for c in cmd if c.endswith(".cu")) == cus
+    assert _build.library_path().parent == REPO / "build" / "jimm_tpu_torch"
+    assert _build.library_path().name.startswith("libjimm_kernels_")

@@ -1,0 +1,143 @@
+"""The port's ops (`jimm_tpu_torch/ops`) against the JAX package's on the
+CPU. On a CPU tensor each kernel wrapper runs its plain version; the JAX
+side runs its Pallas kernels in interpret mode, as the JAX suite does.
+Inputs are made with numpy and handed to both."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from jimm_tpu.ops import activations as jax_acts
+from jimm_tpu.ops.attention import reference_attention as jax_reference
+from jimm_tpu.ops.flash_attention import flash_attention_lse as jax_flash_lse
+from jimm_tpu.ops.layer_norm import layer_norm as jax_layer_norm
+from jimm_tpu_torch.ops import activations, attention, flash_attention
+from jimm_tpu_torch.ops import layer_norm as ln_mod
+
+# f32 contract of both kernels: the JAX package states ~1e-5 against its
+# einsum oracle (ops/flash_attention.py:35-37, tests/test_layer_norm.py)
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("rows", [1, 7, 300])
+@pytest.mark.parametrize("f", [64, 80, 768])
+def test_layer_norm_matches_jax(rows, f):
+    rng = np.random.default_rng(rows * 1000 + f)
+    x = rng.standard_normal((rows, f), np.float32) * 3 + 0.5
+    scale = rng.standard_normal(f, np.float32)
+    bias = rng.standard_normal(f, np.float32)
+    want = np.asarray(jax_layer_norm(jnp.asarray(x), jnp.asarray(scale),
+                                     jnp.asarray(bias), 1e-6))
+    y, mu, rstd = ln_mod.layer_norm_fwd(_t(x), _t(scale), _t(bias), 1e-6)
+    np.testing.assert_allclose(y.numpy(), want, **TOL)
+    x64 = x.astype(np.float64)
+    np.testing.assert_allclose(mu.numpy(), x64.mean(1), **TOL)
+    np.testing.assert_allclose(rstd.numpy(), 1 / np.sqrt(x64.var(1) + 1e-6),
+                               **TOL)
+
+
+_ATTN_CASES = [(sq, sk, d, causal)
+               for sq, sk in [(1, 5), (5, 5), (1, 257), (257, 257)]
+               for d in (32, 64, 80)
+               for causal in ((False, True) if sq == sk else (False,))]
+
+
+@pytest.mark.parametrize("sq,sk,d,causal", _ATTN_CASES)
+def test_flash_attention_matches_jax(sq, sk, d, causal):
+    rng = np.random.default_rng(sq * 7 + sk * 13 + d + int(causal))
+    q, k, v = (rng.standard_normal((2, s, 2, d), np.float32)
+               for s in (sq, sk, sk))
+    # one jitted program per shape compiles faster than eager dispatch
+    want_o, want_lse = jax.jit(functools.partial(
+        jax_flash_lse, is_causal=causal))(jnp.asarray(q), jnp.asarray(k),
+                                          jnp.asarray(v))
+    o, lse = flash_attention.flash_attention_lse(_t(q), _t(k), _t(v),
+                                                 is_causal=causal)
+    assert o.shape == (2, sq, 2, d) and lse.shape == (2, 2, sq)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_reference_attention_matches_jax(causal, with_mask):
+    rng = np.random.default_rng(3)
+    q, k, v = (rng.standard_normal((2, 9, 2, 16), np.float32)
+               for _ in range(3))
+    mask = rng.random((2, 1, 1, 9)) > 0.3 if with_mask else None
+    mask_j = None if mask is None else jnp.asarray(mask)
+    mask_t = None if mask is None else torch.from_numpy(mask)
+    want = jax_reference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         is_causal=causal, mask=mask_j)
+    for impl in ("xla", "einsum", "auto"):
+        if impl == "auto" and with_mask:
+            continue  # "auto" is the plain path on the CPU, same as xla
+        got = attention.dot_product_attention(
+            _t(q), _t(k), _t(v), is_causal=causal, mask=mask_t, impl=impl)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_flash_impl_on_cpu_is_the_plain_flash():
+    rng = np.random.default_rng(4)
+    q, k, v = (_t(rng.standard_normal((1, 5, 2, 8), np.float32))
+               for _ in range(3))
+    before = flash_attention.launches
+    got = attention.dot_product_attention(q, k, v, impl="flash")
+    want = flash_attention.flash_attention_plain(q, k, v)[0]
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert flash_attention.launches == before  # no kernel on the CPU
+
+
+@pytest.mark.parametrize("impl", ["flash_masked", "flash_bias", "sigmoid",
+                                  "flash_int8", "ring", "ulysses",
+                                  "saveable"])
+def test_unported_attention_impls_name_the_roadmap(impl):
+    q = torch.zeros(1, 4, 1, 8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        attention.dot_product_attention(q, q, q, impl=impl)
+
+
+@pytest.mark.parametrize("kw", [{"mask": torch.ones(1, 4, dtype=torch.bool)},
+                                {"bias": torch.zeros(1, 4, 4)}])
+def test_flash_with_mask_or_bias_names_the_roadmap(kw):
+    q = torch.zeros(1, 4, 1, 8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        attention.dot_product_attention(q, q, q, impl="flash", **kw)
+
+
+@pytest.mark.parametrize("name", ["gelu", "gelu_tanh", "gelu_pytorch_tanh",
+                                  "gelu_new", "quick_gelu", "relu", "silu"])
+def test_activations_match_jax(name):
+    x = np.linspace(-6, 6, 1001, dtype=np.float32)
+    want = np.asarray(jax_acts.get_activation(name)(jnp.asarray(x)))
+    got = activations.get_activation(name)(_t(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-6)
+
+
+def test_unknown_activation_warns_and_falls_back_to_gelu_tanh():
+    with pytest.warns(UserWarning, match="unknown activation"):
+        fn = activations.get_activation("nope")
+    assert fn is activations.gelu_tanh
+
+
+@pytest.mark.parametrize("wrapper", ["layer_norm", "flash"])
+def test_wrappers_refuse_other_devices(wrapper):
+    # a tensor that is neither on the CPU nor on the card gets no kernel and
+    # no plain fallback: the wrapper raises
+    if wrapper == "layer_norm":
+        x = torch.empty(4, 8, device="meta")
+        w = torch.empty(8, device="meta")
+        call = lambda: ln_mod.layer_norm(x, w, w)  # noqa: E731
+    else:
+        q = torch.empty(1, 4, 1, 8, device="meta")
+        call = lambda: flash_attention.flash_attention(q, q, q)  # noqa: E731
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        call()
