@@ -9,10 +9,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 2. build    -- compiles every kernel of ``jimm_tpu_torch/csrc`` with nvcc for
                sm_90a (``jimm_tpu_torch/_build.py``).
 3. kernels  -- each kernel against its plain PyTorch version on the card, at
-               the served shapes and some odd ones, in f32 (max abs error
-               <= 1e-4, TF32 off) and bf16 (cosine >= 0.999 and max abs
-               error <= 2**-7 of the largest reference value, about one
-               bf16 step); reports the
+               the served and trained shapes and some odd ones, forward and
+               backward, in f32 (max abs error <= 1e-4, relative to the
+               reference's scale for the backward, TF32 off) and bf16
+               (cosine >= 0.999 and max abs error <= 2**-7 of the largest
+               reference value, about one bf16 step; a bf16 reference that
+               is zero up to rounding, max abs error <= 1e-5); reports the
                device time (profiler) of the kernel, of the plain version
                and of one PyTorch library call that computes the same
                function (a yardstick the port never calls), the kernel's
@@ -29,6 +31,25 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                and 24 LayerNorm launches per dispatched batch. Then the
                forward's time per bucket, its device-busy share, and the
                kernels of a bucket-32 forward by device time.
+5. train    -- SigLIP-B/16-256 at full width, the contrastive train step of
+               ``python -m jimm_tpu_torch train``: (a) in f32 at batch 8, the
+               gradients of one step through the kernels must match those
+               with the plain versions swapped in (every parameter within
+               1e-3 of its largest value, or of 1e-3 of the model's largest
+               for a gradient that is zero in exact arithmetic); (b) in
+               bf16 at batch 128 (the benchmark's batch), fused LayerNorm
+               and flash attention, one
+               fixed synthetic batch repeated: warm-up steps, then timed
+               steps whose loss must stay finite and fall, with 25 flash and
+               48 LayerNorm launches forward and backward per step. Prints
+               the step time, images/s, MFU against 989 TFLOP/s, peak
+               memory, and the device-busy share and top kernels of one
+               profiled step; (c) the ``train`` command itself, in this
+               process: ``train --preset siglip-base-patch16-256 --bf16
+               --ln-impl fused --batch-size 128`` for a few steps on its
+               synthetic pairs, whose metric lines must show a finite loss
+               and an MFU, with the same launches per step. Its launch
+               counts are the ones the kernels' JSON record reports.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -38,10 +59,13 @@ from __future__ import annotations
 
 import base64
 import contextlib
+import io
 import json
 import math
+import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
@@ -52,7 +76,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd import DeviceType
 
-from jimm_tpu_torch import _build, configs
+from jimm_tpu_torch import _build, cli, configs
 from jimm_tpu_torch.models.siglip import SigLIP
 from jimm_tpu_torch.nn import norm as norm_mod
 from jimm_tpu_torch.ops import attention as attention_mod
@@ -62,6 +86,10 @@ from jimm_tpu_torch.serve.admission import AdmissionPolicy
 from jimm_tpu_torch.serve.buckets import BucketTable
 from jimm_tpu_torch.serve.engine import InferenceEngine, image_forward
 from jimm_tpu_torch.serve.server import ServingServer
+from jimm_tpu_torch.train.metrics import mfu, train_step_flops
+from jimm_tpu_torch.train.trainer import (OptimizerConfig, contrastive_loss_fn,
+                                          make_contrastive_train_step,
+                                          make_optimizer)
 
 #: H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -69,10 +97,20 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 F32_MAX_ERR = 1e-4
 BF16_MIN_COS = 0.999
 BF16_REL_ERR = 2.0**-7  # one bf16 step relative to the largest value
+#: a bf16 reference that is zero up to rounding (attention over one key):
+#: both sides return ~1e-7 there on the card
+ZERO_REF_ABS_ERR = 1e-5
 SERVE_MIN_COS = 0.999
 SERVE_NORM_RTOL = 1e-2
 FLASH_PER_BATCH = 13   # 12 encoder blocks + the MAP probe
 LN_PER_BATCH = 24      # ln1 + ln2 of 12 blocks (ln_post, head ln: plain LN)
+FLASH_PER_STEP = 25    # 12 vision blocks + the MAP probe + 12 text blocks
+LN_PER_STEP = 48       # ln1 + ln2 of 24 blocks (ln_post, head, ln_final: plain)
+TRAIN_GRAD_REL_ERR = 1e-3
+TRAIN_BATCH = 128
+TRAIN_WARMUP = 3
+TRAIN_STEPS = 10
+CLI_STEPS = 5
 
 
 class SmokeFailure(Exception):
@@ -150,12 +188,27 @@ def compare(got: torch.Tensor, want: torch.Tensor
     return err, cos, want.abs().max().item()
 
 
-def within(dtype: torch.dtype, err: float, cos: float, peak: float) -> bool:
-    """f32: max abs error; bf16: cosine, and max abs error relative to the
-    largest reference value, which a uniformly scaled output fails."""
+def within(dtype: torch.dtype, err: float, cos: float, peak: float,
+           relative: bool = False) -> bool:
+    """f32: max abs error (relative to the reference's scale, at least 1,
+    when ``relative``: a gradient summed over 32768 rows is in the
+    hundreds); bf16: cosine, and max abs error relative to the largest
+    reference value, which a uniformly scaled output fails. A bf16
+    reference that is zero up to rounding (attention over one key:
+    dq = dk = 0) has no direction to compare: it is held to an absolute
+    bound a hundred times the rounding seen there."""
     if dtype == torch.float32:
-        return err <= F32_MAX_ERR
+        return err <= F32_MAX_ERR * (max(1.0, peak) if relative else 1.0)
+    if peak <= 1e-6:
+        return err <= ZERO_REF_ABS_ERR
     return cos >= BF16_MIN_COS and err <= BF16_REL_ERR * peak + 1e-6
+
+
+def grad_ms(outputs: torch.Tensor, inputs: tuple[torch.Tensor, ...],
+            cotangent: torch.Tensor):
+    """A call that runs the library's backward of ``outputs`` (kept graph)."""
+    return lambda: torch.autograd.grad(outputs, inputs, cotangent,
+                                       retain_graph=True)
 
 
 # -- phase 3: kernels --------------------------------------------------------
@@ -218,33 +271,126 @@ def flash_case(qshape: tuple[int, int, int, int], sk: int, causal: bool,
             "bound_ms": bound, "bound_by": by}
 
 
+def ln_bwd_case(rows: int, f: int, dtype: torch.dtype, seed: int) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(rows, f, generator=g, device="cuda") * 2 + 0.5).to(dtype)
+    w = torch.randn(f, generator=g, device="cuda").to(dtype)
+    dy = torch.randn(rows, f, generator=g, device="cuda").to(dtype)
+    _, mu, rstd = ln.layer_norm_plain(x, w, w, 1e-6)
+    got = ln.layer_norm_bwd(x, w, mu, rstd, dy)
+    torch.cuda.synchronize()
+    want = ln.layer_norm_bwd_plain(x, w, mu, rstd, dy)
+    errs = [compare(a, b) for a, b in zip(got, want)]
+    check(all(within(dtype, *e, relative=True) for e in errs),
+          f"layer_norm_bwd ({rows}, {f}) {dtype}: (err, cos, peak) of dx, "
+          f"dscale, dbias {errs}")
+    nbytes = (sum(t.nbytes for t in (x, w, mu, rstd, dy)) + sum(
+        t.nbytes for t in got))
+    bound, by = bound_ms(nbytes, 10.0 * rows * f, dtype)
+    xl, wl, bl = (t.detach().clone().requires_grad_() for t in (x, w, w))
+    yl = F.layer_norm(xl, (f,), wl, bl, 1e-6)
+    return {"shape": f"({rows}, {f})", "dtype": str(dtype)[6:],
+            "max_abs_err": max(e[0] for e in errs),
+            "cosine": min(e[1] for e in errs),
+            "ms": device_ms(lambda: ln.layer_norm_bwd(x, w, mu, rstd, dy)),
+            "call_ms": cuda_ms(lambda: ln.layer_norm_bwd(x, w, mu, rstd, dy)),
+            "plain_ms": device_ms(lambda: ln.layer_norm_bwd_plain(
+                x, w, mu, rstd, dy)),
+            "library_ms": device_ms(grad_ms(yl, (xl, wl, bl), dy)),
+            "bound_ms": bound, "bound_by": by}
+
+
+def flash_bwd_case(qshape: tuple[int, int, int, int], sk: int, causal: bool,
+                   dtype: torch.dtype, seed: int) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, sq, n, d = qshape
+    q, do = (torch.randn(b, sq, n, d, generator=g, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, sk, n, d, generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    o, lse = fa.flash_attention_plain(q, k, v, is_causal=causal)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, is_causal=causal)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                        is_causal=causal)
+    errs = [compare(a, w) for a, w in zip(got, want)]
+    check(all(within(dtype, *e, relative=True) for e in errs),
+          f"flash_bwd {qshape} sk={sk} causal={causal} {dtype}: (err, cos, "
+          f"peak) of dq, dk, dv {errs}")
+    pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk)
+    # five products: s and dp recomputed, then dv, dq, dk
+    flops = 10.0 * b * n * pairs * d
+    nbytes = (sum(t.nbytes for t in (q, k, v, o, lse, do)) + lse.nbytes
+              + sum(t.nbytes for t in got))  # lse.nbytes again: delta
+    bound, by = bound_ms(nbytes, flops, dtype)
+    qt, kt, vt = (t.transpose(1, 2).detach().clone().requires_grad_()
+                  for t in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+    def kernel():
+        return fa.flash_attention_bwd(q, k, v, o, lse, do, is_causal=causal)
+
+    return {"shape": f"q{qshape} sk={sk}" + (" causal" if causal else ""),
+            "dtype": str(dtype)[6:], "max_abs_err": max(e[0] for e in errs),
+            "cosine": min(e[1] for e in errs),
+            "ms": device_ms(kernel), "call_ms": cuda_ms(kernel),
+            "plain_ms": device_ms(lambda: fa.flash_attention_bwd_plain(
+                q, k, v, o, lse, do, is_causal=causal)),
+            "library_ms": device_ms(grad_ms(ot, (qt, kt, vt),
+                                            do.transpose(1, 2))),
+            "bound_ms": bound, "bound_by": by}
+
+
 def kernel_phase(card: str) -> dict[str, dict]:
-    """Runs every case; returns the served-shape bf16 case of each kernel."""
+    """Runs every case; returns the first case of each kernel (bf16, at the
+    shape of its main path)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     cases = []
-    for dtype in (torch.bfloat16, torch.float32):
-        cases.append(("layer_norm", ln_case(8192, 768, dtype, 1)))
-        cases.append(("layer_norm", ln_case(7, 80, dtype, 2)))
-        for i, (qshape, sk, causal) in enumerate([
-                ((32, 256, 12, 64), 256, False),   # image self-attention
-                ((32, 1, 12, 64), 256, False),     # MAP probe
-                ((32, 64, 12, 64), 64, False),     # text self-attention
-                ((2, 5, 2, 80), 5, False), ((2, 5, 2, 80), 5, True),
-                ((2, 257, 2, 64), 257, True), ((2, 257, 2, 80), 257, False),
-                ((2, 1, 2, 80), 257, False)]):
-            cases.append(("flash_attention",
-                          flash_case(qshape, sk, causal, dtype, 10 + i)))
-    for name, c in cases:
+
+    def add(name: str, c: dict) -> None:
+        cases.append((name, c))
         print(f"kernel {name} {c['shape']} {c['dtype']}: max_abs_err "
               f"{c['max_abs_err']:.3e} cosine {c['cosine']:.6f} | device "
               f"time: kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
               f"library {c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} "
               f"ms ({c['bound_by']}); kernel per call {c['call_ms']:.4f} ms "
               f"| {card}", flush=True)
-    return {"layer_norm": cases[0][1], "flash_attention": cases[2][1],
-            "flash_probe": cases[3][1], "flash_text": cases[4][1]}
+
+    for dtype in (torch.bfloat16, torch.float32):
+        # the served shapes (batch 32), the train step's (batch 128), odd ones
+        add("layer_norm", ln_case(8192, 768, dtype, 1))
+        add("layer_norm", ln_case(32768, 768, dtype, 5))
+        add("layer_norm", ln_case(7, 80, dtype, 2))
+        for i, (qshape, sk, causal) in enumerate([
+                ((32, 256, 12, 64), 256, False),   # image self-attention
+                ((32, 1, 12, 64), 256, False),     # MAP probe
+                ((32, 64, 12, 64), 64, False),     # text self-attention
+                ((128, 256, 12, 64), 256, False),
+                ((128, 1, 12, 64), 256, False),
+                ((128, 64, 12, 64), 64, False),
+                ((2, 5, 2, 80), 5, False), ((2, 5, 2, 80), 5, True),
+                ((2, 257, 2, 64), 257, True), ((2, 257, 2, 80), 257, False),
+                ((2, 1, 2, 80), 257, False)]):
+            add("flash_attention",
+                flash_case(qshape, sk, causal, dtype, 10 + i))
+        # the train step's shapes (batch 128) and odd ones, backward
+        add("layer_norm_bwd", ln_bwd_case(32768, 768, dtype, 3))
+        add("layer_norm_bwd", ln_bwd_case(7, 80, dtype, 4))
+        for i, (qshape, sk, causal) in enumerate([
+                ((128, 256, 12, 64), 256, False),  # image self-attention
+                ((128, 1, 12, 64), 256, False),    # MAP probe
+                ((128, 64, 12, 64), 64, False),    # text self-attention
+                ((2, 1, 2, 64), 1, False), ((2, 5, 2, 80), 5, True),
+                ((2, 257, 2, 64), 257, True), ((2, 257, 2, 80), 257, False),
+                ((2, 1, 2, 80), 257, False), ((1, 70, 1, 256), 130, True)]):
+            add("flash_attention_bwd",
+                flash_bwd_case(qshape, sk, causal, dtype, 30 + i))
+    first = {}
+    for name, c in cases:  # the first case of each kernel: bf16, main shape
+        first.setdefault(name, c)
+    return first
 
 
 # -- phase 4: serve ----------------------------------------------------------
@@ -292,8 +438,7 @@ def serve_phase(card: str) -> dict:
     bulk = {"images": [_b64(img) for img in images[48:]]}
     try:
         torch.cuda.reset_peak_memory_stats()
-        fa.launches = 0
-        ln.launches = 0
+        fa.launches = fa.bwd_launches = ln.launches = ln.bwd_launches = 0
         t_start = time.perf_counter()
         with ThreadPoolExecutor(16) as pool:
             answers = list(pool.map(lambda p: _post(server.port, p), singles))
@@ -301,6 +446,7 @@ def serve_phase(card: str) -> dict:
         bulk_s, bulk_out = _post(server.port, bulk)
         t_end = time.perf_counter()
         flash_n, ln_n = fa.launches, ln.launches
+        bwd_n = fa.bwd_launches + ln.bwd_launches
         batches = engine.metrics.count("batches_total")
         peak = torch.cuda.max_memory_allocated()
     finally:
@@ -314,6 +460,7 @@ def serve_phase(card: str) -> dict:
           and ln_n == LN_PER_BATCH * batches,
           f"launch counts: {flash_n} flash, {ln_n} layer_norm over "
           f"{batches} batches")
+    check(bwd_n == 0, f"serving launched {bwd_n} backward kernels")
     print(f"serve: {batches} batches dispatched; launches flash {flash_n} "
           f"= {FLASH_PER_BATCH}/batch, layer_norm {ln_n} = "
           f"{LN_PER_BATCH}/batch", flush=True)
@@ -404,6 +551,179 @@ def forward_readout(model: SigLIP, batch: torch.Tensor, card: str) -> None:
               f"x{count:<4d} {key[:90]}", flush=True)
 
 
+# -- phase 5: train ----------------------------------------------------------
+
+def _train_model(dtype: torch.dtype) -> SigLIP:
+    cfg = configs.with_runtime(configs.preset("siglip-base-patch16-256"),
+                               ln_impl="fused")
+    check(cfg.vision.attn_impl == "auto", "preset attn_impl changed")
+    return SigLIP(cfg, device="cuda", dtype=dtype,
+                  generator=torch.Generator(device="cuda").manual_seed(0))
+
+
+def _batch(cfg, batch: int, dtype: torch.dtype, seed: int
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One synthetic batch as ``bench.py`` makes it: normal images, tokens
+    in [1, vocab)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    size = cfg.vision.image_size
+    images = torch.randn(batch, size, size, 3, generator=g,
+                         device="cuda").to(dtype)
+    text = torch.randint(1, cfg.text.vocab_size,
+                         (batch, cfg.text.context_length), generator=g,
+                         device="cuda")
+    return images, text
+
+
+def train_grads_phase(card: str) -> None:
+    """(a) f32, batch 8: one step's gradients through the kernels against
+    the same step with the plain versions swapped in."""
+    model = _train_model(torch.float32)
+    images, text = _batch(model.config, 8, torch.float32, 1)
+    fa.bwd_launches = ln.bwd_launches = 0
+    contrastive_loss_fn(model, images, text, kind="siglip").backward()
+    check(fa.bwd_launches == FLASH_PER_STEP and ln.bwd_launches == LN_PER_STEP,
+          f"f32 step: {fa.bwd_launches} flash and {ln.bwd_launches} "
+          f"layer_norm backward launches")
+    got = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    with plain_versions():
+        contrastive_loss_fn(model, images, text, kind="siglip").backward()
+    check(fa.bwd_launches == FLASH_PER_STEP and ln.bwd_launches == LN_PER_STEP,
+          "the plain-version step launched a backward kernel")
+    worst = (0.0, "")
+    params = dict(model.named_parameters())
+    check(all(got[n] is not None and p.grad is not None
+              for n, p in params.items()), "a parameter got no gradient")
+    # a gradient that is zero in exact arithmetic (the k-projection bias:
+    # softmax does not see a per-row shift of the scores) is held to 1e-3 of
+    # the model's largest gradient instead of its own
+    floor = 1e-3 * max(p.grad.abs().max().item() for p in params.values())
+    for name, p in params.items():
+        check(bool(torch.isfinite(got[name]).all()),
+              f"non-finite gradient for {name}")
+        peak = max(p.grad.abs().max().item(), floor)
+        rel = (got[name] - p.grad).abs().max().item() / peak
+        check(rel <= TRAIN_GRAD_REL_ERR,
+              f"f32 gradient of {name}: max abs error {rel:.3e} of its "
+              f"largest value")
+        worst = max(worst, (rel, name))
+    print(f"train: f32 batch 8, {len(got)} parameter gradients through the "
+          f"kernels match the plain versions; worst max abs error "
+          f"{worst[0]:.3e} of the largest value ({worst[1]}) | {card}",
+          flush=True)
+
+
+def train_phase(card: str) -> dict[str, int]:
+    """(b) bf16, batch 128: the train step's speed and launch counts."""
+    model = _train_model(torch.bfloat16)
+    cfg = model.config
+    optimizer = make_optimizer(model, OptimizerConfig(learning_rate=1e-3))
+    step = make_contrastive_train_step("siglip")
+    images, text = _batch(cfg, TRAIN_BATCH, torch.bfloat16, 2)
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(model, optimizer, images, text)["loss"]
+              for _ in range(TRAIN_WARMUP)]
+    float(model.logit_scale.detach())
+    counts = {"flash_attention": 0, "flash_attention_bwd": 0,
+              "layer_norm": 0, "layer_norm_bwd": 0}
+    fa.launches = fa.bwd_launches = ln.launches = ln.bwd_launches = 0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        losses.append(step(model, optimizer, images, text)["loss"])
+    # logit_scale depends on the last update: the chain has finished
+    float(model.logit_scale.detach())
+    dt = (time.perf_counter() - t0) / TRAIN_STEPS
+    counts.update(flash_attention=fa.launches, flash_attention_bwd=fa.bwd_launches,
+                  layer_norm=ln.launches, layer_norm_bwd=ln.bwd_launches)
+    want = {"flash_attention": FLASH_PER_STEP, "flash_attention_bwd":
+            FLASH_PER_STEP, "layer_norm": LN_PER_STEP,
+            "layer_norm_bwd": LN_PER_STEP}
+    check(all(counts[k] == want[k] * TRAIN_STEPS for k in want),
+          f"train launch counts over {TRAIN_STEPS} steps: {counts}")
+    loss = torch.stack(losses).float().cpu()
+    check(bool(torch.isfinite(loss).all()), f"non-finite loss: {loss}")
+    check(loss[-1] < loss[0], f"loss did not fall: {loss.tolist()}")
+    peak = torch.cuda.max_memory_allocated()
+    flops = train_step_flops(cfg, TRAIN_BATCH)
+    print(f"train: bf16 batch {TRAIN_BATCH}, {TRAIN_STEPS} timed steps after "
+          f"{TRAIN_WARMUP} warm-up: launches per step flash "
+          f"{counts['flash_attention'] // TRAIN_STEPS} fwd + "
+          f"{counts['flash_attention_bwd'] // TRAIN_STEPS} bwd, layer_norm "
+          f"{counts['layer_norm'] // TRAIN_STEPS} fwd + "
+          f"{counts['layer_norm_bwd'] // TRAIN_STEPS} bwd", flush=True)
+    print(f"train: loss {loss[0].item():.4f} at step 0 -> "
+          f"{loss[-1].item():.4f} after step {len(losses) - 1}", flush=True)
+    print(f"train: step {dt * 1e3:.3f} ms, {TRAIN_BATCH / dt:.1f} images/s, "
+          f"MFU {mfu(flops, dt, 989.0):.4f} of 989 TFLOP/s "
+          f"({flops / 1e12:.3f} TFLOP a step), torch.cuda.max_memory_allocated "
+          f"{peak} bytes ({peak / 2**30:.2f} GiB) | {card}", flush=True)
+    step_readout(model, optimizer, step, images, text, card)
+    return counts
+
+
+def step_readout(model, optimizer, step, images, text, card: str) -> None:
+    """Device-busy share of one profiled train step and its top kernels."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(model, optimizer, images, text)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in _device_rows(prof)), reverse=True)
+    total = sum(r[0] for r in rows)
+    if not total:
+        print("profile: the trace of a train step recorded no device time",
+              flush=True)
+        return
+    print(f"profile: one train step, {total / 1e3:.3f} ms of kernel time in "
+          f"{wall * 1e3:.3f} ms wall (device busy {total / 1e3 / (wall * 1e3):.1%}"
+          f", traced) | {card}", flush=True)
+    for us, count, key in rows[:12]:
+        print(f"profile:   {us / 1e3:8.3f} ms {100 * us / total:5.1f}% "
+              f"x{count:<4d} {key[:90]}", flush=True)
+
+
+def cli_train_phase(card: str) -> dict[str, int]:
+    """(c) The ``train`` command, run in this process so that its launches
+    can be counted: the counters are zeroed just before it and read just
+    after. Its JSON lines are printed with a ``cli:`` prefix."""
+    argv = ["train", "--preset", "siglip-base-patch16-256", "--bf16",
+            "--ln-impl", "fused", "--steps", str(CLI_STEPS), "--batch-size",
+            str(TRAIN_BATCH), "--log-every", "1"]
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "metrics.jsonl"
+        fa.launches = fa.bwd_launches = ln.launches = ln.bwd_launches = 0
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv + ["--metrics-file", str(path)])
+        counts = {"flash_attention": fa.launches,
+                  "flash_attention_bwd": fa.bwd_launches,
+                  "layer_norm": ln.launches, "layer_norm_bwd": ln.bwd_launches}
+        logged = [json.loads(line) for line in path.read_text().splitlines()]
+    printed = out.getvalue().splitlines()
+    for line in printed:
+        print(f"cli: {line} | {card}", flush=True)
+    summary = json.loads(printed[-1])
+    check(rc == 0 and summary.get("status") == "trained"
+          and summary.get("device", "").startswith("cuda"),
+          f"python -m jimm_tpu_torch {' '.join(argv)}: rc {rc}, {summary}")
+    check([r["step"] for r in logged] == list(range(CLI_STEPS)),
+          f"train command logged steps {[r['step'] for r in logged]}")
+    check(all(math.isfinite(r["loss"]) and r["mfu"] is not None
+              for r in logged), f"train command metrics: {logged}")
+    want = {"flash_attention": FLASH_PER_STEP, "flash_attention_bwd":
+            FLASH_PER_STEP, "layer_norm": LN_PER_STEP,
+            "layer_norm_bwd": LN_PER_STEP}
+    check(all(counts[k] == want[k] * CLI_STEPS for k in want),
+          f"train command launch counts over {CLI_STEPS} steps: {counts}")
+    print(f"cli: train command, {CLI_STEPS} steps at batch {TRAIN_BATCH}: "
+          f"launches {counts} | {card}", flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -424,26 +744,38 @@ def main() -> int:
               f"{'found' if built else 'built'} in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         timed = kernel_phase(card)
-        launches = serve_phase(card)
+        serve_counts = serve_phase(card)
+        train_grads_phase(card)
+        train_phase(card)
+        train_counts = cli_train_phase(card)
         check(all(math.isfinite(timed[k]["ms"]) for k in timed), "bad timing")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
         return 1
-    sources = {"layer_norm": ("jimm_tpu_torch/csrc/layer_norm.cu",
-                              "jimm_tpu/ops/layer_norm.py:52"),
-               "flash_attention": ("jimm_tpu_torch/csrc/flash_attention.cu",
-                                   "jimm_tpu/ops/flash_attention.py:136")}
+    sources = {
+        "layer_norm": ("jimm_tpu_torch/csrc/layer_norm.cu",
+                       "jimm_tpu/ops/layer_norm.py:52"),
+        "layer_norm_bwd": ("jimm_tpu_torch/csrc/layer_norm_bwd.cu",
+                           "jimm_tpu/ops/layer_norm.py:76"),
+        "flash_attention": ("jimm_tpu_torch/csrc/flash_attention.cu",
+                            "jimm_tpu/ops/flash_attention.py:136"),
+        "flash_attention_bwd": ("jimm_tpu_torch/csrc/flash_attention_bwd.cu",
+                                "jimm_tpu/ops/flash_attention.py:241,293")}
     record = []
     for kernel, (source, replaces) in sources.items():
         c = timed[kernel]
-        record.append({"name": kernel, "route": "cuda", "source": source,
-                       "replaces": replaces, "launches": launches[kernel],
-                       "max_abs_err": c["max_abs_err"], "ms": c["ms"],
-                       "call_ms": c["call_ms"],
-                       "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-                       "bound_by": c["bound_by"],
-                       "library_ms": c["library_ms"], "shape": c["shape"],
-                       "dtype": c["dtype"]})
+        entry = {"name": kernel, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": train_counts[kernel],
+                 "launches_per_train_step": train_counts[kernel] // CLI_STEPS,
+                 "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+                 "call_ms": c["call_ms"], "plain_ms": c["plain_ms"],
+                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                 "library_ms": c["library_ms"], "shape": c["shape"],
+                 "dtype": c["dtype"]}
+        if kernel in serve_counts:
+            entry["serve_launches"] = serve_counts[kernel]
+            entry["serve_batches"] = serve_counts["batches"]
+        record.append(entry)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {

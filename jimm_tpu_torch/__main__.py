@@ -1,4 +1,4 @@
-"""``python -m jimm_tpu_torch serve ...``"""
+"""``python -m jimm_tpu_torch serve|train ...``"""
 
 from jimm_tpu_torch.cli import main
 

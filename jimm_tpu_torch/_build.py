@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 Every kernel lives in ``jimm_tpu_torch/csrc/*.cu`` behind a plain C
-interface. At first use this module compiles all of them with ``nvcc`` for
-``sm_90a`` into one shared library named after a hash of the sources,
+interface. At first use this module compiles each source with its own
+``nvcc`` for ``sm_90a``, all of them at once, links the objects into one
+shared library named after a hash of the sources,
 ``build/jimm_tpu_torch/libjimm_kernels_<hash>.so`` beside the package, and
 loads it with ``ctypes``. An edited source gets a new hash and is rebuilt; an
 unchanged one is loaded as built. A failed build raises with nvcc's stderr.
@@ -15,12 +16,14 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import pathlib
 import shutil
 import subprocess
 import tempfile
 import threading
+import time
 
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -36,7 +39,10 @@ _L = ctypes.c_longlong
 #: c_void_p, or ctypes would pass it as a 32-bit int and cut it
 _SIGNATURES = {
     "jimm_layer_norm_fwd": [_P] * 6 + [_L, _I, ctypes.c_float, _I, _P],
+    "jimm_layer_norm_bwd": [_P] * 8 + [_L, _I, _I, _I, _P],
     "jimm_flash_attention_fwd": ([_P] * 5 + [_I] * 5 + [_L] * 9
+                                 + [ctypes.c_float, _I, _I, _P]),
+    "jimm_flash_attention_bwd": ([_P] * 9 + [_I] * 5 + [_L] * 12
                                  + [ctypes.c_float, _I, _I, _P]),
 }
 
@@ -70,32 +76,60 @@ def nvcc() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
-def build_command(out: pathlib.Path) -> list[str]:
-    return [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(out),
-            *(str(p) for p in sources())]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
+
+
+def compile_commands(obj_dir: pathlib.Path
+                     ) -> list[tuple[list[str], pathlib.Path]]:
+    """One ``nvcc -c`` per source, with the object it writes."""
+    out = []
+    for src in sources():
+        obj = obj_dir / (src.stem + ".o")
+        out.append(([nvcc(), *_ARCH, "-Xcompiler", "-fPIC", "-c", "-o",
+                     str(obj), str(src)], obj))
+    return out
+
+
+def link_command(objs: list[pathlib.Path], out: pathlib.Path) -> list[str]:
+    return [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+            "-o", str(out), *(str(o) for o in objs)]
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands at once; raise with nvcc's stderr if any fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    errors = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{cmd[-1]}: nvcc failed ({proc.returncode}):\n"
+                          f"{err}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def _compile(out: pathlib.Path) -> None:
+    """The sources compile in parallel into a temporary directory beside
+    ``out``, and the linked library is renamed into place, so a concurrent
+    build or a killed one never leaves a torn library."""
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        tmp_dir = pathlib.Path(tmp)
+        compiles = compile_commands(tmp_dir)
+        _run_all([cmd for cmd, _ in compiles])
+        lib = tmp_dir / out.name
+        _run_all([link_command([obj for _, obj in compiles], lib)])
+        os.replace(lib, out)
 
 
 def build() -> pathlib.Path:
-    """Compile the library unless this exact source set is already built.
-    The output is written under a temporary name and renamed into place, so
-    a concurrent build or a killed one never leaves a torn library."""
+    """Compile the library unless this exact source set is already built."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(build_command(pathlib.Path(tmp)),
-                              capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    _compile(out)
     return out
 
 
@@ -118,3 +152,28 @@ def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
                            f"{rc}")
+
+
+def time_builds() -> None:
+    """Times the parallel build against one ``nvcc -shared`` over every
+    source, on the same sources, in the order one, parallel, parallel, one,
+    into a temporary directory; prints one JSON line per build."""
+    one = [nvcc(), *_ARCH, "-shared", "-Xcompiler", "-fPIC", "-o"]
+    with tempfile.TemporaryDirectory() as tmp:
+        for way in ("one_nvcc", "parallel", "parallel", "one_nvcc"):
+            out = pathlib.Path(tmp) / f"{way}.so"
+            t0 = time.perf_counter()
+            if way == "parallel":
+                _compile(out)
+            else:
+                _run_all([one + [str(out), *(str(p) for p in sources())]])
+            print(json.dumps({"build": way, "sources": len(sources()),
+                              "cpus": os.cpu_count(),
+                              "seconds": time.perf_counter() - t0}),
+                  flush=True)
+            out.unlink()
+
+
+if __name__ == "__main__":
+    # python -m jimm_tpu_torch._build: times the two ways to build
+    time_builds()

@@ -1,10 +1,15 @@
-"""Command line: ``python -m jimm_tpu_torch serve``.
+"""Command line: ``python -m jimm_tpu_torch serve|train``.
 
-Builds a SigLIP model from a preset (randomly initialised from a seeded
-generator; checkpoint loading comes with HF IO, ROADMAP.md), puts its
+``serve`` builds a SigLIP model from a preset (randomly initialised from a
+seeded generator; checkpoint loading comes with HF IO, ROADMAP.md), puts its
 ``encode_image`` behind the micro-batching engine and the HTTP front end,
 warms every bucket, and prints one JSON ready line with
 ``"status": "serving"``.
+
+``train`` trains a SigLIP preset contrastively on synthetic pairs
+(``data/synthetic.py``) with AdamW, clipping and the warmup-cosine schedule
+of the JAX package's ``train`` command, printing one JSON metrics line per
+logged step and a JSON summary line at the end.
 """
 
 from __future__ import annotations
@@ -16,12 +21,19 @@ import time
 
 import torch
 
-from jimm_tpu_torch.configs import PRESETS, SigLIPConfig, preset
-from jimm_tpu_torch.models.siglip import SigLIP
+from jimm_tpu_torch.configs import PRESETS, SigLIPConfig, preset, with_runtime
+from jimm_tpu_torch.data.synthetic import contrastive_pairs
+from jimm_tpu_torch.models.siglip import SigLIP, _resolve_device
 from jimm_tpu_torch.serve.admission import AdmissionPolicy
 from jimm_tpu_torch.serve.buckets import BucketTable, default_buckets
 from jimm_tpu_torch.serve.engine import InferenceEngine, image_forward
 from jimm_tpu_torch.serve.server import ServingServer
+from jimm_tpu_torch.train.metrics import (MetricsLogger, StepTimer,
+                                          device_peak_tflops, mfu,
+                                          train_step_flops)
+from jimm_tpu_torch.train.trainer import (OptimizerConfig,
+                                          make_contrastive_train_step,
+                                          make_optimizer)
 
 _DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -74,6 +86,79 @@ def cmd_serve(args: argparse.Namespace) -> int:
     return 0
 
 
+#: train flags of the JAX CLI that the port does not have yet -> where the
+#: ROADMAP queues them
+_TRAIN_NOT_PORTED = {
+    "data": "file datasets, ROADMAP.md queue 1, item 7 (data)",
+    "ckpt_dir": "checkpoints, ROADMAP.md queue 1, item 4",
+    "resume": "checkpoints, ROADMAP.md queue 1, item 4",
+    "mesh": "device meshes, ROADMAP.md queue 1, item 6 (parallelism)",
+    "remat": "remat policies, ROADMAP.md queue 1, item 3 (training, rest)",
+    "dropout": "dropout, ROADMAP.md queue 1, item 3 (training, rest)",
+    "precision": "precision policies, ROADMAP.md queue 1, item 5 "
+                 "(quantized paths)",
+}
+
+
+def cmd_train(args: argparse.Namespace) -> int:
+    for flag, where in _TRAIN_NOT_PORTED.items():
+        if getattr(args, flag):
+            raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet: "
+                             f"{where}")
+    device = _resolve_device(args.device)
+    cfg = preset(args.preset)
+    if args.tiny:
+        cfg = tiny_override(cfg)
+    runtime = {"attn_impl": args.attn_impl, "ln_impl": args.ln_impl,
+               "fused_qkv": args.fused_qkv}
+    cfg = with_runtime(cfg, **{k: v for k, v in runtime.items() if v})
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    model = SigLIP(cfg, device=device, dtype=dtype,
+                   generator=torch.Generator(device=device).manual_seed(
+                       args.seed))
+    model.train()
+    optimizer = make_optimizer(model, OptimizerConfig(
+        learning_rate=args.lr, weight_decay=args.weight_decay,
+        warmup_steps=args.warmup_steps, total_steps=args.steps))
+    step_fn = make_contrastive_train_step(args.loss)
+    data = contrastive_pairs(args.batch_size,
+                             image_size=cfg.vision.image_size,
+                             vocab_size=cfg.text.vocab_size,
+                             seq_len=cfg.text.context_length, seed=args.seed)
+    logger = MetricsLogger(path=args.metrics_file,
+                           print_every=args.log_every)
+    timer = StepTimer()
+    peak = device_peak_tflops(device)
+    flops = train_step_flops(cfg, args.batch_size)
+    loss = dt = None
+    try:
+        for step in range(args.steps):
+            images, text = next(data)
+            images = torch.from_numpy(images).to(device, dtype)
+            text = torch.from_numpy(text).to(device, torch.long)
+            timer.start()
+            metrics = step_fn(model, optimizer, images, text)
+            # logit_scale depends on the update just made
+            dt = timer.stop(metrics["loss"], model.logit_scale)
+            loss = float(metrics["loss"])
+            logger.log(step, loss=loss, step_time_s=dt,
+                       lr=optimizer.schedule(step),
+                       images_per_s=args.batch_size / dt,
+                       mfu=mfu(flops, dt, peak))
+    finally:
+        logger.close()
+    print(json.dumps({
+        "status": "trained", "steps": args.steps, "loss": loss,
+        "step_time_s": dt, "model": f"siglip:{args.preset}"
+        + (":tiny" if args.tiny else ""), "device": str(device),
+        "device_name": (torch.cuda.get_device_name(device)
+                        if device.type == "cuda" else "cpu"),
+        "dtype": str(dtype).removeprefix("torch."),
+        "train_step_flops": flops, "mfu_last_step": mfu(flops, dt, peak)}),
+        flush=True)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m jimm_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -100,6 +185,46 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--max-seconds", type=float, default=None,
                     help="stop after this long (default: serve until ^C)")
     sp.set_defaults(func=cmd_serve)
+
+    sp = sub.add_parser("train", help="contrastive training on synthetic "
+                                      "pairs (offline)")
+    sp.add_argument("--preset", default="siglip-base-patch16-256",
+                    choices=sorted(PRESETS))
+    sp.add_argument("--tiny", action="store_true",
+                    help="shrink the preset to CPU-demo size")
+    sp.add_argument("--steps", type=int, default=100)
+    sp.add_argument("--batch-size", type=int, default=32)
+    sp.add_argument("--lr", type=float, default=1e-3)
+    sp.add_argument("--weight-decay", type=float, default=1e-4)
+    sp.add_argument("--warmup-steps", type=int, default=0)
+    sp.add_argument("--seed", type=int, default=0,
+                    help="seeds the weights and the synthetic data")
+    sp.add_argument("--bf16", action="store_true",
+                    help="bf16 parameters and compute (default f32)")
+    sp.add_argument("--loss", default="siglip", choices=["siglip", "clip"])
+    sp.add_argument("--attn-impl", default=None,
+                    choices=["auto", "xla", "flash"],
+                    help="attention for both towers (auto = flash on CUDA)")
+    sp.add_argument("--ln-impl", default=None, choices=["xla", "fused"],
+                    help="encoder LayerNorm (fused = the LayerNorm kernels)")
+    sp.add_argument("--fused-qkv", action="store_true",
+                    help="q/k/v as one (H, 3H) matmul")
+    sp.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' must be asked for explicitly")
+    sp.add_argument("--log-every", type=int, default=10)
+    sp.add_argument("--metrics-file", default=None,
+                    help="JSONL metrics output path")
+    # the JAX CLI's flags that are not ported yet: accepted, then refused
+    # with their ROADMAP queue
+    sp.add_argument("--data", default=None, help=argparse.SUPPRESS)
+    sp.add_argument("--ckpt-dir", default=None, help=argparse.SUPPRESS)
+    sp.add_argument("--resume", action="store_true", help=argparse.SUPPRESS)
+    sp.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
+    sp.add_argument("--remat", default=None, help=argparse.SUPPRESS)
+    sp.add_argument("--dropout", type=float, default=None,
+                    help=argparse.SUPPRESS)
+    sp.add_argument("--precision", default=None, help=argparse.SUPPRESS)
+    sp.set_defaults(func=cmd_train)
     return parser
 
 

@@ -1,0 +1,384 @@
+// Softmax flash-attention backward for Hopper (sm_90a): dq, and dk/dv.
+//
+// Replaces the TPU kernels jimm_tpu/ops/flash_attention.py::_bwd_dq_kernel
+// and ::_bwd_dkv_kernel (softmax kind, no mask or bias; launched by
+// _flash_bwd through pl.pallas_call). Same numerics (_ds_tile): the score
+// s = (q . k) * scale is recomputed in f32 from the saved inputs,
+// p = exp(s - lse) from the forward's f32 logsumexp, dp = do . v in f32,
+// ds = p * (dp - delta) with delta = rowsum(do * o) (computed by the wrapper,
+// minus any lse cotangent). Before the products that consume them, p (for
+// dv) and ds (for dq and dk) are rounded to the input dtype, as the TPU
+// kernels round them to bf16 before their MXU dots; in f32 that rounding is
+// the identity. scale is applied once, to the finished dq and dk.
+//
+// Design: the two kernels of the FA2 arrangement, as on the TPU, and no
+// atomics. dq: one CTA of 256 threads per (batch*head, BQ-row q tile), the
+// q and do tiles resident in shared memory, looping over BK-row k/v tiles;
+// the ds tile goes through shared memory into dq += ds . k. dk/dv: one CTA
+// per (batch*head, BK-row k tile), the k and v tiles resident, looping over
+// q tiles; p^T and ds^T go through shared memory into dv += p^T . do and
+// dk += ds^T . q. The TPU kernels make that loop a sequential grid axis and
+// carry the sums in VMEM scratch; here it runs inside the CTA and the sums
+// live in registers. Thread (ty, tx) of the 16 x 16 layout owns rows
+// ty*R..ty*R+R-1 of its CTA's resident tile, computes their scores against
+// the streamed rows tx + 16*j, and accumulates its rows over output columns
+// 64*g + 4*tx..+3, as the forward kernel does. The head dim is zero-padded
+// to 64/128/256 in shared memory only; inputs are read through their
+// (B, S, N, D) strides. Keys >= Sk (dq kernel) and queries >= Sq (dkv
+// kernel; padded rows have lse 0 and exp(s - 0) overflows) are masked to
+// p = 0, as the TPU kernels mask them with `pos`; causal skips the tiles
+// wholly above the diagonal (top-left aligned) in both kernels.
+//
+// What bounds it on the H100: at the training shapes (S <= 256, D = 64) the
+// bytes, ~20 bytes per (row, feature) in bf16 moved once, against
+// 8*Sq*Sk*D flops; like the forward, this first version computes with f32
+// FMAs, so its time is set by those FMAs (five S x S x D products, two of
+// them recomputations of the forward's) rather than by the bytes; the
+// tensor-core version is later work. f32 tiles in shared memory convert
+// each input element once, and row strides padded by 4 floats keep the
+// float4 reads free of bank conflicts.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+// rows [r0, r0 + R) of one head's (S, D) slice -> f32 shared tile with row
+// stride DP + 4; rows >= n and columns >= d are zero
+template <typename T, int DP, int R>
+__device__ __forceinline__ void load_tile(float* dst, const T* src,
+                                          long long row_stride, int r0, int n,
+                                          int d) {
+  constexpr int LD = DP + 4;
+  for (int idx = threadIdx.x; idx < R * DP; idx += kThreads) {
+    const int r = idx / DP, c = idx % DP;
+    float val = 0.f;
+    if (r0 + r < n && c < d)
+      val = jimm::to_f32(src[static_cast<long long>(r0 + r) * row_stride + c]);
+    dst[r * LD + c] = val;
+  }
+}
+
+// the value x takes once stored in T and read back (bf16 rounding; the
+// identity for f32)
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return jimm::to_f32(jimm::from_f32<T>(x));
+}
+
+// out[a][b] = A[a0 + a] . B[tx + 16 b] over DP columns (row stride DP + 4)
+template <int DP, int NA, int NB>
+__device__ __forceinline__ void tile_dots(float (&out)[NA][NB], const float* A,
+                                          int a0, const float* B, int tx) {
+  constexpr int LD = DP + 4;
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int b = 0; b < NB; ++b) out[a][b] = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < DP; c += 4) {
+    float4 av[NA], bv[NB];
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+      av[a] = *reinterpret_cast<const float4*>(A + (a0 + a) * LD + c);
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+      bv[b] = *reinterpret_cast<const float4*>(B + (tx + 16 * b) * LD + c);
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        out[a][b] = fmaf(av[a].x, bv[b].x, out[a][b]);
+        out[a][b] = fmaf(av[a].y, bv[b].y, out[a][b]);
+        out[a][b] = fmaf(av[a].z, bv[b].z, out[a][b]);
+        out[a][b] = fmaf(av[a].w, bv[b].w, out[a][b]);
+      }
+  }
+}
+
+// acc[a][4g + e] += sum_c P[a0 + a][c] * B[c][64 g + 4 tx + e] for c < NC;
+// P has row stride NC + 4, B row stride DP + 4
+template <int DP, int NA, int NC>
+__device__ __forceinline__ void tile_accum(float (&acc)[NA][DP / 16],
+                                           const float* P, int a0,
+                                           const float* B, int tx) {
+  constexpr int LD = DP + 4, LDP = NC + 4, DG = DP / 64;
+#pragma unroll 2
+  for (int c = 0; c < NC; c += 4) {
+    float p[NA][4];
+#pragma unroll
+    for (int a = 0; a < NA; ++a) {
+      const float4 t = *reinterpret_cast<const float4*>(P + (a0 + a) * LDP + c);
+      p[a][0] = t.x;
+      p[a][1] = t.y;
+      p[a][2] = t.z;
+      p[a][3] = t.w;
+    }
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc)
+#pragma unroll
+      for (int g = 0; g < DG; ++g) {
+        const float4 bv = *reinterpret_cast<const float4*>(
+            B + (c + cc) * LD + g * 64 + tx * 4);
+#pragma unroll
+        for (int a = 0; a < NA; ++a) {
+          acc[a][g * 4 + 0] = fmaf(p[a][cc], bv.x, acc[a][g * 4 + 0]);
+          acc[a][g * 4 + 1] = fmaf(p[a][cc], bv.y, acc[a][g * 4 + 1]);
+          acc[a][g * 4 + 2] = fmaf(p[a][cc], bv.z, acc[a][g * 4 + 2]);
+          acc[a][g * 4 + 3] = fmaf(p[a][cc], bv.w, acc[a][g * 4 + 3]);
+        }
+      }
+  }
+}
+
+// rows a0..a0+NA-1 of acc (times mul) -> rows r0 + a0 + a < n of the
+// contiguous (B, S, N, D) output, columns < d
+template <typename T, int DP, int NA>
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[NA][DP / 16],
+                                           float mul, int bi, int h, int heads,
+                                           int r0, int a0, int n, int d,
+                                           int tx) {
+  constexpr int DG = DP / 64;
+#pragma unroll
+  for (int a = 0; a < NA; ++a) {
+    const int row = r0 + a0 + a;
+    if (row >= n) continue;
+    T* orow = out + (static_cast<long long>(bi) * n + row) * heads * d +
+              static_cast<long long>(h) * d;
+#pragma unroll
+    for (int g = 0; g < DG; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = g * 64 + tx * 4 + e;
+        if (col < d) orow[col] = jimm::from_f32<T>(acc[a][g * 4 + e] * mul);
+      }
+  }
+}
+
+struct Strides {
+  long long b, s, n;
+};
+
+struct Args {
+  const void *q, *k, *v, *dout, *lse, *delta;
+  void *dq, *dk, *dv;
+  int batch, heads, sq, sk, d;
+  Strides qs, ks, vs, dos;
+  float scale;
+  int causal;
+  cudaStream_t stream;
+};
+
+template <typename T, int DP, int BQ, int BK>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dq, int heads, int sq,
+    int sk, int d, Strides qst, Strides kst, Strides vst, Strides dst,
+    float scale, int causal) {
+  constexpr int LD = DP + 4, RQ = BQ / 16, RK = BK / 16, LDS = BK + 4;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;
+  float* dos = qs + BQ * LD;
+  float* ks = dos + BQ * LD;
+  float* vs = ks + BK * LD;
+  float* dss = vs + BK * LD;
+
+  const int bh = blockIdx.x;
+  const int bi = bh / heads, h = bh % heads;
+  const int q0 = blockIdx.y * BQ;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const T* kb = k + bi * kst.b + h * kst.n;
+  const T* vb = v + bi * vst.b + h * vst.n;
+  load_tile<T, DP, BQ>(qs, q + bi * qst.b + h * qst.n, qst.s, q0, sq, d);
+  load_tile<T, DP, BQ>(dos, dout + bi * dst.b + h * dst.n, dst.s, q0, sq, d);
+
+  float lse_r[RQ], delta_r[RQ];
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    const int row = q0 + ty * RQ + i;
+    const long long at = static_cast<long long>(bh) * sq + row;
+    lse_r[i] = row < sq ? lse[at] : 0.f;
+    delta_r[i] = row < sq ? delta[at] : 0.f;
+  }
+  float acc[RQ][DP / 16];
+#pragma unroll
+  for (int i = 0; i < RQ; ++i)
+#pragma unroll
+    for (int c = 0; c < DP / 16; ++c) acc[i][c] = 0.f;
+
+  // causal: keys past the tile's last query row are masked for every row
+  const int kv_end = causal ? min(sk, q0 + BQ) : sk;
+  for (int k0 = 0; k0 < kv_end; k0 += BK) {
+    __syncthreads();  // the previous tile's k and ds are no longer read
+    load_tile<T, DP, BK>(ks, kb, kst.s, k0, sk, d);
+    load_tile<T, DP, BK>(vs, vb, vst.s, k0, sk, d);
+    __syncthreads();
+    float s[RQ][RK], dp[RQ][RK];
+    tile_dots<DP, RQ, RK>(s, qs, ty * RQ, ks, tx);
+    tile_dots<DP, RQ, RK>(dp, dos, ty * RQ, vs, tx);
+#pragma unroll
+    for (int i = 0; i < RQ; ++i) {
+      const int row = q0 + ty * RQ + i;
+#pragma unroll
+      for (int j = 0; j < RK; ++j) {
+        const int col = k0 + tx + 16 * j;
+        const bool keep = row < sq && col < sk && (!causal || col <= row);
+        const float p = keep ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
+        dss[(ty * RQ + i) * LDS + tx + 16 * j] =
+            round_to<T>(p * (dp[i][j] - delta_r[i]));
+      }
+    }
+    __syncthreads();
+    tile_accum<DP, RQ, BK>(acc, dss, ty * RQ, ks, tx);
+  }
+  store_rows<T, DP, RQ>(dq, acc, scale, bi, h, heads, q0, ty * RQ, sq, d, tx);
+}
+
+template <typename T, int DP, int BQ, int BK>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+    int heads, int sq, int sk, int d, Strides qst, Strides kst, Strides vst,
+    Strides dst, float scale, int causal) {
+  constexpr int LD = DP + 4, RQ = BQ / 16, RK = BK / 16, LDS = BQ + 4;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;
+  float* vs = ks + BK * LD;
+  float* qs = vs + BK * LD;
+  float* dos = qs + BQ * LD;
+  float* pts = dos + BQ * LD;
+  float* dsts = pts + BK * LDS;
+
+  const int bh = blockIdx.x;
+  const int bi = bh / heads, h = bh % heads;
+  const int k0 = blockIdx.y * BK;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const T* qb = q + bi * qst.b + h * qst.n;
+  const T* db = dout + bi * dst.b + h * dst.n;
+  load_tile<T, DP, BK>(ks, k + bi * kst.b + h * kst.n, kst.s, k0, sk, d);
+  load_tile<T, DP, BK>(vs, v + bi * vst.b + h * vst.n, vst.s, k0, sk, d);
+
+  float dk_acc[RK][DP / 16], dv_acc[RK][DP / 16];
+#pragma unroll
+  for (int a = 0; a < RK; ++a)
+#pragma unroll
+    for (int c = 0; c < DP / 16; ++c) {
+      dk_acc[a][c] = 0.f;
+      dv_acc[a][c] = 0.f;
+    }
+
+  // causal: q tiles whose last row lies before this k tile never attend to it
+  const int q_begin = causal ? (k0 / BQ) * BQ : 0;
+  for (int q0 = q_begin; q0 < sq; q0 += BQ) {
+    __syncthreads();  // the previous tile's q, do, p^T and ds^T are read
+    load_tile<T, DP, BQ>(qs, qb, qst.s, q0, sq, d);
+    load_tile<T, DP, BQ>(dos, db, dst.s, q0, sq, d);
+    __syncthreads();
+    float s[RK][RQ], dp[RK][RQ];
+    tile_dots<DP, RK, RQ>(s, ks, ty * RK, qs, tx);
+    tile_dots<DP, RK, RQ>(dp, vs, ty * RK, dos, tx);
+#pragma unroll
+    for (int b = 0; b < RQ; ++b) {
+      const int row = q0 + tx + 16 * b;  // query row
+      const long long at = static_cast<long long>(bh) * sq + row;
+      const float l = row < sq ? lse[at] : 0.f;
+      const float dl = row < sq ? delta[at] : 0.f;
+#pragma unroll
+      for (int a = 0; a < RK; ++a) {
+        const int col = k0 + ty * RK + a;  // key row
+        const bool keep = row < sq && col < sk && (!causal || col <= row);
+        const float p = keep ? expf(s[a][b] * scale - l) : 0.f;
+        pts[(ty * RK + a) * LDS + tx + 16 * b] = round_to<T>(p);
+        dsts[(ty * RK + a) * LDS + tx + 16 * b] =
+            round_to<T>(p * (dp[a][b] - dl));
+      }
+    }
+    __syncthreads();
+    tile_accum<DP, RK, BQ>(dv_acc, pts, ty * RK, dos, tx);
+    tile_accum<DP, RK, BQ>(dk_acc, dsts, ty * RK, qs, tx);
+  }
+  store_rows<T, DP, RK>(dk, dk_acc, scale, bi, h, heads, k0, ty * RK, sk, d,
+                        tx);
+  store_rows<T, DP, RK>(dv, dv_acc, 1.f, bi, h, heads, k0, ty * RK, sk, d,
+                        tx);
+}
+
+template <typename T, int DP, int BQ, int BK>
+cudaError_t launch(const Args& a) {
+  constexpr int LD = DP + 4;
+  const auto* q = static_cast<const T*>(a.q);
+  const auto* k = static_cast<const T*>(a.k);
+  const auto* v = static_cast<const T*>(a.v);
+  const auto* dout = static_cast<const T*>(a.dout);
+  const auto* lse = static_cast<const float*>(a.lse);
+  const auto* delta = static_cast<const float*>(a.delta);
+
+  auto dq_kernel = flash_bwd_dq_kernel<T, DP, BQ, BK>;
+  const int dq_smem =
+      ((2 * BQ + 2 * BK) * LD + BQ * (BK + 4)) * static_cast<int>(sizeof(float));
+  cudaError_t err = jimm::allow_smem(dq_kernel, dq_smem);
+  if (err != cudaSuccess) return err;
+  dq_kernel<<<dim3(a.batch * a.heads, (a.sq + BQ - 1) / BQ), kThreads, dq_smem,
+              a.stream>>>(q, k, v, dout, lse, delta, static_cast<T*>(a.dq),
+                          a.heads, a.sq, a.sk, a.d, a.qs, a.ks, a.vs, a.dos,
+                          a.scale, a.causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto dkv_kernel = flash_bwd_dkv_kernel<T, DP, BQ, BK>;
+  const int dkv_smem = ((2 * BQ + 2 * BK) * LD + 2 * BK * (BQ + 4)) *
+                       static_cast<int>(sizeof(float));
+  err = jimm::allow_smem(dkv_kernel, dkv_smem);
+  if (err != cudaSuccess) return err;
+  dkv_kernel<<<dim3(a.batch * a.heads, (a.sk + BK - 1) / BK), kThreads,
+               dkv_smem, a.stream>>>(
+      q, k, v, dout, lse, delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+      a.heads, a.sq, a.sk, a.d, a.qs, a.ks, a.vs, a.dos, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const Args& a) {
+  // 64-row tiles up to D = 128; at 256 the f32 tiles take 32 rows to fit
+  // the 227 KB of shared memory and keep the accumulators in registers
+  if (a.d <= 64) return launch<T, 64, 64, 64>(a);
+  if (a.d <= 128) return launch<T, 128, 64, 64>(a);
+  return launch<T, 256, 32, 32>(a);
+}
+
+}  // namespace
+
+// q, dout: (B, Sq, N, D), k/v: (B, Sk, N, D) in `dtype`, unit stride over D,
+// the other strides in elements. lse, delta: (B, N, Sq) contiguous f32.
+// dq: (B, Sq, N, D), dk/dv: (B, Sk, N, D) contiguous in `dtype`, every
+// element written. Launches the dq kernel, then the dk/dv kernel, on
+// `stream`. Returns the first failing launch's cudaError_t (0 = launched).
+extern "C" int jimm_flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, void* dk, void* dv,
+    int batch, int heads, int sq, int sk, int d, long long q_sb,
+    long long q_ss, long long q_sn, long long k_sb, long long k_ss,
+    long long k_sn, long long v_sb, long long v_ss, long long v_sn,
+    long long do_sb, long long do_ss, long long do_sn, float scale,
+    int causal, int dtype, void* stream) {
+  if (batch < 1 || heads < 1 || sq < 1 || sk < 1 || d < 1 || d > 256 ||
+      static_cast<long long>(batch) * heads > 0x7fffffffLL ||
+      (sq + 31) / 32 > 65535 || (sk + 31) / 32 > 65535)
+    return cudaErrorInvalidValue;
+  const Args a{q,      k,      v,     dout,  lse,   delta,
+               dq,     dk,     dv,    batch, heads, sq,
+               sk,     d,      {q_sb, q_ss, q_sn},  {k_sb, k_ss, k_sn},
+               {v_sb, v_ss, v_sn},    {do_sb, do_ss, do_sn},
+               scale,  causal, static_cast<cudaStream_t>(stream)};
+  switch (dtype) {
+    case jimm::kF32:
+      return dispatch<float>(a);
+    case jimm::kBF16:
+      return dispatch<__nv_bfloat16>(a);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}

@@ -1,6 +1,6 @@
-"""LayerNorm module over the fused LayerNorm kernel
-(`jimm_tpu_torch/ops/layer_norm.py`); the counterpart of
-``jimm_tpu/nn/norm.py::FusedLayerNorm``."""
+"""LayerNorm module over the fused LayerNorm kernels
+(`jimm_tpu_torch/ops/layer_norm.py`, forward and backward through
+``LayerNormFn``); the counterpart of ``jimm_tpu/nn/norm.py::FusedLayerNorm``."""
 
 from __future__ import annotations
 
@@ -13,7 +13,8 @@ from jimm_tpu_torch.ops.layer_norm import layer_norm
 class FusedLayerNorm(nn.Module):
     """LayerNorm over the last axis with ``weight``/``bias`` like
     ``nn.LayerNorm``. x, weight and bias meet in the module's dtype (the
-    compute dtype) before the kernel, as the JAX module casts them."""
+    compute dtype) before the kernel, as the JAX module casts them; the
+    weight and bias gradients come back in that dtype."""
 
     def __init__(self, dim: int, *, eps: float, device=None, dtype=None):
         super().__init__()

@@ -110,15 +110,18 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """``depth`` blocks applied in order. Inference only: the training-time
-    strategies of the JAX config (remat, pipeline, dropout) are rejected."""
+    """``depth`` blocks applied in order, differentiable end to end (the
+    kernels' autograd Functions carry the gradient through attention and
+    the fused LayerNorm). The JAX config's execution strategies remat,
+    pipeline and dropout are not ported yet and are rejected."""
 
     def __init__(self, cfg: TransformerConfig, *, device=None, dtype=None):
         super().__init__()
         if cfg.pipeline or cfg.remat or cfg.dropout:
             raise NotImplementedError(
-                "pipeline, remat and dropout wait for the training slice "
-                "(ROADMAP.md queue 1)")
+                "remat and dropout are not ported yet (ROADMAP.md queue 1, "
+                "item 3: training, rest), nor pipeline parallelism (queue 1, "
+                "item 6: parallelism)")
         self.cfg = cfg
         self.blocks = nn.ModuleList(
             Block(cfg, device=device, dtype=dtype) for _ in range(cfg.depth))

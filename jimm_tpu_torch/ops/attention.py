@@ -1,13 +1,15 @@
 """Attention dispatch over ``(B, S, N, D)`` q/k/v, as in
 ``jimm_tpu/ops/attention.py``:
 
-- ``"flash"``: the hand-written flash-attention kernel
-  (`jimm_tpu_torch/ops/flash_attention.py`) on a CUDA tensor, its plain
-  version on a CPU tensor.
+- ``"flash"``: the hand-written flash-attention kernels
+  (`jimm_tpu_torch/ops/flash_attention.py`, forward and backward through
+  ``FlashAttentionFn``) on a CUDA tensor, their plain versions on a CPU
+  tensor.
 - ``"auto"``: ``"flash"`` on a CUDA tensor, ``"xla"`` on a CPU tensor. No
   sequence-length crossover is applied: the port has not measured one.
 - ``"xla"`` / ``"einsum"``: :func:`reference_attention`, plain f32-softmax
-  math (the names the JAX configs use for the non-kernel path).
+  math (the names the JAX configs use for the non-kernel path),
+  differentiated by autograd.
 
 The other JAX impls are kernels or schemes not ported yet; each raises
 ``NotImplementedError`` naming its place in ``ROADMAP.md``.
@@ -28,7 +30,7 @@ _NOT_PORTED = {
     "flash_int8": "kernel rows 9-10 (int8 flash), ROADMAP queue 2",
     "ring": "sequence parallelism, ROADMAP queue 1 (parallelism)",
     "ulysses": "sequence parallelism, ROADMAP queue 1 (parallelism)",
-    "saveable": "remat policies, ROADMAP queue 1 (training)",
+    "saveable": "remat policies, ROADMAP queue 1 item 3 (training, rest)",
 }
 
 

@@ -1,33 +1,54 @@
-"""Softmax flash-attention forward: a hand-written CUDA kernel and its plain
-version.
+"""Softmax flash attention, forward and backward: hand-written CUDA kernels,
+their plain versions, and the ``torch.autograd.Function`` that joins them.
 
-Kernel row 3 of the port's kernel table: it replaces the Pallas TPU kernel
+Kernel row 3 of the port's kernel table replaces the Pallas TPU kernel
 ``jimm_tpu/ops/flash_attention.py::_fwd_kernel`` (softmax kind, no mask or
-bias). The CUDA source is ``jimm_tpu_torch/csrc/flash_attention.cu``: the
+bias). Its CUDA source is ``jimm_tpu_torch/csrc/flash_attention.cu``: the
 FA2 arrangement, one CTA per (batch*head, 64-row q tile) looping over 64-row
 k/v tiles in shared memory, f32 online max/sum, the scale applied to the f32
-score after the dot, masked scores at -1e30. At the served shapes the call
-is bound by bytes on the H100 (q/k/v/o each moved once); this first version
-computes with f32 FMAs, which at S=256 costs more than the bytes (see
-``PERF.md``).
+score after the dot, masked scores at -1e30. Kernel row 7 replaces
+``::_bwd_dq_kernel`` and ``::_bwd_dkv_kernel``; its source is
+``jimm_tpu_torch/csrc/flash_attention_bwd.cu``: the dq kernel loops over
+k/v tiles, the dk/dv kernel over q tiles, no atomics; p and ds are rounded
+to the input dtype before the products that consume them, as on the TPU.
+At the model's shapes both are bound by bytes on the H100; these first
+versions compute with f32 FMAs, which at S=256 cost more than the bytes
+(see ``PERF.md``).
 
-:func:`flash_attention_lse` launches the kernel for CUDA tensors and runs
-:func:`flash_attention_plain` for CPU tensors; any other device raises. The
-module-level ``launches`` counts kernel launches.
+:class:`FlashAttentionFn` is the autograd Function (the counterpart of the
+JAX ``custom_vjp``s ``_flash`` and ``_flash_lse``): it saves q, k, v, o and
+lse, and differentiates through both outputs; an lse cotangent folds into
+``delta``. A wrapper launches its kernel for CUDA tensors and runs the plain
+version for CPU tensors; any other device raises. The module-level
+``launches`` and ``bwd_launches`` count kernel launches (one backward call
+launches the dq and the dk/dv kernel and counts once).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from jimm_tpu_torch import _build
 
 NEG_INF = -1e30
-#: largest head dim the kernel takes (it pads D to 64/128/256 in shared memory)
+#: largest head dim the kernels take (they pad D to 64/128/256 in shared
+#: memory)
 MAX_HEAD_DIM = 256
 
-#: kernel launches since the count was last set to 0
+#: forward / backward kernel launches since the count was last set to 0
 launches = 0
+bwd_launches = 0
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The plain versions compute in f32 (f64 for f64 input, as gradcheck
+    needs)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _causal_keep(sq: int, sk: int, device) -> torch.Tensor:
+    return torch.ones(sq, sk, dtype=torch.bool, device=device).tril()
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -36,18 +57,56 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The same function in plain PyTorch: ``(o, lse)`` for ``(B, S, N, D)``
     q/k/v; o in the dtype of q, lse ``(B, N, Sq)`` f32. Scores and softmax in
     f32, scale 1/sqrt(D) after the dot, causal masking top-left aligned."""
+    acc = _acc_dtype(q.dtype)
     sq, sk, d = q.shape[1], k.shape[1], q.shape[-1]
-    s = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
+    s = torch.einsum("bqnd,bknd->bnqk", q.to(acc), k.to(acc))
     s = s * (1.0 / d ** 0.5)
     if is_causal:
-        keep = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril()
-        s = s.masked_fill(~keep, NEG_INF)
+        s = s.masked_fill(~_causal_keep(sq, sk, q.device), NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    acc = torch.einsum("bnqk,bknd->bqnd", p, v.float())
-    o = acc / l.permute(0, 2, 1, 3)
+    out = torch.einsum("bnqk,bknd->bqnd", p, v.to(acc))
+    o = out / l.permute(0, 2, 1, 3)
     return o.to(q.dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def _delta(o: torch.Tensor, do: torch.Tensor,
+           dlse: torch.Tensor | None) -> torch.Tensor:
+    """``rowsum(do * o)`` as ``(B, N, Sq)``, minus the lse cotangent (which
+    folds into delta exactly, ``_flash_bwd``)."""
+    acc = _acc_dtype(o.dtype)
+    delta = (do.to(acc) * o.to(acc)).sum(dim=-1).transpose(1, 2)
+    if dlse is not None:
+        delta = delta - dlse.to(acc)
+    return delta.contiguous()
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor,
+                              dlse: torch.Tensor | None = None, *,
+                              is_causal: bool = False
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The backward in plain PyTorch: ``(dq, dk, dv)`` in the dtype of q,
+    recomputing ``p = exp(s - lse)`` in f32 and rounding p (for dv) and
+    ds (for dq and dk) to the input dtype before the products, where the
+    kernels and the TPU kernels round them."""
+    acc = _acc_dtype(q.dtype)
+    sq, sk, d = q.shape[1], k.shape[1], q.shape[-1]
+    scale = 1.0 / d ** 0.5
+    qf, kf, vf, dof = (t.to(acc) for t in (q, k, v, do))
+    s = torch.einsum("bqnd,bknd->bnqk", qf, kf) * scale
+    if is_causal:
+        s = s.masked_fill(~_causal_keep(sq, sk, q.device), NEG_INF)
+    p = torch.exp(s - lse.to(acc)[..., None])
+    dv = torch.einsum("bnqk,bqnd->bknd", p.to(q.dtype).to(acc), dof)
+    dp = torch.einsum("bqnd,bknd->bnqk", dof, vf)
+    ds = (p * (dp - _delta(o, do, dlse)[..., None])).to(q.dtype).to(acc)
+    dq = torch.einsum("bnqk,bknd->bqnd", ds, kf) * scale
+    dk = torch.einsum("bnqk,bqnd->bknd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -63,15 +122,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("q, k, v must be on one device")
 
 
-def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, is_causal: bool = False
-                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Flash attention over ``(B, S, N, D)`` q/k/v returning ``(o, lse)``:
-    o ``(B, Sq, N, D)`` in the input dtype, lse ``(B, N, Sq)`` f32."""
-    global launches
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, is_causal=is_causal)
+def _kernel_dtype(*ts: torch.Tensor) -> int:
+    """The C interface's dtype code for CUDA tensors with unit stride over D
+    and D <= 256; anything else raises."""
+    q = ts[0]
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on CUDA or CPU tensors, not "
                          f"{q.device.type}")
@@ -79,12 +133,26 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dtype not in _build.DTYPE_CODES:
         raise ValueError(f"flash attention kernel takes float32 or bfloat16, "
                          f"not {q.dtype}")
+    if q.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {q.shape[-1]} > {MAX_HEAD_DIM}")
+    if any(t.stride(-1) != 1 for t in ts):
+        raise ValueError("flash attention kernel needs unit stride over D")
+    return _build.DTYPE_CODES[dtype]
+
+
+def _strides(t: torch.Tensor) -> tuple[int, int, int]:
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def _fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, is_causal: bool
+         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel on CUDA tensors, the plain version on CPU ones."""
+    global launches
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, is_causal=is_causal)
+    code = _kernel_dtype(q, k, v)
     b, sq, n, d = q.shape
     sk = k.shape[1]
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} > {MAX_HEAD_DIM}")
-    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
-        raise ValueError("flash attention kernel needs unit stride over D")
     o = torch.empty((b, sq, n, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
     lib = _build.load()
@@ -92,14 +160,83 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.jimm_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b, n, sq, sk, d,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            1.0 / d ** 0.5, int(is_causal), _build.DTYPE_CODES[dtype], stream)
+            lse.data_ptr(), b, n, sq, sk, d, *_strides(q), *_strides(k),
+            *_strides(v), 1.0 / d ** 0.5, int(is_causal), code, stream)
     _build.check(rc, "jimm_flash_attention_fwd")
     launches += 1
     return o, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        dlse: torch.Tensor | None = None, *,
+                        is_causal: bool = False
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` from the forward's residuals and the cotangents of o
+    (and, optionally, of lse): the two backward kernels on CUDA tensors,
+    :func:`flash_attention_bwd_plain` on CPU tensors."""
+    global bwd_launches
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, dlse,
+                                         is_causal=is_causal)
+    if do.dtype != q.dtype or do.shape != q.shape:
+        raise ValueError(f"do {do.dtype} {tuple(do.shape)} does not match q "
+                         f"{q.dtype} {tuple(q.shape)}")
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    code = _kernel_dtype(q, k, v, do)
+    b, sq, n, d = q.shape
+    sk = k.shape[1]
+    delta = _delta(o, do, dlse)
+    lse = lse.contiguous()
+    dq = torch.empty((b, sq, n, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, n, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, sk, n, d), dtype=q.dtype, device=q.device)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.jimm_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, n, sq, sk, d, *_strides(q), *_strides(k),
+            *_strides(v), *_strides(do), 1.0 / d ** 0.5, int(is_causal),
+            code, stream)
+    _build.check(rc, "jimm_flash_attention_bwd")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``(o, lse)`` of softmax flash attention, differentiable in q, k and v
+    through both outputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, is_causal):
+        o, lse = _fwd(q, k, v, is_causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.is_causal = is_causal
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, dlse,
+                                         is_causal=ctx.is_causal)
+        return dq, dk, dv, None
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, is_causal: bool = False
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Flash attention over ``(B, S, N, D)`` q/k/v returning ``(o, lse)``:
+    o ``(B, Sq, N, D)`` in the input dtype, lse ``(B, N, Sq)`` f32.
+    Differentiable through both."""
+    _check(q, k, v)
+    return FlashAttentionFn.apply(q, k, v, is_causal)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,0 +1,182 @@
+"""Training machinery: the optimizer (AdamW with warmup-cosine schedule,
+global-norm clipping and the JAX package's weight-decay mask) and the
+contrastive train step; the counterpart of ``jimm_tpu/train/trainer.py``.
+
+The JAX package builds an optax chain ``clip_by_global_norm`` ->
+``adamw(schedule, mask=ndim > 1)``; here it is ``torch.optim.AdamW`` with
+two parameter groups, a clip written out with optax's formula, and the
+learning rate set from the schedule before every update. PyTorch runs
+eagerly, so the step is a plain function (no jit, no donation).
+"""
+
+from __future__ import annotations
+
+import math
+import warnings
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+from torch import nn
+
+from jimm_tpu_torch.train.losses import clip_softmax_loss, sigmoid_pairwise_loss
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    learning_rate: float = 1e-3
+    weight_decay: float = 1e-4
+    warmup_steps: int = 0
+    total_steps: int | None = None  # cosine decay horizon; None = constant
+    b1: float = 0.9
+    b2: float = 0.999
+    grad_clip_norm: float | None = 1.0
+    min_lr_ratio: float = 0.0
+    #: dtype of Adam's first moment; only None (the parameter dtype) is
+    #: ported
+    moment_dtype: str | None = None
+
+
+def make_schedule(cfg: OptimizerConfig) -> Callable[[int], float]:
+    """The learning rate of the k-th update, counting from 0 (optax's
+    count): constant, linear warmup from 0, or linear warmup then cosine
+    decay to ``learning_rate * min_lr_ratio`` at ``total_steps``."""
+    lr = cfg.learning_rate
+    if cfg.total_steps is None:
+        if cfg.warmup_steps:
+            return lambda k: lr * min(k, cfg.warmup_steps) / cfg.warmup_steps
+        return lambda k: lr
+    # short runs can have total_steps <= warmup_steps; the decay needs at
+    # least one step, so the warmup is clamped, loudly, as in the JAX package
+    warmup = min(cfg.warmup_steps, max(cfg.total_steps - 1, 0))
+    if warmup != cfg.warmup_steps:
+        warnings.warn(f"warmup_steps={cfg.warmup_steps} >= total_steps="
+                      f"{cfg.total_steps}; clamping warmup to {warmup}",
+                      stacklevel=2)
+    decay = cfg.total_steps - warmup
+    if decay <= 0:
+        raise ValueError(f"total_steps={cfg.total_steps} leaves no decay "
+                         f"steps")
+    alpha = 0.0 if lr == 0.0 else cfg.min_lr_ratio  # end value / peak
+
+    def schedule(k: int) -> float:
+        if k < warmup:
+            return lr * k / warmup
+        t = min(k - warmup, decay)
+        return lr * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * t / decay))
+                     + alpha)
+
+    return schedule
+
+
+def decays(name: str, param: torch.Tensor) -> bool:
+    """The JAX package's weight-decay mask, ``ndim > 1``, as it falls on
+    its parameters: the JAX encoder stacks its blocks, so every block
+    parameter has a leading layer axis and is decayed, LayerNorm scales and
+    biases included, while 1-D parameters outside the blocks (``ln_post``,
+    the MAP head's biases and LayerNorm, ``ln_final``) and the scalars are
+    not. The port keeps one module per block, so a block parameter is
+    decayed whatever its rank."""
+    return param.ndim > 1 or "encoder.blocks." in name
+
+
+@torch.no_grad()
+def clip_by_global_norm_(params: list[torch.Tensor], max_norm: float
+                         ) -> torch.Tensor:
+    """Scale the gradients in place by ``max_norm / ||g||`` when the global
+    norm ``||g||`` is at least ``max_norm`` (optax's rule; unlike
+    ``clip_grad_norm_``, nothing is added to the norm). Returns ``||g||``
+    in f32, without a host sync. The per-tensor norms and the scaling are
+    multi-tensor ops: a few launches for all parameters, not a few each."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return torch.zeros(())
+    norm = torch.linalg.vector_norm(torch.stack(
+        torch._foreach_norm(grads, 2.0, dtype=torch.float32)))
+    factor = torch.where(norm < max_norm, torch.ones_like(norm),
+                         max_norm / norm)
+    torch._foreach_mul_(grads, factor)
+    return norm
+
+
+class Optimizer:
+    """AdamW (eps 1e-8) over ``model``'s parameters in two groups, decayed
+    and not (:func:`decays`), with the learning rate of :func:`make_schedule`
+    and global-norm clipping applied in :meth:`step`."""
+
+    def __init__(self, model: nn.Module, cfg: OptimizerConfig):
+        if cfg.moment_dtype is not None:
+            raise NotImplementedError(
+                "moment_dtype is not ported yet (ROADMAP.md queue 1, item 3: "
+                "training, rest)")
+        self.cfg = cfg
+        self.schedule = make_schedule(cfg)
+        decay, keep = [], []
+        for name, p in model.named_parameters():
+            if p.requires_grad:
+                (decay if decays(name, p) else keep).append(p)
+        self.params = decay + keep
+        self.opt = torch.optim.AdamW(
+            [{"params": decay, "weight_decay": cfg.weight_decay},
+             {"params": keep, "weight_decay": 0.0}],
+            lr=self.schedule(0), betas=(cfg.b1, cfg.b2), eps=1e-8)
+        #: updates applied so far (optax's count)
+        self.count = 0
+
+    def zero_grad(self) -> None:
+        self.opt.zero_grad(set_to_none=True)
+
+    def step(self) -> None:
+        if self.cfg.grad_clip_norm:
+            clip_by_global_norm_(self.params, self.cfg.grad_clip_norm)
+        lr = self.schedule(self.count)
+        for group in self.opt.param_groups:
+            group["lr"] = lr
+        self.opt.step()
+        self.count += 1
+
+
+def make_optimizer(model: nn.Module, cfg: OptimizerConfig) -> Optimizer:
+    """AdamW with warmup-cosine schedule and global-norm clipping; weight
+    decay masked as the JAX package masks it (:func:`decays`)."""
+    return Optimizer(model, cfg)
+
+
+def _check_kind(kind: str) -> None:
+    if kind in ("clip_ring", "siglip_ring"):
+        raise NotImplementedError(f"loss {kind!r} needs a device mesh, not "
+                                  f"ported yet (ROADMAP.md queue 1, item 6: "
+                                  f"parallelism)")
+    if kind not in ("clip", "siglip"):
+        raise ValueError(f"unknown contrastive loss kind {kind!r}")
+
+
+def contrastive_loss_fn(model: nn.Module, images: torch.Tensor,
+                        text: torch.Tensor, *, kind: str) -> torch.Tensor:
+    """``"clip"``: symmetric softmax InfoNCE; ``"siglip"``: dense sigmoid
+    all-pairs loss, on the model's image and text embeddings."""
+    _check_kind(kind)
+    img = model.encode_image(images)
+    txt = model.encode_text(text)
+    if kind == "clip":
+        return clip_softmax_loss(img, txt, model.logit_scale)
+    return sigmoid_pairwise_loss(img, txt, model.logit_scale,
+                                 model.logit_bias)
+
+
+def make_contrastive_train_step(kind: str = "siglip") -> Callable:
+    """``step(model, optimizer, images, text) -> {"loss": tensor}``: zero
+    the gradients, backpropagate the loss, clip and update. The loss stays
+    on the device (no host sync)."""
+    _check_kind(kind)
+
+    def train_step(model: nn.Module, optimizer: Optimizer,
+                   images: torch.Tensor, text: torch.Tensor
+                   ) -> dict[str, torch.Tensor]:
+        optimizer.zero_grad()
+        loss = contrastive_loss_fn(model, images, text, kind=kind)
+        loss.backward()
+        optimizer.step()
+        return {"loss": loss.detach()}
+
+    return train_step

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels (forward and backward) against their plain
+versions, on the card.
 
 Marked ``cuda``: run with ``python -m pytest -m cuda tests/test_torch_cuda.py``
 on a machine with an H100. Elsewhere every test skips (decided in the
@@ -116,3 +117,93 @@ def test_siglip_forward_on_the_card(card):
         want = plain.encode_image(images)
     assert fa.launches - f0 == 3 and ln.launches - l0 == 4
     _close(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,f", [(1, 64), (7, 80), (300, 768),
+                                    (32768, 768), (3, 5000)])
+def test_layer_norm_backward_kernel(card, rows, f, dtype):
+    g = torch.Generator(device=card).manual_seed(rows * 3 + f)
+    x = (torch.randn(rows, f, generator=g, device=card) * 3 + 0.5).to(dtype)
+    w = torch.randn(f, generator=g, device=card).to(dtype)
+    dy = torch.randn(rows, f, generator=g, device=card).to(dtype)
+    _, mu, rstd = ln.layer_norm_plain(x, w, w, 1e-6)
+    before = ln.bwd_launches
+    got = ln.layer_norm_bwd(x, w, mu, rstd, dy)
+    torch.cuda.synchronize()
+    assert ln.bwd_launches == before + 1
+    want = ln.layer_norm_bwd_plain(x, w, mu, rstd, dy)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == dtype
+        # dscale/dbias sum over all rows: f32 error grows with the row count
+        _close(a / max(1.0, b.float().abs().max().item()),
+               b / max(1.0, b.float().abs().max().item()), dtype)
+
+
+_FLASH_BWD = _FLASH + [((128, 256, 12, 64), 256, False),   # train image
+                       ((128, 1, 12, 64), 256, False),     # train probe
+                       ((128, 64, 12, 64), 64, False)]     # train text
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qshape,sk,causal", _FLASH_BWD)
+def test_flash_attention_backward_kernel(card, qshape, sk, causal, dtype):
+    g = torch.Generator(device=card).manual_seed(sum(qshape) * 7 + sk)
+    b, sq, n, d = qshape
+    q, do = (torch.randn(b, sq, n, d, generator=g, device=card).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, sk, n, d, generator=g, device=card).to(dtype)
+            for _ in range(2))
+    dlse = torch.randn(b, n, sq, generator=g, device=card)
+    o, lse = fa.flash_attention_plain(q, k, v, is_causal=causal)
+    before = fa.bwd_launches
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, dlse, is_causal=causal)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches == before + 1
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, dlse,
+                                        is_causal=causal)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and a.dtype == dtype
+        # scaled to the reference's largest value, as the f32 tolerance is
+        scale = max(1.0, w.float().abs().max().item())
+        _close(a / scale, w / scale, dtype)
+
+
+def test_siglip_grads_on_the_card(card):
+    """Every parameter of a small SigLIP gets a finite gradient through the
+    kernels, matching the same model with the plain versions."""
+    from jimm_tpu_torch import configs
+    from jimm_tpu_torch.models.siglip import SigLIP
+    from jimm_tpu_torch.train.trainer import contrastive_loss_fn
+    cfg = configs.SigLIPConfig(
+        vision=configs.VisionConfig(image_size=64, patch_size=16, width=128,
+                                    depth=2, num_heads=2, mlp_dim=256,
+                                    act="gelu_tanh", pooling="map"),
+        text=configs.TextConfig(vocab_size=100, context_length=8, width=128,
+                                depth=2, num_heads=2, mlp_dim=256,
+                                act="gelu_tanh", causal=False,
+                                pooling="last", proj_bias=True),
+        projection_dim=128)
+    kernels = SigLIP(configs.with_runtime(cfg, attn_impl="flash",
+                                          ln_impl="fused"), device=card)
+    plain = SigLIP(configs.with_runtime(cfg, attn_impl="xla",
+                                        ln_impl="xla"), device=card)
+    plain.load_state_dict(kernels.state_dict())
+    g = torch.Generator(device=card).manual_seed(9)
+    images = torch.randn(4, 64, 64, 3, generator=g, device=card)
+    text = torch.randint(0, 100, (4, 8), generator=g, device=card)
+    f0, l0 = fa.bwd_launches, ln.bwd_launches
+    contrastive_loss_fn(kernels, images, text, kind="siglip").backward()
+    assert fa.bwd_launches - f0 == 5 and ln.bwd_launches - l0 == 8
+    contrastive_loss_fn(plain, images, text, kind="siglip").backward()
+    want = {n: p.grad for n, p in plain.named_parameters()}
+    # within 1e-3 of each parameter's largest gradient, or, for a gradient
+    # that is zero in exact arithmetic (the k-projection bias: softmax does
+    # not see a per-row shift of the scores), of 1e-3 of the model's largest
+    floor = 1e-3 * max(g.abs().max().item() for g in want.values())
+    for name, p in kernels.named_parameters():
+        assert p.grad is not None, name
+        assert torch.isfinite(p.grad).all(), name
+        ref = want[name]
+        peak = max(ref.abs().max().item(), floor)
+        assert (p.grad - ref).abs().max().item() <= 1e-3 * peak, name

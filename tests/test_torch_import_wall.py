@@ -76,11 +76,17 @@ def test_serve_cli_defaults_to_the_card():
 
 
 def test_build_command_names_sm90a_and_every_source():
-    out = REPO / "build" / "x.so"
-    cmd = _build.build_command(out)
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
+    """One nvcc per source, each for sm_90a, then one link of the objects."""
+    obj_dir = REPO / "build" / "obj"
+    compiles = _build.compile_commands(obj_dir)
     cus = sorted(str(p) for p in (REPO / "jimm_tpu_torch" / "csrc").glob("*.cu"))
-    assert len(cus) == 2 and sorted(c for c in cmd if c.endswith(".cu")) == cus
+    assert len(cus) == 4
+    assert sorted(cmd[-1] for cmd, _ in compiles) == cus
+    for cmd, obj in compiles:
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert {"-c", "-O3", "-std=c++17"} <= set(cmd)
+        assert obj.parent == obj_dir and str(obj) in cmd
+    link = _build.link_command([obj for _, obj in compiles], REPO / "x.so")
+    assert "-shared" in link and "arch=compute_90a,code=sm_90a" in link
     assert _build.library_path().parent == REPO / "build" / "jimm_tpu_torch"
     assert _build.library_path().name.startswith("libjimm_kernels_")

@@ -149,5 +149,5 @@ def test_normalize_act_matches_jax(name, default):
 
 def test_training_strategies_are_rejected():
     cfg = configs.with_runtime(tiny_config(configs), remat=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 3"):
         SigLIP(cfg, device="cpu")
