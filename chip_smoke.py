@@ -10,8 +10,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                sm_90a (``jimm_tpu_torch/_build.py``).
 3. kernels  -- each kernel against its plain PyTorch version on the card, at
                the served and trained shapes and some odd ones, forward and
-               backward, in f32 (max abs error <= 1e-4, relative to the
-               reference's scale for the backward, TF32 off) and bf16
+               backward, the masked flash kernels (NaFlex) with the
+               synthetic NaFlex batches' masks and odd masks (a query row
+               with no key to attend is checked for finiteness only), in
+               f32 (max abs error <= 1e-4, relative to the reference's
+               scale for the backward, TF32 off) and bf16
                (cosine >= 0.999 and max abs error <= 2**-7 of the largest
                reference value, about one bf16 step; a bf16 reference that
                is zero up to rounding, max abs error <= 1e-5); reports the
@@ -19,7 +22,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                and of one PyTorch library call that computes the same
                function (a yardstick the port never calls), the kernel's
                time per call (CUDA events), and the least time the card
-               could take (bytes over 3.35 TB/s or flops over the peak).
+               could take (bytes over 3.35 TB/s or flops over the peak);
+               then the unmasked flash kernels' times at the train image
+               shape beside the times PERF.md records for them.
 4. serve    -- SigLIP-B/16-256 at full width in bf16, fused LayerNorm and
                flash attention, random weights from a seeded generator,
                behind the port's HTTP server with buckets (1, 8, 32): 48
@@ -49,7 +54,25 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                --ln-impl fused --batch-size 128`` for a few steps on its
                synthetic pairs, whose metric lines must show a finite loss
                and an MFU, with the same launches per step. Its launch
-               counts are the ones the kernels' JSON record reports.
+               counts are the ones the kernels' JSON record reports for the
+               unmasked kernels.
+6. naflex   -- SigLIP2-B/16-256 (Gemma vocabulary, 256000) at full width on
+               NaFlex variable-resolution batches from
+               ``naflex_contrastive_pairs`` (grids 9x27, 16x16, 27x9, 11x22:
+               243, 256, 243 and 242 of 256 tokens real), fused LayerNorm,
+               flash attention: (a) in f32 at batch 8, one step's gradients
+               through the kernels against the plain versions, as 5(a);
+               (b) ``encode_image_naflex`` in bf16 at batch 32 against the
+               plain-version forward (cosine >= 0.999, norms within 1%),
+               13 masked flash and 24 LayerNorm launches, and padded patches
+               poisoned with 1e4 must leave the features unchanged; (c) in
+               bf16 at batch 128, a fixed NaFlex batch repeated (step time,
+               images/s, MFU, peak memory, one profiled step), then the
+               command ``train --preset siglip2-base-patch16-256 --naflex
+               --bf16 --ln-impl fused --batch-size 128`` in this process,
+               with 13 masked and 12 unmasked flash and 48 LayerNorm
+               launches forward and backward per step. Its counts are the
+               ones the JSON record reports for the masked kernels.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -77,6 +100,7 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 
 from jimm_tpu_torch import _build, cli, configs
+from jimm_tpu_torch.data.synthetic import naflex_contrastive_pairs
 from jimm_tpu_torch.models.siglip import SigLIP
 from jimm_tpu_torch.nn import norm as norm_mod
 from jimm_tpu_torch.ops import attention as attention_mod
@@ -107,10 +131,19 @@ LN_PER_BATCH = 24      # ln1 + ln2 of 12 blocks (ln_post, head ln: plain LN)
 FLASH_PER_STEP = 25    # 12 vision blocks + the MAP probe + 12 text blocks
 LN_PER_STEP = 48       # ln1 + ln2 of 24 blocks (ln_post, head, ln_final: plain)
 TRAIN_GRAD_REL_ERR = 1e-3
+NAFLEX_PRESET = "siglip2-base-patch16-256"
+NAFLEX_MASKED_PER_STEP = 13   # 12 vision blocks + the MAP probe, masked
+NAFLEX_FLASH_PER_STEP = 12    # 12 text blocks, unmasked
+NAFLEX_SERVE_BATCH = 32
+#: the unmasked flash kernels at the train image shape (128, 256, 12, 64),
+#: bf16, as PERF.md's kernel table records them (NVIDIA H100 80GB HBM3,
+#: 700.00 W)
+RECORDED_MS = {"flash_attention": 1.2623, "flash_attention_bwd": 3.9728}
 TRAIN_BATCH = 128
 TRAIN_WARMUP = 3
 TRAIN_STEPS = 10
 CLI_STEPS = 5
+NAFLEX_TRAIN_STEPS = 5
 
 
 class SmokeFailure(Exception):
@@ -271,6 +304,143 @@ def flash_case(qshape: tuple[int, int, int, int], sk: int, causal: bool,
             "bound_ms": bound, "bound_by": by}
 
 
+_NAFLEX_MASKS: dict[int, torch.Tensor] = {}
+
+
+def naflex_mask(batch: int) -> torch.Tensor:
+    """The key-padding mask of the first ``naflex_contrastive_pairs`` batch
+    of the SigLIP2-B/16-256 train command (256-token budget; grids 9x27,
+    16x16, 27x9, 11x22 in turn), on the card."""
+    if batch not in _NAFLEX_MASKS:
+        cfg = configs.preset(NAFLEX_PRESET)
+        (_, _, mask), _ = next(naflex_contrastive_pairs(
+            batch, patch_size=cfg.vision.patch_size,
+            max_num_patches=cfg.vision.num_patches,
+            seq_len=cfg.text.context_length, vocab_size=cfg.text.vocab_size))
+        _NAFLEX_MASKS[batch] = torch.from_numpy(mask).cuda()
+    return _NAFLEX_MASKS[batch]
+
+
+def key_mask(kind: str, b: int, sk: int, g: torch.Generator
+             ) -> torch.Tensor:
+    """(B, Sk) bool, True = attend: ``naflex``, the NaFlex train batches'
+    masks; ``lenL``, an L-key prefix; ``sparse``, ~70% of keys padded;
+    ``empty_row``, sparse with sample 1 fully padded."""
+    if kind == "naflex":
+        return naflex_mask(b)
+    if kind.startswith("len"):
+        cols = torch.arange(sk, device="cuda")
+        return (cols < int(kind[3:]))[None, :].expand(b, sk).contiguous()
+    m = torch.rand(b, sk, generator=g, device="cuda") > 0.7
+    m[:, 0] = True
+    if kind == "empty_row":
+        m[1] = False
+    return m
+
+
+def attended(mask: torch.Tensor, sq: int, causal: bool) -> torch.Tensor:
+    """(B, Sq, Sk) bool: the (query, key) pairs the key-padding mask and the
+    causal triangle let through. Its sum is the work the inputs need; a
+    query row with no pair gives finite garbage, checked for finiteness
+    only. Also SDPA's boolean mask, with a head axis added."""
+    keep = mask[:, None, :].expand(-1, sq, -1)
+    if causal:
+        keep = keep & torch.ones(sq, mask.shape[1], dtype=torch.bool,
+                                 device="cuda").tril()
+    return keep
+
+
+def masked_flash_case(qshape: tuple[int, int, int, int], sk: int,
+                      causal: bool, kind: str, dtype: torch.dtype,
+                      seed: int) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, sq, n, d = qshape
+    q = torch.randn(b, sq, n, d, generator=g, device="cuda").to(dtype)
+    k = torch.randn(b, sk, n, d, generator=g, device="cuda").to(dtype)
+    v = torch.randn(b, sk, n, d, generator=g, device="cuda").to(dtype)
+    mask = key_mask(kind, b, sk, g)
+    o, lse = fa.flash_attention_lse(q, k, v, is_causal=causal, mask=mask)
+    torch.cuda.synchronize()
+    po, plse = fa.flash_attention_plain(q, k, v, is_causal=causal, mask=mask)
+    check(bool(torch.isfinite(o).all() and torch.isfinite(lse).all()),
+          f"masked flash {qshape} {kind}: non-finite output")
+    keep = attended(mask, sq, causal)
+    live = keep.any(-1)
+    err, cos, peak = compare(o[live], po[live])
+    lse_err = compare(lse.transpose(1, 2)[live],
+                      plse.transpose(1, 2)[live])[0]
+    check(within(dtype, err, cos, peak) and lse_err <= F32_MAX_ERR,
+          f"masked flash {qshape} sk={sk} causal={causal} {kind} {dtype}: "
+          f"err {err} cos {cos} lse err {lse_err}")
+    flops = 4.0 * n * d * keep.sum().item()
+    nbytes = sum(t.nbytes for t in (q, k, v, o, lse, mask))
+    bound, by = bound_ms(nbytes, flops, dtype)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa_mask = keep[:, None]
+
+    def kernel():
+        return fa.flash_attention_lse(q, k, v, is_causal=causal, mask=mask)
+
+    return {"shape": f"q{qshape} sk={sk} {kind}"
+            + (" causal" if causal else ""),
+            "dtype": str(dtype)[6:], "max_abs_err": err, "cosine": cos,
+            "dead_rows": int((~live).sum().item()),
+            "ms": device_ms(kernel), "call_ms": cuda_ms(kernel),
+            "plain_ms": device_ms(lambda: fa.flash_attention_plain(
+                q, k, v, is_causal=causal, mask=mask)),
+            "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=sdpa_mask)),
+            "bound_ms": bound, "bound_by": by}
+
+
+def masked_flash_bwd_case(qshape: tuple[int, int, int, int], sk: int,
+                          causal: bool, kind: str, dtype: torch.dtype,
+                          seed: int) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, sq, n, d = qshape
+    q, do = (torch.randn(b, sq, n, d, generator=g, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, sk, n, d, generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    mask = key_mask(kind, b, sk, g)
+    keep = attended(mask, sq, causal)
+    do = do * keep.any(-1)[:, :, None, None].to(dtype)  # dead rows: none
+    o, lse = fa.flash_attention_plain(q, k, v, is_causal=causal, mask=mask)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, is_causal=causal,
+                                 mask=mask)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                        is_causal=causal, mask=mask)
+    errs = [compare(a, w) for a, w in zip(got, want)]
+    check(all(within(dtype, *e, relative=True) for e in errs),
+          f"masked flash_bwd {qshape} sk={sk} causal={causal} {kind} "
+          f"{dtype}: (err, cos, peak) of dq, dk, dv {errs}")
+    check(not got[1][~mask].any() and not got[2][~mask].any(),
+          f"masked flash_bwd {qshape} {kind}: a masked key got a gradient")
+    flops = 10.0 * n * d * keep.sum().item()
+    nbytes = (sum(t.nbytes for t in (q, k, v, o, lse, do, mask))
+              + lse.nbytes + sum(t.nbytes for t in got))
+    bound, by = bound_ms(nbytes, flops, dtype)
+    qt, kt, vt = (t.transpose(1, 2).detach().clone().requires_grad_()
+                  for t in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep[:, None])
+
+    def kernel():
+        return fa.flash_attention_bwd(q, k, v, o, lse, do, is_causal=causal,
+                                      mask=mask)
+
+    return {"shape": f"q{qshape} sk={sk} {kind}"
+            + (" causal" if causal else ""),
+            "dtype": str(dtype)[6:], "max_abs_err": max(e[0] for e in errs),
+            "cosine": min(e[1] for e in errs),
+            "ms": device_ms(kernel), "call_ms": cuda_ms(kernel),
+            "plain_ms": device_ms(lambda: fa.flash_attention_bwd_plain(
+                q, k, v, o, lse, do, is_causal=causal, mask=mask)),
+            "library_ms": device_ms(grad_ms(ot, (qt, kt, vt),
+                                            do.transpose(1, 2))),
+            "bound_ms": bound, "bound_by": by}
+
+
 def ln_bwd_case(rows: int, f: int, dtype: torch.dtype, seed: int) -> dict:
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = (torch.randn(rows, f, generator=g, device="cuda") * 2 + 0.5).to(dtype)
@@ -341,6 +511,19 @@ def flash_bwd_case(qshape: tuple[int, int, int, int], sk: int, causal: bool,
             "bound_ms": bound, "bound_by": by}
 
 
+def unmasked_against_recorded(cases: list[tuple[str, dict]],
+                              card: str) -> None:
+    """The unmasked flash kernels at the train step's image shape beside
+    the times PERF.md records for them: the masked instantiations must not
+    move them."""
+    for name, c in cases:
+        if (c["shape"] == "q(128, 256, 12, 64) sk=256"
+                and c["dtype"] == "bfloat16" and name in RECORDED_MS):
+            print(f"kernel {name} {c['shape']} bfloat16: {c['ms']:.4f} ms, "
+                  f"PERF.md records {RECORDED_MS[name]:.4f} ms (ratio "
+                  f"{c['ms'] / RECORDED_MS[name]:.3f}) | {card}", flush=True)
+
+
 def kernel_phase(card: str) -> dict[str, dict]:
     """Runs every case; returns the first case of each kernel (bf16, at the
     shape of its main path)."""
@@ -387,6 +570,34 @@ def kernel_phase(card: str) -> dict[str, dict]:
                 ((2, 1, 2, 80), 257, False), ((1, 70, 1, 256), 130, True)]):
             add("flash_attention_bwd",
                 flash_bwd_case(qshape, sk, causal, dtype, 30 + i))
+        # masked flash (kernel row 4, row 7's mask kind): the NaFlex train
+        # shapes (batch 128) with the synthetic generator's masks, a
+        # serve-like batch of 32, and odd ones, one with a fully masked
+        # sample (its rows checked for finiteness only)
+        for i, (qshape, sk, causal, kind) in enumerate([
+                ((128, 256, 12, 64), 256, False, "naflex"),  # image
+                ((128, 1, 12, 64), 256, False, "naflex"),    # MAP probe
+                ((32, 256, 12, 64), 256, False, "naflex"),   # serve batch
+                ((32, 1, 12, 64), 256, False, "naflex"),
+                ((2, 5, 2, 80), 5, True, "sparse"),
+                ((2, 257, 2, 64), 257, False, "len63"),
+                ((2, 257, 2, 80), 257, False, "len65"),
+                ((2, 1, 2, 80), 257, False, "sparse"),
+                ((2, 65, 2, 64), 65, False, "empty_row"),
+                ((1, 70, 1, 256), 130, True, "sparse")]):
+            add("flash_attention_masked", masked_flash_case(
+                qshape, sk, causal, kind, dtype, 50 + i))
+        for i, (qshape, sk, causal, kind) in enumerate([
+                ((128, 256, 12, 64), 256, False, "naflex"),  # image
+                ((128, 1, 12, 64), 256, False, "naflex"),    # MAP probe
+                ((2, 5, 2, 80), 5, True, "sparse"),
+                ((2, 257, 2, 64), 257, False, "len64"),
+                ((2, 1, 2, 80), 257, False, "sparse"),
+                ((2, 65, 2, 64), 65, False, "empty_row"),
+                ((1, 70, 1, 256), 130, True, "sparse")]):
+            add("flash_attention_masked_bwd", masked_flash_bwd_case(
+                qshape, sk, causal, kind, dtype, 70 + i))
+    unmasked_against_recorded(cases, card)
     first = {}
     for name, c in cases:  # the first case of each kernel: bf16, main shape
         first.setdefault(name, c)
@@ -438,7 +649,7 @@ def serve_phase(card: str) -> dict:
     bulk = {"images": [_b64(img) for img in images[48:]]}
     try:
         torch.cuda.reset_peak_memory_stats()
-        fa.launches = fa.bwd_launches = ln.launches = ln.bwd_launches = 0
+        zero_counts()
         t_start = time.perf_counter()
         with ThreadPoolExecutor(16) as pool:
             answers = list(pool.map(lambda p: _post(server.port, p), singles))
@@ -509,8 +720,15 @@ def plain_versions():
     def plain_flash(q, k, v, *, is_causal=False):
         return fa.flash_attention_plain(q, k, v, is_causal=is_causal)[0]
 
+    def plain_masked(q, k, v, mask, *, is_causal=False):
+        mask = fa.canon_mask(mask, q.shape[0], k.shape[1])
+        return fa.flash_attention_plain(q, k, v, is_causal=is_causal,
+                                        mask=mask)[0]
+
     with mock.patch.object(norm_mod, "layer_norm", plain_ln), \
-            mock.patch.object(attention_mod, "flash_attention", plain_flash):
+            mock.patch.object(attention_mod, "flash_attention", plain_flash), \
+            mock.patch.object(attention_mod, "flash_attention_masked",
+                              plain_masked):
         yield
 
 
@@ -575,22 +793,22 @@ def _batch(cfg, batch: int, dtype: torch.dtype, seed: int
     return images, text
 
 
-def train_grads_phase(card: str) -> None:
-    """(a) f32, batch 8: one step's gradients through the kernels against
-    the same step with the plain versions swapped in."""
-    model = _train_model(torch.float32)
-    images, text = _batch(model.config, 8, torch.float32, 1)
-    fa.bwd_launches = ln.bwd_launches = 0
+def grads_phase(model: SigLIP, images, text, want: dict[str, int],
+                label: str, card: str) -> None:
+    """One f32 step's gradients through the kernels (whose launches must
+    be ``want``) against the same step with the plain versions swapped in:
+    every parameter within 1e-3 of its largest gradient."""
+    zero_counts()
     contrastive_loss_fn(model, images, text, kind="siglip").backward()
-    check(fa.bwd_launches == FLASH_PER_STEP and ln.bwd_launches == LN_PER_STEP,
-          f"f32 step: {fa.bwd_launches} flash and {ln.bwd_launches} "
-          f"layer_norm backward launches")
+    counts = read_counts()
+    check(all(counts[k] == n for k, n in want.items()),
+          f"{label}: launch counts {counts}, want {want}")
     got = {n: p.grad.clone() for n, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
     with plain_versions():
         contrastive_loss_fn(model, images, text, kind="siglip").backward()
-    check(fa.bwd_launches == FLASH_PER_STEP and ln.bwd_launches == LN_PER_STEP,
-          "the plain-version step launched a backward kernel")
+    check(read_counts() == counts,
+          f"{label}: the plain-version step launched a kernel")
     worst = (0.0, "")
     params = dict(model.named_parameters())
     check(all(got[n] is not None and p.grad is not None
@@ -605,13 +823,23 @@ def train_grads_phase(card: str) -> None:
         peak = max(p.grad.abs().max().item(), floor)
         rel = (got[name] - p.grad).abs().max().item() / peak
         check(rel <= TRAIN_GRAD_REL_ERR,
-              f"f32 gradient of {name}: max abs error {rel:.3e} of its "
+              f"{label} gradient of {name}: max abs error {rel:.3e} of its "
               f"largest value")
         worst = max(worst, (rel, name))
-    print(f"train: f32 batch 8, {len(got)} parameter gradients through the "
-          f"kernels match the plain versions; worst max abs error "
-          f"{worst[0]:.3e} of the largest value ({worst[1]}) | {card}",
-          flush=True)
+    print(f"{label}, {len(got)} parameter gradients through the kernels "
+          f"match the plain versions; worst max abs error {worst[0]:.3e} of "
+          f"the largest value ({worst[1]}) | {card}", flush=True)
+
+
+def train_grads_phase(card: str) -> None:
+    """(a) f32, batch 8: one step's gradients through the kernels against
+    the same step with the plain versions swapped in."""
+    model = _train_model(torch.float32)
+    images, text = _batch(model.config, 8, torch.float32, 1)
+    grads_phase(model, images, text,
+                {"flash_attention_bwd": FLASH_PER_STEP,
+                 "flash_attention_masked_bwd": 0,
+                 "layer_norm_bwd": LN_PER_STEP}, "train: f32 batch 8", card)
 
 
 def train_phase(card: str) -> dict[str, int]:
@@ -627,7 +855,7 @@ def train_phase(card: str) -> dict[str, int]:
     float(model.logit_scale.detach())
     counts = {"flash_attention": 0, "flash_attention_bwd": 0,
               "layer_norm": 0, "layer_norm_bwd": 0}
-    fa.launches = fa.bwd_launches = ln.launches = ln.bwd_launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     for _ in range(TRAIN_STEPS):
         losses.append(step(model, optimizer, images, text)["loss"])
@@ -686,22 +914,38 @@ def step_readout(model, optimizer, step, images, text, card: str) -> None:
               f"x{count:<4d} {key[:90]}", flush=True)
 
 
-def cli_train_phase(card: str) -> dict[str, int]:
+def zero_counts() -> None:
+    fa.launches = fa.bwd_launches = ln.launches = ln.bwd_launches = 0
+    fa.masked_launches = fa.masked_bwd_launches = 0
+
+
+def read_counts() -> dict[str, int]:
+    return {"flash_attention": fa.launches,
+            "flash_attention_bwd": fa.bwd_launches,
+            "flash_attention_masked": fa.masked_launches,
+            "flash_attention_masked_bwd": fa.masked_bwd_launches,
+            "layer_norm": ln.launches, "layer_norm_bwd": ln.bwd_launches}
+
+
+def cli_train_phase(card: str, naflex: bool = False) -> dict[str, int]:
     """(c) The ``train`` command, run in this process so that its launches
     can be counted: the counters are zeroed just before it and read just
-    after. Its JSON lines are printed with a ``cli:`` prefix."""
-    argv = ["train", "--preset", "siglip-base-patch16-256", "--bf16",
+    after. Its JSON lines are printed with a ``cli:`` prefix. With
+    ``naflex``, SigLIP2-B/16-256 on NaFlex batches (phase 6(c))."""
+    argv = ["train", "--preset", NAFLEX_PRESET if naflex
+            else "siglip-base-patch16-256", "--bf16",
             "--ln-impl", "fused", "--steps", str(CLI_STEPS), "--batch-size",
-            str(TRAIN_BATCH), "--log-every", "1"]
+            str(TRAIN_BATCH), "--log-every", "1"] + (
+                ["--naflex"] if naflex else [])
     out = io.StringIO()
     with tempfile.TemporaryDirectory() as tmp:
         path = pathlib.Path(tmp) / "metrics.jsonl"
-        fa.launches = fa.bwd_launches = ln.launches = ln.bwd_launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
         with contextlib.redirect_stdout(out):
             rc = cli.main(argv + ["--metrics-file", str(path)])
-        counts = {"flash_attention": fa.launches,
-                  "flash_attention_bwd": fa.bwd_launches,
-                  "layer_norm": ln.launches, "layer_norm_bwd": ln.bwd_launches}
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
         logged = [json.loads(line) for line in path.read_text().splitlines()]
     printed = out.getvalue().splitlines()
     for line in printed:
@@ -714,14 +958,147 @@ def cli_train_phase(card: str) -> dict[str, int]:
           f"train command logged steps {[r['step'] for r in logged]}")
     check(all(math.isfinite(r["loss"]) and r["mfu"] is not None
               for r in logged), f"train command metrics: {logged}")
-    want = {"flash_attention": FLASH_PER_STEP, "flash_attention_bwd":
-            FLASH_PER_STEP, "layer_norm": LN_PER_STEP,
-            "layer_norm_bwd": LN_PER_STEP}
+    flash, masked = ((NAFLEX_FLASH_PER_STEP, NAFLEX_MASKED_PER_STEP)
+                     if naflex else (FLASH_PER_STEP, 0))
+    want = {"flash_attention": flash, "flash_attention_bwd": flash,
+            "flash_attention_masked": masked,
+            "flash_attention_masked_bwd": masked,
+            "layer_norm": LN_PER_STEP, "layer_norm_bwd": LN_PER_STEP}
     check(all(counts[k] == want[k] * CLI_STEPS for k in want),
           f"train command launch counts over {CLI_STEPS} steps: {counts}")
+    times = [r["step_time_s"] * 1e3 for r in logged]
     print(f"cli: train command, {CLI_STEPS} steps at batch {TRAIN_BATCH}: "
-          f"launches {counts} | {card}", flush=True)
+          f"launches {counts}; step times {[round(t, 3) for t in times]} ms; "
+          f"torch.cuda.max_memory_allocated {peak} bytes "
+          f"({peak / 2**30:.2f} GiB) | {card}", flush=True)
     return counts
+
+
+# -- phase 6: NaFlex ---------------------------------------------------------
+
+def _naflex_model(dtype: torch.dtype) -> SigLIP:
+    cfg = configs.with_runtime(configs.preset(NAFLEX_PRESET),
+                               ln_impl="fused")
+    check(cfg.vision.attn_impl == "auto", "preset attn_impl changed")
+    return SigLIP(cfg, device="cuda", dtype=dtype,
+                  generator=torch.Generator(device="cuda").manual_seed(0))
+
+
+def _naflex_batch(cfg, batch: int, dtype: torch.dtype, seed: int):
+    """One ``naflex_contrastive_pairs`` batch on the card, as the train
+    command makes it: ``((patches, spatial_shapes, mask), text)``."""
+    triple, text = next(naflex_contrastive_pairs(
+        batch, patch_size=cfg.vision.patch_size,
+        max_num_patches=cfg.vision.num_patches,
+        seq_len=cfg.text.context_length, vocab_size=cfg.text.vocab_size,
+        seed=seed))
+    return (cli.naflex_to_device(triple, torch.device("cuda"), dtype),
+            torch.from_numpy(text).to("cuda", torch.long))
+
+
+def naflex_grads_phase(card: str) -> None:
+    """(a) f32, batch 8: one NaFlex step's gradients through the kernels
+    against the plain versions."""
+    model = _naflex_model(torch.float32)
+    images, text = _naflex_batch(model.config, 8, torch.float32, 1)
+    check(not bool(images[2].all()), "the NaFlex batch has no padding")
+    grads_phase(model, images, text,
+                {"flash_attention_masked": NAFLEX_MASKED_PER_STEP,
+                 "flash_attention_masked_bwd": NAFLEX_MASKED_PER_STEP,
+                 "flash_attention": NAFLEX_FLASH_PER_STEP,
+                 "flash_attention_bwd": NAFLEX_FLASH_PER_STEP,
+                 "layer_norm": LN_PER_STEP, "layer_norm_bwd": LN_PER_STEP},
+                "naflex: f32 batch 8", card)
+
+
+def naflex_forward_phase(card: str) -> None:
+    """(b) bf16, batch 32: ``encode_image_naflex`` through the kernels
+    against the plain-version forward, and poisoned padding."""
+    model = _naflex_model(torch.bfloat16)
+    model.eval()
+    (patches, shapes, mask), _ = _naflex_batch(
+        model.config, NAFLEX_SERVE_BATCH, torch.bfloat16, 3)
+    with torch.inference_mode():
+        zero_counts()
+        got = model.encode_image_naflex(patches, shapes, mask).float()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check(counts["flash_attention_masked"] == NAFLEX_MASKED_PER_STEP
+              and counts["flash_attention"] == 0
+              and counts["layer_norm"] == LN_PER_BATCH,
+              f"encode_image_naflex launches {counts}")
+        with plain_versions():
+            ref = model.encode_image_naflex(patches, shapes, mask).float()
+        check(read_counts() == counts,
+              "the plain-version forward launched a kernel")
+        poisoned = patches.clone()
+        poisoned[~mask] = 1e4
+        out = model.encode_image_naflex(poisoned, shapes, mask).float()
+    check(bool(torch.isfinite(got).all()), "non-finite NaFlex features")
+    cos = F.cosine_similarity(got, ref, dim=1)
+    norm_err = (got.norm(dim=1) / ref.norm(dim=1) - 1).abs()
+    check(bool((cos >= SERVE_MIN_COS).all()),
+          f"NaFlex features vs plain forward: min cosine {cos.min()}")
+    check(bool((norm_err <= SERVE_NORM_RTOL).all()),
+          f"NaFlex features vs plain forward: norm off by {norm_err.max()}")
+    leak = (out - got).abs().max().item()
+    check(bool(torch.isfinite(out).all())
+          and leak <= 1e-3 * got.abs().max().item(),
+          f"poisoned padding moved the features by {leak}")
+    print(f"naflex: encode_image_naflex bf16 batch {NAFLEX_SERVE_BATCH}: "
+          f"launches {counts}; min cosine {cos.min().item():.6f} against "
+          f"the plain versions, norms within {norm_err.max().item():.2e}; "
+          f"poisoned padding moved the features by {leak:.3e} | {card}",
+          flush=True)
+    with torch.inference_mode():
+        def fwd():
+            return model.encode_image_naflex(patches, shapes, mask)
+
+        k_call, k_dev = cuda_ms(fwd, iters=10), device_ms(fwd, iters=10)
+    print(f"naflex: encode_image_naflex batch {NAFLEX_SERVE_BATCH}: "
+          f"{k_call:.3f} ms per call, {k_dev:.3f} ms device busy | {card}",
+          flush=True)
+
+
+def naflex_train_phase(card: str) -> None:
+    """(c, first part) bf16, batch 128, one fixed NaFlex batch repeated:
+    step time, MFU, peak memory and one profiled step."""
+    model = _naflex_model(torch.bfloat16)
+    cfg = model.config
+    optimizer = make_optimizer(model, OptimizerConfig(learning_rate=1e-3))
+    step = make_contrastive_train_step("siglip")
+    images, text = _naflex_batch(cfg, TRAIN_BATCH, torch.bfloat16, 2)
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(model, optimizer, images, text)["loss"]
+              for _ in range(TRAIN_WARMUP)]
+    float(model.logit_scale.detach())
+    zero_counts()
+    t0 = time.perf_counter()
+    for _ in range(NAFLEX_TRAIN_STEPS):
+        losses.append(step(model, optimizer, images, text)["loss"])
+    float(model.logit_scale.detach())
+    dt = (time.perf_counter() - t0) / NAFLEX_TRAIN_STEPS
+    counts = read_counts()
+    want = {"flash_attention": NAFLEX_FLASH_PER_STEP,
+            "flash_attention_bwd": NAFLEX_FLASH_PER_STEP,
+            "flash_attention_masked": NAFLEX_MASKED_PER_STEP,
+            "flash_attention_masked_bwd": NAFLEX_MASKED_PER_STEP,
+            "layer_norm": LN_PER_STEP, "layer_norm_bwd": LN_PER_STEP}
+    check(all(counts[k] == want[k] * NAFLEX_TRAIN_STEPS for k in want),
+          f"NaFlex train launch counts over {NAFLEX_TRAIN_STEPS} steps: "
+          f"{counts}")
+    loss = torch.stack(losses).float().cpu()
+    check(bool(torch.isfinite(loss).all()), f"non-finite loss: {loss}")
+    peak = torch.cuda.max_memory_allocated()
+    flops = train_step_flops(cfg, TRAIN_BATCH)
+    print(f"naflex: train bf16 batch {TRAIN_BATCH}, {NAFLEX_TRAIN_STEPS} "
+          f"timed steps after {TRAIN_WARMUP} warm-up: loss "
+          f"{loss[0].item():.4f} -> {loss[-1].item():.4f}; step "
+          f"{dt * 1e3:.3f} ms, {TRAIN_BATCH / dt:.1f} images/s, MFU "
+          f"{mfu(flops, dt, 989.0):.4f} of 989 TFLOP/s "
+          f"({flops / 1e12:.3f} TFLOP a step), torch.cuda.max_memory_allocated "
+          f"{peak} bytes ({peak / 2**30:.2f} GiB) | {card}", flush=True)
+    step_readout(model, optimizer, step, images, text, card)
 
 
 def main() -> int:
@@ -736,22 +1113,39 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     print(f"device: {name} ({torch.cuda.device_count()} visible); "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    t0 = time.perf_counter()
+
+    def done(phase: str) -> None:
+        print(f"phase: {phase} done at {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
     try:
-        t0 = time.perf_counter()
         built = _build.library_path().exists()
         _build.load()
         print(f"build: {_build.library_path().name} (nvcc, sm_90a) "
               f"{'found' if built else 'built'} in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         timed = kernel_phase(card)
+        done("kernels")
         serve_counts = serve_phase(card)
+        done("serve")
         train_grads_phase(card)
         train_phase(card)
         train_counts = cli_train_phase(card)
+        done("train")
+        naflex_grads_phase(card)
+        naflex_forward_phase(card)
+        naflex_train_phase(card)
+        naflex_counts = cli_train_phase(card, naflex=True)
+        done("naflex")
         check(all(math.isfinite(timed[k]["ms"]) for k in timed), "bad timing")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
         return 1
+    # each kernel's launches come from the train command of its main path:
+    # SigLIP-B/16-256 for the unmasked kernels, SigLIP2-B/16-256 on NaFlex
+    # batches for the masked ones; every kernel also runs on the NaFlex path
+    masked = ("flash_attention_masked", "flash_attention_masked_bwd")
     sources = {
         "layer_norm": ("jimm_tpu_torch/csrc/layer_norm.cu",
                        "jimm_tpu/ops/layer_norm.py:52"),
@@ -760,13 +1154,21 @@ def main() -> int:
         "flash_attention": ("jimm_tpu_torch/csrc/flash_attention.cu",
                             "jimm_tpu/ops/flash_attention.py:136"),
         "flash_attention_bwd": ("jimm_tpu_torch/csrc/flash_attention_bwd.cu",
-                                "jimm_tpu/ops/flash_attention.py:241,293")}
+                                "jimm_tpu/ops/flash_attention.py:241,293"),
+        # the has_mask kind of the same TPU kernels
+        "flash_attention_masked": ("jimm_tpu_torch/csrc/flash_attention.cu",
+                                   "jimm_tpu/ops/flash_attention.py:136"),
+        "flash_attention_masked_bwd": (
+            "jimm_tpu_torch/csrc/flash_attention_bwd.cu",
+            "jimm_tpu/ops/flash_attention.py:241,293")}
     record = []
     for kernel, (source, replaces) in sources.items():
         c = timed[kernel]
+        launches = (naflex_counts if kernel in masked else train_counts)[kernel]
         entry = {"name": kernel, "route": "cuda", "source": source,
-                 "replaces": replaces, "launches": train_counts[kernel],
-                 "launches_per_train_step": train_counts[kernel] // CLI_STEPS,
+                 "replaces": replaces, "launches": launches,
+                 "launches_per_train_step": launches // CLI_STEPS,
+                 "naflex_launches": naflex_counts[kernel],
                  "max_abs_err": c["max_abs_err"], "ms": c["ms"],
                  "call_ms": c["call_ms"], "plain_ms": c["plain_ms"],
                  "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],

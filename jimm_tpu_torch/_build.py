@@ -40,10 +40,12 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "jimm_layer_norm_fwd": [_P] * 6 + [_L, _I, ctypes.c_float, _I, _P],
     "jimm_layer_norm_bwd": [_P] * 8 + [_L, _I, _I, _I, _P],
+    # ..., scale, causal, mask (null for none), mask batch stride, dtype,
+    # stream
     "jimm_flash_attention_fwd": ([_P] * 5 + [_I] * 5 + [_L] * 9
-                                 + [ctypes.c_float, _I, _I, _P]),
+                                 + [ctypes.c_float, _I, _P, _L, _I, _P]),
     "jimm_flash_attention_bwd": ([_P] * 9 + [_I] * 5 + [_L] * 12
-                                 + [ctypes.c_float, _I, _I, _P]),
+                                 + [ctypes.c_float, _I, _P, _L, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -9,7 +9,9 @@ warms every bucket, and prints one JSON ready line with
 ``train`` trains a SigLIP preset contrastively on synthetic pairs
 (``data/synthetic.py``) with AdamW, clipping and the warmup-cosine schedule
 of the JAX package's ``train`` command, printing one JSON metrics line per
-logged step and a JSON summary line at the end.
+logged step and a JSON summary line at the end. With ``--naflex`` the image
+side is SigLIP2's variable-resolution NaFlex batches (mixed-aspect synthetic
+images as padded patch sequences with a key-padding mask).
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import time
 import torch
 
 from jimm_tpu_torch.configs import PRESETS, SigLIPConfig, preset, with_runtime
-from jimm_tpu_torch.data.synthetic import contrastive_pairs
+from jimm_tpu_torch.data.synthetic import (contrastive_pairs,
+                                            naflex_contrastive_pairs)
 from jimm_tpu_torch.models.siglip import SigLIP, _resolve_device
 from jimm_tpu_torch.serve.admission import AdmissionPolicy
 from jimm_tpu_torch.serve.buckets import BucketTable, default_buckets
@@ -100,17 +103,38 @@ _TRAIN_NOT_PORTED = {
 }
 
 
+def naflex_to_device(triple, device: torch.device, dtype: torch.dtype
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A NaFlex ``(patches, spatial_shapes, mask)`` numpy triple on the
+    device: patches in the model dtype, shapes int, mask bool."""
+    patches, shapes, mask = triple
+    return (torch.from_numpy(patches).to(device, dtype),
+            torch.from_numpy(shapes).to(device, torch.long),
+            torch.from_numpy(mask).to(device, torch.bool))
+
+
 def cmd_train(args: argparse.Namespace) -> int:
     for flag, where in _TRAIN_NOT_PORTED.items():
         if getattr(args, flag):
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet: "
                              f"{where}")
+    if args.naflex and not args.preset.startswith("siglip"):
+        raise SystemExit("--naflex trains SigLIP2-style models; "
+                         "use a siglip preset")
     device = _resolve_device(args.device)
     cfg = preset(args.preset)
     if args.tiny:
         cfg = tiny_override(cfg)
     runtime = {"attn_impl": args.attn_impl, "ln_impl": args.ln_impl,
                "fused_qkv": args.fused_qkv}
+    if args.attn_impl == "flash_masked":
+        # only the NaFlex vision tower has a mask; the text tower takes the
+        # unmasked kernels
+        if not args.naflex:
+            raise SystemExit("--attn-impl flash_masked needs --naflex (the "
+                             "fixed-resolution towers have no mask)")
+        runtime.update(attn_impl=None, vision={"attn_impl": "flash_masked"},
+                       text={"attn_impl": "flash"})
     cfg = with_runtime(cfg, **{k: v for k, v in runtime.items() if v})
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     model = SigLIP(cfg, device=device, dtype=dtype,
@@ -121,10 +145,18 @@ def cmd_train(args: argparse.Namespace) -> int:
         learning_rate=args.lr, weight_decay=args.weight_decay,
         warmup_steps=args.warmup_steps, total_steps=args.steps))
     step_fn = make_contrastive_train_step(args.loss)
-    data = contrastive_pairs(args.batch_size,
-                             image_size=cfg.vision.image_size,
-                             vocab_size=cfg.text.vocab_size,
-                             seq_len=cfg.text.context_length, seed=args.seed)
+    if args.naflex:
+        data = naflex_contrastive_pairs(
+            args.batch_size, patch_size=cfg.vision.patch_size,
+            max_num_patches=cfg.vision.num_patches,
+            seq_len=cfg.text.context_length, vocab_size=cfg.text.vocab_size,
+            seed=args.seed)
+    else:
+        data = contrastive_pairs(args.batch_size,
+                                 image_size=cfg.vision.image_size,
+                                 vocab_size=cfg.text.vocab_size,
+                                 seq_len=cfg.text.context_length,
+                                 seed=args.seed)
     logger = MetricsLogger(path=args.metrics_file,
                            print_every=args.log_every)
     timer = StepTimer()
@@ -134,7 +166,8 @@ def cmd_train(args: argparse.Namespace) -> int:
     try:
         for step in range(args.steps):
             images, text = next(data)
-            images = torch.from_numpy(images).to(device, dtype)
+            images = (naflex_to_device(images, device, dtype) if args.naflex
+                      else torch.from_numpy(images).to(device, dtype))
             text = torch.from_numpy(text).to(device, torch.long)
             timer.start()
             metrics = step_fn(model, optimizer, images, text)
@@ -150,7 +183,8 @@ def cmd_train(args: argparse.Namespace) -> int:
     print(json.dumps({
         "status": "trained", "steps": args.steps, "loss": loss,
         "step_time_s": dt, "model": f"siglip:{args.preset}"
-        + (":tiny" if args.tiny else ""), "device": str(device),
+        + (":tiny" if args.tiny else ""), "naflex": args.naflex,
+        "device": str(device),
         "device_name": (torch.cuda.get_device_name(device)
                         if device.type == "cuda" else "cpu"),
         "dtype": str(dtype).removeprefix("torch."),
@@ -202,9 +236,17 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--bf16", action="store_true",
                     help="bf16 parameters and compute (default f32)")
     sp.add_argument("--loss", default="siglip", choices=["siglip", "clip"])
+    sp.add_argument("--naflex", action="store_true",
+                    help="variable-resolution SigLIP2 training: NaFlex "
+                         "(patches, shapes, mask) batches of synthetic "
+                         "mixed-aspect images instead of square images")
     sp.add_argument("--attn-impl", default=None,
-                    choices=["auto", "xla", "flash"],
-                    help="attention for both towers (auto = flash on CUDA)")
+                    choices=["auto", "xla", "flash", "flash_masked"],
+                    help="attention for both towers (auto = flash on CUDA; "
+                         "flash takes the masked kernels where there is a "
+                         "key-padding mask; flash_masked = the masked "
+                         "kernels for the NaFlex vision tower, needs "
+                         "--naflex)")
     sp.add_argument("--ln-impl", default=None, choices=["xla", "fused"],
                     help="encoder LayerNorm (fused = the LayerNorm kernels)")
     sp.add_argument("--fused-qkv", action="store_true",

@@ -1,11 +1,30 @@
-// Softmax flash-attention forward for Hopper (sm_90a).
+// Softmax flash-attention forward for Hopper (sm_90a), with or without a
+// key-padding mask.
 //
 // Replaces the TPU kernel jimm_tpu/ops/flash_attention.py::_fwd_kernel,
-// softmax kind without mask or bias (launched by _fwd_pallas through
-// pl.pallas_call). Same numerics: the q.k score is accumulated in f32 and
-// scaled after the dot; masked scores are -1e30, not -inf; the running max
-// starts at -1e30 and the running sum at 0; a row with l == 0 divides by 1;
-// o = acc / l is stored in the input dtype and lse = m + log(l) in f32.
+// softmax kind without bias: without a mask (kernel row 3) and with one
+// (has_mask, kernel row 4, reached through flash_attention_masked; both
+// launched by _flash through pl.pallas_call). Same numerics: the q.k score
+// is accumulated in f32 and scaled after the dot; masked scores are -1e30,
+// not -inf; the running max starts at -1e30 and the running sum at 0; a row
+// with l == 0 divides by 1; o = acc / l is stored in the input dtype and
+// lse = m + log(l) in f32.
+//
+// The key-padding mask: the TPU kernel adds an f32 row of 0 / -1e30 per key,
+// expanded host-side to one row per (batch, head). Here the HAS_MASK
+// instantiation reads the caller's (B, Sk) mask, one byte a key (nonzero =
+// attend), at the CTA's own batch index: each k tile's 64 bytes are staged
+// in shared memory with the k/v tiles and folded into the keep predicate
+// that already masks ragged and causal keys. For a finite score
+// s + (-1e30) rounds to -1e30 in f32, so the select is the TPU's add. A
+// query row whose keys are all masked gives finite garbage, as on the TPU.
+// The HAS_MASK instantiation loads its k/v tiles with load_tile_batched:
+// with load_tile, nvcc laid its v loop out as branch-guarded single loads,
+// each waiting out its latency before the next store (in the SASS, one
+// LDG per STS where the unmasked kernel issues four), and the kernel took
+// 1.31x its unmasked twin's time on an H100 80GB HBM3 at 700 W (PERF.md,
+// chip_smoke.py). Without a mask (HAS_MASK false) the kernel is the
+// unmasked one, unchanged, with load_tile as it compiled before.
 //
 // Design (the FA2 arrangement): one CTA of 256 threads per (batch*head,
 // 64-row q tile). The TPU kernel makes the kv loop a sequential grid axis
@@ -29,7 +48,10 @@
 // time is set by those FMAs rather than by the bytes; the tensor-core
 // (mma/wgmma) version is later work. f32 tiles in shared memory keep each
 // input element converted once, and row strides padded by 4 floats keep the
-// float4 reads free of bank conflicts.
+// float4 reads free of bank conflicts. The mask adds B*Sk bytes to what is
+// read (32 KB at the NaFlex train shape, against ~200 MB of q/k/v/o), and
+// masked keys are computed like real ones, so the masked kernel should take
+// its unmasked twin's time.
 
 #include "common.cuh"
 
@@ -56,13 +78,44 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
   }
 }
 
+// load_tile, written for the compiler: kThreads is a multiple of DP, so a
+// thread's column is fixed and its rows advance by kThreads / DP; each load
+// address is then the thread's base plus a compile-time multiple of one
+// row step, and each thread issues four loads before their four stores
 template <typename T, int DP>
+__device__ __forceinline__ void load_tile_batched(float* dst, const T* src,
+                                                  long long row_stride,
+                                                  int r0, int n, int d) {
+  static_assert(kThreads % DP == 0, "a thread's column must be fixed");
+  constexpr int LD = DP + 4;
+  constexpr int kRowStep = kThreads / DP;     // 4, 2 or 1
+  constexpr int kSteps = kBK / kRowStep;      // 16, 32 or 64 rows a thread
+  const int c = threadIdx.x % DP, r = threadIdx.x / DP;
+  const bool col_in = c < d;
+  const T* base = src + static_cast<long long>(r0 + r) * row_stride + c;
+  const long long step = kRowStep * row_stride;
+  float* out = dst + r * LD + c;
+#pragma unroll
+  for (int s0 = 0; s0 < kSteps; s0 += 4) {
+    float val[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const bool in = col_in && r0 + r + (s0 + u) * kRowStep < n;
+      val[u] = in ? jimm::to_f32(base[(s0 + u) * step]) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) out[(s0 + u) * kRowStep * LD] = val[u];
+  }
+}
+
+template <typename T, int DP, bool HAS_MASK>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, float* __restrict__ lse, int heads, int sq, int sk,
     int d, long long q_sb, long long q_ss, long long q_sn, long long k_sb,
     long long k_ss, long long k_sn, long long v_sb, long long v_ss,
-    long long v_sn, float scale, int causal) {
+    long long v_sn, float scale, int causal,
+    const unsigned char* __restrict__ mask, long long mask_sb) {
   constexpr int LD = DP + 4;    // q/k/v tile row stride (floats)
   constexpr int LDP = kBK + 4;  // probability tile row stride
   constexpr int DG = DP / 64;   // float4 column groups of o per thread
@@ -71,6 +124,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   float* ks = qs + kBQ * LD;
   float* vs = ks + kBK * LD;
   float* ps = vs + kBK * LD;
+  __shared__ bool attend[HAS_MASK ? kBK : 1];  // the k tile's mask bytes
 
   const int bh = blockIdx.x;
   const int bi = bh / heads, h = bh % heads;
@@ -95,8 +149,16 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const int kv_end = causal ? min(sk, q0 + kBQ) : sk;
   for (int k0 = 0; k0 < kv_end; k0 += kBK) {
     __syncthreads();  // the previous tile's k/v/p are no longer read
-    load_tile<T, DP>(ks, kb, k_ss, k0, sk, d);
-    load_tile<T, DP>(vs, vb, v_ss, k0, sk, d);
+    if constexpr (HAS_MASK) {
+      load_tile_batched<T, DP>(ks, kb, k_ss, k0, sk, d);
+      load_tile_batched<T, DP>(vs, vb, v_ss, k0, sk, d);
+      const int col = k0 + threadIdx.x;
+      if (threadIdx.x < kBK)
+        attend[threadIdx.x] = col < sk && mask[bi * mask_sb + col] != 0;
+    } else {
+      load_tile<T, DP>(ks, kb, k_ss, k0, sk, d);
+      load_tile<T, DP>(vs, vb, v_ss, k0, sk, d);
+    }
     __syncthreads();
 
     float s[4][4];
@@ -131,7 +193,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx + 16 * j;
-        const bool keep = col < sk && (!causal || col <= row);
+        const bool keep = col < sk && (!causal || col <= row) &&
+                          (!HAS_MASK || attend[tx + 16 * j]);
         s[i][j] = keep ? s[i][j] * scale : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -212,12 +275,14 @@ struct Args {
   long long q_sb, q_ss, q_sn, k_sb, k_ss, k_sn, v_sb, v_ss, v_sn;
   float scale;
   int causal;
+  const void* mask;
+  long long mask_sb;
   cudaStream_t stream;
 };
 
-template <typename T, int DP>
+template <typename T, int DP, bool HAS_MASK>
 cudaError_t launch(const Args& a) {
-  auto kernel = flash_fwd_kernel<T, DP>;
+  auto kernel = flash_fwd_kernel<T, DP, HAS_MASK>;
   const int smem =
       ((kBQ + 2 * kBK) * (DP + 4) + kBQ * (kBK + 4)) * sizeof(float);
   cudaError_t err = jimm::allow_smem(kernel, smem);
@@ -228,35 +293,43 @@ cudaError_t launch(const Args& a) {
       static_cast<const T*>(a.v), static_cast<T*>(a.o),
       static_cast<float*>(a.lse), a.heads, a.sq, a.sk, a.d, a.q_sb, a.q_ss,
       a.q_sn, a.k_sb, a.k_ss, a.k_sn, a.v_sb, a.v_ss, a.v_sn, a.scale,
-      a.causal);
+      a.causal, static_cast<const unsigned char*>(a.mask), a.mask_sb);
   return cudaGetLastError();
+}
+
+template <typename T, int DP>
+cudaError_t with_mask(const Args& a) {
+  return a.mask ? launch<T, DP, true>(a) : launch<T, DP, false>(a);
 }
 
 template <typename T>
 cudaError_t dispatch(const Args& a) {
-  if (a.d <= 64) return launch<T, 64>(a);
-  if (a.d <= 128) return launch<T, 128>(a);
-  return launch<T, 256>(a);
+  if (a.d <= 64) return with_mask<T, 64>(a);
+  if (a.d <= 128) return with_mask<T, 128>(a);
+  return with_mask<T, 256>(a);
 }
 
 }  // namespace
 
 // q: (B, Sq, N, D), k/v: (B, Sk, N, D) in `dtype`, unit stride over D, the
 // other strides in elements. o: (B, Sq, N, D) contiguous in `dtype`;
-// lse: (B, N, Sq) contiguous f32. Returns the launch's cudaError_t.
+// lse: (B, N, Sq) contiguous f32. mask: null, or the (B, Sk) key-padding
+// mask, one byte a key (nonzero = attend), unit stride over Sk and batch
+// stride mask_sb. Returns the launch's cudaError_t.
 extern "C" int jimm_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int batch,
     int heads, int sq, int sk, int d, long long q_sb, long long q_ss,
     long long q_sn, long long k_sb, long long k_ss, long long k_sn,
     long long v_sb, long long v_ss, long long v_sn, float scale, int causal,
-    int dtype, void* stream) {
+    const void* mask, long long mask_sb, int dtype, void* stream) {
   if (batch < 1 || heads < 1 || sq < 1 || sk < 1 || d < 1 || d > 256 ||
       static_cast<long long>(batch) * heads > 0x7fffffffLL ||
       (sq + kBQ - 1) / kBQ > 65535)
     return cudaErrorInvalidValue;
-  const Args a{q,    k,    v,    o,    lse,  batch, heads, sq,
-               sk,   d,    q_sb, q_ss, q_sn, k_sb,  k_ss,  k_sn,
-               v_sb, v_ss, v_sn, scale, causal, static_cast<cudaStream_t>(stream)};
+  const Args a{q,    k,    v,    o,     lse,    batch, heads,   sq,
+               sk,   d,    q_sb, q_ss,  q_sn,   k_sb,  k_ss,    k_sn,
+               v_sb, v_ss, v_sn, scale, causal, mask,  mask_sb,
+               static_cast<cudaStream_t>(stream)};
   switch (dtype) {
     case jimm::kF32:
       return dispatch<float>(a);

@@ -1,8 +1,10 @@
-// Softmax flash-attention backward for Hopper (sm_90a): dq, and dk/dv.
+// Softmax flash-attention backward for Hopper (sm_90a): dq, and dk/dv, with
+// or without a key-padding mask.
 //
 // Replaces the TPU kernels jimm_tpu/ops/flash_attention.py::_bwd_dq_kernel
-// and ::_bwd_dkv_kernel (softmax kind, no mask or bias; launched by
-// _flash_bwd through pl.pallas_call). Same numerics (_ds_tile): the score
+// and ::_bwd_dkv_kernel, softmax kind without bias: without a mask and with
+// one (has_mask, the mask kind of kernel row 7; launched by _flash_bwd
+// through pl.pallas_call). Same numerics (_ds_tile): the score
 // s = (q . k) * scale is recomputed in f32 from the saved inputs,
 // p = exp(s - lse) from the forward's f32 logsumexp, dp = do . v in f32,
 // ds = p * (dp - delta) with delta = rowsum(do * o) (computed by the wrapper,
@@ -28,6 +30,15 @@
 // kernel; padded rows have lse 0 and exp(s - 0) overflows) are masked to
 // p = 0, as the TPU kernels mask them with `pos`; causal skips the tiles
 // wholly above the diagonal (top-left aligned) in both kernels.
+//
+// The key-padding mask (HAS_MASK): as in the forward kernel, the (B, Sk)
+// mask, one byte a key, is read at the CTA's batch index, staged in shared
+// memory with the k/v tiles (once per CTA in the dk/dv kernel, whose keys
+// are fixed) and folded into the keep predicate, so a masked key gets p = 0
+// and ds = 0, where the TPU's additive -1e30 row gives exp(-1e30 - lse) = 0:
+// zero dk and dv for masked keys. (A query row whose keys are all masked
+// gets p = 0 here and exp(0) on the TPU; under the zero cotangent that such
+// rows carry both give zero gradient.)
 //
 // What bounds it on the H100: at the training shapes (S <= 256, D = 64) the
 // bytes, ~20 bytes per (row, feature) in bf16 moved once, against
@@ -167,16 +178,19 @@ struct Args {
   Strides qs, ks, vs, dos;
   float scale;
   int causal;
+  const void* mask;
+  long long mask_sb;
   cudaStream_t stream;
 };
 
-template <typename T, int DP, int BQ, int BK>
+template <typename T, int DP, int BQ, int BK, bool HAS_MASK>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dq, int heads, int sq,
     int sk, int d, Strides qst, Strides kst, Strides vst, Strides dst,
-    float scale, int causal) {
+    float scale, int causal, const unsigned char* __restrict__ mask,
+    long long mask_sb) {
   constexpr int LD = DP + 4, RQ = BQ / 16, RK = BK / 16, LDS = BK + 4;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;
@@ -184,6 +198,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   float* ks = dos + BQ * LD;
   float* vs = ks + BK * LD;
   float* dss = vs + BK * LD;
+  __shared__ bool attend[HAS_MASK ? BK : 1];  // the k tile's mask bytes
 
   const int bh = blockIdx.x;
   const int bi = bh / heads, h = bh % heads;
@@ -214,6 +229,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     __syncthreads();  // the previous tile's k and ds are no longer read
     load_tile<T, DP, BK>(ks, kb, kst.s, k0, sk, d);
     load_tile<T, DP, BK>(vs, vb, vst.s, k0, sk, d);
+    if constexpr (HAS_MASK) {
+      const int col = k0 + threadIdx.x;
+      if (threadIdx.x < BK)
+        attend[threadIdx.x] = col < sk && mask[bi * mask_sb + col] != 0;
+    }
     __syncthreads();
     float s[RQ][RK], dp[RQ][RK];
     tile_dots<DP, RQ, RK>(s, qs, ty * RQ, ks, tx);
@@ -224,7 +244,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 #pragma unroll
       for (int j = 0; j < RK; ++j) {
         const int col = k0 + tx + 16 * j;
-        const bool keep = row < sq && col < sk && (!causal || col <= row);
+        const bool keep = row < sq && col < sk && (!causal || col <= row) &&
+                          (!HAS_MASK || attend[tx + 16 * j]);
         const float p = keep ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
         dss[(ty * RQ + i) * LDS + tx + 16 * j] =
             round_to<T>(p * (dp[i][j] - delta_r[i]));
@@ -236,13 +257,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   store_rows<T, DP, RQ>(dq, acc, scale, bi, h, heads, q0, ty * RQ, sq, d, tx);
 }
 
-template <typename T, int DP, int BQ, int BK>
+template <typename T, int DP, int BQ, int BK, bool HAS_MASK>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
     int heads, int sq, int sk, int d, Strides qst, Strides kst, Strides vst,
-    Strides dst, float scale, int causal) {
+    Strides dst, float scale, int causal,
+    const unsigned char* __restrict__ mask, long long mask_sb) {
   constexpr int LD = DP + 4, RQ = BQ / 16, RK = BK / 16, LDS = BQ + 4;
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;
@@ -251,6 +273,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   float* dos = qs + BQ * LD;
   float* pts = dos + BQ * LD;
   float* dsts = pts + BK * LDS;
+  __shared__ bool attend[HAS_MASK ? BK : 1];  // this CTA's keys' mask bytes
 
   const int bh = blockIdx.x;
   const int bi = bh / heads, h = bh % heads;
@@ -269,6 +292,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
       dk_acc[a][c] = 0.f;
       dv_acc[a][c] = 0.f;
     }
+  if constexpr (HAS_MASK) {  // visible after the q loop's first barrier
+    const int col = k0 + threadIdx.x;
+    if (threadIdx.x < BK)
+      attend[threadIdx.x] = col < sk && mask[bi * mask_sb + col] != 0;
+  }
 
   // causal: q tiles whose last row lies before this k tile never attend to it
   const int q_begin = causal ? (k0 / BQ) * BQ : 0;
@@ -289,7 +317,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 #pragma unroll
       for (int a = 0; a < RK; ++a) {
         const int col = k0 + ty * RK + a;  // key row
-        const bool keep = row < sq && col < sk && (!causal || col <= row);
+        const bool keep = row < sq && col < sk && (!causal || col <= row) &&
+                          (!HAS_MASK || attend[ty * RK + a]);
         const float p = keep ? expf(s[a][b] * scale - l) : 0.f;
         pts[(ty * RK + a) * LDS + tx + 16 * b] = round_to<T>(p);
         dsts[(ty * RK + a) * LDS + tx + 16 * b] =
@@ -306,7 +335,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
                         tx);
 }
 
-template <typename T, int DP, int BQ, int BK>
+template <typename T, int DP, int BQ, int BK, bool HAS_MASK>
 cudaError_t launch(const Args& a) {
   constexpr int LD = DP + 4;
   const auto* q = static_cast<const T*>(a.q);
@@ -315,8 +344,9 @@ cudaError_t launch(const Args& a) {
   const auto* dout = static_cast<const T*>(a.dout);
   const auto* lse = static_cast<const float*>(a.lse);
   const auto* delta = static_cast<const float*>(a.delta);
+  const auto* mask = static_cast<const unsigned char*>(a.mask);
 
-  auto dq_kernel = flash_bwd_dq_kernel<T, DP, BQ, BK>;
+  auto dq_kernel = flash_bwd_dq_kernel<T, DP, BQ, BK, HAS_MASK>;
   const int dq_smem =
       ((2 * BQ + 2 * BK) * LD + BQ * (BK + 4)) * static_cast<int>(sizeof(float));
   cudaError_t err = jimm::allow_smem(dq_kernel, dq_smem);
@@ -324,11 +354,11 @@ cudaError_t launch(const Args& a) {
   dq_kernel<<<dim3(a.batch * a.heads, (a.sq + BQ - 1) / BQ), kThreads, dq_smem,
               a.stream>>>(q, k, v, dout, lse, delta, static_cast<T*>(a.dq),
                           a.heads, a.sq, a.sk, a.d, a.qs, a.ks, a.vs, a.dos,
-                          a.scale, a.causal);
+                          a.scale, a.causal, mask, a.mask_sb);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto dkv_kernel = flash_bwd_dkv_kernel<T, DP, BQ, BK>;
+  auto dkv_kernel = flash_bwd_dkv_kernel<T, DP, BQ, BK, HAS_MASK>;
   const int dkv_smem = ((2 * BQ + 2 * BK) * LD + 2 * BK * (BQ + 4)) *
                        static_cast<int>(sizeof(float));
   err = jimm::allow_smem(dkv_kernel, dkv_smem);
@@ -336,17 +366,24 @@ cudaError_t launch(const Args& a) {
   dkv_kernel<<<dim3(a.batch * a.heads, (a.sk + BK - 1) / BK), kThreads,
                dkv_smem, a.stream>>>(
       q, k, v, dout, lse, delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
-      a.heads, a.sq, a.sk, a.d, a.qs, a.ks, a.vs, a.dos, a.scale, a.causal);
+      a.heads, a.sq, a.sk, a.d, a.qs, a.ks, a.vs, a.dos, a.scale, a.causal,
+      mask, a.mask_sb);
   return cudaGetLastError();
+}
+
+template <typename T, int DP, int BQ, int BK>
+cudaError_t with_mask(const Args& a) {
+  return a.mask ? launch<T, DP, BQ, BK, true>(a)
+                : launch<T, DP, BQ, BK, false>(a);
 }
 
 template <typename T>
 cudaError_t dispatch(const Args& a) {
   // 64-row tiles up to D = 128; at 256 the f32 tiles take 32 rows to fit
   // the 227 KB of shared memory and keep the accumulators in registers
-  if (a.d <= 64) return launch<T, 64, 64, 64>(a);
-  if (a.d <= 128) return launch<T, 128, 64, 64>(a);
-  return launch<T, 256, 32, 32>(a);
+  if (a.d <= 64) return with_mask<T, 64, 64, 64>(a);
+  if (a.d <= 128) return with_mask<T, 128, 64, 64>(a);
+  return with_mask<T, 256, 32, 32>(a);
 }
 
 }  // namespace
@@ -354,8 +391,10 @@ cudaError_t dispatch(const Args& a) {
 // q, dout: (B, Sq, N, D), k/v: (B, Sk, N, D) in `dtype`, unit stride over D,
 // the other strides in elements. lse, delta: (B, N, Sq) contiguous f32.
 // dq: (B, Sq, N, D), dk/dv: (B, Sk, N, D) contiguous in `dtype`, every
-// element written. Launches the dq kernel, then the dk/dv kernel, on
-// `stream`. Returns the first failing launch's cudaError_t (0 = launched).
+// element written. mask: null, or the (B, Sk) key-padding mask, one byte a
+// key (nonzero = attend), unit stride over Sk and batch stride mask_sb.
+// Launches the dq kernel, then the dk/dv kernel, on `stream`. Returns the
+// first failing launch's cudaError_t (0 = launched).
 extern "C" int jimm_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, void* dk, void* dv,
@@ -363,7 +402,8 @@ extern "C" int jimm_flash_attention_bwd(
     long long q_ss, long long q_sn, long long k_sb, long long k_ss,
     long long k_sn, long long v_sb, long long v_ss, long long v_sn,
     long long do_sb, long long do_ss, long long do_sn, float scale,
-    int causal, int dtype, void* stream) {
+    int causal, const void* mask, long long mask_sb, int dtype,
+    void* stream) {
   if (batch < 1 || heads < 1 || sq < 1 || sk < 1 || d < 1 || d > 256 ||
       static_cast<long long>(batch) * heads > 0x7fffffffLL ||
       (sq + 31) / 32 > 65535 || (sk + 31) / 32 > 65535)
@@ -372,7 +412,8 @@ extern "C" int jimm_flash_attention_bwd(
                dq,     dk,     dv,    batch, heads, sq,
                sk,     d,      {q_sb, q_ss, q_sn},  {k_sb, k_ss, k_sn},
                {v_sb, v_ss, v_sn},    {do_sb, do_ss, do_sn},
-               scale,  causal, static_cast<cudaStream_t>(stream)};
+               scale,  causal, mask,  mask_sb,
+               static_cast<cudaStream_t>(stream)};
   switch (dtype) {
     case jimm::kF32:
       return dispatch<float>(a);

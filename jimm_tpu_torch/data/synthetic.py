@@ -1,13 +1,17 @@
 """Synthetic datasets for offline training: the port's numpy-only copy of
-``jimm_tpu/data/synthetic.py``'s ``blob_classification`` and
-``contrastive_pairs``. The same seed yields the same arrays as the JAX
-package's generators (the same RandomState draws in the same order)."""
+``jimm_tpu/data/synthetic.py``'s ``blob_classification``,
+``contrastive_pairs`` and ``naflex_contrastive_pairs``. The same seed yields
+the same arrays as the JAX package's generators (the same RandomState draws
+in the same order)."""
 
 from __future__ import annotations
 
 from typing import Iterator
 
 import numpy as np
+
+from jimm_tpu_torch.data.naflex import patchify_naflex
+from jimm_tpu_torch.data.preprocess import resize_bilinear
 
 
 def blob_classification(batch_size: int, *, image_size: int = 28,
@@ -65,3 +69,32 @@ def contrastive_pairs(batch_size: int, *, image_size: int = 32,
         text = rng.randint(4, vocab_size, size=(batch_size, seq_len))
         text[:, 0] = labels  # class token leads the caption
         yield images[lo:hi], text[lo:hi].astype(np.int32)
+
+
+def naflex_contrastive_pairs(batch_size: int, *, patch_size: int = 16,
+                             max_num_patches: int = 4, vocab_size: int = 64,
+                             seq_len: int = 8, seed: int = 0):
+    """:func:`contrastive_pairs` in NaFlex form: the square blob images are
+    resized to a cycling set of aspect ratios (wide, square, tall, 1:2)
+    before patchification, so every batch has variable grids, per-sample
+    position resampling and padding masks. Yields
+    ``((patches, spatial_shapes, mask), tokens)``. (The JAX generator's
+    ``shard_index`` / ``shard_count`` wait for multi-process training,
+    ROADMAP.md queue 1, item 6.)"""
+    base = patch_size * 2  # native square size before aspect warping
+    aspects = [(1.0, 3.0), (1.0, 1.0), (3.0, 1.0), (1.0, 2.0)]
+    pairs = contrastive_pairs(batch_size, image_size=base,
+                              vocab_size=vocab_size, seq_len=seq_len,
+                              seed=seed)
+    step = 0
+    while True:
+        images, tokens = next(pairs)
+        warped = []
+        for j, img in enumerate(images):
+            ah, aw = aspects[(step * batch_size + j) % len(aspects)]
+            h = max(patch_size, int(base * ah))
+            w = max(patch_size, int(base * aw))
+            warped.append(resize_bilinear(img[None], (h, w))[0])
+        step += 1
+        yield (patchify_naflex(warped, patch_size=patch_size,
+                               max_num_patches=max_num_patches), tokens)

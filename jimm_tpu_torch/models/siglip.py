@@ -1,6 +1,8 @@
-"""SigLIP dual-tower model; the counterpart of ``jimm_tpu/models/siglip.py``
-(fixed resolution). :func:`load_jax_params` carries the JAX model's
-parameters across; HF checkpoint IO is not ported yet (ROADMAP.md)."""
+"""SigLIP dual-tower model; the counterpart of ``jimm_tpu/models/siglip.py``,
+at fixed resolution and on SigLIP2's NaFlex variable-resolution batches.
+:func:`load_jax_params` carries the JAX model's parameters across (SigLIP2
+has the same parameters, with a larger vocabulary); HF checkpoint IO is not
+ported yet (ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -88,6 +90,23 @@ class SigLIP(nn.Module):
     def encode_image(self, images: torch.Tensor) -> torch.Tensor:
         """(B, H, W, C) -> unnormalized (B, width): the MAP-head output."""
         return self.vision(images)
+
+    def encode_image_naflex(self, patches: torch.Tensor,
+                            spatial_shapes: torch.Tensor,
+                            mask: torch.Tensor) -> torch.Tensor:
+        """NaFlex variable-resolution image encoding: ``(B, S, p*p*C)``
+        patches, per-sample ``(B, 2)`` (h, w) grids and a ``(B, S)`` padding
+        mask (``jimm_tpu_torch.data.naflex.patchify_naflex`` makes them from
+        raw images) -> unnormalized ``(B, width)``."""
+        return self.vision.forward_naflex(patches, spatial_shapes, mask)
+
+    def logits_naflex(self, patches: torch.Tensor,
+                      spatial_shapes: torch.Tensor, mask: torch.Tensor,
+                      text: torch.Tensor) -> torch.Tensor:
+        """:meth:`forward` over NaFlex image inputs."""
+        return self._logits(
+            self.encode_image_naflex(patches, spatial_shapes, mask),
+            self.encode_text(text))
 
     def encode_text(self, text: torch.Tensor) -> torch.Tensor:
         """(B, S) -> unnormalized (B, projection_dim): pooled, then the

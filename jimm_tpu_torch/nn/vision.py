@@ -1,7 +1,8 @@
-"""Vision tower at fixed resolution: patch embedding, learned positions,
-encoder, post-LN, MAP pooling; the counterpart of ``jimm_tpu/nn/vision.py``
-for SigLIP-style towers. Temporal clips and the NaFlex path are not ported
-yet (ROADMAP.md)."""
+"""Vision tower: patch embedding, learned positions, encoder, post-LN, MAP
+pooling; the counterpart of ``jimm_tpu/nn/vision.py`` for SigLIP-style
+towers, at fixed resolution (:meth:`VisionTower.forward`) and on NaFlex
+variable-resolution batches (:meth:`VisionTower.forward_naflex`). Temporal
+clips are not ported yet (ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import torch
 from torch import nn
 
 from jimm_tpu_torch.configs import VisionConfig
+from jimm_tpu_torch.nn.naflex import naflex_position_embedding
 from jimm_tpu_torch.nn.transformer import Attention, Mlp, Transformer, _layernorm
 
 
@@ -44,9 +46,12 @@ class MAPHead(nn.Module):
         self.ln = _layernorm(cfg.width, cfg.ln_eps, **kw)
         self.mlp = Mlp(cfg.width, cfg.mlp_dim, cfg.act, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                mask: torch.Tensor | None = None) -> torch.Tensor:
+        """``mask``: an optional ``(B, 1, 1, S)`` key-padding mask over the
+        tokens (NaFlex)."""
         probe = self.probe.expand(x.shape[0], 1, x.shape[-1]).to(x.dtype)
-        x = self.attn(probe, kv=x)                    # (B, 1, width)
+        x = self.attn(probe, kv=x, mask=mask)         # (B, 1, width)
         x = x + self.mlp(self.ln(x))
         return x[:, 0]
 
@@ -79,3 +84,40 @@ class VisionTower(nn.Module):
         x = x + self.pos_embed.to(x.dtype)
         x = self.encoder(x)
         return self.head(self.ln_post(x))
+
+    def forward_naflex(self, patches: torch.Tensor,
+                       spatial_shapes: torch.Tensor,
+                       mask: torch.Tensor) -> torch.Tensor:
+        """NaFlex path: variable-resolution batches as pre-patchified tokens.
+
+        Args:
+            patches: ``(B, S, p*p*C)``, each row a (patch_row, patch_col,
+                channel)-flattened patch, zero-padded past the sample's
+                ``h * w`` tokens (``jimm_tpu_torch.data.naflex``).
+            spatial_shapes: ``(B, 2)`` int, per-sample (h, w) patch grid.
+            mask: ``(B, S)`` bool/int, True at real tokens.
+
+        Returns pooled ``(B, width)`` features: the encoder and the MAP head
+        attend over the real tokens only.
+
+        The JAX tower refuses this path for a model whose position table
+        was interpolated when an HF checkpoint was loaded
+        (``_pos_table_resampled``); the port loads no HF checkpoint yet, and
+        that guard comes back with HF loading (ROADMAP.md queue 1)."""
+        # the conv patchifier is the NaFlex Linear: the JAX kernel is HWIO
+        # (p, p, C, D), flattened row-major over (row, col, chan), which is
+        # this OIHW weight permuted to (H, W, I, O)
+        conv = self.patch_embed.conv
+        d, c, p, _ = conv.weight.shape
+        w_flat = conv.weight.permute(2, 3, 1, 0).reshape(p * p * c, d)
+        # the model's dtype, as the fixed path's conv computes in it
+        x = patches.to(w_flat.dtype) @ w_flat
+        if conv.bias is not None:
+            x = x + conv.bias
+        g = int(round(self.cfg.seq_len ** 0.5))
+        table = self.pos_embed.reshape(g, g, -1)
+        x = x + naflex_position_embedding(table, spatial_shapes,
+                                          x.shape[1]).to(x.dtype)
+        key_mask = (mask != 0)[:, None, None, :]      # (B, 1, 1, S) over keys
+        x = self.encoder(x, mask=key_mask)
+        return self.head(self.ln_post(x), mask=key_mask)

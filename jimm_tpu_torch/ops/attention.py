@@ -4,27 +4,32 @@
 - ``"flash"``: the hand-written flash-attention kernels
   (`jimm_tpu_torch/ops/flash_attention.py`, forward and backward through
   ``FlashAttentionFn``) on a CUDA tensor, their plain versions on a CPU
-  tensor.
-- ``"auto"``: ``"flash"`` on a CUDA tensor, ``"xla"`` on a CPU tensor. No
-  sequence-length crossover is applied: the port has not measured one.
+  tensor. With a key-padding mask (``(B, Sk)`` or ``(B, 1, 1, Sk)``) it is
+  ``"flash_masked"``; any other mask shape raises ``ValueError``.
+- ``"flash_masked"``: masked flash attention, the kernels' ``HAS_MASK``
+  instantiations (NaFlex, MAP pooling); needs a key-padding mask.
+- ``"auto"``: on a CUDA tensor ``"flash"``, or ``"xla"`` for a mask that is
+  not a key-padding mask; ``"xla"`` on a CPU tensor. No sequence-length
+  crossover is applied: the port has not measured one.
 - ``"xla"`` / ``"einsum"``: :func:`reference_attention`, plain f32-softmax
   math (the names the JAX configs use for the non-kernel path),
   differentiated by autograd.
 
-The other JAX impls are kernels or schemes not ported yet; each raises
-``NotImplementedError`` naming its place in ``ROADMAP.md``.
+The other JAX impls, and a bias under ``"flash"``, are kernels or schemes
+not ported yet; each raises ``NotImplementedError`` naming its place in
+``ROADMAP.md``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from jimm_tpu_torch.ops.flash_attention import flash_attention
+from jimm_tpu_torch.ops.flash_attention import (flash_attention,
+                                                flash_attention_masked)
 
 #: JAX attention impls the port does not have yet -> where the ROADMAP
 #: queues them
 _NOT_PORTED = {
-    "flash_masked": "kernel row 4 (masked flash), ROADMAP queue 2",
     "flash_bias": "kernel rows 5 and 8 (biased flash), ROADMAP queue 2",
     "sigmoid": "kernel row 6 (sigmoid flash), ROADMAP queue 2",
     "flash_int8": "kernel rows 9-10 (int8 flash), ROADMAP queue 2",
@@ -57,6 +62,14 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def _is_key_padding_mask(mask: torch.Tensor) -> bool:
+    """True for the masks the flash kernels take: per-sample key masks
+    ``(B, Sk)`` or ``(B, 1, 1, Sk)`` (what the NaFlex tower builds)."""
+    if mask.ndim == 2:
+        return True
+    return mask.ndim == 4 and mask.shape[1] == 1 and mask.shape[2] == 1
+
+
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, is_causal: bool = False,
                           mask: torch.Tensor | None = None,
@@ -64,14 +77,29 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           impl: str = "auto") -> torch.Tensor:
     """Scaled dot-product attention over (batch, seq, heads, head_dim)."""
     if impl == "auto":
-        impl = "flash" if q.device.type == "cuda" else "xla"
+        impl = ("flash" if q.device.type == "cuda" and (
+            mask is None or _is_key_padding_mask(mask)) else "xla")
     if impl == "flash":
-        if mask is not None or bias is not None:
+        if bias is not None:
             raise NotImplementedError(
-                "flash attention with a mask or bias is not ported yet: "
-                + _NOT_PORTED["flash_masked" if mask is not None
-                              else "flash_bias"])
-        return flash_attention(q, k, v, is_causal=is_causal)
+                "flash attention with a bias is not ported yet: "
+                + _NOT_PORTED["flash_bias"])
+        if mask is None:
+            return flash_attention(q, k, v, is_causal=is_causal)
+        if not _is_key_padding_mask(mask):
+            raise ValueError(
+                "flash attention supports key-padding masks only ((B, Sk) or "
+                f"(B, 1, 1, Sk)); arbitrary {tuple(mask.shape)} masks need "
+                "impl='xla'")
+        impl = "flash_masked"
+    if impl == "flash_masked":
+        if bias is not None:
+            raise ValueError("flash_masked does not take a bias; use "
+                             "impl='xla'")
+        if mask is None:
+            raise ValueError("impl='flash_masked' requires a key-padding "
+                             "mask ((B, Sk) or (B, 1, 1, Sk))")
+        return flash_attention_masked(q, k, v, mask, is_causal=is_causal)
     if impl in ("xla", "einsum"):
         return reference_attention(q, k, v, is_causal=is_causal, mask=mask,
                                    bias=bias)

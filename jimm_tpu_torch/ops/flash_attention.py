@@ -1,5 +1,6 @@
-"""Softmax flash attention, forward and backward: hand-written CUDA kernels,
-their plain versions, and the ``torch.autograd.Function`` that joins them.
+"""Softmax flash attention, forward and backward, with or without a
+key-padding mask: hand-written CUDA kernels, their plain versions, and the
+``torch.autograd.Function`` that joins them.
 
 Kernel row 3 of the port's kernel table replaces the Pallas TPU kernel
 ``jimm_tpu/ops/flash_attention.py::_fwd_kernel`` (softmax kind, no mask or
@@ -15,13 +16,25 @@ At the model's shapes both are bound by bytes on the H100; these first
 versions compute with f32 FMAs, which at S=256 cost more than the bytes
 (see ``PERF.md``).
 
+Kernel row 4 (``_fwd_kernel`` with ``has_mask``, reached through
+``flash_attention_masked``) and row 7's mask kind are the same sources'
+``HAS_MASK`` instantiations: a ``(B, Sk)`` key-padding mask, one byte a key,
+folded into the predicate that already masks ragged and causal keys, where
+the TPU kernels add a ``(B*N, 1, Sk)`` f32 row of 0 / -1e30 (the same
+function: ``s - 1e30`` rounds to -1e30 in f32). Masked keys get exactly zero
+attention and zero dk/dv. A query row whose keys are all masked gives finite
+garbage that differs between the kernel and the plain version (it depends on
+the tile padding), and zero gradient under a zero cotangent: callers mask
+such rows downstream, as NaFlex's MAP pooling does.
+
 :class:`FlashAttentionFn` is the autograd Function (the counterpart of the
-JAX ``custom_vjp``s ``_flash`` and ``_flash_lse``): it saves q, k, v, o and
-lse, and differentiates through both outputs; an lse cotangent folds into
-``delta``. A wrapper launches its kernel for CUDA tensors and runs the plain
-version for CPU tensors; any other device raises. The module-level
-``launches`` and ``bwd_launches`` count kernel launches (one backward call
-launches the dq and the dk/dv kernel and counts once).
+JAX ``custom_vjp``s ``_flash`` and ``_flash_lse``): it saves q, k, v, o, lse
+and the mask, and differentiates through both outputs in q, k and v; an lse
+cotangent folds into ``delta``. A wrapper launches its kernel for CUDA
+tensors and runs the plain version for CPU tensors; any other device raises.
+The module-level ``launches`` and ``bwd_launches`` count unmasked kernel
+launches, ``masked_launches`` and ``masked_bwd_launches`` masked ones (one
+backward call launches the dq and the dk/dv kernel and counts once).
 """
 
 from __future__ import annotations
@@ -36,9 +49,12 @@ NEG_INF = -1e30
 #: memory)
 MAX_HEAD_DIM = 256
 
-#: forward / backward kernel launches since the count was last set to 0
+#: forward / backward kernel launches since the count was last set to 0,
+#: without and with a key-padding mask
 launches = 0
 bwd_launches = 0
+masked_launches = 0
+masked_bwd_launches = 0
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -47,22 +63,54 @@ def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
-def _causal_keep(sq: int, sk: int, device) -> torch.Tensor:
-    return torch.ones(sq, sk, dtype=torch.bool, device=device).tril()
+def canon_mask(mask: torch.Tensor, b: int, sk: int) -> torch.Tensor:
+    """``(B, Sk)`` or ``(B, 1, 1, Sk)`` bool/int, True = attend -> ``(B, Sk)``
+    bool with unit stride over Sk (a view where the input is one already);
+    any other shape raises, as
+    ``jimm_tpu/ops/flash_attention.py::_canon_mask`` does."""
+    if mask.ndim == 4:
+        if mask.shape[1] != 1 or mask.shape[2] != 1:
+            raise ValueError(
+                "masked flash attention supports KEY-PADDING masks only "
+                f"((B, Sk) or (B, 1, 1, Sk)); got {tuple(mask.shape)} — "
+                "arbitrary (B, N, Sq, Sk) masks need impl='xla'")
+        mask = mask[:, 0, 0, :]
+    if tuple(mask.shape) != (b, sk):
+        raise ValueError(f"key-padding mask shape {tuple(mask.shape)} does "
+                         f"not match (B, Sk)=({b}, {sk})")
+    mask = mask if mask.dtype == torch.bool else mask != 0
+    return mask if mask.stride(1) == 1 else mask.contiguous()
+
+
+def _keep(sq: int, sk: int, is_causal: bool, mask: torch.Tensor | None,
+          device) -> torch.Tensor | None:
+    """Which scores survive, broadcastable to ``(B, N, Sq, Sk)``: the causal
+    triangle (top-left aligned) and the key-padding mask; None for all."""
+    keep = None
+    if is_causal:
+        keep = torch.ones(sq, sk, dtype=torch.bool, device=device).tril()
+    if mask is not None:
+        rows = mask[:, None, None, :]
+        keep = rows if keep is None else keep & rows
+    return keep
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, is_causal: bool = False
+                          *, is_causal: bool = False,
+                          mask: torch.Tensor | None = None
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """The same function in plain PyTorch: ``(o, lse)`` for ``(B, S, N, D)``
     q/k/v; o in the dtype of q, lse ``(B, N, Sq)`` f32. Scores and softmax in
-    f32, scale 1/sqrt(D) after the dot, causal masking top-left aligned."""
+    f32, scale 1/sqrt(D) after the dot, causal masking top-left aligned;
+    ``mask`` is a ``(B, Sk)`` bool key-padding mask (True = attend), and a
+    dropped score is -1e30 as in the kernels."""
     acc = _acc_dtype(q.dtype)
     sq, sk, d = q.shape[1], k.shape[1], q.shape[-1]
     s = torch.einsum("bqnd,bknd->bnqk", q.to(acc), k.to(acc))
     s = s * (1.0 / d ** 0.5)
-    if is_causal:
-        s = s.masked_fill(~_causal_keep(sq, sk, q.device), NEG_INF)
+    keep = _keep(sq, sk, is_causal, mask, q.device)
+    if keep is not None:
+        s = s.masked_fill(~keep, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -86,20 +134,22 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, o: torch.Tensor,
                               lse: torch.Tensor, do: torch.Tensor,
                               dlse: torch.Tensor | None = None, *,
-                              is_causal: bool = False
+                              is_causal: bool = False,
+                              mask: torch.Tensor | None = None
                               ) -> tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """The backward in plain PyTorch: ``(dq, dk, dv)`` in the dtype of q,
-    recomputing ``p = exp(s - lse)`` in f32 and rounding p (for dv) and
-    ds (for dq and dk) to the input dtype before the products, where the
-    kernels and the TPU kernels round them."""
+    recomputing ``p = exp(s - lse)`` in f32 (a dropped score is -1e30, so its
+    p is 0) and rounding p (for dv) and ds (for dq and dk) to the input dtype
+    before the products, where the kernels and the TPU kernels round them."""
     acc = _acc_dtype(q.dtype)
     sq, sk, d = q.shape[1], k.shape[1], q.shape[-1]
     scale = 1.0 / d ** 0.5
     qf, kf, vf, dof = (t.to(acc) for t in (q, k, v, do))
     s = torch.einsum("bqnd,bknd->bnqk", qf, kf) * scale
-    if is_causal:
-        s = s.masked_fill(~_causal_keep(sq, sk, q.device), NEG_INF)
+    keep = _keep(sq, sk, is_causal, mask, q.device)
+    if keep is not None:
+        s = s.masked_fill(~keep, NEG_INF)
     p = torch.exp(s - lse.to(acc)[..., None])
     dv = torch.einsum("bnqk,bqnd->bknd", p.to(q.dtype).to(acc), dof)
     dp = torch.einsum("bqnd,bknd->bnqk", dof, vf)
@@ -144,13 +194,30 @@ def _strides(t: torch.Tensor) -> tuple[int, int, int]:
     return t.stride(0), t.stride(1), t.stride(2)
 
 
-def _fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, is_causal: bool
+def _mask_arg(mask: torch.Tensor | None, q: torch.Tensor
+              ) -> tuple[int | None, int]:
+    """The C interface's mask pointer (None = no mask) and batch stride: the
+    ``(B, Sk)`` bool mask on q's device, one byte a key, unit stride over
+    Sk."""
+    if mask is None:
+        return None, 0
+    if mask.dtype != torch.bool or mask.device != q.device:
+        raise ValueError(f"the kernel's mask is a bool tensor on {q.device}, "
+                         f"not {mask.dtype} on {mask.device}")
+    if mask.stride(1) != 1:
+        raise ValueError("the kernel's mask needs unit stride over Sk")
+    return mask.data_ptr(), mask.stride(0)
+
+
+def _fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, is_causal: bool,
+         mask: torch.Tensor | None = None
          ) -> tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel on CUDA tensors, the plain version on CPU ones."""
-    global launches
+    global launches, masked_launches
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, is_causal=is_causal)
+        return flash_attention_plain(q, k, v, is_causal=is_causal, mask=mask)
     code = _kernel_dtype(q, k, v)
+    mask_ptr, mask_sb = _mask_arg(mask, q)
     b, sq, n, d = q.shape
     sk = k.shape[1]
     o = torch.empty((b, sq, n, d), dtype=q.dtype, device=q.device)
@@ -161,30 +228,37 @@ def _fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, is_causal: bool
         rc = lib.jimm_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, n, sq, sk, d, *_strides(q), *_strides(k),
-            *_strides(v), 1.0 / d ** 0.5, int(is_causal), code, stream)
+            *_strides(v), 1.0 / d ** 0.5, int(is_causal), mask_ptr, mask_sb,
+            code, stream)
     _build.check(rc, "jimm_flash_attention_fwd")
-    launches += 1
+    if mask is None:
+        launches += 1
+    else:
+        masked_launches += 1
     return o, lse
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                         dlse: torch.Tensor | None = None, *,
-                        is_causal: bool = False
+                        is_causal: bool = False,
+                        mask: torch.Tensor | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` from the forward's residuals and the cotangents of o
     (and, optionally, of lse): the two backward kernels on CUDA tensors,
-    :func:`flash_attention_bwd_plain` on CPU tensors."""
-    global bwd_launches
+    :func:`flash_attention_bwd_plain` on CPU tensors. ``mask`` is the
+    forward's ``(B, Sk)`` bool key-padding mask, or None."""
+    global bwd_launches, masked_bwd_launches
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, dlse,
-                                         is_causal=is_causal)
+                                         is_causal=is_causal, mask=mask)
     if do.dtype != q.dtype or do.shape != q.shape:
         raise ValueError(f"do {do.dtype} {tuple(do.shape)} does not match q "
                          f"{q.dtype} {tuple(q.shape)}")
     if do.stride(-1) != 1:
         do = do.contiguous()
     code = _kernel_dtype(q, k, v, do)
+    mask_ptr, mask_sb = _mask_arg(mask, q)
     b, sq, n, d = q.shape
     sk = k.shape[1]
     delta = _delta(o, do, dlse)
@@ -200,20 +274,24 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), b, n, sq, sk, d, *_strides(q), *_strides(k),
             *_strides(v), *_strides(do), 1.0 / d ** 0.5, int(is_causal),
-            code, stream)
+            mask_ptr, mask_sb, code, stream)
     _build.check(rc, "jimm_flash_attention_bwd")
-    bwd_launches += 1
+    if mask is None:
+        bwd_launches += 1
+    else:
+        masked_bwd_launches += 1
     return dq, dk, dv
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """``(o, lse)`` of softmax flash attention, differentiable in q, k and v
-    through both outputs."""
+    through both outputs; the ``(B, Sk)`` bool key-padding mask (or None)
+    rides through to the backward and gets no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, is_causal):
-        o, lse = _fwd(q, k, v, is_causal)
-        ctx.save_for_backward(q, k, v, o, lse)
+    def forward(ctx, q, k, v, mask, is_causal):
+        o, lse = _fwd(q, k, v, is_causal, mask)
+        ctx.save_for_backward(q, k, v, o, lse, mask)
         ctx.is_causal = is_causal
         ctx.set_materialize_grads(False)
         return o, lse
@@ -221,25 +299,41 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, do, dlse):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, mask = ctx.saved_tensors
         if do is None:
             do = torch.zeros_like(o)
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, dlse,
-                                         is_causal=ctx.is_causal)
-        return dq, dk, dv, None
+                                         is_causal=ctx.is_causal, mask=mask)
+        return dq, dk, dv, None, None
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, is_causal: bool = False
+                        *, is_causal: bool = False,
+                        mask: torch.Tensor | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Flash attention over ``(B, S, N, D)`` q/k/v returning ``(o, lse)``:
     o ``(B, Sq, N, D)`` in the input dtype, lse ``(B, N, Sq)`` f32.
-    Differentiable through both."""
+    Differentiable through both. ``mask``: an optional key-padding mask,
+    ``(B, Sk)`` or ``(B, 1, 1, Sk)`` bool/int, True = attend."""
     _check(q, k, v)
-    return FlashAttentionFn.apply(q, k, v, is_causal)
+    if mask is not None:
+        mask = canon_mask(mask, q.shape[0], k.shape[1])
+    return FlashAttentionFn.apply(q, k, v, mask, is_causal)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     is_causal: bool = False) -> torch.Tensor:
     """Flash attention over ``(B, S, N, D)`` q/k/v; scale 1/sqrt(D)."""
     return flash_attention_lse(q, k, v, is_causal=is_causal)[0]
+
+
+def flash_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           mask: torch.Tensor, *, is_causal: bool = False
+                           ) -> torch.Tensor:
+    """Flash attention with a per-sample key-padding mask (the NaFlex /
+    MAP-pooling case), the counterpart of
+    ``jimm_tpu/ops/flash_attention.py::flash_attention_masked``: ``mask`` is
+    ``(B, Sk)`` or ``(B, 1, 1, Sk)`` bool/int, True = attend. Masked keys get
+    exactly zero attention and zero gradient; a row with no valid key gives
+    finite garbage (see the module docstring)."""
+    return flash_attention_lse(q, k, v, is_causal=is_causal, mask=mask)[0]

@@ -151,12 +151,19 @@ def _check_kind(kind: str) -> None:
         raise ValueError(f"unknown contrastive loss kind {kind!r}")
 
 
-def contrastive_loss_fn(model: nn.Module, images: torch.Tensor,
+def contrastive_loss_fn(model: nn.Module,
+                        images: torch.Tensor | tuple[torch.Tensor, ...],
                         text: torch.Tensor, *, kind: str) -> torch.Tensor:
     """``"clip"``: symmetric softmax InfoNCE; ``"siglip"``: dense sigmoid
-    all-pairs loss, on the model's image and text embeddings."""
+    all-pairs loss, on the model's image and text embeddings. ``images`` is
+    a ``(B, H, W, C)`` tensor or a NaFlex triple ``(patches, spatial_shapes,
+    mask)`` (``SigLIP.encode_image_naflex``), which trains SigLIP2 on
+    variable-resolution batches."""
     _check_kind(kind)
-    img = model.encode_image(images)
+    if isinstance(images, (tuple, list)):
+        img = model.encode_image_naflex(*images)
+    else:
+        img = model.encode_image(images)
     txt = model.encode_text(text)
     if kind == "clip":
         return clip_softmax_loss(img, txt, model.logit_scale)
@@ -167,11 +174,13 @@ def contrastive_loss_fn(model: nn.Module, images: torch.Tensor,
 def make_contrastive_train_step(kind: str = "siglip") -> Callable:
     """``step(model, optimizer, images, text) -> {"loss": tensor}``: zero
     the gradients, backpropagate the loss, clip and update. The loss stays
-    on the device (no host sync)."""
+    on the device (no host sync). ``images`` may be a NaFlex triple, as in
+    :func:`contrastive_loss_fn`."""
     _check_kind(kind)
 
     def train_step(model: nn.Module, optimizer: Optimizer,
-                   images: torch.Tensor, text: torch.Tensor
+                   images: torch.Tensor | tuple[torch.Tensor, ...],
+                   text: torch.Tensor
                    ) -> dict[str, torch.Tensor]:
         optimizer.zero_grad()
         loss = contrastive_loss_fn(model, images, text, kind=kind)

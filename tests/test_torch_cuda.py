@@ -1,5 +1,5 @@
 """The port's CUDA kernels (forward and backward) against their plain
-versions, on the card.
+versions, on the card, the masked flash kernels (NaFlex) included.
 
 Marked ``cuda``: run with ``python -m pytest -m cuda tests/test_torch_cuda.py``
 on a machine with an H100. Elsewhere every test skips (decided in the
@@ -200,6 +200,142 @@ def test_siglip_grads_on_the_card(card):
     # within 1e-3 of each parameter's largest gradient, or, for a gradient
     # that is zero in exact arithmetic (the k-projection bias: softmax does
     # not see a per-row shift of the scores), of 1e-3 of the model's largest
+    floor = 1e-3 * max(g.abs().max().item() for g in want.values())
+    for name, p in kernels.named_parameters():
+        assert p.grad is not None, name
+        assert torch.isfinite(p.grad).all(), name
+        ref = want[name]
+        peak = max(ref.abs().max().item(), floor)
+        assert (p.grad - ref).abs().max().item() <= 1e-3 * peak, name
+
+
+# -- masked flash (kernel row 4, row 7's mask kind) ---------------------------
+
+def _key_mask(kind: str, b: int, sk: int, g: torch.Generator,
+              device) -> torch.Tensor:
+    """(B, Sk) bool, True = attend: ``naflex``, the synthetic NaFlex
+    batches' real-token counts (243, 256, 243, 242 of 256) in turn;
+    ``sparse``, most keys padded; ``len64``, a 64-key prefix; ``empty_row``,
+    sample 1 with no valid key."""
+    cols = torch.arange(sk, device=device)
+    if kind == "naflex":
+        lengths = torch.tensor([243, 256, 243, 242], device=device).repeat(
+            (b + 3) // 4)[:b]
+        return cols[None, :] < lengths[:, None]
+    if kind == "len64":
+        return (cols < 64)[None, :].expand(b, sk).contiguous()
+    m = torch.rand(b, sk, generator=g, device=device) > 0.7
+    m[:, 0] = True
+    if kind == "empty_row":
+        m[1] = False
+    return m
+
+
+def _live(mask: torch.Tensor, sq: int, causal: bool) -> torch.Tensor:
+    """(B, Sq) bool: query rows with at least one key to attend."""
+    keep = mask[:, None, :].expand(-1, sq, -1)
+    if causal:
+        keep = keep & torch.ones(sq, mask.shape[1], dtype=torch.bool,
+                                 device=mask.device).tril()
+    return keep.any(-1)
+
+
+_MASKED = [((128, 256, 12, 64), 256, False, "naflex"),   # NaFlex image
+           ((128, 1, 12, 64), 256, False, "naflex"),     # NaFlex MAP probe
+           ((2, 5, 2, 80), 5, True, "sparse"),
+           ((2, 257, 2, 64), 257, False, "len64"),
+           ((2, 1, 2, 80), 257, False, "sparse"),
+           ((2, 65, 2, 64), 65, False, "empty_row"),
+           ((1, 70, 1, 256), 130, True, "sparse")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qshape,sk,causal,kind", _MASKED)
+def test_masked_flash_kernel(card, qshape, sk, causal, kind, dtype):
+    g = torch.Generator(device=card).manual_seed(sum(qshape) + sk + 1)
+    b, sq, n, d = qshape
+    q = torch.randn(b, sq, n, d, generator=g, device=card).to(dtype)
+    k, v = (torch.randn(b, sk, n, d, generator=g, device=card).to(dtype)
+            for _ in range(2))
+    mask = _key_mask(kind, b, sk, g, card)
+    before, plain_before = fa.masked_launches, fa.launches
+    o, lse = fa.flash_attention_lse(q, k, v, is_causal=causal, mask=mask)
+    torch.cuda.synchronize()
+    assert fa.masked_launches == before + 1 and fa.launches == plain_before
+    want_o, want_lse = fa.flash_attention_plain(q, k, v, is_causal=causal,
+                                                mask=mask)
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    # a row with no key to attend is finite garbage that depends on the
+    # tile padding: compared only where there is a key
+    live = _live(mask, sq, causal)
+    _close(o[live], want_o[live], dtype)
+    _close(lse.transpose(1, 2)[live], want_lse.transpose(1, 2)[live],
+           torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qshape,sk,causal,kind", _MASKED)
+def test_masked_flash_backward_kernel(card, qshape, sk, causal, kind, dtype):
+    g = torch.Generator(device=card).manual_seed(sum(qshape) * 5 + sk)
+    b, sq, n, d = qshape
+    q, do = (torch.randn(b, sq, n, d, generator=g, device=card).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, sk, n, d, generator=g, device=card).to(dtype)
+            for _ in range(2))
+    mask = _key_mask(kind, b, sk, g, card)
+    live = _live(mask, sq, causal)
+    do = do * live[:, :, None, None].to(dtype)  # no cotangent on dead rows
+    o, lse = fa.flash_attention_plain(q, k, v, is_causal=causal, mask=mask)
+    before = fa.masked_bwd_launches
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, is_causal=causal,
+                                 mask=mask)
+    torch.cuda.synchronize()
+    assert fa.masked_bwd_launches == before + 1
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                        is_causal=causal, mask=mask)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and a.dtype == dtype
+        scale = max(1.0, w.float().abs().max().item())
+        _close(a / scale, w / scale, dtype)
+    # masked keys get exactly zero gradient
+    assert not got[1][~mask].any() and not got[2][~mask].any()
+
+
+def test_siglip2_naflex_grads_on_the_card(card):
+    """A small SigLIP2 trains on a NaFlex batch through the masked kernels
+    (2 vision blocks + the MAP probe) and the unmasked ones (2 text
+    blocks); every gradient matches the same model on the plain path."""
+    import numpy as np
+    from jimm_tpu_torch import configs
+    from jimm_tpu_torch.data.synthetic import naflex_contrastive_pairs
+    from jimm_tpu_torch.models.siglip import SigLIP
+    from jimm_tpu_torch.train.trainer import contrastive_loss_fn
+    cfg = configs.SigLIPConfig(
+        vision=configs.VisionConfig(image_size=64, patch_size=16, width=128,
+                                    depth=2, num_heads=2, mlp_dim=256,
+                                    act="gelu_tanh", pooling="map"),
+        text=configs.TextConfig(vocab_size=100, context_length=8, width=128,
+                                depth=2, num_heads=2, mlp_dim=256,
+                                act="gelu_tanh", causal=False,
+                                pooling="last", proj_bias=True),
+        projection_dim=128)
+    kernels = SigLIP(configs.with_runtime(cfg, attn_impl="flash",
+                                          ln_impl="fused"), device=card)
+    plain = SigLIP(configs.with_runtime(cfg, attn_impl="xla",
+                                        ln_impl="xla"), device=card)
+    plain.load_state_dict(kernels.state_dict())
+    (patches, shapes, mask), text = next(naflex_contrastive_pairs(
+        4, patch_size=16, max_num_patches=16, vocab_size=100, seed=4))
+    assert not mask.all()
+    images = (torch.from_numpy(patches).to(card),
+              torch.from_numpy(shapes).to(card),
+              torch.from_numpy(mask).to(card))
+    text = torch.from_numpy(np.asarray(text)).long().to(card)
+    m0, f0 = fa.masked_bwd_launches, fa.bwd_launches
+    contrastive_loss_fn(kernels, images, text, kind="siglip").backward()
+    assert fa.masked_bwd_launches - m0 == 3 and fa.bwd_launches - f0 == 2
+    contrastive_loss_fn(plain, images, text, kind="siglip").backward()
+    want = {n: p.grad for n, p in plain.named_parameters()}
     floor = 1e-3 * max(g.abs().max().item() for g in want.values())
     for name, p in kernels.named_parameters():
         assert p.grad is not None, name

@@ -96,21 +96,56 @@ def test_flash_impl_on_cpu_is_the_plain_flash():
     assert flash_attention.launches == before  # no kernel on the CPU
 
 
-@pytest.mark.parametrize("impl", ["flash_masked", "flash_bias", "sigmoid",
-                                  "flash_int8", "ring", "ulysses",
-                                  "saveable"])
+@pytest.mark.parametrize("impl", ["flash_bias", "sigmoid", "flash_int8",
+                                  "ring", "ulysses", "saveable"])
 def test_unported_attention_impls_name_the_roadmap(impl):
     q = torch.zeros(1, 4, 1, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         attention.dot_product_attention(q, q, q, impl=impl)
 
 
-@pytest.mark.parametrize("kw", [{"mask": torch.ones(1, 4, dtype=torch.bool)},
-                                {"bias": torch.zeros(1, 4, 4)}])
-def test_flash_with_mask_or_bias_names_the_roadmap(kw):
+@pytest.mark.parametrize("impl", ["flash", "flash_masked"])
+@pytest.mark.parametrize("rank", [2, 4])
+def test_flash_with_a_key_padding_mask_is_masked_flash(impl, rank):
+    """A (B, Sk) or (B, 1, 1, Sk) mask under "flash" or "flash_masked" goes
+    through the masked flash Function (its plain version on the CPU) and
+    matches the einsum reference with the same mask."""
+    rng = np.random.default_rng(6)
+    q, k, v = (_t(rng.standard_normal((2, s, 2, 16), np.float32))
+               for s in (5, 9, 9))
+    mask = rng.random((2, 9)) > 0.4
+    mask[:, 0] = True
+    keys = mask if rank == 2 else mask[:, None, None, :]
+    q.requires_grad_()
+    got = attention.dot_product_attention(q, k, v, mask=_t(keys), impl=impl)
+    assert type(got.grad_fn).__name__ == "FlashAttentionFnBackward"
+    want = attention.reference_attention(q, k, v,
+                                         mask=_t(mask[:, None, None, :]))
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(),
+                               **TOL)
+    torch.testing.assert_close(got, flash_attention.flash_attention_masked(
+        q, k, v, _t(mask)), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("impl", ["flash", "flash_masked"])
+def test_flash_refuses_masks_that_are_not_key_padding(impl):
+    q = torch.zeros(1, 4, 2, 8)
+    with pytest.raises(ValueError, match="(?i)key-padding masks only"):
+        attention.dot_product_attention(
+            q, q, q, mask=torch.ones(1, 2, 4, 4, dtype=torch.bool), impl=impl)
+
+
+def test_flash_masked_needs_a_mask():
+    q = torch.zeros(1, 4, 1, 8)
+    with pytest.raises(ValueError, match="requires a key-padding mask"):
+        attention.dot_product_attention(q, q, q, impl="flash_masked")
+
+
+def test_flash_with_a_bias_names_the_roadmap():
     q = torch.zeros(1, 4, 1, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.dot_product_attention(q, q, q, impl="flash", **kw)
+        attention.dot_product_attention(q, q, q, impl="flash",
+                                        bias=torch.zeros(1, 4, 4))
 
 
 @pytest.mark.parametrize("name", ["gelu", "gelu_tanh", "gelu_pytorch_tanh",
@@ -128,7 +163,7 @@ def test_unknown_activation_warns_and_falls_back_to_gelu_tanh():
     assert fn is activations.gelu_tanh
 
 
-@pytest.mark.parametrize("wrapper", ["layer_norm", "flash"])
+@pytest.mark.parametrize("wrapper", ["layer_norm", "flash", "flash_masked"])
 def test_wrappers_refuse_other_devices(wrapper):
     # a tensor that is neither on the CPU nor on the card gets no kernel and
     # no plain fallback: the wrapper raises
@@ -136,8 +171,13 @@ def test_wrappers_refuse_other_devices(wrapper):
         x = torch.empty(4, 8, device="meta")
         w = torch.empty(8, device="meta")
         call = lambda: ln_mod.layer_norm(x, w, w)  # noqa: E731
-    else:
+    elif wrapper == "flash":
         q = torch.empty(1, 4, 1, 8, device="meta")
         call = lambda: flash_attention.flash_attention(q, q, q)  # noqa: E731
+    else:
+        q = torch.empty(1, 4, 1, 8, device="meta")
+        m = torch.ones(1, 4, dtype=torch.bool, device="meta")
+        call = lambda: flash_attention.flash_attention_masked(  # noqa: E731
+            q, q, q, m)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         call()
