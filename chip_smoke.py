@@ -73,6 +73,34 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                with 13 masked and 12 unmasked flash and 48 LayerNorm
                launches forward and backward per step. Its counts are the
                ones the JSON record reports for the masked kernels.
+7. int8 serve -- SigLIP-B/16-256 at full width as ``serve --dtype int8``
+               builds it (``cli.serving_model``: f32, then every eligible
+               Linear a W8A8 ``QuantLinear``), fused LayerNorm, flash, behind
+               the HTTP server with buckets (1, 8, 32): 48 single requests
+               from 16 client threads and one bulk request of 32. Every
+               answer must match the same quantized model's forward with the
+               plain versions swapped in (cosine >= 0.999, norms within 1%);
+               the cosine against the unquantized f32 model is printed; per
+               dispatched batch 78 int8-matmul, 13 flash and 24 LayerNorm
+               launches. Then the forward's time per bucket and the kernels
+               of a bucket-32 forward.
+8. int8_qk  -- SigLIP-B/16-256 under ``--precision int8_qk`` (every
+               attention, the MAP probe's included, on the int8-QK flash
+               kernels): (a) f32 at batch 8, one step's gradients through the
+               kernels against the plain versions, as 5(a); (b) bf16 at batch
+               128, one fixed batch, 3 warm-up and 10 timed steps (25 int8
+               flash launches forward and backward a step, no softmax flash,
+               48 LayerNorm; the loss must fall), with one profiled step;
+               (c) ``train --preset siglip-base-patch16-256 --precision
+               int8_qk --bf16 --ln-impl fused --batch-size 128`` in this
+               process, whose counts the JSON record reports for the int8
+               flash kernels. The int8 matmul's come from phase 7.
+
+Phase 3 also holds the int8 kernels (rows 9, 10 and 11) against their plain
+versions: the int8 matmul at the served shapes and odd ones, with bias,
+relu and gelu (yardstick: ``torch._int_mm`` and the epilogue as torch ops);
+the int8-QK flash forward and backward at the train shapes and odd ones
+(yardstick: SDPA on the dequantized q and k in the storage dtype).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -105,7 +133,10 @@ from jimm_tpu_torch.models.siglip import SigLIP
 from jimm_tpu_torch.nn import norm as norm_mod
 from jimm_tpu_torch.ops import attention as attention_mod
 from jimm_tpu_torch.ops import flash_attention as fa
+from jimm_tpu_torch.ops import flash_attention_int8 as fa8
+from jimm_tpu_torch.ops import int8_matmul as mm
 from jimm_tpu_torch.ops import layer_norm as ln
+from jimm_tpu_torch.quant.policy import apply_precision_policy
 from jimm_tpu_torch.serve.admission import AdmissionPolicy
 from jimm_tpu_torch.serve.buckets import BucketTable
 from jimm_tpu_torch.serve.engine import InferenceEngine, image_forward
@@ -118,6 +149,7 @@ from jimm_tpu_torch.train.trainer import (OptimizerConfig, contrastive_loss_fn,
 #: H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_INT8_OPS = 1979e12
 F32_MAX_ERR = 1e-4
 BF16_MIN_COS = 0.999
 BF16_REL_ERR = 2.0**-7  # one bf16 step relative to the largest value
@@ -135,10 +167,20 @@ NAFLEX_PRESET = "siglip2-base-patch16-256"
 NAFLEX_MASKED_PER_STEP = 13   # 12 vision blocks + the MAP probe, masked
 NAFLEX_FLASH_PER_STEP = 12    # 12 text blocks, unmasked
 NAFLEX_SERVE_BATCH = 32
-#: the unmasked flash kernels at the train image shape (128, 256, 12, 64),
-#: bf16, as PERF.md's kernel table records them (NVIDIA H100 80GB HBM3,
-#: 700.00 W)
-RECORDED_MS = {"flash_attention": 1.2623, "flash_attention_bwd": 3.9728}
+#: rows 3, 4 and 7 at the train image shape (128, 256, 12, 64), bf16 (the
+#: masked ones with the NaFlex masks), as PERF.md's kernel table records
+#: them (NVIDIA H100 80GB HBM3, 700.00 W)
+RECORDED_MS = {"flash_attention": 1.2623, "flash_attention_bwd": 3.9728,
+               "flash_attention_masked": 1.0818,
+               "flash_attention_masked_bwd": 4.1322}
+#: int8 serve: 12 blocks x 6 Linears (q, k, v, out, fc1, fc2) and the MAP
+#: head's q, k, v, out, fc1, fc2 run on the int8 matmul per batch; the
+#: model quantizes 151 Linears (the text tower's 72 and its projection too)
+INT8_MATMUL_PER_BATCH = 78
+INT8_QUANTIZED = 151
+#: (M, K, N) off the tile grid (tests/test_int8_ops.py ODD_MATMUL_SHAPES)
+ODD_MATMUL_SHAPES = [(1, 7, 5), (5, 100, 33), (33, 64, 128), (257, 769, 129),
+                     (16, 768, 768)]
 TRAIN_BATCH = 128
 TRAIN_WARMUP = 3
 TRAIN_STEPS = 10
@@ -204,10 +246,13 @@ def _device_rows(prof) -> list:
     return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
 
-def bound_ms(nbytes: int, flops: float, dtype: torch.dtype
-             ) -> tuple[float, str]:
+def bound_ms(nbytes: int, flops: float, dtype: torch.dtype,
+             int8_ops: float = 0.0) -> tuple[float, str]:
+    """The least time for the work: bytes over the memory rate, or the
+    float operations over the dtype's peak plus the int8 ones over the int8
+    peak, whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = (flops / PEAK_FLOPS[dtype] + int8_ops / PEAK_INT8_OPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -511,13 +556,147 @@ def flash_bwd_case(qshape: tuple[int, int, int, int], sk: int, causal: bool,
             "bound_ms": bound, "bound_by": by}
 
 
-def unmasked_against_recorded(cases: list[tuple[str, dict]],
-                              card: str) -> None:
-    """The unmasked flash kernels at the train step's image shape beside
-    the times PERF.md records for them: the masked instantiations must not
+def int8_matmul_case(m: int, k: int, n: int, activation: str | None,
+                     seed: int) -> dict:
+    """Kernel row 11 against its plain version: x quantized per row, w per
+    output channel (as ``quantize_linear`` does), an f32 bias."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(m, k, generator=g, device="cuda")
+    w = torch.randn(n, k, generator=g, device="cuda")
+    bias = torch.randn(n, generator=g, device="cuda")
+    x_q, x_s = mm.quantize_rows(x)
+    w_q, w_s = mm.quantize_rows(w)
+
+    def kernel():
+        return mm.int8_matmul(x_q, x_s, w_q, w_s, bias, activation=activation)
+
+    def plain():
+        return mm.int8_matmul_plain(x_q, x_s, w_q, w_s, bias,
+                                    activation=activation)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    err, cos, peak = compare(got, plain())
+    check(within(torch.float32, err, cos, peak),
+          f"int8_matmul ({m}, {k}) x ({k}, {n}) {activation}: err {err}")
+    nbytes = sum(t.nbytes for t in (x_q, x_s, w_q, w_s, bias, got))
+    bound, by = bound_ms(nbytes, 0.0, torch.float32, int8_ops=2.0 * m * n * k)
+    library = None
+    if m > 16 and k % 8 == 0 and n % 8 == 0:  # what torch._int_mm takes
+        library = device_ms(lambda: mm._epilogue(
+            torch._int_mm(x_q, w_q.t()).float(), x_s, w_s, bias,
+            activation))
+    return {"shape": f"({m}, {k}) x ({k}, {n})"
+            + (f" {activation}" if activation else ""),
+            "dtype": "int8", "max_abs_err": err, "cosine": cos,
+            "ms": device_ms(kernel), "call_ms": cuda_ms(kernel),
+            "plain_ms": device_ms(plain), "library_ms": library,
+            "bound_ms": bound, "bound_by": by}
+
+
+def _int8_flash_inputs(qshape, sk: int, dtype: torch.dtype, seed: int):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, sq, n, d = qshape
+    q, do = (torch.randn(b, sq, n, d, generator=g, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, sk, n, d, generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    qq, qs = fa8.quantize_heads(q)
+    kq, ks = fa8.quantize_heads(k)
+    return qq, qs, kq, ks, v, do
+
+
+def _dequantized(x_q: torch.Tensor, scale: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """(B, N, S, D) q or k for SDPA: the int8 values times their scales, in
+    the storage dtype."""
+    return (x_q.float() * scale.transpose(1, 2)[..., None]).to(
+        dtype).transpose(1, 2)
+
+
+def int8_flash_case(qshape: tuple[int, int, int, int], sk: int,
+                    causal: bool, dtype: torch.dtype, seed: int) -> dict:
+    """Kernel row 9 against its plain version, from the same int8 q/k."""
+    qq, qs, kq, ks, v, _ = _int8_flash_inputs(qshape, sk, dtype, seed)
+    b, sq, n, d = qshape
+
+    def kernel():
+        return fa8.flash_attention_int8_fwd(qq, qs, kq, ks, v,
+                                            is_causal=causal)
+
+    o, lse = kernel()
+    torch.cuda.synchronize()
+    po, plse = fa8.flash_attention_int8_plain(qq, qs, kq, ks, v,
+                                              is_causal=causal)
+    err, cos, peak = compare(o, po)
+    lse_err = compare(lse, plse)[0]
+    check(within(dtype, err, cos, peak) and lse_err <= F32_MAX_ERR,
+          f"flash_int8 {qshape} sk={sk} causal={causal} {dtype}: err {err} "
+          f"cos {cos} lse err {lse_err}")
+    pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk)
+    work = 2.0 * b * n * pairs * d  # the int8 scores, and P.V
+    nbytes = sum(t.nbytes for t in (qq, qs, kq, ks, v, o, lse))
+    bound, by = bound_ms(nbytes, work, dtype, int8_ops=work)
+    qd, kd = _dequantized(qq, qs, dtype), _dequantized(kq, ks, dtype)
+    vt = v.transpose(1, 2)
+    return {"shape": f"q{qshape} sk={sk}" + (" causal" if causal else ""),
+            "dtype": str(dtype)[6:], "max_abs_err": err, "cosine": cos,
+            "ms": device_ms(kernel), "call_ms": cuda_ms(kernel),
+            "plain_ms": device_ms(lambda: fa8.flash_attention_int8_plain(
+                qq, qs, kq, ks, v, is_causal=causal)),
+            "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                qd, kd, vt, is_causal=causal)),
+            "bound_ms": bound, "bound_by": by}
+
+
+def int8_flash_bwd_case(qshape: tuple[int, int, int, int], sk: int,
+                        causal: bool, dtype: torch.dtype, seed: int) -> dict:
+    """Kernel row 10 (dq, then dk/dv) against its plain version."""
+    qq, qs, kq, ks, v, do = _int8_flash_inputs(qshape, sk, dtype, seed)
+    b, sq, n, d = qshape
+    o, lse = fa8.flash_attention_int8_plain(qq, qs, kq, ks, v,
+                                            is_causal=causal)
+
+    def kernel():
+        return fa8.flash_attention_int8_bwd(qq, qs, kq, ks, v, o, lse, do,
+                                            is_causal=causal)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    want = fa8.flash_attention_int8_bwd_plain(qq, qs, kq, ks, v, o, lse, do,
+                                              is_causal=causal)
+    errs = [compare(a, w) for a, w in zip(got, want)]
+    check(all(within(dtype, *e, relative=True) for e in errs),
+          f"flash_int8_bwd {qshape} sk={sk} causal={causal} {dtype}: (err, "
+          f"cos, peak) of dq, dk, dv {errs}")
+    pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk)
+    # the int8 scores once, then dp, dv, dq and dk
+    work = 2.0 * b * n * pairs * d
+    nbytes = (sum(t.nbytes for t in (qq, qs, kq, ks, v, o, lse, do))
+              + lse.nbytes + sum(t.nbytes for t in got))  # lse again: delta
+    bound, by = bound_ms(nbytes, 4 * work, dtype, int8_ops=work)
+    qd, kd, vt = (t.detach().clone().requires_grad_() for t in (
+        _dequantized(qq, qs, dtype), _dequantized(kq, ks, dtype),
+        v.transpose(1, 2)))
+    ot = F.scaled_dot_product_attention(qd, kd, vt, is_causal=causal)
+    return {"shape": f"q{qshape} sk={sk}" + (" causal" if causal else ""),
+            "dtype": str(dtype)[6:], "max_abs_err": max(e[0] for e in errs),
+            "cosine": min(e[1] for e in errs),
+            "ms": device_ms(kernel), "call_ms": cuda_ms(kernel),
+            "plain_ms": device_ms(lambda: fa8.flash_attention_int8_bwd_plain(
+                qq, qs, kq, ks, v, o, lse, do, is_causal=causal)),
+            "library_ms": device_ms(grad_ms(ot, (qd, kd, vt),
+                                            do.transpose(1, 2))),
+            "bound_ms": bound, "bound_by": by}
+
+
+def rows_against_recorded(cases: list[tuple[str, dict]], card: str) -> None:
+    """Rows 3, 4 and 7 at the train step's image shape beside the times
+    PERF.md records for them: the int8 sources, new beside them, must not
     move them."""
     for name, c in cases:
-        if (c["shape"] == "q(128, 256, 12, 64) sk=256"
+        if (c["shape"] in ("q(128, 256, 12, 64) sk=256",
+                           "q(128, 256, 12, 64) sk=256 naflex")
                 and c["dtype"] == "bfloat16" and name in RECORDED_MS):
             print(f"kernel {name} {c['shape']} bfloat16: {c['ms']:.4f} ms, "
                   f"PERF.md records {RECORDED_MS[name]:.4f} ms (ratio "
@@ -534,10 +713,12 @@ def kernel_phase(card: str) -> dict[str, dict]:
 
     def add(name: str, c: dict) -> None:
         cases.append((name, c))
+        library = ("none" if c["library_ms"] is None
+                   else f"{c['library_ms']:.4f} ms")
         print(f"kernel {name} {c['shape']} {c['dtype']}: max_abs_err "
               f"{c['max_abs_err']:.3e} cosine {c['cosine']:.6f} | device "
               f"time: kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
-              f"library {c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} "
+              f"library {library}, bound {c['bound_ms']:.4f} "
               f"ms ({c['bound_by']}); kernel per call {c['call_ms']:.4f} ms "
               f"| {card}", flush=True)
 
@@ -597,7 +778,34 @@ def kernel_phase(card: str) -> dict[str, dict]:
                 ((1, 70, 1, 256), 130, True, "sparse")]):
             add("flash_attention_masked_bwd", masked_flash_bwd_case(
                 qshape, sk, causal, kind, dtype, 70 + i))
-    unmasked_against_recorded(cases, card)
+        # int8-QK flash (kernel rows 9 and 10): the int8_qk train shapes
+        # (batch 128) and odd ones: seq 1, 5 and 257, causal and not, D 64
+        # and 80 (and 256)
+        for i, (qshape, sk, causal) in enumerate([
+                ((128, 256, 12, 64), 256, False),  # image self-attention
+                ((128, 1, 12, 64), 256, False),    # MAP probe
+                ((128, 64, 12, 64), 64, False),    # text self-attention
+                ((2, 1, 2, 64), 1, False), ((2, 5, 2, 80), 5, True),
+                ((2, 5, 2, 80), 5, False), ((2, 257, 2, 64), 257, True),
+                ((2, 257, 2, 80), 257, False), ((2, 1, 2, 80), 257, False),
+                ((1, 70, 1, 256), 130, True)]):
+            add("flash_attention_int8",
+                int8_flash_case(qshape, sk, causal, dtype, 90 + i))
+            add("flash_attention_int8_bwd",
+                int8_flash_bwd_case(qshape, sk, causal, dtype, 110 + i))
+    # int8 matmul (kernel row 11): the served shapes at bucket 32 (8192
+    # token rows; the MAP head's q and out projections have 32) with a
+    # bias, fc1's with relu and gelu, and odd shapes
+    for i, (m, k, n, act) in enumerate([
+            (8192, 768, 768, None),     # q, k, v, out
+            (8192, 768, 3072, None),    # fc1
+            (8192, 3072, 768, None),    # fc2
+            (32, 768, 768, None),       # MAP head q, out
+            (8192, 768, 3072, "relu"), (8192, 768, 3072, "gelu"),
+            *((m, k, n, act) for m, k, n in ODD_MATMUL_SHAPES
+              for act in (None, "relu", "gelu"))]):
+        add("int8_matmul", int8_matmul_case(m, k, n, act, 130 + i))
+    rows_against_recorded(cases, card)
     first = {}
     for name, c in cases:  # the first case of each kernel: bf16, main shape
         first.setdefault(name, c)
@@ -622,14 +830,20 @@ def _b64(img: np.ndarray) -> dict:
             "shape": list(img.shape)}
 
 
-def serve_phase(card: str) -> dict:
+def serve_phase(card: str, dtype: str = "bf16") -> dict:
+    """Phase 4 (``dtype="bf16"``) or phase 7 (``"int8"``): the model as
+    ``serve --dtype DTYPE`` builds it, behind the HTTP server."""
     cfg = configs.with_runtime(configs.preset("siglip-base-patch16-256"),
                                ln_impl="fused")
     check(cfg.vision.attn_impl == "auto", "preset attn_impl changed")
     t0 = time.perf_counter()
-    model = SigLIP(cfg, device="cuda", dtype=torch.bfloat16,
-                   generator=torch.Generator(device="cuda").manual_seed(0))
-    model.eval()
+    model, quantized = cli.serving_model(
+        cfg, dtype, "cuda",
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    int8 = dtype == "int8"
+    check(quantized == (INT8_QUANTIZED if int8 else 0),
+          f"serve --dtype {dtype} quantized {quantized} Linears")
+    label = "int8 serve" if int8 else "serve"
     size = cfg.vision.image_size
     engine = InferenceEngine(
         image_forward(model), item_shape=(size, size, 3),
@@ -637,9 +851,9 @@ def serve_phase(card: str) -> dict:
         policy=AdmissionPolicy(max_queue=256, default_timeout_s=120.0))
     server = ServingServer(engine, port=0, request_timeout_s=300.0)
     server.start()
-    print(f"serve: SigLIP-B/16-256 bf16 built and warmed "
-          f"(buckets {engine.buckets.sizes}) in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"{label}: SigLIP-B/16-256 {dtype} built and warmed "
+          f"(buckets {engine.buckets.sizes}, {quantized} Linears quantized) "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
     rng = np.random.default_rng(0)
     images = rng.uniform(-1, 1, (80, size, size, 3)).astype(np.float32)
     # base64 bodies: a JSON list of 196,608 floats per image is parsed in
@@ -656,35 +870,34 @@ def serve_phase(card: str) -> dict:
         t_bulk = time.perf_counter()
         bulk_s, bulk_out = _post(server.port, bulk)
         t_end = time.perf_counter()
-        flash_n, ln_n = fa.launches, ln.launches
-        bwd_n = fa.bwd_launches + ln.bwd_launches
+        counts = read_counts()
         batches = engine.metrics.count("batches_total")
         peak = torch.cuda.max_memory_allocated()
     finally:
         server.stop()
+    flash_n, ln_n, mm_n = (counts["flash_attention"], counts["layer_norm"],
+                           counts["int8_matmul"])
     features = np.asarray([out["features"] for _, out in answers]
                           + bulk_out["features"], np.float32)
     check(features.shape == (80, cfg.vision.width),
           f"features shape {features.shape}")
     check(bool(np.isfinite(features).all()), "non-finite features")
+    mm_per_batch = INT8_MATMUL_PER_BATCH if int8 else 0
     check(batches > 0 and flash_n == FLASH_PER_BATCH * batches
-          and ln_n == LN_PER_BATCH * batches,
-          f"launch counts: {flash_n} flash, {ln_n} layer_norm over "
-          f"{batches} batches")
-    check(bwd_n == 0, f"serving launched {bwd_n} backward kernels")
-    print(f"serve: {batches} batches dispatched; launches flash {flash_n} "
+          and ln_n == LN_PER_BATCH * batches
+          and mm_n == mm_per_batch * batches,
+          f"launch counts over {batches} batches: {counts}")
+    check(sum(n for k, n in counts.items() if k not in (
+        "flash_attention", "layer_norm", "int8_matmul")) == 0,
+          f"serving launched other kernels: {counts}")
+    print(f"{label}: {batches} batches dispatched; launches flash {flash_n} "
           f"= {FLASH_PER_BATCH}/batch, layer_norm {ln_n} = "
-          f"{LN_PER_BATCH}/batch", flush=True)
+          f"{LN_PER_BATCH}/batch, int8_matmul {mm_n} = {mm_per_batch}/batch",
+          flush=True)
 
-    batch = torch.from_numpy(images).to("cuda", torch.bfloat16)
-    ref = []
-    with plain_versions(), torch.inference_mode():
-        for i in range(0, 80, 32):
-            ref.append(model.encode_image(batch[i:i + 32]).float().cpu()
-                       .numpy())
-    check(fa.launches == flash_n and ln.launches == ln_n,
-          "the reference forward launched a kernel")
-    ref = np.concatenate(ref)
+    batch = torch.from_numpy(images).to("cuda", next(model.parameters()).dtype)
+    ref = encode_all(model, batch, plain=True)
+    check(read_counts() == counts, "the reference forward launched a kernel")
     norm, ref_norm = (np.linalg.norm(features, axis=1),
                       np.linalg.norm(ref, axis=1))
     cos = (features * ref).sum(1) / (norm * ref_norm)
@@ -695,20 +908,45 @@ def serve_phase(card: str) -> dict:
           f"served features vs plain forward: norm off by {norm_err.max()}")
     lat = np.asarray([s for s, _ in answers]) * 1e3
     n_img = len(images)
-    print(f"serve: 80 answers match the plain-version forward, min cosine "
+    print(f"{label}: 80 answers match the plain-version forward, min cosine "
           f"{cos.min():.6f}, norms within {norm_err.max():.2e}", flush=True)
-    print(f"serve: /v1/embed single-request latency p50 "
+    if int8:
+        # the unquantized twin: the same seeded weights in f32
+        twin, _ = cli.serving_model(
+            cfg, "f32", "cuda",
+            generator=torch.Generator(device="cuda").manual_seed(0))
+        full = encode_all(twin, batch)
+        del twin
+        full_cos = (features * full).sum(1) / (
+            norm * np.linalg.norm(full, axis=1))
+        print(f"{label}: cosine against the unquantized f32 model: min "
+              f"{full_cos.min():.6f}, mean {full_cos.mean():.6f} (the JAX "
+              f"package's floor for int8 serving is 0.999, "
+              f"docs/quantization.md) | {card}", flush=True)
+    print(f"{label}: /v1/embed single-request latency p50 "
           f"{np.percentile(lat, 50):.2f} ms p99 {np.percentile(lat, 99):.2f}"
           f" ms (48 requests, 16 client threads) | {card}", flush=True)
-    print(f"serve: {48 / (t_bulk - t_start):.1f} images/s over the singles, "
+    print(f"{label}: {48 / (t_bulk - t_start):.1f} images/s over the singles, "
           f"{32 / bulk_s:.1f} images/s for the bulk request of 32, "
           f"{n_img / (t_end - t_start):.1f} images/s overall | {card}",
           flush=True)
-    print(f"serve: torch.cuda.max_memory_allocated {peak} bytes "
+    print(f"{label}: torch.cuda.max_memory_allocated {peak} bytes "
           f"({peak / 2**30:.2f} GiB) | {card}", flush=True)
-    forward_readout(model, batch, card)
-    return {"flash_attention": flash_n, "layer_norm": ln_n,
-            "batches": batches}
+    forward_readout(model, batch, card, "int8 " if int8 else "")
+    return dict(counts, batches=batches)
+
+
+def encode_all(model: SigLIP, batch: torch.Tensor, plain: bool = False
+               ) -> np.ndarray:
+    """``encode_image`` over the batch in buckets of 32, through the kernels
+    or (``plain``) their plain versions, as f32 numpy."""
+    out = []
+    with (plain_versions() if plain else contextlib.nullcontext()), \
+            torch.inference_mode():
+        for i in range(0, batch.shape[0], 32):
+            out.append(model.encode_image(batch[i:i + 32]).float().cpu()
+                       .numpy())
+    return np.concatenate(out)
 
 
 @contextlib.contextmanager
@@ -725,14 +963,22 @@ def plain_versions():
         return fa.flash_attention_plain(q, k, v, is_causal=is_causal,
                                         mask=mask)[0]
 
+    # the int8 Functions stay (their straight-through backward is the
+    # function under test); inside them the plain versions answer
     with mock.patch.object(norm_mod, "layer_norm", plain_ln), \
             mock.patch.object(attention_mod, "flash_attention", plain_flash), \
             mock.patch.object(attention_mod, "flash_attention_masked",
-                              plain_masked):
+                              plain_masked), \
+            mock.patch.object(fa8, "flash_attention_int8_fwd",
+                              fa8.flash_attention_int8_plain), \
+            mock.patch.object(fa8, "flash_attention_int8_bwd",
+                              fa8.flash_attention_int8_bwd_plain), \
+            mock.patch.object(mm, "int8_matmul", mm.int8_matmul_plain):
         yield
 
 
-def forward_readout(model: SigLIP, batch: torch.Tensor, card: str) -> None:
+def forward_readout(model: SigLIP, batch: torch.Tensor, card: str,
+                    label: str = "") -> None:
     """Device time of one encode_image per bucket (kernels, then plain
     versions), and where a bucket-32 forward's device time goes."""
     with torch.inference_mode():
@@ -746,7 +992,8 @@ def forward_readout(model: SigLIP, batch: torch.Tensor, card: str) -> None:
             with plain_versions():
                 p_call, p_dev = (cuda_ms(fwd, iters=10),
                                  device_ms(fwd, iters=10))
-            print(f"forward: encode_image bucket {size}: kernels {k_call:.3f}"
+            print(f"{label}forward: encode_image bucket {size}: kernels "
+                  f"{k_call:.3f}"
                   f" ms per call, {k_dev:.3f} ms device busy (idle "
                   f"{max(0.0, 1 - k_dev / k_call):.0%}); plain versions "
                   f"{p_call:.3f} ms per call, {p_dev:.3f} ms device busy "
@@ -759,11 +1006,11 @@ def forward_readout(model: SigLIP, batch: torch.Tensor, card: str) -> None:
                    for e in _device_rows(prof)), reverse=True)
     total = sum(r[0] for r in rows)
     if not total:
-        print("profile: the trace of a bucket-32 forward recorded no device "
-              "time", flush=True)
+        print(f"profile: the trace of a {label}bucket-32 forward recorded no "
+              f"device time", flush=True)
         return
-    print(f"profile: bucket-32 forward, {total / 1e3:.3f} ms of kernel time "
-          f"| {card}", flush=True)
+    print(f"profile: {label}bucket-32 forward, {total / 1e3:.3f} ms of kernel "
+          f"time | {card}", flush=True)
     for us, count, key in rows[:10]:
         print(f"profile:   {us / 1e3:8.3f} ms {100 * us / total:5.1f}% "
               f"x{count:<4d} {key[:90]}", flush=True)
@@ -793,19 +1040,54 @@ def _batch(cfg, batch: int, dtype: torch.dtype, seed: int
     return images, text
 
 
+@contextlib.contextmanager
+def quantization_tape(tape: list, replay: bool):
+    """Records every ``quantize_heads`` result of a run into ``tape``, or
+    (``replay``) hands the recorded ones back in order, so that a second run
+    quantizes q and k as the first one did."""
+    quantize, replayed = fa8.quantize_heads, iter(tape)
+
+    def record(x):
+        tape.append(quantize(x))
+        return tape[-1]
+
+    def play(x):
+        x_q, scale = next(replayed)
+        check(x_q.shape == x.shape, "the replayed run quantized another "
+              "tensor")
+        return x_q, scale
+
+    with mock.patch.object(fa8, "quantize_heads", play if replay else record):
+        yield
+
+
 def grads_phase(model: SigLIP, images, text, want: dict[str, int],
-                label: str, card: str) -> None:
+                label: str, card: str, held_quantization: bool = False
+                ) -> None:
     """One f32 step's gradients through the kernels (whose launches must
     be ``want``) against the same step with the plain versions swapped in:
-    every parameter within 1e-3 of its largest gradient."""
+    every parameter within 1e-3 of its largest gradient.
+
+    ``held_quantization`` (the int8_qk step): the plain-version step
+    quantizes q and k exactly as the kernel step did. Quantization is
+    discontinuous: a one-ulp difference upstream (the LayerNorm and flash
+    kernels round otherwise than their plain versions) can move an int8
+    value by one step and a gradient by ~2e-3 of its largest value (seen on
+    the card), a property of the quantized function, not of a kernel; held
+    fixed, both steps differentiate the same function."""
+    tape: list = []
     zero_counts()
-    contrastive_loss_fn(model, images, text, kind="siglip").backward()
+    with (quantization_tape(tape, replay=False) if held_quantization
+          else contextlib.nullcontext()):
+        contrastive_loss_fn(model, images, text, kind="siglip").backward()
     counts = read_counts()
     check(all(counts[k] == n for k, n in want.items()),
           f"{label}: launch counts {counts}, want {want}")
     got = {n: p.grad.clone() for n, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
-    with plain_versions():
+    with plain_versions(), (quantization_tape(tape, replay=True)
+                            if held_quantization
+                            else contextlib.nullcontext()):
         contrastive_loss_fn(model, images, text, kind="siglip").backward()
     check(read_counts() == counts,
           f"{label}: the plain-version step launched a kernel")
@@ -836,15 +1118,46 @@ def train_grads_phase(card: str) -> None:
     the same step with the plain versions swapped in."""
     model = _train_model(torch.float32)
     images, text = _batch(model.config, 8, torch.float32, 1)
-    grads_phase(model, images, text,
-                {"flash_attention_bwd": FLASH_PER_STEP,
-                 "flash_attention_masked_bwd": 0,
-                 "layer_norm_bwd": LN_PER_STEP}, "train: f32 batch 8", card)
+    grads_phase(model, images, text, step_counts(), "train: f32 batch 8",
+                card)
 
 
-def train_phase(card: str) -> dict[str, int]:
-    """(b) bf16, batch 128: the train step's speed and launch counts."""
+def step_counts(precision: str | None = None, naflex: bool = False
+                ) -> dict[str, int]:
+    """Kernel launches per train step of SigLIP-B/16-256 (or, with
+    ``naflex``, SigLIP2-B/16-256 on NaFlex batches) under ``precision``."""
+    flash, masked, int8 = ((NAFLEX_FLASH_PER_STEP, NAFLEX_MASKED_PER_STEP, 0)
+                           if naflex else (0, 0, FLASH_PER_STEP)
+                           if precision == "int8_qk"
+                           else (FLASH_PER_STEP, 0, 0))
+    return {"flash_attention": flash, "flash_attention_bwd": flash,
+            "flash_attention_masked": masked,
+            "flash_attention_masked_bwd": masked,
+            "layer_norm": LN_PER_STEP, "layer_norm_bwd": LN_PER_STEP,
+            "flash_attention_int8": int8, "flash_attention_int8_bwd": int8,
+            "int8_matmul": 0}
+
+
+def int8_qk_grads_phase(card: str) -> None:
+    """8(a) f32, batch 8, every attention on the int8-QK flash kernels: one
+    step's gradients through the kernels against the same step with the
+    plain versions swapped in."""
+    model = _train_model(torch.float32)
+    check(apply_precision_policy(model, "int8_qk") == FLASH_PER_STEP,
+          "int8_qk did not rewrite every attention")
+    images, text = _batch(model.config, 8, torch.float32, 1)
+    grads_phase(model, images, text, step_counts("int8_qk"),
+                "int8_qk: f32 batch 8", card, held_quantization=True)
+
+
+def train_phase(card: str, precision: str | None = None) -> None:
+    """(b) bf16, batch 128: the train step's speed and launch counts, under
+    the precision policy ``precision`` (phase 8(b)) or as built (5(b))."""
     model = _train_model(torch.bfloat16)
+    label = "int8_qk: train" if precision else "train"
+    if precision:
+        check(apply_precision_policy(model, precision) == FLASH_PER_STEP,
+              f"{precision} did not rewrite every attention")
     cfg = model.config
     optimizer = make_optimizer(model, OptimizerConfig(learning_rate=1e-3))
     step = make_contrastive_train_step("siglip")
@@ -853,8 +1166,6 @@ def train_phase(card: str) -> dict[str, int]:
     losses = [step(model, optimizer, images, text)["loss"]
               for _ in range(TRAIN_WARMUP)]
     float(model.logit_scale.detach())
-    counts = {"flash_attention": 0, "flash_attention_bwd": 0,
-              "layer_norm": 0, "layer_norm_bwd": 0}
     zero_counts()
     t0 = time.perf_counter()
     for _ in range(TRAIN_STEPS):
@@ -862,32 +1173,26 @@ def train_phase(card: str) -> dict[str, int]:
     # logit_scale depends on the last update: the chain has finished
     float(model.logit_scale.detach())
     dt = (time.perf_counter() - t0) / TRAIN_STEPS
-    counts.update(flash_attention=fa.launches, flash_attention_bwd=fa.bwd_launches,
-                  layer_norm=ln.launches, layer_norm_bwd=ln.bwd_launches)
-    want = {"flash_attention": FLASH_PER_STEP, "flash_attention_bwd":
-            FLASH_PER_STEP, "layer_norm": LN_PER_STEP,
-            "layer_norm_bwd": LN_PER_STEP}
+    counts = read_counts()
+    want = step_counts(precision)
     check(all(counts[k] == want[k] * TRAIN_STEPS for k in want),
-          f"train launch counts over {TRAIN_STEPS} steps: {counts}")
+          f"{label} launch counts over {TRAIN_STEPS} steps: {counts}")
     loss = torch.stack(losses).float().cpu()
     check(bool(torch.isfinite(loss).all()), f"non-finite loss: {loss}")
     check(loss[-1] < loss[0], f"loss did not fall: {loss.tolist()}")
     peak = torch.cuda.max_memory_allocated()
     flops = train_step_flops(cfg, TRAIN_BATCH)
-    print(f"train: bf16 batch {TRAIN_BATCH}, {TRAIN_STEPS} timed steps after "
-          f"{TRAIN_WARMUP} warm-up: launches per step flash "
-          f"{counts['flash_attention'] // TRAIN_STEPS} fwd + "
-          f"{counts['flash_attention_bwd'] // TRAIN_STEPS} bwd, layer_norm "
-          f"{counts['layer_norm'] // TRAIN_STEPS} fwd + "
-          f"{counts['layer_norm_bwd'] // TRAIN_STEPS} bwd", flush=True)
-    print(f"train: loss {loss[0].item():.4f} at step 0 -> "
+    per_step = {k: n // TRAIN_STEPS for k, n in counts.items() if n}
+    print(f"{label}: bf16 batch {TRAIN_BATCH}, {TRAIN_STEPS} timed steps "
+          f"after {TRAIN_WARMUP} warm-up: launches per step {per_step}",
+          flush=True)
+    print(f"{label}: loss {loss[0].item():.4f} at step 0 -> "
           f"{loss[-1].item():.4f} after step {len(losses) - 1}", flush=True)
-    print(f"train: step {dt * 1e3:.3f} ms, {TRAIN_BATCH / dt:.1f} images/s, "
+    print(f"{label}: step {dt * 1e3:.3f} ms, {TRAIN_BATCH / dt:.1f} images/s, "
           f"MFU {mfu(flops, dt, 989.0):.4f} of 989 TFLOP/s "
           f"({flops / 1e12:.3f} TFLOP a step), torch.cuda.max_memory_allocated "
           f"{peak} bytes ({peak / 2**30:.2f} GiB) | {card}", flush=True)
     step_readout(model, optimizer, step, images, text, card)
-    return counts
 
 
 def step_readout(model, optimizer, step, images, text, card: str) -> None:
@@ -917,6 +1222,7 @@ def step_readout(model, optimizer, step, images, text, card: str) -> None:
 def zero_counts() -> None:
     fa.launches = fa.bwd_launches = ln.launches = ln.bwd_launches = 0
     fa.masked_launches = fa.masked_bwd_launches = 0
+    fa8.launches = fa8.bwd_launches = mm.launches = 0
 
 
 def read_counts() -> dict[str, int]:
@@ -924,19 +1230,25 @@ def read_counts() -> dict[str, int]:
             "flash_attention_bwd": fa.bwd_launches,
             "flash_attention_masked": fa.masked_launches,
             "flash_attention_masked_bwd": fa.masked_bwd_launches,
-            "layer_norm": ln.launches, "layer_norm_bwd": ln.bwd_launches}
+            "layer_norm": ln.launches, "layer_norm_bwd": ln.bwd_launches,
+            "flash_attention_int8": fa8.launches,
+            "flash_attention_int8_bwd": fa8.bwd_launches,
+            "int8_matmul": mm.launches}
 
 
-def cli_train_phase(card: str, naflex: bool = False) -> dict[str, int]:
+def cli_train_phase(card: str, naflex: bool = False,
+                    precision: str | None = None) -> dict[str, int]:
     """(c) The ``train`` command, run in this process so that its launches
     can be counted: the counters are zeroed just before it and read just
     after. Its JSON lines are printed with a ``cli:`` prefix. With
-    ``naflex``, SigLIP2-B/16-256 on NaFlex batches (phase 6(c))."""
+    ``naflex``, SigLIP2-B/16-256 on NaFlex batches (phase 6(c)); with
+    ``precision``, under that policy (phase 8(c))."""
     argv = ["train", "--preset", NAFLEX_PRESET if naflex
             else "siglip-base-patch16-256", "--bf16",
             "--ln-impl", "fused", "--steps", str(CLI_STEPS), "--batch-size",
             str(TRAIN_BATCH), "--log-every", "1"] + (
-                ["--naflex"] if naflex else [])
+                ["--naflex"] if naflex else []) + (
+                ["--precision", precision] if precision else [])
     out = io.StringIO()
     with tempfile.TemporaryDirectory() as tmp:
         path = pathlib.Path(tmp) / "metrics.jsonl"
@@ -952,18 +1264,14 @@ def cli_train_phase(card: str, naflex: bool = False) -> dict[str, int]:
         print(f"cli: {line} | {card}", flush=True)
     summary = json.loads(printed[-1])
     check(rc == 0 and summary.get("status") == "trained"
-          and summary.get("device", "").startswith("cuda"),
+          and summary.get("device", "").startswith("cuda")
+          and summary.get("precision") == (precision or "bf16"),
           f"python -m jimm_tpu_torch {' '.join(argv)}: rc {rc}, {summary}")
     check([r["step"] for r in logged] == list(range(CLI_STEPS)),
           f"train command logged steps {[r['step'] for r in logged]}")
     check(all(math.isfinite(r["loss"]) and r["mfu"] is not None
               for r in logged), f"train command metrics: {logged}")
-    flash, masked = ((NAFLEX_FLASH_PER_STEP, NAFLEX_MASKED_PER_STEP)
-                     if naflex else (FLASH_PER_STEP, 0))
-    want = {"flash_attention": flash, "flash_attention_bwd": flash,
-            "flash_attention_masked": masked,
-            "flash_attention_masked_bwd": masked,
-            "layer_norm": LN_PER_STEP, "layer_norm_bwd": LN_PER_STEP}
+    want = step_counts(precision, naflex)
     check(all(counts[k] == want[k] * CLI_STEPS for k in want),
           f"train command launch counts over {CLI_STEPS} steps: {counts}")
     times = [r["step_time_s"] * 1e3 for r in logged]
@@ -1002,12 +1310,7 @@ def naflex_grads_phase(card: str) -> None:
     model = _naflex_model(torch.float32)
     images, text = _naflex_batch(model.config, 8, torch.float32, 1)
     check(not bool(images[2].all()), "the NaFlex batch has no padding")
-    grads_phase(model, images, text,
-                {"flash_attention_masked": NAFLEX_MASKED_PER_STEP,
-                 "flash_attention_masked_bwd": NAFLEX_MASKED_PER_STEP,
-                 "flash_attention": NAFLEX_FLASH_PER_STEP,
-                 "flash_attention_bwd": NAFLEX_FLASH_PER_STEP,
-                 "layer_norm": LN_PER_STEP, "layer_norm_bwd": LN_PER_STEP},
+    grads_phase(model, images, text, step_counts(naflex=True),
                 "naflex: f32 batch 8", card)
 
 
@@ -1079,11 +1382,7 @@ def naflex_train_phase(card: str) -> None:
     float(model.logit_scale.detach())
     dt = (time.perf_counter() - t0) / NAFLEX_TRAIN_STEPS
     counts = read_counts()
-    want = {"flash_attention": NAFLEX_FLASH_PER_STEP,
-            "flash_attention_bwd": NAFLEX_FLASH_PER_STEP,
-            "flash_attention_masked": NAFLEX_MASKED_PER_STEP,
-            "flash_attention_masked_bwd": NAFLEX_MASKED_PER_STEP,
-            "layer_norm": LN_PER_STEP, "layer_norm_bwd": LN_PER_STEP}
+    want = step_counts(naflex=True)
     check(all(counts[k] == want[k] * NAFLEX_TRAIN_STEPS for k in want),
           f"NaFlex train launch counts over {NAFLEX_TRAIN_STEPS} steps: "
           f"{counts}")
@@ -1138,14 +1437,29 @@ def main() -> int:
         naflex_train_phase(card)
         naflex_counts = cli_train_phase(card, naflex=True)
         done("naflex")
+        int8_serve_counts = serve_phase(card, "int8")
+        done("int8 serve")
+        int8_qk_grads_phase(card)
+        train_phase(card, precision="int8_qk")
+        int8_qk_counts = cli_train_phase(card, precision="int8_qk")
+        done("int8_qk")
         check(all(math.isfinite(timed[k]["ms"]) for k in timed), "bad timing")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
         return 1
-    # each kernel's launches come from the train command of its main path:
-    # SigLIP-B/16-256 for the unmasked kernels, SigLIP2-B/16-256 on NaFlex
-    # batches for the masked ones; every kernel also runs on the NaFlex path
-    masked = ("flash_attention_masked", "flash_attention_masked_bwd")
+    # each kernel's launches come from the run of its main path: the train
+    # command of SigLIP-B/16-256 for the unmasked kernels, of
+    # SigLIP2-B/16-256 on NaFlex batches for the masked ones, of
+    # SigLIP-B/16-256 under --precision int8_qk for the int8 flash kernels,
+    # and the int8 server's traffic for the int8 matmul
+    paths = {"serve": serve_counts, "train": train_counts,
+             "naflex": naflex_counts, "int8_serve": int8_serve_counts,
+             "int8_qk": int8_qk_counts}
+    main_path = {"flash_attention_masked": "naflex",
+                 "flash_attention_masked_bwd": "naflex",
+                 "flash_attention_int8": "int8_qk",
+                 "flash_attention_int8_bwd": "int8_qk",
+                 "int8_matmul": "int8_serve"}
     sources = {
         "layer_norm": ("jimm_tpu_torch/csrc/layer_norm.cu",
                        "jimm_tpu/ops/layer_norm.py:52"),
@@ -1160,23 +1474,30 @@ def main() -> int:
                                    "jimm_tpu/ops/flash_attention.py:136"),
         "flash_attention_masked_bwd": (
             "jimm_tpu_torch/csrc/flash_attention_bwd.cu",
-            "jimm_tpu/ops/flash_attention.py:241,293")}
+            "jimm_tpu/ops/flash_attention.py:241,293"),
+        "flash_attention_int8": ("jimm_tpu_torch/csrc/flash_attention_int8.cu",
+                                 "jimm_tpu/ops/flash_attention_int8.py:143"),
+        "flash_attention_int8_bwd": (
+            "jimm_tpu_torch/csrc/flash_attention_int8_bwd.cu",
+            "jimm_tpu/ops/flash_attention_int8.py:203,242"),
+        "int8_matmul": ("jimm_tpu_torch/csrc/int8_matmul.cu",
+                        "jimm_tpu/ops/int8_matmul.py:91")}
     record = []
     for kernel, (source, replaces) in sources.items():
         c = timed[kernel]
-        launches = (naflex_counts if kernel in masked else train_counts)[kernel]
+        path = main_path.get(kernel, "train")
         entry = {"name": kernel, "route": "cuda", "source": source,
-                 "replaces": replaces, "launches": launches,
-                 "launches_per_train_step": launches // CLI_STEPS,
-                 "naflex_launches": naflex_counts[kernel],
+                 "replaces": replaces, "launches": paths[path][kernel],
+                 "main_path": path,
+                 "launches_by_path": {p: n[kernel] for p, n in paths.items()},
+                 "served_batches": {p: paths[p]["batches"]
+                                    for p in ("serve", "int8_serve")},
+                 "train_steps": CLI_STEPS,
                  "max_abs_err": c["max_abs_err"], "ms": c["ms"],
                  "call_ms": c["call_ms"], "plain_ms": c["plain_ms"],
                  "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                  "library_ms": c["library_ms"], "shape": c["shape"],
                  "dtype": c["dtype"]}
-        if kernel in serve_counts:
-            entry["serve_launches"] = serve_counts[kernel]
-            entry["serve_batches"] = serve_counts["batches"]
         record.append(entry)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": record}), flush=True)

@@ -46,6 +46,14 @@ _SIGNATURES = {
                                  + [ctypes.c_float, _I, _P, _L, _I, _P]),
     "jimm_flash_attention_bwd": ([_P] * 9 + [_I] * 5 + [_L] * 12
                                  + [ctypes.c_float, _I, _P, _L, _I, _P]),
+    # x_q, x_scale, w_q, w_scale, bias (null for none), out, M, N, K,
+    # activation, stream
+    "jimm_int8_matmul": [_P] * 6 + [_I] * 4 + [_P],
+    # ..., v strides, [do strides,] scale, causal, dtype, stream
+    "jimm_flash_attention_int8_fwd": ([_P] * 7 + [_I] * 5 + [_L] * 3
+                                      + [ctypes.c_float, _I, _I, _P]),
+    "jimm_flash_attention_int8_bwd": ([_P] * 11 + [_I] * 5 + [_L] * 6
+                                      + [ctypes.c_float, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

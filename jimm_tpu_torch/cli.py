@@ -4,14 +4,18 @@
 seeded generator; checkpoint loading comes with HF IO, ROADMAP.md), puts its
 ``encode_image`` behind the micro-batching engine and the HTTP front end,
 warms every bucket, and prints one JSON ready line with
-``"status": "serving"``.
+``"status": "serving"``. ``--dtype int8`` builds the model in f32 and swaps
+every eligible Linear for a W8A8 ``QuantLinear`` before any forward
+(``jimm_tpu_torch.quant``).
 
 ``train`` trains a SigLIP preset contrastively on synthetic pairs
 (``data/synthetic.py``) with AdamW, clipping and the warmup-cosine schedule
 of the JAX package's ``train`` command, printing one JSON metrics line per
 logged step and a JSON summary line at the end. With ``--naflex`` the image
 side is SigLIP2's variable-resolution NaFlex batches (mixed-aspect synthetic
-images as padded patch sequences with a key-padding mask).
+images as padded patch sequences with a key-padding mask). ``--precision
+int8_qk`` runs every attention on the int8-QK flash kernels
+(``jimm_tpu_torch.quant.policy``).
 """
 
 from __future__ import annotations
@@ -27,6 +31,10 @@ from jimm_tpu_torch.configs import PRESETS, SigLIPConfig, preset, with_runtime
 from jimm_tpu_torch.data.synthetic import (contrastive_pairs,
                                             naflex_contrastive_pairs)
 from jimm_tpu_torch.models.siglip import SigLIP, _resolve_device
+from jimm_tpu_torch.ops.attention import INT8_NO_MASK
+from jimm_tpu_torch.quant import quantize_model
+from jimm_tpu_torch.quant.policy import (FP8_NOT_PORTED, POLICIES,
+                                         apply_precision_policy)
 from jimm_tpu_torch.serve.admission import AdmissionPolicy
 from jimm_tpu_torch.serve.buckets import BucketTable, default_buckets
 from jimm_tpu_torch.serve.engine import InferenceEngine, image_forward
@@ -38,7 +46,8 @@ from jimm_tpu_torch.train.trainer import (OptimizerConfig,
                                           make_contrastive_train_step,
                                           make_optimizer)
 
-_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+#: serving dtypes: int8 is the f32 model with its Linears quantized
+_SERVE_DTYPES = ("bf16", "f32", "int8")
 
 
 def tiny_override(cfg: SigLIPConfig) -> SigLIPConfig:
@@ -54,12 +63,29 @@ def tiny_override(cfg: SigLIPConfig) -> SigLIPConfig:
         projection_dim=64)
 
 
+def serving_model(cfg: SigLIPConfig, dtype: str, device,
+                  generator: torch.Generator | None = None
+                  ) -> tuple[SigLIP, int]:
+    """The model ``serve --dtype DTYPE`` serves, in eval mode, and the number
+    of Linears quantized: f32 or bf16 parameters; for ``int8`` the f32 model
+    with every eligible Linear swapped for a ``QuantLinear`` before any
+    forward runs, as the JAX ``serve`` command quantizes before its warm
+    compiles."""
+    if dtype not in _SERVE_DTYPES:
+        raise ValueError(f"serving dtype {dtype!r} is not one of "
+                         f"{_SERVE_DTYPES}")
+    model = SigLIP(cfg, device=device,
+                   dtype=torch.bfloat16 if dtype == "bf16" else torch.float32,
+                   generator=generator)
+    model.eval()
+    return model, quantize_model(model) if dtype == "int8" else 0
+
+
 def cmd_serve(args: argparse.Namespace) -> int:
     cfg = preset(args.preset)
     if args.tiny:
         cfg = tiny_override(cfg)
-    model = SigLIP(cfg, device=args.device, dtype=_DTYPES[args.dtype])
-    model.eval()
+    model, quantized = serving_model(cfg, args.dtype, args.device)
     param = next(model.parameters())
     size = cfg.vision.image_size
     buckets = (BucketTable(tuple(int(s) for s in args.buckets.split(",")))
@@ -75,7 +101,9 @@ def cmd_serve(args: argparse.Namespace) -> int:
     ready = {"status": "serving", "host": args.host, "port": server.port,
              "model": f"siglip:{args.preset}" + (":tiny" if args.tiny else ""),
              "device": str(param.device),
-             "dtype": str(param.dtype).removeprefix("torch."),
+             "dtype": ("int8" if args.dtype == "int8"
+                       else str(param.dtype).removeprefix("torch.")),
+             "quantized_layers": quantized,
              "buckets": list(buckets.sizes),
              "warmup_s": round(time.monotonic() - t0, 3)}
     print(json.dumps(ready), flush=True)
@@ -98,8 +126,6 @@ _TRAIN_NOT_PORTED = {
     "mesh": "device meshes, ROADMAP.md queue 1, item 6 (parallelism)",
     "remat": "remat policies, ROADMAP.md queue 1, item 3 (training, rest)",
     "dropout": "dropout, ROADMAP.md queue 1, item 3 (training, rest)",
-    "precision": "precision policies, ROADMAP.md queue 1, item 5 "
-                 "(quantized paths)",
 }
 
 
@@ -121,12 +147,19 @@ def cmd_train(args: argparse.Namespace) -> int:
     if args.naflex and not args.preset.startswith("siglip"):
         raise SystemExit("--naflex trains SigLIP2-style models; "
                          "use a siglip preset")
+    if args.precision == "fp8_hybrid":
+        raise SystemExit(f"--precision fp8_hybrid is not ported yet: "
+                         f"{FP8_NOT_PORTED}")
+    if args.naflex and (args.precision == "int8_qk"
+                        or args.attn_impl == "flash_int8"):
+        raise SystemExit(f"--naflex batches need a key-padding mask: "
+                         f"{INT8_NO_MASK}")
     device = _resolve_device(args.device)
     cfg = preset(args.preset)
     if args.tiny:
         cfg = tiny_override(cfg)
     runtime = {"attn_impl": args.attn_impl, "ln_impl": args.ln_impl,
-               "fused_qkv": args.fused_qkv}
+               "fused_qkv": args.fused_qkv, "precision": args.precision}
     if args.attn_impl == "flash_masked":
         # only the NaFlex vision tower has a mask; the text tower takes the
         # unmasked kernels
@@ -141,6 +174,10 @@ def cmd_train(args: argparse.Namespace) -> int:
                    generator=torch.Generator(device=device).manual_seed(
                        args.seed))
     model.train()
+    # the precision policy's surgery, before the optimizer is built (as the
+    # JAX train command orders it)
+    precision = cfg.vision.precision
+    rewritten = apply_precision_policy(model, precision)
     optimizer = make_optimizer(model, OptimizerConfig(
         learning_rate=args.lr, weight_decay=args.weight_decay,
         warmup_steps=args.warmup_steps, total_steps=args.steps))
@@ -188,6 +225,7 @@ def cmd_train(args: argparse.Namespace) -> int:
         "device_name": (torch.cuda.get_device_name(device)
                         if device.type == "cuda" else "cpu"),
         "dtype": str(dtype).removeprefix("torch."),
+        "precision": precision, "precision_modules": rewritten,
         "train_step_flops": flops, "mfu_last_step": mfu(flops, dt, peak)}),
         flush=True)
     return 0
@@ -201,8 +239,9 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=sorted(PRESETS))
     sp.add_argument("--tiny", action="store_true",
                     help="shrink the preset to CPU-demo size")
-    sp.add_argument("--dtype", choices=sorted(_DTYPES), default="f32",
-                    help="parameter and compute dtype")
+    sp.add_argument("--dtype", choices=_SERVE_DTYPES, default="f32",
+                    help="parameter and compute dtype; int8 = f32 with every "
+                         "eligible Linear as a W8A8 QuantLinear")
     sp.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' must be asked for explicitly")
     sp.add_argument("--host", default="127.0.0.1")
@@ -241,16 +280,22 @@ def build_parser() -> argparse.ArgumentParser:
                          "(patches, shapes, mask) batches of synthetic "
                          "mixed-aspect images instead of square images")
     sp.add_argument("--attn-impl", default=None,
-                    choices=["auto", "xla", "flash", "flash_masked"],
+                    choices=["auto", "xla", "flash", "flash_masked",
+                             "flash_int8"],
                     help="attention for both towers (auto = flash on CUDA; "
                          "flash takes the masked kernels where there is a "
                          "key-padding mask; flash_masked = the masked "
                          "kernels for the NaFlex vision tower, needs "
-                         "--naflex)")
+                         "--naflex; flash_int8 = int8-QK flash, forward and "
+                         "backward)")
     sp.add_argument("--ln-impl", default=None, choices=["xla", "fused"],
                     help="encoder LayerNorm (fused = the LayerNorm kernels)")
     sp.add_argument("--fused-qkv", action="store_true",
                     help="q/k/v as one (H, 3H) matmul")
+    sp.add_argument("--precision", default=None, choices=POLICIES,
+                    help="training precision policy: bf16 (as built), "
+                         "int8_qk (every attention on the int8-QK flash "
+                         "kernels); fp8_hybrid is not ported yet")
     sp.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' must be asked for explicitly")
     sp.add_argument("--log-every", type=int, default=10)
@@ -265,7 +310,6 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--remat", default=None, help=argparse.SUPPRESS)
     sp.add_argument("--dropout", type=float, default=None,
                     help=argparse.SUPPRESS)
-    sp.add_argument("--precision", default=None, help=argparse.SUPPRESS)
     sp.set_defaults(func=cmd_train)
     return parser
 

@@ -17,6 +17,7 @@ from jimm_tpu_torch.configs import SigLIPConfig
 from jimm_tpu_torch.nn.norm import FusedLayerNorm
 from jimm_tpu_torch.nn.text import TextTower
 from jimm_tpu_torch.nn.vision import VisionTower
+from jimm_tpu_torch.quant import QuantLinear
 
 
 def _resolve_device(device) -> torch.device:
@@ -130,15 +131,19 @@ class SigLIP(nn.Module):
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
 
 
-def _port_entries(key: str, arr: np.ndarray) -> list[tuple[str, np.ndarray]]:
-    """One JAX parameter -> the port (name, array) pairs it fills."""
+def _port_entries(key: str, arr: np.ndarray, *, quantized: bool = False
+                  ) -> list[tuple[str, np.ndarray]]:
+    """One JAX parameter -> the port (name, array) pairs it fills.
+    ``quantized``: the key belongs to a JAX ``QuantLinear``, whose int8
+    ``w_q`` (..., in, out) becomes the port's (..., out, in) buffer and
+    whose ``scale`` and ``bias`` keep their names."""
     parts = key.split(".")
     leaf = parts[-1]
-    if leaf == "kernel":
+    if leaf == "kernel" or (quantized and leaf == "w_q"):
         # Conv HWIO (p, p, C, W) -> OIHW; Linear (..., in, out) -> (..., out, in)
         arr = (arr.transpose(3, 2, 0, 1) if parts[-2] == "conv"
                else np.swapaxes(arr, -1, -2))
-    name = parts[:-1] + [_LEAF.get(leaf, leaf)]
+    name = parts[:-1] + [leaf if quantized else _LEAF.get(leaf, leaf)]
     if "blocks" not in parts:
         return [(".".join(name), arr)]
     # stacked (layers, ...) -> one entry per layer module
@@ -154,12 +159,32 @@ def load_jax_params(model: nn.Module,
     keyed by their dotted nnx paths (e.g.
     ``vision.encoder.blocks.attn.q.kernel`` of shape (depth, in, out)).
 
-    Strict: every port parameter must be filled exactly once and every key
-    used, with matching shapes; anything else raises."""
+    A model quantized by ``jimm_tpu_torch.quant.quantize_model`` takes the
+    parameters of a JAX model quantized by ``jimm_tpu.quant``: each JAX
+    ``QuantLinear``'s int8 ``w_q`` (depth, in, out), f32 ``scale`` (depth,
+    out) and ``bias`` fill the port's ``w_q`` and ``scale`` buffers and its
+    bias, per layer, the int8 values copied as they are.
+
+    Strict: every port parameter and quantized-weight buffer must be filled
+    exactly once and every key used, with matching shapes; anything else
+    raises."""
     own = dict(model.named_parameters())
+    quant_parents = set()  # the JAX (stacked) paths of the QuantLinears
+    for prefix, module in model.named_modules():
+        if isinstance(module, QuantLinear):
+            own[f"{prefix}.w_q"] = module.w_q
+            own[f"{prefix}.scale"] = module.scale
+            parts = prefix.split(".")
+            if "blocks" in parts:
+                del parts[parts.index("blocks") + 1]
+            quant_parents.add(".".join(parts))
     filled: set[str] = set()
     for key, value in params.items():
-        for name, arr in _port_entries(key, np.asarray(value, np.float32)):
+        value = np.asarray(value)
+        if value.dtype != np.int8:
+            value = value.astype(np.float32)
+        quantized = key.rpartition(".")[0] in quant_parents
+        for name, arr in _port_entries(key, value, quantized=quantized):
             if name not in own:
                 raise KeyError(f"JAX parameter {key!r} has no port "
                                f"counterpart ({name!r})")
@@ -169,9 +194,12 @@ def load_jax_params(model: nn.Module,
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(f"{key!r} -> {name!r}: shape "
                                  f"{tuple(arr.shape)} != {tuple(p.shape)}")
+            if (arr.dtype == np.int8) != (p.dtype == torch.int8):
+                raise ValueError(f"{key!r} -> {name!r}: dtype {arr.dtype} "
+                                 f"does not fill {p.dtype}")
             p.copy_(torch.from_numpy(np.array(arr)))  # a C-order copy
             filled.add(name)
     missing = sorted(set(own) - filled)
     if missing:
-        raise KeyError(f"port parameters missing from the JAX params: "
-                       f"{missing}")
+        raise KeyError(f"port parameters or buffers missing from the JAX "
+                       f"params: {missing}")

@@ -11,6 +11,10 @@
 - ``"auto"``: on a CUDA tensor ``"flash"``, or ``"xla"`` for a mask that is
   not a key-padding mask; ``"xla"`` on a CPU tensor. No sequence-length
   crossover is applied: the port has not measured one.
+- ``"flash_int8"``: flash attention with int8-quantized q and k
+  (`jimm_tpu_torch/ops/flash_attention_int8.py`, forward and backward
+  through ``FlashAttentionInt8Fn``; the ``int8_qk`` training policy sets
+  it); no mask and no bias.
 - ``"xla"`` / ``"einsum"``: :func:`reference_attention`, plain f32-softmax
   math (the names the JAX configs use for the non-kernel path),
   differentiated by autograd.
@@ -26,17 +30,22 @@ import torch
 
 from jimm_tpu_torch.ops.flash_attention import (flash_attention,
                                                 flash_attention_masked)
+from jimm_tpu_torch.ops.flash_attention_int8 import flash_attention_int8
 
 #: JAX attention impls the port does not have yet -> where the ROADMAP
 #: queues them
 _NOT_PORTED = {
     "flash_bias": "kernel rows 5 and 8 (biased flash), ROADMAP queue 2",
     "sigmoid": "kernel row 6 (sigmoid flash), ROADMAP queue 2",
-    "flash_int8": "kernel rows 9-10 (int8 flash), ROADMAP queue 2",
     "ring": "sequence parallelism, ROADMAP queue 1 (parallelism)",
     "ulysses": "sequence parallelism, ROADMAP queue 1 (parallelism)",
     "saveable": "remat policies, ROADMAP queue 1 item 3 (training, rest)",
 }
+
+
+#: why flash_int8 refuses a mask or a bias (the JAX dispatch's reason)
+INT8_NO_MASK = ("flash_int8 does not support masks or biases — the int8 "
+                "score kernel has no mask/bias plumbing")
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -100,6 +109,12 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("impl='flash_masked' requires a key-padding "
                              "mask ((B, Sk) or (B, 1, 1, Sk))")
         return flash_attention_masked(q, k, v, mask, is_causal=is_causal)
+    if impl == "flash_int8":
+        if mask is not None or bias is not None:
+            raise ValueError(f"{INT8_NO_MASK}; use is_causal, or "
+                             f"impl='flash_masked' / 'xla' for masked "
+                             f"batches")
+        return flash_attention_int8(q, k, v, is_causal=is_causal)
     if impl in ("xla", "einsum"):
         return reference_attention(q, k, v, is_causal=is_causal, mask=mask,
                                    bias=bias)

@@ -343,3 +343,234 @@ def test_siglip2_naflex_grads_on_the_card(card):
         ref = want[name]
         peak = max(ref.abs().max().item(), floor)
         assert (p.grad - ref).abs().max().item() <= 1e-3 * peak, name
+
+
+# -- int8 kernels (rows 9, 10 and 11) -----------------------------------------
+
+#: (M, K, N): tests/test_int8_ops.py's odd shapes and the served ones
+_INT8_MATMUL = [(1, 7, 5), (5, 100, 33), (33, 64, 128), (257, 769, 129),
+                (16, 768, 768), (8192, 768, 3072), (8192, 3072, 768),
+                (32, 768, 768)]
+
+
+def _int8_operands(m: int, k: int, n: int, device):
+    from jimm_tpu_torch.ops import int8_matmul as mm
+    g = torch.Generator(device=device).manual_seed(m * 7 + k + n)
+    x = torch.randn(m, k, generator=g, device=device)
+    w = torch.randn(n, k, generator=g, device=device)
+    bias = torch.randn(n, generator=g, device=device)
+    x_q, x_s = mm.quantize_rows(x)
+    w_q, w_s = mm.quantize_rows(w)  # per output channel over K
+    return x_q, x_s, w_q, w_s, bias
+
+
+@pytest.mark.parametrize("activation", [None, "relu", "gelu"])
+@pytest.mark.parametrize("m,k,n", _INT8_MATMUL)
+def test_int8_matmul_kernel(card, m, k, n, activation):
+    """Exact s32 sums and the same rounded epilogue: equal to the plain
+    version (f64 sums) up to gelu's erff."""
+    from jimm_tpu_torch.ops import int8_matmul as mm
+    x_q, x_s, w_q, w_s, bias = _int8_operands(m, k, n, card)
+    before = mm.launches
+    got = mm.int8_matmul(x_q, x_s, w_q, w_s, bias, activation=activation)
+    torch.cuda.synchronize()
+    assert mm.launches == before + 1
+    want = mm.int8_matmul_plain(x_q, x_s, w_q, w_s, bias,
+                                activation=activation)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    if activation == "gelu":
+        _close(got, want, torch.float32)
+    else:
+        assert torch.equal(got, want)
+
+
+def test_int8_matmul_kernel_without_bias_and_unaligned(card):
+    """No bias, and operands whose rows start off a 16-byte boundary (the
+    byte-staging path)."""
+    from jimm_tpu_torch.ops import int8_matmul as mm
+    x_q, x_s, w_q, w_s, _ = _int8_operands(70, 97, 40, card)
+    got = mm.int8_matmul(x_q, x_s, w_q, w_s)
+    assert torch.equal(got, mm.int8_matmul_plain(x_q, x_s, w_q, w_s))
+    x_q2, x_s2, w_q2, w_s2, _ = _int8_operands(64, 96, 40, card)
+    x_off = torch.empty(64 * 96 + 4, dtype=torch.int8, device=card)
+    x_off[4:] = x_q2.flatten()
+    x_view = x_off[4:].view(64, 96)
+    got = mm.int8_matmul(x_view, x_s2, w_q2, w_s2)
+    assert torch.equal(got, mm.int8_matmul_plain(x_q2, x_s2, w_q2, w_s2))
+
+
+_INT8_FLASH = [((128, 256, 12, 64), 256, False),   # train image
+               ((128, 1, 12, 64), 256, False),     # train MAP probe
+               ((128, 64, 12, 64), 64, False),     # train text
+               ((2, 1, 2, 64), 1, False), ((2, 5, 2, 80), 5, True),
+               ((2, 257, 2, 64), 257, True), ((2, 257, 2, 80), 257, False),
+               ((2, 1, 2, 80), 257, False), ((1, 70, 1, 256), 130, True),
+               ((1, 9, 2, 30), 9, False)]          # D not a multiple of 4
+
+
+def _int8_flash_inputs(qshape, sk, dtype, device, seed):
+    from jimm_tpu_torch.ops import flash_attention_int8 as fa8
+    g = torch.Generator(device=device).manual_seed(seed)
+    b, sq, n, d = qshape
+    q, do = (torch.randn(b, sq, n, d, generator=g, device=device).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, sk, n, d, generator=g, device=device).to(dtype)
+            for _ in range(2))
+    qq, qs = fa8.quantize_heads(q)
+    kq, ks = fa8.quantize_heads(k)
+    return qq, qs, kq, ks, v, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qshape,sk,causal", _INT8_FLASH)
+def test_flash_int8_kernel(card, qshape, sk, causal, dtype):
+    from jimm_tpu_torch.ops import flash_attention_int8 as fa8
+    qq, qs, kq, ks, v, _ = _int8_flash_inputs(qshape, sk, dtype, card,
+                                              sum(qshape) + sk)
+    before, plain_before = fa8.launches, fa.launches
+    o, lse = fa8.flash_attention_int8_fwd(qq, qs, kq, ks, v,
+                                          is_causal=causal)
+    torch.cuda.synchronize()
+    assert fa8.launches == before + 1 and fa.launches == plain_before
+    want_o, want_lse = fa8.flash_attention_int8_plain(qq, qs, kq, ks, v,
+                                                      is_causal=causal)
+    assert o.shape == qshape and o.dtype == dtype
+    _close(o, want_o, dtype)
+    _close(lse, want_lse, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qshape,sk,causal", _INT8_FLASH)
+def test_flash_int8_backward_kernel(card, qshape, sk, causal, dtype):
+    from jimm_tpu_torch.ops import flash_attention_int8 as fa8
+    qq, qs, kq, ks, v, do = _int8_flash_inputs(qshape, sk, dtype, card,
+                                               sum(qshape) * 3 + sk)
+    o, lse = fa8.flash_attention_int8_plain(qq, qs, kq, ks, v,
+                                            is_causal=causal)
+    before = fa8.bwd_launches
+    got = fa8.flash_attention_int8_bwd(qq, qs, kq, ks, v, o, lse, do,
+                                       is_causal=causal)
+    torch.cuda.synchronize()
+    assert fa8.bwd_launches == before + 1
+    want = fa8.flash_attention_int8_bwd_plain(qq, qs, kq, ks, v, o, lse, do,
+                                              is_causal=causal)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and a.dtype == dtype
+        scale = max(1.0, w.float().abs().max().item())
+        if w.float().abs().max().item() <= 1e-6:
+            # one key: dq = dk = 0 in exact arithmetic, rounding on both
+            # sides, which has no direction to compare
+            assert (a.float() - w.float()).abs().max().item() <= 1e-5
+        else:
+            _close(a / scale, w / scale, dtype)
+
+
+def test_int8_wrappers_never_take_the_plain_version_on_the_card(card,
+                                                                monkeypatch):
+    """A CUDA call launches the kernel and counts it; the plain versions are
+    not entered, and a kernel that cannot take its operands raises."""
+    from jimm_tpu_torch.ops import flash_attention_int8 as fa8
+    from jimm_tpu_torch.ops import int8_matmul as mm
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain version ran on the card")
+
+    for mod, name in ((mm, "int8_matmul_plain"),
+                      (fa8, "flash_attention_int8_plain"),
+                      (fa8, "flash_attention_int8_bwd_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    x_q, x_s, w_q, w_s, bias = _int8_operands(9, 40, 17, card)
+    before = mm.launches
+    mm.int8_matmul(x_q, x_s, w_q, w_s, bias)
+    assert mm.launches == before + 1
+    q, k, v = (torch.randn(2, 9, 2, 16, device=card, requires_grad=True)
+               for _ in range(3))
+    f0, b0 = fa8.launches, fa8.bwd_launches
+    fa8.flash_attention_int8(q, k, v).sum().backward()
+    torch.cuda.synchronize()
+    assert (fa8.launches, fa8.bwd_launches) == (f0 + 1, b0 + 1)
+    with pytest.raises(ValueError):
+        mm.int8_matmul(x_q, x_s, w_q, w_s.double(), bias)
+    with pytest.raises(ValueError):
+        fa8.flash_attention_int8(q.double(), k.double(), v.double())
+
+
+def test_siglip_int8_and_int8_qk_on_the_card(card, monkeypatch):
+    """A small SigLIP quantized for serving runs its Linears on the int8
+    matmul and matches the plain-version forward; under int8_qk its
+    gradients match the plain versions'."""
+    from jimm_tpu_torch import configs
+    from jimm_tpu_torch.models.siglip import SigLIP
+    from jimm_tpu_torch.ops import flash_attention_int8 as fa8
+    from jimm_tpu_torch.ops import int8_matmul as mm
+    from jimm_tpu_torch.quant import quantize_model
+    from jimm_tpu_torch.quant.policy import apply_precision_policy
+    from jimm_tpu_torch.train.trainer import contrastive_loss_fn
+    cfg = configs.SigLIPConfig(
+        vision=configs.VisionConfig(image_size=64, patch_size=16, width=128,
+                                    depth=2, num_heads=2, mlp_dim=256,
+                                    act="gelu_tanh", pooling="map"),
+        text=configs.TextConfig(vocab_size=100, context_length=8, width=128,
+                                depth=2, num_heads=2, mlp_dim=256,
+                                act="gelu_tanh", causal=False,
+                                pooling="last", proj_bias=True),
+        projection_dim=128)
+    cfg = configs.with_runtime(cfg, attn_impl="flash", ln_impl="fused")
+    model = SigLIP(cfg, device=card)
+    assert quantize_model(model) == 31
+    images = torch.randn(3, 64, 64, 3, device=card)
+    before = mm.launches
+    with torch.no_grad():
+        got = model.encode_image(images)
+    assert mm.launches - before == 18   # 2 blocks x 6 + the MAP head's 6
+    cpu = SigLIP(cfg, device="cpu")
+    quantize_model(cpu)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.no_grad():
+        want = cpu.encode_image(images.cpu())
+    # a one-ulp difference upstream can move one int8 activation by a step:
+    # the served-feature bounds of chip_smoke.py, per image
+    got = got.cpu()
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=1)
+    assert (cos >= 0.999).all()
+    assert ((got.norm(dim=1) / want.norm(dim=1) - 1).abs() <= 1e-2).all()
+
+    kernels = SigLIP(cfg, device=card)
+    plain = SigLIP(cfg, device="cpu")
+    plain.load_state_dict({k: v.cpu() for k, v in kernels.state_dict().items()})
+    assert apply_precision_policy(kernels, "int8_qk") == 5
+    apply_precision_policy(plain, "int8_qk")
+    g = torch.Generator(device=card).manual_seed(9)
+    images = torch.randn(4, 64, 64, 3, generator=g, device=card)
+    text = torch.randint(0, 100, (4, 8), generator=g, device=card)
+    # the CPU step quantizes q and k as the card's step did: a one-ulp
+    # difference upstream of a quantizer can move an int8 value by a step
+    # and a gradient by ~2e-3 of its largest value, which is the quantized
+    # function's discontinuity, not a kernel's error
+    quantize, tape = fa8.quantize_heads, []
+
+    def record(x):
+        tape.append(quantize(x))
+        return tape[-1]
+
+    replayed = iter(tape)
+
+    def replay(x):
+        x_q, scale = next(replayed)
+        assert x_q.shape == x.shape
+        return x_q.to(x.device), scale.to(x.device)
+
+    b0 = fa8.bwd_launches
+    monkeypatch.setattr(fa8, "quantize_heads", record)
+    contrastive_loss_fn(kernels, images, text, kind="siglip").backward()
+    assert fa8.bwd_launches - b0 == 5
+    monkeypatch.setattr(fa8, "quantize_heads", replay)
+    contrastive_loss_fn(plain, images.cpu(), text.cpu(),
+                        kind="siglip").backward()
+    want = {n: p.grad for n, p in plain.named_parameters()}
+    floor = 1e-3 * max(g.abs().max().item() for g in want.values())
+    for name, p in kernels.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+        ref = want[name]
+        peak = max(ref.abs().max().item(), floor)
+        assert (p.grad.cpu() - ref).abs().max().item() <= 1e-3 * peak, name

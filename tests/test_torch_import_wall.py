@@ -84,7 +84,7 @@ def test_build_command_names_sm90a_and_every_source():
     obj_dir = REPO / "build" / "obj"
     compiles = _build.compile_commands(obj_dir)
     cus = sorted(str(p) for p in (REPO / "jimm_tpu_torch" / "csrc").glob("*.cu"))
-    assert len(cus) == 4
+    assert len(cus) == 7
     assert sorted(cmd[-1] for cmd, _ in compiles) == cus
     for cmd, obj in compiles:
         assert "arch=compute_90a,code=sm_90a" in cmd
@@ -94,3 +94,16 @@ def test_build_command_names_sm90a_and_every_source():
     assert "-shared" in link and "arch=compute_90a,code=sm_90a" in link
     assert _build.library_path().parent == REPO / "build" / "jimm_tpu_torch"
     assert _build.library_path().name.startswith("libjimm_kernels_")
+
+
+def test_every_signature_is_an_exported_function():
+    """``_build._SIGNATURES`` names exactly the ``extern "C"`` entry points
+    of the CUDA sources, each with as many argtypes as parameters."""
+    import re
+    exported = {}
+    for src in _build.sources():
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                       src.read_text()):
+            exported[name] = len(params.split(","))
+    assert exported == {name: len(argtypes) for name, argtypes
+                        in _build._SIGNATURES.items()}

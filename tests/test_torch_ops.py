@@ -96,8 +96,8 @@ def test_flash_impl_on_cpu_is_the_plain_flash():
     assert flash_attention.launches == before  # no kernel on the CPU
 
 
-@pytest.mark.parametrize("impl", ["flash_bias", "sigmoid", "flash_int8",
-                                  "ring", "ulysses", "saveable"])
+@pytest.mark.parametrize("impl", ["flash_bias", "sigmoid", "ring", "ulysses",
+                                  "saveable"])
 def test_unported_attention_impls_name_the_roadmap(impl):
     q = torch.zeros(1, 4, 1, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
