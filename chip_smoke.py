@@ -95,12 +95,46 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                int8_qk --bf16 --ln-impl fused --batch-size 128`` in this
                process, whose counts the JSON record reports for the int8
                flash kernels. The int8 matmul's come from phase 7.
+9. fp8_hybrid -- SigLIP-B/16-256 under ``--precision fp8_hybrid`` (151
+               Linears as ``Fp8Linear``s on the fp8 GEMM, delayed scaling):
+               (a) f32 at batch 8, one step's gradients through the kernels
+               against the plain versions, as 5(a), with every fp8
+               quantization of the kernel step replayed in the plain step
+               (a one-ulp difference upstream of a quantizer moves an fp8
+               value by a step), and the 302 amax histories after the two
+               steps equal within 1e-4 of their values; (b) bf16 at batch
+               128, one fixed batch, 3 warm-up and 10 timed steps (151 fp8
+               GEMM launches forward and 302 backward a step, 25 flash, 48
+               LayerNorm; the loss must fall), one step run under
+               ``torch.cuda.set_sync_debug_mode("warn")`` that must
+               synchronise with the host nowhere, and one profiled step;
+               (c) ``train --preset siglip-base-patch16-256 --precision
+               fp8_hybrid --bf16 --ln-impl fused --batch-size 128`` in this
+               process, whose counts the JSON record reports for the fp8
+               GEMM.
+10. sigmoid -- SigLIP-B/16-256 with ``attn_impl="sigmoid"`` (the library
+               path: the JAX train command has no such flag) trained by
+               ``make_contrastive_train_step("siglip")``: (a) f32 at batch
+               8, one step's gradients against the plain versions, as 5(a);
+               (b) bf16 at batch 128 as 9(b): 25 sigmoid flash launches
+               forward and backward a step, no softmax flash, the loss
+               falling, no host sync, one profiled step. Its counts are the
+               ones the JSON record reports for the sigmoid kernels.
 
 Phase 3 also holds the int8 kernels (rows 9, 10 and 11) against their plain
 versions: the int8 matmul at the served shapes and odd ones, with bias,
 relu and gelu (yardstick: ``torch._int_mm`` and the epilogue as torch ops);
 the int8-QK flash forward and backward at the train shapes and odd ones
-(yardstick: SDPA on the dequantized q and k in the storage dtype).
+(yardstick: SDPA on the dequantized q and k in the storage dtype). And the
+fp8 GEMM (row 12) at the three GEMMs of every Linear of the train step
+(forward e4m3 x e4m3, dx and dw e5m2 x e4m3; image M = 32768, text 8192,
+probe 128 token rows; (K, N) = (768, 3072), (768, 768), (3072, 768)) and
+the odd shapes, at f32 summation-order tolerance (rtol 1e-5, atol 1e-3 *
+max(1, K // 64); yardstick: ``torch._scaled_mm`` on the same fp8 operands,
+dims zero-padded to 16, without the bias); the sigmoid flash forward and
+backward (row 6, row 7's sigmoid kind) at the train shapes and odd ones,
+masked and causal, where a row with no key must be exactly zero (no single
+PyTorch call computes sigmoid attention: no yardstick).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -119,6 +153,7 @@ import sys
 import tempfile
 import time
 import urllib.request
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
@@ -134,6 +169,7 @@ from jimm_tpu_torch.nn import norm as norm_mod
 from jimm_tpu_torch.ops import attention as attention_mod
 from jimm_tpu_torch.ops import flash_attention as fa
 from jimm_tpu_torch.ops import flash_attention_int8 as fa8
+from jimm_tpu_torch.ops import fp8_matmul as fp8
 from jimm_tpu_torch.ops import int8_matmul as mm
 from jimm_tpu_torch.ops import layer_norm as ln
 from jimm_tpu_torch.quant.policy import apply_precision_policy
@@ -150,6 +186,7 @@ from jimm_tpu_torch.train.trainer import (OptimizerConfig, contrastive_loss_fn,
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_INT8_OPS = 1979e12
+PEAK_FP8_FLOPS = 1979e12
 F32_MAX_ERR = 1e-4
 BF16_MIN_COS = 0.999
 BF16_REL_ERR = 2.0**-7  # one bf16 step relative to the largest value
@@ -181,6 +218,12 @@ INT8_QUANTIZED = 151
 #: (M, K, N) off the tile grid (tests/test_int8_ops.py ODD_MATMUL_SHAPES)
 ODD_MATMUL_SHAPES = [(1, 7, 5), (5, 100, 33), (33, 64, 128), (257, 769, 129),
                      (16, 768, 768)]
+#: fp8_hybrid: 12 + 12 blocks x 6 Linears, the MAP head's 6 and
+#: text_projection; each runs one forward GEMM and two backward (dx, dw)
+FP8_LINEARS = 151
+FP8_HIST_RTOL = 1e-4
+#: the fp8 GEMM's (K, N) per Linear: fc1, q/k/v/out, fc2
+FP8_KN = [(768, 3072), (768, 768), (3072, 768)]
 TRAIN_BATCH = 128
 TRAIN_WARMUP = 3
 TRAIN_STEPS = 10
@@ -247,12 +290,14 @@ def _device_rows(prof) -> list:
 
 
 def bound_ms(nbytes: int, flops: float, dtype: torch.dtype,
-             int8_ops: float = 0.0) -> tuple[float, str]:
+             int8_ops: float = 0.0, fp8_flops: float = 0.0
+             ) -> tuple[float, str]:
     """The least time for the work: bytes over the memory rate, or the
-    float operations over the dtype's peak plus the int8 ones over the int8
-    peak, whichever is larger."""
+    float operations over the dtype's peak plus the int8 and fp8 ones over
+    their peaks, whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (flops / PEAK_FLOPS[dtype] + int8_ops / PEAK_INT8_OPS) * 1e3
+    t_ops = (flops / PEAK_FLOPS[dtype] + int8_ops / PEAK_INT8_OPS
+             + fp8_flops / PEAK_FP8_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -690,17 +735,173 @@ def int8_flash_bwd_case(qshape: tuple[int, int, int, int], sk: int,
             "bound_ms": bound, "bound_by": by}
 
 
+def _pad16(x: torch.Tensor) -> torch.Tensor:
+    """A copy of a 2-D tensor zero-padded to multiples of 16 (what
+    ``torch._scaled_mm`` takes)."""
+    rows, cols = (-(-n // 16) * 16 for n in x.shape)
+    out = torch.zeros((rows, cols), dtype=x.dtype, device=x.device)
+    out[:x.shape[0], :x.shape[1]] = x
+    return out
+
+
+def fp8_gemm_case(m: int, k: int, n: int, a_dtype: torch.dtype, bias: bool,
+                  seed: int) -> dict:
+    """Kernel row 12 against its plain version: a (M, K) in ``a_dtype`` and
+    b (N, K) in e4m3, each quantized at its dynamic scale, as the train step
+    quantizes them; an f32 bias for a forward GEMM. Held at f32
+    summation-order tolerance (tests/test_fp8_ops.py's rtol 1e-5, atol
+    1e-3 * max(1, K // 64))."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn(m, k, generator=g, device="cuda")
+    b = torch.randn(n, k, generator=g, device="cuda")
+    bvec = torch.randn(n, generator=g, device="cuda") if bias else None
+    sa, sb = fp8.dynamic_scale(a, a_dtype), fp8.dynamic_scale(b, fp8.E4M3)
+    a_q, b_q = (fp8.quantize_tensor(a, sa, a_dtype),
+                fp8.quantize_tensor(b, sb, fp8.E4M3))
+    scale = sa * sb
+    del a, b
+    backward = a_dtype == fp8.E5M2
+
+    def kernel():
+        return fp8.fp8_gemm(a_q, b_q, scale, bvec, backward=backward)
+
+    def plain():
+        return fp8.fp8_gemm_plain(a_q, b_q, scale, bvec)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    err, cos, _ = compare(got, want)
+    atol = 1e-3 * max(1, k // 64)
+    excess = ((got - want).abs() - 1e-5 * want.abs()).max().item()
+    check(excess <= atol, f"fp8_gemm ({m}, {k}) x ({n}, {k})^T {a_dtype}: "
+          f"max abs error {err} beyond rtol 1e-5 by {excess} > atol {atol}")
+    nbytes = (a_q.nbytes + b_q.nbytes + got.nbytes + scale.nbytes
+              + (0 if bvec is None else bvec.nbytes))
+    bound, by = bound_ms(nbytes, 0.0, torch.float32,
+                         fp8_flops=2.0 * m * n * k)
+    ap, bp, one = _pad16(a_q), _pad16(b_q), torch.ones((), device="cuda")
+    try:  # a yardstick only: a refusal is reported, not a failure
+        library = device_ms(lambda: torch._scaled_mm(
+            ap, bp.t(), scale_a=scale, scale_b=one, out_dtype=torch.float32))
+    except RuntimeError as e:
+        print(f"kernel fp8_matmul: torch._scaled_mm refused {tuple(ap.shape)}"
+              f" x {tuple(bp.shape)}^T: {str(e)[:200]}", flush=True)
+        library = None
+    kind = "e5m2 x e4m3" if backward else "e4m3 x e4m3"
+    return {"shape": f"({m}, {k}) x ({n}, {k})^T" + (" +bias" if bias else ""),
+            "dtype": kind, "max_abs_err": err, "cosine": cos,
+            "ms": device_ms(kernel), "call_ms": cuda_ms(kernel),
+            "plain_ms": device_ms(plain), "library_ms": library,
+            "bound_ms": bound, "bound_by": by}
+
+
+def _sigmoid_inputs(qshape, sk: int, kind: str | None, dtype: torch.dtype,
+                    seed: int):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, sq, n, d = qshape
+    q, do = (torch.randn(b, sq, n, d, generator=g, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, sk, n, d, generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    mask = None if kind is None else key_mask(kind, b, sk, g)
+    return q, k, v, do, mask
+
+
+def _pairs(qshape, sk: int, causal: bool, mask: torch.Tensor | None) -> float:
+    """The (query, key) pairs the inputs need, over every batch and head."""
+    b, sq, n, _ = qshape
+    if mask is not None:
+        return float(n * attended(mask, sq, causal).sum().item())
+    return float(b * n * (sum(min(i + 1, sk) for i in range(sq)) if causal
+                          else sq * sk))
+
+
+def sigmoid_case(qshape: tuple[int, int, int, int], sk: int, causal: bool,
+                 kind: str | None, dtype: torch.dtype, seed: int) -> dict:
+    """Kernel row 6 against its plain version; a row with no key to attend
+    is exactly zero in both."""
+    q, k, v, _, mask = _sigmoid_inputs(qshape, sk, kind, dtype, seed)
+    kw = dict(is_causal=causal, mask=mask,
+              logit_bias=fa.default_logit_bias(sk))
+
+    def kernel():
+        return fa.sigmoid_attention_fwd(q, k, v, **kw)
+
+    o = kernel()
+    torch.cuda.synchronize()
+    err, cos, peak = compare(o, fa.sigmoid_attention_plain(q, k, v, **kw))
+    check(within(dtype, err, cos, peak),
+          f"sigmoid {qshape} sk={sk} causal={causal} {kind} {dtype}: err "
+          f"{err} cos {cos}")
+    if mask is not None:
+        dead = ~attended(mask, qshape[1], causal).any(-1)
+        check(not o[dead].any(), f"sigmoid {qshape} {kind}: a row with no "
+              f"key is not zero")
+    nbytes = sum(t.nbytes for t in (q, k, v, o)) + (
+        0 if mask is None else mask.nbytes)
+    bound, by = bound_ms(nbytes, 4.0 * qshape[3] * _pairs(qshape, sk, causal,
+                                                          mask), dtype)
+    return {"shape": f"q{qshape} sk={sk}" + (f" {kind}" if kind else "")
+            + (" causal" if causal else ""),
+            "dtype": str(dtype)[6:], "max_abs_err": err, "cosine": cos,
+            "ms": device_ms(kernel), "call_ms": cuda_ms(kernel),
+            "plain_ms": device_ms(lambda: fa.sigmoid_attention_plain(
+                q, k, v, **kw)),
+            "library_ms": None, "bound_ms": bound, "bound_by": by}
+
+
+def sigmoid_bwd_case(qshape: tuple[int, int, int, int], sk: int,
+                     causal: bool, kind: str | None, dtype: torch.dtype,
+                     seed: int) -> dict:
+    """Row 7's sigmoid kind (dq, then dk/dv) against its plain version;
+    masked keys get exactly zero dk and dv."""
+    q, k, v, do, mask = _sigmoid_inputs(qshape, sk, kind, dtype, seed)
+    kw = dict(is_causal=causal, mask=mask,
+              logit_bias=fa.default_logit_bias(sk))
+
+    def kernel():
+        return fa.sigmoid_attention_bwd(q, k, v, do, **kw)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    want = fa.sigmoid_attention_bwd_plain(q, k, v, do, **kw)
+    errs = [compare(a, w) for a, w in zip(got, want)]
+    check(all(within(dtype, *e, relative=True) for e in errs),
+          f"sigmoid_bwd {qshape} sk={sk} causal={causal} {kind} {dtype}: "
+          f"(err, cos, peak) of dq, dk, dv {errs}")
+    if mask is not None:
+        check(not got[1][~mask].any() and not got[2][~mask].any(),
+              f"sigmoid_bwd {qshape} {kind}: a masked key got a gradient")
+    # five products: s and dp recomputed, then dv, dq, dk
+    flops = 10.0 * qshape[3] * _pairs(qshape, sk, causal, mask)
+    nbytes = (sum(t.nbytes for t in (q, k, v, do)) + sum(
+        t.nbytes for t in got) + (0 if mask is None else mask.nbytes))
+    bound, by = bound_ms(nbytes, flops, dtype)
+    return {"shape": f"q{qshape} sk={sk}" + (f" {kind}" if kind else "")
+            + (" causal" if causal else ""),
+            "dtype": str(dtype)[6:], "max_abs_err": max(e[0] for e in errs),
+            "cosine": min(e[1] for e in errs),
+            "ms": device_ms(kernel), "call_ms": cuda_ms(kernel),
+            "plain_ms": device_ms(lambda: fa.sigmoid_attention_bwd_plain(
+                q, k, v, do, **kw)),
+            "library_ms": None, "bound_ms": bound, "bound_by": by}
+
+
 def rows_against_recorded(cases: list[tuple[str, dict]], card: str) -> None:
     """Rows 3, 4 and 7 at the train step's image shape beside the times
-    PERF.md records for them: the int8 sources, new beside them, must not
-    move them."""
+    PERF.md records for them: the sigmoid kind, new in their sources, must
+    leave them within 5% (a reading, not a gate: a card below 700 W runs
+    slower)."""
     for name, c in cases:
         if (c["shape"] in ("q(128, 256, 12, 64) sk=256",
                            "q(128, 256, 12, 64) sk=256 naflex")
                 and c["dtype"] == "bfloat16" and name in RECORDED_MS):
+            ratio = c["ms"] / RECORDED_MS[name]
             print(f"kernel {name} {c['shape']} bfloat16: {c['ms']:.4f} ms, "
                   f"PERF.md records {RECORDED_MS[name]:.4f} ms (ratio "
-                  f"{c['ms'] / RECORDED_MS[name]:.3f}) | {card}", flush=True)
+                  f"{ratio:.3f}, within 5%: {abs(ratio - 1) <= 0.05}) | "
+                  f"{card}", flush=True)
 
 
 def kernel_phase(card: str) -> dict[str, dict]:
@@ -793,6 +994,23 @@ def kernel_phase(card: str) -> dict[str, dict]:
                 int8_flash_case(qshape, sk, causal, dtype, 90 + i))
             add("flash_attention_int8_bwd",
                 int8_flash_bwd_case(qshape, sk, causal, dtype, 110 + i))
+        # sigmoid flash (kernel row 6, row 7's sigmoid kind): the sigmoid
+        # train shapes (batch 128) and odd ones, causal and masked, one
+        # sample with no key to attend
+        for i, (qshape, sk, causal, kind) in enumerate([
+                ((128, 256, 12, 64), 256, False, None),  # image
+                ((128, 1, 12, 64), 256, False, None),    # MAP probe
+                ((128, 64, 12, 64), 64, False, None),    # text
+                ((2, 1, 2, 64), 1, False, None), ((2, 5, 2, 80), 5, True, None),
+                ((2, 257, 2, 64), 257, True, None),
+                ((2, 257, 2, 80), 257, False, "len65"),
+                ((2, 1, 2, 80), 257, False, "sparse"),
+                ((2, 65, 2, 64), 65, True, "empty_row"),
+                ((1, 70, 1, 256), 130, True, "sparse")]):
+            add("sigmoid_attention",
+                sigmoid_case(qshape, sk, causal, kind, dtype, 200 + i))
+            add("sigmoid_attention_bwd",
+                sigmoid_bwd_case(qshape, sk, causal, kind, dtype, 220 + i))
     # int8 matmul (kernel row 11): the served shapes at bucket 32 (8192
     # token rows; the MAP head's q and out projections have 32) with a
     # bias, fc1's with relu and gelu, and odd shapes
@@ -805,6 +1023,23 @@ def kernel_phase(card: str) -> dict[str, dict]:
             *((m, k, n, act) for m, k, n in ODD_MATMUL_SHAPES
               for act in (None, "relu", "gelu"))]):
         add("int8_matmul", int8_matmul_case(m, k, n, act, 130 + i))
+    # fp8 GEMM (kernel row 12): the three GEMMs of each Linear of the
+    # fp8_hybrid train step (batch 128) at every (K, N), then odd shapes.
+    # forward y = x_q . w_q^T (+ bias); dx = dy_q . (w_q^T)^T; dw = (dy_q^T)
+    # . (x_q^T)^T, the backward's operands K-contiguous copies
+    seed = 300
+    for m in (32768, 8192, 128):   # image, text, MAP-probe token rows
+        for k, n in FP8_KN:
+            for name, shape, a_dtype, bias in (
+                    ("fp8_matmul", (m, k, n), fp8.E4M3, True),
+                    ("fp8_matmul_bwd", (m, n, k), fp8.E5M2, False),
+                    ("fp8_matmul_bwd", (n, m, k), fp8.E5M2, False)):
+                seed += 1
+                add(name, fp8_gemm_case(*shape, a_dtype, bias, seed))
+    for m, k, n in ODD_MATMUL_SHAPES:
+        seed += 1
+        add("fp8_matmul", fp8_gemm_case(m, k, n, fp8.E4M3, True, seed))
+        add("fp8_matmul_bwd", fp8_gemm_case(m, k, n, fp8.E5M2, False, seed))
     rows_against_recorded(cases, card)
     first = {}
     for name, c in cases:  # the first case of each kernel: bf16, main shape
@@ -963,8 +1198,11 @@ def plain_versions():
         return fa.flash_attention_plain(q, k, v, is_causal=is_causal,
                                         mask=mask)[0]
 
-    # the int8 Functions stay (their straight-through backward is the
-    # function under test); inside them the plain versions answer
+    def plain_fp8(a_q, b_q, scale, bias=None, *, backward=False):
+        return fp8.fp8_gemm_plain(a_q, b_q, scale, bias)
+
+    # the int8, fp8 and sigmoid Functions stay (their backwards are the
+    # functions under test); inside them the plain versions answer
     with mock.patch.object(norm_mod, "layer_norm", plain_ln), \
             mock.patch.object(attention_mod, "flash_attention", plain_flash), \
             mock.patch.object(attention_mod, "flash_attention_masked",
@@ -973,7 +1211,12 @@ def plain_versions():
                               fa8.flash_attention_int8_plain), \
             mock.patch.object(fa8, "flash_attention_int8_bwd",
                               fa8.flash_attention_int8_bwd_plain), \
-            mock.patch.object(mm, "int8_matmul", mm.int8_matmul_plain):
+            mock.patch.object(mm, "int8_matmul", mm.int8_matmul_plain), \
+            mock.patch.object(fp8, "fp8_gemm", plain_fp8), \
+            mock.patch.object(fa, "sigmoid_attention_fwd",
+                              fa.sigmoid_attention_plain), \
+            mock.patch.object(fa, "sigmoid_attention_bwd",
+                              fa.sigmoid_attention_bwd_plain):
         yield
 
 
@@ -1018,10 +1261,15 @@ def forward_readout(model: SigLIP, batch: torch.Tensor, card: str,
 
 # -- phase 5: train ----------------------------------------------------------
 
-def _train_model(dtype: torch.dtype) -> SigLIP:
-    cfg = configs.with_runtime(configs.preset("siglip-base-patch16-256"),
-                               ln_impl="fused")
+def _train_model(dtype: torch.dtype, attn_impl: str | None = None
+                 ) -> SigLIP:
+    """SigLIP-B/16-256 with fused LayerNorm, its attention as the preset
+    has it ("auto") or ``attn_impl``."""
+    cfg = configs.preset("siglip-base-patch16-256")
     check(cfg.vision.attn_impl == "auto", "preset attn_impl changed")
+    cfg = configs.with_runtime(cfg, ln_impl="fused",
+                               **({"attn_impl": attn_impl} if attn_impl
+                                  else {}))
     return SigLIP(cfg, device="cuda", dtype=dtype,
                   generator=torch.Generator(device="cuda").manual_seed(0))
 
@@ -1041,56 +1289,75 @@ def _batch(cfg, batch: int, dtype: torch.dtype, seed: int
 
 
 @contextlib.contextmanager
-def quantization_tape(tape: list, replay: bool):
-    """Records every ``quantize_heads`` result of a run into ``tape``, or
-    (``replay``) hands the recorded ones back in order, so that a second run
-    quantizes q and k as the first one did."""
-    quantize, replayed = fa8.quantize_heads, iter(tape)
+def quantization_tape(tape: list, replay: bool, module, name: str):
+    """Records every result of the quantizer ``module.name`` in a run into
+    ``tape``, or (``replay``) hands the recorded ones back in order, so that
+    a second run quantizes as the first one did."""
+    quantize, replayed = getattr(module, name), iter(tape)
 
-    def record(x):
-        tape.append(quantize(x))
+    def record(x, *args):
+        tape.append(quantize(x, *args))
         return tape[-1]
 
-    def play(x):
-        x_q, scale = next(replayed)
+    def play(x, *args):
+        out = next(replayed)
+        x_q = out[0] if isinstance(out, tuple) else out
         check(x_q.shape == x.shape, "the replayed run quantized another "
               "tensor")
-        return x_q, scale
+        return out
 
-    with mock.patch.object(fa8, "quantize_heads", play if replay else record):
+    with mock.patch.object(module, name, play if replay else record):
         yield
 
 
 def grads_phase(model: SigLIP, images, text, want: dict[str, int],
-                label: str, card: str, held_quantization: bool = False
-                ) -> None:
+                label: str, card: str, held: tuple | None = None) -> None:
     """One f32 step's gradients through the kernels (whose launches must
     be ``want``) against the same step with the plain versions swapped in:
     every parameter within 1e-3 of its largest gradient.
 
-    ``held_quantization`` (the int8_qk step): the plain-version step
-    quantizes q and k exactly as the kernel step did. Quantization is
-    discontinuous: a one-ulp difference upstream (the LayerNorm and flash
-    kernels round otherwise than their plain versions) can move an int8
-    value by one step and a gradient by ~2e-3 of its largest value (seen on
-    the card), a property of the quantized function, not of a kernel; held
-    fixed, both steps differentiate the same function."""
+    ``held``, a quantizer as ``(module, name)`` (the int8_qk step's
+    ``quantize_heads``, the fp8_hybrid step's ``quantize_tensor``): the
+    plain-version step quantizes exactly as the kernel step did.
+    Quantization is discontinuous: a one-ulp difference upstream (the
+    LayerNorm and flash kernels round otherwise than their plain versions)
+    can move an int8 value by one step and a gradient by ~2e-3 of its
+    largest value (seen on the card), a property of the quantized function,
+    not of a kernel; held fixed, both steps differentiate the same function.
+
+    The model's buffers (the fp8 amax histories, which every forward rolls)
+    start both steps from the same values, and must end them within
+    ``FP8_HIST_RTOL`` of each other."""
     tape: list = []
+    start = {n: b.clone() for n, b in model.named_buffers()}
     zero_counts()
-    with (quantization_tape(tape, replay=False) if held_quantization
+    with (quantization_tape(tape, False, *held) if held
           else contextlib.nullcontext()):
         contrastive_loss_fn(model, images, text, kind="siglip").backward()
     counts = read_counts()
     check(all(counts[k] == n for k, n in want.items()),
           f"{label}: launch counts {counts}, want {want}")
     got = {n: p.grad.clone() for n, p in model.named_parameters()}
+    rolled = {n: b.clone() for n, b in model.named_buffers()}
+    for n, b in model.named_buffers():
+        b.copy_(start[n])
     model.zero_grad(set_to_none=True)
-    with plain_versions(), (quantization_tape(tape, replay=True)
-                            if held_quantization
-                            else contextlib.nullcontext()):
+    with plain_versions(), (quantization_tape(tape, True, *held)
+                            if held else contextlib.nullcontext()):
         contrastive_loss_fn(model, images, text, kind="siglip").backward()
     check(read_counts() == counts,
           f"{label}: the plain-version step launched a kernel")
+    if rolled:
+        hist = max(((rolled[n] - b).abs().max()
+                    / b.abs().max().clamp_min(1e-30)).item()
+                   for n, b in model.named_buffers())
+        check(hist <= FP8_HIST_RTOL and all(
+            not (rolled[n] == start[n]).all()
+            for n in rolled), f"{label}: histories after the two steps "
+              f"differ by {hist:.3e} of their values, or did not roll")
+        print(f"{label}: {len(rolled)} amax histories after the kernel and "
+              f"the plain-version step agree within {hist:.3e} of their "
+              f"largest value | {card}", flush=True)
     worst = (0.0, "")
     params = dict(model.named_parameters())
     check(all(got[n] is not None and p.grad is not None
@@ -1122,20 +1389,25 @@ def train_grads_phase(card: str) -> None:
                 card)
 
 
-def step_counts(precision: str | None = None, naflex: bool = False
-                ) -> dict[str, int]:
+def step_counts(precision: str | None = None, naflex: bool = False,
+                sigmoid: bool = False) -> dict[str, int]:
     """Kernel launches per train step of SigLIP-B/16-256 (or, with
-    ``naflex``, SigLIP2-B/16-256 on NaFlex batches) under ``precision``."""
-    flash, masked, int8 = ((NAFLEX_FLASH_PER_STEP, NAFLEX_MASKED_PER_STEP, 0)
-                           if naflex else (0, 0, FLASH_PER_STEP)
-                           if precision == "int8_qk"
-                           else (FLASH_PER_STEP, 0, 0))
+    ``naflex``, SigLIP2-B/16-256 on NaFlex batches) under ``precision``,
+    or with every attention on sigmoid attention."""
+    flash, masked, int8, sig = (
+        (NAFLEX_FLASH_PER_STEP, NAFLEX_MASKED_PER_STEP, 0, 0) if naflex
+        else (0, 0, FLASH_PER_STEP, 0) if precision == "int8_qk"
+        else (0, 0, 0, FLASH_PER_STEP) if sigmoid
+        else (FLASH_PER_STEP, 0, 0, 0))
+    linears = FP8_LINEARS if precision == "fp8_hybrid" else 0
     return {"flash_attention": flash, "flash_attention_bwd": flash,
             "flash_attention_masked": masked,
             "flash_attention_masked_bwd": masked,
             "layer_norm": LN_PER_STEP, "layer_norm_bwd": LN_PER_STEP,
             "flash_attention_int8": int8, "flash_attention_int8_bwd": int8,
-            "int8_matmul": 0}
+            "int8_matmul": 0, "fp8_matmul": linears,
+            "fp8_matmul_bwd": 2 * linears, "sigmoid_attention": sig,
+            "sigmoid_attention_bwd": sig}
 
 
 def int8_qk_grads_phase(card: str) -> None:
@@ -1147,17 +1419,46 @@ def int8_qk_grads_phase(card: str) -> None:
           "int8_qk did not rewrite every attention")
     images, text = _batch(model.config, 8, torch.float32, 1)
     grads_phase(model, images, text, step_counts("int8_qk"),
-                "int8_qk: f32 batch 8", card, held_quantization=True)
+                "int8_qk: f32 batch 8", card, held=(fa8, "quantize_heads"))
 
 
-def train_phase(card: str, precision: str | None = None) -> None:
+def fp8_grads_phase(card: str) -> None:
+    """9(a) f32, batch 8, every eligible Linear on the fp8 GEMM: one step's
+    gradients through the kernels against the plain versions, every fp8
+    quantization held, and the histories after both steps."""
+    model = _train_model(torch.float32)
+    check(apply_precision_policy(model, "fp8_hybrid") == FP8_LINEARS,
+          "fp8_hybrid did not rewrite every eligible Linear")
+    images, text = _batch(model.config, 8, torch.float32, 1)
+    grads_phase(model, images, text, step_counts("fp8_hybrid"),
+                "fp8_hybrid: f32 batch 8", card,
+                held=(fp8, "quantize_tensor"))
+
+
+def sigmoid_grads_phase(card: str) -> None:
+    """10(a) f32, batch 8, every attention on sigmoid attention: one step's
+    gradients through the kernels against the plain versions."""
+    model = _train_model(torch.float32, attn_impl="sigmoid")
+    images, text = _batch(model.config, 8, torch.float32, 1)
+    grads_phase(model, images, text, step_counts(sigmoid=True),
+                "sigmoid: f32 batch 8", card)
+
+
+def train_phase(card: str, precision: str | None = None,
+                attn_impl: str | None = None) -> dict[str, int]:
     """(b) bf16, batch 128: the train step's speed and launch counts, under
-    the precision policy ``precision`` (phase 8(b)) or as built (5(b))."""
-    model = _train_model(torch.bfloat16)
-    label = "int8_qk: train" if precision else "train"
+    the precision policy ``precision`` (phases 8(b), 9(b)), with every
+    attention on ``attn_impl`` (10(b)), or as built (5(b)). Returns the
+    launches over the timed steps. The new paths (fp8_hybrid, sigmoid) also
+    run one step under the sync debug mode: it must not wait on the host."""
+    model = _train_model(torch.bfloat16, attn_impl)
+    label = f"{precision or attn_impl}: train" if precision or attn_impl \
+        else "train"
     if precision:
-        check(apply_precision_policy(model, precision) == FLASH_PER_STEP,
-              f"{precision} did not rewrite every attention")
+        want_rewritten = (FP8_LINEARS if precision == "fp8_hybrid"
+                          else FLASH_PER_STEP)
+        check(apply_precision_policy(model, precision) == want_rewritten,
+              f"{precision} did not rewrite every module it takes")
     cfg = model.config
     optimizer = make_optimizer(model, OptimizerConfig(learning_rate=1e-3))
     step = make_contrastive_train_step("siglip")
@@ -1174,7 +1475,7 @@ def train_phase(card: str, precision: str | None = None) -> None:
     float(model.logit_scale.detach())
     dt = (time.perf_counter() - t0) / TRAIN_STEPS
     counts = read_counts()
-    want = step_counts(precision)
+    want = step_counts(precision, sigmoid=attn_impl == "sigmoid")
     check(all(counts[k] == want[k] * TRAIN_STEPS for k in want),
           f"{label} launch counts over {TRAIN_STEPS} steps: {counts}")
     loss = torch.stack(losses).float().cpu()
@@ -1192,7 +1493,30 @@ def train_phase(card: str, precision: str | None = None) -> None:
           f"MFU {mfu(flops, dt, 989.0):.4f} of 989 TFLOP/s "
           f"({flops / 1e12:.3f} TFLOP a step), torch.cuda.max_memory_allocated "
           f"{peak} bytes ({peak / 2**30:.2f} GiB) | {card}", flush=True)
+    if precision == "fp8_hybrid" or attn_impl:
+        syncs = host_syncs(lambda: step(model, optimizer, images, text))
+        check(not syncs, f"{label}: the step synchronised with the host: "
+              f"{syncs[:3]}")
+        print(f"{label}: one step under torch.cuda.set_sync_debug_mode"
+              f"('warn'): 0 host syncs | {card}", flush=True)
     step_readout(model, optimizer, step, images, text, card)
+    return counts
+
+
+def host_syncs(fn) -> list[str]:
+    """The warnings ``torch.cuda.set_sync_debug_mode("warn")`` raises while
+    ``fn`` runs: one per operation that makes the host wait for the card."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return [str(w.message) for w in caught
+            if "called a synchronizing" in str(w.message)]
 
 
 def step_readout(model, optimizer, step, images, text, card: str) -> None:
@@ -1222,7 +1546,9 @@ def step_readout(model, optimizer, step, images, text, card: str) -> None:
 def zero_counts() -> None:
     fa.launches = fa.bwd_launches = ln.launches = ln.bwd_launches = 0
     fa.masked_launches = fa.masked_bwd_launches = 0
+    fa.sigmoid_launches = fa.sigmoid_bwd_launches = 0
     fa8.launches = fa8.bwd_launches = mm.launches = 0
+    fp8.launches = fp8.bwd_launches = 0
 
 
 def read_counts() -> dict[str, int]:
@@ -1233,7 +1559,10 @@ def read_counts() -> dict[str, int]:
             "layer_norm": ln.launches, "layer_norm_bwd": ln.bwd_launches,
             "flash_attention_int8": fa8.launches,
             "flash_attention_int8_bwd": fa8.bwd_launches,
-            "int8_matmul": mm.launches}
+            "int8_matmul": mm.launches, "fp8_matmul": fp8.launches,
+            "fp8_matmul_bwd": fp8.bwd_launches,
+            "sigmoid_attention": fa.sigmoid_launches,
+            "sigmoid_attention_bwd": fa.sigmoid_bwd_launches}
 
 
 def cli_train_phase(card: str, naflex: bool = False,
@@ -1265,7 +1594,9 @@ def cli_train_phase(card: str, naflex: bool = False,
     summary = json.loads(printed[-1])
     check(rc == 0 and summary.get("status") == "trained"
           and summary.get("device", "").startswith("cuda")
-          and summary.get("precision") == (precision or "bf16"),
+          and summary.get("precision") == (precision or "bf16")
+          and (precision != "fp8_hybrid"
+               or summary.get("precision_modules") == FP8_LINEARS),
           f"python -m jimm_tpu_torch {' '.join(argv)}: rc {rc}, {summary}")
     check([r["step"] for r in logged] == list(range(CLI_STEPS)),
           f"train command logged steps {[r['step'] for r in logged]}")
@@ -1443,6 +1774,13 @@ def main() -> int:
         train_phase(card, precision="int8_qk")
         int8_qk_counts = cli_train_phase(card, precision="int8_qk")
         done("int8_qk")
+        fp8_grads_phase(card)
+        train_phase(card, precision="fp8_hybrid")
+        fp8_counts = cli_train_phase(card, precision="fp8_hybrid")
+        done("fp8_hybrid")
+        sigmoid_grads_phase(card)
+        sigmoid_counts = train_phase(card, attn_impl="sigmoid")
+        done("sigmoid")
         check(all(math.isfinite(timed[k]["ms"]) for k in timed), "bad timing")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
@@ -1450,16 +1788,24 @@ def main() -> int:
     # each kernel's launches come from the run of its main path: the train
     # command of SigLIP-B/16-256 for the unmasked kernels, of
     # SigLIP2-B/16-256 on NaFlex batches for the masked ones, of
-    # SigLIP-B/16-256 under --precision int8_qk for the int8 flash kernels,
-    # and the int8 server's traffic for the int8 matmul
+    # SigLIP-B/16-256 under --precision int8_qk for the int8 flash kernels
+    # and under --precision fp8_hybrid for the fp8 GEMM, the int8 server's
+    # traffic for the int8 matmul, and phase 10(b)'s timed steps of the
+    # sigmoid-attention SigLIP for the sigmoid kernels
     paths = {"serve": serve_counts, "train": train_counts,
              "naflex": naflex_counts, "int8_serve": int8_serve_counts,
-             "int8_qk": int8_qk_counts}
+             "int8_qk": int8_qk_counts, "fp8_hybrid": fp8_counts,
+             "sigmoid": sigmoid_counts}
+    steps = {"train": CLI_STEPS, "naflex": CLI_STEPS, "int8_qk": CLI_STEPS,
+             "fp8_hybrid": CLI_STEPS, "sigmoid": TRAIN_STEPS}
     main_path = {"flash_attention_masked": "naflex",
                  "flash_attention_masked_bwd": "naflex",
                  "flash_attention_int8": "int8_qk",
                  "flash_attention_int8_bwd": "int8_qk",
-                 "int8_matmul": "int8_serve"}
+                 "int8_matmul": "int8_serve", "fp8_matmul": "fp8_hybrid",
+                 "fp8_matmul_bwd": "fp8_hybrid",
+                 "sigmoid_attention": "sigmoid",
+                 "sigmoid_attention_bwd": "sigmoid"}
     sources = {
         "layer_norm": ("jimm_tpu_torch/csrc/layer_norm.cu",
                        "jimm_tpu/ops/layer_norm.py:52"),
@@ -1481,7 +1827,18 @@ def main() -> int:
             "jimm_tpu_torch/csrc/flash_attention_int8_bwd.cu",
             "jimm_tpu/ops/flash_attention_int8.py:203,242"),
         "int8_matmul": ("jimm_tpu_torch/csrc/int8_matmul.cu",
-                        "jimm_tpu/ops/int8_matmul.py:91")}
+                        "jimm_tpu/ops/int8_matmul.py:91"),
+        # e4m3 x e4m3 forward, e5m2 x e4m3 dx and dw: one TPU kernel
+        "fp8_matmul": ("jimm_tpu_torch/csrc/fp8_matmul.cu",
+                       "jimm_tpu/ops/fp8_matmul.py:89"),
+        "fp8_matmul_bwd": ("jimm_tpu_torch/csrc/fp8_matmul.cu",
+                           "jimm_tpu/ops/fp8_matmul.py:89"),
+        # the sigmoid kind of the flash kernels
+        "sigmoid_attention": ("jimm_tpu_torch/csrc/flash_attention.cu",
+                              "jimm_tpu/ops/flash_attention.py:136"),
+        "sigmoid_attention_bwd": (
+            "jimm_tpu_torch/csrc/flash_attention_bwd.cu",
+            "jimm_tpu/ops/flash_attention.py:241,293")}
     record = []
     for kernel, (source, replaces) in sources.items():
         c = timed[kernel]
@@ -1492,7 +1849,7 @@ def main() -> int:
                  "launches_by_path": {p: n[kernel] for p, n in paths.items()},
                  "served_batches": {p: paths[p]["batches"]
                                     for p in ("serve", "int8_serve")},
-                 "train_steps": CLI_STEPS,
+                 "train_steps": steps.get(path),
                  "max_abs_err": c["max_abs_err"], "ms": c["ms"],
                  "call_ms": c["call_ms"], "plain_ms": c["plain_ms"],
                  "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],

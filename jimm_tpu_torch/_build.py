@@ -54,6 +54,17 @@ _SIGNATURES = {
                                       + [ctypes.c_float, _I, _I, _P]),
     "jimm_flash_attention_int8_bwd": ([_P] * 11 + [_I] * 5 + [_L] * 6
                                       + [ctypes.c_float, _I, _I, _P]),
+    # a, b, scale, bias (null for none), out, split-K workspace (null for
+    # one range), M, N, K, K range, a format, b format, stream
+    "jimm_fp8_matmul": [_P] * 6 + [_I] * 6 + [_P],
+    # ..., scale, logit_bias, causal, mask (null for none), mask batch
+    # stride, dtype, stream
+    "jimm_sigmoid_attention_fwd": ([_P] * 4 + [_I] * 5 + [_L] * 9
+                                   + [ctypes.c_float] * 2
+                                   + [_I, _P, _L, _I, _P]),
+    "jimm_sigmoid_attention_bwd": ([_P] * 7 + [_I] * 5 + [_L] * 12
+                                   + [ctypes.c_float] * 2
+                                   + [_I, _P, _L, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -14,7 +14,8 @@ of the JAX package's ``train`` command, printing one JSON metrics line per
 logged step and a JSON summary line at the end. With ``--naflex`` the image
 side is SigLIP2's variable-resolution NaFlex batches (mixed-aspect synthetic
 images as padded patch sequences with a key-padding mask). ``--precision
-int8_qk`` runs every attention on the int8-QK flash kernels
+int8_qk`` runs every attention on the int8-QK flash kernels, ``--precision
+fp8_hybrid`` every eligible Linear on the fp8 matmul with delayed scaling
 (``jimm_tpu_torch.quant.policy``).
 """
 
@@ -33,8 +34,7 @@ from jimm_tpu_torch.data.synthetic import (contrastive_pairs,
 from jimm_tpu_torch.models.siglip import SigLIP, _resolve_device
 from jimm_tpu_torch.ops.attention import INT8_NO_MASK
 from jimm_tpu_torch.quant import quantize_model
-from jimm_tpu_torch.quant.policy import (FP8_NOT_PORTED, POLICIES,
-                                         apply_precision_policy)
+from jimm_tpu_torch.quant.policy import POLICIES, apply_precision_policy
 from jimm_tpu_torch.serve.admission import AdmissionPolicy
 from jimm_tpu_torch.serve.buckets import BucketTable, default_buckets
 from jimm_tpu_torch.serve.engine import InferenceEngine, image_forward
@@ -147,9 +147,6 @@ def cmd_train(args: argparse.Namespace) -> int:
     if args.naflex and not args.preset.startswith("siglip"):
         raise SystemExit("--naflex trains SigLIP2-style models; "
                          "use a siglip preset")
-    if args.precision == "fp8_hybrid":
-        raise SystemExit(f"--precision fp8_hybrid is not ported yet: "
-                         f"{FP8_NOT_PORTED}")
     if args.naflex and (args.precision == "int8_qk"
                         or args.attn_impl == "flash_int8"):
         raise SystemExit(f"--naflex batches need a key-padding mask: "
@@ -294,8 +291,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="q/k/v as one (H, 3H) matmul")
     sp.add_argument("--precision", default=None, choices=POLICIES,
                     help="training precision policy: bf16 (as built), "
+                         "fp8_hybrid (eligible Linears matmul in e4m3 "
+                         "forward / e5m2 gradients, delayed scaling), "
                          "int8_qk (every attention on the int8-QK flash "
-                         "kernels); fp8_hybrid is not ported yet")
+                         "kernels)")
     sp.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' must be asked for explicitly")
     sp.add_argument("--log-every", type=int, default=10)

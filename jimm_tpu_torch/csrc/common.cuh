@@ -32,6 +32,13 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// the value x takes once stored in T and read back (bf16 rounding; the
+// identity for f32)
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
 // Raise a kernel's dynamic shared-memory cap on the current device; above
 // 48 KB a launch without it is refused. The cap granted so far is kept per
 // (kernel, device), so the driver call is made only when a launch needs

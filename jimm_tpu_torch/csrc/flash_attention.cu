@@ -1,5 +1,5 @@
-// Softmax flash-attention forward for Hopper (sm_90a), with or without a
-// key-padding mask.
+// Flash-attention forward for Hopper (sm_90a), softmax or sigmoid scores,
+// with or without a key-padding mask.
 //
 // Replaces the TPU kernel jimm_tpu/ops/flash_attention.py::_fwd_kernel,
 // softmax kind without bias: without a mask (kernel row 3) and with one
@@ -25,6 +25,16 @@
 // 1.31x its unmasked twin's time on an H100 80GB HBM3 at 700 W (PERF.md,
 // chip_smoke.py). Without a mask (HAS_MASK false) the kernel is the
 // unmasked one, unchanged, with load_tile as it compiled before.
+//
+// The sigmoid kind (SIGMOID, kernel row 6; _fwd_kernel with
+// kind="sigmoid", launched by sigmoid_attention): p = sigmoid(s + logit_bias)
+// with s = (q . k) * scale in f32, each step rounded on its own as XLA
+// rounds the TPU kernel's; a dropped key (ragged, causal or masked) has
+// p = 0 exactly, where the TPU's -1e30 score gives sigmoid(-1e30) = 0, so a
+// row with no key to attend is exactly zero. There is no normaliser: no
+// running max or sum, no rescale of the accumulator, no lse; p is rounded
+// to the input dtype before p . v, as the TPU kernel casts it for its MXU
+// dot, and o is the accumulator itself.
 //
 // Design (the FA2 arrangement): one CTA of 256 threads per (batch*head,
 // 64-row q tile). The TPU kernel makes the kv loop a sequential grid axis
@@ -108,13 +118,13 @@ __device__ __forceinline__ void load_tile_batched(float* dst, const T* src,
   }
 }
 
-template <typename T, int DP, bool HAS_MASK>
+template <typename T, int DP, bool HAS_MASK, bool SIGMOID>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, float* __restrict__ lse, int heads, int sq, int sk,
     int d, long long q_sb, long long q_ss, long long q_sn, long long k_sb,
     long long k_ss, long long k_sn, long long v_sb, long long v_ss,
-    long long v_sn, float scale, int causal,
+    long long v_sn, float scale, float logit_bias, int causal,
     const unsigned char* __restrict__ mask, long long mask_sb) {
   constexpr int LD = DP + 4;    // q/k/v tile row stride (floats)
   constexpr int LDP = kBK + 4;  // probability tile row stride
@@ -189,6 +199,18 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = q0 + ty * 4 + i;
+      if constexpr (SIGMOID) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = k0 + tx + 16 * j;
+          const bool keep = col < sk && (!causal || col <= row) &&
+                            (!HAS_MASK || attend[tx + 16 * j]);
+          const float x = __fadd_rn(__fmul_rn(s[i][j], scale), logit_bias);
+          ps[(ty * 4 + i) * LDP + tx + 16 * j] =
+              keep ? jimm::round_to<T>(1.f / (1.f + expf(-x))) : 0.f;
+        }
+        continue;
+      }
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -254,7 +276,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= sq) continue;
-    const float ll = l[i] == 0.f ? 1.f : l[i];
+    // the sigmoid kind's o is the accumulator itself
+    const float ll = SIGMOID || l[i] == 0.f ? 1.f : l[i];
     T* orow = o + (static_cast<long long>(bi) * sq + row) * heads * d +
               static_cast<long long>(h) * d;
 #pragma unroll
@@ -264,7 +287,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
         const int col = g * 64 + tx * 4 + e;
         if (col < d) orow[col] = jimm::from_f32<T>(acc[i][g * 4 + e] / ll);
       }
-    if (tx == 0) lse[static_cast<long long>(bh) * sq + row] = m[i] + logf(ll);
+    if (!SIGMOID && tx == 0)
+      lse[static_cast<long long>(bh) * sq + row] = m[i] + logf(ll);
   }
 }
 
@@ -273,16 +297,16 @@ struct Args {
   void *o, *lse;
   int batch, heads, sq, sk, d;
   long long q_sb, q_ss, q_sn, k_sb, k_ss, k_sn, v_sb, v_ss, v_sn;
-  float scale;
+  float scale, logit_bias;
   int causal;
   const void* mask;
   long long mask_sb;
   cudaStream_t stream;
 };
 
-template <typename T, int DP, bool HAS_MASK>
+template <typename T, int DP, bool HAS_MASK, bool SIGMOID>
 cudaError_t launch(const Args& a) {
-  auto kernel = flash_fwd_kernel<T, DP, HAS_MASK>;
+  auto kernel = flash_fwd_kernel<T, DP, HAS_MASK, SIGMOID>;
   const int smem =
       ((kBQ + 2 * kBK) * (DP + 4) + kBQ * (kBK + 4)) * sizeof(float);
   cudaError_t err = jimm::allow_smem(kernel, smem);
@@ -293,20 +317,40 @@ cudaError_t launch(const Args& a) {
       static_cast<const T*>(a.v), static_cast<T*>(a.o),
       static_cast<float*>(a.lse), a.heads, a.sq, a.sk, a.d, a.q_sb, a.q_ss,
       a.q_sn, a.k_sb, a.k_ss, a.k_sn, a.v_sb, a.v_ss, a.v_sn, a.scale,
-      a.causal, static_cast<const unsigned char*>(a.mask), a.mask_sb);
+      a.logit_bias, a.causal, static_cast<const unsigned char*>(a.mask),
+      a.mask_sb);
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool SIGMOID>
 cudaError_t with_mask(const Args& a) {
-  return a.mask ? launch<T, DP, true>(a) : launch<T, DP, false>(a);
+  return a.mask ? launch<T, DP, true, SIGMOID>(a)
+                : launch<T, DP, false, SIGMOID>(a);
 }
 
-template <typename T>
+template <typename T, bool SIGMOID>
 cudaError_t dispatch(const Args& a) {
-  if (a.d <= 64) return with_mask<T, 64>(a);
-  if (a.d <= 128) return with_mask<T, 128>(a);
-  return with_mask<T, 256>(a);
+  if (a.d <= 64) return with_mask<T, 64, SIGMOID>(a);
+  if (a.d <= 128) return with_mask<T, 128, SIGMOID>(a);
+  return with_mask<T, 256, SIGMOID>(a);
+}
+
+bool bad_shape(int batch, int heads, int sq, int sk, int d) {
+  return batch < 1 || heads < 1 || sq < 1 || sk < 1 || d < 1 || d > 256 ||
+         static_cast<long long>(batch) * heads > 0x7fffffffLL ||
+         (sq + kBQ - 1) / kBQ > 65535;
+}
+
+template <bool SIGMOID>
+int run(const Args& a, int dtype) {
+  switch (dtype) {
+    case jimm::kF32:
+      return dispatch<float, SIGMOID>(a);
+    case jimm::kBF16:
+      return dispatch<__nv_bfloat16, SIGMOID>(a);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -322,20 +366,28 @@ extern "C" int jimm_flash_attention_fwd(
     long long q_sn, long long k_sb, long long k_ss, long long k_sn,
     long long v_sb, long long v_ss, long long v_sn, float scale, int causal,
     const void* mask, long long mask_sb, int dtype, void* stream) {
-  if (batch < 1 || heads < 1 || sq < 1 || sk < 1 || d < 1 || d > 256 ||
-      static_cast<long long>(batch) * heads > 0x7fffffffLL ||
-      (sq + kBQ - 1) / kBQ > 65535)
-    return cudaErrorInvalidValue;
-  const Args a{q,    k,    v,    o,     lse,    batch, heads,   sq,
-               sk,   d,    q_sb, q_ss,  q_sn,   k_sb,  k_ss,    k_sn,
-               v_sb, v_ss, v_sn, scale, causal, mask,  mask_sb,
+  if (bad_shape(batch, heads, sq, sk, d)) return cudaErrorInvalidValue;
+  const Args a{q,    k,    v,    o,     lse,  batch,  heads, sq,
+               sk,   d,    q_sb, q_ss,  q_sn, k_sb,   k_ss,  k_sn,
+               v_sb, v_ss, v_sn, scale, 0.f,  causal, mask,  mask_sb,
                static_cast<cudaStream_t>(stream)};
-  switch (dtype) {
-    case jimm::kF32:
-      return dispatch<float>(a);
-    case jimm::kBF16:
-      return dispatch<__nv_bfloat16>(a);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return run<false>(a, dtype);
+}
+
+// Sigmoid attention (kernel row 6): the same arguments but lse (none) and
+// logit_bias, the scalar added to every scaled score before the sigmoid.
+// o: (B, Sq, N, D) contiguous in `dtype`. Returns the launch's cudaError_t.
+extern "C" int jimm_sigmoid_attention_fwd(
+    const void* q, const void* k, const void* v, void* o, int batch,
+    int heads, int sq, int sk, int d, long long q_sb, long long q_ss,
+    long long q_sn, long long k_sb, long long k_ss, long long k_sn,
+    long long v_sb, long long v_ss, long long v_sn, float scale,
+    float logit_bias, int causal, const void* mask, long long mask_sb,
+    int dtype, void* stream) {
+  if (bad_shape(batch, heads, sq, sk, d)) return cudaErrorInvalidValue;
+  const Args a{q,    k,    v,    o,     nullptr,    batch,  heads, sq,
+               sk,   d,    q_sb, q_ss,  q_sn,       k_sb,   k_ss,  k_sn,
+               v_sb, v_ss, v_sn, scale, logit_bias, causal, mask,  mask_sb,
+               static_cast<cudaStream_t>(stream)};
+  return run<true>(a, dtype);
 }

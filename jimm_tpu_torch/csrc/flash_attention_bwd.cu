@@ -1,5 +1,5 @@
-// Softmax flash-attention backward for Hopper (sm_90a): dq, and dk/dv, with
-// or without a key-padding mask.
+// Flash-attention backward for Hopper (sm_90a): dq, and dk/dv, softmax or
+// sigmoid scores, with or without a key-padding mask.
 //
 // Replaces the TPU kernels jimm_tpu/ops/flash_attention.py::_bwd_dq_kernel
 // and ::_bwd_dkv_kernel, softmax kind without bias: without a mask and with
@@ -40,6 +40,14 @@
 // gets p = 0 here and exp(0) on the TPU; under the zero cotangent that such
 // rows carry both give zero gradient.)
 //
+// The sigmoid kind (SIGMOID, row 7's sigmoid kind; _ds_tile with
+// kind="sigmoid", launched by sigmoid_attention's VJP): p = sigmoid(s +
+// logit_bias) recomputed in f32 from the saved inputs, ds = p * (1 - p) * dp,
+// each step rounded on its own; no lse and no delta (the wrapper computes
+// no rowsum(do * o)), and p (for dv) and ds are rounded to the input dtype
+// before their products, as in the softmax kind. A dropped key has p = 0,
+// so ds = 0 and zero dk and dv.
+//
 // What bounds it on the H100: at the training shapes (S <= 256, D = 64) the
 // bytes, ~20 bytes per (row, feature) in bf16 moved once, against
 // 8*Sq*Sk*D flops; like the forward, this first version computes with f32
@@ -71,12 +79,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
   }
 }
 
-// the value x takes once stored in T and read back (bf16 rounding; the
-// identity for f32)
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return jimm::to_f32(jimm::from_f32<T>(x));
-}
+using jimm::round_to;
 
 // out[a][b] = A[a0 + a] . B[tx + 16 b] over DP columns (row stride DP + 4)
 template <int DP, int NA, int NB>
@@ -176,21 +179,41 @@ struct Args {
   void *dq, *dk, *dv;
   int batch, heads, sq, sk, d;
   Strides qs, ks, vs, dos;
-  float scale;
+  float scale, logit_bias;
   int causal;
   const void* mask;
   long long mask_sb;
   cudaStream_t stream;
 };
 
-template <typename T, int DP, int BQ, int BK, bool HAS_MASK>
+// p and ds of one (query, key) pair from its unscaled score s and dp; a
+// dropped pair has p = ds = 0. Softmax: p = exp(s * scale - lse), ds =
+// p * (dp - delta); sigmoid: p = sigmoid(s * scale + logit_bias), ds =
+// p * (1 - p) * dp. ds is rounded to T; p is returned unrounded.
+template <typename T, bool SIGMOID>
+__device__ __forceinline__ float p_ds(float s, float dp, bool keep,
+                                      float scale, float lse_or_bias,
+                                      float delta, float& ds) {
+  if constexpr (SIGMOID) {
+    const float x = __fadd_rn(__fmul_rn(s, scale), lse_or_bias);
+    const float p = keep ? 1.f / (1.f + expf(-x)) : 0.f;
+    ds = round_to<T>(__fmul_rn(__fmul_rn(p, __fsub_rn(1.f, p)), dp));
+    return p;
+  } else {
+    const float p = keep ? expf(s * scale - lse_or_bias) : 0.f;
+    ds = round_to<T>(p * (dp - delta));
+    return p;
+  }
+}
+
+template <typename T, int DP, int BQ, int BK, bool HAS_MASK, bool SIGMOID>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dq, int heads, int sq,
     int sk, int d, Strides qst, Strides kst, Strides vst, Strides dst,
-    float scale, int causal, const unsigned char* __restrict__ mask,
-    long long mask_sb) {
+    float scale, float logit_bias, int causal,
+    const unsigned char* __restrict__ mask, long long mask_sb) {
   constexpr int LD = DP + 4, RQ = BQ / 16, RK = BK / 16, LDS = BK + 4;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;
@@ -209,13 +232,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   load_tile<T, DP, BQ>(qs, q + bi * qst.b + h * qst.n, qst.s, q0, sq, d);
   load_tile<T, DP, BQ>(dos, dout + bi * dst.b + h * dst.n, dst.s, q0, sq, d);
 
+  // softmax: each row's lse and delta; sigmoid: the logit bias, no delta
   float lse_r[RQ], delta_r[RQ];
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
     const int row = q0 + ty * RQ + i;
     const long long at = static_cast<long long>(bh) * sq + row;
-    lse_r[i] = row < sq ? lse[at] : 0.f;
-    delta_r[i] = row < sq ? delta[at] : 0.f;
+    lse_r[i] = SIGMOID ? logit_bias : row < sq ? lse[at] : 0.f;
+    delta_r[i] = SIGMOID || row >= sq ? 0.f : delta[at];
   }
   float acc[RQ][DP / 16];
 #pragma unroll
@@ -246,9 +270,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
         const int col = k0 + tx + 16 * j;
         const bool keep = row < sq && col < sk && (!causal || col <= row) &&
                           (!HAS_MASK || attend[tx + 16 * j]);
-        const float p = keep ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
-        dss[(ty * RQ + i) * LDS + tx + 16 * j] =
-            round_to<T>(p * (dp[i][j] - delta_r[i]));
+        float ds;
+        p_ds<T, SIGMOID>(s[i][j], dp[i][j], keep, scale, lse_r[i],
+                         delta_r[i], ds);
+        dss[(ty * RQ + i) * LDS + tx + 16 * j] = ds;
       }
     }
     __syncthreads();
@@ -257,13 +282,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   store_rows<T, DP, RQ>(dq, acc, scale, bi, h, heads, q0, ty * RQ, sq, d, tx);
 }
 
-template <typename T, int DP, int BQ, int BK, bool HAS_MASK>
+template <typename T, int DP, int BQ, int BK, bool HAS_MASK, bool SIGMOID>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
     int heads, int sq, int sk, int d, Strides qst, Strides kst, Strides vst,
-    Strides dst, float scale, int causal,
+    Strides dst, float scale, float logit_bias, int causal,
     const unsigned char* __restrict__ mask, long long mask_sb) {
   constexpr int LD = DP + 4, RQ = BQ / 16, RK = BK / 16, LDS = BQ + 4;
   extern __shared__ __align__(16) float smem[];
@@ -312,17 +337,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     for (int b = 0; b < RQ; ++b) {
       const int row = q0 + tx + 16 * b;  // query row
       const long long at = static_cast<long long>(bh) * sq + row;
-      const float l = row < sq ? lse[at] : 0.f;
-      const float dl = row < sq ? delta[at] : 0.f;
+      const float l = SIGMOID ? logit_bias : row < sq ? lse[at] : 0.f;
+      const float dl = SIGMOID || row >= sq ? 0.f : delta[at];
 #pragma unroll
       for (int a = 0; a < RK; ++a) {
         const int col = k0 + ty * RK + a;  // key row
         const bool keep = row < sq && col < sk && (!causal || col <= row) &&
                           (!HAS_MASK || attend[ty * RK + a]);
-        const float p = keep ? expf(s[a][b] * scale - l) : 0.f;
+        float ds;
+        const float p =
+            p_ds<T, SIGMOID>(s[a][b], dp[a][b], keep, scale, l, dl, ds);
         pts[(ty * RK + a) * LDS + tx + 16 * b] = round_to<T>(p);
-        dsts[(ty * RK + a) * LDS + tx + 16 * b] =
-            round_to<T>(p * (dp[a][b] - dl));
+        dsts[(ty * RK + a) * LDS + tx + 16 * b] = ds;
       }
     }
     __syncthreads();
@@ -335,7 +361,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
                         tx);
 }
 
-template <typename T, int DP, int BQ, int BK, bool HAS_MASK>
+template <typename T, int DP, int BQ, int BK, bool HAS_MASK, bool SIGMOID>
 cudaError_t launch(const Args& a) {
   constexpr int LD = DP + 4;
   const auto* q = static_cast<const T*>(a.q);
@@ -346,7 +372,7 @@ cudaError_t launch(const Args& a) {
   const auto* delta = static_cast<const float*>(a.delta);
   const auto* mask = static_cast<const unsigned char*>(a.mask);
 
-  auto dq_kernel = flash_bwd_dq_kernel<T, DP, BQ, BK, HAS_MASK>;
+  auto dq_kernel = flash_bwd_dq_kernel<T, DP, BQ, BK, HAS_MASK, SIGMOID>;
   const int dq_smem =
       ((2 * BQ + 2 * BK) * LD + BQ * (BK + 4)) * static_cast<int>(sizeof(float));
   cudaError_t err = jimm::allow_smem(dq_kernel, dq_smem);
@@ -354,11 +380,11 @@ cudaError_t launch(const Args& a) {
   dq_kernel<<<dim3(a.batch * a.heads, (a.sq + BQ - 1) / BQ), kThreads, dq_smem,
               a.stream>>>(q, k, v, dout, lse, delta, static_cast<T*>(a.dq),
                           a.heads, a.sq, a.sk, a.d, a.qs, a.ks, a.vs, a.dos,
-                          a.scale, a.causal, mask, a.mask_sb);
+                          a.scale, a.logit_bias, a.causal, mask, a.mask_sb);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto dkv_kernel = flash_bwd_dkv_kernel<T, DP, BQ, BK, HAS_MASK>;
+  auto dkv_kernel = flash_bwd_dkv_kernel<T, DP, BQ, BK, HAS_MASK, SIGMOID>;
   const int dkv_smem = ((2 * BQ + 2 * BK) * LD + 2 * BK * (BQ + 4)) *
                        static_cast<int>(sizeof(float));
   err = jimm::allow_smem(dkv_kernel, dkv_smem);
@@ -366,24 +392,42 @@ cudaError_t launch(const Args& a) {
   dkv_kernel<<<dim3(a.batch * a.heads, (a.sk + BK - 1) / BK), kThreads,
                dkv_smem, a.stream>>>(
       q, k, v, dout, lse, delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
-      a.heads, a.sq, a.sk, a.d, a.qs, a.ks, a.vs, a.dos, a.scale, a.causal,
-      mask, a.mask_sb);
+      a.heads, a.sq, a.sk, a.d, a.qs, a.ks, a.vs, a.dos, a.scale,
+      a.logit_bias, a.causal, mask, a.mask_sb);
   return cudaGetLastError();
 }
 
-template <typename T, int DP, int BQ, int BK>
+template <typename T, int DP, int BQ, int BK, bool SIGMOID>
 cudaError_t with_mask(const Args& a) {
-  return a.mask ? launch<T, DP, BQ, BK, true>(a)
-                : launch<T, DP, BQ, BK, false>(a);
+  return a.mask ? launch<T, DP, BQ, BK, true, SIGMOID>(a)
+                : launch<T, DP, BQ, BK, false, SIGMOID>(a);
 }
 
-template <typename T>
+template <typename T, bool SIGMOID>
 cudaError_t dispatch(const Args& a) {
   // 64-row tiles up to D = 128; at 256 the f32 tiles take 32 rows to fit
   // the 227 KB of shared memory and keep the accumulators in registers
-  if (a.d <= 64) return with_mask<T, 64, 64, 64>(a);
-  if (a.d <= 128) return with_mask<T, 128, 64, 64>(a);
-  return with_mask<T, 256, 32, 32>(a);
+  if (a.d <= 64) return with_mask<T, 64, 64, 64, SIGMOID>(a);
+  if (a.d <= 128) return with_mask<T, 128, 64, 64, SIGMOID>(a);
+  return with_mask<T, 256, 32, 32, SIGMOID>(a);
+}
+
+bool bad_shape(int batch, int heads, int sq, int sk, int d) {
+  return batch < 1 || heads < 1 || sq < 1 || sk < 1 || d < 1 || d > 256 ||
+         static_cast<long long>(batch) * heads > 0x7fffffffLL ||
+         (sq + 31) / 32 > 65535 || (sk + 31) / 32 > 65535;
+}
+
+template <bool SIGMOID>
+int run(const Args& a, int dtype) {
+  switch (dtype) {
+    case jimm::kF32:
+      return dispatch<float, SIGMOID>(a);
+    case jimm::kBF16:
+      return dispatch<__nv_bfloat16, SIGMOID>(a);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -404,22 +448,34 @@ extern "C" int jimm_flash_attention_bwd(
     long long do_sb, long long do_ss, long long do_sn, float scale,
     int causal, const void* mask, long long mask_sb, int dtype,
     void* stream) {
-  if (batch < 1 || heads < 1 || sq < 1 || sk < 1 || d < 1 || d > 256 ||
-      static_cast<long long>(batch) * heads > 0x7fffffffLL ||
-      (sq + 31) / 32 > 65535 || (sk + 31) / 32 > 65535)
-    return cudaErrorInvalidValue;
+  if (bad_shape(batch, heads, sq, sk, d)) return cudaErrorInvalidValue;
   const Args a{q,      k,      v,     dout,  lse,   delta,
                dq,     dk,     dv,    batch, heads, sq,
                sk,     d,      {q_sb, q_ss, q_sn},  {k_sb, k_ss, k_sn},
                {v_sb, v_ss, v_sn},    {do_sb, do_ss, do_sn},
-               scale,  causal, mask,  mask_sb,
+               scale,  0.f,    causal, mask, mask_sb,
                static_cast<cudaStream_t>(stream)};
-  switch (dtype) {
-    case jimm::kF32:
-      return dispatch<float>(a);
-    case jimm::kBF16:
-      return dispatch<__nv_bfloat16>(a);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return run<false>(a, dtype);
+}
+
+// Sigmoid attention's backward (row 7's sigmoid kind): the same arguments
+// but lse and delta (none) and logit_bias, the forward's scalar bias.
+// Launches the dq kernel, then the dk/dv kernel, on `stream`. Returns the
+// first failing launch's cudaError_t (0 = launched).
+extern "C" int jimm_sigmoid_attention_bwd(
+    const void* q, const void* k, const void* v, const void* dout, void* dq,
+    void* dk, void* dv, int batch, int heads, int sq, int sk, int d,
+    long long q_sb, long long q_ss, long long q_sn, long long k_sb,
+    long long k_ss, long long k_sn, long long v_sb, long long v_ss,
+    long long v_sn, long long do_sb, long long do_ss, long long do_sn,
+    float scale, float logit_bias, int causal, const void* mask,
+    long long mask_sb, int dtype, void* stream) {
+  if (bad_shape(batch, heads, sq, sk, d)) return cudaErrorInvalidValue;
+  const Args a{q,      k,          v,      dout,  nullptr, nullptr,
+               dq,     dk,         dv,     batch, heads,   sq,
+               sk,     d,          {q_sb, q_ss, q_sn},     {k_sb, k_ss, k_sn},
+               {v_sb, v_ss, v_sn}, {do_sb, do_ss, do_sn},
+               scale,  logit_bias, causal, mask,  mask_sb,
+               static_cast<cudaStream_t>(stream)};
+  return run<true>(a, dtype);
 }

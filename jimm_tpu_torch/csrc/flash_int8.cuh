@@ -17,12 +17,7 @@ namespace flash_int8 {
 constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
 
-// the value x takes once stored in T and read back (bf16 rounding; the
-// identity for f32)
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
+using jimm::round_to;
 
 // whether stage_i8 may read the rows of contiguous (B, S, N, D) int8
 // tensors at these bases a word at a time

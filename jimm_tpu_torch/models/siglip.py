@@ -18,6 +18,7 @@ from jimm_tpu_torch.nn.norm import FusedLayerNorm
 from jimm_tpu_torch.nn.text import TextTower
 from jimm_tpu_torch.nn.vision import VisionTower
 from jimm_tpu_torch.quant import QuantLinear
+from jimm_tpu_torch.quant.policy import Fp8Linear
 
 
 def _resolve_device(device) -> torch.device:
@@ -165,9 +166,14 @@ def load_jax_params(model: nn.Module,
     out) and ``bias`` fill the port's ``w_q`` and ``scale`` buffers and its
     bias, per layer, the int8 values copied as they are.
 
-    Strict: every port parameter and quantized-weight buffer must be filled
-    exactly once and every key used, with matching shapes; anything else
-    raises."""
+    A model under ``apply_precision_policy(model, "fp8_hybrid")`` takes the
+    parameters of a JAX model under the same policy together with its amax
+    histories: each JAX ``Fp8Linear``'s ``x_amax`` and ``w_amax`` ((depth,
+    16) under the stacked blocks) fill the port's per-layer buffers.
+
+    Strict: every port parameter, quantized-weight buffer and amax history
+    must be filled exactly once and every key used, with matching shapes;
+    anything else raises."""
     own = dict(model.named_parameters())
     quant_parents = set()  # the JAX (stacked) paths of the QuantLinears
     for prefix, module in model.named_modules():
@@ -178,6 +184,9 @@ def load_jax_params(model: nn.Module,
             if "blocks" in parts:
                 del parts[parts.index("blocks") + 1]
             quant_parents.add(".".join(parts))
+        elif isinstance(module, Fp8Linear):
+            own[f"{prefix}.x_amax"] = module.x_amax
+            own[f"{prefix}.w_amax"] = module.w_amax
     filled: set[str] = set()
     for key, value in params.items():
         value = np.asarray(value)

@@ -15,6 +15,10 @@
   (`jimm_tpu_torch/ops/flash_attention_int8.py`, forward and backward
   through ``FlashAttentionInt8Fn``; the ``int8_qk`` training policy sets
   it); no mask and no bias.
+- ``"sigmoid"``: sigmoid attention (``sigmoid(s + logit_bias)``, no
+  normaliser; `jimm_tpu_torch/ops/flash_attention.py`, forward and backward
+  through ``SigmoidAttentionFn``), with or without a key-padding mask; no
+  bias. Reached by a config with ``attn_impl="sigmoid"``.
 - ``"xla"`` / ``"einsum"``: :func:`reference_attention`, plain f32-softmax
   math (the names the JAX configs use for the non-kernel path),
   differentiated by autograd.
@@ -29,14 +33,14 @@ from __future__ import annotations
 import torch
 
 from jimm_tpu_torch.ops.flash_attention import (flash_attention,
-                                                flash_attention_masked)
+                                                flash_attention_masked,
+                                                sigmoid_attention)
 from jimm_tpu_torch.ops.flash_attention_int8 import flash_attention_int8
 
 #: JAX attention impls the port does not have yet -> where the ROADMAP
 #: queues them
 _NOT_PORTED = {
     "flash_bias": "kernel rows 5 and 8 (biased flash), ROADMAP queue 2",
-    "sigmoid": "kernel row 6 (sigmoid flash), ROADMAP queue 2",
     "ring": "sequence parallelism, ROADMAP queue 1 (parallelism)",
     "ulysses": "sequence parallelism, ROADMAP queue 1 (parallelism)",
     "saveable": "remat policies, ROADMAP queue 1 item 3 (training, rest)",
@@ -115,6 +119,15 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"impl='flash_masked' / 'xla' for masked "
                              f"batches")
         return flash_attention_int8(q, k, v, is_causal=is_causal)
+    if impl == "sigmoid":
+        if bias is not None:
+            raise ValueError("sigmoid attention takes no additive bias "
+                             "(its scalar logit_bias is set by the op)")
+        if mask is not None and not _is_key_padding_mask(mask):
+            raise ValueError(
+                "sigmoid attention supports key-padding masks only "
+                f"((B, Sk) or (B, 1, 1, Sk)); got {tuple(mask.shape)}")
+        return sigmoid_attention(q, k, v, is_causal=is_causal, mask=mask)
     if impl in ("xla", "einsum"):
         return reference_attention(q, k, v, is_causal=is_causal, mask=mask,
                                    bias=bias)

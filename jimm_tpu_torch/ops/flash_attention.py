@@ -1,6 +1,6 @@
-"""Softmax flash attention, forward and backward, with or without a
-key-padding mask: hand-written CUDA kernels, their plain versions, and the
-``torch.autograd.Function`` that joins them.
+"""Flash attention, softmax or sigmoid, forward and backward, with or
+without a key-padding mask: hand-written CUDA kernels, their plain versions,
+and the ``torch.autograd.Function``s that join them.
 
 Kernel row 3 of the port's kernel table replaces the Pallas TPU kernel
 ``jimm_tpu/ops/flash_attention.py::_fwd_kernel`` (softmax kind, no mask or
@@ -35,9 +35,21 @@ tensors and runs the plain version for CPU tensors; any other device raises.
 The module-level ``launches`` and ``bwd_launches`` count unmasked kernel
 launches, ``masked_launches`` and ``masked_bwd_launches`` masked ones (one
 backward call launches the dq and the dk/dv kernel and counts once).
+
+Kernel row 6 (``_fwd_kernel`` with ``kind="sigmoid"``, reached through
+``sigmoid_attention``) and row 7's sigmoid kind are the same sources'
+``SIGMOID`` instantiations, masked or not: ``o = sigmoid(s + logit_bias) v``
+with no normaliser, so the forward writes no lse and the backward
+(``ds = p (1 - p) dp``) needs no delta. ``logit_bias`` defaults to
+``-log(Sk)`` with Sk = ``k.shape[1]``, the padded key length. A dropped key
+gets exactly zero attention and zero dk/dv, and a query row with no key to
+attend is exactly zero. :class:`SigmoidAttentionFn` joins them;
+``sigmoid_launches`` and ``sigmoid_bwd_launches`` count their launches.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -55,6 +67,9 @@ launches = 0
 bwd_launches = 0
 masked_launches = 0
 masked_bwd_launches = 0
+#: sigmoid forward / backward kernel launches, masked or not
+sigmoid_launches = 0
+sigmoid_bwd_launches = 0
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -337,3 +352,168 @@ def flash_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     exactly zero attention and zero gradient; a row with no valid key gives
     finite garbage (see the module docstring)."""
     return flash_attention_lse(q, k, v, is_causal=is_causal, mask=mask)[0]
+
+
+def default_logit_bias(sk: int) -> float:
+    """Sigmoid attention's default scalar bias, ``-log(max(Sk, 1))`` (the
+    sigmoid-attention paper's initialisation, which matches softmax's 1/Sk
+    row mass at init)."""
+    return -math.log(max(sk, 1))
+
+
+def _sigmoid_p(q: torch.Tensor, k: torch.Tensor, is_causal: bool,
+               mask: torch.Tensor | None, logit_bias: float) -> torch.Tensor:
+    """``sigmoid((q . k) * scale + logit_bias)`` as ``(B, N, Sq, Sk)`` in
+    f32 (f64 for f64 input), exactly 0 at a dropped key."""
+    acc = _acc_dtype(q.dtype)
+    sq, sk, d = q.shape[1], k.shape[1], q.shape[-1]
+    s = torch.einsum("bqnd,bknd->bnqk", q.to(acc), k.to(acc))
+    p = torch.sigmoid(s * (1.0 / d ** 0.5) + logit_bias)
+    keep = _keep(sq, sk, is_causal, mask, q.device)
+    return p if keep is None else p.masked_fill(~keep, 0.0)
+
+
+def sigmoid_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, is_causal: bool = False,
+                            mask: torch.Tensor | None = None,
+                            logit_bias: float) -> torch.Tensor:
+    """The sigmoid kind in plain PyTorch: o in the dtype of q, p rounded to
+    v's dtype before ``p . v``, as in the kernels and the TPU kernel; ``mask``
+    is a ``(B, Sk)`` bool key-padding mask (True = attend)."""
+    acc = _acc_dtype(q.dtype)
+    p = _sigmoid_p(q, k, is_causal, mask, logit_bias)
+    out = torch.einsum("bnqk,bknd->bqnd", p.to(v.dtype).to(acc), v.to(acc))
+    return out.to(q.dtype)
+
+
+def sigmoid_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, do: torch.Tensor, *,
+                                is_causal: bool = False,
+                                mask: torch.Tensor | None = None,
+                                logit_bias: float
+                                ) -> tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """The sigmoid kind's backward in plain PyTorch: p recomputed in f32,
+    ``ds = p (1 - p) dp``; p (for dv) and ds rounded to the input dtype
+    before their products."""
+    acc = _acc_dtype(q.dtype)
+    scale = 1.0 / q.shape[-1] ** 0.5
+    qf, kf, vf, dof = (t.to(acc) for t in (q, k, v, do))
+    p = _sigmoid_p(q, k, is_causal, mask, logit_bias)
+    dp = torch.einsum("bqnd,bknd->bnqk", dof, vf)
+    ds = (p * (1.0 - p) * dp).to(q.dtype).to(acc)
+    dv = torch.einsum("bnqk,bqnd->bknd", p.to(q.dtype).to(acc), dof)
+    dq = torch.einsum("bnqk,bknd->bqnd", ds, kf) * scale
+    dk = torch.einsum("bnqk,bqnd->bknd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def sigmoid_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, is_causal: bool = False,
+                          mask: torch.Tensor | None = None,
+                          logit_bias: float) -> torch.Tensor:
+    """The sigmoid forward kernel on CUDA tensors, its plain version on CPU
+    ones. ``mask``: the ``(B, Sk)`` bool key-padding mask, or None."""
+    global sigmoid_launches
+    if q.device.type == "cpu":
+        return sigmoid_attention_plain(q, k, v, is_causal=is_causal,
+                                       mask=mask, logit_bias=logit_bias)
+    code = _kernel_dtype(q, k, v)
+    mask_ptr, mask_sb = _mask_arg(mask, q)
+    b, sq, n, d = q.shape
+    o = torch.empty((b, sq, n, d), dtype=q.dtype, device=q.device)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.jimm_sigmoid_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, n, sq,
+            k.shape[1], d, *_strides(q), *_strides(k), *_strides(v),
+            1.0 / d ** 0.5, logit_bias, int(is_causal), mask_ptr, mask_sb,
+            code, stream)
+    _build.check(rc, "jimm_sigmoid_attention_fwd")
+    sigmoid_launches += 1
+    return o
+
+
+def sigmoid_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          do: torch.Tensor, *, is_causal: bool = False,
+                          mask: torch.Tensor | None = None,
+                          logit_bias: float
+                          ) -> tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """``(dq, dk, dv)`` from the forward's inputs and the cotangent of o: the
+    two backward kernels' sigmoid kind on CUDA tensors (no delta),
+    :func:`sigmoid_attention_bwd_plain` on CPU tensors."""
+    global sigmoid_bwd_launches
+    if q.device.type == "cpu":
+        return sigmoid_attention_bwd_plain(q, k, v, do, is_causal=is_causal,
+                                           mask=mask, logit_bias=logit_bias)
+    if do.dtype != q.dtype or do.shape != q.shape:
+        raise ValueError(f"do {do.dtype} {tuple(do.shape)} does not match q "
+                         f"{q.dtype} {tuple(q.shape)}")
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    code = _kernel_dtype(q, k, v, do)
+    mask_ptr, mask_sb = _mask_arg(mask, q)
+    b, sq, n, d = q.shape
+    sk = k.shape[1]
+    dq = torch.empty((b, sq, n, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, n, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, sk, n, d), dtype=q.dtype, device=q.device)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.jimm_sigmoid_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, sq, sk, d,
+            *_strides(q), *_strides(k), *_strides(v), *_strides(do),
+            1.0 / d ** 0.5, logit_bias, int(is_causal), mask_ptr, mask_sb,
+            code, stream)
+    _build.check(rc, "jimm_sigmoid_attention_bwd")
+    sigmoid_bwd_launches += 1
+    return dq, dk, dv
+
+
+class SigmoidAttentionFn(torch.autograd.Function):
+    """Sigmoid attention's o, differentiable in q, k and v; the counterpart
+    of the JAX ``custom_vjp`` ``_flash`` with the sigmoid kind. It saves the
+    inputs only (no lse); the ``(B, Sk)`` bool key-padding mask (or None)
+    rides through to the backward and gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, is_causal, logit_bias):
+        o = sigmoid_attention_fwd(q, k, v, is_causal=is_causal, mask=mask,
+                                  logit_bias=logit_bias)
+        ctx.save_for_backward(q, k, v, mask)
+        ctx.is_causal = is_causal
+        ctx.logit_bias = logit_bias
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, mask = ctx.saved_tensors
+        dq, dk, dv = sigmoid_attention_bwd(q, k, v, do,
+                                           is_causal=ctx.is_causal, mask=mask,
+                                           logit_bias=ctx.logit_bias)
+        return dq, dk, dv, None, None, None
+
+
+def sigmoid_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      is_causal: bool = False,
+                      mask: torch.Tensor | None = None,
+                      logit_bias: float | None = None) -> torch.Tensor:
+    """Sigmoid attention over ``(B, S, N, D)`` q/k/v, the counterpart of
+    ``jimm_tpu/ops/flash_attention.py::sigmoid_attention``: ``o =
+    sigmoid(q k^T / sqrt(D) + logit_bias) v`` with no row normaliser.
+    ``logit_bias`` defaults to ``-log(Sk)``, Sk = ``k.shape[1]`` (padded
+    keys included). ``mask``: an optional key-padding mask, ``(B, Sk)`` or
+    ``(B, 1, 1, Sk)`` bool/int, True = attend; masked keys, and rows with no
+    key, are exactly zero."""
+    _check(q, k, v)
+    if logit_bias is None:
+        logit_bias = default_logit_bias(k.shape[1])
+    if mask is not None:
+        mask = canon_mask(mask, q.shape[0], k.shape[1])
+    return SigmoidAttentionFn.apply(q, k, v, mask, is_causal,
+                                    float(logit_bias))

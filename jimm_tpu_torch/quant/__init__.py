@@ -22,6 +22,8 @@ once.
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 from torch import nn
 
@@ -77,7 +79,12 @@ def _skip(parent: nn.Module, name: str) -> bool:
             and name in ("q", "k", "v"))
 
 
-def _walk(module: nn.Module, seen: set[int]) -> int:
+def swap_linears(module: nn.Module, swap: Callable[[nn.Linear], nn.Module],
+                 seen: set[int] | None = None) -> int:
+    """Replace every eligible ``nn.Linear`` under ``module`` (in place) with
+    ``swap(linear)``; returns the number replaced. The eligibility rule of
+    the JAX package's surgery: q/k/v under ``fused_qkv`` stay."""
+    seen = set() if seen is None else seen
     if id(module) in seen:
         return 0
     seen.add(id(module))
@@ -86,14 +93,14 @@ def _walk(module: nn.Module, seen: set[int]) -> int:
         if isinstance(child, nn.Linear):
             if _skip(module, name):
                 continue
-            setattr(module, name, quantize_linear(child))
+            setattr(module, name, swap(child))
             count += 1
         else:
-            count += _walk(child, seen)
+            count += swap_linears(child, swap, seen)
     return count
 
 
 def quantize_model(model: nn.Module) -> int:
     """Replace every eligible ``nn.Linear`` in ``model`` (in place) with a
     :class:`QuantLinear`. Returns the number of Linear modules replaced."""
-    return _walk(model, set())
+    return swap_linears(model, quantize_linear)

@@ -3,43 +3,100 @@
 
 ``bf16``
     The identity policy: no surgery, the model trains as built.
+``fp8_hybrid``
+    Every eligible ``nn.Linear`` becomes an :class:`Fp8Linear`: forward
+    operands quantize to e4m3, gradients to e5m2, through the fp8 matmul of
+    ``ops/fp8_matmul.py`` (kernel row 12 on the card). The master weights
+    stay the Linear's own ``weight``/``bias`` Parameters, so the optimizer
+    never meets fp8; per-tensor scales come from rolling amax histories
+    (delayed scaling), kept as buffers. Eligibility is ``quantize_model``'s:
+    q/k/v under ``fused_qkv`` stay Linears.
 ``int8_qk``
     Attention only: every ``Attention`` module, the MAP probe's included,
     switches its ``impl`` to ``"flash_int8"``, the differentiable int8-QK
     flash attention of ``ops/flash_attention_int8.py`` (kernel rows 9 and 10
     on the card). Linears are untouched.
-``fp8_hybrid``
-    Not ported yet: its fp8 matmul is kernel row 12, the next slice.
+
+The port's blocks are separate modules, so a policy counts each layer's
+module once (151 Linears and 25 attentions in SigLIP-B/16), where the JAX
+package counts a stacked role once (19 and 3).
 """
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from jimm_tpu_torch.nn.transformer import Attention
+from jimm_tpu_torch.ops.fp8_matmul import (E4M3, delayed_scale, fp8_matmul,
+                                           tensor_amax, update_amax_history)
+from jimm_tpu_torch.quant import swap_linears
 
-__all__ = ["POLICIES", "FP8_NOT_PORTED", "apply_precision_policy"]
+__all__ = ["POLICIES", "DEFAULT_AMAX_HISTORY", "Fp8Linear", "fp8_linear",
+           "apply_precision_policy"]
 
 POLICIES = ("bf16", "fp8_hybrid", "int8_qk")
 
-#: where the ROADMAP queues the fp8_hybrid policy
-FP8_NOT_PORTED = ("the fp8 matmul is kernel row 12 (fp8_matmul.py), "
-                  "ROADMAP.md queue 2, the next slice")
+#: steps of amax history kept per tensor for delayed scaling (the JAX
+#: package's default, the one value its callers use)
+DEFAULT_AMAX_HISTORY = 16
+
+
+class Fp8Linear(nn.Module):
+    """An ``nn.Linear`` replacement that matmuls in fp8 but owns no fp8
+    weights.
+
+    ``weight`` (``(out, in)``) and ``bias`` are the replaced Linear's own
+    Parameter objects, updated by the optimizer as before. ``x_amax`` and
+    ``w_amax`` are ``(DEFAULT_AMAX_HISTORY,)`` f32 buffers: rolling amax
+    histories from which the delayed e4m3 scales of the input and the
+    weight come. The forward takes both scales from the histories as they
+    stand, runs the fp8 matmul (e5m2 gradients at a dynamic scale in the
+    backward), then rolls both histories with this call's amax of the input
+    and the weight, in training and in eval mode alike (the JAX module makes
+    no distinction). The output comes back in the weight's dtype."""
+
+    def __init__(self, weight: nn.Parameter, bias: nn.Parameter | None):
+        super().__init__()
+        self.weight = weight
+        self.bias = bias
+        for name in ("x_amax", "w_amax"):
+            self.register_buffer(name, torch.zeros(
+                DEFAULT_AMAX_HISTORY, dtype=torch.float32,
+                device=weight.device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x_scale = delayed_scale(self.x_amax, E4M3)
+        w_scale = delayed_scale(self.w_amax, E4M3)
+        lead = x.shape[:-1]
+        y = fp8_matmul(x.reshape(-1, x.shape[-1]), self.weight, self.bias,
+                       x_scale=x_scale, w_scale=w_scale)
+        with torch.no_grad():
+            self.x_amax.copy_(update_amax_history(self.x_amax,
+                                                  tensor_amax(x)))
+            self.w_amax.copy_(update_amax_history(self.w_amax,
+                                                  tensor_amax(self.weight)))
+        return y.reshape(*lead, self.weight.shape[0]).to(self.weight.dtype)
+
+
+def fp8_linear(lin: nn.Linear) -> Fp8Linear:
+    """Wrap one Linear for fp8 training, sharing its ``weight`` and ``bias``
+    Parameters (no copy); only the amax histories are new state."""
+    return Fp8Linear(lin.weight, lin.bias)
 
 
 def apply_precision_policy(model: nn.Module, policy: str) -> int:
     """Rewrite ``model`` in place for the named precision policy. Returns the
     number of modules rewritten (0 for ``bf16``); an unknown policy raises
-    ``ValueError`` before any surgery."""
+    ``ValueError`` before any surgery. Apply it before the optimizer is
+    built, as the JAX train command does."""
     if policy not in POLICIES:
         raise ValueError(f"unknown precision policy {policy!r}; expected one "
                          f"of {', '.join(POLICIES)}")
     if policy == "bf16":
         return 0
     if policy == "fp8_hybrid":
-        raise NotImplementedError(
-            f"precision policy 'fp8_hybrid' is not ported yet: "
-            f"{FP8_NOT_PORTED}")
+        return swap_linears(model, fp8_linear)
     count = 0
     for module in model.modules():
         if isinstance(module, Attention):

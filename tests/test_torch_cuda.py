@@ -574,3 +574,215 @@ def test_siglip_int8_and_int8_qk_on_the_card(card, monkeypatch):
         ref = want[name]
         peak = max(ref.abs().max().item(), floor)
         assert (p.grad.cpu() - ref).abs().max().item() <= 1e-3 * peak, name
+
+
+# -- fp8 GEMM (row 12) and sigmoid flash (row 6, row 7's sigmoid kind) --------
+
+#: (M, K, N): tests/test_fp8_ops.py's odd shapes and the train step's
+_FP8_GEMM = [(1, 7, 5), (5, 100, 33), (33, 64, 128), (257, 769, 129),
+             (16, 768, 768), (32768, 768, 3072), (8192, 3072, 768),
+             (768, 32768, 768), (128, 768, 768)]
+
+
+def _fp8_operands(m: int, k: int, n: int, a_dtype, device):
+    """a (M, K) and b (N, K) fp8 at their dynamic scales, their combined
+    scale and an f32 bias."""
+    from jimm_tpu_torch.ops import fp8_matmul as fp8
+    g = torch.Generator(device=device).manual_seed(m + 3 * k + n)
+    a = torch.randn(m, k, generator=g, device=device)
+    b = torch.randn(n, k, generator=g, device=device)
+    bias = torch.randn(n, generator=g, device=device)
+    sa, sb = fp8.dynamic_scale(a, a_dtype), fp8.dynamic_scale(b, fp8.E4M3)
+    return (fp8.quantize_tensor(a, sa, a_dtype),
+            fp8.quantize_tensor(b, sb, fp8.E4M3), sa * sb, bias)
+
+
+@pytest.mark.parametrize("a_fmt", ["e4m3", "e5m2"])
+@pytest.mark.parametrize("m,k,n", _FP8_GEMM)
+def test_fp8_gemm_kernel(card, m, k, n, a_fmt):
+    """The kernel's only liberty against its plain version (f32 matmul of
+    the widened fp8 values, TF32 off) is the f32 summation order:
+    tests/test_fp8_ops.py's rtol 1e-5 and atol 1e-3 * max(1, K // 64)."""
+    from jimm_tpu_torch.ops import fp8_matmul as fp8
+    a_q, b_q, scale, bias = _fp8_operands(
+        m, k, n, fp8.E4M3 if a_fmt == "e4m3" else fp8.E5M2, card)
+    before, bwd_before = fp8.launches, fp8.bwd_launches
+    got = fp8.fp8_gemm(a_q, b_q, scale, bias)
+    no_bias = fp8.fp8_gemm(a_q, b_q, scale, backward=True)
+    torch.cuda.synchronize()
+    assert (fp8.launches, fp8.bwd_launches) == (before + 1, bwd_before + 1)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    tol = dict(rtol=1e-5, atol=1e-3 * max(1, k // 64))
+    torch.testing.assert_close(got, fp8.fp8_gemm_plain(a_q, b_q, scale, bias),
+                               **tol)
+    torch.testing.assert_close(no_bias, fp8.fp8_gemm_plain(a_q, b_q, scale),
+                               **tol)
+
+
+def test_fp8_gemm_kernel_unaligned(card):
+    """Operand rows off a 16-byte boundary take the byte-staging path."""
+    from jimm_tpu_torch.ops import fp8_matmul as fp8
+    a_q, b_q, scale, _ = _fp8_operands(64, 96, 40, fp8.E4M3, card)
+    off = torch.empty(64 * 96 + 4, dtype=torch.uint8, device=card)
+    off[4:] = a_q.view(torch.uint8).flatten()
+    a_view = off[4:].view(64, 96).view(fp8.E4M3)
+    got = fp8.fp8_gemm(a_view, b_q, scale)
+    torch.testing.assert_close(got, fp8.fp8_gemm_plain(a_q, b_q, scale),
+                               rtol=1e-5, atol=1e-3)
+
+
+_SIGMOID = [(qshape, sk, causal, None) for qshape, sk, causal in _FLASH] + [
+    ((128, 256, 12, 64), 256, False, None),      # train image
+    ((128, 1, 12, 64), 256, False, None),        # train MAP probe
+    ((128, 64, 12, 64), 64, False, None),        # train text
+    ((2, 5, 2, 80), 5, True, "sparse"), ((2, 257, 2, 64), 257, False, "len64"),
+    ((2, 65, 2, 64), 65, False, "empty_row"),
+    ((1, 70, 1, 256), 130, True, "sparse")]
+
+
+def _sigmoid_inputs(qshape, sk, kind, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    b, sq, n, d = qshape
+    q, do = (torch.randn(b, sq, n, d, generator=g, device=device).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, sk, n, d, generator=g, device=device).to(dtype)
+            for _ in range(2))
+    mask = None if kind is None else _key_mask(kind, b, sk, g, device)
+    return q, k, v, do, mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qshape,sk,causal,kind", _SIGMOID)
+def test_sigmoid_attention_kernels(card, qshape, sk, causal, kind, dtype):
+    """Forward and backward against the plain versions; rows with no key
+    and masked keys are exactly zero, as in the plain version."""
+    q, k, v, do, mask = _sigmoid_inputs(qshape, sk, kind, dtype, card,
+                                        sum(qshape) + 5 * sk)
+    bias = fa.default_logit_bias(sk)
+    kw = dict(is_causal=causal, mask=mask, logit_bias=bias)
+    before = (fa.sigmoid_launches, fa.sigmoid_bwd_launches, fa.launches,
+              fa.bwd_launches)
+    o = fa.sigmoid_attention_fwd(q, k, v, **kw)
+    got = fa.sigmoid_attention_bwd(q, k, v, do, **kw)
+    torch.cuda.synchronize()
+    assert (fa.sigmoid_launches, fa.sigmoid_bwd_launches, fa.launches,
+            fa.bwd_launches) == (before[0] + 1, before[1] + 1, *before[2:])
+    assert o.shape == q.shape and o.dtype == dtype
+    _close(o, fa.sigmoid_attention_plain(q, k, v, **kw), dtype)
+    for a, w in zip(got, fa.sigmoid_attention_bwd_plain(q, k, v, do, **kw)):
+        assert a.shape == w.shape and a.dtype == dtype
+        scale = max(1.0, w.float().abs().max().item())
+        _close(a / scale, w / scale, dtype)
+    if mask is not None:
+        dead = ~_live(mask, qshape[1], causal)
+        assert not o[dead].any()
+        assert not got[1][~mask].any() and not got[2][~mask].any()
+
+
+def test_fp8_and_sigmoid_wrappers_never_take_the_plain_version_on_the_card(
+        card, monkeypatch):
+    from jimm_tpu_torch.ops import fp8_matmul as fp8
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain version ran on the card")
+
+    for mod, name in ((fp8, "fp8_gemm_plain"),
+                      (fa, "sigmoid_attention_plain"),
+                      (fa, "sigmoid_attention_bwd_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    x = torch.randn(9, 40, device=card, requires_grad=True)
+    w = torch.randn(17, 40, device=card, requires_grad=True)
+    f0, b0 = fp8.launches, fp8.bwd_launches
+    fp8.fp8_matmul(x, w).sum().backward()
+    torch.cuda.synchronize()
+    assert (fp8.launches, fp8.bwd_launches) == (f0 + 1, b0 + 2)
+    # a bf16 Linear: its bias joins the f32 epilogue in f32
+    xb, wb = (t.detach().bfloat16().requires_grad_() for t in (x, w))
+    bb = torch.zeros(17, device=card, dtype=torch.bfloat16,
+                     requires_grad=True)
+    fp8.fp8_matmul(xb, wb, bb).sum().backward()
+    assert xb.grad.dtype == wb.grad.dtype == bb.grad.dtype == torch.bfloat16
+    q, k, v = (torch.randn(2, 9, 2, 16, device=card, requires_grad=True)
+               for _ in range(3))
+    s0, t0 = fa.sigmoid_launches, fa.sigmoid_bwd_launches
+    fa.sigmoid_attention(q, k, v).sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.sigmoid_launches, fa.sigmoid_bwd_launches) == (s0 + 1, t0 + 1)
+    with pytest.raises(ValueError):
+        fp8.fp8_gemm(x.detach().to(fp8.E5M2), w.detach().to(fp8.E5M2),
+                     torch.ones((), device=card))
+    with pytest.raises(ValueError):
+        fa.sigmoid_attention(q.double(), k.double(), v.double())
+
+
+def test_siglip_fp8_hybrid_and_sigmoid_on_the_card(card, monkeypatch):
+    """A small SigLIP under fp8_hybrid, and one on sigmoid attention: every
+    gradient through the kernels matches the same model on the CPU's plain
+    versions. The fp8 step's CPU twin quantizes as the card's step did (a
+    one-ulp difference upstream of a quantizer moves an fp8 value by a
+    step), and the amax histories after the two steps agree."""
+    from jimm_tpu_torch import configs
+    from jimm_tpu_torch.models.siglip import SigLIP
+    from jimm_tpu_torch.ops import fp8_matmul as fp8
+    from jimm_tpu_torch.quant.policy import apply_precision_policy
+    from jimm_tpu_torch.train.trainer import contrastive_loss_fn
+    cfg = configs.SigLIPConfig(
+        vision=configs.VisionConfig(image_size=64, patch_size=16, width=128,
+                                    depth=2, num_heads=2, mlp_dim=256,
+                                    act="gelu_tanh", pooling="map"),
+        text=configs.TextConfig(vocab_size=100, context_length=8, width=128,
+                                depth=2, num_heads=2, mlp_dim=256,
+                                act="gelu_tanh", causal=False,
+                                pooling="last", proj_bias=True),
+        projection_dim=128)
+    g = torch.Generator(device=card).manual_seed(9)
+    images = torch.randn(4, 64, 64, 3, generator=g, device=card)
+    text = torch.randint(0, 100, (4, 8), generator=g, device=card)
+    for attn_impl, policy in (("flash", "fp8_hybrid"), ("sigmoid", "bf16")):
+        rt = configs.with_runtime(cfg, attn_impl=attn_impl, ln_impl="fused")
+        kernels = SigLIP(rt, device=card)
+        plain = SigLIP(rt, device="cpu")
+        plain.load_state_dict({k: v.cpu()
+                               for k, v in kernels.state_dict().items()})
+        n = apply_precision_policy(kernels, policy)
+        apply_precision_policy(plain, policy)
+        quantize, tape = fp8.quantize_tensor, []
+
+        def record(x, scale, dtype):
+            tape.append(quantize(x, scale, dtype))
+            return tape[-1]
+
+        replayed = iter(tape)
+
+        def replay(x, scale, dtype):
+            x_q = next(replayed)
+            assert x_q.shape == x.shape and x_q.dtype == dtype
+            return x_q.to(x.device)
+
+        counts = (fp8.launches, fp8.bwd_launches, fa.sigmoid_launches,
+                  fa.sigmoid_bwd_launches)
+        monkeypatch.setattr(fp8, "quantize_tensor", record)
+        contrastive_loss_fn(kernels, images, text, kind="siglip").backward()
+        torch.cuda.synchronize()
+        got = (fp8.launches - counts[0], fp8.bwd_launches - counts[1],
+               fa.sigmoid_launches - counts[2],
+               fa.sigmoid_bwd_launches - counts[3])
+        # 2 + 2 blocks x 6 Linears, the MAP head's 6, text_projection; the
+        # backward's dx and dw each; 5 attentions
+        assert got == ((31, 62, 0, 0) if policy == "fp8_hybrid"
+                       else (0, 0, 5, 5)), got
+        assert n == (31 if policy == "fp8_hybrid" else 0)
+        monkeypatch.setattr(fp8, "quantize_tensor", replay)
+        contrastive_loss_fn(plain, images.cpu(), text.cpu(),
+                            kind="siglip").backward()
+        want = {n: p.grad for n, p in plain.named_parameters()}
+        floor = 1e-3 * max(g.abs().max().item() for g in want.values())
+        for name, p in kernels.named_parameters():
+            assert p.grad is not None and torch.isfinite(p.grad).all(), name
+            ref = want[name]
+            peak = max(ref.abs().max().item(), floor)
+            assert (p.grad.cpu() - ref).abs().max().item() <= 1e-3 * peak, name
+        bufs = dict(plain.named_buffers())
+        for name, buf in kernels.named_buffers():
+            torch.testing.assert_close(buf.cpu(), bufs[name], rtol=1e-4,
+                                       atol=0)

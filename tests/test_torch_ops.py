@@ -4,6 +4,7 @@ side runs its Pallas kernels in interpret mode, as the JAX suite does.
 Inputs are made with numpy and handed to both."""
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -96,7 +97,19 @@ def test_flash_impl_on_cpu_is_the_plain_flash():
     assert flash_attention.launches == before  # no kernel on the CPU
 
 
-@pytest.mark.parametrize("impl", ["flash_bias", "sigmoid", "ring", "ulysses",
+def test_sigmoid_impl_on_cpu_is_the_plain_sigmoid():
+    rng = np.random.default_rng(5)
+    q, k, v = (_t(rng.standard_normal((1, 5, 2, 8), np.float32))
+               for _ in range(3))
+    before = flash_attention.sigmoid_launches
+    got = attention.dot_product_attention(q, k, v, impl="sigmoid")
+    want = flash_attention.sigmoid_attention_plain(
+        q, k, v, logit_bias=-math.log(5))
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert flash_attention.sigmoid_launches == before  # no kernel on the CPU
+
+
+@pytest.mark.parametrize("impl", ["flash_bias", "ring", "ulysses",
                                   "saveable"])
 def test_unported_attention_impls_name_the_roadmap(impl):
     q = torch.zeros(1, 4, 1, 8)

@@ -30,7 +30,8 @@ from jimm_tpu_torch.nn.transformer import Attention
 from jimm_tpu_torch.ops import flash_attention_int8 as fa8
 from jimm_tpu_torch.ops import int8_matmul as mm
 from jimm_tpu_torch.quant import QuantLinear, quantize_model
-from jimm_tpu_torch.quant.policy import POLICIES, apply_precision_policy
+from jimm_tpu_torch.quant.policy import (POLICIES, Fp8Linear,
+                                         apply_precision_policy)
 from jimm_tpu_torch.serve.buckets import default_buckets
 from jimm_tpu_torch.serve.engine import InferenceEngine, image_forward
 from jimm_tpu_torch.serve.server import ServingServer
@@ -231,13 +232,16 @@ def test_int8_qk_policy_flips_every_attention():
 
 
 def test_precision_policy_refusals():
+    """An unknown policy is refused before any surgery; bf16 is the
+    identity; fp8_hybrid swaps Linears and leaves attention as it was."""
     model = SigLIP(tiny_config(configs), device="cpu")
     assert POLICIES == ("bf16", "fp8_hybrid", "int8_qk")
     assert apply_precision_policy(model, "bf16") == 0
     with pytest.raises(ValueError, match="unknown precision policy"):
         apply_precision_policy(model, "int4")
-    with pytest.raises(NotImplementedError, match="kernel row 12.*ROADMAP"):
-        apply_precision_policy(model, "fp8_hybrid")
+    assert not any(isinstance(m, Fp8Linear) for m in model.modules())
+    # 2 + 2 blocks x 6 Linears, the MAP head's 6 and text_projection
+    assert apply_precision_policy(model, "fp8_hybrid") == 31
     assert all(m.impl == "flash" for m in model.modules()
                if isinstance(m, Attention))
 
@@ -317,7 +321,7 @@ def test_train_cli_int8_qk_on_the_cpu():
 
 
 @pytest.mark.parametrize("argv,reason", [
-    (["--precision", "fp8_hybrid"], "kernel row 12"),
+    (["--attn-impl", "flash_masked"], "needs --naflex"),
     (["--precision", "int8_qk", "--naflex"], "no mask/bias plumbing"),
     (["--attn-impl", "flash_int8", "--naflex"], "no mask/bias plumbing")])
 def test_train_cli_refuses_what_has_no_kernel(argv, reason):

@@ -245,7 +245,7 @@ def test_train_cli_needs_the_card_or_asks_for_the_cpu():
 
 @pytest.mark.parametrize("flag", [["--data", "x"], ["--ckpt-dir", "x"],
                                   ["--mesh", "data=2"], ["--remat", "full"],
-                                  ["--precision", "fp8_hybrid"]])
+                                  ["--dropout", "0.1"], ["--resume"]])
 def test_train_cli_names_the_roadmap_for_unported_flags(flag):
     from jimm_tpu_torch.cli import build_parser, cmd_train
     args = build_parser().parse_args(["train", "--tiny", "--device", "cpu",
