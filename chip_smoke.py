@@ -120,6 +120,22 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                forward and backward a step, no softmax flash, the loss
                falling, no host sync, one profiled step. Its counts are the
                ones the JSON record reports for the sigmoid kernels.
+11. bias    -- the library path ``dot_product_attention(..., bias=b,
+               impl="auto")`` on the card (no preset or CLI flag of either
+               package passes a bias): (a) f32 at batch 8, q, k, v
+               (8, 256, 12, 64) and a learnable (12, 256, 256) bias, then a
+               (256, 256) one: the gradients of q, k, v and the bias through
+               the kernels (rows 5, 7-bias and 8, one launch each) against
+               the plain versions, within 1e-3 of each largest gradient;
+               (b) bf16 at batch 128, 12 biased calls, one per
+               SigLIP-B/16 vision block, forward and backward: 12, 12 and 12
+               launches of rows 5, 7-bias and 8, timed against the same 12
+               calls without a bias and against SDPA with a float attn_mask
+               that requires grad, with one profiled pass. Its counts are
+               the ones the JSON record reports for the bias kernels;
+               (c) the routing: a 4-D bias, or a bias with a mask, goes to
+               the einsum path and moves no kernel counter, and "flash" with
+               a key-padding mask and a bias raises JAX's ValueError.
 
 Phase 3 also holds the int8 kernels (rows 9, 10 and 11) against their plain
 versions: the int8 matmul at the served shapes and odd ones, with bias,
@@ -134,7 +150,13 @@ max(1, K // 64); yardstick: ``torch._scaled_mm`` on the same fp8 operands,
 dims zero-padded to 16, without the bias); the sigmoid flash forward and
 backward (row 6, row 7's sigmoid kind) at the train shapes and odd ones,
 masked and causal, where a row with no key must be exactly zero (no single
-PyTorch call computes sigmoid attention: no yardstick).
+PyTorch call computes sigmoid attention: no yardstick); and the biased flash
+forward, backward and dbias (rows 5, 7's bias kind, 8) at the train shapes
+with a (12, Sq, Sk) bias and odd ones: seq 1, 5 and 257, D 80 and 256,
+causal, a broadcast (Sq, Sk) bias, and a bias with -inf entries whose row
+with no finite key must give o = 0 and zero gradients (yardstick: SDPA with
+the bias as a float attn_mask, the causal triangle folded in; for the
+backward and dbias, its backward with the mask requiring grad).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -204,12 +226,13 @@ NAFLEX_PRESET = "siglip2-base-patch16-256"
 NAFLEX_MASKED_PER_STEP = 13   # 12 vision blocks + the MAP probe, masked
 NAFLEX_FLASH_PER_STEP = 12    # 12 text blocks, unmasked
 NAFLEX_SERVE_BATCH = 32
-#: rows 3, 4 and 7 at the train image shape (128, 256, 12, 64), bf16 (the
-#: masked ones with the NaFlex masks), as PERF.md's kernel table records
-#: them (NVIDIA H100 80GB HBM3, 700.00 W)
+#: rows 3, 4, 6 and 7 at the train image shape (128, 256, 12, 64), bf16
+#: (the masked ones with the NaFlex masks), as PERF.md's kernel table
+#: records them (NVIDIA H100 80GB HBM3, 700.00 W)
 RECORDED_MS = {"flash_attention": 1.2623, "flash_attention_bwd": 3.9728,
                "flash_attention_masked": 1.0818,
-               "flash_attention_masked_bwd": 4.1322}
+               "flash_attention_masked_bwd": 4.1322,
+               "sigmoid_attention": 1.0930, "sigmoid_attention_bwd": 3.7372}
 #: int8 serve: 12 blocks x 6 Linears (q, k, v, out, fc1, fc2) and the MAP
 #: head's q, k, v, out, fc1, fc2 run on the int8 matmul per batch; the
 #: model quantizes 151 Linears (the text tower's 72 and its projection too)
@@ -229,6 +252,12 @@ TRAIN_WARMUP = 3
 TRAIN_STEPS = 10
 CLI_STEPS = 5
 NAFLEX_TRAIN_STEPS = 5
+#: phase 11: SigLIP-B/16's vision blocks, one biased attention each
+BIAS_CALLS = 12
+#: the refusal of "flash" with a key-padding mask and a bias, word for word
+#: as jimm_tpu/ops/attention.py raises it
+FLASH_MASKED_BIAS_ERROR = ("flash_masked does not take a bias; use "
+                           "impl='flash_bias' (bias only) or impl='xla'")
 
 
 class SmokeFailure(Exception):
@@ -888,9 +917,198 @@ def sigmoid_bwd_case(qshape: tuple[int, int, int, int], sk: int,
             "library_ms": None, "bound_ms": bound, "bound_by": by}
 
 
+def _bias_inputs(qshape, sk: int, causal: bool, kind: str,
+                 dtype: torch.dtype, seed: int):
+    """q, k, v, do in ``dtype``; the f32 (N, Sq, Sk) bias: ``full``, ``2d``
+    (an (Sq, Sk) bias broadcast over heads, a view with head stride 0) or
+    ``neginf`` (~30% of entries -inf, head 0's row 3 all -inf); the bytes of
+    the bias its caller holds; which (N, Sq, Sk) pairs the function needs
+    (kept by the causal triangle, with a finite bias); and the (B, Sq, N)
+    query rows that have one."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, sq, n, d = qshape
+    q, do = (torch.randn(b, sq, n, d, generator=g, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, sk, n, d, generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    if kind == "2d":
+        held = torch.randn(sq, sk, generator=g, device="cuda")
+        bias = held.expand(n, sq, sk)
+    else:
+        held = bias = torch.randn(n, sq, sk, generator=g, device="cuda")
+    if kind == "neginf":
+        bias[torch.rand(n, sq, sk, generator=g, device="cuda") < 0.3] = (
+            float("-inf"))
+        bias[:, :, 0] = 0.5
+        bias[0, min(3, sq - 1)] = float("-inf")
+    pairs = torch.isfinite(bias)
+    if causal:
+        pairs = pairs & torch.ones(sq, sk, dtype=torch.bool,
+                                   device="cuda").tril()
+    live = pairs.any(-1).T[None].expand(b, sq, n)
+    return q, k, v, do, bias, held.nbytes, pairs, live
+
+
+def _sdpa_mask(bias: torch.Tensor, causal: bool, dtype: torch.dtype,
+               grad: bool = False) -> torch.Tensor:
+    """The bias as SDPA's float attn_mask, (1, N, Sq, Sk) in ``dtype``, the
+    causal triangle folded in as -inf (SDPA takes no is_causal with a
+    mask)."""
+    if causal:
+        sq, sk = bias.shape[1:]
+        keep = torch.ones(sq, sk, dtype=torch.bool, device="cuda").tril()
+        bias = bias.masked_fill(~keep, float("-inf"))
+    return bias[None].to(dtype).clone(
+        memory_format=torch.contiguous_format).requires_grad_(grad)
+
+
+def _library_ms(label: str, setup):
+    """The device time of the call ``setup()`` returns, or None (noted)
+    where PyTorch refuses these inputs (SDPA may refuse a float attn_mask
+    that requires grad)."""
+    try:
+        return device_ms(setup())
+    except RuntimeError as e:
+        print(f"{label}: the library call refused these inputs, no "
+              f"yardstick: {str(e).splitlines()[0][:160]}", flush=True)
+        return None
+
+
+def _bias_label(qshape, sk: int, causal: bool, kind: str) -> str:
+    return (f"q{qshape} sk={sk}" + ("" if kind == "full" else f" {kind}")
+            + (" causal" if causal else ""))
+
+
+def bias_case(qshape: tuple[int, int, int, int], sk: int, causal: bool,
+              kind: str, dtype: torch.dtype, seed: int) -> dict:
+    """Kernel row 5 against its plain version; a query row with no finite
+    key gives o = 0 and lse = -1e30 in both."""
+    q, k, v, _, bias, held, pairs, live = _bias_inputs(qshape, sk, causal,
+                                                       kind, dtype, seed)
+
+    def kernel():
+        return fa.flash_attention_bias_fwd(q, k, v, bias, is_causal=causal)
+
+    o, lse = kernel()
+    torch.cuda.synchronize()
+    po, plse = fa.flash_attention_bias_plain(q, k, v, bias, is_causal=causal)
+    check(bool(torch.isfinite(o).all() and torch.isfinite(lse).all()),
+          f"flash_bias {qshape} {kind}: non-finite output")
+    err, cos, peak = compare(o[live], po[live])
+    lse_err = compare(lse.transpose(1, 2)[live],
+                      plse.transpose(1, 2)[live])[0]
+    label = _bias_label(qshape, sk, causal, kind)
+    check(within(dtype, err, cos, peak) and lse_err <= F32_MAX_ERR,
+          f"flash_bias {label} {dtype}: err {err} cos {cos} lse err "
+          f"{lse_err}")
+    check(not o[~live].any() and bool(
+        (lse.transpose(1, 2)[~live] == fa.NEG_INF).all()),
+        f"flash_bias {label}: a row with no finite key is not o = 0, "
+        f"lse = -1e30")
+    nbytes = sum(t.nbytes for t in (q, k, v, o, lse)) + held
+    bound, by = bound_ms(nbytes, 4.0 * qshape[0] * qshape[3]
+                         * pairs.sum().item(), dtype)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = _sdpa_mask(bias, causal, dtype)
+    return {"shape": label, "dtype": str(dtype)[6:], "max_abs_err": err,
+            "cosine": cos, "dead_rows": int((~live).sum().item()),
+            "ms": device_ms(kernel), "call_ms": cuda_ms(kernel),
+            "plain_ms": device_ms(lambda: fa.flash_attention_bias_plain(
+                q, k, v, bias, is_causal=causal)),
+            "library_ms": _library_ms(f"flash_bias {label}", lambda: (
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       attn_mask=mask))),
+            "bound_ms": bound, "bound_by": by}
+
+
+def _bias_bwd_setup(qshape, sk: int, causal: bool, kind: str,
+                    dtype: torch.dtype, seed: int):
+    """The inputs, the plain forward's o and lse, and the time of SDPA's
+    backward with the mask requiring grad (the yardstick of rows 7-bias and
+    8), or None where PyTorch refuses it."""
+    q, k, v, do, bias, held, pairs, _ = _bias_inputs(qshape, sk, causal,
+                                                     kind, dtype, seed)
+    o, lse = fa.flash_attention_bias_plain(q, k, v, bias, is_causal=causal)
+    qt, kt, vt = (t.transpose(1, 2).detach().clone().requires_grad_()
+                  for t in (q, k, v))
+    mask = _sdpa_mask(bias, causal, dtype, grad=True)
+    label = _bias_label(qshape, sk, causal, kind)
+    library = _library_ms(f"flash_bias backward {label}", lambda: grad_ms(
+        F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
+        (qt, kt, vt, mask), do.transpose(1, 2)))
+    return q, k, v, do, bias, held, pairs, o, lse, label, library
+
+
+def bias_bwd_case(qshape: tuple[int, int, int, int], sk: int, causal: bool,
+                  kind: str, dtype: torch.dtype, seed: int) -> dict:
+    """Row 7's bias kind (dq, then dk/dv) against its plain version."""
+    q, k, v, do, bias, held, pairs, o, lse, label, library = _bias_bwd_setup(
+        qshape, sk, causal, kind, dtype, seed)
+
+    def kernel():
+        return fa.flash_attention_bias_bwd(q, k, v, bias, o, lse, do,
+                                           is_causal=causal)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bias_bwd_plain(q, k, v, bias, o, lse, do,
+                                             is_causal=causal)
+    errs = [compare(a, w) for a, w in zip(got, want)]
+    check(all(within(dtype, *e, relative=True) for e in errs),
+          f"flash_bias_bwd {label} {dtype}: (err, cos, peak) of dq, dk, dv "
+          f"{errs}")
+    # five products: s and dp recomputed, then dv, dq, dk
+    flops = 10.0 * qshape[0] * qshape[3] * pairs.sum().item()
+    nbytes = (sum(t.nbytes for t in (q, k, v, o, lse, do)) + lse.nbytes
+              + held + sum(t.nbytes for t in got))  # lse again: delta
+    bound, by = bound_ms(nbytes, flops, dtype)
+    return {"shape": label, "dtype": str(dtype)[6:],
+            "max_abs_err": max(e[0] for e in errs),
+            "cosine": min(e[1] for e in errs),
+            "ms": device_ms(kernel), "call_ms": cuda_ms(kernel),
+            "plain_ms": device_ms(lambda: fa.flash_attention_bias_bwd_plain(
+                q, k, v, bias, o, lse, do, is_causal=causal)),
+            "library_ms": library, "bound_ms": bound, "bound_by": by}
+
+
+def dbias_case(qshape: tuple[int, int, int, int], sk: int, causal: bool,
+               kind: str, dtype: torch.dtype, seed: int) -> dict:
+    """Row 8 against its plain version: the f32 batch sum of the unrounded
+    ds, held at the f32 tolerance relative to its scale in either input
+    dtype (both sides sum f32 products of the same inputs); a key whose
+    bias is -inf gets exactly zero."""
+    q, k, v, do, bias, held, pairs, o, lse, label, library = _bias_bwd_setup(
+        qshape, sk, causal, kind, dtype, seed)
+
+    def kernel():
+        return fa.flash_attention_dbias(q, k, v, bias, o, lse, do,
+                                        is_causal=causal)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    want = fa.flash_attention_dbias_plain(q, k, v, bias, o, lse, do,
+                                          is_causal=causal)
+    err, cos, peak = compare(got, want)
+    check(within(torch.float32, err, cos, peak, relative=True),
+          f"flash_dbias {label} {dtype}: err {err} cos {cos} peak {peak}")
+    check(not got[torch.isinf(bias)].any(),
+          f"flash_dbias {label}: a -inf bias entry got a gradient")
+    # two products a sample: s and dp recomputed
+    flops = 4.0 * qshape[0] * qshape[3] * pairs.sum().item()
+    nbytes = (sum(t.nbytes for t in (q, k, v, do, lse)) + lse.nbytes + held
+              + got.nbytes)  # lse again: delta
+    bound, by = bound_ms(nbytes, flops, dtype)
+    return {"shape": label, "dtype": str(dtype)[6:], "max_abs_err": err,
+            "cosine": cos, "ms": device_ms(kernel),
+            "call_ms": cuda_ms(kernel),
+            "plain_ms": device_ms(lambda: fa.flash_attention_dbias_plain(
+                q, k, v, bias, o, lse, do, is_causal=causal)),
+            "library_ms": library, "bound_ms": bound, "bound_by": by}
+
+
 def rows_against_recorded(cases: list[tuple[str, dict]], card: str) -> None:
-    """Rows 3, 4 and 7 at the train step's image shape beside the times
-    PERF.md records for them: the sigmoid kind, new in their sources, must
+    """Rows 3, 4, 6 and 7 at the train step's image shape beside the times
+    PERF.md records for them: the bias kind, new in their sources, must
     leave them within 5% (a reading, not a gate: a card below 700 W runs
     slower)."""
     for name, c in cases:
@@ -1011,6 +1229,26 @@ def kernel_phase(card: str) -> dict[str, dict]:
                 sigmoid_case(qshape, sk, causal, kind, dtype, 200 + i))
             add("sigmoid_attention_bwd",
                 sigmoid_bwd_case(qshape, sk, causal, kind, dtype, 220 + i))
+        # biased flash (kernel row 5, row 7's bias kind, row 8): phase 11's
+        # shapes (batch 128, a (12, Sq, Sk) bias) and odd ones: seq 1, 5 and
+        # 257, D 80 and 256, causal, a broadcast (Sq, Sk) bias, -inf entries
+        # and a row with no finite key
+        for i, (qshape, sk, causal, kind) in enumerate([
+                ((128, 256, 12, 64), 256, False, "full"),  # image
+                ((128, 1, 12, 64), 256, False, "full"),    # MAP probe
+                ((128, 64, 12, 64), 64, False, "full"),    # text
+                ((2, 1, 2, 64), 1, False, "full"),
+                ((2, 5, 2, 80), 5, True, "full"),
+                ((2, 257, 2, 64), 257, True, "full"),
+                ((2, 257, 2, 80), 257, False, "2d"),
+                ((2, 65, 2, 64), 65, False, "neginf"),
+                ((1, 70, 1, 256), 130, True, "full")]):
+            add("flash_attention_bias",
+                bias_case(qshape, sk, causal, kind, dtype, 240 + i))
+            add("flash_attention_bias_bwd",
+                bias_bwd_case(qshape, sk, causal, kind, dtype, 260 + i))
+            add("flash_attention_dbias",
+                dbias_case(qshape, sk, causal, kind, dtype, 260 + i))
     # int8 matmul (kernel row 11): the served shapes at bucket 32 (8192
     # token rows; the MAP head's q and out projections have 32) with a
     # bias, fc1's with relu and gelu, and odd shapes
@@ -1201,8 +1439,8 @@ def plain_versions():
     def plain_fp8(a_q, b_q, scale, bias=None, *, backward=False):
         return fp8.fp8_gemm_plain(a_q, b_q, scale, bias)
 
-    # the int8, fp8 and sigmoid Functions stay (their backwards are the
-    # functions under test); inside them the plain versions answer
+    # the int8, fp8, sigmoid and bias Functions stay (their backwards are
+    # the functions under test); inside them the plain versions answer
     with mock.patch.object(norm_mod, "layer_norm", plain_ln), \
             mock.patch.object(attention_mod, "flash_attention", plain_flash), \
             mock.patch.object(attention_mod, "flash_attention_masked",
@@ -1216,7 +1454,13 @@ def plain_versions():
             mock.patch.object(fa, "sigmoid_attention_fwd",
                               fa.sigmoid_attention_plain), \
             mock.patch.object(fa, "sigmoid_attention_bwd",
-                              fa.sigmoid_attention_bwd_plain):
+                              fa.sigmoid_attention_bwd_plain), \
+            mock.patch.object(fa, "flash_attention_bias_fwd",
+                              fa.flash_attention_bias_plain), \
+            mock.patch.object(fa, "flash_attention_bias_bwd",
+                              fa.flash_attention_bias_bwd_plain), \
+            mock.patch.object(fa, "flash_attention_dbias",
+                              fa.flash_attention_dbias_plain):
         yield
 
 
@@ -1407,7 +1651,8 @@ def step_counts(precision: str | None = None, naflex: bool = False,
             "flash_attention_int8": int8, "flash_attention_int8_bwd": int8,
             "int8_matmul": 0, "fp8_matmul": linears,
             "fp8_matmul_bwd": 2 * linears, "sigmoid_attention": sig,
-            "sigmoid_attention_bwd": sig}
+            "sigmoid_attention_bwd": sig, "flash_attention_bias": 0,
+            "flash_attention_bias_bwd": 0, "flash_attention_dbias": 0}
 
 
 def int8_qk_grads_phase(card: str) -> None:
@@ -1519,23 +1764,24 @@ def host_syncs(fn) -> list[str]:
             if "called a synchronizing" in str(w.message)]
 
 
-def step_readout(model, optimizer, step, images, text, card: str) -> None:
-    """Device-busy share of one profiled train step and its top kernels."""
+def profile_readout(fn, what: str, card: str) -> None:
+    """Device-busy share of one profiled call of ``fn`` (``what`` names it)
+    and its top kernels."""
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(model, optimizer, images, text)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = sorted(((e.self_device_time_total, e.count, e.key)
                    for e in _device_rows(prof)), reverse=True)
     total = sum(r[0] for r in rows)
     if not total:
-        print("profile: the trace of a train step recorded no device time",
+        print(f"profile: the trace of {what} recorded no device time",
               flush=True)
         return
-    print(f"profile: one train step, {total / 1e3:.3f} ms of kernel time in "
+    print(f"profile: {what}, {total / 1e3:.3f} ms of kernel time in "
           f"{wall * 1e3:.3f} ms wall (device busy {total / 1e3 / (wall * 1e3):.1%}"
           f", traced) | {card}", flush=True)
     for us, count, key in rows[:12]:
@@ -1543,10 +1789,17 @@ def step_readout(model, optimizer, step, images, text, card: str) -> None:
               f"x{count:<4d} {key[:90]}", flush=True)
 
 
+def step_readout(model, optimizer, step, images, text, card: str) -> None:
+    """Device-busy share of one profiled train step and its top kernels."""
+    profile_readout(lambda: step(model, optimizer, images, text),
+                    "one train step", card)
+
+
 def zero_counts() -> None:
     fa.launches = fa.bwd_launches = ln.launches = ln.bwd_launches = 0
     fa.masked_launches = fa.masked_bwd_launches = 0
     fa.sigmoid_launches = fa.sigmoid_bwd_launches = 0
+    fa.bias_launches = fa.bias_bwd_launches = fa.dbias_launches = 0
     fa8.launches = fa8.bwd_launches = mm.launches = 0
     fp8.launches = fp8.bwd_launches = 0
 
@@ -1562,7 +1815,10 @@ def read_counts() -> dict[str, int]:
             "int8_matmul": mm.launches, "fp8_matmul": fp8.launches,
             "fp8_matmul_bwd": fp8.bwd_launches,
             "sigmoid_attention": fa.sigmoid_launches,
-            "sigmoid_attention_bwd": fa.sigmoid_bwd_launches}
+            "sigmoid_attention_bwd": fa.sigmoid_bwd_launches,
+            "flash_attention_bias": fa.bias_launches,
+            "flash_attention_bias_bwd": fa.bias_bwd_launches,
+            "flash_attention_dbias": fa.dbias_launches}
 
 
 def cli_train_phase(card: str, naflex: bool = False,
@@ -1731,6 +1987,161 @@ def naflex_train_phase(card: str) -> None:
     step_readout(model, optimizer, step, images, text, card)
 
 
+# -- phase 11: bias ------------------------------------------------------------
+
+def _bias_kernel_counts() -> tuple[int, int, int]:
+    counts = read_counts()
+    return (counts["flash_attention_bias"], counts["flash_attention_bias_bwd"],
+            counts["flash_attention_dbias"])
+
+
+def bias_grads_phase(card: str) -> None:
+    """(a) f32, batch 8: ``dot_product_attention(..., bias=b, impl="auto")``
+    forward and backward through rows 5, 7-bias and 8 (one launch each,
+    nothing else), against the same call with the plain versions swapped
+    in: every gradient within 1e-3 of its largest value; a (12, 256, 256)
+    bias, then a (256, 256) one, whose gradient is summed over heads."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v, cot = (torch.randn(8, 256, 12, 64, generator=g, device="cuda")
+                    for _ in range(4))
+    for shape in ((12, 256, 256), (256, 256)):
+        bias = torch.randn(*shape, generator=g, device="cuda") * 0.5
+        inputs = tuple(t.clone().requires_grad_() for t in (q, k, v, bias))
+
+        def run():
+            o = attention_mod.dot_product_attention(*inputs[:3],
+                                                    bias=inputs[3])
+            return o, torch.autograd.grad(o, inputs, cot)
+
+        zero_counts()
+        o, got = run()
+        counts = read_counts()
+        check(all(n == (1 if "bias" in name else 0)
+                  for name, n in counts.items()),
+              f"bias: f32 batch 8 {shape}: launch counts {counts}")
+        with plain_versions():
+            po, want = run()
+        check(read_counts() == counts,
+              f"bias: f32 batch 8 {shape}: the plain versions launched a "
+              f"kernel")
+        errs = [(compare(a, w)[0] / max(w.abs().max().item(), 1e-30), name)
+                for a, w, name in zip((o, *got), (po, *want),
+                                      ("o", "dq", "dk", "dv", "dbias"))]
+        check(got[3].shape == shape and all(
+            e <= TRAIN_GRAD_REL_ERR for e, _ in errs),
+            f"bias: f32 batch 8 {shape}: max abs error / largest value of "
+            f"o and the gradients {errs}")
+        print(f"bias: f32 batch 8, bias {shape}: o, dq, dk, dv, dbias "
+              f"through rows 5, 7-bias and 8 match the plain versions; "
+              f"worst max abs error {max(errs)[0]:.3e} of the largest value "
+              f"({max(errs)[1]}) | {card}", flush=True)
+
+
+def bias_train_phase(card: str) -> dict[str, int]:
+    """(b) bf16, batch 128: 12 biased calls, one per SigLIP-B/16 vision
+    block, each with its own q, k, v and learnable (12, 256, 256) bias,
+    forward and backward: 12 launches of each of rows 5, 7-bias and 8 and
+    none else; then the time of the 12 calls against the same calls without
+    a bias and against SDPA with the bias as a float attn_mask that requires
+    grad; one profiled pass. Returns the counts of the counted pass."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    shape = (TRAIN_BATCH, 256, 12, 64)
+    qkv = [tuple(torch.randn(*shape, generator=g, device="cuda")
+                 .to(torch.bfloat16).requires_grad_() for _ in range(3))
+           for _ in range(BIAS_CALLS)]
+    biases = [(torch.randn(12, 256, 256, generator=g, device="cuda") * 0.5)
+              .requires_grad_() for _ in range(BIAS_CALLS)]
+    cot = torch.randn(*shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    def biased():
+        outs = [attention_mod.dot_product_attention(q, k, v, bias=b)
+                for (q, k, v), b in zip(qkv, biases)]
+        return outs, torch.autograd.grad(
+            outs, [t for x in qkv for t in x] + biases, [cot] * BIAS_CALLS)
+
+    def unbiased():
+        outs = [attention_mod.dot_product_attention(q, k, v)
+                for q, k, v in qkv]
+        torch.autograd.grad(outs, [t for x in qkv for t in x],
+                            [cot] * BIAS_CALLS)
+
+    sdpa_in = [tuple(t.detach().transpose(1, 2).requires_grad_()
+                     for t in x) for x in qkv]
+    masks = [b.detach()[None].to(torch.bfloat16).requires_grad_()
+             for b in biases]
+
+    def sdpa():
+        outs = [F.scaled_dot_product_attention(q, k, v, attn_mask=m)
+                for (q, k, v), m in zip(sdpa_in, masks)]
+        torch.autograd.grad(outs, [t for x in sdpa_in for t in x] + masks,
+                            [cot.transpose(1, 2)] * BIAS_CALLS)
+
+    biased()  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    outs, grads = biased()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(all(n == (BIAS_CALLS if "bias" in name else 0)
+              for name, n in counts.items()),
+          f"bias: bf16 batch {TRAIN_BATCH}: launch counts {counts}")
+    check(all(bool(torch.isfinite(t).all()) for t in (*outs, *grads)),
+          "bias: non-finite output or gradient")
+    check(all(gb.shape == (12, 256, 256) and gb.dtype == torch.float32
+              for gb in grads[-BIAS_CALLS:]), "bias: dbias shape or dtype")
+    print(f"bias: bf16 batch {TRAIN_BATCH}, {BIAS_CALLS} biased calls "
+          f"forward and backward: launches {_bias_kernel_counts()} of rows "
+          f"5, 7-bias and 8 | {card}", flush=True)
+    times = {"biased": (cuda_ms(biased, iters=5, warmup=1),
+                        device_ms(biased, iters=5, warmup=1)),
+             "unbiased": (cuda_ms(unbiased, iters=5, warmup=1),
+                          device_ms(unbiased, iters=5, warmup=1))}
+    try:
+        times["sdpa"] = (cuda_ms(sdpa, iters=5, warmup=1),
+                         device_ms(sdpa, iters=5, warmup=1))
+    except RuntimeError as e:
+        print(f"bias: SDPA refused a float attn_mask that requires grad: "
+              f"{str(e)[:160]}", flush=True)
+    for name, (call, dev) in times.items():
+        print(f"bias: {BIAS_CALLS} {name} calls forward and backward, bf16 "
+              f"batch {TRAIN_BATCH}: {call:.3f} ms per pass, {dev:.3f} ms "
+              f"device busy | {card}", flush=True)
+    profile_readout(biased, f"{BIAS_CALLS} biased calls forward and backward",
+                    card)
+    return counts
+
+
+def bias_routing_phase(card: str) -> None:
+    """(c) On the card, as JAX on the TPU: a 4-D bias, or a bias with a
+    key-padding mask, goes to the einsum path and moves no kernel counter;
+    "flash" with a key-padding mask and a bias raises JAX's ValueError."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v = (torch.randn(8, 256, 12, 64, generator=g, device="cuda")
+               for _ in range(3))
+    bias = torch.randn(12, 256, 256, generator=g, device="cuda")
+    # the key-padding mask as the NaFlex tower builds it, (B, 1, 1, Sk):
+    # the einsum path takes masks broadcastable to (B, N, Sq, Sk)
+    mask = torch.rand(8, 1, 1, 256, generator=g, device="cuda") > 0.2
+    zero_counts()
+    for kw in (dict(bias=bias[None]), dict(bias=bias, mask=mask)):
+        o = attention_mod.dot_product_attention(q, k, v, **kw)
+        check(bool(torch.isfinite(o).all()), "bias: non-finite einsum path")
+    check(not any(read_counts().values()),
+          f"bias: a 4-D bias or a bias with a mask launched a kernel: "
+          f"{read_counts()}")
+    try:
+        attention_mod.dot_product_attention(q, k, v, bias=bias, mask=mask,
+                                            impl="flash")
+        raised = "nothing"
+    except ValueError as e:
+        raised = str(e)
+    check(raised == FLASH_MASKED_BIAS_ERROR,
+          f"bias: flash with a mask and a bias raised {raised!r}")
+    print(f"bias: a 4-D bias and a bias with a mask take the einsum path (0 "
+          f"kernel launches); flash with a mask and a bias raises JAX's "
+          f"ValueError | {card}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1781,6 +2192,10 @@ def main() -> int:
         sigmoid_grads_phase(card)
         sigmoid_counts = train_phase(card, attn_impl="sigmoid")
         done("sigmoid")
+        bias_grads_phase(card)
+        bias_counts = bias_train_phase(card)
+        bias_routing_phase(card)
+        done("bias")
         check(all(math.isfinite(timed[k]["ms"]) for k in timed), "bad timing")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
@@ -1790,12 +2205,13 @@ def main() -> int:
     # SigLIP2-B/16-256 on NaFlex batches for the masked ones, of
     # SigLIP-B/16-256 under --precision int8_qk for the int8 flash kernels
     # and under --precision fp8_hybrid for the fp8 GEMM, the int8 server's
-    # traffic for the int8 matmul, and phase 10(b)'s timed steps of the
-    # sigmoid-attention SigLIP for the sigmoid kernels
+    # traffic for the int8 matmul, phase 10(b)'s timed steps of the
+    # sigmoid-attention SigLIP for the sigmoid kernels, and phase 11(b)'s
+    # 12 biased calls for the bias kernels
     paths = {"serve": serve_counts, "train": train_counts,
              "naflex": naflex_counts, "int8_serve": int8_serve_counts,
              "int8_qk": int8_qk_counts, "fp8_hybrid": fp8_counts,
-             "sigmoid": sigmoid_counts}
+             "sigmoid": sigmoid_counts, "bias": bias_counts}
     steps = {"train": CLI_STEPS, "naflex": CLI_STEPS, "int8_qk": CLI_STEPS,
              "fp8_hybrid": CLI_STEPS, "sigmoid": TRAIN_STEPS}
     main_path = {"flash_attention_masked": "naflex",
@@ -1805,7 +2221,10 @@ def main() -> int:
                  "int8_matmul": "int8_serve", "fp8_matmul": "fp8_hybrid",
                  "fp8_matmul_bwd": "fp8_hybrid",
                  "sigmoid_attention": "sigmoid",
-                 "sigmoid_attention_bwd": "sigmoid"}
+                 "sigmoid_attention_bwd": "sigmoid",
+                 "flash_attention_bias": "bias",
+                 "flash_attention_bias_bwd": "bias",
+                 "flash_attention_dbias": "bias"}
     sources = {
         "layer_norm": ("jimm_tpu_torch/csrc/layer_norm.cu",
                        "jimm_tpu/ops/layer_norm.py:52"),
@@ -1838,7 +2257,16 @@ def main() -> int:
                               "jimm_tpu/ops/flash_attention.py:136"),
         "sigmoid_attention_bwd": (
             "jimm_tpu_torch/csrc/flash_attention_bwd.cu",
-            "jimm_tpu/ops/flash_attention.py:241,293")}
+            "jimm_tpu/ops/flash_attention.py:241,293"),
+        # the has_bias kind of the flash kernels, and the dbias kernel
+        "flash_attention_bias": ("jimm_tpu_torch/csrc/flash_attention.cu",
+                                 "jimm_tpu/ops/flash_attention.py:136"),
+        "flash_attention_bias_bwd": (
+            "jimm_tpu_torch/csrc/flash_attention_bwd.cu",
+            "jimm_tpu/ops/flash_attention.py:241,293"),
+        "flash_attention_dbias": (
+            "jimm_tpu_torch/csrc/flash_attention_dbias.cu",
+            "jimm_tpu/ops/flash_attention.py:358")}
     record = []
     for kernel, (source, replaces) in sources.items():
         c = timed[kernel]

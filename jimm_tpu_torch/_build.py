@@ -65,6 +65,16 @@ _SIGNATURES = {
     "jimm_sigmoid_attention_bwd": ([_P] * 7 + [_I] * 5 + [_L] * 12
                                    + [ctypes.c_float] * 2
                                    + [_I, _P, _L, _I, _P]),
+    # ..., q/k/v[/do] strides, bias head and row strides, scale, causal,
+    # dtype, stream
+    "jimm_flash_attention_bias_fwd": ([_P] * 6 + [_I] * 5 + [_L] * 11
+                                      + [ctypes.c_float, _I, _I, _P]),
+    "jimm_flash_attention_bias_bwd": ([_P] * 10 + [_I] * 5 + [_L] * 14
+                                      + [ctypes.c_float, _I, _I, _P]),
+    # ..., dbias, batch-range workspace (null for one range), B, N, Sq, Sk,
+    # D, samples a range, strides, scale, causal, dtype, stream
+    "jimm_flash_attention_dbias": ([_P] * 9 + [_I] * 6 + [_L] * 14
+                                   + [ctypes.c_float, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

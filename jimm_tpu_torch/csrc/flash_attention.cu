@@ -1,10 +1,10 @@
 // Flash-attention forward for Hopper (sm_90a), softmax or sigmoid scores,
-// with or without a key-padding mask.
+// with or without a key-padding mask, or softmax with an additive bias.
 //
 // Replaces the TPU kernel jimm_tpu/ops/flash_attention.py::_fwd_kernel,
-// softmax kind without bias: without a mask (kernel row 3) and with one
-// (has_mask, kernel row 4, reached through flash_attention_masked; both
-// launched by _flash through pl.pallas_call). Same numerics: the q.k score
+// softmax kind: without a mask (kernel row 3), with one (has_mask, kernel
+// row 4, reached through flash_attention_masked) and with a bias (has_bias,
+// kernel row 5, below; all launched by _flash through pl.pallas_call). Same numerics: the q.k score
 // is accumulated in f32 and scaled after the dot; masked scores are -1e30,
 // not -inf; the running max starts at -1e30 and the running sum at 0; a row
 // with l == 0 divides by 1; o = acc / l is stored in the input dtype and
@@ -35,6 +35,22 @@
 // running max or sum, no rescale of the accumulator, no lse; p is rounded
 // to the input dtype before p . v, as the TPU kernel casts it for its MXU
 // dot, and o is the accumulator itself.
+//
+// The bias kind (HAS_BIAS, kernel row 5; _fwd_kernel with has_bias,
+// launched by flash_attention_bias): an f32 (N, Sq, Sk) bias, shared by the
+// batch, read at head bh % heads through its strides (0 over an axis the
+// caller broadcast) and added to each kept score after the scale: s =
+// (q . k) * scale + bias, the multiply and the add each rounded on its own
+// (__fmul_rn, __fadd_rn: no FMA contraction), as XLA rounds _scores. A
+// half-warp's 16 keys of one row are neighbours in the bias, so its reads
+// coalesce, and the 3 MB bias of the train shape stays in L2 across the
+// batch. A bias of -inf (an additive mask) drops a key: p = exp(-inf) = 0.
+// Dropped keys (ragged, causal) give p = 0 here rather than exp(-1e30 - m),
+// which is the same number whenever the row has a finite score; a row with
+// no finite score then keeps m = -1e30 and l = 0, and gives o = 0 and
+// lse = -1e30, as on the TPU, where the reference softmax gives NaN.
+// Instantiated for softmax without a mask only: no entry point of either
+// package passes a bias with a mask or under sigmoid.
 //
 // Design (the FA2 arrangement): one CTA of 256 threads per (batch*head,
 // 64-row q tile). The TPU kernel makes the kv loop a sequential grid axis
@@ -118,14 +134,15 @@ __device__ __forceinline__ void load_tile_batched(float* dst, const T* src,
   }
 }
 
-template <typename T, int DP, bool HAS_MASK, bool SIGMOID>
+template <typename T, int DP, bool HAS_MASK, bool SIGMOID, bool HAS_BIAS>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, float* __restrict__ lse, int heads, int sq, int sk,
     int d, long long q_sb, long long q_ss, long long q_sn, long long k_sb,
     long long k_ss, long long k_sn, long long v_sb, long long v_ss,
     long long v_sn, float scale, float logit_bias, int causal,
-    const unsigned char* __restrict__ mask, long long mask_sb) {
+    const unsigned char* __restrict__ mask, long long mask_sb,
+    const float* __restrict__ bias, long long bias_sn, long long bias_ss) {
   constexpr int LD = DP + 4;    // q/k/v tile row stride (floats)
   constexpr int LDP = kBK + 4;  // probability tile row stride
   constexpr int DG = DP / 64;   // float4 column groups of o per thread
@@ -143,6 +160,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const T* qb = q + bi * q_sb + h * q_sn;
   const T* kb = k + bi * k_sb + h * k_sn;
   const T* vb = v + bi * v_sb + h * v_sn;
+  const float* hbias = HAS_BIAS ? bias + h * bias_sn : nullptr;
 
   load_tile<T, DP>(qs, qb, q_ss, q0, sq, d);
 
@@ -212,12 +230,20 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
         continue;
       }
       float mx = kNegInf;
+      [[maybe_unused]] bool kept[4];  // HAS_BIAS: which scores are real
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx + 16 * j;
         const bool keep = col < sk && (!causal || col <= row) &&
                           (!HAS_MASK || attend[tx + 16 * j]);
-        s[i][j] = keep ? s[i][j] * scale : kNegInf;
+        if constexpr (HAS_BIAS) {
+          kept[j] = keep && row < sq;
+          s[i][j] = kept[j] ? __fadd_rn(__fmul_rn(s[i][j], scale),
+                                        hbias[row * bias_ss + col])
+                            : kNegInf;
+        } else {
+          s[i][j] = keep ? s[i][j] * scale : kNegInf;
+        }
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -228,7 +254,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
+        if constexpr (HAS_BIAS)
+          s[i][j] = kept[j] ? expf(s[i][j] - m_new) : 0.f;
+        else
+          s[i][j] = expf(s[i][j] - m_new);
         rs += s[i][j];
       }
 #pragma unroll
@@ -301,12 +330,14 @@ struct Args {
   int causal;
   const void* mask;
   long long mask_sb;
+  const void* bias;  // (N, Sq, Sk) f32, unit stride over Sk; null for none
+  long long bias_sn, bias_ss;
   cudaStream_t stream;
 };
 
-template <typename T, int DP, bool HAS_MASK, bool SIGMOID>
+template <typename T, int DP, bool HAS_MASK, bool SIGMOID, bool HAS_BIAS>
 cudaError_t launch(const Args& a) {
-  auto kernel = flash_fwd_kernel<T, DP, HAS_MASK, SIGMOID>;
+  auto kernel = flash_fwd_kernel<T, DP, HAS_MASK, SIGMOID, HAS_BIAS>;
   const int smem =
       ((kBQ + 2 * kBK) * (DP + 4) + kBQ * (kBK + 4)) * sizeof(float);
   cudaError_t err = jimm::allow_smem(kernel, smem);
@@ -318,14 +349,18 @@ cudaError_t launch(const Args& a) {
       static_cast<float*>(a.lse), a.heads, a.sq, a.sk, a.d, a.q_sb, a.q_ss,
       a.q_sn, a.k_sb, a.k_ss, a.k_sn, a.v_sb, a.v_ss, a.v_sn, a.scale,
       a.logit_bias, a.causal, static_cast<const unsigned char*>(a.mask),
-      a.mask_sb);
+      a.mask_sb, static_cast<const float*>(a.bias), a.bias_sn, a.bias_ss);
   return cudaGetLastError();
 }
 
+// the kinds: masked, biased (softmax without a mask only), or neither
 template <typename T, int DP, bool SIGMOID>
 cudaError_t with_mask(const Args& a) {
-  return a.mask ? launch<T, DP, true, SIGMOID>(a)
-                : launch<T, DP, false, SIGMOID>(a);
+  if (a.mask) return launch<T, DP, true, SIGMOID, false>(a);
+  if constexpr (!SIGMOID) {
+    if (a.bias) return launch<T, DP, false, false, true>(a);
+  }
+  return launch<T, DP, false, SIGMOID, false>(a);
 }
 
 template <typename T, bool SIGMOID>
@@ -370,7 +405,28 @@ extern "C" int jimm_flash_attention_fwd(
   const Args a{q,    k,    v,    o,     lse,  batch,  heads, sq,
                sk,   d,    q_sb, q_ss,  q_sn, k_sb,   k_ss,  k_sn,
                v_sb, v_ss, v_sn, scale, 0.f,  causal, mask,  mask_sb,
-               static_cast<cudaStream_t>(stream)};
+               nullptr, 0,  0,    static_cast<cudaStream_t>(stream)};
+  return run<false>(a, dtype);
+}
+
+// The bias kind (kernel row 5): jimm_flash_attention_fwd's arguments without
+// a mask, and bias: (N, Sq, Sk) f32, unit stride over Sk, head stride
+// bias_sn and row stride bias_ss (0 for a bias broadcast over heads or
+// rows), read at head `bh % heads`. o: (B, Sq, N, D) contiguous in `dtype`;
+// lse: (B, N, Sq) contiguous f32. Returns the launch's cudaError_t.
+extern "C" int jimm_flash_attention_bias_fwd(
+    const void* q, const void* k, const void* v, const void* bias, void* o,
+    void* lse, int batch, int heads, int sq, int sk, int d, long long q_sb,
+    long long q_ss, long long q_sn, long long k_sb, long long k_ss,
+    long long k_sn, long long v_sb, long long v_ss, long long v_sn,
+    long long bias_sn, long long bias_ss, float scale, int causal, int dtype,
+    void* stream) {
+  if (bad_shape(batch, heads, sq, sk, d) || bias == nullptr)
+    return cudaErrorInvalidValue;
+  const Args a{q,    k,    v,    o,     lse,  batch,  heads,   sq,
+               sk,   d,    q_sb, q_ss,  q_sn, k_sb,   k_ss,    k_sn,
+               v_sb, v_ss, v_sn, scale, 0.f,  causal, nullptr, 0,
+               bias, bias_sn, bias_ss, static_cast<cudaStream_t>(stream)};
   return run<false>(a, dtype);
 }
 
@@ -388,6 +444,6 @@ extern "C" int jimm_sigmoid_attention_fwd(
   const Args a{q,    k,    v,    o,     nullptr,    batch,  heads, sq,
                sk,   d,    q_sb, q_ss,  q_sn,       k_sb,   k_ss,  k_sn,
                v_sb, v_ss, v_sn, scale, logit_bias, causal, mask,  mask_sb,
-               static_cast<cudaStream_t>(stream)};
+               nullptr, 0,  0,    static_cast<cudaStream_t>(stream)};
   return run<true>(a, dtype);
 }

@@ -1,10 +1,11 @@
 // Flash-attention backward for Hopper (sm_90a): dq, and dk/dv, softmax or
-// sigmoid scores, with or without a key-padding mask.
+// sigmoid scores, with or without a key-padding mask, or softmax with an
+// additive bias.
 //
 // Replaces the TPU kernels jimm_tpu/ops/flash_attention.py::_bwd_dq_kernel
-// and ::_bwd_dkv_kernel, softmax kind without bias: without a mask and with
-// one (has_mask, the mask kind of kernel row 7; launched by _flash_bwd
-// through pl.pallas_call). Same numerics (_ds_tile): the score
+// and ::_bwd_dkv_kernel, softmax kind: without a mask, with one (has_mask,
+// the mask kind of kernel row 7) and with a bias (has_bias, the bias kind,
+// below; all launched by _flash_bwd through pl.pallas_call). Same numerics (_ds_tile): the score
 // s = (q . k) * scale is recomputed in f32 from the saved inputs,
 // p = exp(s - lse) from the forward's f32 logsumexp, dp = do . v in f32,
 // ds = p * (dp - delta) with delta = rowsum(do * o) (computed by the wrapper,
@@ -48,6 +49,20 @@
 // before their products, as in the softmax kind. A dropped key has p = 0,
 // so ds = 0 and zero dk and dv.
 //
+// The bias kind (HAS_BIAS, row 7's bias kind; _bwd_dq_kernel and
+// _bwd_dkv_kernel with has_bias, launched by flash_attention_bias's VJP):
+// the score is recomputed as (q . k) * scale + bias[h][row][col], the
+// multiply and the add each rounded on its own as XLA rounds _scores, then
+// p = exp(that - lse). The (N, Sq, Sk) f32 bias is shared by the batch and
+// read at head bh % heads through its strides (0 over a broadcast axis): the
+// dq kernel reads it straight from memory (a half-warp's 16 keys are
+// neighbours, so the reads coalesce, and 128 samples hit the same 3 MB in
+// L2), the dk/dv kernel stages each (BQ, BK) tile key-major in the shared
+// buffer of p^T (its threads' scores run down query rows). A key whose bias is -inf gets
+// p = 0, and so does every key of a row whose lse is the forward's -1e30 (a
+// row with no finite key). dbias, the batch sum of ds, is its own kernel
+// (flash_attention_dbias.cu). Instantiated for softmax without a mask only.
+//
 // What bounds it on the H100: at the training shapes (S <= 256, D = 64) the
 // bytes, ~20 bytes per (row, feature) in bf16 moved once, against
 // 8*Sq*Sk*D flops; like the forward, this first version computes with f32
@@ -57,59 +72,14 @@
 // each input element once, and row strides padded by 4 floats keep the
 // float4 reads free of bank conflicts.
 
-#include "common.cuh"
+#include "flash_tiles.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-// rows [r0, r0 + R) of one head's (S, D) slice -> f32 shared tile with row
-// stride DP + 4; rows >= n and columns >= d are zero
-template <typename T, int DP, int R>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          long long row_stride, int r0, int n,
-                                          int d) {
-  constexpr int LD = DP + 4;
-  for (int idx = threadIdx.x; idx < R * DP; idx += kThreads) {
-    const int r = idx / DP, c = idx % DP;
-    float val = 0.f;
-    if (r0 + r < n && c < d)
-      val = jimm::to_f32(src[static_cast<long long>(r0 + r) * row_stride + c]);
-    dst[r * LD + c] = val;
-  }
-}
-
 using jimm::round_to;
-
-// out[a][b] = A[a0 + a] . B[tx + 16 b] over DP columns (row stride DP + 4)
-template <int DP, int NA, int NB>
-__device__ __forceinline__ void tile_dots(float (&out)[NA][NB], const float* A,
-                                          int a0, const float* B, int tx) {
-  constexpr int LD = DP + 4;
-#pragma unroll
-  for (int a = 0; a < NA; ++a)
-#pragma unroll
-    for (int b = 0; b < NB; ++b) out[a][b] = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < DP; c += 4) {
-    float4 av[NA], bv[NB];
-#pragma unroll
-    for (int a = 0; a < NA; ++a)
-      av[a] = *reinterpret_cast<const float4*>(A + (a0 + a) * LD + c);
-#pragma unroll
-    for (int b = 0; b < NB; ++b)
-      bv[b] = *reinterpret_cast<const float4*>(B + (tx + 16 * b) * LD + c);
-#pragma unroll
-    for (int a = 0; a < NA; ++a)
-#pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        out[a][b] = fmaf(av[a].x, bv[b].x, out[a][b]);
-        out[a][b] = fmaf(av[a].y, bv[b].y, out[a][b]);
-        out[a][b] = fmaf(av[a].z, bv[b].z, out[a][b]);
-        out[a][b] = fmaf(av[a].w, bv[b].w, out[a][b]);
-      }
-  }
-}
+using jimm::flash::kThreads;
+using jimm::flash::load_tile;
+using jimm::flash::tile_dots;
 
 // acc[a][4g + e] += sum_c P[a0 + a][c] * B[c][64 g + 4 tx + e] for c < NC;
 // P has row stride NC + 4, B row stride DP + 4
@@ -183,21 +153,30 @@ struct Args {
   int causal;
   const void* mask;
   long long mask_sb;
+  const void* bias;  // (N, Sq, Sk) f32, unit stride over Sk; null for none
+  long long bias_sn, bias_ss;
   cudaStream_t stream;
 };
 
 // p and ds of one (query, key) pair from its unscaled score s and dp; a
 // dropped pair has p = ds = 0. Softmax: p = exp(s * scale - lse), ds =
-// p * (dp - delta); sigmoid: p = sigmoid(s * scale + logit_bias), ds =
-// p * (1 - p) * dp. ds is rounded to T; p is returned unrounded.
-template <typename T, bool SIGMOID>
+// p * (dp - delta); with a bias b (HAS_BIAS): p = exp((s * scale + b) -
+// lse), each step rounded on its own as XLA rounds _scores; sigmoid: p =
+// sigmoid(s * scale + logit_bias), ds = p * (1 - p) * dp. ds is rounded to
+// T; p is returned unrounded.
+template <typename T, bool SIGMOID, bool HAS_BIAS>
 __device__ __forceinline__ float p_ds(float s, float dp, bool keep,
                                       float scale, float lse_or_bias,
-                                      float delta, float& ds) {
+                                      float delta, float b, float& ds) {
   if constexpr (SIGMOID) {
     const float x = __fadd_rn(__fmul_rn(s, scale), lse_or_bias);
     const float p = keep ? 1.f / (1.f + expf(-x)) : 0.f;
     ds = round_to<T>(__fmul_rn(__fmul_rn(p, __fsub_rn(1.f, p)), dp));
+    return p;
+  } else if constexpr (HAS_BIAS) {
+    const float x = __fadd_rn(__fmul_rn(s, scale), b);
+    const float p = keep ? expf(__fsub_rn(x, lse_or_bias)) : 0.f;
+    ds = round_to<T>(p * (dp - delta));
     return p;
   } else {
     const float p = keep ? expf(s * scale - lse_or_bias) : 0.f;
@@ -206,14 +185,16 @@ __device__ __forceinline__ float p_ds(float s, float dp, bool keep,
   }
 }
 
-template <typename T, int DP, int BQ, int BK, bool HAS_MASK, bool SIGMOID>
+template <typename T, int DP, int BQ, int BK, bool HAS_MASK, bool SIGMOID,
+          bool HAS_BIAS>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dq, int heads, int sq,
     int sk, int d, Strides qst, Strides kst, Strides vst, Strides dst,
     float scale, float logit_bias, int causal,
-    const unsigned char* __restrict__ mask, long long mask_sb) {
+    const unsigned char* __restrict__ mask, long long mask_sb,
+    const float* __restrict__ bias, long long bias_sn, long long bias_ss) {
   constexpr int LD = DP + 4, RQ = BQ / 16, RK = BK / 16, LDS = BK + 4;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;
@@ -231,6 +212,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const T* vb = v + bi * vst.b + h * vst.n;
   load_tile<T, DP, BQ>(qs, q + bi * qst.b + h * qst.n, qst.s, q0, sq, d);
   load_tile<T, DP, BQ>(dos, dout + bi * dst.b + h * dst.n, dst.s, q0, sq, d);
+  // the bias kind: this head's bias, shared by the batch; a thread's keys
+  // are neighbours of its half-warp's, so its reads coalesce
+  const float* hbias = HAS_BIAS ? bias + h * bias_sn : nullptr;
 
   // softmax: each row's lse and delta; sigmoid: the logit bias, no delta
   float lse_r[RQ], delta_r[RQ];
@@ -270,9 +254,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
         const int col = k0 + tx + 16 * j;
         const bool keep = row < sq && col < sk && (!causal || col <= row) &&
                           (!HAS_MASK || attend[tx + 16 * j]);
+        const float b = HAS_BIAS && keep ? hbias[row * bias_ss + col] : 0.f;
         float ds;
-        p_ds<T, SIGMOID>(s[i][j], dp[i][j], keep, scale, lse_r[i],
-                         delta_r[i], ds);
+        p_ds<T, SIGMOID, HAS_BIAS>(s[i][j], dp[i][j], keep, scale, lse_r[i],
+                                   delta_r[i], b, ds);
         dss[(ty * RQ + i) * LDS + tx + 16 * j] = ds;
       }
     }
@@ -282,14 +267,16 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   store_rows<T, DP, RQ>(dq, acc, scale, bi, h, heads, q0, ty * RQ, sq, d, tx);
 }
 
-template <typename T, int DP, int BQ, int BK, bool HAS_MASK, bool SIGMOID>
+template <typename T, int DP, int BQ, int BK, bool HAS_MASK, bool SIGMOID,
+          bool HAS_BIAS>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
     int heads, int sq, int sk, int d, Strides qst, Strides kst, Strides vst,
     Strides dst, float scale, float logit_bias, int causal,
-    const unsigned char* __restrict__ mask, long long mask_sb) {
+    const unsigned char* __restrict__ mask, long long mask_sb,
+    const float* __restrict__ bias, long long bias_sn, long long bias_ss) {
   constexpr int LD = DP + 4, RQ = BQ / 16, RK = BK / 16, LDS = BQ + 4;
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;
@@ -329,6 +316,24 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     __syncthreads();  // the previous tile's q, do, p^T and ds^T are read
     load_tile<T, DP, BQ>(qs, qb, qst.s, q0, sq, d);
     load_tile<T, DP, BQ>(dos, db, dst.s, q0, sq, d);
+    if constexpr (HAS_BIAS) {
+      // a thread's scores run down the query rows of one key: stage the
+      // (BQ, BK) bias tile key-major in p^T's buffer, where each thread
+      // reads the bias of a score just before it writes that score's p over
+      // it (no extra shared memory, so no lost occupancy). A warp stores 4
+      // query rows x 8 keys: its loads take 8-float runs of 4 rows, and its
+      // stores hit 32 banks (LDS = 4 mod 32).
+      const float* hbias = bias + h * bias_sn;
+      const int lane = threadIdx.x & 31;
+      for (int chunk = threadIdx.x >> 5; chunk < BQ * BK / 32;
+           chunk += kThreads / 32) {
+        const int r = chunk / (BK / 8) * 4 + lane / 8;
+        const int c = chunk % (BK / 8) * 8 + lane % 8;
+        pts[c * LDS + r] = q0 + r < sq && k0 + c < sk
+                               ? hbias[(q0 + r) * bias_ss + k0 + c]
+                               : 0.f;
+      }
+    }
     __syncthreads();
     float s[RK][RQ], dp[RK][RQ];
     tile_dots<DP, RK, RQ>(s, ks, ty * RK, qs, tx);
@@ -344,9 +349,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
         const int col = k0 + ty * RK + a;  // key row
         const bool keep = row < sq && col < sk && (!causal || col <= row) &&
                           (!HAS_MASK || attend[ty * RK + a]);
+        const float bv = HAS_BIAS ? pts[(ty * RK + a) * LDS + tx + 16 * b]
+                                  : 0.f;
         float ds;
-        const float p =
-            p_ds<T, SIGMOID>(s[a][b], dp[a][b], keep, scale, l, dl, ds);
+        const float p = p_ds<T, SIGMOID, HAS_BIAS>(s[a][b], dp[a][b], keep,
+                                                   scale, l, dl, bv, ds);
         pts[(ty * RK + a) * LDS + tx + 16 * b] = round_to<T>(p);
         dsts[(ty * RK + a) * LDS + tx + 16 * b] = ds;
       }
@@ -361,7 +368,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
                         tx);
 }
 
-template <typename T, int DP, int BQ, int BK, bool HAS_MASK, bool SIGMOID>
+template <typename T, int DP, int BQ, int BK, bool HAS_MASK, bool SIGMOID,
+          bool HAS_BIAS>
 cudaError_t launch(const Args& a) {
   constexpr int LD = DP + 4;
   const auto* q = static_cast<const T*>(a.q);
@@ -371,8 +379,10 @@ cudaError_t launch(const Args& a) {
   const auto* lse = static_cast<const float*>(a.lse);
   const auto* delta = static_cast<const float*>(a.delta);
   const auto* mask = static_cast<const unsigned char*>(a.mask);
+  const auto* bias = static_cast<const float*>(a.bias);
 
-  auto dq_kernel = flash_bwd_dq_kernel<T, DP, BQ, BK, HAS_MASK, SIGMOID>;
+  auto dq_kernel =
+      flash_bwd_dq_kernel<T, DP, BQ, BK, HAS_MASK, SIGMOID, HAS_BIAS>;
   const int dq_smem =
       ((2 * BQ + 2 * BK) * LD + BQ * (BK + 4)) * static_cast<int>(sizeof(float));
   cudaError_t err = jimm::allow_smem(dq_kernel, dq_smem);
@@ -380,11 +390,13 @@ cudaError_t launch(const Args& a) {
   dq_kernel<<<dim3(a.batch * a.heads, (a.sq + BQ - 1) / BQ), kThreads, dq_smem,
               a.stream>>>(q, k, v, dout, lse, delta, static_cast<T*>(a.dq),
                           a.heads, a.sq, a.sk, a.d, a.qs, a.ks, a.vs, a.dos,
-                          a.scale, a.logit_bias, a.causal, mask, a.mask_sb);
+                          a.scale, a.logit_bias, a.causal, mask, a.mask_sb,
+                          bias, a.bias_sn, a.bias_ss);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto dkv_kernel = flash_bwd_dkv_kernel<T, DP, BQ, BK, HAS_MASK, SIGMOID>;
+  auto dkv_kernel =
+      flash_bwd_dkv_kernel<T, DP, BQ, BK, HAS_MASK, SIGMOID, HAS_BIAS>;
   const int dkv_smem = ((2 * BQ + 2 * BK) * LD + 2 * BK * (BQ + 4)) *
                        static_cast<int>(sizeof(float));
   err = jimm::allow_smem(dkv_kernel, dkv_smem);
@@ -393,14 +405,19 @@ cudaError_t launch(const Args& a) {
                dkv_smem, a.stream>>>(
       q, k, v, dout, lse, delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
       a.heads, a.sq, a.sk, a.d, a.qs, a.ks, a.vs, a.dos, a.scale,
-      a.logit_bias, a.causal, mask, a.mask_sb);
+      a.logit_bias, a.causal, mask, a.mask_sb, bias, a.bias_sn, a.bias_ss);
   return cudaGetLastError();
 }
 
+// the kinds: masked, biased (softmax without a mask only: no entry point of
+// either package passes a bias with a mask or under sigmoid), or neither
 template <typename T, int DP, int BQ, int BK, bool SIGMOID>
 cudaError_t with_mask(const Args& a) {
-  return a.mask ? launch<T, DP, BQ, BK, true, SIGMOID>(a)
-                : launch<T, DP, BQ, BK, false, SIGMOID>(a);
+  if (a.mask) return launch<T, DP, BQ, BK, true, SIGMOID, false>(a);
+  if constexpr (!SIGMOID) {
+    if (a.bias) return launch<T, DP, BQ, BK, false, false, true>(a);
+  }
+  return launch<T, DP, BQ, BK, false, SIGMOID, false>(a);
 }
 
 template <typename T, bool SIGMOID>
@@ -453,7 +470,32 @@ extern "C" int jimm_flash_attention_bwd(
                dq,     dk,     dv,    batch, heads, sq,
                sk,     d,      {q_sb, q_ss, q_sn},  {k_sb, k_ss, k_sn},
                {v_sb, v_ss, v_sn},    {do_sb, do_ss, do_sn},
-               scale,  0.f,    causal, mask, mask_sb,
+               scale,  0.f,    causal, mask, mask_sb, nullptr, 0, 0,
+               static_cast<cudaStream_t>(stream)};
+  return run<false>(a, dtype);
+}
+
+// The bias kind's backward (row 7's bias kind): jimm_flash_attention_bwd's
+// arguments without a mask, and the forward's bias: (N, Sq, Sk) f32, unit
+// stride over Sk, head stride bias_sn and row stride bias_ss (0 for a bias
+// broadcast over heads or rows), read at head `bh % heads`. dbias is
+// jimm_flash_attention_dbias's. Launches the dq kernel, then the dk/dv
+// kernel, on `stream`. Returns the first failing launch's cudaError_t.
+extern "C" int jimm_flash_attention_bias_bwd(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* bias, void* dq, void* dk,
+    void* dv, int batch, int heads, int sq, int sk, int d, long long q_sb,
+    long long q_ss, long long q_sn, long long k_sb, long long k_ss,
+    long long k_sn, long long v_sb, long long v_ss, long long v_sn,
+    long long do_sb, long long do_ss, long long do_sn, long long bias_sn,
+    long long bias_ss, float scale, int causal, int dtype, void* stream) {
+  if (bad_shape(batch, heads, sq, sk, d) || bias == nullptr)
+    return cudaErrorInvalidValue;
+  const Args a{q,      k,      v,     dout,  lse,   delta,
+               dq,     dk,     dv,    batch, heads, sq,
+               sk,     d,      {q_sb, q_ss, q_sn},  {k_sb, k_ss, k_sn},
+               {v_sb, v_ss, v_sn},    {do_sb, do_ss, do_sn},
+               scale,  0.f,    causal, nullptr, 0, bias, bias_sn, bias_ss,
                static_cast<cudaStream_t>(stream)};
   return run<false>(a, dtype);
 }
@@ -475,7 +517,7 @@ extern "C" int jimm_sigmoid_attention_bwd(
                dq,     dk,         dv,     batch, heads,   sq,
                sk,     d,          {q_sb, q_ss, q_sn},     {k_sb, k_ss, k_sn},
                {v_sb, v_ss, v_sn}, {do_sb, do_ss, do_sn},
-               scale,  logit_bias, causal, mask,  mask_sb,
+               scale,  logit_bias, causal, mask,  mask_sb, nullptr, 0, 0,
                static_cast<cudaStream_t>(stream)};
   return run<true>(a, dtype);
 }

@@ -5,12 +5,23 @@
   (`jimm_tpu_torch/ops/flash_attention.py`, forward and backward through
   ``FlashAttentionFn``) on a CUDA tensor, their plain versions on a CPU
   tensor. With a key-padding mask (``(B, Sk)`` or ``(B, 1, 1, Sk)``) it is
-  ``"flash_masked"``; any other mask shape raises ``ValueError``.
+  ``"flash_masked"`` (any other mask shape raises ``ValueError``), else with
+  a bias ``"flash_bias"``.
 - ``"flash_masked"``: masked flash attention, the kernels' ``HAS_MASK``
   instantiations (NaFlex, MAP pooling); needs a key-padding mask.
-- ``"auto"``: on a CUDA tensor ``"flash"``, or ``"xla"`` for a mask that is
-  not a key-padding mask; ``"xla"`` on a CPU tensor. No sequence-length
-  crossover is applied: the port has not measured one.
+- ``"flash_bias"``: flash attention with an additive bias broadcastable to
+  ``(N, Sq, Sk)`` (relative-position style), the kernels' ``HAS_BIAS``
+  instantiations and the dbias kernel (``FlashAttentionBiasFn``),
+  differentiable in the bias; no mask.
+- ``"auto"``: :func:`resolve_impl` with "on the card" for JAX's "on the
+  TPU": on a CUDA tensor a bias of ndim <= 3 without a mask is
+  ``"flash_bias"``, any other bias ``"xla"``; without a bias ``"flash"``, or
+  ``"flash_masked"`` for a key-padding mask, or ``"xla"`` for any other
+  mask. ``"xla"`` on a CPU tensor. Two rules of JAX's ``"auto"`` are not
+  copied: its seq-512 flash crossover (``_flash_eligible``) is a TPU
+  measurement, and the port has not measured its own; its branch to the
+  sequence-parallel schemes under an ambient mesh waits for parallelism
+  (ROADMAP queue 1 item 6).
 - ``"flash_int8"``: flash attention with int8-quantized q and k
   (`jimm_tpu_torch/ops/flash_attention_int8.py`, forward and backward
   through ``FlashAttentionInt8Fn``; the ``int8_qk`` training policy sets
@@ -23,9 +34,8 @@
   math (the names the JAX configs use for the non-kernel path),
   differentiated by autograd.
 
-The other JAX impls, and a bias under ``"flash"``, are kernels or schemes
-not ported yet; each raises ``NotImplementedError`` naming its place in
-``ROADMAP.md``.
+The other JAX impls are schemes not ported yet; each raises
+``NotImplementedError`` naming its place in ``ROADMAP.md``.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ from __future__ import annotations
 import torch
 
 from jimm_tpu_torch.ops.flash_attention import (flash_attention,
+                                                flash_attention_bias,
                                                 flash_attention_masked,
                                                 sigmoid_attention)
 from jimm_tpu_torch.ops.flash_attention_int8 import flash_attention_int8
@@ -40,7 +51,6 @@ from jimm_tpu_torch.ops.flash_attention_int8 import flash_attention_int8
 #: JAX attention impls the port does not have yet -> where the ROADMAP
 #: queues them
 _NOT_PORTED = {
-    "flash_bias": "kernel rows 5 and 8 (biased flash), ROADMAP queue 2",
     "ring": "sequence parallelism, ROADMAP queue 1 (parallelism)",
     "ulysses": "sequence parallelism, ROADMAP queue 1 (parallelism)",
     "saveable": "remat policies, ROADMAP queue 1 item 3 (training, rest)",
@@ -83,36 +93,61 @@ def _is_key_padding_mask(mask: torch.Tensor) -> bool:
     return mask.ndim == 4 and mask.shape[1] == 1 and mask.shape[2] == 1
 
 
+def resolve_impl(impl: str, *, on_card: bool,
+                 mask: torch.Tensor | None = None,
+                 bias: torch.Tensor | None = None) -> str:
+    """The impl that ``"auto"`` and ``"flash"`` stand for, as
+    ``jimm_tpu/ops/attention.py::dot_product_attention`` routes them with
+    "on the card" for "on the TPU" (and without its seq-512 crossover); any
+    other impl is itself. ``"flash"`` with a mask that is not a key-padding
+    mask raises JAX's ``ValueError``."""
+    if impl == "auto":
+        if not on_card:
+            return "xla"
+        if bias is not None:
+            return "flash_bias" if mask is None and bias.ndim <= 3 else "xla"
+        if mask is None:
+            return "flash"
+        return "flash_masked" if _is_key_padding_mask(mask) else "xla"
+    if impl == "flash" and mask is not None:
+        if not _is_key_padding_mask(mask):
+            raise ValueError(
+                "flash attention supports key-padding masks only ((B, Sk) or "
+                f"(B, 1, 1, Sk)); arbitrary {tuple(mask.shape)} masks need "
+                "impl='xla'")
+        return "flash_masked"
+    if impl == "flash" and bias is not None:
+        return "flash_bias"
+    return impl
+
+
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, is_causal: bool = False,
                           mask: torch.Tensor | None = None,
                           bias: torch.Tensor | None = None,
                           impl: str = "auto") -> torch.Tensor:
     """Scaled dot-product attention over (batch, seq, heads, head_dim)."""
-    if impl == "auto":
-        impl = ("flash" if q.device.type == "cuda" and (
-            mask is None or _is_key_padding_mask(mask)) else "xla")
+    impl = resolve_impl(impl, on_card=q.device.type == "cuda", mask=mask,
+                        bias=bias)
     if impl == "flash":
-        if bias is not None:
-            raise NotImplementedError(
-                "flash attention with a bias is not ported yet: "
-                + _NOT_PORTED["flash_bias"])
-        if mask is None:
-            return flash_attention(q, k, v, is_causal=is_causal)
-        if not _is_key_padding_mask(mask):
-            raise ValueError(
-                "flash attention supports key-padding masks only ((B, Sk) or "
-                f"(B, 1, 1, Sk)); arbitrary {tuple(mask.shape)} masks need "
-                "impl='xla'")
-        impl = "flash_masked"
+        return flash_attention(q, k, v, is_causal=is_causal)
     if impl == "flash_masked":
         if bias is not None:
             raise ValueError("flash_masked does not take a bias; use "
-                             "impl='xla'")
+                             "impl='flash_bias' (bias only) or impl='xla'")
         if mask is None:
             raise ValueError("impl='flash_masked' requires a key-padding "
                              "mask ((B, Sk) or (B, 1, 1, Sk))")
         return flash_attention_masked(q, k, v, mask, is_causal=is_causal)
+    if impl == "flash_bias":
+        if bias is None:
+            raise ValueError("impl='flash_bias' requires a bias "
+                             "broadcastable to (N, Sq, Sk)")
+        if mask is not None:
+            raise ValueError("flash_bias does not take a mask; use "
+                             "impl='flash_masked' (mask only) or "
+                             "impl='xla'")
+        return flash_attention_bias(q, k, v, bias, is_causal=is_causal)
     if impl == "flash_int8":
         if mask is not None or bias is not None:
             raise ValueError(f"{INT8_NO_MASK}; use is_causal, or "

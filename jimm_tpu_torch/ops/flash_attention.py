@@ -1,6 +1,7 @@
 """Flash attention, softmax or sigmoid, forward and backward, with or
-without a key-padding mask: hand-written CUDA kernels, their plain versions,
-and the ``torch.autograd.Function``s that join them.
+without a key-padding mask, or softmax with an additive bias: hand-written
+CUDA kernels, their plain versions, and the ``torch.autograd.Function``s that
+join them.
 
 Kernel row 3 of the port's kernel table replaces the Pallas TPU kernel
 ``jimm_tpu/ops/flash_attention.py::_fwd_kernel`` (softmax kind, no mask or
@@ -45,6 +46,20 @@ with no normaliser, so the forward writes no lse and the backward
 gets exactly zero attention and zero dk/dv, and a query row with no key to
 attend is exactly zero. :class:`SigmoidAttentionFn` joins them;
 ``sigmoid_launches`` and ``sigmoid_bwd_launches`` count their launches.
+
+Kernel row 5 (``_fwd_kernel`` with ``has_bias``, reached through
+``flash_attention_bias``) and row 7's bias kind are the sources' ``HAS_BIAS``
+instantiations (softmax, no mask): an f32 ``(N, Sq, Sk)`` bias shared by the
+batch, added to the scaled f32 score (multiply, then add, each rounded as XLA
+rounds them). Kernel row 8 (``_bwd_dbias_kernel``) is
+``jimm_tpu_torch/csrc/flash_attention_dbias.cu``: ``dbias[n] = sum_b ds[b,
+n]``, the unscaled, unrounded f32 ds summed over the batch in order, one CTA
+per (head, q tile, k tile), no atomics. A bias of -inf drops a key; a query
+row with no finite score gives o = 0 and lse = -1e30 (as on the TPU; the
+reference softmax gives NaN there) and zero gradients.
+:class:`FlashAttentionBiasFn` joins them, launching the dbias kernel only when
+the bias needs a gradient; ``bias_launches``, ``bias_bwd_launches`` (dq and
+dk/dv, once a call) and ``dbias_launches`` count their launches.
 """
 
 from __future__ import annotations
@@ -70,6 +85,10 @@ masked_bwd_launches = 0
 #: sigmoid forward / backward kernel launches, masked or not
 sigmoid_launches = 0
 sigmoid_bwd_launches = 0
+#: biased forward, backward (dq and dk/dv) and dbias kernel launches
+bias_launches = 0
+bias_bwd_launches = 0
+dbias_launches = 0
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -517,3 +536,296 @@ def sigmoid_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask = canon_mask(mask, q.shape[0], k.shape[1])
     return SigmoidAttentionFn.apply(q, k, v, mask, is_causal,
                                     float(logit_bias))
+
+
+def _bias_scores(q: torch.Tensor, k: torch.Tensor, bias: torch.Tensor,
+                 is_causal: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """``(q . k) * scale + bias`` as ``(B, N, Sq, Sk)`` in f32 (f64 for f64
+    input), the multiply and the add rounded on their own as the kernels
+    round them, and which scores the causal triangle keeps (None: all)."""
+    acc = _acc_dtype(q.dtype)
+    s = torch.einsum("bqnd,bknd->bnqk", q.to(acc), k.to(acc))
+    s = s * (1.0 / q.shape[-1] ** 0.5) + bias.to(acc)
+    return s, _keep(q.shape[1], k.shape[1], is_causal, None, q.device)
+
+
+def flash_attention_bias_plain(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, bias: torch.Tensor, *,
+                               is_causal: bool = False
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bias kind in plain PyTorch: ``(o, lse)`` for ``(B, S, N, D)`` q/k/v
+    and an f32 bias broadcastable to ``(N, Sq, Sk)``; o in the dtype of q,
+    lse ``(B, N, Sq)`` f32. As in the kernel, a dropped key (causal, or a
+    bias of -inf) has p = 0 and the row max starts at -1e30, so a row with
+    no finite score gives o = 0 and lse = -1e30."""
+    acc = _acc_dtype(q.dtype)
+    s, keep = _bias_scores(q, k, bias, is_causal)
+    if keep is not None:
+        s = s.masked_fill(~keep, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    l = torch.where(l == 0, torch.ones_like(l), l)
+    out = torch.einsum("bnqk,bknd->bqnd", p, v.to(acc))
+    o = out / l.permute(0, 2, 1, 3)
+    return o.to(q.dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def _bias_ds(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             bias: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+             do: torch.Tensor, is_causal: bool,
+             delta: torch.Tensor | None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bias kind's p = exp(s - lse), recomputed with the bias (0 at a
+    dropped key), and ds = p (dp - delta), both ``(B, N, Sq, Sk)`` in f32
+    (f64 for f64 input), unrounded; delta is rowsum(do * o) unless given."""
+    acc = _acc_dtype(q.dtype)
+    s, keep = _bias_scores(q, k, bias, is_causal)
+    p = torch.exp(s - lse.to(acc)[..., None])
+    if keep is not None:
+        p = p.masked_fill(~keep, 0.0)
+    dp = torch.einsum("bqnd,bknd->bnqk", do.to(acc), v.to(acc))
+    if delta is None:
+        delta = _delta(o, do, None)
+    return p, p * (dp - delta.to(dp.dtype)[..., None])
+
+
+def flash_attention_bias_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, bias: torch.Tensor,
+                                   o: torch.Tensor, lse: torch.Tensor,
+                                   do: torch.Tensor, *,
+                                   is_causal: bool = False,
+                                   delta: torch.Tensor | None = None
+                                   ) -> tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """Row 7's bias kind in plain PyTorch: ``(dq, dk, dv)`` in the dtype of
+    q, p (for dv) and ds (for dq and dk) rounded to the input dtype before
+    their products, as in the kernels. ``delta``: rowsum(do * o), ``(B, N,
+    Sq)`` f32, where the caller has it."""
+    acc = _acc_dtype(q.dtype)
+    scale = 1.0 / q.shape[-1] ** 0.5
+    p, ds = _bias_ds(q, k, v, bias, o, lse, do, is_causal, delta)
+    dv = torch.einsum("bnqk,bqnd->bknd", p.to(q.dtype).to(acc), do.to(acc))
+    ds = ds.to(q.dtype).to(acc)
+    dq = torch.einsum("bnqk,bknd->bqnd", ds, k.to(acc)) * scale
+    dk = torch.einsum("bnqk,bqnd->bknd", ds, q.to(acc)) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def flash_attention_dbias_plain(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, bias: torch.Tensor,
+                                o: torch.Tensor, lse: torch.Tensor,
+                                do: torch.Tensor, *, is_causal: bool = False,
+                                delta: torch.Tensor | None = None
+                                ) -> torch.Tensor:
+    """Row 8 in plain PyTorch: the unscaled, unrounded ds summed over the
+    batch, ``(N, Sq, Sk)`` f32."""
+    ds = _bias_ds(q, k, v, bias, o, lse, do, is_causal, delta)[1]
+    return ds.sum(0).float()
+
+
+def _bias_arg(bias: torch.Tensor, q: torch.Tensor, sk: int
+              ) -> tuple[torch.Tensor, int, int]:
+    """The kernels' bias: an f32 ``(N, Sq, Sk)`` tensor on q's device with
+    unit stride over Sk (a broadcast view keeps its 0 strides; a bias
+    broadcast over Sk is copied), and its head and row strides."""
+    n, sq = q.shape[2], q.shape[1]
+    if (bias.dtype != torch.float32 or bias.device != q.device
+            or tuple(bias.shape) != (n, sq, sk)):
+        raise ValueError(f"the kernels' bias is float32 ({n}, {sq}, {sk}) on "
+                         f"{q.device}, not {bias.dtype} {tuple(bias.shape)} "
+                         f"on {bias.device}")
+    if bias.stride(2) != 1:
+        bias = bias.contiguous()
+    return bias, bias.stride(0), bias.stride(1)
+
+
+def flash_attention_bias_fwd(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, bias: torch.Tensor, *,
+                             is_causal: bool = False
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(o, lse)`` of the bias kind: the row-5 kernel on CUDA tensors, its
+    plain version on CPU ones. ``bias``: f32 ``(N, Sq, Sk)``."""
+    global bias_launches
+    if q.device.type == "cpu":
+        return flash_attention_bias_plain(q, k, v, bias, is_causal=is_causal)
+    code = _kernel_dtype(q, k, v)
+    b, sq, n, d = q.shape
+    sk = k.shape[1]
+    bias, b_sn, b_ss = _bias_arg(bias, q, sk)
+    o = torch.empty((b, sq, n, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.jimm_flash_attention_bias_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), b, n, sq, sk, d, *_strides(q),
+            *_strides(k), *_strides(v), b_sn, b_ss, 1.0 / d ** 0.5,
+            int(is_causal), code, stream)
+    _build.check(rc, "jimm_flash_attention_bias_fwd")
+    bias_launches += 1
+    return o, lse
+
+
+def _bias_bwd_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   bias: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+                   do: torch.Tensor, is_causal: bool,
+                   delta: torch.Tensor | None
+                   ) -> tuple[list[torch.Tensor], tuple]:
+    """What the two backward kernels share: the tensors q, k, v, do, lse,
+    delta and the bias as the kernels take them (do, lse and the bias
+    possibly copies, which the caller holds until the launch), and the
+    shapes, strides, scale, causal flag and dtype code."""
+    if do.dtype != q.dtype or do.shape != q.shape:
+        raise ValueError(f"do {do.dtype} {tuple(do.shape)} does not match q "
+                         f"{q.dtype} {tuple(q.shape)}")
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    code = _kernel_dtype(q, k, v, do)
+    b, sq, n, d = q.shape
+    sk = k.shape[1]
+    bias, b_sn, b_ss = _bias_arg(bias, q, sk)
+    delta = _delta(o, do, None) if delta is None else delta.contiguous()
+    lse = lse.contiguous()
+    return [q, k, v, do, lse, delta, bias], (
+        b, n, sq, sk, d, *_strides(q), *_strides(k), *_strides(v),
+        *_strides(do), b_sn, b_ss, 1.0 / d ** 0.5, int(is_causal), code)
+
+
+def flash_attention_bias_bwd(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, bias: torch.Tensor,
+                             o: torch.Tensor, lse: torch.Tensor,
+                             do: torch.Tensor, *, is_causal: bool = False,
+                             delta: torch.Tensor | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """``(dq, dk, dv)`` from the forward's residuals and the cotangent of o:
+    row 7's bias kind (dq, then dk/dv) on CUDA tensors,
+    :func:`flash_attention_bias_bwd_plain` on CPU tensors. ``delta``:
+    rowsum(do * o), ``(B, N, Sq)`` f32, where the caller has it (it is
+    computed otherwise)."""
+    global bias_bwd_launches
+    if q.device.type == "cpu":
+        return flash_attention_bias_bwd_plain(q, k, v, bias, o, lse, do,
+                                              is_causal=is_causal,
+                                              delta=delta)
+    inputs, args = _bias_bwd_args(q, k, v, bias, o, lse, do, is_causal,
+                                  delta)
+    b, sq, n, d = q.shape
+    sk = k.shape[1]
+    dq = torch.empty((b, sq, n, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, n, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, sk, n, d), dtype=q.dtype, device=q.device)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.jimm_flash_attention_bias_bwd(
+            *(t.data_ptr() for t in inputs), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), *args, stream)
+    _build.check(rc, "jimm_flash_attention_bias_bwd")
+    bias_bwd_launches += 1
+    return dq, dk, dv
+
+
+def dbias_batch_range(b: int, n: int, sq: int, sk: int, d: int,
+                      sms: int) -> int:
+    """How many samples each CTA of the row-8 kernel sums. Its CTAs are the
+    (head, q tile, k tile) tiles (64 rows, 32 above D = 128) times the batch
+    ranges, and an SM holds two of them at D <= 64 (128 registers a thread)
+    or one above (their shared memory). Of 1 to about four waves' worth of
+    ranges, the count that fills its last wave best (the fewest on a tie);
+    at the train shape (12 x 4 x 4 = 192 tiles on 132 SMs) 4 ranges of 32,
+    three waves 97% full, where the whole batch gives 1.45."""
+    rows = 64 if d <= 128 else 32
+    tiles = n * -(-sq // rows) * -(-sk // rows)
+    slots = (2 if d <= 64 else 1) * sms
+
+    def fill(ranges: int) -> float:
+        return tiles * ranges / (-(-tiles * ranges // slots) * slots)
+
+    ranges = max(range(1, min(b, -(-4 * slots // tiles)) + 1),
+                 key=lambda r: (fill(r), -r))
+    return -(-b // ranges)
+
+
+def flash_attention_dbias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          bias: torch.Tensor, o: torch.Tensor,
+                          lse: torch.Tensor, do: torch.Tensor, *,
+                          is_causal: bool = False,
+                          delta: torch.Tensor | None = None) -> torch.Tensor:
+    """The bias's gradient, ``(N, Sq, Sk)`` f32: the row-8 kernel on CUDA
+    tensors (the batch summed in :func:`dbias_batch_range` ranges, the
+    ranges added in order by a second kernel),
+    :func:`flash_attention_dbias_plain` on CPU tensors. ``delta`` as in
+    :func:`flash_attention_bias_bwd`."""
+    global dbias_launches
+    if q.device.type == "cpu":
+        return flash_attention_dbias_plain(q, k, v, bias, o, lse, do,
+                                           is_causal=is_causal, delta=delta)
+    inputs, args = _bias_bwd_args(q, k, v, bias, o, lse, do, is_causal,
+                                  delta)
+    b, sq, n, d = q.shape
+    sk = k.shape[1]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    b_range = dbias_batch_range(b, n, sq, sk, d, sms)
+    ranges = -(-b // b_range)
+    dbias = torch.empty((n, sq, sk), dtype=torch.float32, device=q.device)
+    workspace = (None if ranges == 1 else torch.empty(
+        (ranges, n, sq, sk), dtype=torch.float32, device=q.device))
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.jimm_flash_attention_dbias(
+            *(t.data_ptr() for t in inputs), dbias.data_ptr(),
+            None if workspace is None else workspace.data_ptr(), *args[:5],
+            b_range, *args[5:], stream)
+    _build.check(rc, "jimm_flash_attention_dbias")
+    dbias_launches += 1
+    return dbias
+
+
+class FlashAttentionBiasFn(torch.autograd.Function):
+    """o of softmax flash attention with an additive f32 ``(N, Sq, Sk)``
+    bias, differentiable in q, k, v and the bias (the counterpart of the
+    JAX ``custom_vjp`` ``_flash`` with ``has_bias``). It saves q, k, v, the
+    bias, o and lse; its backward launches the dbias kernel only when the
+    bias needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, is_causal):
+        o, lse = flash_attention_bias_fwd(q, k, v, bias, is_causal=is_causal)
+        ctx.save_for_backward(q, k, v, bias, o, lse)
+        ctx.is_causal = is_causal
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, bias, o, lse = ctx.saved_tensors
+        delta = _delta(o, do, None)  # one pass for both backward kernels
+        dq, dk, dv = flash_attention_bias_bwd(q, k, v, bias, o, lse, do,
+                                              is_causal=ctx.is_causal,
+                                              delta=delta)
+        dbias = (flash_attention_dbias(q, k, v, bias, o, lse, do,
+                                       is_causal=ctx.is_causal, delta=delta)
+                 if ctx.needs_input_grad[3] else None)
+        return dq, dk, dv, dbias, None
+
+
+def flash_attention_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         bias: torch.Tensor, *, is_causal: bool = False
+                         ) -> torch.Tensor:
+    """Flash attention with an additive logits bias broadcastable to
+    ``(N, Sq, Sk)`` (relative-position style; shared by the batch), the
+    counterpart of ``jimm_tpu/ops/flash_attention.py::flash_attention_bias``.
+    Differentiable in the bias: the bias is broadcast to ``(N, Sq, Sk)`` f32
+    as ``_canon_bias`` does, so its gradient (the row-8 kernel's batch sum)
+    flows back to the caller's shape and dtype, summed over heads for a
+    ``(Sq, Sk)`` bias."""
+    _check(q, k, v)
+    if bias.device != q.device:
+        raise ValueError(f"bias on {bias.device}, q on {q.device}")
+    n, sq, sk = q.shape[2], q.shape[1], k.shape[1]
+    bias3 = bias.float().expand(n, sq, sk)
+    return FlashAttentionBiasFn.apply(q, k, v, bias3, is_causal)

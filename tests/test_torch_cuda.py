@@ -786,3 +786,117 @@ def test_siglip_fp8_hybrid_and_sigmoid_on_the_card(card, monkeypatch):
         for name, buf in kernels.named_buffers():
             torch.testing.assert_close(buf.cpu(), bufs[name], rtol=1e-4,
                                        atol=0)
+
+
+# -- biased flash (row 5, row 7's bias kind, row 8) ----------------------------
+
+#: (q shape, Sk, causal, bias kind): "full" (N, Sq, Sk), "2d" (Sq, Sk)
+#: broadcast over heads (a 0 head stride), "neginf" with -inf entries and a
+#: query row with no finite key
+_BIAS = [((128, 256, 12, 64), 256, False, "full"),  # SigLIP-B/16 image
+         ((32, 1, 12, 64), 256, False, "full"),     # MAP probe
+         ((2, 1, 2, 64), 1, False, "full"),
+         ((2, 5, 2, 80), 5, True, "full"),
+         ((2, 257, 2, 64), 257, True, "full"),
+         ((2, 257, 2, 80), 257, False, "2d"),
+         ((2, 65, 2, 64), 65, False, "neginf"),
+         ((1, 70, 1, 256), 130, True, "full")]
+
+
+def _bias_inputs(qshape, sk, kind, dtype, device, seed):
+    """q, k, v, do in ``dtype``, the f32 (N, Sq, Sk) bias (a broadcast view
+    for "2d") and the (B, Sq, N) rows with a finite key."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    b, sq, n, d = qshape
+    q, do = (torch.randn(b, sq, n, d, generator=g, device=device).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, sk, n, d, generator=g, device=device).to(dtype)
+            for _ in range(2))
+    if kind == "2d":
+        bias = torch.randn(sq, sk, generator=g, device=device).expand(n, sq,
+                                                                      sk)
+    else:
+        bias = torch.randn(n, sq, sk, generator=g, device=device)
+    if kind == "neginf":
+        bias[torch.rand(n, sq, sk, generator=g, device=device) < 0.3] = (
+            float("-inf"))
+        bias[:, :, 0] = 0.5
+        bias[0, min(3, sq - 1)] = float("-inf")
+    live = torch.isfinite(bias).any(-1).T[None].expand(b, sq, n)
+    return q, k, v, do, bias, live
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qshape,sk,causal,kind", _BIAS)
+def test_bias_flash_kernels(card, qshape, sk, causal, kind, dtype):
+    """Rows 5, 7-bias and 8 against their plain versions; a row with no
+    finite key gives o = 0, lse = -1e30 and zero gradients."""
+    q, k, v, do, bias, live = _bias_inputs(qshape, sk, kind, dtype, card,
+                                           sum(qshape) + 7 * sk)
+    before = (fa.bias_launches, fa.bias_bwd_launches, fa.dbias_launches,
+              fa.launches, fa.bwd_launches)
+    o, lse = fa.flash_attention_bias_fwd(q, k, v, bias, is_causal=causal)
+    want_o, want_lse = fa.flash_attention_bias_plain(q, k, v, bias,
+                                                     is_causal=causal)
+    got = fa.flash_attention_bias_bwd(q, k, v, bias, want_o, want_lse, do,
+                                      is_causal=causal)
+    dbias = fa.flash_attention_dbias(q, k, v, bias, want_o, want_lse, do,
+                                     is_causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.bias_launches, fa.bias_bwd_launches, fa.dbias_launches,
+            fa.launches, fa.bwd_launches) == (*(c + 1 for c in before[:3]),
+                                              *before[3:])
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    _close(o[live], want_o[live], dtype)
+    _close(lse.transpose(1, 2)[live], want_lse.transpose(1, 2)[live],
+           torch.float32)
+    assert not o[~live].any() and (lse.transpose(1, 2)[~live] == -1e30).all()
+    want = fa.flash_attention_bias_bwd_plain(q, k, v, bias, want_o,
+                                             want_lse, do, is_causal=causal)
+    want_dbias = fa.flash_attention_dbias_plain(q, k, v, bias, want_o,
+                                                want_lse, do,
+                                                is_causal=causal)
+    for a, w in zip((*got, dbias), (*want, want_dbias)):
+        assert a.shape == w.shape and a.dtype == w.dtype
+        scale = max(1.0, w.float().abs().max().item())
+        _close(a / scale, w / scale, dtype if a.dtype == dtype
+               else torch.float32)
+    assert not dbias[torch.isinf(bias)].any()
+
+
+def test_bias_path_runs_the_kernels_and_routes_as_jax(card, monkeypatch):
+    """``dot_product_attention(..., bias=)`` under "auto" on the card runs
+    rows 5, 7-bias and 8 (never their plain versions), its gradient reaches
+    the caller's (Sq, Sk) bias; a 4-D bias or a bias with a mask goes to the
+    einsum path, and no bias kernel launches."""
+    from jimm_tpu_torch.ops import attention
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain version ran on the card")
+
+    for name in ("flash_attention_bias_plain",
+                 "flash_attention_bias_bwd_plain",
+                 "flash_attention_dbias_plain"):
+        monkeypatch.setattr(fa, name, refuse)
+    q, k, v = (torch.randn(2, 9, 2, 16, device=card, requires_grad=True)
+               for _ in range(3))
+    bias = torch.randn(9, 9, device=card, requires_grad=True)
+
+    def counts():
+        return fa.bias_launches, fa.bias_bwd_launches, fa.dbias_launches
+
+    c0 = counts()
+    attention.dot_product_attention(q, k, v, bias=bias).sum().backward()
+    torch.cuda.synchronize()
+    assert counts() == tuple(c + 1 for c in c0)
+    assert bias.grad.shape == (9, 9)
+    # the key-padding mask as the NaFlex tower builds it: the einsum path
+    # takes masks broadcastable to (B, N, Sq, Sk)
+    mask = torch.ones(2, 1, 1, 9, dtype=torch.bool, device=card)
+    c0 = counts()
+    attention.dot_product_attention(q, k, v, bias=bias[None, None])
+    attention.dot_product_attention(q, k, v, bias=bias, mask=mask)
+    assert counts() == c0
+    with pytest.raises(ValueError, match="flash_masked does not take a bias"):
+        attention.dot_product_attention(q, k, v, bias=bias, mask=mask,
+                                        impl="flash")

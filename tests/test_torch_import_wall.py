@@ -84,7 +84,7 @@ def test_build_command_names_sm90a_and_every_source():
     obj_dir = REPO / "build" / "obj"
     compiles = _build.compile_commands(obj_dir)
     cus = sorted(str(p) for p in (REPO / "jimm_tpu_torch" / "csrc").glob("*.cu"))
-    assert len(cus) == 8
+    assert len(cus) == 9
     assert sorted(cmd[-1] for cmd, _ in compiles) == cus
     for cmd, obj in compiles:
         assert "arch=compute_90a,code=sm_90a" in cmd

@@ -112,7 +112,15 @@ def test_sigmoid_impl_on_cpu_is_the_plain_sigmoid():
 @pytest.mark.parametrize("impl", ["flash_bias", "ring", "ulysses",
                                   "saveable"])
 def test_unported_attention_impls_name_the_roadmap(impl):
+    """The JAX impls the port lacks raise NotImplementedError naming their
+    ROADMAP item. ``flash_bias`` is ported: without a bias it raises JAX's
+    ValueError (tests/test_torch_bias.py compares the messages)."""
     q = torch.zeros(1, 4, 1, 8)
+    if impl == "flash_bias":
+        with pytest.raises(ValueError, match="impl='flash_bias' requires a "
+                                             "bias"):
+            attention.dot_product_attention(q, q, q, impl=impl)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         attention.dot_product_attention(q, q, q, impl=impl)
 
@@ -155,10 +163,21 @@ def test_flash_masked_needs_a_mask():
 
 
 def test_flash_with_a_bias_names_the_roadmap():
-    q = torch.zeros(1, 4, 1, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.dot_product_attention(q, q, q, impl="flash",
-                                        bias=torch.zeros(1, 4, 4))
+    """``"flash"`` with a bias (and no mask) is ``"flash_bias"``, as in JAX:
+    the biased flash Function (its plain version on the CPU), matching the
+    einsum reference with the same bias, in value and in the bias's
+    gradient."""
+    rng = np.random.default_rng(7)
+    q, k, v = (_t(rng.standard_normal((2, s, 2, 16), np.float32))
+               for s in (4, 6, 6))
+    bias = _t(rng.standard_normal((2, 4, 6), np.float32)).requires_grad_()
+    got = attention.dot_product_attention(q, k, v, bias=bias, impl="flash")
+    assert type(got.grad_fn).__name__ == "FlashAttentionBiasFnBackward"
+    (grad,) = torch.autograd.grad(got.sum(), bias)
+    want = attention.reference_attention(q, k, v, bias=bias)
+    (want_grad,) = torch.autograd.grad(want.sum(), bias)
+    torch.testing.assert_close(got, want, **TOL)
+    torch.testing.assert_close(grad, want_grad, **TOL)
 
 
 @pytest.mark.parametrize("name", ["gelu", "gelu_tanh", "gelu_pytorch_tanh",
