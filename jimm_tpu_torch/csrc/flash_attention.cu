@@ -4,27 +4,28 @@
 // Replaces the TPU kernel jimm_tpu/ops/flash_attention.py::_fwd_kernel,
 // softmax kind: without a mask (kernel row 3), with one (has_mask, kernel
 // row 4, reached through flash_attention_masked) and with a bias (has_bias,
-// kernel row 5, below; all launched by _flash through pl.pallas_call). Same numerics: the q.k score
-// is accumulated in f32 and scaled after the dot; masked scores are -1e30,
-// not -inf; the running max starts at -1e30 and the running sum at 0; a row
-// with l == 0 divides by 1; o = acc / l is stored in the input dtype and
-// lse = m + log(l) in f32.
+// kernel row 5, below; all launched by _flash through pl.pallas_call).
+// Same numerics: the q.k score is accumulated in f32 and scaled after the
+// dot; masked scores are -1e30, not -inf; the running max starts at -1e30
+// and the running sum at 0; p is rounded to the input dtype before p . v
+// (the sum l is taken of the unrounded p, as on the TPU); a row with l == 0
+// divides by 1; o = acc / l is stored in the input dtype and lse =
+// m + log(l) in f32.
 //
 // The key-padding mask: the TPU kernel adds an f32 row of 0 / -1e30 per key,
 // expanded host-side to one row per (batch, head). Here the HAS_MASK
 // instantiation reads the caller's (B, Sk) mask, one byte a key (nonzero =
 // attend), at the CTA's own batch index: each k tile's 64 bytes are staged
-// in shared memory with the k/v tiles and folded into the keep predicate
+// in shared memory with the k/v tiles (as bytes in the f32 body, as one
+// bit a key in the bf16 body) and folded into the keep predicate
 // that already masks ragged and causal keys. For a finite score
 // s + (-1e30) rounds to -1e30 in f32, so the select is the TPU's add. A
 // query row whose keys are all masked gives finite garbage, as on the TPU.
-// The HAS_MASK instantiation loads its k/v tiles with load_tile_batched:
-// with load_tile, nvcc laid its v loop out as branch-guarded single loads,
-// each waiting out its latency before the next store (in the SASS, one
-// LDG per STS where the unmasked kernel issues four), and the kernel took
-// 1.31x its unmasked twin's time on an H100 80GB HBM3 at 700 W (PERF.md,
-// chip_smoke.py). Without a mask (HAS_MASK false) the kernel is the
-// unmasked one, unchanged, with load_tile as it compiled before.
+// The f32 body's HAS_MASK instantiation loads its k/v tiles with
+// load_tile_batched: with load_tile, nvcc laid its v loop out as
+// branch-guarded single loads, each waiting out its latency before the next
+// store (one LDG per STS in the SASS), and the masked kernel took 1.31x its
+// unmasked twin's time on an H100 80GB HBM3 at 700 W (PERF.md).
 //
 // The sigmoid kind (SIGMOID, kernel row 6; _fwd_kernel with
 // kind="sigmoid", launched by sigmoid_attention): p = sigmoid(s + logit_bias)
@@ -42,8 +43,8 @@
 // caller broadcast) and added to each kept score after the scale: s =
 // (q . k) * scale + bias, the multiply and the add each rounded on its own
 // (__fmul_rn, __fadd_rn: no FMA contraction), as XLA rounds _scores. A
-// half-warp's 16 keys of one row are neighbours in the bias, so its reads
-// coalesce, and the 3 MB bias of the train shape stays in L2 across the
+// quad's 8 keys of one row are neighbours in the bias (a half-warp's 16 in
+// the f32 body), so its reads fill whole sectors, and the 3 MB bias of the train shape stays in L2 across the
 // batch. A bias of -inf (an additive mask) drops a key: p = exp(-inf) = 0.
 // Dropped keys (ragged, causal) give p = 0 here rather than exp(-1e30 - m),
 // which is the same number whenever the row has a finite score; a row with
@@ -52,32 +53,53 @@
 // Instantiated for softmax without a mask only: no entry point of either
 // package passes a bias with a mask or under sigmoid.
 //
-// Design (the FA2 arrangement): one CTA of 256 threads per (batch*head,
-// 64-row q tile). The TPU kernel makes the kv loop a sequential grid axis
-// and carries m/l/acc in VMEM scratch between grid steps; here the kv loop
-// runs inside the CTA over 64-row k/v tiles staged in shared memory, and
-// m/l/acc live in registers. Thread (ty, tx) of the 16 x 16 layout owns
-// q rows 4*ty..4*ty+3: it computes the scores of those rows against keys
-// tx + 16*j, and accumulates those rows of o over output columns
-// 64*g + 4*tx..+3. Row max and row sum are reduced across the 16 threads of
-// a half-warp with shuffles. The head dim is zero-padded to 64/128/256 in
-// shared memory only; device memory is read at its real width D. q/k/v are
-// read through their (B, S, N, D) strides, so the caller's layout needs no
-// transposed copy. Ragged Sq and Sk are masked inside; causal skips the k/v
-// tiles past the q tile's last row (top-left aligned, as on the TPU).
+// Design for bf16 (the FA2 arrangement on mma.sync tensor cores): one CTA
+// of four warps per (batch*head, 64-row q tile); each warp owns 16 q rows.
+// The TPU kernel makes the kv loop a sequential grid axis and carries
+// m/l/acc in VMEM scratch between grid steps; here the kv loop runs inside
+// the CTA over 64-key k/v tiles, and m/l/acc live in registers. q and each
+// k/v tile come from device memory by cp.async, 16 bytes a thread along D
+// (contiguous in the (B, S, N, D) layout, read through its strides), into
+// shared tiles whose 16-byte chunks are XOR-swizzled by row, so that
+// ldmatrix reads them free of bank conflicts; the k/v tiles are double
+// buffered, the next tile's copies in flight while this one is computed.
+// q is read once into registers as mma A fragments (D <= 128; at D = 256
+// from shared memory each tile, which keeps the kernel within its
+// registers). S = q . k^T runs as m16n8k16 bf16 mma with f32 accumulators;
+// the per-kind epilogue (scale, keep predicate, bias, sigmoid) runs on the
+// fragments, with the same rounding points as the TPU kernel, and the
+// online max and sum are reduced across each row's quad of threads with
+// shuffles. p is rounded to bf16 and packed in registers into the A
+// fragments of p . v (FA2's register reuse), the bf16 p the TPU kernel's
+// MXU dot takes (p.astype(v.dtype)); v is read with ldmatrix.trans as the
+// B operand. The head dim is zero-padded to 64/128/256 in shared memory
+// only; device memory is read at its real width D (a partial chunk is
+// zero-filled by cp.async). Rows whose base is not on a 16-byte boundary
+// (a strided view, an odd D) are loaded element by element into the same
+// layout. Ragged Sq and Sk are masked inside; causal skips the k/v tiles
+// past the q tile's last row (top-left aligned, as on the TPU).
 //
-// What bounds it on the H100: at the served shapes (S <= 256, D = 64) the
-// bytes: ~4 bytes an element of q/k/v/o in f32, 2 in bf16, against
+// f32 inputs keep the FMA body below (one CTA of 256 threads in a 16 x 16
+// layout, f32 tiles in shared memory): mma.sync would round them to TF32,
+// and f32 is the port's exactness path, so the dispatch by dtype is a
+// compile-time choice, not a fallback.
+//
+// What bounds it on the H100: at the served and trained shapes (S <= 256,
+// D = 64) the bytes: 2 bytes an element of q/k/v/o in bf16 against
 // 4*Sq*Sk*D flops, under the ~295 flops a byte where the tensor cores would
-// be the limit. This first version computes with f32 FMAs (f32 inputs must
-// not round to TF32, and one code path serves both dtypes), so at S=256 its
-// time is set by those FMAs rather than by the bytes; the tensor-core
-// (mma/wgmma) version is later work. f32 tiles in shared memory keep each
-// input element converted once, and row strides padded by 4 floats keep the
-// float4 reads free of bank conflicts. The mask adds B*Sk bytes to what is
-// read (32 KB at the NaFlex train shape, against ~200 MB of q/k/v/o), and
-// masked keys are computed like real ones, so the masked kernel should take
-// its unmasked twin's time.
+// be the limit (train image shape (128, 256, 12, 64): 0.0606 ms by bytes,
+// 0.026 ms by operations at 989 TFLOP/s). On mma.sync the products leave
+// the CUDA cores' FMA pipe (67 TFLOP/s), and the per-score epilogue (the
+// exp, the running max, the bias reads) on the CUDA cores sets the pace
+// (PERF.md: 3.6x the bytes bound at that shape). The mask adds B*Sk bytes to
+// what is read (32 KB at the NaFlex train shape, against ~200 MB of
+// q/k/v/o), and masked keys are computed like real ones, so the masked
+// kernel should take its unmasked twin's time.
+
+#include <math_constants.h>
+
+#include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -85,13 +107,15 @@ namespace {
 
 constexpr int kBQ = 64;       // q rows per CTA
 constexpr int kBK = 64;       // k/v rows per tile
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // the f32 body
 constexpr float kNegInf = -1e30f;
+
+// -- the f32 body (FMA) --------------------------------------------------
 
 // rows [r0, r0 + 64) of one head's (S, D) slice -> f32 shared tile with row
 // stride DP + 4; rows >= n and columns >= d are zero
-template <typename T, int DP>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+template <int DP>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           long long row_stride, int r0, int n,
                                           int d) {
   constexpr int LD = DP + 4;
@@ -99,7 +123,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
     const int r = idx / DP, c = idx % DP;
     float val = 0.f;
     if (r0 + r < n && c < d)
-      val = jimm::to_f32(src[static_cast<long long>(r0 + r) * row_stride + c]);
+      val = src[static_cast<long long>(r0 + r) * row_stride + c];
     dst[r * LD + c] = val;
   }
 }
@@ -108,8 +132,8 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
 // thread's column is fixed and its rows advance by kThreads / DP; each load
 // address is then the thread's base plus a compile-time multiple of one
 // row step, and each thread issues four loads before their four stores
-template <typename T, int DP>
-__device__ __forceinline__ void load_tile_batched(float* dst, const T* src,
+template <int DP>
+__device__ __forceinline__ void load_tile_batched(float* dst, const float* src,
                                                   long long row_stride,
                                                   int r0, int n, int d) {
   static_assert(kThreads % DP == 0, "a thread's column must be fixed");
@@ -118,7 +142,7 @@ __device__ __forceinline__ void load_tile_batched(float* dst, const T* src,
   constexpr int kSteps = kBK / kRowStep;      // 16, 32 or 64 rows a thread
   const int c = threadIdx.x % DP, r = threadIdx.x / DP;
   const bool col_in = c < d;
-  const T* base = src + static_cast<long long>(r0 + r) * row_stride + c;
+  const float* base = src + static_cast<long long>(r0 + r) * row_stride + c;
   const long long step = kRowStep * row_stride;
   float* out = dst + r * LD + c;
 #pragma unroll
@@ -127,17 +151,17 @@ __device__ __forceinline__ void load_tile_batched(float* dst, const T* src,
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const bool in = col_in && r0 + r + (s0 + u) * kRowStep < n;
-      val[u] = in ? jimm::to_f32(base[(s0 + u) * step]) : 0.f;
+      val[u] = in ? base[(s0 + u) * step] : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u) out[(s0 + u) * kRowStep * LD] = val[u];
   }
 }
 
-template <typename T, int DP, bool HAS_MASK, bool SIGMOID, bool HAS_BIAS>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, float* __restrict__ lse, int heads, int sq, int sk,
+template <int DP, bool HAS_MASK, bool SIGMOID, bool HAS_BIAS>
+__global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse, int heads, int sq, int sk,
     int d, long long q_sb, long long q_ss, long long q_sn, long long k_sb,
     long long k_ss, long long k_sn, long long v_sb, long long v_ss,
     long long v_sn, float scale, float logit_bias, int causal,
@@ -157,12 +181,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const int bi = bh / heads, h = bh % heads;
   const int q0 = blockIdx.y * kBQ;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const T* qb = q + bi * q_sb + h * q_sn;
-  const T* kb = k + bi * k_sb + h * k_sn;
-  const T* vb = v + bi * v_sb + h * v_sn;
+  const float* qb = q + bi * q_sb + h * q_sn;
+  const float* kb = k + bi * k_sb + h * k_sn;
+  const float* vb = v + bi * v_sb + h * v_sn;
   const float* hbias = HAS_BIAS ? bias + h * bias_sn : nullptr;
 
-  load_tile<T, DP>(qs, qb, q_ss, q0, sq, d);
+  load_tile<DP>(qs, qb, q_ss, q0, sq, d);
 
   float m[4], l[4], acc[4][DG * 4];
 #pragma unroll
@@ -178,14 +202,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   for (int k0 = 0; k0 < kv_end; k0 += kBK) {
     __syncthreads();  // the previous tile's k/v/p are no longer read
     if constexpr (HAS_MASK) {
-      load_tile_batched<T, DP>(ks, kb, k_ss, k0, sk, d);
-      load_tile_batched<T, DP>(vs, vb, v_ss, k0, sk, d);
+      load_tile_batched<DP>(ks, kb, k_ss, k0, sk, d);
+      load_tile_batched<DP>(vs, vb, v_ss, k0, sk, d);
       const int col = k0 + threadIdx.x;
       if (threadIdx.x < kBK)
         attend[threadIdx.x] = col < sk && mask[bi * mask_sb + col] != 0;
     } else {
-      load_tile<T, DP>(ks, kb, k_ss, k0, sk, d);
-      load_tile<T, DP>(vs, vb, v_ss, k0, sk, d);
+      load_tile<DP>(ks, kb, k_ss, k0, sk, d);
+      load_tile<DP>(vs, vb, v_ss, k0, sk, d);
     }
     __syncthreads();
 
@@ -225,7 +249,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
                             (!HAS_MASK || attend[tx + 16 * j]);
           const float x = __fadd_rn(__fmul_rn(s[i][j], scale), logit_bias);
           ps[(ty * 4 + i) * LDP + tx + 16 * j] =
-              keep ? jimm::round_to<T>(1.f / (1.f + expf(-x))) : 0.f;
+              keep ? 1.f / (1.f + expf(-x)) : 0.f;
         }
         continue;
       }
@@ -307,19 +331,375 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     if (row >= sq) continue;
     // the sigmoid kind's o is the accumulator itself
     const float ll = SIGMOID || l[i] == 0.f ? 1.f : l[i];
-    T* orow = o + (static_cast<long long>(bi) * sq + row) * heads * d +
+    float* orow = o + (static_cast<long long>(bi) * sq + row) * heads * d +
               static_cast<long long>(h) * d;
 #pragma unroll
     for (int g = 0; g < DG; ++g)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = g * 64 + tx * 4 + e;
-        if (col < d) orow[col] = jimm::from_f32<T>(acc[i][g * 4 + e] / ll);
+        if (col < d) orow[col] = acc[i][g * 4 + e] / ll;
       }
     if (!SIGMOID && tx == 0)
       lse[static_cast<long long>(bh) * sq + row] = m[i] + logf(ll);
   }
 }
+
+// -- the bf16 body (mma.sync) ----------------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kWarps = 4;  // 16 q rows each
+constexpr int kThreads = 32 * kWarps;
+static_assert(kBQ == 16 * kWarps, "a warp owns 16 rows of the q tile");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// byte offset of 16-byte chunk c of row r in a tile of DP-wide bf16 rows:
+// the chunk index XORed with the row's low three bits, so the eight rows an
+// ldmatrix reads at one logical chunk sit in eight different bank groups
+template <int DP>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return static_cast<uint32_t>((r * (DP / 8) + (c ^ (r & 7))) * 16);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a (16 x 16, row-major fragments) . b (16 x 8, column fragments)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 rounded to bf16, the lower column in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// rows [r0, r0 + 64) of one head's (S, D) bf16 slice into the swizzled
+// tile at dst; rows >= n and columns >= d are zero. vec: every row of the
+// slice starts on a 16-byte boundary, so a 16-byte chunk is one cp.async
+// (zero-filled past d, or wholly past n); else element by element.
+template <int DP>
+__device__ __forceinline__ void load_tile(unsigned char* dst, const bf16* src,
+                                          long long row_stride, int r0, int n,
+                                          int d, bool vec) {
+  constexpr int kChunks = DP / 8;
+  const uint32_t base = smem_u32(dst);
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < kBK * kChunks; idx += kThreads) {
+    const int r = idx / kChunks, c = idx % kChunks, col = c * 8;
+    const bool in = r0 + r < n && col < d;
+    const bf16* p = src + static_cast<long long>(r0 + r) * row_stride + col;
+    const uint32_t off = swz<DP>(r, c);
+    if (vec) {
+      cp_async16(base + off, in ? p : src, in ? min(8, d - col) * 2 : 0);
+    } else {
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t lo = in && col + 2 * e < d
+                                ? __bfloat16_as_ushort(p[2 * e]) : 0u;
+        const uint32_t hi = in && col + 2 * e + 1 < d
+                                ? __bfloat16_as_ushort(p[2 * e + 1]) : 0u;
+        w[e] = lo | (hi << 16);
+      }
+      *reinterpret_cast<uint4*>(dst + off) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+// CTAs an SM should hold: at D = 64 a cap of 128 registers for four
+// (timed side by side on an H100 80GB HBM3: 7% faster unmasked, 13% for
+// sigmoid, and the masked kind, once its fully attended tiles took the
+// epilogue without the keep test, faster still); larger D spills under it
+template <int DP>
+constexpr int kMinCtas = DP == 64 ? 4 : 1;
+
+// Fragment layouts of mma.m16n8k16 (lane = 4 g + t): an f32 score or
+// output block of 16 rows x 8 columns holds (row g, columns 2t, 2t + 1) in
+// elements 0, 1 and (row g + 8, the same columns) in elements 2, 3.
+template <int DP, bool HAS_MASK, bool SIGMOID, bool HAS_BIAS>
+__global__ void __launch_bounds__(kThreads, kMinCtas<DP>)
+    flash_fwd_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ o,
+    float* __restrict__ lse, int heads, int sq, int sk, int d,
+    long long q_sb, long long q_ss, long long q_sn, long long k_sb,
+    long long k_ss, long long k_sn, long long v_sb, long long v_ss,
+    long long v_sn, float scale, float logit_bias, int causal,
+    const unsigned char* __restrict__ mask, long long mask_sb,
+    const float* __restrict__ bias, long long bias_sn, long long bias_ss,
+    int vec) {
+  constexpr int kTileBytes = kBK * DP * 2;  // one q, k or v tile
+  constexpr int kKC = DP / 16;              // k16 steps over the head dim
+  constexpr bool kQRegs = DP <= 128;        // q held as A fragments
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  unsigned char* qs = smem_mma;  // then k, v of buffer 0, k, v of buffer 1
+  // each k tile's attended keys (real and unmasked), one bit a key
+  __shared__ uint32_t attend[2][HAS_MASK ? 2 : 1];
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bh = blockIdx.x;
+  const int bi = bh / heads, h = bh % heads;
+  const int q0 = blockIdx.y * kBQ;
+  const bf16* qb = q + bi * q_sb + h * q_sn;
+  const bf16* kb = k + bi * k_sb + h * k_sn;
+  const bf16* vb = v + bi * v_sb + h * v_sn;
+  const float* hbias = HAS_BIAS ? bias + h * bias_sn : nullptr;
+  const int r_lo = q0 + warp * 16 + lane / 4;  // this lane's rows: +0, +8
+
+  load_tile<DP>(qs, qb, q_ss, q0, sq, d, vec);
+  cp_async_commit();
+  // causal: keys past the tile's last query row are masked for every row
+  const int kv_end = causal ? min(sk, q0 + kBQ) : sk;
+  const int tiles = (kv_end + kBK - 1) / kBK;
+  auto issue = [&](int t) {
+    const int buf = t & 1, k0 = t * kBK;
+    load_tile<DP>(qs + (1 + 2 * buf) * kTileBytes, kb, k_ss, k0, sk, d, vec);
+    load_tile<DP>(qs + (2 + 2 * buf) * kTileBytes, vb, v_ss, k0, sk, d, vec);
+    if constexpr (HAS_MASK) {
+      const int col = k0 + threadIdx.x;
+      if (threadIdx.x < kBK) {  // warps 0 and 1, whole
+        const uint32_t bits = __ballot_sync(
+            0xffffffffu, col < sk && mask[bi * mask_sb + col] != 0);
+        if (lane == 0) attend[buf][warp] = bits;
+      }
+    }
+    cp_async_commit();
+  };
+  issue(0);
+
+  uint32_t qf[kQRegs ? kKC : 1][4];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1, k0 = t * kBK;
+    if (t + 1 < tiles) {
+      issue(t + 1);  // into the buffer the previous tile released
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint32_t ks = smem_u32(qs + (1 + 2 * buf) * kTileBytes);
+    const uint32_t vs = smem_u32(qs + (2 + 2 * buf) * kTileBytes);
+    // A fragments of q: lanes 0-15 address rows 0-15 at the k16 step's
+    // first 8 columns, lanes 16-31 at its last 8
+    const uint32_t q_addr_row = warp * 16 + lane % 16;
+    if constexpr (kQRegs) {
+      if (t == 0) {
+#pragma unroll
+        for (int kc = 0; kc < kKC; ++kc)
+          ldmatrix_x4(qf[kc], smem_u32(qs) +
+                                  swz<DP>(q_addr_row, kc * 2 + lane / 16));
+      }
+    }
+
+    // s = q . k^T: 16 rows x 64 keys a warp, 8 blocks of 8 keys
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < kKC; ++kc) {
+      uint32_t a[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[kc][e];
+      } else {
+        ldmatrix_x4(a, smem_u32(qs) + swz<DP>(q_addr_row, kc * 2 + lane / 16));
+      }
+#pragma unroll
+      for (int j2 = 0; j2 < 4; ++j2) {
+        // keys 16 j2 + (lane / 16) * 8 + lane % 8 at this k16 step's first
+        // (lanes 0-7, 16-23) or last (8-15, 24-31) 8 columns: the B
+        // fragments of key blocks 2 j2 and 2 j2 + 1
+        uint32_t b[4];
+        ldmatrix_x4(b, ks + swz<DP>(j2 * 16 + (lane / 16) * 8 + lane % 8,
+                                    kc * 2 + (lane / 8) % 2));
+        mma_bf16(s[2 * j2], a, b[0], b[1]);
+        mma_bf16(s[2 * j2 + 1], a, b[2], b[3]);
+      }
+    }
+
+    // the kinds' epilogue on the fragments; s becomes p (sigmoid) or the
+    // scaled score and the rows' max (softmax). A key counts when it is
+    // real, not past the row (causal) and attended (mask), and, for the
+    // bias kind, whose bias is read per score, when its row is real; a
+    // tile in which every key counts for every row of this warp (a NaFlex
+    // batch's tiles but the last of its padded ones) takes the epilogue
+    // without the test.
+    [[maybe_unused]] uint64_t attended = ~0ull;
+    if constexpr (HAS_MASK)
+      attended = attend[buf][0] |
+                 (static_cast<uint64_t>(attend[buf][1]) << 32);
+    const bool interior = attended == ~0ull && k0 + kBK <= sk &&
+                          (!causal || k0 + kBK - 1 <= q0 + warp * 16) &&
+                          (!HAS_BIAS || q0 + warp * 16 + 16 <= sq);
+    float mx[2] = {kNegInf, kNegInf};
+    auto epilogue = [&](auto edge) {
+      constexpr bool kEdge = decltype(edge)::value;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = r_lo + 8 * (e >> 1);
+          const int col = k0 + j * 8 + 2 * (lane % 4) + (e & 1);
+          bool keep = true;
+          if constexpr (kEdge)
+            keep = col < sk && (!causal || col <= row) &&
+                   (!HAS_MASK || (attended >> (col - k0)) & 1) &&
+                   (!HAS_BIAS || row < sq);
+          if constexpr (SIGMOID) {
+            const float x =
+                __fadd_rn(__fmul_rn(s[j][e], scale), logit_bias);
+            s[j][e] = keep ? 1.f / (1.f + expf(-x)) : 0.f;
+          } else {
+            if constexpr (HAS_BIAS) {
+              // a dropped key is -inf: below the running max's -1e30
+              // start, and exp(-inf - m) = 0, so it adds nothing to l or
+              // acc
+              s[j][e] = keep ? __fadd_rn(__fmul_rn(s[j][e], scale),
+                                         hbias[row * bias_ss + col])
+                             : -CUDART_INF_F;
+            } else {
+              s[j][e] = keep ? s[j][e] * scale : kNegInf;
+            }
+            mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+          }
+        }
+    };
+    if (interior)
+      epilogue(std::false_type{});
+    else
+      epilogue(std::true_type{});
+    if constexpr (!SIGMOID) {
+      float corr[2], m_new[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        m_new[i] = fmaxf(m[i], mx[i]);
+        corr[i] = expf(m[i] - m_new[i]);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = expf(s[j][e] - m_new[e >> 1]);
+          rs[e >> 1] += s[j][e];
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
+        rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
+        l[i] = l[i] * corr[i] + rs[i];
+        m[i] = m_new[i];
+      }
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        acc[j][0] *= corr[0];
+        acc[j][1] *= corr[0];
+        acc[j][2] *= corr[1];
+        acc[j][3] *= corr[1];
+      }
+    }
+
+    // acc += p . v: the score blocks 2 kk, 2 kk + 1 are the A fragment of
+    // keys 16 kk..16 kk + 15, rounded to bf16; v's B fragments by
+    // ldmatrix.trans (lanes 0-7 keys +0, 8-15 keys +8 at the d16 step's
+    // first 8 columns, 16-31 the same at its last 8)
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < DP / 16; ++dp) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(
+            b, vs + swz<DP>(kk * 16 + ((lane / 8) % 2) * 8 + lane % 8,
+                            dp * 2 + lane / 16));
+        mma_bf16(acc[2 * dp], a, b[0], b[1]);
+        mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // this tile's buffer is no longer read
+  }
+
+  const bool pairs = d % 2 == 0;  // a column pair is one 4-byte store
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r_lo + 8 * i;
+    if (row >= sq) continue;
+    // the sigmoid kind's o is the accumulator itself
+    const float ll = SIGMOID || l[i] == 0.f ? 1.f : l[i];
+    bf16* orow = o + (static_cast<long long>(bi) * sq + row) * heads * d +
+                 static_cast<long long>(h) * d;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = j * 8 + 2 * (lane % 4);
+      const float y0 = acc[j][2 * i] / ll, y1 = acc[j][2 * i + 1] / ll;
+      if (pairs && col + 1 < d) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(y0, y1);
+      } else {
+        if (col < d) orow[col] = __float2bfloat16(y0);
+        if (col + 1 < d) orow[col + 1] = __float2bfloat16(y1);
+      }
+    }
+    if (!SIGMOID && lane % 4 == 0)
+      lse[static_cast<long long>(bh) * sq + row] = m[i] + logf(ll);
+  }
+}
+
+}  // namespace tc
 
 struct Args {
   const void *q, *k, *v;
@@ -335,21 +715,44 @@ struct Args {
   cudaStream_t stream;
 };
 
+// f32 on the FMA body, bf16 on the mma.sync body
 template <typename T, int DP, bool HAS_MASK, bool SIGMOID, bool HAS_BIAS>
 cudaError_t launch(const Args& a) {
-  auto kernel = flash_fwd_kernel<T, DP, HAS_MASK, SIGMOID, HAS_BIAS>;
-  const int smem =
-      ((kBQ + 2 * kBK) * (DP + 4) + kBQ * (kBK + 4)) * sizeof(float);
-  cudaError_t err = jimm::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid(a.batch * a.heads, (a.sq + kBQ - 1) / kBQ);
-  kernel<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<T*>(a.o),
-      static_cast<float*>(a.lse), a.heads, a.sq, a.sk, a.d, a.q_sb, a.q_ss,
-      a.q_sn, a.k_sb, a.k_ss, a.k_sn, a.v_sb, a.v_ss, a.v_sn, a.scale,
-      a.logit_bias, a.causal, static_cast<const unsigned char*>(a.mask),
-      a.mask_sb, static_cast<const float*>(a.bias), a.bias_sn, a.bias_ss);
+  if constexpr (std::is_same_v<T, float>) {
+    auto kernel = flash_fwd_f32_kernel<DP, HAS_MASK, SIGMOID, HAS_BIAS>;
+    const int smem =
+        ((kBQ + 2 * kBK) * (DP + 4) + kBQ * (kBK + 4)) * sizeof(float);
+    cudaError_t err = jimm::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<float*>(a.o),
+        static_cast<float*>(a.lse), a.heads, a.sq, a.sk, a.d, a.q_sb, a.q_ss,
+        a.q_sn, a.k_sb, a.k_ss, a.k_sn, a.v_sb, a.v_ss, a.v_sn, a.scale,
+        a.logit_bias, a.causal, static_cast<const unsigned char*>(a.mask),
+        a.mask_sb, static_cast<const float*>(a.bias), a.bias_sn, a.bias_ss);
+  } else {
+    auto kernel = tc::flash_fwd_mma_kernel<DP, HAS_MASK, SIGMOID, HAS_BIAS>;
+    const int smem = 5 * kBK * DP * static_cast<int>(sizeof(T));
+    cudaError_t err = jimm::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    // cp.async needs every row of q, k and v on a 16-byte boundary
+    bool vec = true;
+    for (const void* p : {a.q, a.k, a.v})
+      vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+    for (long long st : {a.q_sb, a.q_ss, a.q_sn, a.k_sb, a.k_ss, a.k_sn,
+                         a.v_sb, a.v_ss, a.v_sn})
+      vec = vec && st % 8 == 0;
+    kernel<<<grid, tc::kThreads, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<T*>(a.o),
+        static_cast<float*>(a.lse), a.heads, a.sq, a.sk, a.d, a.q_sb, a.q_ss,
+        a.q_sn, a.k_sb, a.k_ss, a.k_sn, a.v_sb, a.v_ss, a.v_sn, a.scale,
+        a.logit_bias, a.causal, static_cast<const unsigned char*>(a.mask),
+        a.mask_sb, static_cast<const float*>(a.bias), a.bias_sn, a.bias_ss,
+        static_cast<int>(vec));
+  }
   return cudaGetLastError();
 }
 

@@ -6,13 +6,18 @@ version, the per-tensor scaling helpers, and the differentiable
 Kernel row 12 of the port's kernel table replaces the Pallas TPU kernel
 ``jimm_tpu/ops/fp8_matmul.py::_matmul_kernel``; its CUDA source is
 ``jimm_tpu_torch/csrc/fp8_matmul.cu``: ``out = (a . b^T) * scale + bias``
-over K-contiguous fp8 operands, each element converted to f32 once and
-summed with f32 FMAs (the product of two fp8 values is exact in f32, so the
-kernel and its plain version differ only in summation order), the epilogue's
-multiply and add rounded one at a time, as XLA rounds the TPU kernel's. An
-output with too few 128 x 128 tiles to fill the card (the weight gradients)
-is summed over K in ranges, each range's f32 sums in a workspace this
-wrapper allocates, then added in order (:func:`k_range`).
+over K-contiguous fp8 operands, fed by TMA and widened exactly to f16 in
+shared memory for f16 ``wgmma`` with an f32 accumulator (fp8 ``wgmma``
+keeps ~14 bits in its sums: PERF.md), the epilogue's multiply and add
+rounded one at a time, as XLA rounds the TPU kernel's. The kernel takes K
+a multiple of 16 and 16-byte aligned operands (a TMA row stride must be);
+:func:`tma_operands` zero-pads K otherwise, as JAX's ``_pad2`` pads K to
+128 (zero products add nothing). An output with
+too few 128 x 128 tiles to fill the card (the weight gradients) is summed
+over K in ranges, each range's f32 sums in a workspace this wrapper
+allocates, then added in order (:func:`k_range`). The kernel differs from
+its plain version by the order of its f32 sums and the tensor core's
+truncation of them: :func:`gemm_error_bound` is the bound it is held to.
 
 Scaling is per tensor and explicit, as in the JAX package: the scales are
 f32 rank-0 tensors the caller passes (delayed scales from amax histories in
@@ -36,6 +41,8 @@ module-level ``launches`` counts the forward's kernel launches and
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -52,10 +59,21 @@ _FORMATS = {E4M3: 0, E5M2: 1}
 #: the operand formats the kernel is built for: (a, b)
 _KERNEL_FORMATS = {(E4M3, E4M3), (E5M2, E4M3)}
 
-#: the kernel's output tile, K staging step, and least K range a CTA sums
+#: the kernel's output tile, the step of its K ranges (whole 64-wide
+#: stages), and the least K range a CTA sums (a shorter one spends its time
+#: filling the pipeline)
 _TILE = 128
-_STEP_K = 32
-_MIN_K_RANGE = 256
+_RANGE_STEP = 128
+_MIN_K_RANGE = 512
+#: a TMA row stride and base address are multiples of 16 bytes
+_TMA_ALIGN = 16
+#: the K of one f16 wgmma (the kernel widens fp8 to f16 in shared memory)
+#: and the fraction bits of its f32 accumulator, below whose leading bit
+#: the instruction's addends are aligned and truncated
+_WGMMA_K = 16
+_ACC_FRACTION_BITS = 23
+#: lambda of the gate's sqrt(K) growth of rounding errors
+_GROWTH = 2.0
 
 #: kernel launches since the count was last set to 0: the forward's GEMMs,
 #: and the backward's (dx and dw)
@@ -113,16 +131,101 @@ def fp8_gemm_plain(a_q: torch.Tensor, b_q: torch.Tensor, scale: torch.Tensor,
 
 
 def k_range(m: int, n: int, k: int, sms: int) -> int:
-    """The length of the K ranges the kernel sums (a multiple of its 32-byte
-    staging step): all of K when the output's 128 x 128 tiles give every SM
-    two CTAs (one wave); otherwise enough ranges for four such waves, so
-    that the last, partial wave costs little, each range at least 256 of K
-    long."""
+    """The length of the K ranges the kernel sums, a multiple of 128 (two of
+    its 64-wide stages). An output of at least four 128 x 128 tiles an SM
+    (two waves of the two CTAs an SM holds) takes all of K in one range; a
+    smaller one is split into enough ranges for four CTAs an SM, each at
+    least 512 of K long."""
     tiles = -(-m // _TILE) * -(-n // _TILE)
-    if tiles >= 2 * sms:
-        return -(-k // _STEP_K) * _STEP_K
-    ranges = max(1, min(-(-8 * sms // tiles), k // _MIN_K_RANGE))
-    return -(-k // (ranges * _STEP_K)) * _STEP_K
+    steps = -(-k // _RANGE_STEP)
+    ranges = 1
+    if tiles < 4 * sms:
+        ranges = max(1, min(-(-4 * sms // tiles), k // _MIN_K_RANGE))
+    return -(-steps // ranges) * _RANGE_STEP
+
+
+def tma_operands(a_q: torch.Tensor, b_q: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The operands as the kernel takes them: unchanged when K is a multiple
+    of 16 and both start on a 16-byte boundary, else both copied with K
+    zero-padded to the next multiple of 16 (a zero product adds nothing, so
+    the GEMM is the same)."""
+    k = a_q.shape[1]
+    if k % _TMA_ALIGN == 0 and all(t.data_ptr() % _TMA_ALIGN == 0
+                                   for t in (a_q, b_q)):
+        return a_q, b_q
+    k_pad = -(-k // _TMA_ALIGN) * _TMA_ALIGN
+
+    def padded(t: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros((t.shape[0], k_pad), dtype=torch.uint8,
+                          device=t.device)
+        out[:, :k] = t.view(torch.uint8)
+        return out.view(t.dtype)
+
+    return padded(a_q), padded(b_q)
+
+
+def accumulation_tolerance(k: int) -> float:
+    """``c`` of :func:`gemm_error_bound` for a sum over ``k``.
+
+    The kernel widens fp8 to f16 exactly, so every product is exact, and
+    each f16 wgmma adds 16 of them to the f32 accumulator: the 17 addends
+    aligned to the largest and each truncated to 23 bits below its leading
+    bit, an error under ``17 * 2**-23`` of the largest addend, itself at
+    most the sum of absolute products. That is the first term, the worst
+    case of one instruction. Over many instructions the worst case grows
+    as ``k`` (``3.1 k`` steps of ``2**-24`` in all), which at K = 32768
+    allows most of a typical output of random signs, whose magnitude is
+    about ``1.25 / sqrt(k)`` of its sum of absolute products. The second
+    term is instead the growth of independent rounding errors, ``lambda *
+    sqrt(k)`` steps of ``2**-24`` with ``lambda = 2`` (Higham and Mary's
+    probabilistic analysis), for the kernel's sums and the plain version's
+    alike. The inputs it holds are random-sign; a sum of one sign is held
+    exactly instead (every partial sum an integer below 2**24)."""
+    one_instruction = (_WGMMA_K + 1) * 2.0 ** (24 - _ACC_FRACTION_BITS)
+    return (one_instruction + _GROWTH * math.sqrt(k)) * 2.0 ** -24
+
+
+def gemm_error_bound(a_q: torch.Tensor, b_q: torch.Tensor,
+                     scale: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Elementwise bound on ``|kernel - plain|`` for the GEMM of ``a_q (M,
+    K)`` and ``b_q (N, K)`` at ``scale``, ``want`` the plain version's
+    result: ``accumulation_tolerance(K) * (|a_q| . |b_q|^T) * |scale|`` for
+    the sums and the scale, plus ``2**-22 * |want|`` for the bias add, which
+    rounds each side once more (the sum of absolute products is itself an
+    f32 matmul of nonnegative terms, within ``k * 2**-24`` of its value)."""
+    abs_sum = a_q.float().abs() @ b_q.float().abs().T
+    c = accumulation_tolerance(a_q.shape[1])
+    return (c * abs_sum * scale.float().abs()
+            + 2.0 ** -22 * want.float().abs())
+
+
+def gate_excess(got: torch.Tensor, want: torch.Tensor,
+                bound: torch.Tensor) -> float:
+    """The largest amount by which ``|got - want|`` exceeds ``bound``
+    (<= 0 when the kernel keeps to it); a non-finite value fails."""
+    diff = (got.float() - want.float()).abs()
+    excess = (diff - bound).max().item()
+    return excess if bool(torch.isfinite(got).all()) else math.inf
+
+
+def check_gemm(a_q: torch.Tensor, b_q: torch.Tensor, scale: torch.Tensor,
+               bias: torch.Tensor | None, got: torch.Tensor
+               ) -> tuple[float, float, bool, torch.Tensor]:
+    """Row 12's gate on the kernel's output ``got`` of ``fp8_gemm(a_q,
+    b_q, scale, bias)``: the excess over :func:`gemm_error_bound` against
+    the plain version (<= 0 passes), the largest error over the sum of
+    absolute products (a reading), whether the epilogue is exact (the same
+    GEMM launched at scale 1 and without the bias gives ``got`` back
+    through the plain epilogue's multiply and add, bit for bit: both
+    launches sum K in the same order), and the plain version's output."""
+    want = fp8_gemm_plain(a_q, b_q, scale, bias)
+    excess = gate_excess(got, want, gemm_error_bound(a_q, b_q, scale, want))
+    abs_sum = (a_q.float().abs() @ b_q.float().abs().T) * scale.abs()
+    ratio = ((got - want).abs() / abs_sum.clamp_min(1e-30)).max().item()
+    raw = fp8_gemm(a_q, b_q, torch.ones_like(scale), backward=True)
+    epilogue = raw * scale if bias is None else raw * scale + bias
+    return excess, ratio, torch.equal(got, epilogue), want
 
 
 def _check(a_q: torch.Tensor, b_q: torch.Tensor, scale: torch.Tensor,
@@ -174,6 +277,7 @@ def fp8_gemm(a_q: torch.Tensor, b_q: torch.Tensor, scale: torch.Tensor,
                          "bias, on the device of a_q")
     if not all(t.is_contiguous() for t in operands + [a_q, b_q]):
         raise ValueError("fp8_gemm kernel needs contiguous operands")
+    a_q, b_q = tma_operands(a_q, b_q)
     m, k = a_q.shape
     n = b_q.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=a_q.device)

@@ -64,7 +64,7 @@ _FLASH = [((32, 256, 12, 64), 256, False),   # image self-attention
           ((32, 64, 12, 64), 64, False),     # text self-attention
           ((2, 5, 2, 80), 5, True), ((2, 257, 2, 64), 257, True),
           ((2, 1, 2, 32), 257, False), ((2, 257, 2, 80), 257, False),
-          ((1, 70, 1, 256), 130, True)]
+          ((1, 70, 1, 256), 130, True), ((2, 257, 2, 256), 257, False)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -597,12 +597,23 @@ def _fp8_operands(m: int, k: int, n: int, a_dtype, device):
             fp8.quantize_tensor(b, sb, fp8.E4M3), sa * sb, bias)
 
 
+def _fp8_gate(a_q, b_q, scale, bias, got) -> None:
+    """Row 12's gate, ``fp8_matmul.check_gemm`` (chip_smoke.py's too):
+    within ``gemm_error_bound`` of the plain version, and the epilogue bit
+    for bit."""
+    from jimm_tpu_torch.ops import fp8_matmul as fp8
+    excess, _, epilogue_exact, _ = fp8.check_gemm(a_q, b_q, scale, bias, got)
+    assert excess <= 0
+    assert epilogue_exact
+
+
 @pytest.mark.parametrize("a_fmt", ["e4m3", "e5m2"])
 @pytest.mark.parametrize("m,k,n", _FP8_GEMM)
 def test_fp8_gemm_kernel(card, m, k, n, a_fmt):
-    """The kernel's only liberty against its plain version (f32 matmul of
-    the widened fp8 values, TF32 off) is the f32 summation order:
-    tests/test_fp8_ops.py's rtol 1e-5 and atol 1e-3 * max(1, K // 64)."""
+    """The tensor core sums in f32 with truncation, in its own order: held
+    to ``fp8_matmul.gemm_error_bound`` against the plain version (f32
+    matmul of the widened fp8 values, TF32 off), with the epilogue (scale,
+    then bias) exact."""
     from jimm_tpu_torch.ops import fp8_matmul as fp8
     a_q, b_q, scale, bias = _fp8_operands(
         m, k, n, fp8.E4M3 if a_fmt == "e4m3" else fp8.E5M2, card)
@@ -612,23 +623,55 @@ def test_fp8_gemm_kernel(card, m, k, n, a_fmt):
     torch.cuda.synchronize()
     assert (fp8.launches, fp8.bwd_launches) == (before + 1, bwd_before + 1)
     assert got.dtype == torch.float32 and got.shape == (m, n)
-    tol = dict(rtol=1e-5, atol=1e-3 * max(1, k // 64))
-    torch.testing.assert_close(got, fp8.fp8_gemm_plain(a_q, b_q, scale, bias),
-                               **tol)
-    torch.testing.assert_close(no_bias, fp8.fp8_gemm_plain(a_q, b_q, scale),
-                               **tol)
+    _fp8_gate(a_q, b_q, scale, bias, got)
+    _fp8_gate(a_q, b_q, scale, None, no_bias)
+    assert torch.equal(got, no_bias + bias)
 
 
 def test_fp8_gemm_kernel_unaligned(card):
-    """Operand rows off a 16-byte boundary take the byte-staging path."""
+    """An operand off a 16-byte boundary, and K off a multiple of 16, reach
+    the kernel as the wrapper's zero-padded copies (TMA needs both); the
+    kernel's entry point refuses them unpadded."""
+    from jimm_tpu_torch import _build
     from jimm_tpu_torch.ops import fp8_matmul as fp8
     a_q, b_q, scale, _ = _fp8_operands(64, 96, 40, fp8.E4M3, card)
     off = torch.empty(64 * 96 + 4, dtype=torch.uint8, device=card)
     off[4:] = a_q.view(torch.uint8).flatten()
     a_view = off[4:].view(64, 96).view(fp8.E4M3)
+    assert a_view.data_ptr() % 16 != 0
     got = fp8.fp8_gemm(a_view, b_q, scale)
-    torch.testing.assert_close(got, fp8.fp8_gemm_plain(a_q, b_q, scale),
-                               rtol=1e-5, atol=1e-3)
+    _fp8_gate(a_q, b_q, scale, None, got)
+    a_q, b_q, scale, _ = _fp8_operands(33, 100, 20, fp8.E4M3, card)
+    _fp8_gate(a_q, b_q, scale, None, fp8.fp8_gemm(a_q, b_q, scale))
+    out = torch.empty(33, 20, device=card)
+    stream = torch.cuda.current_stream().cuda_stream
+    for a, k in ((a_q, 100), (a_view, 96)):
+        rc = _build.load().jimm_fp8_matmul(
+            a.data_ptr(), b_q.data_ptr(), scale.data_ptr(), None,
+            out.data_ptr(), None, 33, 20, k, 128, 0, 0, stream)
+        assert rc != 0
+
+
+@pytest.mark.parametrize("a_fmt", ["e4m3", "e5m2"])
+def test_fp8_gemm_sums_in_f32(card, a_fmt):
+    """Rows of 256 then ones over K = 32768: every output is 65536 + 32767,
+    exact in f32. An accumulator of fp8 wgmma's ~14 bits drops the ones
+    (all of them carried over K, 31 promoted after every instruction); the
+    kernel's f32 sums keep them. At the q/k/v/out weight gradients' shape,
+    768 x 768, K is summed in 15 ranges, the last 512 long: a dropped or
+    doubled range is off by its length."""
+    from jimm_tpu_torch.ops import fp8_matmul as fp8
+    assert fp8.k_range(768, 768, 32768, 132) == 2304
+    a = torch.ones(768, 32768, device=card)
+    b = torch.ones(768, 32768, device=card)
+    a[:, 0] = b[:, 0] = 256.0
+    a_q = a.to(fp8.E4M3 if a_fmt == "e4m3" else fp8.E5M2)
+    b_q = b.to(fp8.E4M3)
+    one = torch.ones((), device=card)
+    got = fp8.fp8_gemm(a_q, b_q, one)
+    torch.cuda.synchronize()
+    assert (got == 65536 + 32767).all()
+    _fp8_gate(a_q, b_q, one, None, got)
 
 
 _SIGMOID = [(qshape, sk, causal, None) for qshape, sk, causal in _FLASH] + [

@@ -464,19 +464,36 @@ def test_train_cli_fp8_hybrid_on_the_cpu():
     assert fp8.launches == 0
 
 
+#: the K ranges of the train step's GEMMs and of odd shapes
+_K_RANGES = {
+    (32768, 3072, 768): 1,     # fc1 forward: 6144 tiles
+    (32768, 768, 768): 1,      # q/k/v/out forward
+    (8192, 768, 768): 1,       # text forward: 384 tiles, K too short
+    (128, 768, 768): 1,        # probe forward: 6 tiles, K too short
+    (3072, 768, 32768): 4,     # fc1 dw: 144 tiles, four waves
+    (768, 768, 32768): 15,     # q/k/v/out dw: 36 tiles, a last range of 512
+    (768, 768, 8192): 13,      # text dw
+    (1, 5, 7): 1, (257, 129, 769): 1}
+
+
 @pytest.mark.parametrize("m,n,k", [(32768, 3072, 768), (3072, 768, 32768),
                                    (768, 768, 32768), (128, 768, 768),
-                                   (257, 129, 769), (1, 5, 7)])
+                                   (257, 129, 769), (1, 5, 7),
+                                   (32768, 768, 768), (8192, 768, 768),
+                                   (768, 768, 8192)])
 def test_k_ranges_cover_k_and_fill_the_card(m, n, k):
-    """The kernel's split of K: ranges of whole 32-byte staging steps that
-    cover K; one range when the output alone gives 132 SMs two CTAs each,
-    else enough ranges (of at least 256 of K) for four such waves where K
-    allows."""
+    """The kernel's split of K: ranges of whole multiples of 128 that
+    cover K; one range when the output has four tiles for each of 132 SMs,
+    else enough ranges for four CTAs an SM where K allows ranges of at
+    least 512; at the train step's shapes, the counts of ``_K_RANGES``."""
     k_split = fp8.k_range(m, n, k, 132)
     ranges = -(-k // k_split)
-    assert k_split % 32 == 0 and (ranges - 1) * k_split < k <= ranges * k_split
+    assert ranges == _K_RANGES[(m, n, k)]
+    assert k_split % 128 == 0
+    assert (ranges - 1) * k_split < k <= ranges * k_split
     tiles = -(-m // 128) * -(-n // 128)
-    if tiles >= 264:
-        assert ranges == 1
-    else:
-        assert tiles * ranges >= 4 * 264 or k_split < 2 * 256
+    wanted = 1 if tiles >= 4 * 132 else max(1, min(-(-4 * 132 // tiles),
+                                                   k // 512))
+    # the shortest ranges of whole 128s that make at most ``wanted``
+    assert ranges <= wanted
+    assert k_split == 128 or -(-k // (k_split - 128)) > wanted
