@@ -10,10 +10,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                sm_90a (``jimm_tpu_torch/_build.py``), then reads the
                library's SASS with ``cuobjdump``: every fp8 GEMM kernel must
                hold wgmma instructions (HGMMA: f16 wgmma on the fp8 values
-               widened in shared memory) and every bf16 flash forward
-               kernel mma.sync ones (HMMA); prints their counts, and each
-               kernel's registers and local memory (spills) from
-               ``cuobjdump -res-usage``.
+               widened in shared memory), every bf16 flash forward, dq and
+               dk/dv kernel mma.sync ones (HMMA), and every int8-QK forward
+               of the bf16 body both s8 mma.sync (IMMA, its scores) and
+               HMMA (P.V); prints their counts, and each kernel's registers
+               and local memory (spills) from ``cuobjdump -res-usage``.
 3. kernels  -- each kernel against its plain PyTorch version on the card, at
                the served and trained shapes and some odd ones, forward and
                backward, the masked flash kernels (NaFlex) with the
@@ -29,11 +30,16 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                function (a yardstick the port never calls), the kernel's
                time per call (CUDA events), and the least time the card
                could take (bytes over 3.35 TB/s or flops over the peak);
-               then readings, not gates: the redesigned kernels (the bf16
-               flash forward in each kind, rows 3-6, and the fp8 GEMM, row
+               then readings, not gates: the kernels moved onto tensor
+               cores (the bf16 flash forward and backward in each kind,
+               rows 3-7, the int8-QK forward, row 9, and the fp8 GEMM, row
                12) as a speed-up over their FMA versions' times in PERF.md,
-               and row 7 in every kind and row 8, which this slice left as
-               they were, beside their recorded times (within 5%).
+               and the rows whose recorded times stand (3-6 and 12, which
+               share the mma.sync header with rows 7 and 9, and 1, 2, 8,
+               10, 11) beside those times (within 5%). In bf16 only, rows 9 and 7 (every kind)
+               also run at more odd shapes on their tensor-core bodies: an
+               unaligned strided q view, unaligned int8 q and k, D = 30, a
+               broadcast (256, 256) bias, -inf keys.
 4. serve    -- SigLIP-B/16-256 at full width in bf16, fused LayerNorm and
                flash attention, random weights from a seeded generator,
                behind the port's HTTP server with buckets (1, 8, 32): 48
@@ -50,7 +56,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                gradients of one step through the kernels must match those
                with the plain versions swapped in (every parameter within
                1e-3 of its largest value, or of 1e-3 of the model's largest
-               for a gradient that is zero in exact arithmetic); (b) in
+               for a gradient that is zero in exact arithmetic), then the
+               same in bf16, on the tensor-core bodies (each gradient
+               within 2^-3 of its largest value or of 2^-4 of the model's
+               largest, and a cosine of at least 0.99 above that floor);
+               (b) in
                bf16 at batch 128 (the benchmark's batch), fused LayerNorm
                and flash attention, one
                fixed synthetic batch repeated: warm-up steps, then timed
@@ -69,8 +79,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                NaFlex variable-resolution batches from
                ``naflex_contrastive_pairs`` (grids 9x27, 16x16, 27x9, 11x22:
                243, 256, 243 and 242 of 256 tokens real), fused LayerNorm,
-               flash attention: (a) in f32 at batch 8, one step's gradients
-               through the kernels against the plain versions, as 5(a);
+               flash attention: (a) in f32 and in bf16 at batch 8, one
+               step's gradients through the kernels against the plain
+               versions, as 5(a);
                (b) ``encode_image_naflex`` in bf16 at batch 32 against the
                plain-version forward (cosine >= 0.999, norms within 1%),
                13 masked flash and 24 LayerNorm launches, and padded patches
@@ -123,9 +134,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                GEMM.
 10. sigmoid -- SigLIP-B/16-256 with ``attn_impl="sigmoid"`` (the library
                path: the JAX train command has no such flag) trained by
-               ``make_contrastive_train_step("siglip")``: (a) f32 at batch
-               8, one step's gradients against the plain versions, as 5(a);
-               (b) bf16 at batch 128 as 9(b): 25 sigmoid flash launches
+               ``make_contrastive_train_step("siglip")``: (a) f32 and bf16
+               at batch 8, one step's gradients against the plain versions,
+               as 5(a);
+               (b) bf16 at batch 128 as 9(b), at a learning rate of 1e-4
+               (``SIGMOID_LEARNING_RATE``): 25 sigmoid flash launches
                forward and backward a step, no softmax flash, the loss
                falling, no host sync, one profiled step. Its counts are the
                ones the JSON record reports for the sigmoid kernels.
@@ -239,26 +252,58 @@ NAFLEX_PRESET = "siglip2-base-patch16-256"
 NAFLEX_MASKED_PER_STEP = 13   # 12 vision blocks + the MAP probe, masked
 NAFLEX_FLASH_PER_STEP = 12    # 12 text blocks, unmasked
 NAFLEX_SERVE_BATCH = 32
+#: the train image shape of rows 3-10 (the masked kinds with the NaFlex
+#: masks, the biased ones with a (12, 256, 256) bias), fc1's forward for
+#: row 12
+TRAIN_IMAGE = "q(128, 256, 12, 64) sk=256"
+NAFLEX_IMAGE = "q(128, 256, 12, 64) sk=256 naflex"
+FC1_FORWARD = "(32768, 768) x (3072, 768)^T +bias"
 #: the redesigned rows' FMA versions, as PERF.md's kernel table records
-#: them (NVIDIA H100 80GB HBM3, 700.00 W): rows 3, 4, 5 and 6 at the train
-#: image shape (128, 256, 12, 64) bf16 (the masked one with the NaFlex
-#: masks, the biased one with a (12, 256, 256) bias), row 12 at fc1's
-#: forward (32768, 768) x (3072, 768)^T
-FMA_VERSION_MS = {"flash_attention": 1.2623, "flash_attention_masked": 1.0818,
-                  "flash_attention_bias": 1.3805, "sigmoid_attention": 1.0930,
-                  "fp8_matmul": 3.7083}
-#: the rows left as they were, at the same shapes: row 7 in every kind, row 8
-RECORDED_MS = {"flash_attention_bwd": 3.9728,
-               "flash_attention_masked_bwd": 4.1322,
-               "sigmoid_attention_bwd": 3.7372,
-               "flash_attention_bias_bwd": 4.1653,
-               "flash_attention_dbias": 2.2143}
+#: them (NVIDIA H100 80GB HBM3, 700.00 W), by kernel: (shape, ms): rows
+#: 3-7 (every kind), 9 and 12, now on tensor cores
+FMA_VERSION_MS = {
+    "flash_attention": (TRAIN_IMAGE, 1.2623),
+    "flash_attention_masked": (NAFLEX_IMAGE, 1.0818),
+    "flash_attention_bias": (TRAIN_IMAGE, 1.3805),
+    "sigmoid_attention": (TRAIN_IMAGE, 1.0930),
+    "fp8_matmul": (FC1_FORWARD, 3.7083),
+    "flash_attention_bwd": (TRAIN_IMAGE, 3.9728),
+    "flash_attention_masked_bwd": (NAFLEX_IMAGE, 4.1322),
+    "sigmoid_attention_bwd": (TRAIN_IMAGE, 3.7372),
+    "flash_attention_bias_bwd": (TRAIN_IMAGE, 4.1653),
+    "flash_attention_int8": (TRAIN_IMAGE, 0.9121)}
+#: the times PERF.md records for rows 3-6 and 12 on tensor cores, which a
+#: change to their shared header (flash_mma.cuh) must leave within 5%, and
+#: for rows 8 and 10 (and 1, 2, 11) on the CUDA cores
+RECORDED_MS = {
+    "flash_attention": (TRAIN_IMAGE, 0.2272),
+    "flash_attention_masked": (NAFLEX_IMAGE, 0.2620),
+    "flash_attention_bias": (TRAIN_IMAGE, 0.3099),
+    "sigmoid_attention": (TRAIN_IMAGE, 0.2740),
+    "fp8_matmul": (FC1_FORWARD, 0.4046),
+    "flash_attention_dbias": (TRAIN_IMAGE, 2.2143),
+    "flash_attention_int8_bwd": (TRAIN_IMAGE, 3.5000),
+    "layer_norm": ("(32768, 768)", 0.0715),
+    "layer_norm_bwd": ("(32768, 768)", 0.1241),
+    "int8_matmul": ("(8192, 3072) x (3072, 768)", 0.3837)}
 #: the kernels that must run on tensor cores, by a substring of their
-#: mangled names, and the SASS instruction each must contain: f16 wgmma
+#: mangled names, and the SASS instructions each must contain: f16 wgmma
 #: (the fp8 GEMM's, on operands widened in shared memory) assembles to
-#: HGMMA, bf16 mma.sync to HMMA
-TENSOR_CORE_KERNELS = {"fp8_matmul_kernel": "HGMMA",
-                       "flash_fwd_mma_kernel": "HMMA"}
+#: HGMMA, bf16 mma.sync to HMMA, s8 mma.sync to IMMA
+TENSOR_CORE_KERNELS = {"fp8_matmul_kernel": ("HGMMA",),
+                       "flash_fwd_mma_kernel": ("HMMA",),
+                       "flash_bwd_dq_mma_kernel": ("HMMA",),
+                       "flash_bwd_dkv_mma_kernel": ("HMMA",),
+                       "flash_int8_fwd_mma_kernel": ("IMMA", "HMMA")}
+#: the bf16 twins of the f32 gradient checks (5(a), 6(a), 10(a)): each
+#: parameter's gradient within 2^-3 of its largest value (or of 2^-4 of the
+#: model's largest, for a gradient under that floor: the k-projection bias,
+#: zero in exact arithmetic, is rounding noise on both sides), and, above
+#: the floor, a cosine of at least 0.99 (PERF.md section 6 gives the
+#: reasoning, written before the first run that checked it)
+BF16_GRAD_REL_ERR = 2.0**-3
+BF16_GRAD_FLOOR = 2.0**-4
+BF16_GRAD_MIN_COS = 0.99
 #: int8 serve: 12 blocks x 6 Linears (q, k, v, out, fc1, fc2) and the MAP
 #: head's q, k, v, out, fc1, fc2 run on the int8 matmul per batch; the
 #: model quantizes 151 Linears (the text tower's 72 and its projection too)
@@ -274,6 +319,12 @@ FP8_HIST_RTOL = 1e-4
 #: the fp8 GEMM's (K, N) per Linear: fc1, q/k/v/out, fc2
 FP8_KN = [(768, 3072), (768, 768), (3072, 768)]
 TRAIN_BATCH = 128
+#: 10(b)'s learning rate: at 1e-3 (the other phases') the sigmoid-attention
+#: SigLIP's loss on one fixed batch oscillates between ~6 and ~26 from step
+#: 3 on, in the plain versions as through the kernels, so whether step 12
+#: lands below step 0 is chance; at 1e-4 it falls step by step (PERF.md,
+#: section 6)
+SIGMOID_LEARNING_RATE = 1e-4
 TRAIN_WARMUP = 3
 TRAIN_STEPS = 10
 CLI_STEPS = 5
@@ -416,6 +467,24 @@ def ln_case(rows: int, f: int, dtype: torch.dtype, seed: int) -> dict:
             "bound_ms": bound, "bound_by": by}
 
 
+def _unaligned(x: torch.Tensor) -> torch.Tensor:
+    """The same (B, S, N, D) values as a view whose base and head stride
+    are off any 16-byte boundary, unit stride over D: the kernels' element
+    by element loads."""
+    b, s, n, d = x.shape
+    store = torch.zeros(b, s, n, d + 3, dtype=x.dtype, device=x.device)
+    store[..., 1:d + 1] = x
+    return store[..., 1:d + 1]
+
+
+def _unaligned_contiguous(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose base is 4 bytes past a 16-byte
+    boundary (the int8 q and k the int8-QK kernels take contiguous)."""
+    flat = torch.empty(x.numel() + 4, dtype=x.dtype, device=x.device)
+    flat[4:] = x.flatten()
+    return flat[4:].view(x.shape)
+
+
 def flash_case(qshape: tuple[int, int, int, int], sk: int, causal: bool,
                dtype: torch.dtype, seed: int) -> dict:
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -540,7 +609,7 @@ def masked_flash_case(qshape: tuple[int, int, int, int], sk: int,
 
 def masked_flash_bwd_case(qshape: tuple[int, int, int, int], sk: int,
                           causal: bool, kind: str, dtype: torch.dtype,
-                          seed: int) -> dict:
+                          seed: int, view: bool = False) -> dict:
     g = torch.Generator(device="cuda").manual_seed(seed)
     b, sq, n, d = qshape
     q, do = (torch.randn(b, sq, n, d, generator=g, device="cuda").to(dtype)
@@ -548,6 +617,8 @@ def masked_flash_bwd_case(qshape: tuple[int, int, int, int], sk: int,
     k, v = (torch.randn(b, sk, n, d, generator=g, device="cuda").to(dtype)
             for _ in range(2))
     mask = key_mask(kind, b, sk, g)
+    if view:
+        q = _unaligned(q)
     keep = attended(mask, sq, causal)
     do = do * keep.any(-1)[:, :, None, None].to(dtype)  # dead rows: none
     o, lse = fa.flash_attention_plain(q, k, v, is_causal=causal, mask=mask)
@@ -575,7 +646,7 @@ def masked_flash_bwd_case(qshape: tuple[int, int, int, int], sk: int,
                                       mask=mask)
 
     return {"shape": f"q{qshape} sk={sk} {kind}"
-            + (" causal" if causal else ""),
+            + (" causal" if causal else "") + (" unaligned q" if view else ""),
             "dtype": str(dtype)[6:], "max_abs_err": max(e[0] for e in errs),
             "cosine": min(e[1] for e in errs),
             "ms": device_ms(kernel), "call_ms": cuda_ms(kernel),
@@ -616,13 +687,17 @@ def ln_bwd_case(rows: int, f: int, dtype: torch.dtype, seed: int) -> dict:
 
 
 def flash_bwd_case(qshape: tuple[int, int, int, int], sk: int, causal: bool,
-                   dtype: torch.dtype, seed: int) -> dict:
+                   dtype: torch.dtype, seed: int, view: bool = False) -> dict:
+    """Row 7 (dq, then dk/dv) against its plain version; ``view``: q is an
+    unaligned strided view."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     b, sq, n, d = qshape
     q, do = (torch.randn(b, sq, n, d, generator=g, device="cuda").to(dtype)
              for _ in range(2))
     k, v = (torch.randn(b, sk, n, d, generator=g, device="cuda").to(dtype)
             for _ in range(2))
+    if view:
+        q = _unaligned(q)
     o, lse = fa.flash_attention_plain(q, k, v, is_causal=causal)
     got = fa.flash_attention_bwd(q, k, v, o, lse, do, is_causal=causal)
     torch.cuda.synchronize()
@@ -645,7 +720,8 @@ def flash_bwd_case(qshape: tuple[int, int, int, int], sk: int, causal: bool,
     def kernel():
         return fa.flash_attention_bwd(q, k, v, o, lse, do, is_causal=causal)
 
-    return {"shape": f"q{qshape} sk={sk}" + (" causal" if causal else ""),
+    return {"shape": f"q{qshape} sk={sk}" + (" causal" if causal else "")
+            + (" unaligned q" if view else ""),
             "dtype": str(dtype)[6:], "max_abs_err": max(e[0] for e in errs),
             "cosine": min(e[1] for e in errs),
             "ms": device_ms(kernel), "call_ms": cuda_ms(kernel),
@@ -715,10 +791,16 @@ def _dequantized(x_q: torch.Tensor, scale: torch.Tensor,
 
 
 def int8_flash_case(qshape: tuple[int, int, int, int], sk: int,
-                    causal: bool, dtype: torch.dtype, seed: int) -> dict:
-    """Kernel row 9 against its plain version, from the same int8 q/k."""
+                    causal: bool, dtype: torch.dtype, seed: int,
+                    view: bool = False) -> dict:
+    """Kernel row 9 against its plain version, from the same int8 q/k;
+    ``view``: q and k off a 16-byte boundary, v an unaligned strided
+    view."""
     qq, qs, kq, ks, v, _ = _int8_flash_inputs(qshape, sk, dtype, seed)
     b, sq, n, d = qshape
+    if view:
+        qq, kq, v = (_unaligned_contiguous(qq), _unaligned_contiguous(kq),
+                     _unaligned(v))
 
     def kernel():
         return fa8.flash_attention_int8_fwd(qq, qs, kq, ks, v,
@@ -738,8 +820,10 @@ def int8_flash_case(qshape: tuple[int, int, int, int], sk: int,
     nbytes = sum(t.nbytes for t in (qq, qs, kq, ks, v, o, lse))
     bound, by = bound_ms(nbytes, work, dtype, int8_ops=work)
     qd, kd = _dequantized(qq, qs, dtype), _dequantized(kq, ks, dtype)
-    vt = v.transpose(1, 2)
-    return {"shape": f"q{qshape} sk={sk}" + (" causal" if causal else ""),
+    # SDPA's kernels assume aligned rows: the yardstick gets an aligned v
+    vt = (v.contiguous() if view else v).transpose(1, 2)
+    return {"shape": f"q{qshape} sk={sk}" + (" causal" if causal else "")
+            + (" unaligned q, k, v" if view else ""),
             "dtype": str(dtype)[6:], "max_abs_err": err, "cosine": cos,
             "ms": device_ms(kernel), "call_ms": cuda_ms(kernel),
             "plain_ms": device_ms(lambda: fa8.flash_attention_int8_plain(
@@ -962,10 +1046,12 @@ def sigmoid_case(qshape: tuple[int, int, int, int], sk: int, causal: bool,
 
 def sigmoid_bwd_case(qshape: tuple[int, int, int, int], sk: int,
                      causal: bool, kind: str | None, dtype: torch.dtype,
-                     seed: int) -> dict:
+                     seed: int, view: bool = False) -> dict:
     """Row 7's sigmoid kind (dq, then dk/dv) against its plain version;
     masked keys get exactly zero dk and dv."""
     q, k, v, do, mask = _sigmoid_inputs(qshape, sk, kind, dtype, seed)
+    if view:
+        q = _unaligned(q)
     kw = dict(is_causal=causal, mask=mask,
               logit_bias=fa.default_logit_bias(sk))
 
@@ -988,7 +1074,7 @@ def sigmoid_bwd_case(qshape: tuple[int, int, int, int], sk: int,
         t.nbytes for t in got) + (0 if mask is None else mask.nbytes))
     bound, by = bound_ms(nbytes, flops, dtype)
     return {"shape": f"q{qshape} sk={sk}" + (f" {kind}" if kind else "")
-            + (" causal" if causal else ""),
+            + (" causal" if causal else "") + (" unaligned q" if view else ""),
             "dtype": str(dtype)[6:], "max_abs_err": max(e[0] for e in errs),
             "cosine": min(e[1] for e in errs),
             "ms": device_ms(kernel), "call_ms": cuda_ms(kernel),
@@ -1102,17 +1188,21 @@ def bias_case(qshape: tuple[int, int, int, int], sk: int, causal: bool,
 
 
 def _bias_bwd_setup(qshape, sk: int, causal: bool, kind: str,
-                    dtype: torch.dtype, seed: int):
-    """The inputs, the plain forward's o and lse, and the time of SDPA's
-    backward with the mask requiring grad (the yardstick of rows 7-bias and
-    8), or None where PyTorch refuses it."""
+                    dtype: torch.dtype, seed: int, view: bool = False):
+    """The inputs (``view``: q an unaligned strided view), the plain
+    forward's o and lse, and the time of SDPA's backward with the mask
+    requiring grad (the yardstick of rows 7-bias and 8), or None where
+    PyTorch refuses it."""
     q, k, v, do, bias, held, pairs, _ = _bias_inputs(qshape, sk, causal,
                                                      kind, dtype, seed)
+    if view:
+        q = _unaligned(q)
     o, lse = fa.flash_attention_bias_plain(q, k, v, bias, is_causal=causal)
     qt, kt, vt = (t.transpose(1, 2).detach().clone().requires_grad_()
                   for t in (q, k, v))
     mask = _sdpa_mask(bias, causal, dtype, grad=True)
-    label = _bias_label(qshape, sk, causal, kind)
+    label = (_bias_label(qshape, sk, causal, kind)
+             + (" unaligned q" if view else ""))
     library = _library_ms(f"flash_bias backward {label}", lambda: grad_ms(
         F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
         (qt, kt, vt, mask), do.transpose(1, 2)))
@@ -1120,10 +1210,11 @@ def _bias_bwd_setup(qshape, sk: int, causal: bool, kind: str,
 
 
 def bias_bwd_case(qshape: tuple[int, int, int, int], sk: int, causal: bool,
-                  kind: str, dtype: torch.dtype, seed: int) -> dict:
+                  kind: str, dtype: torch.dtype, seed: int,
+                  view: bool = False) -> dict:
     """Row 7's bias kind (dq, then dk/dv) against its plain version."""
     q, k, v, do, bias, held, pairs, o, lse, label, library = _bias_bwd_setup(
-        qshape, sk, causal, kind, dtype, seed)
+        qshape, sk, causal, kind, dtype, seed, view)
 
     def kernel():
         return fa.flash_attention_bias_bwd(q, k, v, bias, o, lse, do,
@@ -1187,37 +1278,37 @@ def dbias_case(qshape: tuple[int, int, int, int], sk: int, causal: bool,
 
 
 def rows_against_recorded(cases: list[tuple[str, dict]], card: str) -> None:
-    """Readings, not gates (a card below 700 W runs slower): the redesigned
-    rows (3, 4, 5 and 6 at the train image shape, 12 at fc1's forward) as a
-    speed-up over their FMA versions' recorded times, and the rows left as
-    they were (7 in every kind, 8) against their recorded times, which they
-    should keep within 5%."""
-    train_image = ("q(128, 256, 12, 64) sk=256",
-                   "q(128, 256, 12, 64) sk=256 naflex")
-    fc1_forward = "(32768, 768) x (3072, 768)^T +bias"
+    """Readings, not gates (a card below 700 W runs slower), at the shapes
+    ``FMA_VERSION_MS`` and ``RECORDED_MS`` name, in bf16 (int8 and fp8 for
+    rows 11 and 12): the rows on tensor cores (3-7, 9, 12) as a speed-up
+    over their FMA versions' recorded times, and the rows with recorded
+    times (3-6 and 12 on the shared mma.sync header, 8, 10, and 1, 2, 11)
+    against those times, which they should keep within 5%."""
     for name, c in cases:
         if c["dtype"] == "float32":
             continue
-        if name in FMA_VERSION_MS and c["shape"] in (*train_image,
-                                                     fc1_forward):
-            was = FMA_VERSION_MS[name]
+        if FMA_VERSION_MS.get(name, (None,))[0] == c["shape"]:
+            was = FMA_VERSION_MS[name][1]
             print(f"kernel {name} {c['shape']} {c['dtype']}: {c['ms']:.4f} "
                   f"ms, the FMA version {was:.4f} ms (speed-up "
                   f"{was / c['ms']:.2f}x) | {card}", flush=True)
-        elif name in RECORDED_MS and c["shape"] in train_image:
-            ratio = c["ms"] / RECORDED_MS[name]
+        if RECORDED_MS.get(name, (None,))[0] == c["shape"]:
+            was = RECORDED_MS[name][1]
+            ratio = c["ms"] / was
             print(f"kernel {name} {c['shape']} {c['dtype']}: {c['ms']:.4f} "
-                  f"ms, PERF.md records {RECORDED_MS[name]:.4f} ms (ratio "
-                  f"{ratio:.3f}, within 5%: {abs(ratio - 1) <= 0.05}) | "
-                  f"{card}", flush=True)
+                  f"ms, PERF.md records {was:.4f} ms (ratio {ratio:.3f}, "
+                  f"within 5%: {abs(ratio - 1) <= 0.05}) | {card}",
+                  flush=True)
 
 
 def tensor_core_phase(card: str) -> None:
     """Reads the built library's SASS (``cuobjdump -sass``) and resources
     (``cuobjdump -res-usage``): every instantiation of the fp8 GEMM must
-    hold warpgroup MMA instructions and every one of the bf16 flash forward
-    mma.sync ones; prints each kernel's count, registers and local memory
-    (spills) a thread, and fails if a kernel is missing or has none."""
+    hold warpgroup MMA instructions, every one of the bf16 flash forward,
+    dq and dk/dv kernels bf16 mma.sync ones, and every one of the int8-QK
+    forward's mma body both s8 (its scores) and bf16 (P.V) mma.sync ones;
+    prints each kernel's counts, registers and local memory (spills) a
+    thread, and fails if a kernel is missing or lacks one."""
     tool = pathlib.Path(_build.nvcc()).parent / "cuobjdump"
     lib = str(_build.library_path())
     sass = subprocess.run([str(tool), "-sass", lib], capture_output=True,
@@ -1232,21 +1323,65 @@ def tensor_core_phase(card: str) -> None:
             regs = re.search(r"REG:(\d+)", nxt)
             local = re.search(r"LOCAL:(\d+)", nxt)
             resources[fn] = (regs and regs.group(1), local and local.group(1))
-    for key, mnemonic in TENSOR_CORE_KERNELS.items():
+    for key, mnemonics in TENSOR_CORE_KERNELS.items():
         found = 0
         for chunk in sass.split("Function : ")[1:]:
             fn = chunk.split("\n", 1)[0].strip()
             if key not in fn:
                 continue
             found += 1
-            ops = re.findall(r"\b([A-Z]*" + mnemonic + r")\.", chunk)
+            ops = {m: re.findall(r"\b(" + m + r")\.", chunk)
+                   for m in mnemonics}
             regs, local = resources.get(fn, (None, None))
-            print(f"sass: {key} #{found}: {len(ops)} "
-                  f"{'/'.join(sorted(set(ops))) or mnemonic} instructions, "
-                  f"{regs} registers, {local} bytes of local memory a "
-                  f"thread | {card}", flush=True)
-            check(len(ops) > 0, f"{fn}: no {mnemonic} instruction in its SASS")
+            counts = ", ".join(f"{len(o)} {m}" for m, o in ops.items())
+            print(f"sass: {key} #{found}: {counts} instructions, {regs} "
+                  f"registers, {local} bytes of local memory a thread | "
+                  f"{card}", flush=True)
+            for m, o in ops.items():
+                check(len(o) > 0, f"{fn}: no {m} instruction in its SASS")
         check(found > 0, f"no kernel named *{key}* in {lib}")
+
+
+def odd_tensor_core_cases(add) -> None:
+    """Rows 9 and 7 (every kind) on their bf16 tensor-core bodies at more of
+    the JAX tests' odd shapes: seq 1, 5 and 257, D 64 and 80, causal and
+    not, rows off a 16-byte boundary (an unaligned strided q view; for row
+    9 unaligned int8 q and k and a strided v, and D = 30), a broadcast
+    (256, 256) bias and a bias with -inf keys."""
+    bf16 = torch.bfloat16
+    for i, (qshape, sk, causal, view) in enumerate([
+            ((2, 5, 2, 64), 5, False, False),
+            ((2, 257, 2, 80), 257, True, False),
+            ((2, 257, 2, 64), 257, False, True),
+            ((2, 5, 2, 80), 5, True, True)]):
+        add("flash_attention_bwd",
+            flash_bwd_case(qshape, sk, causal, bf16, 400 + i, view))
+    for i, (qshape, sk, causal, kind, view) in enumerate([
+            ((2, 5, 2, 64), 5, False, "sparse", False),
+            ((2, 257, 2, 80), 257, True, "len65", False),
+            ((2, 257, 2, 64), 257, False, "sparse", True)]):
+        add("flash_attention_masked_bwd", masked_flash_bwd_case(
+            qshape, sk, causal, kind, bf16, 410 + i, view))
+    for i, (qshape, sk, causal, kind, view) in enumerate([
+            ((2, 5, 2, 64), 5, False, None, False),
+            ((2, 257, 2, 80), 257, True, None, False),
+            ((2, 257, 2, 64), 257, False, "sparse", True)]):
+        add("sigmoid_attention_bwd", sigmoid_bwd_case(
+            qshape, sk, causal, kind, bf16, 420 + i, view))
+    for i, (qshape, sk, causal, kind, view) in enumerate([
+            ((2, 256, 2, 64), 256, False, "2d", False),
+            ((2, 257, 2, 80), 257, True, "neginf", False),
+            ((2, 5, 2, 64), 5, False, "full", False),
+            ((2, 257, 2, 64), 257, False, "full", True)]):
+        add("flash_attention_bias_bwd", bias_bwd_case(
+            qshape, sk, causal, kind, bf16, 430 + i, view))
+    for i, (qshape, sk, causal, view) in enumerate([
+            ((2, 5, 2, 64), 5, False, False),
+            ((2, 257, 2, 80), 257, True, True),
+            ((2, 1, 2, 64), 257, False, True),
+            ((2, 65, 2, 30), 65, False, False)]):
+        add("flash_attention_int8",
+            int8_flash_case(qshape, sk, causal, bf16, 440 + i, view))
 
 
 def kernel_phase(card: str) -> dict[str, dict]:
@@ -1379,6 +1514,8 @@ def kernel_phase(card: str) -> dict[str, dict]:
                 bias_bwd_case(qshape, sk, causal, kind, dtype, 260 + i))
             add("flash_attention_dbias",
                 dbias_case(qshape, sk, causal, kind, dtype, 260 + i))
+        if dtype == torch.bfloat16:
+            odd_tensor_core_cases(add)
     # int8 matmul (kernel row 11): the served shapes at bucket 32 (8192
     # token rows; the MAP head's q and out projections have 32) with a
     # bias, fc1's with relu and gelu, and odd shapes
@@ -1739,35 +1876,61 @@ def grads_phase(model: SigLIP, images, text, want: dict[str, int],
         print(f"{label}: {len(rolled)} amax histories after the kernel and "
               f"the plain-version step agree within {hist:.3e} of their "
               f"largest value | {card}", flush=True)
-    worst = (0.0, "")
+    worst, worst_cos, under = (0.0, ""), (1.0, ""), 0
+    low_cos = (1.0, "")  # bf16, a reading: every gradient but the k biases
     params = dict(model.named_parameters())
     check(all(got[n] is not None and p.grad is not None
               for n, p in params.items()), "a parameter got no gradient")
+    bf16 = next(iter(params.values())).dtype == torch.bfloat16
     # a gradient that is zero in exact arithmetic (the k-projection bias:
-    # softmax does not see a per-row shift of the scores) is held to 1e-3 of
-    # the model's largest gradient instead of its own
-    floor = 1e-3 * max(p.grad.abs().max().item() for p in params.values())
+    # softmax does not see a per-row shift of the scores) is held to a floor
+    # (f32: 1e-3, bf16: 2^-4) of the model's largest gradient instead of its
+    # own; in bf16 every gradient above the floor also keeps its direction
+    top = max(p.grad.float().abs().max().item() for p in params.values())
+    floor = (BF16_GRAD_FLOOR if bf16 else 1e-3) * top
+    bound = BF16_GRAD_REL_ERR if bf16 else TRAIN_GRAD_REL_ERR
     for name, p in params.items():
         check(bool(torch.isfinite(got[name]).all()),
               f"non-finite gradient for {name}")
-        peak = max(p.grad.abs().max().item(), floor)
-        rel = (got[name] - p.grad).abs().max().item() / peak
-        check(rel <= TRAIN_GRAD_REL_ERR,
+        g, want = got[name].float(), p.grad.float()
+        own = want.abs().max().item()
+        rel = (g - want).abs().max().item() / max(own, floor)
+        check(rel <= bound,
               f"{label} gradient of {name}: max abs error {rel:.3e} of its "
-              f"largest value")
+              f"largest value (bound {bound:.3e})")
         worst = max(worst, (rel, name))
+        under += own <= floor
+        if bf16 and own > 0 and not name.endswith("attn.k.bias"):
+            low_cos = min(low_cos, (F.cosine_similarity(
+                g.flatten(), want.flatten(), dim=0).item(), name))
+        if bf16 and own > floor:
+            cos = F.cosine_similarity(g.flatten(), want.flatten(),
+                                      dim=0).item()
+            check(cos >= BF16_GRAD_MIN_COS,
+                  f"{label} gradient of {name}: cosine {cos:.6f}")
+            worst_cos = min(worst_cos, (cos, name))
     print(f"{label}, {len(got)} parameter gradients through the kernels "
           f"match the plain versions; worst max abs error {worst[0]:.3e} of "
-          f"the largest value ({worst[1]}) | {card}", flush=True)
+          f"the largest value ({worst[1]}), {under} under the floor of "
+          f"{floor:.3e}" + (f", lowest cosine {worst_cos[0]:.6f} "
+                            f"({worst_cos[1]}); reading: lowest cosine of "
+                            f"any gradient but the k biases "
+                            f"{low_cos[0]:.6f} ({low_cos[1]})" if bf16
+                            else "") + f" | {card}", flush=True)
 
 
-def train_grads_phase(card: str) -> None:
-    """(a) f32, batch 8: one step's gradients through the kernels against
+def _dtype_name(dtype: torch.dtype) -> str:
+    return "f32" if dtype == torch.float32 else "bf16"
+
+
+def train_grads_phase(card: str, dtype: torch.dtype = torch.float32) -> None:
+    """(a) batch 8, f32 (the FMA bodies) or bf16 (the flash kernels'
+    tensor-core bodies): one step's gradients through the kernels against
     the same step with the plain versions swapped in."""
-    model = _train_model(torch.float32)
-    images, text = _batch(model.config, 8, torch.float32, 1)
-    grads_phase(model, images, text, step_counts(), "train: f32 batch 8",
-                card)
+    model = _train_model(dtype)
+    images, text = _batch(model.config, 8, dtype, 1)
+    grads_phase(model, images, text, step_counts(),
+                f"train: {_dtype_name(dtype)} batch 8", card)
 
 
 def step_counts(precision: str | None = None, naflex: bool = False,
@@ -1817,13 +1980,14 @@ def fp8_grads_phase(card: str) -> None:
                 held=(fp8, "quantize_tensor"))
 
 
-def sigmoid_grads_phase(card: str) -> None:
-    """10(a) f32, batch 8, every attention on sigmoid attention: one step's
-    gradients through the kernels against the plain versions."""
-    model = _train_model(torch.float32, attn_impl="sigmoid")
-    images, text = _batch(model.config, 8, torch.float32, 1)
+def sigmoid_grads_phase(card: str, dtype: torch.dtype = torch.float32
+                        ) -> None:
+    """10(a) batch 8 in f32 or bf16, every attention on sigmoid attention:
+    one step's gradients through the kernels against the plain versions."""
+    model = _train_model(dtype, attn_impl="sigmoid")
+    images, text = _batch(model.config, 8, dtype, 1)
     grads_phase(model, images, text, step_counts(sigmoid=True),
-                "sigmoid: f32 batch 8", card)
+                f"sigmoid: {_dtype_name(dtype)} batch 8", card)
 
 
 def train_phase(card: str, precision: str | None = None,
@@ -1842,7 +2006,9 @@ def train_phase(card: str, precision: str | None = None,
         check(apply_precision_policy(model, precision) == want_rewritten,
               f"{precision} did not rewrite every module it takes")
     cfg = model.config
-    optimizer = make_optimizer(model, OptimizerConfig(learning_rate=1e-3))
+    optimizer = make_optimizer(model, OptimizerConfig(
+        learning_rate=SIGMOID_LEARNING_RATE if attn_impl == "sigmoid"
+        else 1e-3))
     step = make_contrastive_train_step("siglip")
     images, text = _batch(cfg, TRAIN_BATCH, torch.bfloat16, 2)
     torch.cuda.reset_peak_memory_stats()
@@ -2028,14 +2194,15 @@ def _naflex_batch(cfg, batch: int, dtype: torch.dtype, seed: int):
             torch.from_numpy(text).to("cuda", torch.long))
 
 
-def naflex_grads_phase(card: str) -> None:
-    """(a) f32, batch 8: one NaFlex step's gradients through the kernels
-    against the plain versions."""
-    model = _naflex_model(torch.float32)
-    images, text = _naflex_batch(model.config, 8, torch.float32, 1)
+def naflex_grads_phase(card: str, dtype: torch.dtype = torch.float32
+                       ) -> None:
+    """(a) batch 8 in f32 or bf16: one NaFlex step's gradients through the
+    kernels against the plain versions."""
+    model = _naflex_model(dtype)
+    images, text = _naflex_batch(model.config, 8, dtype, 1)
     check(not bool(images[2].all()), "the NaFlex batch has no padding")
     grads_phase(model, images, text, step_counts(naflex=True),
-                "naflex: f32 batch 8", card)
+                f"naflex: {_dtype_name(dtype)} batch 8", card)
 
 
 def naflex_forward_phase(card: str) -> None:
@@ -2309,10 +2476,12 @@ def main() -> int:
         serve_counts = serve_phase(card)
         done("serve")
         train_grads_phase(card)
+        train_grads_phase(card, torch.bfloat16)
         train_phase(card)
         train_counts = cli_train_phase(card)
         done("train")
         naflex_grads_phase(card)
+        naflex_grads_phase(card, torch.bfloat16)
         naflex_forward_phase(card)
         naflex_train_phase(card)
         naflex_counts = cli_train_phase(card, naflex=True)
@@ -2328,6 +2497,7 @@ def main() -> int:
         fp8_counts = cli_train_phase(card, precision="fp8_hybrid")
         done("fp8_hybrid")
         sigmoid_grads_phase(card)
+        sigmoid_grads_phase(card, torch.bfloat16)
         sigmoid_counts = train_phase(card, attn_impl="sigmoid")
         done("sigmoid")
         bias_grads_phase(card)

@@ -53,8 +53,10 @@
 // Instantiated for softmax without a mask only: no entry point of either
 // package passes a bias with a mask or under sigmoid.
 //
-// Design for bf16 (the FA2 arrangement on mma.sync tensor cores): one CTA
-// of four warps per (batch*head, 64-row q tile); each warp owns 16 q rows.
+// Design for bf16 (the FA2 arrangement on mma.sync tensor cores, with the
+// building blocks of flash_mma.cuh, which the bf16 backward and the int8-QK
+// forward share): one CTA of four warps per (batch*head, 64-row q tile);
+// each warp owns 16 q rows.
 // The TPU kernel makes the kv loop a sequential grid axis and carries
 // m/l/acc in VMEM scratch between grid steps; here the kv loop runs inside
 // the CTA over 64-key k/v tiles, and m/l/acc live in registers. q and each
@@ -102,6 +104,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -349,103 +352,21 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(
 
 namespace tc {
 
-using bf16 = __nv_bfloat16;
-constexpr int kWarps = 4;  // 16 q rows each
-constexpr int kThreads = 32 * kWarps;
+// the mma.sync building blocks (flash_mma.cuh), named here so that they,
+// not the f32 body's load_tile and kThreads, are what the bf16 body sees
+using jimm::mma::bf16;
+using jimm::mma::cp_async_commit;
+using jimm::mma::cp_async_wait;
+using jimm::mma::kThreads;
+using jimm::mma::kWarps;
+using jimm::mma::load_a;
+using jimm::mma::load_tile;
+using jimm::mma::mma_pv;
+using jimm::mma::mma_rows;
+using jimm::mma::online_softmax;
+using jimm::mma::smem_u32;
 static_assert(kBQ == 16 * kWarps, "a warp owns 16 rows of the q tile");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// byte offset of 16-byte chunk c of row r in a tile of DP-wide bf16 rows:
-// the chunk index XORed with the row's low three bits, so the eight rows an
-// ldmatrix reads at one logical chunk sit in eight different bank groups
-template <int DP>
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return static_cast<uint32_t>((r * (DP / 8) + (c ^ (r & 7))) * 16);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// d += a (16 x 16, row-major fragments) . b (16 x 8, column fragments)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 rounded to bf16, the lower column in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// rows [r0, r0 + 64) of one head's (S, D) bf16 slice into the swizzled
-// tile at dst; rows >= n and columns >= d are zero. vec: every row of the
-// slice starts on a 16-byte boundary, so a 16-byte chunk is one cp.async
-// (zero-filled past d, or wholly past n); else element by element.
-template <int DP>
-__device__ __forceinline__ void load_tile(unsigned char* dst, const bf16* src,
-                                          long long row_stride, int r0, int n,
-                                          int d, bool vec) {
-  constexpr int kChunks = DP / 8;
-  const uint32_t base = smem_u32(dst);
-#pragma unroll 4
-  for (int idx = threadIdx.x; idx < kBK * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c = idx % kChunks, col = c * 8;
-    const bool in = r0 + r < n && col < d;
-    const bf16* p = src + static_cast<long long>(r0 + r) * row_stride + col;
-    const uint32_t off = swz<DP>(r, c);
-    if (vec) {
-      cp_async16(base + off, in ? p : src, in ? min(8, d - col) * 2 : 0);
-    } else {
-      uint32_t w[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const uint32_t lo = in && col + 2 * e < d
-                                ? __bfloat16_as_ushort(p[2 * e]) : 0u;
-        const uint32_t hi = in && col + 2 * e + 1 < d
-                                ? __bfloat16_as_ushort(p[2 * e + 1]) : 0u;
-        w[e] = lo | (hi << 16);
-      }
-      *reinterpret_cast<uint4*>(dst + off) = make_uint4(w[0], w[1], w[2], w[3]);
-    }
-  }
-}
+static_assert(kBK == jimm::mma::kRows, "load_tile fills 64-row tiles");
 
 // CTAs an SM should hold: at D = 64 a cap of 128 registers for four
 // (timed side by side on an H100 80GB HBM3: 7% faster unmasked, 13% for
@@ -454,9 +375,8 @@ __device__ __forceinline__ void load_tile(unsigned char* dst, const bf16* src,
 template <int DP>
 constexpr int kMinCtas = DP == 64 ? 4 : 1;
 
-// Fragment layouts of mma.m16n8k16 (lane = 4 g + t): an f32 score or
-// output block of 16 rows x 8 columns holds (row g, columns 2t, 2t + 1) in
-// elements 0, 1 and (row g + 8, the same columns) in elements 2, 3.
+// Fragment layouts: flash_mma.cuh (lane 4 g + t holds accumulator rows g
+// and g + 8, columns 2t and 2t + 1 of each 8-column block).
 template <int DP, bool HAS_MASK, bool SIGMOID, bool HAS_BIAS>
 __global__ void __launch_bounds__(kThreads, kMinCtas<DP>)
     flash_fwd_mma_kernel(
@@ -527,15 +447,12 @@ __global__ void __launch_bounds__(kThreads, kMinCtas<DP>)
     __syncthreads();
     const uint32_t ks = smem_u32(qs + (1 + 2 * buf) * kTileBytes);
     const uint32_t vs = smem_u32(qs + (2 + 2 * buf) * kTileBytes);
-    // A fragments of q: lanes 0-15 address rows 0-15 at the k16 step's
-    // first 8 columns, lanes 16-31 at its last 8
-    const uint32_t q_addr_row = warp * 16 + lane % 16;
+    // A fragments of q, this warp's 16 rows
     if constexpr (kQRegs) {
       if (t == 0) {
 #pragma unroll
         for (int kc = 0; kc < kKC; ++kc)
-          ldmatrix_x4(qf[kc], smem_u32(qs) +
-                                  swz<DP>(q_addr_row, kc * 2 + lane / 16));
+          load_a<DP>(qf[kc], smem_u32(qs), warp * 16, kc, lane);
       }
     }
 
@@ -552,19 +469,9 @@ __global__ void __launch_bounds__(kThreads, kMinCtas<DP>)
 #pragma unroll
         for (int e = 0; e < 4; ++e) a[e] = qf[kc][e];
       } else {
-        ldmatrix_x4(a, smem_u32(qs) + swz<DP>(q_addr_row, kc * 2 + lane / 16));
+        load_a<DP>(a, smem_u32(qs), warp * 16, kc, lane);
       }
-#pragma unroll
-      for (int j2 = 0; j2 < 4; ++j2) {
-        // keys 16 j2 + (lane / 16) * 8 + lane % 8 at this k16 step's first
-        // (lanes 0-7, 16-23) or last (8-15, 24-31) 8 columns: the B
-        // fragments of key blocks 2 j2 and 2 j2 + 1
-        uint32_t b[4];
-        ldmatrix_x4(b, ks + swz<DP>(j2 * 16 + (lane / 16) * 8 + lane % 8,
-                                    kc * 2 + (lane / 8) % 2));
-        mma_bf16(s[2 * j2], a, b[0], b[1]);
-        mma_bf16(s[2 * j2 + 1], a, b[2], b[3]);
-      }
+      mma_rows<DP, 8>(s, a, ks, 0, kc, lane);
     }
 
     // the kinds' epilogue on the fragments; s becomes p (sigmoid) or the
@@ -618,58 +525,9 @@ __global__ void __launch_bounds__(kThreads, kMinCtas<DP>)
       epilogue(std::false_type{});
     else
       epilogue(std::true_type{});
-    if constexpr (!SIGMOID) {
-      float corr[2], m_new[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        m_new[i] = fmaxf(m[i], mx[i]);
-        corr[i] = expf(m[i] - m_new[i]);
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[j][e] = expf(s[j][e] - m_new[e >> 1]);
-          rs[e >> 1] += s[j][e];
-        }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
-        rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
-        l[i] = l[i] * corr[i] + rs[i];
-        m[i] = m_new[i];
-      }
-#pragma unroll
-      for (int j = 0; j < DP / 8; ++j) {
-        acc[j][0] *= corr[0];
-        acc[j][1] *= corr[0];
-        acc[j][2] *= corr[1];
-        acc[j][3] *= corr[1];
-      }
-    }
-
-    // acc += p . v: the score blocks 2 kk, 2 kk + 1 are the A fragment of
-    // keys 16 kk..16 kk + 15, rounded to bf16; v's B fragments by
-    // ldmatrix.trans (lanes 0-7 keys +0, 8-15 keys +8 at the d16 step's
-    // first 8 columns, 16-31 the same at its last 8)
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < DP / 16; ++dp) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(
-            b, vs + swz<DP>(kk * 16 + ((lane / 8) % 2) * 8 + lane % 8,
-                            dp * 2 + lane / 16));
-        mma_bf16(acc[2 * dp], a, b[0], b[1]);
-        mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
-      }
-    }
+    if constexpr (!SIGMOID) online_softmax<DP>(s, mx, m, l, acc);
+    // acc += p . v, p rounded to bf16 in registers (FA2's register reuse)
+    mma_pv<DP>(acc, s, vs, lane);
     __syncthreads();  // this tile's buffer is no longer read
   }
 

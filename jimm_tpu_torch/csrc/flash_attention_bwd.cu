@@ -5,32 +5,62 @@
 // Replaces the TPU kernels jimm_tpu/ops/flash_attention.py::_bwd_dq_kernel
 // and ::_bwd_dkv_kernel, softmax kind: without a mask, with one (has_mask,
 // the mask kind of kernel row 7) and with a bias (has_bias, the bias kind,
-// below; all launched by _flash_bwd through pl.pallas_call). Same numerics (_ds_tile): the score
-// s = (q . k) * scale is recomputed in f32 from the saved inputs,
-// p = exp(s - lse) from the forward's f32 logsumexp, dp = do . v in f32,
-// ds = p * (dp - delta) with delta = rowsum(do * o) (computed by the wrapper,
-// minus any lse cotangent). Before the products that consume them, p (for
-// dv) and ds (for dq and dk) are rounded to the input dtype, as the TPU
-// kernels round them to bf16 before their MXU dots; in f32 that rounding is
-// the identity. scale is applied once, to the finished dq and dk.
+// below; all launched by _flash_bwd through pl.pallas_call). Same numerics
+// (_ds_tile): the score s = (q . k) * scale is recomputed in f32 from the
+// saved inputs, p = exp(s - lse) from the forward's f32 logsumexp, dp =
+// do . v in f32, ds = p * (dp - delta) with delta = rowsum(do * o)
+// (computed by the wrapper, minus any lse cotangent). Before the products
+// that consume them, p (for dv) and ds (for dq and dk) are rounded to the
+// input dtype, as the TPU kernels round them to bf16 before their MXU dots;
+// in f32 that rounding is the identity. scale is applied once, to the
+// finished dq and dk.
 //
-// Design: the two kernels of the FA2 arrangement, as on the TPU, and no
-// atomics. dq: one CTA of 256 threads per (batch*head, BQ-row q tile), the
-// q and do tiles resident in shared memory, looping over BK-row k/v tiles;
-// the ds tile goes through shared memory into dq += ds . k. dk/dv: one CTA
-// per (batch*head, BK-row k tile), the k and v tiles resident, looping over
-// q tiles; p^T and ds^T go through shared memory into dv += p^T . do and
-// dk += ds^T . q. The TPU kernels make that loop a sequential grid axis and
-// carry the sums in VMEM scratch; here it runs inside the CTA and the sums
-// live in registers. Thread (ty, tx) of the 16 x 16 layout owns rows
-// ty*R..ty*R+R-1 of its CTA's resident tile, computes their scores against
-// the streamed rows tx + 16*j, and accumulates its rows over output columns
-// 64*g + 4*tx..+3, as the forward kernel does. The head dim is zero-padded
-// to 64/128/256 in shared memory only; inputs are read through their
-// (B, S, N, D) strides. Keys >= Sk (dq kernel) and queries >= Sq (dkv
-// kernel; padded rows have lse 0 and exp(s - 0) overflows) are masked to
-// p = 0, as the TPU kernels mask them with `pos`; causal skips the tiles
-// wholly above the diagonal (top-left aligned) in both kernels.
+// Design for bf16 (the FA2 backward on mma.sync tensor cores, with the
+// building blocks of flash_mma.cuh): the two kernels of the FA2
+// arrangement, as on the TPU, and no atomics. The TPU kernels make the
+// inner loop a sequential grid axis and carry the sums in VMEM scratch;
+// here it runs inside the CTA and the sums live in registers.
+// - dq: one CTA of four warps per (batch*head, 64-row q tile), each warp
+//   owning 16 q rows. The q and do tiles are loaded once (held as A
+//   fragments at D <= 64, read from shared memory each tile at 128), lse
+//   and delta of each lane's two rows sit in registers. Each 64-key k/v
+//   tile is double-buffered by cp.async into XOR-swizzled shared tiles and
+//   used in this order: S = q . k^T and dP = do . v^T (k and v as B
+//   operands through ldmatrix), the per-kind epilogue on the fragments, ds
+//   rounded to bf16 and packed in registers as A fragments, and dq += ds .
+//   k with k through ldmatrix.trans. dq is multiplied by scale and stored.
+// - dk/dv: one CTA of four warps per (batch*head, 64-key tile), each warp
+//   owning 16 keys; the k and v tiles are held (as A fragments at D <= 64)
+//   and the loop runs over double-buffered q, do, lse and delta tiles (and
+//   the bias tile). It works on transposed tiles, 32 query columns a step:
+//   S^T = k . q^T and dP^T = v . do^T, p^T and ds^T from lse and delta per
+//   column, then dv += p^T(bf16) . do and dk += ds^T(bf16) . q with do and q
+//   through ldmatrix.trans; the dk and dv accumulators stay in registers
+//   for the whole loop.
+// Each product sums exact bf16 products in f32 per k16 step; p (for dv)
+// and ds are rounded to bf16 where the FMA body and the TPU kernels round
+// them. The head dim is zero-padded to 64/128 in shared memory only; rows
+// off a 16-byte boundary (a strided view, an odd D) are loaded element by
+// element into the same layout. At D = 256 (no preset reaches it) dk and
+// dv would need 128 f32 registers each a lane, so bf16 keeps the FMA body
+// there: a compile-time choice by head dim, as f32 is by dtype.
+//
+// The f32 body (FMA; bf16 too at D = 256): dq, one CTA of 256 threads per
+// (batch*head, BQ-row q tile), the q and do tiles resident in shared
+// memory, looping over BK-row k/v tiles; the ds tile goes through shared
+// memory into dq += ds . k. dk/dv: one CTA per (batch*head, BK-row k tile),
+// the k and v tiles resident, looping over q tiles; p^T and ds^T go
+// through shared memory into dv += p^T . do and dk += ds^T . q. Thread (ty,
+// tx) of the 16 x 16 layout owns rows ty*R..ty*R+R-1 of its CTA's resident
+// tile, computes their scores against the streamed rows tx + 16*j, and
+// accumulates its rows over output columns 64*g + 4*tx..+3, as the forward
+// kernel does; tiles are f32 in shared memory (each input element
+// converted once, row strides padded by 4 floats). mma.sync would round f32
+// to TF32, and f32 is the port's exactness path. Inputs are read through
+// their (B, S, N, D) strides. Keys >= Sk (dq kernel) and queries >= Sq
+// (dkv kernel; padded rows have lse 0 and exp(s - 0) overflows) are masked
+// to p = 0, as the TPU kernels mask them with `pos`; causal skips the
+// tiles wholly above the diagonal (top-left aligned) in both kernels.
 //
 // The key-padding mask (HAS_MASK): as in the forward kernel, the (B, Sk)
 // mask, one byte a key, is read at the CTA's batch index, staged in shared
@@ -63,15 +93,27 @@
 // row with no finite key). dbias, the batch sum of ds, is its own kernel
 // (flash_attention_dbias.cu). Instantiated for softmax without a mask only.
 //
+// The mask kind in the bf16 body: the dq kernel keeps each k tile's mask as
+// one bit a key (a ballot, as the forward), the dk/dv kernel a predicate
+// for each lane's two keys. The bias kind: the dq kernel reads the bias
+// from device memory per fragment element (a quad's keys are neighbours),
+// the dk/dv kernel stages each (64 q, 64 key) f32 tile in shared memory by
+// cp.async with the q tile (row stride 68 floats: a fragment's reads hit 32
+// banks), because its lanes run down query rows.
+//
 // What bounds it on the H100: at the training shapes (S <= 256, D = 64) the
 // bytes, ~20 bytes per (row, feature) in bf16 moved once, against
-// 8*Sq*Sk*D flops; like the forward, this first version computes with f32
-// FMAs, so its time is set by those FMAs (five S x S x D products, two of
-// them recomputations of the forward's) rather than by the bytes; the
-// tensor-core version is later work. f32 tiles in shared memory convert
-// each input element once, and row strides padded by 4 floats keep the
-// float4 reads free of bank conflicts.
+// 8*Sq*Sk*D flops (10 with the recomputed products): 0.121 ms by bytes at
+// the train image shape, 0.065 ms by operations at 989 TFLOP/s. On mma.sync
+// the products (seven: s and dp are recomputed in both kernels) leave the
+// FMA pipe; the per-score epilogue on the CUDA cores (the exp, the bias
+// reads) and the shared-memory operand traffic (each warp reads the
+// streamed tiles' B fragments itself) set the pace.
 
+#include <cstdint>
+#include <type_traits>
+
+#include "flash_mma.cuh"
 #include "flash_tiles.cuh"
 
 namespace {
@@ -162,25 +204,26 @@ struct Args {
 // dropped pair has p = ds = 0. Softmax: p = exp(s * scale - lse), ds =
 // p * (dp - delta); with a bias b (HAS_BIAS): p = exp((s * scale + b) -
 // lse), each step rounded on its own as XLA rounds _scores; sigmoid: p =
-// sigmoid(s * scale + logit_bias), ds = p * (1 - p) * dp. ds is rounded to
-// T; p is returned unrounded.
-template <typename T, bool SIGMOID, bool HAS_BIAS>
+// sigmoid(s * scale + logit_bias), ds = p * (1 - p) * dp. p and ds are
+// returned unrounded: the FMA body rounds them to T, the bf16 body as it
+// packs them into fragments.
+template <bool SIGMOID, bool HAS_BIAS>
 __device__ __forceinline__ float p_ds(float s, float dp, bool keep,
                                       float scale, float lse_or_bias,
                                       float delta, float b, float& ds) {
   if constexpr (SIGMOID) {
     const float x = __fadd_rn(__fmul_rn(s, scale), lse_or_bias);
     const float p = keep ? 1.f / (1.f + expf(-x)) : 0.f;
-    ds = round_to<T>(__fmul_rn(__fmul_rn(p, __fsub_rn(1.f, p)), dp));
+    ds = __fmul_rn(__fmul_rn(p, __fsub_rn(1.f, p)), dp);
     return p;
   } else if constexpr (HAS_BIAS) {
     const float x = __fadd_rn(__fmul_rn(s, scale), b);
     const float p = keep ? expf(__fsub_rn(x, lse_or_bias)) : 0.f;
-    ds = round_to<T>(p * (dp - delta));
+    ds = p * (dp - delta);
     return p;
   } else {
     const float p = keep ? expf(s * scale - lse_or_bias) : 0.f;
-    ds = round_to<T>(p * (dp - delta));
+    ds = p * (dp - delta);
     return p;
   }
 }
@@ -256,9 +299,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
                           (!HAS_MASK || attend[tx + 16 * j]);
         const float b = HAS_BIAS && keep ? hbias[row * bias_ss + col] : 0.f;
         float ds;
-        p_ds<T, SIGMOID, HAS_BIAS>(s[i][j], dp[i][j], keep, scale, lse_r[i],
-                                   delta_r[i], b, ds);
-        dss[(ty * RQ + i) * LDS + tx + 16 * j] = ds;
+        p_ds<SIGMOID, HAS_BIAS>(s[i][j], dp[i][j], keep, scale, lse_r[i],
+                                delta_r[i], b, ds);
+        dss[(ty * RQ + i) * LDS + tx + 16 * j] = round_to<T>(ds);
       }
     }
     __syncthreads();
@@ -352,10 +395,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
         const float bv = HAS_BIAS ? pts[(ty * RK + a) * LDS + tx + 16 * b]
                                   : 0.f;
         float ds;
-        const float p = p_ds<T, SIGMOID, HAS_BIAS>(s[a][b], dp[a][b], keep,
-                                                   scale, l, dl, bv, ds);
+        const float p = p_ds<SIGMOID, HAS_BIAS>(s[a][b], dp[a][b], keep,
+                                                scale, l, dl, bv, ds);
         pts[(ty * RK + a) * LDS + tx + 16 * b] = round_to<T>(p);
-        dsts[(ty * RK + a) * LDS + tx + 16 * b] = ds;
+        dsts[(ty * RK + a) * LDS + tx + 16 * b] = round_to<T>(ds);
       }
     }
     __syncthreads();
@@ -368,45 +411,501 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
                         tx);
 }
 
-template <typename T, int DP, int BQ, int BK, bool HAS_MASK, bool SIGMOID,
-          bool HAS_BIAS>
+// -- the bf16 body (mma.sync) ------------------------------------------------
+
+namespace tc {
+
+using jimm::mma::bf16;
+using jimm::mma::cp_async16;
+using jimm::mma::cp_async_commit;
+using jimm::mma::cp_async_wait;
+using jimm::mma::kRows;
+using jimm::mma::kThreads;
+using jimm::mma::load_a;
+using jimm::mma::load_tile;
+using jimm::mma::load_vec64;
+using jimm::mma::mma_cols;
+using jimm::mma::mma_rows;
+using jimm::mma::pack_a;
+using jimm::mma::smem_u32;
+using jimm::mma::swz;
+
+constexpr int kQN = 32;             // query columns a dk/dv step
+constexpr int kBiasLd = kRows + 4;  // staged bias row stride (floats)
+
+template <int DP>
+constexpr int kTile = kRows * DP * 2;  // one bf16 tile (bytes)
+// q, do, two k/v buffers, and the two k tiles' mask bits (in the dynamic
+// shared memory: with them the kernel passes 48 KB and must ask for it)
+template <int DP>
+constexpr int kDqSmem = 6 * kTile<DP> + 16;
+// a dk/dv buffer: the q and do tiles, lse and delta, and the bias tile
+template <int DP, bool HAS_BIAS>
+constexpr int kDkvBuf =
+    2 * kTile<DP> + 2 * kRows * 4 + (HAS_BIAS ? kRows * kBiasLd * 4 : 0);
+template <int DP, bool HAS_BIAS>
+constexpr int kDkvSmem = 2 * kTile<DP> + 2 * kDkvBuf<DP, HAS_BIAS>;
+
+// acc (16 rows x DP a warp, rows r_lo and r_lo + 8 of this lane) times mul
+// as bf16 rows < n of the contiguous (B, S, N, D) output, columns < d
+template <int DP>
+__device__ __forceinline__ void store_acc(bf16* out,
+                                          const float (&acc)[DP / 8][4],
+                                          float mul, int bi, int h, int heads,
+                                          int n, int d, int r_lo, int lane) {
+  const bool pairs = d % 2 == 0;  // a column pair is one 4-byte store
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r_lo + 8 * i;
+    if (row >= n) continue;
+    bf16* orow = out + (static_cast<long long>(bi) * n + row) * heads * d +
+                 static_cast<long long>(h) * d;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = j * 8 + 2 * (lane % 4);
+      const float y0 = acc[j][2 * i] * mul, y1 = acc[j][2 * i + 1] * mul;
+      if (pairs && col + 1 < d) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(y0, y1);
+      } else {
+        if (col < d) orow[col] = __float2bfloat16(y0);
+        if (col + 1 < d) orow[col + 1] = __float2bfloat16(y1);
+      }
+    }
+  }
+}
+
+// CTAs an SM should hold: three at D = 64 (a cap of 168 registers), where
+// the compiler would otherwise take all 255 and leave room for two
+template <int DP>
+constexpr int kMinCtas = DP == 64 ? 3 : 1;
+
+template <int DP, bool HAS_MASK, bool SIGMOID, bool HAS_BIAS>
+__global__ void __launch_bounds__(kThreads, kMinCtas<DP>)
+    flash_bwd_dq_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dq, int heads, int sq, int sk, int d, Strides qst,
+    Strides kst, Strides vst, Strides dst, float scale, float logit_bias,
+    int causal, const unsigned char* __restrict__ mask, long long mask_sb,
+    const float* __restrict__ bias, long long bias_sn, long long bias_ss,
+    int vec) {
+  constexpr int kKC = DP / 16;        // k16 steps over the head dim
+  constexpr bool kARegs = DP <= 64;   // q and do held as A fragments
+  extern __shared__ __align__(16) unsigned char smem_dq[];
+  unsigned char* qs = smem_dq;  // then do, k, v of buffer 0, k, v of 1
+  // each k tile's attended keys (real and unmasked), one bit a key
+  auto* attend = reinterpret_cast<uint32_t(*)[2]>(smem_dq + 6 * kTile<DP>);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bh = blockIdx.x;
+  const int bi = bh / heads, h = bh % heads;
+  const int q0 = blockIdx.y * kRows;
+  const bf16* kb = k + bi * kst.b + h * kst.n;
+  const bf16* vb = v + bi * vst.b + h * vst.n;
+  const float* hbias = HAS_BIAS ? bias + h * bias_sn : nullptr;
+  const int r_lo = q0 + warp * 16 + lane / 4;  // this lane's rows: +0, +8
+
+  load_tile<DP>(qs, q + bi * qst.b + h * qst.n, qst.s, q0, sq, d, vec);
+  load_tile<DP>(qs + kTile<DP>, dout + bi * dst.b + h * dst.n, dst.s, q0,
+                sq, d, vec);
+  cp_async_commit();
+  // causal: keys past the tile's last query row are masked for every row
+  const int kv_end = causal ? min(sk, q0 + kRows) : sk;
+  const int tiles = (kv_end + kRows - 1) / kRows;
+  auto issue = [&](int t) {
+    const int buf = t & 1, k0 = t * kRows;
+    load_tile<DP>(qs + (2 + 2 * buf) * kTile<DP>, kb, kst.s, k0, sk, d, vec);
+    load_tile<DP>(qs + (3 + 2 * buf) * kTile<DP>, vb, vst.s, k0, sk, d, vec);
+    if constexpr (HAS_MASK) {
+      const int col = k0 + threadIdx.x;
+      if (threadIdx.x < kRows) {  // warps 0 and 1, whole
+        const uint32_t bits = __ballot_sync(
+            0xffffffffu, col < sk && mask[bi * mask_sb + col] != 0);
+        if (lane == 0) attend[buf][warp] = bits;
+      }
+    }
+    cp_async_commit();
+  };
+  issue(0);
+
+  // softmax: each row's lse and delta; sigmoid: the logit bias, no delta
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r_lo + 8 * i;
+    const long long at = static_cast<long long>(bh) * sq + row;
+    lse_r[i] = SIGMOID ? logit_bias : row < sq ? lse[at] : 0.f;
+    delta_r[i] = SIGMOID || row >= sq ? 0.f : delta[at];
+  }
+  uint32_t qf[kARegs ? kKC : 1][4], df[kARegs ? kKC : 1][4];
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const uint32_t qt = smem_u32(qs), dt = qt + kTile<DP>;
+
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1, k0 = t * kRows;
+    if (t + 1 < tiles) {
+      issue(t + 1);  // into the buffer the previous tile released
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint32_t kt = qt + (2 + 2 * buf) * kTile<DP>;
+    const uint32_t vt = kt + kTile<DP>;
+    if constexpr (kARegs) {
+      if (t == 0) {
+#pragma unroll
+        for (int kc = 0; kc < kKC; ++kc) {
+          load_a<DP>(qf[kc], qt, warp * 16, kc, lane);
+          load_a<DP>(df[kc], dt, warp * 16, kc, lane);
+        }
+      }
+    }
+
+    // s = q . k^T and dp = do . v^T: 16 rows x 64 keys a warp
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < kKC; ++kc) {
+      uint32_t aq[4], ad[4];
+      if constexpr (kARegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          aq[e] = qf[kc][e];
+          ad[e] = df[kc][e];
+        }
+      } else {
+        load_a<DP>(aq, qt, warp * 16, kc, lane);
+        load_a<DP>(ad, dt, warp * 16, kc, lane);
+      }
+      mma_rows<DP, 8>(s, aq, kt, 0, kc, lane);
+      mma_rows<DP, 8>(dp, ad, vt, 0, kc, lane);
+    }
+
+    // the kinds' epilogue on the fragments; s becomes ds. A key counts when
+    // it is real, not past the row (causal) and attended (mask), and its
+    // row is real; a tile in which every key counts for every row of this
+    // warp takes the epilogue without the test.
+    [[maybe_unused]] uint64_t attended = ~0ull;
+    if constexpr (HAS_MASK)
+      attended = attend[buf][0] |
+                 (static_cast<uint64_t>(attend[buf][1]) << 32);
+    const bool interior = attended == ~0ull && k0 + kRows <= sk &&
+                          (!causal || k0 + kRows - 1 <= q0 + warp * 16) &&
+                          q0 + warp * 16 + 16 <= sq;
+    auto epilogue = [&](auto edge) {
+      constexpr bool kEdge = decltype(edge)::value;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = r_lo + 8 * (e >> 1);
+          const int col = k0 + j * 8 + 2 * (lane % 4) + (e & 1);
+          bool keep = true;
+          if constexpr (kEdge)
+            keep = row < sq && col < sk && (!causal || col <= row) &&
+                   (!HAS_MASK || (attended >> (col - k0)) & 1);
+          const float b =
+              HAS_BIAS && keep ? hbias[row * bias_ss + col] : 0.f;
+          float ds;
+          p_ds<SIGMOID, HAS_BIAS>(s[j][e], dp[j][e], keep, scale,
+                                  lse_r[e >> 1], delta_r[e >> 1], b, ds);
+          s[j][e] = ds;
+        }
+    };
+    if (interior)
+      epilogue(std::false_type{});
+    else
+      epilogue(std::true_type{});
+
+    // dq += ds . k: ds rounded to bf16 as the A fragments of keys
+    // 16 kk..16 kk + 15, k's B fragments by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      uint32_t a[4];
+      pack_a(a, s[2 * kk], s[2 * kk + 1]);
+      mma_cols<DP>(acc, a, kt, kk * 16, lane);
+    }
+    __syncthreads();  // this tile's buffer is no longer read
+  }
+  store_acc<DP>(dq, acc, scale, bi, h, heads, sq, d, r_lo, lane);
+}
+
+template <int DP, bool HAS_MASK, bool SIGMOID, bool HAS_BIAS>
+__global__ void __launch_bounds__(kThreads, kMinCtas<DP>)
+    flash_bwd_dkv_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int heads, int sq, int sk,
+    int d, Strides qst, Strides kst, Strides vst, Strides dst, float scale,
+    float logit_bias, int causal, const unsigned char* __restrict__ mask,
+    long long mask_sb, const float* __restrict__ bias, long long bias_sn,
+    long long bias_ss, int vec, int vec_bias) {
+  constexpr int kKC = DP / 16;        // k16 steps over the head dim
+  constexpr bool kARegs = DP <= 64;   // k and v held as A fragments
+  constexpr int kBuf = kDkvBuf<DP, HAS_BIAS>;
+  extern __shared__ __align__(16) unsigned char smem_dkv[];
+  // k, v, then per buffer: q, do, lse, delta, the bias tile
+  auto buffer = [&](int buf) { return smem_dkv + 2 * kTile<DP> + buf * kBuf; };
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bh = blockIdx.x;
+  const int bi = bh / heads, h = bh % heads;
+  const int k0 = blockIdx.y * kRows;
+  const bf16* qb = q + bi * qst.b + h * qst.n;
+  const bf16* db = dout + bi * dst.b + h * dst.n;
+  const float* hbias = HAS_BIAS ? bias + h * bias_sn : nullptr;
+  const int key_lo = k0 + warp * 16 + lane / 4;  // this lane's keys: +0, +8
+
+  load_tile<DP>(smem_dkv, k + bi * kst.b + h * kst.n, kst.s, k0, sk, d, vec);
+  load_tile<DP>(smem_dkv + kTile<DP>, v + bi * vst.b + h * vst.n, vst.s, k0,
+                sk, d, vec);
+  cp_async_commit();
+  // causal: q tiles whose last row lies before this k tile never attend to
+  // it; a k tile past the last query (Sk > Sq) gets zero dk and dv
+  const int q_begin = causal ? k0 : 0;
+  const int tiles = q_begin < sq ? (sq - q_begin + kRows - 1) / kRows : 0;
+  auto issue = [&](int t) {
+    unsigned char* b = buffer(t & 1);
+    const int q0 = q_begin + t * kRows;
+    load_tile<DP>(b, qb, qst.s, q0, sq, d, vec);
+    load_tile<DP>(b + kTile<DP>, db, dst.s, q0, sq, d, vec);
+    if constexpr (!SIGMOID) {
+      float* lse_t = reinterpret_cast<float*>(b + 2 * kTile<DP>);
+      load_vec64(lse_t, lse + static_cast<long long>(bh) * sq, q0, sq);
+      load_vec64(lse_t + kRows, delta + static_cast<long long>(bh) * sq, q0,
+                 sq);
+    }
+    if constexpr (HAS_BIAS) {
+      // the (64 q, 64 key) bias tile, zero past Sq and Sk: 16-byte chunks
+      // by cp.async where every row is on a 16-byte boundary, else word by
+      // word (visible after the next barrier, as the copies)
+      float* bt = reinterpret_cast<float*>(b + 2 * kTile<DP> + 2 * kRows * 4);
+      for (int idx = threadIdx.x; idx < kRows * kRows / 4; idx += kThreads) {
+        const int r = idx / (kRows / 4), c = (idx % (kRows / 4)) * 4;
+        const int row = q0 + r, col = k0 + c;
+        const bool in = row < sq && col < sk;
+        const float* src = hbias + static_cast<long long>(row) * bias_ss + col;
+        if (vec_bias) {
+          cp_async16(smem_u32(bt + r * kBiasLd + c), in ? src : hbias,
+                     in ? min(4, sk - col) * 4 : 0);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            bt[r * kBiasLd + c + e] = in && col + e < sk ? src[e] : 0.f;
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  if (tiles > 0) issue(0);
+
+  // this lane's two keys: real and attended
+  bool key_ok[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key_lo + 8 * i;
+    key_ok[i] = key < sk && (!HAS_MASK || mask[bi * mask_sb + key] != 0);
+  }
+  uint32_t kf[kARegs ? kKC : 1][4], vf[kARegs ? kKC : 1][4];
+  float dk_acc[DP / 8][4], dv_acc[DP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+  const uint32_t kt = smem_u32(smem_dkv), vt = kt + kTile<DP>;
+
+  for (int t = 0; t < tiles; ++t) {
+    const int q0 = q_begin + t * kRows;
+    unsigned char* b = buffer(t & 1);
+    if (t + 1 < tiles) {
+      issue(t + 1);  // into the buffer the previous tile released
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint32_t qt = smem_u32(b), dt = qt + kTile<DP>;
+    const float* lse_t = reinterpret_cast<const float*>(b + 2 * kTile<DP>);
+    const float* bias_t = lse_t + 2 * kRows;
+    if constexpr (kARegs) {
+      if (t == 0) {
+#pragma unroll
+        for (int kc = 0; kc < kKC; ++kc) {
+          load_a<DP>(kf[kc], kt, warp * 16, kc, lane);
+          load_a<DP>(vf[kc], vt, warp * 16, kc, lane);
+        }
+      }
+    }
+    // every query row of the tile is real and at or past this warp's keys
+    const bool interior =
+        q0 + kRows <= sq && (!causal || q0 >= k0 + warp * 16 + 15);
+
+#pragma unroll
+    for (int hq = 0; hq < kRows / kQN; ++hq) {
+      // s^T = k . q^T and dp^T = v . do^T: 16 keys x 32 query columns
+      float st[kQN / 8][4], dpt[kQN / 8][4];
+#pragma unroll
+      for (int j = 0; j < kQN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < kKC; ++kc) {
+        uint32_t ak[4], av[4];
+        if constexpr (kARegs) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ak[e] = kf[kc][e];
+            av[e] = vf[kc][e];
+          }
+        } else {
+          load_a<DP>(ak, kt, warp * 16, kc, lane);
+          load_a<DP>(av, vt, warp * 16, kc, lane);
+        }
+        mma_rows<DP, kQN / 8>(st, ak, qt, hq * kQN, kc, lane);
+        mma_rows<DP, kQN / 8>(dpt, av, dt, hq * kQN, kc, lane);
+      }
+      // p^T and ds^T: the columns are query rows, with their lse and delta
+#pragma unroll
+      for (int j = 0; j < kQN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key_lo + 8 * (e >> 1);
+          const int qc = hq * kQN + j * 8 + 2 * (lane % 4) + (e & 1);
+          const int row = q0 + qc;
+          const bool keep = key_ok[e >> 1] &&
+                            (interior || (row < sq && (!causal || key <= row)));
+          const float bv =
+              HAS_BIAS ? bias_t[qc * kBiasLd + key - k0] : 0.f;
+          const float l = SIGMOID ? logit_bias : lse_t[qc];
+          const float dl = SIGMOID ? 0.f : lse_t[kRows + qc];
+          float ds;
+          st[j][e] = p_ds<SIGMOID, HAS_BIAS>(st[j][e], dpt[j][e], keep,
+                                             scale, l, dl, bv, ds);
+          dpt[j][e] = ds;
+        }
+      // dv += p^T . do and dk += ds^T . q, p and ds rounded to bf16 as the
+      // A fragments of query columns 16 kk..16 kk + 15
+#pragma unroll
+      for (int kk = 0; kk < kQN / 16; ++kk) {
+        uint32_t ap[4], ads[4];
+        pack_a(ap, st[2 * kk], st[2 * kk + 1]);
+        pack_a(ads, dpt[2 * kk], dpt[2 * kk + 1]);
+        mma_cols<DP>(dv_acc, ap, dt, hq * kQN + kk * 16, lane);
+        mma_cols<DP>(dk_acc, ads, qt, hq * kQN + kk * 16, lane);
+      }
+    }
+    __syncthreads();  // this tile's buffer is no longer read
+  }
+  if (tiles == 0) cp_async_wait<0>();  // the k/v copies nothing read
+  store_acc<DP>(dk, dk_acc, scale, bi, h, heads, sk, d, key_lo, lane);
+  store_acc<DP>(dv, dv_acc, 1.f, bi, h, heads, sk, d, key_lo, lane);
+}
+
+// both bf16 kernels on `stream`: dq, then dk/dv
+template <int DP, bool HAS_MASK, bool SIGMOID, bool HAS_BIAS>
 cudaError_t launch(const Args& a) {
-  constexpr int LD = DP + 4;
-  const auto* q = static_cast<const T*>(a.q);
-  const auto* k = static_cast<const T*>(a.k);
-  const auto* v = static_cast<const T*>(a.v);
-  const auto* dout = static_cast<const T*>(a.dout);
+  const auto* q = static_cast<const bf16*>(a.q);
+  const auto* k = static_cast<const bf16*>(a.k);
+  const auto* v = static_cast<const bf16*>(a.v);
+  const auto* dout = static_cast<const bf16*>(a.dout);
   const auto* lse = static_cast<const float*>(a.lse);
   const auto* delta = static_cast<const float*>(a.delta);
   const auto* mask = static_cast<const unsigned char*>(a.mask);
   const auto* bias = static_cast<const float*>(a.bias);
+  // cp.async needs every row of q, k, v and do on a 16-byte boundary, and
+  // the bias's rows for its tiles
+  bool vec = true;
+  for (const void* p : {a.q, a.k, a.v, a.dout})
+    vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  for (const Strides& st : {a.qs, a.ks, a.vs, a.dos})
+    vec = vec && st.b % 8 == 0 && st.s % 8 == 0 && st.n % 8 == 0;
+  const bool vec_bias = reinterpret_cast<uintptr_t>(a.bias) % 16 == 0 &&
+                        a.bias_sn % 4 == 0 && a.bias_ss % 4 == 0;
 
-  auto dq_kernel =
-      flash_bwd_dq_kernel<T, DP, BQ, BK, HAS_MASK, SIGMOID, HAS_BIAS>;
-  const int dq_smem =
-      ((2 * BQ + 2 * BK) * LD + BQ * (BK + 4)) * static_cast<int>(sizeof(float));
-  cudaError_t err = jimm::allow_smem(dq_kernel, dq_smem);
+  auto dq_kernel = flash_bwd_dq_mma_kernel<DP, HAS_MASK, SIGMOID, HAS_BIAS>;
+  cudaError_t err = jimm::allow_smem(dq_kernel, kDqSmem<DP>);
   if (err != cudaSuccess) return err;
-  dq_kernel<<<dim3(a.batch * a.heads, (a.sq + BQ - 1) / BQ), kThreads, dq_smem,
-              a.stream>>>(q, k, v, dout, lse, delta, static_cast<T*>(a.dq),
-                          a.heads, a.sq, a.sk, a.d, a.qs, a.ks, a.vs, a.dos,
-                          a.scale, a.logit_bias, a.causal, mask, a.mask_sb,
-                          bias, a.bias_sn, a.bias_ss);
+  dq_kernel<<<dim3(a.batch * a.heads, (a.sq + kRows - 1) / kRows), kThreads,
+              kDqSmem<DP>, a.stream>>>(
+      q, k, v, dout, lse, delta, static_cast<bf16*>(a.dq), a.heads, a.sq,
+      a.sk, a.d, a.qs, a.ks, a.vs, a.dos, a.scale, a.logit_bias, a.causal,
+      mask, a.mask_sb, bias, a.bias_sn, a.bias_ss, static_cast<int>(vec));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto dkv_kernel =
-      flash_bwd_dkv_kernel<T, DP, BQ, BK, HAS_MASK, SIGMOID, HAS_BIAS>;
-  const int dkv_smem = ((2 * BQ + 2 * BK) * LD + 2 * BK * (BQ + 4)) *
-                       static_cast<int>(sizeof(float));
+  auto dkv_kernel = flash_bwd_dkv_mma_kernel<DP, HAS_MASK, SIGMOID, HAS_BIAS>;
+  constexpr int dkv_smem = kDkvSmem<DP, HAS_BIAS>;
   err = jimm::allow_smem(dkv_kernel, dkv_smem);
   if (err != cudaSuccess) return err;
-  dkv_kernel<<<dim3(a.batch * a.heads, (a.sk + BK - 1) / BK), kThreads,
+  dkv_kernel<<<dim3(a.batch * a.heads, (a.sk + kRows - 1) / kRows), kThreads,
                dkv_smem, a.stream>>>(
-      q, k, v, dout, lse, delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
-      a.heads, a.sq, a.sk, a.d, a.qs, a.ks, a.vs, a.dos, a.scale,
-      a.logit_bias, a.causal, mask, a.mask_sb, bias, a.bias_sn, a.bias_ss);
+      q, k, v, dout, lse, delta, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.heads, a.sq, a.sk, a.d, a.qs, a.ks, a.vs,
+      a.dos, a.scale, a.logit_bias, a.causal, mask, a.mask_sb, bias,
+      a.bias_sn, a.bias_ss, static_cast<int>(vec),
+      static_cast<int>(vec_bias));
   return cudaGetLastError();
+}
+
+}  // namespace tc
+
+// f32 (and bf16 at D = 256) on the FMA body, bf16 up to D = 128 on the
+// mma.sync body
+template <typename T, int DP, int BQ, int BK, bool HAS_MASK, bool SIGMOID,
+          bool HAS_BIAS>
+cudaError_t launch(const Args& a) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16> && DP <= 128) {
+    return tc::launch<DP, HAS_MASK, SIGMOID, HAS_BIAS>(a);
+  } else {
+    constexpr int LD = DP + 4;
+    const auto* q = static_cast<const T*>(a.q);
+    const auto* k = static_cast<const T*>(a.k);
+    const auto* v = static_cast<const T*>(a.v);
+    const auto* dout = static_cast<const T*>(a.dout);
+    const auto* lse = static_cast<const float*>(a.lse);
+    const auto* delta = static_cast<const float*>(a.delta);
+    const auto* mask = static_cast<const unsigned char*>(a.mask);
+    const auto* bias = static_cast<const float*>(a.bias);
+
+    auto dq_kernel =
+        flash_bwd_dq_kernel<T, DP, BQ, BK, HAS_MASK, SIGMOID, HAS_BIAS>;
+    const int dq_smem = ((2 * BQ + 2 * BK) * LD + BQ * (BK + 4)) *
+                        static_cast<int>(sizeof(float));
+    cudaError_t err = jimm::allow_smem(dq_kernel, dq_smem);
+    if (err != cudaSuccess) return err;
+    dq_kernel<<<dim3(a.batch * a.heads, (a.sq + BQ - 1) / BQ), kThreads,
+                dq_smem, a.stream>>>(
+        q, k, v, dout, lse, delta, static_cast<T*>(a.dq), a.heads, a.sq,
+        a.sk, a.d, a.qs, a.ks, a.vs, a.dos, a.scale, a.logit_bias, a.causal,
+        mask, a.mask_sb, bias, a.bias_sn, a.bias_ss);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+
+    auto dkv_kernel =
+        flash_bwd_dkv_kernel<T, DP, BQ, BK, HAS_MASK, SIGMOID, HAS_BIAS>;
+    const int dkv_smem = ((2 * BQ + 2 * BK) * LD + 2 * BK * (BQ + 4)) *
+                         static_cast<int>(sizeof(float));
+    err = jimm::allow_smem(dkv_kernel, dkv_smem);
+    if (err != cudaSuccess) return err;
+    dkv_kernel<<<dim3(a.batch * a.heads, (a.sk + BK - 1) / BK), kThreads,
+                 dkv_smem, a.stream>>>(
+        q, k, v, dout, lse, delta, static_cast<T*>(a.dk),
+        static_cast<T*>(a.dv), a.heads, a.sq, a.sk, a.d, a.qs, a.ks, a.vs,
+        a.dos, a.scale, a.logit_bias, a.causal, mask, a.mask_sb, bias,
+        a.bias_sn, a.bias_ss);
+    return cudaGetLastError();
+  }
 }
 
 // the kinds: masked, biased (softmax without a mask only: no entry point of

@@ -6,35 +6,52 @@
 // arrive quantized per (batch, position, head) row over D (int8 values and
 // f32 scales, ops/flash_attention_int8.py::quantize_heads); V stays in the
 // storage dtype. Same numerics: the q.k score is an exact s32 dot (the
-// TPU's MXU int32 dot; here __dp4a over words of both rows), dequantized as
-// ((float(s) * q_scale) * k_scale) * sm_scale in that order, each product
-// rounded on its own; masked scores are -1e30; the online softmax keeps its
-// max and sum in f32 and sums the unrounded p, while the P.V product takes
-// p rounded to V's dtype (the TPU kernel's p.astype(v.dtype)); a row with
-// l == 0 divides by 1; o = acc / l in V's dtype, lse = m + log(l) in f32.
-// The TPU kernel's blocks reach 512 keys, so at S <= 512 its softmax is one
-// pass; this kernel rescales over 64-key tiles, which in f32 differs at
-// rounding level and in bf16 can move a rounded p by one bf16 step.
+// TPU's MXU int32 dot), dequantized as ((float(s) * q_scale) * k_scale) *
+// sm_scale in that order, each product rounded on its own; masked scores
+// are -1e30; the online softmax keeps its max and sum in f32 and sums the
+// unrounded p, while the P.V product takes p rounded to V's dtype (the TPU
+// kernel's p.astype(v.dtype)); a row with l == 0 divides by 1; o = acc / l
+// in V's dtype, lse = m + log(l) in f32. The TPU kernel's blocks reach 512
+// keys, so at S <= 512 its softmax is one pass; this kernel rescales over
+// 64-key tiles, which in f32 differs at rounding level and in bf16 can move
+// a rounded p by one bf16 step.
 //
-// Design: the FA2 arrangement of flash_attention.cu (one CTA of 256 threads
-// per (batch*head, 64-row q tile), looping over 64-key tiles in shared
-// memory, m/l/acc in registers, thread (ty, tx) owning q rows 4*ty..+3 and
-// keys tx + 16*j), with the int8 q and k rows staged as words: a 64-row
-// tile of D = 64 is 4 KB instead of the f32 kernel's 16 KB, and each s32
-// score is D/4 __dp4a instead of D f32 FMAs. Per-key scales ride in shared
-// memory with the k tile, per-query scales in registers. The head dim is
-// zero-padded to 64/128/256 bytes (int8) and floats (V) in shared memory;
-// zero bytes add zero to the dot. The TPU pads D to 128 lanes for its int8
-// tiles, a Mosaic constraint that does not carry over.
+// Design for bf16 V (the FA2 arrangement of flash_attention.cu's bf16 body,
+// on the building blocks of flash_mma.cuh): one CTA of four warps per
+// (batch*head, 64-row q tile), each warp owning 16 q rows; 64-key tiles of
+// int8 k, bf16 v and the keys' scales double-buffered by cp.async into
+// XOR-swizzled shared tiles. The scores run on the s8 tensor cores: the
+// int8 A and B fragments of mma.m16n8k32 have the bf16 fragments' register
+// layout at twice the elements, so ldmatrix reads them as b16 pairs; the q
+// fragments stay in registers for the whole kv loop (D <= 128), and S = q .
+// k^T runs as s8 mma.sync into s32, exact integer sums, so bit for bit the
+// dot of the FMA body's __dp4a in any order. The epilogue runs on the
+// fragments in the TPU kernel's order: q_scale per row in registers,
+// k_scale per key from the staged tile, the ragged and causal keep
+// predicate, then the running max and sum reduced over each row's quad by
+// shuffles. p is rounded to bf16 and packed in registers as the A fragments
+// of P.V, V read by ldmatrix.trans, and P.V runs on bf16 mma.sync. The head
+// dim is zero-padded in shared memory only, to 64/128/256 bytes (int8, a
+// multiple of the s8 k-step's 32) and elements (V); zero bytes add zero to
+// the dot. Rows off a 16-byte boundary (D not a multiple of 16, a base or
+// stride off it) are loaded element by element into the same layout.
 //
-// What bounds it on the H100: the bytes, as for the f32 kernel: at the train
-// image shape (128, 256, 12, 64) bf16 it moves ~155 MB (int8 q/k 50 MB,
-// V and o 101 MB, scales and lse 5 MB), 0.046 ms at 3.35 TB/s, against
-// 6.4 GOP of int8 scores and 6.4 GFLOP of P.V. This first version runs the
-// scores on __dp4a and P.V on f32 FMAs, whose instruction rate sets its
-// time; the tensor-core version (mma.sync s8 for the scores) is later work.
+// f32 V keeps the FMA body below (CTAs of 256 threads in a 16 x 16 layout,
+// int8 rows staged as words, __dp4a scores, P.V on f32 FMAs): mma.sync
+// would round V and p to TF32, and f32 is the port's exactness path, so the
+// dispatch by dtype is a compile-time choice, not a fallback.
+//
+// What bounds it on the H100: the bytes. At the train image shape (128,
+// 256, 12, 64) bf16 it moves ~155 MB (int8 q/k 50 MB, V and o 101 MB,
+// scales and lse 5 MB), 0.046 ms at 3.35 TB/s, against 6.4 GOP of int8
+// scores and 6.4 GFLOP of P.V (under 0.01 ms on the tensor cores). As in
+// the bf16 forward, the per-score epilogue on the CUDA cores (the three
+// dequantizing multiplies, the exp, the running max) sets the pace.
+
+#include <type_traits>
 
 #include "flash_int8.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -152,6 +169,216 @@ __global__ void __launch_bounds__(kThreads) flash_int8_fwd_kernel(
   }
 }
 
+// -- the bf16 body (s8 and bf16 mma.sync) ------------------------------------
+
+namespace tc {
+
+using jimm::mma::bf16;
+using jimm::mma::cp_async_commit;
+using jimm::mma::cp_async_wait;
+using jimm::mma::kRows;
+using jimm::mma::kThreads;
+using jimm::mma::ldmatrix_x4;
+using jimm::mma::load_tile;
+using jimm::mma::load_tile_i8;
+using jimm::mma::load_vec64;
+using jimm::mma::mma_pv;
+using jimm::mma::mma_s8;
+using jimm::mma::online_softmax;
+using jimm::mma::smem_u32;
+using jimm::mma::swz_chunks;
+static_assert(kBQ == kRows && kBK == kRows, "64-row q and k tiles");
+
+// shared memory: the q tile, then per buffer a k tile, a v tile, and after
+// both buffers the two tiles' 64 key scales
+template <int DP>
+constexpr int kI8Tile = kRows * DP;       // an int8 q or k tile (bytes)
+template <int DP>
+constexpr int kV16Tile = kRows * DP * 2;  // a bf16 v tile
+template <int DP>
+constexpr int kSmemBytes =
+    kI8Tile<DP> + 2 * (kI8Tile<DP> + kV16Tile<DP>) + 2 * kBK * 4;
+
+// CTAs an SM should hold: four at D = 64, as the bf16 forward
+template <int DP>
+constexpr int kMinCtas = DP == 64 ? 4 : 1;
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads, kMinCtas<DP>)
+    flash_int8_fwd_mma_kernel(
+    const int8_t* __restrict__ qq, const int8_t* __restrict__ kq,
+    const float* __restrict__ qs, const float* __restrict__ ks,
+    const bf16* __restrict__ v, bf16* __restrict__ o,
+    float* __restrict__ lse, int heads, int sq, int sk, int d,
+    long long v_sb, long long v_ss, long long v_sn, float scale, int causal,
+    int vec_qk, int vec_v) {
+  constexpr int kCH = DP / 16;      // 16-byte chunks of an int8 row
+  constexpr int kKC = DP / 32;      // s8 k32 steps over the head dim
+  constexpr bool kQRegs = DP <= 128;  // q held as A fragments
+  extern __shared__ __align__(16) unsigned char smem_i8[];
+  unsigned char* q_tile = smem_i8;
+  auto k_tile = [&](int buf) {
+    return smem_i8 + kI8Tile<DP> + buf * (kI8Tile<DP> + kV16Tile<DP>);
+  };
+  float* k_scale = reinterpret_cast<float*>(
+      smem_i8 + kI8Tile<DP> + 2 * (kI8Tile<DP> + kV16Tile<DP>));
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bh = blockIdx.x;
+  const int bi = bh / heads, h = bh % heads;
+  const int q0 = blockIdx.y * kBQ;
+  const long long row_stride = static_cast<long long>(heads) * d;
+  const int8_t* qb = qq + static_cast<long long>(bi) * sq * row_stride +
+                     static_cast<long long>(h) * d;
+  const int8_t* kb = kq + static_cast<long long>(bi) * sk * row_stride +
+                     static_cast<long long>(h) * d;
+  const bf16* vb = v + bi * v_sb + h * v_sn;
+  const float* ksb = ks + static_cast<long long>(bh) * sk;
+  const int r_lo = q0 + warp * 16 + lane / 4;  // this lane's rows: +0, +8
+
+  load_tile_i8<DP>(q_tile, qb, row_stride, q0, sq, d, vec_qk);
+  cp_async_commit();
+  // causal: keys past the tile's last query row are masked for every row
+  const int kv_end = causal ? min(sk, q0 + kBQ) : sk;
+  const int tiles = (kv_end + kBK - 1) / kBK;
+  auto issue = [&](int t) {
+    const int buf = t & 1, k0 = t * kBK;
+    load_tile_i8<DP>(k_tile(buf), kb, row_stride, k0, sk, d, vec_qk);
+    load_tile<DP>(k_tile(buf) + kI8Tile<DP>, vb, v_ss, k0, sk, d, vec_v);
+    load_vec64(k_scale + buf * kBK, ksb, k0, sk);
+    cp_async_commit();
+  };
+  issue(0);
+
+  float q_scale[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r_lo + 8 * i;
+    q_scale[i] = row < sq ? qs[static_cast<long long>(bh) * sq + row] : 1.f;
+  }
+  uint32_t qf[kQRegs ? kKC : 1][4];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1, k0 = t * kBK;
+    if (t + 1 < tiles) {
+      issue(t + 1);  // into the buffer the previous tile released
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint32_t kt = smem_u32(k_tile(buf));
+    const uint32_t vt = kt + kI8Tile<DP>;
+    const float* ksc = k_scale + buf * kBK;
+    // A fragments of q: lanes 0-15 address rows 0-15 at the k32 step's
+    // first 16 bytes, lanes 16-31 at its last 16
+    const int q_addr_row = warp * 16 + lane % 16;
+    if constexpr (kQRegs) {
+      if (t == 0) {
+#pragma unroll
+        for (int kc = 0; kc < kKC; ++kc)
+          ldmatrix_x4(qf[kc], smem_u32(q_tile) + swz_chunks<kCH>(
+                                  q_addr_row, kc * 2 + lane / 16));
+      }
+    }
+
+    // s = q . k^T in s32: 16 rows x 64 keys a warp, 8 blocks of 8 keys
+    int si[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) si[j][e] = 0;
+#pragma unroll
+    for (int kc = 0; kc < kKC; ++kc) {
+      uint32_t a[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[kc][e];
+      } else {
+        ldmatrix_x4(a, smem_u32(q_tile) +
+                           swz_chunks<kCH>(q_addr_row, kc * 2 + lane / 16));
+      }
+#pragma unroll
+      for (int j2 = 0; j2 < 4; ++j2) {
+        // keys 16 j2 + (lane / 16) * 8 + lane % 8 at the k32 step's first
+        // (lanes 0-7, 16-23) or last (8-15, 24-31) 16 bytes: the B
+        // fragments of key blocks 2 j2 and 2 j2 + 1
+        uint32_t b[4];
+        ldmatrix_x4(b, kt + swz_chunks<kCH>(j2 * 16 + (lane / 16) * 8 +
+                                                lane % 8,
+                                            kc * 2 + (lane / 8) % 2));
+        mma_s8(si[2 * j2], a, b[0], b[1]);
+        mma_s8(si[2 * j2 + 1], a, b[2], b[3]);
+      }
+    }
+
+    // the dequantized, scaled scores and the rows' max; a tile in which
+    // every key counts for every row of this warp takes the epilogue
+    // without the keep test
+    const bool interior = k0 + kBK <= sk &&
+                          (!causal || k0 + kBK - 1 <= q0 + warp * 16);
+    float s[8][4];
+    float mx[2] = {kNegInf, kNegInf};
+    auto epilogue = [&](auto edge) {
+      constexpr bool kEdge = decltype(edge)::value;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = r_lo + 8 * (e >> 1);
+          const int key = j * 8 + 2 * (lane % 4) + (e & 1);
+          bool keep = true;
+          if constexpr (kEdge)
+            keep = k0 + key < sk && (!causal || k0 + key <= row);
+          s[j][e] = keep ? dequant_score(si[j][e], q_scale[e >> 1],
+                                         ksc[key], scale)
+                         : kNegInf;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        }
+    };
+    if (interior)
+      epilogue(std::false_type{});
+    else
+      epilogue(std::true_type{});
+    online_softmax<DP>(s, mx, m, l, acc);
+    // acc += p . v on bf16 mma.sync, p rounded to bf16 in registers
+    mma_pv<DP>(acc, s, vt, lane);
+    __syncthreads();  // this tile's buffer is no longer read
+  }
+
+  const bool pairs = d % 2 == 0;  // a column pair is one 4-byte store
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r_lo + 8 * i;
+    if (row >= sq) continue;
+    const float ll = l[i] == 0.f ? 1.f : l[i];
+    bf16* orow = o + (static_cast<long long>(bi) * sq + row) * heads * d +
+                 static_cast<long long>(h) * d;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = j * 8 + 2 * (lane % 4);
+      const float y0 = acc[j][2 * i] / ll, y1 = acc[j][2 * i + 1] / ll;
+      if (pairs && col + 1 < d) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(y0, y1);
+      } else {
+        if (col < d) orow[col] = __float2bfloat16(y0);
+        if (col + 1 < d) orow[col + 1] = __float2bfloat16(y1);
+      }
+    }
+    if (lane % 4 == 0)
+      lse[static_cast<long long>(bh) * sq + row] = m[i] + logf(ll);
+  }
+}
+
+}  // namespace tc
+
 struct Args {
   const void *qq, *kq, *qs, *ks, *v;
   void *o, *lse;
@@ -162,20 +389,43 @@ struct Args {
   cudaStream_t stream;
 };
 
+// f32 V on the FMA body, bf16 on the mma.sync body
 template <typename T, int DP>
 cudaError_t launch(const Args& a) {
-  auto kernel = flash_int8_fwd_kernel<T, DP>;
-  const int smem = (kBQ + kBK) * (DP / 4 + 4) * 4 +
-                   (kBK * (DP + 4) + kBQ * (kBK + 4) + kBK) * 4;
-  cudaError_t err = jimm::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid(a.batch * a.heads, (a.sq + kBQ - 1) / kBQ);
-  kernel<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const int8_t*>(a.qq), static_cast<const int8_t*>(a.kq),
-      static_cast<const float*>(a.qs), static_cast<const float*>(a.ks),
-      static_cast<const T*>(a.v), static_cast<T*>(a.o),
-      static_cast<float*>(a.lse), a.heads, a.sq, a.sk, a.d, a.v_sb, a.v_ss,
-      a.v_sn, a.scale, a.causal, words_aligned(a.qq, a.kq, a.d));
+  if constexpr (std::is_same_v<T, float>) {
+    auto kernel = flash_int8_fwd_kernel<T, DP>;
+    const int smem = (kBQ + kBK) * (DP / 4 + 4) * 4 +
+                     (kBK * (DP + 4) + kBQ * (kBK + 4) + kBK) * 4;
+    cudaError_t err = jimm::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, smem, a.stream>>>(
+        static_cast<const int8_t*>(a.qq), static_cast<const int8_t*>(a.kq),
+        static_cast<const float*>(a.qs), static_cast<const float*>(a.ks),
+        static_cast<const T*>(a.v), static_cast<T*>(a.o),
+        static_cast<float*>(a.lse), a.heads, a.sq, a.sk, a.d, a.v_sb, a.v_ss,
+        a.v_sn, a.scale, a.causal, words_aligned(a.qq, a.kq, a.d));
+  } else {
+    auto kernel = tc::flash_int8_fwd_mma_kernel<DP>;
+    const int smem = tc::kSmemBytes<DP>;
+    cudaError_t err = jimm::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    // cp.async needs every row on a 16-byte boundary: for the contiguous
+    // int8 q and k, aligned bases and D a multiple of 16; for v, its base
+    // and strides
+    const bool vec_qk = a.d % 16 == 0 &&
+                        reinterpret_cast<uintptr_t>(a.qq) % 16 == 0 &&
+                        reinterpret_cast<uintptr_t>(a.kq) % 16 == 0;
+    const bool vec_v = reinterpret_cast<uintptr_t>(a.v) % 16 == 0 &&
+                       a.v_sb % 8 == 0 && a.v_ss % 8 == 0 && a.v_sn % 8 == 0;
+    kernel<<<grid, tc::kThreads, smem, a.stream>>>(
+        static_cast<const int8_t*>(a.qq), static_cast<const int8_t*>(a.kq),
+        static_cast<const float*>(a.qs), static_cast<const float*>(a.ks),
+        static_cast<const T*>(a.v), static_cast<T*>(a.o),
+        static_cast<float*>(a.lse), a.heads, a.sq, a.sk, a.d, a.v_sb, a.v_ss,
+        a.v_sn, a.scale, a.causal, static_cast<int>(vec_qk),
+        static_cast<int>(vec_v));
+  }
   return cudaGetLastError();
 }
 

@@ -1,0 +1,262 @@
+"""Side-by-side timing of kernel source variants on one card.
+
+    python -m jimm_tpu_torch.kernel_ab --variant PATH.cu [--variant ...]
+        [--case NAME ...] [--rounds N]
+
+The base is the library ``_build`` builds from ``csrc/``. Each variant is
+one CUDA source (an edited copy of a ``csrc/*.cu`` file, compiled alone with
+``nvcc -shared`` and ``-I csrc`` for its headers) whose exported entry
+points replace the base's while it is timed; every other entry point stays
+the base's. Each case runs the port's public wrapper at the train image
+shape of SigLIP-B/16 (q, k, v (128, 256, 12, 64) bf16), and is timed in
+turns (base, then each variant, then in reverse order, ``--rounds`` times)
+with CUDA events around 50 calls after 5 warm-up calls, so that every
+variant is compared with the base on one card within one process. Prints
+one JSON line per timing, with the card's name and power limit.
+
+Cases: ``bwd``, ``mask_bwd``, ``sigmoid_bwd``, ``bias_bwd`` (row 7 in each
+kind, dq and dk/dv), ``int8_fwd`` (row 9), ``fwd`` (row 3).
+
+Two more readings of the same variants, for numerics rather than speed
+(run from the repository root: they build models as ``chip_smoke.py``
+does):
+
+- ``--losses softmax|sigmoid[@LR]`` (repeatable; LR defaults to 1e-3,
+  the train phase's): the losses of 13 steps of
+  ``chip_smoke.py``'s train phase (SigLIP-B/16-256, bf16, batch 128, one
+  fixed batch, AdamW) through the base, through each variant and with the
+  plain versions swapped in;
+- ``--grads softmax|naflex|sigmoid`` (repeatable): one bf16 batch-8
+  step's gradients
+  (``chip_smoke.py`` phases 5(a), 6(a), 10(a)) through the base and each
+  variant, each parameter's cosine against the plain-version step and
+  against the base's; prints the ten lowest against the plain versions
+  (the k-projection biases, zero in exact arithmetic, left out).
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import ctypes
+import functools
+import json
+import pathlib
+import subprocess
+import tempfile
+
+import torch
+
+from jimm_tpu_torch import _build
+from jimm_tpu_torch.ops import flash_attention as fa
+from jimm_tpu_torch.ops import flash_attention_int8 as fa8
+
+SHAPE = (128, 256, 12, 64)
+
+
+def variant_libraries(sources: list[pathlib.Path], out_dir: pathlib.Path
+                      ) -> list[tuple[ctypes.CDLL, set[str]]]:
+    """Each source compiled alone into a shared library (one nvcc each, all
+    at once), and the entry points of ``_build._SIGNATURES`` it exports
+    (their argtypes set)."""
+    outs = [out_dir / f"variant_{i}.so" for i in range(len(sources))]
+    procs = [subprocess.Popen(
+        [_build.nvcc(), *_build._ARCH, "-shared", "-Xcompiler", "-fPIC",
+         "-I", str(_build.CSRC_DIR), "-o", str(out), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for src, out in zip(sources, outs)]
+    libs = []
+    for src, out, proc in zip(sources, outs, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"{src}: nvcc failed:\n{err}")
+        lib = ctypes.CDLL(str(out))
+        names = set()
+        for name, argtypes in _build._SIGNATURES.items():
+            try:
+                fn = getattr(lib, name)
+            except AttributeError:
+                continue
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            names.add(name)
+        libs.append((lib, names))
+    return libs
+
+
+class _Routed:
+    """The base library with some entry points sent to a variant."""
+
+    def __init__(self, base: ctypes.CDLL, variant: ctypes.CDLL,
+                 names: set[str]):
+        self._base, self._variant, self._names = base, variant, names
+
+    def __getattr__(self, name):
+        return getattr(self._variant if name in self._names else self._base,
+                       name)
+
+
+def cases() -> dict:
+    """Each case's call, on inputs made once from a seeded generator."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    b, s, n, d = SHAPE
+    q, k, v, do = (torch.randn(b, s, n, d, generator=g, device="cuda").to(
+        torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_attention_plain(q, k, v)
+    mask = torch.ones(b, s, dtype=torch.bool, device="cuda")
+    mask[:, 243:] = False
+    mo, mlse = fa.flash_attention_plain(q, k, v, mask=mask)
+    bias = torch.randn(n, s, s, generator=g, device="cuda")
+    bo, blse = fa.flash_attention_bias_plain(q, k, v, bias)
+    qq, qs = fa8.quantize_heads(q)
+    kq, ks = fa8.quantize_heads(k)
+    logit_bias = fa.default_logit_bias(s)
+    return {
+        "bwd": lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
+        "mask_bwd": lambda: fa.flash_attention_bwd(q, k, v, mo, mlse, do,
+                                                   mask=mask),
+        "sigmoid_bwd": lambda: fa.sigmoid_attention_bwd(
+            q, k, v, do, logit_bias=logit_bias),
+        "bias_bwd": lambda: fa.flash_attention_bias_bwd(q, k, v, bias, bo,
+                                                        blse, do),
+        "int8_fwd": lambda: fa8.flash_attention_int8_fwd(qq, qs, kq, ks, v),
+        "fwd": lambda: fa.flash_attention_lse(q, k, v),
+    }
+
+
+def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+@contextlib.contextmanager
+def _routed(base: ctypes.CDLL, lib: ctypes.CDLL, names: set[str]):
+    _build._lib = _Routed(base, lib, names) if names else base
+    try:
+        yield
+    finally:
+        _build._lib = base
+
+
+def _model(smoke, kind: str):
+    if kind == "naflex":
+        return smoke._naflex_model(torch.bfloat16)
+    return smoke._train_model(torch.bfloat16,
+                              "sigmoid" if kind == "sigmoid" else None)
+
+
+def loss_trajectories(variants, kind: str, lr: float, card: str,
+                      steps: int = 13) -> None:
+    """Per-step losses of chip_smoke.py's train loop under each variant and
+    under the plain versions."""
+    import chip_smoke as smoke
+    from jimm_tpu_torch.train.trainer import (OptimizerConfig,
+                                              make_contrastive_train_step,
+                                              make_optimizer)
+    runs = [(label, functools.partial(_routed, variants[0][1], lib, names))
+            for label, lib, names in variants]
+    runs.append(("plain", smoke.plain_versions))
+    for label, ctx in runs:
+        model = _model(smoke, kind)
+        optimizer = make_optimizer(model, OptimizerConfig(learning_rate=lr))
+        step = make_contrastive_train_step("siglip")
+        images, text = smoke._batch(model.config, smoke.TRAIN_BATCH,
+                                    torch.bfloat16, 2)
+        with ctx():
+            losses = [float(step(model, optimizer, images, text)["loss"])
+                      for _ in range(steps)]
+        print(json.dumps({"losses": kind, "lr": lr, "variant": label,
+                          "loss": losses, "card": card}), flush=True)
+
+
+def grad_cosines(variants, kind: str, card: str) -> None:
+    """Each parameter's bf16 batch-8 gradient under each variant: its
+    cosine against the plain-version step and against the base's."""
+    import chip_smoke as smoke
+    model = _model(smoke, kind)
+    batch = smoke._naflex_batch if kind == "naflex" else smoke._batch
+    images, text = batch(model.config, 8, torch.bfloat16, 1)
+
+    def grads(ctx):
+        model.zero_grad(set_to_none=True)
+        with ctx():
+            smoke.contrastive_loss_fn(model, images, text,
+                                      kind="siglip").backward()
+        return {n: p.grad.float().flatten().clone()
+                for n, p in model.named_parameters()}
+
+    plain = grads(smoke.plain_versions)
+    top = max(g.abs().max().item() for g in plain.values())
+    base = None
+    for label, lib, names in variants:
+        got = grads(functools.partial(_routed, variants[0][1], lib, names))
+        base = base or got
+        rows = sorted(
+            (torch.nn.functional.cosine_similarity(got[n], w, dim=0).item(),
+             torch.nn.functional.cosine_similarity(got[n], base[n],
+                                                   dim=0).item(),
+             n, w.abs().max().item() / top)
+            for n, w in plain.items()
+            if not n.endswith("attn.k.bias") and w.abs().max() > 0)
+        print(json.dumps({"grads": kind, "variant": label,
+                          "largest_gradient": top,
+                          "lowest": [{"name": n, "cos_plain": cp,
+                                      "cos_base": cb, "peak_of_largest": r}
+                                     for cp, cb, n, r in rows[:10]],
+                          "card": card}), flush=True)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--variant", action="append", default=[],
+                    type=pathlib.Path)
+    ap.add_argument("--case", action="append", default=[])
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--losses", action="append", default=[])
+    ap.add_argument("--grads", action="append", default=[],
+                    choices=["softmax", "naflex", "sigmoid"])
+    args = ap.parse_args()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    base = _build.load()
+    calls = cases()
+    names = args.case or list(calls)
+    with tempfile.TemporaryDirectory() as tmp:
+        variants = [("base", base, set())] + [
+            (str(p), *built) for p, built in zip(
+                args.variant,
+                variant_libraries(args.variant, pathlib.Path(tmp)))]
+        for spec in args.losses:
+            kind, _, lr = spec.partition("@")
+            loss_trajectories(variants, kind, float(lr or 1e-3), card)
+        for kind in args.grads:
+            grad_cosines(variants, kind, card)
+        if args.losses or args.grads:
+            return
+        order = variants + variants[::-1]
+        for case in names:
+            for _ in range(args.rounds):
+                for label, lib, routed in order:
+                    _build._lib = base if not routed else _Routed(
+                        base, lib, routed)
+                    try:
+                        ms = time_ms(calls[case])
+                    finally:
+                        _build._lib = base
+                    print(json.dumps({"case": case, "variant": label,
+                                      "ms": ms, "shape": list(SHAPE),
+                                      "card": card}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
