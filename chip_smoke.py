@@ -11,10 +11,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                library's SASS with ``cuobjdump``: every fp8 GEMM kernel must
                hold wgmma instructions (HGMMA: f16 wgmma on the fp8 values
                widened in shared memory), every bf16 flash forward, dq and
-               dk/dv kernel mma.sync ones (HMMA), and every int8-QK forward
-               of the bf16 body both s8 mma.sync (IMMA, its scores) and
-               HMMA (P.V); prints their counts, and each kernel's registers
-               and local memory (spills) from ``cuobjdump -res-usage``.
+               dk/dv kernel mma.sync ones (HMMA), every int8-QK forward
+               and backward (dq, dk/dv) of the bf16 body both s8 mma.sync
+               (IMMA, its scores) and HMMA (P.V; dp and the gradients), and
+               every dbias kernel of the bf16 body HMMA; prints their
+               counts, and each kernel's registers and local memory
+               (spills) from ``cuobjdump -res-usage``.
 3. kernels  -- each kernel against its plain PyTorch version on the card, at
                the served and trained shapes and some odd ones, forward and
                backward, the masked flash kernels (NaFlex) with the
@@ -32,14 +34,16 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                could take (bytes over 3.35 TB/s or flops over the peak);
                then readings, not gates: the kernels moved onto tensor
                cores (the bf16 flash forward and backward in each kind,
-               rows 3-7, the int8-QK forward, row 9, and the fp8 GEMM, row
-               12) as a speed-up over their FMA versions' times in PERF.md,
-               and the rows whose recorded times stand (3-6 and 12, which
-               share the mma.sync header with rows 7 and 9, and 1, 2, 8,
-               10, 11) beside those times (within 5%). In bf16 only, rows 9 and 7 (every kind)
-               also run at more odd shapes on their tensor-core bodies: an
-               unaligned strided q view, unaligned int8 q and k, D = 30, a
-               broadcast (256, 256) bias, -inf keys.
+               rows 3-7, the int8-QK forward and backward, rows 9 and 10,
+               the dbias kernel, row 8, and the fp8 GEMM, row 12) as a
+               speed-up over their FMA versions' times in PERF.md, and the
+               rows whose recorded times stand (3-6 and 12, which share
+               the mma.sync header with rows 7-10, and 1, 2, 11) beside
+               those times (within 5%). In bf16 only, rows 7 (every kind),
+               8, 9 and 10 also run at more odd shapes on their tensor-core
+               bodies: an unaligned strided q view, unaligned int8 q and k
+               with strided v and do, D = 30, a broadcast (256, 256) bias,
+               -inf keys, a batch summed in several ranges.
 4. serve    -- SigLIP-B/16-256 at full width in bf16, fused LayerNorm and
                flash attention, random weights from a seeded generator,
                behind the port's HTTP server with buckets (1, 8, 32): 48
@@ -107,7 +111,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 8. int8_qk  -- SigLIP-B/16-256 under ``--precision int8_qk`` (every
                attention, the MAP probe's included, on the int8-QK flash
                kernels): (a) f32 at batch 8, one step's gradients through the
-               kernels against the plain versions, as 5(a); (b) bf16 at batch
+               kernels against the plain versions, as 5(a), the
+               quantizations of q and k replayed, then the same in bf16 on
+               the tensor-core bodies (5(a)'s bf16 bound); (b) bf16 at batch
                128, one fixed batch, 3 warm-up and 10 timed steps (25 int8
                flash launches forward and backward a step, no softmax flash,
                48 LayerNorm; the loss must fall), with one profiled step;
@@ -260,7 +266,7 @@ NAFLEX_IMAGE = "q(128, 256, 12, 64) sk=256 naflex"
 FC1_FORWARD = "(32768, 768) x (3072, 768)^T +bias"
 #: the redesigned rows' FMA versions, as PERF.md's kernel table records
 #: them (NVIDIA H100 80GB HBM3, 700.00 W), by kernel: (shape, ms): rows
-#: 3-7 (every kind), 9 and 12, now on tensor cores
+#: 3-7 (every kind), 8, 9, 10 and 12, now on tensor cores
 FMA_VERSION_MS = {
     "flash_attention": (TRAIN_IMAGE, 1.2623),
     "flash_attention_masked": (NAFLEX_IMAGE, 1.0818),
@@ -271,18 +277,18 @@ FMA_VERSION_MS = {
     "flash_attention_masked_bwd": (NAFLEX_IMAGE, 4.1322),
     "sigmoid_attention_bwd": (TRAIN_IMAGE, 3.7372),
     "flash_attention_bias_bwd": (TRAIN_IMAGE, 4.1653),
-    "flash_attention_int8": (TRAIN_IMAGE, 0.9121)}
+    "flash_attention_int8": (TRAIN_IMAGE, 0.9121),
+    "flash_attention_dbias": (TRAIN_IMAGE, 2.2143),
+    "flash_attention_int8_bwd": (TRAIN_IMAGE, 3.5000)}
 #: the times PERF.md records for rows 3-6 and 12 on tensor cores, which a
 #: change to their shared header (flash_mma.cuh) must leave within 5%, and
-#: for rows 8 and 10 (and 1, 2, 11) on the CUDA cores
+#: for rows 1, 2 and 11 on the CUDA cores
 RECORDED_MS = {
     "flash_attention": (TRAIN_IMAGE, 0.2272),
     "flash_attention_masked": (NAFLEX_IMAGE, 0.2620),
     "flash_attention_bias": (TRAIN_IMAGE, 0.3099),
     "sigmoid_attention": (TRAIN_IMAGE, 0.2740),
     "fp8_matmul": (FC1_FORWARD, 0.4046),
-    "flash_attention_dbias": (TRAIN_IMAGE, 2.2143),
-    "flash_attention_int8_bwd": (TRAIN_IMAGE, 3.5000),
     "layer_norm": ("(32768, 768)", 0.0715),
     "layer_norm_bwd": ("(32768, 768)", 0.1241),
     "int8_matmul": ("(8192, 3072) x (3072, 768)", 0.3837)}
@@ -294,8 +300,11 @@ TENSOR_CORE_KERNELS = {"fp8_matmul_kernel": ("HGMMA",),
                        "flash_fwd_mma_kernel": ("HMMA",),
                        "flash_bwd_dq_mma_kernel": ("HMMA",),
                        "flash_bwd_dkv_mma_kernel": ("HMMA",),
-                       "flash_int8_fwd_mma_kernel": ("IMMA", "HMMA")}
-#: the bf16 twins of the f32 gradient checks (5(a), 6(a), 10(a)): each
+                       "flash_int8_fwd_mma_kernel": ("IMMA", "HMMA"),
+                       "flash_int8_bwd_dq_mma_kernel": ("IMMA", "HMMA"),
+                       "flash_int8_bwd_dkv_mma_kernel": ("IMMA", "HMMA"),
+                       "flash_dbias_mma_kernel": ("HMMA",)}
+#: the bf16 twins of the f32 gradient checks (5(a), 6(a), 8(a), 10(a)): each
 #: parameter's gradient within 2^-3 of its largest value (or of 2^-4 of the
 #: model's largest, for a gradient under that floor: the k-projection bias,
 #: zero in exact arithmetic, is rounding noise on both sides), and, above
@@ -834,10 +843,15 @@ def int8_flash_case(qshape: tuple[int, int, int, int], sk: int,
 
 
 def int8_flash_bwd_case(qshape: tuple[int, int, int, int], sk: int,
-                        causal: bool, dtype: torch.dtype, seed: int) -> dict:
-    """Kernel row 10 (dq, then dk/dv) against its plain version."""
+                        causal: bool, dtype: torch.dtype, seed: int,
+                        view: bool = False) -> dict:
+    """Kernel row 10 (dq, then dk/dv) against its plain version; ``view``:
+    q and k off a 16-byte boundary, v and do unaligned strided views."""
     qq, qs, kq, ks, v, do = _int8_flash_inputs(qshape, sk, dtype, seed)
     b, sq, n, d = qshape
+    if view:
+        qq, kq, v, do = (_unaligned_contiguous(qq), _unaligned_contiguous(kq),
+                         _unaligned(v), _unaligned(do))
     o, lse = fa8.flash_attention_int8_plain(qq, qs, kq, ks, v,
                                             is_causal=causal)
 
@@ -859,18 +873,20 @@ def int8_flash_bwd_case(qshape: tuple[int, int, int, int], sk: int,
     nbytes = (sum(t.nbytes for t in (qq, qs, kq, ks, v, o, lse, do))
               + lse.nbytes + sum(t.nbytes for t in got))  # lse again: delta
     bound, by = bound_ms(nbytes, 4 * work, dtype, int8_ops=work)
+    # SDPA's kernels assume aligned rows: the yardstick gets aligned copies
     qd, kd, vt = (t.detach().clone().requires_grad_() for t in (
         _dequantized(qq, qs, dtype), _dequantized(kq, ks, dtype),
         v.transpose(1, 2)))
+    dot = do.transpose(1, 2).clone()
     ot = F.scaled_dot_product_attention(qd, kd, vt, is_causal=causal)
-    return {"shape": f"q{qshape} sk={sk}" + (" causal" if causal else ""),
+    return {"shape": f"q{qshape} sk={sk}" + (" causal" if causal else "")
+            + (" unaligned q, k, v, do" if view else ""),
             "dtype": str(dtype)[6:], "max_abs_err": max(e[0] for e in errs),
             "cosine": min(e[1] for e in errs),
             "ms": device_ms(kernel), "call_ms": cuda_ms(kernel),
             "plain_ms": device_ms(lambda: fa8.flash_attention_int8_bwd_plain(
                 qq, qs, kq, ks, v, o, lse, do, is_causal=causal)),
-            "library_ms": device_ms(grad_ms(ot, (qd, kd, vt),
-                                            do.transpose(1, 2))),
+            "library_ms": device_ms(grad_ms(ot, (qd, kd, vt), dot)),
             "bound_ms": bound, "bound_by": by}
 
 
@@ -1243,20 +1259,33 @@ def bias_bwd_case(qshape: tuple[int, int, int, int], sk: int, causal: bool,
 
 
 def dbias_case(qshape: tuple[int, int, int, int], sk: int, causal: bool,
-               kind: str, dtype: torch.dtype, seed: int) -> dict:
+               kind: str, dtype: torch.dtype, seed: int, view: bool = False,
+               split: bool = False) -> dict:
     """Row 8 against its plain version: the f32 batch sum of the unrounded
     ds, held at the f32 tolerance relative to its scale in either input
     dtype (both sides sum f32 products of the same inputs); a key whose
-    bias is -inf gets exactly zero."""
+    bias is -inf gets exactly zero. ``view``: q an unaligned strided view;
+    ``split``: the wrapper must split the batch into ranges, which a trace
+    of its call shows as a launch of the range-sum kernel."""
     q, k, v, do, bias, held, pairs, o, lse, label, library = _bias_bwd_setup(
-        qshape, sk, causal, kind, dtype, seed)
+        qshape, sk, causal, kind, dtype, seed, view)
 
     def kernel():
         return fa.flash_attention_dbias(q, k, v, bias, o, lse, do,
                                         is_causal=causal)
 
-    got = kernel()
-    torch.cuda.synchronize()
+    for _ in range(3):  # a trace now and then has no device rows
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            got = kernel()
+            torch.cuda.synchronize()
+        names = [e.key for e in _device_rows(prof)]
+        if names:
+            break
+    if split:
+        check(any("dbias_range_sum_kernel" in name for name in names),
+              f"flash_dbias {label}: the batch was not split into ranges "
+              f"(kernels launched: {names})")
     want = fa.flash_attention_dbias_plain(q, k, v, bias, o, lse, do,
                                           is_causal=causal)
     err, cos, peak = compare(got, want)
@@ -1269,7 +1298,8 @@ def dbias_case(qshape: tuple[int, int, int, int], sk: int, causal: bool,
     nbytes = (sum(t.nbytes for t in (q, k, v, do, lse)) + lse.nbytes + held
               + got.nbytes)  # lse again: delta
     bound, by = bound_ms(nbytes, flops, dtype)
-    return {"shape": label, "dtype": str(dtype)[6:], "max_abs_err": err,
+    return {"shape": label + (" split" if split else ""),
+            "dtype": str(dtype)[6:], "max_abs_err": err,
             "cosine": cos, "ms": device_ms(kernel),
             "call_ms": cuda_ms(kernel),
             "plain_ms": device_ms(lambda: fa.flash_attention_dbias_plain(
@@ -1305,8 +1335,9 @@ def tensor_core_phase(card: str) -> None:
     """Reads the built library's SASS (``cuobjdump -sass``) and resources
     (``cuobjdump -res-usage``): every instantiation of the fp8 GEMM must
     hold warpgroup MMA instructions, every one of the bf16 flash forward,
-    dq and dk/dv kernels bf16 mma.sync ones, and every one of the int8-QK
-    forward's mma body both s8 (its scores) and bf16 (P.V) mma.sync ones;
+    dq and dk/dv kernels and of the dbias kernel's mma body bf16 mma.sync
+    ones, and every one of the int8-QK forward's and backward's mma bodies
+    both s8 (the scores) and bf16 (P.V, dp, the gradients) mma.sync ones;
     prints each kernel's counts, registers and local memory (spills) a
     thread, and fails if a kernel is missing or lacks one."""
     tool = pathlib.Path(_build.nvcc()).parent / "cuobjdump"
@@ -1343,11 +1374,12 @@ def tensor_core_phase(card: str) -> None:
 
 
 def odd_tensor_core_cases(add) -> None:
-    """Rows 9 and 7 (every kind) on their bf16 tensor-core bodies at more of
-    the JAX tests' odd shapes: seq 1, 5 and 257, D 64 and 80, causal and
-    not, rows off a 16-byte boundary (an unaligned strided q view; for row
-    9 unaligned int8 q and k and a strided v, and D = 30), a broadcast
-    (256, 256) bias and a bias with -inf keys."""
+    """Rows 7 (every kind), 8, 9 and 10 on their bf16 tensor-core bodies at
+    more of the JAX tests' odd shapes: seq 1, 5 and 257, D 64 and 80,
+    causal and not, rows off a 16-byte boundary (an unaligned strided q
+    view; for rows 9 and 10 unaligned int8 q and k and a strided v (and
+    do), and D = 30), a broadcast (256, 256) bias, a bias with -inf keys,
+    and (row 8) a batch summed in several ranges."""
     bf16 = torch.bfloat16
     for i, (qshape, sk, causal, view) in enumerate([
             ((2, 5, 2, 64), 5, False, False),
@@ -1382,6 +1414,22 @@ def odd_tensor_core_cases(add) -> None:
             ((2, 65, 2, 30), 65, False, False)]):
         add("flash_attention_int8",
             int8_flash_case(qshape, sk, causal, bf16, 440 + i, view))
+    for i, (qshape, sk, causal, view) in enumerate([
+            ((2, 5, 2, 64), 5, False, False),
+            ((2, 257, 2, 80), 257, True, False),
+            ((2, 257, 2, 64), 257, False, True),
+            ((2, 1, 2, 64), 257, False, False),
+            ((2, 65, 2, 30), 65, False, True)]):
+        add("flash_attention_int8_bwd",
+            int8_flash_bwd_case(qshape, sk, causal, bf16, 450 + i, view))
+    for i, (qshape, sk, causal, kind, view, split) in enumerate([
+            ((2, 256, 2, 64), 256, False, "2d", False, False),
+            ((2, 257, 2, 80), 257, True, "neginf", False, False),
+            ((2, 5, 2, 64), 5, False, "full", False, False),
+            ((2, 257, 2, 64), 257, False, "full", True, False),
+            ((24, 256, 2, 64), 256, False, "neginf", False, True)]):
+        add("flash_attention_dbias", dbias_case(
+            qshape, sk, causal, kind, bf16, 460 + i, view, split))
 
 
 def kernel_phase(card: str) -> dict[str, dict]:
@@ -1955,16 +2003,19 @@ def step_counts(precision: str | None = None, naflex: bool = False,
             "flash_attention_bias_bwd": 0, "flash_attention_dbias": 0}
 
 
-def int8_qk_grads_phase(card: str) -> None:
-    """8(a) f32, batch 8, every attention on the int8-QK flash kernels: one
-    step's gradients through the kernels against the same step with the
-    plain versions swapped in."""
-    model = _train_model(torch.float32)
+def int8_qk_grads_phase(card: str, dtype: torch.dtype = torch.float32
+                        ) -> None:
+    """8(a) batch 8 in f32 (the FMA bodies) or bf16 (the tensor-core
+    bodies), every attention on the int8-QK flash kernels: one step's
+    gradients through the kernels against the same step with the plain
+    versions swapped in, the quantizations of q and k replayed."""
+    model = _train_model(dtype)
     check(apply_precision_policy(model, "int8_qk") == FLASH_PER_STEP,
           "int8_qk did not rewrite every attention")
-    images, text = _batch(model.config, 8, torch.float32, 1)
+    images, text = _batch(model.config, 8, dtype, 1)
     grads_phase(model, images, text, step_counts("int8_qk"),
-                "int8_qk: f32 batch 8", card, held=(fa8, "quantize_heads"))
+                f"int8_qk: {_dtype_name(dtype)} batch 8", card,
+                held=(fa8, "quantize_heads"))
 
 
 def fp8_grads_phase(card: str) -> None:
@@ -2489,6 +2540,7 @@ def main() -> int:
         int8_serve_counts = serve_phase(card, "int8")
         done("int8 serve")
         int8_qk_grads_phase(card)
+        int8_qk_grads_phase(card, torch.bfloat16)
         train_phase(card, precision="int8_qk")
         int8_qk_counts = cli_train_phase(card, precision="int8_qk")
         done("int8_qk")

@@ -428,6 +428,7 @@ using jimm::mma::mma_cols;
 using jimm::mma::mma_rows;
 using jimm::mma::pack_a;
 using jimm::mma::smem_u32;
+using jimm::mma::store_acc;
 using jimm::mma::swz;
 
 constexpr int kQN = 32;             // query columns a dk/dv step
@@ -445,35 +446,6 @@ constexpr int kDkvBuf =
     2 * kTile<DP> + 2 * kRows * 4 + (HAS_BIAS ? kRows * kBiasLd * 4 : 0);
 template <int DP, bool HAS_BIAS>
 constexpr int kDkvSmem = 2 * kTile<DP> + 2 * kDkvBuf<DP, HAS_BIAS>;
-
-// acc (16 rows x DP a warp, rows r_lo and r_lo + 8 of this lane) times mul
-// as bf16 rows < n of the contiguous (B, S, N, D) output, columns < d
-template <int DP>
-__device__ __forceinline__ void store_acc(bf16* out,
-                                          const float (&acc)[DP / 8][4],
-                                          float mul, int bi, int h, int heads,
-                                          int n, int d, int r_lo, int lane) {
-  const bool pairs = d % 2 == 0;  // a column pair is one 4-byte store
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = r_lo + 8 * i;
-    if (row >= n) continue;
-    bf16* orow = out + (static_cast<long long>(bi) * n + row) * heads * d +
-                 static_cast<long long>(h) * d;
-#pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      const int col = j * 8 + 2 * (lane % 4);
-      const float y0 = acc[j][2 * i] * mul, y1 = acc[j][2 * i + 1] * mul;
-      if (pairs && col + 1 < d) {
-        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-            __floats2bfloat162_rn(y0, y1);
-      } else {
-        if (col < d) orow[col] = __float2bfloat16(y0);
-        if (col + 1 < d) orow[col + 1] = __float2bfloat16(y1);
-      }
-    }
-  }
-}
 
 // CTAs an SM should hold: three at D = 64 (a cap of 168 registers), where
 // the compiler would otherwise take all 255 and leave room for two

@@ -178,15 +178,14 @@ using jimm::mma::cp_async_commit;
 using jimm::mma::cp_async_wait;
 using jimm::mma::kRows;
 using jimm::mma::kThreads;
-using jimm::mma::ldmatrix_x4;
+using jimm::mma::load_a_s8;
 using jimm::mma::load_tile;
 using jimm::mma::load_tile_i8;
 using jimm::mma::load_vec64;
 using jimm::mma::mma_pv;
-using jimm::mma::mma_s8;
+using jimm::mma::mma_rows_s8;
 using jimm::mma::online_softmax;
 using jimm::mma::smem_u32;
-using jimm::mma::swz_chunks;
 static_assert(kBQ == kRows && kBK == kRows, "64-row q and k tiles");
 
 // shared memory: the q tile, then per buffer a k tile, a v tile, and after
@@ -276,15 +275,11 @@ __global__ void __launch_bounds__(kThreads, kMinCtas<DP>)
     const uint32_t kt = smem_u32(k_tile(buf));
     const uint32_t vt = kt + kI8Tile<DP>;
     const float* ksc = k_scale + buf * kBK;
-    // A fragments of q: lanes 0-15 address rows 0-15 at the k32 step's
-    // first 16 bytes, lanes 16-31 at its last 16
-    const int q_addr_row = warp * 16 + lane % 16;
     if constexpr (kQRegs) {
       if (t == 0) {
 #pragma unroll
         for (int kc = 0; kc < kKC; ++kc)
-          ldmatrix_x4(qf[kc], smem_u32(q_tile) + swz_chunks<kCH>(
-                                  q_addr_row, kc * 2 + lane / 16));
+          load_a_s8<kCH>(qf[kc], smem_u32(q_tile), warp * 16, kc, lane);
       }
     }
 
@@ -301,21 +296,9 @@ __global__ void __launch_bounds__(kThreads, kMinCtas<DP>)
 #pragma unroll
         for (int e = 0; e < 4; ++e) a[e] = qf[kc][e];
       } else {
-        ldmatrix_x4(a, smem_u32(q_tile) +
-                           swz_chunks<kCH>(q_addr_row, kc * 2 + lane / 16));
+        load_a_s8<kCH>(a, smem_u32(q_tile), warp * 16, kc, lane);
       }
-#pragma unroll
-      for (int j2 = 0; j2 < 4; ++j2) {
-        // keys 16 j2 + (lane / 16) * 8 + lane % 8 at the k32 step's first
-        // (lanes 0-7, 16-23) or last (8-15, 24-31) 16 bytes: the B
-        // fragments of key blocks 2 j2 and 2 j2 + 1
-        uint32_t b[4];
-        ldmatrix_x4(b, kt + swz_chunks<kCH>(j2 * 16 + (lane / 16) * 8 +
-                                                lane % 8,
-                                            kc * 2 + (lane / 8) % 2));
-        mma_s8(si[2 * j2], a, b[0], b[1]);
-        mma_s8(si[2 * j2 + 1], a, b[2], b[3]);
-      }
+      mma_rows_s8<kCH, 8>(si, a, kt, 0, kc, lane);
     }
 
     // the dequantized, scaled scores and the rows' max; a tile in which

@@ -1,9 +1,12 @@
 // mma.sync building blocks of the tensor-core flash kernels
 // (flash_attention.cu: the bf16 forward, rows 3-6; flash_attention_bwd.cu:
 // the bf16 dq and dk/dv kernels, row 7 in every kind;
-// flash_attention_int8.cu: the int8-QK forward, row 9): XOR-swizzled
-// shared tiles filled by cp.async, ldmatrix lane maps, and the m16n8k16
-// bf16 and m16n8k32 s8 products.
+// flash_attention_int8.cu: the int8-QK forward, row 9;
+// flash_attention_int8_bwd.cu: its dq and dk/dv kernels, row 10;
+// flash_attention_dbias.cu: the bias gradient, row 8): XOR-swizzled shared
+// tiles filled by cp.async, ldmatrix lane maps, the m16n8k16 bf16 and
+// m16n8k32 s8 products, int8 tiles dequantized to bf16, and the bf16 row
+// stores of a warp's accumulator.
 //
 // Fragment layouts (lane = 4 g + t). An f32 or s32 accumulator block of 16
 // rows x 8 columns holds (row g, columns 2t, 2t + 1) in elements 0, 1 and
@@ -181,6 +184,38 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], uint32_t tile,
   ldmatrix_x4(a, tile + swz<DP>(r0 + lane % 16, kc * 2 + lane / 16));
 }
 
+// the s8 A fragments of rows r0..r0 + 15 of an int8 tile of CH 16-byte
+// chunks a row at k32 step kc (lanes 0-15 address the step's first 16
+// bytes, 16-31 its last: the bf16 lane map at twice the elements)
+template <int CH>
+__device__ __forceinline__ void load_a_s8(uint32_t (&a)[4], uint32_t tile,
+                                          int r0, int kc, int lane) {
+  ldmatrix_x4(a, tile + swz_chunks<CH>(r0 + lane % 16, kc * 2 + lane / 16));
+}
+
+// c[j] += a . B^T in s32 over one s8 k32 step kc for NB / 2 pairs of 8-row
+// blocks of the int8 tile at `tile` (CH chunks a row, rows r0..): the s8
+// twin of mma_rows (k in the int8-QK forward's and dq's scores, q in
+// dk/dv's)
+template <int CH, int NB>
+__device__ __forceinline__ void mma_rows_s8(int (&c)[NB][4],
+                                            const uint32_t (&a)[4],
+                                            uint32_t tile, int r0, int kc,
+                                            int lane) {
+#pragma unroll
+  for (int j2 = 0; j2 < NB / 2; ++j2) {
+    // rows r0 + 16 j2 + (lane / 16) * 8 + lane % 8 at the k32 step's first
+    // (lanes 0-7, 16-23) or last (8-15, 24-31) 16 bytes: the B fragments of
+    // blocks 2 j2 and 2 j2 + 1
+    uint32_t b[4];
+    ldmatrix_x4(b, tile + swz_chunks<CH>(r0 + j2 * 16 + (lane / 16) * 8 +
+                                             lane % 8,
+                                         kc * 2 + (lane / 8) % 2));
+    mma_s8(c[2 * j2], a, b[0], b[1]);
+    mma_s8(c[2 * j2 + 1], a, b[2], b[3]);
+  }
+}
+
 // one 64-key tile's step of the online softmax, on the scores s of a warp's
 // 16 rows (lane rows g, g + 8) whose tile maxima are mx: the running max m
 // and sum l (of the unrounded p) move on, s becomes p = exp(s - m), and
@@ -238,17 +273,18 @@ __device__ __forceinline__ void mma_pv(float (&acc)[DP / 8][4],
 }
 
 // rows [r0, r0 + 64) of one head's (S, D) bf16 slice into the swizzled
-// tile at dst; rows >= n and columns >= d are zero. vec: every row of the
-// slice starts on a 16-byte boundary, so a 16-byte chunk is one cp.async
-// (zero-filled past d, or wholly past n); else element by element.
-template <int DP>
+// tile at dst, by a CTA of NT threads; rows >= n and columns >= d are zero.
+// vec: every row of the slice starts on a 16-byte boundary, so a 16-byte
+// chunk is one cp.async (zero-filled past d, or wholly past n); else
+// element by element.
+template <int DP, int NT = kThreads>
 __device__ __forceinline__ void load_tile(unsigned char* dst, const bf16* src,
                                           long long row_stride, int r0, int n,
                                           int d, bool vec) {
   constexpr int kChunks = DP / 8;
   const uint32_t base = smem_u32(dst);
 #pragma unroll 4
-  for (int idx = threadIdx.x; idx < kRows * kChunks; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < kRows * kChunks; idx += NT) {
     const int r = idx / kChunks, c = idx % kChunks, col = c * 8;
     const bool in = r0 + r < n && col < d;
     const bf16* p = src + static_cast<long long>(r0 + r) * row_stride + col;
@@ -303,6 +339,67 @@ __device__ __forceinline__ void load_tile_i8(unsigned char* dst,
         w[e] = word;
       }
       *reinterpret_cast<uint4*>(dst + off) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+// the 64-row int8 tile at src (DP-byte rows, swizzled as load_tile_i8
+// leaves them) times its rows' scales, rounded to bf16, into the bf16 tile
+// of DP-wide rows at dst (swizzled as load_tile): bf16(float(x) * scale),
+// the product rounded on its own, as the TPU's _dequant_operand rounds the
+// backward's int8 operand. Zero bytes give zeros.
+template <int DP>
+__device__ __forceinline__ void dequant_tile(unsigned char* dst,
+                                             const unsigned char* src,
+                                             const float* scale) {
+  constexpr int kChunks = DP / 8;  // 16-byte chunks of a bf16 row
+#pragma unroll 2
+  for (int idx = threadIdx.x; idx < kRows * kChunks; idx += kThreads) {
+    const int r = idx / kChunks, c = idx % kChunks;
+    // elements 8 c..8 c + 7: half c % 2 of the int8 row's chunk c / 2
+    const uint2 w = *reinterpret_cast<const uint2*>(
+        src + swz_chunks<DP / 16>(r, c / 2) + (c % 2) * 8);
+    const float sc = scale[r];
+    uint32_t out[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t word = (e < 2 ? w.x : w.y) >> (16 * (e % 2));
+      const float lo = static_cast<float>(static_cast<int8_t>(word & 0xff));
+      const float hi =
+          static_cast<float>(static_cast<int8_t>((word >> 8) & 0xff));
+      out[e] = pack_bf16(__fmul_rn(lo, sc), __fmul_rn(hi, sc));
+    }
+    *reinterpret_cast<uint4*>(dst + swz<DP>(r, c)) =
+        make_uint4(out[0], out[1], out[2], out[3]);
+  }
+}
+
+// a warp's accumulator (16 rows x DP, this lane's rows r_lo and r_lo + 8)
+// times mul as bf16 rows < n of the contiguous (B, S, N, D) output at
+// batch bi, head h, columns < d
+template <int DP>
+__device__ __forceinline__ void store_acc(bf16* out,
+                                          const float (&acc)[DP / 8][4],
+                                          float mul, int bi, int h, int heads,
+                                          int n, int d, int r_lo, int lane) {
+  const bool pairs = d % 2 == 0;  // a column pair is one 4-byte store
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r_lo + 8 * i;
+    if (row >= n) continue;
+    bf16* orow = out + (static_cast<long long>(bi) * n + row) * heads * d +
+                 static_cast<long long>(h) * d;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = j * 8 + 2 * (lane % 4);
+      const float y0 = acc[j][2 * i] * mul, y1 = acc[j][2 * i + 1] * mul;
+      if (pairs && col + 1 < d) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(y0, y1);
+      } else {
+        if (col < d) orow[col] = __float2bfloat16(y0);
+        if (col + 1 < d) orow[col + 1] = __float2bfloat16(y1);
+      }
     }
   }
 }

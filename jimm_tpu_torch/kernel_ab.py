@@ -15,7 +15,15 @@ variant is compared with the base on one card within one process. Prints
 one JSON line per timing, with the card's name and power limit.
 
 Cases: ``bwd``, ``mask_bwd``, ``sigmoid_bwd``, ``bias_bwd`` (row 7 in each
-kind, dq and dk/dv), ``int8_fwd`` (row 9), ``fwd`` (row 3).
+kind, dq and dk/dv), ``int8_fwd`` (row 9), ``int8_bwd`` (row 10, dq and
+dk/dv), ``dbias`` (row 8, with the wrapper's batch ranges), ``fwd`` (row 3).
+``--dbias-ranges R`` (repeatable) adds a case ``dbias@R``: row 8 with the
+batch split into R ranges, whatever ``dbias_batch_range`` would choose.
+
+``--kernels``: instead of the timings, each case's device time per call
+on the base split by kernel (a ``torch.profiler`` trace of 20 calls after
+5), which separates a wrapper's torch ops (row 7's and 10's delta pass)
+from the kernels.
 
 Two more readings of the same variants, for numerics rather than speed
 (run from the repository root: they build models as ``chip_smoke.py``
@@ -110,6 +118,7 @@ def cases() -> dict:
     bo, blse = fa.flash_attention_bias_plain(q, k, v, bias)
     qq, qs = fa8.quantize_heads(q)
     kq, ks = fa8.quantize_heads(k)
+    o8, lse8 = fa8.flash_attention_int8_plain(qq, qs, kq, ks, v)
     logit_bias = fa.default_logit_bias(s)
     return {
         "bwd": lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
@@ -120,8 +129,24 @@ def cases() -> dict:
         "bias_bwd": lambda: fa.flash_attention_bias_bwd(q, k, v, bias, bo,
                                                         blse, do),
         "int8_fwd": lambda: fa8.flash_attention_int8_fwd(qq, qs, kq, ks, v),
+        "int8_bwd": lambda: fa8.flash_attention_int8_bwd(qq, qs, kq, ks, v,
+                                                         o8, lse8, do),
+        "dbias": lambda: fa.flash_attention_dbias(q, k, v, bias, bo, blse,
+                                                  do),
         "fwd": lambda: fa.flash_attention_lse(q, k, v),
     }
+
+
+def with_ranges(fn, ranges: int):
+    """``fn`` with row 8's batch split into ``ranges`` ranges."""
+    def call():
+        chosen = fa.dbias_batch_range
+        fa.dbias_batch_range = lambda b, *args: -(-b // ranges)
+        try:
+            return fn()
+        finally:
+            fa.dbias_batch_range = chosen
+    return call
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -136,6 +161,21 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, iters: int = 20, warmup: int = 5) -> dict[str, float]:
+    """Device time per call of ``fn`` by kernel name, from a profiler
+    trace of ``iters`` calls after ``warmup``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / iters / 1e3
+            for e in prof.key_averages() if e.self_device_time_total > 0}
 
 
 @contextlib.contextmanager
@@ -221,6 +261,8 @@ def main() -> None:
                     type=pathlib.Path)
     ap.add_argument("--case", action="append", default=[])
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--dbias-ranges", action="append", default=[], type=int)
+    ap.add_argument("--kernels", action="store_true")
     ap.add_argument("--losses", action="append", default=[])
     ap.add_argument("--grads", action="append", default=[],
                     choices=["softmax", "naflex", "sigmoid"])
@@ -230,7 +272,15 @@ def main() -> None:
                           text=True, check=True).stdout.strip()
     base = _build.load()
     calls = cases()
+    for ranges in args.dbias_ranges:
+        calls[f"dbias@{ranges}"] = with_ranges(calls["dbias"], ranges)
     names = args.case or list(calls)
+    if args.kernels:
+        for case in names:
+            print(json.dumps({"case": case, "kernel_ms": kernel_ms(
+                calls[case]), "shape": list(SHAPE), "card": card}),
+                flush=True)
+        return
     with tempfile.TemporaryDirectory() as tmp:
         variants = [("base", base, set())] + [
             (str(p), *built) for p, built in zip(

@@ -732,11 +732,14 @@ def dbias_batch_range(b: int, n: int, sq: int, sk: int, d: int,
                       sms: int) -> int:
     """How many samples each CTA of the row-8 kernel sums. Its CTAs are the
     (head, q tile, k tile) tiles (64 rows, 32 above D = 128) times the batch
-    ranges, and an SM holds two of them at D <= 64 (128 registers a thread)
-    or one above (their shared memory). Of 1 to about four waves' worth of
-    ranges, the count that fills its last wave best (the fewest on a tie);
-    at the train shape (12 x 4 x 4 = 192 tiles on 132 SMs) 4 ranges of 32,
-    three waves 97% full, where the whole batch gives 1.45."""
+    ranges, and an SM holds two of them at D <= 64 or one above, in either
+    body: the mma.sync body (bf16 up to D = 128) by its shared memory, 83 KB
+    a CTA at D <= 64 and 147 KB above; the FMA body (f32, and bf16 at D =
+    256) by its cap of 128 registers a thread at D <= 64 and its shared
+    memory above. Of 1 to about four waves' worth of ranges, the count that
+    fills its last wave best (the fewest on a tie); at the train shape (12 x
+    4 x 4 = 192 tiles on 132 SMs) 4 ranges of 32, three waves 97% full,
+    where the whole batch gives 1.45."""
     rows = 64 if d <= 128 else 32
     tiles = n * -(-sq // rows) * -(-sk // rows)
     slots = (2 if d <= 64 else 1) * sms

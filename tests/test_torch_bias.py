@@ -297,6 +297,10 @@ def test_dbias_is_computed_only_when_the_bias_needs_it(monkeypatch):
     ((128, 12, 256, 256, 128), 132, 2),  # one CTA an SM above D = 64
     ((2, 2, 5, 5, 80), 132, 2),          # no more ranges than samples
     ((4, 64, 512, 512, 64), 132, 1),     # 4096 tiles: the whole batch
+    ((128, 12, 256, 256, 80), 132, 2),   # 147 KB a CTA: one an SM
+    ((128, 12, 1, 256, 128), 132, 11),   # the probe above D = 64: 4 waves
+    ((24, 2, 256, 256, 64), 132, 8),     # 32 tiles: 8 ranges of 3
+    ((3, 2, 5, 5, 64), 132, 3),          # a range per sample
 ])
 def test_dbias_splits_the_batch_to_fill_the_card(shape, sms, ranges):
     b_range = fa.dbias_batch_range(*shape, sms)

@@ -1065,3 +1065,91 @@ def test_flash_int8_tensor_core_body(card, qshape, sk, causal, view):
                                                       is_causal=causal)
     _close(o, want_o, torch.bfloat16)
     _close(lse, want_lse, torch.float32)
+
+
+# -- the tensor-core bodies of rows 10 and 8 at odd shapes ------------------
+
+def _shifted(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose base is 4 bytes past a 16-byte
+    boundary."""
+    flat = torch.empty(x.numel() + 4, dtype=x.dtype, device=x.device)
+    flat[4:] = x.flatten()
+    return flat[4:].view(x.shape)
+
+
+@pytest.mark.parametrize("qshape,sk,causal,view", _TENSOR_CORE_ODD + [
+    ((2, 65, 2, 30), 65, False, True)])         # D not a multiple of 16
+def test_flash_int8_backward_tensor_core_body(card, qshape, sk, causal,
+                                              view):
+    """Row 10 in bf16 (scores on s8 mma.sync, dp and the gradients on bf16
+    mma.sync, D = 256 on the FMA body) against its plain version; ``view``:
+    int8 q and k 4 bytes past a 16-byte boundary, v and do unaligned
+    strided views (the element-by-element loads)."""
+    from jimm_tpu_torch.ops import flash_attention_int8 as fa8
+    qq, qs, kq, ks, v, do = _int8_flash_inputs(qshape, sk, torch.bfloat16,
+                                               card, sum(qshape) + 23 * sk)
+    if view:
+        qq, kq = _shifted(qq), _shifted(kq)
+        v, do = _unaligned(v), _unaligned(do)
+    o, lse = fa8.flash_attention_int8_plain(qq, qs, kq, ks, v,
+                                            is_causal=causal)
+    before = fa8.bwd_launches
+    got = fa8.flash_attention_int8_bwd(qq, qs, kq, ks, v, o, lse, do,
+                                       is_causal=causal)
+    torch.cuda.synchronize()
+    assert fa8.bwd_launches == before + 1
+    want = fa8.flash_attention_int8_bwd_plain(qq, qs, kq, ks, v, o, lse, do,
+                                              is_causal=causal)
+    for a, w in zip(got, want):
+        if w.float().abs().max().item() <= 1e-6:
+            # one key: dq = dk = 0 up to rounding on both sides
+            assert (a.float() - w.float()).abs().max().item() <= 1e-5
+        else:
+            _close_scaled((a,), (w,))
+
+
+#: (q shape, Sk, causal, bias kind, q an unaligned strided view)
+_DBIAS_ODD = [((2, 256, 2, 64), 256, False, "2d", False),
+              ((2, 257, 2, 80), 257, True, "neginf", False),
+              ((2, 5, 2, 64), 5, False, "full", False),
+              ((2, 257, 2, 64), 257, False, "full", True),
+              ((24, 256, 2, 64), 256, False, "neginf", False),
+              ((1, 70, 1, 256), 130, True, "full", False)]
+
+
+@pytest.mark.parametrize("qshape,sk,causal,kind,view", _DBIAS_ODD)
+def test_dbias_tensor_core_body(card, qshape, sk, causal, kind, view):
+    """Row 8 in bf16 (s and dp on mma.sync up to D = 128, D = 256 on the
+    FMA body) against its plain version at f32's tolerance of its scale;
+    -inf entries get exactly zero; (24, 256, 2, 64) sums its batch in 8
+    ranges of 3."""
+    q, k, v, do, bias, _ = _bias_inputs(qshape, sk, kind, torch.bfloat16,
+                                        card, sum(qshape) + 29 * sk)
+    if view:
+        q = _unaligned(q)
+    o, lse = fa.flash_attention_bias_plain(q, k, v, bias, is_causal=causal)
+    before = fa.dbias_launches
+    got = fa.flash_attention_dbias(q, k, v, bias, o, lse, do,
+                                   is_causal=causal)
+    torch.cuda.synchronize()
+    assert fa.dbias_launches == before + 1
+    want = fa.flash_attention_dbias_plain(q, k, v, bias, o, lse, do,
+                                          is_causal=causal)
+    scale = max(1.0, want.abs().max().item())
+    _close(got / scale, want / scale, torch.float32)
+    assert not got[torch.isinf(bias)].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dbias_is_the_same_in_every_run(card, dtype):
+    """The batch ranges are summed in order by a second kernel, with no
+    atomics: two runs give the same bits, at the train shape (4 ranges)
+    and at one that splits into 8 ranges."""
+    for qshape, sk in (((128, 256, 12, 64), 256), ((24, 256, 2, 64), 256)):
+        q, k, v, do, bias, _ = _bias_inputs(qshape, sk, "full", dtype, card,
+                                            sum(qshape))
+        o, lse = fa.flash_attention_bias_plain(q, k, v, bias)
+        runs = [fa.flash_attention_dbias(q, k, v, bias, o, lse, do)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0], runs[1])

@@ -1,10 +1,11 @@
 """The tensor-core kernels' arithmetic, on the CPU, against the JAX package.
 
 On the card, bf16 runs kernel row 7 (the flash backward's dq and dk/dv
-kernels, in the softmax, mask, sigmoid and bias kinds) and row 9 (the
-int8-QK flash forward) on mma.sync (``csrc/flash_attention_bwd.cu``,
-``csrc/flash_attention_int8.cu``). No CUDA kernel runs here, so this file
-emulates their tile order in torch:
+kernels, in the softmax, mask, sigmoid and bias kinds), row 8 (the bias
+gradient), row 9 (the int8-QK flash forward) and row 10 (its backward) on
+mma.sync (``csrc/flash_attention_bwd.cu``, ``csrc/flash_attention_dbias.cu``,
+``csrc/flash_attention_int8.cu``, ``csrc/flash_attention_int8_bwd.cu``). No
+CUDA kernel runs here, so this file emulates their tile order in torch:
 
 - 64-row q tiles and 64-key tiles, causal tiles above the diagonal skipped;
 - every product of bf16 values summed exactly per k16 step and added to an
@@ -13,11 +14,17 @@ emulates their tile order in torch:
   products; dq summed over key tiles and dk, dv over q tiles, in order;
 - row 9's scores an exact integer product, dequantized as ((s * q_scale) *
   k_scale) * sm_scale, each product rounded, with the softmax online over
-  64-key tiles (running max and sum in f32, the accumulator rescaled).
+  64-key tiles (running max and sum in f32, the accumulator rescaled);
+- row 10: row 9's scores, p and ds in f32 from the forward's lse, ds and p
+  rounded to bf16 against the dequantized operands bf16(x_q * scale);
+- row 8: per sample s and dp in mma order, ds in f32 (neither scaled nor
+  rounded), the samples summed in order within batch ranges, then the
+  ranges in order.
 
 The emulation is held to JAX's Pallas kernels in interpret mode, as the JAX
-suite runs them (``jimm_tpu.ops.flash_attention``'s backward in each kind,
-``flash_attention_int8``'s forward), with the card's bf16 gate: cosine >=
+suite runs them (``jimm_tpu.ops.flash_attention``'s backward in each kind
+and its bias gradient, ``flash_attention_int8``'s forward and backward,
+straight through the quantizer), with the card's bf16 gate: cosine >=
 0.999 and max abs error <= 2^-7 of the largest reference value (of the
 reference's scale, at least 1, for the backward), and an absolute 1e-5 where
 the reference is zero up to rounding. One case shows that row 9's s8
@@ -103,7 +110,7 @@ def emulate_bwd(q, k, v, o, lse, do, *, causal: bool, kind: str,
     qf, kf, vf, dof = map(_heads, (q, k, v, do))
     delta = (None if kind == "sigmoid"
              else fa._delta(o, do, None).float())            # (B, N, Sq)
-    nq, nk = -(-sq // TILE), -(-sk // TILE)
+    nq = -(-sq // TILE)
     lse_p = _pad_cols(lse.float(), nq * TILE) if kind != "sigmoid" else None
     delta_p = _pad_cols(delta, nq * TILE) if delta is not None else None
 
@@ -130,28 +137,40 @@ def emulate_bwd(q, k, v, o, lse, do, *, causal: bool, kind: str,
         p = torch.where(keep, torch.exp(x - lse_t), 0.0)
         return p, p * (dp - delta_t)
 
+    return _bwd_tiles(p_ds, kf, qf, dof, sq, sk, causal, scale)
+
+
+def _bwd_tiles(p_ds, k_op: torch.Tensor, q_op: torch.Tensor,
+               dof: torch.Tensor, sq: int, sk: int, causal: bool,
+               scale: float):
+    """The dq and dk/dv kernels' loops: (dq, dk, dv) in bf16, (B, S, N, D),
+    from ``p_ds(q0, k0)``, the unrounded p and ds of a (64 q, 64 key) tile,
+    and the (B, N, S, D) operands of dq (``k_op``) and dk (``q_op``)."""
+    d = k_op.shape[-1]
+    nq, nk = -(-sq // TILE), -(-sk // TILE)
     # dq: per 64-row q tile, the key tiles in order
-    dq = torch.zeros(*qf.shape[:2], nq * TILE, d)
+    dq = torch.zeros(*q_op.shape[:2], nq * TILE, d)
     for qi in range(nq):
         q0 = qi * TILE
         kv_end = min(sk, q0 + TILE) if causal else sk
-        acc = torch.zeros(*qf.shape[:2], TILE, d)
+        acc = torch.zeros(*q_op.shape[:2], TILE, d)
         for k0 in range(0, kv_end, TILE):
             _, ds = p_ds(q0, k0)
-            acc = mma_acc(acc, _bf16(ds), _tile(kf, k0))
+            acc = mma_acc(acc, _bf16(ds), _tile(k_op, k0))
         dq[:, :, q0:q0 + TILE] = acc * scale
     # dk, dv: per 64-key tile, the q tiles in order
-    dk = torch.zeros(*kf.shape[:2], nk * TILE, d)
+    dk = torch.zeros(*k_op.shape[:2], nk * TILE, d)
     dv = torch.zeros_like(dk)
     for ki in range(nk):
         k0 = ki * TILE
-        acc_k = torch.zeros(*kf.shape[:2], TILE, d)
+        acc_k = torch.zeros(*k_op.shape[:2], TILE, d)
         acc_v = torch.zeros_like(acc_k)
         # causal: q tiles before this key tile never attend to it
         for q0 in range(k0 if causal else 0, sq, TILE):
             p, ds = p_ds(q0, k0)
             acc_v = mma_acc(acc_v, _bf16(p).transpose(-1, -2), _tile(dof, q0))
-            acc_k = mma_acc(acc_k, _bf16(ds).transpose(-1, -2), _tile(qf, q0))
+            acc_k = mma_acc(acc_k, _bf16(ds).transpose(-1, -2),
+                            _tile(q_op, q0))
         dk[:, :, k0:k0 + TILE] = acc_k * scale
         dv[:, :, k0:k0 + TILE] = acc_v
 
@@ -226,6 +245,68 @@ def emulate_int8_fwd(qq, qs, kq, ks, v, *, causal: bool):
         lse[:, :, q0:q0 + TILE] = (m + torch.log(l_safe))[..., 0]
     return (o[:, :, :sq].permute(0, 2, 1, 3).to(torch.bfloat16),
             lse[:, :, :sq])
+
+
+def _dequant_heads(x_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """(B, N, S, D) f32 of the bf16 operand bf16(x_q * scale), the product
+    rounded on its own (the TPU kernel's _dequant_operand)."""
+    return _bf16(_heads(x_q) * scale[..., None])
+
+
+def emulate_int8_bwd(qq, qs, kq, ks, v, o, lse, do, *, causal: bool):
+    """Row 10's bf16 body in torch: (dq, dk, dv) in bf16, (B, S, N, D)."""
+    sq, sk, d = qq.shape[1], kq.shape[1], qq.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    vf, dof = _heads(v), _heads(do)
+    nq, nk = -(-sq // TILE), -(-sk // TILE)
+    s32 = torch.nn.functional.pad(s8_scores(qq, kq).float(),
+                                  (0, nk * TILE - sk, 0, nq * TILE - sq))
+    q_scale = _pad_cols(qs, nq * TILE)[..., None]    # (B, N, Sq, 1)
+    k_scale = _pad_cols(ks, nk * TILE)[:, :, None]   # (B, N, 1, Sk)
+    lse_p = _pad_cols(lse.float(), nq * TILE)[..., None]
+    delta_p = _pad_cols(fa._delta(o, do, None).float(), nq * TILE)[..., None]
+
+    def p_ds(q0: int, k0: int):
+        s = s32[:, :, q0:q0 + TILE, k0:k0 + TILE]
+        s = ((s * q_scale[:, :, q0:q0 + TILE])
+             * k_scale[..., k0:k0 + TILE]) * scale
+        dp = mma_acc(torch.zeros_like(s), _tile(dof, q0),
+                     _tile(vf, k0).transpose(-1, -2))
+        keep = _keep(range(q0, q0 + TILE), range(k0, k0 + TILE), sq, sk,
+                     causal, None)
+        p = torch.where(keep, torch.exp(s - lse_p[:, :, q0:q0 + TILE]), 0.0)
+        return p, p * (dp - delta_p[:, :, q0:q0 + TILE])
+
+    return _bwd_tiles(p_ds, _dequant_heads(kq, ks), _dequant_heads(qq, qs),
+                      dof, sq, sk, causal, scale)
+
+
+def emulate_dbias(q, k, v, bias, o, lse, do, *, causal: bool,
+                  b_range: int) -> torch.Tensor:
+    """Row 8's bf16 body in torch: dbias, (N, Sq, Sk) f32, the batch summed
+    in ranges of ``b_range`` samples, then the ranges in order."""
+    d = q.shape[-1]
+    qf, kf, vf, dof = map(_heads, (q, k, v, do))
+    # s and dp are sums over D in k16 steps, whatever the tile of a pair
+    s = mma_acc(torch.zeros(*qf.shape[:3], kf.shape[2]), qf,
+                kf.transpose(-1, -2))
+    dp = mma_acc(torch.zeros_like(s), dof, vf.transpose(-1, -2))
+    x = s * (1.0 / math.sqrt(d)) + bias[None]
+    p = torch.exp(x - lse.float()[..., None])
+    ds = p * (dp - fa._delta(o, do, None).float()[..., None])
+    keep = _keep(range(q.shape[1]), range(k.shape[1]), q.shape[1],
+                 k.shape[1], causal, None)
+    ds = torch.where(keep, ds, 0.0)
+    ranges = []
+    for b0 in range(0, q.shape[0], b_range):
+        acc = ds[b0]
+        for b in range(b0 + 1, min(q.shape[0], b0 + b_range)):
+            acc = acc + ds[b]
+        ranges.append(acc)
+    out = ranges[0]
+    for part in ranges[1:]:
+        out = out + part
+    return out
 
 
 def _gate(got: torch.Tensor, want, scaled: bool, what: str) -> None:
@@ -385,3 +466,74 @@ def test_s8_mma_scores_equal_the_dp4a_sums_bit_for_bit(d):
     # and the plain version's float matmul of the int8 values
     plain = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
     assert torch.equal(mma.float(), plain)
+
+
+@pytest.mark.parametrize("b,sq,sk,d,causal", INT8_CASES)
+def test_int8_backward_tile_order_matches_jax(b, sq, sk, d, causal):
+    """Row 10's emulation against ``jax.vjp`` of JAX's int8-QK flash
+    attention (the gradients straight through the quantizer), from the
+    same quantized q and k, JAX's own forward o (for delta) and the plain
+    forward's lse (one pass, as JAX's at S <= 512)."""
+    q, k, v, do = _inputs(b, sq, sk, d, sq * 11 + sk + d)
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.bfloat16)
+                       for x in (q, k, v, do))
+    qq, qs = fa8.quantize_heads(tq)
+    kq, ks = fa8.quantize_heads(tk)
+    _, lse = fa8.flash_attention_int8_plain(qq, qs, kq, ks, tv,
+                                            is_causal=causal)
+
+    def run(q, k, v, do):
+        o, vjp = jax.vjp(functools.partial(jax_fa8.flash_attention_int8,
+                                           is_causal=causal), q, k, v)
+        return o, vjp(do)
+
+    jo, want = jax.jit(run)(*(jnp.asarray(x).astype(jnp.bfloat16)
+                              for x in (q, k, v, do)))
+    o = torch.from_numpy(np.asarray(jo.astype(jnp.float32))).to(
+        torch.bfloat16)
+    got = emulate_int8_bwd(qq, qs, kq, ks, tv, o, lse, tdo, causal=causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _gate(g, w, scaled=True, what=f"int8 {name}")
+
+
+#: (B, Sq, Sk, D, causal, bias shape, -inf keys): three samples summed in
+#: two ranges (of 2 and 1)
+DBIAS_CASES = [(3, 257, 257, 64, False, "full", True),
+               (3, 5, 5, 80, True, "2d", True),
+               (3, 1, 257, 80, False, "2d", False)]
+
+
+@pytest.mark.parametrize("b,sq,sk,d,causal,shape,neginf", DBIAS_CASES)
+def test_dbias_batch_ranges_match_jax(b, sq, sk, d, causal, shape, neginf):
+    """Row 8's emulation against ``jax.vjp`` of JAX's biased flash
+    attention with respect to the bias: an (N, Sq, Sk) bias, or an (Sq,
+    Sk) one whose gradient is the heads' sum; -inf entries get zero."""
+    q, k, v, do = _inputs(b, sq, sk, d, sq * 13 + sk + d)
+    rng = np.random.default_rng(sq + sk + d)
+    bias = rng.standard_normal((sq, sk) if shape == "2d" else (2, sq, sk))
+    bias = bias.astype(np.float32)
+    if neginf:
+        bias[rng.random(bias.shape) < 0.3] = -np.inf
+        bias[..., 0] = 0.5  # every row keeps a finite key
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.bfloat16)
+                       for x in (q, k, v, do))
+    bias3 = torch.from_numpy(bias).expand(2, sq, sk)
+    _, lse = fa.flash_attention_bias_plain(tq, tk, tv, bias3,
+                                           is_causal=causal)
+
+    def run(q, k, v, do, bias):
+        o, vjp = jax.vjp(lambda b: jax_fa.flash_attention_bias(
+            q, k, v, bias=b, is_causal=causal), bias)
+        return o, vjp(do)[0]
+
+    jo, want = jax.jit(run)(*(jnp.asarray(x).astype(jnp.bfloat16)
+                              for x in (q, k, v, do)), jnp.asarray(bias))
+    o = torch.from_numpy(np.asarray(jo.astype(jnp.float32))).to(
+        torch.bfloat16)
+    got = emulate_dbias(tq, tk, tv, bias3, o, lse, tdo, causal=causal,
+                        b_range=2)
+    if shape == "2d":
+        got = got.sum(0)
+    assert got.shape == want.shape
+    _gate(got, want, scaled=True, what="dbias")
+    assert not got[torch.from_numpy(np.isinf(bias))].any()
