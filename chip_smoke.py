@@ -10,7 +10,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                sm_90a (``jimm_tpu_torch/_build.py``), then reads the
                library's SASS with ``cuobjdump``: every fp8 GEMM kernel must
                hold wgmma instructions (HGMMA: f16 wgmma on the fp8 values
-               widened in shared memory), every bf16 flash forward, dq and
+               widened in shared memory), every int8 matmul kernel s8
+               wgmma ones (IGMMA), every bf16 flash forward, dq and
                dk/dv kernel mma.sync ones (HMMA), every int8-QK forward
                and backward (dq, dk/dv) of the bf16 body both s8 mma.sync
                (IMMA, its scores) and HMMA (P.V; dp and the gradients), and
@@ -32,18 +33,25 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                function (a yardstick the port never calls), the kernel's
                time per call (CUDA events), and the least time the card
                could take (bytes over 3.35 TB/s or flops over the peak);
-               then readings, not gates: the kernels moved onto tensor
-               cores (the bf16 flash forward and backward in each kind,
-               rows 3-7, the int8-QK forward and backward, rows 9 and 10,
-               the dbias kernel, row 8, and the fp8 GEMM, row 12) as a
-               speed-up over their FMA versions' times in PERF.md, and the
-               rows whose recorded times stand (3-6 and 12, which share
-               the mma.sync header with rows 7-10, and 1, 2, 11) beside
-               those times (within 5%). In bf16 only, rows 7 (every kind),
-               8, 9 and 10 also run at more odd shapes on their tensor-core
-               bodies: an unaligned strided q view, unaligned int8 q and k
-               with strided v and do, D = 30, a broadcast (256, 256) bias,
-               -inf keys, a batch summed in several ranges.
+               then readings, not gates: the redesigned kernels (the bf16
+               flash forward and backward in each kind, rows 3-7, the
+               int8-QK forward and backward, rows 9 and 10, the dbias
+               kernel, row 8, the int8 matmul, row 11, and the fp8 GEMM,
+               row 12, on tensor cores; the LayerNorm forward, row 1, one
+               warp a row) as a speed-up over their first versions' times
+               in PERF.md, and the rows whose recorded times stand (3-6
+               and 12, which share headers with rows 7-11, and 1, 2, 11)
+               beside those times (within 5%). Row 1 runs on both its
+               bodies (the register body at F = 768, 1024, 1152, 80 and
+               64; the CTA body at (3, 5000) and with x off a 16-byte
+               boundary), each case naming its body, which a trace of the
+               call must confirm. Row 11 must equal its plain version
+               (``torch.equal``) but for gelu. In bf16 only, rows 7 (every
+               kind), 8, 9 and 10 also run at more odd shapes on their
+               tensor-core bodies: an unaligned strided q view, unaligned
+               int8 q and k with strided v and do, D = 30, a broadcast
+               (256, 256) bias, -inf keys, a batch summed in several
+               ranges.
 4. serve    -- SigLIP-B/16-256 at full width in bf16, fused LayerNorm and
                flash attention, random weights from a seeded generator,
                behind the port's HTTP server with buckets (1, 8, 32): 48
@@ -264,10 +272,13 @@ NAFLEX_SERVE_BATCH = 32
 TRAIN_IMAGE = "q(128, 256, 12, 64) sk=256"
 NAFLEX_IMAGE = "q(128, 256, 12, 64) sk=256 naflex"
 FC1_FORWARD = "(32768, 768) x (3072, 768)^T +bias"
-#: the redesigned rows' FMA versions, as PERF.md's kernel table records
-#: them (NVIDIA H100 80GB HBM3, 700.00 W), by kernel: (shape, ms): rows
-#: 3-7 (every kind), 8, 9, 10 and 12, now on tensor cores
+#: the redesigned rows' first (CUDA-core, FMA) versions, as PERF.md's
+#: kernel table records them (NVIDIA H100 80GB HBM3, 700.00 W), by kernel:
+#: (shape, ms): rows 3-7 (every kind), 8, 9, 10, 11 and 12, now on tensor
+#: cores, and row 1, now one warp a row
 FMA_VERSION_MS = {
+    "layer_norm": ("(32768, 768)", 0.0715),
+    "int8_matmul": ("(8192, 3072) x (3072, 768)", 0.3837),
     "flash_attention": (TRAIN_IMAGE, 1.2623),
     "flash_attention_masked": (NAFLEX_IMAGE, 1.0818),
     "flash_attention_bias": (TRAIN_IMAGE, 1.3805),
@@ -281,22 +292,25 @@ FMA_VERSION_MS = {
     "flash_attention_dbias": (TRAIN_IMAGE, 2.2143),
     "flash_attention_int8_bwd": (TRAIN_IMAGE, 3.5000)}
 #: the times PERF.md records for rows 3-6 and 12 on tensor cores, which a
-#: change to their shared header (flash_mma.cuh) must leave within 5%, and
-#: for rows 1, 2 and 11 on the CUDA cores
+#: change to their shared headers (flash_mma.cuh, hopper_tma.cuh) must
+#: leave within 5%, for row 2 on the CUDA cores, and for rows 1 and 11 as
+#: redesigned
 RECORDED_MS = {
     "flash_attention": (TRAIN_IMAGE, 0.2272),
     "flash_attention_masked": (NAFLEX_IMAGE, 0.2620),
     "flash_attention_bias": (TRAIN_IMAGE, 0.3099),
     "sigmoid_attention": (TRAIN_IMAGE, 0.2740),
     "fp8_matmul": (FC1_FORWARD, 0.4046),
-    "layer_norm": ("(32768, 768)", 0.0715),
+    "layer_norm": ("(32768, 768)", 0.0380),
     "layer_norm_bwd": ("(32768, 768)", 0.1241),
-    "int8_matmul": ("(8192, 3072) x (3072, 768)", 0.3837)}
+    "int8_matmul": ("(8192, 3072) x (3072, 768)", 0.0452)}
 #: the kernels that must run on tensor cores, by a substring of their
 #: mangled names, and the SASS instructions each must contain: f16 wgmma
 #: (the fp8 GEMM's, on operands widened in shared memory) assembles to
-#: HGMMA, bf16 mma.sync to HMMA, s8 mma.sync to IMMA
+#: HGMMA, s8 wgmma (the int8 matmul's) to IGMMA, bf16 mma.sync to HMMA, s8
+#: mma.sync to IMMA
 TENSOR_CORE_KERNELS = {"fp8_matmul_kernel": ("HGMMA",),
+                       "int8_matmul_kernel": ("IGMMA",),
                        "flash_fwd_mma_kernel": ("HMMA",),
                        "flash_bwd_dq_mma_kernel": ("HMMA",),
                        "flash_bwd_dkv_mma_kernel": ("HMMA",),
@@ -451,13 +465,42 @@ def grad_ms(outputs: torch.Tensor, inputs: tuple[torch.Tensor, ...],
 
 # -- phase 3: kernels --------------------------------------------------------
 
-def ln_case(rows: int, f: int, dtype: torch.dtype, seed: int) -> dict:
+def traced(fn):
+    """``fn()``'s result and the names of the kernels it launched, from a
+    profiler trace (taken again when it comes back with no device rows)."""
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in _device_rows(prof)]
+        if names:
+            break
+    return out, names
+
+
+def ln_case(rows: int, f: int, dtype: torch.dtype, seed: int,
+            offset: bool = False) -> dict:
+    """Row 1 against its plain version. ``ln.forward_body`` names the body
+    the C entry picks by shape (the register body, one warp a row, or the
+    CTA body); a trace of the call must show that body's kernel and not
+    the other's. ``offset``: x 4 bytes past a 16-byte boundary."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = (torch.randn(rows, f, generator=g, device="cuda") * 2 + 0.5).to(dtype)
     w = torch.randn(f, generator=g, device="cuda").to(dtype)
     b = torch.randn(f, generator=g, device="cuda").to(dtype)
-    y, mu, rstd = ln.layer_norm_fwd(x, w, b, 1e-6)
-    torch.cuda.synchronize()
+    if offset:
+        skip = 4 // x.element_size()
+        store = torch.empty(x.numel() + skip, dtype=dtype, device="cuda")
+        store[skip:] = x.flatten()
+        x = store[skip:].view(rows, f)
+    body = ln.forward_body(x, w, b)
+    (y, mu, rstd), names = traced(lambda: ln.layer_norm_fwd(x, w, b, 1e-6))
+    for kind, kernel in ln.FORWARD_KERNELS.items():
+        check(any(kernel + "<" in n or kernel + "I" in n for n in names)
+              == (kind == body),
+              f"layer_norm ({rows}, {f}) {dtype}: forward_body says {body}, "
+              f"the trace shows {names}")
     py, pmu, prstd = ln.layer_norm_plain(x, w, b, 1e-6)
     err, cos, peak = compare(y, py)
     stat_err = max(compare(mu, pmu)[0], compare(rstd, prstd)[0])
@@ -466,7 +509,8 @@ def ln_case(rows: int, f: int, dtype: torch.dtype, seed: int) -> dict:
           f"stats {stat_err}")
     nbytes = sum(t.nbytes for t in (x, w, b, y, mu, rstd))
     bound, by = bound_ms(nbytes, 8.0 * rows * f, dtype)
-    return {"shape": f"({rows}, {f})", "dtype": str(dtype)[6:],
+    return {"shape": f"({rows}, {f})" + (" x at +4 B" if offset else ""),
+            "dtype": str(dtype)[6:], "body": body,
             "max_abs_err": err, "cosine": cos,
             "ms": device_ms(lambda: ln.layer_norm_fwd(x, w, b, 1e-6)),
             "call_ms": cuda_ms(lambda: ln.layer_norm_fwd(x, w, b, 1e-6)),
@@ -742,15 +786,23 @@ def flash_bwd_case(qshape: tuple[int, int, int, int], sk: int, causal: bool,
 
 
 def int8_matmul_case(m: int, k: int, n: int, activation: str | None,
-                     seed: int) -> dict:
+                     seed: int, offset: int = 0) -> dict:
     """Kernel row 11 against its plain version: x quantized per row, w per
-    output channel (as ``quantize_linear`` does), an f32 bias."""
+    output channel (as ``quantize_linear`` does), an f32 bias. The s32 sums
+    are exact and the epilogue rounds each step as the plain version does,
+    so the two are equal (``torch.equal``) but for gelu, whose erff is held
+    to the f32 gate. ``offset`` bytes moves x_q's base off a 16-byte
+    boundary (the wrapper's padded copy)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(m, k, generator=g, device="cuda")
     w = torch.randn(n, k, generator=g, device="cuda")
     bias = torch.randn(n, generator=g, device="cuda")
     x_q, x_s = mm.quantize_rows(x)
     w_q, w_s = mm.quantize_rows(w)
+    if offset:
+        store = torch.empty(m * k + offset, dtype=torch.int8, device="cuda")
+        store[offset:] = x_q.flatten()
+        x_q = store[offset:].view(m, k)
 
     def kernel():
         return mm.int8_matmul(x_q, x_s, w_q, w_s, bias, activation=activation)
@@ -761,9 +813,13 @@ def int8_matmul_case(m: int, k: int, n: int, activation: str | None,
 
     got = kernel()
     torch.cuda.synchronize()
-    err, cos, peak = compare(got, plain())
-    check(within(torch.float32, err, cos, peak),
-          f"int8_matmul ({m}, {k}) x ({k}, {n}) {activation}: err {err}")
+    want = plain()
+    err, cos, peak = compare(got, want)
+    label = f"int8_matmul ({m}, {k}) x ({k}, {n}) {activation}"
+    if activation == "gelu":
+        check(within(torch.float32, err, cos, peak), f"{label}: err {err}")
+    else:
+        check(torch.equal(got, want), f"{label}: not equal, err {err}")
     nbytes = sum(t.nbytes for t in (x_q, x_s, w_q, w_s, bias, got))
     bound, by = bound_ms(nbytes, 0.0, torch.float32, int8_ops=2.0 * m * n * k)
     library = None
@@ -772,7 +828,8 @@ def int8_matmul_case(m: int, k: int, n: int, activation: str | None,
             torch._int_mm(x_q, w_q.t()).float(), x_s, w_s, bias,
             activation))
     return {"shape": f"({m}, {k}) x ({k}, {n})"
-            + (f" {activation}" if activation else ""),
+            + (f" {activation}" if activation else "")
+            + (f" x_q at +{offset} B" if offset else ""),
             "dtype": "int8", "max_abs_err": err, "cosine": cos,
             "ms": device_ms(kernel), "call_ms": cuda_ms(kernel),
             "plain_ms": device_ms(plain), "library_ms": library,
@@ -1274,14 +1331,7 @@ def dbias_case(qshape: tuple[int, int, int, int], sk: int, causal: bool,
         return fa.flash_attention_dbias(q, k, v, bias, o, lse, do,
                                         is_causal=causal)
 
-    for _ in range(3):  # a trace now and then has no device rows
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            got = kernel()
-            torch.cuda.synchronize()
-        names = [e.key for e in _device_rows(prof)]
-        if names:
-            break
+    got, names = traced(kernel)
     if split:
         check(any("dbias_range_sum_kernel" in name for name in names),
               f"flash_dbias {label}: the batch was not split into ranges "
@@ -1310,10 +1360,10 @@ def dbias_case(qshape: tuple[int, int, int, int], sk: int, causal: bool,
 def rows_against_recorded(cases: list[tuple[str, dict]], card: str) -> None:
     """Readings, not gates (a card below 700 W runs slower), at the shapes
     ``FMA_VERSION_MS`` and ``RECORDED_MS`` name, in bf16 (int8 and fp8 for
-    rows 11 and 12): the rows on tensor cores (3-7, 9, 12) as a speed-up
-    over their FMA versions' recorded times, and the rows with recorded
-    times (3-6 and 12 on the shared mma.sync header, 8, 10, and 1, 2, 11)
-    against those times, which they should keep within 5%."""
+    rows 11 and 12): the redesigned rows (1, 3-12) as a speed-up over their
+    first versions' recorded times, and the rows with recorded times (3-6
+    and 12 on the shared headers, 1, 2, 11) against those times, which
+    they should keep within 5%."""
     for name, c in cases:
         if c["dtype"] == "float32":
             continue
@@ -1446,7 +1496,8 @@ def kernel_phase(card: str) -> dict[str, dict]:
                    else f"{c['library_ms']:.4f} ms")
         gate = ("" if "err_over_abs_sum" not in c else
                 f" (/ sum of |products| {c['err_over_abs_sum']:.3e})")
-        print(f"kernel {name} {c['shape']} {c['dtype']}: max_abs_err "
+        body = f" ({c['body']} body)" if "body" in c else ""
+        print(f"kernel {name} {c['shape']} {c['dtype']}{body}: max_abs_err "
               f"{c['max_abs_err']:.3e}{gate} cosine {c['cosine']:.6f} | "
               f"device time: kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
               f"library {library}, bound {c['bound_ms']:.4f} "
@@ -1455,9 +1506,18 @@ def kernel_phase(card: str) -> dict[str, dict]:
 
     for dtype in (torch.bfloat16, torch.float32):
         # the served shapes (batch 32), the train step's (batch 128), odd ones
+        # the served shapes (batch 32), the train step's (batch 128), the
+        # widths of SigLIP-L and So400m, on the register body; odd ones,
+        # rows wider than it takes and x off a 16-byte boundary on the CTA
+        # body
         add("layer_norm", ln_case(8192, 768, dtype, 1))
         add("layer_norm", ln_case(32768, 768, dtype, 5))
+        add("layer_norm", ln_case(8192, 1024, dtype, 6))
+        add("layer_norm", ln_case(8192, 1152, dtype, 7))
         add("layer_norm", ln_case(7, 80, dtype, 2))
+        add("layer_norm", ln_case(1, 64, dtype, 8))
+        add("layer_norm", ln_case(3, 5000, dtype, 9))
+        add("layer_norm", ln_case(300, 768, dtype, 10, offset=True))
         for i, (qshape, sk, causal) in enumerate([
                 ((32, 256, 12, 64), 256, False),   # image self-attention
                 ((32, 1, 12, 64), 256, False),     # MAP probe
@@ -1576,6 +1636,7 @@ def kernel_phase(card: str) -> dict[str, dict]:
             *((m, k, n, act) for m, k, n in ODD_MATMUL_SHAPES
               for act in (None, "relu", "gelu"))]):
         add("int8_matmul", int8_matmul_case(m, k, n, act, 130 + i))
+    add("int8_matmul", int8_matmul_case(64, 96, 40, None, 129, offset=4))
     # fp8 GEMM (kernel row 12): the three GEMMs of each Linear of the
     # fp8_hybrid train step (batch 128) at every (K, N), then odd shapes.
     # forward y = x_q . w_q^T (+ bias); dx = dy_q . (w_q^T)^T; dw = (dy_q^T)

@@ -80,6 +80,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "hopper_tma.cuh"
 
 namespace {
 
@@ -100,61 +101,13 @@ constexpr int kSmemBytes =
 
 enum Format : int { kE4M3 = 0, kE5M2 = 1 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// rows [row0, row0 + 128) x bytes [k0, k0 + 128) of the operand `map`
-// into dst, completing on bar
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int k0, int row0) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(k0), "r"(row0),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle:
-// start address >> 4, stride between 8-row groups 1024 bytes, layout 1
-// (128B swizzle). The tiles sit on 1024-byte boundaries, so the base
-// offset is 0; a k16 step within the 128-byte row adds 32 bytes (2) to the
-// start address.
-__device__ __forceinline__ uint64_t smem_desc(const void* p) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
+using jimm::fence_operand;
+using jimm::mbar_expect_tx;
+using jimm::mbar_init;
+using jimm::mbar_wait;
+using jimm::smem_desc;
+using jimm::smem_u32;
+using jimm::tma_load;
 
 // d += A (64 x 16, K-major at da) . B (128 x 16, K-major at db)^T, f16
 // operands, f32 accumulator
@@ -246,12 +199,6 @@ __device__ __forceinline__ void widen_stage(const unsigned char* fp8_a,
       *reinterpret_cast<uint4*>(row + (((c0 + 1) ^ sw) * 16)) =
           make_uint4(w[4], w[5], w[6], w[7]);
     }
-}
-
-// keeps the compiler from moving accesses of an accumulator register
-// across wgmma.fence / wait_group
-__device__ __forceinline__ void fence_operand(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
 }
 
 // kSplit: sum K range blockIdx.z (k_split long, whole stages) and write the
@@ -396,43 +343,11 @@ __global__ void __launch_bounds__(kThreads) fp8_split_reduce_kernel(
   }
 }
 
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
-// query so that the library links the CUDA runtime only
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found{};
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// the (rows, k) byte matrix at base as 128-row x 64-byte boxes;
-// out-of-bounds elements read as zero
+// the (rows, k) byte matrix at base as 128-row x 64-byte boxes,
+// unswizzled; out-of-bounds elements read as zero
 bool operand_map(CUtensorMap* map, const void* base, int rows, int k) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(k)};
-  const cuuint32_t box[2] = {kStageK, kTile};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-                const_cast<void*>(base), dims, strides, box, elem_strides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return jimm::byte_operand_map(map, base, rows, k, kStageK, kTile,
+                                CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 template <bool kE5M2A, bool kSplit>

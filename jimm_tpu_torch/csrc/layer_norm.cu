@@ -3,22 +3,158 @@
 // Replaces the TPU kernel jimm_tpu/ops/layer_norm.py::_fwd_kernel (launched
 // by _ln_fwd_impl through pl.pallas_call). Same numerics: f32 statistics in
 // two passes (the mean, then the centred biased variance), rstd =
-// rsqrt(var + eps), y = (x - mean) * rstd * scale + bias stored in the dtype
-// of x, plus the per-row mean and rstd in f32 for the backward.
+// rsqrt(var + eps), y = ((x - mean) * rstd) * scale + bias stored in the
+// dtype of x, plus the per-row mean and rstd in f32 for the backward.
 //
 // What bounds it on the H100: bytes. It reads x once and writes y once
 // (2 bytes an element each in bf16) and does ~8 flops an element, far below
 // the ~295 flops a byte where the tensor cores would be the limit; at the
 // served shape (8192 rows x 768, bf16) the floor is ~25 MB over 3.35 TB/s.
-// What the design does about it: one CTA per row keeps the row in shared
-// memory as f32, so x is read from device memory exactly once although the
-// statistics take two passes, and y is written once. Neighbouring threads
-// touch neighbouring elements, so every load and store is coalesced. No lane
-// padding: the tail of any F is simply not visited.
+//
+// Two bodies, chosen in the C entry by shape:
+// - the register body (every preset width: F = 768, 1024, 1152): one warp
+//   a row, several rows a CTA, each warp walking rows in a grid-stride loop
+//   over a grid of the CTAs the card holds at once. 16-byte loads and
+//   stores (8 bf16 or 4 f32 a lane a vector), the row held in registers as
+//   f32 (kVecs vectors a lane, the last one guarded where 32 lanes do not
+//   divide the row's vectors, as at F = 1152 in bf16), warp-shuffle sums
+//   with no barrier, and the scale and bias loaded once a warp and kept in
+//   registers across its rows. It takes F a multiple of the vector width,
+//   F <= 2048, and 16-byte aligned bases;
+// - the CTA body (the rest: wider rows, an F off the vector width, views
+//   off a 16-byte boundary): one CTA a row keeps the row in shared memory
+//   as f32, so x is read from device memory exactly once although the
+//   statistics take two passes; neighbouring threads touch neighbouring
+//   elements, so every load and store is coalesced.
+// ops/layer_norm.py::forward_body mirrors the choice.
+
+#include <cstdint>
+#include <map>
+#include <mutex>
+#include <utility>
 
 #include "common.cuh"
 
 namespace {
+
+constexpr int kWarps = 4;            // the register body's rows a CTA
+constexpr int kRegisterMaxF = 2048;  // the register body's widest row
+
+// 16 bytes of T as f32 and back: 4 f32 or 8 bf16
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  static constexpr int kN = 4;
+  static __device__ __forceinline__ void unpack(const uint4& r, float* v) {
+    v[0] = __uint_as_float(r.x);
+    v[1] = __uint_as_float(r.y);
+    v[2] = __uint_as_float(r.z);
+    v[3] = __uint_as_float(r.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float* v) {
+    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                      __float_as_uint(v[2]), __float_as_uint(v[3]));
+  }
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  static __device__ __forceinline__ void unpack(const uint4& r, float* v) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  static __device__ __forceinline__ uint4 pack(const float* v) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The register body: warp w of CTA c takes rows c * kWarps + w, then every
+// gridDim.x * kWarps rows further; lane l holds vectors l, l + 32, ... of
+// the row (kVecs of them, the last guarded).
+template <typename T, int kVecs>
+__global__ void __launch_bounds__(kWarps * 32)
+    layer_norm_fwd_register_kernel(const T* __restrict__ x,
+                                   const T* __restrict__ g,
+                                   const T* __restrict__ b,
+                                   T* __restrict__ y,
+                                   float* __restrict__ mu_out,
+                                   float* __restrict__ rstd_out,
+                                   long long rows, int f, float eps) {
+  constexpr int kE = Vec<T>::kN;
+  const int lane = threadIdx.x & 31;
+  const int nv = f / kE;
+  uint4 gv[kVecs], bv[kVecs];
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    const int v = lane + 32 * i;
+    if (v < nv) {
+      gv[i] = reinterpret_cast<const uint4*>(g)[v];
+      bv[i] = reinterpret_cast<const uint4*>(b)[v];
+    }
+  }
+  const long long stride = static_cast<long long>(gridDim.x) * kWarps;
+  for (long long r = blockIdx.x * static_cast<long long>(kWarps) +
+                     threadIdx.x / 32;
+       r < rows; r += stride) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x + r * f);
+    float v[kVecs][kE];
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) {
+      if (lane + 32 * i < nv) {
+        Vec<T>::unpack(xr[lane + 32 * i], v[i]);
+#pragma unroll
+        for (int e = 0; e < kE; ++e) s += v[i][e];
+      }
+    }
+    const float mu = warp_sum(s) / f;
+    float s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) {
+      if (lane + 32 * i < nv) {
+#pragma unroll
+        for (int e = 0; e < kE; ++e) {
+          v[i][e] -= mu;
+          s2 += v[i][e] * v[i][e];
+        }
+      }
+    }
+    const float rstd = rsqrtf(warp_sum(s2) / f + eps);
+    uint4* yr = reinterpret_cast<uint4*>(y + r * f);
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) {
+      if (lane + 32 * i < nv) {
+        float gf[kE], bf[kE];
+        Vec<T>::unpack(gv[i], gf);
+        Vec<T>::unpack(bv[i], bf);
+#pragma unroll
+        for (int e = 0; e < kE; ++e) v[i][e] = v[i][e] * rstd * gf[e] + bf[e];
+        yr[lane + 32 * i] = Vec<T>::pack(v[i]);
+      }
+    }
+    if (lane == 0) {
+      mu_out[r] = mu;
+      rstd_out[r] = rstd;
+    }
+  }
+}
 
 // Sum of v over the block, the same value in every thread. `red` holds one
 // partial per warp; the leading barrier lets a second call reuse it.
@@ -85,10 +221,78 @@ cudaError_t launch(const void* x, const void* g, const void* b, void* y,
   return cudaGetLastError();
 }
 
+// CTAs of `kernel` of `threads` threads the current device holds at once
+// (kept per (kernel, device), so the occupancy query runs once)
+template <typename Kernel>
+cudaError_t resident_ctas(Kernel kernel, int threads, int* ctas) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  static std::mutex mutex;
+  static std::map<std::pair<const void*, int>, int> known;
+  const std::lock_guard<std::mutex> lock(mutex);
+  int& n = known[{reinterpret_cast<const void*>(kernel), device}];
+  if (n == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, 0);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   device);
+    if (err != cudaSuccess) return err;
+    n = per_sm * sms > 0 ? per_sm * sms : 1;
+  }
+  *ctas = n;
+  return cudaSuccess;
+}
+
+template <typename T, int kVecs>
+cudaError_t launch_register(const void* x, const void* g, const void* b,
+                            void* y, void* mu, void* rstd, long long rows,
+                            int f, float eps, cudaStream_t stream) {
+  auto kernel = layer_norm_fwd_register_kernel<T, kVecs>;
+  int ctas = 0;
+  const cudaError_t err = resident_ctas(kernel, kWarps * 32, &ctas);
+  if (err != cudaSuccess) return err;
+  const long long needed = (rows + kWarps - 1) / kWarps;
+  kernel<<<static_cast<unsigned>(needed < ctas ? needed : ctas), kWarps * 32,
+           0, stream>>>(static_cast<const T*>(x), static_cast<const T*>(g),
+                        static_cast<const T*>(b), static_cast<T*>(y),
+                        static_cast<float*>(mu), static_cast<float*>(rstd),
+                        rows, f, eps);
+  return cudaGetLastError();
+}
+
+// the register body with the fewest vectors a lane that hold `vecs`
+template <typename T, int kVecs>
+cudaError_t register_body(int vecs, const void* x, const void* g,
+                          const void* b, void* y, void* mu, void* rstd,
+                          long long rows, int f, float eps,
+                          cudaStream_t stream) {
+  if constexpr (kVecs > 1) {
+    if (vecs <= kVecs - 1)
+      return register_body<T, kVecs - 1>(vecs, x, g, b, y, mu, rstd, rows, f,
+                                         eps, stream);
+  }
+  return launch_register<T, kVecs>(x, g, b, y, mu, rstd, rows, f, eps,
+                                   stream);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 template <typename T>
 cudaError_t dispatch(const void* x, const void* g, const void* b, void* y,
                      void* mu, void* rstd, long long rows, int f, float eps,
                      cudaStream_t stream) {
+  constexpr int kE = Vec<T>::kN;
+  if (f % kE == 0 && f <= kRegisterMaxF && aligned16(x) && aligned16(g) &&
+      aligned16(b) && aligned16(y)) {
+    const int vecs = (f / kE + 31) / 32;
+    return register_body<T, kRegisterMaxF / kE / 32>(
+        vecs, x, g, b, y, mu, rstd, rows, f, eps, stream);
+  }
   // narrow rows: fewer threads, so each still has a few elements to do
   if (f <= 1024)
     return launch<T, 128>(x, g, b, y, mu, rstd, rows, f, eps, stream);

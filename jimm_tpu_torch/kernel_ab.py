@@ -7,8 +7,9 @@ The base is the library ``_build`` builds from ``csrc/``. Each variant is
 one CUDA source (an edited copy of a ``csrc/*.cu`` file, compiled alone with
 ``nvcc -shared`` and ``-I csrc`` for its headers) whose exported entry
 points replace the base's while it is timed; every other entry point stays
-the base's. Each case runs the port's public wrapper at the train image
-shape of SigLIP-B/16 (q, k, v (128, 256, 12, 64) bf16), and is timed in
+the base's. Each case runs the port's public wrapper (the flash cases at
+the train image shape of SigLIP-B/16, q, k, v (128, 256, 12, 64) bf16),
+and is timed in
 turns (base, then each variant, then in reverse order, ``--rounds`` times)
 with CUDA events around 50 calls after 5 warm-up calls, so that every
 variant is compared with the base on one card within one process. Prints
@@ -16,7 +17,13 @@ one JSON line per timing, with the card's name and power limit.
 
 Cases: ``bwd``, ``mask_bwd``, ``sigmoid_bwd``, ``bias_bwd`` (row 7 in each
 kind, dq and dk/dv), ``int8_fwd`` (row 9), ``int8_bwd`` (row 10, dq and
-dk/dv), ``dbias`` (row 8, with the wrapper's batch ranges), ``fwd`` (row 3).
+dk/dv), ``dbias`` (row 8, with the wrapper's batch ranges), ``fwd`` (row 3);
+at the served int8 shapes of bucket 32 (``MATMUL_SHAPES``, f32 bias, no
+activation) ``mm_qkv``, ``mm_fc1``, ``mm_fc2``, ``mm_head`` (row 11); and
+``ln_train`` (32768 x 768) and ``ln_serve`` (8192 x 768) in bf16 (row 1).
+``--device-time``: time each variant by the device time of its kernels (a
+profiler trace, as ``--kernels``) instead of CUDA events, for calls so
+short that the host sets the pace between events (``mm_head``).
 ``--dbias-ranges R`` (repeatable) adds a case ``dbias@R``: row 8 with the
 batch split into R ranges, whatever ``dbias_batch_range`` would choose.
 
@@ -58,8 +65,16 @@ import torch
 from jimm_tpu_torch import _build
 from jimm_tpu_torch.ops import flash_attention as fa
 from jimm_tpu_torch.ops import flash_attention_int8 as fa8
+from jimm_tpu_torch.ops import int8_matmul as mm
+from jimm_tpu_torch.ops import layer_norm as ln
 
 SHAPE = (128, 256, 12, 64)
+#: row 11's (M, K, N) at a served bucket-32 batch: q/k/v/out, fc1, fc2 over
+#: 8192 token rows, and the MAP head's q and out projections over 32
+MATMUL_SHAPES = {"mm_qkv": (8192, 768, 768), "mm_fc1": (8192, 768, 3072),
+                 "mm_fc2": (8192, 3072, 768), "mm_head": (32, 768, 768)}
+#: row 1's (rows, F): the train step's (batch 128) and a served batch's
+LN_SHAPES = {"ln_train": (32768, 768), "ln_serve": (8192, 768)}
 
 
 def variant_libraries(sources: list[pathlib.Path], out_dir: pathlib.Path
@@ -120,7 +135,20 @@ def cases() -> dict:
     kq, ks = fa8.quantize_heads(k)
     o8, lse8 = fa8.flash_attention_int8_plain(qq, qs, kq, ks, v)
     logit_bias = fa.default_logit_bias(s)
-    return {
+    calls = {}
+    for name, (m_, k_, n_) in MATMUL_SHAPES.items():
+        x_q, x_s = mm.quantize_rows(torch.randn(m_, k_, generator=g,
+                                                device="cuda"))
+        w_q, w_s = mm.quantize_rows(torch.randn(n_, k_, generator=g,
+                                                device="cuda"))
+        mb = torch.randn(n_, generator=g, device="cuda")
+        calls[name] = functools.partial(mm.int8_matmul, x_q, x_s, w_q, w_s,
+                                        mb)
+    for name, (rows, f) in LN_SHAPES.items():
+        x, w, lb = (torch.randn(*shape, generator=g, device="cuda").to(
+            torch.bfloat16) for shape in ((rows, f), (f,), (f,)))
+        calls[name] = functools.partial(ln.layer_norm_fwd, x, w, lb)
+    return calls | {
         "bwd": lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
         "mask_bwd": lambda: fa.flash_attention_bwd(q, k, v, mo, mlse, do,
                                                    mask=mask),
@@ -135,6 +163,12 @@ def cases() -> dict:
                                                   do),
         "fwd": lambda: fa.flash_attention_lse(q, k, v),
     }
+
+
+def case_shape(case: str) -> list[int]:
+    """The shape a case runs at, for its JSON line."""
+    name = case.partition("@")[0]
+    return list(MATMUL_SHAPES.get(name) or LN_SHAPES.get(name) or SHAPE)
 
 
 def with_ranges(fn, ranges: int):
@@ -263,6 +297,7 @@ def main() -> None:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--dbias-ranges", action="append", default=[], type=int)
     ap.add_argument("--kernels", action="store_true")
+    ap.add_argument("--device-time", action="store_true")
     ap.add_argument("--losses", action="append", default=[])
     ap.add_argument("--grads", action="append", default=[],
                     choices=["softmax", "naflex", "sigmoid"])
@@ -278,7 +313,7 @@ def main() -> None:
     if args.kernels:
         for case in names:
             print(json.dumps({"case": case, "kernel_ms": kernel_ms(
-                calls[case]), "shape": list(SHAPE), "card": card}),
+                calls[case]), "shape": case_shape(case), "card": card}),
                 flush=True)
         return
     with tempfile.TemporaryDirectory() as tmp:
@@ -300,11 +335,12 @@ def main() -> None:
                     _build._lib = base if not routed else _Routed(
                         base, lib, routed)
                     try:
-                        ms = time_ms(calls[case])
+                        ms = (sum(kernel_ms(calls[case]).values())
+                              if args.device_time else time_ms(calls[case]))
                     finally:
                         _build._lib = base
                     print(json.dumps({"case": case, "variant": label,
-                                      "ms": ms, "shape": list(SHAPE),
+                                      "ms": ms, "shape": case_shape(case),
                                       "card": card}), flush=True)
 
 

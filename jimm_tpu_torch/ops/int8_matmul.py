@@ -4,17 +4,20 @@ version, the per-row activation quantizer, and the differentiable
 
 Kernel row 11 of the port's kernel table replaces the Pallas TPU kernel
 ``jimm_tpu/ops/int8_matmul.py::_matmul_kernel``; its CUDA source is
-``jimm_tpu_torch/csrc/int8_matmul.cu``: an exact s32 accumulation with
-``__dp4a``, then ``((float)acc * x_scale[m]) * w_scale[n] + bias[n]`` and
-an optional relu or exact-erf gelu, f32 out, each epilogue step rounded on
-its own as XLA rounds the TPU kernel's.
+``jimm_tpu_torch/csrc/int8_matmul.cu``: an exact s32 accumulation with s8
+``wgmma`` on operands brought by TMA, then ``((float)acc * x_scale[m]) *
+w_scale[n] + bias[n]`` and an optional relu or exact-erf gelu, f32 out,
+each epilogue step rounded on its own as XLA rounds the TPU kernel's.
 
 The scheme is symmetric and zero-point free: weights carry one f32 scale per
 output channel (``jimm_tpu_torch.quant.quantize_linear``), activations one
 per row (:func:`quantize_rows`), so dequantization is a rank-1 rescale of
 the accumulator. The port keeps ``w_q`` in the ``nn.Linear`` layout
 ``(N, K)``, K-contiguous like ``x_q``; the JAX kernel takes ``(K, N)``, the
-same numbers transposed.
+same numbers transposed. Both are K-major, the layout 8-bit ``wgmma``
+reads; TMA needs K a multiple of 16 and 16-byte aligned bases, so the
+wrapper zero-pads K of both copies otherwise (:func:`tma_operands`, shared
+with the fp8 GEMM; a zero product adds nothing).
 
 :func:`int8_matmul` launches the kernel for CUDA tensors and runs
 :func:`int8_matmul_plain` for CPU tensors; any other device raises. The
@@ -27,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from jimm_tpu_torch import _build
+from jimm_tpu_torch.ops.fp8_matmul import tma_operands
 
 #: kernel launches since the count was last set to 0
 launches = 0
@@ -131,8 +135,9 @@ def int8_matmul(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
                          "bias, on the device of x_q")
     if not all(t.is_contiguous() for t in operands + [x_q, w_q]):
         raise ValueError("int8_matmul kernel needs contiguous operands")
-    m, k = x_q.shape
-    n = w_q.shape[0]
+    m, n = x_q.shape[0], w_q.shape[0]
+    x_q, w_q = tma_operands(x_q, w_q)
+    k = x_q.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
     lib = _build.load()
     with torch.cuda.device(x_q.device):

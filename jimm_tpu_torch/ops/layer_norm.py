@@ -3,8 +3,11 @@ plain versions, and the ``torch.autograd.Function`` that joins them.
 
 Kernel row 1 of the port's kernel table replaces the Pallas TPU kernel
 ``jimm_tpu/ops/layer_norm.py::_fwd_kernel``; its CUDA source is
-``jimm_tpu_torch/csrc/layer_norm.cu``: one CTA per row, the row widened to
-f32 in shared memory, two-pass statistics (mean, then centred variance).
+``jimm_tpu_torch/csrc/layer_norm.cu``: two-pass statistics (mean, then
+centred variance) in one of two bodies, chosen by shape (:func:`forward_body`
+names it): one warp a row with the row in registers as f32 (every preset
+width), or one CTA a row with the row in shared memory (rows wider than
+2048, an F off the 16-byte vector, views off a 16-byte boundary).
 Kernel row 2 replaces ``::_bwd_kernel``; its source is
 ``jimm_tpu_torch/csrc/layer_norm_bwd.cu``: dx from the saved f32 mean and
 rstd, and per-CTA f32 dscale/dbias partial rows that :func:`layer_norm_bwd`
@@ -34,6 +37,13 @@ bwd_launches = 0
 #: f32 partial row of dscale and of dbias. On the H100 at (32768, 768) bf16,
 #: 8 beat 4 (more rows in flight) and 16 or 32 (larger partial sums)
 _BWD_CTAS_PER_SM = 8
+
+#: the forward's register body takes rows up to this wide
+#: (csrc/layer_norm.cu ``kRegisterMaxF``)
+_REGISTER_MAX_F = 2048
+#: the two forward bodies' kernel names, by :func:`forward_body`'s answer
+FORWARD_KERNELS = {"register": "layer_norm_fwd_register_kernel",
+                   "cta": "layer_norm_fwd_kernel"}
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -74,6 +84,21 @@ def layer_norm_bwd_plain(x: torch.Tensor, scale: torch.Tensor,
     dx = rstd.to(acc)[:, None] * (dyg - m1 - xhat * m2)
     return (dx.to(x.dtype), (do * xhat).sum(dim=0).to(scale.dtype),
             do.sum(dim=0).to(scale.dtype))
+
+
+def forward_body(x: torch.Tensor, scale: torch.Tensor,
+                 bias: torch.Tensor) -> str:
+    """Which forward kernel the C entry (``jimm_layer_norm_fwd``) launches
+    for these operands, by the same rule: ``"register"`` (one warp a row,
+    16-byte vectors) when F is a multiple of a 16-byte vector's elements
+    (8 bf16, 4 f32), F <= 2048 and x, scale and bias start on 16-byte
+    boundaries (y is a fresh allocation, always aligned); else ``"cta"``
+    (one CTA a row)."""
+    f = x.shape[-1]
+    per_vector = 16 // x.element_size()
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, scale, bias))
+    return ("register" if f % per_vector == 0 and f <= _REGISTER_MAX_F
+            and aligned else "cta")
 
 
 def _check(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> None:

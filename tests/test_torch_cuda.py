@@ -48,18 +48,65 @@ def _close(got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype) -> None:
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,f", [(1, 64), (7, 80), (300, 768),
-                                    (8192, 768), (3, 5000)])
+                                    (8192, 768), (3, 5000), (300, 1024),
+                                    (300, 1152), (8192, 1152)])
 def test_layer_norm_kernel(card, rows, f, dtype):
+    """Every preset width (768, 1024, 1152) and (1, 64), (7, 80) on the
+    register body; (3, 5000) on the CTA body."""
     g = torch.Generator(device=card).manual_seed(rows + f)
     x = (torch.randn(rows, f, generator=g, device=card) * 3 + 0.5).to(dtype)
     w = torch.randn(f, generator=g, device=card).to(dtype)
     b = torch.randn(f, generator=g, device=card).to(dtype)
+    assert ln.forward_body(x, w, b) == ("cta" if f > 2048 else "register")
     before = ln.launches
     y, mu, rstd = ln.layer_norm_fwd(x, w, b, 1e-6)
     torch.cuda.synchronize()
     assert ln.launches == before + 1
     want_y, want_mu, want_rstd = ln.layer_norm_plain(x, w, b, 1e-6)
     assert y.dtype == dtype and mu.dtype == rstd.dtype == torch.float32
+    _close(y, want_y, dtype)
+    _close(mu, want_mu, torch.float32)
+    torch.testing.assert_close(rstd, want_rstd, atol=1e-4, rtol=1e-4)
+
+
+def _launched(fn) -> list[str]:
+    """The names of the kernels ``fn()`` launches, from a profiler trace."""
+    for _ in range(3):  # a trace now and then has no device rows
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+    return names
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,f,offset", [(300, 768, 0), (300, 1152, 0),
+                                           (3, 5000, 0), (300, 768, 4)])
+def test_layer_norm_forward_runs_the_body_forward_body_names(card, rows, f,
+                                                             offset, dtype):
+    """The C entry picks the body ``ln.forward_body`` names: a trace shows
+    that body's kernel and not the other's; x 4 bytes off a 16-byte
+    boundary takes the CTA body."""
+    g = torch.Generator(device=card).manual_seed(rows + f + offset)
+    x = (torch.randn(rows, f, generator=g, device=card) * 3 + 0.5).to(dtype)
+    w = torch.randn(f, generator=g, device=card).to(dtype)
+    b = torch.randn(f, generator=g, device=card).to(dtype)
+    if offset:
+        skip = offset // x.element_size()
+        store = torch.empty(x.numel() + skip, dtype=dtype, device=card)
+        store[skip:] = x.flatten()
+        x = store[skip:].view(rows, f)
+    body = ln.forward_body(x, w, b)
+    assert body == ("register" if f <= 2048 and not offset else "cta")
+    names = _launched(lambda: ln.layer_norm_fwd(x, w, b, 1e-6))
+    for kind, kernel in ln.FORWARD_KERNELS.items():
+        assert any(kernel + "<" in n for n in names) == (kind == body), names
+    y, mu, rstd = ln.layer_norm_fwd(x, w, b, 1e-6)
+    want_y, want_mu, want_rstd = ln.layer_norm_plain(x, w, b, 1e-6)
     _close(y, want_y, dtype)
     _close(mu, want_mu, torch.float32)
     torch.testing.assert_close(rstd, want_rstd, atol=1e-4, rtol=1e-4)
@@ -356,7 +403,7 @@ def test_siglip2_naflex_grads_on_the_card(card):
 #: (M, K, N): tests/test_int8_ops.py's odd shapes and the served ones
 _INT8_MATMUL = [(1, 7, 5), (5, 100, 33), (33, 64, 128), (257, 769, 129),
                 (16, 768, 768), (8192, 768, 3072), (8192, 3072, 768),
-                (32, 768, 768)]
+                (32, 768, 768), (8192, 768, 768), (70, 97, 40)]
 
 
 def _int8_operands(m: int, k: int, n: int, device):
@@ -391,8 +438,9 @@ def test_int8_matmul_kernel(card, m, k, n, activation):
 
 
 def test_int8_matmul_kernel_without_bias_and_unaligned(card):
-    """No bias, and operands whose rows start off a 16-byte boundary (the
-    byte-staging path)."""
+    """No bias, K off a multiple of 16, and x_q off a 16-byte boundary: the
+    wrapper's zero-padded copies (TMA reads neither as given); one launch
+    a call still."""
     from jimm_tpu_torch.ops import int8_matmul as mm
     x_q, x_s, w_q, w_s, _ = _int8_operands(70, 97, 40, card)
     got = mm.int8_matmul(x_q, x_s, w_q, w_s)
@@ -401,7 +449,9 @@ def test_int8_matmul_kernel_without_bias_and_unaligned(card):
     x_off = torch.empty(64 * 96 + 4, dtype=torch.int8, device=card)
     x_off[4:] = x_q2.flatten()
     x_view = x_off[4:].view(64, 96)
+    before = mm.launches
     got = mm.int8_matmul(x_view, x_s2, w_q2, w_s2)
+    assert mm.launches == before + 1
     assert torch.equal(got, mm.int8_matmul_plain(x_q2, x_s2, w_q2, w_s2))
 
 

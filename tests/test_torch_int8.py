@@ -133,6 +133,77 @@ def test_int8_matmul_rejects_an_unknown_activation():
         mm.int8_matmul(x_q, x_s, w_q, w_s, activation="swish")
 
 
+#: (M, K): K off a multiple of 16, which the wrapper zero-pads for TMA
+#: before the kernel sees it
+PADDED_CASES = [(m, k) for m in (1, 5, 70) for k in (7, 100, 769, 97)]
+
+
+def _fused_bias_add(x_q, x_s, w_q, w_s, b, activation):
+    """The epilogue as XLA on the CPU compiles JAX's interpret-mode kernel:
+    ``(acc * x_scale) * w_scale + bias`` with the last multiply and the add
+    contracted into one fused multiply-add (one rounding, here in f64 then
+    to f32, exact for f32 operands)."""
+    acc = (x_q.double() @ w_q.double().T).float()
+    y = (acc * x_s[:, None]).double() * w_s.double()[None, :]
+    y = (y + b.double()[None, :]).float()
+    return torch.clamp_min(y, 0.0) if activation == "relu" else y
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("activation", [None, "relu"])
+@pytest.mark.parametrize("m,k", PADDED_CASES)
+def test_int8_matmul_plain_on_padded_operands_is_bit_identical(m, k,
+                                                               activation,
+                                                               bias):
+    """What the kernel computes on the wrapper's K-padded copies equals, bit
+    for bit, the unpadded plain version (the zero columns add no product)
+    and, without a bias, JAX's Pallas kernel in interpret mode. With a bias,
+    XLA on the CPU contracts JAX's last multiply and the bias add into one
+    fused multiply-add, where the kernel and the plain version round each
+    step: JAX's result is then exactly that contraction of the same
+    operands, and within one rounding of the plain version."""
+    (x_q, x_s, w_q, w_s, b), (jx, jxs, jw, jws, jb) = _operands(m, k, 33,
+                                                                 m * k)
+    if not bias:
+        b, jb = None, None
+    xp, wp = mm.tma_operands(x_q, w_q)
+    k_pad = -(-k // 16) * 16
+    assert xp.shape == (m, k_pad) and wp.shape == (33, k_pad)
+    assert xp.dtype == wp.dtype == torch.int8
+    assert torch.equal(xp[:, :k], x_q) and torch.equal(wp[:, :k], w_q)
+    assert not xp[:, k:].any() and not wp[:, k:].any()
+    got = mm.int8_matmul_plain(xp, x_s, wp, w_s, b, activation=activation)
+    unpadded = mm.int8_matmul_plain(x_q, x_s, w_q, w_s, b,
+                                    activation=activation)
+    want = np.asarray(jax_mm.int8_matmul(jx, jxs, jw, jws, jb,
+                                         activation=activation))
+    assert torch.equal(got, unpadded)
+    if not bias:
+        np.testing.assert_array_equal(got.numpy(), want)
+        return
+    fused = _fused_bias_add(xp, x_s, wp, w_s, b, activation)
+    np.testing.assert_array_equal(fused.numpy(), want)
+    # the product's rounding and the two sums' (half an ulp each)
+    unbiased = mm.int8_matmul_plain(xp, x_s, wp, w_s).abs().numpy()
+    ulps = unbiased + np.abs(got.numpy()) + np.abs(want)
+    assert (np.abs(got.numpy() - want) <= 2.0**-24 * ulps).all()
+
+
+def test_int8_tma_operands_copy_only_what_tma_cannot_read():
+    """Served operands (K a multiple of 16, fresh allocations) pass as they
+    are; a base off a 16-byte boundary is copied, K unchanged."""
+    (x_q, _, w_q, _, _), _ = _operands(64, 96, 40, 11)
+    xp, wp = mm.tma_operands(x_q, w_q)
+    assert xp is x_q and wp is w_q
+    store = torch.zeros(64 * 96 + 4, dtype=torch.int8)
+    store[4:] = x_q.flatten()
+    view = store[4:].view(64, 96)
+    assert view.data_ptr() % 16 != 0
+    xp, wp = mm.tma_operands(view, w_q)
+    assert xp.data_ptr() % 16 == 0 and xp.shape == (64, 96)
+    assert torch.equal(xp, x_q) and torch.equal(wp, w_q)
+
+
 def test_quantized_linear_backward_matches_jax():
     """dx and dbias against the JAX custom VJP; the int8 weights and scales
     get none (they are buffers, not parameters)."""

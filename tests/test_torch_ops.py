@@ -45,6 +45,55 @@ def test_layer_norm_matches_jax(rows, f):
                                **TOL)
 
 
+def _offset(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose base is ``nbytes`` past a 16-byte
+    boundary."""
+    pad = nbytes // t.element_size()
+    store = torch.zeros(t.numel() + 16, dtype=t.dtype)
+    skip = (-store.data_ptr() % 16) // t.element_size() + pad
+    view = store[skip:skip + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+#: (rows, F, dtype, byte offset of x, of scale, body): the register body
+#: takes F a multiple of a 16-byte vector (8 bf16, 4 f32) up to 2048 with
+#: every base on a 16-byte boundary; the CTA body the rest
+LN_BODIES = [
+    (1, 64, torch.bfloat16, 0, 0, "register"),
+    (7, 80, torch.bfloat16, 0, 0, "register"),
+    (7, 80, torch.float32, 0, 0, "register"),
+    (8192, 768, torch.bfloat16, 0, 0, "register"),
+    (32768, 768, torch.float32, 0, 0, "register"),
+    (5, 1024, torch.bfloat16, 0, 0, "register"),
+    (5, 1152, torch.bfloat16, 0, 0, "register"),
+    (5, 1152, torch.float32, 0, 0, "register"),
+    (2, 2048, torch.float32, 0, 0, "register"),
+    (3, 5000, torch.bfloat16, 0, 0, "cta"),
+    (3, 5000, torch.float32, 0, 0, "cta"),
+    (2, 2056, torch.bfloat16, 0, 0, "cta"),
+    (2, 84, torch.bfloat16, 0, 0, "cta"),
+    (2, 84, torch.float32, 0, 0, "register"),
+    (3, 30, torch.float32, 0, 0, "cta"),
+    (4, 768, torch.bfloat16, 4, 0, "cta"),
+    (4, 768, torch.float32, 8, 0, "cta"),
+    (4, 768, torch.bfloat16, 0, 2, "cta"),
+    (4, 768, torch.bfloat16, 16, 0, "register"),
+]
+
+
+@pytest.mark.parametrize("rows,f,dtype,x_off,g_off,want", LN_BODIES)
+def test_layer_norm_forward_body(rows, f, dtype, x_off, g_off, want):
+    x = _offset(torch.randn(rows, f).to(dtype), x_off)
+    scale = _offset(torch.randn(f).to(dtype), g_off)
+    bias = torch.randn(f).to(dtype)
+    assert ln_mod.forward_body(x, scale, bias) == want
+    # on the CPU either way the plain version runs, on the same values
+    y = ln_mod.layer_norm(x, scale, bias)
+    assert torch.equal(y, ln_mod.layer_norm_plain(x.clone(), scale.clone(),
+                                                  bias)[0])
+
+
 _ATTN_CASES = [(sq, sk, d, causal)
                for sq, sk in [(1, 5), (5, 5), (1, 257), (257, 257)]
                for d in (32, 64, 80)
