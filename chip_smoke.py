@@ -204,6 +204,7 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import base64
+import copy
 import contextlib
 import io
 import json
@@ -275,9 +276,10 @@ FC1_FORWARD = "(32768, 768) x (3072, 768)^T +bias"
 #: the redesigned rows' first (CUDA-core, FMA) versions, as PERF.md's
 #: kernel table records them (NVIDIA H100 80GB HBM3, 700.00 W), by kernel:
 #: (shape, ms): rows 3-7 (every kind), 8, 9, 10, 11 and 12, now on tensor
-#: cores, and row 1, now one warp a row
+#: cores, and rows 1 and 2, now one warp a row
 FMA_VERSION_MS = {
     "layer_norm": ("(32768, 768)", 0.0715),
+    "layer_norm_bwd": ("(32768, 768)", 0.1241),
     "int8_matmul": ("(8192, 3072) x (3072, 768)", 0.3837),
     "flash_attention": (TRAIN_IMAGE, 1.2623),
     "flash_attention_masked": (NAFLEX_IMAGE, 1.0818),
@@ -293,8 +295,7 @@ FMA_VERSION_MS = {
     "flash_attention_int8_bwd": (TRAIN_IMAGE, 3.5000)}
 #: the times PERF.md records for rows 3-6 and 12 on tensor cores, which a
 #: change to their shared headers (flash_mma.cuh, hopper_tma.cuh) must
-#: leave within 5%, for row 2 on the CUDA cores, and for rows 1 and 11 as
-#: redesigned
+#: leave within 5%, and for rows 1, 2 and 11 as redesigned
 RECORDED_MS = {
     "flash_attention": (TRAIN_IMAGE, 0.2272),
     "flash_attention_masked": (NAFLEX_IMAGE, 0.2620),
@@ -302,7 +303,7 @@ RECORDED_MS = {
     "sigmoid_attention": (TRAIN_IMAGE, 0.2740),
     "fp8_matmul": (FC1_FORWARD, 0.4046),
     "layer_norm": ("(32768, 768)", 0.0380),
-    "layer_norm_bwd": ("(32768, 768)", 0.1241),
+    "layer_norm_bwd": ("(32768, 768)", 0.0573),
     "int8_matmul": ("(8192, 3072) x (3072, 768)", 0.0452)}
 #: the kernels that must run on tensor cores, by a substring of their
 #: mangled names, and the SASS instructions each must contain: f16 wgmma
@@ -318,6 +319,12 @@ TENSOR_CORE_KERNELS = {"fp8_matmul_kernel": ("HGMMA",),
                        "flash_int8_bwd_dq_mma_kernel": ("IMMA", "HMMA"),
                        "flash_int8_bwd_dkv_mma_kernel": ("IMMA", "HMMA"),
                        "flash_dbias_mma_kernel": ("HMMA",)}
+#: the LayerNorm register bodies (one warp a row) keep rows in registers:
+#: every instantiation of the backward's must use no local memory (spills;
+#: its widest rows, 2048 as the forward's, are set by this), the forward's
+#: is printed
+REGISTER_BODY_KERNELS = {"layer_norm_bwd_register_kernel": True,
+                         "layer_norm_fwd_register_kernel": False}
 #: the bf16 twins of the f32 gradient checks (5(a), 6(a), 8(a), 10(a)): each
 #: parameter's gradient within 2^-3 of its largest value (or of 2^-4 of the
 #: model's largest, for a gradient under that floor: the k-projection bias,
@@ -327,6 +334,20 @@ TENSOR_CORE_KERNELS = {"fp8_matmul_kernel": ("HGMMA",),
 BF16_GRAD_REL_ERR = 2.0**-3
 BF16_GRAD_FLOOR = 2.0**-4
 BF16_GRAD_MIN_COS = 0.99
+#: and on top of those, each parameter's gradient held to its own size: with
+#: t the gradient of the same step in f32 through the plain versions (the
+#: bf16 parameters and inputs widened exactly), ||g_kernel - t|| <=
+#: BF16_GRAD_NORM_R ||g_plain - t|| + BF16_GRAD_NORM_EPS ||t||, 2-norms over
+#: the parameter, g_plain the bf16 step through the plain versions of the
+#: kernels' own algorithm (the flash Functions kept: delta from the stored
+#: o): the kernel step may be at most twice as far from f32 as the plain
+#: bf16 step, plus a slack for the roundings the kernels add. PERF.md
+#: section 6 gives the derivation (written before the first run that
+#: checked it) and its correction after that run. Not for the
+#: k-projection biases under softmax attention (zero in exact arithmetic)
+#: nor one-element parameters: they stay on the floor.
+BF16_GRAD_NORM_R = 2.0
+BF16_GRAD_NORM_EPS = 2.0**-6
 #: int8 serve: 12 blocks x 6 Linears (q, k, v, out, fc1, fc2) and the MAP
 #: head's q, k, v, out, fc1, fc2 run on the int8 matmul per batch; the
 #: model quantizes 151 Linears (the text tower's 72 and its projection too)
@@ -479,6 +500,15 @@ def traced(fn):
     return out, names
 
 
+def _offset_copy(x: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose base is ``nbytes`` past a 16-byte
+    boundary."""
+    skip = nbytes // x.element_size()
+    store = torch.empty(x.numel() + skip, dtype=x.dtype, device=x.device)
+    store[skip:] = x.flatten()
+    return store[skip:].view(x.shape)
+
+
 def ln_case(rows: int, f: int, dtype: torch.dtype, seed: int,
             offset: bool = False) -> dict:
     """Row 1 against its plain version. ``ln.forward_body`` names the body
@@ -490,10 +520,7 @@ def ln_case(rows: int, f: int, dtype: torch.dtype, seed: int,
     w = torch.randn(f, generator=g, device="cuda").to(dtype)
     b = torch.randn(f, generator=g, device="cuda").to(dtype)
     if offset:
-        skip = 4 // x.element_size()
-        store = torch.empty(x.numel() + skip, dtype=dtype, device="cuda")
-        store[skip:] = x.flatten()
-        x = store[skip:].view(rows, f)
+        x = _offset_copy(x, 4)
     body = ln.forward_body(x, w, b)
     (y, mu, rstd), names = traced(lambda: ln.layer_norm_fwd(x, w, b, 1e-6))
     for kind, kernel in ln.FORWARD_KERNELS.items():
@@ -710,14 +737,31 @@ def masked_flash_bwd_case(qshape: tuple[int, int, int, int], sk: int,
             "bound_ms": bound, "bound_by": by}
 
 
-def ln_bwd_case(rows: int, f: int, dtype: torch.dtype, seed: int) -> dict:
+def ln_bwd_case(rows: int, f: int, dtype: torch.dtype, seed: int,
+                offset: bool = False) -> dict:
+    """Row 2 against its plain version. ``ln.backward_body`` names the body
+    the C entry picks by shape (the register body, one warp a row, or the
+    CTA body); a trace of the call must show that body's kernel and not the
+    other's, and a second call must give dscale and dbias bit for bit (no
+    atomics, a fixed order of sums). ``offset``: x 4 bytes past a 16-byte
+    boundary."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = (torch.randn(rows, f, generator=g, device="cuda") * 2 + 0.5).to(dtype)
     w = torch.randn(f, generator=g, device="cuda").to(dtype)
     dy = torch.randn(rows, f, generator=g, device="cuda").to(dtype)
+    if offset:
+        x = _offset_copy(x, 4)
     _, mu, rstd = ln.layer_norm_plain(x, w, w, 1e-6)
-    got = ln.layer_norm_bwd(x, w, mu, rstd, dy)
-    torch.cuda.synchronize()
+    body = ln.backward_body(x, w, dy)
+    got, names = traced(lambda: ln.layer_norm_bwd(x, w, mu, rstd, dy))
+    for kind, kernel in ln.BACKWARD_KERNELS.items():
+        check(any(kernel + "<" in n or kernel + "I" in n for n in names)
+              == (kind == body),
+              f"layer_norm_bwd ({rows}, {f}) {dtype}: backward_body says "
+              f"{body}, the trace shows {names}")
+    again = ln.layer_norm_bwd(x, w, mu, rstd, dy)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"layer_norm_bwd ({rows}, {f}) {dtype}: two calls differ")
     want = ln.layer_norm_bwd_plain(x, w, mu, rstd, dy)
     errs = [compare(a, b) for a, b in zip(got, want)]
     check(all(within(dtype, *e, relative=True) for e in errs),
@@ -728,7 +772,8 @@ def ln_bwd_case(rows: int, f: int, dtype: torch.dtype, seed: int) -> dict:
     bound, by = bound_ms(nbytes, 10.0 * rows * f, dtype)
     xl, wl, bl = (t.detach().clone().requires_grad_() for t in (x, w, w))
     yl = F.layer_norm(xl, (f,), wl, bl, 1e-6)
-    return {"shape": f"({rows}, {f})", "dtype": str(dtype)[6:],
+    return {"shape": f"({rows}, {f})" + (" x at +4 B" if offset else ""),
+            "dtype": str(dtype)[6:], "body": body,
             "max_abs_err": max(e[0] for e in errs),
             "cosine": min(e[1] for e in errs),
             "ms": device_ms(lambda: ln.layer_norm_bwd(x, w, mu, rstd, dy)),
@@ -1389,7 +1434,9 @@ def tensor_core_phase(card: str) -> None:
     ones, and every one of the int8-QK forward's and backward's mma bodies
     both s8 (the scores) and bf16 (P.V, dp, the gradients) mma.sync ones;
     prints each kernel's counts, registers and local memory (spills) a
-    thread, and fails if a kernel is missing or lacks one."""
+    thread, and fails if a kernel is missing or lacks one; and every
+    instantiation of the LayerNorm backward's register body must use no
+    local memory (the forward's is printed)."""
     tool = pathlib.Path(_build.nvcc()).parent / "cuobjdump"
     lib = str(_build.library_path())
     sass = subprocess.run([str(tool), "-sass", lib], capture_output=True,
@@ -1421,6 +1468,17 @@ def tensor_core_phase(card: str) -> None:
             for m, o in ops.items():
                 check(len(o) > 0, f"{fn}: no {m} instruction in its SASS")
         check(found > 0, f"no kernel named *{key}* in {lib}")
+    for key, gated in REGISTER_BODY_KERNELS.items():
+        found = sorted((fn, r) for fn, r in resources.items() if key in fn)
+        check(bool(found), f"no kernel named *{key}* in {lib}")
+        for fn, (regs, local) in found:
+            args = re.search(r"I(13__nv_bfloat16|f)Li(\d+)E", fn)
+            name = (f"{key}<{'bf16' if args.group(1) != 'f' else 'f32'}, "
+                    f"{args.group(2)} vectors a lane>" if args else fn)
+            print(f"res-usage: {name}: {regs} registers, {local} bytes of "
+                  f"local memory a thread | {card}", flush=True)
+            check(not gated or local == "0",
+                  f"{fn}: {local} bytes of local memory a thread (spills)")
 
 
 def odd_tensor_core_cases(add) -> None:
@@ -1484,7 +1542,8 @@ def odd_tensor_core_cases(add) -> None:
 
 def kernel_phase(card: str) -> dict[str, dict]:
     """Runs every case; returns the first case of each kernel (bf16, at the
-    shape of its main path)."""
+    shape of its main path), and of each LayerNorm body as
+    ``"<kernel>:<body>"``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -1505,7 +1564,6 @@ def kernel_phase(card: str) -> dict[str, dict]:
               f"| {card}", flush=True)
 
     for dtype in (torch.bfloat16, torch.float32):
-        # the served shapes (batch 32), the train step's (batch 128), odd ones
         # the served shapes (batch 32), the train step's (batch 128), the
         # widths of SigLIP-L and So400m, on the register body; odd ones,
         # rows wider than it takes and x off a 16-byte boundary on the CTA
@@ -1531,9 +1589,18 @@ def kernel_phase(card: str) -> dict[str, dict]:
                 ((2, 257, 2, 256), 257, False)]):
             add("flash_attention",
                 flash_case(qshape, sk, causal, dtype, 10 + i))
-        # the train step's shapes (batch 128) and odd ones, backward
+        # the train step's shapes (batch 128: image and text rows), the
+        # widths of SigLIP-L and So400m, on the register body; odd ones,
+        # rows wider than it takes and x off a 16-byte boundary on the CTA
+        # body; backward
         add("layer_norm_bwd", ln_bwd_case(32768, 768, dtype, 3))
+        add("layer_norm_bwd", ln_bwd_case(8192, 768, dtype, 11))
+        add("layer_norm_bwd", ln_bwd_case(8192, 1024, dtype, 12))
+        add("layer_norm_bwd", ln_bwd_case(8192, 1152, dtype, 13))
         add("layer_norm_bwd", ln_bwd_case(7, 80, dtype, 4))
+        add("layer_norm_bwd", ln_bwd_case(1, 64, dtype, 14))
+        add("layer_norm_bwd", ln_bwd_case(3, 5000, dtype, 15))
+        add("layer_norm_bwd", ln_bwd_case(300, 768, dtype, 16, offset=True))
         for i, (qshape, sk, causal) in enumerate([
                 ((128, 256, 12, 64), 256, False),  # image self-attention
                 ((128, 1, 12, 64), 256, False),    # MAP probe
@@ -1665,6 +1732,8 @@ def kernel_phase(card: str) -> dict[str, dict]:
     first = {}
     for name, c in cases:  # the first case of each kernel: bf16, main shape
         first.setdefault(name, c)
+        if "body" in c:  # and of each body of the LayerNorm kernels
+            first.setdefault(f"{name}:{c['body']}", c)
     return first
 
 
@@ -1806,8 +1875,15 @@ def encode_all(model: SigLIP, batch: torch.Tensor, plain: bool = False
 
 
 @contextlib.contextmanager
-def plain_versions():
-    """The model's kernel calls answered by the kernels' plain versions."""
+def plain_versions(keep_flash: bool = False):
+    """The model's kernel calls answered by the kernels' plain versions.
+
+    ``keep_flash``: the softmax flash Function (unmasked and masked) stays
+    too, with the plain forward and backward inside, as the int8, sigmoid
+    and bias Functions always do; its backward then takes delta =
+    rowsum(do * o) from the stored o, rounded to the model's dtype, as the
+    kernels and JAX's ``_flash_bwd`` do. Without it, autograd
+    differentiates the plain forward, whose o is never rounded."""
     def plain_ln(x, w, b, eps=1e-6):
         return ln.layer_norm_plain(x, w, b, eps)[0]
 
@@ -1819,31 +1895,38 @@ def plain_versions():
         return fa.flash_attention_plain(q, k, v, is_causal=is_causal,
                                         mask=mask)[0]
 
+    def plain_flash_fwd(q, k, v, is_causal, mask=None):
+        return fa.flash_attention_plain(q, k, v, is_causal=is_causal,
+                                        mask=mask)
+
     def plain_fp8(a_q, b_q, scale, bias=None, *, backward=False):
         return fp8.fp8_gemm_plain(a_q, b_q, scale, bias)
 
+    flash = ([(fa, "_fwd", plain_flash_fwd),
+              (fa, "flash_attention_bwd", fa.flash_attention_bwd_plain)]
+             if keep_flash else
+             [(attention_mod, "flash_attention", plain_flash),
+              (attention_mod, "flash_attention_masked", plain_masked)])
     # the int8, fp8, sigmoid and bias Functions stay (their backwards are
     # the functions under test); inside them the plain versions answer
-    with mock.patch.object(norm_mod, "layer_norm", plain_ln), \
-            mock.patch.object(attention_mod, "flash_attention", plain_flash), \
-            mock.patch.object(attention_mod, "flash_attention_masked",
-                              plain_masked), \
-            mock.patch.object(fa8, "flash_attention_int8_fwd",
-                              fa8.flash_attention_int8_plain), \
-            mock.patch.object(fa8, "flash_attention_int8_bwd",
-                              fa8.flash_attention_int8_bwd_plain), \
-            mock.patch.object(mm, "int8_matmul", mm.int8_matmul_plain), \
-            mock.patch.object(fp8, "fp8_gemm", plain_fp8), \
-            mock.patch.object(fa, "sigmoid_attention_fwd",
-                              fa.sigmoid_attention_plain), \
-            mock.patch.object(fa, "sigmoid_attention_bwd",
-                              fa.sigmoid_attention_bwd_plain), \
-            mock.patch.object(fa, "flash_attention_bias_fwd",
-                              fa.flash_attention_bias_plain), \
-            mock.patch.object(fa, "flash_attention_bias_bwd",
-                              fa.flash_attention_bias_bwd_plain), \
-            mock.patch.object(fa, "flash_attention_dbias",
-                              fa.flash_attention_dbias_plain):
+    with contextlib.ExitStack() as stack:
+        for module, name, plain in flash + [
+                (norm_mod, "layer_norm", plain_ln),
+                (fa8, "flash_attention_int8_fwd",
+                 fa8.flash_attention_int8_plain),
+                (fa8, "flash_attention_int8_bwd",
+                 fa8.flash_attention_int8_bwd_plain),
+                (mm, "int8_matmul", mm.int8_matmul_plain),
+                (fp8, "fp8_gemm", plain_fp8),
+                (fa, "sigmoid_attention_fwd", fa.sigmoid_attention_plain),
+                (fa, "sigmoid_attention_bwd", fa.sigmoid_attention_bwd_plain),
+                (fa, "flash_attention_bias_fwd",
+                 fa.flash_attention_bias_plain),
+                (fa, "flash_attention_bias_bwd",
+                 fa.flash_attention_bias_bwd_plain),
+                (fa, "flash_attention_dbias",
+                 fa.flash_attention_dbias_plain)]:
+            stack.enter_context(mock.patch.object(module, name, plain))
         yield
 
 
@@ -1938,7 +2021,8 @@ def quantization_tape(tape: list, replay: bool, module, name: str):
 
 
 def grads_phase(model: SigLIP, images, text, want: dict[str, int],
-                label: str, card: str, held: tuple | None = None) -> None:
+                label: str, card: str, held: tuple | None = None,
+                zero_k_bias: bool = True) -> None:
     """One f32 step's gradients through the kernels (whose launches must
     be ``want``) against the same step with the plain versions swapped in:
     every parameter within 1e-3 of its largest gradient.
@@ -1954,7 +2038,12 @@ def grads_phase(model: SigLIP, images, text, want: dict[str, int],
 
     The model's buffers (the fp8 amax histories, which every forward rolls)
     start both steps from the same values, and must end them within
-    ``FP8_HIST_RTOL`` of each other."""
+    ``FP8_HIST_RTOL`` of each other.
+
+    A bf16 model also runs the per-gradient gate of :func:`norm_gate`
+    against a third step in f32; ``zero_k_bias``: the k-projection biases'
+    gradients are zero in exact arithmetic (softmax attention) and are left
+    out of it."""
     tape: list = []
     start = {n: b.clone() for n, b in model.named_buffers()}
     zero_counts()
@@ -2026,6 +2115,80 @@ def grads_phase(model: SigLIP, images, text, want: dict[str, int],
                             f"any gradient but the k biases "
                             f"{low_cos[0]:.6f} ({low_cos[1]})" if bf16
                             else "") + f" | {card}", flush=True)
+    if bf16:
+        # the plain bf16 step again, the flash Functions kept (the kernels'
+        # delta), then the f32 step
+        for n, b in model.named_buffers():
+            b.copy_(start[n])
+        model.zero_grad(set_to_none=True)
+        with plain_versions(keep_flash=True), (
+                quantization_tape(tape, True, *held) if held
+                else contextlib.nullcontext()):
+            contrastive_loss_fn(model, images, text, kind="siglip").backward()
+        plain = {n: p.grad for n, p in params.items()}
+        exact = f32_reference_grads(model, images, text, start, tape, held)
+        check(read_counts() == counts,
+              f"{label}: a plain-version step launched a kernel")
+        norm_gate(got, plain, exact, label, card,
+                  skip="attn.k.bias" if zero_k_bias else None)
+
+
+def _f32_batch(images):
+    """The batch's floating tensors in f32 (a NaFlex batch is a tuple:
+    patches, spatial shapes, mask)."""
+    if isinstance(images, (tuple, list)):
+        return type(images)(_f32_batch(t) for t in images)
+    return images.float() if images.is_floating_point() else images
+
+
+def f32_reference_grads(model: SigLIP, images, text, start: dict,
+                        tape: list, held: tuple | None
+                        ) -> dict[str, torch.Tensor]:
+    """One step's gradients of an f32 copy of ``model`` (its bf16 values
+    widened exactly, its buffers as ``start``) on the f32 batch, through the
+    plain versions; ``held``: the quantizations in ``tape`` replayed."""
+    ref = copy.deepcopy(model).float()
+    for n, b in ref.named_buffers():
+        b.copy_(start[n])
+    ref.zero_grad(set_to_none=True)
+    with plain_versions(), (quantization_tape(tape, True, *held)
+                            if held else contextlib.nullcontext()):
+        contrastive_loss_fn(ref, _f32_batch(images), text,
+                            kind="siglip").backward()
+    return {n: p.grad for n, p in ref.named_parameters()}
+
+
+def norm_gate(kernel: dict[str, torch.Tensor], plain: dict[str, torch.Tensor],
+              exact: dict[str, torch.Tensor], label: str, card: str,
+              skip: str | None) -> None:
+    """Each gradient through the kernels within ``BF16_GRAD_NORM_R`` times
+    the plain bf16 step's distance from the f32 step, plus
+    ``BF16_GRAD_NORM_EPS`` of the f32 gradient's norm (2-norms over the
+    parameter). Left out: names ending in ``skip``, and one-element
+    parameters (logit_scale, logit_bias), whose "norm" is a single draw of
+    the rounding noise, so that the ratio of two draws has no bound. Prints
+    the largest share of its bound any gradient uses."""
+    worst, left_out = (0.0, ""), []
+    for name, t in exact.items():
+        if (skip and name.endswith(skip)) or t.numel() == 1:
+            left_out.append(name)
+            continue
+        t = t.double()
+        e_kernel = (kernel[name].double() - t).norm().item()
+        e_plain = (plain[name].double() - t).norm().item()
+        bound = BF16_GRAD_NORM_R * e_plain + BF16_GRAD_NORM_EPS * t.norm(
+            ).item()
+        check(e_kernel <= bound,
+              f"{label} gradient of {name}: ||kernel - f32|| {e_kernel:.3e} "
+              f"over {BF16_GRAD_NORM_R} ||plain - f32|| {e_plain:.3e} + "
+              f"{BF16_GRAD_NORM_EPS} ||f32|| (bound {bound:.3e})")
+        worst = max(worst, (e_kernel / bound if bound else 0.0, name))
+    print(f"{label}, per-gradient gate against the f32 plain-version step: "
+          f"{len(exact) - len(left_out)} gradients within "
+          f"{BF16_GRAD_NORM_R} ||plain - f32|| + {BF16_GRAD_NORM_EPS} "
+          f"||f32||, largest share of the bound {worst[0]:.3f} "
+          f"({worst[1]}); left to the floor: {len(left_out)} (k biases "
+          f"under softmax, one-element parameters) | {card}", flush=True)
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -2098,16 +2261,20 @@ def sigmoid_grads_phase(card: str, dtype: torch.dtype = torch.float32
     one step's gradients through the kernels against the plain versions."""
     model = _train_model(dtype, attn_impl="sigmoid")
     images, text = _batch(model.config, 8, dtype, 1)
+    # sigmoid attention is not shift-invariant: the k biases get a gradient
     grads_phase(model, images, text, step_counts(sigmoid=True),
-                f"sigmoid: {_dtype_name(dtype)} batch 8", card)
+                f"sigmoid: {_dtype_name(dtype)} batch 8", card,
+                zero_k_bias=False)
 
 
 def train_phase(card: str, precision: str | None = None,
-                attn_impl: str | None = None) -> dict[str, int]:
+                attn_impl: str | None = None
+                ) -> tuple[dict[str, int], dict[str, int]]:
     """(b) bf16, batch 128: the train step's speed and launch counts, under
     the precision policy ``precision`` (phases 8(b), 9(b)), with every
     attention on ``attn_impl`` (10(b)), or as built (5(b)). Returns the
-    launches over the timed steps. The new paths (fp8_hybrid, sigmoid) also
+    launches over the timed steps, and the LayerNorm backward's launches by
+    body in a traced step. The new paths (fp8_hybrid, sigmoid) also
     run one step under the sync debug mode: it must not wait on the host."""
     model = _train_model(torch.bfloat16, attn_impl)
     label = f"{precision or attn_impl}: train" if precision or attn_impl \
@@ -2159,8 +2326,7 @@ def train_phase(card: str, precision: str | None = None,
               f"{syncs[:3]}")
         print(f"{label}: one step under torch.cuda.set_sync_debug_mode"
               f"('warn'): 0 host syncs | {card}", flush=True)
-    step_readout(model, optimizer, step, images, text, card)
-    return counts
+    return counts, step_readout(model, optimizer, step, images, text, card)
 
 
 def host_syncs(fn) -> list[str]:
@@ -2179,35 +2345,58 @@ def host_syncs(fn) -> list[str]:
             if "called a synchronizing" in str(w.message)]
 
 
-def profile_readout(fn, what: str, card: str) -> None:
+def profile_readout(fn, what: str, card: str) -> list[tuple]:
     """Device-busy share of one profiled call of ``fn`` (``what`` names it)
-    and its top kernels."""
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    and its top kernels; returns the profile's ``(device us, launches,
+    kernel name)`` rows, largest first (the call is run again, up to three
+    times, while a trace comes back with no device rows)."""
+    for _ in range(3):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = sorted(((e.self_device_time_total, e.count, e.key)
-                   for e in _device_rows(prof)), reverse=True)
-    total = sum(r[0] for r in rows)
-    if not total:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = sorted(((e.self_device_time_total, e.count, e.key)
+                       for e in _device_rows(prof)), reverse=True)
+        total = sum(r[0] for r in rows)
+        if total:
+            break
+    else:
         print(f"profile: the trace of {what} recorded no device time",
               flush=True)
-        return
+        return rows
     print(f"profile: {what}, {total / 1e3:.3f} ms of kernel time in "
           f"{wall * 1e3:.3f} ms wall (device busy {total / 1e3 / (wall * 1e3):.1%}"
           f", traced) | {card}", flush=True)
     for us, count, key in rows[:12]:
         print(f"profile:   {us / 1e3:8.3f} ms {100 * us / total:5.1f}% "
               f"x{count:<4d} {key[:90]}", flush=True)
+    return rows
 
 
-def step_readout(model, optimizer, step, images, text, card: str) -> None:
-    """Device-busy share of one profiled train step and its top kernels."""
-    profile_readout(lambda: step(model, optimizer, images, text),
-                    "one train step", card)
+def step_readout(model, optimizer, step, images, text, card: str
+                 ) -> dict[str, int]:
+    """Device-busy share of one profiled train step and its top kernels.
+    Every LayerNorm backward of the step (``LN_PER_STEP``, each tower's
+    rows at width 768) must run the register body, none the CTA body;
+    returns each body's launches and prints their device time."""
+    rows = profile_readout(lambda: step(model, optimizer, images, text),
+                           "one train step", card)
+    bodies, ms = {}, 0.0
+    for kind, kernel in ln.BACKWARD_KERNELS.items():
+        hits = [(us, n) for us, n, key in rows
+                if kernel + "<" in key or kernel + "I" in key]
+        bodies[kind] = sum(n for _, n in hits)
+        ms += sum(us for us, _ in hits) / 1e3
+    check(bodies == {"register": LN_PER_STEP, "cta": 0},
+          f"the traced step's LayerNorm backward launches by body: {bodies}, "
+          f"want all {LN_PER_STEP} on the register body")
+    print(f"profile: the step's {LN_PER_STEP} LayerNorm backwards, all on "
+          f"the register body: {ms:.3f} ms of kernel time | {card}",
+          flush=True)
+    return bodies
 
 
 def zero_counts() -> None:
@@ -2589,7 +2778,7 @@ def main() -> int:
         done("serve")
         train_grads_phase(card)
         train_grads_phase(card, torch.bfloat16)
-        train_phase(card)
+        _, ln_bwd_traced = train_phase(card)
         train_counts = cli_train_phase(card)
         done("train")
         naflex_grads_phase(card)
@@ -2611,7 +2800,7 @@ def main() -> int:
         done("fp8_hybrid")
         sigmoid_grads_phase(card)
         sigmoid_grads_phase(card, torch.bfloat16)
-        sigmoid_counts = train_phase(card, attn_impl="sigmoid")
+        sigmoid_counts, _ = train_phase(card, attn_impl="sigmoid")
         done("sigmoid")
         bias_grads_phase(card)
         bias_counts = bias_train_phase(card)
@@ -2704,6 +2893,15 @@ def main() -> int:
                  "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                  "library_ms": c["library_ms"], "shape": c["shape"],
                  "dtype": c["dtype"]}
+        if kernel == "layer_norm_bwd":
+            # both bodies: the kernel each launches, its launches in a
+            # traced step of the train path, its first phase-3 case
+            entry["bodies"] = {kind: {
+                "kernel": name, "traced_step_launches": ln_bwd_traced[kind],
+                **{k: timed[f"{kernel}:{kind}"][k] for k in (
+                    "shape", "dtype", "max_abs_err", "ms", "call_ms",
+                    "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+                for kind, name in ln.BACKWARD_KERNELS.items()}
         record.append(entry)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": record}), flush=True)

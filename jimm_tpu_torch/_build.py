@@ -39,7 +39,11 @@ _L = ctypes.c_longlong
 #: c_void_p, or ctypes would pass it as a 32-bit int and cut it
 _SIGNATURES = {
     "jimm_layer_norm_fwd": [_P] * 6 + [_L, _I, ctypes.c_float, _I, _P],
-    "jimm_layer_norm_bwd": [_P] * 8 + [_L, _I, _I, _I, _P],
+    # x, scale, mean, rstd, dy, dx, partial rows, dscale, dbias, rows, F,
+    # CTAs, dtype, stream
+    "jimm_layer_norm_bwd": [_P] * 9 + [_L, _I, _I, _I, _P],
+    # x, scale, dy, rows, F, dtype, out: the CTAs (partial rows) to give it
+    "jimm_layer_norm_bwd_grid": [_P] * 3 + [_L, _I, _I, _P],
     # ..., scale, causal, mask (null for none), mask batch stride, dtype,
     # stream
     "jimm_flash_attention_fwd": ([_P] * 5 + [_I] * 5 + [_L] * 9

@@ -28,62 +28,16 @@
 //   elements, so every load and store is coalesced.
 // ops/layer_norm.py::forward_body mirrors the choice.
 
-#include <cstdint>
-#include <map>
-#include <mutex>
-#include <utility>
-
-#include "common.cuh"
+#include "layer_norm.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;            // the register body's rows a CTA
-constexpr int kRegisterMaxF = 2048;  // the register body's widest row
+using jimm::Vec;
+using jimm::warp_sum;
 
-// 16 bytes of T as f32 and back: 4 f32 or 8 bf16
-template <typename T>
-struct Vec;
-template <>
-struct Vec<float> {
-  static constexpr int kN = 4;
-  static __device__ __forceinline__ void unpack(const uint4& r, float* v) {
-    v[0] = __uint_as_float(r.x);
-    v[1] = __uint_as_float(r.y);
-    v[2] = __uint_as_float(r.z);
-    v[3] = __uint_as_float(r.w);
-  }
-  static __device__ __forceinline__ uint4 pack(const float* v) {
-    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
-                      __float_as_uint(v[2]), __float_as_uint(v[3]));
-  }
-};
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  static __device__ __forceinline__ void unpack(const uint4& r, float* v) {
-    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      v[2 * i] = __uint_as_float(w[i] << 16);
-      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-  static __device__ __forceinline__ uint4 pack(const float* v) {
-    uint32_t w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-      w[i] = *reinterpret_cast<const uint32_t*>(&h);
-    }
-    return make_uint4(w[0], w[1], w[2], w[3]);
-  }
-};
+using jimm::kRegisterMaxF;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+constexpr int kWarps = 4;  // the register body's rows a CTA
 
 // The register body: warp w of CTA c takes rows c * kWarps + w, then every
 // gridDim.x * kWarps rows further; lane l holds vectors l, l + 32, ... of
@@ -221,38 +175,14 @@ cudaError_t launch(const void* x, const void* g, const void* b, void* y,
   return cudaGetLastError();
 }
 
-// CTAs of `kernel` of `threads` threads the current device holds at once
-// (kept per (kernel, device), so the occupancy query runs once)
-template <typename Kernel>
-cudaError_t resident_ctas(Kernel kernel, int threads, int* ctas) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  static std::mutex mutex;
-  static std::map<std::pair<const void*, int>, int> known;
-  const std::lock_guard<std::mutex> lock(mutex);
-  int& n = known[{reinterpret_cast<const void*>(kernel), device}];
-  if (n == 0) {
-    int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        threads, 0);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                   device);
-    if (err != cudaSuccess) return err;
-    n = per_sm * sms > 0 ? per_sm * sms : 1;
-  }
-  *ctas = n;
-  return cudaSuccess;
-}
-
 template <typename T, int kVecs>
 cudaError_t launch_register(const void* x, const void* g, const void* b,
                             void* y, void* mu, void* rstd, long long rows,
                             int f, float eps, cudaStream_t stream) {
   auto kernel = layer_norm_fwd_register_kernel<T, kVecs>;
   int ctas = 0;
-  const cudaError_t err = resident_ctas(kernel, kWarps * 32, &ctas);
+  const cudaError_t err =
+      jimm::resident_ctas(kernel, kWarps * 32, 0, &ctas);
   if (err != cudaSuccess) return err;
   const long long needed = (rows + kWarps - 1) / kWarps;
   kernel<<<static_cast<unsigned>(needed < ctas ? needed : ctas), kWarps * 32,
@@ -278,17 +208,13 @@ cudaError_t register_body(int vecs, const void* x, const void* g,
                                    stream);
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 template <typename T>
 cudaError_t dispatch(const void* x, const void* g, const void* b, void* y,
                      void* mu, void* rstd, long long rows, int f, float eps,
                      cudaStream_t stream) {
   constexpr int kE = Vec<T>::kN;
-  if (f % kE == 0 && f <= kRegisterMaxF && aligned16(x) && aligned16(g) &&
-      aligned16(b) && aligned16(y)) {
+  if (f % kE == 0 && f <= kRegisterMaxF && jimm::aligned16(x) &&
+      jimm::aligned16(g) && jimm::aligned16(b) && jimm::aligned16(y)) {
     const int vecs = (f / kE + 31) / 32;
     return register_body<T, kRegisterMaxF / kE / 32>(
         vecs, x, g, b, y, mu, rstd, rows, f, eps, stream);

@@ -20,7 +20,9 @@ kind, dq and dk/dv), ``int8_fwd`` (row 9), ``int8_bwd`` (row 10, dq and
 dk/dv), ``dbias`` (row 8, with the wrapper's batch ranges), ``fwd`` (row 3);
 at the served int8 shapes of bucket 32 (``MATMUL_SHAPES``, f32 bias, no
 activation) ``mm_qkv``, ``mm_fc1``, ``mm_fc2``, ``mm_head`` (row 11); and
-``ln_train`` (32768 x 768) and ``ln_serve`` (8192 x 768) in bf16 (row 1).
+``ln_train`` (32768 x 768) and ``ln_serve`` (8192 x 768) in bf16 (row 1);
+``ln_bwd_train`` (32768 x 768) and ``ln_bwd_text`` (8192 x 768: the text
+tower's rows) in bf16, ``ln_bwd_train_f32`` (row 2).
 ``--device-time``: time each variant by the device time of its kernels (a
 profiler trace, as ``--kernels``) instead of CUDA events, for calls so
 short that the host sets the pace between events (``mm_head``).
@@ -46,7 +48,14 @@ does):
   (``chip_smoke.py`` phases 5(a), 6(a), 10(a)) through the base and each
   variant, each parameter's cosine against the plain-version step and
   against the base's; prints the ten lowest against the plain versions
-  (the k-projection biases, zero in exact arithmetic, left out).
+  (the k-projection biases, zero in exact arithmetic, left out);
+- ``--grad-errors softmax|naflex|sigmoid`` (repeatable): the same step with
+  the kernels swapped for plain versions in turn (``grad_swaps``), each
+  parameter's distance ``||g - t||`` from the step in f32 through the plain
+  versions, t, read against chip_smoke.py's per-gradient gate
+  (``norm_gate``) with each of the two bf16 plain steps as its reference:
+  the largest share of the bound, the gradients over it, the worst ones
+  and the one-element parameters.
 """
 
 from __future__ import annotations
@@ -59,6 +68,7 @@ import json
 import pathlib
 import subprocess
 import tempfile
+from unittest import mock
 
 import torch
 
@@ -75,6 +85,11 @@ MATMUL_SHAPES = {"mm_qkv": (8192, 768, 768), "mm_fc1": (8192, 768, 3072),
                  "mm_fc2": (8192, 3072, 768), "mm_head": (32, 768, 768)}
 #: row 1's (rows, F): the train step's (batch 128) and a served batch's
 LN_SHAPES = {"ln_train": (32768, 768), "ln_serve": (8192, 768)}
+#: row 2's (rows, F, dtype): the train step's image and text rows (batch
+#: 128)
+LN_BWD_SHAPES = {"ln_bwd_train": (32768, 768, torch.bfloat16),
+                 "ln_bwd_text": (8192, 768, torch.bfloat16),
+                 "ln_bwd_train_f32": (32768, 768, torch.float32)}
 
 
 def variant_libraries(sources: list[pathlib.Path], out_dir: pathlib.Path
@@ -148,6 +163,13 @@ def cases() -> dict:
         x, w, lb = (torch.randn(*shape, generator=g, device="cuda").to(
             torch.bfloat16) for shape in ((rows, f), (f,), (f,)))
         calls[name] = functools.partial(ln.layer_norm_fwd, x, w, lb)
+    for name, (rows, f, dtype) in LN_BWD_SHAPES.items():
+        x, dy = (torch.randn(rows, f, generator=g, device="cuda").to(dtype)
+                 for _ in range(2))
+        w = torch.randn(f, generator=g, device="cuda").to(dtype)
+        _, mu, rstd = ln.layer_norm_plain(x, w, w)
+        calls[name] = functools.partial(ln.layer_norm_bwd, x, w, mu, rstd,
+                                        dy)
     return calls | {
         "bwd": lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
         "mask_bwd": lambda: fa.flash_attention_bwd(q, k, v, mo, mlse, do,
@@ -168,6 +190,8 @@ def cases() -> dict:
 def case_shape(case: str) -> list[int]:
     """The shape a case runs at, for its JSON line."""
     name = case.partition("@")[0]
+    if name in LN_BWD_SHAPES:
+        return list(LN_BWD_SHAPES[name][:2])
     return list(MATMUL_SHAPES.get(name) or LN_SHAPES.get(name) or SHAPE)
 
 
@@ -289,6 +313,110 @@ def grad_cosines(variants, kind: str, card: str) -> None:
                           "card": card}), flush=True)
 
 
+def _bwd_f32_delta(q, k, v, o, lse, do, dlse=None, *, is_causal=False,
+                   mask=None):
+    """Row 7's plain backward with its roundings of p and ds, but delta
+    taken from o recomputed in f32 instead of the stored, rounded o."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    s = torch.einsum("bqnd,bknd->bnqk", qf, kf) * scale
+    if mask is not None:
+        s = s.masked_fill(~mask[:, None, None, :], fa.NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    of = torch.einsum("bnqk,bknd->bqnd", p, vf)
+    delta = (dof * of).sum(-1).transpose(1, 2)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    dv = torch.einsum("bnqk,bqnd->bknd", p.to(q.dtype).float(), dof)
+    dp = torch.einsum("bqnd,bknd->bnqk", dof, vf)
+    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+    dq = torch.einsum("bnqk,bknd->bqnd", ds, kf) * scale
+    dk = torch.einsum("bnqk,bqnd->bknd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _swap(smoke, plain: bool, keep_flash: bool = False, *patches):
+    """A context: the plain versions (or the kernels) with ``patches``
+    ``(module, name, value)`` on top."""
+    @contextlib.contextmanager
+    def run():
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(smoke.plain_versions(keep_flash))
+            for module, name, value in patches:
+                stack.enter_context(mock.patch.object(module, name, value))
+            yield
+    return run
+
+
+def grad_swaps(smoke) -> dict:
+    """The steps ``--grad-errors`` compares, by name."""
+    def ln_plain(x, w, b, eps=1e-6):
+        return ln.layer_norm_plain(x, w, b, eps)[0]
+
+    def ln_f64(x, w, b, eps=1e-6):
+        return ln.layer_norm_plain(x.double(), w.double(), b.double(),
+                                   eps)[0].to(x.dtype)
+
+    norm = smoke.norm_mod
+    return {
+        "kernels": _swap(smoke, False),
+        "plain": _swap(smoke, True),
+        "plain, flash Functions kept": _swap(smoke, True, True),
+        "plain, flash Functions kept, delta from f32 o": _swap(
+            smoke, True, True, (fa, "flash_attention_bwd", _bwd_f32_delta)),
+        "plain but the LayerNorm kernels": _swap(
+            smoke, True, False, (norm, "layer_norm", norm.layer_norm)),
+        "kernels but the LayerNorm plain": _swap(
+            smoke, False, False, (norm, "layer_norm", ln_plain)),
+        "plain, LayerNorm in f64": _swap(
+            smoke, True, False, (norm, "layer_norm", ln_f64)),
+    }
+
+
+def grad_errors(kind: str, card: str) -> None:
+    """Each swap's per-parameter distance from the f32 step, read against
+    chip_smoke.py's per-gradient gate with either plain step as the
+    reference."""
+    import chip_smoke as smoke
+    model = _model(smoke, kind)
+    batch = smoke._naflex_batch if kind == "naflex" else smoke._batch
+    images, text = batch(model.config, 8, torch.bfloat16, 1)
+
+    def grads(ctx):
+        model.zero_grad(set_to_none=True)
+        with ctx():
+            smoke.contrastive_loss_fn(model, images, text,
+                                      kind="siglip").backward()
+        return {n: p.grad.double().clone()
+                for n, p in model.named_parameters()}
+
+    exact = {n: g.double() for n, g in smoke.f32_reference_grads(
+        model, images, text, {}, [], None).items()}
+    norms = {n: g.norm().item() for n, g in exact.items()}
+    err = {label: {n: (g[n] - exact[n]).norm().item() for n in exact}
+           for label, g in ((label, grads(ctx))
+                            for label, ctx in grad_swaps(smoke).items())}
+    gated = [n for n in exact if exact[n].numel() > 1 and not (
+        kind != "sigmoid" and n.endswith("attn.k.bias"))]
+    for ref in ("plain", "plain, flash Functions kept"):
+        for label, e in err.items():
+            share = {n: e[n] / (smoke.BF16_GRAD_NORM_R * err[ref][n]
+                                + smoke.BF16_GRAD_NORM_EPS * norms[n])
+                     for n in gated}
+            worst = sorted(gated, key=share.get, reverse=True)[:5]
+            print(json.dumps({
+                "grad_errors": kind, "reference": ref, "swap": label,
+                "largest_share": share[worst[0]], "over_bound": sum(
+                    v > 1 for v in share.values()),
+                "worst": {n: {"share": share[n], "rel": e[n] / norms[n]}
+                          for n in worst},
+                "one_element": {n: {"rel": e[n] / norms[n],
+                                    "f32": exact[n].item()}
+                                for n in exact if exact[n].numel() == 1},
+                "card": card}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variant", action="append", default=[],
@@ -301,11 +429,17 @@ def main() -> None:
     ap.add_argument("--losses", action="append", default=[])
     ap.add_argument("--grads", action="append", default=[],
                     choices=["softmax", "naflex", "sigmoid"])
+    ap.add_argument("--grad-errors", action="append", default=[],
+                    choices=["softmax", "naflex", "sigmoid"])
     args = ap.parse_args()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     base = _build.load()
+    if args.grad_errors:
+        for kind in args.grad_errors:
+            grad_errors(kind, card)
+        return
     calls = cases()
     for ranges in args.dbias_ranges:
         calls[f"dbias@{ranges}"] = with_ranges(calls["dbias"], ranges)

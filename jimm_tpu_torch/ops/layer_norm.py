@@ -10,9 +10,12 @@ width), or one CTA a row with the row in shared memory (rows wider than
 2048, an F off the 16-byte vector, views off a 16-byte boundary).
 Kernel row 2 replaces ``::_bwd_kernel``; its source is
 ``jimm_tpu_torch/csrc/layer_norm_bwd.cu``: dx from the saved f32 mean and
-rstd, and per-CTA f32 dscale/dbias partial rows that :func:`layer_norm_bwd`
-sums over CTAs (no atomics, so the sums are deterministic). Both are bound
-by bytes on the H100 and read and write each element once.
+rstd, in one of two bodies chosen by the forward's rule
+(:func:`backward_body` names it): one warp a row with x and do in
+registers, or one CTA a row; each writes per-CTA f32 dscale/dbias partial
+rows that a second kernel sums over CTAs in a fixed order (no atomics, so
+the sums are deterministic). Both rows are bound by bytes on the H100 and
+read and write each element once.
 
 :class:`LayerNormFn` is the autograd Function (the counterpart of the JAX
 ``custom_vjp``): its forward runs :func:`layer_norm_fwd`'s kernel or plain
@@ -24,6 +27,8 @@ module-level ``launches`` and ``bwd_launches`` count kernel launches.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -33,17 +38,15 @@ from jimm_tpu_torch import _build
 launches = 0
 bwd_launches = 0
 
-#: backward CTAs per SM: each walks a strided set of rows and writes one
-#: f32 partial row of dscale and of dbias. On the H100 at (32768, 768) bf16,
-#: 8 beat 4 (more rows in flight) and 16 or 32 (larger partial sums)
-_BWD_CTAS_PER_SM = 8
-
-#: the forward's register body takes rows up to this wide
-#: (csrc/layer_norm.cu ``kRegisterMaxF``)
+#: the register bodies, forward and backward, take rows up to this wide
+#: (csrc/layer_norm.cuh ``kRegisterMaxF``)
 _REGISTER_MAX_F = 2048
 #: the two forward bodies' kernel names, by :func:`forward_body`'s answer
 FORWARD_KERNELS = {"register": "layer_norm_fwd_register_kernel",
                    "cta": "layer_norm_fwd_kernel"}
+#: the two backward bodies' kernel names, by :func:`backward_body`'s answer
+BACKWARD_KERNELS = {"register": "layer_norm_bwd_register_kernel",
+                    "cta": "layer_norm_bwd_kernel"}
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -86,6 +89,16 @@ def layer_norm_bwd_plain(x: torch.Tensor, scale: torch.Tensor,
             do.sum(dim=0).to(scale.dtype))
 
 
+def _register_body(x: torch.Tensor, widest: int,
+                   *others: torch.Tensor) -> bool:
+    """Whether x's rows go to a register body (one warp a row, 16-byte
+    vectors): F a multiple of a 16-byte vector's elements (8 bf16, 4 f32),
+    F <= ``widest``, x and ``others`` starting on 16-byte boundaries."""
+    f = x.shape[-1]
+    return (f % (16 // x.element_size()) == 0 and f <= widest
+            and all(t.data_ptr() % 16 == 0 for t in (x, *others)))
+
+
 def forward_body(x: torch.Tensor, scale: torch.Tensor,
                  bias: torch.Tensor) -> str:
     """Which forward kernel the C entry (``jimm_layer_norm_fwd``) launches
@@ -94,11 +107,20 @@ def forward_body(x: torch.Tensor, scale: torch.Tensor,
     (8 bf16, 4 f32), F <= 2048 and x, scale and bias start on 16-byte
     boundaries (y is a fresh allocation, always aligned); else ``"cta"``
     (one CTA a row)."""
-    f = x.shape[-1]
-    per_vector = 16 // x.element_size()
-    aligned = all(t.data_ptr() % 16 == 0 for t in (x, scale, bias))
-    return ("register" if f % per_vector == 0 and f <= _REGISTER_MAX_F
-            and aligned else "cta")
+    return ("register" if _register_body(x, _REGISTER_MAX_F, scale, bias)
+            else "cta")
+
+
+def backward_body(x: torch.Tensor, scale: torch.Tensor,
+                  dy: torch.Tensor) -> str:
+    """Which backward kernel the C entry (``jimm_layer_norm_bwd``) launches
+    for these operands (``dy`` as the kernel reads it, contiguous), by the
+    forward's rule: ``"register"`` (one warp a row, 16-byte vectors) when F
+    is a multiple of a 16-byte vector's elements, F <= 2048 and x, scale and
+    dy start on 16-byte boundaries (dx and the partial rows are fresh
+    allocations, always aligned); else ``"cta"`` (one CTA a row)."""
+    return ("register" if _register_body(x, _REGISTER_MAX_F, scale, dy)
+            else "cta")
 
 
 def _check(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> None:
@@ -155,8 +177,8 @@ def layer_norm_bwd(x: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
                    rstd: torch.Tensor, dy: torch.Tensor
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dx, dscale, dbias)``: the backward kernel on CUDA tensors (then a
-    sum of its per-CTA partials), :func:`layer_norm_bwd_plain` on CPU
-    tensors."""
+    second kernel that sums its per-CTA partial rows in a fixed order),
+    :func:`layer_norm_bwd_plain` on CPU tensors."""
     global bwd_launches
     if x.device.type == "cpu":
         return layer_norm_bwd_plain(x, scale, mean, rstd, dy)
@@ -170,22 +192,29 @@ def layer_norm_bwd(x: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
         raise ValueError("layer_norm backward kernel needs contiguous x, "
                          "scale, mean, rstd")
     rows, f = x.shape
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    ctas = max(1, min(rows, _BWD_CTAS_PER_SM * sms))
+    if scale.dtype != x.dtype or scale.shape != (f,):
+        raise ValueError(f"scale {scale.dtype} {tuple(scale.shape)} does not "
+                         f"match x {x.dtype} (F = {f})")
     dx = torch.empty_like(x)
-    dg_part = torch.empty((ctas, f), dtype=torch.float32, device=x.device)
-    db_part = torch.empty((ctas, f), dtype=torch.float32, device=x.device)
+    dscale, dbias = torch.empty_like(scale), torch.empty_like(scale)
     lib = _build.load()
+    ctas = ctypes.c_int()
     with torch.cuda.device(x.device):
+        # the C side sizes the grid: one partial row of dscale and of dbias
+        # a CTA, which it then sums in a fixed order
+        _build.check(lib.jimm_layer_norm_bwd_grid(
+            x.data_ptr(), scale.data_ptr(), dy.data_ptr(), rows, f, code,
+            ctypes.byref(ctas)), "jimm_layer_norm_bwd_grid")
+        part = torch.empty((2, ctas.value, f), dtype=torch.float32,
+                           device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.jimm_layer_norm_bwd(
             x.data_ptr(), scale.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-            dy.data_ptr(), dx.data_ptr(), dg_part.data_ptr(),
-            db_part.data_ptr(), rows, f, ctas, code, stream)
+            dy.data_ptr(), dx.data_ptr(), part.data_ptr(), dscale.data_ptr(),
+            dbias.data_ptr(), rows, f, ctas.value, code, stream)
     _build.check(rc, "jimm_layer_norm_bwd")
     bwd_launches += 1
-    return (dx, dg_part.sum(dim=0).to(scale.dtype),
-            db_part.sum(dim=0).to(scale.dtype))
+    return dx, dscale, dbias
 
 
 class LayerNormFn(torch.autograd.Function):

@@ -66,8 +66,11 @@ def test_kernel_outputs_carry_their_function():
     assert norm.weight.grad.dtype == norm.weight.dtype
 
 
+# (100, 768), (33, 1024), (33, 1152): preset widths, on the card the
+# register body; (9, 2056) wider than it takes, the CTA body
 @pytest.mark.parametrize("rows,f", [(1, 3), (5, 100), (257, 769), (100, 768),
-                                    (96, 64)])
+                                    (96, 64), (33, 1024), (33, 1152),
+                                    (9, 2056)])
 def test_layer_norm_grads_match_jax(rows, f):
     rng = np.random.default_rng(rows + f)
     x = rng.standard_normal((rows, f), np.float32) * 2 + 0.3

@@ -174,8 +174,12 @@ def test_siglip_forward_on_the_card(card):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,f", [(1, 64), (7, 80), (300, 768),
-                                    (32768, 768), (3, 5000)])
+                                    (32768, 768), (3, 5000), (8192, 768),
+                                    (8192, 1024), (8192, 1152)])
 def test_layer_norm_backward_kernel(card, rows, f, dtype):
+    """Every preset width (768, 1024, 1152), the train step's image and
+    text rows, (1, 64) and (7, 80) on the register body; (3, 5000) on the
+    CTA body."""
     g = torch.Generator(device=card).manual_seed(rows * 3 + f)
     x = (torch.randn(rows, f, generator=g, device=card) * 3 + 0.5).to(dtype)
     w = torch.randn(f, generator=g, device=card).to(dtype)
@@ -191,6 +195,59 @@ def test_layer_norm_backward_kernel(card, rows, f, dtype):
         # dscale/dbias sum over all rows: f32 error grows with the row count
         _close(a / max(1.0, b.float().abs().max().item()),
                b / max(1.0, b.float().abs().max().item()), dtype)
+
+
+def _ln_bwd_inputs(rows: int, f: int, dtype: torch.dtype, card,
+                   x_offset: int = 0):
+    """x (``x_offset`` bytes past a 16-byte boundary), scale, mean, rstd and
+    dy of a LayerNorm backward, from a seeded generator."""
+    g = torch.Generator(device=card).manual_seed(rows + f + x_offset)
+    x = (torch.randn(rows, f, generator=g, device=card) * 3 + 0.5).to(dtype)
+    w = torch.randn(f, generator=g, device=card).to(dtype)
+    dy = torch.randn(rows, f, generator=g, device=card).to(dtype)
+    if x_offset:
+        skip = x_offset // x.element_size()
+        store = torch.empty(x.numel() + skip, dtype=dtype, device=card)
+        store[skip:] = x.flatten()
+        x = store[skip:].view(rows, f)
+    _, mu, rstd = ln.layer_norm_plain(x, w, w, 1e-6)
+    return x, w, mu, rstd, dy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,f,offset", [(300, 768, 0), (300, 1152, 0),
+                                           (3, 5000, 0), (300, 768, 4),
+                                           (5, 2048, 0), (5, 2056, 0)])
+def test_layer_norm_backward_runs_the_body_backward_body_names(card, rows, f,
+                                                               offset, dtype):
+    """The C entry picks the body ``ln.backward_body`` names: a trace shows
+    that body's kernel and not the other's; x 4 bytes off a 16-byte
+    boundary, and rows wider than the register body takes (2048), take the
+    CTA body."""
+    x, w, mu, rstd, dy = _ln_bwd_inputs(rows, f, dtype, card, offset)
+    body = ln.backward_body(x, w, dy)
+    assert body == ("cta" if offset or f > 2048 else "register")
+    names = _launched(lambda: ln.layer_norm_bwd(x, w, mu, rstd, dy))
+    for kind, kernel in ln.BACKWARD_KERNELS.items():
+        assert any(kernel + "<" in n for n in names) == (kind == body), names
+    got = ln.layer_norm_bwd(x, w, mu, rstd, dy)
+    want = ln.layer_norm_bwd_plain(x, w, mu, rstd, dy)
+    for a, b in zip(got, want):
+        scale = max(1.0, b.float().abs().max().item())
+        _close(a / scale, b / scale, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layer_norm_backward_is_the_same_in_every_run(card, dtype):
+    """dscale and dbias are per-CTA partial rows summed in a fixed order,
+    with no atomics: two runs give the same bits, on both bodies (the train
+    shape on the register body, x off 16 bytes on the CTA body)."""
+    for rows, f, offset in ((32768, 768, 0), (8192, 1152, 0),
+                            (300, 768, 4)):
+        x, w, mu, rstd, dy = _ln_bwd_inputs(rows, f, dtype, card, offset)
+        runs = [ln.layer_norm_bwd(x, w, mu, rstd, dy) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 _FLASH_BWD = _FLASH + [((128, 256, 12, 64), 256, False),   # train image

@@ -94,6 +94,53 @@ def test_layer_norm_forward_body(rows, f, dtype, x_off, g_off, want):
                                                   bias)[0])
 
 
+#: (rows, F, dtype, byte offset of x, of scale, of dy, body): the backward's
+#: register body takes what the forward's does, F a multiple of a 16-byte
+#: vector (8 bf16, 4 f32) up to 2048 with x, scale and dy on 16-byte
+#: boundaries; the CTA body the rest
+LN_BWD_BODIES = [
+    (8192, 768, torch.bfloat16, 0, 0, 0, "register"),
+    (5, 1024, torch.bfloat16, 0, 0, 0, "register"),
+    (5, 1152, torch.bfloat16, 0, 0, 0, "register"),
+    (2, 2048, torch.bfloat16, 0, 0, 0, "register"),
+    (1, 64, torch.bfloat16, 0, 0, 0, "register"),
+    (32768, 768, torch.float32, 0, 0, 0, "register"),
+    (5, 1024, torch.float32, 0, 0, 0, "register"),
+    (5, 1152, torch.float32, 0, 0, 0, "register"),
+    (2, 2048, torch.float32, 0, 0, 0, "register"),
+    (7, 80, torch.float32, 0, 0, 0, "register"),
+    (2, 2056, torch.bfloat16, 0, 0, 0, "cta"),
+    (2, 2052, torch.float32, 0, 0, 0, "cta"),
+    (3, 5000, torch.bfloat16, 0, 0, 0, "cta"),
+    (3, 5000, torch.float32, 0, 0, 0, "cta"),
+    (2, 84, torch.bfloat16, 0, 0, 0, "cta"),
+    (2, 84, torch.float32, 0, 0, 0, "register"),
+    (3, 30, torch.float32, 0, 0, 0, "cta"),
+    (4, 768, torch.bfloat16, 4, 0, 0, "cta"),
+    (4, 768, torch.float32, 8, 0, 0, "cta"),
+    (4, 768, torch.bfloat16, 0, 2, 0, "cta"),
+    (4, 768, torch.bfloat16, 0, 0, 6, "cta"),
+    (4, 768, torch.float32, 0, 0, 4, "cta"),
+    (4, 768, torch.bfloat16, 16, 0, 32, "register"),
+]
+
+
+@pytest.mark.parametrize("rows,f,dtype,x_off,g_off,dy_off,want",
+                         LN_BWD_BODIES)
+def test_layer_norm_backward_body(rows, f, dtype, x_off, g_off, dy_off,
+                                  want):
+    x = _offset(torch.randn(rows, f).to(dtype), x_off)
+    scale = _offset(torch.randn(f).to(dtype), g_off)
+    dy = _offset(torch.randn(rows, f).to(dtype), dy_off)
+    assert ln_mod.backward_body(x, scale, dy) == want
+    # on the CPU either way the plain version runs, on the same values
+    _, mu, rstd = ln_mod.layer_norm_plain(x, scale, scale)
+    got = ln_mod.layer_norm_bwd(x, scale, mu, rstd, dy)
+    want_grads = ln_mod.layer_norm_bwd_plain(x.clone(), scale.clone(), mu,
+                                             rstd, dy.clone())
+    assert all(torch.equal(a, b) for a, b in zip(got, want_grads))
+
+
 _ATTN_CASES = [(sq, sk, d, causal)
                for sq, sk in [(1, 5), (5, 5), (1, 257), (257, 257)]
                for d in (32, 64, 80)
