@@ -172,6 +172,30 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                (c) the routing: a 4-D bias, or a bias with a mask, goes to
                the einsum path and moves no kernel counter, and "flash" with
                a key-padding mask and a bias raises JAX's ValueError.
+12. checkpoints -- HF checkpoint IO and the ViT and CLIP models, at full
+               width and depth in bf16: (a) ViT-B/16-224 (1000 classes, the
+               zero-initialised head drawn from the generator), CLIP-B/16
+               and SigLIP-B/16-256, seeded, through ``save_pretrained`` into
+               a temporary directory and ``from_pretrained`` back onto the
+               card: every parameter ``torch.equal``, the same keys, and
+               ``config_from_hf(hf_config())`` the config; SigLIP again in
+               the siglip2 flavor; each file's size and each save's and
+               load's wall time printed; (b) ``serve --ckpt DIR --model vit``
+               and ``--model clip`` (``--dtype bf16 --ln-impl fused``,
+               buckets 1, 8, 32), built by the CLI's own parser and
+               ``build_server``, answer phase 4's traffic: every answer
+               against the plain-version forward (cosine >= 0.999, norms
+               within 1%), and per dispatched batch 12 flash launches and 25
+               (ViT: the blocks' 24 and ln_post) or 26 (CLIP: and ln_pre)
+               LayerNorm launches; (c) CLIP's ``encode_text`` at (32, 77):
+               12 flash launches, every one causal, and 24 LayerNorm,
+               against the plain versions (cosine >= 0.999, norms within
+               1%), then ``CLIP.forward``'s logits (cosine >= 0.999; their
+               row norms are printed: between untrained towers the logits
+               are scaled cosines near 0, which magnify the features'
+               bf16 differences); (d) each served tower's
+               forward per bucket and the kernels of a bucket-32 forward,
+               with images/s.
 
 Phase 3 also holds the int8 kernels (rows 9, 10 and 11) against their plain
 versions: the int8 matmul at the served shapes and odd ones, with bias,
@@ -206,11 +230,13 @@ from __future__ import annotations
 import base64
 import copy
 import contextlib
+import dataclasses
 import io
 import json
 import math
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -244,6 +270,7 @@ from jimm_tpu_torch.train.metrics import mfu, train_step_flops
 from jimm_tpu_torch.train.trainer import (OptimizerConfig, contrastive_loss_fn,
                                           make_contrastive_train_step,
                                           make_optimizer)
+from jimm_tpu_torch.weights.resolve import resolve_checkpoint
 
 #: H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -375,6 +402,19 @@ CLI_STEPS = 5
 NAFLEX_TRAIN_STEPS = 5
 #: phase 11: SigLIP-B/16's vision blocks, one biased attention each
 BIAS_CALLS = 12
+#: phase 12: the full-width checkpoint of each family
+CKPT_PRESETS = {"vit": "vit-base-patch16-224", "clip": "clip-vit-base-patch16",
+                "siglip": "siglip-base-patch16-256"}
+#: per served batch of the CLS towers: 12 blocks' attention (no MAP probe),
+#: and the blocks' ln1 and ln2 plus ln_post (ViT) and ln_pre (CLIP), which
+#: follow ln_impl in a CLS tower
+CKPT_FLASH_PER_BATCH = 12
+CKPT_LN_PER_BATCH = {"vit": 25, "clip": 26}
+#: CLIP-B/16's text tower: 12 causal flash launches and 24 fused LayerNorms
+#: (ln_final stays nn.LayerNorm) per encode_text at (32, 77)
+CLIP_TEXT_SHAPE = (32, 77)
+CLIP_TEXT_FLASH = 12
+CLIP_TEXT_LN = 24
 #: the refusal of "flash" with a key-padding mask and a bias, word for word
 #: as jimm_tpu/ops/attention.py raises it
 FLASH_MASKED_BIAS_ERROR = ("flash_masked does not take a bias; use "
@@ -1779,6 +1819,41 @@ def serve_phase(card: str, dtype: str = "bf16") -> dict:
     print(f"{label}: SigLIP-B/16-256 {dtype} built and warmed "
           f"(buckets {engine.buckets.sizes}, {quantized} Linears quantized) "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    mm_per_batch = INT8_MATMUL_PER_BATCH if int8 else 0
+    traffic = served_traffic(server, model, "encode_image", label, {
+        "flash_attention": FLASH_PER_BATCH, "layer_norm": LN_PER_BATCH,
+        "int8_matmul": mm_per_batch}, cfg.vision.width, card)
+    features, batch = traffic.pop("features"), traffic.pop("batch")
+    if int8:
+        # the unquantized twin: the same seeded weights in f32
+        twin, _ = cli.serving_model(
+            cfg, "f32", "cuda",
+            generator=torch.Generator(device="cuda").manual_seed(0))
+        full = encode_all(twin, batch)
+        del twin
+        full_cos = (features * full).sum(1) / (
+            np.linalg.norm(features, axis=1) * np.linalg.norm(full, axis=1))
+        print(f"{label}: cosine against the unquantized f32 model: min "
+              f"{full_cos.min():.6f}, mean {full_cos.mean():.6f} (the JAX "
+              f"package's floor for int8 serving is 0.999, "
+              f"docs/quantization.md) | {card}", flush=True)
+    forward_readout(model, batch, card, "int8 " if int8 else "")
+    return traffic
+
+
+def served_traffic(server: ServingServer, model, method: str, label: str,
+                   per_batch: dict[str, int], out_dim: int, card: str
+                   ) -> dict:
+    """Phase 4's traffic against a started server (stopped here): 48
+    /v1/embed requests from 16 client threads, then one bulk request of 32,
+    base64 bodies, every kernel counter set to 0 just before and read just
+    after. Fails unless each counter of ``per_batch`` shows that many
+    launches per dispatched batch and no other kernel launched, and every
+    answer, a row of ``out_dim`` values, matches ``model.<method>`` with the
+    plain versions swapped in (cosine, norms). Prints latency, images/s and peak memory; returns the
+    counts (with ``batches``), the features and the input batch."""
+    engine = server.engine
+    size = engine.item_shape[0]
     rng = np.random.default_rng(0)
     images = rng.uniform(-1, 1, (80, size, size, 3)).astype(np.float32)
     # base64 bodies: a JSON list of 196,608 floats per image is parsed in
@@ -1800,77 +1875,65 @@ def serve_phase(card: str, dtype: str = "bf16") -> dict:
         peak = torch.cuda.max_memory_allocated()
     finally:
         server.stop()
-    flash_n, ln_n, mm_n = (counts["flash_attention"], counts["layer_norm"],
-                           counts["int8_matmul"])
     features = np.asarray([out["features"] for _, out in answers]
                           + bulk_out["features"], np.float32)
-    check(features.shape == (80, cfg.vision.width),
-          f"features shape {features.shape}")
+    check(features.shape == (80, out_dim), f"features shape {features.shape}")
     check(bool(np.isfinite(features).all()), "non-finite features")
-    mm_per_batch = INT8_MATMUL_PER_BATCH if int8 else 0
-    check(batches > 0 and flash_n == FLASH_PER_BATCH * batches
-          and ln_n == LN_PER_BATCH * batches
-          and mm_n == mm_per_batch * batches,
+    check(batches > 0 and all(counts[k] == n * batches
+                              for k, n in per_batch.items()),
           f"launch counts over {batches} batches: {counts}")
-    check(sum(n for k, n in counts.items() if k not in (
-        "flash_attention", "layer_norm", "int8_matmul")) == 0,
+    check(sum(n for k, n in counts.items() if k not in per_batch) == 0,
           f"serving launched other kernels: {counts}")
-    print(f"{label}: {batches} batches dispatched; launches flash {flash_n} "
-          f"= {FLASH_PER_BATCH}/batch, layer_norm {ln_n} = "
-          f"{LN_PER_BATCH}/batch, int8_matmul {mm_n} = {mm_per_batch}/batch",
-          flush=True)
+    images_per_s = len(images) / (t_end - t_start)
+    print(f"{label}: {batches} batches dispatched; launches "
+          + ", ".join(f"{k} {counts[k]} = {n}/batch"
+                      for k, n in per_batch.items()), flush=True)
 
     batch = torch.from_numpy(images).to("cuda", next(model.parameters()).dtype)
-    ref = encode_all(model, batch, plain=True)
+    ref = encode_all(model, batch, plain=True, method=method)
     check(read_counts() == counts, "the reference forward launched a kernel")
-    norm, ref_norm = (np.linalg.norm(features, axis=1),
-                      np.linalg.norm(ref, axis=1))
-    cos = (features * ref).sum(1) / (norm * ref_norm)
-    norm_err = np.abs(norm / ref_norm - 1)
-    check(bool((cos >= SERVE_MIN_COS).all()),
-          f"served features vs plain forward: min cosine {cos.min()}")
-    check(bool((norm_err <= SERVE_NORM_RTOL).all()),
-          f"served features vs plain forward: norm off by {norm_err.max()}")
+    cos, norm_err = served_gate(features, ref, f"{label}: served features")
     lat = np.asarray([s for s, _ in answers]) * 1e3
-    n_img = len(images)
     print(f"{label}: 80 answers match the plain-version forward, min cosine "
           f"{cos.min():.6f}, norms within {norm_err.max():.2e}", flush=True)
-    if int8:
-        # the unquantized twin: the same seeded weights in f32
-        twin, _ = cli.serving_model(
-            cfg, "f32", "cuda",
-            generator=torch.Generator(device="cuda").manual_seed(0))
-        full = encode_all(twin, batch)
-        del twin
-        full_cos = (features * full).sum(1) / (
-            norm * np.linalg.norm(full, axis=1))
-        print(f"{label}: cosine against the unquantized f32 model: min "
-              f"{full_cos.min():.6f}, mean {full_cos.mean():.6f} (the JAX "
-              f"package's floor for int8 serving is 0.999, "
-              f"docs/quantization.md) | {card}", flush=True)
     print(f"{label}: /v1/embed single-request latency p50 "
           f"{np.percentile(lat, 50):.2f} ms p99 {np.percentile(lat, 99):.2f}"
           f" ms (48 requests, 16 client threads) | {card}", flush=True)
     print(f"{label}: {48 / (t_bulk - t_start):.1f} images/s over the singles, "
           f"{32 / bulk_s:.1f} images/s for the bulk request of 32, "
-          f"{n_img / (t_end - t_start):.1f} images/s overall | {card}",
-          flush=True)
+          f"{images_per_s:.1f} images/s overall | {card}", flush=True)
     print(f"{label}: torch.cuda.max_memory_allocated {peak} bytes "
           f"({peak / 2**30:.2f} GiB) | {card}", flush=True)
-    forward_readout(model, batch, card, "int8 " if int8 else "")
-    return dict(counts, batches=batches)
+    return dict(counts, batches=batches, images_per_s=images_per_s,
+                features=features, batch=batch)
 
 
-def encode_all(model: SigLIP, batch: torch.Tensor, plain: bool = False
-               ) -> np.ndarray:
-    """``encode_image`` over the batch in buckets of 32, through the kernels
-    or (``plain``) their plain versions, as f32 numpy."""
+def served_gate(got: np.ndarray, ref: np.ndarray, what: str
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """Row by row: cosine >= SERVE_MIN_COS and norms within SERVE_NORM_RTOL
+    (a uniformly scaled answer fails the second); the cosines and the norm
+    errors."""
+    norm, ref_norm = np.linalg.norm(got, axis=1), np.linalg.norm(ref, axis=1)
+    cos = (got * ref).sum(1) / (norm * ref_norm)
+    norm_err = np.abs(norm / ref_norm - 1)
+    check(bool((cos >= SERVE_MIN_COS).all()),
+          f"{what} vs plain forward: min cosine {cos.min()}")
+    check(bool((norm_err <= SERVE_NORM_RTOL).all()),
+          f"{what} vs plain forward: norm off by {norm_err.max()}")
+    return cos, norm_err
+
+
+def encode_all(model, batch: torch.Tensor, plain: bool = False,
+               method: str = "encode_image") -> np.ndarray:
+    """``model.<method>`` (``"forward"``: the model itself) over the batch in
+    buckets of 32, through the kernels or (``plain``) their plain versions,
+    as f32 numpy."""
+    fn = model if method == "forward" else getattr(model, method)
     out = []
     with (plain_versions() if plain else contextlib.nullcontext()), \
             torch.inference_mode():
         for i in range(0, batch.shape[0], 32):
-            out.append(model.encode_image(batch[i:i + 32]).float().cpu()
-                       .numpy())
+            out.append(fn(batch[i:i + 32]).float().cpu().numpy())
     return np.concatenate(out)
 
 
@@ -1930,22 +1993,25 @@ def plain_versions(keep_flash: bool = False):
         yield
 
 
-def forward_readout(model: SigLIP, batch: torch.Tensor, card: str,
-                    label: str = "") -> None:
-    """Device time of one encode_image per bucket (kernels, then plain
-    versions), and where a bucket-32 forward's device time goes."""
+def forward_readout(model, batch: torch.Tensor, card: str,
+                    label: str = "", method: str = "encode_image"
+                    ) -> float | None:
+    """Device time of one ``model.<method>`` per bucket (kernels, then plain
+    versions), and where a bucket-32 forward's device time goes; returns
+    that forward's kernel time in ms (None when the trace recorded none)."""
+    fn = model if method == "forward" else getattr(model, method)
     with torch.inference_mode():
         for size in (1, 8, 32):
             x = batch[:size]
 
             def fwd():
-                return model.encode_image(x)
+                return fn(x)
 
             k_call, k_dev = cuda_ms(fwd, iters=10), device_ms(fwd, iters=10)
             with plain_versions():
                 p_call, p_dev = (cuda_ms(fwd, iters=10),
                                  device_ms(fwd, iters=10))
-            print(f"{label}forward: encode_image bucket {size}: kernels "
+            print(f"{label}forward: {method} bucket {size}: kernels "
                   f"{k_call:.3f}"
                   f" ms per call, {k_dev:.3f} ms device busy (idle "
                   f"{max(0.0, 1 - k_dev / k_call):.0%}); plain versions "
@@ -1953,7 +2019,7 @@ def forward_readout(model: SigLIP, batch: torch.Tensor, card: str,
                   f"| {card}", flush=True)
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            model.encode_image(batch[:32])
+            fn(batch[:32])
             torch.cuda.synchronize()
     rows = sorted(((e.self_device_time_total, e.count, e.key)
                    for e in _device_rows(prof)), reverse=True)
@@ -1961,12 +2027,13 @@ def forward_readout(model: SigLIP, batch: torch.Tensor, card: str,
     if not total:
         print(f"profile: the trace of a {label}bucket-32 forward recorded no "
               f"device time", flush=True)
-        return
+        return None
     print(f"profile: {label}bucket-32 forward, {total / 1e3:.3f} ms of kernel "
           f"time | {card}", flush=True)
     for us, count, key in rows[:10]:
         print(f"profile:   {us / 1e3:8.3f} ms {100 * us / total:5.1f}% "
               f"x{count:<4d} {key[:90]}", flush=True)
+    return total / 1e3
 
 
 # -- phase 5: train ----------------------------------------------------------
@@ -2747,6 +2814,188 @@ def bias_routing_phase(card: str) -> None:
           f"ValueError | {card}", flush=True)
 
 
+# -- phase 12: checkpoints ---------------------------------------------------
+
+def checkpoint_round_trips(card: str, root: pathlib.Path
+                           ) -> dict[str, pathlib.Path]:
+    """12(a): each family's full-width model in bf16, seeded (ViT's head,
+    zero at init, drawn from the generator), through ``save_pretrained``
+    and back through ``from_pretrained`` onto the card: every parameter
+    ``torch.equal``, the same keys, and ``config_from_hf(hf_config())`` the
+    config (CLIP's unset eos_token_id written as 2, which means the same
+    argmax pooling); SigLIP also in the siglip2 flavor. Returns the ViT and
+    CLIP checkpoint directories."""
+    dirs = {}
+    for fam, flavor in (("vit", None), ("clip", None), ("siglip", None),
+                        ("siglip", "siglip2")):
+        cls, name = cli.MODELS[fam], CKPT_PRESETS[fam]
+        cfg = configs.preset(name)
+        g = torch.Generator(device="cuda").manual_seed(12)
+        model = cls(cfg, device="cuda", dtype=torch.bfloat16, generator=g)
+        if fam == "vit":
+            with torch.no_grad():
+                model.classifier.weight.normal_(0.0, 0.02, generator=g)
+        want_cfg = (dataclasses.replace(cfg, text=dataclasses.replace(
+            cfg.text, eos_token_id=2)) if fam == "clip" else cfg)
+        d = root / (flavor or fam)
+        t0 = time.perf_counter()
+        model.save_pretrained(d, **({"flavor": flavor} if flavor else {}))
+        save_s = time.perf_counter() - t0
+        nbytes = (d / "model.safetensors").stat().st_size
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = cls.from_pretrained(d, device="cuda", dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        want = dict(model.named_parameters())
+        got = dict(loaded.named_parameters())
+        check(set(got) == set(want), f"{name}: the loaded keys differ")
+        differ = [k for k, p in want.items() if not torch.equal(got[k], p)]
+        check(not differ, f"{name}: parameters changed in the round trip: "
+                          f"{differ[:5]}")
+        check(all(p.device.type == "cuda" for p in got.values()),
+              f"{name}: from_pretrained did not load onto the card")
+        weights, _ = resolve_checkpoint(d)
+        check(cls.config_from_hf(model.hf_config(), weights) == want_cfg
+              and loaded.config == want_cfg,
+              f"{name}: config_from_hf(hf_config()) != the config")
+        if flavor:
+            check(loaded._hf_source_flavor == flavor,
+                  f"{name}: loaded as {loaded._hf_source_flavor}")
+        print(f"checkpoints: {name}{f' ({flavor} flavor)' if flavor else ''} "
+              f"bf16: model.safetensors {nbytes} bytes "
+              f"({nbytes / 2**20:.1f} MiB), {len(want)} parameters; "
+              f"save_pretrained {save_s:.3f} s, from_pretrained onto the "
+              f"card {load_s:.3f} s; every parameter equal, keys and config "
+              f"equal | {card}", flush=True)
+        del model, loaded, weights
+        if fam in ("vit", "clip"):
+            dirs[fam] = d
+        else:
+            shutil.rmtree(d)
+    return dirs
+
+
+def checkpoint_serve_phase(card: str, fam: str, ckpt: pathlib.Path):
+    """12(b) and (d): ``serve --ckpt CKPT --model FAM --dtype bf16
+    --ln-impl fused`` built by the CLI's own parser and ``build_server``,
+    then phase 4's traffic and gates with this tower's launches per batch;
+    then the forward's time per bucket and the kernels of a bucket-32
+    forward. Returns the counts and the served model."""
+    label = f"{fam} serve"
+    t0 = time.perf_counter()
+    server, model, ready = cli.build_server(cli.build_parser().parse_args([
+        "serve", "--ckpt", str(ckpt), "--model", fam, "--device", "cuda",
+        "--dtype", "bf16", "--ln-impl", "fused", "--buckets", "1,8,32",
+        "--port", "0",
+        "--max-delay-ms", "10", "--queue-size", "256", "--timeout-s",
+        "120"]))
+    check(ready["device"].startswith("cuda") and ready["dtype"] == "bfloat16",
+          f"{label}: ready line {ready}")
+    print(f"{label}: serve --ckpt {ckpt.name} --model {fam} built and warmed "
+          f"in {time.perf_counter() - t0:.1f} s: {json.dumps(ready)}",
+          flush=True)
+    method = cli.SERVED_METHOD[fam]
+    out_dim = (model.config.num_classes if fam == "vit"
+               else model.config.projection_dim)
+    traffic = served_traffic(server, model, method, label, {
+        "flash_attention": CKPT_FLASH_PER_BATCH,
+        "layer_norm": CKPT_LN_PER_BATCH[fam]}, out_dim, card)
+    traffic.pop("features")
+    batch = traffic.pop("batch")
+    ms = forward_readout(model, batch, card, f"{fam} ", method)
+    if ms is not None:
+        print(f"{label}: bucket-32 forward {ms:.3f} ms of kernel time "
+              f"({32e3 / ms:.1f} images/s at that time); served "
+              f"{traffic['images_per_s']:.1f} images/s overall | {card}",
+              flush=True)
+    return traffic, model, batch
+
+
+def clip_text_phase(card: str, model, images: torch.Tensor) -> dict:
+    """12(c): ``encode_text`` of the served CLIP-B/16 at (32, 77), every
+    attention on row 3's causal kind (each flash call's ``is_causal``
+    recorded), against the plain versions (cosine, norms), then
+    ``CLIP.forward``'s logits for 32 images against those texts (cosine)."""
+    cfg = model.config.text
+    rng = np.random.default_rng(12)
+    b, s = CLIP_TEXT_SHAPE[0], cfg.context_length
+    check((b, s) == CLIP_TEXT_SHAPE, f"clip text: context length {s}")
+    text = rng.integers(1, cfg.vocab_size - 1, (b, s))
+    eot = rng.integers(5, s, b)
+    text[np.arange(b), eot] = cfg.vocab_size - 1  # EOT, the largest id
+    text[np.arange(s)[None, :] > eot[:, None]] = 0
+    tokens = torch.from_numpy(text).to("cuda")
+    causal = []
+    real_fwd = fa._fwd
+
+    def spy(q, k, v, is_causal, mask=None):
+        causal.append(bool(is_causal))
+        return real_fwd(q, k, v, is_causal, mask)
+
+    zero_counts()
+    with mock.patch.object(fa, "_fwd", spy), torch.inference_mode():
+        got = model.encode_text(tokens).float().cpu().numpy()
+    counts = read_counts()
+    check(counts["flash_attention"] == CLIP_TEXT_FLASH
+          and causal == [True] * CLIP_TEXT_FLASH
+          and counts["layer_norm"] == CLIP_TEXT_LN
+          and sum(counts.values()) == CLIP_TEXT_FLASH + CLIP_TEXT_LN,
+          f"clip text: launches {counts}, causal flags {causal}")
+    want = encode_all(model, tokens, plain=True, method="encode_text")
+    cos, norm_err = served_gate(got, want, "clip encode_text")
+    print(f"clip text: encode_text {CLIP_TEXT_SHAPE}: {CLIP_TEXT_FLASH} "
+          f"causal flash and {CLIP_TEXT_LN} LayerNorm launches; min cosine "
+          f"{cos.min():.6f}, norms within {norm_err.max():.2e} of the plain "
+          f"versions", flush=True)
+    with torch.inference_mode():
+        logits = model(images[:b], tokens).float().cpu().numpy()
+        with plain_versions():
+            ref = model(images[:b], tokens).float().cpu().numpy()
+        scale = model.logit_scale.exp().item()
+    # the logits get the cosine gate only: a logit is exp(logit_scale) times
+    # the cosine of an image and a text embedding, and between untrained
+    # towers those cosines are near 0, so a row's norm moves by the
+    # features' bf16 differences (gated above, with their norms) over |cos|
+    norm, ref_norm = (np.linalg.norm(logits, axis=1),
+                      np.linalg.norm(ref, axis=1))
+    cos = (logits * ref).sum(1) / (norm * ref_norm)
+    check(bool((cos >= SERVE_MIN_COS).all()),
+          f"clip logits vs plain forward: min cosine {cos.min()}")
+    print(f"clip text: CLIP.forward logits ({b} images x {b} texts) min "
+          f"cosine {cos.min():.6f} against the plain versions; readings: "
+          f"row norms within {np.abs(norm / ref_norm - 1).max():.2e}, max "
+          f"abs error {np.abs(logits - ref).max():.3e} = "
+          f"{np.abs(logits - ref).max() / scale:.2e} of exp(logit_scale) "
+          f"{scale:.3f}, mean |cosine| between the towers "
+          f"{np.abs(ref).mean() / scale:.3f}", flush=True)
+    with torch.inference_mode():
+        def fwd():
+            return model.encode_text(tokens)
+
+        k_dev = device_ms(fwd, iters=10)
+        with plain_versions():
+            p_dev = device_ms(fwd, iters=10)
+    print(f"clip text: encode_text {CLIP_TEXT_SHAPE} {k_dev:.3f} ms of kernel "
+          f"time, plain versions {p_dev:.3f} ms | {card}", flush=True)
+    return dict(counts, batches=0)
+
+
+def checkpoint_phase(card: str) -> dict[str, dict]:
+    """Phase 12: the round trips, the ViT and CLIP servers from their
+    checkpoints, CLIP's text tower; the counts of each path."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpts = checkpoint_round_trips(card, pathlib.Path(tmp))
+        vit_counts, model, _ = checkpoint_serve_phase(card, "vit",
+                                                      ckpts["vit"])
+        del model
+        clip_counts, model, batch = checkpoint_serve_phase(card, "clip",
+                                                           ckpts["clip"])
+    text_counts = clip_text_phase(card, model, batch)
+    return {"vit_serve": vit_counts, "clip_serve": clip_counts,
+            "clip_text": text_counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2806,6 +3055,8 @@ def main() -> int:
         bias_counts = bias_train_phase(card)
         bias_routing_phase(card)
         done("bias")
+        ckpt_counts = checkpoint_phase(card)
+        done("checkpoints")
         check(all(math.isfinite(timed[k]["ms"]) for k in timed), "bad timing")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
@@ -2821,7 +3072,8 @@ def main() -> int:
     paths = {"serve": serve_counts, "train": train_counts,
              "naflex": naflex_counts, "int8_serve": int8_serve_counts,
              "int8_qk": int8_qk_counts, "fp8_hybrid": fp8_counts,
-             "sigmoid": sigmoid_counts, "bias": bias_counts}
+             "sigmoid": sigmoid_counts, "bias": bias_counts,
+             **ckpt_counts}
     steps = {"train": CLI_STEPS, "naflex": CLI_STEPS, "int8_qk": CLI_STEPS,
              "fp8_hybrid": CLI_STEPS, "sigmoid": TRAIN_STEPS}
     main_path = {"flash_attention_masked": "naflex",

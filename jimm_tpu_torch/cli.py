@@ -1,11 +1,13 @@
 """Command line: ``python -m jimm_tpu_torch serve|train``.
 
-``serve`` builds a SigLIP model from a preset (randomly initialised from a
-seeded generator; checkpoint loading comes with HF IO, ROADMAP.md), puts its
-``encode_image`` behind the micro-batching engine and the HTTP front end,
-warms every bucket, and prints one JSON ready line with
-``"status": "serving"``. ``--dtype int8`` builds the model in f32 and swaps
-every eligible Linear for a W8A8 ``QuantLinear`` before any forward
+``serve`` loads a local HF checkpoint (``--ckpt DIR --model
+vit|clip|siglip``) or builds a preset of any family (randomly initialised
+from a seeded generator), puts its image forward (``encode_image`` for CLIP
+and SigLIP, the model itself for ViT: logits, or pooled features without a
+head) behind the micro-batching engine and the HTTP front end, warms every
+bucket, and prints one JSON ready line with ``"status": "serving"``.
+``--dtype int8`` builds or loads the model in f32 and swaps every eligible
+Linear for a W8A8 ``QuantLinear`` before any forward
 (``jimm_tpu_torch.quant``).
 
 ``train`` trains a SigLIP preset contrastively on synthetic pairs
@@ -28,10 +30,14 @@ import time
 
 import torch
 
-from jimm_tpu_torch.configs import PRESETS, SigLIPConfig, preset, with_runtime
+from jimm_tpu_torch.configs import (PRESETS, CLIPConfig, SigLIPConfig,
+                                    ViTConfig, family, preset, with_runtime)
 from jimm_tpu_torch.data.synthetic import (contrastive_pairs,
                                             naflex_contrastive_pairs)
-from jimm_tpu_torch.models.siglip import SigLIP, _resolve_device
+from jimm_tpu_torch.models.clip import CLIP
+from jimm_tpu_torch.models.common import resolve_device
+from jimm_tpu_torch.models.siglip import SigLIP
+from jimm_tpu_torch.models.vit import VisionTransformer
 from jimm_tpu_torch.ops.attention import INT8_NO_MASK
 from jimm_tpu_torch.quant import quantize_model
 from jimm_tpu_torch.quant.policy import POLICIES, apply_precision_policy
@@ -48,50 +54,90 @@ from jimm_tpu_torch.train.trainer import (OptimizerConfig,
 
 #: serving dtypes: int8 is the f32 model with its Linears quantized
 _SERVE_DTYPES = ("bf16", "f32", "int8")
+#: the model class of each family
+MODELS = {"vit": VisionTransformer, "clip": CLIP, "siglip": SigLIP}
+_FAMILY_OF = {ViTConfig: "vit", CLIPConfig: "clip", SigLIPConfig: "siglip"}
+#: the method ``serve`` puts behind /v1/embed: ViT serves its logits (or
+#: pooled features without a head), the dual towers their image embedding
+SERVED_METHOD = {"vit": "forward", "clip": "encode_image",
+                 "siglip": "encode_image"}
 
 
-def tiny_override(cfg: SigLIPConfig) -> SigLIPConfig:
-    """Shrink a preset to CPU-demo size, keeping its architecture class
-    (the JAX CLI's ``--tiny`` sizes)."""
+def tiny_override(cfg):
+    """Shrink a preset of any family to CPU-demo size, keeping its
+    architecture class (the JAX CLI's ``--tiny`` sizes)."""
+    vision = dataclasses.replace(cfg.vision, image_size=32, patch_size=16,
+                                 width=64, depth=4, num_heads=2, mlp_dim=128)
+    if isinstance(cfg, ViTConfig):
+        return dataclasses.replace(cfg, vision=vision)
     return dataclasses.replace(
-        cfg,
-        vision=dataclasses.replace(cfg.vision, image_size=32, patch_size=16,
-                                   width=64, depth=4, num_heads=2,
-                                   mlp_dim=128),
+        cfg, vision=vision,
         text=dataclasses.replace(cfg.text, vocab_size=64, context_length=8,
                                  width=64, depth=4, num_heads=2, mlp_dim=128),
         projection_dim=64)
 
 
-def serving_model(cfg: SigLIPConfig, dtype: str, device,
-                  generator: torch.Generator | None = None
-                  ) -> tuple[SigLIP, int]:
-    """The model ``serve --dtype DTYPE`` serves, in eval mode, and the number
-    of Linears quantized: f32 or bf16 parameters; for ``int8`` the f32 model
-    with every eligible Linear swapped for a ``QuantLinear`` before any
-    forward runs, as the JAX ``serve`` command quantizes before its warm
-    compiles."""
+def _serving_dtype(dtype: str) -> torch.dtype:
     if dtype not in _SERVE_DTYPES:
         raise ValueError(f"serving dtype {dtype!r} is not one of "
                          f"{_SERVE_DTYPES}")
-    model = SigLIP(cfg, device=device,
-                   dtype=torch.bfloat16 if dtype == "bf16" else torch.float32,
-                   generator=generator)
+    return torch.bfloat16 if dtype == "bf16" else torch.float32
+
+
+def _ready_to_serve(model: torch.nn.Module, dtype: str
+                    ) -> tuple[torch.nn.Module, int]:
     model.eval()
     return model, quantize_model(model) if dtype == "int8" else 0
 
 
-def cmd_serve(args: argparse.Namespace) -> int:
-    cfg = preset(args.preset)
-    if args.tiny:
-        cfg = tiny_override(cfg)
-    model, quantized = serving_model(cfg, args.dtype, args.device)
+def serving_model(cfg, dtype: str, device,
+                  generator: torch.Generator | None = None
+                  ) -> tuple[torch.nn.Module, int]:
+    """The model ``serve --preset P --dtype DTYPE`` serves (the config's
+    family), in eval mode, and the number of Linears quantized: f32 or bf16
+    parameters; for ``int8`` the f32 model with every eligible Linear
+    swapped for a ``QuantLinear`` before any forward runs, as the JAX
+    ``serve`` command quantizes before its warm compiles."""
+    model = MODELS[_FAMILY_OF[type(cfg)]](
+        cfg, device=device, dtype=_serving_dtype(dtype), generator=generator)
+    return _ready_to_serve(model, dtype)
+
+
+def build_server(args: argparse.Namespace
+                 ) -> tuple[ServingServer, torch.nn.Module, dict]:
+    """The ``serve`` command up to its ready line: the model built or
+    loaded, its engine and HTTP server started (every bucket warmed); the
+    server, the model it serves and the ready line's fields. The caller
+    stops the server."""
+    runtime = {"ln_impl": args.ln_impl} if args.ln_impl else None
+    if args.ckpt:
+        if not args.model:
+            raise SystemExit("--ckpt needs --model vit|clip|siglip")
+        if args.tiny:
+            raise SystemExit("--tiny shrinks a preset; it does not apply "
+                             "to --ckpt")
+        fam = args.model
+        # int8: loaded in f32, then quantized
+        model, quantized = _ready_to_serve(MODELS[fam].from_pretrained(
+            args.ckpt, device=args.device, dtype=_serving_dtype(args.dtype),
+            runtime=runtime), args.dtype)
+        name = f"{fam}:{args.ckpt}"
+    else:
+        fam = family(args.preset)
+        cfg = preset(args.preset)
+        if args.tiny:
+            cfg = tiny_override(cfg)
+        if runtime:
+            cfg = with_runtime(cfg, **runtime)
+        model, quantized = serving_model(cfg, args.dtype, args.device)
+        name = f"{fam}:{args.preset}" + (":tiny" if args.tiny else "")
     param = next(model.parameters())
-    size = cfg.vision.image_size
+    vision = model.config.vision
     buckets = (BucketTable(tuple(int(s) for s in args.buckets.split(",")))
                if args.buckets else default_buckets(args.device))
     engine = InferenceEngine(
-        image_forward(model), item_shape=(size, size, cfg.vision.channels),
+        image_forward(model, SERVED_METHOD[fam]),
+        item_shape=(vision.image_size, vision.image_size, vision.channels),
         buckets=buckets, max_delay_ms=args.max_delay_ms,
         policy=AdmissionPolicy(max_queue=args.queue_size,
                                default_timeout_s=args.timeout_s))
@@ -99,13 +145,17 @@ def cmd_serve(args: argparse.Namespace) -> int:
     t0 = time.monotonic()
     server.start()
     ready = {"status": "serving", "host": args.host, "port": server.port,
-             "model": f"siglip:{args.preset}" + (":tiny" if args.tiny else ""),
-             "device": str(param.device),
+             "model": name, "device": str(param.device),
              "dtype": ("int8" if args.dtype == "int8"
                        else str(param.dtype).removeprefix("torch.")),
              "quantized_layers": quantized,
              "buckets": list(buckets.sizes),
              "warmup_s": round(time.monotonic() - t0, 3)}
+    return server, model, ready
+
+
+def cmd_serve(args: argparse.Namespace) -> int:
+    server, _, ready = build_server(args)
     print(json.dumps(ready), flush=True)
     if args.max_seconds:
         try:
@@ -151,7 +201,7 @@ def cmd_train(args: argparse.Namespace) -> int:
                         or args.attn_impl == "flash_int8"):
         raise SystemExit(f"--naflex batches need a key-padding mask: "
                          f"{INT8_NO_MASK}")
-    device = _resolve_device(args.device)
+    device = resolve_device(args.device)
     cfg = preset(args.preset)
     if args.tiny:
         cfg = tiny_override(cfg)
@@ -232,13 +282,22 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m jimm_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     sp = sub.add_parser("serve", help="HTTP micro-batching embedding server")
+    sp.add_argument("--ckpt", default=None,
+                    help="a local HF checkpoint directory or file (needs "
+                         "--model); hub names are not ported")
+    sp.add_argument("--model", default=None, choices=sorted(MODELS),
+                    help="model family of --ckpt")
     sp.add_argument("--preset", default="siglip-base-patch16-256",
-                    choices=sorted(PRESETS))
+                    choices=sorted(PRESETS),
+                    help="random-init a preset of any family (when no "
+                         "--ckpt)")
     sp.add_argument("--tiny", action="store_true",
                     help="shrink the preset to CPU-demo size")
     sp.add_argument("--dtype", choices=_SERVE_DTYPES, default="f32",
                     help="parameter and compute dtype; int8 = f32 with every "
                          "eligible Linear as a W8A8 QuantLinear")
+    sp.add_argument("--ln-impl", default=None, choices=["xla", "fused"],
+                    help="encoder LayerNorm (fused = the LayerNorm kernels)")
     sp.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' must be asked for explicitly")
     sp.add_argument("--host", default="127.0.0.1")
@@ -259,7 +318,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp = sub.add_parser("train", help="contrastive training on synthetic "
                                       "pairs (offline)")
     sp.add_argument("--preset", default="siglip-base-patch16-256",
-                    choices=sorted(PRESETS))
+                    choices=sorted(n for n in PRESETS
+                                   if family(n) == "siglip"))
     sp.add_argument("--tiny", action="store_true",
                     help="shrink the preset to CPU-demo size")
     sp.add_argument("--steps", type=int, default=100)

@@ -1,10 +1,11 @@
-"""Model configuration dataclasses and the SigLIP presets.
+"""Model configuration dataclasses and the ViT, CLIP and SigLIP presets.
 
 The port's own copy of the parts of ``jimm_tpu/configs.py`` it uses: the
-tower dataclasses with the same fields and defaults (so a config means the
-same thing to both packages), the runtime-field rule, ``with_runtime``,
-``normalize_act`` and the SigLIP presets. The tests hold this copy equal to
-the JAX package's field by field.
+tower and model dataclasses with the same fields and defaults (so a config
+means the same thing to both packages), the runtime-field rule,
+``with_runtime``, ``normalize_act``, ``act_to_hf`` and the fixed-resolution
+presets (the temporal ViT presets are not ported: ROADMAP.md queue 1, item
+3). The tests hold this copy equal to the JAX package's field by field.
 
 Fields that select a JAX execution strategy the port has not ported yet
 (``pipeline``, ``remat``, ``scan_unroll``, ``precision`` and the
@@ -32,6 +33,12 @@ def normalize_act(name: str | None, default: str = "gelu") -> str:
         return default
     return {"gelu": "gelu", "gelu_new": "gelu_tanh",
             "gelu_pytorch_tanh": "gelu_tanh",
+            "quick_gelu": "quick_gelu"}.get(name, name)
+
+
+def act_to_hf(name: str) -> str:
+    """Canonical Activation name -> HF ``hidden_act``."""
+    return {"gelu": "gelu", "gelu_tanh": "gelu_pytorch_tanh",
             "quick_gelu": "quick_gelu"}.get(name, name)
 
 
@@ -198,6 +205,30 @@ class TextConfig:
 
 
 @dataclass(frozen=True)
+class ViTConfig:
+    """ViT image classifier: post-norm backbone, CLS pooling, LN eps 1e-12,
+    optional linear head."""
+
+    vision: VisionConfig = field(default_factory=lambda: VisionConfig(ln_eps=1e-12))
+    num_classes: int = 1000
+    do_classification: bool = True
+
+
+@dataclass(frozen=True)
+class CLIPConfig:
+    """CLIP dual tower: pre-norm QuickGELU vision tower without patch bias,
+    causal text tower, bias-free projections, learned ``logit_scale``."""
+
+    vision: VisionConfig = field(default_factory=lambda: VisionConfig(
+        width=768, depth=12, num_heads=12, mlp_dim=3072, act="quick_gelu",
+        ln_eps=1e-5, pooling="cls", pre_norm=True, patch_bias=False,
+        patch_size=32))
+    text: TextConfig = field(default_factory=TextConfig)
+    projection_dim: int = 512
+    logit_scale_init: float = 2.6592  # ln(1/0.07), OpenAI CLIP init
+
+
+@dataclass(frozen=True)
 class SigLIPConfig:
     """SigLIP dual tower: MAP-pooled vision tower (gelu_tanh, eps 1e-6),
     bidirectional text tower with last-token pooling and a biased
@@ -214,6 +245,39 @@ class SigLIPConfig:
     projection_dim: int = 768
     logit_scale_init: float = 2.3026  # ln(10), SigLIP paper init
     logit_bias_init: float = -10.0
+
+
+def _vit(size: str, patch: int, image: int, classes: int = 1000) -> ViTConfig:
+    w, d, h, m = {
+        "T": (192, 12, 3, 768),
+        "S": (384, 12, 6, 1536),
+        "B": (768, 12, 12, 3072),
+        "L": (1024, 24, 16, 4096),
+        "H": (1280, 32, 16, 5120),
+    }[size]
+    return ViTConfig(
+        vision=VisionConfig(image_size=image, patch_size=patch, width=w,
+                            depth=d, num_heads=h, mlp_dim=m, ln_eps=1e-12),
+        num_classes=classes)
+
+
+def _clip(vision_size: str, patch: int, image: int = 224) -> CLIPConfig:
+    vw, vd, vh, vm, proj = {
+        "B": (768, 12, 12, 3072, 512),
+        "L": (1024, 24, 16, 4096, 768),
+    }[vision_size]
+    tw, td, th, tm = {"B": (512, 12, 8, 2048),
+                      "L": (768, 12, 12, 3072)}[vision_size]
+    return CLIPConfig(
+        vision=VisionConfig(image_size=image, patch_size=patch, width=vw,
+                            depth=vd, num_heads=vh, mlp_dim=vm,
+                            act="quick_gelu", ln_eps=1e-5, pooling="cls",
+                            pre_norm=True, patch_bias=False),
+        text=TextConfig(vocab_size=49408, context_length=77, width=tw,
+                        depth=td, num_heads=th, mlp_dim=tm, act="quick_gelu",
+                        ln_eps=1e-5, causal=True, pooling="eot",
+                        proj_bias=False),
+        projection_dim=proj)
 
 
 def _siglip(size: str, patch: int, image: int, vocab: int = 32000,
@@ -233,8 +297,18 @@ def _siglip(size: str, patch: int, image: int, vocab: int = 32000,
         projection_dim=w)
 
 
-#: Named SigLIP presets (the same names and shapes as the JAX package's)
-PRESETS: dict[str, SigLIPConfig] = {
+#: Named presets (the same names and shapes as the JAX package's)
+PRESETS: dict[str, ViTConfig | CLIPConfig | SigLIPConfig] = {
+    "vit-tiny-patch16-224": _vit("T", 16, 224),
+    "vit-small-patch16-224": _vit("S", 16, 224),
+    "vit-base-patch16-224": _vit("B", 16, 224),
+    "vit-base-patch32-384": _vit("B", 32, 384),
+    "vit-large-patch16-384": _vit("L", 16, 384),
+    "vit-huge-patch14-224": _vit("H", 14, 224),
+    "clip-vit-base-patch32": _clip("B", 32),
+    "clip-vit-base-patch16": _clip("B", 16),
+    "clip-vit-large-patch14": _clip("L", 14),
+    "clip-vit-large-patch14-336": _clip("L", 14, 336),
     "siglip-base-patch16-224": _siglip("B", 16, 224),
     "siglip-base-patch16-256": _siglip("B", 16, 256),
     "siglip-base-patch16-384": _siglip("B", 16, 384),
@@ -248,7 +322,16 @@ PRESETS: dict[str, SigLIPConfig] = {
 }
 
 
-def preset(name: str, **overrides: Any) -> SigLIPConfig:
-    """Fetch a named preset, optionally overriding top-level fields."""
+def family(name: str) -> str:
+    """The model family of a preset name: ``vit``, ``clip`` or ``siglip``."""
+    for fam in ("vit", "clip", "siglip"):
+        if name.startswith(fam):
+            return fam
+    raise ValueError(f"cannot infer the model family of preset {name!r}")
+
+
+def preset(name: str, **overrides: Any) -> ViTConfig | CLIPConfig | SigLIPConfig:
+    """Fetch a named preset (a config of its family), optionally overriding
+    top-level fields."""
     cfg = PRESETS[name]
     return dataclasses.replace(cfg, **overrides) if overrides else cfg

@@ -1,69 +1,39 @@
 """SigLIP dual-tower model; the counterpart of ``jimm_tpu/models/siglip.py``,
 at fixed resolution and on SigLIP2's NaFlex variable-resolution batches.
-:func:`load_jax_params` carries the JAX model's parameters across (SigLIP2
-has the same parameters, with a larger vocabulary); HF checkpoint IO is not
-ported yet (ROADMAP.md)."""
+HF checkpoints of both flavors load (:meth:`SigLIP.from_pretrained`) and
+export (:meth:`SigLIP.save_pretrained`): a ``Siglip2Model`` checkpoint
+differs only in its vision embeddings, a NaFlex Linear patch embedding and
+a ``num_patches``-sized position table, resampled to the fixed grid at load
+when the two differ. :func:`load_jax_params` carries a live JAX model's
+parameters across (SigLIP2 has the same parameters, with a larger
+vocabulary)."""
 
 from __future__ import annotations
 
-import math
-from typing import Mapping
+import warnings
+from typing import Any
 
-import numpy as np
 import torch
 from torch import nn
 
-from jimm_tpu_torch.configs import SigLIPConfig
-from jimm_tpu_torch.nn.norm import FusedLayerNorm
+from jimm_tpu_torch.configs import (SigLIPConfig, TextConfig, VisionConfig,
+                                    act_to_hf, normalize_act, with_runtime)
+from jimm_tpu_torch.models.common import (_port_entries, build_loaded,
+                                          hf_encoder_layers, init_params,
+                                          load_jax_params, resolve_device)
 from jimm_tpu_torch.nn.text import TextTower
 from jimm_tpu_torch.nn.vision import VisionTower
-from jimm_tpu_torch.quant import QuantLinear
-from jimm_tpu_torch.quant.policy import Fp8Linear
+from jimm_tpu_torch.weights.export import save_pretrained
+from jimm_tpu_torch.weights.loader import M, T, per_layer
+from jimm_tpu_torch.weights.resolve import resolve_checkpoint
+from jimm_tpu_torch.weights.surgery import (apply_image_size,
+                                            resize_checkpoint_pos_embed)
 
+__all__ = ["SigLIP", "load_jax_params", "_port_entries"]
 
-def _resolve_device(device) -> torch.device:
-    """``None`` means the card. Without CUDA that is an error, never a quiet
-    move to the CPU: a caller who wants the CPU says so."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                           "on the CPU")
-    return dev
-
-
-def _xavier_(w: torch.Tensor, fan_in: int, fan_out: int,
-             generator: torch.Generator) -> None:
-    bound = math.sqrt(6.0 / (fan_in + fan_out))
-    w.uniform_(-bound, bound, generator=generator)
-
-
-@torch.no_grad()
-def _init_params(model: "SigLIP", generator: torch.Generator) -> None:
-    """The JAX package's initializers, drawn from ``generator``: xavier-uniform
-    linear/conv/probe weights, zero biases, unit LayerNorm scales, normal
-    embeddings (0.02) and text positions (0.01). The numbers differ from
-    ``nnx.Rngs(0)``'s; tests carry JAX weights across instead."""
-    for m in model.modules():
-        if isinstance(m, nn.Linear):
-            _xavier_(m.weight, m.in_features, m.out_features, generator)
-            m.bias.zero_()
-        elif isinstance(m, nn.Conv2d):
-            rf = m.kernel_size[0] * m.kernel_size[1]
-            _xavier_(m.weight, m.in_channels * rf, m.out_channels * rf,
-                     generator)
-            if m.bias is not None:
-                m.bias.zero_()
-        elif isinstance(m, (nn.LayerNorm, FusedLayerNorm)):
-            m.weight.fill_(1.0)
-            m.bias.zero_()
-        elif isinstance(m, nn.Embedding):
-            m.weight.normal_(0.0, 0.02, generator=generator)
-    # probe (1, 1, W): JAX's xavier reads fan_in = 1, fan_out = W
-    _xavier_(model.vision.head.probe, 1, model.config.vision.width, generator)
-    model.vision.pos_embed.normal_(0.0, 0.02, generator=generator)
-    model.text.pos_embed.normal_(0.0, 0.01, generator=generator)
-    model.logit_scale.fill_(model.config.logit_scale_init)
-    model.logit_bias.fill_(model.config.logit_bias_init)
+#: the HF names of the vision position table and patch embedding
+POS_KEY = "vision_model.embeddings.position_embedding.weight"
+PATCH_KEY = "vision_model.embeddings.patch_embedding.weight"
 
 
 class SigLIP(nn.Module):
@@ -76,7 +46,7 @@ class SigLIP(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         cfg = config or SigLIPConfig()
-        dev = _resolve_device(device)
+        dev = resolve_device(device)
         self.config = cfg
         kw = {"device": dev, "dtype": dtype}
         self.vision = VisionTower(cfg.vision, **kw)
@@ -87,7 +57,7 @@ class SigLIP(nn.Module):
         self.logit_bias = nn.Parameter(torch.zeros((), **kw))
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        _init_params(self, generator)
+        init_params(self, generator)
 
     def encode_image(self, images: torch.Tensor) -> torch.Tensor:
         """(B, H, W, C) -> unnormalized (B, width): the MAP-head output."""
@@ -126,89 +96,189 @@ class SigLIP(nn.Module):
     def forward(self, images: torch.Tensor, text: torch.Tensor) -> torch.Tensor:
         return self._logits(self.encode_image(images), self.encode_text(text))
 
+    # -- HF checkpoints ----------------------------------------------------
 
-#: JAX leaf name -> port leaf name (nnx.Linear/Conv ``kernel``, LayerNorm
-#: ``scale``, nnx.Embed ``embedding`` all become torch's ``weight``)
-_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
+    @staticmethod
+    def config_from_hf(config: dict[str, Any] | None,
+                       weights: dict[str, torch.Tensor]) -> SigLIPConfig:
+        """Shapes from the tensors; the HF config fills the rest when
+        present (SigLIP2 vision configs carry ``num_patches`` instead of
+        ``image_size``: the square grid of the position table stands in)."""
+        w = weights
+        v_width = w["vision_model.post_layernorm.weight"].shape[0]
+        t_width = w["text_model.final_layer_norm.weight"].shape[0]
+        v_depth = 1 + max(int(k.split(".")[3]) for k in w
+                          if k.startswith("vision_model.encoder.layers."))
+        t_depth = 1 + max(int(k.split(".")[3]) for k in w
+                          if k.startswith("text_model.encoder.layers."))
+        vc = (config or {}).get("vision_config", {})
+        tc = (config or {}).get("text_config", {})
+        pe = w[PATCH_KEY]
+        if pe.ndim == 4:  # SigLIP v1: Conv2d OIHW
+            patch = pe.shape[-1]
+        else:  # SigLIP2: NaFlex Linear (out, p*p*3)
+            patch = vc.get("patch_size",
+                           int(round((pe.shape[-1] // 3) ** 0.5)))
+        n_pos = w[POS_KEY].shape[0]
+        vocab, _ = w["text_model.embeddings.token_embedding.weight"].shape
+        ctx = w["text_model.embeddings.position_embedding.weight"].shape[0]
+        image = vc.get("image_size", int(round(n_pos ** 0.5)) * patch)
+        vision = VisionConfig(
+            image_size=image, patch_size=patch, width=v_width, depth=v_depth,
+            num_heads=vc.get("num_attention_heads", max(1, v_width // 64)),
+            mlp_dim=w["vision_model.encoder.layers.0.mlp.fc1.weight"].shape[0],
+            act=normalize_act(vc.get("hidden_act"), "gelu_tanh"),
+            ln_eps=vc.get("layer_norm_eps", 1e-6),
+            pooling="map", pre_norm=False, patch_bias=True)
+        text = TextConfig(
+            vocab_size=vocab, context_length=ctx, width=t_width, depth=t_depth,
+            num_heads=tc.get("num_attention_heads", max(1, t_width // 64)),
+            mlp_dim=w["text_model.encoder.layers.0.mlp.fc1.weight"].shape[0],
+            act=normalize_act(tc.get("hidden_act"), "gelu_tanh"),
+            ln_eps=tc.get("layer_norm_eps", 1e-6),
+            causal=False, pooling="last", proj_bias=True)
+        proj = w["text_model.head.weight"].shape[0]
+        return SigLIPConfig(vision=vision, text=text, projection_dim=proj)
 
+    @staticmethod
+    def hf_mapping(cfg: SigLIPConfig) -> list[M]:
+        """HF ``SiglipModel`` name -> port parameter, one entry per layer.
+        torch's MAP head fuses q/k/v into ``in_proj_*``: split in thirds."""
+        h, d = "vision_model.head.", "vision.head."
+        entries = [
+            M("vision.pos_embed", POS_KEY, T.unsqueeze),
+            M("vision.patch_embed.conv.weight", PATCH_KEY, T.patch),
+            M("vision.patch_embed.conv.bias",
+              "vision_model.embeddings.patch_embedding.bias"),
+            M("vision.ln_post.weight", "vision_model.post_layernorm.weight"),
+            M("vision.ln_post.bias", "vision_model.post_layernorm.bias"),
+            M(d + "probe", h + "probe"),
+            *[M(f"{d}attn.{n}.{leaf}", f"{h}attention.in_proj_{leaf}",
+                T.chunk(3, i))
+              for leaf in ("weight", "bias") for i, n in enumerate("qkv")],
+            M(d + "attn.out.weight", h + "attention.out_proj.weight"),
+            M(d + "attn.out.bias", h + "attention.out_proj.bias"),
+            M(d + "ln.weight", h + "layernorm.weight"),
+            M(d + "ln.bias", h + "layernorm.bias"),
+            M(d + "mlp.fc1.weight", h + "mlp.fc1.weight"),
+            M(d + "mlp.fc1.bias", h + "mlp.fc1.bias"),
+            M(d + "mlp.fc2.weight", h + "mlp.fc2.weight"),
+            M(d + "mlp.fc2.bias", h + "mlp.fc2.bias"),
+            M("text.token_embed.weight",
+              "text_model.embeddings.token_embedding.weight"),
+            M("text.pos_embed",
+              "text_model.embeddings.position_embedding.weight"),
+            M("text.ln_final.weight", "text_model.final_layer_norm.weight"),
+            M("text.ln_final.bias", "text_model.final_layer_norm.bias"),
+            M("text_projection.weight", "text_model.head.weight"),
+            M("text_projection.bias", "text_model.head.bias"),
+            M("logit_scale", "logit_scale", T.scalar_1d),
+            M("logit_bias", "logit_bias", T.scalar_1d),
+        ]
+        return (per_layer(entries
+                          + hf_encoder_layers("vision.", "vision_model."),
+                          cfg.vision.depth)
+                + per_layer(hf_encoder_layers("text.", "text_model."),
+                            cfg.text.depth))
 
-def _port_entries(key: str, arr: np.ndarray, *, quantized: bool = False
-                  ) -> list[tuple[str, np.ndarray]]:
-    """One JAX parameter -> the port (name, array) pairs it fills.
-    ``quantized``: the key belongs to a JAX ``QuantLinear``, whose int8
-    ``w_q`` (..., in, out) becomes the port's (..., out, in) buffer and
-    whose ``scale`` and ``bias`` keep their names."""
-    parts = key.split(".")
-    leaf = parts[-1]
-    if leaf == "kernel" or (quantized and leaf == "w_q"):
-        # Conv HWIO (p, p, C, W) -> OIHW; Linear (..., in, out) -> (..., out, in)
-        arr = (arr.transpose(3, 2, 0, 1) if parts[-2] == "conv"
-               else np.swapaxes(arr, -1, -2))
-    name = parts[:-1] + [leaf if quantized else _LEAF.get(leaf, leaf)]
-    if "blocks" not in parts:
-        return [(".".join(name), arr)]
-    # stacked (layers, ...) -> one entry per layer module
-    i = parts.index("blocks") + 1
-    return [(".".join(name[:i] + [str(layer)] + name[i:]), arr[layer])
-            for layer in range(arr.shape[0])]
+    @classmethod
+    def from_pretrained(cls, name_or_path, *, device=None,
+                        dtype: torch.dtype | None = None,
+                        use_pytorch: bool = False,
+                        runtime: dict | None = None,
+                        image_size: int | None = None) -> "SigLIP":
+        """Load a local HF SigLIP or SigLIP2 checkpoint (directory or file)
+        onto ``device`` (default: the card) in ``dtype`` (default f32).
+        ``runtime`` overrides execution fields a checkpoint cannot know
+        (``attn_impl``, ``ln_impl``, ...; ``configs.RUNTIME_FIELDS``);
+        ``image_size`` loads at another resolution, the position grid
+        resampled bilinearly."""
+        device = resolve_device(device)
+        weights, config = resolve_checkpoint(name_or_path,
+                                             use_pytorch=use_pytorch)
+        cfg = cls.config_from_hf(config, weights)
+        if runtime:
+            cfg = with_runtime(cfg, **runtime)
+        orig_pos_n = weights[POS_KEY].shape[0]
+        # MAP pooling: a pure grid, no class token
+        weights, cfg = apply_image_size(weights, cfg, image_size,
+                                        key=POS_KEY, n_prefix=0)
+        # SigLIP2 position tables are sized by num_patches (the NaFlex
+        # maximum), which can differ from the fixed grid: resample as the HF
+        # runtime's resize_positional_embeddings does (bilinear)
+        if weights[POS_KEY].shape[0] != cfg.vision.grid ** 2:
+            weights = resize_checkpoint_pos_embed(
+                weights, POS_KEY, patch_size=cfg.vision.patch_size,
+                image_size=cfg.vision.image_size, n_prefix=0)
+        model = build_loaded(cls, cfg, weights, device=device, dtype=dtype)
+        # a SigLIP2 origin (NaFlex Linear patch embedding) decides the
+        # default export flavor
+        model._hf_source_flavor = ("siglip2" if weights[PATCH_KEY].ndim == 2
+                                   else "siglip")
+        model.vision._pos_table_resampled = (
+            weights[POS_KEY].shape[0] != orig_pos_n)
+        return model
 
+    def hf_config(self) -> dict:
+        cfg = self.config
+        vision = {
+            "hidden_size": cfg.vision.width,
+            "num_hidden_layers": cfg.vision.depth,
+            "num_attention_heads": cfg.vision.num_heads,
+            "intermediate_size": cfg.vision.mlp_dim,
+            "image_size": cfg.vision.image_size,
+            "patch_size": cfg.vision.patch_size,
+            "hidden_act": act_to_hf(cfg.vision.act),
+            "layer_norm_eps": cfg.vision.ln_eps,
+        }
+        text = {
+            "hidden_size": cfg.text.width,
+            "num_hidden_layers": cfg.text.depth,
+            "num_attention_heads": cfg.text.num_heads,
+            "intermediate_size": cfg.text.mlp_dim,
+            "vocab_size": cfg.text.vocab_size,
+            "max_position_embeddings": cfg.text.context_length,
+            "hidden_act": act_to_hf(cfg.text.act),
+            "layer_norm_eps": cfg.text.ln_eps,
+        }
+        return {"architectures": ["SiglipModel"], "model_type": "siglip",
+                "vision_config": vision, "text_config": text}
 
-@torch.no_grad()
-def load_jax_params(model: nn.Module,
-                    params: Mapping[str, np.ndarray]) -> None:
-    """Fill ``model`` from the JAX model's parameters, given as numpy arrays
-    keyed by their dotted nnx paths (e.g.
-    ``vision.encoder.blocks.attn.q.kernel`` of shape (depth, in, out)).
+    def save_pretrained(self, save_dir, *, flavor: str | None = None) -> None:
+        """Export an HF checkpoint. ``flavor``: ``"siglip"`` (v1: Conv2d OIHW
+        patch embedding, ``SiglipModel`` reloads it), ``"siglip2"`` (NaFlex
+        Linear patch embedding and ``num_patches``, ``Siglip2Model`` reloads
+        it), or ``None``: the flavor the model was loaded from (v1 for a
+        model built from a config)."""
+        source = getattr(self, "_hf_source_flavor", None)
+        flavor = flavor or source or "siglip"
+        if flavor not in ("siglip", "siglip2"):
+            raise ValueError(f"unknown export flavor {flavor!r}")
+        if flavor == "siglip":
+            if source == "siglip2":
+                warnings.warn(
+                    "exporting a Siglip2-origin model in SiglipModel (v1) "
+                    "format: the NaFlex Linear patch embedding becomes a "
+                    "Conv2d OIHW weight; pass flavor='siglip2' for a "
+                    "Siglip2Model-loadable export", stacklevel=2)
+            save_pretrained(self, save_dir)
+            return
 
-    A model quantized by ``jimm_tpu_torch.quant.quantize_model`` takes the
-    parameters of a JAX model quantized by ``jimm_tpu.quant``: each JAX
-    ``QuantLinear``'s int8 ``w_q`` (depth, in, out), f32 ``scale`` (depth,
-    out) and ``bias`` fill the port's ``w_q`` and ``scale`` buffers and its
-    bias, per layer, the int8 values copied as they are.
+        def state_hook(state: dict) -> dict:
+            # OIHW (D, C, p, p) -> the NaFlex Linear (D, p*p*C), its input
+            # ordered (row, col, chan)
+            pe = state[PATCH_KEY]
+            d_out, c, p, _ = pe.shape
+            state[PATCH_KEY] = pe.permute(0, 2, 3, 1).reshape(
+                d_out, p * p * c).contiguous()
+            return state
 
-    A model under ``apply_precision_policy(model, "fp8_hybrid")`` takes the
-    parameters of a JAX model under the same policy together with its amax
-    histories: each JAX ``Fp8Linear``'s ``x_amax`` and ``w_amax`` ((depth,
-    16) under the stacked blocks) fill the port's per-layer buffers.
+        def config_hook(config: dict) -> dict:
+            config["architectures"] = ["Siglip2Model"]
+            config["model_type"] = "siglip2"
+            config["vision_config"]["num_patches"] = \
+                self.config.vision.num_patches
+            return config
 
-    Strict: every port parameter, quantized-weight buffer and amax history
-    must be filled exactly once and every key used, with matching shapes;
-    anything else raises."""
-    own = dict(model.named_parameters())
-    quant_parents = set()  # the JAX (stacked) paths of the QuantLinears
-    for prefix, module in model.named_modules():
-        if isinstance(module, QuantLinear):
-            own[f"{prefix}.w_q"] = module.w_q
-            own[f"{prefix}.scale"] = module.scale
-            parts = prefix.split(".")
-            if "blocks" in parts:
-                del parts[parts.index("blocks") + 1]
-            quant_parents.add(".".join(parts))
-        elif isinstance(module, Fp8Linear):
-            own[f"{prefix}.x_amax"] = module.x_amax
-            own[f"{prefix}.w_amax"] = module.w_amax
-    filled: set[str] = set()
-    for key, value in params.items():
-        value = np.asarray(value)
-        if value.dtype != np.int8:
-            value = value.astype(np.float32)
-        quantized = key.rpartition(".")[0] in quant_parents
-        for name, arr in _port_entries(key, value, quantized=quantized):
-            if name not in own:
-                raise KeyError(f"JAX parameter {key!r} has no port "
-                               f"counterpart ({name!r})")
-            if name in filled:
-                raise KeyError(f"port parameter {name!r} filled twice")
-            p = own[name]
-            if tuple(arr.shape) != tuple(p.shape):
-                raise ValueError(f"{key!r} -> {name!r}: shape "
-                                 f"{tuple(arr.shape)} != {tuple(p.shape)}")
-            if (arr.dtype == np.int8) != (p.dtype == torch.int8):
-                raise ValueError(f"{key!r} -> {name!r}: dtype {arr.dtype} "
-                                 f"does not fill {p.dtype}")
-            p.copy_(torch.from_numpy(np.array(arr)))  # a C-order copy
-            filled.add(name)
-    missing = sorted(set(own) - filled)
-    if missing:
-        raise KeyError(f"port parameters or buffers missing from the JAX "
-                       f"params: {missing}")
+        save_pretrained(self, save_dir, state_hook=state_hook,
+                        config_hook=config_hook)

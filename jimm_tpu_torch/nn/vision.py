@@ -1,8 +1,11 @@
-"""Vision tower: patch embedding, learned positions, encoder, post-LN, MAP
-pooling; the counterpart of ``jimm_tpu/nn/vision.py`` for SigLIP-style
-towers, at fixed resolution (:meth:`VisionTower.forward`) and on NaFlex
-variable-resolution batches (:meth:`VisionTower.forward_naflex`). Temporal
-clips are not ported yet (ROADMAP.md)."""
+"""Vision tower: patch embedding, learned positions, encoder, post-LN, then
+CLS (ViT, CLIP) or MAP (SigLIP) pooling; the counterpart of
+``jimm_tpu/nn/vision.py``, at fixed resolution (:meth:`VisionTower.forward`)
+and, for SigLIP-style towers, on NaFlex variable-resolution batches
+(:meth:`VisionTower.forward_naflex`). Pre-norm towers (CLIP) LayerNorm the
+embeddings (``ln_pre``); the others apply dropout there, which the port
+has not ported (its dropout rate must be 0). Temporal clips are not ported
+yet (ROADMAP.md queue 1, item 3)."""
 
 from __future__ import annotations
 
@@ -57,23 +60,39 @@ class MAPHead(nn.Module):
 
 
 class VisionTower(nn.Module):
-    """(B, H, W, C) images -> pooled (B, width) features."""
+    """(B, H, W, C) images -> pooled (B, width) features, or the (B, N,
+    width) tokens with ``pooling="none"``.
+
+    The LayerNorms around the encoder of a CLS tower (ViT's ``ln_post``,
+    CLIP's ``ln_pre`` and ``ln_post``) follow ``ln_impl`` as the blocks'
+    do; a MAP tower's ``ln_post`` and head LayerNorm stay ``nn.LayerNorm``
+    (the SigLIP paths' launch counts rest on that)."""
+
+    #: set by ``SigLIP.from_pretrained`` when the checkpoint's position
+    #: table was resampled at load; :meth:`forward_naflex` then refuses
+    _pos_table_resampled = False
 
     def __init__(self, cfg: VisionConfig, *, device=None, dtype=None):
         super().__init__()
-        if cfg.pooling != "map" or cfg.pre_norm or cfg.num_frames != 1:
+        if cfg.num_frames != 1:
             raise NotImplementedError(
-                "the port's vision tower is SigLIP's (MAP pooling, post-norm, "
-                "single images); ViT/CLIP towers and clips are ROADMAP.md "
-                "queue 1 work")
+                "temporal clips (num_frames > 1) are not ported yet "
+                "(ROADMAP.md queue 1, item 3)")
         kw = {"device": device, "dtype": dtype}
+        outer_ln = {"impl": cfg.ln_impl if cfg.pooling == "cls" else "xla",
+                    **kw}
         self.cfg = cfg
         self.patch_embed = PatchEmbed(cfg, **kw)
+        if cfg.pooling == "cls":
+            self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.width, **kw))
         self.pos_embed = nn.Parameter(
             torch.zeros(1, cfg.seq_len, cfg.width, **kw))
+        if cfg.pre_norm:
+            self.ln_pre = _layernorm(cfg.width, cfg.ln_eps, **outer_ln)
         self.encoder = Transformer(cfg.encoder(), **kw)
-        self.ln_post = _layernorm(cfg.width, cfg.ln_eps, **kw)
-        self.head = MAPHead(cfg, **kw)
+        self.ln_post = _layernorm(cfg.width, cfg.ln_eps, **outer_ln)
+        if cfg.pooling == "map":
+            self.head = MAPHead(cfg, **kw)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         size = self.cfg.image_size
@@ -81,9 +100,19 @@ class VisionTower(nn.Module):
             raise ValueError(f"expected {size}x{size} input images (NHWC), "
                              f"got {tuple(images.shape)}")
         x = self.patch_embed(images)
+        if self.cfg.pooling == "cls":
+            # the class token joins before the position add
+            cls = self.cls_token.expand(x.shape[0], 1, x.shape[-1])
+            x = torch.cat([cls.to(x.dtype), x], dim=1)
         x = x + self.pos_embed.to(x.dtype)
-        x = self.encoder(x)
-        return self.head(self.ln_post(x))
+        if self.cfg.pre_norm:
+            x = self.ln_pre(x)
+        x = self.ln_post(self.encoder(x))
+        if self.cfg.pooling == "cls":
+            return x[:, 0]
+        if self.cfg.pooling == "map":
+            return self.head(x)
+        return x
 
     def forward_naflex(self, patches: torch.Tensor,
                        spatial_shapes: torch.Tensor,
@@ -100,10 +129,20 @@ class VisionTower(nn.Module):
         Returns pooled ``(B, width)`` features: the encoder and the MAP head
         attend over the real tokens only.
 
-        The JAX tower refuses this path for a model whose position table
-        was interpolated when an HF checkpoint was loaded
-        (``_pos_table_resampled``); the port loads no HF checkpoint yet, and
-        that guard comes back with HF loading (ROADMAP.md queue 1)."""
+        Refused for a model whose position table was resampled when its HF
+        checkpoint was loaded (``_pos_table_resampled``): resampling it
+        again per sample would diverge from the checkpoint."""
+        cfg = self.cfg
+        if cfg.pooling != "map" or cfg.pre_norm:
+            raise ValueError("forward_naflex targets SigLIP2-style towers "
+                             "(MAP pooling, post-norm)")
+        if self._pos_table_resampled:
+            raise ValueError(
+                "this model's position table was interpolated at load "
+                "(image_size override, or a checkpoint whose NaFlex grid "
+                "differs from the fixed-resolution grid); resampling it "
+                "again per sample would diverge from the checkpoint -- load "
+                "at the native image_size for NaFlex inference")
         # the conv patchifier is the NaFlex Linear: the JAX kernel is HWIO
         # (p, p, C, D), flattened row-major over (row, col, chan), which is
         # this OIHW weight permuted to (H, W, I, O)
@@ -114,7 +153,7 @@ class VisionTower(nn.Module):
         x = patches.to(w_flat.dtype) @ w_flat
         if conv.bias is not None:
             x = x + conv.bias
-        g = int(round(self.cfg.seq_len ** 0.5))
+        g = int(round(cfg.seq_len ** 0.5))
         table = self.pos_embed.reshape(g, g, -1)
         x = x + naflex_position_embedding(table, spatial_shapes,
                                           x.shape[1]).to(x.dtype)

@@ -37,16 +37,17 @@ from jimm_tpu_torch.serve.buckets import BucketTable, pad_batch
 _STOP = object()
 
 
-def image_forward(model: torch.nn.Module
+def image_forward(model: torch.nn.Module, method: str = "encode_image"
                   ) -> Callable[[np.ndarray], torch.Tensor]:
-    """``model.encode_image`` over a numpy batch: the batch moves to the
-    model's device and dtype, and the forward runs under inference mode."""
+    """``model.<method>`` (``"forward"``: the model itself) over a numpy
+    batch: the batch moves to the model's device and dtype, and the forward
+    runs under inference mode."""
     param = next(model.parameters())
+    fn = model if method == "forward" else getattr(model, method)
 
     @torch.inference_mode()
     def forward(batch: np.ndarray) -> torch.Tensor:
-        return model.encode_image(torch.from_numpy(batch).to(param.device,
-                                                             param.dtype))
+        return fn(torch.from_numpy(batch).to(param.device, param.dtype))
 
     return forward
 
