@@ -195,9 +195,47 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                are scaled cosines near 0, which magnify the features'
                bf16 differences); (d) each served tower's
                forward per bucket and the kernels of a bucket-32 forward,
-               with images/s.
+               with images/s. The checkpoints stay for phase 13.
+13. zero-shot -- classification and offline evaluation over phase 12's
+               checkpoints, every path through the kernels and then under
+               the plain versions, each path's launches counted (the text
+               tower once a label set, CLIP's causal; an image batch
+               12 flash and 26 LayerNorm for CLIP, 13 and 24 for SigLIP,
+               12 and 25 for ViT): (a) ``serve --ckpt DIR --model clip``
+               (then ``siglip``, a shorter run) answers /v1/classify for
+               two label sets of 10 labels x 7 templates (70 rows of 77
+               tokens from a synthetic vocabulary in the real layout,
+               written next to the CLIP checkpoint): the first request of
+               a set ``"cached": false``, every repeat true; the class
+               weights (row cosine >= 0.999), the image features (cosine
+               >= 0.999, norms within 1%) and the logits (within eps, below)
+               against the plain versions, the served scores' logits within
+               2 eps; images/s, p50/p99 and the cache's counters; (b)
+               ``classify`` through ``cli.classify_image`` on a decoded
+               uint8 image: CLIP ``--ensemble`` with the checkpoint's own
+               vocabulary, SigLIP ``--tokens-file``, each call twice (the
+               second cached), logits within eps of the plain versions';
+               the CLI on a PNG file where Pillow exists; (c) ``evaluate``
+               (``cli.Evaluation``) at batch 32 over 256 raw 64 x 64
+               examples: ViT-B/16-224 top-1, CLIP-B/16 ``--zero-shot`` (a
+               classes.json of 10 classes, 70 prompt rows) and
+               SigLIP-B/16-256 retrieval R@1 (64-token rows), and ViT over
+               a WebDataset .tar shard where Pillow exists: every logit
+               within eps = 2^-6 S + u of the plain pass's (S
+               exp(logit_scale), or the largest |logit| for ViT's head; u
+               one bf16 step of the largest |logit| where the logits leave
+               the model in bf16), a top-1 moved only where the plain
+               top-1/top-2 margin is under 2 eps, the share of such
+               examples printed, examples/s and the reader's share of the
+               wall time; (d) ``evaluate --naflex`` of a SigLIP2-B/16-256
+               checkpoint written here, 75 examples of mixed aspect (13
+               masked and 12 unmasked flash, 48 LayerNorm a batch), as
+               (c).
 
-Phase 3 also holds the int8 kernels (rows 9, 10 and 11) against their plain
+Phase 3's flash cases include row 3's causal kind at CLIP-B/16's text
+shapes, (32, 77, 8, 64) and the 70 prompt rows of one label set (70, 77,
+8, 64), timed beside SDPA with ``is_causal=True``. Phase 3 also holds the
+int8 kernels (rows 9, 10 and 11) against their plain
 versions: the int8 matmul at the served shapes and odd ones, with bias,
 relu and gelu (yardstick: ``torch._int_mm`` and the epilogue as torch ops);
 the int8-QK flash forward and backward at the train shapes and odd ones
@@ -231,6 +269,7 @@ import base64
 import copy
 import contextlib
 import dataclasses
+import importlib.util
 import io
 import json
 import math
@@ -252,7 +291,11 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 
 from jimm_tpu_torch import _build, cli, configs
+from jimm_tpu_torch.data.clip_tokenizer import CLIPTokenizer, bytes_to_unicode
+from jimm_tpu_torch.data.records import (write_classification_records,
+                                         write_image_text_records)
 from jimm_tpu_torch.data.synthetic import naflex_contrastive_pairs
+from jimm_tpu_torch.data.webdataset import write_wds_shard
 from jimm_tpu_torch.models.siglip import SigLIP
 from jimm_tpu_torch.nn import norm as norm_mod
 from jimm_tpu_torch.ops import attention as attention_mod
@@ -264,12 +307,15 @@ from jimm_tpu_torch.ops import layer_norm as ln
 from jimm_tpu_torch.quant.policy import apply_precision_policy
 from jimm_tpu_torch.serve.admission import AdmissionPolicy
 from jimm_tpu_torch.serve.buckets import BucketTable
+from jimm_tpu_torch.serve.cache import EmbeddingCache
 from jimm_tpu_torch.serve.engine import InferenceEngine, image_forward
 from jimm_tpu_torch.serve.server import ServingServer
 from jimm_tpu_torch.train.metrics import mfu, train_step_flops
 from jimm_tpu_torch.train.trainer import (OptimizerConfig, contrastive_loss_fn,
                                           make_contrastive_train_step,
                                           make_optimizer)
+from jimm_tpu_torch.utils.zero_shot import (TEMPLATES, token_table_rows,
+                                            weights_from_rows)
 from jimm_tpu_torch.weights.resolve import resolve_checkpoint
 
 #: H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W)
@@ -415,6 +461,45 @@ CKPT_LN_PER_BATCH = {"vit": 25, "clip": 26}
 CLIP_TEXT_SHAPE = (32, 77)
 CLIP_TEXT_FLASH = 12
 CLIP_TEXT_LN = 24
+#: phase 13: the label sets of 13(a) (10 labels x the 7 TEMPLATES = 70
+#: prompt rows at 77 tokens each), of 13(b) and of 13(c)'s classes.json,
+#: each its own so that no part finds another's class weights cached
+ZS_LABEL_SETS = (
+    ("cat", "dog", "bird", "fish", "horse", "frog", "ship", "truck",
+     "plane", "deer"),
+    ("apple", "pear", "plum", "lemon", "melon", "grape", "peach", "lime",
+     "fig", "date"),
+    ("oak", "pine", "elm", "ash", "birch", "maple", "cedar", "fir",
+     "yew", "palm"),
+    ("red", "blue", "green", "black", "white", "gray", "pink", "brown",
+     "gold", "teal"))
+#: 13(a): single requests per label set, the first alone, the rest from
+#: 16 client threads (SigLIP's run is the shorter one)
+ZS_REQUESTS = {"clip": (48, 16), "siglip": (16, 8)}
+#: per-batch launches of the image towers (CLIP: 12 flash, the blocks' 24
+#: LayerNorms with ln_pre and ln_post; SigLIP: 12 blocks and the MAP
+#: probe, 24 LayerNorms) and per encode_text of the text towers (12
+#: flash, causal in CLIP's, and 24 LayerNorms; ln_final stays
+#: nn.LayerNorm)
+IMAGE_LAUNCHES = {"vit": (12, 25), "clip": (12, 26), "siglip": (13, 24)}
+TEXT_LAUNCHES = (12, 24)
+#: 13(c): examples a dataset, 64 x 64 raw images read back and resized
+#: to each model's size, at evaluate's batch of 32; 13(d): NaFlex images
+#: of mixed aspect, 75 examples (the last batch of 11)
+EVAL_EXAMPLES = 256
+EVAL_BATCH = 32
+EVAL_IMAGE = 64
+NAFLEX_EVAL_EXAMPLES = 75
+NAFLEX_EVAL_SIZES = ((48, 96), (64, 64), (96, 48), (40, 120), (80, 64))
+#: 13(c), (d): the bound on a logit's error through the kernels against
+#: the plain versions, eps = 2^-6 S + u, where S is exp(logit_scale)
+#: (CLIP, SigLIP) or the largest |logit| of the plain pass (ViT's head),
+#: and u one bf16 step of that largest |logit| where the logits leave the
+#: model in bf16 (ViT, retrieval; the zero-shot logits are f32). An
+#: example can change its top-1 only where the plain pass's top-1/top-2
+#: margin is below 2 eps (PERF.md section 6 gives the derivation, written
+#: before the first run that checked it)
+LOGITS_EPS = 2.0**-6
 #: the refusal of "flash" with a key-padding mask and a bias, word for word
 #: as jimm_tpu/ops/attention.py raises it
 FLASH_MASKED_BIAS_ERROR = ("flash_masked does not take a bias; use "
@@ -1626,7 +1711,10 @@ def kernel_phase(card: str) -> dict[str, dict]:
                 ((2, 5, 2, 80), 5, False), ((2, 5, 2, 80), 5, True),
                 ((2, 257, 2, 64), 257, True), ((2, 257, 2, 80), 257, False),
                 ((2, 1, 2, 80), 257, False), ((1, 70, 1, 256), 130, True),
-                ((2, 257, 2, 256), 257, False)]):
+                ((2, 257, 2, 256), 257, False),
+                # CLIP-B/16's causal text tower: a (32, 77) batch, and the
+                # 70 prompt rows of one label set (10 labels x 7 templates)
+                ((32, 77, 8, 64), 77, True), ((70, 77, 8, 64), 77, True)]):
             add("flash_attention",
                 flash_case(qshape, sk, causal, dtype, 10 + i))
         # the train step's shapes (batch 128: image and text rows), the
@@ -1779,9 +1867,10 @@ def kernel_phase(card: str) -> dict[str, dict]:
 
 # -- phase 4: serve ----------------------------------------------------------
 
-def _post(port: int, payload: dict) -> tuple[float, dict]:
+def _post(port: int, payload: dict, path: str = "/v1/embed"
+          ) -> tuple[float, dict]:
     body = json.dumps(payload).encode()
-    req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/embed",
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
                                  data=body, method="POST",
                                  headers={"Content-Type": "application/json"})
     t0 = time.perf_counter()
@@ -2869,10 +2958,10 @@ def checkpoint_round_trips(card: str, root: pathlib.Path
               f"card {load_s:.3f} s; every parameter equal, keys and config "
               f"equal | {card}", flush=True)
         del model, loaded, weights
-        if fam in ("vit", "clip"):
-            dirs[fam] = d
-        else:
+        if flavor:
             shutil.rmtree(d)
+        else:
+            dirs[fam] = d
     return dirs
 
 
@@ -2981,19 +3070,462 @@ def clip_text_phase(card: str, model, images: torch.Tensor) -> dict:
     return dict(counts, batches=0)
 
 
-def checkpoint_phase(card: str) -> dict[str, dict]:
-    """Phase 12: the round trips, the ViT and CLIP servers from their
-    checkpoints, CLIP's text tower; the counts of each path."""
-    with tempfile.TemporaryDirectory() as tmp:
-        ckpts = checkpoint_round_trips(card, pathlib.Path(tmp))
-        vit_counts, model, _ = checkpoint_serve_phase(card, "vit",
-                                                      ckpts["vit"])
-        del model
-        clip_counts, model, batch = checkpoint_serve_phase(card, "clip",
-                                                           ckpts["clip"])
+def checkpoint_phase(card: str, root: pathlib.Path
+                     ) -> tuple[dict[str, dict], dict[str, pathlib.Path]]:
+    """Phase 12: the round trips (checkpoints under ``root``), the ViT and
+    CLIP servers from their checkpoints, CLIP's text tower; the counts of
+    each path and the checkpoint directories."""
+    ckpts = checkpoint_round_trips(card, root)
+    vit_counts, model, _ = checkpoint_serve_phase(card, "vit", ckpts["vit"])
+    del model
+    clip_counts, model, batch = checkpoint_serve_phase(card, "clip",
+                                                       ckpts["clip"])
     text_counts = clip_text_phase(card, model, batch)
     return {"vit_serve": vit_counts, "clip_serve": clip_counts,
-            "clip_text": text_counts}
+            "clip_text": text_counts}, ckpts
+
+
+# -- phase 13: zero-shot classification and offline evaluation ---------------
+
+def write_clip_vocab(d: pathlib.Path) -> None:
+    """A synthetic CLIP vocabulary in the real layout: ``vocab.json`` with
+    the byte alphabet (``bytes_to_unicode``), its ``</w>`` forms, a few
+    merged tokens and the specials last (so EOT is the largest id), and
+    ``merges.txt``."""
+    alphabet = list(bytes_to_unicode().values())
+    merges = [("t", "h"), ("th", "e</w>"), ("c", "a"), ("ca", "t</w>"),
+              ("p", "h"), ("ph", "o"), ("o", "f</w>"), ("i", "n"),
+              ("a", "n"), ("an", "d</w>"), ("e", "r</w>"), ("a", "</w>")]
+    tokens = (alphabet + [ch + "</w>" for ch in alphabet]
+              + ["".join(m) for m in merges]
+              + ["<|startoftext|>", "<|endoftext|>"])
+    (d / "vocab.json").write_text(
+        json.dumps({t: i for i, t in enumerate(tokens)}), encoding="utf-8")
+    (d / "merges.txt").write_text(
+        "#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in merges) + "\n",
+        encoding="utf-8")
+
+
+def prompt_table(tok: CLIPTokenizer, labels, templates=TEMPLATES) -> dict:
+    """``{label: [[ids] for each template]}``: a /v1/classify or
+    ``--zero-shot`` token table."""
+    return {label: [tok.encode(t.format(label)) for t in templates]
+            for label in labels}
+
+
+@contextlib.contextmanager
+def causal_flags():
+    """Records the ``is_causal`` flag of every flash forward launched
+    inside (from any thread)."""
+    flags: list[bool] = []
+    real = fa._fwd
+
+    def spy(q, k, v, is_causal, mask=None):
+        flags.append(bool(is_causal))
+        return real(q, k, v, is_causal, mask)
+
+    with mock.patch.object(fa, "_fwd", spy):
+        yield flags
+
+
+def expect_launches(what: str, counts: dict, flags: list[bool], fam: str,
+                    batches: int, encodes: int, masked: bool = False
+                    ) -> None:
+    """``batches`` image forwards of ``fam``'s tower and ``encodes`` text
+    tower runs launched these kernels and no other: CLIP's text attention
+    causal, every other flash call not; ``masked``: the image tower on the
+    masked kernels (NaFlex)."""
+    img_flash, img_ln = IMAGE_LAUNCHES[fam]
+    txt_flash, txt_ln = TEXT_LAUNCHES
+    want = {"flash_attention": encodes * txt_flash
+            + (0 if masked else batches * img_flash),
+            "flash_attention_masked": batches * img_flash if masked else 0,
+            "layer_norm": encodes * txt_ln + batches * img_ln}
+    causal = encodes * txt_flash if fam == "clip" else 0
+    ok = (all(counts[k] == n for k, n in want.items())
+          and sum(counts.values()) == sum(want.values())
+          and flags.count(True) == causal)
+    check(ok, f"{what}: launches {counts}, causal flags {flags.count(True)} "
+              f"of {len(flags)}; want {want}, {causal} causal "
+              f"({batches} image batches, {encodes} text encodes)")
+    print(f"{what}: {batches} image batches and {encodes} text encodes: "
+          + ", ".join(f"{k} {n}" for k, n in want.items() if n)
+          + f" launches ({causal} causal) as expected", flush=True)
+
+
+def logits_bound(kind: str, model, plain: np.ndarray) -> float:
+    """13(c)'s eps for this pass (see ``LOGITS_EPS``)."""
+    largest = float(np.abs(plain).max())
+    scale = (largest if kind == "top1"
+             else float(np.exp(np.float32(model.logit_scale.item()))))
+    ulp = (2.0 ** (math.floor(math.log2(largest)) - 7)
+           if kind != "zero_shot" and largest > 0 else 0.0)
+    return LOGITS_EPS * scale + ulp
+
+
+def _top2_margin(logits: np.ndarray, axis: int) -> np.ndarray:
+    if logits.shape[axis] < 2:
+        return np.full(logits.shape[1 - axis], np.inf)
+    top = -np.sort(-logits, axis=axis)
+    top = top if axis == 1 else top.T
+    return top[:, 0] - top[:, 1]
+
+
+def zero_shot_serve_phase(card: str, fam: str, ckpt: pathlib.Path,
+                          vocab: CLIPTokenizer) -> dict:
+    """13(a): ``serve --ckpt CKPT --model FAM --dtype bf16 --ln-impl
+    fused`` (buckets 1, 8, 32) answers /v1/classify for two label sets of
+    10 labels x the 7 TEMPLATES: the first request of each set alone
+    (``"cached": false``: the text tower runs), the rest from 16 client
+    threads (``"cached": true``: only the image tower). Gates: the
+    launches (the text tower once a label set), the class weights against
+    the plain versions' (row-wise cosine), the image features (cosine,
+    norms), and the logits within eps: from the served scores and from the
+    kernels' features against the plain versions'."""
+    label = f"{fam} classify serve"
+    t0 = time.perf_counter()
+    server, model, ready = cli.build_server(cli.build_parser().parse_args([
+        "serve", "--ckpt", str(ckpt), "--model", fam, "--device", "cuda",
+        "--dtype", "bf16", "--ln-impl", "fused", "--buckets", "1,8,32",
+        "--port", "0", "--max-delay-ms", "10", "--queue-size", "256",
+        "--timeout-s", "120"]))
+    check(ready["zero_shot"], f"{label}: ready line {ready}")
+    print(f"{label}: built and warmed in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    zs = server.zero_shot
+    zs.cache = EmbeddingCache()
+    sets = ZS_REQUESTS[fam]
+    tables = [prompt_table(vocab, names) for names in ZS_LABEL_SETS[:2]]
+    size = model.config.vision.image_size
+    rng = np.random.default_rng(13)
+    images = rng.uniform(-1, 1, (sum(sets), size, size, 3)).astype(
+        np.float32)
+    answers = []  # (label set, seconds, answer) in image order
+    try:
+        zero_counts()
+        with causal_flags() as flags:
+            t_start = time.perf_counter()
+            i = 0
+            for si, (table, n) in enumerate(zip(tables, sets)):
+                def ask(img, table=table):
+                    return _post(server.port, {**_b64(img), "tokens": table},
+                                 "/v1/classify")
+
+                answers.append((si, *ask(images[i])))
+                with ThreadPoolExecutor(16) as pool:
+                    answers += [(si, *a)
+                                for a in pool.map(ask, images[i + 1:i + n])]
+                i += n
+            wall = time.perf_counter() - t_start
+        counts = read_counts()
+        batches = server.engine.metrics.count("batches_total")
+        stats = zs.cache.stats()
+        weights = [zs.class_weights_blocking(t)[1] for t in tables]
+    finally:
+        server.stop()
+    first = [sum(sets[:si]) for si in range(len(sets))]
+    cached = [a["cached"] for _, _, a in answers]
+    check(all(cached[j] == (j not in first) for j in range(len(cached))),
+          f"{label}: cached flags {cached}")
+    expect_launches(label, counts, flags, fam, batches, len(sets))
+    # the class weights against the plain versions', row by row (unit rows)
+    ctx = model.config.text.context_length
+    rows_cos = []
+    with plain_versions():
+        for table, w in zip(tables, weights):
+            names, rows, owner = token_table_rows(table, ctx)
+            ref = weights_from_rows(model, rows, owner, len(names)).numpy()
+            rows_cos.append((w * ref).sum(1) / np.linalg.norm(w, axis=1)
+                            / np.linalg.norm(ref, axis=1))
+    rows_cos = np.concatenate(rows_cos)
+    check(bool((rows_cos >= SERVE_MIN_COS).all()),
+          f"{label}: class weights vs plain: min cosine {rows_cos.min()}")
+    # the logits: kernel features and weights against the plain versions'
+    batch = torch.from_numpy(images).to("cuda", torch.bfloat16)
+    feats = {"kernels": encode_all(model, batch),
+             "plain": encode_all(model, batch, plain=True)}
+    ref_w = []
+    with plain_versions():
+        for table in tables:
+            names, rows, owner = token_table_rows(table, ctx)
+            ref_w.append(weights_from_rows(model, rows, owner,
+                                           len(names)).numpy())
+
+    def logits(f: np.ndarray, w: np.ndarray) -> np.ndarray:
+        f = f / np.linalg.norm(f, axis=-1, keepdims=True)
+        out = zs._scale * f @ w.T
+        return out if zs._bias is None else out + zs._bias
+
+    feat_cos, feat_norm = served_gate(feats["kernels"], feats["plain"],
+                                      f"{label}: image features")
+    set_of = [si for si, _, _ in answers]
+    got = np.stack([logits(feats["kernels"][j], weights[si])
+                    for j, si in enumerate(set_of)])
+    ref = np.stack([logits(feats["plain"][j], ref_w[si])
+                    for j, si in enumerate(set_of)])
+    # the logits are exp(logit_scale) times cosines between the towers,
+    # near 0 for untrained ones, so a row's cosine magnifies the features'
+    # bf16 differences (gated above): they are held to eps, a reading
+    # printed beside the cosine
+    eps = LOGITS_EPS * zs._scale
+    err = np.abs(got - ref).max()
+    cos = (got * ref).sum(1) / (np.linalg.norm(got, axis=1)
+                                * np.linalg.norm(ref, axis=1))
+    check(err <= eps, f"{label}: logits vs plain: max abs error {err} > "
+                      f"eps {eps} (min cosine {cos.min()})")
+    # the served scores carry their logits: CLIP's softmax up to a constant
+    # (compared centered), SigLIP's sigmoid exactly
+    names = [list(t) for t in tables]
+    scores = np.stack([[a["scores"][k] for k in names[si]]
+                       for si, _, a in answers])
+    check(bool((scores > 0).all()), f"{label}: a score rounded to 0")
+    if fam == "clip":
+        served = np.log(scores)
+        served -= served.mean(1, keepdims=True)
+        want = ref - ref.mean(1, keepdims=True)
+    else:
+        served, want = np.log(scores / (1 - scores)), ref
+    served_err = np.abs(served - want).max()
+    check(served_err <= 2 * eps,
+          f"{label}: served scores' logits vs plain: max abs error "
+          f"{served_err} > {2 * eps}")
+    lat = np.asarray([s for j, (_, s, _) in enumerate(answers)
+                      if j not in first]) * 1e3
+    print(f"{label}: class weights min cosine {rows_cos.min():.6f}; image "
+          f"features min cosine {feat_cos.min():.6f}, norms within "
+          f"{feat_norm.max():.2e}; logits max abs error {err:.3e} = "
+          f"{err / zs._scale:.2e} of exp(logit_scale) {zs._scale:.3f} (eps "
+          f"{eps:.4f}); readings: logits min cosine {cos.min():.6f}, mean "
+          f"|cosine| between the towers "
+          f"{np.abs(ref - (zs._bias or 0.0)).mean() / zs._scale:.4f}; served scores' logits within "
+          f"{served_err:.3e} of the plain versions' (gate {2 * eps:.3f})",
+          flush=True)
+    print(f"{label}: {len(answers)} /v1/classify requests, {batches} "
+          f"batches: {len(answers) / wall:.1f} images/s; cached-request "
+          f"latency p50 {np.percentile(lat, 50):.2f} ms p99 "
+          f"{np.percentile(lat, 99):.2f} ms (16 client threads); first "
+          f"request of each set {[f'{answers[j][1] * 1e3:.1f}' for j in first]}"
+          f" ms; cache {stats} | {card}", flush=True)
+    del model, server
+    return dict(counts, batches=batches)
+
+
+def classify_phase(card: str, ckpts: dict[str, pathlib.Path],
+                   vocab: CLIPTokenizer, root: pathlib.Path) -> dict:
+    """13(b): ``classify`` through ``cli.classify_image`` on a decoded
+    uint8 image (300 x 400, which CLIP center-crops): CLIP with
+    ``--ensemble`` and the checkpoint's own vocabulary, SigLIP with a
+    ``--tokens-file`` of one template; twice each (the text tower on the
+    first call only), then under the plain versions with a fresh cache.
+    Where Pillow exists, also the CLI on a PNG file."""
+    rng = np.random.default_rng(131)
+    image = rng.integers(0, 256, (300, 400, 3), dtype=np.uint8)
+    tokens_file = root / "siglip_tokens.json"
+    tokens_file.write_text(json.dumps(
+        {k: v[0] for k, v in prompt_table(
+            vocab, ZS_LABEL_SETS[2], ("a photo of a {}",)).items()}))
+    argvs = {
+        "clip": ["--labels", ",".join(ZS_LABEL_SETS[2]), "--ensemble"],
+        "siglip": ["--tokens-file", str(tokens_file)]}
+    counts = {}
+    for fam, extra in argvs.items():
+        label = f"{fam} classify"
+        argv = ["classify", str(root / "image.png"), "--ckpt",
+                str(ckpts[fam]), "--model", fam, *extra, "--bf16",
+                "--ln-impl", "fused", "--device", "cuda"]
+        args = cli.build_parser().parse_args(argv)
+        zero_counts()
+        with causal_flags() as flags:
+            t0 = time.perf_counter()
+            out = cli.classify_image(args, image)
+            t1 = time.perf_counter()
+            again = cli.classify_image(args, image)
+            t2 = time.perf_counter()
+        launched = read_counts()
+        counts[fam] = dict(launched, batches=2)
+        check(not out["cached"] and again["cached"],
+              f"{label}: cached {out['cached']} then {again['cached']}")
+        expect_launches(label, launched, flags, fam, 2, 1)
+        with plain_versions():
+            ref = cli.classify_image(args, image, cache=EmbeddingCache())
+        got, want = out["logits"], ref["logits"]
+        cos = float(got @ want / np.linalg.norm(got) / np.linalg.norm(want))
+        err = float(np.abs(got - want).max())
+        scale = float(np.exp(np.float32(cli.MODELS[fam].from_pretrained(
+            ckpts[fam], device="cuda", dtype=torch.bfloat16
+        ).logit_scale.item())))
+        check(err <= LOGITS_EPS * scale,
+              f"{label}: logits vs plain: max abs error {err} > eps "
+              f"{LOGITS_EPS * scale} (cosine {cos})")
+        best = np.argsort(-out["scores"])[:3]
+        print(f"{label}: {len(out['labels'])} labels "
+              f"({' '.join(extra[::2])}): top "
+              + ", ".join(f"{out['labels'][i]} {out['scores'][i]:.4f}"
+                          for i in best)
+              + f"; logits max abs error {err:.3e} (eps "
+              f"{LOGITS_EPS * scale:.4f}), cosine {cos:.6f} against the plain "
+              f"versions; first call {t1 - t0:.3f} s (load, text "
+              f"tower, image), cached call {t2 - t1:.3f} s | {card}",
+              flush=True)
+        if importlib.util.find_spec("PIL") is None:
+            print(f"{label}: the classify CLI on a PNG file: not driven "
+                  f"(no Pillow on this machine)", flush=True)
+            continue
+        from PIL import Image
+        Image.fromarray(image).save(root / "image.png")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            check(cli.main(argv) == 0, f"{label}: the CLI failed")
+        lines = buf.getvalue().strip().splitlines()
+        check(len(lines) == len(out["labels"]), f"{label}: CLI said {lines}")
+        print(f"{label}: the classify CLI on a PNG file: {lines[0].strip()}",
+              flush=True)
+    return {"classify_clip": counts["clip"],
+            "classify_siglip": counts["siglip"]}
+
+
+def write_eval_shards(root: pathlib.Path, vocab: CLIPTokenizer
+                      ) -> dict[str, pathlib.Path]:
+    """13(c) and (d)'s datasets, ``encoding="raw"`` (no Pillow needed):
+    classification shards (two, labels 0-9, a classes.json of 13(c)'s
+    labels) with a ``--zero-shot`` table of the 7 templates, image-text
+    shards with 64-token rows for SigLIP, and NaFlex image-text shards of
+    mixed aspect with ids of SigLIP2's vocabulary."""
+    rng = np.random.default_rng(132)
+    paths = {k: root / k for k in ("cls", "pairs", "naflex")}
+    for p in paths.values():
+        p.mkdir()
+    half = EVAL_EXAMPLES // 2
+
+    def image(h: int = EVAL_IMAGE, w: int = EVAL_IMAGE) -> np.ndarray:
+        return rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+
+    pairs = [(image(), int(rng.integers(0, 10)))
+             for _ in range(EVAL_EXAMPLES)]
+    for i, part in enumerate((pairs[:half], pairs[half:])):
+        write_classification_records(
+            paths["cls"] / f"part-{i:05d}.tfrecord", part, encoding="raw")
+    names = ZS_LABEL_SETS[3]
+    (paths["cls"] / "classes.json").write_text(json.dumps(list(names)))
+    paths["tokens"] = root / "zero_shot.json"
+    paths["tokens"].write_text(json.dumps(prompt_table(vocab, names)))
+    write_image_text_records(
+        paths["pairs"] / "part-00000.tfrecord",
+        [(image(), rng.integers(1, 32000, 64).tolist())
+         for _ in range(EVAL_EXAMPLES)], encoding="raw")
+    write_image_text_records(
+        paths["naflex"] / "part-00000.tfrecord",
+        [(image(*NAFLEX_EVAL_SIZES[i % len(NAFLEX_EVAL_SIZES)]),
+          rng.integers(1, 256000, 64).tolist())
+         for i in range(NAFLEX_EVAL_EXAMPLES)], encoding="raw")
+    return paths
+
+
+def evaluate_phase(card: str, what: str, argv: list[str], fam: str,
+                   masked: bool = False) -> dict:
+    """One ``evaluate`` (13(c), (d)) as the command runs it
+    (``cli.Evaluation``), through the kernels and then under the plain
+    versions: its JSON line, the launches, examples/s and the reader's
+    share of the wall time; every logit within eps of the plain pass's,
+    and an example's top-1 (each way for retrieval) changed only where
+    the plain pass's top-1/top-2 margin is below 2 eps."""
+    args = cli.build_parser().parse_args(
+        ["evaluate", *argv, "--batch-size", str(EVAL_BATCH), "--bf16",
+         "--ln-impl", "fused", "--device", "cuda"])
+    zero_counts()
+    with causal_flags() as flags:
+        ev = cli.Evaluation(args)
+        kernel = list(ev.logits())
+    counts = read_counts()
+    n = sum(len(t) for _, t in kernel)
+    encodes = len(kernel) if ev.kind == "retrieval" else int(
+        ev.kind == "zero_shot")
+    expect_launches(f"evaluate {what}", counts, flags, fam, len(kernel),
+                    encodes, masked)
+    summary = ev.summary(kernel)
+    reader_s, wall_s = ev.reader_s, ev.wall_s
+    with plain_versions():
+        plain = list(cli.Evaluation(args).logits())
+    eps = logits_bound(ev.kind, ev.model,
+                       np.concatenate([p.ravel() for p, _ in plain]))
+    err = max(float(np.abs(k - p).max()) for (k, _), (p, _) in
+              zip(kernel, plain))
+    check(err <= eps, f"evaluate {what}: logits max abs error {err} > eps "
+                      f"{eps}")
+    readings = []
+    for axis in ((1, 0) if ev.kind == "retrieval" else (1,)):
+        hits, flips, near = [0, 0], 0, 0
+        for (k, t), (p, _) in zip(kernel, plain):
+            ak, ap = k.argmax(axis), p.argmax(axis)
+            close = _top2_margin(p, axis) < 2 * eps
+            check(not bool(((ak != ap) & ~close).any()),
+                  f"evaluate {what}: a top-1 moved where the plain margin "
+                  f"is >= 2 eps ({2 * eps})")
+            hits[0] += int((ak == t).sum())
+            hits[1] += int((ap == t).sum())
+            flips += int((ak != ap).sum())
+            near += int(close.sum())
+        check(abs(hits[0] - hits[1]) <= near,
+              f"evaluate {what}: hits {hits} differ by more than the "
+              f"{near} examples under the margin")
+        readings.append(f"{'rows' if axis == 1 else 'columns'}: hits "
+                        f"{hits[0]} (plain {hits[1]}), {flips} top-1 moved, "
+                        f"{near / n:.3f} of the examples under the margin")
+    print(f"evaluate {what}: {json.dumps(summary)}; logits max abs error "
+          f"{err:.3e}, eps {eps:.4f}; " + "; ".join(readings), flush=True)
+    print(f"evaluate {what}: {n} examples in {wall_s:.3f} s, "
+          f"{n / wall_s:.1f} examples/s, the reader (decode, resize, "
+          f"normalize on the host) {reader_s:.3f} s = "
+          f"{reader_s / wall_s:.1%} of the wall time | {card}", flush=True)
+    return dict(counts, batches=len(kernel))
+
+
+def zero_shot_phase(card: str, ckpts: dict[str, pathlib.Path],
+                    root: pathlib.Path) -> dict[str, dict]:
+    """Phase 13 over phase 12's checkpoints: (a) /v1/classify, (b)
+    ``classify``, (c) ``evaluate`` of ViT, CLIP ``--zero-shot`` and
+    SigLIP retrieval, (d) ``evaluate --naflex`` of a SigLIP2-B/16-256
+    checkpoint written here; the launch counts of each path."""
+    write_clip_vocab(ckpts["clip"])
+    vocab = CLIPTokenizer.from_dir(ckpts["clip"])
+    counts = {f"zero_shot_serve_{fam}": zero_shot_serve_phase(
+        card, fam, ckpts[fam], vocab) for fam in ("clip", "siglip")}
+    torch.cuda.empty_cache()
+    counts.update(classify_phase(card, ckpts, vocab, root))
+    data = write_eval_shards(root, vocab)
+    for name, fam, argv in (
+            ("vit top-1", "vit", ["--data", str(data["cls"])]),
+            ("clip --zero-shot", "clip", ["--data", str(data["cls"]),
+                                          "--zero-shot",
+                                          str(data["tokens"])]),
+            ("siglip retrieval", "siglip", ["--data", str(data["pairs"])])):
+        counts[f"evaluate_{fam}"] = evaluate_phase(
+            card, name, argv + ["--ckpt", str(ckpts[fam]), "--model", fam],
+            fam)
+    if importlib.util.find_spec("PIL") is None:
+        print("evaluate: a WebDataset .tar shard: not driven (its members "
+              "are PNG/JPEG, and this machine has no Pillow)", flush=True)
+    else:
+        rng = np.random.default_rng(133)
+        (root / "tar").mkdir()
+        write_wds_shard(root / "tar" / "shard-000.tar", [
+            {"image": rng.integers(0, 256, (EVAL_IMAGE, EVAL_IMAGE, 3),
+                                   dtype=np.uint8),
+             "label": int(rng.integers(0, 1000))} for _ in range(40)])
+        evaluate_phase(card, "vit top-1 (.tar)", [
+            "--data", str(root / "tar"), "--ckpt", str(ckpts["vit"]),
+            "--model", "vit"], "vit")
+    # (d) SigLIP2-B/16-256 (NaFlex: the masked kernels in the image tower)
+    cfg = configs.preset(NAFLEX_PRESET)
+    model = SigLIP(cfg, device="cuda", dtype=torch.bfloat16,
+                   generator=torch.Generator(device="cuda").manual_seed(13))
+    model.save_pretrained(root / "siglip2", flavor="siglip2")
+    del model
+    counts["evaluate_naflex"] = evaluate_phase(
+        card, "siglip2 --naflex retrieval",
+        ["--data", str(data["naflex"]), "--ckpt", str(root / "siglip2"),
+         "--model", "siglip", "--naflex"], "siglip", masked=True)
+    return counts
 
 
 def main() -> int:
@@ -3055,8 +3587,12 @@ def main() -> int:
         bias_counts = bias_train_phase(card)
         bias_routing_phase(card)
         done("bias")
-        ckpt_counts = checkpoint_phase(card)
-        done("checkpoints")
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt_counts, ckpts = checkpoint_phase(card, pathlib.Path(tmp))
+            done("checkpoints")
+            zero_shot_counts = zero_shot_phase(card, ckpts,
+                                               pathlib.Path(tmp))
+            done("zero-shot")
         check(all(math.isfinite(timed[k]["ms"]) for k in timed), "bad timing")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
@@ -3073,7 +3609,7 @@ def main() -> int:
              "naflex": naflex_counts, "int8_serve": int8_serve_counts,
              "int8_qk": int8_qk_counts, "fp8_hybrid": fp8_counts,
              "sigmoid": sigmoid_counts, "bias": bias_counts,
-             **ckpt_counts}
+             **ckpt_counts, **zero_shot_counts}
     steps = {"train": CLI_STEPS, "naflex": CLI_STEPS, "int8_qk": CLI_STEPS,
              "fp8_hybrid": CLI_STEPS, "sigmoid": TRAIN_STEPS}
     main_path = {"flash_attention_masked": "naflex",

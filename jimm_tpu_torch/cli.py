@@ -1,4 +1,5 @@
-"""Command line: ``python -m jimm_tpu_torch serve|train``.
+"""Command line: ``python -m jimm_tpu_torch
+serve|train|classify|evaluate|prepare-data``.
 
 ``serve`` loads a local HF checkpoint (``--ckpt DIR --model
 vit|clip|siglip``) or builds a preset of any family (randomly initialised
@@ -8,7 +9,9 @@ head) behind the micro-batching engine and the HTTP front end, warms every
 bucket, and prints one JSON ready line with ``"status": "serving"``.
 ``--dtype int8`` builds or loads the model in f32 and swaps every eligible
 Linear for a W8A8 ``QuantLinear`` before any forward
-(``jimm_tpu_torch.quant``).
+(``jimm_tpu_torch.quant``). A CLIP or SigLIP server also answers
+``/v1/classify`` (zero-shot scores; the class weights cached per label
+set).
 
 ``train`` trains a SigLIP preset contrastively on synthetic pairs
 (``data/synthetic.py``) with AdamW, clipping and the warmup-cosine schedule
@@ -19,6 +22,12 @@ images as padded patch sequences with a key-padding mask). ``--precision
 int8_qk`` runs every attention on the int8-QK flash kernels, ``--precision
 fp8_hybrid`` every eligible Linear on the fp8 matmul with delayed scaling
 (``jimm_tpu_torch.quant.policy``).
+
+``classify`` scores one image against a label set with a CLIP or SigLIP
+checkpoint (zero-shot); ``evaluate`` runs one pass over TFRecord or
+WebDataset shards (ViT top-1, CLIP/SigLIP in-batch retrieval R@1, or
+zero-shot top-1 from a token table); ``prepare-data`` writes such TFRecord
+shards from image files.
 """
 
 from __future__ import annotations
@@ -26,14 +35,25 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import time
+from pathlib import Path
+from typing import Iterator
 
+import numpy as np
 import torch
 
 from jimm_tpu_torch.configs import (PRESETS, CLIPConfig, SigLIPConfig,
                                     ViTConfig, family, preset, with_runtime)
+from jimm_tpu_torch.data import records, webdataset
+from jimm_tpu_torch.data.clip_tokenizer import CLIPTokenizer
+from jimm_tpu_torch.data.naflex import patchify_naflex
+from jimm_tpu_torch.data.preprocess import (CLIP_MEAN, CLIP_STD, SIGLIP_MEAN,
+                                            SIGLIP_STD, preprocess_batch,
+                                            to_float_normalized)
 from jimm_tpu_torch.data.synthetic import (contrastive_pairs,
                                             naflex_contrastive_pairs)
+from jimm_tpu_torch.data.tfrecord import TFRecordWriter, encode_example
 from jimm_tpu_torch.models.clip import CLIP
 from jimm_tpu_torch.models.common import resolve_device
 from jimm_tpu_torch.models.siglip import SigLIP
@@ -44,13 +64,19 @@ from jimm_tpu_torch.quant.policy import POLICIES, apply_precision_policy
 from jimm_tpu_torch.serve.admission import AdmissionPolicy
 from jimm_tpu_torch.serve.buckets import BucketTable, default_buckets
 from jimm_tpu_torch.serve.engine import InferenceEngine, image_forward
-from jimm_tpu_torch.serve.server import ServingServer
+from jimm_tpu_torch.serve.cache import (EmbeddingCache, class_embedding_cache,
+                                        prompt_set_key)
+from jimm_tpu_torch.serve.server import ServingServer, ZeroShotService
 from jimm_tpu_torch.train.metrics import (MetricsLogger, StepTimer,
                                           device_peak_tflops, mfu,
                                           train_step_flops)
 from jimm_tpu_torch.train.trainer import (OptimizerConfig,
                                           make_contrastive_train_step,
                                           make_optimizer)
+from jimm_tpu_torch.utils.zero_shot import (TEMPLATES, expand_templates,
+                                            token_table_rows,
+                                            weights_from_rows,
+                                            zero_shot_logits_from_features)
 
 #: serving dtypes: int8 is the f32 model with its Linears quantized
 _SERVE_DTYPES = ("bf16", "f32", "int8")
@@ -133,6 +159,8 @@ def build_server(args: argparse.Namespace
         name = f"{fam}:{args.preset}" + (":tiny" if args.tiny else "")
     param = next(model.parameters())
     vision = model.config.vision
+    zero_shot = (ZeroShotService(model, model_key=f"{name}:{args.dtype}")
+                 if fam in ("clip", "siglip") else None)
     buckets = (BucketTable(tuple(int(s) for s in args.buckets.split(",")))
                if args.buckets else default_buckets(args.device))
     engine = InferenceEngine(
@@ -141,7 +169,8 @@ def build_server(args: argparse.Namespace
         buckets=buckets, max_delay_ms=args.max_delay_ms,
         policy=AdmissionPolicy(max_queue=args.queue_size,
                                default_timeout_s=args.timeout_s))
-    server = ServingServer(engine, host=args.host, port=args.port)
+    server = ServingServer(engine, host=args.host, port=args.port,
+                           zero_shot=zero_shot)
     t0 = time.monotonic()
     server.start()
     ready = {"status": "serving", "host": args.host, "port": server.port,
@@ -150,6 +179,7 @@ def build_server(args: argparse.Namespace
                        else str(param.dtype).removeprefix("torch.")),
              "quantized_layers": quantized,
              "buckets": list(buckets.sizes),
+             "zero_shot": zero_shot is not None,
              "warmup_s": round(time.monotonic() - t0, 3)}
     return server, model, ready
 
@@ -278,6 +308,480 @@ def cmd_train(args: argparse.Namespace) -> int:
     return 0
 
 
+# -- file datasets, zero-shot classification, evaluation ----------------------
+
+#: options of the JAX commands that need parts the port does not have yet ->
+#: where the ROADMAP queues them
+_INDEX_NOT_PORTED = ("--index is not ported yet: the retrieval vector store, "
+                     "ROADMAP.md queue 1, item 9 (retrieval)")
+_RUN_NOT_PORTED = ("is not ported yet: training-run (orbax) checkpoints, "
+                   "ROADMAP.md queue 1, item 4")
+
+
+def _model_dtype(bf16: bool) -> torch.dtype:
+    return torch.bfloat16 if bf16 else torch.float32
+
+
+def _load(fam: str, args: argparse.Namespace) -> torch.nn.Module:
+    """``--ckpt`` of family ``fam`` on ``--device`` in eval mode, bf16 with
+    ``--bf16``, the encoder LayerNorms by ``--ln-impl``."""
+    runtime = {"ln_impl": args.ln_impl} if args.ln_impl else None
+    model = MODELS[fam].from_pretrained(
+        args.ckpt, device=args.device, dtype=_model_dtype(args.bf16),
+        runtime=runtime)
+    return model.eval()
+
+
+def _norm_for(fam: str) -> dict:
+    """Family-correct file-pipeline normalization (HF processor
+    conventions): CLIP's mean/std; ViT/SigLIP use the 0.5 defaults."""
+    if fam == "clip":
+        return {"mean": CLIP_MEAN, "std": CLIP_STD}
+    return {}
+
+
+def _is_tar_data(data: str) -> bool:
+    """Route --data to the webdataset loader when it names tar shards
+    (compressed .tar.gz/.tar.zst included)."""
+    p = Path(data)
+    if p.is_dir():
+        return (not any(p.glob("*.tfrecord*"))) and any(p.glob("*.tar*"))
+    return ".tar" in p.name
+
+
+def _dataset_classes(data: str) -> list[str] | None:
+    """Ordered class names from the classes.json prepare-data writes next
+    to the shards (index == label id) — resolved by the container's own
+    path rules (tfrecord or tar), so every --data form (dir, glob, file)
+    works for both formats."""
+    resolve = (webdataset.resolve_tar_paths if _is_tar_data(data)
+               else records.resolve_paths)
+    try:
+        cj = Path(resolve(data)[0]).parent / "classes.json"
+    except FileNotFoundError:
+        return None  # the loader itself will raise with the right message
+    if cj.is_file():
+        return list(json.loads(cj.read_text()))
+    return None
+
+
+def _classification_batches(data: str):
+    return (webdataset.wds_classification_batches if _is_tar_data(data)
+            else records.classification_batches)
+
+
+def _prompt_rows(args: argparse.Namespace, context_length: int
+                 ) -> tuple[list[str], np.ndarray, list[int]]:
+    """``classify``'s label set as padded token rows: (labels, (N, L) rows,
+    the class of each row)."""
+    if args.tokens_file:
+        if args.ensemble:
+            raise SystemExit("--ensemble builds prompts from templates; it "
+                             "needs --labels (+ a tokenizer), not "
+                             "--tokens-file")
+        table = json.loads(Path(args.tokens_file).read_text())
+        labels = list(table)
+        rows = [table[k] for k in labels]
+        for k, r in table.items():
+            if len(r) > context_length:
+                # silent truncation could drop the EOT token CLIP pools at
+                raise SystemExit(
+                    f"tokens for {k!r} are {len(r)} ids but the checkpoint's "
+                    f"context_length is {context_length}; re-tokenize to fit")
+    else:
+        if not args.labels:
+            raise SystemExit("need --labels (with --tokenizer or a CLIP "
+                             "checkpoint dir holding vocab.json/merges.txt), "
+                             "or --tokens-file")
+        labels = [s.strip() for s in args.labels.split(",") if s.strip()]
+        if args.ensemble:
+            # CLIP-paper recipe: average each class over prompt templates;
+            # an explicit --template supplies the set ("|"-separated), else
+            # the builtin 7-template subset
+            templates = (tuple(t for t in args.template.split("|") if t)
+                         if args.template else TEMPLATES)
+            prompts = expand_templates(labels, templates)
+        else:
+            template = args.template or "a photo of a {}"
+            prompts = [template.format(label) for label in labels]
+        rows = None
+        if not args.tokenizer and args.model == "clip":
+            # every HF CLIP checkpoint ships its BPE vocabulary: the
+            # built-in tokenizer when the files are local
+            p = Path(args.ckpt)
+            d = p if p.is_dir() else p.parent
+            if (d / "vocab.json").is_file() and (d / "merges.txt").is_file():
+                rows = CLIPTokenizer.from_dir(d)(
+                    prompts, context_length=context_length)
+        if rows is None:
+            if not args.tokenizer:
+                raise SystemExit(
+                    "no vocab.json/merges.txt next to the checkpoint; pass "
+                    "--tokenizer (HF name/path) or --tokens-file")
+            from transformers import AutoTokenizer  # optional tooling
+            tok = AutoTokenizer.from_pretrained(args.tokenizer)
+            rows = tok(prompts, padding="max_length", truncation=True,
+                       max_length=context_length)["input_ids"]
+    text = np.stack([records.pad_tokens(r, context_length) for r in rows])
+    if args.ensemble:
+        n_templates = text.shape[0] // len(labels)
+        owner = [i // n_templates for i in range(text.shape[0])]
+    else:
+        owner = list(range(len(labels)))
+    return labels, text, owner
+
+
+def classify_image(args: argparse.Namespace, image: np.ndarray, *,
+                   cache: EmbeddingCache | None = None) -> dict:
+    """The ``classify`` command after decoding: ``image`` a uint8
+    ``(H, W, C)`` array. The class weights go through ``cache`` (default:
+    the process-wide class-embedding cache, which a server in the same
+    process shares), keyed on (family, checkpoint, dtype, token rows).
+    Returns the labels, the (C,) f32 logits and scores (CLIP: a softmax
+    over the labels; SigLIP: a sigmoid per label) and whether the weights
+    were cached."""
+    if args.index:
+        raise SystemExit(_INDEX_NOT_PORTED)
+    model = _load(args.model, args)
+    cfg = model.config
+    labels, text, owner = _prompt_rows(args, cfg.text.context_length)
+    if args.naflex and args.model != "siglip":
+        raise SystemExit("--naflex is a SigLIP2 feature; use "
+                         "--model siglip")
+    model_key = (f"{args.model}:{args.ckpt}:"
+                 f"{'bf16' if args.bf16 else 'f32'}")
+    cache = class_embedding_cache() if cache is None else cache
+    key = prompt_set_key(model_key, text)
+    weights = cache.get(key)
+    cached = weights is not None
+    if not cached:
+        weights = weights_from_rows(model, text, owner, len(labels)).numpy()
+        cache.put(key, weights)
+    param = next(model.parameters())
+    mean, std = ((CLIP_MEAN, CLIP_STD) if args.model == "clip"
+                 else (SIGLIP_MEAN, SIGLIP_STD))
+    with torch.inference_mode():
+        if args.naflex:
+            # aspect-preserving patch grid + mask instead of the square
+            im = to_float_normalized(image[None], mean, std)[0]
+            triple = patchify_naflex([im], patch_size=cfg.vision.patch_size,
+                                     max_num_patches=cfg.vision.num_patches)
+            feats = model.encode_image_naflex(
+                *naflex_to_device(triple, param.device, param.dtype))
+        else:
+            # CLIP checkpoints are trained with shortest-side resize +
+            # center crop; SigLIP's processor resizes straight to the square
+            batch = preprocess_batch(image[None],
+                                     image_size=cfg.vision.image_size,
+                                     mean=mean, std=std,
+                                     crop=args.model == "clip")
+            feats = model.encode_image(
+                torch.from_numpy(batch).to(param.device, param.dtype))
+    logits = zero_shot_logits_from_features(
+        model, feats, torch.from_numpy(weights)).cpu().numpy()[0]
+    if args.model == "siglip":
+        scores = 1.0 / (1.0 + np.exp(-logits))  # per-pair sigmoid
+    else:
+        e = np.exp(logits - logits.max())
+        scores = e / e.sum()
+    return {"labels": labels, "logits": logits, "scores": scores,
+            "cached": cached}
+
+
+def cmd_classify(args: argparse.Namespace) -> int:
+    """Zero-shot image classification with CLIP/SigLIP: one line per label,
+    best first. Label prompts come from ``--labels`` (the checkpoint's own
+    vocab.json/merges.txt for CLIP, else ``--tokenizer``, an optional HF
+    tokenizer) or from ``--tokens-file`` (JSON ``{label: [token ids]}``)."""
+    image = records.decode_image(Path(args.image).read_bytes())
+    out = classify_image(args, image)
+    scores, labels = out["scores"], out["labels"]
+    for i in np.argsort(-scores):
+        print(f"{scores[i]:8.4f}  {labels[i]}")
+    return 0
+
+
+class Evaluation:
+    """One ``evaluate`` pass: the model loaded and the options checked at
+    construction (the JAX command's refusals and messages); :meth:`run`
+    reads the shards once and returns the command's JSON fields.
+
+    ``kind``: ``"top1"`` (ViT), ``"zero_shot"`` (``--zero-shot``) or
+    ``"retrieval"`` (CLIP/SigLIP in-batch R@1, ``--naflex`` included).
+    """
+
+    def __init__(self, args: argparse.Namespace):
+        for flag in ("ckpt_dir", "from_pretrained"):
+            if getattr(args, flag):
+                raise SystemExit(f"--{flag.replace('_', '-')} "
+                                 f"{_RUN_NOT_PORTED}")
+        if not args.ckpt:
+            raise SystemExit(f"need --ckpt (--preset with --ckpt-dir "
+                             f"{_RUN_NOT_PORTED})")
+        if not (args.model or args.preset):
+            raise SystemExit("--ckpt needs --model (or --preset to infer "
+                             "the family)")
+        try:
+            fam = args.model or family(args.preset)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
+        self.args, self.fam = args, fam
+        self.model = _load(fam, args)
+        self.cfg = self.model.config
+        # the pixels training saw: the family's normalization, square resize
+        self.norm = _norm_for(fam)
+        if args.naflex and (fam == "vit" or args.zero_shot):
+            raise SystemExit("--naflex applies to clip/siglip retrieval "
+                             "evaluation (not vit accuracy or --zero-shot)")
+        if args.zero_shot:
+            if fam == "vit":
+                raise SystemExit("--zero-shot needs a contrastive model "
+                                 "(clip/siglip); vit evaluates accuracy "
+                                 "directly")
+            self.kind = "zero_shot"
+            self._zero_shot_weights()
+        elif fam == "vit":
+            self.kind = "top1"
+        else:
+            self.kind = "retrieval"
+            if args.naflex:
+                if fam != "siglip":
+                    raise SystemExit("--naflex evaluates SigLIP2-style "
+                                     "models; use --model siglip")
+                if _is_tar_data(args.data):
+                    raise SystemExit("--naflex reads tfrecord shards")
+        #: wall seconds spent reading (decode, resize, normalize) in the
+        #: last run, and in the whole run
+        self.reader_s = self.wall_s = 0.0
+
+    def _zero_shot_weights(self) -> None:
+        """Ensemble class weights from the ``--zero-shot`` token table
+        (``{label: [ids]}`` or ``{label: [[ids], ...]}``), in the
+        dataset's classes.json order when there is one."""
+        args, ctx = self.args, self.cfg.text.context_length
+        table = json.loads(Path(args.zero_shot).read_text())
+        labels = _dataset_classes(args.data) or list(table)
+        missing = [label for label in labels if label not in table]
+        if missing:
+            raise SystemExit(f"--zero-shot file lacks tokens for classes "
+                             f"{missing[:5]} (dataset classes.json order)")
+        for label in labels:
+            entry = table[label]
+            for r in (entry if entry and isinstance(entry[0], list)
+                      else [entry]):
+                if len(r) > ctx:
+                    raise SystemExit(
+                        f"tokens for {label!r} are {len(r)} ids but the "
+                        f"checkpoint's context_length is {ctx}; "
+                        "re-tokenize to fit")
+        labels, rows, owner = token_table_rows(table, ctx, labels)
+        self.labels, self.prompts = labels, len(owner)
+        self.weights = weights_from_rows(self.model, rows, owner, len(labels))
+
+    def _batches(self) -> Iterator:
+        args, cfg, norm = self.args, self.cfg, self.norm
+        common = dict(repeat=False, shuffle_buffer=0, drop_remainder=False)
+        if self.kind == "top1":
+            return _classification_batches(args.data)(
+                args.data, args.batch_size, image_size=cfg.vision.image_size,
+                **common)
+        if self.kind == "zero_shot":
+            return _classification_batches(args.data)(
+                args.data, args.batch_size, image_size=cfg.vision.image_size,
+                **common, **norm)
+        if args.naflex:
+            return records.naflex_image_text_batches(
+                args.data, args.batch_size, patch_size=cfg.vision.patch_size,
+                max_num_patches=cfg.vision.num_patches,
+                seq_len=cfg.text.context_length, **common, **norm)
+        batches = (webdataset.wds_image_text_batches
+                   if _is_tar_data(args.data) else records.image_text_batches)
+        return batches(args.data, args.batch_size,
+                       image_size=cfg.vision.image_size,
+                       seq_len=cfg.text.context_length, **common, **norm)
+
+    @torch.inference_mode()
+    def _logits(self, images, targets) -> np.ndarray:
+        model = self.model
+        param = next(model.parameters())
+        if self.args.naflex:
+            images = naflex_to_device(images, param.device, param.dtype)
+        else:
+            images = torch.from_numpy(images).to(param.device, param.dtype)
+        if self.kind == "top1":
+            logits = model(images)
+        elif self.kind == "zero_shot":
+            logits = zero_shot_logits_from_features(
+                model, model.encode_image(images), self.weights)
+        else:
+            tokens = torch.from_numpy(targets).to(param.device, torch.long)
+            logits = (model.logits_naflex(*images, tokens) if self.args.naflex
+                      else model(images, tokens))
+        return logits.float().cpu().numpy()
+
+    def logits(self) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        """Each batch's f32 logits and what they are scored against: the
+        labels (top-1, zero-shot), or the diagonal (retrieval: row i's
+        positive is text i, column i's image i). Times the reader into
+        ``reader_s`` and the whole pass into ``wall_s``."""
+        self.reader_s = 0.0
+        t0 = time.perf_counter()
+        batches = self._batches()
+        while True:
+            t = time.perf_counter()
+            batch = next(batches, None)
+            self.reader_s += time.perf_counter() - t
+            if batch is None:
+                break
+            images, targets = batch
+            logits = self._logits(images, targets)
+            yield logits, (np.arange(len(logits)) if self.kind == "retrieval"
+                           else targets)
+        self.wall_s = time.perf_counter() - t0
+
+    def run(self) -> dict:
+        """One pass: the command's JSON fields."""
+        return self.summary(self.logits())
+
+    def summary(self, batches) -> dict:
+        """The command's JSON fields from the pass's (logits, targets)."""
+        n = hits = hits_t = 0
+        for logits, targets in batches:
+            hits += int((logits.argmax(axis=1) == targets).sum())
+            if self.kind == "retrieval":
+                hits_t += int((logits.argmax(axis=0) == targets).sum())
+            n += len(logits)
+        if not n:
+            raise SystemExit(f"no examples in {self.args.data}")
+        if self.kind == "top1":
+            metrics = {"top1_accuracy": round(hits / n, 4)}
+        elif self.kind == "zero_shot":
+            metrics = {"zero_shot_top1": round(hits / n, 4),
+                       "classes": len(self.labels), "prompts": self.prompts}
+        else:
+            metrics = {"retrieval_r1_image_to_text": round(hits / n, 4),
+                       "retrieval_r1_text_to_image": round(hits_t / n, 4)}
+        return {"examples": n, "batch_size": self.args.batch_size, **metrics}
+
+
+def cmd_evaluate(args: argparse.Namespace) -> int:
+    """Evaluate a model over a file dataset (single non-repeating pass,
+    the short last batch counted): ViT top-1 accuracy over labeled records;
+    CLIP/SigLIP in-batch retrieval R@1 both ways (the diagonal is the
+    positive pair); ``--zero-shot`` accuracy over labeled records. Prints
+    one JSON line."""
+    print(json.dumps(Evaluation(args).run()))
+    return 0
+
+
+class _ShardWriter:
+    """Rotates ``part-NNNNN.tfrecord`` files every ``shard_size``
+    examples."""
+
+    def __init__(self, out: Path, shard_size: int):
+        self.out, self.shard_size = out, shard_size
+        self.n_in_shard = self.shards = self.total = 0
+        self._w = None
+
+    def write(self, payload: bytes) -> None:
+        if self._w is None or self.n_in_shard >= self.shard_size:
+            self.close()
+            self._w = TFRecordWriter(self.out / f"part-{self.shards:05d}"
+                                                ".tfrecord")
+            self.shards += 1
+            self.n_in_shard = 0
+        self._w.write(payload)
+        self.n_in_shard += 1
+        self.total += 1
+
+    def close(self) -> None:
+        if self._w is not None:
+            self._w.close()
+            self._w = None
+
+
+def cmd_prepare_data(args: argparse.Namespace) -> int:
+    """Build tfrecord shards (the format ``evaluate --data`` reads) from raw
+    files.
+
+    - ``--task classification``: SRC/<class_name>/*.{jpg,jpeg,png} — labels
+      are sorted class-directory indices; writes ``classes.json`` alongside
+      the shards.
+    - ``--task contrastive``: SRC holds the images; ``--captions`` is a TSV
+      of ``relative/path<TAB>caption``. Captions that are whitespace-
+      separated integers are taken as pre-tokenized ids; otherwise
+      ``--tokenizer`` names a HuggingFace tokenizer (an optional
+      ``transformers`` install).
+    """
+    src, out = Path(args.src), Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    stale = sorted(out.glob("part-*.tfrecord"))
+    if stale:
+        # the readers glob the whole dir: leftover higher-numbered shards
+        # from a previous run would silently mix into the dataset
+        raise SystemExit(f"{out} already holds {len(stale)} shard(s) "
+                         f"({stale[0].name}..); remove them or use a fresh "
+                         "output directory")
+    exts = {".jpg", ".jpeg", ".png"}
+    integer = re.compile(r"^-?\d+$")
+    writer = _ShardWriter(out, args.shard_size)
+    classes: dict[str, int] = {}
+    try:
+        if args.task == "classification":
+            names = sorted(d.name for d in src.iterdir() if d.is_dir())
+            if not names:
+                raise SystemExit(f"no class directories under {src}")
+            classes = {name: i for i, name in enumerate(names)}
+            for name, label in classes.items():
+                for img in sorted((src / name).iterdir()):
+                    if img.suffix.lower() not in exts or not img.is_file():
+                        continue
+                    writer.write(encode_example({"image": img.read_bytes(),
+                                                 "label": label}))
+        else:  # contrastive
+            if not args.captions:
+                raise SystemExit("--task contrastive needs --captions TSV")
+            tok = None
+            for ln_no, line in enumerate(
+                    Path(args.captions).read_text().splitlines(), 1):
+                if not line.strip():
+                    continue
+                rel, _, caption = line.partition("\t")
+                parts = caption.split()
+                if not parts:
+                    raise SystemExit(f"{args.captions}:{ln_no}: no caption "
+                                     f"after TAB (line {line[:60]!r})")
+                if all(integer.match(p) for p in parts):
+                    ids = [int(p) for p in parts]  # pre-tokenized
+                else:
+                    if tok is None:
+                        if not args.tokenizer:
+                            raise SystemExit(
+                                f"{args.captions}:{ln_no}: text caption "
+                                "needs --tokenizer (HF name/path)")
+                        from transformers import AutoTokenizer  # optional
+                        tok = AutoTokenizer.from_pretrained(args.tokenizer)
+                    ids = tok(caption)["input_ids"]
+                if len(ids) > args.seq_len:
+                    # keep the FINAL token when truncating: CLIP pools the
+                    # text tower at the EOT position (argmax of ids), which
+                    # a plain tail-chop would drop
+                    ids = list(ids[:args.seq_len - 1]) + [ids[-1]]
+                writer.write(encode_example(
+                    {"image": (src / rel).read_bytes(), "tokens": ids}))
+    finally:
+        writer.close()  # flush the open shard even on a mid-run error
+    if not writer.total:
+        raise SystemExit(f"no examples found under {src}")
+    if classes:
+        # written last: a failed run must not leave a plausible-looking
+        # classes.json next to no (or partial) shards
+        (out / "classes.json").write_text(json.dumps(classes, indent=2))
+    print(f"wrote {writer.total} examples in {writer.shards} shard(s) "
+          f"to {out}")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m jimm_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -370,6 +874,91 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--dropout", type=float, default=None,
                     help=argparse.SUPPRESS)
     sp.set_defaults(func=cmd_train)
+
+    sp = sub.add_parser("evaluate",
+                        help="accuracy / retrieval metrics over a dataset")
+    sp.add_argument("--data", required=True,
+                    help="tfrecord or tar shards: file/dir/glob (single "
+                         "pass, no repeat)")
+    sp.add_argument("--batch-size", type=int, default=32)
+    sp.add_argument("--ckpt", default=None,
+                    help="a local HF checkpoint directory or file")
+    sp.add_argument("--model", default=None, choices=sorted(MODELS),
+                    help="model family for --ckpt (else from --preset name)")
+    sp.add_argument("--preset", default=None,
+                    help="a preset name, to infer the family of --ckpt")
+    sp.add_argument("--zero-shot", default=None, metavar="TOKENS_JSON",
+                    help="zero-shot classification accuracy over labeled "
+                         "records (clip/siglip): {label: [ids]} or "
+                         "{label: [[ids], ...]} for prompt ensembles; "
+                         "class order from the dataset's classes.json")
+    sp.add_argument("--naflex", action="store_true",
+                    help="SigLIP2 retrieval over NaFlex variable-resolution "
+                         "batches (aspect-preserving) instead of the square "
+                         "resize")
+    sp.add_argument("--bf16", action="store_true",
+                    help="bf16 parameters and compute (default f32)")
+    sp.add_argument("--ln-impl", default=None, choices=["xla", "fused"],
+                    help="encoder LayerNorm (fused = the LayerNorm kernels)")
+    sp.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' must be asked for explicitly")
+    # the JAX command's training-run options: accepted, then refused with
+    # their ROADMAP queue
+    sp.add_argument("--ckpt-dir", default=None, help=argparse.SUPPRESS)
+    sp.add_argument("--from-pretrained", default=None, help=argparse.SUPPRESS)
+    sp.set_defaults(func=cmd_evaluate)
+
+    sp = sub.add_parser("classify",
+                        help="zero-shot image classification (CLIP/SigLIP)")
+    sp.add_argument("image", help="image file (PNG/JPEG)")
+    sp.add_argument("--ckpt", required=True,
+                    help="a local HF checkpoint directory or file")
+    sp.add_argument("--model", default="clip", choices=["clip", "siglip"])
+    sp.add_argument("--labels", default=None,
+                    help='comma-separated label names, e.g. "cat,dog"')
+    sp.add_argument("--template", default=None,
+                    help="prompt template applied to each label (default "
+                         "'a photo of a {}'); with --ensemble, a "
+                         "\"|\"-separated template set")
+    sp.add_argument("--tokenizer", default=None,
+                    help="HF tokenizer for --labels (optional tooling)")
+    sp.add_argument("--tokens-file", default=None,
+                    help="JSON {label: [token ids]} — offline alternative "
+                         "to --tokenizer")
+    sp.add_argument("--ensemble", action="store_true",
+                    help="prompt-template ensemble per class (the CLIP-"
+                         "paper recipe): normalize/mean/renormalize text "
+                         "embeddings over templates; --template with "
+                         "\"|\"-separated entries overrides the builtin set")
+    sp.add_argument("--naflex", action="store_true",
+                    help="SigLIP2 NaFlex path: keep the image's aspect "
+                         "ratio (variable-resolution patches + mask) "
+                         "instead of squashing to the square")
+    sp.add_argument("--bf16", action="store_true",
+                    help="bf16 parameters and compute (default f32)")
+    sp.add_argument("--ln-impl", default=None, choices=["xla", "fused"],
+                    help="encoder LayerNorm (fused = the LayerNorm kernels)")
+    sp.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' must be asked for explicitly")
+    sp.add_argument("--index", default=None, help=argparse.SUPPRESS)
+    sp.set_defaults(func=cmd_classify)
+
+    sp = sub.add_parser("prepare-data",
+                        help="build tfrecord shards from raw image files")
+    sp.add_argument("src", help="source directory (class dirs, or images)")
+    sp.add_argument("out", help="output directory for part-*.tfrecord")
+    sp.add_argument("--task", default="classification",
+                    choices=["classification", "contrastive"])
+    sp.add_argument("--captions", default=None,
+                    help="TSV: relative/path<TAB>caption (contrastive)")
+    sp.add_argument("--tokenizer", default=None,
+                    help="HF tokenizer for text captions (optional tooling; "
+                         "integer captions are used as pre-tokenized ids)")
+    sp.add_argument("--seq-len", type=int, default=64,
+                    help="truncate token ids to this length")
+    sp.add_argument("--shard-size", type=int, default=1000,
+                    help="examples per tfrecord shard")
+    sp.set_defaults(func=cmd_prepare_data)
     return parser
 
 

@@ -1,1 +1,2 @@
-"""Data: synthetic datasets."""
+"""Data: synthetic datasets, NaFlex batching, file readers and writers
+(TFRecord, WebDataset), preprocessing, the CLIP tokenizer."""

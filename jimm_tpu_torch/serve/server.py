@@ -13,6 +13,11 @@ Endpoints::
                      {"images": [img, ...]} -> {"features": [[...], ...]}
                      (each image submits on its own, so the engine coalesces
                      the burst into its buckets)
+    POST /v1/classify  {"image": ..., "tokens": {label: [ids] | [[ids], ...]}}
+                     -> {"scores": {label: score}, "cached": bool}: zero-shot
+                     scores against the label set's class weights, built by
+                     the text tower on a cache miss (a CLIP or SigLIP server
+                     only: :class:`ZeroShotService`)
 
 Images ride as nested JSON lists or as ``{"image_b64": base64(raw float32),
 "shape": [H, W, C]}``. Typed :class:`~jimm_tpu_torch.serve.admission
@@ -32,7 +37,10 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from jimm_tpu_torch.serve.admission import RequestError, ServeError
+from jimm_tpu_torch.serve.cache import (EmbeddingCache, class_embedding_cache,
+                                        prompt_set_key)
 from jimm_tpu_torch.serve.engine import InferenceEngine
+from jimm_tpu_torch.utils.zero_shot import token_table_rows, weights_from_rows
 
 
 def decode_image_payload(payload: dict, *, dtype=np.float32) -> np.ndarray:
@@ -53,6 +61,55 @@ def decode_image_payload(payload: dict, *, dtype=np.float32) -> np.ndarray:
             raise RequestError(f"bad 'image_b64' payload: {e}") from None
         return arr.astype(dtype, copy=False)
     raise RequestError("request needs 'image' or 'image_b64'")
+
+
+class ZeroShotService:
+    """Zero-shot classification over the engine's image features.
+
+    Class weights come from the embedding cache keyed by (model, token
+    rows); on repeat label sets the text tower never runs. The per-request
+    work after the engine returns features is one small host matmul.
+    """
+
+    def __init__(self, model, *, model_key: str,
+                 cache: EmbeddingCache | None = None):
+        self.model = model
+        self.model_key = model_key
+        self.cache = cache if cache is not None else class_embedding_cache()
+        self.context_length = model.config.text.context_length
+        # host f32 calibration, read once: a bf16 model's scalars widened
+        self._scale = float(np.exp(np.float32(model.logit_scale.item())))
+        bias = getattr(model, "logit_bias", None)
+        self._bias = None if bias is None else float(np.float32(bias.item()))
+
+    def class_weights_blocking(self, table: dict
+                               ) -> tuple[list[str], np.ndarray, bool]:
+        """(labels, (C, D) unit-norm weights, was_cached). Runs the text
+        tower only on a cache miss; call from a handler thread, not the
+        event loop."""
+        try:
+            labels, rows, owner = token_table_rows(table, self.context_length)
+        except (ValueError, TypeError) as e:
+            raise RequestError(str(e)) from None
+        key = prompt_set_key(self.model_key, rows.numpy())
+        cached = self.cache.get(key)
+        if cached is not None:
+            return labels, cached, True
+        weights = weights_from_rows(self.model, rows, owner,
+                                    len(labels)).numpy()
+        self.cache.put(key, weights)
+        return labels, weights, False
+
+    def scores(self, features: np.ndarray, weights: np.ndarray) -> np.ndarray:
+        """Calibrated per-class scores from one feature row: softmax over
+        labels (CLIP) or per-class sigmoid (SigLIP, has logit_bias)."""
+        feat = features.astype(np.float32)
+        feat /= np.linalg.norm(feat)
+        logits = self._scale * feat @ weights.T
+        if self._bias is not None:
+            return 1.0 / (1.0 + np.exp(-(logits + self._bias)))
+        e = np.exp(logits - logits.max())
+        return e / e.sum()
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -90,11 +147,13 @@ class _Handler(BaseHTTPRequestHandler):
     def do_POST(self) -> None:  # noqa: N802
         app = self.server.app
         try:
-            if self.path != "/v1/embed":
+            if self.path == "/v1/embed":
+                self._send_json(200, app.embed(self._read_body()))
+            elif self.path == "/v1/classify":
+                self._send_json(200, app.classify(self._read_body()))
+            else:
                 self._send_json(404, {"error": "not_found",
                                       "message": self.path})
-                return
-            self._send_json(200, app.embed(self._read_body()))
         except ServeError as e:
             self._send_json(e.http_status, {"error": e.code,
                                             "message": str(e)})
@@ -113,11 +172,14 @@ class ServingServer:
 
     ``start()`` warms every bucket, starts the asyncio loop and the engine
     on it, then opens the listening socket, so the first request already
-    finds warm buckets."""
+    finds warm buckets. ``zero_shot`` (a CLIP or SigLIP server) answers
+    ``/v1/classify``."""
 
     def __init__(self, engine: InferenceEngine, *, host: str = "127.0.0.1",
-                 port: int = 0, request_timeout_s: float = 30.0):
+                 port: int = 0, request_timeout_s: float = 30.0,
+                 zero_shot: ZeroShotService | None = None):
         self.engine = engine
+        self.zero_shot = zero_shot
         self.metrics = engine.metrics
         self.host = host
         self._requested_port = port
@@ -212,6 +274,22 @@ class ServingServer:
                     "count": len(features)}
         image = decode_image_payload(payload, dtype=self.engine.dtype)
         return {"features": self._submit_many([image], timeout_s)[0].tolist()}
+
+    def classify(self, payload: dict) -> dict:
+        if self.zero_shot is None:
+            raise RequestError("this server has no zero-shot service "
+                               "(started without a text tower)")
+        tokens = payload.get("tokens")
+        if not isinstance(tokens, dict) or not tokens:
+            raise RequestError("classify needs 'tokens': {label: [ids]}")
+        labels, weights, cached = \
+            self.zero_shot.class_weights_blocking(tokens)
+        image = decode_image_payload(payload, dtype=self.engine.dtype)
+        features = self._submit_many([image], payload.get("timeout_s"))[0]
+        scores = self.zero_shot.scores(np.asarray(features), weights)
+        return {"scores": {label: round(float(s), 6)
+                           for label, s in zip(labels, scores)},
+                "cached": cached}
 
     def healthz(self) -> dict:
         snap = self.metrics.snapshot()

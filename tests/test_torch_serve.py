@@ -100,7 +100,12 @@ def test_healthz_and_errors(served):
     assert status == 400 and body["error"] == "bad_request"
     status, body = _post(server.port, {"nope": 1})
     assert status == 400
-    status, _ = _post(server.port, {"image": [[1.0]]}, path="/v1/classify")
+    status, body = _post(server.port, {"image": [[1.0]]},
+                         path="/v1/classify")
+    assert status == 400 and body["message"] == (
+        "this server has no zero-shot service (started without a text "
+        "tower)")
+    status, _ = _post(server.port, {"image": [[1.0]]}, path="/v1/nope")
     assert status == 404
 
 
