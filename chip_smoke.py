@@ -231,10 +231,47 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                checkpoint written here, 75 examples of mixed aspect (13
                masked and 12 unmasked flash, 48 LayerNorm a batch), as
                (c).
+14. training, rest -- full width and depth, bf16, fused LayerNorm: (a) one
+               SigLIP-B/16-256 step (forward and backward, batch 128) from
+               the same weights and batch under each ``--remat`` policy
+               (none, full, dots, dots+ln, dots+act, dots+ln+act,
+               dots+attn with the saveable impl): loss and every gradient
+               equal to the no-remat step's bit for bit (a gradient that
+               two no-remat runs already disagree on is named and held
+               to twice that run-to-run distance), LayerNorm and flash
+               launches as ``REMAT_LAUNCHES`` predicts, the activation
+               peak (``max_memory_allocated`` over what was allocated
+               before) falling none > dots+ln+act > dots > full and
+               dots+ln+act > dots+ln > dots (``REMAT_MEMORY_CHAINS``),
+               the median wall time of three steps; SigLIP-L/16-256 at
+               batch 128 under none, dots and full and at batch 384 (no
+               remat would not fit) under dots and full, peaks gated in
+               that order and wall times printed; one SigLIP2 NaFlex step
+               under dots (rows 4 and 7-mask kept, not rerun) and one
+               fp8_hybrid step under full whose amax histories and
+               gradients equal the no-remat step's; (b) dropout 0.1 set
+               through the config: a step trains, ``eval()`` is the rate-0
+               model bit for bit, one mask keeps 0.9 within 6 binomial
+               sigma, full remat with dropout gives the no-remat gradients
+               bit for bit; (c) ``train --moment-dtype bf16`` (f32
+               parameters), every ``exp_avg`` bf16, the optimizer state's
+               bytes beside f32 moments'; (d) ``train --preset
+               vit-base-patch16-224 --num-classes 1000`` at batch 128, then
+               ``--from-pretrained`` phase 12's ViT-B/16 checkpoint with
+               ``--num-classes 10`` (a fresh head); (e) ``train --preset
+               clip-vit-base-patch16`` at batch 128 (12 causal flash each
+               way in the text tower); (f) ``train --preset
+               vit-temporal-base-patch16-224-f8`` at batch 32 (1568-token
+               clips), without remat and with ``--remat dots``, both peaks
+               printed. Each command runs in-process, its launches counted
+               per step.
 
 Phase 3's flash cases include row 3's causal kind at CLIP-B/16's text
 shapes, (32, 77, 8, 64) and the 70 prompt rows of one label set (70, 77,
-8, 64), timed beside SDPA with ``is_causal=True``. Phase 3 also holds the
+8, 64), timed beside SDPA with ``is_causal=True``; and, in bf16, rows 3 and
+7 at CLIP-B/16's training text shape (128, 77, 8, 64), causal, and at the
+temporal ViT's (32, 1568, 12, 64), with its MAP probe (32, 1, 12, 64)
+against 1568 keys. Phase 3 also holds the
 int8 kernels (rows 9, 10 and 11) against their plain
 versions: the int8 matmul at the served shapes and odd ones, with bias,
 relu and gelu (yardstick: ``torch._int_mm`` and the epilogue as torch ops);
@@ -461,6 +498,46 @@ CKPT_LN_PER_BATCH = {"vit": 25, "clip": 26}
 CLIP_TEXT_SHAPE = (32, 77)
 CLIP_TEXT_FLASH = 12
 CLIP_TEXT_LN = 24
+#: phase 14: the LayerNorm and flash forwards a SigLIP-B/16-256 step
+#: launches under each --remat spec (PERF.md section 6): full
+#: recomputes every block (48 LayerNorms and 24 flash calls again; the MAP
+#: probe is outside the blocks), every "dots" set keeps flash o and lse and
+#: reruns the LayerNorms unless "+ln" keeps them; dots+attn runs the
+#: saveable impl in both towers and the probe (no flash kernel)
+REMAT_LAUNCHES = {"none": (48, 25), "full": (96, 49), "dots": (96, 25),
+                  "dots+ln": (48, 25), "dots+act": (96, 25),
+                  "dots+ln+act": (48, 25), "dots+attn": (96, 0)}
+#: 14(a)'s activation peaks must fall along each chain
+REMAT_MEMORY_CHAINS = (("none", "dots+ln+act", "dots", "full"),
+                       ("dots+ln+act", "dots+ln", "dots"))
+#: timed steps a remat policy's model runs after its warm step (the median
+#: is printed)
+REMAT_TIMED_STEPS = 3
+#: 14(a)'s wider check: whether a "dots" set beats full remat on wall time
+#: once the device time outgrows the host's (printed, not gated), at
+#: SigLIP-L/16-256's batch 128 and at 384, where no remat would not fit
+#: (batch -> the specs run, their peaks falling in this order)
+REMAT_WIDE_PRESET = "siglip-large-patch16-256"
+REMAT_WIDE_RUNS = {128: ("none", "dots", "full"), 384: ("dots", "full")}
+#: Linears inside the blocks: rerun under full remat (fp8_hybrid)
+FP8_BLOCK_LINEARS = 144
+DROPOUT_RATE = 0.1
+VIT_CLASSES = 1000
+FINETUNE_CLASSES = 10
+FINETUNE_STEPS = 2
+TEMPORAL_PRESET = "vit-temporal-base-patch16-224-f8"
+TEMPORAL_BATCH = 32
+TEMPORAL_STEPS = 3
+#: launches per step of the train command's paths in 14(c)-(f): flash
+#: (each way), LayerNorm forward and backward, causal flash forwards.
+#: SigLIP-B/16-256 as phase 5; ViT-B/16 12 flash and 25 LayerNorm (ln_post
+#: follows ln_impl in a CLS tower); CLIP-B/16 24 flash (the text tower's 12
+#: causal) and 50 LayerNorm (26 vision, 24 text: ln_final stays
+#: nn.LayerNorm); the temporal ViT 13 flash (the MAP probe) and 24
+#: LayerNorm, whose forwards "dots" reruns
+FAMILY_STEP = {"siglip": (25, 48, 48, 0), "vit": (12, 25, 25, 0),
+               "clip": (24, 50, 50, 12), "temporal": (13, 24, 24, 0),
+               "temporal_dots": (13, 48, 24, 0)}
 #: phase 13: the label sets of 13(a) (10 labels x the 7 TEMPLATES = 70
 #: prompt rows at 77 tokens each), of 13(b) and of 13(c)'s classes.json,
 #: each its own so that no part finds another's class weights cached
@@ -611,18 +688,26 @@ def grad_ms(outputs: torch.Tensor, inputs: tuple[torch.Tensor, ...],
 
 # -- phase 3: kernels --------------------------------------------------------
 
-def traced(fn):
+def traced(fn, kernels: tuple[str, ...] = ()):
     """``fn()``'s result and the names of the kernels it launched, from a
-    profiler trace (taken again when it comes back with no device rows)."""
+    profiler trace (taken again, up to three times, when it comes back with
+    no device rows, or with none of ``kernels`` where one must run: the
+    trace can drop a kernel's record)."""
     for _ in range(3):
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             out = fn()
             torch.cuda.synchronize()
         names = [e.key for e in _device_rows(prof)]
-        if names:
+        if names and (not kernels or any(_is_kernel(n, k) for n in names
+                                         for k in kernels)):
             break
     return out, names
+
+
+def _is_kernel(name: str, kernel: str) -> bool:
+    """Whether the traced ``name`` is the template ``kernel``."""
+    return kernel + "<" in name or kernel + "I" in name
 
 
 def _offset_copy(x: torch.Tensor, nbytes: int) -> torch.Tensor:
@@ -647,10 +732,10 @@ def ln_case(rows: int, f: int, dtype: torch.dtype, seed: int,
     if offset:
         x = _offset_copy(x, 4)
     body = ln.forward_body(x, w, b)
-    (y, mu, rstd), names = traced(lambda: ln.layer_norm_fwd(x, w, b, 1e-6))
+    (y, mu, rstd), names = traced(lambda: ln.layer_norm_fwd(x, w, b, 1e-6),
+                                  tuple(ln.FORWARD_KERNELS.values()))
     for kind, kernel in ln.FORWARD_KERNELS.items():
-        check(any(kernel + "<" in n or kernel + "I" in n for n in names)
-              == (kind == body),
+        check(any(_is_kernel(n, kernel) for n in names) == (kind == body),
               f"layer_norm ({rows}, {f}) {dtype}: forward_body says {body}, "
               f"the trace shows {names}")
     py, pmu, prstd = ln.layer_norm_plain(x, w, b, 1e-6)
@@ -878,10 +963,10 @@ def ln_bwd_case(rows: int, f: int, dtype: torch.dtype, seed: int,
         x = _offset_copy(x, 4)
     _, mu, rstd = ln.layer_norm_plain(x, w, w, 1e-6)
     body = ln.backward_body(x, w, dy)
-    got, names = traced(lambda: ln.layer_norm_bwd(x, w, mu, rstd, dy))
+    got, names = traced(lambda: ln.layer_norm_bwd(x, w, mu, rstd, dy),
+                        tuple(ln.BACKWARD_KERNELS.values()))
     for kind, kernel in ln.BACKWARD_KERNELS.items():
-        check(any(kernel + "<" in n or kernel + "I" in n for n in names)
-              == (kind == body),
+        check(any(_is_kernel(n, kernel) for n in names) == (kind == body),
               f"layer_norm_bwd ({rows}, {f}) {dtype}: backward_body says "
               f"{body}, the trace shows {names}")
     again = ln.layer_norm_bwd(x, w, mu, rstd, dy)
@@ -1738,6 +1823,18 @@ def kernel_phase(card: str) -> dict[str, dict]:
                 ((2, 1, 2, 80), 257, False), ((1, 70, 1, 256), 130, True)]):
             add("flash_attention_bwd",
                 flash_bwd_case(qshape, sk, causal, dtype, 30 + i))
+        if dtype == torch.bfloat16:
+            # phase 14's training shapes: CLIP-B/16's causal text tower at
+            # batch 128, the temporal ViT's 1568-token clips at batch 32 and
+            # its MAP probe against them
+            for i, (qshape, sk, causal) in enumerate([
+                    ((128, 77, 8, 64), 77, True),
+                    ((32, 1568, 12, 64), 1568, False),
+                    ((32, 1, 12, 64), 1568, False)]):
+                add("flash_attention",
+                    flash_case(qshape, sk, causal, dtype, 300 + i))
+                add("flash_attention_bwd",
+                    flash_bwd_case(qshape, sk, causal, dtype, 310 + i))
         # masked flash (kernel row 4, row 7's mask kind): the NaFlex train
         # shapes (batch 128) with the synthetic generator's masks, a
         # serve-like batch of 32, and odd ones, one with a fully masked
@@ -2581,6 +2678,41 @@ def read_counts() -> dict[str, int]:
             "flash_attention_dbias": fa.dbias_launches}
 
 
+def run_train_command(argv: list[str], card: str,
+                      keep_optimizer: bool = False) -> dict:
+    """The ``train`` command ``argv``, run in this process so that its
+    launches can be counted: the counters are zeroed just before it and
+    read just after, and the causal flag of each flash forward is recorded.
+    Its JSON lines are printed with a ``cli:`` prefix. Returns its exit
+    code, counts, causal flags, peak memory, logged steps, summary line
+    and, with ``keep_optimizer``, its optimizer."""
+    out = io.StringIO()
+    made = []
+
+    def recorded(*args, **kwargs):
+        made.append(make_optimizer(*args, **kwargs))
+        return made[-1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "metrics.jsonl"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with causal_flags() as flags, \
+                mock.patch.object(cli, "make_optimizer", recorded):
+            zero_counts()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(argv + ["--metrics-file", str(path)])
+            counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        logged = [json.loads(line) for line in path.read_text().splitlines()]
+    printed = out.getvalue().splitlines()
+    for line in printed:
+        print(f"cli: {line} | {card}", flush=True)
+    return {"rc": rc, "counts": counts, "flags": list(flags), "peak": peak,
+            "logged": logged, "summary": json.loads(printed[-1]),
+            "optimizer": made[-1] if keep_optimizer else None}
+
+
 def cli_train_phase(card: str, naflex: bool = False,
                     precision: str | None = None) -> dict[str, int]:
     """(c) The ``train`` command, run in this process so that its launches
@@ -2594,20 +2726,9 @@ def cli_train_phase(card: str, naflex: bool = False,
             str(TRAIN_BATCH), "--log-every", "1"] + (
                 ["--naflex"] if naflex else []) + (
                 ["--precision", precision] if precision else [])
-    out = io.StringIO()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = pathlib.Path(tmp) / "metrics.jsonl"
-        torch.cuda.reset_peak_memory_stats()
-        zero_counts()
-        with contextlib.redirect_stdout(out):
-            rc = cli.main(argv + ["--metrics-file", str(path)])
-        counts = read_counts()
-        peak = torch.cuda.max_memory_allocated()
-        logged = [json.loads(line) for line in path.read_text().splitlines()]
-    printed = out.getvalue().splitlines()
-    for line in printed:
-        print(f"cli: {line} | {card}", flush=True)
-    summary = json.loads(printed[-1])
+    run = run_train_command(argv, card)
+    rc, counts, peak, logged, summary = (
+        run[k] for k in ("rc", "counts", "peak", "logged", "summary"))
     check(rc == 0 and summary.get("status") == "trained"
           and summary.get("device", "").startswith("cuda")
           and summary.get("precision") == (precision or "bf16")
@@ -3528,6 +3649,396 @@ def zero_shot_phase(card: str, ckpts: dict[str, pathlib.Path],
     return counts
 
 
+# -- phase 14: training, rest ------------------------------------------------
+
+def _rest_model(spec: str = "none", *, dropout: float = 0.0,
+                saveable: bool = False, preset: str = "siglip-base-patch16-256"
+                ) -> SigLIP:
+    """A SigLIP preset in bf16 with fused LayerNorm from seed 0, under the
+    ``--remat`` ``spec`` (dots+attn takes the saveable impl), with
+    ``dropout`` set through the config."""
+    rt: dict = {"ln_impl": "fused"}
+    if spec != "none":
+        rt.update(configs.parse_remat(spec))
+    if saveable or spec.endswith("attn"):
+        rt["attn_impl"] = "saveable"
+    if dropout:
+        rt["dropout"] = dropout
+    cfg = configs.with_runtime(configs.preset(preset), **rt)
+    return SigLIP(cfg, device="cuda", dtype=torch.bfloat16,
+                  generator=torch.Generator(device="cuda").manual_seed(0))
+
+
+def fwd_bwd(model, images, text) -> dict:
+    """One forward and backward (no update) with its launches counted:
+    the loss, the gradients, the counts, the step's wall time and its
+    activation peak (``max_memory_allocated`` over what was allocated
+    before it)."""
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    loss = contrastive_loss_fn(model, images, text, kind="siglip")
+    loss.backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    return {"loss": loss.detach(), "counts": counts, "ms": ms,
+            "peak": torch.cuda.max_memory_allocated() - before,
+            "grads": {n: p.grad for n, p in model.named_parameters()}}
+
+
+def equal_grads(got: dict, want: dict, noisy: dict, label: str) -> None:
+    """Every gradient ``torch.equal`` to ``want``'s, except those two
+    identical runs already disagree on (``noisy``: name -> their distance),
+    which must lie within twice that distance."""
+    for name, g in got.items():
+        if name in noisy:
+            d = (g.double() - want[name].double()).norm().item()
+            check(d <= 2 * noisy[name], f"{label}: gradient of {name} "
+                  f"{d:.3e} from no-remat, over twice the run-to-run "
+                  f"{noisy[name]:.3e}")
+        else:
+            check(torch.equal(g, want[name]),
+                  f"{label}: gradient of {name} differs from no-remat")
+
+
+def timed_fwd_bwd(model, images, text) -> dict:
+    """:func:`fwd_bwd` run ``REMAT_TIMED_STEPS`` times: the last run, with
+    the median of the runs' wall times and the peak of the first."""
+    runs = [fwd_bwd(model, images, text) for _ in range(REMAT_TIMED_STEPS)]
+    r = runs[-1]
+    r["ms"] = float(np.median([x["ms"] for x in runs]))
+    r["peak"] = runs[0]["peak"]
+    return r
+
+
+def check_peaks(peaks: dict[str, int], chains, label: str) -> None:
+    """The activation peaks fall strictly along each chain of specs."""
+    for chain in chains:
+        check(all(peaks[a] > peaks[b] for a, b in zip(chain, chain[1:])),
+              f"{label}: activation peaks {peaks} do not fall along {chain}")
+
+
+def remat_phase(card: str) -> dict[str, dict]:
+    """14(a): SigLIP-B/16-256 at batch 128 under each remat policy. Each
+    policy's model runs a warm step and three measured ones; no remat runs
+    once more with the saveable impl, the reference of dots+attn. Two
+    no-remat runs name any gradient that is not deterministic."""
+    model = _rest_model()
+    images, text = _batch(model.config, TRAIN_BATCH, torch.bfloat16, 14)
+    first = fwd_bwd(model, images, text)
+    warm = first["ms"]
+    first = {n: g.clone() for n, g in first["grads"].items()}
+    ref = {"flash": timed_fwd_bwd(model, images, text)}
+    ref["flash"]["warm_ms"] = warm
+    profile_readout(lambda: fwd_bwd(model, images, text),
+                    "remat none: one forward + backward", card)
+    noisy = {n: (g.double() - first[n].double()).norm().item()
+             for n, g in ref["flash"]["grads"].items()
+             if not torch.equal(g, first[n])}
+    print(f"remat: two no-remat SigLIP-B/16-256 steps at batch "
+          f"{TRAIN_BATCH}: "
+          + (f"{len(noisy)} gradients differ (not deterministic): "
+             f"{sorted(noisy)}" if noisy else "every gradient bit for bit")
+          + f" | {card}", flush=True)
+    del model, first
+    model = _rest_model(saveable=True)
+    fwd_bwd(model, images, text)
+    ref["saveable"] = fwd_bwd(model, images, text)
+    del model
+    results = {}
+    for spec, (ln_fwd, flash_fwd) in REMAT_LAUNCHES.items():
+        if spec == "none":
+            r = ref["flash"]
+        else:
+            model = _rest_model(spec)
+            warm = fwd_bwd(model, images, text)["ms"]
+            r = timed_fwd_bwd(model, images, text)
+            r["warm_ms"] = warm
+            profile_readout(lambda: fwd_bwd(model, images, text),
+                            f"remat {spec}: one forward + backward", card)
+            base = ref["saveable" if spec.endswith("attn") else "flash"]
+            check(torch.equal(r["loss"], base["loss"]),
+                  f"remat {spec}: loss {r['loss'].item()} != no-remat "
+                  f"{base['loss'].item()}")
+            equal_grads(r.pop("grads"), base["grads"], noisy,
+                        f"remat {spec}")
+            del model
+        c = r["counts"]
+        flash_bwd = 0 if spec.endswith("attn") else FLASH_PER_STEP
+        check((c["layer_norm"], c["flash_attention"], c["layer_norm_bwd"],
+               c["flash_attention_bwd"]) == (ln_fwd, flash_fwd, LN_PER_STEP,
+                                             flash_bwd),
+              f"remat {spec}: launches {c}; want LayerNorm {ln_fwd} / "
+              f"{LN_PER_STEP}, flash {flash_fwd} / {flash_bwd}")
+        results[spec] = r
+        print(f"remat {spec}: loss {r['loss'].item():.6f} (equal to "
+              f"no-remat), step (forward + backward) {r['ms']:.3f} ms, the "
+              f"median of {REMAT_TIMED_STEPS} (the warm step "
+              f"{r['warm_ms']:.3f}), "
+              f"activation peak {r['peak']} bytes "
+              f"({r['peak'] / 2**30:.2f} GiB); LayerNorm {ln_fwd} forward "
+              f"/ {LN_PER_STEP} backward, flash {flash_fwd} / {flash_bwd} "
+              f"| {card}", flush=True)
+    peaks = {s: r["peak"] for s, r in results.items()}
+    check_peaks(peaks, REMAT_MEMORY_CHAINS, "remat")
+    print(f"remat: activation peaks fall along {REMAT_MEMORY_CHAINS}; "
+          f"dots+ln+act / none = "
+          f"{peaks['dots+ln+act'] / peaks['none']:.4f} | {card}", flush=True)
+    counts = {f"remat_{s}": r["counts"] for s, r in results.items()}
+    del results, ref
+    wide_remat_steps(card)
+    counts["naflex_dots"] = naflex_remat_step(card)
+    counts["fp8_full"] = fp8_remat_step(card)
+    return counts
+
+
+def wide_remat_steps(card: str) -> None:
+    """14(a): SigLIP-L/16-256 under ``REMAT_WIDE_RUNS``, each spec a warm
+    step and three measured: whether a "dots" set beats full remat on wall
+    time once the device time outgrows the host's."""
+    for batch, specs in REMAT_WIDE_RUNS.items():
+        out = {}
+        for spec in specs:
+            model = _rest_model(spec, preset=REMAT_WIDE_PRESET)
+            images, text = _batch(model.config, batch, torch.bfloat16, 14)
+            warm = fwd_bwd(model, images, text)
+            r = timed_fwd_bwd(model, images, text)
+            label = f"remat {spec} ({REMAT_WIDE_PRESET}, batch {batch})"
+            check(bool(torch.isfinite(r["loss"])), f"{label}: loss not finite")
+            if out:
+                check(torch.equal(r["loss"], next(iter(out.values()))["loss"]),
+                      f"{label}: the loss differs from {specs[0]}'s")
+            out[spec] = {"loss": r["loss"], "ms": r["ms"], "peak": r["peak"]}
+            print(f"{label}: step (forward + backward) {r['ms']:.3f} ms, the "
+                  f"median of {REMAT_TIMED_STEPS} (the warm step "
+                  f"{warm['ms']:.3f}), activation peak {r['peak']} bytes "
+                  f"({r['peak'] / 2**30:.2f} GiB) | {card}", flush=True)
+            del model, warm, r, images, text
+        check_peaks({s: r["peak"] for s, r in out.items()}, (specs,),
+                    f"remat ({REMAT_WIDE_PRESET}, batch {batch})")
+        print(f"remat ({REMAT_WIDE_PRESET}, batch {batch}): dots / full wall "
+              f"time = {out['dots']['ms'] / out['full']['ms']:.4f} | {card}",
+              flush=True)
+
+
+def naflex_remat_step(card: str) -> dict[str, int]:
+    """14(a): one SigLIP2-B/16-256 NaFlex step under dots against no
+    remat: the masked flash forwards are kept (13, not 25)."""
+    runs = {}
+    for spec in ("none", "dots"):
+        model = _rest_model(spec, preset=NAFLEX_PRESET)
+        images, text = _naflex_batch(model.config, TRAIN_BATCH,
+                                     torch.bfloat16, 14)
+        runs[spec] = fwd_bwd(model, images, text)
+        del model
+    r, base = runs["dots"], runs["none"]
+    check(torch.equal(r["loss"], base["loss"]),
+          "remat dots (NaFlex): the loss differs from no-remat")
+    equal_grads(r["grads"], base["grads"], {}, "remat dots (NaFlex)")
+    want = dict(step_counts(naflex=True), layer_norm=2 * LN_PER_STEP)
+    check(all(r["counts"][k] == n for k, n in want.items()),
+          f"remat dots (NaFlex): launches {r['counts']}, want {want}")
+    print(f"remat dots (SigLIP2 NaFlex, batch {TRAIN_BATCH}): gradients "
+          f"equal to no-remat; masked flash {NAFLEX_MASKED_PER_STEP} "
+          f"forward (kept, not rerun) / {NAFLEX_MASKED_PER_STEP} backward; "
+          f"activation peak {r['peak'] / 2**30:.2f} GiB against "
+          f"{base['peak'] / 2**30:.2f} | {card}", flush=True)
+    return r["counts"]
+
+
+def fp8_remat_step(card: str) -> dict[str, int]:
+    """14(a): one fp8_hybrid step under full remat against no remat from
+    the same weights and histories: the recompute neither pushes the amax
+    histories again nor reads the pushed values."""
+    runs, hist = {}, {}
+    for spec in ("none", "full"):
+        model = _rest_model(spec)
+        check(apply_precision_policy(model, "fp8_hybrid") == FP8_LINEARS,
+              "fp8_hybrid did not rewrite every eligible Linear")
+        images, text = _batch(model.config, TRAIN_BATCH, torch.bfloat16, 14)
+        runs[spec] = fwd_bwd(model, images, text)
+        hist[spec] = {n: b.clone() for n, b in model.named_buffers()
+                      if n.endswith("_amax")}
+        del model
+    check(all(torch.equal(h, hist["none"][n]) for n, h in
+              hist["full"].items()) and len(hist["full"]) == 2 * FP8_LINEARS,
+          "fp8_hybrid under full remat: the amax histories differ from "
+          "no-remat")
+    c = runs["full"]["counts"]
+    want = (FP8_LINEARS + FP8_BLOCK_LINEARS, 2 * FP8_LINEARS)
+    check((c["fp8_matmul"], c["fp8_matmul_bwd"]) == want,
+          f"fp8_hybrid under full remat: fp8 GEMMs {c}, want {want}")
+    equal_grads(runs["full"]["grads"], runs["none"]["grads"], {},
+                "fp8_hybrid under full remat")
+    print(f"remat full (fp8_hybrid, batch {TRAIN_BATCH}): "
+          f"{len(hist['full'])} amax histories equal to no-remat's; fp8 "
+          f"GEMMs {want[0]} forward ({FP8_BLOCK_LINEARS} rerun) / {want[1]} "
+          f"backward; gradients equal to no-remat bit for bit | {card}",
+          flush=True)
+    return c
+
+
+def dropout_phase(card: str) -> dict[str, int]:
+    """14(b): dropout 0.1 set through the config on SigLIP-B/16-256."""
+    model = _rest_model(dropout=DROPOUT_RATE)
+    plain = _rest_model()
+    images, text = _batch(model.config, TRAIN_BATCH, torch.bfloat16, 15)
+    model.eval()
+    plain.eval()
+    with torch.no_grad():
+        same = all(torch.equal(a, b) for a, b in (
+            (model.encode_image(images), plain.encode_image(images)),
+            (model.encode_text(text), plain.encode_text(text))))
+    check(same, "dropout: eval() differs from the rate-0 model")
+    del plain
+    model.train()
+    drop = model.vision.encoder.blocks[0].dropout
+    y = drop(torch.ones(TRAIN_BATCH, 256, 768, device="cuda",
+                        dtype=torch.bfloat16))
+    n, keep = y.numel(), 1.0 - DROPOUT_RATE
+    kept = int((y != 0).sum().item())
+    sigma = math.sqrt(n * keep * DROPOUT_RATE)
+    check(abs(kept - n * keep) <= 6 * sigma and bool(
+        (y[y != 0] == torch.tensor(1 / keep, dtype=y.dtype)).all()),
+          f"dropout: one mask kept {kept} of {n} (want {n * keep:.0f} "
+          f"within 6 sigma = {6 * sigma:.0f}), kept values 1/{keep}")
+    del y
+    opt = make_optimizer(model, OptimizerConfig(learning_rate=1e-3))
+    step = make_contrastive_train_step("siglip")
+    zero_counts()
+    losses = [step(model, opt, images, text)["loss"].item()
+              for _ in range(2)]
+    counts = read_counts()
+    check(all(math.isfinite(v) for v in losses),
+          f"dropout: train losses {losses}")
+    del model, opt
+    runs = {}
+    for spec in ("none", "full"):
+        m = _rest_model(spec, dropout=DROPOUT_RATE)
+        runs[spec] = fwd_bwd(m, images, text)
+        del m
+    check(torch.equal(runs["none"]["loss"], runs["full"]["loss"]),
+          "dropout: the loss under full remat differs from no-remat")
+    equal_grads(runs["full"]["grads"], runs["none"]["grads"], {},
+                "dropout under full remat")
+    print(f"dropout {DROPOUT_RATE} (config): eval() equal to the rate-0 "
+          f"model; one mask kept {kept} of {n} ({kept / n:.5f}, "
+          f"{(kept - n * keep) / sigma:+.2f} sigma); two train steps, "
+          f"losses {[round(v, 5) for v in losses]}; full remat's gradients "
+          f"equal to no-remat's from the same seed | {card}", flush=True)
+    return counts
+
+
+def rest_command(card: str, what: str, argv: list[str], steps: int,
+                 want: tuple[int, int, int, int],
+                 keep_optimizer: bool = False) -> dict:
+    """One train command of phase 14 (:func:`run_train_command`) for
+    ``steps`` steps. ``want``: a ``FAMILY_STEP`` entry; no other kernel may
+    launch."""
+    run = run_train_command(
+        argv + ["--steps", str(steps), "--log-every", "1"], card,
+        keep_optimizer)
+    rc, counts, flags, peak, logged, summary = (
+        run[k] for k in ("rc", "counts", "flags", "peak", "logged",
+                         "summary"))
+    check(rc == 0 and summary.get("status") == "trained"
+          and summary.get("device", "").startswith("cuda"),
+          f"{what}: python -m jimm_tpu_torch {' '.join(argv)}: rc {rc}, "
+          f"{summary}")
+    check([r["step"] for r in logged] == list(range(steps))
+          and all(math.isfinite(r["loss"]) for r in logged),
+          f"{what}: logged {logged}")
+    flash, ln_fwd, ln_bwd, causal = want
+    per_step = {"flash_attention": flash, "flash_attention_bwd": flash,
+                "layer_norm": ln_fwd, "layer_norm_bwd": ln_bwd}
+    check(all(counts[k] == per_step.get(k, 0) * steps for k in counts)
+          and flags.count(True) == causal * steps,
+          f"{what}: launches over {steps} steps {counts}, causal "
+          f"{flags.count(True)}; want per step {per_step}, {causal} causal")
+    times = [round(r["step_time_s"] * 1e3, 3) for r in logged]
+    extra = ("; accuracy " + str([r["accuracy"] for r in logged])
+             if "accuracy" in logged[0] else "")
+    print(f"{what}: {steps} steps, launches {counts} ({flags.count(True)} "
+          f"causal); step times {times} ms, MFU of the last "
+          f"{summary['mfu_last_step']}; losses "
+          f"{[round(r['loss'], 5) for r in logged]}{extra}; "
+          f"torch.cuda.max_memory_allocated {peak} bytes "
+          f"({peak / 2**30:.2f} GiB) | {card}", flush=True)
+    return run
+
+
+def train_rest_commands(card: str, vit_ckpt: pathlib.Path
+                        ) -> dict[str, dict]:
+    """14(c)-(f): the train command's new paths."""
+    common = ["--ln-impl", "fused"]
+    bf16 = ["--bf16", *common]
+    r = rest_command(card, "train --moment-dtype bf16", [
+        "train", "--preset", "siglip-base-patch16-256", "--moment-dtype",
+        "bf16", "--batch-size", str(TRAIN_BATCH), *common], CLI_STEPS,
+        FAMILY_STEP["siglip"], keep_optimizer=True)
+    state = r["optimizer"].opt.state
+    mus = [s["exp_avg"] for s in state.values()]
+    nbytes = sum(t.nbytes for s in state.values() for t in s.values()
+                 if torch.is_tensor(t))
+    f32 = sum(2 * 4 * p.numel() for p in r["optimizer"].params)
+    check(len(mus) == len(r["optimizer"].params)
+          and all(m.dtype == torch.bfloat16 for m in mus)
+          and r["summary"]["moment_dtype"] == "bfloat16",
+          "train --moment-dtype bf16: exp_avg not bf16 throughout")
+    print(f"train --moment-dtype bf16 (f32 parameters): {len(mus)} exp_avg "
+          f"all bf16; optimizer state {nbytes} bytes "
+          f"({nbytes / 2**20:.1f} MiB) against {f32} ({f32 / 2**20:.1f} "
+          f"MiB) with f32 moments | {card}", flush=True)
+    counts = {"moment_bf16": r["counts"]}
+    del r, state, mus
+    r = rest_command(card, "train vit-base-patch16-224", [
+        "train", "--preset", "vit-base-patch16-224", "--num-classes",
+        str(VIT_CLASSES), "--batch-size", str(TRAIN_BATCH), *bf16],
+        CLI_STEPS, FAMILY_STEP["vit"])
+    check(r["summary"]["num_classes"] == VIT_CLASSES,
+          f"train vit: {r['summary']}")
+    counts["vit"] = r["counts"]
+    r = rest_command(card, "train --from-pretrained (ViT-B/16)", [
+        "train", "--preset", "vit-base-patch16-224", "--from-pretrained",
+        str(vit_ckpt), "--num-classes", str(FINETUNE_CLASSES),
+        "--batch-size", str(TRAIN_BATCH), *bf16], FINETUNE_STEPS,
+        FAMILY_STEP["vit"])
+    check(r["summary"]["fresh_head"] is True
+          and r["summary"]["num_classes"] == FINETUNE_CLASSES,
+          f"train --from-pretrained: {r['summary']}")
+    counts["vit_finetune"] = r["counts"]
+    r = rest_command(card, "train clip-vit-base-patch16", [
+        "train", "--preset", "clip-vit-base-patch16", "--batch-size",
+        str(TRAIN_BATCH), *bf16], CLI_STEPS, FAMILY_STEP["clip"])
+    counts["clip"] = r["counts"]
+    del r
+    peaks = {}
+    for key, remat in (("temporal", []), ("temporal_dots",
+                                          ["--remat", "dots"])):
+        r = rest_command(card, f"train {TEMPORAL_PRESET} "
+                               f"{' '.join(remat) or '(no remat)'}", [
+            "train", "--preset", TEMPORAL_PRESET, "--batch-size",
+            str(TEMPORAL_BATCH), *bf16, *remat], TEMPORAL_STEPS,
+            FAMILY_STEP[key])
+        check(r["summary"]["num_frames"] == 8
+              and r["summary"]["remat"] == (remat[-1] if remat else "none"),
+              f"{key}: {r['summary']}")
+        counts[key], peaks[key] = r["counts"], r["peak"]
+        del r
+    check(peaks["temporal_dots"] < peaks["temporal"],
+          f"temporal: the dots peak {peaks['temporal_dots']} is not under "
+          f"no remat's {peaks['temporal']}")
+    print(f"temporal ViT-B/16 (8 x 196 tokens), batch {TEMPORAL_BATCH}: "
+          f"peak {peaks['temporal'] / 2**30:.2f} GiB without remat, "
+          f"{peaks['temporal_dots'] / 2**30:.2f} GiB under dots | {card}",
+          flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3593,6 +4104,10 @@ def main() -> int:
             zero_shot_counts = zero_shot_phase(card, ckpts,
                                                pathlib.Path(tmp))
             done("zero-shot")
+            rest_counts = remat_phase(card)
+            rest_counts["dropout"] = dropout_phase(card)
+            rest_counts.update(train_rest_commands(card, ckpts["vit"]))
+            done("training, rest")
         check(all(math.isfinite(timed[k]["ms"]) for k in timed), "bad timing")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
@@ -3609,7 +4124,7 @@ def main() -> int:
              "naflex": naflex_counts, "int8_serve": int8_serve_counts,
              "int8_qk": int8_qk_counts, "fp8_hybrid": fp8_counts,
              "sigmoid": sigmoid_counts, "bias": bias_counts,
-             **ckpt_counts, **zero_shot_counts}
+             **ckpt_counts, **zero_shot_counts, **rest_counts}
     steps = {"train": CLI_STEPS, "naflex": CLI_STEPS, "int8_qk": CLI_STEPS,
              "fp8_hybrid": CLI_STEPS, "sigmoid": TRAIN_STEPS}
     main_path = {"flash_attention_masked": "naflex",

@@ -13,10 +13,14 @@ Linear for a W8A8 ``QuantLinear`` before any forward
 ``/v1/classify`` (zero-shot scores; the class weights cached per label
 set).
 
-``train`` trains a SigLIP preset contrastively on synthetic pairs
-(``data/synthetic.py``) with AdamW, clipping and the warmup-cosine schedule
-of the JAX package's ``train`` command, printing one JSON metrics line per
-logged step and a JSON summary line at the end. With ``--naflex`` the image
+``train`` trains a preset of any family, or fine-tunes a local checkpoint
+(``--from-pretrained``), on synthetic data (``data/synthetic.py``) with
+AdamW, clipping and the warmup-cosine schedule of the JAX package's
+``train`` command: a ViT as a cross-entropy classifier on the blob task
+(temporal presets on clips), CLIP and SigLIP contrastively on pairs,
+optionally with per-block remat (``--remat``) and a bf16 first moment
+(``--moment-dtype bf16``). It prints one JSON metrics line per logged step
+and a JSON summary line at the end. With ``--naflex`` the image
 side is SigLIP2's variable-resolution NaFlex batches (mixed-aspect synthetic
 images as padded patch sequences with a key-padding mask). ``--precision
 int8_qk`` runs every attention on the int8-QK flash kernels, ``--precision
@@ -44,14 +48,16 @@ import numpy as np
 import torch
 
 from jimm_tpu_torch.configs import (PRESETS, CLIPConfig, SigLIPConfig,
-                                    ViTConfig, family, preset, with_runtime)
+                                    ViTConfig, family, parse_remat, preset,
+                                    with_runtime)
 from jimm_tpu_torch.data import records, webdataset
 from jimm_tpu_torch.data.clip_tokenizer import CLIPTokenizer
 from jimm_tpu_torch.data.naflex import patchify_naflex
 from jimm_tpu_torch.data.preprocess import (CLIP_MEAN, CLIP_STD, SIGLIP_MEAN,
                                             SIGLIP_STD, preprocess_batch,
                                             to_float_normalized)
-from jimm_tpu_torch.data.synthetic import (contrastive_pairs,
+from jimm_tpu_torch.data.synthetic import (blob_classification,
+                                            contrastive_pairs,
                                             naflex_contrastive_pairs)
 from jimm_tpu_torch.data.tfrecord import TFRecordWriter, encode_example
 from jimm_tpu_torch.models.clip import CLIP
@@ -71,6 +77,7 @@ from jimm_tpu_torch.train.metrics import (MetricsLogger, StepTimer,
                                           device_peak_tflops, mfu,
                                           train_step_flops)
 from jimm_tpu_torch.train.trainer import (OptimizerConfig,
+                                          make_classifier_train_step,
                                           make_contrastive_train_step,
                                           make_optimizer)
 from jimm_tpu_torch.utils.zero_shot import (TEMPLATES, expand_templates,
@@ -204,8 +211,6 @@ _TRAIN_NOT_PORTED = {
     "ckpt_dir": "checkpoints, ROADMAP.md queue 1, item 4",
     "resume": "checkpoints, ROADMAP.md queue 1, item 4",
     "mesh": "device meshes, ROADMAP.md queue 1, item 6 (parallelism)",
-    "remat": "remat policies, ROADMAP.md queue 1, item 3 (training, rest)",
-    "dropout": "dropout, ROADMAP.md queue 1, item 3 (training, rest)",
 }
 
 
@@ -219,24 +224,87 @@ def naflex_to_device(triple, device: torch.device, dtype: torch.dtype
             torch.from_numpy(mask).to(device, torch.bool))
 
 
+def fit_head(model: VisionTransformer, n: int | None) -> bool:
+    """Make a loaded ViT's classifier match the task, as the JAX CLI's
+    ``_fit_head`` does: a fresh zero-initialised ``n``-wide head when the
+    count differs or the checkpoint has none (returns True); an error when
+    it has none and no count is known."""
+    cfg = model.config
+    if n and (not cfg.do_classification or n != cfg.num_classes):
+        like = model.vision.pos_embed
+        model.classifier = torch.nn.Linear(cfg.vision.width, n,
+                                           device=like.device,
+                                           dtype=like.dtype)
+        with torch.no_grad():
+            model.classifier.weight.zero_()
+            model.classifier.bias.zero_()
+        model.config = dataclasses.replace(cfg, num_classes=n,
+                                           do_classification=True)
+        return True
+    if not cfg.do_classification:
+        raise SystemExit("checkpoint has no classifier head; pass "
+                         "--num-classes")
+    return False
+
+
+def remat_name(cfg) -> str:
+    """The ``--remat`` spec a tower config runs: none, full or the save set."""
+    if not cfg.remat:
+        return "none"
+    return "full" if cfg.remat_policy == "none" else cfg.remat_policy
+
+
+def _train_model(args: argparse.Namespace, fam: str, runtime: dict,
+                 device: torch.device, dtype: torch.dtype):
+    """The model ``train`` fits: a seeded preset of family ``fam``, or the
+    ``--from-pretrained`` checkpoint (a ViT's head fitted to the classes);
+    and whether a fresh head was fitted."""
+    n_classes = (args.num_classes or 4) if fam == "vit" else None
+    if args.from_pretrained:
+        try:
+            model = MODELS[fam].from_pretrained(
+                args.from_pretrained, device=device, dtype=dtype,
+                runtime=runtime or None, image_size=args.image_size)
+        except NotImplementedError as e:  # a hub name (item 4)
+            raise SystemExit(str(e))
+        return model, fam == "vit" and fit_head(model, n_classes)
+    cfg = preset(args.preset)
+    if args.tiny:
+        cfg = tiny_override(cfg)
+    if runtime:
+        cfg = with_runtime(cfg, **runtime)
+    if n_classes:
+        cfg = dataclasses.replace(cfg, num_classes=n_classes)
+    model = MODELS[fam](cfg, device=device, dtype=dtype,
+                        generator=torch.Generator(device=device).manual_seed(
+                            args.seed))
+    return model, False
+
+
 def cmd_train(args: argparse.Namespace) -> int:
     for flag, where in _TRAIN_NOT_PORTED.items():
         if getattr(args, flag):
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet: "
                              f"{where}")
-    if args.naflex and not args.preset.startswith("siglip"):
+    fam = family(args.preset)
+    if args.naflex and fam != "siglip":
         raise SystemExit("--naflex trains SigLIP2-style models; "
                          "use a siglip preset")
     if args.naflex and (args.precision == "int8_qk"
                         or args.attn_impl == "flash_int8"):
         raise SystemExit(f"--naflex batches need a key-padding mask: "
                          f"{INT8_NO_MASK}")
+    if args.tiny and args.from_pretrained:
+        raise SystemExit("--tiny conflicts with --from-pretrained (the "
+                         "checkpoint defines the architecture)")
     device = resolve_device(args.device)
-    cfg = preset(args.preset)
-    if args.tiny:
-        cfg = tiny_override(cfg)
     runtime = {"attn_impl": args.attn_impl, "ln_impl": args.ln_impl,
                "fused_qkv": args.fused_qkv, "precision": args.precision}
+    if args.remat:
+        try:
+            runtime.update(parse_remat(args.remat))
+        except ValueError as e:
+            raise SystemExit(f"--remat: {e}")
     if args.attn_impl == "flash_masked":
         # only the NaFlex vision tower has a mask; the text tower takes the
         # unmasked kernels
@@ -245,59 +313,86 @@ def cmd_train(args: argparse.Namespace) -> int:
                              "fixed-resolution towers have no mask)")
         runtime.update(attn_impl=None, vision={"attn_impl": "flash_masked"},
                        text={"attn_impl": "flash"})
-    cfg = with_runtime(cfg, **{k: v for k, v in runtime.items() if v})
+    runtime = {k: v for k, v in runtime.items() if v}
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    model = SigLIP(cfg, device=device, dtype=dtype,
-                   generator=torch.Generator(device=device).manual_seed(
-                       args.seed))
+    model, fresh_head = _train_model(args, fam, runtime, device, dtype)
+    cfg = model.config
     model.train()
     # the precision policy's surgery, before the optimizer is built (as the
     # JAX train command orders it)
     precision = cfg.vision.precision
     rewritten = apply_precision_policy(model, precision)
+    # --moment-dtype wins over --bf16-momentum
+    moment_dtype = ({"f32": "float32", "bf16": "bfloat16"}[args.moment_dtype]
+                    if args.moment_dtype
+                    else ("bfloat16" if args.bf16_momentum else None))
     optimizer = make_optimizer(model, OptimizerConfig(
         learning_rate=args.lr, weight_decay=args.weight_decay,
-        warmup_steps=args.warmup_steps, total_steps=args.steps))
-    step_fn = make_contrastive_train_step(args.loss)
-    if args.naflex:
-        data = naflex_contrastive_pairs(
-            args.batch_size, patch_size=cfg.vision.patch_size,
-            max_num_patches=cfg.vision.num_patches,
-            seq_len=cfg.text.context_length, vocab_size=cfg.text.vocab_size,
-            seed=args.seed)
+        warmup_steps=args.warmup_steps, total_steps=args.steps,
+        moment_dtype=moment_dtype))
+    if fam == "vit":
+        step_fn = make_classifier_train_step()
+        data = blob_classification(args.batch_size,
+                                   image_size=cfg.vision.image_size,
+                                   num_classes=cfg.num_classes,
+                                   seed=args.seed,
+                                   num_frames=cfg.vision.num_frames)
+        # the classifier's bias is among the last parameters updated
+        sync = model.classifier.bias
     else:
-        data = contrastive_pairs(args.batch_size,
-                                 image_size=cfg.vision.image_size,
-                                 vocab_size=cfg.text.vocab_size,
-                                 seq_len=cfg.text.context_length,
-                                 seed=args.seed)
+        try:
+            step_fn = make_contrastive_train_step(args.loss or fam)
+        except NotImplementedError as e:  # the ring losses need a mesh
+            raise SystemExit(str(e))
+        if args.naflex:
+            data = naflex_contrastive_pairs(
+                args.batch_size, patch_size=cfg.vision.patch_size,
+                max_num_patches=cfg.vision.num_patches,
+                seq_len=cfg.text.context_length,
+                vocab_size=cfg.text.vocab_size, seed=args.seed)
+        else:
+            data = contrastive_pairs(args.batch_size,
+                                     image_size=cfg.vision.image_size,
+                                     vocab_size=cfg.text.vocab_size,
+                                     seq_len=cfg.text.context_length,
+                                     seed=args.seed)
+        # logit_scale depends on the update just made
+        sync = model.logit_scale
     logger = MetricsLogger(path=args.metrics_file,
                            print_every=args.log_every)
     timer = StepTimer()
     peak = device_peak_tflops(device)
     flops = train_step_flops(cfg, args.batch_size)
-    loss = dt = None
+    loss = dt = accuracy = None
     try:
         for step in range(args.steps):
-            images, text = next(data)
+            images, target = next(data)
             images = (naflex_to_device(images, device, dtype) if args.naflex
                       else torch.from_numpy(images).to(device, dtype))
-            text = torch.from_numpy(text).to(device, torch.long)
+            target = torch.from_numpy(target).to(device, torch.long)
             timer.start()
-            metrics = step_fn(model, optimizer, images, text)
-            # logit_scale depends on the update just made
-            dt = timer.stop(metrics["loss"], model.logit_scale)
+            metrics = step_fn(model, optimizer, images, target)
+            dt = timer.stop(metrics["loss"], sync.reshape(-1)[0])
             loss = float(metrics["loss"])
-            logger.log(step, loss=loss, step_time_s=dt,
+            extra = {}
+            if "accuracy" in metrics:
+                accuracy = extra["accuracy"] = float(metrics["accuracy"])
+            logger.log(step, loss=loss, **extra, step_time_s=dt,
                        lr=optimizer.schedule(step),
                        images_per_s=args.batch_size / dt,
                        mfu=mfu(flops, dt, peak))
     finally:
         logger.close()
+    name = (f"{fam}:{args.from_pretrained}" if args.from_pretrained
+            else f"{fam}:{args.preset}" + (":tiny" if args.tiny else ""))
     print(json.dumps({
         "status": "trained", "steps": args.steps, "loss": loss,
-        "step_time_s": dt, "model": f"siglip:{args.preset}"
-        + (":tiny" if args.tiny else ""), "naflex": args.naflex,
+        "accuracy": accuracy, "step_time_s": dt, "model": name,
+        "family": fam, "naflex": args.naflex,
+        "num_classes": cfg.num_classes if fam == "vit" else None,
+        "fresh_head": fresh_head, "num_frames": cfg.vision.num_frames,
+        "remat": remat_name(cfg.vision), "dropout": cfg.vision.dropout,
+        "moment_dtype": moment_dtype or "param",
         "device": str(device),
         "device_name": (torch.cuda.get_device_name(device)
                         if device.type == "cuda" else "cpu"),
@@ -819,13 +914,24 @@ def build_parser() -> argparse.ArgumentParser:
                     help="stop after this long (default: serve until ^C)")
     sp.set_defaults(func=cmd_serve)
 
-    sp = sub.add_parser("train", help="contrastive training on synthetic "
-                                      "pairs (offline)")
+    sp = sub.add_parser("train", help="train on synthetic data (offline): "
+                                      "ViT classifiers, CLIP/SigLIP pairs")
     sp.add_argument("--preset", default="siglip-base-patch16-256",
-                    choices=sorted(n for n in PRESETS
-                                   if family(n) == "siglip"))
+                    choices=sorted(PRESETS),
+                    help="names the family (vit, clip, siglip) and, "
+                         "without --from-pretrained, the architecture")
     sp.add_argument("--tiny", action="store_true",
                     help="shrink the preset to CPU-demo size")
+    sp.add_argument("--from-pretrained", default=None,
+                    help="fine-tune from a local HF checkpoint directory "
+                         "or file of the preset's family")
+    sp.add_argument("--image-size", type=int, default=None,
+                    help="with --from-pretrained: load at a different "
+                         "resolution (position-table interpolation)")
+    sp.add_argument("--num-classes", type=int, default=None,
+                    help="ViT classifier width (default 4, the synthetic "
+                         "classes); a checkpoint's head of another width is "
+                         "replaced by a fresh one")
     sp.add_argument("--steps", type=int, default=100)
     sp.add_argument("--batch-size", type=int, default=32)
     sp.add_argument("--lr", type=float, default=1e-3)
@@ -835,24 +941,38 @@ def build_parser() -> argparse.ArgumentParser:
                     help="seeds the weights and the synthetic data")
     sp.add_argument("--bf16", action="store_true",
                     help="bf16 parameters and compute (default f32)")
-    sp.add_argument("--loss", default="siglip", choices=["siglip", "clip"])
+    sp.add_argument("--loss", default=None,
+                    choices=["clip", "clip_ring", "siglip", "siglip_ring"],
+                    help="contrastive loss (default: the family's own; the "
+                         "ring losses need a device mesh)")
     sp.add_argument("--naflex", action="store_true",
                     help="variable-resolution SigLIP2 training: NaFlex "
                          "(patches, shapes, mask) batches of synthetic "
                          "mixed-aspect images instead of square images")
     sp.add_argument("--attn-impl", default=None,
                     choices=["auto", "xla", "flash", "flash_masked",
-                             "flash_int8"],
+                             "flash_int8", "saveable"],
                     help="attention for both towers (auto = flash on CUDA; "
                          "flash takes the masked kernels where there is a "
                          "key-padding mask; flash_masked = the masked "
                          "kernels for the NaFlex vision tower, needs "
                          "--naflex; flash_int8 = int8-QK flash, forward and "
-                         "backward)")
+                         "backward; saveable = einsum attention whose "
+                         "probabilities --remat dots+attn keeps)")
     sp.add_argument("--ln-impl", default=None, choices=["xla", "fused"],
                     help="encoder LayerNorm (fused = the LayerNorm kernels)")
     sp.add_argument("--fused-qkv", action="store_true",
                     help="q/k/v as one (H, 3H) matmul")
+    sp.add_argument("--remat", default=None,
+                    help="activation remat of every block: none (off), full "
+                         "(recompute all), or dots with +ln/+act/+attn "
+                         "suffixes (keep matmul [+layernorm][+activation]"
+                         "[+attention-prob] outputs)")
+    sp.add_argument("--bf16-momentum", action="store_true",
+                    help="keep Adam's first moment in bfloat16")
+    sp.add_argument("--moment-dtype", default=None, choices=["f32", "bf16"],
+                    help="Adam first-moment dtype; wins over "
+                         "--bf16-momentum")
     sp.add_argument("--precision", default=None, choices=POLICIES,
                     help="training precision policy: bf16 (as built), "
                          "fp8_hybrid (eligible Linears matmul in e4m3 "
@@ -870,9 +990,6 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--ckpt-dir", default=None, help=argparse.SUPPRESS)
     sp.add_argument("--resume", action="store_true", help=argparse.SUPPRESS)
     sp.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
-    sp.add_argument("--remat", default=None, help=argparse.SUPPRESS)
-    sp.add_argument("--dropout", type=float, default=None,
-                    help=argparse.SUPPRESS)
     sp.set_defaults(func=cmd_train)
 
     sp = sub.add_parser("evaluate",

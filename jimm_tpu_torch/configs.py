@@ -3,14 +3,14 @@
 The port's own copy of the parts of ``jimm_tpu/configs.py`` it uses: the
 tower and model dataclasses with the same fields and defaults (so a config
 means the same thing to both packages), the runtime-field rule,
-``with_runtime``, ``normalize_act``, ``act_to_hf`` and the fixed-resolution
-presets (the temporal ViT presets are not ported: ROADMAP.md queue 1, item
-3). The tests hold this copy equal to the JAX package's field by field.
+``with_runtime`` with its value checks, ``remat_policy_parts``,
+``parse_remat``, ``normalize_act``, ``act_to_hf`` and the presets, the
+temporal ViT ones included. The tests hold this copy equal to the JAX
+package's field by field.
 
 Fields that select a JAX execution strategy the port has not ported yet
-(``pipeline``, ``remat``, ``scan_unroll``, ``precision`` and the
-``pp_*`` family) are kept for that equality; the port's modules reject the
-values they cannot honour.
+(``pipeline``, ``scan_unroll`` and the ``pp_*`` family) are kept for that
+equality; the port's modules reject the values they cannot honour.
 """
 
 from __future__ import annotations
@@ -24,7 +24,29 @@ Activation = Literal["gelu", "gelu_tanh", "quick_gelu"]
 AttnImpl = Literal["auto", "xla", "flash", "flash_masked", "flash_bias",
                    "flash_int8", "sigmoid", "ring", "ulysses", "saveable"]
 Precision = Literal["bf16", "fp8_hybrid", "int8_qk"]
+#: "dots" + optional "+ln"/"+act"/"+attn" save-list extensions
 RematPolicy = str
+
+
+def remat_policy_parts(policy: str) -> list[str]:
+    """Validate a remat policy string; return its ``+``-separated parts."""
+    parts = policy.split("+")
+    if policy != "none" and (parts[0] != "dots"
+                             or not set(parts[1:]) <= {"ln", "act", "attn"}):
+        raise ValueError(f"unknown remat_policy {policy!r}; expected 'none' "
+                         "or 'dots' with optional '+ln', '+act', '+attn' "
+                         "suffixes (e.g. 'dots+ln+act')")
+    return parts
+
+
+def parse_remat(spec: str) -> dict[str, Any]:
+    """CLI ``--remat`` spec -> `with_runtime` kwargs. ``none`` = remat off,
+    ``full`` = remat with full recompute, ``dots[+ln][+act][+attn]`` = remat
+    with that save-list. Raises ValueError on a malformed spec."""
+    if spec in ("none", "full"):
+        return {"remat": spec != "none", "remat_policy": "none"}
+    remat_policy_parts(spec)
+    return {"remat": True, "remat_policy": spec}
 
 
 def normalize_act(name: str | None, default: str = "gelu") -> str:
@@ -51,9 +73,28 @@ RUNTIME_FIELDS = frozenset({
 })
 
 
+def _check_runtime_values(fields: dict[str, Any]) -> None:
+    """Raise on an out-of-domain runtime value, as the JAX package's
+    ``_check_runtime_fields`` does for the fields the port reads: a
+    malformed remat policy (its own message), a dropout rate outside
+    [0, 1], a non-bool ``remat``."""
+    for k, v in fields.items():
+        ok = True
+        if k == "remat":
+            ok = isinstance(v, bool)
+        elif k == "remat_policy":
+            remat_policy_parts(str(v))  # raises on a malformed spec
+            ok = isinstance(v, str)
+        elif k == "dropout":
+            ok = isinstance(v, (int, float)) and 0.0 <= v <= 1.0
+        if not ok:
+            raise ValueError(f"bad value for runtime field {k!r}: {v!r}")
+
+
 def with_runtime(cfg, **fields):
     """Return ``cfg`` with runtime (non-architecture) fields replaced in the
-    vision and, if present, text tower. Rejects architecture fields.
+    vision and, if present, text tower. Rejects architecture fields and
+    out-of-domain values (:func:`_check_runtime_values`).
 
     Flat fields apply to both towers; ``vision=dict(...)`` /
     ``text=dict(...)`` target one tower."""
@@ -64,6 +105,8 @@ def with_runtime(cfg, **fields):
     if bad:
         raise ValueError(f"not runtime-overridable: {sorted(bad)} "
                          f"(allowed: {sorted(RUNTIME_FIELDS)})")
+    for group in (fields, per_tower["vision"], per_tower["text"]):
+        _check_runtime_values(group)
     cfg = dataclasses.replace(cfg, vision=dataclasses.replace(
         cfg.vision, **fields, **per_tower["vision"]))
     if hasattr(cfg, "text"):
@@ -261,6 +304,17 @@ def _vit(size: str, patch: int, image: int, classes: int = 1000) -> ViTConfig:
         num_classes=classes)
 
 
+def _vit_temporal(size: str, patch: int, image: int, frames: int,
+                  classes: int = 1000) -> ViTConfig:
+    """Temporal ViT: the frames flattened into one sequence (T * grid^2
+    tokens) under a T * grid^2 position table, full spatio-temporal
+    attention, MAP pooling (no class token)."""
+    base = _vit(size, patch, image, classes)
+    return dataclasses.replace(
+        base, vision=dataclasses.replace(base.vision, num_frames=frames,
+                                         pooling="map"))
+
+
 def _clip(vision_size: str, patch: int, image: int = 224) -> CLIPConfig:
     vw, vd, vh, vm, proj = {
         "B": (768, 12, 12, 3072, 512),
@@ -305,6 +359,9 @@ PRESETS: dict[str, ViTConfig | CLIPConfig | SigLIPConfig] = {
     "vit-base-patch32-384": _vit("B", 32, 384),
     "vit-large-patch16-384": _vit("L", 16, 384),
     "vit-huge-patch14-224": _vit("H", 14, 224),
+    # temporal ViT: 8 frames x 196 patches = 1568 tokens, MAP pooling
+    "vit-temporal-small-patch16-224-f8": _vit_temporal("S", 16, 224, 8),
+    "vit-temporal-base-patch16-224-f8": _vit_temporal("B", 16, 224, 8),
     "clip-vit-base-patch32": _clip("B", 32),
     "clip-vit-base-patch16": _clip("B", 16),
     "clip-vit-large-patch14": _clip("L", 14),

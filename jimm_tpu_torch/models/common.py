@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from jimm_tpu_torch.nn.norm import FusedLayerNorm
+from jimm_tpu_torch.nn.remat import Dropout
 from jimm_tpu_torch.quant import QuantLinear
 from jimm_tpu_torch.quant.policy import Fp8Linear
 from jimm_tpu_torch.weights.loader import M, apply_mapping
@@ -39,8 +40,9 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """The JAX package's initializers, drawn from ``generator``: xavier-uniform
     linear/conv/probe weights, zero biases and class tokens, unit LayerNorm
     scales, normal embeddings (0.02), image positions (0.02) and text
-    positions (0.01), the config's logit scale and bias. The numbers differ
-    from ``nnx.Rngs(0)``'s; tests carry JAX weights across instead."""
+    positions (0.01), the config's logit scale and bias; then one seed for
+    each dropout's mask stream. The numbers differ from ``nnx.Rngs(0)``'s;
+    tests carry JAX weights across instead."""
     for m in model.modules():
         if isinstance(m, nn.Linear):
             _xavier_(m.weight, m.in_features, m.out_features, generator)
@@ -70,6 +72,9 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
         model.logit_scale.fill_(cfg.logit_scale_init)
     if hasattr(model, "logit_bias"):
         model.logit_bias.fill_(cfg.logit_bias_init)
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.seed_(generator)
 
 
 def hf_encoder_layers(dst: str, src: str) -> list[M]:

@@ -6,9 +6,13 @@ The JAX package stacks the layers (one parameter set with a leading
 ``nn.ModuleList`` and the forward is a Python loop. ``load_jax_params``
 (`jimm_tpu_torch/models/siglip.py`) unstacks at the weight edge.
 
-Parity-preserved semantics: pre-LN residual order ``x + attn(ln1(x))``;
-``x + mlp(ln2(x))``; attention over explicit ``(B, S, N, D)`` tensors
-with plain ``(H, H)`` q/k/v/out projections.
+Parity-preserved semantics: pre-LN residual order
+``x + drop(attn(ln1(x)))``; ``x + drop(mlp(ln2(x)))``; attention over
+explicit ``(B, S, N, D)`` tensors with plain ``(H, H)`` q/k/v/out
+projections. The LayerNorm outputs and the MLP activation run inside
+``checkpoint_name`` blocks (``ln_out``, ``act_out``) that the remat
+policies of `jimm_tpu_torch/nn/remat.py` can keep; the projections that
+close the residual branches run inside ``branch_out``, which none keeps.
 """
 
 from __future__ import annotations
@@ -19,8 +23,10 @@ from torch import nn
 
 from jimm_tpu_torch.configs import TransformerConfig
 from jimm_tpu_torch.nn.norm import FusedLayerNorm
+from jimm_tpu_torch.nn.remat import Dropout, checkpoint_block, context_fn
 from jimm_tpu_torch.ops.activations import get_activation
 from jimm_tpu_torch.ops.attention import dot_product_attention
+from jimm_tpu_torch.ops.library import checkpoint_name
 
 
 def _layernorm(dim: int, eps: float, *, impl: str = "xla", device=None,
@@ -75,7 +81,8 @@ class Attention(nn.Module):
         v = v.reshape(b, sk, self.num_heads, self.head_dim)
         o = dot_product_attention(q, k, v, is_causal=self.is_causal,
                                   mask=mask, impl=self.impl)
-        return self.out(o.reshape(b, sq, self.num_heads * self.head_dim))
+        with checkpoint_name("branch_out"):
+            return self.out(o.reshape(b, sq, self.num_heads * self.head_dim))
 
 
 class Mlp(nn.Module):
@@ -87,11 +94,16 @@ class Mlp(nn.Module):
         self.act = get_activation(act)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.act(self.fc1(x)))
+        h = self.fc1(x)
+        with checkpoint_name("act_out"):
+            h = self.act(h)
+        with checkpoint_name("branch_out"):
+            return self.fc2(h)
 
 
 class Block(nn.Module):
-    """Pre-LN residual block."""
+    """Pre-LN residual block, with dropout on both residual branches (one
+    module, drawn twice, as JAX's ``Block.dropout``)."""
 
     def __init__(self, cfg: TransformerConfig, *, device=None, dtype=None):
         super().__init__()
@@ -102,32 +114,46 @@ class Block(nn.Module):
                               **kw)
         self.ln2 = _layernorm(cfg.width, cfg.ln_eps, impl=cfg.ln_impl, **kw)
         self.mlp = Mlp(cfg.width, cfg.mlp_dim, cfg.act, **kw)
+        self.dropout = Dropout(cfg.dropout)
 
     def forward(self, x: torch.Tensor,
                 mask: torch.Tensor | None = None) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), mask=mask)
-        return x + self.mlp(self.ln2(x))
+        with checkpoint_name("ln_out"):
+            h = self.ln1(x)
+        x = x + self.dropout(self.attn(h, mask=mask))
+        with checkpoint_name("ln_out"):
+            h = self.ln2(x)
+        return x + self.dropout(self.mlp(h))
 
 
 class Transformer(nn.Module):
     """``depth`` blocks applied in order, differentiable end to end (the
     kernels' autograd Functions carry the gradient through attention and
-    the fused LayerNorm). The JAX config's execution strategies remat,
-    pipeline and dropout are not ported yet and are rejected."""
+    the fused LayerNorm). With ``cfg.remat`` each block is recomputed in
+    the backward, keeping what ``cfg.remat_policy`` saves
+    (`jimm_tpu_torch/nn/remat.py`); a forward without autograd runs the
+    blocks as they are. Pipeline parallelism is not ported yet and is
+    rejected."""
 
     def __init__(self, cfg: TransformerConfig, *, device=None, dtype=None):
         super().__init__()
-        if cfg.pipeline or cfg.remat or cfg.dropout:
+        if cfg.pipeline:
             raise NotImplementedError(
-                "remat and dropout are not ported yet (ROADMAP.md queue 1, "
-                "item 3: training, rest), nor pipeline parallelism (queue 1, "
+                "pipeline parallelism is not ported yet (ROADMAP.md queue 1, "
                 "item 6: parallelism)")
+        if cfg.remat:
+            context_fn(cfg)  # a bad policy raises here, not in the step
         self.cfg = cfg
         self.blocks = nn.ModuleList(
             Block(cfg, device=device, dtype=dtype) for _ in range(cfg.depth))
 
     def forward(self, x: torch.Tensor,
                 mask: torch.Tensor | None = None) -> torch.Tensor:
+        if not (self.cfg.remat and torch.is_grad_enabled()):
+            for block in self.blocks:
+                x = block(x, mask=mask)
+            return x
+        context = context_fn(self.cfg)
         for block in self.blocks:
-            x = block(x, mask=mask)
+            x = checkpoint_block(block, x, mask, context)
         return x

@@ -3,9 +3,10 @@ CLS (ViT, CLIP) or MAP (SigLIP) pooling; the counterpart of
 ``jimm_tpu/nn/vision.py``, at fixed resolution (:meth:`VisionTower.forward`)
 and, for SigLIP-style towers, on NaFlex variable-resolution batches
 (:meth:`VisionTower.forward_naflex`). Pre-norm towers (CLIP) LayerNorm the
-embeddings (``ln_pre``); the others apply dropout there, which the port
-has not ported (its dropout rate must be 0). Temporal clips are not ported
-yet (ROADMAP.md queue 1, item 3)."""
+embeddings (``ln_pre``); the others apply dropout there. A temporal tower
+(``num_frames > 1``) takes ``(B, T, H, W, C)`` clips: each frame is
+patchified on its own and the tokens flatten into one ``(B, T*N, width)``
+sequence under the ``T*N`` position table."""
 
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from torch import nn
 
 from jimm_tpu_torch.configs import VisionConfig
 from jimm_tpu_torch.nn.naflex import naflex_position_embedding
+from jimm_tpu_torch.nn.remat import Dropout
 from jimm_tpu_torch.nn.transformer import Attention, Mlp, Transformer, _layernorm
 
 
@@ -74,10 +76,6 @@ class VisionTower(nn.Module):
 
     def __init__(self, cfg: VisionConfig, *, device=None, dtype=None):
         super().__init__()
-        if cfg.num_frames != 1:
-            raise NotImplementedError(
-                "temporal clips (num_frames > 1) are not ported yet "
-                "(ROADMAP.md queue 1, item 3)")
         kw = {"device": device, "dtype": dtype}
         outer_ln = {"impl": cfg.ln_impl if cfg.pooling == "cls" else "xla",
                     **kw}
@@ -89,24 +87,37 @@ class VisionTower(nn.Module):
             torch.zeros(1, cfg.seq_len, cfg.width, **kw))
         if cfg.pre_norm:
             self.ln_pre = _layernorm(cfg.width, cfg.ln_eps, **outer_ln)
+        else:
+            self.dropout = Dropout(cfg.dropout)
         self.encoder = Transformer(cfg.encoder(), **kw)
         self.ln_post = _layernorm(cfg.width, cfg.ln_eps, **outer_ln)
         if cfg.pooling == "map":
             self.head = MAPHead(cfg, **kw)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        size = self.cfg.image_size
+        """(B, H, W, C) images, or (B, T, H, W, C) clips for a temporal
+        tower -> pooled (B, width) (or the tokens with ``pooling="none"``)."""
+        size, frames = self.cfg.image_size, self.cfg.num_frames
+        if frames > 1:
+            if images.ndim != 5 or images.shape[1] != frames:
+                raise ValueError(
+                    f"temporal tower expects (B, {frames}, {size}, {size}, "
+                    f"C) clips, got {tuple(images.shape)}")
+            b = images.shape[0]
+            images = images.reshape((b * frames, *images.shape[2:]))
         if images.ndim != 4 or images.shape[1:3] != (size, size):
             raise ValueError(f"expected {size}x{size} input images (NHWC), "
                              f"got {tuple(images.shape)}")
         x = self.patch_embed(images)
+        if frames > 1:
+            x = x.reshape(b, frames * x.shape[1], x.shape[-1])
         if self.cfg.pooling == "cls":
             # the class token joins before the position add
             cls = self.cls_token.expand(x.shape[0], 1, x.shape[-1])
             x = torch.cat([cls.to(x.dtype), x], dim=1)
         x = x + self.pos_embed.to(x.dtype)
-        if self.cfg.pre_norm:
-            x = self.ln_pre(x)
+        # pre-norm towers (CLIP) LayerNorm the embeddings, the others drop
+        x = self.ln_pre(x) if self.cfg.pre_norm else self.dropout(x)
         x = self.ln_post(self.encoder(x))
         if self.cfg.pooling == "cls":
             return x[:, 0]
@@ -157,6 +168,7 @@ class VisionTower(nn.Module):
         table = self.pos_embed.reshape(g, g, -1)
         x = x + naflex_position_embedding(table, spatial_shapes,
                                           x.shape[1]).to(x.dtype)
+        x = self.dropout(x)
         key_mask = (mask != 0)[:, None, None, :]      # (B, 1, 1, S) over keys
         x = self.encoder(x, mask=key_mask)
         return self.head(self.ln_post(x), mask=key_mask)

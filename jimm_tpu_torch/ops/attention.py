@@ -33,6 +33,8 @@
 - ``"xla"`` / ``"einsum"``: :func:`reference_attention`, plain f32-softmax
   math (the names the JAX configs use for the non-kernel path),
   differentiated by autograd.
+- ``"saveable"``: :func:`saveable_attention`, einsum attention whose
+  probabilities a ``"dots+attn"`` remat policy keeps.
 
 The other JAX impls are schemes not ported yet; each raises
 ``NotImplementedError`` naming its place in ``ROADMAP.md``.
@@ -47,13 +49,13 @@ from jimm_tpu_torch.ops.flash_attention import (flash_attention,
                                                 flash_attention_masked,
                                                 sigmoid_attention)
 from jimm_tpu_torch.ops.flash_attention_int8 import flash_attention_int8
+from jimm_tpu_torch.ops.library import checkpoint_name
 
 #: JAX attention impls the port does not have yet -> where the ROADMAP
 #: queues them
 _NOT_PORTED = {
     "ring": "sequence parallelism, ROADMAP queue 1 (parallelism)",
     "ulysses": "sequence parallelism, ROADMAP queue 1 (parallelism)",
-    "saveable": "remat policies, ROADMAP queue 1 item 3 (training, rest)",
 }
 
 
@@ -83,6 +85,32 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     weights = torch.softmax(logits, dim=-1)
     out = torch.einsum("bnqk,bknd->bqnd", weights, v.float())
     return out.to(q.dtype)
+
+
+def saveable_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       *, is_causal: bool = False,
+                       mask: torch.Tensor | None = None,
+                       bias: torch.Tensor | None = None) -> torch.Tensor:
+    """``jimm_tpu/ops/attention.py::saveable_attention``: f32 scores (the
+    products of the input-dtype q and k summed in f32) and an f32 softmax,
+    the probabilities cast to the input dtype inside
+    ``checkpoint_name("attn_probs")``, so that a ``"dots+attn"`` remat policy
+    keeps them (and the softmax under them) instead of recomputing them;
+    ``p @ v`` is a batched product, not kept."""
+    dtype = q.dtype
+    logits = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
+    logits = logits * (1.0 / q.shape[-1] ** 0.5)
+    sq, sk = logits.shape[-2], logits.shape[-1]
+    if bias is not None:
+        logits = logits + bias.float()
+    if is_causal:
+        keep = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~keep, float("-inf"))
+    if mask is not None:
+        logits = logits.masked_fill(~mask.bool(), float("-inf"))
+    with checkpoint_name("attn_probs"):
+        probs = torch.softmax(logits, dim=-1).to(dtype)
+    return torch.einsum("bnqk,bknd->bqnd", probs, v)
 
 
 def _is_key_padding_mask(mask: torch.Tensor) -> bool:
@@ -166,6 +194,9 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if impl in ("xla", "einsum"):
         return reference_attention(q, k, v, is_causal=is_causal, mask=mask,
                                    bias=bias)
+    if impl == "saveable":
+        return saveable_attention(q, k, v, is_causal=is_causal, mask=mask,
+                                  bias=bias)
     if impl in _NOT_PORTED:
         raise NotImplementedError(f"attention impl {impl!r} is not ported "
                                   f"yet: {_NOT_PORTED[impl]}")

@@ -70,6 +70,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from jimm_tpu_torch import _build
+from jimm_tpu_torch.ops.library import define_op
 
 NEG_INF = -1e30
 #: largest head dim the kernels take (they pad D to 64/128/256 in shared
@@ -317,14 +318,29 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+#: the forwards as ops a remat policy can save, their o and lse being the
+#: JAX kernels' ``flash_o`` / ``flash_lse`` (`ops/library.py`); each looks
+#: its wrapper up when called
+fwd_op = define_op(
+    "flash_fwd(Tensor q, Tensor k, Tensor v, Tensor? mask, bool is_causal) "
+    "-> (Tensor, Tensor)",
+    lambda q, k, v, mask, is_causal: _fwd(q, k, v, is_causal, mask))
+sigmoid_fwd_op = define_op(
+    "sigmoid_fwd(Tensor q, Tensor k, Tensor v, Tensor? mask, bool is_causal, "
+    "float logit_bias) -> Tensor",
+    lambda q, k, v, mask, is_causal, logit_bias: sigmoid_attention_fwd(
+        q, k, v, is_causal=is_causal, mask=mask, logit_bias=logit_bias))
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """``(o, lse)`` of softmax flash attention, differentiable in q, k and v
     through both outputs; the ``(B, Sk)`` bool key-padding mask (or None)
-    rides through to the backward and gets no gradient."""
+    rides through to the backward and gets no gradient. The forward goes
+    through :data:`fwd_op`."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, is_causal):
-        o, lse = _fwd(q, k, v, is_causal, mask)
+        o, lse = fwd_op(q, k, v, mask, is_causal)
         ctx.save_for_backward(q, k, v, o, lse, mask)
         ctx.is_causal = is_causal
         ctx.set_materialize_grads(False)
@@ -501,8 +517,7 @@ class SigmoidAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask, is_causal, logit_bias):
-        o = sigmoid_attention_fwd(q, k, v, is_causal=is_causal, mask=mask,
-                                  logit_bias=logit_bias)
+        o = sigmoid_fwd_op(q, k, v, mask, is_causal, logit_bias)
         ctx.save_for_backward(q, k, v, mask)
         ctx.is_causal = is_causal
         ctx.logit_bias = logit_bias

@@ -34,6 +34,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from jimm_tpu_torch import _build
+from jimm_tpu_torch.ops.library import define_op
 from jimm_tpu_torch.ops.flash_attention import (NEG_INF, _acc_dtype, _check,
                                                 _delta, _kernel_dtype,
                                                 _strides)
@@ -212,6 +213,15 @@ def flash_attention_int8_bwd(qq: torch.Tensor, qs: torch.Tensor,
     return dq, dk, dv
 
 
+#: the forward as the op ``jimm::flash_int8_fwd``, which a remat policy can
+#: save (`ops/library.py`)
+fwd_op = define_op(
+    "flash_int8_fwd(Tensor qq, Tensor qs, Tensor kq, Tensor ks, Tensor v, "
+    "bool is_causal) -> (Tensor, Tensor)",
+    lambda qq, qs, kq, ks, v, is_causal: flash_attention_int8_fwd(
+        qq, qs, kq, ks, v, is_causal=is_causal))
+
+
 class FlashAttentionInt8Fn(torch.autograd.Function):
     """o of int8-QK flash attention, differentiable in q, k and v (straight
     through the quantizer in q and k)."""
@@ -220,8 +230,7 @@ class FlashAttentionInt8Fn(torch.autograd.Function):
     def forward(ctx, q, k, v, is_causal):
         qq, qs = quantize_heads(q)
         kq, ks = quantize_heads(k)
-        o, lse = flash_attention_int8_fwd(qq, qs, kq, ks, v,
-                                          is_causal=is_causal)
+        o, lse = fwd_op(qq, qs, kq, ks, v, is_causal)
         ctx.save_for_backward(qq, qs, kq, ks, v, o, lse)
         ctx.is_causal = is_causal
         return o

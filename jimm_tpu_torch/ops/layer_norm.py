@@ -33,6 +33,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from jimm_tpu_torch import _build
+from jimm_tpu_torch.ops.library import define_op
 
 #: forward / backward kernel launches since the count was last set to 0
 launches = 0
@@ -217,13 +218,22 @@ def layer_norm_bwd(x: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
     return dx, dscale, dbias
 
 
+#: :func:`_fwd` as the op ``jimm::layer_norm_fwd``, which a remat policy
+#: can save (`jimm_tpu_torch/ops/library.py`)
+fwd_op = define_op(
+    "layer_norm_fwd(Tensor x, Tensor scale, Tensor bias, float eps) "
+    "-> (Tensor, Tensor, Tensor)",
+    lambda x, scale, bias, eps: _fwd(x, scale, bias, eps))
+
+
 class LayerNormFn(torch.autograd.Function):
     """``(y, mean, rstd)`` of a fused LayerNorm, differentiable in x, scale
-    and bias through y (mean and rstd are residuals, not differentiable)."""
+    and bias through y (mean and rstd are residuals, not differentiable).
+    The forward goes through :data:`fwd_op`."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, eps):
-        y, mu, rstd = _fwd(x, scale, bias, eps)
+        y, mu, rstd = fwd_op(x, scale, bias, eps)
         ctx.save_for_backward(x, scale, mu, rstd)
         ctx.mark_non_differentiable(mu, rstd)
         return y, mu, rstd

@@ -1,12 +1,15 @@
 """Training machinery: the optimizer (AdamW with warmup-cosine schedule,
-global-norm clipping and the JAX package's weight-decay mask) and the
-contrastive train step; the counterpart of ``jimm_tpu/train/trainer.py``.
+global-norm clipping and the JAX package's weight-decay mask), the
+cross-entropy classifier steps and the contrastive train step; the
+counterpart of ``jimm_tpu/train/trainer.py``.
 
 The JAX package builds an optax chain ``clip_by_global_norm`` ->
-``adamw(schedule, mask=ndim > 1)``; here it is ``torch.optim.AdamW`` with
-two parameter groups, a clip written out with optax's formula, and the
-learning rate set from the schedule before every update. PyTorch runs
-eagerly, so the step is a plain function (no jit, no donation).
+``adamw(schedule, mask=ndim > 1, mu_dtype=moment_dtype)``; here it is
+``torch.optim.AdamW`` with two parameter groups, a clip written out with
+optax's formula, and the learning rate set from the schedule before every
+update. With a ``moment_dtype`` the update is written out with
+``_foreach`` ops in optax's order instead (:meth:`Optimizer.step`). PyTorch
+runs eagerly, so the steps are plain functions (no jit, no donation).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from jimm_tpu_torch.train.losses import clip_softmax_loss, sigmoid_pairwise_loss
@@ -32,8 +36,8 @@ class OptimizerConfig:
     b2: float = 0.999
     grad_clip_norm: float | None = 1.0
     min_lr_ratio: float = 0.0
-    #: dtype of Adam's first moment; only None (the parameter dtype) is
-    #: ported
+    #: dtype of Adam's first moment (optax ``mu_dtype``), by its name
+    #: ("bfloat16", "float32"); None keeps it in the parameter dtype
     moment_dtype: str | None = None
 
 
@@ -99,17 +103,25 @@ def clip_by_global_norm_(params: list[torch.Tensor], max_norm: float
     return norm
 
 
+def _moment_dtype(name: str | None) -> torch.dtype | None:
+    if name is None:
+        return None
+    dtype = getattr(torch, name, None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"moment_dtype {name!r} is not a torch float dtype")
+    return dtype
+
+
 class Optimizer:
     """AdamW (eps 1e-8) over ``model``'s parameters in two groups, decayed
     and not (:func:`decays`), with the learning rate of :func:`make_schedule`
-    and global-norm clipping applied in :meth:`step`."""
+    and global-norm clipping applied in :meth:`step`. Its state is
+    ``opt.state[p]``'s ``exp_avg`` (mu, in ``cfg.moment_dtype`` when set)
+    and ``exp_avg_sq`` (nu, in the parameter dtype)."""
 
     def __init__(self, model: nn.Module, cfg: OptimizerConfig):
-        if cfg.moment_dtype is not None:
-            raise NotImplementedError(
-                "moment_dtype is not ported yet (ROADMAP.md queue 1, item 3: "
-                "training, rest)")
         self.cfg = cfg
+        self.moment_dtype = _moment_dtype(cfg.moment_dtype)
         self.schedule = make_schedule(cfg)
         decay, keep = [], []
         for name, p in model.named_parameters():
@@ -132,14 +144,102 @@ class Optimizer:
         lr = self.schedule(self.count)
         for group in self.opt.param_groups:
             group["lr"] = lr
-        self.opt.step()
+        if self.moment_dtype is None:
+            self.opt.step()
+        else:
+            self._step_with_moment_dtype(lr)
         self.count += 1
+
+    @torch.no_grad()
+    def _step_with_moment_dtype(self, lr: float) -> None:
+        """One AdamW update as optax's ``scale_by_adam(mu_dtype=...)`` ->
+        ``add_decayed_weights`` -> ``scale_by_learning_rate`` orders it: mu
+        starts at zero in the moment dtype; the new mu is formed in f32 from
+        the stored one and used unrounded for this update, then stored in
+        the moment dtype; nu stays in the parameter dtype; ``p - lr * (mu_hat
+        / (sqrt(nu_hat) + eps) + wd * p)`` in f32, rounded to the parameter
+        dtype once."""
+        cfg = self.cfg
+        t = self.count + 1
+        bc1, bc2 = 1.0 - cfg.b1 ** t, 1.0 - cfg.b2 ** t
+        for group in self.opt.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            for p in params:
+                state = self.opt.state[p]
+                if not state:
+                    state["exp_avg"] = torch.zeros_like(
+                        p, dtype=self.moment_dtype,
+                        memory_format=torch.preserve_format)
+                    state["exp_avg_sq"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+            mus = [self.opt.state[p]["exp_avg"] for p in params]
+            nus = [self.opt.state[p]["exp_avg_sq"] for p in params]
+            torch._foreach_mul_(nus, cfg.b2)
+            torch._foreach_addcmul_(nus, grads, grads, value=1.0 - cfg.b2)
+            mu = torch._foreach_mul([m.float() for m in mus], cfg.b1)
+            torch._foreach_add_(mu, [g.float() for g in grads],
+                                alpha=1.0 - cfg.b1)
+            update = torch._foreach_div(mu, bc1)
+            denom = torch._foreach_div([n.float() for n in nus], bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, 1e-8)
+            torch._foreach_div_(update, denom)
+            masters = [p.float() for p in params]
+            if group["weight_decay"]:
+                torch._foreach_add_(update, masters,
+                                    alpha=group["weight_decay"])
+            torch._foreach_copy_(params, torch._foreach_add(
+                masters, update, alpha=-lr))
+            torch._foreach_copy_(mus, mu)
 
 
 def make_optimizer(model: nn.Module, cfg: OptimizerConfig) -> Optimizer:
     """AdamW with warmup-cosine schedule and global-norm clipping; weight
     decay masked as the JAX package masks it (:func:`decays`)."""
     return Optimizer(model, cfg)
+
+
+def classifier_metrics(logits: torch.Tensor, labels: torch.Tensor
+                       ) -> dict[str, torch.Tensor]:
+    """Mean softmax cross-entropy on integer labels (in f32) and top-1
+    accuracy, as optax's ``softmax_cross_entropy_with_integer_labels``
+    ``.mean()`` and JAX's argmax accuracy."""
+    loss = F.cross_entropy(logits.float(), labels.long())
+    accuracy = (logits.detach().argmax(dim=-1) == labels).float().mean()
+    return {"loss": loss, "accuracy": accuracy}
+
+
+def make_classifier_train_step() -> Callable:
+    """``step(model, optimizer, images, labels) -> {"loss", "accuracy"}``:
+    zero the gradients, backpropagate the cross-entropy of ``model(images)``,
+    clip and update; the accuracy is of the logits before the update. Both
+    stay on the device."""
+
+    def train_step(model: nn.Module, optimizer: Optimizer,
+                   images: torch.Tensor, labels: torch.Tensor
+                   ) -> dict[str, torch.Tensor]:
+        optimizer.zero_grad()
+        metrics = classifier_metrics(model(images), labels)
+        metrics["loss"].backward()
+        optimizer.step()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
+
+
+def make_classifier_eval_step() -> Callable:
+    """``step(model, images, labels) -> {"loss", "accuracy"}`` without
+    gradients."""
+
+    @torch.no_grad()
+    def eval_step(model: nn.Module, images: torch.Tensor,
+                  labels: torch.Tensor) -> dict[str, torch.Tensor]:
+        return classifier_metrics(model(images), labels)
+
+    return eval_step
 
 
 def _check_kind(kind: str) -> None:

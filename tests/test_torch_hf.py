@@ -320,7 +320,7 @@ def test_serve_cli_refusals():
                                             "vit", "--tiny", "--device",
                                             "cpu"]))
     with pytest.raises(SystemExit):
-        parser.parse_args(["train", "--preset", "vit-base-patch16-224"])
+        parser.parse_args(["train", "--preset", "vit-no-such-preset"])
 
 
 def _post(port: int, payload: dict) -> dict:

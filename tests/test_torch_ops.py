@@ -210,8 +210,16 @@ def test_sigmoid_impl_on_cpu_is_the_plain_sigmoid():
 def test_unported_attention_impls_name_the_roadmap(impl):
     """The JAX impls the port lacks raise NotImplementedError naming their
     ROADMAP item. ``flash_bias`` is ported: without a bias it raises JAX's
-    ValueError (tests/test_torch_bias.py compares the messages)."""
+    ValueError (tests/test_torch_bias.py compares the messages). So is
+    ``saveable``: in f32 it is the einsum path's function
+    (tests/test_torch_remat.py holds it to JAX's)."""
     q = torch.zeros(1, 4, 1, 8)
+    if impl == "saveable":
+        q = torch.randn(1, 4, 1, 8, generator=torch.Generator().manual_seed(0))
+        torch.testing.assert_close(
+            attention.dot_product_attention(q, q, q, impl=impl),
+            attention.reference_attention(q, q, q), atol=1e-6, rtol=1e-6)
+        return
     if impl == "flash_bias":
         with pytest.raises(ValueError, match="impl='flash_bias' requires a "
                                              "bias"):
