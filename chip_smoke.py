@@ -265,6 +265,27 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                clips), without remat and with ``--remat dots``, both peaks
                printed. Each command runs in-process, its launches counted
                per step.
+15. resilience -- phase 5's train command (SigLIP-B/16-256, bf16, batch
+               128) for 6 steps with ``--save-every 1 --batch-fingerprint``
+               and a fresh ``--ckpt-dir`` each run, in-process: (a) the
+               uninterrupted control run, then ``--inject-faults crash@2``
+               and ``--resume``, whose steps 3-5 must equal the control's
+               losses and batch fingerprints bit for bit, whose newest
+               ``model.safetensors`` must hash (SHA-256) as the control's,
+               and which must launch rows 1, 2, 3 and 7 for exactly its 3
+               steps (no replay); (b) ``supervise --max-restarts 2 -- train
+               ... --inject-faults preempt@2 --grace-steps 1`` (a real
+               SIGTERM, the grace-window save overlapping step 3): steps
+               [0, 1, 2, 3, 3, 4, 5] equal to the control's, the
+               ``resilience:`` line with a restart, a preemption and lost
+               work; (c) ``corrupt@2,crash@2`` then ``--resume``: step 2
+               quarantined, the run resumed from step 1, steps 2-5 equal
+               to the control's; (d) the checkpoint's bytes, the save's
+               host copy and background write, the time to resume (each
+               successful restore, and the replay of the synthetic
+               generator up to the resumed step), the corruption drill's
+               fall-back restore apart, and the ``checkpoint`` goodput
+               bucket against the step time.
 
 Phase 3's flash cases include row 3's causal kind at CLIP-B/16's text
 shapes, (32, 77, 8, 64) and the 70 prompt rows of one label set (70, 77,
@@ -306,6 +327,7 @@ import base64
 import copy
 import contextlib
 import dataclasses
+import hashlib
 import importlib.util
 import io
 import json
@@ -313,6 +335,7 @@ import math
 import pathlib
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -327,7 +350,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd import DeviceType
 
-from jimm_tpu_torch import _build, cli, configs
+from jimm_tpu_torch import _build, cli, configs, obs
 from jimm_tpu_torch.data.clip_tokenizer import CLIPTokenizer, bytes_to_unicode
 from jimm_tpu_torch.data.records import (write_classification_records,
                                          write_image_text_records)
@@ -521,6 +544,16 @@ REMAT_WIDE_PRESET = "siglip-large-patch16-256"
 REMAT_WIDE_RUNS = {128: ("none", "dots", "full"), 384: ("dots", "full")}
 #: Linears inside the blocks: rerun under full remat (fp8_hybrid)
 FP8_BLOCK_LINEARS = 144
+#: phase 15: phase 5's train command (SigLIP-B/16-256, bf16, fused
+#: LayerNorm, batch 128) for 6 steps with a save every step
+RESILIENCE_STEPS = 6
+RESILIENCE_ARGV = ["train", "--preset", "siglip-base-patch16-256", "--bf16",
+                   "--ln-impl", "fused", "--batch-size", str(TRAIN_BATCH),
+                   "--steps", str(RESILIENCE_STEPS), "--save-every", "1",
+                   "--log-every", "1", "--batch-fingerprint"]
+#: the checkpoint and resume spans phase 15(d) reads
+CKPT_SPANS = ("checkpoint_save", "checkpoint_host_copy", "checkpoint_write",
+              "checkpoint_restore", "resume_fast_forward")
 DROPOUT_RATE = 0.1
 VIT_CLASSES = 1000
 FINETUNE_CLASSES = 10
@@ -4039,6 +4072,236 @@ def train_rest_commands(card: str, vit_ckpt: pathlib.Path
     return counts
 
 
+# -- phase 15: checkpoints and resilience -------------------------------------
+
+def span_totals() -> dict[str, tuple[int, float]]:
+    """Count and seconds so far of each checkpoint span."""
+    snap = obs.get_registry("jimm_spans").snapshot()
+    return {s: (snap.get(f"{s}_seconds_count", 0),
+                snap.get(f"{s}_seconds_sum", 0.0)) for s in CKPT_SPANS}
+
+
+def resilience_command(argv: list[str], card: str, what: str,
+                       metrics: pathlib.Path, crash: str | None = None
+                       ) -> dict:
+    """One ``train`` or ``supervise`` command of phase 15, run in this
+    process: the launch counters zeroed just before it and read just after,
+    its standard output printed with a ``cli:`` prefix, its logged rows
+    read back, its warnings kept, and the checkpoint spans' counts and
+    seconds over the command. ``crash``: the injected failure's message,
+    which the command must raise."""
+    out = io.StringIO()
+    torch.cuda.empty_cache()
+    before = span_totals()
+    raised = rc = None
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        zero_counts()
+        with contextlib.redirect_stdout(out):
+            try:
+                rc = cli.main(argv + ["--metrics-file", str(metrics)])
+            except RuntimeError as e:
+                if crash is None or crash not in str(e):
+                    raise
+                raised = str(e)
+        counts = read_counts()
+    wall = time.perf_counter() - t0
+    spans = {k: (n - before[k][0], s - before[k][1])
+             for k, (n, s) in span_totals().items()}
+    printed = out.getvalue().splitlines()
+    for line in printed:
+        print(f"cli: {line} | {card}", flush=True)
+    check(raised is not None if crash else rc == 0,
+          f"{what}: rc {rc}, raised {raised}")
+    logged = [json.loads(line) for line in metrics.read_text().splitlines()]
+    metrics.unlink()
+    summary = (json.loads(printed[-1]) if printed
+               and printed[-1].startswith("{") else None)
+    return {"counts": counts, "logged": logged, "printed": printed,
+            "spans": spans, "summary": summary, "wall": wall,
+            "warnings": [str(w.message) for w in caught]}
+
+
+def steps_launched(what: str, counts: dict[str, int], steps: int) -> None:
+    """The command launched rows 1, 2, 3 and 7 for ``steps`` train steps
+    of SigLIP-B/16-256, and nothing else."""
+    want = step_counts()
+    check(all(counts[k] == want[k] * steps for k in want),
+          f"{what}: launches {counts}, want {steps} steps of {want}")
+
+
+def same_as_control(what: str, logged: list[dict], control: dict,
+                    steps) -> None:
+    """Bit-equal losses and batch fingerprints to the control run's at
+    ``steps`` (a step logged twice: the later row, the resumed one)."""
+    rows = {r["step"]: r for r in logged}
+    check(sorted(rows) == list(steps), f"{what}: steps {sorted(rows)}")
+    bad = [s for s in steps
+           if rows[s]["loss"] != control[s]["loss"]
+           or rows[s]["batch_fingerprint"] != control[s]["batch_fingerprint"]]
+    check(not bad, f"{what}: steps {bad} differ from the control run: "
+                   f"{[(rows[s]['loss'], control[s]['loss']) for s in bad]}")
+
+
+def _sha256(path: pathlib.Path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def _per_call_ms(spans: dict, name: str) -> float | None:
+    n, s = spans[name]
+    return round(s / n * 1e3, 3) if n else None
+
+
+def resilience_phase(card: str, root: pathlib.Path) -> dict[str, int]:
+    """Phase 15: (a) the control run and the crash drill, (b) the
+    preemption drill under ``supervise``, (c) the corruption drill, (d)
+    the checkpoint's size and times. Returns the launches of (a)'s resumed
+    run, the slice's path."""
+    crash2 = "injected failure at step 2"
+    metrics = root / "metrics.jsonl"
+
+    def ckpt(name: str) -> list[str]:
+        return ["--ckpt-dir", str(root / name)]
+
+    # (a) the uninterrupted control run, checkpointing every step
+    control_run = resilience_command(RESILIENCE_ARGV + ckpt("control"), card,
+                                     "15(a) control", metrics)
+    control = {r["step"]: r for r in control_run["logged"]}
+    check(sorted(control) == list(range(RESILIENCE_STEPS)),
+          f"15(a) control logged {sorted(control)}")
+    steps_launched("15(a) control", control_run["counts"], RESILIENCE_STEPS)
+    newest = root / "control" / str(RESILIENCE_STEPS - 1)
+    files = {f.name: f.stat().st_size for f in newest.iterdir()}
+    control_sha = _sha256(newest / "model.safetensors")
+    shutil.rmtree(root / "control")
+    run = resilience_command(RESILIENCE_ARGV + ckpt("crash")
+                             + ["--inject-faults", "crash@2"], card,
+                             "15(a) crash@2", metrics, crash=crash2)
+    same_as_control("15(a) crash@2", run["logged"], control, range(3))
+    resumed = resilience_command(RESILIENCE_ARGV + ckpt("crash")
+                                 + ["--resume"], card, "15(a) --resume",
+                                 metrics)
+    same_as_control("15(a) --resume", resumed["logged"], control,
+                    range(3, RESILIENCE_STEPS))
+    check(resumed["summary"]["start_step"] == 3,
+          f"15(a) resumed at {resumed['summary']['start_step']}")
+    # no replay: the resumed run trains its 3 steps and no more
+    steps_launched("15(a) --resume", resumed["counts"], 3)
+    sha = _sha256(root / "crash" / str(RESILIENCE_STEPS - 1)
+                  / "model.safetensors")
+    check(sha == control_sha, f"15(a): the resumed run's newest "
+                              f"model.safetensors {sha} != control's "
+                              f"{control_sha}")
+    shutil.rmtree(root / "crash")
+    print(f"15(a) crash@2 then --resume: steps 3-5 equal the control run's "
+          f"losses and batch fingerprints bit for bit; newest "
+          f"model.safetensors sha256 {sha} equal; launches "
+          f"{resumed['counts']} (3 steps) | {card}", flush=True)
+
+    # (b) SIGTERM at step 2 under supervise: the grace save overlaps step 3
+    run = run_b = resilience_command(
+        ["supervise", "--max-restarts", "2", "--backoff-base-s", "0.01",
+         "--seed", "0", "--"] + RESILIENCE_ARGV + ckpt("preempt")
+        + ["--inject-faults", "preempt@2", "--grace-steps", "1"],
+        card, "15(b) supervise preempt@2", metrics)
+    steps = [r["step"] for r in run["logged"]]
+    check(steps == [0, 1, 2, 3, 3, 4, 5],
+          f"15(b) supervise logged steps {steps}")
+    same_as_control("15(b) supervise", run["logged"], control,
+                    range(RESILIENCE_STEPS))
+    steps_launched("15(b) supervise", run["counts"], 7)
+    line = [p for p in run["printed"] if p.startswith("resilience: ")]
+    check(len(line) == 1, f"15(b): resilience lines {line}")
+    resilience = json.loads(line[0].removeprefix("resilience: "))
+    check(resilience["jimm_train_restarts_total"] >= 1
+          and resilience["jimm_train_preemptions_total"] >= 1
+          and resilience["jimm_train_goodput_lost_work_seconds_total"] > 0,
+          f"15(b) resilience counters {resilience}")
+    shutil.rmtree(root / "preempt")
+    print(f"15(b) supervise, preempt@2 with one grace step: steps {steps}, "
+          f"losses and fingerprints equal the control run's; resilience "
+          f"{resilience}; wall {run['wall']:.1f} s | {card}", flush=True)
+
+    # (c) step 2's metadata garbled, then a crash: resume quarantines it
+    # and falls back to step 1
+    run = resilience_command(RESILIENCE_ARGV + ckpt("corrupt")
+                             + ["--inject-faults", "corrupt@2,crash@2"],
+                             card, "15(c) corrupt@2,crash@2", metrics,
+                             crash=crash2)
+    fallback = resilience_command(RESILIENCE_ARGV + ckpt("corrupt")
+                                  + ["--resume"], card,
+                                  "15(c) --resume", metrics)
+    quarantined = root / "corrupt" / ".quarantine" / "2"
+    reason = (quarantined / ".jimm_quarantine_reason.txt").read_text() \
+        if quarantined.is_dir() else ""
+    check(reason.startswith("restore failed: JSONDecodeError")
+          and not (root / "corrupt" / "2").exists()
+          and any("quarantined" in w for w in fallback["warnings"]),
+          f"15(c): quarantine {reason!r}, warnings {fallback['warnings']}")
+    check(fallback["summary"]["start_step"] == 2,
+          f"15(c) resumed at {fallback['summary']['start_step']}")
+    same_as_control("15(c) --resume", fallback["logged"], control,
+                    range(2, RESILIENCE_STEPS))
+    steps_launched("15(c) --resume", fallback["counts"], 4)
+    shutil.rmtree(root / "corrupt")
+    print(f"15(c) corrupt@2,crash@2 then --resume: step 2 quarantined "
+          f"({reason.strip()}), resumed from step 1, steps 2-5 equal the "
+          f"control run's | {card}", flush=True)
+
+    # (d) the numbers
+    params = files["model.safetensors"]
+    moments = files["opt.safetensors"]
+    spans = control_run["spans"]
+    # one restore each in (a)'s resume and (b)'s restart, both of which
+    # succeed; (c)'s resume tries the garbled step 2 before step 1
+    tries = {what: r["spans"]["checkpoint_restore"][0] for what, r in
+             (("15(a)", resumed), ("15(b)", run_b), ("15(c)", fallback))}
+    check(tries == {"15(a)": 1, "15(b)": 1, "15(c)": 2},
+          f"15(d): restores tried {tries}")
+    restores = {k: (resumed["spans"][k][0] + run_b["spans"][k][0],
+                    resumed["spans"][k][1] + run_b["spans"][k][1])
+                for k in CKPT_SPANS}
+    # time to resume: the restore, then the generator replayed up to the
+    # resumed step (3 batches in (a) and (b), 2 in (c))
+    replay_ms = {what: r["spans"]["resume_fast_forward"][1] * 1e3
+                 for what, r in (("15(a)", resumed), ("15(b)", run_b),
+                                 ("15(c)", fallback))}
+    per_batch = sum(replay_ms.values()) / 8
+    resume_ms = {what: round(r["spans"]["checkpoint_restore"][1] * 1e3
+                             + replay_ms[what], 3)
+                 for what, r in (("15(a)", resumed), ("15(b)", run_b))}
+    goodput = control_run["summary"]["goodput"]
+    step_ms = statistics.median(r["step_time_s"] * 1e3
+                                for r in control_run["logged"][1:])
+    per_step = goodput["checkpoint_s"] / RESILIENCE_STEPS * 1e3
+    print(f"15(d) checkpoint of SigLIP-B/16-256 (bf16 parameters, bf16 "
+          f"AdamW moments): {params + moments} bytes = model.safetensors "
+          f"{params} + opt.safetensors {moments} ({files}); per save: host "
+          f"copy {_per_call_ms(spans, 'checkpoint_host_copy')} ms, the "
+          f"save call (host copy + waiting out the previous write) "
+          f"{_per_call_ms(spans, 'checkpoint_save')} ms, background write "
+          f"{_per_call_ms(spans, 'checkpoint_write')} ms; restore "
+          f"{_per_call_ms(restores, 'checkpoint_restore')} ms (mean of "
+          f"{restores['checkpoint_restore'][0]} successful restores: "
+          f"15(a)'s {resumed['spans']['checkpoint_restore'][1] * 1e3:.3f}, "
+          f"15(b)'s {run_b['spans']['checkpoint_restore'][1] * 1e3:.3f}); "
+          f"15(c)'s fall-back, the garbled step 2 tried then step 1: "
+          f"{fallback['spans']['checkpoint_restore'][1] * 1e3:.3f} ms in "
+          f"all; generator replay {per_batch:.3f} ms a batch (ms "
+          f"{replay_ms} for 3, 3 and 2 batches; it grows with the step "
+          f"resumed); time to resume (restore + replay) {resume_ms} ms; "
+          f"goodput checkpoint bucket "
+          f"{per_step:.1f} ms a "
+          f"step against a median step of {step_ms:.1f} ms (control run "
+          f"goodput {goodput}) | {card}", flush=True)
+    return resumed["counts"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4108,6 +4371,9 @@ def main() -> int:
             rest_counts["dropout"] = dropout_phase(card)
             rest_counts.update(train_rest_commands(card, ckpts["vit"]))
             done("training, rest")
+        with tempfile.TemporaryDirectory() as tmp:
+            resilience_counts = resilience_phase(card, pathlib.Path(tmp))
+            done("resilience")
         check(all(math.isfinite(timed[k]["ms"]) for k in timed), "bad timing")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
@@ -4124,7 +4390,8 @@ def main() -> int:
              "naflex": naflex_counts, "int8_serve": int8_serve_counts,
              "int8_qk": int8_qk_counts, "fp8_hybrid": fp8_counts,
              "sigmoid": sigmoid_counts, "bias": bias_counts,
-             **ckpt_counts, **zero_shot_counts, **rest_counts}
+             **ckpt_counts, **zero_shot_counts, **rest_counts,
+             "resilience": resilience_counts}
     steps = {"train": CLI_STEPS, "naflex": CLI_STEPS, "int8_qk": CLI_STEPS,
              "fp8_hybrid": CLI_STEPS, "sigmoid": TRAIN_STEPS}
     main_path = {"flash_attention_masked": "naflex",

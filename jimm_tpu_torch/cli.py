@@ -1,7 +1,7 @@
 """Command line: ``python -m jimm_tpu_torch
-serve|train|classify|evaluate|prepare-data``.
+serve|train|supervise|classify|evaluate|export-run|prepare-data``.
 
-``serve`` loads a local HF checkpoint (``--ckpt DIR --model
+``serve`` loads an HF checkpoint (``--ckpt DIR --model
 vit|clip|siglip``) or builds a preset of any family (randomly initialised
 from a seeded generator), puts its image forward (``encode_image`` for CLIP
 and SigLIP, the model itself for ViT: logits, or pooled features without a
@@ -13,33 +13,40 @@ Linear for a W8A8 ``QuantLinear`` before any forward
 ``/v1/classify`` (zero-shot scores; the class weights cached per label
 set).
 
-``train`` trains a preset of any family, or fine-tunes a local checkpoint
+``train`` trains a preset of any family, or fine-tunes a checkpoint
 (``--from-pretrained``), on synthetic data (``data/synthetic.py``) with
 AdamW, clipping and the warmup-cosine schedule of the JAX package's
 ``train`` command: a ViT as a cross-entropy classifier on the blob task
 (temporal presets on clips), CLIP and SigLIP contrastively on pairs,
 optionally with per-block remat (``--remat``) and a bf16 first moment
 (``--moment-dtype bf16``). It prints one JSON metrics line per logged step
-and a JSON summary line at the end. With ``--naflex`` the image
-side is SigLIP2's variable-resolution NaFlex batches (mixed-aspect synthetic
-images as padded patch sequences with a key-padding mask). ``--precision
-int8_qk`` runs every attention on the int8-QK flash kernels, ``--precision
-fp8_hybrid`` every eligible Linear on the fp8 matmul with delayed scaling
-(``jimm_tpu_torch.quant.policy``).
+and a JSON summary line at the end, with the run's goodput breakdown. With
+``--naflex`` the image side is SigLIP2's variable-resolution NaFlex batches
+(mixed-aspect synthetic images as padded patch sequences with a
+key-padding mask). ``--precision int8_qk`` runs every attention on the
+int8-QK flash kernels, ``--precision fp8_hybrid`` every eligible Linear on
+the fp8 matmul with delayed scaling (``jimm_tpu_torch.quant.policy``).
+``--ckpt-dir`` checkpoints the run (``train/checkpoint.py``) and
+``--resume`` continues it; ``--inject-faults`` and ``--preemption-save``
+are the resilience drills. ``supervise -- train ...`` reruns a failed or
+preempted run with ``--resume`` (``jimm_tpu_torch.resilience``).
 
 ``classify`` scores one image against a label set with a CLIP or SigLIP
 checkpoint (zero-shot); ``evaluate`` runs one pass over TFRecord or
 WebDataset shards (ViT top-1, CLIP/SigLIP in-batch retrieval R@1, or
-zero-shot top-1 from a token table); ``prepare-data`` writes such TFRecord
-shards from image files.
+zero-shot top-1 from a token table) with an HF checkpoint or a training
+run's (``--preset --ckpt-dir``); ``export-run`` writes a training run out
+as an HF checkpoint; ``prepare-data`` writes TFRecord shards from image
+files.
 """
-
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import re
+import sys
 import time
 from pathlib import Path
 from typing import Iterator
@@ -47,6 +54,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from jimm_tpu_torch import obs
 from jimm_tpu_torch.configs import (PRESETS, CLIPConfig, SigLIPConfig,
                                     ViTConfig, family, parse_remat, preset,
                                     with_runtime)
@@ -67,12 +75,17 @@ from jimm_tpu_torch.models.vit import VisionTransformer
 from jimm_tpu_torch.ops.attention import INT8_NO_MASK
 from jimm_tpu_torch.quant import quantize_model
 from jimm_tpu_torch.quant.policy import POLICIES, apply_precision_policy
+from jimm_tpu_torch.resilience import (BackoffPolicy, FaultPlan, GiveUpError,
+                                       PreemptionGuard, PreemptionHandler,
+                                       Supervisor)
 from jimm_tpu_torch.serve.admission import AdmissionPolicy
 from jimm_tpu_torch.serve.buckets import BucketTable, default_buckets
 from jimm_tpu_torch.serve.engine import InferenceEngine, image_forward
 from jimm_tpu_torch.serve.cache import (EmbeddingCache, class_embedding_cache,
                                         prompt_set_key)
 from jimm_tpu_torch.serve.server import ServingServer, ZeroShotService
+from jimm_tpu_torch.train.checkpoint import (CheckpointManager,
+                                              CheckpointMismatchError)
 from jimm_tpu_torch.train.metrics import (MetricsLogger, StepTimer,
                                           device_peak_tflops, mfu,
                                           train_step_flops)
@@ -208,10 +221,30 @@ def cmd_serve(args: argparse.Namespace) -> int:
 #: ROADMAP queues them
 _TRAIN_NOT_PORTED = {
     "data": "file datasets, ROADMAP.md queue 1, item 7 (data)",
-    "ckpt_dir": "checkpoints, ROADMAP.md queue 1, item 4",
-    "resume": "checkpoints, ROADMAP.md queue 1, item 4",
     "mesh": "device meshes, ROADMAP.md queue 1, item 6 (parallelism)",
+    "profile_dir": "profiler traces, ROADMAP.md queue 1, item 10 "
+                   "(observability)",
+    "prof_ring": "the profiling ring, ROADMAP.md queue 1, item 10 "
+                 "(observability)",
+    "tensorboard_dir": "TensorBoard events, ROADMAP.md queue 1, item 10 "
+                       "(observability)",
 }
+#: supervise options of the JAX CLI that need the mesh -> the ROADMAP item
+_SUPERVISE_NOT_PORTED = {
+    "elastic": "mesh replanning between attempts needs --mesh, ROADMAP.md "
+               "queue 1, item 6 (parallelism)",
+    "shrink_plan": "an --elastic drill knob, ROADMAP.md queue 1, item 6 "
+                   "(parallelism)",
+    "adapt": "the goodput advisor tunes --scan-unroll, a knob of the layer "
+             "scan the port does not have, ROADMAP.md queue 1, item 6 "
+             "(parallelism)",
+}
+#: the counters supervise reports on its ``resilience:`` line (the
+#: reference's set without --elastic and --adapt)
+RESILIENCE_KEYS = ("jimm_train_restarts_total", "jimm_train_preemptions_total",
+                   "jimm_train_checkpoint_quarantined_total",
+                   "jimm_train_goodput_lost_work_seconds_total",
+                   "jimm_train_goodput_preemption_save_seconds_total")
 
 
 def naflex_to_device(triple, device: torch.device, dtype: torch.dtype
@@ -254,31 +287,92 @@ def remat_name(cfg) -> str:
     return "full" if cfg.remat_policy == "none" else cfg.remat_policy
 
 
-def _train_model(args: argparse.Namespace, fam: str, runtime: dict,
-                 device: torch.device, dtype: torch.dtype):
-    """The model ``train`` fits: a seeded preset of family ``fam``, or the
-    ``--from-pretrained`` checkpoint (a ViT's head fitted to the classes);
-    and whether a fresh head was fitted."""
-    n_classes = (args.num_classes or 4) if fam == "vit" else None
-    if args.from_pretrained:
-        try:
-            model = MODELS[fam].from_pretrained(
-                args.from_pretrained, device=device, dtype=dtype,
-                runtime=runtime or None, image_size=args.image_size)
-        except NotImplementedError as e:  # a hub name (item 4)
-            raise SystemExit(str(e))
-        return model, fam == "vit" and fit_head(model, n_classes)
-    cfg = preset(args.preset)
-    if args.tiny:
+#: a ViT's classes on the synthetic data, unless --num-classes says
+SYNTHETIC_CLASSES = 4
+
+
+def run_spec(args: argparse.Namespace, fam: str,
+             num_classes: int | None = None) -> dict:
+    """The architecture of a run of family ``fam``, as ``train``'s flags
+    give it and as its checkpoint directory records it (``run.json``): the
+    preset [shrunk by ``--tiny``], or the ``--from-pretrained`` checkpoint
+    at ``--image-size``; a ViT's head ``--num-classes`` wide, else
+    ``num_classes``, else the synthetic data's."""
+    n = None
+    if fam == "vit":
+        n = args.num_classes or num_classes or SYNTHETIC_CLASSES
+    return {"family": fam, "preset": args.preset, "tiny": bool(args.tiny),
+            "from_pretrained": args.from_pretrained,
+            "image_size": args.image_size, "num_classes": n}
+
+
+def build_run_model(spec: dict, device: torch.device, dtype: torch.dtype,
+                    runtime: dict | None, seed: int = 0):
+    """The model of the architecture ``spec`` (:func:`run_spec`): a seeded
+    preset, or the pretrained checkpoint with a ViT's head fitted to the
+    classes; and whether a fresh head was fitted. ``train`` builds its
+    model here, and :func:`restore_run` rebuilds a run's."""
+    fam, n = spec["family"], spec["num_classes"]
+    if spec["from_pretrained"]:
+        model = MODELS[fam].from_pretrained(
+            spec["from_pretrained"], device=device, dtype=dtype,
+            runtime=runtime or None, image_size=spec["image_size"])
+        return model, fam == "vit" and fit_head(model, n)
+    cfg = preset(spec["preset"])
+    if spec["tiny"]:
         cfg = tiny_override(cfg)
     if runtime:
         cfg = with_runtime(cfg, **runtime)
-    if n_classes:
-        cfg = dataclasses.replace(cfg, num_classes=n_classes)
+    if n:
+        cfg = dataclasses.replace(cfg, num_classes=n)
     model = MODELS[fam](cfg, device=device, dtype=dtype,
                         generator=torch.Generator(device=device).manual_seed(
-                            args.seed))
+                            seed))
     return model, False
+
+
+def _leaves(batch) -> Iterator[np.ndarray]:
+    if isinstance(batch, (tuple, list)):
+        for item in batch:
+            yield from _leaves(item)
+    else:
+        yield np.asarray(batch)
+
+
+def batch_fingerprint(batch) -> int:
+    """48-bit content hash of a host batch (nested tuples of numpy arrays),
+    the reference's ``_batch_fingerprint``: SHA-1 over each array's bytes
+    in order, as the reference hashes its batch after ``jnp.asarray``
+    (64-bit values as 32-bit ones). Equal fingerprints at equal steps
+    between a resumed run and an uninterrupted one prove the resume
+    replayed and skipped no batch; 48 bits survive a float64 metrics path
+    exactly."""
+    h = hashlib.sha1()
+    for a in _leaves(batch):
+        if a.dtype.itemsize == 8 and a.dtype.kind in "iuf":
+            a = a.astype(a.dtype.str.replace("8", "4"))
+        h.update(a.tobytes())
+    return int(h.hexdigest()[:12], 16)
+
+
+def _fault_plan(args: argparse.Namespace) -> FaultPlan | None:
+    """The ``--inject-faults`` plan (``--fake-failure-at-step N`` is sugar
+    for ``crash@N``), with the reference's refusals."""
+    spec = args.inject_faults or ""
+    if args.fake_failure_at_step is not None:
+        crash = f"crash@{args.fake_failure_at_step}"
+        spec = f"{spec},{crash}" if spec else crash
+    plan = None
+    if spec:
+        try:
+            plan = FaultPlan.parse(spec)
+        except ValueError as e:
+            raise SystemExit(f"--inject-faults: {e}")
+        if plan.needs("corrupt") and not args.ckpt_dir:
+            raise SystemExit("--inject-faults: corrupt@STEP needs --ckpt-dir")
+    if args.preemption_save and not args.ckpt_dir:
+        raise SystemExit("--preemption-save needs --ckpt-dir")
+    return plan
 
 
 def cmd_train(args: argparse.Namespace) -> int:
@@ -286,6 +380,8 @@ def cmd_train(args: argparse.Namespace) -> int:
         if getattr(args, flag):
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet: "
                              f"{where}")
+    if args.journal:
+        obs.configure_journal(args.journal)
     fam = family(args.preset)
     if args.naflex and fam != "siglip":
         raise SystemExit("--naflex trains SigLIP2-style models; "
@@ -297,6 +393,7 @@ def cmd_train(args: argparse.Namespace) -> int:
     if args.tiny and args.from_pretrained:
         raise SystemExit("--tiny conflicts with --from-pretrained (the "
                          "checkpoint defines the architecture)")
+    fault_plan = _fault_plan(args)
     device = resolve_device(args.device)
     runtime = {"attn_impl": args.attn_impl, "ln_impl": args.ln_impl,
                "fused_qkv": args.fused_qkv, "precision": args.precision}
@@ -315,21 +412,50 @@ def cmd_train(args: argparse.Namespace) -> int:
                        text={"attn_impl": "flash"})
     runtime = {k: v for k, v in runtime.items() if v}
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    model, fresh_head = _train_model(args, fam, runtime, device, dtype)
+    # --moment-dtype wins over --bf16-momentum
+    moment_dtype = ({"f32": "float32", "bf16": "bfloat16"}[args.moment_dtype]
+                    if args.moment_dtype
+                    else ("bfloat16" if args.bf16_momentum else None))
+    spec = run_spec(args, fam)
+    ckpt = None
+    if args.ckpt_dir:
+        # a run's directory records its architecture and dtypes: another
+        # run's flags are refused before any step is read
+        try:
+            ckpt = CheckpointManager(
+                args.ckpt_dir, save_interval_steps=args.save_every,
+                run={**spec, "dtype": str(dtype).removeprefix("torch."),
+                     "moment_dtype": moment_dtype or "param"})
+        except CheckpointMismatchError as e:
+            raise SystemExit(f"--ckpt-dir: {e}") from None
+    model, fresh_head = build_run_model(spec, device, dtype, runtime,
+                                        args.seed)
     cfg = model.config
     model.train()
     # the precision policy's surgery, before the optimizer is built (as the
     # JAX train command orders it)
     precision = cfg.vision.precision
     rewritten = apply_precision_policy(model, precision)
-    # --moment-dtype wins over --bf16-momentum
-    moment_dtype = ({"f32": "float32", "bf16": "bfloat16"}[args.moment_dtype]
-                    if args.moment_dtype
-                    else ("bfloat16" if args.bf16_momentum else None))
     optimizer = make_optimizer(model, OptimizerConfig(
         learning_rate=args.lr, weight_decay=args.weight_decay,
         warmup_steps=args.warmup_steps, total_steps=args.steps,
         moment_dtype=moment_dtype))
+    start_step = 0
+    if ckpt is not None and args.resume:
+        had = ckpt.completed_steps()
+        try:
+            start_step = ckpt.restore(model, optimizer) + 1
+        except CheckpointMismatchError as e:
+            raise SystemExit(f"--resume: {e}") from None
+        except FileNotFoundError:
+            if had:
+                # every step was quarantined: starting over at 0 would
+                # silently drop the run's progress
+                raise SystemExit(
+                    f"--resume: no step of {args.ckpt_dir} restores (steps "
+                    f"{had} were quarantined to "
+                    f"{ckpt.directory / '.quarantine'}); refusing to train "
+                    f"from step 0") from None
     if fam == "vit":
         step_fn = make_classifier_train_step()
         data = blob_classification(args.batch_size,
@@ -358,36 +484,84 @@ def cmd_train(args: argparse.Namespace) -> int:
                                      seed=args.seed)
         # logit_scale depends on the update just made
         sync = model.logit_scale
+    # a resumed step sees the batch the uninterrupted run saw at that step:
+    # the generator is replayed, so this grows with start_step
+    with obs.span("resume_fast_forward"):
+        for _ in range(start_step):
+            next(data)
     logger = MetricsLogger(path=args.metrics_file,
-                           print_every=args.log_every)
+                           print_every=args.log_every,
+                           registry=obs.get_registry("jimm_train"))
     timer = StepTimer()
     peak = device_peak_tflops(device)
     flops = train_step_flops(cfg, args.batch_size)
+    # every region of the loop in a goodput bucket: the closing line
+    # decomposes the wall time
+    acct = obs.GoodputAccounter()
+    # SIGTERM sets a flag the loop polls; the handler turns it into a
+    # grace-window save and a resumable PreemptedError
+    guard = preempt = None
+    if args.preemption_save:
+        guard = PreemptionGuard().install()
+        preempt = PreemptionHandler(guard, ckpt, grace_steps=args.grace_steps,
+                                    accounter=acct)
     loss = dt = accuracy = None
     try:
-        for step in range(args.steps):
-            images, target = next(data)
-            images = (naflex_to_device(images, device, dtype) if args.naflex
-                      else torch.from_numpy(images).to(device, dtype))
-            target = torch.from_numpy(target).to(device, torch.long)
-            timer.start()
-            metrics = step_fn(model, optimizer, images, target)
-            dt = timer.stop(metrics["loss"], sync.reshape(-1)[0])
-            loss = float(metrics["loss"])
-            extra = {}
-            if "accuracy" in metrics:
-                accuracy = extra["accuracy"] = float(metrics["accuracy"])
-            logger.log(step, loss=loss, **extra, step_time_s=dt,
-                       lr=optimizer.schedule(step),
-                       images_per_s=args.batch_size / dt,
-                       mfu=mfu(flops, dt, peak))
+        for step in range(start_step, args.steps):
+            with acct.measure("data_wait"):
+                batch = next(data)
+                images, target = batch
+                images = (naflex_to_device(images, device, dtype)
+                          if args.naflex
+                          else torch.from_numpy(images).to(device, dtype))
+                target = torch.from_numpy(target).to(device, torch.long)
+            # from the host arrays, outside the buckets, as the reference
+            fp = batch_fingerprint(batch) if args.batch_fingerprint else None
+            # the first step run warms up (kernel loads, library handles):
+            # the "compile" bucket, as the reference books its trace
+            with acct.measure("compile" if step == start_step else "step"):
+                timer.start()
+                metrics = step_fn(model, optimizer, images, target)
+                dt = timer.stop(metrics["loss"], sync.reshape(-1)[0])
+            with acct.measure("host_sync"):
+                loss = float(metrics["loss"])
+                extra = {}
+                if "accuracy" in metrics:
+                    accuracy = extra["accuracy"] = float(metrics["accuracy"])
+                if fp is not None:
+                    extra["batch_fingerprint"] = fp
+                logger.log(step, loss=loss, **extra, step_time_s=dt,
+                           lr=optimizer.schedule(step),
+                           images_per_s=args.batch_size / dt,
+                           mfu=mfu(flops, dt, peak))
+            saved_now = False
+            if ckpt is not None and (preempt is None
+                                     or not preempt.draining):
+                # while the grace save drains, later saves are pointless:
+                # nothing after it survives the restart
+                with acct.measure("checkpoint"):
+                    saved_now = ckpt.save(step, model, optimizer)
+            if fault_plan is not None:
+                # a preempt's SIGTERM lands before the guard check below,
+                # as a real maintenance signal would
+                fault_plan.fire(step, ckpt=ckpt)
+            if preempt is not None:
+                preempt.after_step(step, model, optimizer,
+                                   already_saved=saved_now)
     finally:
+        if guard is not None:
+            guard.uninstall()
         logger.close()
+        if ckpt is not None:
+            # a failed attempt's write in flight finishes (and is marked)
+            # before a supervised restart opens the directory again
+            ckpt.close()
     name = (f"{fam}:{args.from_pretrained}" if args.from_pretrained
             else f"{fam}:{args.preset}" + (":tiny" if args.tiny else ""))
+    last_mfu = None if dt is None else mfu(flops, dt, peak)
     print(json.dumps({
-        "status": "trained", "steps": args.steps, "loss": loss,
-        "accuracy": accuracy, "step_time_s": dt, "model": name,
+        "status": "trained", "steps": args.steps, "start_step": start_step,
+        "loss": loss, "accuracy": accuracy, "step_time_s": dt, "model": name,
         "family": fam, "naflex": args.naflex,
         "num_classes": cfg.num_classes if fam == "vit" else None,
         "fresh_head": fresh_head, "num_frames": cfg.vision.num_frames,
@@ -398,8 +572,119 @@ def cmd_train(args: argparse.Namespace) -> int:
                         if device.type == "cuda" else "cpu"),
         "dtype": str(dtype).removeprefix("torch."),
         "precision": precision, "precision_modules": rewritten,
-        "train_step_flops": flops, "mfu_last_step": mfu(flops, dt, peak)}),
+        "train_step_flops": flops, "mfu_last_step": last_mfu,
+        "goodput": acct.report(mfu=last_mfu)}),
         flush=True)
+    return 0
+
+
+def cmd_supervise(args: argparse.Namespace) -> int:
+    """Run ``train`` as restartable attempts, in this process (one metric
+    registry, so restarts and lost work add up across attempts): a
+    preemption (the grace-window save's PreemptedError) or a crash restarts
+    the command with ``--resume`` after a bounded jittered backoff, up to
+    ``--max-restarts`` times, then gives up. Prints one ``resilience:``
+    line with the counters."""
+    for flag, where in _SUPERVISE_NOT_PORTED.items():
+        if getattr(args, flag):
+            raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet: "
+                             f"{where}")
+    if args.journal:
+        obs.configure_journal(args.journal)
+    cmd = list(args.train_args or [])
+    if cmd and cmd[0] == "--":
+        cmd = cmd[1:]
+    if not cmd or cmd[0] != "train":
+        raise SystemExit("supervise wraps the train subcommand: python -m "
+                         "jimm_tpu_torch supervise [options] -- train ...")
+    if "--ckpt-dir" not in cmd:
+        raise SystemExit("supervise needs --ckpt-dir in the train command "
+                         "(restarts resume from checkpoints)")
+    if "--preemption-save" not in cmd:
+        cmd.append("--preemption-save")
+    sup = Supervisor(max_restarts=args.max_restarts,
+                     backoff=BackoffPolicy(base_s=args.backoff_base_s,
+                                           max_s=args.backoff_max_s,
+                                           jitter=0.5, seed=args.seed))
+
+    def attempt(i: int, resume: bool) -> int:
+        argv = list(cmd)
+        if resume and "--resume" not in argv:
+            argv.append("--resume")
+        ns = build_parser().parse_args(argv)
+        return ns.func(ns)
+
+    try:
+        rc = sup.run(attempt)
+    except GiveUpError as e:
+        print(f"supervise: {e}", file=sys.stderr)
+        return 1
+    snap = obs.snapshot()
+    print("resilience: " + json.dumps({k: snap.get(k, 0.0)
+                                       for k in RESILIENCE_KEYS}), flush=True)
+    return rc
+
+
+def restore_run(args: argparse.Namespace) -> tuple[str, torch.nn.Module]:
+    """Rebuild the architecture a training run used and restore the newest
+    good checkpoint of ``--ckpt-dir`` over it, on ``--device`` in the dtype
+    ``--bf16`` asks for (the saved parameters cast to it, as orbax casts);
+    the reference's ``_restore_run``, shared by ``evaluate`` and
+    ``export-run``. The architecture is the run's record (``run.json``,
+    which ``train`` writes): ``--preset``, ``--tiny``, ``--from-pretrained``,
+    ``--image-size`` and ``--num-classes`` may be left out, and one given
+    must agree with it. Without a record the flags give it, as
+    :func:`run_spec` reads them (a ViT's head from classes.json next to
+    ``--data`` when ``--num-classes`` is left out). A checkpoint that does
+    not fit is refused, and no step of the run is touched."""
+    try:
+        fam = family(args.preset)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    if args.tiny and args.from_pretrained:
+        raise SystemExit("--tiny conflicts with --from-pretrained "
+                         "(the checkpoint defines the architecture)")
+    ckpt = CheckpointManager(args.ckpt_dir)
+    if ckpt.run is None:
+        data = getattr(args, "data", None)
+        classes = _dataset_classes(data) if data and fam == "vit" else None
+        spec = run_spec(args, fam, len(classes) if classes else None)
+    else:
+        spec = {k: ckpt.run[k] for k in run_spec(args, fam)}
+        given = {"family": fam, "preset": args.preset,
+                 "tiny": args.tiny or None,
+                 "from_pretrained": args.from_pretrained,
+                 "image_size": args.image_size,
+                 "num_classes": args.num_classes}
+        clash = [f"{k} {v!r} (the run's: {spec[k]!r})"
+                 for k, v in given.items() if v is not None and v != spec[k]]
+        if clash:
+            raise SystemExit(f"{args.ckpt_dir} holds a run of another "
+                             f"architecture: {', '.join(clash)}")
+    runtime = {"ln_impl": args.ln_impl} if getattr(args, "ln_impl",
+                                                   None) else None
+    model, _ = build_run_model(spec, resolve_device(args.device),
+                               _model_dtype(args.bf16), runtime)
+    try:
+        step = ckpt.restore(model, cast=True)
+    except CheckpointMismatchError as e:
+        raise SystemExit(f"{args.ckpt_dir}: {e}") from None
+    print(f"restored step {step} from {args.ckpt_dir}", flush=True)
+    return fam, model
+
+
+def cmd_export_run(args: argparse.Namespace) -> int:
+    """Export a training run's checkpoint as an HF checkpoint directory
+    (``model.safetensors`` + ``config.json``), which loads back through
+    ``from_pretrained`` in both packages and in transformers."""
+    _, model = restore_run(args)
+    if args.flavor != "auto" and not isinstance(model, SigLIP):
+        raise SystemExit("--flavor applies to SigLIP models only")
+    if args.flavor == "auto":
+        model.save_pretrained(args.out)
+    else:
+        model.save_pretrained(args.out, flavor=args.flavor)
+    print(f"exported {args.ckpt_dir} -> {args.out}", flush=True)
     return 0
 
 
@@ -409,8 +694,7 @@ def cmd_train(args: argparse.Namespace) -> int:
 #: where the ROADMAP queues them
 _INDEX_NOT_PORTED = ("--index is not ported yet: the retrieval vector store, "
                      "ROADMAP.md queue 1, item 9 (retrieval)")
-_RUN_NOT_PORTED = ("is not ported yet: training-run (orbax) checkpoints, "
-                   "ROADMAP.md queue 1, item 4")
+
 
 
 def _model_dtype(bf16: bool) -> torch.dtype:
@@ -606,22 +890,21 @@ class Evaluation:
     """
 
     def __init__(self, args: argparse.Namespace):
-        for flag in ("ckpt_dir", "from_pretrained"):
-            if getattr(args, flag):
-                raise SystemExit(f"--{flag.replace('_', '-')} "
-                                 f"{_RUN_NOT_PORTED}")
-        if not args.ckpt:
-            raise SystemExit(f"need --ckpt (--preset with --ckpt-dir "
-                             f"{_RUN_NOT_PORTED})")
-        if not (args.model or args.preset):
-            raise SystemExit("--ckpt needs --model (or --preset to infer "
-                             "the family)")
-        try:
-            fam = args.model or family(args.preset)
-        except ValueError as e:
-            raise SystemExit(str(e)) from None
-        self.args, self.fam = args, fam
-        self.model = _load(fam, args)
+        if args.ckpt:
+            if not (args.model or args.preset):
+                raise SystemExit("--ckpt needs --model (or --preset to infer "
+                                 "the family)")
+            try:
+                fam = args.model or family(args.preset)
+            except ValueError as e:
+                raise SystemExit(str(e)) from None
+            model = _load(fam, args)
+        else:
+            if not (args.preset and args.ckpt_dir):
+                raise SystemExit("need --ckpt, or --preset with --ckpt-dir")
+            fam, model = restore_run(args)
+            model.eval()
+        self.args, self.fam, self.model = args, fam, model
         self.cfg = self.model.config
         # the pixels training saw: the family's normalization, square resize
         self.norm = _norm_for(fam)
@@ -877,13 +1160,32 @@ def cmd_prepare_data(args: argparse.Namespace) -> int:
     return 0
 
 
+def _add_run_flags(sp: argparse.ArgumentParser) -> None:
+    """``evaluate``'s training-run options (with ``--preset``); the
+    architecture flags may be left out where the run records them."""
+    sp.add_argument("--ckpt-dir", default=None,
+                    help="a training run's checkpoint directory (with "
+                         "--preset)")
+    sp.add_argument("--tiny", action="store_true",
+                    help="with --ckpt-dir: the run trained --tiny")
+    sp.add_argument("--from-pretrained", default=None,
+                    help="with --ckpt-dir: the HF checkpoint the run "
+                         "fine-tuned from (rebuilds that architecture)")
+    sp.add_argument("--image-size", type=int, default=None,
+                    help="with --from-pretrained: the run's --image-size")
+    sp.add_argument("--num-classes", type=int, default=None,
+                    help="classifier width of the run's head (vit + "
+                         "--ckpt-dir; default: the run's record, else "
+                         "classes.json next to --data)")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m jimm_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     sp = sub.add_parser("serve", help="HTTP micro-batching embedding server")
     sp.add_argument("--ckpt", default=None,
-                    help="a local HF checkpoint directory or file (needs "
-                         "--model); hub names are not ported")
+                    help="an HF checkpoint: a local directory or file, or "
+                         "a hub repository id (needs --model)")
     sp.add_argument("--model", default=None, choices=sorted(MODELS),
                     help="model family of --ckpt")
     sp.add_argument("--preset", default="siglip-base-patch16-256",
@@ -984,13 +1286,67 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--log-every", type=int, default=10)
     sp.add_argument("--metrics-file", default=None,
                     help="JSONL metrics output path")
+    sp.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint the run here (parameters, optimizer "
+                         "state, step) every --save-every steps")
+    sp.add_argument("--resume", action="store_true",
+                    help="continue from the newest good checkpoint in "
+                         "--ckpt-dir (a corrupt or partial one is "
+                         "quarantined and the one before it taken)")
+    sp.add_argument("--save-every", type=int, default=50,
+                    help="checkpoint every N steps")
+    sp.add_argument("--fake-failure-at-step", type=int, default=None,
+                    help="failure drill: crash after checkpointing this step "
+                         "(recover with --resume); sugar for "
+                         "--inject-faults crash@STEP")
+    sp.add_argument("--inject-faults", default=None,
+                    help="deterministic fault drill plan: comma-separated "
+                         "kind@STEP entries -- preempt@N (SIGTERM to self), "
+                         "crash@N (hard failure after N's checkpoint), "
+                         "stall@N:SECONDS (slow-host sleep), corrupt@N "
+                         "(garbage the newest committed checkpoint)")
+    sp.add_argument("--preemption-save", action="store_true",
+                    help="catch SIGTERM and spend the grace window on a "
+                         "checkpoint save whose writes overlap the next "
+                         "--grace-steps steps, then exit resumable (needs "
+                         "--ckpt-dir)")
+    sp.add_argument("--grace-steps", type=int, default=1,
+                    help="training steps to overlap with the preemption "
+                         "save before exiting (0 = save and exit at once)")
+    sp.add_argument("--batch-fingerprint", action="store_true",
+                    help="log a content hash of every consumed batch (the "
+                         "proof that a resume replays and skips no batch)")
+    sp.add_argument("--journal", default=None, metavar="FILE",
+                    help="persist flight-recorder events (preemption, "
+                         "checkpoint) to this rotating JSONL journal")
     # the JAX CLI's flags that are not ported yet: accepted, then refused
     # with their ROADMAP queue
     sp.add_argument("--data", default=None, help=argparse.SUPPRESS)
-    sp.add_argument("--ckpt-dir", default=None, help=argparse.SUPPRESS)
-    sp.add_argument("--resume", action="store_true", help=argparse.SUPPRESS)
     sp.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
+    sp.add_argument("--profile-dir", default=None, help=argparse.SUPPRESS)
+    sp.add_argument("--prof-ring", default=None, help=argparse.SUPPRESS)
+    sp.add_argument("--tensorboard-dir", default=None, help=argparse.SUPPRESS)
     sp.set_defaults(func=cmd_train)
+
+    sp = sub.add_parser("supervise",
+                        help="run train as restartable attempts "
+                             "(preemption/crash -> backoff -> --resume)")
+    sp.add_argument("--max-restarts", type=int, default=3,
+                    help="restarts before giving up")
+    sp.add_argument("--backoff-base-s", type=float, default=1.0)
+    sp.add_argument("--backoff-max-s", type=float, default=30.0)
+    sp.add_argument("--seed", type=int, default=None,
+                    help="seed the restart-backoff jitter (reproducible "
+                         "drills)")
+    sp.add_argument("--journal", default=None, metavar="FILE",
+                    help="persist flight-recorder events (attempts, "
+                         "restarts) to this rotating JSONL journal")
+    sp.add_argument("--elastic", action="store_true", help=argparse.SUPPRESS)
+    sp.add_argument("--shrink-plan", default=None, help=argparse.SUPPRESS)
+    sp.add_argument("--adapt", action="store_true", help=argparse.SUPPRESS)
+    sp.add_argument("train_args", nargs=argparse.REMAINDER,
+                    help="-- train --preset ... --ckpt-dir ...")
+    sp.set_defaults(func=cmd_supervise)
 
     sp = sub.add_parser("evaluate",
                         help="accuracy / retrieval metrics over a dataset")
@@ -1019,10 +1375,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="encoder LayerNorm (fused = the LayerNorm kernels)")
     sp.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' must be asked for explicitly")
-    # the JAX command's training-run options: accepted, then refused with
-    # their ROADMAP queue
-    sp.add_argument("--ckpt-dir", default=None, help=argparse.SUPPRESS)
-    sp.add_argument("--from-pretrained", default=None, help=argparse.SUPPRESS)
+    _add_run_flags(sp)
     sp.set_defaults(func=cmd_evaluate)
 
     sp = sub.add_parser("classify",
@@ -1059,6 +1412,30 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device; 'cpu' must be asked for explicitly")
     sp.add_argument("--index", default=None, help=argparse.SUPPRESS)
     sp.set_defaults(func=cmd_classify)
+
+    sp = sub.add_parser("export-run",
+                        help="export a training run as an HF checkpoint")
+    sp.add_argument("out", help="output directory")
+    sp.add_argument("--ckpt-dir", required=True,
+                    help="checkpoint directory of the run")
+    sp.add_argument("--preset", required=True, choices=sorted(PRESETS),
+                    help="preset the run trained (or its family, with "
+                         "--from-pretrained)")
+    sp.add_argument("--flavor", default="auto",
+                    choices=["auto", "siglip", "siglip2"],
+                    help="SigLIP export format: auto = the source "
+                         "checkpoint's (v1 for a preset)")
+    sp.add_argument("--tiny", action="store_true")
+    sp.add_argument("--from-pretrained", default=None,
+                    help="HF checkpoint the run fine-tuned from")
+    sp.add_argument("--image-size", type=int, default=None)
+    sp.add_argument("--num-classes", type=int, default=None)
+    sp.add_argument("--bf16", action="store_true",
+                    help="export bf16 parameters (the run's cast, as "
+                         "orbax casts; default f32)")
+    sp.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' must be asked for explicitly")
+    sp.set_defaults(func=cmd_export_run)
 
     sp = sub.add_parser("prepare-data",
                         help="build tfrecord shards from raw image files")

@@ -1,0 +1,60 @@
+"""Span timer: ``span("name")`` records a region's host wall time into the
+``jimm_spans`` registry histogram ``{name}_seconds``; the counterpart of
+``jimm_tpu/obs/spans.py`` (the bridge to a device trace waits for the
+profiler work of the rest of ``obs``).
+
+Disabled mode (``JIMM_OBS=0`` or ``obs.set_enabled(False)``) returns one
+shared no-op context manager: no allocation, no clock reads.
+"""
+
+from __future__ import annotations
+
+import time
+
+from jimm_tpu_torch.obs.registry import enabled, get_registry
+
+__all__ = ["span"]
+
+SPAN_NAMESPACE = "jimm_spans"
+
+
+class _NoopSpan:
+    """Shared do-nothing context manager for the disabled path."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NOOP = _NoopSpan()
+
+
+class _Span:
+    __slots__ = ("name", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._t0 = 0.0
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self._t0
+        get_registry(SPAN_NAMESPACE).histogram(
+            f"{self.name}_seconds").observe(dt)
+        return False
+
+
+def span(name: str):
+    """Time a region under ``name``: the elapsed wall time lands in the
+    ``jimm_spans`` registry as ``{name}_seconds`` (p50/p99/count/sum in the
+    unified snapshot)."""
+    if not enabled():
+        return _NOOP
+    return _Span(name)

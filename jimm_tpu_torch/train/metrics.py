@@ -1,6 +1,7 @@
 """Training metrics: analytic model FLOPs, MFU against the card's peak,
-step timing and a console + JSONL metrics logger; the counterpart of
-``jimm_tpu/train/metrics.py`` (no TensorBoard, no metric registry yet)."""
+step timing and a console + JSONL metrics logger mirrored into a metric
+registry; the counterpart of ``jimm_tpu/train/metrics.py`` (TensorBoard
+waits for ROADMAP.md queue 1, item 10)."""
 
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ from pathlib import Path
 from typing import IO, Any
 
 import torch
+
+from jimm_tpu_torch.obs.registry import MetricRegistry, get_registry
 
 #: Peak dense bf16 TFLOP/s by device name (NVIDIA's H100 SXM data sheet,
 #: at the full 700 W power limit)
@@ -36,11 +39,18 @@ def mfu(flops_per_step: float | None, step_time_s: float | None,
         peak_tflops: float | None, n_devices: int = 1) -> float | None:
     """Model FLOPs utilization in [0, 1]: the step's model FLOPs over its
     time and the devices' peak. None when any input is missing or not a
-    positive finite number."""
-    if (flops_per_step is None or step_time_s is None or peak_tflops is None
+    positive finite number; degenerate inputs (a missing, non-finite or
+    negative FLOP count, a missing or non-positive step time, a
+    non-positive peak) also bump the ``jimm_train`` registry's
+    ``mfu_degenerate_total``, where the reference's ``mfu`` does. An
+    unknown peak (a device the table does not know) is not degenerate."""
+    if (flops_per_step is None or step_time_s is None
             or not math.isfinite(step_time_s) or step_time_s <= 0.0
             or not math.isfinite(flops_per_step) or flops_per_step < 0.0
-            or peak_tflops <= 0.0):
+            or (peak_tflops is not None and peak_tflops <= 0.0)):
+        get_registry("jimm_train").counter("mfu_degenerate_total").inc()
+        return None
+    if peak_tflops is None:
         return None
     return flops_per_step / (step_time_s * peak_tflops * 1e12 * n_devices)
 
@@ -68,10 +78,17 @@ class StepTimer:
 class MetricsLogger:
     """Structured metrics: one JSON object per logged step, appended to a
     JSONL file (``path``) and printed to the console every
-    ``print_every`` steps."""
+    ``print_every`` steps.
+
+    With a ``registry`` (the train command passes the shared ``jimm_train``
+    one), every logged scalar is mirrored into it, as the reference's
+    logger does: the ``steps_logged_total`` counter, ``step_time_s`` into
+    the ``step_time_seconds`` histogram, every other numeric value as a
+    last-value gauge."""
 
     path: str | Path | None = None
     print_every: int = 1
+    registry: MetricRegistry | None = None
     _file: IO | None = field(default=None, repr=False)
 
     def log(self, step: int, **metrics: Any) -> None:
@@ -83,8 +100,26 @@ class MetricsLogger:
                 self._file = open(self.path, "a")
             self._file.write(record + "\n")
             self._file.flush()
+        if self.registry is not None:
+            self._registry_log(metrics)
         if self.print_every and step % self.print_every == 0:
             print(record, flush=True)
+
+    def _registry_log(self, metrics: dict[str, Any]) -> None:
+        reg = self.registry
+        reg.counter("steps_logged_total").inc()
+        for k, v in metrics.items():
+            try:
+                value = float(v)
+            except (TypeError, ValueError):
+                continue  # non-numeric (None included): JSONL only
+            if k == "step_time_s":
+                reg.histogram("step_time_seconds").observe(value)
+            else:
+                try:
+                    reg.gauge(k).set(value)
+                except ValueError:  # a name taken by another kind
+                    pass
 
     def close(self) -> None:
         if self._file is not None:

@@ -4,15 +4,17 @@ of ``jimm_tpu/weights/resolve.py`` with the same precedence: a sharded
 ``*.safetensors``, then ``pytorch_model.bin`` (sharded or single), the
 ``.bin`` first when ``use_pytorch=True``; a file's config from its sibling
 ``config.json``, or from the parent of a ``model/`` directory. ``.bin``
-files are read by ``torch.load(..., weights_only=True)``. Hub downloads are
-not ported (ROADMAP.md queue 1, item 4): a name the JAX package would fetch
-from the hub is refused.
+files are read by ``torch.load(..., weights_only=True)``. A name that is
+no local path and looks like ``org/repo`` is fetched from the Hugging Face
+hub (``huggingface_hub``, imported when needed) with bounded retries and a
+last local-cache attempt.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import time
 from pathlib import Path
 from typing import Any, Callable
 
@@ -92,11 +94,107 @@ def _from_file(p: Path) -> tuple[Weights, dict | None]:
     return weights, config
 
 
+# the hub's not-found family, matched by class name (huggingface_hub need
+# not be importable): sharded-vs-single probing uses them as control flow,
+# so retrying them would turn every probe into retries * backoff of waiting
+_NO_RETRY_ERRORS = ("EntryNotFoundError", "RepositoryNotFoundError",
+                    "RevisionNotFoundError", "GatedRepoError",
+                    "FileNotFoundError")
+
+
+def _retryable(exc: BaseException) -> bool:
+    return not any(cls.__name__ in _NO_RETRY_ERRORS
+                   for cls in type(exc).__mro__)
+
+
+def _hub_download_with_retry(hf_hub_download, repo_id: str, filename: str,
+                             *, retries: int | None = None,
+                             backoff_s: float | None = None,
+                             sleep=None) -> str:
+    """``hf_hub_download`` with bounded retry and a local-cache last resort.
+
+    Transient failures (timeouts, 5xx, resets) get ``retries`` attempts
+    (``JIMM_HUB_RETRIES``, default 3) with exponential backoff from
+    ``backoff_s`` (``JIMM_HUB_BACKOFF_S``, default 0.5); not-found errors
+    propagate at once. When the network never recovers, one final
+    ``local_files_only=True`` attempt serves a previously cached copy; if
+    that fails too, the transient error is raised."""
+    from jimm_tpu_torch.resilience import BackoffPolicy
+    if retries is None:
+        retries = int(os.environ.get("JIMM_HUB_RETRIES", "3"))
+    if backoff_s is None:
+        backoff_s = float(os.environ.get("JIMM_HUB_BACKOFF_S", "0.5"))
+    sleep = sleep or time.sleep
+    # jitter 0: the exact exponential delays, base * 2**attempt
+    backoff = BackoffPolicy(retries=max(1, retries), base_s=backoff_s)
+    last: BaseException | None = None
+    for attempt in range(backoff.retries):
+        try:
+            return hf_hub_download(repo_id, filename)
+        except Exception as e:
+            if not _retryable(e):
+                raise
+            last = e
+            if attempt + 1 < backoff.retries:
+                sleep(backoff.delay(attempt))
+    try:
+        return hf_hub_download(repo_id, filename, local_files_only=True)
+    except Exception:
+        raise last  # the transient error, not the cache miss
+
+
+def _from_hub(repo_id: str, use_pytorch: bool = False
+              ) -> tuple[Weights, dict | None]:
+    """A hub checkpoint: the sharded index first, then the single file, in
+    the preferred format and then the other; ``config.json`` when the
+    repository has one."""
+    try:
+        from huggingface_hub import hf_hub_download
+    except ImportError as e:
+        raise FileNotFoundError(
+            f"{repo_id!r} is not a local path and huggingface_hub is "
+            "unavailable") from e
+
+    def download(filename: str) -> str:
+        return _hub_download_with_retry(hf_hub_download, repo_id, filename)
+
+    def fetch(single: str, loader: Callable[[str], Weights]) -> Weights:
+        try:
+            index_path = download(single + ".index.json")
+            with open(index_path) as f:
+                weight_map: dict[str, str] = json.load(f)["weight_map"]
+            out: Weights = {}
+            for shard in sorted(set(weight_map.values())):
+                out.update(loader(download(shard)))
+            return out
+        except Exception:
+            return loader(download(single))
+
+    formats = [("model.safetensors", load_file),
+               ("pytorch_model.bin", load_torch_file)]
+    if use_pytorch:
+        formats.reverse()
+    try:
+        try:
+            weights = fetch(*formats[0])
+        except Exception:
+            weights = fetch(*formats[1])  # the repo has only the other
+    except Exception as e:
+        raise FileNotFoundError(
+            f"could not fetch {repo_id!r} from the HF hub "
+            f"(offline, or repo has neither format?): {e}") from e
+    try:
+        config = _load_config(Path(download("config.json")))
+    except Exception:
+        config = None
+    return weights, config
+
+
 def resolve_checkpoint(name_or_path: str | os.PathLike, *,
                        use_pytorch: bool = False
                        ) -> tuple[Weights, dict | None]:
     """Return ``(flat HF tensor dict, HF config dict | None)`` for a local
-    checkpoint file or directory."""
+    checkpoint file or directory, or a hub repository id."""
     p = Path(name_or_path).expanduser()
     if p.is_dir():
         return _from_dir(p, use_pytorch)
@@ -105,7 +203,4 @@ def resolve_checkpoint(name_or_path: str | os.PathLike, *,
     name = str(name_or_path)
     if name.startswith((".", "/", "~")) or name.count("/") != 1:
         raise FileNotFoundError(f"no checkpoint file or directory at {name!r}")
-    raise NotImplementedError(
-        f"{name!r} is not a local path, and hub downloads are not ported "
-        f"(ROADMAP.md queue 1, item 4): pass a local checkpoint directory "
-        f"or file")
+    return _from_hub(name, use_pytorch)

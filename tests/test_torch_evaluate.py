@@ -5,8 +5,9 @@ SigLIP retrieval, CLIP ``--zero-shot``, SigLIP2 ``--naflex``, each with a
 short last batch. The same JSON line; the logits batch by batch within
 1e-4 of JAX's from the JAX package's own readers; a metric may differ
 only by examples whose JAX top-1/top-2 margin is under 2e-4 (each such
-example is named in the failure message). Refusals carry JAX's messages;
-training-run options cite ROADMAP item 4."""
+example is named in the failure message). Refusals carry JAX's messages
+(a training run's, ``--preset --ckpt-dir``, in
+``test_torch_resume_cli.py``)."""
 
 import json
 
@@ -207,13 +208,3 @@ def test_evaluate_refusals_match_jax(ckpts, datasets, tmp_path, case):
     with pytest.raises(SystemExit) as theirs:
         jax_cli.main(argv + ["--platform", "cpu"])
     assert str(ours.value) == str(theirs.value)
-
-
-@pytest.mark.parametrize("argv", [
-    ["--ckpt-dir", "run"], ["--ckpt", "c", "--from-pretrained", "x"],
-    ["--preset", "vit-base-patch16-224", "--ckpt-dir", "run"], []])
-def test_evaluate_refuses_training_runs_citing_item_4(datasets, argv):
-    with pytest.raises(SystemExit) as e:
-        cli.main(["evaluate", "--data", str(datasets["cls"]), *argv,
-                  "--device", "cpu"])
-    assert "item 4" in str(e.value)

@@ -24,9 +24,14 @@ MODULES = sorted(
     if p.name != "__main__.py")
 
 
+#: what neither the port nor chip_smoke.py may load: JAX, its libraries
+#: (orbax is the reference's checkpoint storage) and the JAX package
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "jimm_tpu")
+
+
 def _forbidden(name: str) -> bool:
     root = name.split(".")[0]
-    return root in ("jax", "jaxlib", "flax", "optax") or root == "jimm_tpu"
+    return root in FORBIDDEN
 
 
 def test_importing_the_port_loads_no_jax():
@@ -34,8 +39,7 @@ def test_importing_the_port_loads_no_jax():
             f"for m in {MODULES!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
-            "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
-            "                                    'optax', 'jimm_tpu'))\n"
+            f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -46,6 +50,17 @@ def test_importing_the_port_loads_no_jax():
     # data modules
     assert {"jimm_tpu_torch.nn.naflex", "jimm_tpu_torch.data.naflex",
             "jimm_tpu_torch.data.preprocess"} <= set(MODULES)
+    # so do the checkpoint and resilience slice's (the JAX obs registry,
+    # journal, spans and goodput, resilience/*), and its checkpoints keep
+    # their own storage, not orbax
+    assert {"jimm_tpu_torch.obs.__init__", "jimm_tpu_torch.obs.registry",
+            "jimm_tpu_torch.obs.journal", "jimm_tpu_torch.obs.spans",
+            "jimm_tpu_torch.obs.goodput", "jimm_tpu_torch.resilience.__init__",
+            "jimm_tpu_torch.resilience.backoff",
+            "jimm_tpu_torch.resilience.faults",
+            "jimm_tpu_torch.resilience.preemption",
+            "jimm_tpu_torch.resilience.supervisor",
+            "jimm_tpu_torch.train.checkpoint"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -236,8 +236,9 @@ def test_train_cli_needs_the_card_or_asks_for_the_cpu():
     assert "RuntimeError: CUDA is not available" in proc.stderr
 
 
-@pytest.mark.parametrize("flag", [["--data", "x"], ["--ckpt-dir", "x"],
-                                  ["--mesh", "data=2"], ["--resume"]])
+@pytest.mark.parametrize("flag", [["--data", "x"], ["--profile-dir", "x"],
+                                  ["--mesh", "data=2"], ["--prof-ring", "x"],
+                                  ["--tensorboard-dir", "x"]])
 def test_train_cli_names_the_roadmap_for_unported_flags(flag):
     from jimm_tpu_torch.cli import build_parser, cmd_train
     args = build_parser().parse_args(["train", "--tiny", "--device", "cpu",

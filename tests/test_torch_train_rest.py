@@ -344,7 +344,7 @@ def test_train_cli_from_pretrained_swaps_the_head(capsys, tmp_path):
 @pytest.mark.parametrize("argv,match", [
     (["--tiny", "--from-pretrained", "x"], "--tiny conflicts with "
                                            "--from-pretrained"),
-    (["--from-pretrained", "org/model"], "ROADMAP.md queue 1, item 4"),
+    (["--preemption-save"], "--preemption-save needs --ckpt-dir"),
     (["--remat", "dots+mlp"], "--remat: unknown remat_policy 'dots\\+mlp'"),
     (["--loss", "siglip_ring"], "ROADMAP.md queue 1, item 6"),
     (["--remat", "dots+attn"], "never emits them; use attn_impl='saveable'"),

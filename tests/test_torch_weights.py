@@ -1,13 +1,14 @@
 """The port's checkpoint IO (`jimm_tpu_torch/weights/`) against the JAX
 package's: safetensors read and write for every dtype (bit patterns; the
 files both packages write are byte-identical), checkpoint resolution over
-every local layout, the refusal of a hub name, position-table
+every local layout, a hub name without huggingface_hub, position-table
 interpolation, and the mapping engine's four strictness errors on the same
 malformed checkpoint."""
 
 import json
 import os
 import shutil
+import sys
 
 import numpy as np
 import pytest
@@ -178,10 +179,15 @@ def test_resolve_matches_jax(layouts, layout):
         np.testing.assert_array_equal(got_w[key].numpy(), arr)
 
 
-def test_resolve_refusals(tmp_path):
-    with pytest.raises(NotImplementedError,
-                       match="hub downloads are not ported.*ROADMAP.md"):
+def test_resolve_refusals(tmp_path, monkeypatch):
+    # a hub name without huggingface_hub: both packages' error (the hub
+    # path itself is held to JAX's in test_torch_hub_retry.py)
+    monkeypatch.setitem(sys.modules, "huggingface_hub", None)
+    with pytest.raises(FileNotFoundError) as want:
+        jax_resolve.resolve_checkpoint("google/vit-base-patch16-224")
+    with pytest.raises(FileNotFoundError) as got:
         resolve.resolve_checkpoint("google/vit-base-patch16-224")
+    assert str(got.value) == str(want.value)
     for missing in ("./nope", str(tmp_path / "nope"), "a/b/c"):
         with pytest.raises(FileNotFoundError):
             resolve.resolve_checkpoint(missing)
