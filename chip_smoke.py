@@ -285,7 +285,34 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                successful restore, and the replay of the synthetic
                generator up to the resumed step), the corruption drill's
                fall-back restore apart, and the ``checkpoint`` goodput
-               bucket against the step time.
+               bucket against the step time; the replay (the
+               generator's draws alone) beside the same batches built in
+               full.
+16. data    -- ``train --data`` at phase 5's width (SigLIP-B/16-256, bf16,
+               fused LayerNorm, batch 128) over 1024 raw 288 x 320
+               image-text TFRecord records written here (resized to 256
+               on the host by the native library), in-process, each
+               command launching rows 1, 2, 3 and 7 for exactly its steps:
+               (a) ``--loader records --shuffle-buffer 256``, 6 steps,
+               each step's batch fingerprint equal to the same reader's
+               alone on the host, its data_wait share and images/s beside
+               phase 5's synthetic command; (b) ``--loader grain
+               --data-workers 8`` (the indexed loader's worker processes),
+               its fingerprints equal to the loader's own epoch, which
+               covers each record once (per-example fingerprints), and its
+               prefetch waits; (c) for each loader, ``--inject-faults
+               crash@3`` with a save every step, then ``--resume``: steps
+               4-5 equal (a)'s or (b)'s losses and fingerprints bit for
+               bit, and the time to resume (restore + fast-forward); (d)
+               ViT-B/16 from PNG tar shards whose classes.json sets the
+               head's width (where libpng or Pillow decodes), and
+               ``--naflex`` SigLIP2-B/16-256 from records of four aspects
+               with phase 6's masked launches a step; (e) the prefetcher
+               (pinned staging, side-stream copies) against synchronous
+               copies over 256 nested batches, bit for bit, the consumer's
+               stream held busy; (f) native preprocessing of 128 raw
+               images against its numpy version (1e-6), both timed, and
+               whether the library has its image codecs.
 
 Phase 3's flash cases include row 3's causal kind at CLIP-B/16's text
 shapes, (32, 77, 8, 64) and the 70 prompt rows of one label set (70, 77,
@@ -342,6 +369,7 @@ import tempfile
 import time
 import urllib.request
 import warnings
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
@@ -351,10 +379,14 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 
 from jimm_tpu_torch import _build, cli, configs, obs
+from jimm_tpu_torch.data import native, preprocess, records
 from jimm_tpu_torch.data.clip_tokenizer import CLIPTokenizer, bytes_to_unicode
+from jimm_tpu_torch.data.grain_pipeline import grain_batches, make_grain_loader
+from jimm_tpu_torch.data.pipeline import PrefetchIterator, place
 from jimm_tpu_torch.data.records import (write_classification_records,
                                          write_image_text_records)
-from jimm_tpu_torch.data.synthetic import naflex_contrastive_pairs
+from jimm_tpu_torch.data.synthetic import (contrastive_pairs,
+                                            naflex_contrastive_pairs)
 from jimm_tpu_torch.data.webdataset import write_wds_shard
 from jimm_tpu_torch.models.siglip import SigLIP
 from jimm_tpu_torch.nn import norm as norm_mod
@@ -554,6 +586,39 @@ RESILIENCE_ARGV = ["train", "--preset", "siglip-base-patch16-256", "--bf16",
 #: the checkpoint and resume spans phase 15(d) reads
 CKPT_SPANS = ("checkpoint_save", "checkpoint_host_copy", "checkpoint_write",
               "checkpoint_restore", "resume_fast_forward")
+#: phase 16: the file-dataset train command (phase 5's, SigLIP-B/16-256,
+#: bf16, batch 128) over raw 288 x 320 image-text records, resized to 256
+#: on the host; a crash after step DATA_CRASH's checkpoint; the indexed
+#: loader's worker processes
+DATA_EXAMPLES = 1024
+DATA_SHARDS = 8
+DATA_HW = (288, 320)
+DATA_STEPS = 6
+DATA_CRASH = 3
+DATA_WORKERS = 8
+#: SigLIP-B/16-256's image side and text length, as its readers take them,
+#: and the token ids of SigLIP's and SigLIP2's vocabularies
+DATA_IMAGE = 256
+DATA_SEQ = 64
+DATA_VOCAB = 32000
+NAFLEX_VOCAB = 256000
+DATA_ARGV = ["train", "--preset", "siglip-base-patch16-256", "--bf16",
+             "--ln-impl", "fused", "--batch-size", str(TRAIN_BATCH),
+             "--steps", str(DATA_STEPS), "--log-every", "1",
+             "--batch-fingerprint", "--shuffle-buffer", "256"]
+#: 16(d): SigLIP2 NaFlex records of four aspects, and ViT-B/16 tar shards
+#: of PNG images with a classes.json
+NAFLEX_DATA_EXAMPLES = 256
+NAFLEX_DATA_SIZES = ((192, 384), (256, 256), (384, 192), (160, 400))
+NAFLEX_DATA_STEPS = 2
+TAR_EXAMPLES = 64
+TAR_HW = (256, 288)
+TAR_CLASSES = 10
+TAR_BATCH = 32
+TAR_STEPS = 2
+#: 16(e): nested host batches through the prefetcher
+PREFETCH_BATCHES = 256
+PREFETCH_ROWS = 32
 DROPOUT_RATE = 0.1
 VIT_CLASSES = 1000
 FINETUNE_CLASSES = 10
@@ -2747,12 +2812,13 @@ def run_train_command(argv: list[str], card: str,
 
 
 def cli_train_phase(card: str, naflex: bool = False,
-                    precision: str | None = None) -> dict[str, int]:
+                    precision: str | None = None) -> dict:
     """(c) The ``train`` command, run in this process so that its launches
     can be counted: the counters are zeroed just before it and read just
     after. Its JSON lines are printed with a ``cli:`` prefix. With
     ``naflex``, SigLIP2-B/16-256 on NaFlex batches (phase 6(c)); with
-    ``precision``, under that policy (phase 8(c))."""
+    ``precision``, under that policy (phase 8(c)). Returns the run
+    (:func:`run_train_command`)."""
     argv = ["train", "--preset", NAFLEX_PRESET if naflex
             else "siglip-base-patch16-256", "--bf16",
             "--ln-impl", "fused", "--steps", str(CLI_STEPS), "--batch-size",
@@ -2780,7 +2846,7 @@ def cli_train_phase(card: str, naflex: bool = False,
           f"launches {counts}; step times {[round(t, 3) for t in times]} ms; "
           f"torch.cuda.max_memory_allocated {peak} bytes "
           f"({peak / 2**30:.2f} GiB) | {card}", flush=True)
-    return counts
+    return run
 
 
 # -- phase 6: NaFlex ---------------------------------------------------------
@@ -2801,7 +2867,7 @@ def _naflex_batch(cfg, batch: int, dtype: torch.dtype, seed: int):
         max_num_patches=cfg.vision.num_patches,
         seq_len=cfg.text.context_length, vocab_size=cfg.text.vocab_size,
         seed=seed))
-    return (cli.naflex_to_device(triple, torch.device("cuda"), dtype),
+    return (place(triple, torch.device("cuda"), dtype),
             torch.from_numpy(text).to("cuda", torch.long))
 
 
@@ -4272,6 +4338,16 @@ def resilience_phase(card: str, root: pathlib.Path) -> dict[str, int]:
                  for what, r in (("15(a)", resumed), ("15(b)", run_b),
                                  ("15(c)", fallback))}
     per_batch = sum(replay_ms.values()) / 8
+    # the replay makes the generator's draws and builds no image: beside
+    # it, the same batches built in full
+    cfg = configs.preset("siglip-base-patch16-256")
+    full = contrastive_pairs(TRAIN_BATCH, image_size=cfg.vision.image_size,
+                             vocab_size=cfg.text.vocab_size,
+                             seq_len=cfg.text.context_length)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        next(full)
+    built_ms = (time.perf_counter() - t0) / 3 * 1e3
     resume_ms = {what: round(r["spans"]["checkpoint_restore"][1] * 1e3
                              + replay_ms[what], 3)
                  for what, r in (("15(a)", resumed), ("15(b)", run_b))}
@@ -4292,14 +4368,315 @@ def resilience_phase(card: str, root: pathlib.Path) -> dict[str, int]:
           f"15(b)'s {run_b['spans']['checkpoint_restore'][1] * 1e3:.3f}); "
           f"15(c)'s fall-back, the garbled step 2 tried then step 1: "
           f"{fallback['spans']['checkpoint_restore'][1] * 1e3:.3f} ms in "
-          f"all; generator replay {per_batch:.3f} ms a batch (ms "
-          f"{replay_ms} for 3, 3 and 2 batches; it grows with the step "
-          f"resumed); time to resume (restore + replay) {resume_ms} ms; "
+          f"all; generator replay (its draws, no image built) "
+          f"{per_batch:.3f} ms a batch against {built_ms:.3f} ms a batch "
+          f"built in full (ms {replay_ms} for 3, 3 and 2 batches; it grows "
+          f"with the step resumed); time to resume (restore + replay) "
+          f"{resume_ms} ms; "
           f"goodput checkpoint bucket "
           f"{per_step:.1f} ms a "
           f"step against a median step of {step_ms:.1f} ms (control run "
           f"goodput {goodput}) | {card}", flush=True)
     return resumed["counts"]
+
+
+# -- phase 16: training from file datasets -----------------------------------
+
+def png_bytes(image: np.ndarray) -> bytes:
+    """An 8-bit RGB PNG of ``image`` (H, W, 3) uint8, with zlib alone:
+    the card's machine may have no Pillow."""
+    h, w, _ = image.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           image.reshape(h, w * 3)], axis=1)
+
+    def chunk(tag: bytes, body: bytes) -> bytes:
+        return (len(body).to_bytes(4, "big") + tag + body
+                + (zlib.crc32(tag + body) & 0xFFFFFFFF).to_bytes(4, "big"))
+
+    header = (w.to_bytes(4, "big") + h.to_bytes(4, "big")
+              + bytes([8, 2, 0, 0, 0]))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
+            + chunk(b"IEND", b""))
+
+
+def write_data_shards(root: pathlib.Path) -> dict[str, pathlib.Path]:
+    """Phase 16's datasets: ``DATA_EXAMPLES`` raw 288 x 320 image-text
+    records in ``DATA_SHARDS`` TFRecord shards (64-token rows of
+    SigLIP's vocabulary, varying length), NaFlex records of mixed aspect
+    (SigLIP2's vocabulary), and ViT tar shards of PNG images with a
+    classes.json."""
+    rng = np.random.default_rng(16)
+    paths = {k: root / k for k in ("pairs", "naflex", "tar")}
+    for p in paths.values():
+        p.mkdir()
+    per = DATA_EXAMPLES // DATA_SHARDS
+    for s in range(DATA_SHARDS):
+        write_image_text_records(
+            paths["pairs"] / f"part-{s:05d}.tfrecord",
+            [(rng.integers(0, 256, (*DATA_HW, 3), dtype=np.uint8),
+              rng.integers(1, DATA_VOCAB, int(rng.integers(8, 65))).tolist())
+             for _ in range(per)], encoding="raw")
+    write_image_text_records(
+        paths["naflex"] / "part-00000.tfrecord",
+        [(rng.integers(0, 256, (*NAFLEX_DATA_SIZES[i % 4], 3),
+                       dtype=np.uint8),
+          rng.integers(1, NAFLEX_VOCAB, 64).tolist())
+         for i in range(NAFLEX_DATA_EXAMPLES)], encoding="raw")
+    half = TAR_EXAMPLES // 2
+    for s in range(2):
+        write_wds_shard(paths["tar"] / f"part-{s:05d}.tar", [
+            {"image": png_bytes(rng.integers(0, 256, (*TAR_HW, 3),
+                                             dtype=np.uint8)),
+             "label": int(rng.integers(0, TAR_CLASSES))}
+            for _ in range(half)])
+    (paths["tar"] / "classes.json").write_text(json.dumps(
+        [f"class{i}" for i in range(TAR_CLASSES)]))
+    return paths
+
+
+def data_command(card: str, what: str, argv: list[str], root: pathlib.Path,
+                 steps, crash: str | None = None) -> dict:
+    """One train command of phase 16 (:func:`resilience_command`): its
+    logged steps must be ``steps``, with finite losses, and it must launch
+    rows 1, 2, 3 and 7 for exactly those steps (no replay). Adds the
+    prefetch wait it saw."""
+    wait = obs.get_registry("jimm_train").histogram("prefetch_wait_seconds")
+    before = (wait.count, wait.sum)
+    run = resilience_command(argv, card, what, root / "metrics.jsonl",
+                             crash=crash)
+    logged = run["logged"]
+    check([r["step"] for r in logged] == list(steps)
+          and all(math.isfinite(r["loss"]) for r in logged),
+          f"{what}: logged {[(r['step'], r['loss']) for r in logged]}")
+    steps_launched(what, run["counts"], len(steps))
+    run["prefetch_wait"] = (wait.count - before[0], wait.sum - before[1])
+    return run
+
+
+def data_rates(run: dict) -> str:
+    """A command's data_wait share of the wall time and its images/s over
+    the wall time and over the step time alone."""
+    goodput, logged = run["summary"]["goodput"], run["logged"]
+    images = TRAIN_BATCH * len(logged)
+    step_s = sum(r["step_time_s"] for r in logged)
+    return (f"data_wait {goodput['data_wait_s']:.3f} s = "
+            f"{goodput['data_wait_frac']:.1%} of the wall "
+            f"{goodput['wall_s']:.3f} s; {images / goodput['wall_s']:.1f} "
+            f"images/s by wall, {images / step_s:.1f} by step time")
+
+
+def example_prints(batches: list) -> list[int]:
+    """Per-example fingerprints: each row of images and tokens hashed."""
+    out = []
+    for images, tokens in batches:
+        for image, row in zip(images, tokens):
+            out.append(cli.batch_fingerprint((image, row)))
+    return out
+
+
+def data_phase(card: str, root: pathlib.Path, synthetic: dict
+               ) -> dict[str, int]:
+    """Phase 16: ``train --data`` at full width (SigLIP-B/16-256, bf16,
+    batch 128) over raw TFRecord shards: (a) the records loader, (b) the
+    indexed loader with worker processes, (c) a crash and ``--resume`` for
+    each, (d) ViT-B/16 from tar shards and SigLIP2 ``--naflex`` from
+    records, (e) the prefetcher against synchronous copies, (f) native
+    preprocessing against numpy. ``synthetic``: phase 5's train command,
+    whose rates (a) prints beside its own. Returns (a)'s launches, the
+    slice's path."""
+    t0 = time.perf_counter()
+    paths = write_data_shards(root)
+    print(f"16: wrote {DATA_EXAMPLES} raw {DATA_HW[0]}x{DATA_HW[1]} "
+          f"image-text records in {DATA_SHARDS} shards, "
+          f"{NAFLEX_DATA_EXAMPLES} NaFlex and {TAR_EXAMPLES} tar examples "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    pairs = str(paths["pairs"])
+    records_argv = DATA_ARGV + ["--data", pairs, "--loader", "records"]
+    grain_argv = DATA_ARGV + ["--data", pairs, "--loader", "grain",
+                              "--data-workers", str(DATA_WORKERS)]
+
+    # (a) the records loader; each step's batch is the one the reader
+    # gives alone on the host
+    control = {}
+    run_a = data_command(card, "16(a) records", records_argv, root,
+                         range(DATA_STEPS))
+    control["records"] = {r["step"]: r for r in run_a["logged"]}
+    host = records.image_text_batches(pairs, TRAIN_BATCH,
+                                      image_size=DATA_IMAGE,
+                                      seq_len=DATA_SEQ, shuffle_buffer=256)
+    want = [cli.batch_fingerprint(next(host)) for _ in range(DATA_STEPS)]
+    got = [control["records"][s]["batch_fingerprint"]
+           for s in range(DATA_STEPS)]
+    check(got == want, f"16(a): fingerprints {got} != the host reader's "
+                       f"{want}")
+    print(f"16(a) train --data --loader records --shuffle-buffer 256, "
+          f"{DATA_STEPS} steps at batch {TRAIN_BATCH}: fingerprints equal "
+          f"the host reader's; launches {run_a['counts']}; losses "
+          f"{[round(r['loss'], 5) for r in run_a['logged']]}; "
+          f"{data_rates(run_a)}; prefetch waits {run_a['prefetch_wait']}; "
+          f"phase 5's synthetic command: {data_rates(synthetic)} | {card}",
+          flush=True)
+
+    # (b) the indexed loader with worker processes; an epoch of the same
+    # loader covers every record once
+    run_b = data_command(card, "16(b) grain", grain_argv, root,
+                         range(DATA_STEPS))
+    control["grain"] = {r["step"]: r for r in run_b["logged"]}
+    t1 = time.perf_counter()
+    epoch = list(grain_batches(make_grain_loader(
+        pairs, TRAIN_BATCH, task="contrastive", image_size=DATA_IMAGE,
+        seq_len=DATA_SEQ, num_epochs=1, worker_count=DATA_WORKERS)))
+    epoch_s = time.perf_counter() - t1
+    prints = example_prints(epoch)
+    check(len(prints) == DATA_EXAMPLES == len(set(prints)),
+          f"16(b): an epoch gave {len(prints)} examples, "
+          f"{len(set(prints))} distinct, of {DATA_EXAMPLES} records")
+    got = [control["grain"][s]["batch_fingerprint"]
+           for s in range(DATA_STEPS)]
+    want = [cli.batch_fingerprint(b) for b in epoch[:DATA_STEPS]]
+    check(got == want, f"16(b): fingerprints {got} != the loader's epoch "
+                       f"{want}")
+    count, total = run_b["prefetch_wait"]
+    print(f"16(b) train --data --loader grain --data-workers "
+          f"{DATA_WORKERS}: fingerprints equal the loader's own epoch, which "
+          f"covers each of the {DATA_EXAMPLES} records once ({epoch_s:.2f} s "
+          f"for the epoch alone, {DATA_EXAMPLES / epoch_s:.1f} examples/s); "
+          f"{data_rates(run_b)}; prefetch_wait_seconds {count} waits, "
+          f"{total:.3f} s | {card}", flush=True)
+
+    # (c) a crash after step DATA_CRASH's checkpoint, then --resume
+    for loader, argv in (("records", records_argv), ("grain", grain_argv)):
+        ckpt = ["--ckpt-dir", str(root / f"ckpt_{loader}"), "--save-every",
+                "1"]
+        crashed = data_command(
+            card, f"16(c) {loader} crash@{DATA_CRASH}",
+            argv + ckpt + ["--inject-faults", f"crash@{DATA_CRASH}"], root,
+            range(DATA_CRASH + 1),
+            crash=f"injected failure at step {DATA_CRASH}")
+        same_as_control(f"16(c) {loader} crash", crashed["logged"],
+                        control[loader], range(DATA_CRASH + 1))
+        resumed = data_command(card, f"16(c) {loader} --resume",
+                               argv + ckpt + ["--resume"], root,
+                               range(DATA_CRASH + 1, DATA_STEPS))
+        same_as_control(f"16(c) {loader} --resume", resumed["logged"],
+                        control[loader], range(DATA_CRASH + 1, DATA_STEPS))
+        restore = resumed["spans"]["checkpoint_restore"][1] * 1e3
+        forward = resumed["spans"]["resume_fast_forward"][1] * 1e3
+        shutil.rmtree(root / f"ckpt_{loader}")
+        print(f"16(c) {loader}: crash@{DATA_CRASH} then --resume, steps "
+              f"{DATA_CRASH + 1}-{DATA_STEPS - 1} equal the control's losses "
+              f"and fingerprints bit for bit; time to resume {restore + forward:.3f} "
+              f"ms = restore {restore:.3f} + fast-forward {forward:.3f} "
+              f"({(DATA_CRASH + 1) * TRAIN_BATCH} examples skipped) | {card}",
+              flush=True)
+
+    # (d) ViT-B/16 from tar shards (its head from classes.json), SigLIP2
+    # --naflex from records
+    if native.codecs_available() or importlib.util.find_spec("PIL"):
+        run = rest_command(card, "16(d) vit from tar", [
+            "train", "--preset", "vit-base-patch16-224", "--bf16",
+            "--ln-impl", "fused", "--batch-size", str(TAR_BATCH), "--data",
+            str(paths["tar"])], TAR_STEPS, FAMILY_STEP["vit"])
+        check(run["summary"]["num_classes"] == TAR_CLASSES,
+              f"16(d): head of {run['summary']['num_classes']} classes, "
+              f"classes.json has {TAR_CLASSES}")
+    else:
+        print("16(d) vit from tar: not driven (no PNG decoder: neither "
+              "libpng in the native build nor Pillow)", flush=True)
+    run = run_train_command(
+        ["train", "--preset", NAFLEX_PRESET, "--naflex", "--bf16",
+         "--ln-impl", "fused", "--batch-size", str(TRAIN_BATCH), "--steps",
+         str(NAFLEX_DATA_STEPS), "--log-every", "1", "--data",
+         str(paths["naflex"])], card)
+    want = step_counts(naflex=True)
+    check(run["rc"] == 0 and [r["step"] for r in run["logged"]]
+          == list(range(NAFLEX_DATA_STEPS))
+          and all(math.isfinite(r["loss"]) for r in run["logged"])
+          and all(run["counts"][k] == want[k] * NAFLEX_DATA_STEPS
+                  for k in want),
+          f"16(d) naflex from records: {run['counts']}, {run['logged']}")
+    print(f"16(d) train --naflex --data (SigLIP2-B/16-256, records of "
+          f"{len(NAFLEX_DATA_SIZES)} aspects): {NAFLEX_DATA_STEPS} steps, "
+          f"launches {run['counts']} (phase 6's per step); "
+          f"{data_rates(run)} | {card}", flush=True)
+
+    prefetch_phase(card)
+    native_phase(card)
+    return run_a["counts"]
+
+
+def prefetch_phase(card: str) -> None:
+    """(e) ``PrefetchIterator`` on the card (pinned staging, side-stream
+    copies) against synchronous copies of the same host batches, bit for
+    bit, with the consumer's stream held busy so that the producer runs
+    ahead and reuses its staging buffers."""
+    def batch(i: int):
+        rng = np.random.default_rng(i)
+        return ((rng.random((PREFETCH_ROWS, 96, 96, 3), np.float32),
+                 rng.integers(0, 9, (PREFETCH_ROWS, 2), dtype=np.int32),
+                 rng.random((PREFETCH_ROWS, 64)) < 0.5),
+                rng.integers(0, 32000, (PREFETCH_ROWS, 64), dtype=np.int32))
+
+    def synchronous(tree):
+        if isinstance(tree, tuple):
+            return tuple(synchronous(t) for t in tree)
+        to = (torch.bfloat16 if tree.dtype.kind == "f" else torch.bool
+              if tree.dtype.kind == "b" else torch.long)
+        return torch.from_numpy(tree).to(device).to(to)
+
+    device = torch.device("cuda")
+    t0 = time.perf_counter()
+    it = PrefetchIterator((batch(i) for i in range(PREFETCH_BATCHES)),
+                          device=device, dtype=torch.bfloat16, prefetch=2)
+    bad = n = 0
+    for host, placed in it:
+        torch.cuda._sleep(2_000_000)  # the step the batch waits behind
+        want = synchronous(host)
+        bad += not all(torch.equal(a, b) for a, b in
+                       zip(tensor_leaves(placed), tensor_leaves(want)))
+        n += 1
+    torch.cuda.synchronize()
+    check(n == PREFETCH_BATCHES and bad == 0,
+          f"16(e): {bad} of {n} prefetched batches differ from their "
+          f"synchronous copies")
+    print(f"16(e) PrefetchIterator: {n} nested batches (f32 images to bf16, "
+          f"int32 to int64, bool) equal their synchronous copies bit for "
+          f"bit, {time.perf_counter() - t0:.2f} s | {card}", flush=True)
+
+
+def tensor_leaves(tree) -> list[torch.Tensor]:
+    if isinstance(tree, (tuple, list)):
+        return [t for item in tree for t in tensor_leaves(item)]
+    return [tree]
+
+
+def native_phase(card: str) -> None:
+    """(f) the native preprocessing at batch 128 against its numpy plain
+    versions: resize 288 x 320 -> 256, normalize with SigLIP's constants
+    (the trained path's), and the crop path."""
+    rng = np.random.default_rng(161)
+    images = rng.integers(0, 256, (TRAIN_BATCH, *DATA_HW, 3), dtype=np.uint8)
+    times = {}
+    for crop in (False, True):
+        for name, fn in (("native", preprocess.preprocess_batch),
+                         ("numpy", preprocess.preprocess_batch_plain)):
+            t0 = time.perf_counter()
+            out = fn(images, image_size=DATA_IMAGE, crop=crop)
+            times[(crop, name)] = (time.perf_counter() - t0) * 1e3
+            if name == "native":
+                ours = out
+        err = float(np.abs(ours - out).max())
+        check(err <= 1e-6, f"16(f): native against numpy {err} > 1e-6 "
+                           f"(crop {crop})")
+        print(f"16(f) preprocess_batch of {TRAIN_BATCH} raw "
+              f"{DATA_HW[0]}x{DATA_HW[1]} to {DATA_IMAGE}"
+              f"{' (crop)' if crop else ''}"
+              f": native {times[(crop, 'native')]:.1f} ms with "
+              f"{native.threads()} threads, numpy "
+              f"{times[(crop, 'numpy')]:.1f} ms, max abs difference "
+              f"{err:.2e}; codecs built: {native.codecs_available()} "
+              f"({native.build().name}) | {card}", flush=True)
 
 
 def main() -> int:
@@ -4334,24 +4711,27 @@ def main() -> int:
         train_grads_phase(card)
         train_grads_phase(card, torch.bfloat16)
         _, ln_bwd_traced = train_phase(card)
-        train_counts = cli_train_phase(card)
+        train_run = cli_train_phase(card)
+        train_counts = train_run["counts"]
         done("train")
         naflex_grads_phase(card)
         naflex_grads_phase(card, torch.bfloat16)
         naflex_forward_phase(card)
         naflex_train_phase(card)
-        naflex_counts = cli_train_phase(card, naflex=True)
+        naflex_counts = cli_train_phase(card, naflex=True)["counts"]
         done("naflex")
         int8_serve_counts = serve_phase(card, "int8")
         done("int8 serve")
         int8_qk_grads_phase(card)
         int8_qk_grads_phase(card, torch.bfloat16)
         train_phase(card, precision="int8_qk")
-        int8_qk_counts = cli_train_phase(card, precision="int8_qk")
+        int8_qk_counts = cli_train_phase(card,
+                                         precision="int8_qk")["counts"]
         done("int8_qk")
         fp8_grads_phase(card)
         train_phase(card, precision="fp8_hybrid")
-        fp8_counts = cli_train_phase(card, precision="fp8_hybrid")
+        fp8_counts = cli_train_phase(card,
+                                     precision="fp8_hybrid")["counts"]
         done("fp8_hybrid")
         sigmoid_grads_phase(card)
         sigmoid_grads_phase(card, torch.bfloat16)
@@ -4374,6 +4754,9 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             resilience_counts = resilience_phase(card, pathlib.Path(tmp))
             done("resilience")
+        with tempfile.TemporaryDirectory() as tmp:
+            data_counts = data_phase(card, pathlib.Path(tmp), train_run)
+            done("data")
         check(all(math.isfinite(timed[k]["ms"]) for k in timed), "bad timing")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
@@ -4391,7 +4774,7 @@ def main() -> int:
              "int8_qk": int8_qk_counts, "fp8_hybrid": fp8_counts,
              "sigmoid": sigmoid_counts, "bias": bias_counts,
              **ckpt_counts, **zero_shot_counts, **rest_counts,
-             "resilience": resilience_counts}
+             "resilience": resilience_counts, "data": data_counts}
     steps = {"train": CLI_STEPS, "naflex": CLI_STEPS, "int8_qk": CLI_STEPS,
              "fp8_hybrid": CLI_STEPS, "sigmoid": TRAIN_STEPS}
     main_path = {"flash_attention_masked": "naflex",

@@ -1,5 +1,6 @@
 """Command line: ``python -m jimm_tpu_torch
-serve|train|supervise|classify|evaluate|export-run|prepare-data``.
+serve|train|supervise|classify|evaluate|export-run|prepare-data|
+build-native``.
 
 ``serve`` loads an HF checkpoint (``--ckpt DIR --model
 vit|clip|siglip``) or builds a preset of any family (randomly initialised
@@ -31,6 +32,12 @@ the fp8 matmul with delayed scaling (``jimm_tpu_torch.quant.policy``).
 are the resilience drills. ``supervise -- train ...`` reruns a failed or
 preempted run with ``--resume`` (``jimm_tpu_torch.resilience``).
 
+``train --data SHARDS`` reads TFRecord or tar shards instead
+(``--loader records``, buffer-shuffled, or ``--loader grain``, the indexed
+multi-worker loader whose position each checkpoint records), the batches
+made and copied to the card ahead of the step (``data/pipeline.py``).
+``build-native`` builds the native host-preprocessing library.
+
 ``classify`` scores one image against a label set with a CLIP or SigLIP
 checkpoint (zero-shot); ``evaluate`` runs one pass over TFRecord or
 WebDataset shards (ViT top-1, CLIP/SigLIP in-batch retrieval R@1, or
@@ -42,6 +49,7 @@ files.
 from __future__ import annotations
 
 import argparse
+import base64
 import dataclasses
 import hashlib
 import json
@@ -58,9 +66,12 @@ from jimm_tpu_torch import obs
 from jimm_tpu_torch.configs import (PRESETS, CLIPConfig, SigLIPConfig,
                                     ViTConfig, family, parse_remat, preset,
                                     with_runtime)
-from jimm_tpu_torch.data import records, webdataset
+from jimm_tpu_torch.data import native, records, webdataset
 from jimm_tpu_torch.data.clip_tokenizer import CLIPTokenizer
+from jimm_tpu_torch.data.grain_pipeline import (CheckpointableGrainStream,
+                                                make_grain_loader)
 from jimm_tpu_torch.data.naflex import patchify_naflex
+from jimm_tpu_torch.data.pipeline import PrefetchIterator, place
 from jimm_tpu_torch.data.preprocess import (CLIP_MEAN, CLIP_STD, SIGLIP_MEAN,
                                             SIGLIP_STD, preprocess_batch,
                                             to_float_normalized)
@@ -220,7 +231,6 @@ def cmd_serve(args: argparse.Namespace) -> int:
 #: train flags of the JAX CLI that the port does not have yet -> where the
 #: ROADMAP queues them
 _TRAIN_NOT_PORTED = {
-    "data": "file datasets, ROADMAP.md queue 1, item 7 (data)",
     "mesh": "device meshes, ROADMAP.md queue 1, item 6 (parallelism)",
     "profile_dir": "profiler traces, ROADMAP.md queue 1, item 10 "
                    "(observability)",
@@ -245,16 +255,6 @@ RESILIENCE_KEYS = ("jimm_train_restarts_total", "jimm_train_preemptions_total",
                    "jimm_train_checkpoint_quarantined_total",
                    "jimm_train_goodput_lost_work_seconds_total",
                    "jimm_train_goodput_preemption_save_seconds_total")
-
-
-def naflex_to_device(triple, device: torch.device, dtype: torch.dtype
-                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """A NaFlex ``(patches, spatial_shapes, mask)`` numpy triple on the
-    device: patches in the model dtype, shapes int, mask bool."""
-    patches, shapes, mask = triple
-    return (torch.from_numpy(patches).to(device, dtype),
-            torch.from_numpy(shapes).to(device, torch.long),
-            torch.from_numpy(mask).to(device, torch.bool))
 
 
 def fit_head(model: VisionTransformer, n: int | None) -> bool:
@@ -292,15 +292,18 @@ SYNTHETIC_CLASSES = 4
 
 
 def run_spec(args: argparse.Namespace, fam: str,
-             num_classes: int | None = None) -> dict:
+             num_classes: int | None = None, synthetic: bool = True) -> dict:
     """The architecture of a run of family ``fam``, as ``train``'s flags
     give it and as its checkpoint directory records it (``run.json``): the
     preset [shrunk by ``--tiny``], or the ``--from-pretrained`` checkpoint
     at ``--image-size``; a ViT's head ``--num-classes`` wide, else
-    ``num_classes``, else the synthetic data's."""
+    ``num_classes`` (a dataset's classes.json), else the synthetic data's,
+    else (a file dataset without classes.json: ``synthetic`` false) the
+    preset's or the checkpoint's own."""
     n = None
     if fam == "vit":
-        n = args.num_classes or num_classes or SYNTHETIC_CLASSES
+        n = args.num_classes or num_classes or (
+            SYNTHETIC_CLASSES if synthetic else None)
     return {"family": fam, "preset": args.preset, "tiny": bool(args.tiny),
             "from_pretrained": args.from_pretrained,
             "image_size": args.image_size, "num_classes": n}
@@ -375,6 +378,117 @@ def _fault_plan(args: argparse.Namespace) -> FaultPlan | None:
     return plan
 
 
+def _check_data_flags(args: argparse.Namespace) -> None:
+    """The reference's refusals of ``--data`` combinations."""
+    if args.naflex and (args.loader == "grain" or _is_tar_data(args.data)):
+        raise SystemExit("--naflex reads tfrecord shards (records loader) "
+                         "or synthetic data")
+    if args.loader == "grain" and _is_tar_data(args.data):
+        raise SystemExit("--loader grain reads tfrecord shards; tar "
+                         "(webdataset) data uses --loader records")
+
+
+def _synthetic_data(args: argparse.Namespace, fam: str, cfg, start_step: int
+                    ) -> Iterator:
+    """The synthetic stream of the run, its first ``start_step`` batches
+    skipped: the same draws, no image built."""
+    if fam == "vit":
+        data = blob_classification(args.batch_size,
+                                   image_size=cfg.vision.image_size,
+                                   num_classes=cfg.num_classes,
+                                   seed=args.seed,
+                                   num_frames=cfg.vision.num_frames)
+    elif args.naflex:
+        data = naflex_contrastive_pairs(
+            args.batch_size, patch_size=cfg.vision.patch_size,
+            max_num_patches=cfg.vision.num_patches,
+            seq_len=cfg.text.context_length,
+            vocab_size=cfg.text.vocab_size, seed=args.seed)
+    else:
+        data = contrastive_pairs(args.batch_size,
+                                 image_size=cfg.vision.image_size,
+                                 vocab_size=cfg.text.vocab_size,
+                                 seq_len=cfg.text.context_length,
+                                 seed=args.seed)
+    with obs.span("resume_fast_forward"):
+        data.skip(start_step)
+    return data
+
+
+def _records_data(args: argparse.Namespace, fam: str, cfg, start_step: int
+                  ) -> Iterator:
+    """``--loader records``: TFRecord or tar shards, buffer-shuffled,
+    repeating; the example stream fast-forwarded past the ``start_step``
+    batches already trained on (protobuf or tar entries only, no decode)."""
+    if _is_tar_data(args.data):
+        examples = webdataset.iter_wds_examples(
+            webdataset.resolve_tar_paths(args.data),
+            shuffle_buffer=args.shuffle_buffer, seed=args.seed)
+    else:
+        examples = records.iter_examples(
+            records.resolve_paths(args.data),
+            shuffle_buffer=args.shuffle_buffer, seed=args.seed)
+    with obs.span("resume_fast_forward"):
+        records.skip(examples, start_step * args.batch_size)
+    norm = _norm_for(fam)
+    if fam == "vit":
+        return records.classification_batches_from(
+            examples, args.batch_size, image_size=cfg.vision.image_size,
+            **norm)
+    if args.naflex:
+        return records.naflex_image_text_batches_from(
+            examples, args.batch_size, patch_size=cfg.vision.patch_size,
+            max_num_patches=cfg.vision.num_patches,
+            seq_len=cfg.text.context_length, **norm)
+    return records.image_text_batches_from(
+        examples, args.batch_size, image_size=cfg.vision.image_size,
+        seq_len=cfg.text.context_length, **norm)
+
+
+def _grain_data(args: argparse.Namespace, fam: str, cfg, start_step: int,
+                ckpt: CheckpointManager | None) -> CheckpointableGrainStream:
+    """``--loader grain``: the indexed loader, shuffled by index each epoch,
+    with ``--data-workers`` worker processes; on a resume it jumps to the
+    checkpoint's ``grain_state`` (decoding nothing), or without one replays
+    ``start_step`` batches."""
+    task = "classification" if fam == "vit" else "contrastive"
+    extra = ({"seq_len": cfg.text.context_length}
+             if task == "contrastive" else {})
+    loader = make_grain_loader(
+        args.data, args.batch_size, task=task,
+        image_size=cfg.vision.image_size, seed=args.seed,
+        worker_count=args.data_workers, **_norm_for(fam), **extra)
+    it = iter(loader)
+    saved = (ckpt.last_restored_extra.get("grain_state")
+             if ckpt is not None else None)
+    with obs.span("resume_fast_forward"):
+        if start_step and saved:
+            # the state saved with the last batch the loop consumed (not
+            # the prefetcher's read-ahead): the very next batch follows
+            it.set_state(base64.b64decode(saved))
+        else:
+            for _ in range(start_step):
+                next(it)
+    # the workers fork here, from the main thread, before the prefetch
+    # thread starts
+    return CheckpointableGrainStream(it.start())
+
+
+def train_data(args: argparse.Namespace, fam: str, cfg, start_step: int,
+               ckpt: CheckpointManager | None
+               ) -> tuple[Iterator, CheckpointableGrainStream | None]:
+    """The run's host batches from ``start_step`` on, as the reference
+    routes them: no ``--data``, the synthetic generator; TFRecord or tar
+    shards through the records readers; ``--loader grain``, the indexed
+    loader, whose consumed-state tracker comes second."""
+    if not args.data:
+        return _synthetic_data(args, fam, cfg, start_step), None
+    if args.loader == "grain":
+        stream = _grain_data(args, fam, cfg, start_step, ckpt)
+        return stream.batches(), stream
+    return _records_data(args, fam, cfg, start_step), None
+
+
 def cmd_train(args: argparse.Namespace) -> int:
     for flag, where in _TRAIN_NOT_PORTED.items():
         if getattr(args, flag):
@@ -393,6 +507,8 @@ def cmd_train(args: argparse.Namespace) -> int:
     if args.tiny and args.from_pretrained:
         raise SystemExit("--tiny conflicts with --from-pretrained (the "
                          "checkpoint defines the architecture)")
+    if args.data:
+        _check_data_flags(args)
     fault_plan = _fault_plan(args)
     device = resolve_device(args.device)
     runtime = {"attn_impl": args.attn_impl, "ln_impl": args.ln_impl,
@@ -416,7 +532,9 @@ def cmd_train(args: argparse.Namespace) -> int:
     moment_dtype = ({"f32": "float32", "bf16": "bfloat16"}[args.moment_dtype]
                     if args.moment_dtype
                     else ("bfloat16" if args.bf16_momentum else None))
-    spec = run_spec(args, fam)
+    spec = run_spec(args, fam, _num_classes_from_data(args.data)
+                    if fam == "vit" and args.data else None,
+                    synthetic=not args.data)
     ckpt = None
     if args.ckpt_dir:
         # a run's directory records its architecture and dtypes: another
@@ -458,11 +576,6 @@ def cmd_train(args: argparse.Namespace) -> int:
                     f"from step 0") from None
     if fam == "vit":
         step_fn = make_classifier_train_step()
-        data = blob_classification(args.batch_size,
-                                   image_size=cfg.vision.image_size,
-                                   num_classes=cfg.num_classes,
-                                   seed=args.seed,
-                                   num_frames=cfg.vision.num_frames)
         # the classifier's bias is among the last parameters updated
         sync = model.classifier.bias
     else:
@@ -470,25 +583,10 @@ def cmd_train(args: argparse.Namespace) -> int:
             step_fn = make_contrastive_train_step(args.loss or fam)
         except NotImplementedError as e:  # the ring losses need a mesh
             raise SystemExit(str(e))
-        if args.naflex:
-            data = naflex_contrastive_pairs(
-                args.batch_size, patch_size=cfg.vision.patch_size,
-                max_num_patches=cfg.vision.num_patches,
-                seq_len=cfg.text.context_length,
-                vocab_size=cfg.text.vocab_size, seed=args.seed)
-        else:
-            data = contrastive_pairs(args.batch_size,
-                                     image_size=cfg.vision.image_size,
-                                     vocab_size=cfg.text.vocab_size,
-                                     seq_len=cfg.text.context_length,
-                                     seed=args.seed)
         # logit_scale depends on the update just made
         sync = model.logit_scale
-    # a resumed step sees the batch the uninterrupted run saw at that step:
-    # the generator is replayed, so this grows with start_step
-    with obs.span("resume_fast_forward"):
-        for _ in range(start_step):
-            next(data)
+    # a resumed step sees the batch the uninterrupted run saw at that step
+    source, grain_stream = train_data(args, fam, cfg, start_step, ckpt)
     logger = MetricsLogger(path=args.metrics_file,
                            print_every=args.log_every,
                            registry=obs.get_registry("jimm_train"))
@@ -506,15 +604,15 @@ def cmd_train(args: argparse.Namespace) -> int:
         preempt = PreemptionHandler(guard, ckpt, grace_steps=args.grace_steps,
                                     accounter=acct)
     loss = dt = accuracy = None
+    # host batches made and copied to the card ahead of the step
+    prefetch = PrefetchIterator(source, device=device, dtype=dtype)
+    # advance the loader's consumed state on this (consumer) side of the
+    # prefetch queue, so that a checkpoint records the trained-on position
+    data = prefetch if grain_stream is None else grain_stream.track(prefetch)
     try:
         for step in range(start_step, args.steps):
             with acct.measure("data_wait"):
-                batch = next(data)
-                images, target = batch
-                images = (naflex_to_device(images, device, dtype)
-                          if args.naflex
-                          else torch.from_numpy(images).to(device, dtype))
-                target = torch.from_numpy(target).to(device, torch.long)
+                batch, (images, target) = next(data)
             # from the host arrays, outside the buckets, as the reference
             fp = batch_fingerprint(batch) if args.batch_fingerprint else None
             # the first step run warms up (kernel loads, library handles):
@@ -534,21 +632,29 @@ def cmd_train(args: argparse.Namespace) -> int:
                            lr=optimizer.schedule(step),
                            images_per_s=args.batch_size / dt,
                            mfu=mfu(flops, dt, peak))
+            extra = None
+            if ckpt is not None and grain_stream is not None:
+                extra = {"grain_state": base64.b64encode(
+                    grain_stream.consumed_state).decode("ascii")}
             saved_now = False
             if ckpt is not None and (preempt is None
                                      or not preempt.draining):
                 # while the grace save drains, later saves are pointless:
                 # nothing after it survives the restart
                 with acct.measure("checkpoint"):
-                    saved_now = ckpt.save(step, model, optimizer)
+                    saved_now = ckpt.save(step, model, optimizer,
+                                          extra=extra)
             if fault_plan is not None:
                 # a preempt's SIGTERM lands before the guard check below,
                 # as a real maintenance signal would
                 fault_plan.fire(step, ckpt=ckpt)
             if preempt is not None:
-                preempt.after_step(step, model, optimizer,
+                preempt.after_step(step, model, optimizer, extra=extra,
                                    already_saved=saved_now)
     finally:
+        prefetch.close()
+        if grain_stream is not None:
+            grain_stream.close()
         if guard is not None:
             guard.uninstall()
         logger.close()
@@ -562,7 +668,8 @@ def cmd_train(args: argparse.Namespace) -> int:
     print(json.dumps({
         "status": "trained", "steps": args.steps, "start_step": start_step,
         "loss": loss, "accuracy": accuracy, "step_time_s": dt, "model": name,
-        "family": fam, "naflex": args.naflex,
+        "family": fam, "naflex": args.naflex, "data": args.data,
+        "loader": args.loader if args.data else "synthetic",
         "num_classes": cfg.num_classes if fam == "vit" else None,
         "fresh_head": fresh_head, "num_frames": cfg.vision.num_frames,
         "remat": remat_name(cfg.vision), "dropout": cfg.vision.dropout,
@@ -744,6 +851,12 @@ def _dataset_classes(data: str) -> list[str] | None:
     return None
 
 
+def _num_classes_from_data(data: str) -> int | None:
+    """A dataset's class count from its classes.json, if it has one."""
+    classes = _dataset_classes(data)
+    return None if classes is None else len(classes)
+
+
 def _classification_batches(data: str):
     return (webdataset.wds_classification_batches if _is_tar_data(data)
             else records.classification_batches)
@@ -846,7 +959,7 @@ def classify_image(args: argparse.Namespace, image: np.ndarray, *,
             triple = patchify_naflex([im], patch_size=cfg.vision.patch_size,
                                      max_num_patches=cfg.vision.num_patches)
             feats = model.encode_image_naflex(
-                *naflex_to_device(triple, param.device, param.dtype))
+                *place(triple, param.device, param.dtype))
         else:
             # CLIP checkpoints are trained with shortest-side resize +
             # center crop; SigLIP's processor resizes straight to the square
@@ -983,7 +1096,7 @@ class Evaluation:
         model = self.model
         param = next(model.parameters())
         if self.args.naflex:
-            images = naflex_to_device(images, param.device, param.dtype)
+            images = place(images, param.device, param.dtype)
         else:
             images = torch.from_numpy(images).to(param.device, param.dtype)
         if self.kind == "top1":
@@ -1160,6 +1273,23 @@ def cmd_prepare_data(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_build_native(args: argparse.Namespace) -> int:
+    """Build (or find) the native host-preprocessing library with g++ and
+    check that it loads; one JSON line. Exits 1 when the compiler or the
+    load fails, with its message."""
+    found = native.target()[3].exists()
+    try:
+        native.load()
+    except RuntimeError as e:
+        print(f"build-native: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps({"status": "found" if found else "built",
+                      "library": str(native.build()),
+                      "codecs": native.codecs_available(),
+                      "threads": native.threads()}), flush=True)
+    return 0
+
+
 def _add_run_flags(sp: argparse.ArgumentParser) -> None:
     """``evaluate``'s training-run options (with ``--preset``); the
     architecture flags may be left out where the run records them."""
@@ -1216,8 +1346,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="stop after this long (default: serve until ^C)")
     sp.set_defaults(func=cmd_serve)
 
-    sp = sub.add_parser("train", help="train on synthetic data (offline): "
-                                      "ViT classifiers, CLIP/SigLIP pairs")
+    sp = sub.add_parser("train", help="train on synthetic data or file "
+                                      "shards: ViT classifiers, CLIP/SigLIP "
+                                      "pairs")
     sp.add_argument("--preset", default="siglip-base-patch16-256",
                     choices=sorted(PRESETS),
                     help="names the family (vit, clip, siglip) and, "
@@ -1240,7 +1371,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--weight-decay", type=float, default=1e-4)
     sp.add_argument("--warmup-steps", type=int, default=0)
     sp.add_argument("--seed", type=int, default=0,
-                    help="seeds the weights and the synthetic data")
+                    help="seeds the weights, the synthetic data and the "
+                         "--data shuffles")
     sp.add_argument("--bf16", action="store_true",
                     help="bf16 parameters and compute (default f32)")
     sp.add_argument("--loss", default=None,
@@ -1319,9 +1451,24 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--journal", default=None, metavar="FILE",
                     help="persist flight-recorder events (preemption, "
                          "checkpoint) to this rotating JSONL journal")
+    sp.add_argument("--data", default=None,
+                    help="tfrecord or tar shards (file/dir/glob) with "
+                         "image+label (vit) or image+tokens (clip/siglip) "
+                         "examples; default: procedural synthetic data")
+    sp.add_argument("--shuffle-buffer", type=int, default=256,
+                    help="example shuffle-buffer size for --data (records "
+                         "loader)")
+    sp.add_argument("--loader", default="records",
+                    choices=["records", "grain"],
+                    help="--data pipeline: 'records' (generator, buffer "
+                         "shuffle) or 'grain' (the indexed loader: "
+                         "parallel workers, shuffle by index, exact "
+                         "checkpointed position)")
+    sp.add_argument("--data-workers", type=int, default=0,
+                    help="worker processes of the grain loader (0 = in "
+                         "this process)")
     # the JAX CLI's flags that are not ported yet: accepted, then refused
     # with their ROADMAP queue
-    sp.add_argument("--data", default=None, help=argparse.SUPPRESS)
     sp.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
     sp.add_argument("--profile-dir", default=None, help=argparse.SUPPRESS)
     sp.add_argument("--prof-ring", default=None, help=argparse.SUPPRESS)
@@ -1453,6 +1600,11 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--shard-size", type=int, default=1000,
                     help="examples per tfrecord shard")
     sp.set_defaults(func=cmd_prepare_data)
+
+    sp = sub.add_parser("build-native",
+                        help="compile the native host-preprocessing library "
+                             "(g++) and check that it loads")
+    sp.set_defaults(func=cmd_build_native)
     return parser
 
 

@@ -1,5 +1,6 @@
 """Input pipeline over TFRecord files on disk; the port's copy of
-``jimm_tpu/data/records.py``: decode (PIL or raw) -> numpy resize/normalize
+``jimm_tpu/data/records.py``: decode (native libjpeg/libpng, PIL for what
+the C side declines, or raw) -> native multithreaded resize/normalize
 (``jimm_tpu_torch.data.preprocess``) -> numpy batches, and the writers that
 make such shards. Built on the zero-dependency codec in
 ``jimm_tpu_torch.data.tfrecord``.
@@ -10,8 +11,9 @@ Record schema (standard TF conventions):
 - ``tokens``: pre-tokenized int64 caption ids (contrastive pairs)
 - ``label``: int64 class id (classification)
 
-PNG/JPEG bytes need Pillow (imported when such an image is met); raw
-records need nothing beyond numpy.
+PNG/JPEG bytes decode natively where the library was built with the
+codecs; what it declines needs Pillow (imported when such an image is met).
+Raw records need nothing beyond numpy.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import numpy as np
 
 from jimm_tpu_torch.data.naflex import patchify_naflex
 from jimm_tpu_torch.data.preprocess import (SIGLIP_MEAN, SIGLIP_STD,
+                                            decode_image_native,
                                             resize_bilinear,
                                             to_float_normalized)
 from jimm_tpu_torch.data.tfrecord import (TFRecordWriter, decode_example,
@@ -64,6 +67,11 @@ def decode_image(value: bytes, shape: Sequence[int] | None = None
         h, w, c = (int(s) for s in shape)
         return np.frombuffer(value, np.uint8).reshape(h, w, c)
     if value[:4] == _PNG_MAGIC or value[:2] == _JPEG_MAGIC:
+        # native libjpeg/libpng (no PIL import); PIL takes the image
+        # classes the C side declines (alpha, palette, CMYK, 16-bit)
+        image = decode_image_native(value)
+        if image is not None:
+            return image
         from PIL import Image
         return np.asarray(Image.open(io.BytesIO(value)).convert("RGB"))
     raise ValueError("image bytes are neither PNG/JPEG nor raw-with-'shape'")
@@ -103,11 +111,14 @@ def iter_examples(paths: Sequence[str], *, repeat: bool = True,
 def prep_image(ex: dict[str, list], image_size: int) -> np.ndarray:
     """One decoded example -> float32 [S, S, 3] in [0, 1] (resized if
     needed, NOT yet mean/std-normalized)."""
-    img = decode_image(ex["image"][0], ex.get("shape"))
-    if img.shape[:2] != (image_size, image_size):
-        return resize_bilinear(img[None].astype(np.float32) / 255.0,
-                               (image_size, image_size))[0]
-    return img.astype(np.float32) / 255.0
+    return _unit_resized(decode_image(ex["image"][0], ex.get("shape"))[None],
+                         image_size)[0]
+
+
+def _unit_resized(images: np.ndarray, image_size: int) -> np.ndarray:
+    """uint8 [B,H,W,C] -> float32 in [0, 1] at [B,S,S,C]."""
+    return resize_bilinear(images.astype(np.float32) / 255.0,
+                           (image_size, image_size))
 
 
 def pad_tokens(tokens: Sequence[int], seq_len: int, pad_id: int = 0
@@ -122,11 +133,19 @@ def pad_tokens(tokens: Sequence[int], seq_len: int, pad_id: int = 0
 
 def _image_batch(examples: list[dict[str, list]], image_size: int,
                  mean, std) -> np.ndarray:
-    batch = np.stack([prep_image(ex, image_size) for ex in examples])
+    images = [decode_image(ex["image"][0], ex.get("shape"))
+              for ex in examples]
+    if len({im.shape for im in images}) == 1:
+        # one resize call over the batch, threaded over its images: per
+        # image the arithmetic of prep_image
+        batch = _unit_resized(np.stack(images), image_size)
+    else:
+        batch = np.stack([_unit_resized(im[None], image_size)[0]
+                          for im in images])
     return to_float_normalized(batch, mean, std)
 
 
-def _skip(examples: Iterator, n: int) -> None:
+def skip(examples: Iterator, n: int) -> None:
     """Fast-forward the raw example stream (protobuf parse only — no image
     decode/resize) for deterministic resume at step N."""
     for _ in range(n):
@@ -181,7 +200,7 @@ def image_text_batches_from(examples: Iterator[dict], batch_size: int, *,
     """Batch builder over ANY decoded-example stream (records schema) —
     shared by the tfrecord and webdataset front-ends so batch semantics
     live in one place."""
-    _skip(examples, skip_examples)
+    skip(examples, skip_examples)
     for chunk in _chunks(examples, batch_size, drop_remainder):
         images = _image_batch(chunk, image_size, mean, std)
         tokens = np.stack([pad_tokens(ex["tokens"], seq_len, pad_id)
@@ -220,7 +239,7 @@ def naflex_image_text_batches_from(examples: Iterator[dict],
                                    drop_remainder: bool = True):
     """NaFlex batch builder over any decoded-example stream — see
     `naflex_image_text_batches`."""
-    _skip(examples, skip_examples)
+    skip(examples, skip_examples)
     for chunk in _chunks(examples, batch_size, drop_remainder):
         imgs = [to_float_normalized(
             (decode_image(ex["image"][0], ex.get("shape"))
@@ -257,7 +276,7 @@ def classification_batches_from(examples: Iterator[dict], batch_size: int, *,
                                 ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
     """Batch builder over any decoded-example stream — see
     `image_text_batches_from`."""
-    _skip(examples, skip_examples)
+    skip(examples, skip_examples)
     for chunk in _chunks(examples, batch_size, drop_remainder):
         images = _image_batch(chunk, image_size, mean, std)
         labels = np.asarray([int(ex["label"][0]) for ex in chunk], np.int32)

@@ -1,6 +1,8 @@
 """Zero-dependency TFRecord + ``tf.train.Example`` codec; the port's copy of
 ``jimm_tpu/data/tfrecord.py`` (no tensorflow or protobuf import). The two
-write byte-identical shards for the same examples.
+write byte-identical shards for the same examples. The CRC32C runs on the
+native library (``jimm_tpu_torch.data.native``), as the JAX package's does
+where it is built; ``crc32c_plain`` is its Python version.
 
 TFRecord framing (per record):
   uint64le  length
@@ -25,6 +27,8 @@ from typing import Any, BinaryIO, Iterable, Iterator
 
 import numpy as np
 
+from jimm_tpu_torch.data import native
+
 # ---------------------------------------------------------------------------
 # CRC32C
 # ---------------------------------------------------------------------------
@@ -47,7 +51,12 @@ _CRC_TABLE = _castagnoli_table()
 
 
 def crc32c(data: bytes) -> int:
-    """CRC32C (Castagnoli), table-driven."""
+    """CRC32C (Castagnoli), on the native library (slice-by-8)."""
+    return native.load().jimm_crc32c(bytes(data), len(data))
+
+
+def crc32c_plain(data: bytes) -> int:
+    """Python version of :func:`crc32c`, table-driven."""
     table = _CRC_TABLE
     crc = 0xFFFFFFFF
     for b in data:

@@ -3,8 +3,9 @@
 ``data/records.py`` (the batch builders), ``data/webdataset.py``,
 ``data/preprocess.py`` and the ``prepare-data`` command. Shards written by
 either package are byte-identical and read back the same; batches are
-equal bit for bit where the JAX package takes its numpy path (no native
-library built), else within 1e-6, its native path's stated agreement."""
+equal bit for bit, the JAX package's native path given the port's build of
+the same ``native/`` sources (the numpy paths are held to each other in
+``tests/test_torch_native.py``)."""
 
 import io
 import json
@@ -21,16 +22,24 @@ from jimm_tpu.data import records as jax_records
 from jimm_tpu.data import tfrecord as jax_tfrecord
 from jimm_tpu.data import webdataset as jax_wds
 from jimm_tpu_torch import cli
-from jimm_tpu_torch.data import preprocess, records, tfrecord, webdataset
+from jimm_tpu_torch.data import (native, preprocess, records, tfrecord,
+                                  webdataset)
 
-#: the JAX package's batches equal the port's bit for bit on its numpy
-#: path; its native C++ path agrees to ~1e-6 (jimm_tpu/data/preprocess.py)
-BATCH_ATOL = 0.0 if jax_pre._LIB is None else 1e-6
+#: the JAX package's batches equal the port's bit for bit when both run
+#: the same native library
+BATCH_ATOL = 0.0
 #: (data, CRC32C): RFC 3720 B.4's vectors and the usual check value
 CRC_VECTORS = [(b"", 0), (b"123456789", 0xE3069283),
                (bytes(32), 0x8A9136AA), (b"\xff" * 32, 0x62A8AB43),
                (bytes(range(32)), 0x46DD794E),
                (bytes(range(31, -1, -1)), 0x113FDB5C)]
+
+
+@pytest.fixture(autouse=True)
+def same_native_library(monkeypatch):
+    """The JAX package's preprocessing on the port's native library: both
+    packages then run the same C++ on the same inputs."""
+    monkeypatch.setattr(jax_pre, "_LIB", native.load())
 
 
 @pytest.mark.parametrize("data,want", CRC_VECTORS,

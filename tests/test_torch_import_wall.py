@@ -25,8 +25,9 @@ MODULES = sorted(
 
 
 #: what neither the port nor chip_smoke.py may load: JAX, its libraries
-#: (orbax is the reference's checkpoint storage) and the JAX package
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "jimm_tpu")
+#: (orbax is the reference's checkpoint storage; grain, the reference's
+#: indexed loader, loads JAX) and the JAX package
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "grain", "jimm_tpu")
 
 
 def _forbidden(name: str) -> bool:
@@ -61,6 +62,23 @@ def test_importing_the_port_loads_no_jax():
             "jimm_tpu_torch.resilience.preemption",
             "jimm_tpu_torch.resilience.supervisor",
             "jimm_tpu_torch.train.checkpoint"} <= set(MODULES)
+    # and the file-dataset slice's: the native build, the prefetcher, and
+    # the indexed loader in place of grain
+    assert {"jimm_tpu_torch.data.native", "jimm_tpu_torch.data.pipeline",
+            "jimm_tpu_torch.data.grain_pipeline"} <= set(MODULES)
+
+
+def test_the_indexed_loader_loads_neither_jax_nor_grain():
+    code = ("import sys\n"
+            "import jimm_tpu_torch.data.grain_pipeline\n"
+            "import jimm_tpu_torch.data.pipeline\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'grain'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -260,7 +260,8 @@ def test_train_naflex_refuses_other_families():
 
 @pytest.mark.parametrize("argv,match", [
     (["--attn-impl", "flash_masked"], "needs --naflex"),
-    (["--naflex", "--data", "x"], "ROADMAP")])
+    (["--naflex", "--loader", "grain", "--data", "x"],
+     "--naflex reads tfrecord shards")])
 def test_train_naflex_refusals(argv, match):
     from jimm_tpu_torch.cli import cmd_train
     with pytest.raises(SystemExit, match=match):
