@@ -313,6 +313,31 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                stream held busy; (f) native preprocessing of 128 raw
                images against its numpy version (1e-6), both timed, and
                whether the library has its image codecs.
+17. profiling -- (a) ``train --profile-dir D --tensorboard-dir T`` at
+               phase 5's width and batch, 6 steps, in-process: the
+               ``torch.profiler`` capture of steps 2-4 must hold device
+               kernels (three empty tries, each printed, fail the phase),
+               ``profile-analyze D`` (``op_stats``) must count as many
+               launches of rows 1, 2, 3 and 7 as the launch counters over
+               the same steps; the steps' device-busy share and the host's
+               split (runtime launch calls, other operators, gaps) are
+               printed, and T read back (CRCs checked) must hold the
+               JSONL's losses; (b) ``--prof-ring R --prof-every 2
+               --prof-window 1`` for 12 steps with a byte budget of (a)'s
+               capture: 5 window captures, some evicted, the ring within
+               its budget, no ``.tmp`` left, ``obs prof ls/show/diff`` over
+               them, and the median step with the ring on and off beside
+               ``jimm_prof_overhead_seconds_total``; (c) ``serve --prof-dir
+               P`` (SigLIP-B/16-256, bf16, fused LayerNorm): ``POST
+               /admin/prof/trigger`` with a cid under a bulk request of 32,
+               the timer's deep capture must carry the cid and hold rows 1
+               and 3, the ``jimm_hbm_*`` rows must come from the allocator
+               with ``model_pool`` the model's parameter and buffer bytes;
+               then the host's split of the bucket-32 forward; (d)
+               ``save_quantized`` of phase 12's SigLIP-B/16-256 checkpoint,
+               re-quantized from its dequantized state bit for bit, and
+               ``obs timeline`` over the phase's journal, the ring's
+               captures and (b)'s goodput report, validated.
 
 Phase 3's flash cases include row 3's causal kind at CLIP-B/16's text
 shapes, (32, 77, 8, 64) and the 70 prompt rows of one label set (70, 77,
@@ -390,6 +415,11 @@ from jimm_tpu_torch.data.synthetic import (contrastive_pairs,
 from jimm_tpu_torch.data.webdataset import write_wds_shard
 from jimm_tpu_torch.models.siglip import SigLIP
 from jimm_tpu_torch.nn import norm as norm_mod
+from jimm_tpu_torch.obs.prof.capture import (list_captures, profiler_session,
+                                             reset_capture)
+from jimm_tpu_torch.obs.prof.opstats import (capture_summary,
+                                             load_trace_events, op_table,
+                                             render_summary)
 from jimm_tpu_torch.ops import attention as attention_mod
 from jimm_tpu_torch.ops import flash_attention as fa
 from jimm_tpu_torch.ops import flash_attention_int8 as fa8
@@ -402,13 +432,20 @@ from jimm_tpu_torch.serve.buckets import BucketTable
 from jimm_tpu_torch.serve.cache import EmbeddingCache
 from jimm_tpu_torch.serve.engine import InferenceEngine, image_forward
 from jimm_tpu_torch.serve.server import ServingServer
-from jimm_tpu_torch.train.metrics import mfu, train_step_flops
+from jimm_tpu_torch.obs.timeline import validate_chrome_trace
+from jimm_tpu_torch.train.metrics import (mfu, read_event_file,
+                                          train_step_flops)
+from jimm_tpu_torch.train.profile import annotate, op_stats
 from jimm_tpu_torch.train.trainer import (OptimizerConfig, contrastive_loss_fn,
                                           make_contrastive_train_step,
                                           make_optimizer)
 from jimm_tpu_torch.utils.zero_shot import (TEMPLATES, token_table_rows,
                                             weights_from_rows)
+from jimm_tpu_torch.weights.quantize import (dequantize_state_dict,
+                                             quantize_state_dict,
+                                             save_quantized)
 from jimm_tpu_torch.weights.resolve import resolve_checkpoint
+from jimm_tpu_torch.weights.safetensors_io import load_file
 
 #: H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -721,8 +758,7 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with profiler_session(cuda_only=True) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
@@ -792,8 +828,7 @@ def traced(fn, kernels: tuple[str, ...] = ()):
     no device rows, or with none of ``kernels`` where one must run: the
     trace can drop a kernel's record)."""
     for _ in range(3):
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with profiler_session(cuda_only=True) as prof:
             out = fn()
             torch.cuda.synchronize()
         names = [e.key for e in _device_rows(prof)]
@@ -2301,8 +2336,7 @@ def forward_readout(model, batch: torch.Tensor, card: str,
                   f"{max(0.0, 1 - k_dev / k_call):.0%}); plain versions "
                   f"{p_call:.3f} ms per call, {p_dev:.3f} ms device busy "
                   f"| {card}", flush=True)
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with profiler_session(cuda_only=True) as prof:
             fn(batch[:32])
             torch.cuda.synchronize()
     rows = sorted(((e.self_device_time_total, e.count, e.key)
@@ -2703,8 +2737,7 @@ def profile_readout(fn, what: str, card: str) -> list[tuple]:
     times, while a trace comes back with no device rows)."""
     for _ in range(3):
         torch.cuda.synchronize()
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with profiler_session(cuda_only=True) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -4679,6 +4712,360 @@ def native_phase(card: str) -> None:
               f"({native.build().name}) | {card}", flush=True)
 
 
+# -- phase 17: profiling, TensorBoard, int8 checkpoints ----------------------
+
+PROFILE_STEPS = 6
+#: ring windows open at steps 2, 4, ..., 10 and each commits a step later
+RING_STEPS = 12
+RING_CAPTURES = 5
+#: each launch counter of the train path -> the kernels a trace shows for
+#: it (a flash backward counts once: its dq kernel)
+TRACED_KERNELS = {
+    "layer_norm": tuple(ln.FORWARD_KERNELS.values()),
+    "layer_norm_bwd": tuple(ln.BACKWARD_KERNELS.values()),
+    "flash_attention": ("flash_fwd_mma_kernel", "flash_fwd_f32_kernel"),
+    "flash_attention_bwd": ("flash_bwd_dq_mma_kernel", "flash_bwd_dq_kernel"),
+}
+#: rows 1 and 3: the kernels a served forward launches
+SERVED_KERNELS = ("layer_norm", "flash_attention")
+DEEP_WINDOW_S = 5.0
+
+
+def traced_launches(rows: list[dict], kernels: tuple[str, ...]) -> int:
+    """Launches of ``kernels`` in an op table (``op_table`` rows)."""
+    return sum(r["count"] for r in rows if r["category"] == "kernel"
+               and any(_is_kernel(r["name"], k) for k in kernels))
+
+
+def print_cli(argv: list[str], card: str, ok=(0,)) -> list[str]:
+    """A read-only command of the CLI (``profile-analyze``, ``obs ...``) in
+    this process, its output printed with a prefix naming it."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    check(rc in ok, f"python -m jimm_tpu_torch {' '.join(argv)}: rc {rc}")
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print(f"{argv[0]}{' ' + argv[2] if argv[0] == 'obs' else ''}: "
+              f"{line} | {card}", flush=True)
+    return lines
+
+
+def host_split(what: str, s: dict, card: str, unit: str) -> dict:
+    """Print where a capture's wall time went (``capture_summary``, over
+    its ``regions`` when it has them: per ``unit``); returns the numbers
+    in ms per one."""
+    per = s.get("regions") or 1
+    ms = {k: s[k] / 1e3 / per for k in ("wall_us", "device_busy_us",
+                                         "runtime_us", "cpu_op_us",
+                                         "gap_us")}
+    print(f"profile: {what}: wall {ms['wall_us']:.3f} ms, device busy "
+          f"{ms['device_busy_us']:.3f} ms ({s['device_busy_share']:.1%}); "
+          f"host: runtime (launch) calls {ms['runtime_us']:.3f} ms, other "
+          f"operators {ms['cpu_op_us']:.3f} ms, gaps {ms['gap_us']:.3f} ms "
+          f"(each per {unit}, over {per}); {s['kernels']} kernel launches "
+          f"in the capture, operators recorded on "
+          f"{s['cpu_op_threads'] or 'no thread'}, runtime calls on "
+          f"{s['runtime_threads']} threads | {card}", flush=True)
+    return ms
+
+
+def one_shot_profile(card: str, root: pathlib.Path
+                     ) -> tuple[dict, pathlib.Path]:
+    """17(a): ``train --profile-dir D --tensorboard-dir T`` at batch 128, in
+    this process, the launch counters read as the capture opens and
+    closes. The capture must hold device events (taken again, up to three
+    times, each empty one printed); the traced launches of rows 1, 2, 3
+    and 7 must equal the counters' over the same steps; TensorBoard's
+    losses must equal the JSONL's. Returns the profiled steps' counts and
+    the capture's directory."""
+    plain_trace = cli.trace
+    for attempt in range(1, 4):
+        d, tb = root / f"profile{attempt}", root / f"tb{attempt}"
+        snaps: list[dict] = []
+
+        @contextlib.contextmanager
+        def counted(log_dir):
+            snaps.append(read_counts())
+            with plain_trace(log_dir):
+                yield
+            snaps.append(read_counts())
+
+        argv = ["train", "--preset", "siglip-base-patch16-256", "--bf16",
+                "--ln-impl", "fused", "--batch-size", str(TRAIN_BATCH),
+                "--steps", str(PROFILE_STEPS), "--log-every", "1",
+                "--profile-dir", str(d), "--tensorboard-dir", str(tb)]
+        with mock.patch.object(cli, "trace", counted):
+            run = run_train_command(argv, card)
+        check(run["rc"] == 0 and run["summary"]["profiled_steps"] == [2, 4]
+              and len(snaps) == 2,
+              f"train --profile-dir: rc {run['rc']}, profiled steps "
+              f"{run['summary'].get('profiled_steps')}, {len(snaps)} reads")
+        events = load_trace_events(d)
+        summary = capture_summary(events)
+        if summary["device_events"]:
+            break
+        print(f"profile: 17(a) try {attempt}: {render_summary(summary)} | "
+              f"{card}", flush=True)
+    else:
+        raise SmokeFailure("17(a): three one-shot captures held no device "
+                           "events")
+    steps = run["summary"]["profiled_steps"]
+    n_steps = steps[1] - steps[0] + 1
+    profiled = {k: snaps[1][k] - snaps[0][k] for k in snaps[0]}
+    rows = [dataclasses.asdict(s) for s in op_stats(d)]
+    traced = {k: traced_launches(rows, kernels)
+              for k, kernels in TRACED_KERNELS.items()}
+    check(all(traced[k] == profiled[k] > 0 for k in TRACED_KERNELS)
+          and profiled == {k: step_counts().get(k, 0) * n_steps
+                           for k in profiled},
+          f"17(a): traced launches {traced} against the counters' "
+          f"{profiled} over steps {steps}")
+    print(f"profile: 17(a) steps {steps[0]}-{steps[1]} at batch "
+          f"{TRAIN_BATCH}: traced launches of rows 1, 2, 3, 7 {traced} "
+          f"equal the counters' | {card}", flush=True)
+    print_cli(["profile-analyze", str(d), "--steps", str(n_steps),
+               "--top", "12"], card)
+    host_split(f"the bf16 SigLIP-B/16-256 train step at batch {TRAIN_BATCH}"
+               f" (the train command's train_step ranges, steps "
+               f"{steps[0]}-{steps[1]})",
+               capture_summary(events, region="train_step"), card, "step")
+    host_split(f"the train command's steps {steps[0]}-{steps[1]} whole "
+               f"(the input wait and logging included)", summary, card,
+               "capture")
+    files = sorted(tb.glob("events.out.tfevents.*"))
+    check(len(files) == 1, f"17(a): TensorBoard files {files}")
+    events = read_event_file(files[0])
+    tb_loss = {e["step"]: e["scalars"]["loss"] for e in events[1:]}
+    want = {r["step"]: float(np.float32(r["loss"])) for r in run["logged"]}
+    check(events[0]["file_version"] == "brain.Event:2" and tb_loss == want,
+          f"17(a): TensorBoard losses {tb_loss} against the JSONL's {want}")
+    print(f"profile: 17(a) TensorBoard {files[0].name}: {len(events)} "
+          f"records, CRCs checked, every step's loss equal to the JSONL's "
+          f"| {card}", flush=True)
+    return profiled, d
+
+
+def ring_profile(card: str, root: pathlib.Path, budget: int,
+                 journal: pathlib.Path, off: dict) -> dict:
+    """17(b): ``train --prof-ring R --prof-every 2 --prof-window 1`` with a
+    byte budget the captures overflow: they must commit, evict, keep the
+    ring in its budget and leave no ``.tmp``; ``obs prof ls/show/diff``
+    read them. The median step with the ring on and off (``off``: phase
+    5(c)'s command) and the ring's overhead are printed, not gated.
+    Returns the run."""
+    ring = root / "ring"
+    reg = obs.get_registry("jimm_prof")
+    keys = ("captures_total", "evicted_total", "overhead_seconds_total",
+            "capture_failures_total", "quarantined_total")
+    before = reg.snapshot()
+    argv = ["train", "--preset", "siglip-base-patch16-256", "--bf16",
+            "--ln-impl", "fused", "--batch-size", str(TRAIN_BATCH),
+            "--steps", str(RING_STEPS), "--log-every", "1",
+            "--prof-ring", str(ring), "--prof-every", "2", "--prof-window",
+            "1", "--prof-ring-bytes", str(budget), "--journal", str(journal)]
+    run = run_train_command(argv, card)
+    after = reg.snapshot()
+    delta = {k: after.get(k, 0) - before.get(k, 0) for k in keys}
+    metas = list_captures(ring)
+    kept = sum(m["bytes"] for m in metas)
+    left = [p.name for p in ring.iterdir() if p.name.endswith(".tmp")]
+    check(run["rc"] == 0 and delta["captures_total"] == RING_CAPTURES
+          and delta["evicted_total"] > 0 and len(metas) >= 2
+          and kept <= budget and not left
+          and delta["capture_failures_total"] == 0
+          and delta["quarantined_total"] == 0
+          and all(m["device_events"] > 0 for m in metas),
+          f"17(b): rc {run['rc']}, counters {delta}, kept "
+          f"{[(m['name'], m['bytes'], m['device_events']) for m in metas]}"
+          f" ({kept} of {budget} bytes), leftovers {left}")
+    print_cli(["obs", "prof", "ls", str(ring)], card)
+    print_cli(["obs", "prof", "show", metas[-1]["path"], "--top", "8"], card)
+    print_cli(["obs", "prof", "diff", metas[-2]["path"], metas[-1]["path"],
+               "--top", "5"], card, ok=(0, 1))
+    on = statistics.median(r["step_time_s"] for r in run["logged"][1:])
+    plain = statistics.median(r["step_time_s"] for r in off["logged"][1:])
+    windows = [m["step"] for m in metas]
+    for m in metas:
+        print(f"profile: 17(b) {m['name']}: {m['device_events']} device "
+              f"events, {m['bytes']} bytes; stop (with the sync) "
+              f"{m['stop_s']:.3f} s, export {m['export_s']:.3f} s, reading "
+              f"it {m['summary_s']:.3f} s | {card}", flush=True)
+    print(f"profile: 17(b) ring: {delta['captures_total']} captures "
+          f"committed, {delta['evicted_total']} evicted, {len(metas)} kept "
+          f"(steps {windows}, {kept} of {budget} bytes), no .tmp left; "
+          f"median step {on * 1e3:.3f} ms with the ring on against "
+          f"{plain * 1e3:.3f} ms off (phase 5(c)); "
+          f"jimm_prof_overhead_seconds_total "
+          f"{delta['overhead_seconds_total']:.3f} s over "
+          f"{RING_CAPTURES} captures (start, sync, stop, export); the "
+          f"command's wall {run['summary']['goodput']['wall_s']} s | {card}",
+          flush=True)
+    return run
+
+
+def served_profile(card: str, root: pathlib.Path) -> dict:
+    """17(c): ``serve --prof-dir P`` at full width (SigLIP-B/16-256, bf16,
+    fused LayerNorm): a deep capture through ``POST /admin/prof/trigger``
+    with a cid, under traffic, committed by its timer, must carry the cid
+    and hold the row 1 and row 3 kernels (taken again, up to three times,
+    while it holds no device events); the ``jimm_hbm_*`` gauges must come
+    from the allocator with ``model_pool`` the model's parameter and
+    buffer bytes. Then the host's account of the bucket-32 forward, from a
+    capture on this thread. Returns the launch counts of the traffic."""
+    prof = root / "serve_prof"
+    args = cli.build_parser().parse_args([
+        "serve", "--preset", "siglip-base-patch16-256", "--dtype", "bf16",
+        "--ln-impl", "fused", "--port", "0", "--buckets", "1,8,32",
+        "--timeout-s", "120", "--prof-dir", str(prof)])
+    server, model, ready = cli.build_server(args)
+    try:
+        size = model.config.vision.image_size
+        images = np.random.default_rng(17).standard_normal(
+            (32, size, size, 3)).astype(np.float32)
+        bulk = {"images": [_b64(im) for im in images]}
+        _post(server.port, bulk)
+        zero_counts()
+        for attempt in range(1, 4):
+            cid = f"c-phase17-{attempt}"
+            _, resp = _post(server.port, {"cid": cid, "reason": "phase 17",
+                                          "window_s": DEEP_WINDOW_S},
+                            "/admin/prof/trigger")
+            check(resp.get("triggered") is True,
+                  f"17(c): trigger answered {resp}")
+            _post(server.port, bulk)
+            deadline = time.monotonic() + DEEP_WINDOW_S + 60.0
+            metas = []
+            while not metas and time.monotonic() < deadline:
+                time.sleep(0.2)
+                metas = [m for m in list_captures(prof) if m["cid"] == cid]
+            check(len(metas) == 1, f"17(c): capture of {cid}: {metas}")
+            meta = metas[0]
+            if meta["device_events"]:
+                break
+            print(f"profile: 17(c) try {attempt}: the deep capture of {cid}"
+                  f" holds no device events ({meta}) | {card}", flush=True)
+            time.sleep(10.5)  # the trigger's rate limit
+        else:
+            raise SmokeFailure("17(c): three deep captures held no device "
+                               "events")
+        counts = read_counts()
+        rows = op_table(meta["path"])
+        traced = {k: traced_launches(rows, TRACED_KERNELS[k])
+                  for k in SERVED_KERNELS}
+        check(meta["kind"] == "deep" and meta["reason"] == "phase 17"
+              and all(traced[k] > 0 for k in SERVED_KERNELS),
+              f"17(c): deep capture {meta}: traced {traced}")
+        print(f"profile: 17(c) deep capture {meta['name']} on cid {cid}: "
+              f"{meta['kernels']} kernels, rows 1 and 3 launched "
+              f"{traced} times in its {meta['dur_s']} s, recorded by the "
+              f"{meta['profiler_thread']} profiler thread; operators "
+              f"recorded on {meta['cpu_op_threads'] or 'no thread'} "
+              f"(kineto records operators only on the thread that started "
+              f"it), runtime calls on {meta['runtime_threads']} threads "
+              f"| {card}", flush=True)
+        report = server.monitor.sample()
+        pool = sum(t.numel() * t.element_size()
+                   for t in [*model.parameters(), *model.buffers()])
+        snap = obs.snapshot()
+        check(report["devices"] and all(
+            r["source"] == "allocator" and r["platform"] == "gpu"
+            for r in report["devices"])
+            and report["subsystems"]["model_pool"] == pool
+            and snap["jimm_hbm_subsystem_model_pool_bytes"] == pool
+            and snap["jimm_hbm_device0_bytes_in_use"] >= pool,
+            f"17(c): memory rows {report}, model bytes {pool}")
+        row = report["devices"][0]
+        print(f"profile: 17(c) jimm_hbm_* from the allocator: in use "
+              f"{row['bytes_in_use']} bytes, peak "
+              f"{row['peak_bytes_in_use']}, limit {row['bytes_limit']}, "
+              f"reserved {row['bytes_reserved']}, fragmentation "
+              f"{row['fragmentation']}; model_pool {pool} bytes (the "
+              f"served model's parameters and buffers) | {card}",
+              flush=True)
+        batch = torch.from_numpy(images).to("cuda", torch.bfloat16)
+        with torch.inference_mode():
+            model.encode_image(batch)
+            torch.cuda.synchronize()
+            with profiler_session(root / "serve_fwd"):
+                for _ in range(3):
+                    with annotate("forward"):
+                        model.encode_image(batch)
+                        torch.cuda.synchronize()
+        host_split("the served bucket-32 forward (encode_image, bf16, "
+                   "on this thread, synchronized)",
+                   capture_summary(load_trace_events(root / "serve_fwd"),
+                                   region="forward"), card, "call")
+    finally:
+        server.stop()
+        reset_capture()
+    return counts
+
+
+def quantize_and_timeline(card: str, root: pathlib.Path,
+                          ckpt: pathlib.Path, journal: pathlib.Path,
+                          ring_run: dict) -> None:
+    """17(d): ``save_quantized`` on phase 12's full-width SigLIP-B/16-256
+    checkpoint: re-quantizing the dequantized file must give its bits
+    back; then ``obs timeline`` over the phase's journal, the ring's
+    captures and the ring run's goodput report must validate."""
+    model = SigLIP.from_pretrained(ckpt, device="cuda", dtype=torch.bfloat16)
+    out = root / "siglip_int8"
+    t0 = time.perf_counter()
+    save_quantized(model, out)
+    save_s = time.perf_counter() - t0
+    raw = load_file(out / "model.safetensors")
+    t0 = time.perf_counter()
+    again = quantize_state_dict(dequantize_state_dict(raw))
+    check_s = time.perf_counter() - t0
+    stamp = json.loads((out / "config.json").read_text())["jimm_quant"]
+    check(set(again) == set(raw)
+          and all(torch.equal(again[k], raw[k]) for k in raw)
+          and stamp["format"] == "int8-v1",
+          "17(d): re-quantizing the dequantized checkpoint changed bits")
+    n_int8 = sum(t.dtype == torch.int8 for t in raw.values())
+    size = (out / "model.safetensors").stat().st_size
+    plain = (ckpt / "model.safetensors").stat().st_size
+    print(f"profile: 17(d) save_quantized SigLIP-B/16-256: {n_int8} int8 "
+          f"tensors, model.safetensors {size} bytes against the bf16 "
+          f"checkpoint's {plain}; {save_s:.3f} s to save (host numpy), "
+          f"{check_s:.3f} s to dequantize and re-quantize, every bit equal "
+          f"| {card}", flush=True)
+    del model
+    goodput = root / "goodput.json"
+    goodput.write_text(json.dumps(ring_run["summary"]["goodput"]))
+    timeline = root / "timeline.json"
+    print_cli(["obs", "timeline", str(journal), "--prof",
+               str(root / "ring"), "--goodput", str(goodput), "-o",
+               str(timeline)], card)
+    trace = json.loads(timeline.read_text())
+    spans = [e for e in trace["traceEvents"] if e.get("cat") == "prof"]
+    check(not validate_chrome_trace(trace)
+          and len(spans) == len(list_captures(root / "ring")),
+          f"17(d): timeline problems {validate_chrome_trace(trace)[:5]}, "
+          f"{len(spans)} capture spans")
+
+
+def profile_phase(card: str, root: pathlib.Path, off: dict,
+                  ckpt: pathlib.Path) -> dict[str, dict]:
+    """Phase 17; returns the launch counts of its paths: the one-shot
+    capture's profiled steps and the served capture's traffic."""
+    journal = root / "journal.jsonl"
+    try:
+        profiled, capture = one_shot_profile(card, root)
+        # the three-step capture's bytes: about three one-step windows, so
+        # that the ring's five overflow it
+        budget = sum(p.stat().st_size for p in capture.rglob("*")
+                     if p.is_file())
+        ring_run = ring_profile(card, root, budget, journal, off)
+        served = served_profile(card, root)
+        quantize_and_timeline(card, root, ckpt, journal, ring_run)
+    finally:
+        reset_capture()
+        obs.reset_journal()
+    return {"profile": profiled, "profile_serve": served}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4741,22 +5128,28 @@ def main() -> int:
         bias_counts = bias_train_phase(card)
         bias_routing_phase(card)
         done("bias")
-        with tempfile.TemporaryDirectory() as tmp:
-            ckpt_counts, ckpts = checkpoint_phase(card, pathlib.Path(tmp))
+        # phase 12's checkpoints stay until phase 17 quantizes one
+        with tempfile.TemporaryDirectory() as ckpt_tmp:
+            ckpt_counts, ckpts = checkpoint_phase(card,
+                                                  pathlib.Path(ckpt_tmp))
             done("checkpoints")
             zero_shot_counts = zero_shot_phase(card, ckpts,
-                                               pathlib.Path(tmp))
+                                               pathlib.Path(ckpt_tmp))
             done("zero-shot")
             rest_counts = remat_phase(card)
             rest_counts["dropout"] = dropout_phase(card)
             rest_counts.update(train_rest_commands(card, ckpts["vit"]))
             done("training, rest")
-        with tempfile.TemporaryDirectory() as tmp:
-            resilience_counts = resilience_phase(card, pathlib.Path(tmp))
-            done("resilience")
-        with tempfile.TemporaryDirectory() as tmp:
-            data_counts = data_phase(card, pathlib.Path(tmp), train_run)
-            done("data")
+            with tempfile.TemporaryDirectory() as tmp:
+                resilience_counts = resilience_phase(card, pathlib.Path(tmp))
+                done("resilience")
+            with tempfile.TemporaryDirectory() as tmp:
+                data_counts = data_phase(card, pathlib.Path(tmp), train_run)
+                done("data")
+            with tempfile.TemporaryDirectory() as tmp:
+                profile_counts = profile_phase(card, pathlib.Path(tmp),
+                                               train_run, ckpts["siglip"])
+                done("profiling")
         check(all(math.isfinite(timed[k]["ms"]) for k in timed), "bad timing")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
@@ -4768,13 +5161,16 @@ def main() -> int:
     # and under --precision fp8_hybrid for the fp8 GEMM, the int8 server's
     # traffic for the int8 matmul, phase 10(b)'s timed steps of the
     # sigmoid-attention SigLIP for the sigmoid kernels, and phase 11(b)'s
-    # 12 biased calls for the bias kernels
+    # 12 biased calls for the bias kernels; launches_by_path also holds
+    # phase 17's profiled steps ("profile") and served capture's traffic
+    # ("profile_serve")
     paths = {"serve": serve_counts, "train": train_counts,
              "naflex": naflex_counts, "int8_serve": int8_serve_counts,
              "int8_qk": int8_qk_counts, "fp8_hybrid": fp8_counts,
              "sigmoid": sigmoid_counts, "bias": bias_counts,
              **ckpt_counts, **zero_shot_counts, **rest_counts,
-             "resilience": resilience_counts, "data": data_counts}
+             "resilience": resilience_counts, "data": data_counts,
+             **profile_counts}
     steps = {"train": CLI_STEPS, "naflex": CLI_STEPS, "int8_qk": CLI_STEPS,
              "fp8_hybrid": CLI_STEPS, "sigmoid": TRAIN_STEPS}
     main_path = {"flash_attention_masked": "naflex",

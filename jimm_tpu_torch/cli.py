@@ -1,6 +1,6 @@
 """Command line: ``python -m jimm_tpu_torch
 serve|train|supervise|classify|evaluate|export-run|prepare-data|
-build-native``.
+build-native|profile-analyze|obs``.
 
 ``serve`` loads an HF checkpoint (``--ckpt DIR --model
 vit|clip|siglip``) or builds a preset of any family (randomly initialised
@@ -45,6 +45,14 @@ zero-shot top-1 from a token table) with an HF checkpoint or a training
 run's (``--preset --ckpt-dir``); ``export-run`` writes a training run out
 as an HF checkpoint; ``prepare-data`` writes TFRecord shards from image
 files.
+
+Observability: ``train --profile-dir D`` writes a ``torch.profiler`` trace
+of steps 2-4, which ``profile-analyze D`` tabulates; ``train --prof-ring
+R`` keeps a byte-bounded ring of step-window captures; ``train
+--tensorboard-dir T`` writes TensorBoard scalars; ``serve --prof-dir P``
+keeps a capture ring that ``POST /admin/prof/trigger`` fills, and samples
+the ``jimm_hbm_*`` device-memory gauges; ``obs`` reads metric dumps,
+journals and captures (``jimm_tpu_torch.obs.cli``).
 """
 from __future__ import annotations
 
@@ -83,6 +91,12 @@ from jimm_tpu_torch.models.clip import CLIP
 from jimm_tpu_torch.models.common import resolve_device
 from jimm_tpu_torch.models.siglip import SigLIP
 from jimm_tpu_torch.models.vit import VisionTransformer
+from jimm_tpu_torch.obs.cli import add_obs_parser
+from jimm_tpu_torch.obs.prof.capture import configure_capture
+from jimm_tpu_torch.obs.prof.memory import MemoryMonitor, module_bytes
+from jimm_tpu_torch.obs.prof.opstats import (capture_summary,
+                                             load_trace_events,
+                                             render_summary)
 from jimm_tpu_torch.ops.attention import INT8_NO_MASK
 from jimm_tpu_torch.quant import quantize_model
 from jimm_tpu_torch.quant.policy import POLICIES, apply_precision_policy
@@ -100,6 +114,7 @@ from jimm_tpu_torch.train.checkpoint import (CheckpointManager,
 from jimm_tpu_torch.train.metrics import (MetricsLogger, StepTimer,
                                           device_peak_tflops, mfu,
                                           train_step_flops)
+from jimm_tpu_torch.train.profile import annotate, op_stats, summarize, trace
 from jimm_tpu_torch.train.trainer import (OptimizerConfig,
                                           make_classifier_train_step,
                                           make_contrastive_train_step,
@@ -200,8 +215,20 @@ def build_server(args: argparse.Namespace
         buckets=buckets, max_delay_ms=args.max_delay_ms,
         policy=AdmissionPolicy(max_queue=args.queue_size,
                                default_timeout_s=args.timeout_s))
+    capture = monitor = None
+    if args.prof_dir:
+        # the capture ring (POST /admin/prof/trigger deep-captures onto the
+        # caller's cid) and the device-memory gauges, the served models'
+        # bytes attributed to model_pool
+        capture = configure_capture(args.prof_dir)
+        monitor = MemoryMonitor()
+        monitor.register_subsystem("model_pool",
+                                   lambda: float(module_bytes(model)))
+        monitor.sample()
+        monitor.start()
     server = ServingServer(engine, host=args.host, port=args.port,
-                           zero_shot=zero_shot)
+                           zero_shot=zero_shot, capture=capture,
+                           monitor=monitor)
     t0 = time.monotonic()
     server.start()
     ready = {"status": "serving", "host": args.host, "port": server.port,
@@ -232,12 +259,6 @@ def cmd_serve(args: argparse.Namespace) -> int:
 #: ROADMAP queues them
 _TRAIN_NOT_PORTED = {
     "mesh": "device meshes, ROADMAP.md queue 1, item 6 (parallelism)",
-    "profile_dir": "profiler traces, ROADMAP.md queue 1, item 10 "
-                   "(observability)",
-    "prof_ring": "the profiling ring, ROADMAP.md queue 1, item 10 "
-                 "(observability)",
-    "tensorboard_dir": "TensorBoard events, ROADMAP.md queue 1, item 10 "
-                       "(observability)",
 }
 #: supervise options of the JAX CLI that need the mesh -> the ROADMAP item
 _SUPERVISE_NOT_PORTED = {
@@ -589,6 +610,7 @@ def cmd_train(args: argparse.Namespace) -> int:
     source, grain_stream = train_data(args, fam, cfg, start_step, ckpt)
     logger = MetricsLogger(path=args.metrics_file,
                            print_every=args.log_every,
+                           tensorboard_dir=args.tensorboard_dir,
                            registry=obs.get_registry("jimm_train"))
     timer = StepTimer()
     peak = device_peak_tflops(device)
@@ -603,6 +625,20 @@ def cmd_train(args: argparse.Namespace) -> int:
         guard = PreemptionGuard().install()
         preempt = PreemptionHandler(guard, ckpt, grace_steps=args.grace_steps,
                                     accounter=acct)
+    # the profiling ring: short step-window captures kept in a byte budget
+    # (process-global, so incident paths can deep-capture into it)
+    prof_ring = None
+    if args.prof_ring:
+        prof_ring = configure_capture(
+            args.prof_ring, max_ring_bytes=args.prof_ring_bytes,
+            every_steps=args.prof_every, window_steps=args.prof_window)
+    # --profile-dir traces steps start+2 .. start+4 (past the warm-up
+    # step), clamped to the run as the reference clamps it; the profiler's
+    # start and stop run outside every goodput region, so their time is the
+    # report's residual "other", never "step"
+    profile_start = min(start_step + 2, max(args.steps - 1, start_step))
+    profile_stop = min(start_step + 4, args.steps - 1)
+    profiler_ctx = profiled = None
     loss = dt = accuracy = None
     # host batches made and copied to the card ahead of the step
     prefetch = PrefetchIterator(source, device=device, dtype=dtype)
@@ -611,16 +647,31 @@ def cmd_train(args: argparse.Namespace) -> int:
     data = prefetch if grain_stream is None else grain_stream.track(prefetch)
     try:
         for step in range(start_step, args.steps):
+            if prof_ring is not None:
+                prof_ring.on_step(step)
+            if args.profile_dir and step == profile_start:
+                if prof_ring is not None:
+                    # one profiler session at a time: commit a live window
+                    prof_ring.flush()
+                profiler_ctx = trace(args.profile_dir)
+                profiler_ctx.__enter__()
             with acct.measure("data_wait"):
                 batch, (images, target) = next(data)
             # from the host arrays, outside the buckets, as the reference
             fp = batch_fingerprint(batch) if args.batch_fingerprint else None
             # the first step run warms up (kernel loads, library handles):
             # the "compile" bucket, as the reference books its trace
-            with acct.measure("compile" if step == start_step else "step"):
+            # the step's range in a trace (a profiler's breakdown of the
+            # step leaves the input wait out)
+            with acct.measure("compile" if step == start_step else "step"), \
+                    annotate("train_step"):
                 timer.start()
                 metrics = step_fn(model, optimizer, images, target)
                 dt = timer.stop(metrics["loss"], sync.reshape(-1)[0])
+            if profiler_ctx is not None and step == profile_stop:
+                profiler_ctx.__exit__(None, None, None)
+                profiler_ctx = None
+                profiled = [profile_start, profile_stop]
             with acct.measure("host_sync"):
                 loss = float(metrics["loss"])
                 extra = {}
@@ -657,6 +708,12 @@ def cmd_train(args: argparse.Namespace) -> int:
             grain_stream.close()
         if guard is not None:
             guard.uninstall()
+        if profiler_ctx is not None:
+            # a crash mid-profile still writes what was captured
+            profiler_ctx.__exit__(None, None, None)
+        if prof_ring is not None:
+            # commit a half-open window: the newest capture survives a crash
+            prof_ring.close()
         logger.close()
         if ckpt is not None:
             # a failed attempt's write in flight finishes (and is marked)
@@ -680,6 +737,7 @@ def cmd_train(args: argparse.Namespace) -> int:
         "dtype": str(dtype).removeprefix("torch."),
         "precision": precision, "precision_modules": rewritten,
         "train_step_flops": flops, "mfu_last_step": last_mfu,
+        "profile_dir": args.profile_dir, "profiled_steps": profiled,
         "goodput": acct.report(mfu=last_mfu)}),
         flush=True)
     return 0
@@ -1273,6 +1331,30 @@ def cmd_prepare_data(args: argparse.Namespace) -> int:
     return 0
 
 
+def _positive_int(v: str) -> int:
+    n = int(v)
+    if n < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {n}")
+    return n
+
+
+def cmd_profile_analyze(args: argparse.Namespace) -> int:
+    """Offline per-op summary of a ``--profile-dir`` trace: first one plain
+    line on what the capture holds (a capture without device events says
+    so), and one on its ``train_step`` ranges where it has them, then the
+    per-op table."""
+    device = None if args.device < 0 else args.device
+    events = load_trace_events(args.dir)
+    print(render_summary(capture_summary(events, device=device)))
+    steps = capture_summary(events, device=device, region="train_step")
+    if steps["regions"]:
+        print(f"inside its {steps['regions']} train_step ranges: "
+              f"{render_summary(steps)}")
+    print(summarize(op_stats(args.dir, device=device), top=args.top,
+                    steps=args.steps))
+    return 0
+
+
 def cmd_build_native(args: argparse.Namespace) -> int:
     """Build (or find) the native host-preprocessing library with g++ and
     check that it loads; one JSON line. Exits 1 when the compiler or the
@@ -1344,6 +1426,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="default request deadline (504 past it)")
     sp.add_argument("--max-seconds", type=float, default=None,
                     help="stop after this long (default: serve until ^C)")
+    sp.add_argument("--prof-dir", default=None, metavar="DIR",
+                    help="profiling: keep the capture ring here (POST "
+                         "/admin/prof/trigger deep-captures onto the "
+                         "caller's cid) and sample the jimm_hbm_* "
+                         "device-memory gauges")
     sp.set_defaults(func=cmd_serve)
 
     sp = sub.add_parser("train", help="train on synthetic data or file "
@@ -1467,12 +1554,24 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--data-workers", type=int, default=0,
                     help="worker processes of the grain loader (0 = in "
                          "this process)")
+    sp.add_argument("--tensorboard-dir", default=None,
+                    help="write TensorBoard scalar events here")
+    sp.add_argument("--profile-dir", default=None,
+                    help="capture a torch.profiler trace of steps 2-4 here "
+                         "(profile-analyze reads it)")
+    sp.add_argument("--prof-ring", default=None, metavar="DIR",
+                    help="continuous profiling: keep a bounded on-disk "
+                         "ring of short step-window captures here (obs "
+                         "prof ls/show/diff)")
+    sp.add_argument("--prof-every", type=int, default=200,
+                    help="capture a ring window every N steps")
+    sp.add_argument("--prof-window", type=int, default=2,
+                    help="steps per ring window capture")
+    sp.add_argument("--prof-ring-bytes", type=int, default=64 << 20,
+                    help="ring byte budget; oldest captures evicted")
     # the JAX CLI's flags that are not ported yet: accepted, then refused
     # with their ROADMAP queue
     sp.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
-    sp.add_argument("--profile-dir", default=None, help=argparse.SUPPRESS)
-    sp.add_argument("--prof-ring", default=None, help=argparse.SUPPRESS)
-    sp.add_argument("--tensorboard-dir", default=None, help=argparse.SUPPRESS)
     sp.set_defaults(func=cmd_train)
 
     sp = sub.add_parser("supervise",
@@ -1600,6 +1699,19 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--shard-size", type=int, default=1000,
                     help="examples per tfrecord shard")
     sp.set_defaults(func=cmd_prepare_data)
+
+    sp = sub.add_parser("profile-analyze",
+                        help="per-op summary of a torch.profiler trace dir")
+    sp.add_argument("dir", help="--profile-dir of a train run (or a "
+                                "capture of the ring)")
+    sp.add_argument("--top", type=int, default=25)
+    sp.add_argument("--steps", type=_positive_int, default=1,
+                    help="steps captured, to report per-step numbers")
+    sp.add_argument("--device", type=int, default=0,
+                    help="card to report (-1 = sum across cards)")
+    sp.set_defaults(func=cmd_profile_analyze)
+
+    add_obs_parser(sub)
 
     sp = sub.add_parser("build-native",
                         help="compile the native host-preprocessing library "

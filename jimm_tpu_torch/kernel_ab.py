@@ -73,6 +73,7 @@ from unittest import mock
 import torch
 
 from jimm_tpu_torch import _build
+from jimm_tpu_torch.obs.prof.capture import profiler_session
 from jimm_tpu_torch.ops import flash_attention as fa
 from jimm_tpu_torch.ops import flash_attention_int8 as fa8
 from jimm_tpu_torch.ops import int8_matmul as mm
@@ -227,8 +228,7 @@ def kernel_ms(fn, iters: int = 20, warmup: int = 5) -> dict[str, float]:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with profiler_session(cuda_only=True) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()

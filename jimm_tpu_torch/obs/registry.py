@@ -1,12 +1,12 @@
 """Metric registry: counters, gauges, histograms, and the process-wide hub
 that merges every namespace's series into one snapshot; the counterpart of
-``jimm_tpu/obs/registry.py`` (the Prometheus text rendering waits for the
-rest of ``obs``).
+``jimm_tpu/obs/registry.py``.
 
 Every instrument lives in a :class:`MetricRegistry` under a namespace
 prefix (``jimm_train``, ``jimm_spans``); :func:`get_registry` keeps one
 per prefix in a process-global hub, and :func:`snapshot` returns their
-union as one flat ``{prefix_name: value}`` dict.
+union as one flat ``{prefix_name: value}`` dict; :func:`render_prometheus`
+renders that union as one Prometheus text dump.
 
 Thread safety: counters and histograms take a per-instrument lock; gauges
 are evaluated at snapshot time and a raising gauge is skipped.
@@ -16,13 +16,14 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 from collections import deque
 from typing import Callable, Iterable
 
 __all__ = [
     "Counter", "DuplicateMetricError", "Gauge", "Histogram", "MetricRegistry",
-    "enabled", "get_registry", "percentile", "registries",
-    "set_enabled", "snapshot", "unpublish",
+    "enabled", "get_registry", "percentile", "publish", "registries",
+    "render_prometheus", "set_enabled", "snapshot", "unpublish",
 ]
 
 
@@ -160,6 +161,7 @@ class MetricRegistry:
         self._counters: dict[str, Counter] = {}
         self._gauges: dict[str, Gauge] = {}
         self._histograms: dict[str, Histogram] = {}
+        self._t_start = time.monotonic()
 
     def _check_free(self, name: str, kind: dict) -> None:
         for other in (self._counters, self._gauges, self._histograms):
@@ -194,6 +196,10 @@ class MetricRegistry:
                 self._histograms[name] = Histogram(name, window, unit)
             return self._histograms[name]
 
+    @property
+    def uptime_s(self) -> float:
+        return time.monotonic() - self._t_start
+
     def snapshot(self) -> dict[str, float]:
         """Flat ``{name: value}`` dict (no prefix). Counters keep int-ness;
         gauges evaluate now (a raising gauge is skipped); histograms expand
@@ -214,9 +220,25 @@ class MetricRegistry:
                 pass           # break the snapshot
         return out
 
+    def reset(self) -> None:
+        """Drop every instrument (test isolation)."""
+        with self._lock:
+            self._counters.clear()
+            self._gauges.clear()
+            self._histograms.clear()
+            self._t_start = time.monotonic()
+
 
 _hub_lock = threading.Lock()
 _hub: dict[str, MetricRegistry] = {}
+
+
+def publish(registry: MetricRegistry) -> MetricRegistry:
+    """Attach a registry to the hub under its prefix; re-publishing a prefix
+    replaces the previous registry (latest wins)."""
+    with _hub_lock:
+        _hub[registry.prefix] = registry
+    return registry
 
 
 def unpublish(prefix: str) -> None:
@@ -247,3 +269,10 @@ def snapshot() -> dict[str, float]:
         for name, value in reg.snapshot().items():
             out[f"{prefix}_{name}"] = value
     return out
+
+
+def render_prometheus() -> str:
+    """Prometheus text exposition of the unified snapshot: ``*_total``
+    series as counters, everything else as gauges."""
+    from jimm_tpu_torch.obs.exporters import render_prometheus_text
+    return render_prometheus_text(snapshot())

@@ -18,6 +18,10 @@ Endpoints::
                      scores against the label set's class weights, built by
                      the text tower on a cache miss (a CLIP or SigLIP server
                      only: :class:`ZeroShotService`)
+    POST /admin/prof/trigger  {"cid"?, "reason"?, "window_s"?} -> a deep
+                     profiler capture on the caller's cid
+                     ({"triggered": bool, ...}); 400 without a capture
+                     manager (``serve --prof-dir`` or ``JIMM_PROF_DIR``)
 
 Images ride as nested JSON lists or as ``{"image_b64": base64(raw float32),
 "shape": [H, W, C]}``. Typed :class:`~jimm_tpu_torch.serve.admission
@@ -36,6 +40,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from jimm_tpu_torch.obs.prof.capture import (CaptureManager,
+                                             get_capture_manager)
+from jimm_tpu_torch.obs.prof.memory import MemoryMonitor
 from jimm_tpu_torch.serve.admission import RequestError, ServeError
 from jimm_tpu_torch.serve.cache import (EmbeddingCache, class_embedding_cache,
                                         prompt_set_key)
@@ -151,6 +158,8 @@ class _Handler(BaseHTTPRequestHandler):
                 self._send_json(200, app.embed(self._read_body()))
             elif self.path == "/v1/classify":
                 self._send_json(200, app.classify(self._read_body()))
+            elif self.path == "/admin/prof/trigger":
+                self._send_json(200, app.prof_trigger(self._read_body()))
             else:
                 self._send_json(404, {"error": "not_found",
                                       "message": self.path})
@@ -173,13 +182,18 @@ class ServingServer:
     ``start()`` warms every bucket, starts the asyncio loop and the engine
     on it, then opens the listening socket, so the first request already
     finds warm buckets. ``zero_shot`` (a CLIP or SigLIP server) answers
-    ``/v1/classify``."""
+    ``/v1/classify``. ``stop()`` also stops a device-memory ``monitor``
+    and commits the open capture of a ``capture`` manager."""
 
     def __init__(self, engine: InferenceEngine, *, host: str = "127.0.0.1",
                  port: int = 0, request_timeout_s: float = 30.0,
-                 zero_shot: ZeroShotService | None = None):
+                 zero_shot: ZeroShotService | None = None,
+                 capture: CaptureManager | None = None,
+                 monitor: MemoryMonitor | None = None):
         self.engine = engine
         self.zero_shot = zero_shot
+        self.capture = capture
+        self.monitor = monitor
         self.metrics = engine.metrics
         self.host = host
         self._requested_port = port
@@ -238,6 +252,10 @@ class ServingServer:
                 self._loop_thread = None
             self._loop.close()
             self._loop = None
+        if self.monitor is not None:
+            self.monitor.stop()
+        if self.capture is not None:
+            self.capture.flush()
 
     def serve_forever(self) -> None:
         """Block until KeyboardInterrupt (the CLI foreground mode)."""
@@ -290,6 +308,32 @@ class ServingServer:
         return {"scores": {label: round(float(s), 6)
                            for label, s in zip(labels, scores)},
                 "cached": cached}
+
+    def prof_trigger(self, payload: dict) -> dict:
+        """``POST /admin/prof/trigger``: a deep profiler capture on a
+        caller-supplied incident cid (``obs prof trigger``). The capture
+        manager is process-global (``serve --prof-dir`` or
+        ``JIMM_PROF_DIR``); a server without one answers 400, not a silent
+        no-op."""
+        mgr = get_capture_manager()
+        if mgr is None:
+            raise RequestError("this server has no capture manager "
+                               "(start with serve --prof-dir, or set "
+                               "JIMM_PROF_DIR)")
+        cid = payload.get("cid")
+        if cid is not None and not isinstance(cid, str):
+            raise RequestError("'cid' must be a string")
+        reason = payload.get("reason", "admin")
+        if not isinstance(reason, str):
+            raise RequestError("'reason' must be a string")
+        window_s = payload.get("window_s")
+        if window_s is not None and not isinstance(window_s, (int, float)):
+            raise RequestError("'window_s' must be a number")
+        meta = mgr.trigger(cid, reason,
+                           window_s=float(window_s) if window_s else None)
+        if meta is None:
+            return {"triggered": False, "suppressed": True}
+        return {"triggered": True, "capture": meta}
 
     def healthz(self) -> dict:
         snap = self.metrics.snapshot()

@@ -1,12 +1,22 @@
 """Training metrics: analytic model FLOPs, MFU against the card's peak,
-step timing and a console + JSONL metrics logger mirrored into a metric
-registry; the counterpart of ``jimm_tpu/train/metrics.py`` (TensorBoard
-waits for ROADMAP.md queue 1, item 10)."""
+step timing and a console + JSONL + TensorBoard metrics logger mirrored
+into a metric registry; the counterpart of ``jimm_tpu/train/metrics.py``.
+
+TensorBoard scalars are written without the ``tensorboard`` package (the
+card's machine has none): :class:`EventFileWriter` frames each
+``Event{wall_time, step, summary{value{tag, simple_value}}}`` protobuf as a
+TFRecord (masked CRC32C, ``data/tfrecord.py``) in a file named as
+tensorboard names its own, after a first ``file_version: "brain.Event:2"``
+record; :func:`read_event_file` reads such a file back, CRCs checked."""
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
+import os
+import socket
+import struct
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -14,6 +24,9 @@ from typing import IO, Any
 
 import torch
 
+from jimm_tpu_torch.data.tfrecord import (TFRecordWriter, _iter_fields,
+                                          _len_delim, _tag, _varint,
+                                          read_tfrecord)
 from jimm_tpu_torch.obs.registry import MetricRegistry, get_registry
 
 #: Peak dense bf16 TFLOP/s by device name (NVIDIA's H100 SXM data sheet,
@@ -74,11 +87,105 @@ class StepTimer:
         return time.perf_counter() - self.t0
 
 
+# -- TensorBoard event files -------------------------------------------------
+
+#: the event-file version tensorboard's own writer stamps first
+FILE_VERSION = "brain.Event:2"
+_file_uid = itertools.count()
+
+
+def encode_event(wall_time: float, step: int = 0, *,
+                 file_version: str | None = None,
+                 scalars: dict[str, float] | None = None,
+                 writer: str | None = None) -> bytes:
+    """One serialized ``tensorboard.Event`` (proto3: fields at their
+    default are left out): ``wall_time`` (1, double), ``step`` (2),
+    ``file_version`` (3), ``summary`` (5) of ``value {tag (1),
+    simple_value (2, float)}``, ``source_metadata {writer}`` (10)."""
+    out = b""
+    if wall_time:
+        out += _tag(1, 1) + struct.pack("<d", wall_time)
+    if step:
+        out += _tag(2, 0) + _varint(step & 0xFFFFFFFFFFFFFFFF)
+    if file_version:
+        out += _len_delim(3, file_version.encode())
+    if scalars:
+        values = b"".join(
+            _len_delim(1, _len_delim(1, tag.encode())
+                       + _tag(2, 5) + struct.pack("<f", value))
+            for tag, value in scalars.items())
+        out += _len_delim(5, values)
+    if writer:
+        out += _len_delim(10, _len_delim(1, writer.encode()))
+    return out
+
+
+def decode_event(buf: bytes) -> dict:
+    """Inverse of :func:`encode_event`: ``{"wall_time", "step",
+    "file_version", "scalars": {tag: value}}``."""
+    ev = {"wall_time": 0.0, "step": 0, "file_version": None, "scalars": {}}
+    for fnum, _, val in _iter_fields(buf):
+        if fnum == 1:
+            ev["wall_time"] = struct.unpack("<d", val)[0]
+        elif fnum == 2:
+            ev["step"] = val - (1 << 64) if val >= 1 << 63 else val
+        elif fnum == 3:
+            ev["file_version"] = val.decode()
+        elif fnum == 5:
+            for vnum, _, value in _iter_fields(val):
+                if vnum != 1:
+                    continue
+                tag, simple = None, None
+                for f, _, v in _iter_fields(value):
+                    if f == 1:
+                        tag = v.decode()
+                    elif f == 2:
+                        simple = struct.unpack("<f", v)[0]
+                if tag is not None and simple is not None:
+                    ev["scalars"][tag] = simple
+    return ev
+
+
+class EventFileWriter:
+    """Scalar events for TensorBoard in ``logdir``:
+    ``events.out.tfevents.<time>.<host>.<pid>.<n>``, a version record first,
+    then one record per :meth:`add_scalars` call, flushed as written."""
+
+    def __init__(self, logdir: str | Path):
+        Path(logdir).mkdir(parents=True, exist_ok=True)
+        self.path = Path(logdir) / (
+            f"events.out.tfevents.{int(time.time()):010d}."
+            f"{socket.gethostname()}.{os.getpid()}.{next(_file_uid)}")
+        self._w = TFRecordWriter(self.path)
+        self._write(encode_event(time.time(), file_version=FILE_VERSION,
+                                 writer="jimm_tpu_torch.train.metrics"))
+
+    def _write(self, record: bytes) -> None:
+        self._w.write(record)
+        self._w.flush()
+
+    def add_scalars(self, step: int, scalars: dict[str, float],
+                    wall_time: float | None = None) -> None:
+        self._write(encode_event(time.time() if wall_time is None
+                                 else wall_time, step, scalars=scalars))
+
+    def close(self) -> None:
+        self._w.close()
+
+
+def read_event_file(path: str | Path) -> list[dict]:
+    """Every event of one event file (:func:`decode_event`), both framing
+    CRCs of each record checked."""
+    return [decode_event(rec) for rec in read_tfrecord(path, verify=True)]
+
+
 @dataclass
 class MetricsLogger:
     """Structured metrics: one JSON object per logged step, appended to a
-    JSONL file (``path``) and printed to the console every
-    ``print_every`` steps.
+    JSONL file (``path``), printed to the console every ``print_every``
+    steps, and with a ``tensorboard_dir`` written there as TensorBoard
+    scalars (numeric values only; the rest stay JSONL-only, as in the
+    reference).
 
     With a ``registry`` (the train command passes the shared ``jimm_train``
     one), every logged scalar is mirrored into it, as the reference's
@@ -88,8 +195,10 @@ class MetricsLogger:
 
     path: str | Path | None = None
     print_every: int = 1
+    tensorboard_dir: str | Path | None = None
     registry: MetricRegistry | None = None
     _file: IO | None = field(default=None, repr=False)
+    _tb: EventFileWriter | None = field(default=None, repr=False)
 
     def log(self, step: int, **metrics: Any) -> None:
         record = json.dumps({"step": step, "time": time.time(), **metrics},
@@ -102,8 +211,24 @@ class MetricsLogger:
             self._file.flush()
         if self.registry is not None:
             self._registry_log(metrics)
+        if self.tensorboard_dir is not None:
+            self._tb_log(step, metrics)
         if self.print_every and step % self.print_every == 0:
             print(record, flush=True)
+
+    def _tb_log(self, step: int, metrics: dict[str, Any]) -> None:
+        if self._tb is None:
+            self._tb = EventFileWriter(self.tensorboard_dir)
+        scalars = {}
+        for k, v in metrics.items():
+            try:
+                # the JSONL's default=float coercion: numpy and 0-d tensor
+                # scalars land here too
+                scalars[k] = float(v)
+            except (TypeError, ValueError):
+                pass  # non-numeric (None, strings): JSONL only
+        if scalars:
+            self._tb.add_scalars(step, scalars)
 
     def _registry_log(self, metrics: dict[str, Any]) -> None:
         reg = self.registry
@@ -125,6 +250,9 @@ class MetricsLogger:
         if self._file is not None:
             self._file.close()
             self._file = None
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
 
 
 # -- analytic model FLOPs (the same formulas as the JAX package) -----------

@@ -140,3 +140,49 @@ def test_every_signature_is_an_exported_function():
             exported[name] = len(params.split(","))
     assert exported == {name: len(argtypes) for name, argtypes
                         in _build._SIGNATURES.items()}
+
+
+#: the one module that may open a torch.profiler session itself: every
+#: other caller goes through its profiler_session or CaptureManager, which
+#: hold the process-wide session lock (a second kineto session raises)
+PROFILER_HOME = REPO / "jimm_tpu_torch" / "obs" / "prof" / "capture.py"
+
+
+def _profiler_calls(tree: ast.AST) -> list[int]:
+    """Lines that name ``torch.profiler.profile`` (or the same function
+    imported from ``torch.profiler``, or ``torch.autograd.profiler``'s
+    ``profile``)."""
+    lines = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute) and node.attr == "profile" \
+                and isinstance(node.value, ast.Attribute) \
+                and node.value.attr == "profiler":
+            lines.append(node.lineno)
+        elif isinstance(node, ast.ImportFrom) and node.module in (
+                "torch.profiler", "torch.autograd.profiler") \
+                and any(a.name == "profile" for a in node.names):
+            lines.append(node.lineno)
+    return lines
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_profiler_sessions_open_only_in_capture(path):
+    calls = _profiler_calls(ast.parse(path.read_text(), str(path)))
+    if path == PROFILER_HOME:
+        assert calls, "the capture module lost its profiler session"
+    else:
+        assert not calls, (f"{path.name} opens torch.profiler.profile at "
+                           f"lines {calls}: use obs.prof.profiler_session")
+
+
+def test_the_observability_slice_keeps_its_own_copies():
+    """The JAX package's jax-free obs modules and its checkpoint quantizer
+    have their own copies in the port (the subprocess test above imports
+    every one of them and finds no JAX)."""
+    assert {"jimm_tpu_torch.obs.exporters", "jimm_tpu_torch.obs.timeline",
+            "jimm_tpu_torch.obs.cli", "jimm_tpu_torch.obs.prof.capture",
+            "jimm_tpu_torch.obs.prof.memory",
+            "jimm_tpu_torch.obs.prof.opstats",
+            "jimm_tpu_torch.train.profile",
+            "jimm_tpu_torch.weights.quantize"} <= set(MODULES)

@@ -8,6 +8,7 @@ import json
 
 import pytest
 
+import jimm_tpu.obs as jax_obs
 from jimm_tpu.obs import goodput as jax_goodput
 from jimm_tpu.obs import journal as jax_journal
 from jimm_tpu.obs import registry as jax_registry
@@ -233,10 +234,11 @@ def test_goodput_matches():
 
 
 def test_package_exports_the_ported_names():
-    assert set(obs.__all__) <= set(jax_registry.__all__ + jax_journal.__all__
-                                   + jax_spans.__all__ + jax_goodput.__all__)
+    assert set(obs.__all__) <= set(jax_obs.__all__)
     assert {"GoodputAccounter", "EventJournal", "span", "snapshot",
-            "get_registry", "correlate"} <= set(obs.__all__)
+            "get_registry", "correlate", "render_prometheus", "publish",
+            "CaptureManager", "MemoryMonitor", "export_timeline",
+            "JsonlExporter"} <= set(obs.__all__)
 
 
 def test_journal_records_are_json_lines(tmp_path):
