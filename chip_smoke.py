@@ -338,6 +338,33 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                re-quantized from its dequantized state bit for bit, and
                ``obs timeline`` over the phase's journal, the ring's
                captures and (b)'s goodput report, validated.
+18. parallel -- two ranks on the one card over gloo (this script again,
+               ``--rank-task``, under ``python -m torch.distributed.run``;
+               any rank's non-zero exit fails the phase), SigLIP-B/16-256
+               width, bf16: (a) the seqpar ring (softmax, masked with
+               key lengths crossing the shard boundary, sigmoid), Ulysses
+               and the causal zigzag ring at q (64, 256, 12, 64), 128
+               tokens a rank, forward and backward, each rank's chunks
+               against the unsharded kernels' and the plain versions'
+               (phase 3's bf16 cosine, and two bf16 steps of the largest
+               value: each hop's output is rounded to bf16 before the
+               merge, one rounding more), with their launches (rows 3, 4, 6,
+               7 through ``ring_hop_fwd`` / ``ring_hop_bwd``) and times;
+               (b) ``train --mesh data=2 --rules dp`` (``siglip_ring``) and
+               ``--rules fsdp`` (saving step 0), phase 5(c)'s command at
+               batch 128: each step's loss within one bf16 step of phase
+               5(c)'s, step 0's gradient norm of every parameter (after
+               the ranks' average) within 5e-2 of phase 5(c)'s (0.15
+               under sp, whose hops round dq before they are summed), each
+               rank's launches those of a 64-row step; (c) ``--mesh
+               seq=2 --rules sp``, attention through the ring's hops (two
+               a block), held the same way; (d)+(e) (b)'s fsdp checkpoint
+               resumed in this process as ``--mesh data=1 --rules fsdp``,
+               one rank over NCCL: its losses within one bf16 step of
+               (b)'s run, one topology change. Prints each run's median
+               step, the backend, the ring bytes and each rank's peak
+               memory; the kernels' record gains the ``mesh*`` paths
+               (rank 0's launches).
 
 Phase 3's flash cases include row 3's causal kind at CLIP-B/16's text
 shapes, (32, 77, 8, 64) and the 70 prompt rows of one label set (70, 77,
@@ -384,6 +411,7 @@ import importlib.util
 import io
 import json
 import math
+import os
 import pathlib
 import re
 import shutil
@@ -5066,6 +5094,422 @@ def profile_phase(card: str, root: pathlib.Path, off: dict,
     return {"profile": profiled, "profile_serve": served}
 
 
+# -- phase 18: parallel ------------------------------------------------------
+
+#: the global shape of phase 18(a)'s attention (SigLIP-B/16-256's vision
+#: tower at batch 64: 128 tokens a rank over two ranks)
+MESH_QSHAPE = (64, 256, 12, 64)
+MESH_RANKS = 2
+MESH_STEPS = 5
+#: launches a rank makes per step: (flash fwd, flash bwd, LN fwd, LN bwd);
+#: under sp each of the 24 blocks' attention is two ring hops, the MAP
+#: probe one call over the gathered tokens
+MESH_STEP = {"dp": (25, 25, 48, 48), "sp": (49, 49, 48, 48)}
+#: phase 18(a)'s bf16 gate: phase 3's cosine, and two bf16 steps of the
+#: largest value where phase 3 allows one. Each hop's kernel rounds its o
+#: (and dq, dk, dv) to bf16 before the merge, as JAX's ring does, so the
+#: sharded call rounds once more than the unsharded one (on an H100: one
+#: step of 2.0 where the largest value was 1.62)
+MESH_BF16_REL_ERR = 2 * BF16_REL_ERR
+#: step 0's gradient of each parameter (after the ranks' average) against
+#: the single-process step's, by norm: the same batch split in two (other
+#: GEMM shapes, ring instead of dense loss, gradients summed across ranks
+#: in bf16) moves a norm by a few bf16 roundings (each at most 2**-8), a
+#: ring loss whose gradient is N times too large or a gradient that was
+#: not averaged by a factor of 2. The losses alone cannot show either:
+#: Adam after global-norm clipping hardly sees a gradient's scale. The key
+#: biases are held apart: under softmax every query's scores shift by one
+#: constant, so their gradient is zero but for rounding (1e-8 of the
+#: largest norm in f32 on the CPU), and a relative deviation means nothing;
+#: both runs' key-bias norms must stay within the gate of the largest
+#: norm. Under sp the seqpar ring rounds each hop's dq, dk and dv to bf16
+#: before it sums the hops, and the hops' dq share the keys' common
+#: component with opposite signs (a query's weights P (dP - delta) sum to
+#: zero over both hops), so that rounding is amplified where
+#: the component dominates: 4.29e-2 on block 10's q weight on an H100
+#: (5.32e-3 at most under dp and fsdp)
+MESH_GRAD_RTOL = {"dp": 5e-2, "sp": 0.15}
+ZERO_GRAD = "attn.k.bias"
+
+
+def bf16_step(x: float) -> float:
+    """One bf16 step (unit in the last place) at ``x``: two ranks' losses
+    may differ from the single-process command's by this much, at most (on
+    the card they were equal to the last bit)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
+
+
+def within_a_bf16_step(got: list[float], want: list[float]) -> bool:
+    return len(got) == len(want) and all(
+        abs(a - w) <= bf16_step(w) for a, w in zip(got, want))
+
+
+@contextlib.contextmanager
+def first_grad_norms():
+    """Record, at the first call of the trainer's ``finish_gradients``
+    (after the ranks' gradients are averaged, before clipping), the norm of
+    each parameter's whole gradient, by name, into the dict this yields.
+    An FSDP2 shard is gathered first: on a mesh every rank makes the
+    call."""
+    from jimm_tpu_torch.parallel.sharding import full_tensor
+    from jimm_tpu_torch.train import trainer
+    norms: dict[str, float] = {}
+    real = trainer.finish_gradients
+
+    def finish(model):
+        real(model)
+        if norms:
+            return
+        for name, p in model.named_parameters():
+            if p.grad is not None:
+                norms[name] = full_tensor(p.grad).float().norm().item()
+
+    with mock.patch.object(trainer, "finish_gradients", finish):
+        yield norms
+
+
+def _rank_json(out: pathlib.Path, task: str, payload: dict) -> None:
+    rank = torch.distributed.get_rank() if \
+        torch.distributed.is_initialized() else int(os.environ["RANK"])
+    (out / f"{task}-rank{rank}.json").write_text(json.dumps(payload))
+
+
+def _mesh_case(name: str, run, want: tuple, plain: tuple) -> dict:
+    """One sharded call's output and gradients (``run() -> (o, dq, dk,
+    dv)``, this rank's chunks) against the unsharded kernels' and the plain
+    versions' chunks (cosine >= ``BF16_MIN_COS``, max abs error <=
+    ``MESH_BF16_REL_ERR`` of the largest value), and its time. The gates
+    are recorded, not raised: a rank that stopped here would leave its
+    peer waiting in the next collective."""
+    got = run()
+    ms = cuda_ms(run, 5, 1)
+    out = {"ms": ms, "failed": []}
+    for ref_name, ref in (("kernel", want), ("plain", plain)):
+        e = [compare(a, w) for a, w in zip(got, ref)]
+        out[f"vs_{ref_name}"] = e  # (err, cos, peak) of o, dq, dk, dv
+        if not all(cos >= BF16_MIN_COS and err <= MESH_BF16_REL_ERR * peak
+                   for err, cos, peak in e):
+            out["failed"].append(f"vs the unsharded {ref_name}")
+    return out
+
+
+def attention_task(out: pathlib.Path) -> None:
+    """Phase 18(a) on one rank: the seqpar ring (softmax, masked, sigmoid),
+    Ulysses and the causal zigzag ring, each on this rank's chunk of the
+    same global bf16 inputs, forward and backward."""
+    from jimm_tpu_torch.parallel import comm
+    from jimm_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from jimm_tpu_torch.parallel.ring_attention import (ring_attention,
+                                                        zigzag_shard)
+    from jimm_tpu_torch.parallel.seqpar import ring_attention_sp
+    from jimm_tpu_torch.parallel.sharding import use_sharding
+    from jimm_tpu_torch.parallel.ulysses import ulysses_attention
+    dev = initialize_distributed()
+    check(dev.type == "cuda", f"rank device {dev}")
+    mesh = make_mesh({"seq": MESH_RANKS})
+    grp = comm.axis_group("seq", mesh)
+    b, s, n, d = MESH_QSHAPE
+    g = torch.Generator(device="cuda").manual_seed(18)
+    q, k, v, do = (torch.randn(b, s, n, d, generator=g, device="cuda").to(
+        torch.bfloat16) for _ in range(4))
+    # key lengths 96..256: the padding crosses the shard boundary, and
+    # leaves some rows nothing to attend on rank 1's hop
+    lengths = torch.randint(s * 3 // 8, s + 1, (b,), generator=g,
+                            device="cuda")
+    mask = torch.arange(s, device="cuda")[None, :] < lengths[:, None]
+    part = slice(grp.index * s // MESH_RANKS,
+                 (grp.index + 1) * s // MESH_RANKS)
+
+    def chunks(o, grads):
+        return (o[:, part], *(x[:, part] for x in grads))
+
+    def unsharded(fn, qq=q, kk=k, vv=v, dd=do):
+        """The unsharded kernel call's output and gradients."""
+        x = [t.detach().clone().requires_grad_() for t in (qq, kk, vv)]
+        o = fn(*x)
+        o.backward(dd)
+        return o.detach(), [t.grad for t in x]
+
+    def plain_softmax(m=None):
+        cm = None if m is None else fa.canon_mask(m, b, s)
+        o, lse = fa.flash_attention_plain(q, k, v, mask=cm)
+        return chunks(o, fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                      mask=cm))
+
+    def plain_sigmoid():
+        lb = fa.default_logit_bias(s)
+        o = fa.sigmoid_attention_plain(q, k, v, logit_bias=lb)
+        return chunks(o, fa.sigmoid_attention_bwd_plain(q, k, v, do,
+                                                        logit_bias=lb))
+
+    # the zigzag case's inputs and references, in the zigzag layout
+    zq, zk, zv, zdo = (zigzag_shard(t, MESH_RANKS) for t in (q, k, v, do))
+    o_c, gr_c = unsharded(lambda *x: fa.flash_attention(*x, is_causal=True))
+    oc_p, lse_c = fa.flash_attention_plain(q, k, v, is_causal=True)
+    gc_p = fa.flash_attention_bwd_plain(q, k, v, oc_p, lse_c, do,
+                                        is_causal=True)
+
+    def zig(o, grads):
+        return chunks(zigzag_shard(o, MESH_RANKS),
+                      [zigzag_shard(x, MESH_RANKS) for x in grads])
+
+    refs = {
+        "softmax": (chunks(*unsharded(fa.flash_attention)), plain_softmax()),
+        "masked": (chunks(*unsharded(lambda *x: fa.flash_attention_masked(
+            *x, mask))), plain_softmax(mask)),
+        "sigmoid": (chunks(*unsharded(fa.sigmoid_attention)),
+                    plain_sigmoid()),
+        "ulysses": (chunks(*unsharded(fa.flash_attention)), plain_softmax()),
+        "zigzag_causal": (zig(o_c, gr_c), zig(oc_p, gc_p)),
+    }
+    mine = [t[:, part].contiguous() for t in (q, k, v, do)]
+    zmine = [t[:, part].contiguous() for t in (zq, zk, zv, zdo)]
+    calls = {
+        "softmax": lambda x: ring_attention_sp(*x, impl="flash"),
+        "masked": lambda x: ring_attention_sp(*x, mask=mask[:, part],
+                                              impl="flash"),
+        "sigmoid": lambda x: ring_attention_sp(*x, kind="sigmoid",
+                                               impl="flash"),
+        "ulysses": lambda x: ulysses_attention(*x, impl="flash"),
+        "zigzag_causal": lambda x: ring_attention(*x, is_causal=True,
+                                                  zigzag=True, impl="flash"),
+    }
+
+    def sharded(name):
+        qkv, dd = (zmine if name == "zigzag_causal" else mine)[:3], \
+            (zmine if name == "zigzag_causal" else mine)[3]
+
+        def run():
+            x = [t.detach().clone().requires_grad_() for t in qkv]
+            with use_sharding(mesh, "sp"):
+                o = calls[name](x)
+                o.backward(dd)
+            return (o.detach(), *(t.grad for t in x))
+        return run
+
+    ring = obs.get_registry("jimm_ring").counter(
+        "jimm_ring_bytes_permuted_total")
+    # the launches of the sharded calls alone (the references ran above)
+    zero_counts()
+    before = ring.value
+    for name in calls:
+        sharded(name)()
+    torch.cuda.synchronize()
+    counts, ring_bytes = read_counts(), ring.value - before
+    cases = {name: _mesh_case(name, sharded(name), *refs[name])
+             for name in calls}
+    _rank_json(out, "attention", {
+        "cases": cases, "counts": counts, "ring_bytes": ring_bytes,
+        "backend": torch.distributed.get_backend(),
+        "peak": torch.cuda.max_memory_allocated()})
+    failed = {n: c["failed"] for n, c in cases.items() if c["failed"]}
+    check(not failed, f"mesh attention: {failed}")
+
+
+def train_task(out: pathlib.Path, argv: list[str]) -> None:
+    """Phase 18(b)/(c) on one rank: ``python -m jimm_tpu_torch <argv>``
+    (``train --mesh ...``) in this process, its launches counted and step
+    0's gradient norms recorded."""
+    ring = obs.get_registry("jimm_ring").counter(
+        "jimm_ring_bytes_permuted_total")
+    torch.cuda.reset_peak_memory_stats()
+    with first_grad_norms() as norms:
+        zero_counts()
+        rc = cli.main(argv)
+        counts = read_counts()
+    _rank_json(out, "train", {
+        "rc": rc, "counts": counts, "ring_bytes": ring.value,
+        "grad_norms": norms, "peak": torch.cuda.max_memory_allocated()})
+
+
+def rank_main(argv: list[str]) -> int:
+    """A rank of phase 18, started by ``torch.distributed.run``:
+    ``--rank-task attention|train --out DIR [-- TRAIN ARGV]``."""
+    task, out = argv[1], pathlib.Path(argv[3])
+    try:
+        if task == "attention":
+            attention_task(out)
+        else:
+            train_task(out, argv[argv.index("--") + 1:])
+    except SmokeFailure as e:
+        print(f"chip_smoke rank: FAIL: {e}", file=sys.stderr, flush=True)
+        return 1
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    return 0
+
+
+def ranks_run(card: str, what: str, task: str, root: pathlib.Path,
+              argv: list[str] = ()) -> list[dict]:
+    """Phase 18: this script as ``MESH_RANKS`` ranks on the one card
+    (``python -m torch.distributed.run --standalone``), rank 0's lines
+    printed with a ``mesh:`` prefix; any rank's failure fails the phase.
+    Returns each rank's record."""
+    out = root / what
+    out.mkdir()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(MESH_RANKS), str(pathlib.Path(
+               __file__).resolve()), "--rank-task", task, "--out", str(out)]
+    if argv:
+        cmd += ["--", *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    for line in proc.stdout.splitlines():
+        print(f"mesh: {what}: {line} | {card}", flush=True)
+    if proc.returncode:
+        # each rank's failure and record, then the end of the launcher's log
+        fails = [ln for ln in proc.stderr.splitlines()
+                 if "chip_smoke rank: FAIL" in ln or "Error:" in ln]
+        print("\n".join(fails[:20]), file=sys.stderr, flush=True)
+        for f in sorted(out.glob("*.json")):
+            print(f"mesh: {what}: {f.name}: {f.read_text()[:6000]}",
+                  flush=True)
+    check(proc.returncode == 0,
+          f"{what}: torch.distributed.run exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    ranks = [json.loads((out / f"{task}-rank{r}.json").read_text())
+             for r in range(MESH_RANKS)]
+    print(f"mesh: {what}: {MESH_RANKS} ranks in "
+          f"{time.perf_counter() - t0:.1f} s; peak memory per rank "
+          f"{[r['peak'] for r in ranks]} bytes | {card}", flush=True)
+    return ranks
+
+
+def mesh_train(card: str, what: str, root: pathlib.Path, extra: list[str],
+               single: dict, kind: str) -> tuple[dict, list[dict]]:
+    """Phase 18(b)/(c): phase 5(c)'s train command with ``extra`` (a mesh)
+    as two ranks; every step's loss against the single-process command's
+    (``single``) within one bf16 step, each rank's step-0 gradient norms
+    against its within ``MESH_GRAD_RTOL[kind]``, each rank's launches
+    those of ``MESH_STEP[kind]`` a step."""
+    gate = MESH_GRAD_RTOL[kind]
+    metrics = root / f"{what}.jsonl"
+    argv = ["train", "--preset", "siglip-base-patch16-256", "--bf16",
+            "--ln-impl", "fused", "--steps", str(MESH_STEPS), "--batch-size",
+            str(TRAIN_BATCH), "--log-every", "1", "--metrics-file",
+            str(metrics), *extra]
+    ranks = ranks_run(card, what, "train", root, argv)
+    logged = [json.loads(line) for line in metrics.read_text().splitlines()]
+    losses = [r["loss"] for r in logged]
+    want = [r["loss"] for r in single["logged"][:MESH_STEPS]]
+    check(within_a_bf16_step(losses, want),
+          f"{what}: losses {losses} vs the single-process command's {want}")
+    ref = single["grad_norms"]
+    top = max(ref.values(), default=0.0)
+    zero = [n for n in ref if n.endswith(ZERO_GRAD)]
+    dev, key_bias = {}, 0.0
+    for i, r in enumerate(ranks):
+        got = r["grad_norms"]
+        check(sorted(got) == sorted(ref) and top > 0,
+              f"{what}: rank {i} has gradients of {len(got)} parameters, "
+              f"the single process of {len(ref)}")
+        dev[i] = {n: abs(got[n] - w) / w for n, w in ref.items()
+                  if n not in zero}
+        bad = {n: (got[n], ref[n]) for n, e in dev[i].items()
+               if e > gate}
+        check(not bad, f"{what}: rank {i}'s step-0 gradient norms off by "
+              f"more than {gate} (mesh, single process): "
+              f"{dict(list(bad.items())[:8])} ({len(bad)} of {len(ref)})")
+        key_bias = max([key_bias, *(max(got[n], ref[n]) for n in zero)])
+        check(key_bias <= gate * top,
+              f"{what}: rank {i}'s key-bias gradient norm {key_bias} is not "
+              f"near zero (largest norm {top})")
+    worst = max(dev[0], key=dev[0].get)
+    fwd, bwd, ln_f, ln_b = MESH_STEP[kind]
+    for r in ranks:
+        c = r["counts"]
+        check(r["rc"] == 0 and c["flash_attention"] == fwd * MESH_STEPS
+              and c["flash_attention_bwd"] == bwd * MESH_STEPS
+              and c["layer_norm"] == ln_f * MESH_STEPS
+              and c["layer_norm_bwd"] == ln_b * MESH_STEPS,
+              f"{what}: rank launches {c} over {MESH_STEPS} steps")
+    times = [r["step_time_s"] for r in logged[1:]]
+    print(f"mesh: {what}: losses {losses} (single process {want}); median "
+          f"step {statistics.median(times) * 1e3:.1f} ms over steps 1-"
+          f"{MESH_STEPS - 1} (two ranks sharing one card); step 0's "
+          f"{len(dev[0])} gradient norms against the single process's: "
+          f"largest relative deviation {dev[0][worst]:.3e} ({worst}), the "
+          f"{len(zero)} key biases' at most {key_bias / top:.3e} of the "
+          f"largest norm {top!r}, sum of "
+          f"norms {sum(ranks[0]['grad_norms'].values())!r} vs "
+          f"{sum(ref.values())!r}; jimm_ring_bytes_permuted_total per rank "
+          f"{[r['ring_bytes'] for r in ranks]} | {card}", flush=True)
+    return {"ranks": ranks, "logged": logged}, ranks
+
+
+def parallel_phase(card: str, root: pathlib.Path, single: dict
+                   ) -> dict[str, dict]:
+    """Phase 18: (a) the sequence-parallel attention on two ranks; (b)
+    ``train --mesh data=2`` under ``dp`` and ``fsdp`` (the latter saving a
+    checkpoint at step 0); (c) ``--mesh seq=2 --rules sp``; (d)+(e) the
+    checkpoint resumed as ``--mesh data=1 --rules fsdp``, one rank over
+    NCCL in this process. Returns rank 0's launches per path."""
+    ranks = ranks_run(card, "attention", "attention", root)
+    for name in ranks[0]["cases"]:
+        print(f"mesh: attention {name} {MESH_QSHAPE} bf16, this rank's "
+              f"chunk fwd+bwd: " + ", ".join(
+                  f"rank {i} {r['cases'][name]}" for i, r in
+                  enumerate(ranks)) + f" | {card}", flush=True)
+    c = ranks[0]["counts"]
+    check(all(c[k] > 0 for k in ("flash_attention", "flash_attention_bwd",
+                                 "flash_attention_masked",
+                                 "flash_attention_masked_bwd",
+                                 "sigmoid_attention",
+                                 "sigmoid_attention_bwd")),
+          f"mesh attention launches {c}")
+    print(f"mesh: attention: backend {ranks[0]['backend']}; launches {c}; "
+          f"jimm_ring_bytes_permuted_total per rank "
+          f"{[r['ring_bytes'] for r in ranks]} | {card}", flush=True)
+    paths = {"mesh_attention": c}
+    ckpt = root / "ckpt"
+    for rules, extra in (("dp", []), ("fsdp", ["--ckpt-dir", str(ckpt),
+                                               "--save-every", "100"])):
+        run, rk = mesh_train(card, f"mesh_{rules}", root,
+                             ["--mesh", "data=2", "--rules", rules, *extra],
+                             single, "dp")
+        paths[f"mesh_{rules}"] = rk[0]["counts"]
+        if rules == "fsdp":
+            whole = run["logged"]
+    _, rk = mesh_train(card, "mesh_sp", root,
+                       ["--mesh", "seq=2", "--rules", "sp"], single, "sp")
+    check(all(r["ring_bytes"] > 0 for r in rk), "sp moved no ring bytes")
+    paths["mesh_sp"] = rk[0]["counts"]
+    # (d) + (e): step 0's checkpoint of the two-rank fsdp run, resumed by
+    # one rank over NCCL
+    topo = obs.get_registry("jimm_train").counter(
+        "checkpoint_topology_changes_total")
+    before = topo.value
+    run = run_train_command(
+        ["train", "--preset", "siglip-base-patch16-256", "--bf16",
+         "--ln-impl", "fused", "--steps", str(MESH_STEPS), "--batch-size",
+         str(TRAIN_BATCH), "--log-every", "1", "--mesh", "data=1",
+         "--rules", "fsdp", "--ckpt-dir", str(ckpt), "--save-every", "100",
+         "--resume"], card)
+    summary, logged = run["summary"], run["logged"]
+    check(run["rc"] == 0 and summary.get("backend") == "nccl"
+          and summary.get("start_step") == 1,
+          f"the one-rank NCCL resume: {summary}")
+    check(topo.value - before == 1,
+          f"checkpoint_topology_changes_total moved {topo.value - before}")
+    check(not torch.distributed.is_initialized(), "the group outlived train")
+    got = [r["loss"] for r in logged]
+    want = [r["loss"] for r in whole[1:]]
+    check(within_a_bf16_step(got, want),
+          f"resumed losses {got} vs the two-rank run's {want}")
+    times = [r["step_time_s"] for r in logged[1:]]
+    print(f"mesh: mesh_nccl: --mesh data=1 --rules fsdp over NCCL resumed "
+          f"step 0's two-rank checkpoint: losses {got} (uninterrupted {want});"
+          f" checkpoint_topology_changes_total +1; median step "
+          f"{statistics.median(times) * 1e3:.1f} ms; peak "
+          f"{run['peak']} bytes | {card}", flush=True)
+    paths["mesh_nccl"] = run["counts"]
+    check(run["counts"]["flash_attention"] == 25 * (MESH_STEPS - 1),
+          f"mesh_nccl launches {run['counts']}")
+    paths["mesh"] = {k: sum(p[k] for p in paths.values()) for k in c}
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -5098,7 +5542,10 @@ def main() -> int:
         train_grads_phase(card)
         train_grads_phase(card, torch.bfloat16)
         _, ln_bwd_traced = train_phase(card)
-        train_run = cli_train_phase(card)
+        # step 0's gradient norms: phase 18's reference
+        with first_grad_norms() as norms:
+            train_run = cli_train_phase(card)
+        train_run["grad_norms"] = norms
         train_counts = train_run["counts"]
         done("train")
         naflex_grads_phase(card)
@@ -5150,6 +5597,9 @@ def main() -> int:
                 profile_counts = profile_phase(card, pathlib.Path(tmp),
                                                train_run, ckpts["siglip"])
                 done("profiling")
+        with tempfile.TemporaryDirectory() as tmp:
+            mesh_counts = parallel_phase(card, pathlib.Path(tmp), train_run)
+            done("parallel")
         check(all(math.isfinite(timed[k]["ms"]) for k in timed), "bad timing")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
@@ -5170,7 +5620,7 @@ def main() -> int:
              "sigmoid": sigmoid_counts, "bias": bias_counts,
              **ckpt_counts, **zero_shot_counts, **rest_counts,
              "resilience": resilience_counts, "data": data_counts,
-             **profile_counts}
+             **profile_counts, **mesh_counts}
     steps = {"train": CLI_STEPS, "naflex": CLI_STEPS, "int8_qk": CLI_STEPS,
              "fp8_hybrid": CLI_STEPS, "sigmoid": TRAIN_STEPS}
     main_path = {"flash_attention_masked": "naflex",
@@ -5261,4 +5711,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-task"]:
+        sys.exit(rank_main(sys.argv[1:]))
     sys.exit(main())

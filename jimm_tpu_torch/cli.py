@@ -58,9 +58,11 @@ from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import dataclasses
 import hashlib
 import json
+import math
 import re
 import sys
 import time
@@ -69,6 +71,7 @@ from typing import Iterator
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from jimm_tpu_torch import obs
 from jimm_tpu_torch.configs import (PRESETS, CLIPConfig, SigLIPConfig,
@@ -83,7 +86,7 @@ from jimm_tpu_torch.data.pipeline import PrefetchIterator, place
 from jimm_tpu_torch.data.preprocess import (CLIP_MEAN, CLIP_STD, SIGLIP_MEAN,
                                             SIGLIP_STD, preprocess_batch,
                                             to_float_normalized)
-from jimm_tpu_torch.data.synthetic import (blob_classification,
+from jimm_tpu_torch.data.synthetic import (blob_classification, shard_rows,
                                             contrastive_pairs,
                                             naflex_contrastive_pairs)
 from jimm_tpu_torch.data.tfrecord import TFRecordWriter, encode_example
@@ -98,6 +101,15 @@ from jimm_tpu_torch.obs.prof.opstats import (capture_summary,
                                              load_trace_events,
                                              render_summary)
 from jimm_tpu_torch.ops.attention import INT8_NO_MASK
+from jimm_tpu_torch.parallel import comm
+from jimm_tpu_torch.parallel.mesh import (initialize_distributed,
+                                          local_device, make_mesh,
+                                          mesh_shape, mesh_sizes,
+                                          planned_world_size,
+                                          shutdown_distributed)
+from jimm_tpu_torch.parallel.sharding import (NOT_PORTED, PART_2,
+                                              PRESET_RULES, ShardingRules,
+                                              shard_model, use_sharding)
 from jimm_tpu_torch.quant import quantize_model
 from jimm_tpu_torch.quant.policy import POLICIES, apply_precision_policy
 from jimm_tpu_torch.resilience import (BackoffPolicy, FaultPlan, GiveUpError,
@@ -258,17 +270,19 @@ def cmd_serve(args: argparse.Namespace) -> int:
 #: train flags of the JAX CLI that the port does not have yet -> where the
 #: ROADMAP queues them
 _TRAIN_NOT_PORTED = {
-    "mesh": "device meshes, ROADMAP.md queue 1, item 6 (parallelism)",
+    "pipeline_microbatches": PART_2,
+    "pipeline_virtual": PART_2,
+    "max_devices": PART_2,
 }
 #: supervise options of the JAX CLI that need the mesh -> the ROADMAP item
 _SUPERVISE_NOT_PORTED = {
-    "elastic": "mesh replanning between attempts needs --mesh, ROADMAP.md "
-               "queue 1, item 6 (parallelism)",
+    "elastic": "mesh replanning between attempts, ROADMAP.md queue 1, "
+               "item 6 part 2 (resilience/elastic.py)",
     "shrink_plan": "an --elastic drill knob, ROADMAP.md queue 1, item 6 "
-                   "(parallelism)",
+                   "part 2 (resilience/elastic.py)",
     "adapt": "the goodput advisor tunes --scan-unroll, a knob of the layer "
              "scan the port does not have, ROADMAP.md queue 1, item 6 "
-             "(parallelism)",
+             "part 2 (resilience/elastic.py)",
 }
 #: the counters supervise reports on its ``resilience:`` line (the
 #: reference's set without --elastic and --adapt)
@@ -409,76 +423,86 @@ def _check_data_flags(args: argparse.Namespace) -> None:
                          "(webdataset) data uses --loader records")
 
 
-def _synthetic_data(args: argparse.Namespace, fam: str, cfg, start_step: int
-                    ) -> Iterator:
+def _synthetic_data(args: argparse.Namespace, fam: str, cfg, start_step: int,
+                    shard: tuple[int, int]) -> Iterator:
     """The synthetic stream of the run, its first ``start_step`` batches
-    skipped: the same draws, no image built."""
+    skipped: the same draws, no image built. ``shard``: ``(index, count)``,
+    this rank's contiguous rows of every global batch."""
+    index, count = shard
     if fam == "vit":
-        data = blob_classification(args.batch_size,
-                                   image_size=cfg.vision.image_size,
-                                   num_classes=cfg.num_classes,
-                                   seed=args.seed,
-                                   num_frames=cfg.vision.num_frames)
+        data = shard_rows(blob_classification(
+            args.batch_size, image_size=cfg.vision.image_size,
+            num_classes=cfg.num_classes, seed=args.seed,
+            num_frames=cfg.vision.num_frames), index, count)
     elif args.naflex:
         data = naflex_contrastive_pairs(
             args.batch_size, patch_size=cfg.vision.patch_size,
             max_num_patches=cfg.vision.num_patches,
             seq_len=cfg.text.context_length,
-            vocab_size=cfg.text.vocab_size, seed=args.seed)
+            vocab_size=cfg.text.vocab_size, seed=args.seed,
+            shard_index=index, shard_count=count)
     else:
         data = contrastive_pairs(args.batch_size,
                                  image_size=cfg.vision.image_size,
                                  vocab_size=cfg.text.vocab_size,
                                  seq_len=cfg.text.context_length,
-                                 seed=args.seed)
+                                 seed=args.seed, shard_index=index,
+                                 shard_count=count)
     with obs.span("resume_fast_forward"):
         data.skip(start_step)
     return data
 
 
-def _records_data(args: argparse.Namespace, fam: str, cfg, start_step: int
-                  ) -> Iterator:
+def _records_data(args: argparse.Namespace, fam: str, cfg, start_step: int,
+                  shard: tuple[int, int]) -> Iterator:
     """``--loader records``: TFRecord or tar shards, buffer-shuffled,
     repeating; the example stream fast-forwarded past the ``start_step``
-    batches already trained on (protobuf or tar entries only, no decode)."""
+    batches already trained on (protobuf or tar entries only, no decode).
+    ``shard``: ``(index, count)``, this rank taking every count-th example
+    into batches of ``batch_size / count``."""
+    index, count = shard
+    batch = args.batch_size // count
+    kw = dict(shuffle_buffer=args.shuffle_buffer, seed=args.seed,
+              shard_index=index, shard_count=count)
     if _is_tar_data(args.data):
         examples = webdataset.iter_wds_examples(
-            webdataset.resolve_tar_paths(args.data),
-            shuffle_buffer=args.shuffle_buffer, seed=args.seed)
+            webdataset.resolve_tar_paths(args.data), **kw)
     else:
-        examples = records.iter_examples(
-            records.resolve_paths(args.data),
-            shuffle_buffer=args.shuffle_buffer, seed=args.seed)
+        examples = records.iter_examples(records.resolve_paths(args.data),
+                                         **kw)
     with obs.span("resume_fast_forward"):
-        records.skip(examples, start_step * args.batch_size)
+        records.skip(examples, start_step * batch)
     norm = _norm_for(fam)
     if fam == "vit":
         return records.classification_batches_from(
-            examples, args.batch_size, image_size=cfg.vision.image_size,
-            **norm)
+            examples, batch, image_size=cfg.vision.image_size, **norm)
     if args.naflex:
         return records.naflex_image_text_batches_from(
-            examples, args.batch_size, patch_size=cfg.vision.patch_size,
+            examples, batch, patch_size=cfg.vision.patch_size,
             max_num_patches=cfg.vision.num_patches,
             seq_len=cfg.text.context_length, **norm)
     return records.image_text_batches_from(
-        examples, args.batch_size, image_size=cfg.vision.image_size,
+        examples, batch, image_size=cfg.vision.image_size,
         seq_len=cfg.text.context_length, **norm)
 
 
 def _grain_data(args: argparse.Namespace, fam: str, cfg, start_step: int,
-                ckpt: CheckpointManager | None) -> CheckpointableGrainStream:
+                ckpt: CheckpointManager | None, shard: tuple[int, int]
+                ) -> CheckpointableGrainStream:
     """``--loader grain``: the indexed loader, shuffled by index each epoch,
     with ``--data-workers`` worker processes; on a resume it jumps to the
     checkpoint's ``grain_state`` (decoding nothing), or without one replays
-    ``start_step`` batches."""
+    ``start_step`` batches. ``shard``: ``(index, count)``, this rank's
+    records in batches of ``batch_size / count``."""
     task = "classification" if fam == "vit" else "contrastive"
     extra = ({"seq_len": cfg.text.context_length}
              if task == "contrastive" else {})
+    index, count = shard
     loader = make_grain_loader(
-        args.data, args.batch_size, task=task,
+        args.data, args.batch_size // count, task=task,
         image_size=cfg.vision.image_size, seed=args.seed,
-        worker_count=args.data_workers, **_norm_for(fam), **extra)
+        worker_count=args.data_workers, shard_index=index,
+        shard_count=count, **_norm_for(fam), **extra)
     it = iter(loader)
     saved = (ckpt.last_restored_extra.get("grain_state")
              if ckpt is not None else None)
@@ -496,18 +520,104 @@ def _grain_data(args: argparse.Namespace, fam: str, cfg, start_step: int,
 
 
 def train_data(args: argparse.Namespace, fam: str, cfg, start_step: int,
-               ckpt: CheckpointManager | None
+               ckpt: CheckpointManager | None,
+               shard: tuple[int, int] = (0, 1)
                ) -> tuple[Iterator, CheckpointableGrainStream | None]:
     """The run's host batches from ``start_step`` on, as the reference
     routes them: no ``--data``, the synthetic generator; TFRecord or tar
     shards through the records readers; ``--loader grain``, the indexed
-    loader, whose consumed-state tracker comes second."""
+    loader, whose consumed-state tracker comes second. ``shard``:
+    ``(index, count)``, the rows of this rank on a mesh (JAX's
+    ``process_index`` / ``process_count``)."""
     if not args.data:
-        return _synthetic_data(args, fam, cfg, start_step), None
+        return _synthetic_data(args, fam, cfg, start_step, shard), None
     if args.loader == "grain":
-        stream = _grain_data(args, fam, cfg, start_step, ckpt)
+        stream = _grain_data(args, fam, cfg, start_step, ckpt, shard)
         return stream.batches(), stream
-    return _records_data(args, fam, cfg, start_step), None
+    return _records_data(args, fam, cfg, start_step, shard), None
+
+
+def parse_mesh(spec: str) -> dict[str, int]:
+    """``"data=4,seq=2"`` -> ``{"data": 4, "seq": 2}``, checked against the
+    ranks the run has (``mesh.planned_world_size``) before any group is
+    made."""
+    axes = {}
+    for part in spec.split(","):
+        name, sep, size = part.partition("=")
+        if not sep or not size.strip().lstrip("-").isdigit():
+            raise SystemExit(f"--mesh {spec!r}: expected axis=size,...")
+        axes[name.strip()] = int(size)
+    try:
+        return mesh_sizes(axes, planned_world_size())
+    except ValueError as e:
+        raise SystemExit(f"--mesh {spec!r}: {e}") from None
+
+
+@dataclasses.dataclass
+class TrainMesh:
+    """A ``train --mesh`` run's layout, as the JAX CLI derives it: the mesh,
+    the rules (``--rules``, default ``dp``; the batch re-sharded over the
+    pair axis of a ring loss on a seq axis), the loss and its axis, and this
+    rank's shard of every global batch."""
+
+    mesh: DeviceMesh
+    rules: ShardingRules
+    loss: str | None
+    loss_axis: str | tuple[str, ...]
+    shard_index: int
+    shard_count: int
+    #: this process made the group (and leaves it at the end)
+    owns_group: bool
+
+    @property
+    def rank(self) -> int:
+        return torch.distributed.get_rank()
+
+
+def train_mesh(args: argparse.Namespace, fam: str) -> TrainMesh:
+    """Join the run's process group and lay out its mesh
+    (``jimm_tpu/cli.py``'s choices: ring losses by default on a mesh with a
+    data or seq axis, their axis ``("data", "seq")`` when seq > 1)."""
+    axes = parse_mesh(args.mesh)
+    name = args.rules or "dp"
+    if name in NOT_PORTED:
+        raise SystemExit(f"--rules {name} is not ported yet: {PART_2}")
+    for axis in ("model", "stage"):
+        if axes.get(axis, 1) > 1:
+            raise SystemExit(f"--mesh {axis}={axes[axis]} is not ported "
+                             f"yet: {PART_2}")
+    rules = PRESET_RULES[name]
+    loss, loss_axis = args.loss, "data"
+    if fam != "vit":
+        ring_ok = "data" in axes or axes.get("seq", 1) > 1
+        loss = loss or (f"{fam}_ring" if ring_ok else fam)
+        if loss.endswith("_ring") and axes.get("seq", 1) > 1:
+            # the seq axis joins the pair ring: the contrastive batch
+            # shards over ("data", "seq") combined
+            loss_axis = tuple(a for a in ("data", "seq") if a in axes)
+            rules = dataclasses.replace(rules, batch=loss_axis)
+    # every axis the batch (or the ring) runs over is checked here, before
+    # any group is made
+    needed = comm.axis_names(rules.batch)
+    if loss is not None and loss.endswith("_ring"):
+        needed += comm.axis_names(loss_axis)
+    for axis in needed:
+        if axis not in axes:
+            with_loss = f" with --loss {loss}" if loss else ""
+            raise SystemExit(f"--mesh {args.mesh}: --rules {name}{with_loss}"
+                             f" shards the batch over a {axis!r} axis, which "
+                             f"the mesh lacks")
+    count = math.prod(axes[a] for a in comm.axis_names(rules.batch))
+    if args.batch_size % count:
+        raise SystemExit(f"--batch-size {args.batch_size} not divisible by "
+                         f"the {count} ranks the batch shards over")
+    owns = not torch.distributed.is_initialized()
+    initialize_distributed(device=args.device)
+    mesh = make_mesh(axes)
+    index = 0
+    if rules.batch is not None:
+        index = comm.axis_group(rules.batch, mesh).index
+    return TrainMesh(mesh, rules, loss, loss_axis, index, count, owns)
 
 
 def cmd_train(args: argparse.Namespace) -> int:
@@ -515,6 +625,17 @@ def cmd_train(args: argparse.Namespace) -> int:
         if getattr(args, flag):
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet: "
                              f"{where}")
+    if args.rules and not args.mesh:
+        raise SystemExit("--rules needs --mesh")
+    if args.loss and args.loss.endswith("_ring") and not args.mesh:
+        raise SystemExit(f"--loss {args.loss} needs --mesh (a ring over the "
+                         f"batch's data or seq axis)")
+    if args.mesh:
+        for flag in ("inject_faults", "preemption_save", "profile_dir",
+                     "prof_ring"):
+            if getattr(args, flag):
+                raise SystemExit(f"--{flag.replace('_', '-')} with --mesh is "
+                                 f"not ported yet: {PART_2}")
     if args.journal:
         obs.configure_journal(args.journal)
     fam = family(args.preset)
@@ -531,7 +652,24 @@ def cmd_train(args: argparse.Namespace) -> int:
     if args.data:
         _check_data_flags(args)
     fault_plan = _fault_plan(args)
-    device = resolve_device(args.device)
+    par = train_mesh(args, fam) if args.mesh else None
+    try:
+        with (use_sharding(par.mesh, par.rules) if par is not None
+              else contextlib.nullcontext()):
+            return _train(args, fam, fault_plan, par)
+    finally:
+        if par is not None and par.owns_group:
+            shutdown_distributed()
+
+
+def _train(args: argparse.Namespace, fam: str,
+           fault_plan: FaultPlan | None, par: TrainMesh | None) -> int:
+    """``train``'s run, on a mesh when ``par`` says so (under its ambient
+    sharding): every rank trains its shard of each batch, rank 0 alone
+    logs, prints and writes."""
+    device = local_device() if par is not None else resolve_device(
+        args.device)
+    lead = par is None or par.rank == 0
     runtime = {"attn_impl": args.attn_impl, "ln_impl": args.ln_impl,
                "fused_qkv": args.fused_qkv, "precision": args.precision}
     if args.remat:
@@ -564,7 +702,8 @@ def cmd_train(args: argparse.Namespace) -> int:
             ckpt = CheckpointManager(
                 args.ckpt_dir, save_interval_steps=args.save_every,
                 run={**spec, "dtype": str(dtype).removeprefix("torch."),
-                     "moment_dtype": moment_dtype or "param"})
+                     "moment_dtype": moment_dtype or "param"},
+                mesh=None if par is None else par.mesh, writer=lead)
         except CheckpointMismatchError as e:
             raise SystemExit(f"--ckpt-dir: {e}") from None
     model, fresh_head = build_run_model(spec, device, dtype, runtime,
@@ -575,6 +714,12 @@ def cmd_train(args: argparse.Namespace) -> int:
     # JAX train command orders it)
     precision = cfg.vision.precision
     rewritten = apply_precision_policy(model, precision)
+    if par is not None:
+        # every rank built the same seeded model: laid out over the mesh
+        try:
+            shard_model(model, par.mesh, par.rules)
+        except (NotImplementedError, ValueError) as e:
+            raise SystemExit(f"--rules: {e}") from None
     optimizer = make_optimizer(model, OptimizerConfig(
         learning_rate=args.lr, weight_decay=args.weight_decay,
         warmup_steps=args.warmup_steps, total_steps=args.steps,
@@ -600,17 +745,22 @@ def cmd_train(args: argparse.Namespace) -> int:
         # the classifier's bias is among the last parameters updated
         sync = model.classifier.bias
     else:
-        try:
+        if par is None:
             step_fn = make_contrastive_train_step(args.loss or fam)
-        except NotImplementedError as e:  # the ring losses need a mesh
-            raise SystemExit(str(e))
+        else:
+            step_fn = make_contrastive_train_step(
+                par.loss, mesh=par.mesh, axis_name=par.loss_axis)
         # logit_scale depends on the update just made
         sync = model.logit_scale
-    # a resumed step sees the batch the uninterrupted run saw at that step
-    source, grain_stream = train_data(args, fam, cfg, start_step, ckpt)
-    logger = MetricsLogger(path=args.metrics_file,
-                           print_every=args.log_every,
-                           tensorboard_dir=args.tensorboard_dir,
+    # a resumed step sees the batch the uninterrupted run saw at that step;
+    # on a mesh, this rank's rows of it
+    shard = (0, 1) if par is None else (par.shard_index, par.shard_count)
+    source, grain_stream = train_data(args, fam, cfg, start_step, ckpt,
+                                      shard)
+    logger = MetricsLogger(path=args.metrics_file if lead else None,
+                           print_every=args.log_every if lead else 0,
+                           tensorboard_dir=(args.tensorboard_dir if lead
+                                            else None),
                            registry=obs.get_registry("jimm_train"))
     timer = StepTimer()
     peak = device_peak_tflops(device)
@@ -719,6 +869,8 @@ def cmd_train(args: argparse.Namespace) -> int:
             # a failed attempt's write in flight finishes (and is marked)
             # before a supervised restart opens the directory again
             ckpt.close()
+    if not lead:
+        return 0
     name = (f"{fam}:{args.from_pretrained}" if args.from_pretrained
             else f"{fam}:{args.preset}" + (":tiny" if args.tiny else ""))
     last_mfu = None if dt is None else mfu(flops, dt, peak)
@@ -738,6 +890,12 @@ def cmd_train(args: argparse.Namespace) -> int:
         "precision": precision, "precision_modules": rewritten,
         "train_step_flops": flops, "mfu_last_step": last_mfu,
         "profile_dir": args.profile_dir, "profiled_steps": profiled,
+        "mesh": None if par is None else mesh_shape(par.mesh),
+        "rules": None if par is None else (args.rules or "dp"),
+        "loss_kind": (None if fam == "vit" else
+                      par.loss if par is not None else args.loss or fam),
+        "backend": (None if par is None
+                    else torch.distributed.get_backend()),
         "goodput": acct.report(mfu=last_mfu)}),
         flush=True)
     return 0
@@ -1464,8 +1622,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="bf16 parameters and compute (default f32)")
     sp.add_argument("--loss", default=None,
                     choices=["clip", "clip_ring", "siglip", "siglip_ring"],
-                    help="contrastive loss (default: the family's own; the "
-                         "ring losses need a device mesh)")
+                    help="contrastive loss (default: the family's own, "
+                         "its ring version on a --mesh with a data or seq "
+                         "axis; the ring losses need --mesh)")
     sp.add_argument("--naflex", action="store_true",
                     help="variable-resolution SigLIP2 training: NaFlex "
                          "(patches, shapes, mask) batches of synthetic "
@@ -1569,9 +1728,23 @@ def build_parser() -> argparse.ArgumentParser:
                     help="steps per ring window capture")
     sp.add_argument("--prof-ring-bytes", type=int, default=64 << 20,
                     help="ring byte budget; oldest captures evicted")
+    sp.add_argument("--mesh", default=None,
+                    help="device mesh over the ranks of a "
+                         "torch.distributed.run launch, e.g. data=2 or "
+                         "data=2,seq=2 (-1: the remaining ranks); the batch "
+                         "shards over it and the ring losses run on it")
+    sp.add_argument("--rules", default=None, choices=sorted(PRESET_RULES),
+                    help="sharding rules preset on --mesh (default dp): "
+                         "replicated, dp, fsdp, sp, fsdp_sp; tp, fsdp_tp, "
+                         "hybrid_fsdp_tp and pp are not ported yet")
     # the JAX CLI's flags that are not ported yet: accepted, then refused
     # with their ROADMAP queue
-    sp.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
+    sp.add_argument("--pipeline-microbatches", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    sp.add_argument("--pipeline-virtual", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    sp.add_argument("--max-devices", type=int, default=None,
+                    help=argparse.SUPPRESS)
     sp.set_defaults(func=cmd_train)
 
     sp = sub.add_parser("supervise",

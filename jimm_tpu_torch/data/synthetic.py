@@ -83,6 +83,36 @@ def blob_classification(batch_size: int, *, image_size: int = 28,
                   num_frames)
 
 
+class _Rows:
+    """:func:`shard_rows`'s stream."""
+
+    def __init__(self, stream, rows: slice):
+        self.stream, self.rows = stream, rows
+
+    def __iter__(self) -> "_Rows":
+        return self
+
+    def __next__(self):
+        return tuple(x[self.rows] for x in next(self.stream))
+
+    def skip(self, n: int) -> None:
+        self.stream.skip(n)
+
+
+def shard_rows(stream, shard_index: int, shard_count: int):
+    """One contiguous row block of every batch of ``stream`` (a generator
+    of this module), as ``contrastive_pairs``'s ``shard_index`` /
+    ``shard_count`` cut theirs; ``stream`` itself for one shard."""
+    if shard_count == 1:
+        return stream
+    b = stream.batch_size
+    if b % shard_count:
+        raise ValueError(f"batch_size={b} not divisible by "
+                         f"shard_count={shard_count}")
+    lo = shard_index * (b // shard_count)
+    return _Rows(stream, slice(lo, lo + b // shard_count))
+
+
 class _Pairs:
     """:func:`contrastive_pairs`'s stream."""
 
@@ -138,9 +168,11 @@ class _NaFlexPairs:
     """:func:`naflex_contrastive_pairs`'s stream."""
 
     def __init__(self, pairs: _Pairs, batch_size: int, patch_size: int,
-                 max_num_patches: int):
+                 max_num_patches: int, lo: int):
         self.pairs, self.batch_size = pairs, batch_size
         self.patch_size, self.max_num_patches = patch_size, max_num_patches
+        #: the global row of this shard's first row
+        self.lo = lo
         self.step = 0
 
     def __iter__(self) -> "_NaFlexPairs":
@@ -151,7 +183,9 @@ class _NaFlexPairs:
         p, base = self.patch_size, self.patch_size * 2
         warped = []
         for j, img in enumerate(images):
-            ah, aw = _ASPECTS[(self.step * self.batch_size + j)
+            # keyed by the global row: the shards reassemble into exactly
+            # the single-process stream, shapes included
+            ah, aw = _ASPECTS[(self.step * self.batch_size + self.lo + j)
                               % len(_ASPECTS)]
             h = max(p, int(base * ah))
             w = max(p, int(base * aw))
@@ -169,16 +203,18 @@ class _NaFlexPairs:
 
 def naflex_contrastive_pairs(batch_size: int, *, patch_size: int = 16,
                              max_num_patches: int = 4, vocab_size: int = 64,
-                             seq_len: int = 8, seed: int = 0
+                             seq_len: int = 8, seed: int = 0,
+                             shard_index: int = 0, shard_count: int = 1
                              ) -> _NaFlexPairs:
     """:func:`contrastive_pairs` in NaFlex form: the square blob images are
     resized to a cycling set of aspect ratios (wide, square, tall, 1:2)
     before patchification, so every batch has variable grids, per-sample
     position resampling and padding masks. Yields
-    ``((patches, spatial_shapes, mask), tokens)``. (The JAX generator's
-    ``shard_index`` / ``shard_count`` wait for multi-process training,
-    ROADMAP.md queue 1, item 6.)"""
+    ``((patches, spatial_shapes, mask), tokens)``; ``shard_index`` /
+    ``shard_count`` as in :func:`contrastive_pairs`."""
     pairs = contrastive_pairs(batch_size, image_size=patch_size * 2,
                               vocab_size=vocab_size, seq_len=seq_len,
-                              seed=seed)
-    return _NaFlexPairs(pairs, batch_size, patch_size, max_num_patches)
+                              seed=seed, shard_index=shard_index,
+                              shard_count=shard_count)
+    return _NaFlexPairs(pairs, batch_size, patch_size, max_num_patches,
+                        shard_index * (batch_size // shard_count))

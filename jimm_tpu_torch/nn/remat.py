@@ -52,6 +52,8 @@ from jimm_tpu_torch.configs import TransformerConfig, remat_policy_parts
 from jimm_tpu_torch.ops import flash_attention as fa
 from jimm_tpu_torch.ops import flash_attention_int8 as fa8
 from jimm_tpu_torch.ops.library import current_name
+from jimm_tpu_torch.parallel.sharding import (sequence_sharded,
+                                              sharded_sequence_axis)
 
 #: outputs kept by every "dots" policy: matmuls without batch dims, and
 #: the flash kernels' o and lse (JAX's ``flash_o`` / ``flash_lse``)
@@ -205,9 +207,12 @@ def checkpoint_block(block: nn.Module, x: torch.Tensor,
     """``block(x, mask=mask)`` with its activations recomputed in the
     backward, keeping what ``context`` (:func:`context_fn`) saves."""
     replay = _Replay(block, x.device)
+    # the recompute runs in the backward, outside the tower's context: it
+    # re-enters the sequence sharding the forward ran under
+    seq = sharded_sequence_axis()
 
     def run(x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
-        with replay():
+        with replay(), sequence_sharded(seq):
             return block(x, mask=mask)
 
     extra = {} if context is None else {"context_fn": context}

@@ -1,6 +1,9 @@
 """Text tower: token + positional embedding, encoder, final LN, pooling;
 the counterpart of ``jimm_tpu/nn/text.py``. The positional table is sliced
-to the input length; SigLIP pools the last position, CLIP the EOT token."""
+to the input length; SigLIP pools the last position, CLIP the EOT token.
+Under a rule that shards the sequence, the encoder runs on this rank's
+chunk of the tokens, gathered before the final LayerNorm (as in
+`nn/vision.py`)."""
 
 from __future__ import annotations
 
@@ -8,7 +11,11 @@ import torch
 from torch import nn
 
 from jimm_tpu_torch.configs import TextConfig
-from jimm_tpu_torch.nn.transformer import Transformer, _layernorm
+from jimm_tpu_torch.nn.transformer import (Transformer, _layernorm,
+                                           sequence_parallel)
+from jimm_tpu_torch.parallel.sharding import (gather_sequence,
+                                              logical_constraint,
+                                              sequence_sharded)
 
 
 class TextTower(nn.Module):
@@ -25,8 +32,14 @@ class TextTower(nn.Module):
     def forward(self, text: torch.Tensor) -> torch.Tensor:
         """(B, S) int token ids -> (B, S, width) final hidden states."""
         x = self.token_embed(text)
-        x = x + self.pos_embed[:text.shape[1]].to(x.dtype)
-        return self.ln_final(self.encoder(x))
+        # under a rule that shards the sequence: this rank's chunk
+        seq = sequence_parallel(self.cfg, text.shape[1])
+        x = (logical_constraint(x, "batch", "seq", None)
+             + logical_constraint(self.pos_embed[:text.shape[1]], "seq",
+                                  None).to(x.dtype))
+        with sequence_sharded(seq):
+            x = self.encoder(x)
+        return self.ln_final(gather_sequence(x, seq))
 
     def pool(self, hidden: torch.Tensor, text: torch.Tensor) -> torch.Tensor:
         """Pool final hidden states per the configured strategy."""

@@ -27,6 +27,21 @@ from jimm_tpu_torch.nn.remat import Dropout, checkpoint_block, context_fn
 from jimm_tpu_torch.ops.activations import get_activation
 from jimm_tpu_torch.ops.attention import dot_product_attention
 from jimm_tpu_torch.ops.library import checkpoint_name
+from jimm_tpu_torch.parallel.sharding import shard_sequence
+
+
+def sequence_parallel(cfg, length: int) -> str | None:
+    """The mesh axis a tower configured by ``cfg`` shards its ``length``
+    tokens over under the ambient rules (``parallel.sharding``), or None:
+    the tower then runs whole on every rank. A tower whose attention is
+    ``"ring"`` / ``"ulysses"`` needs its sequence sharded."""
+    axis = shard_sequence(length)
+    if axis is None and cfg.attn_impl in ("ring", "ulysses"):
+        raise ValueError(
+            f"attn_impl={cfg.attn_impl!r} needs the sequence sharded over a "
+            f"mesh axis: use_sharding(mesh, rules) with a rule mapping seq, "
+            f"and a length ({length}) that divides over it")
+    return axis
 
 
 def _layernorm(dim: int, eps: float, *, impl: str = "xla", device=None,
@@ -140,7 +155,7 @@ class Transformer(nn.Module):
         if cfg.pipeline:
             raise NotImplementedError(
                 "pipeline parallelism is not ported yet (ROADMAP.md queue 1, "
-                "item 6: parallelism)")
+                "item 6 part 2: the stage axis)")
         if cfg.remat:
             context_fn(cfg)  # a bad policy raises here, not in the step
         self.cfg = cfg

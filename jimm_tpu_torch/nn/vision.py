@@ -6,7 +6,13 @@ and, for SigLIP-style towers, on NaFlex variable-resolution batches
 embeddings (``ln_pre``); the others apply dropout there. A temporal tower
 (``num_frames > 1``) takes ``(B, T, H, W, C)`` clips: each frame is
 patchified on its own and the tokens flatten into one ``(B, T*N, width)``
-sequence under the ``T*N`` position table."""
+sequence under the ``T*N`` position table.
+
+Under sharding rules that map ``seq`` (``parallel.sharding``), a tower
+whose token count divides over the ``seq`` axis runs its encoder on this
+rank's chunk of the tokens (and of the position table), attention crossing
+the chunks through the sequence-parallel schemes, and gathers the tokens
+for the post-LN and the pooling."""
 
 from __future__ import annotations
 
@@ -16,7 +22,11 @@ from torch import nn
 from jimm_tpu_torch.configs import VisionConfig
 from jimm_tpu_torch.nn.naflex import naflex_position_embedding
 from jimm_tpu_torch.nn.remat import Dropout
-from jimm_tpu_torch.nn.transformer import Attention, Mlp, Transformer, _layernorm
+from jimm_tpu_torch.nn.transformer import (Attention, Mlp, Transformer,
+                                           _layernorm, sequence_parallel)
+from jimm_tpu_torch.parallel.sharding import (gather_sequence,
+                                              logical_constraint,
+                                              sequence_sharded)
 
 
 class PatchEmbed(nn.Module):
@@ -46,8 +56,11 @@ class MAPHead(nn.Module):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         self.probe = nn.Parameter(torch.zeros(1, 1, cfg.width, **kw))
-        self.attn = Attention(cfg.width, cfg.num_heads, impl=cfg.attn_impl,
-                              **kw)
+        # ring/ulysses shard the query sequence, which a 1-row probe cannot:
+        # a sequence-parallel tower pools on the gathered tokens
+        pool_impl = ("auto" if cfg.attn_impl in ("ring", "ulysses")
+                     else cfg.attn_impl)
+        self.attn = Attention(cfg.width, cfg.num_heads, impl=pool_impl, **kw)
         self.ln = _layernorm(cfg.width, cfg.ln_eps, **kw)
         self.mlp = Mlp(cfg.width, cfg.mlp_dim, cfg.act, **kw)
 
@@ -115,10 +128,18 @@ class VisionTower(nn.Module):
             # the class token joins before the position add
             cls = self.cls_token.expand(x.shape[0], 1, x.shape[-1])
             x = torch.cat([cls.to(x.dtype), x], dim=1)
-        x = x + self.pos_embed.to(x.dtype)
+        # under a rule that shards the sequence, this rank's chunk of the
+        # tokens and of the position table (pos="seq")
+        seq = sequence_parallel(self.cfg, x.shape[1])
+        x = (logical_constraint(x, "batch", "seq", None)
+             + logical_constraint(self.pos_embed, None, "seq", None).to(
+                 x.dtype))
         # pre-norm towers (CLIP) LayerNorm the embeddings, the others drop
         x = self.ln_pre(x) if self.cfg.pre_norm else self.dropout(x)
-        x = self.ln_post(self.encoder(x))
+        with sequence_sharded(seq):
+            x = self.encoder(x)
+        # the pooling reads the whole sequence
+        x = self.ln_post(gather_sequence(x, seq))
         if self.cfg.pooling == "cls":
             return x[:, 0]
         if self.cfg.pooling == "map":
@@ -170,5 +191,9 @@ class VisionTower(nn.Module):
                                           x.shape[1]).to(x.dtype)
         x = self.dropout(x)
         key_mask = (mask != 0)[:, None, None, :]      # (B, 1, 1, S) over keys
-        x = self.encoder(x, mask=key_mask)
-        return self.head(self.ln_post(x), mask=key_mask)
+        seq = sequence_parallel(cfg, x.shape[1])
+        with sequence_sharded(seq):
+            x = self.encoder(logical_constraint(x, "batch", "seq", None),
+                             mask=logical_constraint(key_mask, "batch", None,
+                                                     None, "seq"))
+        return self.head(self.ln_post(gather_sequence(x, seq)), mask=key_mask)

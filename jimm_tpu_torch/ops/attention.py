@@ -17,11 +17,14 @@
   TPU": on a CUDA tensor a bias of ndim <= 3 without a mask is
   ``"flash_bias"``, any other bias ``"xla"``; without a bias ``"flash"``, or
   ``"flash_masked"`` for a key-padding mask, or ``"xla"`` for any other
-  mask. ``"xla"`` on a CPU tensor. Two rules of JAX's ``"auto"`` are not
-  copied: its seq-512 flash crossover (``_flash_eligible``) is a TPU
-  measurement, and the port has not measured its own; its branch to the
-  sequence-parallel schemes under an ambient mesh waits for parallelism
-  (ROADMAP queue 1 item 6).
+  mask. ``"xla"`` on a CPU tensor. JAX's seq-512 flash crossover
+  (``_flash_eligible``) is a TPU measurement and is not copied. First of
+  all, as in JAX, ``"auto"`` without a bias (and with no mask or a
+  key-padding one) takes the sequence-parallel schemes
+  (``parallel.seqpar.seq_parallel_attention``) when the activations'
+  sequence is sharded over a mesh axis (a tower's encoder under a rule that
+  maps ``seq``; ``parallel.sharding.sharded_sequence_axis``) and q and k
+  are chunks of one sequence.
 - ``"flash_int8"``: flash attention with int8-quantized q and k
   (`jimm_tpu_torch/ops/flash_attention_int8.py`, forward and backward
   through ``FlashAttentionInt8Fn``; the ``int8_qk`` training policy sets
@@ -35,9 +38,11 @@
   differentiated by autograd.
 - ``"saveable"``: :func:`saveable_attention`, einsum attention whose
   probabilities a ``"dots+attn"`` remat policy keeps.
-
-The other JAX impls are schemes not ported yet; each raises
-``NotImplementedError`` naming its place in ``ROADMAP.md``.
+- ``"ring"`` / ``"ulysses"``: sequence parallelism over the ambient rules'
+  ``seq`` axis (default ``"seq"``) on this rank's chunks: causal softmax
+  without a mask takes the zigzag-capable ring
+  (``parallel.ring_attention``), the rest the seqpar plans; no bias, and
+  only key-padding masks, as in JAX.
 """
 
 from __future__ import annotations
@@ -50,14 +55,8 @@ from jimm_tpu_torch.ops.flash_attention import (flash_attention,
                                                 sigmoid_attention)
 from jimm_tpu_torch.ops.flash_attention_int8 import flash_attention_int8
 from jimm_tpu_torch.ops.library import checkpoint_name
-
-#: JAX attention impls the port does not have yet -> where the ROADMAP
-#: queues them
-_NOT_PORTED = {
-    "ring": "sequence parallelism, ROADMAP queue 1 (parallelism)",
-    "ulysses": "sequence parallelism, ROADMAP queue 1 (parallelism)",
-}
-
+from jimm_tpu_torch.parallel.sharding import (current_rules,
+                                              sharded_sequence_axis)
 
 #: why flash_int8 refuses a mask or a bias (the JAX dispatch's reason)
 INT8_NO_MASK = ("flash_int8 does not support masks or biases — the int8 "
@@ -155,6 +154,16 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: torch.Tensor | None = None,
                           impl: str = "auto") -> torch.Tensor:
     """Scaled dot-product attention over (batch, seq, heads, head_dim)."""
+    if impl == "auto" and bias is None and (
+            mask is None or _is_key_padding_mask(mask)):
+        axis = sharded_sequence_axis()
+        if axis is not None and q.shape[1] == k.shape[1]:
+            from jimm_tpu_torch.parallel.seqpar import seq_parallel_attention
+            return seq_parallel_attention(q, k, v, mask=mask,
+                                          is_causal=is_causal,
+                                          axis_name=axis, plan="auto")
+    if impl in ("ring", "ulysses"):
+        return _sequence_parallel(q, k, v, impl, is_causal, mask, bias)
     impl = resolve_impl(impl, on_card=q.device.type == "cuda", mask=mask,
                         bias=bias)
     if impl == "flash":
@@ -197,7 +206,33 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if impl == "saveable":
         return saveable_attention(q, k, v, is_causal=is_causal, mask=mask,
                                   bias=bias)
-    if impl in _NOT_PORTED:
-        raise NotImplementedError(f"attention impl {impl!r} is not ported "
-                                  f"yet: {_NOT_PORTED[impl]}")
     raise ValueError(f"unknown attention impl {impl!r}")
+
+
+def _sequence_parallel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       impl: str, is_causal: bool,
+                       mask: torch.Tensor | None,
+                       bias: torch.Tensor | None) -> torch.Tensor:
+    """``impl="ring"`` / ``"ulysses"`` on this rank's sequence chunks, as
+    JAX's dispatch routes them."""
+    if bias is not None:
+        raise ValueError(
+            f"{impl} attention does not take an additive bias — the "
+            "cross-chip exchange only rotates per-sample key-padding rows; "
+            "use impl='flash_bias' single-chip or impl='xla'")
+    if mask is not None and not _is_key_padding_mask(mask):
+        raise ValueError(
+            f"{impl} attention supports key-padding masks only ((B, Sk) or "
+            f"(B, 1, 1, Sk)); got {tuple(mask.shape)} — arbitrary masks "
+            "need impl='xla'")
+    rules = current_rules()
+    axis = rules.seq if rules is not None and rules.seq else "seq"
+    if impl == "ring" and is_causal and mask is None:
+        # causal softmax keeps the ring with exact causal skipping; the
+        # seqpar ring is the masked / sigmoid generalist
+        from jimm_tpu_torch.parallel.ring_attention import ring_attention
+        return ring_attention(q, k, v, axis_name=axis, is_causal=True,
+                              impl="auto")
+    from jimm_tpu_torch.parallel.seqpar import seq_parallel_attention
+    return seq_parallel_attention(q, k, v, mask=mask, axis_name=axis,
+                                  is_causal=is_causal, plan=impl)

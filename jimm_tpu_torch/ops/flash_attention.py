@@ -847,3 +847,49 @@ def flash_attention_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n, sq, sk = q.shape[2], q.shape[1], k.shape[1]
     bias3 = bias.float().expand(n, sq, sk)
     return FlashAttentionBiasFn.apply(q, k, v, bias3, is_causal)
+
+
+# ---------------------------------------------------------------------------
+# External-residual hop entry points: the sequence-parallel ring
+# (`jimm_tpu_torch/parallel/seqpar.py`) drives the same kernels per KV hop
+# ---------------------------------------------------------------------------
+
+def ring_hop_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 mask: torch.Tensor | None, kind: str = "softmax", *,
+                 logit_bias: float = 0.0
+                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One ring hop's forward, the counterpart of
+    ``jimm_tpu/ops/flash_attention.py::ring_hop_fwd``: ``(o, lse)`` of the
+    local q against the visiting k/v chunk, ``(B, S, N, D)`` q/k/v and a
+    ``(B, Sk)`` bool key-padding mask or None; lse is None for the sigmoid
+    kind, which keeps no normaliser. Rows 3 and 4 (softmax, unmasked or
+    masked) or row 6 (sigmoid) on CUDA tensors, their plain versions on CPU
+    tensors. A plain function, not an autograd Function: the caller owns the
+    cross-hop merge and its differentiation."""
+    if kind == "softmax":
+        return _fwd(q, k, v, False, mask)
+    if kind == "sigmoid":
+        return sigmoid_attention_fwd(q, k, v, mask=mask,
+                                     logit_bias=logit_bias), None
+    raise ValueError(f"unknown ring hop kind {kind!r}")
+
+
+def ring_hop_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 mask: torch.Tensor | None, o: torch.Tensor,
+                 lse: torch.Tensor | None, do: torch.Tensor,
+                 kind: str = "softmax", *, logit_bias: float = 0.0
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One ring hop's backward against the global residuals, the
+    counterpart of ``jimm_tpu/ops/flash_attention.py::ring_hop_bwd``: ``o``
+    and ``lse`` are the fully merged output and logsumexp, so the kernels'
+    ``p = exp(s - lse)`` and ``delta = rowsum(do * o)`` (recomputed by each
+    hop) are the global row statistics, and the hop's ``(dq, dk, dv)`` are
+    exact partial gradients: their sum over the hops is the unsharded
+    backward. Row 7 on CUDA tensors (sigmoid: its sigmoid kind, which reads
+    neither o nor lse), the plain versions on CPU tensors."""
+    if kind == "softmax":
+        return flash_attention_bwd(q, k, v, o, lse, do, mask=mask)
+    if kind == "sigmoid":
+        return sigmoid_attention_bwd(q, k, v, do, mask=mask,
+                                     logit_bias=logit_bias)
+    raise ValueError(f"unknown ring hop kind {kind!r}")

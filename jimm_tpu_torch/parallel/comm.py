@@ -1,0 +1,291 @@
+"""Collectives over a mesh axis, differentiable; what JAX takes from
+``jax.lax`` (``ppermute``, ``all_gather``, ``all_to_all``, ``psum``) written
+out over ``torch.distributed``.
+
+Each takes a mesh-axis name, or a tuple of names whose product axis is
+linearised in the tuple's order (the ring loss over ``("data", "seq")``),
+and runs inside every group of ranks that differ only along those axes.
+:func:`axis_group` resolves the names once per mesh into one process
+group per such set, made by every rank in the same order.
+
+Each is a ``torch.autograd.Function`` whose backward is the collective's
+adjoint: ``ppermute`` the reverse permutation, ``all_gather`` a
+reduce-scatter (sum), ``all_to_all`` the inverse exchange, ``psum`` a
+``psum``. A caller whose every rank computes the same replicated loss
+therefore gets, on each rank, the gradient of the sum of the ranks'
+losses; averaging the parameter gradients over the ranks
+(``sharding.finish_gradients``, FSDP2's reduce-scatter) gives the gradient
+of the loss itself.
+
+Transport: the backend is fixed when the group is made
+(``mesh.initialize_distributed``), never on a failure. ``ppermute`` is an
+``all_to_all_single`` with per-peer split sizes, not ``send``/``recv``:
+on the H100's machine gloo carries every collective used here on CUDA
+tensors except the point-to-point ones (``python -m
+jimm_tpu_torch.parallel.probe``), and NCCL carries all of them. So nothing
+here stages a tensor through host memory: gloo copies CUDA tensors to the
+host itself.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+
+__all__ = ["AxisGroup", "all_gather", "all_reduce_mean_", "all_to_all",
+           "axis_group", "axis_names", "ppermute", "psum", "ring_perm"]
+
+AxisName = str | tuple[str, ...]
+
+
+@dataclass(frozen=True)
+class AxisGroup:
+    """This rank's group along one (product) mesh axis: the global ranks in
+    the axis's linear order, this rank's position among them, and the
+    process group (None when the axis has one rank)."""
+
+    ranks: tuple[int, ...]
+    index: int
+    pg: dist.ProcessGroup | None
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    def group_rank(self, position: int) -> int:
+        """The process-group rank of the rank at ``position`` (a process
+        group numbers its ranks in ascending global order)."""
+        return sorted(self.ranks).index(self.ranks[position])
+
+
+def axis_names(axis: AxisName | None) -> tuple[str, ...]:
+    """An axis name, a tuple of names or None, as a tuple of names."""
+    if axis is None:
+        return ()
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def axis_group(axis: AxisName | AxisGroup,
+               mesh: DeviceMesh | None = None) -> AxisGroup:
+    """This rank's :class:`AxisGroup` along ``axis`` of ``mesh`` (None: the
+    ambient mesh of ``sharding.use_sharding``). The groups are made at the
+    first call for a (mesh, axis) on every rank, and kept on the mesh;
+    every rank must make that call, as every rank runs the same
+    program."""
+    if isinstance(axis, AxisGroup):
+        return axis
+    from jimm_tpu_torch.parallel.mesh import resolve_mesh_axis
+    if mesh is None:
+        from jimm_tpu_torch.parallel.sharding import current_mesh
+        mesh = current_mesh()
+    resolve_mesh_axis(mesh, axis)
+    names = axis_names(axis)
+    made = mesh.__dict__.setdefault("_jimm_axis_groups", {})
+    if names in made:
+        return made[names]
+    dims = list(mesh.mesh_dim_names)
+    order = [dims.index(n) for n in names]
+    rest = [i for i in range(len(dims)) if i not in order]
+    rows = mesh.mesh.permute(*rest, *order).reshape(
+        -1, math.prod(mesh.mesh.shape[i] for i in order)).tolist()
+    me = dist.get_rank()
+    mine = None
+    for row in rows:
+        pg = None
+        if len(row) > 1:
+            # every rank makes every group, in the same order
+            pg = dist.new_group(sorted(row))
+        if me in row:
+            mine = AxisGroup(tuple(row), row.index(me), pg)
+    if mine is None:
+        raise ValueError(f"rank {me} is not in mesh {mesh}")
+    made[names] = mine
+    return mine
+
+
+def ring_perm(size: int, shift: int = 1) -> list[tuple[int, int]]:
+    """JAX's ring permutation: position i sends to i + shift."""
+    return [(i, (i + shift) % size) for i in range(size)]
+
+
+def _ppermute(x: torch.Tensor, grp: AxisGroup,
+              perm: list[tuple[int, int]]) -> torch.Tensor:
+    me = grp.index
+    dst = [d for s, d in perm if s == me]
+    src = [s for s, d in perm if d == me]
+    if grp.pg is None:
+        return x.clone() if src else torch.zeros_like(x)
+    flat = x.contiguous().view(-1)
+    n = flat.numel()
+    send = [0] * grp.size
+    recv = [0] * grp.size
+    if dst:
+        send[grp.group_rank(dst[0])] = n
+    if src:
+        recv[grp.group_rank(src[0])] = n
+    out = torch.empty(n if src else 0, dtype=x.dtype, device=x.device)
+    dist.all_to_all_single(out, flat if dst else flat[:0],
+                           output_split_sizes=recv, input_split_sizes=send,
+                           group=grp.pg)
+    # a position no one sends to receives zeros, as in JAX
+    return out.view(x.shape) if src else torch.zeros_like(x)
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grp, perm):
+        ctx.grp, ctx.perm = grp, perm
+        return _ppermute(x, grp, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ppermute(g, ctx.grp, [(d, s) for s, d in ctx.perm]), None, None
+
+
+def ppermute(x: torch.Tensor, axis: AxisName | AxisGroup,
+             perm: list[tuple[int, int]], *,
+             mesh: DeviceMesh | None = None) -> torch.Tensor:
+    """``jax.lax.ppermute``: position ``s`` of the axis sends ``x`` to
+    position ``d`` for each ``(s, d)`` of ``perm``; a position that receives
+    nothing gets zeros. Backward: the reverse permutation."""
+    return _PPermute.apply(x, axis_group(axis, mesh), list(perm))
+
+
+def _gather(x: torch.Tensor, grp: AxisGroup, dim: int) -> torch.Tensor:
+    xt = x.movedim(dim, 0).contiguous()
+    out = torch.empty((grp.size * xt.shape[0], *xt.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, xt, group=grp.pg)
+    # group-rank order -> the axis's position order
+    out = out.view(grp.size, *xt.shape)
+    out = out[[grp.group_rank(p) for p in range(grp.size)]]
+    return out.reshape(-1, *xt.shape[1:]).movedim(0, dim)
+
+
+def _reduce_scatter(g: torch.Tensor, grp: AxisGroup, dim: int
+                    ) -> torch.Tensor:
+    gt = g.movedim(dim, 0)
+    n0 = gt.shape[0] // grp.size
+    chunks = gt.reshape(grp.size, n0, *gt.shape[1:])
+    # position order -> group-rank order
+    by_rank = [0] * grp.size
+    for p in range(grp.size):
+        by_rank[grp.group_rank(p)] = p
+    inp = chunks[by_rank].reshape(-1, *gt.shape[1:]).contiguous()
+    out = torch.empty((n0, *gt.shape[1:]), dtype=g.dtype, device=g.device)
+    dist.reduce_scatter_tensor(out, inp, group=grp.pg)
+    return out.movedim(0, dim)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grp, dim):
+        ctx.grp, ctx.dim = grp, dim
+        return _gather(x, grp, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.grp, ctx.dim), None, None
+
+
+def all_gather(x: torch.Tensor, axis: AxisName | AxisGroup, *,
+               dim: int = 0, mesh: DeviceMesh | None = None) -> torch.Tensor:
+    """``jax.lax.all_gather(..., tiled=True)``: the axis's chunks of ``x``
+    concatenated along ``dim`` in position order. Backward: a
+    reduce-scatter (sum) along ``dim``."""
+    grp = axis_group(axis, mesh)
+    if grp.pg is None:
+        return x
+    return _AllGather.apply(x, grp, dim % x.ndim)
+
+
+def _all_to_all(x: torch.Tensor, grp: AxisGroup, split_dim: int,
+                concat_dim: int) -> torch.Tensor:
+    chunks = x.chunk(grp.size, dim=split_dim)
+    if len(chunks) != grp.size or chunks[0].shape != chunks[-1].shape:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
+                         f"does not split {grp.size} ways")
+    by_rank = [0] * grp.size
+    for p in range(grp.size):
+        by_rank[grp.group_rank(p)] = p
+    inp = torch.stack([chunks[p] for p in by_rank]).contiguous()
+    out = torch.empty_like(inp)
+    dist.all_to_all_single(out, inp, group=grp.pg)
+    return torch.cat([out[grp.group_rank(p)] for p in range(grp.size)],
+                     dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grp, split_dim, concat_dim):
+        ctx.grp, ctx.dims = grp, (split_dim, concat_dim)
+        return _all_to_all(x, grp, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return (_all_to_all(g, ctx.grp, concat_dim, split_dim), None, None,
+                None)
+
+
+def all_to_all(x: torch.Tensor, axis: AxisName | AxisGroup, split_dim: int,
+               concat_dim: int, *, mesh: DeviceMesh | None = None
+               ) -> torch.Tensor:
+    """``jax.lax.all_to_all(..., tiled=True)``: ``x`` split ``size`` ways
+    along ``split_dim``, chunk ``p`` sent to position ``p``, the chunks
+    received concatenated along ``concat_dim`` in source order. Backward:
+    the inverse exchange."""
+    grp = axis_group(axis, mesh)
+    if grp.pg is None:
+        return x
+    return _AllToAll.apply(x, grp, split_dim % x.ndim, concat_dim % x.ndim)
+
+
+def _psum(x: torch.Tensor, grp: AxisGroup) -> torch.Tensor:
+    out = x.clone()
+    dist.all_reduce(out, group=grp.pg)
+    return out
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grp):
+        ctx.grp = grp
+        return _psum(x, grp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum(g, ctx.grp), None
+
+
+def psum(x: torch.Tensor, axis: AxisName | AxisGroup, *,
+         mesh: DeviceMesh | None = None) -> torch.Tensor:
+    """``jax.lax.psum``: the sum over the axis, on every position.
+    Backward: a ``psum`` of the cotangents (see the module docstring)."""
+    grp = axis_group(axis, mesh)
+    if grp.pg is None:
+        return x
+    return _PSum.apply(x, grp)
+
+
+@torch.no_grad()
+def all_reduce_mean_(tensors: list[torch.Tensor],
+                     grp: AxisGroup) -> None:
+    """Average ``tensors`` in place over the group, in one all-reduce of
+    one flat buffer per dtype."""
+    if grp.pg is None or not tensors:
+        return
+    by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for group in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in group])
+        dist.all_reduce(flat, group=grp.pg)
+        flat /= grp.size
+        torch._foreach_copy_(group, [
+            piece.view_as(t) for piece, t in
+            zip(flat.split([t.numel() for t in group]), group)])

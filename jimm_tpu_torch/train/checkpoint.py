@@ -29,6 +29,15 @@ its error, if any. A step is complete once its
 marker exists: a marker is written only after its step's write is known
 to have finished, and restore trusts markers, not directory listings.
 
+On a mesh (``train --mesh``) every rank calls ``save`` and ``restore``:
+a parameter or state tensor that FSDP2 shards is gathered whole
+(``parallel.sharding.full_tensor``, a collective) on every rank and
+written by rank 0 alone (``writer``), so the files are those of an
+unsharded run; a restore puts each rank's shard of the saved tensor back. Each step's metadata
+records the mesh layout it was saved under (``{"axes", "n_devices"}``),
+and a restore onto another layout counts
+``checkpoint_topology_changes_total`` (JAX's ``_note_mesh_change``).
+
 A step that cannot be read (its metadata, files or JSON garbled) is
 corrupt, and ``restore(step=None)`` quarantines it. A checkpoint that
 reads well but does not fit the model or optimizer it is restored into
@@ -48,8 +57,10 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from jimm_tpu_torch.obs import get_journal, get_registry, span
+from jimm_tpu_torch.parallel.sharding import full_tensor
 from jimm_tpu_torch.weights.safetensors_io import load_file, save_file
 
 __all__ = ["CheckpointManager", "CheckpointMismatchError", "METADATA_FILE"]
@@ -75,8 +86,30 @@ class CheckpointMismatchError(ValueError):
 
 def _host(t: torch.Tensor) -> torch.Tensor:
     """A copy of ``t`` in host memory (a synchronous device-to-host copy for
-    a card tensor)."""
-    return t.detach().to("cpu", copy=True)
+    a card tensor); the whole tensor of an FSDP2 shard (a collective: every
+    rank of its mesh calls it)."""
+    return full_tensor(t.detach()).to("cpu", copy=True)
+
+
+def _place(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The saved whole tensor ``full`` laid out like ``like``: on its
+    device, and for an FSDP2 ``DTensor`` this rank's shard of it (cut
+    locally; every rank read the same file)."""
+    full = full.to(like.device, copy=True)
+    if isinstance(like, DTensor):
+        return distribute_tensor(full, like.device_mesh, like.placements,
+                                 src_data_rank=None)
+    return full
+
+
+def mesh_layout(mesh) -> dict[str, Any] | None:
+    """The mesh a state is saved under, ``{"axes": {name: size},
+    "n_devices": n}`` (None: no mesh)."""
+    if mesh is None:
+        return None
+    axes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return {"axes": {str(k): int(v) for k, v in axes.items()},
+            "n_devices": int(mesh.mesh.numel())}
 
 
 def _names(model: nn.Module) -> dict[int, str]:
@@ -150,17 +183,30 @@ class CheckpointManager:
     JSON values). The first manager given one records it in ``run.json``;
     a later one given another raises :class:`CheckpointMismatchError`
     before any step is read. ``self.run`` is the record, or None.
+
+    ``mesh``: the mesh the live model is laid out over (None: unsharded),
+    recorded with each save. ``writer``: whether this rank writes (rank 0
+    of a mesh; every other rank only takes part in the gathers).
     """
 
     def __init__(self, directory: str | os.PathLike, *,
                  max_to_keep: int | None = 3, save_interval_steps: int = 1,
-                 run: dict[str, Any] | None = None):
+                 run: dict[str, Any] | None = None, mesh=None,
+                 writer: bool = True):
         self._dir = Path(directory).absolute()
-        self._dir.mkdir(parents=True, exist_ok=True)
+        self.mesh = mesh
+        self.writer = writer
+        #: the last restore's ``{"step", "saved", "current"}`` layouts when
+        #: it crossed a mesh change, else None
+        self.last_topology_change: dict[str, Any] | None = None
+        if writer:
+            self._dir.mkdir(parents=True, exist_ok=True)
         path = self._dir / RUN_FILE
         self.run: dict[str, Any] | None = (json.loads(path.read_text())
                                            if path.exists() else None)
-        if run is not None and self.run is None:
+        if run is not None and self.run is None and not writer:
+            self.run = dict(run)
+        elif run is not None and self.run is None:
             tmp = self._dir / f".{RUN_FILE}.tmp"
             tmp.write_text(json.dumps(run))
             os.replace(tmp, path)
@@ -219,6 +265,7 @@ class CheckpointManager:
                     opt = (_optimizer_tensors(model, optimizer)
                            if optimizer is not None else None)
                 meta = {"format": FORMAT, "step": step,
+                        "mesh": mesh_layout(self.mesh),
                         "params": len(params),
                         "optimizer": None if optimizer is None else {
                             "count": int(optimizer.count),
@@ -229,6 +276,9 @@ class CheckpointManager:
                 remove = ([] if keep is None or len(self._steps) <= keep
                           else self._steps[:len(self._steps) - keep])
                 del self._steps[:len(remove)]
+                if not self.writer:
+                    # the gathers above were this rank's part of the save
+                    return True
                 if self._executor is None:
                     self._executor = ThreadPoolExecutor(
                         max_workers=1, thread_name_prefix="jimm-ckpt-write")
@@ -387,14 +437,15 @@ class CheckpointManager:
         candidates = self.completed_steps()
         if not candidates:
             raise FileNotFoundError("no checkpoint found")
-        self._sweep_partial_dirs(newer_than=candidates[-1])
+        if self.writer:
+            self._sweep_partial_dirs(newer_than=candidates[-1])
         for cand in reversed(candidates):
             try:
                 return self._restore_step(cand, model, optimizer, cast)
             except CheckpointMismatchError:
                 raise  # the caller's model does not fit: no step is bad
             except Exception as e:
-                dest = self.quarantine_step(
+                dest = None if not self.writer else self.quarantine_step(
                     cand, f"restore failed: {type(e).__name__}: {e}")
                 warnings.warn(
                     f"checkpoint step {cand} failed to restore "
@@ -439,13 +490,28 @@ class CheckpointManager:
                 state = self._optimizer_state(d, model, optimizer)
             with torch.no_grad():
                 for name, t in params.items():
-                    targets[name].copy_(t)
+                    targets[name].copy_(_place(t, targets[name]))
             if optimizer is not None:
                 for p, entries in state.items():
                     optimizer.opt.state[p] = entries
                 optimizer.count = int(opt_meta["count"])
             self.last_restored_extra = dict(extra)
+            self._note_mesh_change(step, meta.get("mesh"))
         return step
+
+    def _note_mesh_change(self, step: int, saved: dict | None) -> None:
+        """A restore onto another mesh layout than the save's: counted in
+        ``checkpoint_topology_changes_total`` and journalled (the tensors
+        need no other care: they are saved whole and cut on restore)."""
+        current = mesh_layout(self.mesh)
+        if saved is None or current is None or saved == current:
+            return
+        self.last_topology_change = {"step": step, "saved": saved,
+                                     "current": current}
+        get_registry("jimm_train").counter(
+            "checkpoint_topology_changes_total").inc()
+        get_journal().emit("mesh_resharded", step=step, saved=saved,
+                           current=current)
 
     def _optimizer_state(self, d: Path, model: nn.Module, optimizer
                          ) -> dict[torch.Tensor, dict[str, torch.Tensor]]:
@@ -469,7 +535,8 @@ class CheckpointManager:
                 shape, dtype, device = spec[key]
                 full = f"{name}.{key}"
                 t = _check(full, saved[full], shape, dtype)
-                entries[key] = t.to(device, copy=True)
+                entries[key] = (t.to(device, copy=True) if key == "step"
+                                else _place(t, p))
                 unused.discard(full)
             state[p] = entries
         if unused:

@@ -20,10 +20,18 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
-from jimm_tpu_torch.train.losses import clip_softmax_loss, sigmoid_pairwise_loss
+from jimm_tpu_torch.parallel import comm
+from jimm_tpu_torch.parallel.sharding import (current_mesh, current_rules,
+                                              finish_gradients)
+from jimm_tpu_torch.train.losses import (clip_softmax_loss,
+                                         ring_clip_infonce_loss,
+                                         ring_sigmoid_loss,
+                                         sigmoid_pairwise_loss)
 
 
 @dataclass(frozen=True)
@@ -80,7 +88,8 @@ def decays(name: str, param: torch.Tensor) -> bool:
     biases included, while 1-D parameters outside the blocks (``ln_post``,
     the MAP head's biases and LayerNorm, ``ln_final``) and the scalars are
     not. The port keeps one module per block, so a block parameter is
-    decayed whatever its rank."""
+    decayed whatever its rank. The rank is the unsharded one (an FSDP2
+    ``DTensor`` reports its global shape)."""
     return param.ndim > 1 or "encoder.blocks." in name
 
 
@@ -91,16 +100,52 @@ def clip_by_global_norm_(params: list[torch.Tensor], max_norm: float
     norm ``||g||`` is at least ``max_norm`` (optax's rule; unlike
     ``clip_grad_norm_``, nothing is added to the norm). Returns ``||g||``
     in f32, without a host sync. The per-tensor norms and the scaling are
-    multi-tensor ops: a few launches for all parameters, not a few each."""
+    multi-tensor ops: a few launches for all parameters, not a few each.
+
+    Under FSDP2 a gradient is a ``DTensor`` of which this rank holds a
+    shard: the squares of the shards' norms are summed over the ranks that
+    shard it (one all-reduce per layout), each replicated gradient counted
+    once, and each rank scales its own shards."""
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return torch.zeros(())
-    norm = torch.linalg.vector_norm(torch.stack(
-        torch._foreach_norm(grads, 2.0, dtype=torch.float32)))
+    local = [_local(g) for g in grads]
+    norms = torch.stack(torch._foreach_norm(local, 2.0, dtype=torch.float32))
+    if not any(isinstance(g, DTensor) for g in grads):
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        norm = _sharded_norm(grads, norms)
     factor = torch.where(norm < max_norm, torch.ones_like(norm),
                          max_norm / norm)
-    torch._foreach_mul_(grads, factor)
+    torch._foreach_mul_(local, factor)
     return norm
+
+
+def _sharded_norm(grads: list[torch.Tensor], norms: torch.Tensor
+                  ) -> torch.Tensor:
+    """The global norm of gradients some of which are FSDP2 shards
+    (``norms``: each local piece's): the shards' squares summed over the
+    ranks of each mesh dim that shards them, in one order on every rank."""
+    total = torch.zeros((), dtype=torch.float32, device=norms.device)
+    sharded: dict[tuple, list[torch.Tensor]] = {}
+    for g, n in zip(grads, norms):
+        if isinstance(g, DTensor):
+            sharded.setdefault((g.device_mesh, g.placements), []).append(n)
+        else:
+            total = total + n * n
+    for (mesh, placements), parts in sharded.items():
+        part = torch.stack(parts).square().sum()
+        for dim, placement in enumerate(placements):
+            if placement.is_shard():
+                dist.all_reduce(part, group=mesh.get_group(dim))
+        total = total + part
+    return total.sqrt()
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of an FSDP2 ``DTensor`` (sharing its storage), or
+    ``t`` itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def _moment_dtype(name: str | None) -> torch.dtype | None:
@@ -114,7 +159,9 @@ def _moment_dtype(name: str | None) -> torch.dtype | None:
 
 class Optimizer:
     """AdamW (eps 1e-8) over ``model``'s parameters in two groups, decayed
-    and not (:func:`decays`), with the learning rate of :func:`make_schedule`
+    and not (:func:`decays`), each split into FSDP2 shards and whole
+    parameters where both are present, with the learning rate of
+    :func:`make_schedule`
     and global-norm clipping applied in :meth:`step`. Its state is
     ``opt.state[p]``'s ``exp_avg`` (mu, in ``cfg.moment_dtype`` when set)
     and ``exp_avg_sq`` (nu, in the parameter dtype)."""
@@ -128,10 +175,17 @@ class Optimizer:
             if p.requires_grad:
                 (decay if decays(name, p) else keep).append(p)
         self.params = decay + keep
+        # FSDP2's shards and the parameters it leaves whole in groups of
+        # their own: the foreach update refuses a list that mixes DTensors
+        # with tensors of more than 0 dimensions
+        groups = [{"params": [p for p in params
+                              if isinstance(p, DTensor) == sharded],
+                   "weight_decay": wd}
+                  for params, wd in ((decay, cfg.weight_decay), (keep, 0.0))
+                  for sharded in (True, False)]
         self.opt = torch.optim.AdamW(
-            [{"params": decay, "weight_decay": cfg.weight_decay},
-             {"params": keep, "weight_decay": 0.0}],
-            lr=self.schedule(0), betas=(cfg.b1, cfg.b2), eps=1e-8)
+            [g for g in groups if g["params"]], lr=self.schedule(0),
+            betas=(cfg.b1, cfg.b2), eps=1e-8)
         #: updates applied so far (optax's count)
         self.count = 0
 
@@ -163,11 +217,10 @@ class Optimizer:
         t = self.count + 1
         bc1, bc2 = 1.0 - cfg.b1 ** t, 1.0 - cfg.b2 ** t
         for group in self.opt.param_groups:
-            params = [p for p in group["params"] if p.grad is not None]
-            if not params:
+            held = [p for p in group["params"] if p.grad is not None]
+            if not held:
                 continue
-            grads = [p.grad for p in params]
-            for p in params:
+            for p in held:
                 state = self.opt.state[p]
                 if not state:
                     state["exp_avg"] = torch.zeros_like(
@@ -175,8 +228,12 @@ class Optimizer:
                         memory_format=torch.preserve_format)
                     state["exp_avg_sq"] = torch.zeros_like(
                         p, memory_format=torch.preserve_format)
-            mus = [self.opt.state[p]["exp_avg"] for p in params]
-            nus = [self.opt.state[p]["exp_avg_sq"] for p in params]
+            # this rank's shards under FSDP2 (the state stays sharded like
+            # its parameter)
+            params = [_local(p) for p in held]
+            grads = [_local(p.grad) for p in held]
+            mus = [_local(self.opt.state[p]["exp_avg"]) for p in held]
+            nus = [_local(self.opt.state[p]["exp_avg_sq"]) for p in held]
             torch._foreach_mul_(nus, cfg.b2)
             torch._foreach_addcmul_(nus, grads, grads, value=1.0 - cfg.b2)
             mu = torch._foreach_mul([m.float() for m in mus], cfg.b1)
@@ -212,6 +269,50 @@ def classifier_metrics(logits: torch.Tensor, labels: torch.Tensor
     return {"loss": loss, "accuracy": accuracy}
 
 
+def _sequence_in_batch() -> str | None:
+    """Under the ambient rules, the ``seq`` axis when the batch is also
+    sharded over it (the ring losses' ``("data", "seq")`` pair axis): the
+    towers of one ``seq`` group then need that group's whole batch."""
+    mesh, rules = current_mesh(), current_rules()
+    if mesh is None or rules is None or not isinstance(rules.seq, str):
+        return None
+    return rules.seq if rules.seq in comm.axis_names(rules.batch) else None
+
+
+def _map_tensors(fn, x):
+    if isinstance(x, (tuple, list)):
+        return type(x)(_map_tensors(fn, v) for v in x)
+    return fn(x)
+
+
+def _own_rows(x: torch.Tensor, axis) -> torch.Tensor:
+    grp = comm.axis_group(axis)
+    return x.chunk(grp.size, dim=0)[grp.index]
+
+
+def encode_batch(encode, inputs):
+    """``encode(inputs)`` on this rank's rows of a batch sharded under the
+    ambient rules (the inputs themselves without a mesh). When the sequence
+    axis also shards the batch, the towers of a ``seq`` group run on the
+    group's whole batch, sequence-parallel, and each rank keeps its rows of
+    the result."""
+    seq = _sequence_in_batch()
+    if seq is None:
+        return encode(inputs)
+    gathered = _map_tensors(lambda t: comm.all_gather(t, seq, dim=0), inputs)
+    return _own_rows(encode(gathered), seq)
+
+
+def _global_mean(t: torch.Tensor) -> torch.Tensor:
+    """A per-rank mean over equal shards -> the global mean (no
+    gradient), for the logged metrics."""
+    rules = current_rules()
+    if current_mesh() is None or rules is None or rules.batch is None:
+        return t
+    grp = comm.axis_group(rules.batch)
+    return comm.psum(t.detach(), grp) / grp.size
+
+
 def make_classifier_train_step() -> Callable:
     """``step(model, optimizer, images, labels) -> {"loss", "accuracy"}``:
     zero the gradients, backpropagate the cross-entropy of ``model(images)``,
@@ -222,10 +323,11 @@ def make_classifier_train_step() -> Callable:
                    images: torch.Tensor, labels: torch.Tensor
                    ) -> dict[str, torch.Tensor]:
         optimizer.zero_grad()
-        metrics = classifier_metrics(model(images), labels)
+        metrics = classifier_metrics(encode_batch(model, images), labels)
         metrics["loss"].backward()
+        finish_gradients(model)
         optimizer.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        return {k: _global_mean(v) for k, v in metrics.items()}
 
     return train_step
 
@@ -243,38 +345,76 @@ def make_classifier_eval_step() -> Callable:
 
 
 def _check_kind(kind: str) -> None:
-    if kind in ("clip_ring", "siglip_ring"):
-        raise NotImplementedError(f"loss {kind!r} needs a device mesh, not "
-                                  f"ported yet (ROADMAP.md queue 1, item 6: "
-                                  f"parallelism)")
-    if kind not in ("clip", "siglip"):
+    if kind not in ("clip", "siglip", "clip_ring", "siglip_ring"):
         raise ValueError(f"unknown contrastive loss kind {kind!r}")
+
+
+def _ring_rows(x: torch.Tensor, axis_name) -> torch.Tensor:
+    """Embeddings sharded over the ring's axis: this rank's rows as they
+    are when the ambient batch sharding is the ring's axis, its share of
+    a replicated batch when the rules replicate it."""
+    rules = current_rules()
+    batch = comm.axis_names(None if rules is None else rules.batch)
+    if batch == comm.axis_names(axis_name):
+        return x
+    if not batch:
+        return _own_rows(x, axis_name)
+    raise ValueError(f"the ring loss over {axis_name!r} needs the batch "
+                     f"sharded over it, not over {rules.batch!r}")
 
 
 def contrastive_loss_fn(model: nn.Module,
                         images: torch.Tensor | tuple[torch.Tensor, ...],
-                        text: torch.Tensor, *, kind: str) -> torch.Tensor:
-    """``"clip"``: symmetric softmax InfoNCE; ``"siglip"``: dense sigmoid
-    all-pairs loss, on the model's image and text embeddings. ``images`` is
-    a ``(B, H, W, C)`` tensor or a NaFlex triple ``(patches, spatial_shapes,
-    mask)`` (``SigLIP.encode_image_naflex``), which trains SigLIP2 on
-    variable-resolution batches."""
+                        text: torch.Tensor, *, kind: str, mesh=None,
+                        axis_name: str | tuple[str, ...] = "data"
+                        ) -> torch.Tensor:
+    """The loss of the model's image and text embeddings:
+
+    - ``"clip"``: symmetric softmax InfoNCE;
+    - ``"clip_ring"``: the ring InfoNCE over ``axis_name`` of ``mesh``
+      (None: the ambient one);
+    - ``"siglip"``: the dense sigmoid all-pairs loss;
+    - ``"siglip_ring"``: the ring sigmoid loss over ``axis_name``.
+
+    ``images`` is a ``(B, H, W, C)`` tensor or a NaFlex triple ``(patches,
+    spatial_shapes, mask)`` (``SigLIP.encode_image_naflex``), which trains
+    SigLIP2 on variable-resolution batches. Under a mesh
+    (``parallel.sharding.use_sharding``) the inputs are this rank's rows
+    of the global batch (:func:`encode_batch`), and a dense loss gathers
+    the embeddings over the batch axes first: every kind is the global
+    batch's loss."""
     _check_kind(kind)
     if isinstance(images, (tuple, list)):
-        img = model.encode_image_naflex(*images)
+        img = encode_batch(lambda x: model.encode_image_naflex(*x), images)
     else:
-        img = model.encode_image(images)
-    txt = model.encode_text(text)
+        img = encode_batch(model.encode_image, images)
+    txt = encode_batch(model.encode_text, text)
+    if kind.endswith("_ring"):
+        img, txt = _ring_rows(img, axis_name), _ring_rows(txt, axis_name)
+        if kind == "clip_ring":
+            return ring_clip_infonce_loss(img, txt, model.logit_scale,
+                                          mesh=mesh, axis_name=axis_name)
+        return ring_sigmoid_loss(img, txt, model.logit_scale,
+                                 model.logit_bias, mesh=mesh,
+                                 axis_name=axis_name)
+    rules = current_rules()
+    if current_mesh() is not None and rules is not None and rules.batch:
+        img = comm.all_gather(img, rules.batch, dim=0)
+        txt = comm.all_gather(txt, rules.batch, dim=0)
     if kind == "clip":
         return clip_softmax_loss(img, txt, model.logit_scale)
     return sigmoid_pairwise_loss(img, txt, model.logit_scale,
                                  model.logit_bias)
 
 
-def make_contrastive_train_step(kind: str = "siglip") -> Callable:
+def make_contrastive_train_step(kind: str = "siglip", *, mesh=None,
+                                axis_name: str | tuple[str, ...] = "data"
+                                ) -> Callable:
     """``step(model, optimizer, images, text) -> {"loss": tensor}``: zero
-    the gradients, backpropagate the loss, clip and update. The loss stays
-    on the device (no host sync). ``images`` may be a NaFlex triple, as in
+    the gradients, backpropagate the loss, average the replicated
+    parameters' gradients over the mesh (``parallel.sharding``), clip and
+    update. The loss stays on the device (no host sync). ``images`` may be
+    a NaFlex triple; ``mesh`` and ``axis_name`` are the ring losses', as in
     :func:`contrastive_loss_fn`."""
     _check_kind(kind)
 
@@ -283,8 +423,10 @@ def make_contrastive_train_step(kind: str = "siglip") -> Callable:
                    text: torch.Tensor
                    ) -> dict[str, torch.Tensor]:
         optimizer.zero_grad()
-        loss = contrastive_loss_fn(model, images, text, kind=kind)
+        loss = contrastive_loss_fn(model, images, text, kind=kind, mesh=mesh,
+                                   axis_name=axis_name)
         loss.backward()
+        finish_gradients(model)
         optimizer.step()
         return {"loss": loss.detach()}
 

@@ -66,6 +66,14 @@ def test_importing_the_port_loads_no_jax():
     # the indexed loader in place of grain
     assert {"jimm_tpu_torch.data.native", "jimm_tpu_torch.data.pipeline",
             "jimm_tpu_torch.data.grain_pipeline"} <= set(MODULES)
+    # and the parallelism slice's (torch.distributed, not jax.sharding)
+    assert {"jimm_tpu_torch.parallel.__init__",
+            "jimm_tpu_torch.parallel.mesh", "jimm_tpu_torch.parallel.comm",
+            "jimm_tpu_torch.parallel.sharding",
+            "jimm_tpu_torch.parallel.ring_attention",
+            "jimm_tpu_torch.parallel.ulysses",
+            "jimm_tpu_torch.parallel.seqpar",
+            "jimm_tpu_torch.parallel.probe"} <= set(MODULES)
 
 
 def test_the_indexed_loader_loads_neither_jax_nor_grain():

@@ -208,11 +208,12 @@ def test_sigmoid_impl_on_cpu_is_the_plain_sigmoid():
 @pytest.mark.parametrize("impl", ["flash_bias", "ring", "ulysses",
                                   "saveable"])
 def test_unported_attention_impls_name_the_roadmap(impl):
-    """The JAX impls the port lacks raise NotImplementedError naming their
-    ROADMAP item. ``flash_bias`` is ported: without a bias it raises JAX's
-    ValueError (tests/test_torch_bias.py compares the messages). So is
-    ``saveable``: in f32 it is the einsum path's function
-    (tests/test_torch_remat.py holds it to JAX's)."""
+    """Every JAX impl is ported now. ``flash_bias`` without a bias raises
+    JAX's ValueError (tests/test_torch_bias.py compares the messages);
+    ``saveable`` in f32 is the einsum path's function
+    (tests/test_torch_remat.py holds it to JAX's); ``ring`` and
+    ``ulysses`` (sequence parallelism, tests/test_torch_parallel_*.py)
+    need a mesh, and refuse a bias, as JAX's do."""
     q = torch.zeros(1, 4, 1, 8)
     if impl == "saveable":
         q = torch.randn(1, 4, 1, 8, generator=torch.Generator().manual_seed(0))
@@ -225,8 +226,11 @@ def test_unported_attention_impls_name_the_roadmap(impl):
                                              "bias"):
             attention.dot_product_attention(q, q, q, impl=impl)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="no ambient mesh installed"):
         attention.dot_product_attention(q, q, q, impl=impl)
+    with pytest.raises(ValueError, match=f"{impl} attention does not take "
+                                         f"an additive bias"):
+        attention.dot_product_attention(q, q, q, impl=impl, bias=q[0, 0])
 
 
 @pytest.mark.parametrize("impl", ["flash", "flash_masked"])

@@ -241,12 +241,15 @@ def test_train_cli_needs_the_card_or_asks_for_the_cpu():
     # ported): the indexed loader reads TFRecord shards only
     (["--loader", "grain", "--data", "x.tar"],
      "--loader grain reads tfrecord shards"),
-    # the ring losses need the mesh (--profile-dir, --prof-ring and
-    # --tensorboard-dir, once refused here, are ported:
-    # tests/test_torch_profile_cli.py)
-    (["--loss", "siglip_ring"], "ROADMAP"), (["--mesh", "data=2"], "ROADMAP"),
-    (["--loss", "clip_ring"], "ROADMAP"),
-    (["--loss", "clip_ring", "--preset", "clip-vit-base-patch16"],
+    # the ring losses need a mesh, and --mesh the ranks it names (--mesh
+    # and the ring losses are ported: tests/test_torch_parallel_*.py;
+    # --profile-dir, --prof-ring and --tensorboard-dir, once refused here,
+    # too: tests/test_torch_profile_cli.py); the pipeline flags wait for
+    # the ROADMAP's part 2 of parallelism
+    (["--loss", "siglip_ring"], "--loss siglip_ring needs --mesh"),
+    (["--mesh", "data=2"], r"mesh \{'data': 2\} != 1 devices"),
+    (["--loss", "clip_ring"], "--loss clip_ring needs --mesh"),
+    (["--pipeline-virtual", "2", "--preset", "clip-vit-base-patch16"],
      "ROADMAP")])
 def test_train_cli_names_the_roadmap_for_unported_flags(flag, match):
     from jimm_tpu_torch.cli import build_parser, cmd_train

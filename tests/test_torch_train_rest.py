@@ -346,7 +346,7 @@ def test_train_cli_from_pretrained_swaps_the_head(capsys, tmp_path):
                                            "--from-pretrained"),
     (["--preemption-save"], "--preemption-save needs --ckpt-dir"),
     (["--remat", "dots+mlp"], "--remat: unknown remat_policy 'dots\\+mlp'"),
-    (["--loss", "siglip_ring"], "ROADMAP.md queue 1, item 6"),
+    (["--loss", "siglip_ring"], "--loss siglip_ring needs --mesh"),
     (["--remat", "dots+attn"], "never emits them; use attn_impl='saveable'"),
 ])
 def test_train_cli_refusals(argv, match):

@@ -1,0 +1,173 @@
+"""What the ranks of the port's parallel tests run (``torch_rank_pool``):
+module-level functions of numpy inputs that return numpy results, so the
+test processes (which hold JAX) compare them. Nothing here imports JAX."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from jimm_tpu_torch.parallel import comm, seqpar
+from jimm_tpu_torch.parallel.mesh import make_mesh
+from jimm_tpu_torch.parallel.ring_attention import ring_attention
+from jimm_tpu_torch.parallel.ulysses import ulysses_attention
+from jimm_tpu_torch.train import losses
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _np(t: torch.Tensor | None):
+    return None if t is None else t.detach().cpu().numpy()
+
+
+# -- collectives ------------------------------------------------------------
+
+def collectives(axes: dict, axis, x: np.ndarray, w: np.ndarray) -> dict:
+    """Each collective on this rank's piece of ``x`` (its position's row
+    block along the axis) and the gradient of ``sum(w_piece * y)``; the
+    test rebuilds the dense answers."""
+    mesh = make_mesh(axes)
+    grp = comm.axis_group(axis, mesh)
+    n, i = grp.size, grp.index
+    rows = x.shape[0] // n
+    mine = _t(x[i * rows:(i + 1) * rows]).requires_grad_()
+    out = {"index": i, "size": n}
+    cases = {
+        "ppermute": lambda t: comm.ppermute(t, axis,
+                                            comm.ring_perm(n, 1), mesh=mesh),
+        "ppermute_partial": lambda t: comm.ppermute(t, axis, [(0, n - 1)],
+                                                    mesh=mesh),
+        "all_gather": lambda t: comm.all_gather(t, axis, dim=1, mesh=mesh),
+        "all_to_all": lambda t: comm.all_to_all(t, axis, split_dim=1,
+                                                concat_dim=0, mesh=mesh),
+        "psum": lambda t: comm.psum(t, axis, mesh=mesh),
+    }
+    for name, fn in cases.items():
+        y = fn(mine)
+        wy = _t(w[:y.numel()].reshape(y.shape) + i)
+        (g,) = torch.autograd.grad((y * wy).sum(), mine)
+        out[name] = (_np(y), _np(g), _np(wy))
+    return out
+
+
+def layouts(batch: np.ndarray) -> dict:
+    """``make_hybrid_mesh`` and ``shard_batch`` on this rank: the mesh's
+    dims and shape, and this rank's rows of ``batch`` under ``dp`` (the
+    ``data`` axis) and ``hybrid_fsdp_tp``'s batch axes."""
+    from jimm_tpu_torch.parallel import sharding
+    from jimm_tpu_torch.parallel.mesh import make_hybrid_mesh, mesh_shape
+    mesh = make_hybrid_mesh({"data": 2}, {"replica": 2})
+    return {"shape": mesh_shape(mesh), "rank": dist.get_rank(),
+            "dp": sharding.shard_batch({"x": batch, "y": (batch, batch)},
+                                       mesh, "dp"),
+            "pair": sharding.shard_batch(batch, mesh,
+                                         sharding.HYBRID_FSDP_TP)}
+
+
+# -- ring losses --------------------------------------------------------------
+
+def ring_loss(axes: dict, axis, kind: str, x_img, x_txt, w_img, w_txt,
+              scale, bias) -> dict:
+    """The ring loss of ``(x @ w)`` embeddings over ``axis``, this rank's
+    rows of the batch; the loss and this rank's parameter gradients."""
+    mesh = make_mesh(axes)
+    grp = comm.axis_group(axis, mesh)
+    rows = x_img.shape[0] // grp.size
+    sl = slice(grp.index * rows, (grp.index + 1) * rows)
+    params = [_t(p).requires_grad_() for p in (w_img, w_txt, scale, bias)]
+    img = _t(x_img[sl]) @ params[0]
+    txt = _t(x_txt[sl]) @ params[1]
+    if kind == "siglip_ring":
+        loss = losses.ring_sigmoid_loss(img, txt, params[2], params[3],
+                                        mesh=mesh, axis_name=axis)
+    else:
+        loss = losses.ring_clip_infonce_loss(img, txt, params[2], mesh=mesh,
+                                             axis_name=axis)
+    loss.backward()
+    return {"loss": float(loss), "ring": grp.ranks,
+            "grads": [_np(p.grad) if p.grad is not None else None
+                      for p in params]}
+
+
+# -- attention ------------------------------------------------------------------
+
+def attention(scheme: str, q, k, v, do, mask=None, **kw) -> dict:
+    """One sequence-parallel scheme over a ``seq`` axis of every rank, on
+    this rank's chunk of the global q/k/v/mask, backward with its chunk of
+    ``do``: this rank's chunks of o, dq, dk, dv."""
+    mesh = make_mesh({"seq": dist.get_world_size()})
+    grp = comm.axis_group("seq", mesh)
+    s = q.shape[1] // grp.size
+    sl = slice(grp.index * s, (grp.index + 1) * s)
+    qkv = [_t(x[:, sl]).requires_grad_() for x in (q, k, v)]
+    m = None if mask is None else _t(mask[:, sl])
+    if scheme == "ring_sp":
+        o = seqpar.ring_attention_sp(*qkv, mask=m, mesh=mesh, **kw)
+    elif scheme == "ulysses":
+        o = ulysses_attention(*qkv, mask=m, mesh=mesh, **kw)
+    elif scheme == "ring":
+        o = ring_attention(*qkv, mesh=mesh, **kw)
+    else:
+        raise ValueError(scheme)
+    o.backward(_t(do[:, sl]))
+    return {"o": _np(o), "grads": [_np(x.grad) for x in qkv]}
+
+
+# -- the train command ------------------------------------------------------------
+
+def fsdp_layout(preset_name: str, rules: str) -> dict:
+    """A tiny ``preset_name`` laid out by ``shard_model`` over a ``data``
+    mesh of every rank: each parameter's spec (``partition_specs``, taken
+    first), the dimension FSDP2 shards it on (None: whole on this rank),
+    and the parameters whose gradients ``finish_gradients`` averages."""
+    from torch.distributed.tensor import DTensor
+
+    from jimm_tpu_torch import cli
+    from jimm_tpu_torch.configs import preset
+    from jimm_tpu_torch.parallel import sharding
+    model = cli.MODELS[cli.family(preset_name)](
+        cli.tiny_override(preset(preset_name)), device="cpu")
+    mesh = make_mesh({"data": dist.get_world_size()})
+    specs = sharding.partition_specs(model, mesh, rules)
+    names = {id(p): n for n, p in model.named_parameters()}
+    sharding.shard_model(model, mesh, rules)
+    dims = {n: (p.placements[0].dim if isinstance(p, DTensor) else None)
+            for n, p in model.named_parameters()}
+    from jimm_tpu_torch.train.trainer import OptimizerConfig, make_optimizer
+    opt = make_optimizer(model, OptimizerConfig())
+    return {"specs": specs, "dims": dims, "averaged": [
+        names[id(p)] for p in model._jimm_plan.replicated],
+        # (DTensor, plain) parameters in each optimizer group
+        "groups": [(sum(isinstance(p, DTensor) for p in g["params"]),
+                    sum(not isinstance(p, DTensor) for p in g["params"]))
+                   for g in opt.opt.param_groups]}
+
+
+def train_cli(argv: list[str], weights: dict | None = None) -> dict:
+    """``python -m jimm_tpu_torch <argv>`` on this rank (inside the pool's
+    group), the tiny preset started from ``weights`` (a JAX model's
+    parameters: the two packages seed differently); the return code and
+    the ring bytes this rank counted."""
+    from jimm_tpu_torch import cli, obs
+    from jimm_tpu_torch.models.common import load_jax_params
+    real = cli.build_run_model
+
+    def from_jax(spec, *a, **kw):
+        model, fresh = real(spec, *a, **kw)
+        if weights is not None:
+            load_jax_params(model, weights)
+        return model, fresh
+
+    cli.build_run_model = from_jax
+    obs.reset_journal()
+    ring = obs.get_registry("jimm_ring").counter(
+        "jimm_ring_bytes_permuted_total")
+    before = ring.value
+    try:
+        rc = cli.main(argv)
+    finally:
+        cli.build_run_model = real
+    return {"rc": rc, "ring_bytes": ring.value - before}
