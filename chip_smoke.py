@@ -339,7 +339,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                ``obs timeline`` over the phase's journal, the ring's
                captures and (b)'s goodput report, validated.
 18. parallel -- two ranks on the one card over gloo (this script again,
-               ``--rank-task``, under ``python -m torch.distributed.run``;
+               ``--rank-task runs``, under ``python -m
+               torch.distributed.run``, one launch for phases 18 and 19's
+               two-rank runs, one after another in one process group;
                any rank's non-zero exit fails the phase), SigLIP-B/16-256
                width, bf16: (a) the seqpar ring (softmax, masked with
                key lengths crossing the shard boundary, sigmoid), Ulysses
@@ -365,6 +367,25 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                step, the backend, the ring bytes and each rank's peak
                memory; the kernels' record gains the ``mesh*`` paths
                (rank 0's launches).
+19. model and stage axes -- phase 18's launcher and gates, SigLIP-B/16-256
+               at full width and depth, bf16, phase 5(c)'s command at
+               batch 128: (a) ``--mesh data=1,model=2 --rules tp`` (two
+               ranks, each on its slices: q/k/v and fc1 column-parallel,
+               the attention on 6 of the 12 heads, out and fc2
+               row-parallel); (b) ``--mesh data=1,stage=2 --rules pp``
+               with 4 microbatches, and again with ``--pipeline-virtual
+               2`` (saving step 0); (c) ``--mesh data=2,model=2 --rules
+               fsdp_tp``, four ranks (a launch of its own); (d) (b)'s V = 2 checkpoint resumed
+               in this process as ``--mesh data=1``, one rank over NCCL
+               (one topology change, its losses within one bf16 step of
+               (b)'s). Each run's losses within one bf16 step of phase
+               5(c)'s, step 0's whole gradient norms (slices and blocks
+               gathered) within 5e-2 of phase 5(c)'s, each rank's launches
+               of rows 3/7/1/2 those of a step (25/25/48/48 under the model
+               axis; 49/49/96/96 under pp: each stage's 6 blocks a tower
+               on 4 microbatches, the MAP probe once); the record gains the
+               ``mesh_tp``, ``mesh_pp``, ``mesh_pp_v2``, ``mesh_fsdp_tp``
+               and ``mesh_pp_resume`` paths.
 
 Phase 3's flash cases include row 3's causal kind at CLIP-B/16's text
 shapes, (32, 77, 8, 64) and the 70 prompt rows of one label set (70, 77,
@@ -5100,11 +5121,16 @@ def profile_phase(card: str, root: pathlib.Path, off: dict,
 #: tower at batch 64: 128 tokens a rank over two ranks)
 MESH_QSHAPE = (64, 256, 12, 64)
 MESH_RANKS = 2
-MESH_STEPS = 5
+#: phase 5(c)'s steps: the learning-rate schedule decays over the run's
+#: steps, so a run of fewer steps takes other updates from step 1 on
+MESH_STEPS = CLI_STEPS
 #: launches a rank makes per step: (flash fwd, flash bwd, LN fwd, LN bwd);
 #: under sp each of the 24 blocks' attention is two ring hops, the MAP
-#: probe one call over the gathered tokens
-MESH_STEP = {"dp": (25, 25, 48, 48), "sp": (49, 49, 48, 48)}
+#: probe one call over the gathered tokens; under tp each block's attention
+#: one call on the rank's heads; under pp a stage runs its 6 blocks of each
+#: tower on each of 4 microbatches, and the MAP probe once on the batch
+MESH_STEP = {"dp": (25, 25, 48, 48), "sp": (49, 49, 48, 48),
+             "tp": (25, 25, 48, 48), "pp": (49, 49, 96, 96)}
 #: phase 18(a)'s bf16 gate: phase 3's cosine, and two bf16 steps of the
 #: largest value where phase 3 allows one. Each hop's kernel rounds its o
 #: (and dq, dk, dv) to bf16 before the merge, as JAX's ring does, so the
@@ -5128,7 +5154,7 @@ MESH_BF16_REL_ERR = 2 * BF16_REL_ERR
 #: zero over both hops), so that rounding is amplified where
 #: the component dominates: 4.29e-2 on block 10's q weight on an H100
 #: (5.32e-3 at most under dp and fsdp)
-MESH_GRAD_RTOL = {"dp": 5e-2, "sp": 0.15}
+MESH_GRAD_RTOL = {"dp": 5e-2, "sp": 0.15, "tp": 5e-2, "pp": 5e-2}
 ZERO_GRAD = "attn.k.bias"
 
 
@@ -5149,9 +5175,9 @@ def first_grad_norms():
     """Record, at the first call of the trainer's ``finish_gradients``
     (after the ranks' gradients are averaged, before clipping), the norm of
     each parameter's whole gradient, by name, into the dict this yields.
-    An FSDP2 shard is gathered first: on a mesh every rank makes the
-    call."""
-    from jimm_tpu_torch.parallel.sharding import full_tensor
+    FSDP2 shards, model slices and other stages' blocks are gathered first
+    (``sharding.gather_whole``): on a mesh every rank makes the call."""
+    from jimm_tpu_torch.parallel.sharding import gather_whole
     from jimm_tpu_torch.train import trainer
     norms: dict[str, float] = {}
     real = trainer.finish_gradients
@@ -5160,9 +5186,10 @@ def first_grad_norms():
         real(model)
         if norms:
             return
-        for name, p in model.named_parameters():
-            if p.grad is not None:
-                norms[name] = full_tensor(p.grad).float().norm().item()
+        grads = {name: p.grad for name, p in model.named_parameters()
+                 if p.grad is not None}
+        for name, g in gather_whole(model, grads).items():
+            norms[name] = g.float().norm().item()
 
     with mock.patch.object(trainer, "finish_gradients", finish):
         yield norms
@@ -5306,31 +5333,40 @@ def attention_task(out: pathlib.Path) -> None:
     check(not failed, f"mesh attention: {failed}")
 
 
-def train_task(out: pathlib.Path, argv: list[str]) -> None:
-    """Phase 18(b)/(c) on one rank: ``python -m jimm_tpu_torch <argv>``
-    (``train --mesh ...``) in this process, its launches counted and step
-    0's gradient norms recorded."""
+def train_task(out: pathlib.Path, what: str, argv: list[str]) -> None:
+    """Phases 18(b)/(c) and 19 on one rank: ``python -m jimm_tpu_torch
+    <argv>`` (``train --mesh ...``) in this process, inside the launch's
+    process group, its launches counted and step 0's gradient norms
+    recorded."""
     ring = obs.get_registry("jimm_ring").counter(
         "jimm_ring_bytes_permuted_total")
+    before = ring.value
     torch.cuda.reset_peak_memory_stats()
     with first_grad_norms() as norms:
         zero_counts()
         rc = cli.main(argv)
         counts = read_counts()
-    _rank_json(out, "train", {
-        "rc": rc, "counts": counts, "ring_bytes": ring.value,
+    _rank_json(out, what, {
+        "rc": rc, "counts": counts, "ring_bytes": ring.value - before,
         "grad_norms": norms, "peak": torch.cuda.max_memory_allocated()})
 
 
 def rank_main(argv: list[str]) -> int:
-    """A rank of phase 18, started by ``torch.distributed.run``:
-    ``--rank-task attention|train --out DIR [-- TRAIN ARGV]``."""
-    task, out = argv[1], pathlib.Path(argv[3])
+    """A rank of phases 18 and 19, started by ``torch.distributed.run``:
+    ``--rank-task runs --out DIR --runs FILE``, the runs FILE lists (the
+    attention case, train commands), one after another in one process
+    group: a launch's start (imports, the kernels' load, the group, the
+    first step's warm-up) is paid once."""
+    from jimm_tpu_torch.parallel.mesh import initialize_distributed
+    out, runs = pathlib.Path(argv[3]), json.loads(
+        pathlib.Path(argv[5]).read_text())
     try:
-        if task == "attention":
-            attention_task(out)
-        else:
-            train_task(out, argv[argv.index("--") + 1:])
+        initialize_distributed()
+        for run in runs:
+            if run["task"] == "attention":
+                attention_task(out)
+            else:
+                train_task(out, run["what"], run["argv"])
     except SmokeFailure as e:
         print(f"chip_smoke rank: FAIL: {e}", file=sys.stderr, flush=True)
         return 1
@@ -5340,19 +5376,21 @@ def rank_main(argv: list[str]) -> int:
     return 0
 
 
-def ranks_run(card: str, what: str, task: str, root: pathlib.Path,
-              argv: list[str] = ()) -> list[dict]:
-    """Phase 18: this script as ``MESH_RANKS`` ranks on the one card
-    (``python -m torch.distributed.run --standalone``), rank 0's lines
-    printed with a ``mesh:`` prefix; any rank's failure fails the phase.
-    Returns each rank's record."""
+def ranks_run(card: str, what: str, root: pathlib.Path, runs: list[dict],
+              ranks: int = MESH_RANKS) -> dict[str, list[dict]]:
+    """Phases 18 and 19: this script as ``ranks`` ranks on the one card
+    (``python -m torch.distributed.run --standalone``) doing ``runs`` (each
+    ``{"what", "task": "attention"|"train", "argv"}``) in turn, rank 0's
+    lines printed with a ``mesh:`` prefix; any rank's failure fails the
+    phase. Returns each run's records, by rank."""
     out = root / what
     out.mkdir()
+    plan = root / f"{what}.runs.json"
+    plan.write_text(json.dumps(runs))
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", str(MESH_RANKS), str(pathlib.Path(
-               __file__).resolve()), "--rank-task", task, "--out", str(out)]
-    if argv:
-        cmd += ["--", *argv]
+           "--nproc-per-node", str(ranks), str(pathlib.Path(
+               __file__).resolve()), "--rank-task", "runs", "--out", str(out),
+           "--runs", str(plan)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
     for line in proc.stdout.splitlines():
@@ -5368,31 +5406,39 @@ def ranks_run(card: str, what: str, task: str, root: pathlib.Path,
     check(proc.returncode == 0,
           f"{what}: torch.distributed.run exited {proc.returncode}: "
           f"{proc.stderr[-3000:]}")
-    ranks = [json.loads((out / f"{task}-rank{r}.json").read_text())
-             for r in range(MESH_RANKS)]
-    print(f"mesh: {what}: {MESH_RANKS} ranks in "
+    records = {run["what"]: [json.loads(
+        (out / f"{run['what']}-rank{r}.json").read_text())
+        for r in range(ranks)] for run in runs}
+    print(f"mesh: {what}: {ranks} ranks ran {list(records)} in "
           f"{time.perf_counter() - t0:.1f} s; peak memory per rank "
-          f"{[r['peak'] for r in ranks]} bytes | {card}", flush=True)
-    return ranks
+          + ", ".join(f"{w} {[r['peak'] for r in rs]}"
+                      for w, rs in records.items()) + f" bytes | {card}",
+          flush=True)
+    return records
 
 
-def mesh_train(card: str, what: str, root: pathlib.Path, extra: list[str],
-               single: dict, kind: str) -> tuple[dict, list[dict]]:
-    """Phase 18(b)/(c): phase 5(c)'s train command with ``extra`` (a mesh)
-    as two ranks; every step's loss against the single-process command's
+def mesh_run(what: str, root: pathlib.Path, extra: list[str]) -> dict:
+    """Phase 5(c)'s train command with ``extra`` (a mesh), as a run of
+    :func:`ranks_run`, its metrics in ``root / f"{what}.jsonl"``."""
+    return {"what": what, "task": "train", "argv": [
+        "train", "--preset", "siglip-base-patch16-256", "--bf16",
+        "--ln-impl", "fused", "--steps", str(MESH_STEPS), "--batch-size",
+        str(TRAIN_BATCH), "--log-every", "1", "--metrics-file",
+        str(root / f"{what}.jsonl"), *extra]}
+
+
+def mesh_train(card: str, what: str, root: pathlib.Path, ranks: list[dict],
+               single: dict, kind: str) -> dict:
+    """Phases 18(b)/(c) and 19: the gates of a :func:`mesh_run` whose ranks
+    left ``ranks``: every step's loss against the single-process command's
     (``single``) within one bf16 step, each rank's step-0 gradient norms
     against its within ``MESH_GRAD_RTOL[kind]``, each rank's launches
-    those of ``MESH_STEP[kind]`` a step."""
-    gate = MESH_GRAD_RTOL[kind]
-    metrics = root / f"{what}.jsonl"
-    argv = ["train", "--preset", "siglip-base-patch16-256", "--bf16",
-            "--ln-impl", "fused", "--steps", str(MESH_STEPS), "--batch-size",
-            str(TRAIN_BATCH), "--log-every", "1", "--metrics-file",
-            str(metrics), *extra]
-    ranks = ranks_run(card, what, "train", root, argv)
-    logged = [json.loads(line) for line in metrics.read_text().splitlines()]
+    those of ``MESH_STEP[kind]`` a step. Returns the run's logged steps."""
+    gate, steps = MESH_GRAD_RTOL[kind], MESH_STEPS
+    logged = [json.loads(line) for line in
+              (root / f"{what}.jsonl").read_text().splitlines()]
     losses = [r["loss"] for r in logged]
-    want = [r["loss"] for r in single["logged"][:MESH_STEPS]]
+    want = [r["loss"] for r in single["logged"][:steps]]
     check(within_a_bf16_step(losses, want),
           f"{what}: losses {losses} vs the single-process command's {want}")
     ref = single["grad_norms"]
@@ -5419,15 +5465,15 @@ def mesh_train(card: str, what: str, root: pathlib.Path, extra: list[str],
     fwd, bwd, ln_f, ln_b = MESH_STEP[kind]
     for r in ranks:
         c = r["counts"]
-        check(r["rc"] == 0 and c["flash_attention"] == fwd * MESH_STEPS
-              and c["flash_attention_bwd"] == bwd * MESH_STEPS
-              and c["layer_norm"] == ln_f * MESH_STEPS
-              and c["layer_norm_bwd"] == ln_b * MESH_STEPS,
-              f"{what}: rank launches {c} over {MESH_STEPS} steps")
+        check(r["rc"] == 0 and c["flash_attention"] == fwd * steps
+              and c["flash_attention_bwd"] == bwd * steps
+              and c["layer_norm"] == ln_f * steps
+              and c["layer_norm_bwd"] == ln_b * steps,
+              f"{what}: rank launches {c} over {steps} steps")
     times = [r["step_time_s"] for r in logged[1:]]
     print(f"mesh: {what}: losses {losses} (single process {want}); median "
           f"step {statistics.median(times) * 1e3:.1f} ms over steps 1-"
-          f"{MESH_STEPS - 1} (two ranks sharing one card); step 0's "
+          f"{steps - 1} ({len(ranks)} ranks sharing one card); step 0's "
           f"{len(dev[0])} gradient norms against the single process's: "
           f"largest relative deviation {dev[0][worst]:.3e} ({worst}), the "
           f"{len(zero)} key biases' at most {key_bias / top:.3e} of the "
@@ -5435,17 +5481,30 @@ def mesh_train(card: str, what: str, root: pathlib.Path, extra: list[str],
           f"norms {sum(ranks[0]['grad_norms'].values())!r} vs "
           f"{sum(ref.values())!r}; jimm_ring_bytes_permuted_total per rank "
           f"{[r['ring_bytes'] for r in ranks]} | {card}", flush=True)
-    return {"ranks": ranks, "logged": logged}, ranks
+    return logged
 
 
-def parallel_phase(card: str, root: pathlib.Path, single: dict
-                   ) -> dict[str, dict]:
-    """Phase 18: (a) the sequence-parallel attention on two ranks; (b)
-    ``train --mesh data=2`` under ``dp`` and ``fsdp`` (the latter saving a
-    checkpoint at step 0); (c) ``--mesh seq=2 --rules sp``; (d)+(e) the
-    checkpoint resumed as ``--mesh data=1 --rules fsdp``, one rank over
-    NCCL in this process. Returns rank 0's launches per path."""
-    ranks = ranks_run(card, "attention", "attention", root)
+def parallel_runs(root: pathlib.Path) -> list[dict]:
+    """Phase 18's two-rank runs (:func:`ranks_run`): (a) the
+    sequence-parallel attention; (b) ``train --mesh data=2`` under ``dp``
+    and ``fsdp`` (the latter saving a checkpoint at step 0); (c) ``--mesh
+    seq=2 --rules sp``."""
+    return [
+        {"what": "attention", "task": "attention"},
+        mesh_run("mesh_dp", root, ["--mesh", "data=2", "--rules", "dp"]),
+        mesh_run("mesh_fsdp", root, ["--mesh", "data=2", "--rules", "fsdp",
+                                     "--ckpt-dir", str(root / "ckpt"),
+                                     "--save-every", "100"]),
+        mesh_run("mesh_sp", root, ["--mesh", "seq=2", "--rules", "sp"])]
+
+
+def parallel_phase(card: str, root: pathlib.Path, single: dict,
+                   runs: dict[str, list[dict]]) -> dict[str, dict]:
+    """Phase 18: the gates of :func:`parallel_runs`' ``runs``, then
+    (d)+(e) (b)'s checkpoint resumed as ``--mesh data=1 --rules fsdp``, one
+    rank over NCCL in this process. Returns rank 0's launches per path."""
+    ckpt = root / "ckpt"
+    ranks = runs["attention"]
     for name in ranks[0]["cases"]:
         print(f"mesh: attention {name} {MESH_QSHAPE} bf16, this rank's "
               f"chunk fwd+bwd: " + ", ".join(
@@ -5462,19 +5521,13 @@ def parallel_phase(card: str, root: pathlib.Path, single: dict
           f"jimm_ring_bytes_permuted_total per rank "
           f"{[r['ring_bytes'] for r in ranks]} | {card}", flush=True)
     paths = {"mesh_attention": c}
-    ckpt = root / "ckpt"
-    for rules, extra in (("dp", []), ("fsdp", ["--ckpt-dir", str(ckpt),
-                                               "--save-every", "100"])):
-        run, rk = mesh_train(card, f"mesh_{rules}", root,
-                             ["--mesh", "data=2", "--rules", rules, *extra],
-                             single, "dp")
-        paths[f"mesh_{rules}"] = rk[0]["counts"]
-        if rules == "fsdp":
-            whole = run["logged"]
-    _, rk = mesh_train(card, "mesh_sp", root,
-                       ["--mesh", "seq=2", "--rules", "sp"], single, "sp")
-    check(all(r["ring_bytes"] > 0 for r in rk), "sp moved no ring bytes")
-    paths["mesh_sp"] = rk[0]["counts"]
+    logged = {what: mesh_train(card, what, root, runs[what], single, kind)
+              for what, kind in (("mesh_dp", "dp"), ("mesh_fsdp", "dp"),
+                                 ("mesh_sp", "sp"))}
+    paths.update({what: runs[what][0]["counts"] for what in logged})
+    check(all(r["ring_bytes"] > 0 for r in runs["mesh_sp"]),
+          "sp moved no ring bytes")
+    whole = logged["mesh_fsdp"]
     # (d) + (e): step 0's checkpoint of the two-rank fsdp run, resumed by
     # one rank over NCCL
     topo = obs.get_registry("jimm_train").counter(
@@ -5507,6 +5560,75 @@ def parallel_phase(card: str, root: pathlib.Path, single: dict
     check(run["counts"]["flash_attention"] == 25 * (MESH_STEPS - 1),
           f"mesh_nccl launches {run['counts']}")
     paths["mesh"] = {k: sum(p[k] for p in paths.values()) for k in c}
+    return paths
+
+
+# -- phase 19: the model and stage axes ------------------------------------
+
+def model_stage_runs(root: pathlib.Path) -> list[dict]:
+    """Phase 19's two-rank runs (:func:`ranks_run`): (a) ``--rules tp``,
+    (b) ``--rules pp`` with V = 1 and 2 (the latter saving step 0)."""
+    pp = ["--mesh", "data=1,stage=2", "--rules", "pp"]
+    return [
+        mesh_run("mesh_tp", root, ["--mesh", "data=1,model=2", "--rules",
+                                   "tp"]),
+        mesh_run("mesh_pp", root, pp),
+        mesh_run("mesh_pp_v2", root, [*pp, "--pipeline-virtual", "2",
+                                      "--ckpt-dir", str(root / "ckpt_pp"),
+                                      "--save-every", "100"])]
+
+
+def model_stage_phase(card: str, root: pathlib.Path, single: dict,
+                      runs: dict[str, list[dict]]) -> dict[str, dict]:
+    """Phase 19: (c) ``--rules fsdp_tp`` on four ranks, the gates of it and
+    of :func:`model_stage_runs`' ``runs``, then (d) (b)'s V = 2 checkpoint
+    resumed by one NCCL rank in this process. Returns rank 0's launches
+    per path."""
+    ckpt = root / "ckpt_pp"
+    runs = dict(runs)
+    runs.update(ranks_run(card, "phase19c", root, [mesh_run(
+        "mesh_fsdp_tp", root, ["--mesh", "data=2,model=2", "--rules",
+                               "fsdp_tp"])], ranks=4))
+    logged = {what: mesh_train(card, what, root, runs[what], single, kind)
+              for what, kind in (("mesh_tp", "tp"), ("mesh_pp", "pp"),
+                                 ("mesh_pp_v2", "pp"), ("mesh_fsdp_tp", "tp"))}
+    paths = {what: runs[what][0]["counts"] for what in logged}
+    whole = logged["mesh_pp_v2"]
+    saved = json.loads((ckpt / "0" / "checkpoint.json").read_text())
+    check(saved["mesh"] == {"axes": {"data": 1, "stage": 2},
+                            "n_devices": 2},
+          f"the pp checkpoint's layout {saved['mesh']}")
+    # (d): step 0's checkpoint of the two-stage V = 2 run, every block
+    # under its own name, resumed by one rank over NCCL
+    topo = obs.get_registry("jimm_train").counter(
+        "checkpoint_topology_changes_total")
+    before = topo.value
+    run = run_train_command(
+        ["train", "--preset", "siglip-base-patch16-256", "--bf16",
+         "--ln-impl", "fused", "--steps", str(MESH_STEPS), "--batch-size",
+         str(TRAIN_BATCH), "--log-every", "1", "--mesh", "data=1",
+         "--ckpt-dir", str(ckpt), "--save-every", "100", "--resume"], card)
+    summary, logged = run["summary"], run["logged"]
+    check(run["rc"] == 0 and summary.get("backend") == "nccl"
+          and summary.get("start_step") == 1,
+          f"the one-rank NCCL resume of the pp checkpoint: {summary}")
+    check(topo.value - before == 1,
+          f"checkpoint_topology_changes_total moved {topo.value - before}")
+    check(not torch.distributed.is_initialized(), "the group outlived train")
+    got = [r["loss"] for r in logged]
+    want = [r["loss"] for r in whole[1:]]
+    check(within_a_bf16_step(got, want),
+          f"resumed losses {got} vs the two-stage run's {want}")
+    check(run["counts"]["flash_attention"] == 25 * (MESH_STEPS - 1)
+          and run["counts"]["layer_norm_bwd"] == 48 * (MESH_STEPS - 1),
+          f"mesh_pp_resume launches {run['counts']}")
+    times = [r["step_time_s"] for r in logged[1:]]
+    print(f"mesh: mesh_pp_resume: --mesh data=1 over NCCL resumed step 0's "
+          f"two-stage V=2 checkpoint: losses {got} (uninterrupted {want}); "
+          f"checkpoint_topology_changes_total +1; median step "
+          f"{statistics.median(times) * 1e3:.1f} ms; peak {run['peak']} "
+          f"bytes | {card}", flush=True)
+    paths["mesh_pp_resume"] = run["counts"]
     return paths
 
 
@@ -5598,8 +5720,14 @@ def main() -> int:
                                                train_run, ckpts["siglip"])
                 done("profiling")
         with tempfile.TemporaryDirectory() as tmp:
-            mesh_counts = parallel_phase(card, pathlib.Path(tmp), train_run)
+            # phases 18 and 19's two-rank runs in one launch
+            root = pathlib.Path(tmp)
+            runs = ranks_run(card, "mesh", root, parallel_runs(root)
+                             + model_stage_runs(root))
+            mesh_counts = parallel_phase(card, root, train_run, runs)
             done("parallel")
+            axes_counts = model_stage_phase(card, root, train_run, runs)
+            done("model and stage axes")
         check(all(math.isfinite(timed[k]["ms"]) for k in timed), "bad timing")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
@@ -5613,14 +5741,15 @@ def main() -> int:
     # sigmoid-attention SigLIP for the sigmoid kernels, and phase 11(b)'s
     # 12 biased calls for the bias kernels; launches_by_path also holds
     # phase 17's profiled steps ("profile") and served capture's traffic
-    # ("profile_serve")
+    # ("profile_serve"), phase 18's mesh runs and phase 19's runs under the
+    # model and stage axes (rank 0's launches)
     paths = {"serve": serve_counts, "train": train_counts,
              "naflex": naflex_counts, "int8_serve": int8_serve_counts,
              "int8_qk": int8_qk_counts, "fp8_hybrid": fp8_counts,
              "sigmoid": sigmoid_counts, "bias": bias_counts,
              **ckpt_counts, **zero_shot_counts, **rest_counts,
              "resilience": resilience_counts, "data": data_counts,
-             **profile_counts, **mesh_counts}
+             **profile_counts, **mesh_counts, **axes_counts}
     steps = {"train": CLI_STEPS, "naflex": CLI_STEPS, "int8_qk": CLI_STEPS,
              "fp8_hybrid": CLI_STEPS, "sigmoid": TRAIN_STEPS}
     main_path = {"flash_attention_masked": "naflex",

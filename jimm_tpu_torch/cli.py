@@ -76,7 +76,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from jimm_tpu_torch import obs
 from jimm_tpu_torch.configs import (PRESETS, CLIPConfig, SigLIPConfig,
                                     ViTConfig, family, parse_remat, preset,
-                                    with_runtime)
+                                    validate_pipeline, with_runtime)
 from jimm_tpu_torch.data import native, records, webdataset
 from jimm_tpu_torch.data.clip_tokenizer import CLIPTokenizer
 from jimm_tpu_torch.data.grain_pipeline import (CheckpointableGrainStream,
@@ -107,7 +107,7 @@ from jimm_tpu_torch.parallel.mesh import (initialize_distributed,
                                           mesh_shape, mesh_sizes,
                                           planned_world_size,
                                           shutdown_distributed)
-from jimm_tpu_torch.parallel.sharding import (NOT_PORTED, PART_2,
+from jimm_tpu_torch.parallel.sharding import (MODEL_STAGE_RULES, PART_3,
                                               PRESET_RULES, ShardingRules,
                                               shard_model, use_sharding)
 from jimm_tpu_torch.quant import quantize_model
@@ -270,19 +270,21 @@ def cmd_serve(args: argparse.Namespace) -> int:
 #: train flags of the JAX CLI that the port does not have yet -> where the
 #: ROADMAP queues them
 _TRAIN_NOT_PORTED = {
-    "pipeline_microbatches": PART_2,
-    "pipeline_virtual": PART_2,
-    "max_devices": PART_2,
+    "max_devices": PART_3,
 }
+#: the train command's sharding rules, the JAX CLI's choices
+#: (``hybrid_fsdp_tp`` is library API, as in JAX)
+TRAIN_RULES = ("replicated", "dp", "tp", "fsdp", "fsdp_tp", "sp", "fsdp_sp",
+               "pp")
 #: supervise options of the JAX CLI that need the mesh -> the ROADMAP item
 _SUPERVISE_NOT_PORTED = {
     "elastic": "mesh replanning between attempts, ROADMAP.md queue 1, "
-               "item 6 part 2 (resilience/elastic.py)",
+               "item 6 part 3 (resilience/elastic.py)",
     "shrink_plan": "an --elastic drill knob, ROADMAP.md queue 1, item 6 "
-                   "part 2 (resilience/elastic.py)",
+                   "part 3 (resilience/elastic.py)",
     "adapt": "the goodput advisor tunes --scan-unroll, a knob of the layer "
              "scan the port does not have, ROADMAP.md queue 1, item 6 "
-             "part 2 (resilience/elastic.py)",
+             "part 3 (resilience/elastic.py)",
 }
 #: the counters supervise reports on its ``resilience:`` line (the
 #: reference's set without --elastic and --adapt)
@@ -568,6 +570,8 @@ class TrainMesh:
     shard_count: int
     #: this process made the group (and leaves it at the end)
     owns_group: bool
+    #: the towers' pipeline fields under --rules pp
+    runtime: dict
 
     @property
     def rank(self) -> int:
@@ -580,12 +584,6 @@ def train_mesh(args: argparse.Namespace, fam: str) -> TrainMesh:
     data or seq axis, their axis ``("data", "seq")`` when seq > 1)."""
     axes = parse_mesh(args.mesh)
     name = args.rules or "dp"
-    if name in NOT_PORTED:
-        raise SystemExit(f"--rules {name} is not ported yet: {PART_2}")
-    for axis in ("model", "stage"):
-        if axes.get(axis, 1) > 1:
-            raise SystemExit(f"--mesh {axis}={axes[axis]} is not ported "
-                             f"yet: {PART_2}")
     rules = PRESET_RULES[name]
     loss, loss_axis = args.loss, "data"
     if fam != "vit":
@@ -611,13 +609,68 @@ def train_mesh(args: argparse.Namespace, fam: str) -> TrainMesh:
     if args.batch_size % count:
         raise SystemExit(f"--batch-size {args.batch_size} not divisible by "
                          f"the {count} ranks the batch shards over")
+    runtime = pipeline_runtime(args, axes)
     owns = not torch.distributed.is_initialized()
     initialize_distributed(device=args.device)
     mesh = make_mesh(axes)
     index = 0
     if rules.batch is not None:
         index = comm.axis_group(rules.batch, mesh).index
-    return TrainMesh(mesh, rules, loss, loss_axis, index, count, owns)
+    return TrainMesh(mesh, rules, loss, loss_axis, index, count, owns,
+                     runtime)
+
+
+def check_pipeline_flags(args: argparse.Namespace) -> None:
+    """The JAX CLI's refusals of the pipeline flags without ``--rules
+    pp``."""
+    if args.pipeline_virtual > 1 and args.rules != "pp":
+        raise SystemExit("--pipeline-virtual needs --rules pp")
+    if args.pipeline_microbatches:
+        if args.pipeline_microbatches < 1:
+            raise SystemExit("--pipeline-microbatches must be >= 1")
+        if args.rules != "pp":
+            raise SystemExit("--pipeline-microbatches needs --rules pp "
+                             "(layers sharded over the 'stage' mesh axis)")
+
+
+def pipeline_runtime(args: argparse.Namespace, axes: dict[str, int]
+                     ) -> dict:
+    """Under ``--rules pp``, the towers' pipeline fields (the config's 4
+    microbatches unless ``--pipeline-microbatches`` says otherwise;
+    ``--pipeline-virtual`` with the mesh's stage count), checked against
+    the preset's towers and this rank's batch before any group is made,
+    with the JAX CLI's messages; nothing otherwise."""
+    if args.rules != "pp":
+        return {}
+    runtime: dict = {"pipeline": True}
+    if args.pipeline_virtual > 1:
+        runtime.update(pp_virtual=args.pipeline_virtual,
+                       pp_stages=axes.get("stage", 0))
+    if args.pipeline_microbatches:
+        runtime["pp_microbatches"] = args.pipeline_microbatches
+    data = axes.get("data", 1)
+    if args.batch_size % data:
+        raise SystemExit(f"--batch-size {args.batch_size} is not "
+                         f"divisible by the data mesh axis ({data})")
+    if not args.from_pretrained:
+        cfg = preset(args.preset)
+        cfg = with_runtime(tiny_override(cfg) if args.tiny else cfg,
+                           **runtime)
+        validate_pipeline_towers(cfg, axes, args.batch_size // data)
+    return runtime
+
+
+def validate_pipeline_towers(cfg, axes: dict[str, int],
+                             local_batch: int) -> None:
+    """``validate_pipeline`` on each tower of ``cfg`` over ``axes``."""
+    try:
+        for tname in ("vision", "text"):
+            tower = getattr(cfg, tname, None)
+            if tower is not None:
+                validate_pipeline(tower, n_stages=axes.get("stage", 0),
+                                  local_batch=local_batch, tower_name=tname)
+    except ValueError as e:
+        raise SystemExit(f"pipeline config: {e}") from None
 
 
 def cmd_train(args: argparse.Namespace) -> int:
@@ -625,6 +678,7 @@ def cmd_train(args: argparse.Namespace) -> int:
         if getattr(args, flag):
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet: "
                              f"{where}")
+    check_pipeline_flags(args)
     if args.rules and not args.mesh:
         raise SystemExit("--rules needs --mesh")
     if args.loss and args.loss.endswith("_ring") and not args.mesh:
@@ -635,7 +689,15 @@ def cmd_train(args: argparse.Namespace) -> int:
                      "prof_ring"):
             if getattr(args, flag):
                 raise SystemExit(f"--{flag.replace('_', '-')} with --mesh is "
-                                 f"not ported yet: {PART_2}")
+                                 f"not ported yet: {PART_3}")
+    if (args.rules in MODEL_STAGE_RULES
+            and args.precision in ("fp8_hybrid", "int8_qk")):
+        # an fp8 Linear cut over 'model' needs its amax over the group
+        raise SystemExit(f"--precision {args.precision} under --rules "
+                         f"{args.rules} is not ported yet: {PART_3}")
+    if args.naflex and args.rules == "pp":
+        raise SystemExit("--naflex needs attention masks, which the "
+                         "pipelined path does not support yet")
     if args.journal:
         obs.configure_journal(args.journal)
     fam = family(args.preset)
@@ -686,6 +748,8 @@ def _train(args: argparse.Namespace, fam: str,
         runtime.update(attn_impl=None, vision={"attn_impl": "flash_masked"},
                        text={"attn_impl": "flash"})
     runtime = {k: v for k, v in runtime.items() if v}
+    if par is not None:
+        runtime.update(par.runtime)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     # --moment-dtype wins over --bf16-momentum
     moment_dtype = ({"f32": "float32", "bf16": "bfloat16"}[args.moment_dtype]
@@ -709,6 +773,10 @@ def _train(args: argparse.Namespace, fam: str,
     model, fresh_head = build_run_model(spec, device, dtype, runtime,
                                         args.seed)
     cfg = model.config
+    if par is not None and par.runtime and args.from_pretrained:
+        # the checkpoint gave the towers' depths
+        validate_pipeline_towers(cfg, mesh_shape(par.mesh),
+                                 args.batch_size // par.shard_count)
     model.train()
     # the precision policy's surgery, before the optimizer is built (as the
     # JAX train command orders it)
@@ -1733,16 +1801,20 @@ def build_parser() -> argparse.ArgumentParser:
                          "torch.distributed.run launch, e.g. data=2 or "
                          "data=2,seq=2 (-1: the remaining ranks); the batch "
                          "shards over it and the ring losses run on it")
-    sp.add_argument("--rules", default=None, choices=sorted(PRESET_RULES),
+    sp.add_argument("--rules", default=None, choices=TRAIN_RULES,
                     help="sharding rules preset on --mesh (default dp): "
-                         "replicated, dp, fsdp, sp, fsdp_sp; tp, fsdp_tp, "
-                         "hybrid_fsdp_tp and pp are not ported yet")
-    # the JAX CLI's flags that are not ported yet: accepted, then refused
-    # with their ROADMAP queue
-    sp.add_argument("--pipeline-microbatches", type=int, default=None,
-                    help=argparse.SUPPRESS)
-    sp.add_argument("--pipeline-virtual", type=int, default=None,
-                    help=argparse.SUPPRESS)
+                         "replicated, dp, fsdp, sp, fsdp_sp; tp and fsdp_tp "
+                         "(a model axis: tensor parallelism, fsdp_tp FSDP "
+                         "over data on top); pp (a stage axis: the "
+                         "pipelined encoders)")
+    sp.add_argument("--pipeline-microbatches", type=int, default=0,
+                    help="enable pipeline parallelism with N microbatches "
+                         "(needs a 'stage' mesh axis and --rules pp)")
+    sp.add_argument("--pipeline-virtual", type=int, default=1,
+                    help="interleaved PP: virtual chunks per stage "
+                         "(circular placement; shrinks the bubble ~Vx)")
+    # the JAX CLI's flag that is not ported yet: accepted, then refused
+    # with its ROADMAP queue
     sp.add_argument("--max-devices", type=int, default=None,
                     help=argparse.SUPPRESS)
     sp.set_defaults(func=cmd_train)

@@ -8,9 +8,12 @@ means the same thing to both packages), the runtime-field rule,
 temporal ViT ones included. The tests hold this copy equal to the JAX
 package's field by field.
 
-Fields that select a JAX execution strategy the port has not ported yet
-(``pipeline``, ``scan_unroll`` and the ``pp_*`` family) are kept for that
-equality; the port's modules reject the values they cannot honour.
+``scan_unroll`` selects a JAX execution strategy the port does not have
+(its blocks run in a Python loop); it is kept for that equality. The
+pipeline fields (``pipeline`` and the ``pp_*`` family) are honoured by the
+pipelined encoder (`jimm_tpu_torch/nn/transformer.py`), whose schedule
+checks, :func:`check_pp_schedule` and :func:`validate_pipeline`, are copies
+of JAX's with its messages.
 """
 
 from __future__ import annotations
@@ -47,6 +50,50 @@ def parse_remat(spec: str) -> dict[str, Any]:
         return {"remat": spec != "none", "remat_policy": "none"}
     remat_policy_parts(spec)
     return {"remat": True, "remat_policy": spec}
+
+
+def check_pp_schedule(M: int, V: int, *, n_stages: int | None = None,
+                      local_batch: int | None = None,
+                      prefix: str = "") -> None:
+    """Microbatch scheduling constraints -- the ONE implementation behind
+    both the parse-time validation (``validate_pipeline``) and the
+    trace-time checks in `parallel/pipeline.py`, so semantics and messages
+    cannot drift apart."""
+    if M < 1:
+        raise ValueError(prefix + f"n_microbatches must be >= 1, got {M}")
+    if V < 1:
+        raise ValueError(prefix + f"n_virtual must be >= 1, got {V}")
+    if n_stages is not None and V > 1 and M % n_stages:
+        raise ValueError(prefix + f"interleaved schedule needs microbatches "
+                         f"{M} divisible by {n_stages} stages")
+    if local_batch is not None and local_batch % M:
+        raise ValueError(prefix + f"local batch {local_batch} not divisible "
+                         f"by {M} microbatches")
+
+
+def validate_pipeline(tower, *, n_stages: int, local_batch: int | None = None,
+                      tower_name: str | None = None) -> None:
+    """Surface the pipeline constraints at config/CLI parse time. The same
+    function runs inside `nn/transformer.py`'s pipeline dispatch, and the
+    microbatch checks are shared with `parallel/pipeline.py` via
+    ``check_pp_schedule`` -- one implementation, both paths."""
+    if not getattr(tower, "pipeline", False):
+        return
+    M, V = tower.pp_microbatches, tower.pp_virtual
+    prefix = f"{tower_name} tower: " if tower_name else ""
+    check_pp_schedule(M, V, prefix=prefix)
+    if n_stages < 1:
+        raise ValueError(prefix + "pipeline=True needs an ambient mesh with "
+                         "a 'stage' axis (use use_sharding(mesh, PIPELINE))")
+    if tower.depth % (n_stages * V):
+        raise ValueError(prefix + f"depth {tower.depth} not divisible by "
+                         f"{n_stages} stages x {V} virtual chunks")
+    if V > 1 and tower.pp_stages and tower.pp_stages != n_stages:
+        raise ValueError(prefix + f"model was built for "
+                         f"pp_stages={tower.pp_stages} but the mesh has "
+                         f"{n_stages} stages")
+    check_pp_schedule(M, V, n_stages=n_stages, local_batch=local_batch,
+                      prefix=prefix)
 
 
 def normalize_act(name: str | None, default: str = "gelu") -> str:

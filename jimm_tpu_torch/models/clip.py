@@ -17,6 +17,7 @@ from jimm_tpu_torch.models.common import (build_loaded, hf_encoder_layers,
                                           init_params, resolve_device)
 from jimm_tpu_torch.nn.text import TextTower
 from jimm_tpu_torch.nn.vision import VisionTower
+from jimm_tpu_torch.parallel.sharding import gathered_linear
 from jimm_tpu_torch.weights.export import save_pretrained
 from jimm_tpu_torch.weights.loader import M, T, per_layer
 from jimm_tpu_torch.weights.resolve import resolve_checkpoint
@@ -52,13 +53,14 @@ class CLIP(nn.Module):
 
     def encode_image(self, images: torch.Tensor) -> torch.Tensor:
         """(B, H, W, C) -> unnormalized (B, projection_dim)."""
-        return self.visual_projection(self.vision(images))
+        return gathered_linear(self.visual_projection, self.vision(images))
 
     def encode_text(self, text: torch.Tensor) -> torch.Tensor:
         """(B, S) token ids -> unnormalized (B, projection_dim), pooled at
         the EOT token."""
         hidden = self.text(text)
-        return self.text_projection(self.text.pool(hidden, text))
+        return gathered_linear(self.text_projection,
+                               self.text.pool(hidden, text))
 
     def forward(self, images: torch.Tensor, text: torch.Tensor) -> torch.Tensor:
         """logits_per_image (B_img, B_txt): cosine similarities scaled by

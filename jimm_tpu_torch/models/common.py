@@ -103,12 +103,15 @@ def build_loaded(cls, cfg, weights: Mapping[str, torch.Tensor], *, device,
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
 
 
-def _port_entries(key: str, arr: np.ndarray, *, quantized: bool = False
+def _port_entries(key: str, arr: np.ndarray, *, quantized: bool = False,
+                  orders: Mapping[str, np.ndarray] | None = None
                   ) -> list[tuple[str, np.ndarray]]:
     """One JAX parameter -> the port (name, array) pairs it fills.
     ``quantized``: the key belongs to a JAX ``QuantLinear``, whose int8
     ``w_q`` (..., in, out) becomes the port's (..., out, in) buffer and
-    whose ``scale`` and ``bias`` keep their names."""
+    whose ``scale`` and ``bias`` keep their names. ``orders``: for an
+    encoder (by its path, e.g. ``vision.encoder``) whose JAX stack is
+    stored in circular pipeline order, the layer each row holds."""
     parts = key.split(".")
     leaf = parts[-1]
     if leaf == "kernel" or (quantized and leaf == "w_q"):
@@ -120,8 +123,10 @@ def _port_entries(key: str, arr: np.ndarray, *, quantized: bool = False
         return [(".".join(name), arr)]
     # stacked (layers, ...) -> one entry per layer module
     i = parts.index("blocks") + 1
-    return [(".".join(name[:i] + [str(layer)] + name[i:]), arr[layer])
-            for layer in range(arr.shape[0])]
+    order = (orders or {}).get(".".join(parts[:i - 1]))
+    return [(".".join(name[:i] + [str(layer if order is None
+                                      else order[layer])] + name[i:]),
+             arr[layer]) for layer in range(arr.shape[0])]
 
 
 @torch.no_grad()
@@ -142,9 +147,24 @@ def load_jax_params(model: nn.Module,
     histories: each JAX ``Fp8Linear``'s ``x_amax`` and ``w_amax`` ((depth,
     16) under the stacked blocks) fill the port's per-layer buffers.
 
+    A pipelined encoder configured with ``pp_virtual > 1`` and
+    ``pp_stages`` takes a JAX model of the same configuration, whose
+    stacked layers are stored in circular order
+    (``pipeline.circular_layer_order``): each row goes to the block of the
+    layer it holds, and the port's blocks stay in their natural order.
+
     Strict: every port parameter, quantized-weight buffer and amax history
     must be filled exactly once and every key used, with matching shapes;
     anything else raises."""
+    from jimm_tpu_torch.nn.transformer import Transformer
+    from jimm_tpu_torch.parallel.pipeline import circular_layer_order
+    orders = {}
+    for prefix, module in model.named_modules():
+        cfg = getattr(module, "cfg", None)
+        if (isinstance(module, Transformer) and cfg.pipeline
+                and cfg.pp_virtual > 1 and cfg.pp_stages):
+            orders[prefix] = circular_layer_order(cfg.depth, cfg.pp_stages,
+                                                  cfg.pp_virtual)
     own = dict(model.named_parameters())
     quant_parents = set()  # the JAX (stacked) paths of the QuantLinears
     for prefix, module in model.named_modules():
@@ -164,7 +184,8 @@ def load_jax_params(model: nn.Module,
         if value.dtype != np.int8:
             value = value.astype(np.float32)
         quantized = key.rpartition(".")[0] in quant_parents
-        for name, arr in _port_entries(key, value, quantized=quantized):
+        for name, arr in _port_entries(key, value, quantized=quantized,
+                                       orders=orders):
             if name not in own:
                 raise KeyError(f"JAX parameter {key!r} has no port "
                                f"counterpart ({name!r})")

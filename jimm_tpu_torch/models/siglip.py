@@ -23,6 +23,7 @@ from jimm_tpu_torch.models.common import (_port_entries, build_loaded,
                                           load_jax_params, resolve_device)
 from jimm_tpu_torch.nn.text import TextTower
 from jimm_tpu_torch.nn.vision import VisionTower
+from jimm_tpu_torch.parallel.sharding import gathered_linear
 from jimm_tpu_torch.weights.export import save_pretrained
 from jimm_tpu_torch.weights.loader import M, T, per_layer
 from jimm_tpu_torch.weights.resolve import resolve_checkpoint
@@ -84,7 +85,8 @@ class SigLIP(nn.Module):
         """(B, S) -> unnormalized (B, projection_dim): pooled, then the
         biased projection."""
         hidden = self.text(text)
-        return self.text_projection(self.text.pool(hidden, text))
+        return gathered_linear(self.text_projection,
+                               self.text.pool(hidden, text))
 
     def _logits(self, img: torch.Tensor, txt: torch.Tensor) -> torch.Tensor:
         """L2-normalize, scale by exp(logit_scale), add logit_bias:

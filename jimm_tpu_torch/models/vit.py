@@ -16,6 +16,7 @@ from jimm_tpu_torch.configs import (VisionConfig, ViTConfig, act_to_hf,
 from jimm_tpu_torch.models.common import (build_loaded, init_params,
                                           resolve_device)
 from jimm_tpu_torch.nn.vision import VisionTower
+from jimm_tpu_torch.parallel.sharding import gathered_linear
 from jimm_tpu_torch.weights.export import save_pretrained
 from jimm_tpu_torch.weights.loader import M, per_layer
 from jimm_tpu_torch.weights.resolve import resolve_checkpoint
@@ -53,7 +54,7 @@ class VisionTransformer(nn.Module):
         features without a head."""
         pooled = self.vision(images)
         if self.config.do_classification:
-            return self.classifier(pooled)
+            return gathered_linear(self.classifier, pooled)
         return pooled
 
     # -- HF checkpoints ----------------------------------------------------

@@ -15,7 +15,8 @@ from jimm_tpu_torch.nn.transformer import (Transformer, _layernorm,
                                            sequence_parallel)
 from jimm_tpu_torch.parallel.sharding import (gather_sequence,
                                               logical_constraint,
-                                              sequence_sharded)
+                                              sequence_sharded,
+                                              vocab_embedding)
 
 
 class TextTower(nn.Module):
@@ -31,7 +32,8 @@ class TextTower(nn.Module):
 
     def forward(self, text: torch.Tensor) -> torch.Tensor:
         """(B, S) int token ids -> (B, S, width) final hidden states."""
-        x = self.token_embed(text)
+        # on a model axis: this rank's slice of the vocabulary, summed
+        x = vocab_embedding(self.token_embed, text)
         # under a rule that shards the sequence: this rank's chunk
         seq = sequence_parallel(self.cfg, text.shape[1])
         x = (logical_constraint(x, "batch", "seq", None)

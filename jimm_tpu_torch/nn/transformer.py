@@ -13,6 +13,18 @@ projections. The LayerNorm outputs and the MLP activation run inside
 ``checkpoint_name`` blocks (``ln_out``, ``act_out``) that the remat
 policies of `jimm_tpu_torch/nn/remat.py` can keep; the projections that
 close the residual branches run inside ``branch_out``, which none keeps.
+
+Tensor parallelism: on a ``model`` axis (``parallel.sharding``) an
+attention or MLP whose ``tp`` group is set holds this rank's slices of its
+projections and runs Megatron-style: q/k/v and fc1 column-parallel on the
+replicated input (``comm.tp_copy``), the attention on the local heads,
+attention out and fc2 row-parallel (``comm.tp_row_linear``: the partial
+products summed in f32, the bias added once, one rounding).
+
+Pipeline parallelism (``cfg.pipeline``): the blocks run under
+`parallel/pipeline.py`'s schedule over the ambient mesh's ``stage`` axis,
+each stage on the blocks it holds (``keep_blocks``, kept under their
+global names, so checkpoints and ``save_pretrained`` stay canonical).
 """
 
 from __future__ import annotations
@@ -27,7 +39,9 @@ from jimm_tpu_torch.nn.remat import Dropout, checkpoint_block, context_fn
 from jimm_tpu_torch.ops.activations import get_activation
 from jimm_tpu_torch.ops.attention import dot_product_attention
 from jimm_tpu_torch.ops.library import checkpoint_name
-from jimm_tpu_torch.parallel.sharding import shard_sequence
+from jimm_tpu_torch.parallel import comm
+from jimm_tpu_torch.parallel.mesh import mesh_shape
+from jimm_tpu_torch.parallel.sharding import current_mesh, shard_sequence
 
 
 def sequence_parallel(cfg, length: int) -> str | None:
@@ -62,6 +76,9 @@ class Attention(nn.Module):
     The q/k/v it hands to attention are then strided views of one tensor,
     which the flash kernel reads in place."""
 
+    #: the ``model`` group whose ranks hold slices of the projections
+    tp: comm.AxisGroup | None = None
+
     def __init__(self, width: int, num_heads: int, *, is_causal: bool = False,
                  impl: str = "auto", fused_qkv: bool = False, device=None,
                  dtype=None):
@@ -82,6 +99,9 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, kv: torch.Tensor | None = None,
                 mask: torch.Tensor | None = None) -> torch.Tensor:
         b, sq, _ = x.shape
+        if self.tp is not None:
+            kv = None if kv is None else comm.tp_copy(kv, self.tp)
+            x = comm.tp_copy(x, self.tp)
         if kv is None and self.fused_qkv:
             w = torch.cat([self.q.weight, self.k.weight, self.v.weight])
             bias = torch.cat([self.q.bias, self.k.bias, self.v.bias])
@@ -91,16 +111,24 @@ class Attention(nn.Module):
             kv = x if kv is None else kv
             sk = kv.shape[1]
             q, k, v = self.q(x), self.k(kv), self.v(kv)
-        q = q.reshape(b, sq, self.num_heads, self.head_dim)
-        k = k.reshape(b, sk, self.num_heads, self.head_dim)
-        v = v.reshape(b, sk, self.num_heads, self.head_dim)
+        # the local heads: all of them, or this model rank's
+        q = q.reshape(b, sq, -1, self.head_dim)
+        k = k.reshape(b, sk, -1, self.head_dim)
+        v = v.reshape(b, sk, -1, self.head_dim)
         o = dot_product_attention(q, k, v, is_causal=self.is_causal,
                                   mask=mask, impl=self.impl)
+        o = o.reshape(b, sq, -1)
         with checkpoint_name("branch_out"):
-            return self.out(o.reshape(b, sq, self.num_heads * self.head_dim))
+            if self.tp is None:
+                return self.out(o)
+            return comm.tp_row_linear(o, self.out.weight, self.out.bias,
+                                      self.tp)
 
 
 class Mlp(nn.Module):
+    #: the ``model`` group whose ranks hold slices of fc1 and fc2
+    tp: comm.AxisGroup | None = None
+
     def __init__(self, width: int, mlp_dim: int, act: str, *, device=None,
                  dtype=None):
         super().__init__()
@@ -109,11 +137,16 @@ class Mlp(nn.Module):
         self.act = get_activation(act)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x = comm.tp_copy(x, self.tp)
         h = self.fc1(x)
         with checkpoint_name("act_out"):
             h = self.act(h)
         with checkpoint_name("branch_out"):
-            return self.fc2(h)
+            if self.tp is None:
+                return self.fc2(h)
+            return comm.tp_row_linear(h, self.fc2.weight, self.fc2.bias,
+                                      self.tp)
 
 
 class Block(nn.Module):
@@ -147,28 +180,60 @@ class Transformer(nn.Module):
     the fused LayerNorm). With ``cfg.remat`` each block is recomputed in
     the backward, keeping what ``cfg.remat_policy`` saves
     (`jimm_tpu_torch/nn/remat.py`); a forward without autograd runs the
-    blocks as they are. Pipeline parallelism is not ported yet and is
-    rejected."""
+    blocks as they are. With ``cfg.pipeline`` the blocks run pipelined over
+    the ambient mesh's ``stage`` axis (see the module docstring)."""
 
     def __init__(self, cfg: TransformerConfig, *, device=None, dtype=None):
         super().__init__()
-        if cfg.pipeline:
-            raise NotImplementedError(
-                "pipeline parallelism is not ported yet (ROADMAP.md queue 1, "
-                "item 6 part 2: the stage axis)")
         if cfg.remat:
             context_fn(cfg)  # a bad policy raises here, not in the step
         self.cfg = cfg
         self.blocks = nn.ModuleList(
             Block(cfg, device=device, dtype=dtype) for _ in range(cfg.depth))
 
-    def forward(self, x: torch.Tensor,
-                mask: torch.Tensor | None = None) -> torch.Tensor:
+    def keep_blocks(self, layers) -> None:
+        """Drop every block but ``layers`` (global indices), which keep
+        their names (``blocks.<i>``), in order: a stage's share of a
+        pipelined encoder."""
+        self.blocks = nn.ModuleDict({str(i): self.blocks[i]
+                                     for i in sorted(layers)})
+
+    def _block(self, i: int) -> Block:
+        return self.blocks[str(i) if isinstance(self.blocks, nn.ModuleDict)
+                           else i]
+
+    def _run(self, blocks, x: torch.Tensor,
+             mask: torch.Tensor | None) -> torch.Tensor:
         if not (self.cfg.remat and torch.is_grad_enabled()):
-            for block in self.blocks:
+            for block in blocks:
                 x = block(x, mask=mask)
             return x
         context = context_fn(self.cfg)
-        for block in self.blocks:
+        for block in blocks:
             x = checkpoint_block(block, x, mask, context)
         return x
+
+    def forward(self, x: torch.Tensor,
+                mask: torch.Tensor | None = None) -> torch.Tensor:
+        if not self.cfg.pipeline:
+            return self._run(self.blocks, x, mask)
+        if mask is not None:
+            raise ValueError(
+                "attention masks are not supported on the pipelined path "
+                "yet (the stage loop has no mask plumbing); use "
+                "pipeline=False — the non-pipelined path runs key-padding "
+                "masks on the flash kernel (impl='flash_masked' / 'auto')")
+        from jimm_tpu_torch.configs import validate_pipeline
+        from jimm_tpu_torch.parallel.pipeline import (held_layers,
+                                                      pipeline_forward)
+        mesh = current_mesh()
+        n_stage = mesh_shape(mesh).get("stage", 0) if mesh is not None else 0
+        validate_pipeline(self.cfg, n_stages=n_stage)
+        grp = comm.axis_group("stage", mesh)
+        chunks = [[self._block(i) for i in layers] for layers in held_layers(
+            self.cfg.depth, grp.size, self.cfg.pp_virtual, grp.index)]
+        return pipeline_forward(
+            lambda v, xm: self._run(chunks[v], xm, None), x,
+            n_microbatches=self.cfg.pp_microbatches,
+            n_virtual=self.cfg.pp_virtual, axis=grp,
+            params=[p for c in chunks for b in c for p in b.parameters()])

@@ -1,14 +1,16 @@
 """Parallelism over ``torch.distributed``: the counterpart of
-``jimm_tpu/parallel/``, the ``data`` and ``seq`` axes (the ``model`` and
-``stage`` axes, tensor and pipeline parallelism, are ROADMAP.md queue 1
-item 6 part 2).
+``jimm_tpu/parallel/``, the ``data``, ``seq``, ``model`` and ``stage``
+axes.
 
 - `mesh`: the process group (NCCL or gloo, chosen at setup) and named
   device meshes.
-- `comm`: differentiable collectives over a mesh axis.
+- `comm`: differentiable collectives over a mesh axis, and tensor
+  parallelism's conjugate operators.
 - `sharding`: the rules presets, ``use_sharding``, ``shard_model`` (full
-  copies with averaged gradients, or FSDP2), ``shard_batch`` and the
-  sequence axis of the towers.
+  copies with averaged gradients, FSDP2, slices over ``model``, a stage's
+  blocks), ``shard_batch`` and the sequence axis of the towers.
+- `pipeline`: the microbatched GPipe and interleaved schedules over
+  ``stage``.
 - `ring_attention`, `ulysses`, `seqpar`: attention over a sequence sharded
   across ranks (the seqpar hops on the flash kernels' ring-hop entry
   points).
@@ -19,6 +21,8 @@ from jimm_tpu_torch.parallel.mesh import (MESH_AXES, TOPOLOGIES,
                                           make_hybrid_mesh, make_mesh,
                                           make_topology, resolve_mesh_axis,
                                           shutdown_distributed)
+from jimm_tpu_torch.parallel.pipeline import (circular_layer_order,
+                                              num_ticks, pipeline_forward)
 from jimm_tpu_torch.parallel.ring_attention import (ring_attention,
                                                     zigzag_order,
                                                     zigzag_shard,
@@ -42,6 +46,7 @@ from jimm_tpu_torch.parallel.ulysses import ulysses_attention
 __all__ = [
     "MESH_AXES", "TOPOLOGIES", "initialize_distributed", "make_hybrid_mesh",
     "make_mesh", "make_topology", "resolve_mesh_axis", "shutdown_distributed",
+    "circular_layer_order", "num_ticks", "pipeline_forward",
     "ring_attention", "zigzag_order", "zigzag_shard", "zigzag_unshard",
     "plan_seq_parallel", "ring_attention_sp", "seq_parallel_attention",
     "seqpar_comm_bytes", "ulysses_attention", "ShardingRules",

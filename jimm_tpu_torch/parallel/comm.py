@@ -37,7 +37,8 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 __all__ = ["AxisGroup", "all_gather", "all_reduce_mean_", "all_to_all",
-           "axis_group", "axis_names", "ppermute", "psum", "ring_perm"]
+           "axis_group", "axis_names", "ppermute", "psum", "ring_perm",
+           "tp_copy", "tp_gather", "tp_reduce", "tp_row_linear"]
 
 AxisName = str | tuple[str, ...]
 
@@ -270,6 +271,108 @@ def psum(x: torch.Tensor, axis: AxisName | AxisGroup, *,
     if grp.pg is None:
         return x
     return _PSum.apply(x, grp)
+
+
+# -- tensor parallelism's operators ----------------------------------------
+# Under the ``model`` axis every rank of a group computes the same loss from
+# the same replicated activations, and each holds one shard of a layer's
+# weights. Megatron's operators then give every rank the gradient of that
+# one loss (not of the sum over the group, as the collectives above do): a
+# column-parallel product's input is copied forward and its partial input
+# gradients summed backward; a row-parallel product's partial outputs are
+# summed forward and the (replicated) output gradient passed through
+# backward; a column-parallel output gathered forward gives each rank its
+# own slice of the gradient backward.
+
+class _TpCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grp):
+        ctx.grp = grp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum(g, ctx.grp), None
+
+
+class _TpReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grp):
+        return _psum(x, grp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _TpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grp, dim):
+        ctx.grp, ctx.dim = grp, dim
+        return _gather(x, grp, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        grp = ctx.grp
+        return g.chunk(grp.size, dim=ctx.dim)[grp.index], None, None
+
+
+class _TpRowLinear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, grp):
+        ctx.save_for_backward(x, weight)
+        ctx.has_bias = bias is not None
+        flat = x.reshape(-1, x.shape[-1])
+        if flat.is_cuda and flat.dtype != torch.float32:
+            # the partial products leave the GEMM in f32, as the whole
+            # product's sum stays in f32 until its one rounding
+            y = torch.mm(flat, weight.t(), out_dtype=torch.float32)
+        else:
+            y = flat.float() @ weight.float().t()
+        dist.all_reduce(y, group=grp.pg)
+        if bias is not None:
+            y += bias.float()
+        return y.to(x.dtype).reshape(*x.shape[:-1], y.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        flat = g.reshape(-1, g.shape[-1])
+        dw = flat.t().mm(x.reshape(-1, x.shape[-1]))
+        db = flat.sum(0) if ctx.has_bias else None
+        return g.matmul(weight), dw, db, None
+
+
+def tp_row_linear(x: torch.Tensor, weight: torch.Tensor,
+                  bias: torch.Tensor | None, grp: AxisGroup) -> torch.Tensor:
+    """A row-parallel product: ``x`` (this rank's slice of the input
+    features) times this rank's slice ``weight`` of the input columns,
+    summed over the group in f32 and rounded once, plus ``bias`` once
+    (``tp_reduce`` of the rounded partial products would round twice more);
+    backward, the gradients of this rank's slices."""
+    if grp.pg is None:
+        return torch.nn.functional.linear(x, weight, bias)
+    return _TpRowLinear.apply(x, weight, bias, grp)
+
+
+def tp_copy(x: torch.Tensor, grp: AxisGroup) -> torch.Tensor:
+    """The input of a column-parallel product: ``x`` itself; backward, the
+    sum of the group's gradients."""
+    return x if grp.pg is None else _TpCopy.apply(x, grp)
+
+
+def tp_reduce(x: torch.Tensor, grp: AxisGroup) -> torch.Tensor:
+    """The output of a row-parallel product: the sum over the group;
+    backward, the gradient itself."""
+    return x if grp.pg is None else _TpReduce.apply(x, grp)
+
+
+def tp_gather(x: torch.Tensor, grp: AxisGroup, dim: int = -1
+              ) -> torch.Tensor:
+    """A column-parallel output made whole: the group's slices of ``dim``
+    concatenated in position order; backward, this rank's slice of the
+    gradient."""
+    return x if grp.pg is None else _TpGather.apply(x, grp, dim % x.ndim)
 
 
 @torch.no_grad()

@@ -13,6 +13,21 @@ implicitly from them, the port does explicitly:
   (:func:`shard_model`). FSDP2 gathers a unit's parameters into plain
   tensors before its forward, so the kernels' ctypes wrappers never see a
   ``DTensor``.
+- the ``model`` axis (``tp``, ``fsdp_tp``, ``hybrid_fsdp_tp``): a
+  parameter whose spec puts ``model`` on a dimension is replaced by this
+  rank's slice of it, a plain parameter of the local shape, and its module
+  runs Megatron-style on `comm.py`'s tensor-parallel operators:
+  column-parallel q/k/v and fc1 (``tp_copy``; the attention on
+  ``num_heads / model`` local heads), row-parallel attention out and fc2
+  (``tp_row_linear``: partial products summed in f32, the bias added
+  once), a vocab-parallel token embedding (``tp_reduce``), and
+  projections and a classifier whose sharded outputs are gathered
+  (``tp_gather``). Under ``fsdp_tp`` FSDP2 shards each local
+  slice further on its ``data`` dimension, over the ``data`` ranks of its
+  ``model`` position (HSDP over ``replica`` under ``hybrid_fsdp_tp``).
+- the ``stage`` axis (``pp``): a pipelined encoder (``cfg.pipeline``)
+  keeps only the blocks this stage runs (`parallel/pipeline.py`), under
+  their global names.
 - activations: the batch is this rank's slice (:func:`shard_batch`); under
   a rule that maps ``seq``, a tower whose sequence divides over the ``seq``
   axis runs its encoder on this rank's chunk of the tokens
@@ -20,8 +35,13 @@ implicitly from them, the port does explicitly:
   sequence-parallel schemes, and gathers the tokens back for pooling
   (:func:`gather_sequence`).
 
-The ``model`` and ``stage`` axes (``tp``, ``fsdp_tp``, ``hybrid_fsdp_tp``,
-``pp``) are ROADMAP.md queue 1 item 6 part 2.
+Gradients: ranks that saw different examples (every axis but ``model`` and
+``stage``) average them (:func:`finish_gradients`, FSDP2's
+reduce-scatter). Ranks along ``model`` and ``stage`` already hold the
+whole gradient of what they hold (see `comm.py` and `pipeline.py`).
+:func:`gather_whole` and :func:`local_piece` move between the local and
+the whole tensors (checkpoints), :func:`norm_groups` says over which ranks
+a gradient's square sums (the global norm).
 
 torch has no ``nnx.with_partitioning``, so the logical names of the port's
 parameters are one table (:data:`LOGICAL`, keyed by parameter name) that
@@ -41,6 +61,7 @@ from dataclasses import dataclass
 from typing import Any, Mapping, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor
@@ -52,9 +73,11 @@ MeshAxis = str | tuple[str, ...] | None
 #: a PartitionSpec: one mesh axis (or tuple, or None) per dimension
 Spec = tuple[MeshAxis, ...]
 
-#: what part 2 of the parallelism item brings
-PART_2 = ("ROADMAP.md queue 1 item 6 part 2 (the model and stage axes: "
-          "tensor and pipeline parallelism)")
+#: what part 3 of the parallelism item brings
+PART_3 = ("ROADMAP.md queue 1 item 6 part 3 (elastic resizing, "
+          "--max-devices, the fault drills, preemption saves and profilers "
+          "under --mesh, fp8_hybrid and int8_qk under the model and stage "
+          "axes)")
 
 
 @dataclass(frozen=True)
@@ -107,8 +130,8 @@ PRESET_RULES: dict[str, ShardingRules] = {
     "fsdp_sp": FSDP_SP,
     "pp": PIPELINE,
 }
-#: the presets of part 2
-NOT_PORTED = ("tp", "fsdp_tp", "hybrid_fsdp_tp", "pp")
+#: the presets that use the model or stage axis
+MODEL_STAGE_RULES = ("tp", "fsdp_tp", "hybrid_fsdp_tp", "pp")
 
 _LOGICAL_AXES = tuple(f.name for f in dataclasses.fields(ShardingRules))
 
@@ -245,43 +268,56 @@ def partition_specs(model: nn.Module, mesh: DeviceMesh | Mapping[str, int],
 
 @dataclass(frozen=True)
 class Plan:
-    """What ``shard_model`` left to :func:`finish_gradients`: the
-    parameters FSDP2 does not hold (all of them when no spec shards), in
-    the model's order, whose gradients are averaged over ``group``, every
-    rank of the mesh."""
+    """What ``shard_model`` left to the training step and the checkpoints.
+
+    - ``group``: the ranks that saw different examples (every mesh axis but
+      ``model`` and ``stage``), over which ``replicated`` -- the parameters
+      FSDP2 does not hold, in the model's order -- have their gradients
+      averaged.
+    - ``model``: this rank's ``model`` group (None: no model axis), and
+      ``tp_dims`` the dimension each of its sliced parameters is cut on.
+    - ``stage``: this rank's ``stage`` group (None: no stage axis), and
+      ``pipelined`` each pipelined encoder's block-name prefix with the
+      blocks every stage holds (position order).
+    - ``names``: the whole model's parameter names, in order."""
 
     group: comm.AxisGroup
     replicated: tuple[nn.Parameter, ...]
-
-
-def _check_rules(name: str | None, rules: ShardingRules,
-                 mesh: DeviceMesh) -> None:
-    if name in NOT_PORTED or rules in (TENSOR_PARALLEL, FSDP_TP,
-                                       HYBRID_FSDP_TP, PIPELINE):
-        raise NotImplementedError(f"sharding rules {name or rules} are not "
-                                  f"ported yet: {PART_2}")
-    shape = mesh_shape(mesh)
-    for axis in ("model", "stage"):
-        if shape.get(axis, 1) > 1:
-            raise NotImplementedError(f"a mesh {axis!r} axis is not ported "
-                                      f"yet: {PART_2}")
+    model: comm.AxisGroup | None = None
+    tp_dims: Mapping[str, int] = dataclasses.field(default_factory=dict)
+    stage: comm.AxisGroup | None = None
+    pipelined: tuple[tuple[str, tuple[tuple[int, ...], ...]], ...] = ()
+    names: tuple[str, ...] = ()
 
 
 def _fsdp_mesh(mesh: DeviceMesh) -> DeviceMesh:
     """FSDP2's mesh: shard over ``data``, replicate over the other axes --
     1-D over ``data``, or 2-D ``(replicate, shard)`` (HSDP) when another
-    axis (``seq`` under ``fsdp_sp``) has more than one rank."""
+    axis (``seq`` under ``fsdp_sp``, ``replica`` under ``hybrid_fsdp_tp``)
+    has more than one rank; one such mesh per ``model`` position, whose
+    ranks hold different slices."""
     names = list(mesh.mesh_dim_names)
     if "data" not in names:
         raise ValueError(f"FSDP shards over a 'data' axis; mesh "
                          f"{mesh_shape(mesh)} has none")
-    rest = [i for i, n in enumerate(names) if n != "data"]
-    if math.prod(mesh.mesh.shape[i] for i in rest) == 1:
-        return mesh["data"]
+    shape = mesh_shape(mesh)
     d = names.index("data")
-    ranks = mesh.mesh.permute(*rest, d).reshape(-1, mesh.mesh.shape[d])
-    return DeviceMesh(mesh.device_type, ranks,
-                      mesh_dim_names=("replicate", "data"))
+    rest = [i for i, n in enumerate(names) if n not in ("data", "model")]
+    n_rest = math.prod(mesh.mesh.shape[i] for i in rest)
+    if shape.get("model", 1) == 1:
+        if n_rest == 1:
+            return mesh["data"]
+        ranks = mesh.mesh.permute(
+            *[i for i in range(len(names)) if i != d], d).reshape(
+                -1, shape["data"])
+        return DeviceMesh(mesh.device_type, ranks,
+                          mesh_dim_names=("replicate", "data"))
+    m = names.index("model")
+    ranks = mesh.mesh.permute(m, *rest, d).reshape(
+        shape["model"], n_rest, shape["data"])
+    full = DeviceMesh(mesh.device_type, ranks,
+                      mesh_dim_names=("model", "replicate", "data"))
+    return full["data"] if n_rest == 1 else full["replicate", "data"]
 
 
 def _data_dim(spec: Spec) -> int | None:
@@ -292,27 +328,108 @@ def _data_dim(spec: Spec) -> int | None:
     return None
 
 
+def _model_dim(spec: Spec) -> int | None:
+    """The dimension ``spec`` shards over the ``model`` axis, or None."""
+    for dim, axis in enumerate(spec):
+        if "model" in comm.axis_names(axis):
+            return dim
+    return None
+
+
+def _split_model(model: nn.Module, specs: dict[str, Spec],
+                 grp: comm.AxisGroup) -> dict[str, int]:
+    """Replace every parameter whose spec shards a dimension over ``model``
+    by this rank's slice of it, and mark the modules that compute on the
+    slices (their ``tp`` group); returns each sliced parameter's
+    dimension."""
+    from jimm_tpu_torch.nn.transformer import Attention, Mlp
+    dims: dict[str, int] = {}
+    for prefix, module in model.named_modules():
+        for pname, p in list(module.named_parameters(recurse=False)):
+            full = f"{prefix}.{pname}" if prefix else pname
+            dim = _model_dim(specs[full])
+            if dim is None:
+                continue
+            piece = p.detach().chunk(grp.size, dim)[grp.index].clone()
+            setattr(module, pname, nn.Parameter(
+                piece, requires_grad=p.requires_grad))
+            dims[full] = dim
+    inner = set()  # the projections an Attention or Mlp runs itself
+    for prefix, module in model.named_modules():
+        if not isinstance(module, (Attention, Mlp)):
+            continue
+        inner.update(f"{prefix}.{name}" for name, _ in module.named_children())
+        first = "q" if isinstance(module, Attention) else "fc1"
+        if f"{prefix}.{first}.weight" not in dims:
+            continue
+        if isinstance(module, Attention) and module.num_heads % grp.size:
+            raise ValueError(f"{prefix}: {module.num_heads} heads do not "
+                             f"split over a {grp.size}-way model axis")
+        module.tp = grp
+    for prefix, module in model.named_modules():
+        # a projection, the classifier or the token embedding
+        if (isinstance(module, (nn.Linear, nn.Embedding))
+                and prefix not in inner and dims.get(f"{prefix}.weight") == 0):
+            module.tp = grp
+    return dims
+
+
+def _split_stages(model: nn.Module, grp: comm.AxisGroup
+                  ) -> tuple[tuple[str, tuple[tuple[int, ...], ...]], ...]:
+    """Keep, in every pipelined encoder, only the blocks this stage runs
+    (:func:`pipeline.held_layers`), under their global names; returns each
+    pipelined encoder's block prefix with every stage's blocks."""
+    from jimm_tpu_torch.nn.transformer import Transformer
+    from jimm_tpu_torch.parallel.pipeline import held_layers
+    out = []
+    for prefix, module in model.named_modules():
+        if not (isinstance(module, Transformer) and module.cfg.pipeline):
+            continue
+        cfg = module.cfg
+        held = tuple(tuple(sum(held_layers(cfg.depth, grp.size,
+                                           cfg.pp_virtual, d), []))
+                     for d in range(grp.size))
+        module.keep_blocks(held[grp.index])
+        out.append((f"{prefix}.blocks.", held))
+    return tuple(out)
+
+
 def shard_model(model: nn.Module, mesh: DeviceMesh,
                 rules: ShardingRules | str = REPLICATED) -> nn.Module:
     """Lay ``model`` out over ``mesh`` per ``rules`` (see the module
     docstring) and record the :class:`Plan` on it. Each parameter's layout
-    is its :func:`partition_specs` entry: a parameter whose spec shards a
-    dimension over ``data`` (``fsdp``/``fsdp_sp`` put ``embed`` there) is
-    an FSDP2 shard of that dimension (``shard_placement_fn``), every other
-    one stays whole on every rank (``ignored_params``), its gradient
-    averaged by :func:`finish_gradients`. ``fully_shard`` is applied to
-    every encoder block, then to every other child that holds parameters
-    (the towers with their embeddings, heads and final LayerNorms; the
-    projections; a classifier); the root's own parameters (logit scale and
-    bias) are 0-d, whole. A ``seq`` entry of a spec (``pos`` under
-    ``fsdp_sp``) shards activations, not parameters: the towers cut their
-    position embedding to the rank's tokens (:func:`logical_constraint`)."""
-    name = rules if isinstance(rules, str) else None
+    is its :func:`partition_specs` entry, taken on the whole model: a
+    dimension on ``model`` is sliced here; then a parameter whose spec
+    shards a dimension over ``data`` (``fsdp``, ``fsdp_sp`` and the tp
+    presets put ``embed`` there) is an FSDP2 shard of that dimension of
+    its slice (``shard_placement_fn``), every other one stays whole on
+    every rank (``ignored_params``), its gradient averaged by
+    :func:`finish_gradients`. ``fully_shard`` is applied to every encoder
+    block, then to every other child that holds parameters (the towers
+    with their embeddings, heads and final LayerNorms; the projections; a
+    classifier); the root's own parameters (logit scale and bias) are 0-d,
+    whole. A ``seq`` entry of a spec (``pos`` under ``fsdp_sp``) shards
+    activations, not parameters: the towers cut their position embedding
+    to the rank's tokens (:func:`logical_constraint`). A mesh with a
+    ``stage`` axis of more than one rank leaves each pipelined encoder the
+    blocks its stage runs."""
     rules = _rules(rules)
-    _check_rules(name, rules, mesh)
-    everything = comm.axis_group(tuple(mesh.mesh_dim_names), mesh)
-    dims = {p: _data_dim(spec) for p, spec in zip(
-        model.parameters(), partition_specs(model, mesh, rules).values())}
+    shape = mesh_shape(mesh)
+    specs = partition_specs(model, mesh, rules)
+    names = tuple(specs)
+    tp = stage = None
+    tp_dims: dict[str, int] = {}
+    pipelined: tuple = ()
+    if shape.get("model", 1) > 1:
+        tp = comm.axis_group("model", mesh)
+        tp_dims = _split_model(model, specs, tp)
+    if shape.get("stage", 1) > 1:
+        stage = comm.axis_group("stage", mesh)
+        pipelined = _split_stages(model, stage)
+    examples = comm.axis_group(tuple(
+        a for a in mesh.mesh_dim_names if a not in ("model", "stage")), mesh)
+    own = dict(model.named_parameters())
+    dims = {own[n]: _data_dim(specs[n]) for n in own}
     whole = {p for p, d in dims.items() if d is None}
     if len(whole) < len(dims):
         from torch.distributed.fsdp import fully_shard
@@ -327,20 +444,130 @@ def shard_model(model: nn.Module, mesh: DeviceMesh,
         for child in model.children():
             if any(True for _ in child.parameters()):
                 fully_shard(child, **kw)
-    model._jimm_plan = Plan(everything, tuple(
-        p for p in model.parameters() if not isinstance(p, DTensor)))
+    model._jimm_plan = Plan(
+        examples, tuple(p for p in model.parameters()
+                        if not isinstance(p, DTensor)),
+        tp, tp_dims, stage, pipelined, names)
     return model
+
+
+def plan_of(model: nn.Module) -> Plan | None:
+    """The :class:`Plan` ``shard_model`` recorded on ``model``, or None."""
+    return getattr(model, "_jimm_plan", None)
 
 
 def finish_gradients(model: nn.Module) -> None:
     """After the backward: average the gradients of the parameters that
-    FSDP2 does not reduce over every rank of the mesh (one all-reduce). A
-    no-op for a model ``shard_model`` did not lay out."""
-    plan: Plan | None = getattr(model, "_jimm_plan", None)
+    FSDP2 does not reduce over the ranks that saw different examples (one
+    all-reduce). A no-op for a model ``shard_model`` did not lay out."""
+    plan = plan_of(model)
     if plan is None:
         return
     grads = [p.grad for p in plan.replicated if p.grad is not None]
     comm.all_reduce_mean_(grads, plan.group)
+
+
+def _block_of(plan: Plan, name: str) -> tuple[int, int, str] | None:
+    """``(encoder, block, rest)`` of a pipelined encoder's block parameter
+    ``name`` (the encoder's position in ``plan.pipelined``), or None."""
+    for e, (prefix, _) in enumerate(plan.pipelined):
+        if name.startswith(prefix):
+            block, _, rest = name[len(prefix):].partition(".")
+            return e, int(block), rest
+    return None
+
+
+def norm_groups(model: nn.Module, name: str) -> tuple[comm.AxisGroup, ...]:
+    """The groups over which the square of parameter ``name``'s gradient
+    sums into the global norm, besides the FSDP2 shards' own: ``model``
+    for a sliced parameter, ``stage`` for a pipelined block's (each stage
+    holds other blocks); none for a parameter every rank of those axes
+    holds whole."""
+    plan = plan_of(model)
+    if plan is None:
+        return ()
+    out = ()
+    if name in plan.tp_dims:
+        out += (plan.model,)
+    if plan.stage is not None and _block_of(plan, name) is not None:
+        out += (plan.stage,)
+    return out
+
+
+def whole_names(model: nn.Module) -> tuple[str, ...]:
+    """The whole model's parameter names, every stage's blocks included."""
+    plan = plan_of(model)
+    if plan is None or not plan.names:
+        return tuple(n for n, _ in model.named_parameters())
+    return plan.names
+
+
+def whole_shape(model: nn.Module, name: str, shape: Sequence[int]
+                ) -> tuple[int, ...]:
+    """The whole shape of parameter ``name`` (or of a state tensor of its
+    shape) whose local tensor has ``shape``."""
+    plan = plan_of(model)
+    shape = list(shape)
+    if plan is not None and name in plan.tp_dims and shape:
+        shape[plan.tp_dims[name]] *= plan.model.size
+    return tuple(shape)
+
+
+def local_piece(model: nn.Module, name: str, whole: torch.Tensor
+                ) -> torch.Tensor:
+    """This rank's slice of the whole tensor of parameter ``name`` (or of
+    a state tensor of its shape) over ``model``; ``whole`` itself
+    otherwise. An FSDP2 shard is cut from it afterwards."""
+    plan = plan_of(model)
+    if plan is None or name not in plan.tp_dims or not whole.ndim:
+        return whole
+    grp = plan.model
+    return whole.chunk(grp.size, plan.tp_dims[name])[grp.index]
+
+
+def gather_whole(model: nn.Module, tensors: Mapping[str, torch.Tensor],
+                 param_of=lambda key: key) -> dict[str, torch.Tensor]:
+    """The whole tensors of this rank's ``tensors`` (parameters, or
+    optimizer state keyed so that ``param_of(key)`` is the parameter's
+    name): FSDP2 shards gathered (:func:`full_tensor`), model slices
+    gathered along their dimension, and every stage's pipelined blocks
+    broadcast from their stage (``dist.broadcast``, which gloo carries on
+    the card), under their global names. A collective: every rank of the
+    mesh calls it with the same keys but for the blocks' indices."""
+    plan = plan_of(model)
+    out = {k: full_tensor(t.detach()) for k, t in tensors.items()}
+    if plan is None:
+        return out
+    if plan.model is not None:
+        for k, t in out.items():
+            name = param_of(k)
+            if name in plan.tp_dims and t.ndim:
+                out[k] = comm._gather(t, plan.model, plan.tp_dims[name])
+    if plan.stage is None:
+        return out
+    grp = plan.stage
+    held: dict[int, list[tuple[int, str, str]]] = {}
+    for k in list(out):
+        where = _block_of(plan, param_of(k))
+        if where is not None:
+            e, block, _ = where
+            stages = plan.pipelined[e][1]
+            j = stages[grp.index].index(block)
+            rest = k[len(plan.pipelined[e][0]) + len(str(block)) + 1:]
+            held.setdefault(e, []).append((j, rest, k))
+    device = next(model.parameters()).device
+    for e, entries in sorted(held.items()):
+        prefix, stages = plan.pipelined[e]
+        entries.sort()
+        mine = {k: out.pop(k) for _, _, k in entries}
+        for s in range(grp.size):
+            for j, rest, k in entries:
+                t = mine[k]
+                buf = (t if s == grp.index else torch.empty_like(t)).to(
+                    device)
+                dist.broadcast(buf, src=grp.ranks[s], group=grp.pg)
+                out[f"{prefix}{stages[s][j]}.{rest}"] = buf.to(t.device)
+    return out
 
 
 def full_tensor(t: torch.Tensor) -> torch.Tensor:
@@ -371,6 +598,31 @@ def full_tensor(t: torch.Tensor) -> torch.Tensor:
                            for r, n in enumerate(sizes)]).movedim(
                                0, placement.dim)
     return whole
+
+
+def gathered_linear(linear: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``linear(x)``; for a linear whose ``tp`` group holds slices of its
+    output features (a projection or the classifier on a ``model`` axis),
+    the slices' outputs gathered whole on every rank of the group."""
+    grp = getattr(linear, "tp", None)
+    if grp is None:
+        return linear(x)
+    return comm.tp_gather(linear(comm.tp_copy(x, grp)), grp, dim=-1)
+
+
+def vocab_embedding(embed: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
+    """``embed(ids)``; for an embedding whose ``tp`` group holds slices of
+    the vocabulary, each rank looks up the ids in its slice (zeros for the
+    others) and the group sums the lookups."""
+    grp = getattr(embed, "tp", None)
+    if grp is None:
+        return embed(ids)
+    rows = embed.weight.shape[0]
+    local = ids - grp.index * rows
+    mine = (local >= 0) & (local < rows)
+    x = embed(torch.where(mine, local, 0)) * mine.unsqueeze(-1).to(
+        embed.weight.dtype)
+    return comm.tp_reduce(x, grp)
 
 
 def shard_batch(batch: Any, mesh: DeviceMesh,

@@ -30,10 +30,13 @@ marker exists: a marker is written only after its step's write is known
 to have finished, and restore trusts markers, not directory listings.
 
 On a mesh (``train --mesh``) every rank calls ``save`` and ``restore``:
-a parameter or state tensor that FSDP2 shards is gathered whole
-(``parallel.sharding.full_tensor``, a collective) on every rank and
+a parameter or state tensor that FSDP2 shards, that ranks of a ``model``
+axis hold slices of, or that another ``stage`` holds (a pipelined block)
+is gathered whole (``parallel.sharding.gather_whole``, collectives) and
 written by rank 0 alone (``writer``), so the files are those of an
-unsharded run; a restore puts each rank's shard of the saved tensor back. Each step's metadata
+unsharded run, blocks in their natural order under their own names (no
+relayout: the port never stores a pipeline's circular order); a restore
+puts each rank's piece of the saved tensors back. Each step's metadata
 records the mesh layout it was saved under (``{"axes", "n_devices"}``),
 and a restore onto another layout counts
 ``checkpoint_topology_changes_total`` (JAX's ``_note_mesh_change``).
@@ -60,7 +63,8 @@ from torch import nn
 from torch.distributed.tensor import DTensor, distribute_tensor
 
 from jimm_tpu_torch.obs import get_journal, get_registry, span
-from jimm_tpu_torch.parallel.sharding import full_tensor
+from jimm_tpu_torch.parallel.sharding import (gather_whole, local_piece,
+                                              whole_names, whole_shape)
 from jimm_tpu_torch.weights.safetensors_io import load_file, save_file
 
 __all__ = ["CheckpointManager", "CheckpointMismatchError", "METADATA_FILE"]
@@ -84,18 +88,28 @@ class CheckpointMismatchError(ValueError):
     never quarantined."""
 
 
-def _host(t: torch.Tensor) -> torch.Tensor:
-    """A copy of ``t`` in host memory (a synchronous device-to-host copy for
-    a card tensor); the whole tensor of an FSDP2 shard (a collective: every
-    rank of its mesh calls it)."""
-    return full_tensor(t.detach()).to("cpu", copy=True)
+def _host_whole(model: nn.Module, tensors: dict[str, torch.Tensor],
+                param_of=lambda key: key) -> dict[str, torch.Tensor]:
+    """Copies in host memory (synchronous device-to-host copies for card
+    tensors) of the whole tensors of this rank's ``tensors``
+    (``sharding.gather_whole``: collectives, every rank of the mesh calls
+    it)."""
+    return {k: t.to("cpu", copy=True) for k, t in
+            gather_whole(model, tensors, param_of).items()}
 
 
-def _place(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """The saved whole tensor ``full`` laid out like ``like``: on its
-    device, and for an FSDP2 ``DTensor`` this rank's shard of it (cut
+def _param_of(key: str) -> str:
+    """The parameter an optimizer-state key ``<name>.<state>`` is of."""
+    return key.rpartition(".")[0]
+
+
+def _place(full: torch.Tensor, like: torch.Tensor, model: nn.Module,
+           name: str) -> torch.Tensor:
+    """The saved whole tensor ``full`` of parameter ``name`` laid out like
+    ``like``: this rank's slice of it on a ``model`` axis, on ``like``'s
+    device, and for an FSDP2 ``DTensor`` this rank's shard of that (cut
     locally; every rank read the same file)."""
-    full = full.to(like.device, copy=True)
+    full = local_piece(model, name, full).to(like.device, copy=True)
     if isinstance(like, DTensor):
         return distribute_tensor(full, like.device_mesh, like.placements,
                                  src_data_rank=None)
@@ -149,8 +163,8 @@ def _optimizer_tensors(model: nn.Module, optimizer
             if not torch.is_tensor(value):
                 raise TypeError(f"optimizer state {names[id(p)]}.{key} is "
                                 f"not a tensor ({type(value).__name__})")
-            out[f"{names[id(p)]}.{key}"] = _host(value)
-    return out
+            out[f"{names[id(p)]}.{key}"] = value
+    return _host_whole(model, out, _param_of)
 
 
 def _check(name: str, got: torch.Tensor, shape: tuple[int, ...],
@@ -260,8 +274,8 @@ class CheckpointManager:
                     raise ValueError(f"Checkpoint for step {step} already "
                                      f"exists.")
                 with span("checkpoint_host_copy"):
-                    params = {name: _host(p)
-                              for name, p in model.named_parameters()}
+                    params = _host_whole(model, dict(
+                        model.named_parameters()))
                     opt = (_optimizer_tensors(model, optimizer)
                            if optimizer is not None else None)
                 meta = {"format": FORMAT, "step": step,
@@ -472,16 +486,19 @@ class CheckpointManager:
                      if meta.get("extra") else {})
             # every check before any write: a failed restore leaves the
             # model and optimizer as they were
+            # on a stage axis this rank holds some of the blocks
             targets = dict(model.named_parameters())
+            whole = set(whole_names(model))
             saved = load_file(d / MODEL_FILE)
-            if set(saved) != set(targets):
+            if set(saved) != whole:
                 raise CheckpointMismatchError(
                     f"checkpoint parameters differ from the model's: "
-                    f"missing {sorted(set(targets) - set(saved))[:5]}, "
-                    f"unexpected {sorted(set(saved) - set(targets))[:5]}")
-            params = {name: _check(name, t, tuple(targets[name].shape),
-                                   targets[name].dtype, cast)
-                      for name, t in saved.items()}
+                    f"missing {sorted(whole - set(saved))[:5]}, "
+                    f"unexpected {sorted(set(saved) - whole)[:5]}")
+            params = {name: _check(name, saved[name],
+                                   whole_shape(model, name, p.shape), p.dtype,
+                                   cast)
+                      for name, p in targets.items()}
             if optimizer is not None:
                 opt_meta = meta.get("optimizer")
                 if not opt_meta:
@@ -490,7 +507,8 @@ class CheckpointManager:
                 state = self._optimizer_state(d, model, optimizer)
             with torch.no_grad():
                 for name, t in params.items():
-                    targets[name].copy_(_place(t, targets[name]))
+                    targets[name].copy_(_place(t, targets[name], model,
+                                               name))
             if optimizer is not None:
                 for p, entries in state.items():
                     optimizer.opt.state[p] = entries
@@ -520,11 +538,15 @@ class CheckpointManager:
         step had none). Every saved tensor must be used."""
         saved = load_file(d / OPT_FILE)
         names = _names(model)
-        unused = set(saved)
+        # the state of the blocks other stages hold is theirs to use
+        others = set(whole_names(model)) - set(names.values())
+        unused = {k for k in saved if _param_of(k) not in others}
         state: dict[torch.Tensor, dict[str, torch.Tensor]] = {}
         for p in optimizer.params:
             name = names[id(p)]
-            spec = _state_spec(optimizer, p)
+            spec = {k: (whole_shape(model, name, shape), dtype, device)
+                    for k, (shape, dtype, device) in _state_spec(
+                        optimizer, p).items()}
             keys = [k for k in spec if f"{name}.{k}" in saved]
             if keys and len(keys) != len(spec):
                 raise CheckpointMismatchError(
@@ -536,7 +558,7 @@ class CheckpointManager:
                 full = f"{name}.{key}"
                 t = _check(full, saved[full], shape, dtype)
                 entries[key] = (t.to(device, copy=True) if key == "step"
-                                else _place(t, p))
+                                else _place(t, p, model, name))
                 unused.discard(full)
             state[p] = entries
         if unused:

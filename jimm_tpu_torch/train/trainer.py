@@ -27,7 +27,7 @@ from torch.distributed.tensor import DTensor
 
 from jimm_tpu_torch.parallel import comm
 from jimm_tpu_torch.parallel.sharding import (current_mesh, current_rules,
-                                              finish_gradients)
+                                              finish_gradients, norm_groups)
 from jimm_tpu_torch.train.losses import (clip_softmax_loss,
                                          ring_clip_infonce_loss,
                                          ring_sigmoid_loss,
@@ -94,50 +94,62 @@ def decays(name: str, param: torch.Tensor) -> bool:
 
 
 @torch.no_grad()
-def clip_by_global_norm_(params: list[torch.Tensor], max_norm: float
-                         ) -> torch.Tensor:
+def clip_by_global_norm_(params: list[torch.Tensor], max_norm: float,
+                         groups: list[tuple[comm.AxisGroup, ...]]
+                         | None = None) -> torch.Tensor:
     """Scale the gradients in place by ``max_norm / ||g||`` when the global
     norm ``||g||`` is at least ``max_norm`` (optax's rule; unlike
     ``clip_grad_norm_``, nothing is added to the norm). Returns ``||g||``
     in f32, without a host sync. The per-tensor norms and the scaling are
     multi-tensor ops: a few launches for all parameters, not a few each.
 
-    Under FSDP2 a gradient is a ``DTensor`` of which this rank holds a
-    shard: the squares of the shards' norms are summed over the ranks that
-    shard it (one all-reduce per layout), each replicated gradient counted
-    once, and each rank scales its own shards."""
-    grads = [p.grad for p in params if p.grad is not None]
-    if not grads:
+    On a mesh a rank may hold a piece of a gradient: an FSDP2 ``DTensor``
+    shard, or a slice (``model``) or block (``stage``) of the model that
+    other ranks hold other pieces of, listed per parameter in ``groups``
+    (``sharding.norm_groups``). The squares of the pieces' norms are summed
+    over the ranks that hold the other pieces (one all-reduce per layout),
+    a gradient every rank of a group holds whole counted once, and each
+    rank scales its own pieces."""
+    groups = groups or [()] * len(params)
+    held = [(p.grad, grp) for p, grp in zip(params, groups)
+            if p.grad is not None]
+    if not held:
         return torch.zeros(())
+    grads = [g for g, _ in held]
     local = [_local(g) for g in grads]
     norms = torch.stack(torch._foreach_norm(local, 2.0, dtype=torch.float32))
-    if not any(isinstance(g, DTensor) for g in grads):
+    if not any(isinstance(g, DTensor) or grp for g, grp in held):
         norm = torch.linalg.vector_norm(norms)
     else:
-        norm = _sharded_norm(grads, norms)
+        norm = _sharded_norm(held, norms)
     factor = torch.where(norm < max_norm, torch.ones_like(norm),
                          max_norm / norm)
     torch._foreach_mul_(local, factor)
     return norm
 
 
-def _sharded_norm(grads: list[torch.Tensor], norms: torch.Tensor
-                  ) -> torch.Tensor:
-    """The global norm of gradients some of which are FSDP2 shards
-    (``norms``: each local piece's): the shards' squares summed over the
-    ranks of each mesh dim that shards them, in one order on every rank."""
+def _sharded_norm(held: list[tuple[torch.Tensor, tuple]],
+                  norms: torch.Tensor) -> torch.Tensor:
+    """The global norm of gradients some of which are pieces (``norms``:
+    each local piece's): the pieces' squares summed over the ranks of each
+    mesh dim that shards an FSDP2 shard and of each of its ``groups``, in
+    one order on every rank."""
+    parts: dict[tuple, list[torch.Tensor]] = {}
+    reduce: dict[tuple, list] = {}
+    for (g, grps), n in zip(held, norms):
+        fsdp = ((g.device_mesh, g.placements) if isinstance(g, DTensor)
+                else None)
+        key = (fsdp, tuple(id(grp) for grp in grps))
+        parts.setdefault(key, []).append(n)
+        reduce[key] = [] if fsdp is None else [
+            fsdp[0].get_group(dim) for dim, placement in enumerate(fsdp[1])
+            if placement.is_shard()]
+        reduce[key] += [grp.pg for grp in grps if grp.pg is not None]
     total = torch.zeros((), dtype=torch.float32, device=norms.device)
-    sharded: dict[tuple, list[torch.Tensor]] = {}
-    for g, n in zip(grads, norms):
-        if isinstance(g, DTensor):
-            sharded.setdefault((g.device_mesh, g.placements), []).append(n)
-        else:
-            total = total + n * n
-    for (mesh, placements), parts in sharded.items():
-        part = torch.stack(parts).square().sum()
-        for dim, placement in enumerate(placements):
-            if placement.is_shard():
-                dist.all_reduce(part, group=mesh.get_group(dim))
+    for key, pieces in parts.items():
+        part = torch.stack(pieces).square().sum()
+        for pg in reduce[key]:
+            dist.all_reduce(part, group=pg)
         total = total + part
     return total.sqrt()
 
@@ -171,10 +183,14 @@ class Optimizer:
         self.moment_dtype = _moment_dtype(cfg.moment_dtype)
         self.schedule = make_schedule(cfg)
         decay, keep = [], []
+        groups = {}
         for name, p in model.named_parameters():
             if p.requires_grad:
                 (decay if decays(name, p) else keep).append(p)
+                groups[p] = norm_groups(model, name)
         self.params = decay + keep
+        #: per parameter, the ranks its gradient's norm sums over
+        self.norm_groups = [groups[p] for p in self.params]
         # FSDP2's shards and the parameters it leaves whole in groups of
         # their own: the foreach update refuses a list that mixes DTensors
         # with tensors of more than 0 dimensions
@@ -194,7 +210,8 @@ class Optimizer:
 
     def step(self) -> None:
         if self.cfg.grad_clip_norm:
-            clip_by_global_norm_(self.params, self.cfg.grad_clip_norm)
+            clip_by_global_norm_(self.params, self.cfg.grad_clip_norm,
+                                 self.norm_groups)
         lr = self.schedule(self.count)
         for group in self.opt.param_groups:
             group["lr"] = lr

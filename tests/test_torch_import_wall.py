@@ -73,7 +73,8 @@ def test_importing_the_port_loads_no_jax():
             "jimm_tpu_torch.parallel.ring_attention",
             "jimm_tpu_torch.parallel.ulysses",
             "jimm_tpu_torch.parallel.seqpar",
-            "jimm_tpu_torch.parallel.probe"} <= set(MODULES)
+            "jimm_tpu_torch.parallel.probe",
+            "jimm_tpu_torch.parallel.pipeline"} <= set(MODULES)
 
 
 def test_the_indexed_loader_loads_neither_jax_nor_grain():

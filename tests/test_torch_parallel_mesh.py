@@ -5,9 +5,11 @@ the nine presets and the topologies as data, ``prune_spec`` and
 ``resolve_logical_spec``, every parameter's resolved spec under every
 preset (the port's table of logical names against the JAX modules'
 ``logical(...)`` annotations), the seq-parallel planner and byte counts,
-the transport probe (two gloo CPU ranks, two of its cases), and the
-refusals of part 2 (``tp``, ``fsdp_tp``, ``hybrid_fsdp_tp``,
-``pp``, the model and stage axes, ``--pipeline-*``, ``--max-devices``)."""
+the transport probe (two gloo CPU ranks, two of its cases), the slices the
+``model`` axis cuts under the tp presets (none under ``pp``), the train
+command's rules (JAX's eight choices) and its refusals: part 3's
+(``--max-devices``, fp8_hybrid and int8_qk under the model and stage axes)
+and the pipeline flags' and configs' (JAX's messages)."""
 
 import dataclasses
 import json
@@ -137,19 +139,65 @@ def test_seq_parallel_planner_matches_jax(heads, p, plan):
             jax_seqpar.seqpar_comm_bytes(64, 256, heads, 64, p, **kw)
 
 
-@pytest.mark.parametrize("rules", sharding.NOT_PORTED)
+@pytest.mark.parametrize("rules", sharding.MODEL_STAGE_RULES)
 def test_part_2_rules_are_refused(rules):
-    with pytest.raises(NotImplementedError, match="item 6 part 2"):
-        sharding.shard_model(None, None, rules)
+    # once refused, now laid out: the dimension of each parameter a model
+    # rank holds a slice of, from the table of logical names on the whole
+    # model (no parameter is cut over 'stage': a stage keeps whole blocks)
+    name = "siglip-base-patch16-256"
+    model = cli.MODELS["siglip"](cli.tiny_override(preset(name)),
+                                 device="cpu")
+    dims = {n: sharding._model_dim(s) for n, s in
+            sharding.partition_specs(model, SIZES, rules).items()}
+    block = "vision.encoder.blocks.0."
+    want = {f"{block}attn.q.weight": 0, f"{block}attn.q.bias": 0,
+            f"{block}attn.out.weight": 1, f"{block}attn.out.bias": None,
+            f"{block}mlp.fc1.weight": 0, f"{block}mlp.fc2.weight": 1,
+            f"{block}mlp.fc2.bias": None, f"{block}ln1.weight": None,
+            "vision.head.attn.k.weight": 0, "vision.head.probe": None,
+            "vision.patch_embed.conv.weight": None,
+            "text.token_embed.weight": 0, "text_projection.weight": 0,
+            "text_projection.bias": 0, "logit_scale": None}
+    if rules == "pp":
+        want = dict.fromkeys(want)
+    assert {n: dims[n] for n in want} == want
+    assert "stage" not in str(sharding.partition_specs(model, SIZES, rules))
+
+
+def test_train_rules_are_the_jax_clis():
+    def choices(parser):
+        sub = next(a for a in parser._actions if a.choices and "train" in
+                   a.choices).choices["train"]
+        return next(a for a in sub._actions if a.dest == "rules").choices
+    assert sorted(choices(cli.build_parser())) == sorted(
+        choices(jax_cli.build_parser()))
+    assert "hybrid_fsdp_tp" in sharding.PRESET_RULES
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mesh", "data=2", "--rules", "tp"], "--rules tp .*item 6 part 2"),
-    (["--mesh", "data=2", "--rules", "pp"], "--rules pp .*item 6 part 2"),
-    (["--pipeline-microbatches", "2"], "item 6 part 2"),
-    (["--pipeline-virtual", "2"], "item 6 part 2"),
-    (["--max-devices", "1"], "item 6 part 2"),
-    (["--mesh", "data=1,model=2"], r"model=2 is not ported yet"),
+    # the cases that refused part 2 of the parallelism item now refuse
+    # part 3's flags, and the pipeline flags' and configs' errors
+    pytest.param(["--mesh", "data=1,model=2", "--rules", "tp", "--precision",
+                  "fp8_hybrid"],
+                 "--precision fp8_hybrid under --rules tp .*item 6 part 3",
+                 id="argv0---rules tp .*item 6 part 2"),
+    pytest.param(["--mesh", "data=1,stage=2", "--rules", "pp", "--precision",
+                  "int8_qk"],
+                 "--precision int8_qk under --rules pp .*item 6 part 3",
+                 id="argv1---rules pp .*item 6 part 2"),
+    pytest.param(["--pipeline-microbatches", "2"],
+                 r"--pipeline-microbatches needs --rules pp \(layers",
+                 id="argv2-item 6 part 2"),
+    pytest.param(["--pipeline-virtual", "2"],
+                 "--pipeline-virtual needs --rules pp",
+                 id="argv3-item 6 part 2"),
+    pytest.param(["--max-devices", "1"], "--max-devices .*item 6 part 3",
+                 id="argv4-item 6 part 2"),
+    pytest.param(["--mesh", "data=1,stage=2", "--rules", "pp",
+                  "--pipeline-microbatches", "3"],
+                 "pipeline config: vision tower: local batch 32 not "
+                 "divisible by 3 microbatches",
+                 id="argv5-model=2 is not ported yet"),
     (["--rules", "dp"], "--rules needs --mesh"),
     (["--mesh", "data=3"], r"--mesh 'data=3': mesh \{'data': 3\} != 2"),
     (["--mesh", "data:2"], "expected axis=size"),
@@ -157,6 +205,17 @@ def test_part_2_rules_are_refused(rules):
       "sp"], r"--rules sp shards the batch over a 'data' axis"),
     (["--mesh", "seq=2", "--rules", "dp", "--loss", "siglip"],
      r"--rules dp with --loss siglip shards the batch over a 'data' axis"),
+    (["--pipeline-microbatches", "-1"],
+     "--pipeline-microbatches must be >= 1"),
+    (["--preset", "siglip2-base-patch16-256", "--naflex", "--mesh",
+      "data=1,stage=2", "--rules", "pp"],
+     "--naflex needs attention masks, which the pipelined path does not"),
+    (["--mesh", "data=1,stage=2", "--rules", "pp", "--pipeline-virtual",
+      "2", "--pipeline-microbatches", "3", "--batch-size", "6"],
+     "pipeline config: vision tower: interleaved schedule needs "
+     "microbatches 3 divisible by 2 stages"),
+    (["--mesh", "stage=2", "--rules", "pp"],
+     r"--rules pp with --loss siglip shards the batch over a 'data'"),
 ])
 def test_train_refusals(argv, match, monkeypatch):
     # two ranks planned: the mesh is checked before any group is made

@@ -194,10 +194,9 @@ def test_obs_snapshot_diff_tail_timeline_and_regress(tmp_path):
                                 if e.get("tid") == "goodput"}
     with pytest.raises(SystemExit, match="torch twin of bench.py"):
         cli.main(["obs", "regress", "--adopt"])
-    with pytest.raises(SystemExit, match="item 6 part 2"):
-        cli.main(TINY + ["--pipeline-microbatches", "2"])
-    assert set(cli._TRAIN_NOT_PORTED) == {"pipeline_microbatches",
-                                          "pipeline_virtual", "max_devices"}
+    with pytest.raises(SystemExit, match="item 6 part 3"):
+        cli.main(TINY + ["--max-devices", "2"])
+    assert set(cli._TRAIN_NOT_PORTED) == {"max_devices"}
 
 
 def _trigger(port: int, payload: dict) -> tuple[int, dict]:

@@ -148,9 +148,17 @@ def test_normalize_act_matches_jax(name, default):
 
 
 def test_training_strategies_are_rejected():
-    """Pipeline parallelism is the one execution strategy of the JAX config
-    the port still refuses; remat and dropout are ported
-    (tests/test_torch_remat.py)."""
+    """Pipeline parallelism runs over a mesh's stage axis
+    (tests/test_torch_parallel_pp.py); outside one, and with an attention
+    mask, the pipelined encoder refuses with JAX's messages. Remat and
+    dropout are ported (tests/test_torch_remat.py)."""
     cfg = configs.with_runtime(tiny_config(configs), pipeline=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6"):
-        SigLIP(cfg, device="cpu")
+    model = SigLIP(cfg, device="cpu")
+    x = torch.zeros(2, cfg.vision.seq_len, cfg.vision.width)
+    with pytest.raises(ValueError, match="pipeline=True needs an ambient "
+                       "mesh with a 'stage' axis"):
+        model.vision.encoder(x)
+    with pytest.raises(ValueError, match="attention masks are not "
+                       "supported on the pipelined path"):
+        model.vision.encoder(x, mask=torch.ones(2, 1, 1, x.shape[1],
+                                                dtype=torch.bool))

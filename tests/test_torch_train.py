@@ -244,12 +244,13 @@ def test_train_cli_needs_the_card_or_asks_for_the_cpu():
     # the ring losses need a mesh, and --mesh the ranks it names (--mesh
     # and the ring losses are ported: tests/test_torch_parallel_*.py;
     # --profile-dir, --prof-ring and --tensorboard-dir, once refused here,
-    # too: tests/test_torch_profile_cli.py); the pipeline flags wait for
-    # the ROADMAP's part 2 of parallelism
+    # too: tests/test_torch_profile_cli.py; so are the pipeline flags:
+    # tests/test_torch_parallel_pp.py); --max-devices waits for the
+    # ROADMAP's part 3 of parallelism
     (["--loss", "siglip_ring"], "--loss siglip_ring needs --mesh"),
     (["--mesh", "data=2"], r"mesh \{'data': 2\} != 1 devices"),
     (["--loss", "clip_ring"], "--loss clip_ring needs --mesh"),
-    (["--pipeline-virtual", "2", "--preset", "clip-vit-base-patch16"],
+    (["--max-devices", "2", "--preset", "clip-vit-base-patch16"],
      "ROADMAP")])
 def test_train_cli_names_the_roadmap_for_unported_flags(flag, match):
     from jimm_tpu_torch.cli import build_parser, cmd_train

@@ -4,6 +4,8 @@ test processes (which hold JAX) compare them. Nothing here imports JAX."""
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -150,7 +152,8 @@ def train_cli(argv: list[str], weights: dict | None = None) -> dict:
     """``python -m jimm_tpu_torch <argv>`` on this rank (inside the pool's
     group), the tiny preset started from ``weights`` (a JAX model's
     parameters: the two packages seed differently); the return code and
-    the ring bytes this rank counted."""
+    the ring bytes and the checkpoint topology changes this rank
+    counted."""
     from jimm_tpu_torch import cli, obs
     from jimm_tpu_torch.models.common import load_jax_params
     real = cli.build_run_model
@@ -165,9 +168,137 @@ def train_cli(argv: list[str], weights: dict | None = None) -> dict:
     obs.reset_journal()
     ring = obs.get_registry("jimm_ring").counter(
         "jimm_ring_bytes_permuted_total")
-    before = ring.value
+    topology = obs.get_registry("jimm_train").counter(
+        "checkpoint_topology_changes_total")
+    before = ring.value, topology.value
     try:
         rc = cli.main(argv)
     finally:
         cli.build_run_model = real
-    return {"rc": rc, "ring_bytes": ring.value - before}
+    return {"rc": rc, "ring_bytes": ring.value - before[0],
+            "topology_changes": topology.value - before[1]}
+
+
+# -- the model and stage axes -------------------------------------------------
+
+def tiny_model(preset_name: str, runtime: dict | None = None,
+               weights: dict | None = None, num_classes: int | None = None):
+    """The tiny ``preset_name`` on the CPU with the towers' ``runtime``
+    fields, from ``weights`` (a JAX model's parameters) when given, else
+    seeded as every process seeds it; a ViT's zero classifier drawn from
+    seed 1 (a zero head passes no gradient upstream)."""
+    import dataclasses
+
+    from jimm_tpu_torch import cli
+    from jimm_tpu_torch.configs import preset, with_runtime
+    from jimm_tpu_torch.models.common import load_jax_params
+    cfg = cli.tiny_override(preset(preset_name))
+    if runtime:
+        cfg = with_runtime(cfg, **runtime)
+    if num_classes:
+        cfg = dataclasses.replace(cfg, num_classes=num_classes)
+    model = cli.MODELS[cli.family(preset_name)](cfg, device="cpu")
+    if weights is not None:
+        load_jax_params(model, weights)
+    elif hasattr(model, "classifier"):
+        with torch.no_grad():
+            model.classifier.weight.normal_(
+                0.0, 0.1, generator=torch.Generator().manual_seed(1))
+    return model
+
+
+def step0_gradients(model, images, target, *, mesh=None, rules=None,
+                    kind: str = "siglip") -> dict:
+    """One loss and backward of ``model`` on the global batch ``(images,
+    target)`` (this rank's rows of it on a mesh), the gradients finished as
+    the train step finishes them; each parameter's whole gradient norm (f32),
+    the global norm the clip computes, and the loss."""
+    from jimm_tpu_torch.parallel import sharding
+    from jimm_tpu_torch.train import trainer
+    x, y = _t(images), _t(target).long()
+    ctx = (sharding.use_sharding(mesh, rules) if mesh is not None
+           else contextlib.nullcontext())
+    with ctx:
+        if mesh is not None:
+            x, y = sharding.shard_batch((x, y), mesh, rules)
+        if kind == "classifier":
+            loss = trainer.classifier_metrics(
+                trainer.encode_batch(model, x), y)["loss"]
+        else:
+            loss = trainer.contrastive_loss_fn(model, x, y, kind=kind,
+                                               mesh=mesh)
+        loss.backward()
+        sharding.finish_gradients(model)
+        grads = {n: p.grad for n, p in model.named_parameters()
+                 if p.grad is not None}
+        whole = sharding.gather_whole(model, grads)
+        opt = trainer.make_optimizer(model, trainer.OptimizerConfig())
+        norm = trainer.clip_by_global_norm_(opt.params, 1e30,
+                                            opt.norm_groups)
+    return {"norms": {n: float(t.float().norm()) for n, t in whole.items()},
+            "global_norm": float(norm), "loss": float(loss.detach())}
+
+
+def mesh_gradients(preset_name: str, axes: dict, rules: str, images, target,
+                   weights: dict | None = None, runtime: dict | None = None,
+                   kind: str = "siglip", num_classes: int | None = None
+                   ) -> dict:
+    """:func:`step0_gradients` of the tiny model laid out by
+    ``shard_model`` over ``axes`` under ``rules``, with each parameter's
+    local shape and whether it is an FSDP2 shard."""
+    from torch.distributed.tensor import DTensor
+
+    from jimm_tpu_torch.parallel import sharding
+    model = tiny_model(preset_name, runtime, weights, num_classes)
+    mesh = make_mesh(axes)
+    sharding.shard_model(model, mesh, rules)
+    out = step0_gradients(model, images, target, mesh=mesh, rules=rules,
+                          kind=kind)
+    out["local"] = {n: (tuple(p.to_local().shape) if isinstance(p, DTensor)
+                        else tuple(p.shape), isinstance(p, DTensor))
+                    for n, p in model.named_parameters()}
+    return out
+
+
+def pipeline_small(x, w, b, dout, n_micro: int, n_virtual: int) -> dict:
+    """``pipeline_forward`` over a ``stage`` axis of every rank on a stack
+    of ``tanh(h @ w[l] + b[l])`` layers (``w``: (L, F, F), layers in
+    natural order), backward with ``dout``: the output, the input's
+    gradient and the whole gradients of ``w`` and ``b`` (each stage's
+    layers' summed over the stages)."""
+    from jimm_tpu_torch.parallel.pipeline import held_layers, pipeline_forward
+    mesh = make_mesh({"stage": dist.get_world_size()})
+    grp = comm.axis_group("stage", mesh)
+    xt = _t(x).requires_grad_()
+    wt, bt = _t(w).requires_grad_(), _t(b).requires_grad_()
+    chunks = held_layers(w.shape[0], grp.size, n_virtual, grp.index)
+
+    def stage_apply(v, h):
+        for layer in chunks[v]:
+            h = torch.tanh(h @ wt[layer] + bt[layer])
+        return h
+
+    out = pipeline_forward(stage_apply, xt, n_microbatches=n_micro,
+                           n_virtual=n_virtual, axis=grp, params=[wt, bt])
+    out.backward(_t(dout))
+    for g in (wt.grad, bt.grad):
+        dist.all_reduce(g, group=grp.pg)
+    return {"out": _np(out), "dx": _np(xt.grad), "dw": _np(wt.grad),
+            "db": _np(bt.grad)}
+
+
+def pipelined_forward(preset_name: str, runtime: dict, weights: dict,
+                      images, text) -> dict:
+    """The tiny pipelined ``preset_name`` from ``weights`` (a JAX model of
+    the same pipeline configuration) laid out over a ``stage`` axis of
+    every rank: its image and text embeddings, without gradients."""
+    from jimm_tpu_torch.parallel import sharding
+    model = tiny_model(preset_name, runtime, weights)
+    mesh = make_mesh({"stage": dist.get_world_size()})
+    sharding.shard_model(model, mesh, "pp")
+    with torch.no_grad(), sharding.use_sharding(mesh, "pp"):
+        return {"image": _np(model.encode_image(_t(images))),
+                "text": _np(model.encode_text(_t(text).long())),
+                "blocks": sorted(n for n, _ in model.named_parameters()
+                                 if ".blocks." in n and n.endswith(
+                                     "ln1.weight"))}
