@@ -359,8 +359,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                the ranks' average) within 5e-2 of phase 5(c)'s (0.15
                under sp, whose hops round dq before they are summed), each
                rank's launches those of a 64-row step; (c) ``--mesh
-               seq=2 --rules sp``, attention through the ring's hops (two
-               a block), held the same way; (d)+(e) (b)'s fsdp checkpoint
+               seq=2 --rules sp`` at batch 32, attention through the
+               ring's hops (two a block), held the same way to the single
+               process at batch 32; (d)+(e) (b)'s fsdp checkpoint
                resumed in this process as ``--mesh data=1 --rules fsdp``,
                one rank over NCCL: its losses within one bf16 step of
                (b)'s run, one topology change. Prints each run's median
@@ -368,14 +369,15 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                memory; the kernels' record gains the ``mesh*`` paths
                (rank 0's launches).
 19. model and stage axes -- phase 18's launcher and gates, SigLIP-B/16-256
-               at full width and depth, bf16, phase 5(c)'s command at
-               batch 128: (a) ``--mesh data=1,model=2 --rules tp`` (two
-               ranks, each on its slices: q/k/v and fc1 column-parallel,
-               the attention on 6 of the 12 heads, out and fc2
-               row-parallel); (b) ``--mesh data=1,stage=2 --rules pp``
+               at full width and depth, bf16, phase 5(c)'s command: (a)
+               ``--mesh data=1,model=2 --rules tp`` at batch 32, held to
+               the single process at batch 32 (two ranks, each on its
+               slices: q/k/v and fc1 column-parallel, the attention on 6
+               of the 12 heads, out and fc2 row-parallel); (b) ``--mesh data=1,stage=2 --rules pp``
                with 4 microbatches, and again with ``--pipeline-virtual
                2`` (saving step 0); (c) ``--mesh data=2,model=2 --rules
-               fsdp_tp``, four ranks (a launch of its own); (d) (b)'s V = 2 checkpoint resumed
+               fsdp_tp``, four ranks (a launch of its own), at batch 32
+               as (a); (d) (b)'s V = 2 checkpoint resumed
                in this process as ``--mesh data=1``, one rank over NCCL
                (one topology change, its losses within one bf16 step of
                (b)'s). Each run's losses within one bf16 step of phase
@@ -386,6 +388,26 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                on 4 microbatches, the MAP probe once); the record gains the
                ``mesh_tp``, ``mesh_pp``, ``mesh_pp_v2``, ``mesh_fsdp_tp``
                and ``mesh_pp_resume`` paths.
+20. quantized mesh and drills -- phase 18's launcher, the same command at
+               batch 32, each run held to the single process's at batch
+               32 made in this process: (a) ``--precision fp8_hybrid
+               --mesh data=2 --rules dp``: the amax histories equal on
+               both ranks at every step, the first blocks' equal the
+               single process's bit for bit after step 0, 151
+               gradient-amax all-reduces and one amax sync a rank a step;
+               (b) fp8_hybrid and int8_qk under ``tp``, int8_qk under
+               ``pp``, launches of rows 9, 10 and 12 a rank a step
+               counted (the quantized runs at ``--lr 0``: a free step
+               flips roundings; each rank's step-0 gradient norms within
+               5e-2 of the single process's, which holds the quantized
+               backward); (c) ``supervise --elastic --shrink-plan
+               2,1 --adapt`` crashing at step 2 on both ranks and resuming
+               on rank 0 alone (one restart and replan on each rank, one
+               topology change, the attempts' walls and the restore);
+               (d) a SIGTERM to rank 0 at step 2 saving step 2 on both
+               ranks, then the resume; (e) the times of the agreement and
+               amax collectives. Losses within one bf16 step throughout;
+               the record gains the ``q_*`` paths.
 
 Phase 3's flash cases include row 3's causal kind at CLIP-B/16's text
 shapes, (32, 77, 8, 64) and the 70 prompt rows of one label set (70, 77,
@@ -475,7 +497,10 @@ from jimm_tpu_torch.ops import flash_attention_int8 as fa8
 from jimm_tpu_torch.ops import fp8_matmul as fp8
 from jimm_tpu_torch.ops import int8_matmul as mm
 from jimm_tpu_torch.ops import layer_norm as ln
+from jimm_tpu_torch.quant import policy as fp8_policy
 from jimm_tpu_torch.quant.policy import apply_precision_policy
+from jimm_tpu_torch.parallel import comm
+from jimm_tpu_torch.resilience import PreemptedError
 from jimm_tpu_torch.serve.admission import AdmissionPolicy
 from jimm_tpu_torch.serve.buckets import BucketTable
 from jimm_tpu_torch.serve.cache import EmbeddingCache
@@ -5195,6 +5220,31 @@ def first_grad_norms():
         yield norms
 
 
+@contextlib.contextmanager
+def amax_record():
+    """Record, at every call of the trainer's ``finish_gradients`` (a
+    step's end, after the mesh's amax sync), a digest of all the fp8 amax
+    histories of the model and the first blocks' histories themselves,
+    into the list this yields (nothing for a model without fp8 modules)."""
+    from jimm_tpu_torch.train import trainer
+    steps: list[dict] = []
+    real = trainer.finish_gradients
+
+    def finish(model):
+        real(model)
+        hist = {n: b for n, b in model.named_buffers() if n.endswith("_amax")}
+        if not hist:
+            return
+        flat = torch.cat([hist[n].reshape(-1) for n in sorted(hist)])
+        steps.append({"digest": hashlib.sha1(
+            flat.cpu().numpy().tobytes()).hexdigest(), "first": {
+                n: t.tolist() for n, t in hist.items()
+                if ".encoder.blocks.0." in n}})
+
+    with mock.patch.object(trainer, "finish_gradients", finish):
+        yield steps
+
+
 def _rank_json(out: pathlib.Path, task: str, payload: dict) -> None:
     rank = torch.distributed.get_rank() if \
         torch.distributed.is_initialized() else int(os.environ["RANK"])
@@ -5342,13 +5392,16 @@ def train_task(out: pathlib.Path, what: str, argv: list[str]) -> None:
         "jimm_ring_bytes_permuted_total")
     before = ring.value
     torch.cuda.reset_peak_memory_stats()
-    with first_grad_norms() as norms:
+    with first_grad_norms() as norms, amax_record() as amax:
         zero_counts()
+        fp8.amax_reductions = fp8_policy.amax_syncs = 0
         rc = cli.main(argv)
         counts = read_counts()
     _rank_json(out, what, {
         "rc": rc, "counts": counts, "ring_bytes": ring.value - before,
-        "grad_norms": norms, "peak": torch.cuda.max_memory_allocated()})
+        "grad_norms": norms, "peak": torch.cuda.max_memory_allocated(),
+        "amax": amax, "amax_reductions": fp8.amax_reductions,
+        "amax_syncs": fp8_policy.amax_syncs})
 
 
 def rank_main(argv: list[str]) -> int:
@@ -5365,6 +5418,12 @@ def rank_main(argv: list[str]) -> int:
         for run in runs:
             if run["task"] == "attention":
                 attention_task(out)
+            elif run["task"] == "collectives":
+                collectives_task(out, run["what"])
+            elif run["task"] == "supervise":
+                supervise_task(out, run["what"], run["argv"])
+            elif run["task"] == "preempt":
+                preempt_task(out, run["what"], run["argv"])
             else:
                 train_task(out, run["what"], run["argv"])
     except SmokeFailure as e:
@@ -5417,31 +5476,31 @@ def ranks_run(card: str, what: str, root: pathlib.Path, runs: list[dict],
     return records
 
 
-def mesh_run(what: str, root: pathlib.Path, extra: list[str]) -> dict:
-    """Phase 5(c)'s train command with ``extra`` (a mesh), as a run of
-    :func:`ranks_run`, its metrics in ``root / f"{what}.jsonl"``."""
-    return {"what": what, "task": "train", "argv": [
-        "train", "--preset", "siglip-base-patch16-256", "--bf16",
-        "--ln-impl", "fused", "--steps", str(MESH_STEPS), "--batch-size",
-        str(TRAIN_BATCH), "--log-every", "1", "--metrics-file",
-        str(root / f"{what}.jsonl"), *extra]}
+def train_argv(batch: int = TRAIN_BATCH) -> list[str]:
+    """Phase 5(c)'s train command (at ``batch``), without its metrics
+    file."""
+    return ["train", "--preset", "siglip-base-patch16-256", "--bf16",
+            "--ln-impl", "fused", "--steps", str(MESH_STEPS), "--batch-size",
+            str(batch), "--log-every", "1"]
 
 
-def mesh_train(card: str, what: str, root: pathlib.Path, ranks: list[dict],
-               single: dict, kind: str) -> dict:
-    """Phases 18(b)/(c) and 19: the gates of a :func:`mesh_run` whose ranks
-    left ``ranks``: every step's loss against the single-process command's
-    (``single``) within one bf16 step, each rank's step-0 gradient norms
-    against its within ``MESH_GRAD_RTOL[kind]``, each rank's launches
-    those of ``MESH_STEP[kind]`` a step. Returns the run's logged steps."""
-    gate, steps = MESH_GRAD_RTOL[kind], MESH_STEPS
-    logged = [json.loads(line) for line in
-              (root / f"{what}.jsonl").read_text().splitlines()]
-    losses = [r["loss"] for r in logged]
-    want = [r["loss"] for r in single["logged"][:steps]]
-    check(within_a_bf16_step(losses, want),
-          f"{what}: losses {losses} vs the single-process command's {want}")
-    ref = single["grad_norms"]
+def mesh_run(what: str, root: pathlib.Path, extra: list[str],
+             batch: int = TRAIN_BATCH, task: str = "train") -> dict:
+    """Phase 5(c)'s train command (at ``batch``) with ``extra`` (a mesh),
+    as a run of :func:`ranks_run`, its metrics in ``root /
+    f"{what}.jsonl"``."""
+    return {"what": what, "task": task, "argv": [
+        *train_argv(batch), "--metrics-file", str(root / f"{what}.jsonl"),
+        *extra]}
+
+
+def _norms_within(what: str, ranks: list[dict], ref: dict[str, float],
+                  gate: float) -> tuple[dict, list[str], float, float]:
+    """Each rank's step-0 gradient norms (``first_grad_norms``) against the
+    single process's ``ref``: every parameter's within ``gate`` relative,
+    the key biases' (zero but for rounding) within ``gate`` of the largest
+    norm. Returns the ranks' relative deviations, the key-bias names, the
+    largest key-bias norm and the largest norm."""
     top = max(ref.values(), default=0.0)
     zero = [n for n in ref if n.endswith(ZERO_GRAD)]
     dev, key_bias = {}, 0.0
@@ -5461,6 +5520,25 @@ def mesh_train(card: str, what: str, root: pathlib.Path, ranks: list[dict],
         check(key_bias <= gate * top,
               f"{what}: rank {i}'s key-bias gradient norm {key_bias} is not "
               f"near zero (largest norm {top})")
+    return dev, zero, key_bias, top
+
+
+def mesh_train(card: str, what: str, root: pathlib.Path, ranks: list[dict],
+               single: dict, kind: str) -> dict:
+    """Phases 18(b)/(c) and 19: the gates of a :func:`mesh_run` whose ranks
+    left ``ranks``: every step's loss against the single-process command's
+    (``single``) within one bf16 step, each rank's step-0 gradient norms
+    against its within ``MESH_GRAD_RTOL[kind]``, each rank's launches
+    those of ``MESH_STEP[kind]`` a step. Returns the run's logged steps."""
+    gate, steps = MESH_GRAD_RTOL[kind], MESH_STEPS
+    logged = [json.loads(line) for line in
+              (root / f"{what}.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in logged]
+    want = [r["loss"] for r in single["logged"][:steps]]
+    check(within_a_bf16_step(losses, want),
+          f"{what}: losses {losses} vs the single-process command's {want}")
+    dev, zero, key_bias, top = _norms_within(what, ranks,
+                                             single["grad_norms"], gate)
     worst = max(dev[0], key=dev[0].get)
     fwd, bwd, ln_f, ln_b = MESH_STEP[kind]
     for r in ranks:
@@ -5479,7 +5557,8 @@ def mesh_train(card: str, what: str, root: pathlib.Path, ranks: list[dict],
           f"{len(zero)} key biases' at most {key_bias / top:.3e} of the "
           f"largest norm {top!r}, sum of "
           f"norms {sum(ranks[0]['grad_norms'].values())!r} vs "
-          f"{sum(ref.values())!r}; jimm_ring_bytes_permuted_total per rank "
+          f"{sum(single['grad_norms'].values())!r}; "
+          f"jimm_ring_bytes_permuted_total per rank "
           f"{[r['ring_bytes'] for r in ranks]} | {card}", flush=True)
     return logged
 
@@ -5495,14 +5574,19 @@ def parallel_runs(root: pathlib.Path) -> list[dict]:
         mesh_run("mesh_fsdp", root, ["--mesh", "data=2", "--rules", "fsdp",
                                      "--ckpt-dir", str(root / "ckpt"),
                                      "--save-every", "100"]),
-        mesh_run("mesh_sp", root, ["--mesh", "seq=2", "--rules", "sp"])]
+        mesh_run("mesh_sp", root, ["--mesh", "seq=2", "--rules", "sp"],
+                 QUANT_BATCH)]
 
 
 def parallel_phase(card: str, root: pathlib.Path, single: dict,
-                   runs: dict[str, list[dict]]) -> dict[str, dict]:
+                   runs: dict[str, list[dict]],
+                   single_small: dict) -> dict[str, dict]:
     """Phase 18: the gates of :func:`parallel_runs`' ``runs``, then
     (d)+(e) (b)'s checkpoint resumed as ``--mesh data=1 --rules fsdp``, one
-    rank over NCCL in this process. Returns rank 0's launches per path."""
+    rank over NCCL in this process. The sp run is at batch ``QUANT_BATCH``
+    (its ring hops through gloo cost 5-8 s a batch-128 step), held to
+    ``single_small``, the single process's run at that batch; dp and fsdp
+    to ``single``, phase 5(c)'s. Returns rank 0's launches per path."""
     ckpt = root / "ckpt"
     ranks = runs["attention"]
     for name in ranks[0]["cases"]:
@@ -5521,7 +5605,8 @@ def parallel_phase(card: str, root: pathlib.Path, single: dict,
           f"jimm_ring_bytes_permuted_total per rank "
           f"{[r['ring_bytes'] for r in ranks]} | {card}", flush=True)
     paths = {"mesh_attention": c}
-    logged = {what: mesh_train(card, what, root, runs[what], single, kind)
+    logged = {what: mesh_train(card, what, root, runs[what],
+                               single_small if kind == "sp" else single, kind)
               for what, kind in (("mesh_dp", "dp"), ("mesh_fsdp", "dp"),
                                  ("mesh_sp", "sp"))}
     paths.update({what: runs[what][0]["counts"] for what in logged})
@@ -5571,7 +5656,7 @@ def model_stage_runs(root: pathlib.Path) -> list[dict]:
     pp = ["--mesh", "data=1,stage=2", "--rules", "pp"]
     return [
         mesh_run("mesh_tp", root, ["--mesh", "data=1,model=2", "--rules",
-                                   "tp"]),
+                                   "tp"], QUANT_BATCH),
         mesh_run("mesh_pp", root, pp),
         mesh_run("mesh_pp_v2", root, [*pp, "--pipeline-virtual", "2",
                                       "--ckpt-dir", str(root / "ckpt_pp"),
@@ -5579,17 +5664,22 @@ def model_stage_runs(root: pathlib.Path) -> list[dict]:
 
 
 def model_stage_phase(card: str, root: pathlib.Path, single: dict,
-                      runs: dict[str, list[dict]]) -> dict[str, dict]:
+                      runs: dict[str, list[dict]],
+                      single_small: dict) -> dict[str, dict]:
     """Phase 19: (c) ``--rules fsdp_tp`` on four ranks, the gates of it and
     of :func:`model_stage_runs`' ``runs``, then (d) (b)'s V = 2 checkpoint
-    resumed by one NCCL rank in this process. Returns rank 0's launches
-    per path."""
+    resumed by one NCCL rank in this process. The tp runs are at batch
+    ``QUANT_BATCH`` (their activation sums through gloo cost ~6 s a
+    batch-128 step), held to ``single_small``, the single process's run at
+    that batch; the pp runs to ``single``, phase 5(c)'s. Returns rank 0's
+    launches per path."""
     ckpt = root / "ckpt_pp"
     runs = dict(runs)
     runs.update(ranks_run(card, "phase19c", root, [mesh_run(
         "mesh_fsdp_tp", root, ["--mesh", "data=2,model=2", "--rules",
-                               "fsdp_tp"])], ranks=4))
-    logged = {what: mesh_train(card, what, root, runs[what], single, kind)
+                               "fsdp_tp"], QUANT_BATCH)], ranks=4))
+    logged = {what: mesh_train(card, what, root, runs[what],
+                               single_small if kind == "tp" else single, kind)
               for what, kind in (("mesh_tp", "tp"), ("mesh_pp", "pp"),
                                  ("mesh_pp_v2", "pp"), ("mesh_fsdp_tp", "tp"))}
     paths = {what: runs[what][0]["counts"] for what in logged}
@@ -5629,6 +5719,323 @@ def model_stage_phase(card: str, root: pathlib.Path, single: dict,
           f"{statistics.median(times) * 1e3:.1f} ms; peak {run['peak']} "
           f"bytes | {card}", flush=True)
     paths["mesh_pp_resume"] = run["counts"]
+    return paths
+
+# -- phase 20: fp8_hybrid and int8_qk on the mesh, the drills ----------------
+
+#: phase 20's batch: its mesh runs are held to single-process runs of the
+#: same command at this batch, made in the phase (under tp a batch-128
+#: step spends ~6 s in gloo's activation sums on two ranks sharing an H100)
+QUANT_BATCH = 32
+#: the quantized runs' learning rate: every step starts from the same
+#: weights. A free step of a quantized model flips roundings that another
+#: layout makes differently, and these 5-step runs are chaotic (the loss
+#: 5.75 -> 16.0 -> 11.875 at batch 32): on the card fp8 under dp left one
+#: process's at step 4 (9.25 against 11.875), int8 under tp at step 3, in
+#: bf16 and each step otherwise equal. The drills keep the default rate:
+#: bf16 runs round alike, and a resume that restored the wrong weights
+#: must show
+QUANT_LR = ["--lr", "0"]
+#: the fp8 GEMM's mesh reductions a rank makes per step: one gradient-amax
+#: all-reduce a backward of each of the 151 Linears, and one sync of the
+#: forward's amaxes at the step's end
+AMAX_REDUCTIONS_PER_STEP = FP8_LINEARS
+AMAX_SYNCS_PER_STEP = 1
+#: the collectives' timing loop
+COLLECTIVE_CALLS = 100
+
+
+def quant_step(kind: str) -> dict[str, int]:
+    """Launches a rank makes per step in phase 20's run ``kind``: the
+    single process's under dp and tp (every Linear and attention runs once
+    on each rank, on its rows or its slices); under pp a stage runs its 6
+    blocks of each tower on 4 microbatches and the MAP probe once."""
+    precision = "fp8_hybrid" if "fp8" in kind else "int8_qk"
+    want = step_counts(precision)
+    if kind.endswith("_pp"):
+        want.update(flash_attention_int8=49, flash_attention_int8_bwd=49,
+                    layer_norm=96, layer_norm_bwd=96)
+    return want
+
+
+def collectives_task(out: pathlib.Path, what: str) -> None:
+    """Phase 20(e) on one rank: the time of the collectives the phase adds,
+    each over ``COLLECTIVE_CALLS`` calls on this launch's gloo group: the
+    preemption agreement (one int64 all-reduce on the host), the
+    backward's gradient amax (one f32 on the card) and the step-end amax
+    sync ((151, 2) f32 on the card)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    one = torch.zeros(1, device=dev)
+    pairs = torch.zeros(FP8_LINEARS, 2, device=dev)
+    flag = torch.zeros(1, dtype=torch.int64)
+    world = torch.distributed.group.WORLD
+
+    def timed(fn) -> float:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        for _ in range(COLLECTIVE_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / COLLECTIVE_CALLS * 1e3
+
+    _rank_json(out, what, {
+        "agree_ms": timed(lambda: comm.all_reduce_max_(flag, world)),
+        "dy_amax_ms": timed(lambda: comm.all_reduce_max_(one, world)),
+        "amax_sync_ms": timed(lambda: comm.all_reduce_max_(pairs, world)),
+        "backend": torch.distributed.get_backend(), "peak": 0})
+
+
+def _attempts(fn):
+    """``fn()`` with every ``cli.cmd_train`` call it makes timed: the
+    calls' walls and outcomes, and the checkpoint spans' counts and seconds
+    over ``fn``."""
+    calls = []
+    real = cli.cmd_train
+
+    def timed(ns):
+        t0, outcome = time.perf_counter(), "failed"
+        try:
+            rc = real(ns)
+            outcome = "done"
+            return rc
+        except PreemptedError:
+            outcome = "preempted"
+            raise
+        finally:
+            calls.append({"wall": time.perf_counter() - t0,
+                          "outcome": outcome, "max_devices": ns.max_devices})
+
+    before = span_totals()
+    with mock.patch.object(cli, "cmd_train", timed):
+        result = fn()
+    spans = {k: (n - before[k][0], s - before[k][1])
+             for k, (n, s) in span_totals().items()}
+    return result, calls, spans
+
+
+def supervise_task(out: pathlib.Path, what: str, argv: list[str]) -> None:
+    """Phase 20(c) on one rank: ``supervise --elastic --shrink-plan 2,1``
+    over this launch's ranks: its return code, each attempt's wall and
+    outcome, the counters it moved and the restore's span."""
+    keys = ("jimm_train_restarts_total", "jimm_train_topology_changes_total",
+            "jimm_train_checkpoint_topology_changes_total",
+            "jimm_train_goodput_advisor_decisions_total")
+    before = obs.snapshot()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc, calls, spans = _attempts(lambda: cli.main(["supervise", *argv]))
+    snap = obs.snapshot()
+    _rank_json(out, what, {
+        "rc": rc, "attempts": calls, "spans": spans,
+        "printed": printed.getvalue().splitlines()[-6:],
+        "counted": {k: snap.get(k, 0.0) - before.get(k, 0.0) for k in keys},
+        "peak": torch.cuda.max_memory_allocated()})
+
+
+def preempt_task(out: pathlib.Path, what: str, argv: list[str]) -> None:
+    """Phase 20(d) on one rank: ``argv`` (a two-rank train command whose
+    fault plan preempts rank 0 alone at step 2), then its ``--resume``:
+    each attempt's outcome, the step a preemption saved, and its wall."""
+    records = []
+    for extra in ([], ["--resume"]):
+        def attempt():
+            try:
+                return {"rc": cli.main(argv + extra), "step": None}
+            except PreemptedError as e:
+                return {"rc": None, "step": e.step}
+        got, calls, spans = _attempts(attempt)
+        records.append({**got, "wall": calls[0]["wall"], "spans": spans})
+    _rank_json(out, what, {"attempts": records,
+                           "peak": torch.cuda.max_memory_allocated()})
+
+
+def quant_runs(root: pathlib.Path) -> list[dict]:
+    """Phase 20's two-rank runs (:func:`ranks_run`), at batch
+    ``QUANT_BATCH``: (a) fp8_hybrid under dp; (b) fp8_hybrid and int8_qk
+    under tp, int8_qk under pp; (c) the elastic crash drill; (d) the rank-0
+    preemption and its resume; (e) the collectives' times."""
+    def q(what: str, *extra: str, task: str = "train") -> dict:
+        return mesh_run(what, root, list(extra), QUANT_BATCH, task)
+
+    tp, pp = ("--mesh", "data=1,model=2", "--rules", "tp"), (
+        "--mesh", "data=1,stage=2", "--rules", "pp")
+    elastic = q("q_elastic", "--ckpt-dir", str(root / "ckpt_elastic"),
+                "--save-every", "2", "--inject-faults", "crash@2")
+    elastic["task"] = "supervise"
+    elastic["argv"] = ["--max-restarts", "2", "--backoff-base-s", "0.01",
+                       "--seed", "0", "--elastic", "--shrink-plan", "2,1",
+                       "--adapt", "--", *elastic["argv"]]
+    return [
+        q("q_fp8_dp", "--mesh", "data=2", "--rules", "dp", "--precision",
+          "fp8_hybrid", *QUANT_LR),
+        q("q_fp8_tp", *tp, "--precision", "fp8_hybrid", *QUANT_LR),
+        q("q_int8_tp", *tp, "--precision", "int8_qk", *QUANT_LR),
+        q("q_int8_pp", *pp, "--precision", "int8_qk", *QUANT_LR),
+        elastic,
+        q("q_preempt", "--mesh", "data=2", "--rules", "dp", "--ckpt-dir",
+          str(root / "ckpt_preempt"), "--save-every", "100",
+          "--preemption-save", "--grace-steps", "0", "--inject-faults",
+          "preempt@2", task="preempt"),
+        {"what": "collectives", "task": "collectives"}]
+
+
+def _losses_within(what: str, logged: list[dict], want: list[float]
+                   ) -> list[float]:
+    got = [r["loss"] for r in logged]
+    check(within_a_bf16_step(got, want),
+          f"{what}: losses {got} vs the single-process command's {want}")
+    return got
+
+
+def small_batch_references(card: str) -> dict[str, dict]:
+    """The single-process train command at batch ``QUANT_BATCH``, the
+    reference of phase 18's sp run, phase 19's tp runs and phase 20: bf16 (with step 0's
+    gradient norms), and int8_qk and fp8_hybrid (with its histories) at
+    ``QUANT_LR``; each run's launches checked."""
+    refs = {}
+    for precision in ("bf16", "int8_qk", "fp8_hybrid"):
+        argv = train_argv(QUANT_BATCH) + ["--precision", precision] + (
+            [] if precision == "bf16" else QUANT_LR)
+        with first_grad_norms() as norms, amax_record() as amax:
+            run = run_train_command(argv, card)
+        run.update(grad_norms=norms, amax=amax)
+        want = step_counts(None if precision == "bf16" else precision)
+        check(run["rc"] == 0 and all(run["counts"][k] == want[k] * MESH_STEPS
+                                     for k in want),
+              f"the single-process {precision} command at batch "
+              f"{QUANT_BATCH}: rc {run['rc']}, launches {run['counts']}")
+        refs[precision] = run
+    return refs
+
+
+def quant_phase(card: str, root: pathlib.Path, runs: dict[str, list[dict]],
+                refs: dict[str, dict]) -> dict[str, dict]:
+    """Phase 20: the gates of :func:`quant_runs`' ``runs`` against the
+    single process's ``refs`` (:func:`small_batch_references`). Returns the
+    launches per path (rank 0's on the mesh)."""
+    steps = MESH_STEPS
+    paths = {f"q_single_{k}": v["counts"] for k, v in refs.items()}
+    ref_losses = {k: [r["loss"] for r in v["logged"]]
+                  for k, v in refs.items()}
+    # (a), (b): losses, launches, the fp8 histories and mesh reductions
+    for what in ("q_fp8_dp", "q_fp8_tp", "q_int8_tp", "q_int8_pp"):
+        ranks = runs[what]
+        precision = "fp8_hybrid" if "fp8" in what else "int8_qk"
+        logged = [json.loads(line) for line in
+                  (root / f"{what}.jsonl").read_text().splitlines()]
+        got = _losses_within(what, logged, ref_losses[precision])
+        # the backward (the gradient amax over the mesh, the row-parallel
+        # dx and dw) shows in step 0's gradients, before any update
+        dev, _, key_bias, top = _norms_within(
+            what, ranks, refs[precision]["grad_norms"], MESH_GRAD_RTOL["dp"])
+        worst = max(dev[0], key=dev[0].get)
+        want = quant_step(what)
+        for i, r in enumerate(ranks):
+            c = r["counts"]
+            check(r["rc"] == 0 and all(c[k] == want[k] * steps
+                                       for k in want),
+                  f"{what}: rank {i}'s launches {c} over {steps} steps, "
+                  f"want {want} a step")
+        note = ""
+        if precision == "fp8_hybrid":
+            digests = [[s["digest"] for s in r["amax"]] for r in ranks]
+            check(len(digests[0]) == steps and digests[0] == digests[1],
+                  f"{what}: the ranks' amax histories differ: {digests}")
+            for r in ranks:
+                check(r["amax_reductions"] == AMAX_REDUCTIONS_PER_STEP
+                      * steps and r["amax_syncs"] == AMAX_SYNCS_PER_STEP
+                      * steps, f"{what}: {r['amax_reductions']} gradient-"
+                      f"amax reductions and {r['amax_syncs']} syncs over "
+                      f"{steps} steps")
+            mine = [s["first"] for s in ranks[0]["amax"]]
+            single = [s["first"] for s in refs["fp8_hybrid"]["amax"]]
+            same = sorted(n for n in single[0] if mine[0].get(n)
+                          == single[0][n])
+            if what == "q_fp8_dp":
+                check(len(same) == len(single[0]) > 0,
+                      f"{what}: after step 0 the first blocks' histories "
+                      f"{sorted(set(single[0]) - set(same))} differ from "
+                      f"the single process's")
+            equal_steps = sum(m == w for m, w in zip(mine, single))
+            note = (f"; amax histories equal on both ranks at all {steps} "
+                    f"steps; after step 0 {len(same)} of the first blocks' "
+                    f"{len(single[0])} equal the single process's bit for "
+                    f"bit, all of them after {equal_steps} of {steps} "
+                    f"steps; {ranks[0]['amax_reductions'] // steps} "
+                    f"gradient-amax all-reduces and "
+                    f"{ranks[0]['amax_syncs'] // steps} amax sync a rank a "
+                    f"step")
+        times = [r["step_time_s"] for r in logged[1:]]
+        print(f"mesh: {what}: losses {got} (single process "
+              f"{ref_losses[precision]}); launches a rank a step {want}; "
+              f"median step {statistics.median(times) * 1e3:.1f} ms over "
+              f"steps 1-{steps - 1} at batch {QUANT_BATCH} (single process "
+              f"{statistics.median(r['step_time_s'] for r in refs[precision]['logged'][1:]) * 1e3:.1f}"
+              f"); step 0's {len(dev[0])} gradient norms against the single "
+              f"process's: largest relative deviation {dev[0][worst]:.3e} "
+              f"({worst}), the key biases' at most {key_bias / top:.3e} of "
+              f"the largest norm; peak {[r['peak'] for r in ranks]} "
+              f"bytes{note} | {card}",
+              flush=True)
+        paths[what] = ranks[0]["counts"]
+    # (c) the elastic drill: the crash on both ranks, the replan to one
+    ranks = runs["q_elastic"]
+    for i, r in enumerate(ranks):
+        outcomes = [(a["outcome"], a["max_devices"]) for a in r["attempts"]]
+        check(r["rc"] == 0 and outcomes == [("failed", 2), ("done", 1)]
+              and r["counted"]["jimm_train_restarts_total"] == 1
+              and r["counted"]["jimm_train_topology_changes_total"] == 1,
+              f"q_elastic: rank {i}: rc {r['rc']}, attempts {outcomes}, "
+              f"counted {r['counted']}")
+    check(ranks[0]["counted"]["jimm_train_checkpoint_topology_changes_total"]
+          == 1 and ranks[0]["spans"]["checkpoint_restore"][0] == 1,
+          f"q_elastic: rank 0 counted {ranks[0]['counted']}, restore spans "
+          f"{ranks[0]['spans']['checkpoint_restore']}")
+    logged = [json.loads(line) for line in
+              (root / "q_elastic.jsonl").read_text().splitlines()]
+    check([r["step"] for r in logged] == list(range(steps)),
+          f"q_elastic logged steps {[r['step'] for r in logged]}")
+    got = _losses_within("q_elastic", logged, ref_losses["bf16"])
+    restore = ranks[0]["spans"]["checkpoint_restore"][1]
+    print(f"mesh: q_elastic: supervise --elastic --shrink-plan 2,1 --adapt:"
+          f" attempt walls rank 0 "
+          f"{[round(a['wall'], 3) for a in ranks[0]['attempts']]} s, rank "
+          f"1 (idle in the second) "
+          f"{[round(a['wall'], 3) for a in ranks[1]['attempts']]} s; the "
+          f"restore onto data=1 {restore * 1e3:.1f} ms; losses {got} "
+          f"(single process {ref_losses['bf16']}); advisor decisions "
+          f"{[r['counted']['jimm_train_goodput_advisor_decisions_total'] for r in ranks]}"
+          f" | {card}", flush=True)
+    # (d) the rank-0 preemption: both ranks save step 2 and resume
+    ranks = runs["q_preempt"]
+    for i, r in enumerate(ranks):
+        a = r["attempts"]
+        check(a[0]["step"] == 2 and a[0]["rc"] is None and a[1]["rc"] == 0,
+              f"q_preempt: rank {i}'s attempts {a}")
+    markers = sorted(int(p.name) for p in
+                     (root / "ckpt_preempt" / ".jimm_markers").iterdir())
+    check(markers == [0, 2], f"q_preempt: committed steps {markers}")
+    logged = [json.loads(line) for line in
+              (root / "q_preempt.jsonl").read_text().splitlines()]
+    check([r["step"] for r in logged] == list(range(steps)),
+          f"q_preempt logged steps {[r['step'] for r in logged]}")
+    got = _losses_within("q_preempt", logged, ref_losses["bf16"])
+    print(f"mesh: q_preempt: a SIGTERM to rank 0 at step 2 saved step 2 on "
+          f"both ranks; attempt walls "
+          f"{[[round(a['wall'], 3) for a in r['attempts']] for r in ranks]}"
+          f" s; losses {got} (single process {ref_losses['bf16']}) | "
+          f"{card}", flush=True)
+    # (e) the collectives the phase adds
+    c = runs["collectives"]
+    print(f"mesh: collectives over {c[0]['backend']}, {COLLECTIVE_CALLS} "
+          f"calls, ms a call by rank: preemption agreement "
+          f"{[round(r['agree_ms'], 4) for r in c]}, gradient amax (1 f32) "
+          f"{[round(r['dy_amax_ms'], 4) for r in c]}, amax sync "
+          f"({FP8_LINEARS}x2 f32) {[round(r['amax_sync_ms'], 4) for r in c]}"
+          f" | {card}", flush=True)
     return paths
 
 
@@ -5723,11 +6130,16 @@ def main() -> int:
             # phases 18 and 19's two-rank runs in one launch
             root = pathlib.Path(tmp)
             runs = ranks_run(card, "mesh", root, parallel_runs(root)
-                             + model_stage_runs(root))
-            mesh_counts = parallel_phase(card, root, train_run, runs)
+                             + model_stage_runs(root) + quant_runs(root))
+            small = small_batch_references(card)
+            mesh_counts = parallel_phase(card, root, train_run, runs,
+                                         small["bf16"])
             done("parallel")
-            axes_counts = model_stage_phase(card, root, train_run, runs)
+            axes_counts = model_stage_phase(card, root, train_run, runs,
+                                            small["bf16"])
             done("model and stage axes")
+            quant_counts = quant_phase(card, root, runs, small)
+            done("quantized mesh and drills")
         check(all(math.isfinite(timed[k]["ms"]) for k in timed), "bad timing")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
@@ -5742,14 +6154,14 @@ def main() -> int:
     # 12 biased calls for the bias kernels; launches_by_path also holds
     # phase 17's profiled steps ("profile") and served capture's traffic
     # ("profile_serve"), phase 18's mesh runs and phase 19's runs under the
-    # model and stage axes (rank 0's launches)
+    # model and stage axes and phase 20's (rank 0's launches)
     paths = {"serve": serve_counts, "train": train_counts,
              "naflex": naflex_counts, "int8_serve": int8_serve_counts,
              "int8_qk": int8_qk_counts, "fp8_hybrid": fp8_counts,
              "sigmoid": sigmoid_counts, "bias": bias_counts,
              **ckpt_counts, **zero_shot_counts, **rest_counts,
              "resilience": resilience_counts, "data": data_counts,
-             **profile_counts, **mesh_counts, **axes_counts}
+             **profile_counts, **mesh_counts, **axes_counts, **quant_counts}
     steps = {"train": CLI_STEPS, "naflex": CLI_STEPS, "int8_qk": CLI_STEPS,
              "fp8_hybrid": CLI_STEPS, "sigmoid": TRAIN_STEPS}
     main_path = {"flash_attention_masked": "naflex",
@@ -5839,7 +6251,38 @@ def main() -> int:
     return 0
 
 
+def phase_20_alone() -> int:
+    """``python3 chip_smoke.py --phase 20``: the build, then phase 20 alone
+    (its two-rank launch, the batch-32 single-process references and its
+    gates); for iterating on the quantized mesh paths. Prints no record."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    _build.load()
+    print(f"build done at {time.perf_counter() - t0:.1f} s", flush=True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = pathlib.Path(tmp)
+            runs = ranks_run(card, "mesh", root, quant_runs(root))
+            print(f"launch done at {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            quant_phase(card, root, runs, small_batch_references(card))
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
+        return 1
+    print(f"phase 20 done at {time.perf_counter() - t0:.1f} s", flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank-task"]:
         sys.exit(rank_main(sys.argv[1:]))
+    if sys.argv[1:] == ["--phase", "20"]:
+        sys.exit(phase_20_alone())
     sys.exit(main())

@@ -30,7 +30,11 @@ the fp8 matmul with delayed scaling (``jimm_tpu_torch.quant.policy``).
 ``--ckpt-dir`` checkpoints the run (``train/checkpoint.py``) and
 ``--resume`` continues it; ``--inject-faults`` and ``--preemption-save``
 are the resilience drills. ``supervise -- train ...`` reruns a failed or
-preempted run with ``--resume`` (``jimm_tpu_torch.resilience``).
+preempted run with ``--resume`` (``jimm_tpu_torch.resilience``);
+``--elastic`` replans its data axis between attempts from the ranks
+available (``--shrink-plan`` caps them, ``train --max-devices`` trains
+on the first ranks), ``--adapt`` tunes the next attempt's knobs from its
+goodput.
 
 ``train --data SHARDS`` reads TFRecord or tar shards instead
 (``--loader records``, buffer-shuffled, or ``--loader grain``, the indexed
@@ -58,7 +62,6 @@ from __future__ import annotations
 
 import argparse
 import base64
-import contextlib
 import dataclasses
 import hashlib
 import json
@@ -102,19 +105,22 @@ from jimm_tpu_torch.obs.prof.opstats import (capture_summary,
                                              render_summary)
 from jimm_tpu_torch.ops.attention import INT8_NO_MASK
 from jimm_tpu_torch.parallel import comm
-from jimm_tpu_torch.parallel.mesh import (initialize_distributed,
+from jimm_tpu_torch.parallel.mesh import (check_max_devices,
+                                          initialize_distributed,
                                           local_device, make_mesh,
                                           mesh_shape, mesh_sizes,
+                                          outcome_group,
                                           planned_world_size,
                                           shutdown_distributed)
-from jimm_tpu_torch.parallel.sharding import (MODEL_STAGE_RULES, PART_3,
-                                              PRESET_RULES, ShardingRules,
-                                              shard_model, use_sharding)
+from jimm_tpu_torch.parallel.sharding import (PRESET_RULES, ShardingRules,
+                                              fsdp_mesh, shard_model,
+                                              use_sharding)
 from jimm_tpu_torch.quant import quantize_model
 from jimm_tpu_torch.quant.policy import POLICIES, apply_precision_policy
 from jimm_tpu_torch.resilience import (BackoffPolicy, FaultPlan, GiveUpError,
+                                       GoodputAdvisor, PreemptedError,
                                        PreemptionGuard, PreemptionHandler,
-                                       Supervisor)
+                                       Supervisor, plan_data_axis)
 from jimm_tpu_torch.serve.admission import AdmissionPolicy
 from jimm_tpu_torch.serve.buckets import BucketTable, default_buckets
 from jimm_tpu_torch.serve.engine import InferenceEngine, image_forward
@@ -267,31 +273,21 @@ def cmd_serve(args: argparse.Namespace) -> int:
     return 0
 
 
-#: train flags of the JAX CLI that the port does not have yet -> where the
-#: ROADMAP queues them
-_TRAIN_NOT_PORTED = {
-    "max_devices": PART_3,
-}
 #: the train command's sharding rules, the JAX CLI's choices
 #: (``hybrid_fsdp_tp`` is library API, as in JAX)
 TRAIN_RULES = ("replicated", "dp", "tp", "fsdp", "fsdp_tp", "sp", "fsdp_sp",
                "pp")
-#: supervise options of the JAX CLI that need the mesh -> the ROADMAP item
-_SUPERVISE_NOT_PORTED = {
-    "elastic": "mesh replanning between attempts, ROADMAP.md queue 1, "
-               "item 6 part 3 (resilience/elastic.py)",
-    "shrink_plan": "an --elastic drill knob, ROADMAP.md queue 1, item 6 "
-                   "part 3 (resilience/elastic.py)",
-    "adapt": "the goodput advisor tunes --scan-unroll, a knob of the layer "
-             "scan the port does not have, ROADMAP.md queue 1, item 6 "
-             "part 3 (resilience/elastic.py)",
-}
 #: the counters supervise reports on its ``resilience:`` line (the
-#: reference's set without --elastic and --adapt)
+#: reference's set), and those --elastic and --adapt add
 RESILIENCE_KEYS = ("jimm_train_restarts_total", "jimm_train_preemptions_total",
                    "jimm_train_checkpoint_quarantined_total",
                    "jimm_train_goodput_lost_work_seconds_total",
                    "jimm_train_goodput_preemption_save_seconds_total")
+ELASTIC_KEYS = ("jimm_train_topology_changes_total",
+                "jimm_train_checkpoint_topology_changes_total")
+ADAPT_KEYS = ("jimm_train_goodput_advisor_decisions_total",)
+#: a mesh attempt's outcomes, agreed over every rank as their max
+ATTEMPT_OK, ATTEMPT_PREEMPTED, ATTEMPT_FAILED = 0, 1, 2
 
 
 def fit_head(model: VisionTransformer, n: int | None) -> bool:
@@ -539,18 +535,26 @@ def train_data(args: argparse.Namespace, fam: str, cfg, start_step: int,
     return _records_data(args, fam, cfg, start_step, shard), None
 
 
-def parse_mesh(spec: str) -> dict[str, int]:
+def parse_mesh(spec: str, max_devices: int | None = None) -> dict[str, int]:
     """``"data=4,seq=2"`` -> ``{"data": 4, "seq": 2}``, checked against the
-    ranks the run has (``mesh.planned_world_size``) before any group is
-    made."""
+    ranks the run has (``mesh.planned_world_size``), or the first
+    ``max_devices`` of them, with the JAX CLI's range check, before any
+    group is made."""
     axes = {}
     for part in spec.split(","):
         name, sep, size = part.partition("=")
         if not sep or not size.strip().lstrip("-").isdigit():
             raise SystemExit(f"--mesh {spec!r}: expected axis=size,...")
         axes[name.strip()] = int(size)
+    n = planned_world_size()
     try:
-        return mesh_sizes(axes, planned_world_size())
+        if max_devices is not None:
+            check_max_devices(max_devices, n)
+            n = max_devices
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    try:
+        return mesh_sizes(axes, n)
     except ValueError as e:
         raise SystemExit(f"--mesh {spec!r}: {e}") from None
 
@@ -572,17 +576,36 @@ class TrainMesh:
     owns_group: bool
     #: the towers' pipeline fields under --rules pp
     runtime: dict
+    #: this rank is one of the mesh's (--max-devices leaves the others
+    #: out: they take no step and wait for the attempt's outcome)
+    active: bool = True
 
     @property
     def rank(self) -> int:
         return torch.distributed.get_rank()
 
+    def agree(self, *values: int, mesh_only: bool = True) -> list[int]:
+        """The largest of the ranks' ``values``, elementwise: over the
+        mesh's ranks, or over every rank of the group (the ranks
+        --max-devices left out too), on the outcome group, whose
+        collective waits out an attempt of any length."""
+        if mesh_only:
+            grp = comm.axis_group(tuple(self.mesh.mesh_dim_names), self.mesh)
+            device = (local_device()
+                      if torch.distributed.get_backend() == "nccl" else "cpu")
+        else:
+            grp, device = outcome_group(), "cpu"
+        t = torch.tensor(values, dtype=torch.int64, device=device)
+        return comm.all_reduce_max_(t, grp).tolist()
+
 
 def train_mesh(args: argparse.Namespace, fam: str) -> TrainMesh:
     """Join the run's process group and lay out its mesh
     (``jimm_tpu/cli.py``'s choices: ring losses by default on a mesh with a
-    data or seq axis, their axis ``("data", "seq")`` when seq > 1)."""
-    axes = parse_mesh(args.mesh)
+    data or seq axis, their axis ``("data", "seq")`` when seq > 1). With
+    ``--max-devices k`` the mesh is over ranks ``0..k-1``: every rank makes
+    its groups (FSDP2's included), and the others are left inactive."""
+    axes = parse_mesh(args.mesh, args.max_devices)
     name = args.rules or "dp"
     rules = PRESET_RULES[name]
     loss, loss_axis = args.loss, "data"
@@ -612,12 +635,17 @@ def train_mesh(args: argparse.Namespace, fam: str) -> TrainMesh:
     runtime = pipeline_runtime(args, axes)
     owns = not torch.distributed.is_initialized()
     initialize_distributed(device=args.device)
-    mesh = make_mesh(axes)
+    mesh = make_mesh(axes, max_devices=args.max_devices)
+    if args.max_devices is not None and "data" in axes:
+        # FSDP2's mesh makes groups too: every rank, before any step
+        fsdp_mesh(mesh)
+    # a mesh over ranks 0..k-1 has no coordinate for the others
+    active = mesh.get_coordinate() is not None
     index = 0
-    if rules.batch is not None:
+    if active and rules.batch is not None:
         index = comm.axis_group(rules.batch, mesh).index
     return TrainMesh(mesh, rules, loss, loss_axis, index, count, owns,
-                     runtime)
+                     runtime, active)
 
 
 def check_pipeline_flags(args: argparse.Namespace) -> None:
@@ -674,27 +702,12 @@ def validate_pipeline_towers(cfg, axes: dict[str, int],
 
 
 def cmd_train(args: argparse.Namespace) -> int:
-    for flag, where in _TRAIN_NOT_PORTED.items():
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet: "
-                             f"{where}")
     check_pipeline_flags(args)
     if args.rules and not args.mesh:
         raise SystemExit("--rules needs --mesh")
     if args.loss and args.loss.endswith("_ring") and not args.mesh:
         raise SystemExit(f"--loss {args.loss} needs --mesh (a ring over the "
                          f"batch's data or seq axis)")
-    if args.mesh:
-        for flag in ("inject_faults", "preemption_save", "profile_dir",
-                     "prof_ring"):
-            if getattr(args, flag):
-                raise SystemExit(f"--{flag.replace('_', '-')} with --mesh is "
-                                 f"not ported yet: {PART_3}")
-    if (args.rules in MODEL_STAGE_RULES
-            and args.precision in ("fp8_hybrid", "int8_qk")):
-        # an fp8 Linear cut over 'model' needs its amax over the group
-        raise SystemExit(f"--precision {args.precision} under --rules "
-                         f"{args.rules} is not ported yet: {PART_3}")
     if args.naflex and args.rules == "pp":
         raise SystemExit("--naflex needs attention masks, which the "
                          "pipelined path does not support yet")
@@ -714,14 +727,40 @@ def cmd_train(args: argparse.Namespace) -> int:
     if args.data:
         _check_data_flags(args)
     fault_plan = _fault_plan(args)
-    par = train_mesh(args, fam) if args.mesh else None
+    if not args.mesh:
+        return _train(args, fam, fault_plan, None)
+    par = train_mesh(args, fam)
     try:
-        with (use_sharding(par.mesh, par.rules) if par is not None
-              else contextlib.nullcontext()):
-            return _train(args, fam, fault_plan, par)
+        return _mesh_attempt(args, fam, fault_plan, par)
     finally:
-        if par is not None and par.owns_group:
+        if par.owns_group:
             shutdown_distributed()
+
+
+def _mesh_attempt(args: argparse.Namespace, fam: str,
+                  fault_plan: FaultPlan | None, par: TrainMesh) -> int:
+    """``train`` on a mesh as one attempt whose outcome every rank agrees
+    on: the mesh's ranks train (the others, left out by --max-devices, wait),
+    then all join one all-reduce of the outcome (done, preempted, failed;
+    the worst wins), so that every rank returns or raises alike and a
+    supervisor on each restarts or stops them together."""
+    code, step, err = ATTEMPT_OK, -1, None
+    try:
+        if par.active:
+            with use_sharding(par.mesh, par.rules):
+                _train(args, fam, fault_plan, par)
+    except PreemptedError as e:
+        code, step, err = ATTEMPT_PREEMPTED, e.step, e
+    except BaseException as e:  # noqa: BLE001 -- agreed, then raised
+        code, err = ATTEMPT_FAILED, e
+    agreed, step = par.agree(code, step, mesh_only=False)
+    if err is not None and code == agreed:
+        raise err
+    if agreed == ATTEMPT_PREEMPTED:
+        raise PreemptedError(step) from err
+    if agreed == ATTEMPT_FAILED:
+        raise RuntimeError("the attempt failed on another rank") from err
+    return 0
 
 
 def _train(args: argparse.Namespace, fam: str,
@@ -734,6 +773,10 @@ def _train(args: argparse.Namespace, fam: str,
     lead = par is None or par.rank == 0
     runtime = {"attn_impl": args.attn_impl, "ln_impl": args.ln_impl,
                "fused_qkv": args.fused_qkv, "precision": args.precision}
+    if args.scan_unroll >= 1:
+        # any explicit value is the config's (0, auto, picks no value off
+        # a TPU); it changes nothing in the port's loop over the blocks
+        runtime["scan_unroll"] = args.scan_unroll
     if args.remat:
         try:
             runtime.update(parse_remat(args.remat))
@@ -841,14 +884,24 @@ def _train(args: argparse.Namespace, fam: str,
     guard = preempt = None
     if args.preemption_save:
         guard = PreemptionGuard().install()
+        # on a mesh a signal to any rank preempts them all at one step: the
+        # flag is agreed at every step's end (one all-reduce)
+        agree = None if par is None else (
+            lambda flag: bool(par.agree(int(flag))[0]))
         preempt = PreemptionHandler(guard, ckpt, grace_steps=args.grace_steps,
-                                    accounter=acct)
+                                    accounter=acct, agree=agree)
+    # on a mesh every rank profiles itself into a folder of its own
+    profile_dir, ring_dir = args.profile_dir, args.prof_ring
+    if par is not None:
+        profile_dir, ring_dir = (
+            None if d is None else str(Path(d) / f"rank{par.rank}")
+            for d in (profile_dir, ring_dir))
     # the profiling ring: short step-window captures kept in a byte budget
     # (process-global, so incident paths can deep-capture into it)
     prof_ring = None
-    if args.prof_ring:
+    if ring_dir:
         prof_ring = configure_capture(
-            args.prof_ring, max_ring_bytes=args.prof_ring_bytes,
+            ring_dir, max_ring_bytes=args.prof_ring_bytes,
             every_steps=args.prof_every, window_steps=args.prof_window)
     # --profile-dir traces steps start+2 .. start+4 (past the warm-up
     # step), clamped to the run as the reference clamps it; the profiler's
@@ -867,11 +920,11 @@ def _train(args: argparse.Namespace, fam: str,
         for step in range(start_step, args.steps):
             if prof_ring is not None:
                 prof_ring.on_step(step)
-            if args.profile_dir and step == profile_start:
+            if profile_dir and step == profile_start:
                 if prof_ring is not None:
                     # one profiler session at a time: commit a live window
                     prof_ring.flush()
-                profiler_ctx = trace(args.profile_dir)
+                profiler_ctx = trace(profile_dir)
                 profiler_ctx.__enter__()
             with acct.measure("data_wait"):
                 batch, (images, target) = next(data)
@@ -901,10 +954,12 @@ def _train(args: argparse.Namespace, fam: str,
                            lr=optimizer.schedule(step),
                            images_per_s=args.batch_size / dt,
                            mfu=mfu(flops, dt, peak))
-            extra = None
+            # --scan-unroll is recorded with each step, never compared: a
+            # resume may change it (supervise --adapt does)
+            extra = {"scan_unroll": args.scan_unroll}
             if ckpt is not None and grain_stream is not None:
-                extra = {"grain_state": base64.b64encode(
-                    grain_stream.consumed_state).decode("ascii")}
+                extra["grain_state"] = base64.b64encode(
+                    grain_stream.consumed_state).decode("ascii")
             saved_now = False
             if ckpt is not None and (preempt is None
                                      or not preempt.draining):
@@ -916,7 +971,8 @@ def _train(args: argparse.Namespace, fam: str,
             if fault_plan is not None:
                 # a preempt's SIGTERM lands before the guard check below,
                 # as a real maintenance signal would
-                fault_plan.fire(step, ckpt=ckpt)
+                fault_plan.fire(step, ckpt=ckpt,
+                                rank=0 if par is None else par.rank)
             if preempt is not None:
                 preempt.after_step(step, model, optimizer, extra=extra,
                                    already_saved=saved_now)
@@ -969,17 +1025,54 @@ def _train(args: argparse.Namespace, fam: str,
     return 0
 
 
+def _argv_flag_value(argv: list[str], flag: str, default):
+    """The value of ``flag`` in ``argv``, the last occurrence winning as in
+    argparse; the JAX CLI's."""
+    value = default
+    for i, tok in enumerate(argv):
+        if tok == flag and i + 1 < len(argv):
+            value = argv[i + 1]
+        elif tok.startswith(flag + "="):
+            value = tok.split("=", 1)[1]
+    return value
+
+
+def _shrink_plan(args: argparse.Namespace) -> list[int] | None:
+    """``--shrink-plan``'s device budgets, with the JAX CLI's checks."""
+    if not args.shrink_plan:
+        return None
+    if not args.elastic:
+        raise SystemExit("--shrink-plan is an --elastic drill knob")
+    try:
+        plan = [int(x) for x in args.shrink_plan.split(",")]
+    except ValueError:
+        raise SystemExit(f"--shrink-plan {args.shrink_plan!r}: expected "
+                         "comma-separated device counts, e.g. 8,4") from None
+    if any(n < 1 for n in plan):
+        raise SystemExit("--shrink-plan device counts must be >= 1")
+    return plan
+
+
 def cmd_supervise(args: argparse.Namespace) -> int:
     """Run ``train`` as restartable attempts, in this process (one metric
     registry, so restarts and lost work add up across attempts): a
     preemption (the grace-window save's PreemptedError) or a crash restarts
     the command with ``--resume`` after a bounded jittered backoff, up to
     ``--max-restarts`` times, then gives up. Prints one ``resilience:``
-    line with the counters."""
-    for flag, where in _SUPERVISE_NOT_PORTED.items():
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet: "
-                             f"{where}")
+    line with the counters.
+
+    ``--elastic`` replans the mesh before every attempt from the ranks
+    available (``--shrink-plan`` caps them per attempt, a drill of lost
+    hosts): ``--mesh data=K --rules dp --max-devices K`` is appended to
+    the train command, and the restart restores its checkpoint onto the
+    smaller mesh. ``--adapt`` runs a :class:`GoodputAdvisor` over each
+    attempt's goodput and appends its knobs (checkpoint cadence, grace
+    steps, scan unroll) to the next attempt.
+
+    Under ``torch.distributed.run`` every rank runs this same supervisor:
+    the group is made here, once, each attempt's outcome is agreed over it
+    (``train``'s), and the advisor sees rank 0's goodput on every rank, so
+    every rank restarts or stops with the same flags."""
     if args.journal:
         obs.configure_journal(args.journal)
     cmd = list(args.train_args or [])
@@ -993,27 +1086,97 @@ def cmd_supervise(args: argparse.Namespace) -> int:
                          "(restarts resume from checkpoints)")
     if "--preemption-save" not in cmd:
         cmd.append("--preemption-save")
+    shrink_plan = _shrink_plan(args)
+    advisor = None
+    if args.adapt:
+        # the knobs start from the train command's own flags
+        advisor = GoodputAdvisor(knobs={
+            "save_every": int(_argv_flag_value(cmd, "--save-every", 50)),
+            "grace_steps": int(_argv_flag_value(cmd, "--grace-steps", 1)),
+            "scan_unroll": int(_argv_flag_value(cmd, "--scan-unroll", 0)),
+        })
     sup = Supervisor(max_restarts=args.max_restarts,
                      backoff=BackoffPolicy(base_s=args.backoff_base_s,
                                            max_s=args.backoff_max_s,
                                            jitter=0.5, seed=args.seed))
+    owns = (not torch.distributed.is_initialized()
+            and planned_world_size() > 1)
+    if owns:
+        initialize_distributed(
+            device=build_parser().parse_args(cmd).device)
+    lead = (not torch.distributed.is_initialized()
+            or torch.distributed.get_rank() == 0)
+    # threaded through the attempts: the previous attempt's data axis (to
+    # count replans) and the goodput already booked (the advisor reads
+    # per-attempt deltas)
+    state: dict = {"last_k": None, "booked": {}}
+
+    def observe_goodput(i: int, t0: float) -> None:
+        snap = obs.snapshot()
+        prefix = "jimm_train_goodput_"
+        deltas = {}
+        for key, value in snap.items():
+            if key.startswith(prefix) and key.endswith("_seconds_total"):
+                bucket = key[len(prefix):-len("_seconds_total")]
+                deltas[bucket] = value - state["booked"].get(key, 0.0)
+                state["booked"][key] = value
+        seen = [deltas, time.monotonic() - t0]
+        if torch.distributed.is_initialized():
+            # rank 0 trained in every attempt: its goodput is the run's,
+            # and every rank's advisor decides from it alike
+            torch.distributed.broadcast_object_list(seen, src=0)
+        advisor.observe(i, seen[1], seen[0])
 
     def attempt(i: int, resume: bool) -> int:
         argv = list(cmd)
         if resume and "--resume" not in argv:
             argv.append("--resume")
-        ns = build_parser().parse_args(argv)
-        return ns.func(ns)
+        if args.elastic:
+            avail = planned_world_size()
+            if shrink_plan is not None:
+                avail = min(avail, shrink_plan[min(i, len(shrink_plan) - 1)])
+            batch = int(_argv_flag_value(argv, "--batch-size", 32))
+            k = plan_data_axis(avail, batch)
+            # after the user's flags: argparse's last one wins
+            argv += ["--mesh", f"data={k}", "--rules", "dp",
+                     "--max-devices", str(k)]
+            if state["last_k"] is not None and k != state["last_k"]:
+                obs.get_registry("jimm_train").counter(
+                    "topology_changes_total").inc()
+                obs.get_journal().emit("mesh_replanned", attempt=i + 1,
+                                       data_from=state["last_k"],
+                                       data_to=k, devices=avail)
+                if lead:
+                    print(f"[supervise] attempt {i + 1}: replanned mesh "
+                          f"data={state['last_k']} -> data={k} ({avail} "
+                          f"devices available)", flush=True)
+            state["last_k"] = k
+        if advisor is not None:
+            argv += advisor.argv_overrides()
+        t0 = time.monotonic()
+        try:
+            ns = build_parser().parse_args(argv)
+            return ns.func(ns)
+        finally:
+            if advisor is not None:
+                observe_goodput(i, t0)
 
     try:
-        rc = sup.run(attempt)
-    except GiveUpError as e:
-        print(f"supervise: {e}", file=sys.stderr)
-        return 1
-    snap = obs.snapshot()
-    print("resilience: " + json.dumps({k: snap.get(k, 0.0)
-                                       for k in RESILIENCE_KEYS}), flush=True)
-    return rc
+        try:
+            rc = sup.run(attempt)
+        except GiveUpError as e:
+            print(f"supervise: {e}", file=sys.stderr)
+            return 1
+        keys = RESILIENCE_KEYS + (ELASTIC_KEYS if args.elastic else ()) + (
+            ADAPT_KEYS if advisor is not None else ())
+        snap = obs.snapshot()
+        if lead:
+            print("resilience: " + json.dumps({k: snap.get(k, 0.0)
+                                               for k in keys}), flush=True)
+        return rc
+    finally:
+        if owns:
+            shutdown_distributed()
 
 
 def restore_run(args: argparse.Namespace) -> tuple[str, torch.nn.Module]:
@@ -1568,16 +1731,24 @@ def cmd_profile_analyze(args: argparse.Namespace) -> int:
     """Offline per-op summary of a ``--profile-dir`` trace: first one plain
     line on what the capture holds (a capture without device events says
     so), and one on its ``train_step`` ranges where it has them, then the
-    per-op table."""
+    per-op table. A ``--mesh`` run's directory holds one ``rank<r>``
+    folder a rank: each is summarized in turn, under a ``rank<r>:``
+    line."""
     device = None if args.device < 0 else args.device
-    events = load_trace_events(args.dir)
-    print(render_summary(capture_summary(events, device=device)))
-    steps = capture_summary(events, device=device, region="train_step")
-    if steps["regions"]:
-        print(f"inside its {steps['regions']} train_step ranges: "
-              f"{render_summary(steps)}")
-    print(summarize(op_stats(args.dir, device=device), top=args.top,
-                    steps=args.steps))
+    root = Path(args.dir)
+    ranks = sorted((p for p in root.glob("rank*") if p.is_dir()
+                    and p.name[4:].isdigit()), key=lambda p: int(p.name[4:]))
+    for where in ranks or [root]:
+        if ranks:
+            print(f"{where.name}:")
+        events = load_trace_events(where)
+        print(render_summary(capture_summary(events, device=device)))
+        steps = capture_summary(events, device=device, region="train_step")
+        if steps["regions"]:
+            print(f"inside its {steps['regions']} train_step ranges: "
+                  f"{render_summary(steps)}")
+        print(summarize(op_stats(where, device=device), top=args.top,
+                        steps=args.steps))
     return 0
 
 
@@ -1813,10 +1984,18 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--pipeline-virtual", type=int, default=1,
                     help="interleaved PP: virtual chunks per stage "
                          "(circular placement; shrinks the bubble ~Vx)")
-    # the JAX CLI's flag that is not ported yet: accepted, then refused
-    # with its ROADMAP queue
+    sp.add_argument("--scan-unroll", type=int, default=0,
+                    help="layer-scan unroll factor of the JAX package (0 = "
+                         "auto); the port's blocks run in a Python loop, so "
+                         "it changes no kernel or loop here: it is recorded "
+                         "(each step's extra.json) and supervise --adapt may "
+                         "set it")
     sp.add_argument("--max-devices", type=int, default=None,
-                    help=argparse.SUPPRESS)
+                    help="build the mesh over only the first N ranks "
+                         "(elastic restarts: a shrunk attempt plans over "
+                         "the surviving subset and restore reshards the "
+                         "checkpoint onto it; the other ranks wait for the "
+                         "attempt's outcome)")
     sp.set_defaults(func=cmd_train)
 
     sp = sub.add_parser("supervise",
@@ -1831,10 +2010,22 @@ def build_parser() -> argparse.ArgumentParser:
                          "drills)")
     sp.add_argument("--journal", default=None, metavar="FILE",
                     help="persist flight-recorder events (attempts, "
-                         "restarts) to this rotating JSONL journal")
-    sp.add_argument("--elastic", action="store_true", help=argparse.SUPPRESS)
-    sp.add_argument("--shrink-plan", default=None, help=argparse.SUPPRESS)
-    sp.add_argument("--adapt", action="store_true", help=argparse.SUPPRESS)
+                         "restarts, replans, advisor decisions) to this "
+                         "rotating JSONL journal")
+    sp.add_argument("--elastic", action="store_true",
+                    help="replan the mesh from surviving devices before "
+                         "every attempt (--mesh data=K --max-devices K "
+                         "appended to the train command); restore reshards "
+                         "the checkpoint onto the new shape")
+    sp.add_argument("--shrink-plan", default=None,
+                    help="elastic drill: comma-separated device budgets per "
+                         "attempt, e.g. 8,4 = first attempt sees 8 devices, "
+                         "every later attempt 4 (simulates losing hosts)")
+    sp.add_argument("--adapt", action="store_true",
+                    help="run the GoodputAdvisor over per-attempt goodput "
+                         "breakdowns and carry its bounded knob decisions "
+                         "(--save-every/--grace-steps/--scan-unroll) into "
+                         "the next attempt")
     sp.add_argument("train_args", nargs=argparse.REMAINDER,
                     help="-- train --preset ... --ckpt-dir ...")
     sp.set_defaults(func=cmd_supervise)

@@ -9,7 +9,8 @@ temporal ViT ones included. The tests hold this copy equal to the JAX
 package's field by field.
 
 ``scan_unroll`` selects a JAX execution strategy the port does not have
-(its blocks run in a Python loop); it is kept for that equality. The
+(its blocks run in a Python loop); it is kept for that equality, and
+``train --scan-unroll`` (which ``supervise --adapt`` may set) writes it. The
 pipeline fields (``pipeline`` and the ``pp_*`` family) are honoured by the
 pipelined encoder (`jimm_tpu_torch/nn/transformer.py`), whose schedule
 checks, :func:`check_pp_schedule` and :func:`validate_pipeline`, are copies

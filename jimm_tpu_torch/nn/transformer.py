@@ -19,7 +19,8 @@ attention or MLP whose ``tp`` group is set holds this rank's slices of its
 projections and runs Megatron-style: q/k/v and fc1 column-parallel on the
 replicated input (``comm.tp_copy``), the attention on the local heads,
 attention out and fc2 row-parallel (``comm.tp_row_linear``: the partial
-products summed in f32, the bias added once, one rounding).
+products summed in f32, the bias added once, one rounding; an fp8 policy
+module sums the fp8 GEMM's partial products the same way).
 
 Pipeline parallelism (``cfg.pipeline``): the blocks run under
 `parallel/pipeline.py`'s schedule over the ambient mesh's ``stage`` axis,
@@ -65,6 +66,17 @@ def _layernorm(dim: int, eps: float, *, impl: str = "xla", device=None,
     if impl != "xla":
         raise ValueError(f"unknown ln_impl {impl!r}")
     return nn.LayerNorm(dim, eps=eps, device=device, dtype=dtype)
+
+
+def row_parallel(linear: nn.Module, x: torch.Tensor,
+                 grp: comm.AxisGroup) -> torch.Tensor:
+    """``linear`` row-parallel over ``grp`` on this rank's slice ``x`` of
+    its input features: an fp8 policy module's own (its partial products
+    from the fp8 GEMM), else ``comm.tp_row_linear``."""
+    own = getattr(linear, "row_parallel", None)
+    if own is not None:
+        return own(x, grp)
+    return comm.tp_row_linear(x, linear.weight, linear.bias, grp)
 
 
 class Attention(nn.Module):
@@ -121,8 +133,7 @@ class Attention(nn.Module):
         with checkpoint_name("branch_out"):
             if self.tp is None:
                 return self.out(o)
-            return comm.tp_row_linear(o, self.out.weight, self.out.bias,
-                                      self.tp)
+            return row_parallel(self.out, o, self.tp)
 
 
 class Mlp(nn.Module):
@@ -145,8 +156,7 @@ class Mlp(nn.Module):
         with checkpoint_name("branch_out"):
             if self.tp is None:
                 return self.fc2(h)
-            return comm.tp_row_linear(h, self.fc2.weight, self.fc2.bias,
-                                      self.tp)
+            return row_parallel(self.fc2, h, self.tp)
 
 
 class Block(nn.Module):

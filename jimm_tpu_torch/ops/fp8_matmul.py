@@ -36,7 +36,9 @@ by plain torch as JAX's ``.T`` is.
 :func:`fp8_gemm` launches the kernel for CUDA tensors and runs
 :func:`fp8_gemm_plain` for CPU tensors; any other device raises. The
 module-level ``launches`` counts the forward's kernel launches and
-``bwd_launches`` the backward's (two a call: dx and dw).
+``bwd_launches`` the backward's (two a call: dx and dw);
+``amax_reductions`` counts the backward's gradient-amax all-reduces on a
+mesh.
 """
 
 from __future__ import annotations
@@ -79,15 +81,19 @@ _GROWTH = 2.0
 #: and the backward's (dx and dw)
 launches = 0
 bwd_launches = 0
+#: the backward's gradient-amax all-reduces on a mesh since last set to 0
+amax_reductions = 0
 
 
 def quantize_tensor(x: torch.Tensor, scale: torch.Tensor,
                     dtype: torch.dtype) -> torch.Tensor:
     """Per-tensor symmetric fp8 quantization at an explicit f32 scale,
-    saturating at the format max (no inf from a stale delayed scale)."""
+    saturating at the format max (no inf from a stale delayed scale); the
+    result is dense, as the GEMM's operands must be, whatever ``x``'s
+    strides (a gathered output's gradient is a column slice)."""
     fmax = _FMAX[dtype]
     xf = x.float() / scale
-    return xf.clamp(-fmax, fmax).to(dtype)
+    return xf.clamp(-fmax, fmax).to(dtype).contiguous()
 
 
 def tensor_amax(x: torch.Tensor) -> torch.Tensor:
@@ -311,25 +317,50 @@ class Fp8MatmulFn(torch.autograd.Function):
     ``dx = dy_q . w_q`` at ``dy_scale * w_scale`` in x's dtype, ``dw = dy_q^T
     . x_q`` at ``x_scale * dy_scale`` in w's dtype, ``dbias`` the f32 sum of
     the unquantized dy in the bias dtype. The scales get no gradient. A dx
-    or dw that no input needs is not computed (JAX's jit drops it alike)."""
+    or dw that no input needs is not computed (JAX's jit drops it alike).
+
+    On a mesh, ``amax_group`` (a ``comm.AxisGroup``) is the ranks dy is
+    split over: its amax is their max, as JAX's dynamic scale of a global
+    array is (one scalar all-reduce a backward, counted in
+    ``amax_reductions``). ``sum_group``: a row-parallel product's ``model``
+    group; the GEMM gives this rank's partial product unscaled in f32, the
+    group sums them, and the scale and bias are applied once, as the
+    kernel's epilogue applies them to a whole product."""
 
     @staticmethod
-    def forward(ctx, x, w, bias, x_scale, w_scale):
+    def forward(ctx, x, w, bias, x_scale, w_scale, amax_group=None,
+                sum_group=None):
         x_q = quantize_tensor(x, x_scale, E4M3)
         w_q = quantize_tensor(w, w_scale, E4M3)
         # the bias joins the f32 epilogue in f32, as in JAX's _fp8_gemm
-        y = fp8_gemm(x_q, w_q, x_scale * w_scale,
-                     None if bias is None else bias.float())
+        b = None if bias is None else bias.float()
+        if sum_group is None or sum_group.pg is None:
+            y = fp8_gemm(x_q, w_q, x_scale * w_scale, b)
+        else:
+            y = fp8_gemm(x_q, w_q, torch.ones_like(x_scale))
+            torch.distributed.all_reduce(y, group=sum_group.pg)
+            y = y * (x_scale * w_scale)
+            if b is not None:
+                y = y + b
         ctx.save_for_backward(x_q, w_q, x_scale, w_scale)
         ctx.dtypes = (x.dtype, w.dtype, None if bias is None else bias.dtype)
+        ctx.amax_group = amax_group
         return y
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
+        global amax_reductions
         x_q, w_q, x_scale, w_scale = ctx.saved_tensors
         x_dtype, w_dtype, b_dtype = ctx.dtypes
-        dy_scale = dynamic_scale(dy, E5M2)
+        grp = ctx.amax_group
+        if grp is None or grp.pg is None:
+            dy_scale = dynamic_scale(dy, E5M2)
+        else:
+            from jimm_tpu_torch.parallel.comm import all_reduce_max_
+            dy_amax = all_reduce_max_(tensor_amax(dy).reshape(1), grp)
+            amax_reductions += 1
+            dy_scale = _scale_from(dy_amax.reshape(()), E5M2)
         dy_q = quantize_tensor(dy, dy_scale, E5M2)
         dx = dw = dbias = None
         if ctx.needs_input_grad[0]:
@@ -340,13 +371,14 @@ class Fp8MatmulFn(torch.autograd.Function):
                           x_scale * dy_scale, backward=True).to(w_dtype)
         if b_dtype is not None and ctx.needs_input_grad[2]:
             dbias = dy.float().sum(dim=0).to(b_dtype)
-        return dx, dw, dbias, None, None
+        return dx, dw, dbias, None, None, None, None
 
 
 def fp8_matmul(x: torch.Tensor, w: torch.Tensor,
                bias: torch.Tensor | None = None, *,
                x_scale: torch.Tensor | None = None,
-               w_scale: torch.Tensor | None = None) -> torch.Tensor:
+               w_scale: torch.Tensor | None = None, amax_group=None,
+               sum_group=None) -> torch.Tensor:
     """Differentiable fp8 matmul ``x @ w.T + bias``, f32 ``(M, N)``.
 
     Args:
@@ -356,7 +388,10 @@ def fp8_matmul(x: torch.Tensor, w: torch.Tensor,
         x_scale, w_scale: f32 per-tensor scales; ``None`` takes the dynamic
             scale of the live tensor (the policy module passes delayed
             scales instead).
+        amax_group, sum_group: on a mesh, the ranks the gradient's amax is
+            taken over, and a row-parallel product's ``model`` group (see
+            :class:`Fp8MatmulFn`).
     """
     xs = dynamic_scale(x, E4M3) if x_scale is None else x_scale.float()
     ws = dynamic_scale(w, E4M3) if w_scale is None else w_scale.float()
-    return Fp8MatmulFn.apply(x, w, bias, xs, ws)
+    return Fp8MatmulFn.apply(x, w, bias, xs, ws, amax_group, sum_group)

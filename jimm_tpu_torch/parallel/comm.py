@@ -29,6 +29,7 @@ host itself.
 
 from __future__ import annotations
 
+import itertools
 import math
 from dataclasses import dataclass
 
@@ -36,9 +37,10 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-__all__ = ["AxisGroup", "all_gather", "all_reduce_mean_", "all_to_all",
-           "axis_group", "axis_names", "ppermute", "psum", "ring_perm",
-           "tp_copy", "tp_gather", "tp_reduce", "tp_row_linear"]
+__all__ = ["AxisGroup", "all_gather", "all_reduce_max_",
+           "all_reduce_mean_", "all_to_all", "axis_group", "axis_names",
+           "ppermute", "prepare_groups", "psum", "ring_perm", "tp_copy",
+           "tp_gather", "tp_reduce", "tp_row_linear"]
 
 AxisName = str | tuple[str, ...]
 
@@ -70,6 +72,52 @@ def axis_names(axis: AxisName | None) -> tuple[str, ...]:
     return (axis,) if isinstance(axis, str) else tuple(axis)
 
 
+def _rows(mesh: DeviceMesh, names: tuple[str, ...]) -> list[list[int]]:
+    """The global ranks of every group along ``names``, each in the axes'
+    linear order."""
+    dims = list(mesh.mesh_dim_names)
+    order = [dims.index(n) for n in names]
+    rest = [i for i in range(len(dims)) if i not in order]
+    return mesh.mesh.permute(*rest, *order).reshape(
+        -1, math.prod(mesh.mesh.shape[i] for i in order)).tolist()
+
+
+def _process_group(mesh: DeviceMesh, row: list[int]
+                   ) -> dist.ProcessGroup | None:
+    """The process group of the ranks ``row`` (None for one rank), made
+    once per rank set on the mesh. Making one is a collective over every
+    rank of the default group: a mesh over a subset of the ranks
+    (``--max-devices``) has all of its groups made up front
+    (:func:`prepare_groups`, which the ranks outside it call too), and
+    asking such a mesh for another raises rather than hang."""
+    if len(row) < 2:
+        return None
+    made = mesh.__dict__.setdefault("_jimm_process_groups", {})
+    key = tuple(sorted(row))
+    if key not in made:
+        if mesh.__dict__.get("_jimm_groups_frozen"):
+            raise RuntimeError(
+                f"mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} "
+                f"over a subset of the ranks has no group for ranks {key}: "
+                f"prepare_groups makes every group such a mesh may use")
+        made[key] = dist.new_group(list(key))
+    return made[key]
+
+
+def prepare_groups(mesh: DeviceMesh) -> None:
+    """Make the process groups of every combination of ``mesh``'s axes, in
+    one order, then refuse any later one. Every rank of the default group
+    calls it, the ranks outside the mesh included: the groups of a mesh
+    over a subset of the ranks can then be used by its own ranks alone,
+    which the ranks outside it never follow."""
+    dims = tuple(mesh.mesh_dim_names)
+    for r in range(1, len(dims) + 1):
+        for names in itertools.combinations(dims, r):
+            for row in _rows(mesh, names):
+                _process_group(mesh, row)
+    mesh.__dict__["_jimm_groups_frozen"] = True
+
+
 def axis_group(axis: AxisName | AxisGroup,
                mesh: DeviceMesh | None = None) -> AxisGroup:
     """This rank's :class:`AxisGroup` along ``axis`` of ``mesh`` (None: the
@@ -88,18 +136,11 @@ def axis_group(axis: AxisName | AxisGroup,
     made = mesh.__dict__.setdefault("_jimm_axis_groups", {})
     if names in made:
         return made[names]
-    dims = list(mesh.mesh_dim_names)
-    order = [dims.index(n) for n in names]
-    rest = [i for i in range(len(dims)) if i not in order]
-    rows = mesh.mesh.permute(*rest, *order).reshape(
-        -1, math.prod(mesh.mesh.shape[i] for i in order)).tolist()
     me = dist.get_rank()
     mine = None
-    for row in rows:
-        pg = None
-        if len(row) > 1:
-            # every rank makes every group, in the same order
-            pg = dist.new_group(sorted(row))
+    for row in _rows(mesh, names):
+        # every rank makes every group, in the same order
+        pg = _process_group(mesh, row)
         if me in row:
             mine = AxisGroup(tuple(row), row.index(me), pg)
     if mine is None:
@@ -392,3 +433,16 @@ def all_reduce_mean_(tensors: list[torch.Tensor],
         torch._foreach_copy_(group, [
             piece.view_as(t) for piece, t in
             zip(flat.split([t.numel() for t in group]), group)])
+
+
+@torch.no_grad()
+def all_reduce_max_(t: torch.Tensor,
+                    grp: AxisGroup | dist.ProcessGroup | None
+                    ) -> torch.Tensor:
+    """``t`` replaced in place by its elementwise max over ``grp``'s ranks
+    (an :class:`AxisGroup` or a process group; None, or an axis of one
+    rank: ``t`` as it is), in one all-reduce; returned."""
+    pg = grp.pg if isinstance(grp, AxisGroup) else grp
+    if pg is not None:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=pg)
+    return t

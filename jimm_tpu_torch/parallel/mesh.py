@@ -27,9 +27,10 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-__all__ = ["MESH_AXES", "TOPOLOGIES", "initialize_distributed", "local_device",
-           "make_hybrid_mesh", "make_mesh", "make_topology", "mesh_shape",
-           "mesh_sizes", "planned_world_size", "resolve_mesh_axis",
+__all__ = ["MESH_AXES", "TOPOLOGIES", "check_max_devices",
+           "initialize_distributed", "local_device", "make_hybrid_mesh",
+           "make_mesh", "make_topology", "mesh_shape", "mesh_sizes",
+           "outcome_group", "planned_world_size", "resolve_mesh_axis",
            "shutdown_distributed"]
 
 #: the mesh-axis names, JAX's vocabulary
@@ -37,6 +38,14 @@ MESH_AXES: tuple[str, ...] = ("data", "model", "replica", "seq", "stage")
 
 #: the device this process computes on, set by :func:`initialize_distributed`
 _DEVICE: torch.device | None = None
+
+#: how long the outcome group's collective waits: ranks that
+#: ``--max-devices`` leaves out of an attempt wait in it through the whole
+#: attempt, which may run for days
+OUTCOME_TIMEOUT_S = 30 * 24 * 3600.0
+
+#: every rank of the default group, on gloo, with :data:`OUTCOME_TIMEOUT_S`
+_OUTCOME_GROUP: dist.ProcessGroup | None = None
 
 
 def _env_int(*names: str) -> int | None:
@@ -70,10 +79,11 @@ def initialize_distributed(coordinator_address: str | None = None,
     device defaults to the card (``cuda:(LOCAL_RANK % device_count())``)
     when there is one, else the CPU; ``device="cpu"`` asks for the CPU. The
     backend (NCCL or gloo, see the module docstring) is fixed here, unless
-    ``backend`` names one; ``timeout_s`` bounds every collective. Errors
+    ``backend`` names one; ``timeout_s`` bounds every collective but the
+    outcome group's (:func:`outcome_group`, made here too). Errors
     are raised, never downgraded: a misconfigured multi-process run that
     went on single-process would train the wrong thing."""
-    global _DEVICE
+    global _DEVICE, _OUTCOME_GROUP
     if dist.is_initialized():
         return local_device()
     coordinator_address = coordinator_address or os.environ.get(
@@ -118,16 +128,29 @@ def initialize_distributed(coordinator_address: str | None = None,
         kwargs["device_id"] = dev
     dist.init_process_group(**kwargs)
     _DEVICE = dev
+    _OUTCOME_GROUP = None
+    if world > 1:
+        _OUTCOME_GROUP = dist.new_group(
+            backend="gloo", timeout=timedelta(seconds=OUTCOME_TIMEOUT_S))
     return dev
 
 
 def shutdown_distributed() -> None:
     """Leave the default process group: the end of a run that
     :func:`initialize_distributed` started."""
-    global _DEVICE
+    global _DEVICE, _OUTCOME_GROUP
     if dist.is_initialized():
         dist.destroy_process_group()
-    _DEVICE = None
+    _DEVICE = _OUTCOME_GROUP = None
+
+
+def outcome_group() -> dist.ProcessGroup | None:
+    """The group an attempt's outcome is agreed over: every rank of the
+    default group, on gloo (CPU tensors, whatever the default backend),
+    with a collective timeout of :data:`OUTCOME_TIMEOUT_S` instead of the
+    default group's, since the ranks ``--max-devices`` leaves out wait in
+    it while the others train. None with one rank."""
+    return _OUTCOME_GROUP
 
 
 def local_device() -> torch.device:
@@ -171,15 +194,41 @@ def mesh_sizes(axes: Mapping[str, int], n: int) -> dict[str, int]:
     return dict(zip(axes, sizes))
 
 
-def make_mesh(axes: Mapping[str, int] | None = None) -> DeviceMesh:
+def make_mesh(axes: Mapping[str, int] | None = None, *,
+              max_devices: int | None = None) -> DeviceMesh:
     """A mesh from ``{"axis": size}`` over every rank of the default group
     (made first, one-rank, when there is none); ``-1`` means "all remaining
     ranks". Axis order follows dict order, outermost first, and rank ``r``
-    sits at the row-major coordinates of ``r``."""
+    sits at the row-major coordinates of ``r``.
+
+    ``max_devices``: the mesh over ranks ``0..max_devices-1`` only (JAX's
+    ``--max-devices``: a device is a rank here), with JAX's range check.
+    When that leaves ranks out, every rank of the default group makes it,
+    the ranks outside it included, and then every process group it may use
+    (``comm.prepare_groups``): making a group is a collective over the
+    default group."""
     n = _world_size()
-    sizes = mesh_sizes(axes if axes is not None else {"data": n}, n)
-    return init_device_mesh(local_device().type, tuple(sizes.values()),
-                            mesh_dim_names=tuple(sizes))
+    if max_devices is not None:
+        check_max_devices(max_devices, n)
+    k = n if max_devices is None else max_devices
+    sizes = mesh_sizes(axes if axes is not None else {"data": k}, k)
+    if k == n:
+        return init_device_mesh(local_device().type, tuple(sizes.values()),
+                                mesh_dim_names=tuple(sizes))
+    mesh = DeviceMesh(local_device().type,
+                      torch.arange(k).reshape(tuple(sizes.values())),
+                      mesh_dim_names=tuple(sizes))
+    from jimm_tpu_torch.parallel.comm import prepare_groups
+    prepare_groups(mesh)
+    return mesh
+
+
+def check_max_devices(max_devices: int, visible: int) -> None:
+    """JAX's range check of ``--max-devices`` against the ranks there
+    are."""
+    if not 1 <= max_devices <= visible:
+        raise ValueError(f"--max-devices {max_devices} out of range "
+                         f"(1..{visible} visible)")
 
 
 def make_hybrid_mesh(ici: Mapping[str, int],

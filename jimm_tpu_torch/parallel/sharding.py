@@ -37,7 +37,9 @@ implicitly from them, the port does explicitly:
 
 Gradients: ranks that saw different examples (every axis but ``model`` and
 ``stage``) average them (:func:`finish_gradients`, FSDP2's
-reduce-scatter). Ranks along ``model`` and ``stage`` already hold the
+reduce-scatter). The fp8 policy's amaxes are maxima over every axis but
+``stage`` (``quant.policy.Fp8Linear.amax_group``, set here;
+:func:`finish_gradients` rolls the histories). Ranks along ``model`` and ``stage`` already hold the
 whole gradient of what they hold (see `comm.py` and `pipeline.py`).
 :func:`gather_whole` and :func:`local_piece` move between the local and
 the whole tensors (checkpoints), :func:`norm_groups` says over which ranks
@@ -72,13 +74,6 @@ from jimm_tpu_torch.parallel.mesh import mesh_shape
 MeshAxis = str | tuple[str, ...] | None
 #: a PartitionSpec: one mesh axis (or tuple, or None) per dimension
 Spec = tuple[MeshAxis, ...]
-
-#: what part 3 of the parallelism item brings
-PART_3 = ("ROADMAP.md queue 1 item 6 part 3 (elastic resizing, "
-          "--max-devices, the fault drills, preemption saves and profilers "
-          "under --mesh, fp8_hybrid and int8_qk under the model and stage "
-          "axes)")
-
 
 @dataclass(frozen=True)
 class ShardingRules:
@@ -290,12 +285,20 @@ class Plan:
     names: tuple[str, ...] = ()
 
 
-def _fsdp_mesh(mesh: DeviceMesh) -> DeviceMesh:
+def fsdp_mesh(mesh: DeviceMesh) -> DeviceMesh:
     """FSDP2's mesh: shard over ``data``, replicate over the other axes --
     1-D over ``data``, or 2-D ``(replicate, shard)`` (HSDP) when another
     axis (``seq`` under ``fsdp_sp``, ``replica`` under ``hybrid_fsdp_tp``)
     has more than one rank; one such mesh per ``model`` position, whose
-    ranks hold different slices."""
+    ranks hold different slices. Made once per mesh (its groups are a
+    collective of every rank, see ``comm.prepare_groups``)."""
+    made = mesh.__dict__.get("_jimm_fsdp_mesh")
+    if made is None:
+        made = mesh.__dict__["_jimm_fsdp_mesh"] = _fsdp_mesh(mesh)
+    return made
+
+
+def _fsdp_mesh(mesh: DeviceMesh) -> DeviceMesh:
     names = list(mesh.mesh_dim_names)
     if "data" not in names:
         raise ValueError(f"FSDP shards over a 'data' axis; mesh "
@@ -343,6 +346,7 @@ def _split_model(model: nn.Module, specs: dict[str, Spec],
     slices (their ``tp`` group); returns each sliced parameter's
     dimension."""
     from jimm_tpu_torch.nn.transformer import Attention, Mlp
+    from jimm_tpu_torch.quant.policy import Fp8Linear
     dims: dict[str, int] = {}
     for prefix, module in model.named_modules():
         for pname, p in list(module.named_parameters(recurse=False)):
@@ -350,7 +354,10 @@ def _split_model(model: nn.Module, specs: dict[str, Spec],
             dim = _model_dim(specs[full])
             if dim is None:
                 continue
-            piece = p.detach().chunk(grp.size, dim)[grp.index].clone()
+            # a dense slice: a column slice's view strides by the whole
+            # row, which the fp8 GEMM's TMA operands may not
+            piece = p.detach().chunk(grp.size, dim)[grp.index].clone(
+                memory_format=torch.contiguous_format)
             setattr(module, pname, nn.Parameter(
                 piece, requires_grad=p.requires_grad))
             dims[full] = dim
@@ -368,7 +375,7 @@ def _split_model(model: nn.Module, specs: dict[str, Spec],
         module.tp = grp
     for prefix, module in model.named_modules():
         # a projection, the classifier or the token embedding
-        if (isinstance(module, (nn.Linear, nn.Embedding))
+        if (isinstance(module, (nn.Linear, nn.Embedding, Fp8Linear))
                 and prefix not in inner and dims.get(f"{prefix}.weight") == 0):
             module.tp = grp
     return dims
@@ -428,6 +435,7 @@ def shard_model(model: nn.Module, mesh: DeviceMesh,
         pipelined = _split_stages(model, stage)
     examples = comm.axis_group(tuple(
         a for a in mesh.mesh_dim_names if a not in ("model", "stage")), mesh)
+    _fp8_amax_group(model, mesh)
     own = dict(model.named_parameters())
     dims = {own[n]: _data_dim(specs[n]) for n in own}
     whole = {p for p, d in dims.items() if d is None}
@@ -436,7 +444,7 @@ def shard_model(model: nn.Module, mesh: DeviceMesh,
         from torch.distributed.tensor import Shard
 
         from jimm_tpu_torch.nn.transformer import Block
-        kw = {"mesh": _fsdp_mesh(mesh), "ignored_params": whole,
+        kw = {"mesh": fsdp_mesh(mesh), "ignored_params": whole,
               "shard_placement_fn": lambda p: Shard(dims[p])}
         for m in model.modules():
             if isinstance(m, Block):
@@ -451,6 +459,19 @@ def shard_model(model: nn.Module, mesh: DeviceMesh,
     return model
 
 
+def _fp8_amax_group(model: nn.Module, mesh: DeviceMesh) -> None:
+    """Give every fp8 policy module the ranks its amaxes are the max over:
+    every mesh axis but ``stage`` (over an axis that replicates a tensor
+    the max changes nothing; each stage holds other blocks)."""
+    from jimm_tpu_torch.quant.policy import Fp8Linear
+    mods = [m for m in model.modules() if isinstance(m, Fp8Linear)]
+    if mods:
+        grp = comm.axis_group(tuple(a for a in mesh.mesh_dim_names
+                                    if a != "stage"), mesh)
+        for m in mods:
+            m.amax_group = grp
+
+
 def plan_of(model: nn.Module) -> Plan | None:
     """The :class:`Plan` ``shard_model`` recorded on ``model``, or None."""
     return getattr(model, "_jimm_plan", None)
@@ -459,10 +480,14 @@ def plan_of(model: nn.Module) -> Plan | None:
 def finish_gradients(model: nn.Module) -> None:
     """After the backward: average the gradients of the parameters that
     FSDP2 does not reduce over the ranks that saw different examples (one
+    all-reduce), and roll the fp8 policy modules' amax histories with the
+    step's maxima over the mesh (``quant.policy.sync_amax_histories``, one
     all-reduce). A no-op for a model ``shard_model`` did not lay out."""
     plan = plan_of(model)
     if plan is None:
         return
+    from jimm_tpu_torch.quant.policy import sync_amax_histories
+    sync_amax_histories(model)
     grads = [p.grad for p in plan.replicated if p.grad is not None]
     comm.all_reduce_mean_(grads, plan.group)
 

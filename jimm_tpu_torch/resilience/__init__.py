@@ -1,6 +1,4 @@
-"""Preemption-tolerant training; the counterpart of ``jimm_tpu.resilience``
-(its ``elastic`` module, the mesh replanning and the goodput advisor, waits
-for ROADMAP.md queue 1, item 6).
+"""Preemption-tolerant training; the counterpart of ``jimm_tpu.resilience``.
 
 - :class:`Supervisor` runs training as restartable attempts: it catches
   worker death and preemption and restarts with bounded jittered backoff
@@ -11,12 +9,16 @@ for ROADMAP.md queue 1, item 6).
 - :class:`FaultPlan` is the seeded fault-injection plan behind
   ``--inject-faults`` (preemption signals, crashes, stalls, checkpoint
   corruption at configured steps).
+- :func:`plan_data_axis` and :class:`GoodputAdvisor` (``elastic``) replan
+  the data axis between attempts and tune the next attempt's knobs from
+  its goodput (``supervise --elastic`` / ``--adapt``).
 
 Everything here is host-only: no torch import. Restarts, lost work and
 grace saves land in ``jimm_tpu_torch.obs``.
 """
 
 from jimm_tpu_torch.resilience.backoff import BackoffPolicy
+from jimm_tpu_torch.resilience.elastic import GoodputAdvisor, plan_data_axis
 from jimm_tpu_torch.resilience.faults import (Fault, FaultPlan,
                                               corrupt_latest_checkpoint)
 from jimm_tpu_torch.resilience.preemption import (PreemptedError,
@@ -30,10 +32,12 @@ __all__ = [
     "Fault",
     "FaultPlan",
     "GiveUpError",
+    "GoodputAdvisor",
     "PreemptedError",
     "PreemptionGuard",
     "PreemptionHandler",
     "Supervisor",
     "corrupt_latest_checkpoint",
     "note_checkpoint_completed",
+    "plan_data_axis",
 ]

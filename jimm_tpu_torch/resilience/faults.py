@@ -86,15 +86,21 @@ class FaultPlan:
     def needs(self, kind: str) -> bool:
         return any(f.kind == kind for f in self.faults)
 
-    def fire(self, step: int, *, ckpt=None) -> None:
+    def fire(self, step: int, *, ckpt=None, rank: int = 0) -> None:
         """Fire every event configured for ``step`` (called at the end of
         the step, after its checkpoint save started). ``ckpt`` is the run's
         CheckpointManager: corrupt and crash events flush it first, so the
-        injected failure lands on a committed checkpoint."""
+        injected failure lands on a committed checkpoint. On a mesh every
+        rank fires the plan alike but for two events that act on ``rank``
+        0 alone: ``corrupt`` (rank 0 writes the checkpoints) and
+        ``preempt`` (the signal reaches one rank; the preemption handler's
+        agreement takes it to the others)."""
         for fault in self.events_at(step):
             self.fired.append(fault)
             if fault.kind == "stall":
                 self._sleep(fault.arg)
+            elif fault.kind in ("corrupt", "preempt") and rank != 0:
+                continue
             elif fault.kind == "corrupt":
                 if ckpt is None:
                     raise ValueError("corrupt@STEP faults need a "

@@ -88,17 +88,22 @@ class PreemptionHandler:
     out, closes the manager (flushing the completion marker) and raises
     :class:`PreemptedError`. While draining, :attr:`draining` is True: the
     loop skips its normal per-step saves, since nothing after the grace
-    save is kept.
+    save is kept. On a mesh ``agree`` makes the flag the ranks' (see
+    ``__init__``).
     """
 
     def __init__(self, guard: PreemptionGuard, ckpt, *, grace_steps: int = 1,
-                 accounter=None, registry=None):
+                 accounter=None, registry=None, agree=None):
         if ckpt is None:
             raise ValueError("preemption saves need a CheckpointManager")
         self.guard = guard
         self.ckpt = ckpt
         self.grace_steps = max(0, grace_steps)
         self.accounter = accounter
+        #: on a mesh, ``agree(flag) -> bool``: whether any rank's guard
+        #: fired (a collective every rank calls at each step's end), so
+        #: that every rank saves the same step and raises together
+        self.agree = agree
         if registry is None:
             from jimm_tpu_torch.obs import get_registry
             registry = get_registry("jimm_train")
@@ -122,7 +127,12 @@ class PreemptionHandler:
         ``already_saved``: the loop's normal checkpoint block saved this
         exact step; its write is the grace save (a second save of the same
         step is refused)."""
-        if not self.guard.preempted:
+        preempted = self.guard.preempted
+        if self.agree is not None:
+            preempted = self.agree(preempted)
+            if preempted and not self.guard.preempted:
+                self.guard.trigger()
+        if not preempted:
             return
         if self.save_step is None:
             self._t_detected = time.monotonic()

@@ -75,6 +75,8 @@ def test_importing_the_port_loads_no_jax():
             "jimm_tpu_torch.parallel.seqpar",
             "jimm_tpu_torch.parallel.probe",
             "jimm_tpu_torch.parallel.pipeline"} <= set(MODULES)
+    # and the elastic slice's copy of the reference's jax-free planner
+    assert "jimm_tpu_torch.resilience.elastic" in MODULES
 
 
 def test_the_indexed_loader_loads_neither_jax_nor_grain():

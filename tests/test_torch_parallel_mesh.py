@@ -7,9 +7,9 @@ preset (the port's table of logical names against the JAX modules'
 ``logical(...)`` annotations), the seq-parallel planner and byte counts,
 the transport probe (two gloo CPU ranks, two of its cases), the slices the
 ``model`` axis cuts under the tp presets (none under ``pp``), the train
-command's rules (JAX's eight choices) and its refusals: part 3's
-(``--max-devices``, fp8_hybrid and int8_qk under the model and stage axes)
-and the pipeline flags' and configs' (JAX's messages)."""
+command's rules (JAX's eight choices) and its refusals, with JAX's
+messages: ``--max-devices`` out of range or short of the mesh, and the
+pipeline flags' and configs'."""
 
 import dataclasses
 import json
@@ -175,15 +175,16 @@ def test_train_rules_are_the_jax_clis():
 
 
 @pytest.mark.parametrize("argv,match", [
-    # the cases that refused part 2 of the parallelism item now refuse
-    # part 3's flags, and the pipeline flags' and configs' errors
+    # the cases that refused parts 2 and 3 of the parallelism item now
+    # check the JAX CLI's errors: --max-devices out of range or short of
+    # the mesh, and the pipeline flags' and configs'
     pytest.param(["--mesh", "data=1,model=2", "--rules", "tp", "--precision",
-                  "fp8_hybrid"],
-                 "--precision fp8_hybrid under --rules tp .*item 6 part 3",
+                  "fp8_hybrid", "--max-devices", "3"],
+                 r"--max-devices 3 out of range \(1\.\.2 visible\)",
                  id="argv0---rules tp .*item 6 part 2"),
     pytest.param(["--mesh", "data=1,stage=2", "--rules", "pp", "--precision",
-                  "int8_qk"],
-                 "--precision int8_qk under --rules pp .*item 6 part 3",
+                  "int8_qk", "--max-devices", "1"],
+                 r"mesh \{'data': 1, 'stage': 2\} != 1 devices",
                  id="argv1---rules pp .*item 6 part 2"),
     pytest.param(["--pipeline-microbatches", "2"],
                  r"--pipeline-microbatches needs --rules pp \(layers",
@@ -191,7 +192,8 @@ def test_train_rules_are_the_jax_clis():
     pytest.param(["--pipeline-virtual", "2"],
                  "--pipeline-virtual needs --rules pp",
                  id="argv3-item 6 part 2"),
-    pytest.param(["--max-devices", "1"], "--max-devices .*item 6 part 3",
+    pytest.param(["--mesh", "data=1", "--max-devices", "0"],
+                 r"--max-devices 0 out of range \(1\.\.2 visible\)",
                  id="argv4-item 6 part 2"),
     pytest.param(["--mesh", "data=1,stage=2", "--rules", "pp",
                   "--pipeline-microbatches", "3"],

@@ -118,3 +118,43 @@ def test_fsdp_checkpoint_resumes_on_one_rank(pool, tmp_path, weights,
                                whole[2:], rtol=LOSS_RTOL)
     assert topology.value - before == 1
     assert not cli.torch.distributed.is_initialized()
+
+
+def test_a_preemption_of_rank_0_saves_every_rank_at_one_step(pool, tmp_path,
+                                                             weights):
+    # the signal reaches rank 0 alone; the step-end agreement takes it to
+    # rank 1, and both save step 2 and stop
+    ckpt = tmp_path / "ckpt"
+    base = ["--steps", "5", "--device", "cpu", "--mesh", "data=2",
+            "--ckpt-dir", str(ckpt), "--save-every", "100"]
+    res = pool.run(cases.cli_outcome, _argv(
+        *base, "--preemption-save", "--grace-steps", "0", "--inject-faults",
+        "preempt@2", "--metrics-file", str(tmp_path / "cut.jsonl")), weights)
+    assert [(r["error"], r["step"]) for r in res] == \
+        [("PreemptedError", 2)] * 2
+    assert sorted(int(p.name) for p in (ckpt / ".jimm_markers").iterdir()) \
+        == [0, 2]
+    res = pool.run(cases.cli_outcome, _argv(
+        *base, "--resume", "--metrics-file",
+        str(tmp_path / "resumed.jsonl")), weights)
+    assert [r["error"] for r in res] == [None, None]
+    control = _port(pool, tmp_path, weights, "control", "--steps", "5",
+                    "--mesh", "data=2")
+    resumed = read_metrics(tmp_path / "resumed.jsonl")
+    assert sorted(resumed) == [3, 4]
+    assert [resumed[3]["loss"], resumed[4]["loss"]] == control[3:]
+
+
+def test_profilers_record_every_rank(pool, tmp_path, weights, capsys):
+    prof, ring = tmp_path / "prof", tmp_path / "ring"
+    _port(pool, tmp_path, weights, "profiled", "--steps", "5", "--mesh",
+          "data=2", "--profile-dir", str(prof), "--prof-ring", str(ring),
+          "--prof-every", "2", "--prof-window", "1")
+    for rank in ("rank0", "rank1"):
+        assert list((prof / rank).glob("**/*.trace.json.gz")), rank
+        assert list((ring / rank).glob("**/*.trace.json.gz")), rank
+    assert cli.main(["profile-analyze", str(prof)]) == 0
+    out = capsys.readouterr().out
+    assert out.index("rank0:") < out.index("rank1:")
+    # each rank's trace holds its three profiled steps
+    assert out.count("inside its 3 train_step ranges") == 2

@@ -194,9 +194,12 @@ def test_obs_snapshot_diff_tail_timeline_and_regress(tmp_path):
                                 if e.get("tid") == "goodput"}
     with pytest.raises(SystemExit, match="torch twin of bench.py"):
         cli.main(["obs", "regress", "--adopt"])
-    with pytest.raises(SystemExit, match="item 6 part 3"):
-        cli.main(TINY + ["--max-devices", "2"])
-    assert set(cli._TRAIN_NOT_PORTED) == {"max_devices"}
+    # every train flag of the JAX CLI is ported: --max-devices checks the
+    # ranks there are as JAX checks its devices
+    with pytest.raises(SystemExit, match=r"--max-devices 2 out of range "
+                       r"\(1\.\.1 visible\)"):
+        cli.main(TINY + ["--max-devices", "2", "--mesh", "data=2"])
+    assert not hasattr(cli, "_TRAIN_NOT_PORTED")
 
 
 def _trigger(port: int, payload: dict) -> tuple[int, dict]:

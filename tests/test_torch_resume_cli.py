@@ -473,11 +473,20 @@ def test_supervise_refusals_match_jax(argv):
         == str(want.value)
 
 
-@pytest.mark.parametrize("flag", [["--elastic"], ["--shrink-plan", "8,4"],
-                                  ["--adapt"]])
+@pytest.mark.parametrize("flag", [["--elastic", "--shrink-plan", "8,x"],
+                                  ["--shrink-plan", "8,4"],
+                                  ["--elastic", "--adapt", "--shrink-plan",
+                                   "2,0"]])
 def test_supervise_names_item_6_for_the_mesh_options(flag):
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1, item 6"):
-        cli.main(["supervise", *flag, "--", "train", "--ckpt-dir", "x"])
+    # the options are ported (tests/test_torch_elastic.py): their refusals
+    # are the JAX CLI's
+    argv = ["supervise", *flag, "--", "train", "--ckpt-dir", "x"]
+    with pytest.raises(SystemExit) as want:
+        jax_cli.main(argv)
+    with pytest.raises(SystemExit) as got:
+        cli.main(argv)
+    assert str(got.value) == str(want.value)
+    assert "--shrink-plan" in str(got.value)
 
 
 @pytest.mark.parametrize("argv", [[], ["--ckpt-dir", "run"],

@@ -245,13 +245,16 @@ def test_train_cli_needs_the_card_or_asks_for_the_cpu():
     # and the ring losses are ported: tests/test_torch_parallel_*.py;
     # --profile-dir, --prof-ring and --tensorboard-dir, once refused here,
     # too: tests/test_torch_profile_cli.py; so are the pipeline flags:
-    # tests/test_torch_parallel_pp.py); --max-devices waits for the
-    # ROADMAP's part 3 of parallelism
+    # tests/test_torch_parallel_pp.py, and --max-devices, which checks
+    # the ranks there are as JAX checks its devices:
+    # tests/test_torch_elastic.py)
     (["--loss", "siglip_ring"], "--loss siglip_ring needs --mesh"),
     (["--mesh", "data=2"], r"mesh \{'data': 2\} != 1 devices"),
     (["--loss", "clip_ring"], "--loss clip_ring needs --mesh"),
-    (["--max-devices", "2", "--preset", "clip-vit-base-patch16"],
-     "ROADMAP")])
+    pytest.param(["--max-devices", "2", "--mesh", "data=2", "--preset",
+                  "clip-vit-base-patch16"],
+                 r"--max-devices 2 out of range \(1\.\.1 visible\)",
+                 id="flag4-ROADMAP")])
 def test_train_cli_names_the_roadmap_for_unported_flags(flag, match):
     from jimm_tpu_torch.cli import build_parser, cmd_train
     args = build_parser().parse_args(["train", "--tiny", "--device", "cpu",

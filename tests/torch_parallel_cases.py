@@ -182,11 +182,13 @@ def train_cli(argv: list[str], weights: dict | None = None) -> dict:
 # -- the model and stage axes -------------------------------------------------
 
 def tiny_model(preset_name: str, runtime: dict | None = None,
-               weights: dict | None = None, num_classes: int | None = None):
+               weights: dict | None = None, num_classes: int | None = None,
+               precision: str | None = None):
     """The tiny ``preset_name`` on the CPU with the towers' ``runtime``
     fields, from ``weights`` (a JAX model's parameters) when given, else
     seeded as every process seeds it; a ViT's zero classifier drawn from
-    seed 1 (a zero head passes no gradient upstream)."""
+    seed 1 (a zero head passes no gradient upstream); then the
+    ``precision`` policy's surgery, as the train command orders it."""
     import dataclasses
 
     from jimm_tpu_torch import cli
@@ -204,6 +206,9 @@ def tiny_model(preset_name: str, runtime: dict | None = None,
         with torch.no_grad():
             model.classifier.weight.normal_(
                 0.0, 0.1, generator=torch.Generator().manual_seed(1))
+    if precision:
+        from jimm_tpu_torch.quant.policy import apply_precision_policy
+        apply_precision_policy(model, precision)
     return model
 
 
@@ -241,21 +246,37 @@ def step0_gradients(model, images, target, *, mesh=None, rules=None,
 
 def mesh_gradients(preset_name: str, axes: dict, rules: str, images, target,
                    weights: dict | None = None, runtime: dict | None = None,
-                   kind: str = "siglip", num_classes: int | None = None
-                   ) -> dict:
+                   kind: str = "siglip", num_classes: int | None = None,
+                   precision: str | None = None) -> dict:
     """:func:`step0_gradients` of the tiny model laid out by
     ``shard_model`` over ``axes`` under ``rules``, with each parameter's
     local shape and whether it is an FSDP2 shard."""
     from torch.distributed.tensor import DTensor
 
     from jimm_tpu_torch.parallel import sharding
-    model = tiny_model(preset_name, runtime, weights, num_classes)
+    from jimm_tpu_torch.ops import fp8_matmul as fp8
+    model = tiny_model(preset_name, runtime, weights, num_classes, precision)
     mesh = make_mesh(axes)
     sharding.shard_model(model, mesh, rules)
-    out = step0_gradients(model, images, target, mesh=mesh, rules=rules,
-                          kind=kind)
+    real, dense = fp8.fp8_gemm, []
+
+    def spy(a_q, b_q, *args, **kwargs):
+        # the card's kernel takes dense operands only
+        dense.append(a_q.is_contiguous() and b_q.is_contiguous())
+        return real(a_q, b_q, *args, **kwargs)
+
+    fp8.fp8_gemm = spy
+    try:
+        out = step0_gradients(model, images, target, mesh=mesh,
+                              rules=rules, kind=kind)
+    finally:
+        fp8.fp8_gemm = real
+    out["fp8_dense"] = dense
     out["local"] = {n: (tuple(p.to_local().shape) if isinstance(p, DTensor)
                         else tuple(p.shape), isinstance(p, DTensor))
+                    for n, p in model.named_parameters()}
+    out["dense"] = {n: (p.to_local() if isinstance(p, DTensor)
+                        else p).is_contiguous()
                     for n, p in model.named_parameters()}
     return out
 
@@ -302,3 +323,135 @@ def pipelined_forward(preset_name: str, runtime: dict, weights: dict,
                 "blocks": sorted(n for n, _ in model.named_parameters()
                                  if ".blocks." in n and n.endswith(
                                      "ln1.weight"))}
+
+
+# -- fp8 and int8 under the mesh, the drills ----------------------------------
+
+def fp8_linear_passes(x, w, b, g, passes: int = 2) -> dict:
+    """One ``Fp8Linear`` (JAX's ``(in, out)`` kernel ``w``, bias ``b``) as
+    the ``mlp.fc1`` of a module laid out under ``dp`` over a ``data`` axis
+    of every rank, run ``passes`` times on this rank's rows of ``x`` with
+    the loss ``sum(y * g_rows)``, each pass finished as a train step
+    finishes it (``finish_gradients``). Per pass: the histories, the e5m2
+    gradient scale the backward took, this rank's rows of y and dx, and
+    the whole dw and db (the averaged gradients times the ranks)."""
+    from torch import nn
+
+    from jimm_tpu_torch.ops import fp8_matmul as fp8
+    from jimm_tpu_torch.parallel import sharding
+    from jimm_tpu_torch.quant.policy import Fp8Linear
+    mesh = make_mesh({"data": dist.get_world_size()})
+    holder = nn.Module()
+    holder.mlp = nn.Module()
+    holder.mlp.fc1 = Fp8Linear(nn.Parameter(_t(w.T.copy())),
+                               nn.Parameter(_t(b)))
+    sharding.shard_model(holder, mesh, "dp")
+    grp = comm.axis_group("data", mesh)
+    rows = x.shape[0] // grp.size
+    sl = slice(grp.index * rows, (grp.index + 1) * rows)
+    real = fp8.quantize_tensor
+    scales = []
+
+    def spy(t, scale, dtype):
+        if dtype == fp8.E5M2:
+            scales.append(_np(scale).copy())
+        return real(t, scale, dtype)
+
+    fp8.quantize_tensor = spy
+    out = []
+    lin = holder.mlp.fc1
+    try:
+        for _ in range(passes):
+            lin.weight.grad = lin.bias.grad = None
+            xr = _t(x[sl]).requires_grad_()
+            y = lin(xr)
+            (y * _t(g[sl])).sum().backward()
+            sharding.finish_gradients(holder)
+            out.append({"x_amax": _np(lin.x_amax).copy(),
+                        "w_amax": _np(lin.w_amax).copy(),
+                        "dy_scale": scales[-1], "y": _np(y), "dx": _np(xr.grad),
+                        "dw": _np(lin.weight.grad * grp.size).T,
+                        "db": _np(lin.bias.grad * grp.size)})
+    finally:
+        fp8.quantize_tensor = real
+    return {"index": grp.index, "passes": out}
+
+
+def fp8_step(preset_name: str, axes: dict | None, rules: str | None, images,
+             target, weights: dict) -> dict:
+    """The tiny ``preset_name`` from ``weights`` under the fp8_hybrid policy,
+    laid out over ``axes`` (None: no mesh), one loss and backward on the
+    global batch finished as the train step finishes it: every amax
+    history (all rolled once) and the whole gradients."""
+    from jimm_tpu_torch.parallel import sharding
+    from jimm_tpu_torch.train import trainer
+    model = tiny_model(preset_name, None, weights, precision="fp8_hybrid")
+    mesh = None if axes is None else make_mesh(axes)
+    x, y = _t(images), _t(target).long()
+    ctx = contextlib.nullcontext()
+    if mesh is not None:
+        sharding.shard_model(model, mesh, rules)
+        ctx = sharding.use_sharding(mesh, rules)
+        x, y = sharding.shard_batch((x, y), mesh, rules)
+    with ctx:
+        trainer.contrastive_loss_fn(model, x, y, kind="siglip",
+                                    mesh=mesh).backward()
+        sharding.finish_gradients(model)
+        grads = sharding.gather_whole(model, {
+            n: p.grad for n, p in model.named_parameters()})
+    return {"hist": {n: _np(b).copy() for n, b in model.named_buffers()
+                     if n.endswith("_amax")},
+            "grads": {n: _np(g) for n, g in grads.items()}}
+
+
+def _outcome(fn) -> dict:
+    try:
+        return {"rc": fn(), "error": None, "step": None}
+    except Exception as e:  # noqa: BLE001 -- the test reads it
+        return {"rc": None, "error": type(e).__name__,
+                "step": getattr(e, "step", None), "message": str(e)}
+
+
+def cli_outcome(argv: list[str], weights: dict | None = None) -> dict:
+    """:func:`train_cli`, or the exception it raised: its type's name, its
+    ``step`` (a ``PreemptedError``'s) and its message; and what this rank
+    printed."""
+    import io
+    from contextlib import redirect_stdout
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        out = _outcome(lambda: train_cli(argv, weights))
+    if out["rc"] is not None:
+        out.update(out.pop("rc"))
+    out["stdout"] = buf.getvalue()
+    return out
+
+
+def supervise(argv: list[str], weights: dict | None = None) -> dict:
+    """``python -m jimm_tpu_torch supervise <argv>`` on this rank, the tiny
+    model started from ``weights``: the return code, what this rank
+    printed and what its counters counted."""
+    import io
+    from contextlib import redirect_stdout
+
+    from jimm_tpu_torch import cli, obs
+    from jimm_tpu_torch.models.common import load_jax_params
+    real = cli.build_run_model
+
+    def from_jax(spec, *a, **kw):
+        model, fresh = real(spec, *a, **kw)
+        if weights is not None:
+            load_jax_params(model, weights)
+        return model, fresh
+
+    obs.reset_journal()
+    before = obs.snapshot()
+    cli.build_run_model = from_jax
+    buf = io.StringIO()
+    try:
+        with redirect_stdout(buf):
+            rc = cli.main(["supervise", *argv])
+    finally:
+        cli.build_run_model = real
+    return {"rc": rc, "stdout": buf.getvalue(), "counted": {
+        k: v - before.get(k, 0.0) for k, v in obs.snapshot().items()}}

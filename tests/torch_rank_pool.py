@@ -16,14 +16,15 @@ import os
 import traceback
 
 
-def _serve(rank: int, world: int, store: str, conn) -> None:
+def _serve(rank: int, world: int, store: str, timeout_s: float,
+           conn) -> None:
     import torch
     torch.set_num_threads(1)
     from jimm_tpu_torch.parallel.mesh import (initialize_distributed,
                                               shutdown_distributed)
     initialize_distributed(num_processes=world, process_id=rank,
                            device="cpu", backend="gloo",
-                           init_method=f"file://{store}", timeout_s=60)
+                           init_method=f"file://{store}", timeout_s=timeout_s)
     try:
         while True:
             msg = conn.recv()
@@ -40,9 +41,12 @@ def _serve(rank: int, world: int, store: str, conn) -> None:
 
 
 class RankPool:
-    """``world`` gloo ranks serving calls (see the module docstring)."""
+    """``world`` gloo ranks serving calls (see the module docstring).
+    ``timeout``: how long a call may take; ``dist_timeout_s``: the group's
+    collective timeout."""
 
-    def __init__(self, world: int, tmp_dir, *, timeout: float = 120.0):
+    def __init__(self, world: int, tmp_dir, *, timeout: float = 120.0,
+                 dist_timeout_s: float = 60.0):
         ctx = mp.get_context("spawn")
         self.world, self.timeout = world, timeout
         self._conns, self._procs = [], []
@@ -50,7 +54,8 @@ class RankPool:
         for rank in range(world):
             parent, child = ctx.Pipe()
             proc = ctx.Process(target=_serve,
-                               args=(rank, world, store, child), daemon=True)
+                               args=(rank, world, store, dist_timeout_s, child),
+                               daemon=True)
             proc.start()
             child.close()
             self._conns.append(parent)
