@@ -408,6 +408,32 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                ranks, then the resume; (e) the times of the agreement and
                amax collectives. Losses within one bf16 step throughout;
                the record gains the ``q_*`` paths.
+21. serving replicas -- SigLIP-B/16-256 at full width, fused LayerNorm,
+               buckets (1, 8, 32), the card listed twice: (a) ``serve
+               --device cuda:0,cuda:0 --replicas 2 --self-heal --dtype
+               bf16`` through ``cli.build_server`` (a model copy, a CUDA
+               stream and an executor a replica), phase 4's traffic sent by
+               the stdlib ``ServeClient`` in turns with a one-replica
+               server over the same model (one, two, two, one): phase 4's
+               gates on every run (13 flash and 24 LayerNorm launches per
+               batch summed over the replicas), each replica at least 30%
+               of a two-replica run's batches, /metrics with every
+               replica's dispatch counter and the phase percentiles,
+               /debug/traces naming both replicas and read by ``obs tail
+               --traces``; images/s and p50/p99 of both; (b) the library
+               path with replica 1 wrapped to fail on command: two faults
+               restart, then fence it (healthz degraded), ``POST
+               /admin/revive`` un-fences it; a lasting fault: the probe
+               fails, the rebuild and replan bring back two live lanes, the
+               requests sent as the replan begins are answered (phase 4's
+               gate), the journal chains fault, fence, probe, rebuild and
+               replan on one cid; the heal and replan seconds; (c)
+               ``--dtype int8 --replicas 2``: 78 int8-matmul launches per
+               batch summed over both replicas, both dispatching, answers
+               against the plain versions and at cosine >= 0.999 against
+               the f32 twin. The record gains the ``replicas`` and
+               ``replicas_int8`` paths. ``python3 chip_smoke.py --phase
+               21`` runs the build and this phase alone.
 
 Phase 3's flash cases include row 3's causal kind at CLIP-B/16's text
 shapes, (32, 77, 8, 64) and the 70 prompt rows of one label set (70, 77,
@@ -463,6 +489,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import urllib.request
 import warnings
 import zlib
@@ -504,8 +531,10 @@ from jimm_tpu_torch.resilience import PreemptedError
 from jimm_tpu_torch.serve.admission import AdmissionPolicy
 from jimm_tpu_torch.serve.buckets import BucketTable
 from jimm_tpu_torch.serve.cache import EmbeddingCache
+from jimm_tpu_torch.serve.client import ServeClient, ServeClientError
 from jimm_tpu_torch.serve.engine import InferenceEngine, image_forward
 from jimm_tpu_torch.serve.server import ServingServer
+from jimm_tpu_torch.serve.topology import build_replica_forwards, plan_topology
 from jimm_tpu_torch.obs.timeline import validate_chrome_trace
 from jimm_tpu_torch.train.metrics import (mfu, read_event_file,
                                           train_step_flops)
@@ -801,7 +830,7 @@ def check(ok: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fn, iters: int = 10, warmup: int = 3) -> float:
     """Time per call of ``fn`` between CUDA events around ``iters``
     back-to-back calls, after ``warmup`` calls: device time plus any gap in
     which the device waits for the host (L2 warm in both timings: the served
@@ -819,7 +848,7 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def device_ms(fn, iters: int = 10, warmup: int = 3) -> float:
     """Device time per call of ``fn``: the device time of every kernel it
     launches, from a torch.profiler (CUPTI) trace over ``iters`` calls after
     ``warmup``. Unlike events around a loop, this leaves out the time the
@@ -2235,39 +2264,63 @@ def serve_phase(card: str, dtype: str = "bf16") -> dict:
 
 
 def served_traffic(server: ServingServer, model, method: str, label: str,
-                   per_batch: dict[str, int], out_dim: int, card: str
+                   per_batch: dict[str, int], out_dim: int, card: str,
+                   client: ServeClient | None = None, keep: bool = False
                    ) -> dict:
-    """Phase 4's traffic against a started server (stopped here): 48
-    /v1/embed requests from 16 client threads, then one bulk request of 32,
-    base64 bodies, every kernel counter set to 0 just before and read just
-    after. Fails unless each counter of ``per_batch`` shows that many
-    launches per dispatched batch and no other kernel launched, and every
-    answer, a row of ``out_dim`` values, matches ``model.<method>`` with the
-    plain versions swapped in (cosine, norms). Prints latency, images/s and peak memory; returns the
-    counts (with ``batches``), the features and the input batch."""
+    """Phase 4's traffic against a started server (stopped here unless
+    ``keep``): 48 /v1/embed requests from 16 client threads, then one bulk
+    request of 32, base64 bodies (by urllib, or by the stdlib ``client``),
+    every kernel counter set to 0 just before and read just after. Fails
+    unless each counter of ``per_batch`` shows that many launches per batch
+    dispatched meanwhile and no other kernel launched, and every answer, a
+    row of ``out_dim`` values, matches ``model.<method>`` with the plain
+    versions swapped in (cosine, norms). Prints latency, images/s and peak
+    memory; returns the counts (with ``batches``), the features and the
+    input batch."""
     engine = server.engine
     size = engine.item_shape[0]
     rng = np.random.default_rng(0)
     images = rng.uniform(-1, 1, (80, size, size, 3)).astype(np.float32)
-    # base64 bodies: a JSON list of 196,608 floats per image is parsed in
-    # Python on the server side and would dominate the timed traffic (the
-    # list form is covered by the CPU tests)
-    singles = [_b64(img) for img in images[:48]]
-    bulk = {"images": [_b64(img) for img in images[48:]]}
+    if client is None:
+        # base64 bodies: a JSON list of 196,608 floats per image is parsed
+        # in Python on the server side and would dominate the timed traffic
+        # (the list form is covered by the CPU tests)
+        singles = [_b64(img) for img in images[:48]]
+        bulk = {"images": [_b64(img) for img in images[48:]]}
+
+        def single(payload):
+            return _post(server.port, payload)
+
+        def bulk_post():
+            return _post(server.port, bulk)
+    else:
+        singles = list(images[:48])
+
+        def single(image):
+            t0 = time.perf_counter()
+            out = client.embed(image)
+            return time.perf_counter() - t0, {"features": list(out)}
+
+        def bulk_post():
+            t0 = time.perf_counter()
+            out = client.embed_many(images[48:])
+            return time.perf_counter() - t0, {"features": out}
     try:
         torch.cuda.reset_peak_memory_stats()
+        batches_before = engine.metrics.count("batches_total")
         zero_counts()
         t_start = time.perf_counter()
         with ThreadPoolExecutor(16) as pool:
-            answers = list(pool.map(lambda p: _post(server.port, p), singles))
+            answers = list(pool.map(single, singles))
         t_bulk = time.perf_counter()
-        bulk_s, bulk_out = _post(server.port, bulk)
+        bulk_s, bulk_out = bulk_post()
         t_end = time.perf_counter()
         counts = read_counts()
-        batches = engine.metrics.count("batches_total")
+        batches = int(engine.metrics.count("batches_total") - batches_before)
         peak = torch.cuda.max_memory_allocated()
     finally:
-        server.stop()
+        if not keep:
+            server.stop()
     features = np.asarray([out["features"] for _, out in answers]
                           + bulk_out["features"], np.float32)
     check(features.shape == (80, out_dim), f"features shape {features.shape}")
@@ -2298,6 +2351,8 @@ def served_traffic(server: ServingServer, model, method: str, label: str,
     print(f"{label}: torch.cuda.max_memory_allocated {peak} bytes "
           f"({peak / 2**30:.2f} GiB) | {card}", flush=True)
     return dict(counts, batches=batches, images_per_s=images_per_s,
+                p50_ms=float(np.percentile(lat, 50)),
+                p99_ms=float(np.percentile(lat, 99)),
                 features=features, batch=batch)
 
 
@@ -6039,6 +6094,290 @@ def quant_phase(card: str, root: pathlib.Path, runs: dict[str, list[dict]],
     return paths
 
 
+# -- phase 21: serving replicas and health ------------------------------------
+
+#: phase 21's served model: SigLIP-B/16-256 in bf16, the card listed twice
+REPLICA_ARGV = ["serve", "--preset", "siglip-base-patch16-256", "--ln-impl",
+                "fused", "--device", "cuda:0,cuda:0", "--replicas", "2",
+                "--port", "0", "--buckets", "1,8,32", "--max-delay-ms", "10",
+                "--timeout-s", "120"]
+#: the least share of a run's batches each replica takes (the ratio of the
+#: JAX package's ``test_dispatch_spreads_across_replicas``)
+REPLICA_MIN_SHARE = 0.3
+#: requests sent as the heal's replan begins
+DRILL_BURST = 16
+
+
+class FaultyForward:
+    """A replica forward that raises on command: ``fail`` times, or for
+    good with ``fail = -1`` (a Python exception: a real sticky CUDA error
+    would poison the context the sibling replica shares)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.fail = 0
+
+    def __call__(self, batch):
+        if self.fail:
+            self.fail -= self.fail > 0
+            raise RuntimeError("injected replica fault")
+        return self.inner(batch)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def _dispatched(server: ServingServer) -> list[int]:
+    return [r["dispatched"] for r in server.engine.replica_stats()]
+
+
+def _tail_traces(url: str) -> list[str]:
+    """``obs tail --traces URL``'s lines from one poll."""
+    def stop(_seconds):
+        raise KeyboardInterrupt  # how a user ends the poll
+
+    out = io.StringIO()
+    # the module's own name for time, not the time module, which other
+    # threads share
+    with mock.patch("jimm_tpu_torch.obs.cli.time",
+                    types.SimpleNamespace(sleep=stop)), \
+            contextlib.redirect_stdout(out):
+        check(cli.main(["obs", "tail", "--traces", url]) == 0,
+              "obs tail --traces failed")
+    return out.getvalue().splitlines()
+
+
+def replicated_serving(card: str) -> tuple[dict, torch.nn.Module]:
+    """21(a): ``serve --device cuda:0,cuda:0 --replicas 2 --self-heal
+    --dtype bf16`` through ``cli.build_server``, phase 4's traffic sent by
+    the stdlib client, in turns with a one-replica server over the same
+    model: one, two, two, one. Every two-replica run is gated as phase 4
+    (answers, 13 flash and 24 LayerNorm launches per batch summed over
+    both replicas) and each replica takes at least REPLICA_MIN_SHARE of its
+    batches; then /metrics, /debug/traces and ``obs tail --traces``."""
+    t0 = time.perf_counter()
+    server, model, ready = cli.build_server(cli.build_parser().parse_args(
+        REPLICA_ARGV + ["--dtype", "bf16", "--self-heal"]))
+    check(ready["topology"] == {"n_devices": 2, "replicas": 2,
+                                "model_parallel": 1, "seq_parallel": 1,
+                                "devices_used": 2, "devices_unused": 0},
+          f"replicas: ready line {ready}")
+    fwds = server.engine.forwards
+    check(fwds[0].model is model and fwds[1].model is not model
+          and fwds[0].stream != fwds[1].stream,
+          "replicas: a model copy and a stream per replica")
+    size = model.config.vision.image_size
+    one = ServingServer(InferenceEngine(
+        image_forward(model), item_shape=(size, size, 3),
+        buckets=BucketTable((1, 8, 32)), max_delay_ms=10.0,
+        policy=AdmissionPolicy(max_queue=256, default_timeout_s=120.0)),
+        port=0, request_timeout_s=300.0)
+    one.start()
+    print(f"replicas: SigLIP-B/16-256 bf16 on 2 replicas of cuda:0 and on "
+          f"one, built and warmed in {time.perf_counter() - t0:.1f} s: "
+          f"{json.dumps(ready)}", flush=True)
+    per_batch = {"flash_attention": FLASH_PER_BATCH,
+                 "layer_norm": LN_PER_BATCH}
+    width = model.config.projection_dim
+    runs: dict[str, list[dict]] = {"1": [], "2": []}
+    counts = None
+    try:
+        for n, srv in (("1", one), ("2", server), ("2", server), ("1", one)):
+            before = _dispatched(srv)
+            traffic = served_traffic(
+                srv, model, "encode_image", f"replicas: {n} replica(s)",
+                per_batch, width, card,
+                client=ServeClient(port=srv.port, timeout_s=300.0),
+                keep=True)
+            traffic.pop("features"), traffic.pop("batch")
+            runs[n].append(traffic)
+            if n == "2":
+                shares = [(a - b) / traffic["batches"] for a, b in
+                          zip(_dispatched(srv), before)]
+                check(min(shares) >= REPLICA_MIN_SHARE,
+                      f"replicas: batch shares {shares}")
+                print(f"replicas: batch shares {shares} of "
+                      f"{traffic['batches']} batches", flush=True)
+                counts = counts or traffic
+        client = ServeClient(port=server.port, timeout_s=300.0)
+        text = client.metrics_text()
+        series = obs.parse_prometheus_text(text)
+        wanted = [f"jimm_serve_replica_{i}_dispatched_total" for i in (0, 1)]
+        wanted += [f"jimm_serve_span_{p}_{q}_ms"
+                   for p in ("queue", "pad", "device", "readback")
+                   for q in ("p50", "p99")]
+        check(all(k in series for k in wanted),
+              f"replicas: /metrics lacks {set(wanted) - set(series)}")
+        print("replicas: /metrics "
+              + ", ".join(f"{k.removeprefix('jimm_serve_')} {series[k]}"
+                          for k in wanted) + f" | {card}", flush=True)
+        traces = client._request("GET", "/debug/traces")["traces"]
+        check({r["replica"] for r in traces} == {0, 1},
+              "replicas: /debug/traces names one replica")
+        lines = _tail_traces(f"http://127.0.0.1:{server.port}")
+        check(any(" replica=0 " in ln for ln in lines)
+              and any(" replica=1 " in ln for ln in lines),
+              f"replicas: obs tail --traces printed {lines[:2]}")
+        health = client.healthz()
+        check(health["status"] == "ok" and len(health["replicas"]) == 2,
+              f"replicas: healthz {health}")
+    finally:
+        one.stop()
+        server.stop()
+    for n in ("1", "2"):
+        print(f"replicas: {n} replica(s): images/s "
+              + ", ".join(f"{r['images_per_s']:.1f}" for r in runs[n])
+              + "; p50 " + ", ".join(f"{r['p50_ms']:.2f}" for r in runs[n])
+              + " ms; p99 " + ", ".join(f"{r['p99_ms']:.2f}" for r in runs[n])
+              + f" ms (turns 1, 2, 2, 1) | {card}", flush=True)
+    return counts, model
+
+
+def replica_drills(card: str, model) -> None:
+    """21(b): the library path over phase 21(a)'s model, the card listed
+    twice, replica 1's forward wrapped to fail on command. Two failures
+    restart, then fence it (healthz degraded); ``POST /admin/revive``
+    un-fences it; then a lasting fault: the heal probe fails, the factory
+    rebuilds the replica set and the replan brings back two live lanes;
+    the requests sent as the replan begins are answered (phase 4's gate
+    against the plain versions). The journal chains the heal's events on
+    one cid; prints the heal and replan seconds."""
+    journal = obs.configure_journal(None)
+    cuda0 = torch.device("cuda", 0)
+    plan = plan_topology(2, devices=[cuda0, cuda0])
+    forwards = build_replica_forwards(model, plan, method="encode_image")
+    faulty = FaultyForward(forwards[1])
+    size = model.config.vision.image_size
+    engine = InferenceEngine(
+        [forwards[0], faulty], item_shape=(size, size, 3),
+        buckets=BucketTable((1, 8, 32)), max_delay_ms=10.0,
+        policy=AdmissionPolicy(max_queue=256, default_timeout_s=120.0))
+    server = ServingServer(engine, port=0, request_timeout_s=300.0)
+    server.start()
+    client = ServeClient(port=server.port, timeout_s=300.0)
+    images = np.random.default_rng(21).uniform(
+        -1, 1, (DRILL_BURST + 1, size, size, 3)).astype(np.float32)
+
+    def embed_status(image) -> int:
+        try:
+            client.embed(image)
+        except ServeClientError as e:
+            return e.status
+        return 200
+
+    try:
+        faulty.fail = 2
+        statuses = sorted(embed_status(images[0]) for _ in range(4))
+        health = client.healthz()
+        check(statuses == [200, 200, 500, 500]
+              and health["status"] == "degraded"
+              and health["dead_replicas"] == [1]
+              and health["replicas"][1]["restarts"] == 1,
+              f"drills: statuses {statuses}, healthz {health}")
+        revived = client._request("POST", "/admin/revive", {"replica": 1})
+        check(revived["dead_replicas"] == []
+              and client.healthz()["status"] == "ok",
+              f"drills: revive {revived}")
+        print("drills: 2 injected faults restarted then fenced replica 1 "
+              "(healthz degraded); POST /admin/revive un-fenced it",
+              flush=True)
+        sent = []
+
+        def rebuild():
+            built = build_replica_forwards(model, plan,
+                                           method="encode_image")
+            sent.append(pool.submit(client.embed_many, images[1:]))
+            return built
+
+        engine.set_heal(rebuild)
+        faulty.fail = -1
+        with ThreadPoolExecutor(1) as pool:
+            for _ in range(8):
+                embed_status(images[0])
+                if engine.metrics.count("replans_total"):
+                    break
+            end = time.monotonic() + 120
+            while engine.metrics.count("replans_total") < 1:
+                check(time.monotonic() < end, "drills: no replan in 120 s")
+                time.sleep(0.05)
+            answers = np.asarray(sent[0].result(timeout=300), np.float32)
+        health = client.healthz()
+        check(health["status"] == "ok" and health["replans"] == 1
+              and engine.n_replicas == 2 and faulty not in engine.forwards,
+              f"drills: after the heal, healthz {health}")
+        before = _dispatched(server)
+        with ThreadPoolExecutor(8) as burst:
+            list(burst.map(client.embed, images))
+        check(all(a > b for a, b in zip(_dispatched(server), before)),
+              "drills: a replica idle after the replan")
+        snap = engine.metrics.snapshot()
+    finally:
+        server.stop()
+    ref = encode_all(model, torch.from_numpy(images[1:]).to(
+        "cuda", next(model.parameters()).dtype), plain=True)
+    cos, _ = served_gate(answers, ref, "drills: answers sent during the heal")
+    events = journal.events()
+    fenced = [e["cid"] for e in events if e["event"] == "replica_fenced"]
+    incident = [e["event"] for e in obs.chain(events, fenced[-1])]
+    check(len(fenced) == 2 and incident == [
+        "replica_fault", "replica_fenced", "heal_probe", "heal_rebuilt",
+        "replan_started", "replan_done"], f"drills: journal {incident}")
+    durations = {e["event"]: e["dur_s"] for e in obs.chain(events, fenced[-1])
+                 if "dur_s" in e}
+    print(f"drills: lasting fault healed: {' -> '.join(incident)} on one "
+          f"cid; {DRILL_BURST} requests sent as the replan began answered "
+          f"(min cosine {cos.min():.6f}); heal (probe + rebuild) "
+          f"{durations['heal_rebuilt']:.3f} s, replan (warm + drain + swap) "
+          f"{durations['replan_done']:.3f} s; goodput_heal_seconds_total "
+          f"{snap['goodput_heal_seconds_total']:.3f}, "
+          f"goodput_replan_seconds_total "
+          f"{snap['goodput_replan_seconds_total']:.3f} | {card}", flush=True)
+
+
+def int8_replicas(card: str) -> dict:
+    """21(c): ``serve --dtype int8 --replicas 2`` on the card listed twice,
+    phase 4's traffic by the client: 78 int8-matmul, 13 flash and 24
+    LayerNorm launches per batch summed over both replicas, each replica
+    dispatching, the answers against the quantized model's plain versions
+    and, cosine >= 0.999, against the f32 twin."""
+    server, model, ready = cli.build_server(cli.build_parser().parse_args(
+        REPLICA_ARGV + ["--dtype", "int8"]))
+    check(ready["quantized_layers"] == INT8_QUANTIZED
+          and ready["topology"]["replicas"] == 2,
+          f"int8 replicas: ready line {ready}")
+    traffic = served_traffic(
+        server, model, "encode_image", "int8 replicas",
+        {"int8_matmul": INT8_MATMUL_PER_BATCH,
+         "flash_attention": FLASH_PER_BATCH, "layer_norm": LN_PER_BATCH},
+        model.config.projection_dim, card,
+        client=ServeClient(port=server.port, timeout_s=300.0), keep=True)
+    dispatched = _dispatched(server)
+    server.stop()
+    check(min(dispatched) >= 1, f"int8 replicas: dispatched {dispatched}")
+    features, batch = traffic.pop("features"), traffic.pop("batch")
+    cfg = configs.with_runtime(configs.preset("siglip-base-patch16-256"),
+                               ln_impl="fused")
+    twin, _ = cli.serving_model(cfg, "f32", "cuda")
+    full = encode_all(twin, batch)
+    del twin
+    cos = (features * full).sum(1) / (np.linalg.norm(features, axis=1)
+                                      * np.linalg.norm(full, axis=1))
+    check(bool((cos >= SERVE_MIN_COS).all()),
+          f"int8 replicas: cosine against f32 {cos.min()}")
+    print(f"int8 replicas: batches {dispatched} by replica; cosine against "
+          f"the f32 twin min {cos.min():.6f} | {card}", flush=True)
+    return traffic
+
+
+def replicas_phase(card: str) -> dict[str, dict]:
+    """Phase 21: (a) replicated serving, (b) the drills, (c) int8
+    replicas; the record's ``replicas`` and ``replicas_int8`` paths."""
+    counts, model = replicated_serving(card)
+    replica_drills(card, model)
+    del model
+    return {"replicas": counts, "replicas_int8": int8_replicas(card)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -6140,6 +6479,8 @@ def main() -> int:
             done("model and stage axes")
             quant_counts = quant_phase(card, root, runs, small)
             done("quantized mesh and drills")
+        replica_counts = replicas_phase(card)
+        done("serving replicas")
         check(all(math.isfinite(timed[k]["ms"]) for k in timed), "bad timing")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
@@ -6154,14 +6495,17 @@ def main() -> int:
     # 12 biased calls for the bias kernels; launches_by_path also holds
     # phase 17's profiled steps ("profile") and served capture's traffic
     # ("profile_serve"), phase 18's mesh runs and phase 19's runs under the
-    # model and stage axes and phase 20's (rank 0's launches)
+    # model and stage axes and phase 20's (rank 0's launches), and phase
+    # 21's first two-replica run ("replicas") and int8 replicas' traffic
+    # ("replicas_int8"), summed over both replicas
     paths = {"serve": serve_counts, "train": train_counts,
              "naflex": naflex_counts, "int8_serve": int8_serve_counts,
              "int8_qk": int8_qk_counts, "fp8_hybrid": fp8_counts,
              "sigmoid": sigmoid_counts, "bias": bias_counts,
              **ckpt_counts, **zero_shot_counts, **rest_counts,
              "resilience": resilience_counts, "data": data_counts,
-             **profile_counts, **mesh_counts, **axes_counts, **quant_counts}
+             **profile_counts, **mesh_counts, **axes_counts, **quant_counts,
+             **replica_counts}
     steps = {"train": CLI_STEPS, "naflex": CLI_STEPS, "int8_qk": CLI_STEPS,
              "fp8_hybrid": CLI_STEPS, "sigmoid": TRAIN_STEPS}
     main_path = {"flash_attention_masked": "naflex",
@@ -6251,10 +6595,11 @@ def main() -> int:
     return 0
 
 
-def phase_20_alone() -> int:
-    """``python3 chip_smoke.py --phase 20``: the build, then phase 20 alone
-    (its two-rank launch, the batch-32 single-process references and its
-    gates); for iterating on the quantized mesh paths. Prints no record."""
+def phase_alone(phase: str) -> int:
+    """``python3 chip_smoke.py --phase 20|21``: the build, then that phase
+    alone (20: its two-rank launch, the batch-32 single-process references
+    and its gates; 21: serving replicas and health); for iterating on one
+    path. Prints no record."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
@@ -6267,22 +6612,26 @@ def phase_20_alone() -> int:
     _build.load()
     print(f"build done at {time.perf_counter() - t0:.1f} s", flush=True)
     try:
-        with tempfile.TemporaryDirectory() as tmp:
-            root = pathlib.Path(tmp)
-            runs = ranks_run(card, "mesh", root, quant_runs(root))
-            print(f"launch done at {time.perf_counter() - t0:.1f} s",
-                  flush=True)
-            quant_phase(card, root, runs, small_batch_references(card))
+        if phase == "21":
+            replicas_phase(card)
+        else:
+            with tempfile.TemporaryDirectory() as tmp:
+                root = pathlib.Path(tmp)
+                runs = ranks_run(card, "mesh", root, quant_runs(root))
+                print(f"launch done at {time.perf_counter() - t0:.1f} s",
+                      flush=True)
+                quant_phase(card, root, runs, small_batch_references(card))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
         return 1
-    print(f"phase 20 done at {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase {phase} done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
     return 0
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank-task"]:
         sys.exit(rank_main(sys.argv[1:]))
-    if sys.argv[1:] == ["--phase", "20"]:
-        sys.exit(phase_20_alone())
+    if sys.argv[1:2] == ["--phase"] and sys.argv[2:] in (["20"], ["21"]):
+        sys.exit(phase_alone(sys.argv[2]))
     sys.exit(main())

@@ -21,6 +21,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -187,6 +188,18 @@ def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
                            f"{rc}")
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(module: str, counter: str) -> None:
+    """Add one to the launch counter ``counter`` of the module named
+    ``module``; under a lock, because serving replicas launch from several
+    threads at once."""
+    mod = sys.modules[module]
+    with _count_lock:
+        setattr(mod, counter, getattr(mod, counter) + 1)
 
 
 def time_builds() -> None:

@@ -8,6 +8,11 @@ from a seeded generator), puts its image forward (``encode_image`` for CLIP
 and SigLIP, the model itself for ViT: logits, or pooled features without a
 head) behind the micro-batching engine and the HTTP front end, warms every
 bucket, and prints one JSON ready line with ``"status": "serving"``.
+``--replicas R`` partitions the ``--device`` list (a card may be listed more
+than once) into R replicas, each with its own model copy, stream and
+executor, balanced behind the one queue; ``--self-heal`` rebuilds and
+replans around a fenced replica. The server also answers ``/metrics``,
+``/debug/traces`` and ``POST /admin/revive``.
 ``--dtype int8`` builds or loads the model in f32 and swaps every eligible
 Linear for a W8A8 ``QuantLinear`` before any forward
 (``jimm_tpu_torch.quant``). A CLIP or SigLIP server also answers
@@ -127,6 +132,8 @@ from jimm_tpu_torch.serve.engine import InferenceEngine, image_forward
 from jimm_tpu_torch.serve.cache import (EmbeddingCache, class_embedding_cache,
                                         prompt_set_key)
 from jimm_tpu_torch.serve.server import ServingServer, ZeroShotService
+from jimm_tpu_torch.serve.topology import (build_replica_forwards,
+                                           plan_topology, visible_devices)
 from jimm_tpu_torch.train.checkpoint import (CheckpointManager,
                                               CheckpointMismatchError)
 from jimm_tpu_torch.train.metrics import (MetricsLogger, StepTimer,
@@ -193,13 +200,57 @@ def serving_model(cfg, dtype: str, device,
     return _ready_to_serve(model, dtype)
 
 
+#: ``serve --model-parallel/--seq-parallel`` above 1
+_MODEL_PARALLEL_NOT_PORTED = (
+    "--model-parallel and --seq-parallel above 1 are not ported yet: a "
+    "replica wider than one device needs an in-process tensor- and "
+    "sequence-parallel forward, ROADMAP.md queue 1 item 8(a) part 2; "
+    "serve replicas of the whole model with --replicas")
+
+
+def serve_dtype(args: argparse.Namespace) -> str:
+    """The serving precision from ``--dtype`` or the legacy ``--bf16``."""
+    if args.bf16 and args.dtype not in (None, "bf16"):
+        raise SystemExit(f"--bf16 conflicts with --dtype {args.dtype}")
+    return args.dtype or ("bf16" if args.bf16 else "f32")
+
+
+def serve_devices(spec: str) -> list[torch.device]:
+    """The devices of ``serve --device``: a comma-separated list in which a
+    device may stand more than once (``cuda:0,cuda:0``: two replicas on one
+    card); plain ``cuda`` lists each visible card once."""
+    names = [n.strip() for n in spec.split(",") if n.strip()]
+    if not names:
+        raise SystemExit(f"--device {spec!r} names no device")
+    if names == ["cuda"]:
+        resolve_device("cuda")  # raises without CUDA
+        return visible_devices()
+    return [resolve_device(n) for n in names]
+
+
 def build_server(args: argparse.Namespace
                  ) -> tuple[ServingServer, torch.nn.Module, dict]:
     """The ``serve`` command up to its ready line: the model built or
-    loaded, its engine and HTTP server started (every bucket warmed); the
-    server, the model it serves and the ready line's fields. The caller
-    stops the server."""
+    loaded, its replicas (``--replicas``) and engine, the HTTP server
+    started (every bucket warmed on every replica); the server, the model
+    it serves and the ready line's fields. The caller stops the server."""
     runtime = {"ln_impl": args.ln_impl} if args.ln_impl else None
+    dtype = serve_dtype(args)
+    if dtype == "int8" and args.model_parallel > 1:
+        raise SystemExit("--dtype int8 does not support --model-parallel > 1 "
+                         "yet (QuantLinear params carry no logical sharding "
+                         "axes); use data replicas")
+    if args.model_parallel > 1 or args.seq_parallel > 1:
+        raise SystemExit(_MODEL_PARALLEL_NOT_PORTED)
+    plan = plan_topology(args.replicas, args.model_parallel,
+                         args.seq_parallel, devices=serve_devices(args.device))
+    if args.self_heal and plan.is_trivial:
+        raise SystemExit("--self-heal needs a replica topology "
+                         "(--replicas/--model-parallel > 1): a single lane "
+                         "has nothing to replan around")
+    if args.journal:
+        obs.configure_journal(args.journal)
+    device = plan.device_groups[0][0]
     if args.ckpt:
         if not args.model:
             raise SystemExit("--ckpt needs --model vit|clip|siglip")
@@ -209,8 +260,8 @@ def build_server(args: argparse.Namespace
         fam = args.model
         # int8: loaded in f32, then quantized
         model, quantized = _ready_to_serve(MODELS[fam].from_pretrained(
-            args.ckpt, device=args.device, dtype=_serving_dtype(args.dtype),
-            runtime=runtime), args.dtype)
+            args.ckpt, device=device, dtype=_serving_dtype(dtype),
+            runtime=runtime), dtype)
         name = f"{fam}:{args.ckpt}"
     else:
         fam = family(args.preset)
@@ -219,44 +270,71 @@ def build_server(args: argparse.Namespace
             cfg = tiny_override(cfg)
         if runtime:
             cfg = with_runtime(cfg, **runtime)
-        model, quantized = serving_model(cfg, args.dtype, args.device)
+        model, quantized = serving_model(cfg, dtype, device)
         name = f"{fam}:{args.preset}" + (":tiny" if args.tiny else "")
     param = next(model.parameters())
     vision = model.config.vision
-    zero_shot = (ZeroShotService(model, model_key=f"{name}:{args.dtype}")
+    method = SERVED_METHOD[fam]
+    zero_shot = (ZeroShotService(model, model_key=f"{name}:{dtype}")
                  if fam in ("clip", "siglip") else None)
     buckets = (BucketTable(tuple(int(s) for s in args.buckets.split(",")))
-               if args.buckets else default_buckets(args.device))
+               if args.buckets else default_buckets(device))
+    # the trivial plan serves the model itself; replicas get their own
+    # copies, streams and executors
+    forward = (image_forward(model, method) if plan.is_trivial
+               else build_replica_forwards(model, plan, method=method))
     engine = InferenceEngine(
-        image_forward(model, SERVED_METHOD[fam]),
-        item_shape=(vision.image_size, vision.image_size, vision.channels),
+        forward, item_shape=(vision.image_size, vision.image_size,
+                             vision.channels),
         buckets=buckets, max_delay_ms=args.max_delay_ms,
         policy=AdmissionPolicy(max_queue=args.queue_size,
-                               default_timeout_s=args.timeout_s))
+                               default_timeout_s=args.timeout_s,
+                               shed_fraction=args.shed_fraction))
+    if args.self_heal:
+        # fence -> probe/revive -> rebuild the replica set over the same
+        # plan and replan around the dead lane
+        engine.set_heal(
+            lambda: build_replica_forwards(model, plan, method=method))
     capture = monitor = None
     if args.prof_dir:
-        # the capture ring (POST /admin/prof/trigger deep-captures onto the
-        # caller's cid) and the device-memory gauges, the served models'
-        # bytes attributed to model_pool
+        # the capture ring (heal, replan and SLO-burn incidents and POST
+        # /admin/prof/trigger deep-capture onto their cids) and the
+        # device-memory gauges: the served model and every replica copy
+        # under model_pool, the trace ring under serve_buffers
         capture = configure_capture(args.prof_dir)
         monitor = MemoryMonitor()
-        monitor.register_subsystem("model_pool",
-                                   lambda: float(module_bytes(model)))
+
+        def model_pool_bytes() -> float:
+            models = {id(model): model}
+            for fwd in engine.forwards:
+                m = getattr(fwd, "model", None)
+                if m is not None:
+                    models[id(m)] = m
+            return float(sum(module_bytes(m) for m in models.values()))
+
+        monitor.register_subsystem("model_pool", model_pool_bytes)
+        monitor.register_subsystem("serve_buffers",
+                                   lambda: float(engine.traces_bytes))
         monitor.sample()
         monitor.start()
+    logger = (MetricsLogger(path=args.metrics_file, print_every=10**9)
+              if args.metrics_file else None)
     server = ServingServer(engine, host=args.host, port=args.port,
                            zero_shot=zero_shot, capture=capture,
-                           monitor=monitor)
+                           monitor=monitor, metrics_logger=logger,
+                           metrics_log_every_s=args.metrics_every_s)
     t0 = time.monotonic()
     server.start()
     ready = {"status": "serving", "host": args.host, "port": server.port,
              "model": name, "device": str(param.device),
-             "dtype": ("int8" if args.dtype == "int8"
+             "dtype": ("int8" if dtype == "int8"
                        else str(param.dtype).removeprefix("torch.")),
              "quantized_layers": quantized,
              "buckets": list(buckets.sizes),
              "zero_shot": zero_shot is not None,
              "warmup_s": round(time.monotonic() - t0, 3)}
+    if not plan.is_trivial:
+        ready["topology"] = plan.describe()
     return server, model, ready
 
 
@@ -1803,13 +1881,20 @@ def build_parser() -> argparse.ArgumentParser:
                          "--ckpt)")
     sp.add_argument("--tiny", action="store_true",
                     help="shrink the preset to CPU-demo size")
-    sp.add_argument("--dtype", choices=_SERVE_DTYPES, default="f32",
-                    help="parameter and compute dtype; int8 = f32 with every "
-                         "eligible Linear as a W8A8 QuantLinear")
+    sp.add_argument("--dtype", choices=_SERVE_DTYPES, default=None,
+                    help="parameter and compute dtype (default f32); int8 = "
+                         "f32 with every eligible Linear as a W8A8 "
+                         "QuantLinear")
+    sp.add_argument("--bf16", action="store_true",
+                    help="legacy spelling of --dtype bf16")
     sp.add_argument("--ln-impl", default=None, choices=["xla", "fused"],
                     help="encoder LayerNorm (fused = the LayerNorm kernels)")
     sp.add_argument("--device", default="cuda",
-                    help="torch device; 'cpu' must be asked for explicitly")
+                    help="torch device, or a comma-separated list of them, "
+                         "one entry per device of the replica plan; a card "
+                         "may be listed more than once (cuda:0,cuda:0: two "
+                         "replicas on one card). 'cuda' lists each visible "
+                         "card once; 'cpu' must be asked for explicitly")
     sp.add_argument("--host", default="127.0.0.1")
     sp.add_argument("--port", type=int, default=8000, help="0 = any free port")
     sp.add_argument("--buckets", default=None,
@@ -1817,17 +1902,43 @@ def build_parser() -> argparse.ArgumentParser:
                          "device's table)")
     sp.add_argument("--max-delay-ms", type=float, default=5.0,
                     help="coalescing window")
+    sp.add_argument("--replicas", type=int, default=1,
+                    help="independent serving replicas to partition the "
+                         "listed devices into; micro-batches are load-"
+                         "balanced across them (1 = classic single-device "
+                         "serve)")
+    sp.add_argument("--model-parallel", type=int, default=1,
+                    help="devices per replica (above 1 not ported yet)")
+    sp.add_argument("--seq-parallel", type=int, default=1,
+                    help="sequence-parallel ways per replica (above 1 not "
+                         "ported yet)")
+    sp.add_argument("--self-heal", action="store_true",
+                    help="escalate a watchdog fence: probe the fenced "
+                         "replica (transient fault -> revive in place), "
+                         "else rebuild the replica set and replan around "
+                         "it live")
     sp.add_argument("--queue-size", type=int, default=256,
                     help="admission queue bound (503 past it)")
     sp.add_argument("--timeout-s", type=float, default=5.0,
                     help="default request deadline (504 past it)")
+    sp.add_argument("--shed-fraction", type=float, default=0.5,
+                    help="queue fill fraction past which the batcher stops "
+                         "waiting for stragglers")
     sp.add_argument("--max-seconds", type=float, default=None,
                     help="stop after this long (default: serve until ^C)")
+    sp.add_argument("--metrics-file", default=None,
+                    help="append metric snapshots as JSONL "
+                         "(train/metrics.py format)")
+    sp.add_argument("--metrics-every-s", type=float, default=10.0)
+    sp.add_argument("--journal", default=None, metavar="FILE",
+                    help="flight-recorder journal (JSONL): replica faults, "
+                         "fences, revives, heals and replans")
     sp.add_argument("--prof-dir", default=None, metavar="DIR",
-                    help="profiling: keep the capture ring here (POST "
-                         "/admin/prof/trigger deep-captures onto the "
-                         "caller's cid) and sample the jimm_hbm_* "
-                         "device-memory gauges")
+                    help="profiling: keep the capture ring here (heal, "
+                         "replan and SLO-burn incidents and POST "
+                         "/admin/prof/trigger deep-capture onto their "
+                         "cids) and sample the jimm_hbm_* device-memory "
+                         "gauges")
     sp.set_defaults(func=cmd_serve)
 
     sp = sub.add_parser("train", help="train on synthetic data or file "

@@ -1,8 +1,9 @@
 """jimm_tpu_torch.obs -- observability: one metric registry with its
 exporters, the flight-recorder journal, span timing, goodput, profiler
 captures and device-memory gauges (``obs.prof``), and the Perfetto
-timeline; the counterpart of ``jimm_tpu.obs`` (its ``baseline`` and SLO
-engine wait for the port's benchmark and serving work, ROADMAP.md queue 1).
+timeline and the SLO burn-rate engine; the counterpart of
+``jimm_tpu.obs`` (its ``baseline`` waits for the port's benchmark,
+ROADMAP.md queue 1 item 3).
 
 ::
 
@@ -38,7 +39,8 @@ from jimm_tpu_torch.obs.registry import (Counter, DuplicateMetricError, Gauge,
                                          get_registry, percentile, publish,
                                          registries, render_prometheus,
                                          set_enabled, snapshot, unpublish)
-from jimm_tpu_torch.obs.spans import span
+from jimm_tpu_torch.obs.slo import SloEngine, SloObjective
+from jimm_tpu_torch.obs.spans import new_trace_id, span
 from jimm_tpu_torch.obs.timeline import (export_timeline,
                                          validate_chrome_trace,
                                          write_timeline)
@@ -46,11 +48,12 @@ from jimm_tpu_torch.obs.timeline import (export_timeline,
 __all__ = [
     "BUCKETS", "CaptureManager", "Counter", "DuplicateMetricError",
     "EventJournal", "Gauge", "GoodputAccounter", "Histogram",
-    "JsonlExporter", "MemoryMonitor", "MetricRegistry", "chain",
+    "JsonlExporter", "MemoryMonitor", "MetricRegistry", "SloEngine",
+    "SloObjective", "chain",
     "configure_capture", "configure_journal", "console_table", "correlate",
     "current_cid", "diff_snapshots", "enabled", "export_timeline",
     "get_capture_manager", "get_journal", "get_registry", "maybe_trigger",
-    "new_correlation_id", "parse_prometheus_text", "percentile", "publish",
+    "new_correlation_id", "new_trace_id", "parse_prometheus_text", "percentile", "publish",
     "read_events", "registries", "render_prometheus",
     "render_prometheus_text", "reset_capture", "reset_journal",
     "set_enabled", "snapshot", "span", "unpublish", "validate_chrome_trace",

@@ -5,20 +5,36 @@ the calling thread, the region is also a ``record_function`` range of the
 same name, so host logs and the captured trace share one vocabulary
 (torch is never imported here: the bridge works only where it is loaded).
 
+The serve path threads a trace id (:func:`new_trace_id`) from admission
+through bucket dispatch, so one request's latency decomposes into its
+queue / pad / device / readback phases.
+
 Disabled mode (``JIMM_OBS=0`` or ``obs.set_enabled(False)``) returns one
 shared no-op context manager: no allocation, no clock reads.
 """
 
 from __future__ import annotations
 
+import itertools
 import sys
+import threading
 import time
 
 from jimm_tpu_torch.obs.registry import enabled, get_registry
 
-__all__ = ["span"]
+__all__ = ["new_trace_id", "span"]
 
 SPAN_NAMESPACE = "jimm_spans"
+
+_id_counter = itertools.count(1)
+_id_lock = threading.Lock()
+
+
+def new_trace_id() -> str:
+    """Process-unique request/trace id."""
+    with _id_lock:
+        n = next(_id_counter)
+    return f"t{n:08x}"
 
 
 class _NoopSpan:

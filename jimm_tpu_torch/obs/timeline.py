@@ -8,11 +8,10 @@ JSON object (the `Trace Event Format`_):
   complete ("X") spans when the record carries a ``dur_s`` payload field;
   the correlation id becomes the event's ``args.cid`` so an incident's
   chain is searchable in the UI.
-- **serve request traces** — rows of a serve trace ring (the reference
-  engine's ``recent_traces``; the port's engine keeps none yet, ROADMAP.md
-  queue 1 item 8): each request becomes a stack of
-  queue/pad/device/readback spans on its replica's lane, placed backwards
-  from the recorded ``done_mono``.
+- **serve request traces** — rows of the serve engine's trace ring
+  (``recent_traces``, served at ``/debug/traces``): each request becomes a
+  stack of queue/pad/device/readback spans on its replica's lane, placed
+  backwards from the recorded ``done_mono``.
 - **goodput buckets** — a final accounter report rendered as consecutive
   per-bucket spans on a synthetic ``goodput`` lane (relative placement:
   buckets are cumulative ledgers, not intervals, so the lane shows

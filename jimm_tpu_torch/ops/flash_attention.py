@@ -248,7 +248,6 @@ def _fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, is_causal: bool,
          mask: torch.Tensor | None = None
          ) -> tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel on CUDA tensors, the plain version on CPU ones."""
-    global launches, masked_launches
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, is_causal=is_causal, mask=mask)
     code = _kernel_dtype(q, k, v)
@@ -267,9 +266,9 @@ def _fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, is_causal: bool,
             code, stream)
     _build.check(rc, "jimm_flash_attention_fwd")
     if mask is None:
-        launches += 1
+        _build.count_launch(__name__, "launches")
     else:
-        masked_launches += 1
+        _build.count_launch(__name__, "masked_launches")
     return o, lse
 
 
@@ -283,7 +282,6 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (and, optionally, of lse): the two backward kernels on CUDA tensors,
     :func:`flash_attention_bwd_plain` on CPU tensors. ``mask`` is the
     forward's ``(B, Sk)`` bool key-padding mask, or None."""
-    global bwd_launches, masked_bwd_launches
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, dlse,
                                          is_causal=is_causal, mask=mask)
@@ -312,9 +310,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             mask_ptr, mask_sb, code, stream)
     _build.check(rc, "jimm_flash_attention_bwd")
     if mask is None:
-        bwd_launches += 1
+        _build.count_launch(__name__, "bwd_launches")
     else:
-        masked_bwd_launches += 1
+        _build.count_launch(__name__, "masked_bwd_launches")
     return dq, dk, dv
 
 
@@ -449,7 +447,6 @@ def sigmoid_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           logit_bias: float) -> torch.Tensor:
     """The sigmoid forward kernel on CUDA tensors, its plain version on CPU
     ones. ``mask``: the ``(B, Sk)`` bool key-padding mask, or None."""
-    global sigmoid_launches
     if q.device.type == "cpu":
         return sigmoid_attention_plain(q, k, v, is_causal=is_causal,
                                        mask=mask, logit_bias=logit_bias)
@@ -466,7 +463,7 @@ def sigmoid_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             1.0 / d ** 0.5, logit_bias, int(is_causal), mask_ptr, mask_sb,
             code, stream)
     _build.check(rc, "jimm_sigmoid_attention_fwd")
-    sigmoid_launches += 1
+    _build.count_launch(__name__, "sigmoid_launches")
     return o
 
 
@@ -479,7 +476,6 @@ def sigmoid_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``(dq, dk, dv)`` from the forward's inputs and the cotangent of o: the
     two backward kernels' sigmoid kind on CUDA tensors (no delta),
     :func:`sigmoid_attention_bwd_plain` on CPU tensors."""
-    global sigmoid_bwd_launches
     if q.device.type == "cpu":
         return sigmoid_attention_bwd_plain(q, k, v, do, is_causal=is_causal,
                                            mask=mask, logit_bias=logit_bias)
@@ -505,7 +501,7 @@ def sigmoid_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             1.0 / d ** 0.5, logit_bias, int(is_causal), mask_ptr, mask_sb,
             code, stream)
     _build.check(rc, "jimm_sigmoid_attention_bwd")
-    sigmoid_bwd_launches += 1
+    _build.count_launch(__name__, "sigmoid_bwd_launches")
     return dq, dk, dv
 
 
@@ -661,7 +657,6 @@ def flash_attention_bias_fwd(q: torch.Tensor, k: torch.Tensor,
                              ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(o, lse)`` of the bias kind: the row-5 kernel on CUDA tensors, its
     plain version on CPU ones. ``bias``: f32 ``(N, Sq, Sk)``."""
-    global bias_launches
     if q.device.type == "cpu":
         return flash_attention_bias_plain(q, k, v, bias, is_causal=is_causal)
     code = _kernel_dtype(q, k, v)
@@ -679,7 +674,7 @@ def flash_attention_bias_fwd(q: torch.Tensor, k: torch.Tensor,
             *_strides(k), *_strides(v), b_sn, b_ss, 1.0 / d ** 0.5,
             int(is_causal), code, stream)
     _build.check(rc, "jimm_flash_attention_bias_fwd")
-    bias_launches += 1
+    _build.count_launch(__name__, "bias_launches")
     return o, lse
 
 
@@ -720,7 +715,6 @@ def flash_attention_bias_bwd(q: torch.Tensor, k: torch.Tensor,
     :func:`flash_attention_bias_bwd_plain` on CPU tensors. ``delta``:
     rowsum(do * o), ``(B, N, Sq)`` f32, where the caller has it (it is
     computed otherwise)."""
-    global bias_bwd_launches
     if q.device.type == "cpu":
         return flash_attention_bias_bwd_plain(q, k, v, bias, o, lse, do,
                                               is_causal=is_causal,
@@ -739,7 +733,7 @@ def flash_attention_bias_bwd(q: torch.Tensor, k: torch.Tensor,
             *(t.data_ptr() for t in inputs), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), *args, stream)
     _build.check(rc, "jimm_flash_attention_bias_bwd")
-    bias_bwd_launches += 1
+    _build.count_launch(__name__, "bias_bwd_launches")
     return dq, dk, dv
 
 
@@ -777,7 +771,6 @@ def flash_attention_dbias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ranges added in order by a second kernel),
     :func:`flash_attention_dbias_plain` on CPU tensors. ``delta`` as in
     :func:`flash_attention_bias_bwd`."""
-    global dbias_launches
     if q.device.type == "cpu":
         return flash_attention_dbias_plain(q, k, v, bias, o, lse, do,
                                            is_causal=is_causal, delta=delta)
@@ -799,7 +792,7 @@ def flash_attention_dbias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             None if workspace is None else workspace.data_ptr(), *args[:5],
             b_range, *args[5:], stream)
     _build.check(rc, "jimm_flash_attention_dbias")
-    dbias_launches += 1
+    _build.count_launch(__name__, "dbias_launches")
     return dbias
 
 

@@ -149,7 +149,6 @@ def flash_attention_int8_fwd(qq: torch.Tensor, qs: torch.Tensor,
     """``(o, lse)`` from the quantized q and k (see :func:`quantize_heads`)
     and v: the forward kernel on CUDA tensors,
     :func:`flash_attention_int8_plain` on CPU tensors."""
-    global launches
     if v.device.type == "cpu":
         return flash_attention_int8_plain(qq, qs, kq, ks, v,
                                           is_causal=is_causal)
@@ -167,7 +166,7 @@ def flash_attention_int8_fwd(qq: torch.Tensor, qs: torch.Tensor,
             v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, n, sq, sk, d,
             *_strides(v), 1.0 / d ** 0.5, int(is_causal), code, stream)
     _build.check(rc, "jimm_flash_attention_int8_fwd")
-    launches += 1
+    _build.count_launch(__name__, "launches")
     return o, lse
 
 
@@ -181,7 +180,6 @@ def flash_attention_int8_bwd(qq: torch.Tensor, qs: torch.Tensor,
     """``(dq, dk, dv)`` from the forward's residuals and the cotangent of o:
     the two backward kernels on CUDA tensors,
     :func:`flash_attention_int8_bwd_plain` on CPU tensors."""
-    global bwd_launches
     if v.device.type == "cpu":
         return flash_attention_int8_bwd_plain(qq, qs, kq, ks, v, o, lse, do,
                                               is_causal=is_causal)
@@ -209,7 +207,7 @@ def flash_attention_int8_bwd(qq: torch.Tensor, qs: torch.Tensor,
             *_strides(v), *_strides(do), 1.0 / d ** 0.5, int(is_causal),
             code, stream)
     _build.check(rc, "jimm_flash_attention_int8_bwd")
-    bwd_launches += 1
+    _build.count_launch(__name__, "bwd_launches")
     return dq, dk, dv
 
 

@@ -264,7 +264,6 @@ def fp8_gemm(a_q: torch.Tensor, b_q: torch.Tensor, scale: torch.Tensor,
         backward: count the launch in ``bwd_launches`` (the backward's dx
             and dw GEMMs) instead of ``launches``.
     """
-    global launches, bwd_launches
     _check(a_q, b_q, scale, bias)
     if a_q.device.type == "cpu":
         return fp8_gemm_plain(a_q, b_q, scale, bias)
@@ -302,9 +301,9 @@ def fp8_gemm(a_q: torch.Tensor, b_q: torch.Tensor, scale: torch.Tensor,
             k_split, _FORMATS[a_q.dtype], _FORMATS[b_q.dtype], stream)
     _build.check(rc, "jimm_fp8_matmul")
     if backward:
-        bwd_launches += 1
+        _build.count_launch(__name__, "bwd_launches")
     else:
-        launches += 1
+        _build.count_launch(__name__, "launches")
     return out
 
 

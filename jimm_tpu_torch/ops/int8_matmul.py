@@ -118,7 +118,6 @@ def int8_matmul(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
         bias: optional ``(N,)`` bias added in f32 after dequantization.
         activation: ``None`` / ``"relu"`` / ``"gelu"`` fused epilogue.
     """
-    global launches
     _check(x_q, x_scale, w_q, w_scale, bias)
     code = _check_activation(activation)
     if x_q.device.type == "cpu":
@@ -147,7 +146,7 @@ def int8_matmul(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
             w_scale.data_ptr(), None if bias is None else bias.data_ptr(),
             out.data_ptr(), m, n, k, code, stream)
     _build.check(rc, "jimm_int8_matmul")
-    launches += 1
+    _build.count_launch(__name__, "launches")
     return out
 
 

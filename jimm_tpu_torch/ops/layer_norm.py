@@ -152,7 +152,6 @@ def _kernel_dtype(x: torch.Tensor) -> int:
 def _fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
          eps: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The forward kernel on a CUDA tensor, the plain version on a CPU one."""
-    global launches
     if x.device.type == "cpu":
         return layer_norm_plain(x, scale, bias, eps)
     code = _kernel_dtype(x)
@@ -170,7 +169,7 @@ def _fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
             mu.data_ptr(), rstd.data_ptr(), rows, f, float(eps), code, stream)
     _build.check(rc, "jimm_layer_norm_fwd")
-    launches += 1
+    _build.count_launch(__name__, "launches")
     return y, mu, rstd
 
 
@@ -180,7 +179,6 @@ def layer_norm_bwd(x: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
     """``(dx, dscale, dbias)``: the backward kernel on CUDA tensors (then a
     second kernel that sums its per-CTA partial rows in a fixed order),
     :func:`layer_norm_bwd_plain` on CPU tensors."""
-    global bwd_launches
     if x.device.type == "cpu":
         return layer_norm_bwd_plain(x, scale, mean, rstd, dy)
     code = _kernel_dtype(x)
@@ -214,7 +212,7 @@ def layer_norm_bwd(x: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
             dy.data_ptr(), dx.data_ptr(), part.data_ptr(), dscale.data_ptr(),
             dbias.data_ptr(), rows, f, ctas.value, code, stream)
     _build.check(rc, "jimm_layer_norm_bwd")
-    bwd_launches += 1
+    _build.count_launch(__name__, "bwd_launches")
     return dx, dscale, dbias
 
 

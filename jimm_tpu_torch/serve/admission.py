@@ -1,24 +1,28 @@
-"""Backpressure, deadlines and request counters; the subset of
-``jimm_tpu/serve/admission.py`` the engine uses.
+"""Backpressure, deadlines and serve observability; the counterpart of
+``jimm_tpu/serve/admission.py``.
 
 - a bounded queue: past ``max_queue`` pending requests a submission is
   rejected at once with :class:`QueueFullError` (503);
 - per-request deadlines: a request that outlives its deadline gets
   :class:`DeadlineExceededError` (504) and is dropped at dispatch;
-- graceful degradation: once the queue holds :data:`SHED_FRACTION` of its
-  bound the batcher stops waiting out its coalescing window.
+- graceful degradation: once the queue holds ``shed_fraction`` of its bound
+  (:attr:`AdmissionPolicy.shed_depth`) the batcher stops waiting out its
+  coalescing window.
+
+:class:`ServeMetrics` keeps counters, gauges and latency histograms in a
+:class:`~jimm_tpu_torch.obs.registry.MetricRegistry` published under the
+``jimm_serve`` namespace, with the reference's series names, its Prometheus
+text rendering and its flat ``snapshot()``.
 """
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import threading
+import time
+from typing import Callable
 
-import numpy as np
-
-#: share of ``max_queue`` at which the batcher dispatches without waiting
-SHED_FRACTION = 0.5
+from jimm_tpu_torch.obs.registry import MetricRegistry, publish
 
 
 class ServeError(Exception):
@@ -34,11 +38,28 @@ class QueueFullError(ServeError):
     http_status = 503
 
 
+class ThrottledError(ServeError):
+    """A tenant over its rate or queue quota: never admitted; the 429
+    carries a Retry-After hint."""
+
+    code = "throttled"
+    http_status = 429
+
+    def __init__(self, message: str, *, retry_after_s: float | None = None):
+        super().__init__(message)
+        self.retry_after_s = retry_after_s
+
+
 class ShedError(ServeError):
-    """Request evicted from the queue under overload."""
+    """Request evicted from the queue under overload to make room for a
+    higher-priority class; a 503 typed apart from queue-full."""
 
     code = "shed"
     http_status = 503
+
+    def __init__(self, message: str, *, retry_after_s: float | None = None):
+        super().__init__(message)
+        self.retry_after_s = retry_after_s
 
 
 class DeadlineExceededError(ServeError):
@@ -60,66 +81,144 @@ class EngineClosedError(ServeError):
 
 @dataclasses.dataclass(frozen=True)
 class AdmissionPolicy:
-    """Queue bound and default deadline."""
+    """Queue bound, default deadline, and the shed watermark."""
 
     max_queue: int = 256
     default_timeout_s: float = 5.0
+    shed_fraction: float = 0.5
+
+    @property
+    def shed_depth(self) -> int:
+        """Queue depth at which coalescing stops waiting (>= 1 so an empty
+        queue never counts as pressure)."""
+        return max(1, int(self.max_queue * self.shed_fraction))
 
 
 class ServeMetrics:
-    """Plain request counters and a bounded window of request latencies,
-    safe to update from the engine loop and read from handler threads."""
+    """Counters, gauges, and bounded latency windows for p50/p99, safe to
+    update from the engine loop, executor threads and handler threads.
+
+    ``observe_phase`` records a request's time in one dispatch phase
+    (queue / pad / device / readback); ``bind_gauge`` registers a callable
+    gauge evaluated at snapshot time. Every instrument lives in a registry
+    published under ``jimm_serve`` (the newest server's wins)."""
 
     COUNTERS = ("requests_total", "responses_total", "timeouts_total",
-                "rejected_total", "cancelled_total", "errors_total",
-                "batches_total", "batch_items_total", "batch_slots_total",
-                "shed_batches_total")
+                "rejected_total", "cancelled_total", "shed_batches_total",
+                "errors_total", "batches_total", "batch_items_total",
+                "batch_slots_total")
 
-    #: latencies kept for the percentiles (the newest ones)
-    LATENCY_WINDOW = 4096
+    PHASES = ("queue", "pad", "device", "readback")
 
-    def __init__(self):
+    def __init__(self, latency_window: int = 4096):
         self._lock = threading.Lock()
-        self._counts = dict.fromkeys(self.COUNTERS, 0)
-        self._latency: collections.deque[float] = collections.deque(
-            maxlen=self.LATENCY_WINDOW)
+        self.registry = publish(MetricRegistry("jimm_serve"))
+        self._counters = {name: self.registry.counter(name)
+                          for name in self.COUNTERS}
+        self._latency = self.registry.histogram(
+            "request_latency_seconds", window=latency_window)
+        self._phases = {name: self.registry.histogram(
+            f"span_{name}_seconds", window=latency_window)
+            for name in self.PHASES}
+        self._gauges: dict[str, Callable[[], float]] = {}
+        self.queue_depth = 0
+        self._t_start = time.monotonic()
+        self.registry.gauge("queue_depth", lambda: self.queue_depth)
+        self.registry.gauge("batch_fill_ratio",
+                            lambda: round(self.batch_fill_ratio, 4))
+        self.registry.gauge("uptime_s",
+                            lambda: round(time.monotonic()
+                                          - self._t_start, 3))
 
-    def inc(self, name: str, by: int = 1) -> None:
-        if name not in self._counts:
-            raise KeyError(f"unknown counter {name!r}")
-        with self._lock:
-            self._counts[name] += by
+    # -- observation ------------------------------------------------------
 
-    def count(self, name: str) -> int:
+    def inc(self, name: str, by: float = 1) -> None:
         with self._lock:
-            return self._counts[name]
+            counter = self._counters.get(name)
+            if counter is None:
+                counter = self._counters[name] = self.registry.counter(name)
+        counter.inc(by)
+
+    def set_queue_depth(self, depth: int) -> None:
+        self.queue_depth = depth
 
     def observe_batch(self, items: int, bucket: int, *,
                       shed: bool = False) -> None:
-        with self._lock:
-            self._counts["batches_total"] += 1
-            self._counts["batch_items_total"] += items
-            self._counts["batch_slots_total"] += bucket
-            self._counts["shed_batches_total"] += int(shed)
+        self._counters["batches_total"].inc()
+        self._counters["batch_items_total"].inc(items)
+        self._counters["batch_slots_total"].inc(bucket)
+        if shed:
+            self._counters["shed_batches_total"].inc()
 
     def observe_latency(self, seconds: float) -> None:
+        self._latency.observe(seconds)
+
+    def observe_phase(self, phase: str, seconds: float) -> None:
+        """Record one request's time in a dispatch phase."""
+        hist = self._phases.get(phase)
+        if hist is None:
+            with self._lock:
+                hist = self._phases.setdefault(
+                    phase, self.registry.histogram(f"span_{phase}_seconds"))
+        hist.observe(seconds)
+
+    def bind_gauge(self, name: str, fn: Callable[[], float]) -> None:
+        self._gauges[name] = fn
+        self.registry.gauge(name, fn)
+
+    # -- derived ----------------------------------------------------------
+
+    def count(self, name: str) -> float:
         with self._lock:
-            self._latency.append(seconds)
+            counter = self._counters.get(name)
+        return counter.value if counter is not None else 0
 
     def latency_percentile(self, pct: float) -> float:
-        with self._lock:
-            window = list(self._latency)
-        return float(np.percentile(window, pct)) if window else 0.0
+        return self._latency.percentile(pct)
+
+    def phase_percentile(self, phase: str, pct: float) -> float:
+        hist = self._phases.get(phase)
+        return hist.percentile(pct) if hist is not None else 0.0
+
+    @property
+    def batch_fill_ratio(self) -> float:
+        slots = self._counters["batch_slots_total"].value
+        items = self._counters["batch_items_total"].value
+        return items / slots if slots else 0.0
 
     def snapshot(self) -> dict:
+        """Flat float/int dict: the healthz payload, and loggable as
+        ``MetricsLogger.log(step, **metrics.snapshot())``."""
         with self._lock:
-            out = dict(self._counts)
-        slots = out["batch_slots_total"]
-        out["batch_fill_ratio"] = (round(out["batch_items_total"] / slots, 4)
-                                   if slots else 0.0)
+            out = {name: counter.value
+                   for name, counter in self._counters.items()}
+        out["queue_depth"] = self.queue_depth
+        out["batch_fill_ratio"] = round(self.batch_fill_ratio, 4)
         out["latency_p50_ms"] = round(self.latency_percentile(50) * 1e3, 3)
         out["latency_p99_ms"] = round(self.latency_percentile(99) * 1e3, 3)
+        for phase, hist in list(self._phases.items()):
+            if hist.count:
+                out[f"span_{phase}_p50_ms"] = round(
+                    hist.percentile(50) * 1e3, 3)
+                out[f"span_{phase}_p99_ms"] = round(
+                    hist.percentile(99) * 1e3, 3)
+        out["uptime_s"] = round(time.monotonic() - self._t_start, 3)
+        for name, fn in list(self._gauges.items()):
+            try:
+                out[name] = float(fn())
+            except Exception:  # noqa: BLE001 -- a bad gauge must not break /metrics
+                pass
         return out
+
+    def render_prometheus(self, prefix: str = "jimm_serve") -> str:
+        """Prometheus text exposition of the snapshot (counters keep their
+        ``_total`` names; everything else renders as a gauge)."""
+        lines = []
+        for key, value in sorted(self.snapshot().items()):
+            kind = "counter" if key.endswith("_total") else "gauge"
+            lines.append(f"# TYPE {prefix}_{key} {kind}")
+            lines.append(f"{prefix}_{key} {value}")
+        return "\n".join(lines) + "\n"
 
 
 class AdmissionController:
@@ -139,10 +238,8 @@ class AdmissionController:
                 f" retry with backoff")
 
     def under_pressure(self, queue_depth: int) -> bool:
-        """True when the batcher should stop waiting for batch-mates (the
-        watermark is >= 1, so an empty queue is never pressure)."""
-        return queue_depth >= max(1, int(self.policy.max_queue
-                                         * SHED_FRACTION))
+        """True when the batcher should shed (skip the coalescing wait)."""
+        return queue_depth >= self.policy.shed_depth
 
     def deadline_for(self, timeout_s: float | None, now: float) -> float:
         timeout = (self.policy.default_timeout_s

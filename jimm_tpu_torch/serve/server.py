@@ -8,7 +8,13 @@ own request's future.
 
 Endpoints::
 
-    GET  /healthz    liveness + counters snapshot
+    GET  /healthz    liveness, counters, warm-up, replicas (and
+                     ``"degraded"`` with the fenced ones), the SLO block
+    GET  /metrics    Prometheus text: the jimm_serve_* series and every
+                     other namespace of the obs hub
+    GET  /debug/traces  the engine's per-request trace ring (queue / pad /
+                     device / readback), read by ``obs tail --traces`` and
+                     ``obs timeline --traces``
     POST /v1/embed   {"image": [[...]]} -> {"features": [...]}; bulk form
                      {"images": [img, ...]} -> {"features": [[...], ...]}
                      (each image submits on its own, so the engine coalesces
@@ -18,15 +24,19 @@ Endpoints::
                      scores against the label set's class weights, built by
                      the text tower on a cache miss (a CLIP or SigLIP server
                      only: :class:`ZeroShotService`)
+    POST /admin/revive  {"replica": N} un-fences a watchdog-fenced replica
     POST /admin/prof/trigger  {"cid"?, "reason"?, "window_s"?} -> a deep
                      profiler capture on the caller's cid
                      ({"triggered": bool, ...}); 400 without a capture
                      manager (``serve --prof-dir`` or ``JIMM_PROF_DIR``)
 
-Images ride as nested JSON lists or as ``{"image_b64": base64(raw float32),
-"shape": [H, W, C]}``. Typed :class:`~jimm_tpu_torch.serve.admission
-.ServeError`\\ s map to their HTTP status with a machine-readable ``error``
-code in the JSON body.
+``/v1/search`` answers 404 until retrieval is ported (ROADMAP.md queue 1
+item 9). A client's ``X-Jimm-Trace-Id`` header names the request in the
+trace ring. Images ride as nested JSON lists or as ``{"image_b64":
+base64(raw float32), "shape": [H, W, C]}``. Typed
+:class:`~jimm_tpu_torch.serve.admission.ServeError`\\ s map to their HTTP
+status with a machine-readable ``error`` code in the JSON body (and a
+``Retry-After`` header where the error carries one).
 """
 
 from __future__ import annotations
@@ -40,14 +50,32 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from jimm_tpu_torch.obs.exporters import render_prometheus_text
 from jimm_tpu_torch.obs.prof.capture import (CaptureManager,
                                              get_capture_manager)
 from jimm_tpu_torch.obs.prof.memory import MemoryMonitor
+from jimm_tpu_torch.obs.registry import registries as _obs_registries
+from jimm_tpu_torch.obs.spans import new_trace_id
 from jimm_tpu_torch.serve.admission import RequestError, ServeError
 from jimm_tpu_torch.serve.cache import (EmbeddingCache, class_embedding_cache,
                                         prompt_set_key)
 from jimm_tpu_torch.serve.engine import InferenceEngine
 from jimm_tpu_torch.utils.zero_shot import token_table_rows, weights_from_rows
+
+
+#: /v1/search until retrieval is ported
+_SEARCH_NOT_PORTED = ("/v1/search: retrieval is not ported yet (ROADMAP.md "
+                      "queue 1 item 9)")
+
+
+def request_trace_id(payload: dict) -> str:
+    """The request's trace id: the client's ``X-Jimm-Trace-Id`` (folded
+    into the payload by the handler) when it looks sane (a string of 1-64
+    characters), else a fresh one."""
+    tid = payload.get("trace_id")
+    if isinstance(tid, str) and 0 < len(tid) <= 64:
+        return tid
+    return new_trace_id()
 
 
 def decode_image_payload(payload: dict, *, dtype=np.float32) -> np.ndarray:
@@ -125,13 +153,35 @@ class _Handler(BaseHTTPRequestHandler):
     def log_message(self, fmt, *args):  # noqa: A003 — silence per-request log
         pass
 
-    def _send_json(self, status: int, obj) -> None:
-        body = json.dumps(obj).encode()
+    def _send(self, status: int, body: bytes,
+              content_type: str = "application/json",
+              extra_headers: dict | None = None) -> None:
         self.send_response(status)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(body)))
+        for name, value in (extra_headers or {}).items():
+            self.send_header(name, value)
         self.end_headers()
         self.wfile.write(body)
+
+    def _send_json(self, status: int, obj,
+                   extra_headers: dict | None = None) -> None:
+        self._send(status, json.dumps(obj).encode(),
+                   extra_headers=extra_headers)
+
+    def _send_error_obj(self, e: Exception) -> None:
+        if isinstance(e, ServeError):
+            body = {"error": e.code, "message": str(e)}
+            headers = None
+            # throttled (429) and shed (503) answers say when to come back
+            retry_after = getattr(e, "retry_after_s", None)
+            if retry_after is not None:
+                body["retry_after_s"] = retry_after
+                headers = {"Retry-After": f"{max(retry_after, 0.0):.3f}"}
+            self._send_json(e.http_status, body, extra_headers=headers)
+        else:
+            self.server.app.metrics.inc("errors_total")
+            self._send_json(500, {"error": "internal", "message": str(e)})
 
     def _read_body(self) -> dict:
         length = int(self.headers.get("Content-Length") or 0)
@@ -146,29 +196,42 @@ class _Handler(BaseHTTPRequestHandler):
         return payload
 
     def do_GET(self) -> None:  # noqa: N802 — BaseHTTPRequestHandler API
+        app = self.server.app
         if self.path == "/healthz":
-            self._send_json(200, self.server.app.healthz())
+            self._send_json(200, app.healthz())
+        elif self.path == "/metrics":
+            self._send(200, app.metrics_text().encode(),
+                       "text/plain; version=0.0.4")
+        elif self.path == "/debug/traces":
+            self._send_json(200, app.debug_traces())
         else:
             self._send_json(404, {"error": "not_found", "message": self.path})
 
     def do_POST(self) -> None:  # noqa: N802
         app = self.server.app
         try:
+            payload = self._read_body()
+            # the client's trace id follows the request into the trace ring
+            # (an explicit payload field wins)
+            trace_id = self.headers.get("X-Jimm-Trace-Id")
+            if trace_id is not None:
+                payload.setdefault("trace_id", trace_id)
             if self.path == "/v1/embed":
-                self._send_json(200, app.embed(self._read_body()))
+                self._send_json(200, app.embed(payload))
             elif self.path == "/v1/classify":
-                self._send_json(200, app.classify(self._read_body()))
+                self._send_json(200, app.classify(payload))
+            elif self.path == "/admin/revive":
+                self._send_json(200, app.revive(payload))
             elif self.path == "/admin/prof/trigger":
-                self._send_json(200, app.prof_trigger(self._read_body()))
+                self._send_json(200, app.prof_trigger(payload))
+            elif self.path == "/v1/search":
+                self._send_json(404, {"error": "not_found",
+                                      "message": _SEARCH_NOT_PORTED})
             else:
                 self._send_json(404, {"error": "not_found",
                                       "message": self.path})
-        except ServeError as e:
-            self._send_json(e.http_status, {"error": e.code,
-                                            "message": str(e)})
         except Exception as e:  # noqa: BLE001 — every error gets a response
-            app.metrics.inc("errors_total")
-            self._send_json(500, {"error": "internal", "message": str(e)})
+            self._send_error_obj(e)
 
 
 class _Server(ThreadingHTTPServer):
@@ -179,35 +242,51 @@ class _Server(ThreadingHTTPServer):
 class ServingServer:
     """Owns the engine loop thread and the HTTP server thread.
 
-    ``start()`` warms every bucket, starts the asyncio loop and the engine
-    on it, then opens the listening socket, so the first request already
-    finds warm buckets. ``zero_shot`` (a CLIP or SigLIP server) answers
-    ``/v1/classify``. ``stop()`` also stops a device-memory ``monitor``
-    and commits the open capture of a ``capture`` manager."""
+    ``start()`` warms every bucket on every replica (unless
+    ``warmup=False``), starts the asyncio loop and the engine on it, then
+    opens the listening socket, so the first request already finds warm
+    buckets. ``zero_shot`` (a CLIP or SigLIP server) answers
+    ``/v1/classify``. A ``metrics_logger`` (anything with ``.log(step,
+    **metrics)``, e.g. :class:`~jimm_tpu_torch.train.metrics
+    .MetricsLogger`) gets a metrics snapshot every ``metrics_log_every_s``.
+    ``stop()`` also stops a device-memory ``monitor`` and commits the open
+    capture of a ``capture`` manager."""
 
     def __init__(self, engine: InferenceEngine, *, host: str = "127.0.0.1",
                  port: int = 0, request_timeout_s: float = 30.0,
                  zero_shot: ZeroShotService | None = None,
                  capture: CaptureManager | None = None,
-                 monitor: MemoryMonitor | None = None):
+                 monitor: MemoryMonitor | None = None, warmup: bool = True,
+                 metrics_logger=None, metrics_log_every_s: float = 10.0):
         self.engine = engine
         self.zero_shot = zero_shot
         self.capture = capture
         self.monitor = monitor
         self.metrics = engine.metrics
+        if zero_shot is not None:
+            self.metrics.bind_gauge("cache_hit_rate",
+                                    lambda: zero_shot.cache.hit_rate)
         self.host = host
         self._requested_port = port
         self.request_timeout_s = request_timeout_s
+        self._warmup = warmup
         self.warmup_s: dict[int, float] = {}
+        self.metrics_logger = metrics_logger
+        self.metrics_log_every_s = metrics_log_every_s
+        self._log_thread: threading.Thread | None = None
+        self._log_stop = threading.Event()
         self._loop: asyncio.AbstractEventLoop | None = None
         self._loop_thread: threading.Thread | None = None
         self._httpd: _Server | None = None
         self._http_thread: threading.Thread | None = None
 
+    # -- lifecycle --------------------------------------------------------
+
     def start(self) -> None:
         if self._loop is not None:
             return
-        self.warmup_s = self.engine.warmup_blocking()
+        if self._warmup:
+            self.warmup_s = self.engine.warmup_blocking()
         loop = asyncio.new_event_loop()
         started = threading.Event()
 
@@ -228,6 +307,18 @@ class ServingServer:
             target=self._httpd.serve_forever, daemon=True,
             name="jimm-serve-http")
         self._http_thread.start()
+        if self.metrics_logger is not None:
+            self._log_stop.clear()
+            self._log_thread = threading.Thread(
+                target=self._metrics_log_loop, daemon=True,
+                name="jimm-serve-metrics")
+            self._log_thread.start()
+
+    def _metrics_log_loop(self) -> None:
+        step = 0
+        while not self._log_stop.wait(self.metrics_log_every_s):
+            self.metrics_logger.log(step, **self.metrics.snapshot())
+            step += 1
 
     @property
     def port(self) -> int:
@@ -236,6 +327,10 @@ class ServingServer:
         return self._httpd.server_address[1]
 
     def stop(self) -> None:
+        if self._log_thread is not None:
+            self._log_stop.set()
+            self._log_thread.join(timeout=10)
+            self._log_thread = None
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
@@ -252,6 +347,10 @@ class ServingServer:
                 self._loop_thread = None
             self._loop.close()
             self._loop = None
+        if self.metrics_logger is not None:
+            close = getattr(self.metrics_logger, "close", None)
+            if close is not None:
+                close()
         if self.monitor is not None:
             self.monitor.stop()
         if self.capture is not None:
@@ -270,15 +369,20 @@ class ServingServer:
 
     # -- request handling (called from HTTP handler threads) --------------
 
-    def _submit_many(self, images: list[np.ndarray],
-                     timeout_s: float | None) -> list[np.ndarray]:
+    def _submit_many(self, images: list[np.ndarray], timeout_s: float | None,
+                     trace_id: str) -> list[np.ndarray]:
+        """Submit every image at once, so the engine's batcher coalesces
+        them; a burst's requests are ``{trace_id}.{i}``."""
         assert self._loop is not None
+        ids = ([trace_id] if len(images) == 1
+               else [f"{trace_id}.{i}" for i in range(len(images))])
         futures = [asyncio.run_coroutine_threadsafe(
-            self.engine.submit(image, timeout_s=timeout_s), self._loop)
-            for image in images]
+            self.engine.submit(image, timeout_s=timeout_s, trace_id=tid),
+            self._loop) for image, tid in zip(images, ids)]
         return [f.result(timeout=self.request_timeout_s) for f in futures]
 
     def embed(self, payload: dict) -> dict:
+        rid = request_trace_id(payload)
         timeout_s = payload.get("timeout_s")
         if "images" in payload:
             raw = payload["images"]
@@ -287,27 +391,67 @@ class ServingServer:
             images = [decode_image_payload(
                 item if isinstance(item, dict) else {"image": item},
                 dtype=self.engine.dtype) for item in raw]
-            features = self._submit_many(images, timeout_s)
+            features = self._submit_many(images, timeout_s, rid)
             return {"features": [f.tolist() for f in features],
-                    "count": len(features)}
+                    "count": len(features), "trace_id": rid}
         image = decode_image_payload(payload, dtype=self.engine.dtype)
-        return {"features": self._submit_many([image], timeout_s)[0].tolist()}
+        return {"features": self._submit_many([image], timeout_s,
+                                              rid)[0].tolist(),
+                "trace_id": rid}
 
     def classify(self, payload: dict) -> dict:
         if self.zero_shot is None:
             raise RequestError("this server has no zero-shot service "
                                "(started without a text tower)")
+        rid = request_trace_id(payload)
         tokens = payload.get("tokens")
         if not isinstance(tokens, dict) or not tokens:
             raise RequestError("classify needs 'tokens': {label: [ids]}")
         labels, weights, cached = \
             self.zero_shot.class_weights_blocking(tokens)
         image = decode_image_payload(payload, dtype=self.engine.dtype)
-        features = self._submit_many([image], payload.get("timeout_s"))[0]
+        features = self._submit_many([image], payload.get("timeout_s"),
+                                     rid)[0]
         scores = self.zero_shot.scores(np.asarray(features), weights)
         return {"scores": {label: round(float(s), 6)
                            for label, s in zip(labels, scores)},
                 "cached": cached}
+
+    def revive(self, payload: dict) -> dict:
+        """``POST /admin/revive {"replica": N}``: un-fence lane N with a
+        fresh executor and a re-armed restart. A bad index or a replica
+        that is not fenced is a 400. The engine's replica state belongs to
+        its loop, so the revive runs there (on a short-lived loop when the
+        server was never started)."""
+        index = payload.get("replica")
+        if not isinstance(index, int) or isinstance(index, bool):
+            raise RequestError("revive needs 'replica': <int index>")
+        try:
+            if self._loop is None:
+                stats = self._revive_on_disposable_loop(index)
+            else:
+                stats = asyncio.run_coroutine_threadsafe(
+                    self._revive_on_loop(index), self._loop).result(30.0)
+        except ValueError as e:
+            raise RequestError(str(e)) from None
+        return {"revived": index, "replica_stats": stats,
+                "dead_replicas": self.engine.dead_replicas()}
+
+    async def _revive_on_loop(self, index: int) -> dict:
+        return self.engine.revive(index)
+
+    def _revive_on_disposable_loop(self, index: int) -> dict:
+        loop = asyncio.new_event_loop()
+        thread = threading.Thread(target=loop.run_forever,
+                                  name="jimm-serve-loop", daemon=True)
+        thread.start()
+        try:
+            return asyncio.run_coroutine_threadsafe(
+                self._revive_on_loop(index), loop).result(30.0)
+        finally:
+            loop.call_soon_threadsafe(loop.stop)
+            thread.join(timeout=5.0)
+            loop.close()
 
     def prof_trigger(self, payload: dict) -> dict:
         """``POST /admin/prof/trigger``: a deep profiler capture on a
@@ -335,9 +479,47 @@ class ServingServer:
             return {"triggered": False, "suppressed": True}
         return {"triggered": True, "capture": meta}
 
+    def metrics_text(self) -> str:
+        """The ``/metrics`` dump: this server's ``jimm_serve_*`` series (the
+        :class:`ServeMetrics` snapshot) merged with every other namespace
+        published to the obs hub."""
+        series: dict = {}
+        for prefix, reg in _obs_registries().items():
+            if prefix == "jimm_serve":
+                continue  # ours comes from self.metrics below
+            for name, value in reg.snapshot().items():
+                series[f"{prefix}_{name}"] = value
+        for name, value in self.metrics.snapshot().items():
+            series[f"jimm_serve_{name}"] = value
+        return render_prometheus_text(series)
+
+    def debug_traces(self) -> dict:
+        """The engine's ``recent_traces`` ring (newest last)."""
+        traces = list(self.engine.recent_traces)
+        return {"traces": traces, "count": len(traces)}
+
     def healthz(self) -> dict:
         snap = self.metrics.snapshot()
-        return {"status": "ok" if self._loop is not None else "stopped",
-                "buckets": list(self.engine.buckets.sizes),
-                "warmup_s": {str(k): v for k, v in self.warmup_s.items()},
-                **snap}
+        out = {"status": "ok", "buckets": list(self.engine.buckets.sizes),
+               "warmup_s": {str(k): v for k, v in self.warmup_s.items()},
+               **snap}
+        report = self.engine.warmup_report
+        if report:
+            out["warmup"] = {str(k): v for k, v in sorted(report.items())}
+        if self.engine._multi:
+            out["replicas"] = self.engine.replica_stats()
+            out["replans"] = int(self.metrics.count("replans_total"))
+            if self.engine.last_heal_error:
+                out["last_heal_error"] = self.engine.last_heal_error
+        # a fenced replica downgrades the probe: the server answers, with
+        # less capacity
+        dead = self.engine.dead_replicas()
+        if dead:
+            out["status"] = "degraded"
+            out["dead_replicas"] = dead
+        slo = self.engine.slo
+        if slo is not None:
+            out["slo"] = slo.snapshot()
+            if out["slo"]["fast_burning"] and out["status"] == "ok":
+                out["status"] = "degraded"
+        return out

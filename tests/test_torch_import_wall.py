@@ -77,6 +77,10 @@ def test_importing_the_port_loads_no_jax():
             "jimm_tpu_torch.parallel.pipeline"} <= set(MODULES)
     # and the elastic slice's copy of the reference's jax-free planner
     assert "jimm_tpu_torch.resilience.elastic" in MODULES
+    # and the serving replicas slice's: the topology planner, the stdlib
+    # client and the SLO engine
+    assert {"jimm_tpu_torch.serve.topology", "jimm_tpu_torch.serve.client",
+            "jimm_tpu_torch.obs.slo"} <= set(MODULES)
 
 
 def test_the_indexed_loader_loads_neither_jax_nor_grain():
