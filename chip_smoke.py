@@ -434,6 +434,25 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                the f32 twin. The record gains the ``replicas`` and
                ``replicas_int8`` paths. ``python3 chip_smoke.py --phase
                21`` runs the build and this phase alone.
+22. wide     -- serving replicas wider than one device and tenant QoS: (a)
+               ``serve --device cuda:0,cuda:0,cuda:0,cuda:0`` with
+               ``--model-parallel k --seq-parallel s`` at (1, 2, 1), (1,
+               1, 2) and (1, 2, 2), each replica an in-process mesh (a
+               copy, a stream and a thread a position), phase 4's traffic
+               and gates, the launches a batch summed over the positions
+               (``WIDE_PLANS``), every answer at cosine >= 0.999 against
+               the single-device model; a drill in which one position of
+               one of two (1, 2, 1) replicas fails for good: the call
+               raises at once, the lane is fenced, the heal rebuilds and
+               the replan serves; (b) ``--qos-policy`` with two tenants in
+               two classes and ``--pool-model twin=...@int8``: the
+               rate-limited tenant alone gets 429 with Retry-After, the
+               twin answers through the int8 matmul (78 launches a batch)
+               at cosine >= 0.999 against f32, /metrics carries the QoS
+               series. The record gains the ``wide_121``, ``wide_112``,
+               ``wide_122`` and ``pool_twin`` paths. ``python3
+               chip_smoke.py --phase 22`` runs the build and this phase
+               alone.
 
 Phase 3's flash cases include row 3's causal kind at CLIP-B/16's text
 shapes, (32, 77, 8, 64) and the 70 prompt rows of one label set (70, 77,
@@ -6378,6 +6397,292 @@ def replicas_phase(card: str) -> dict[str, dict]:
     return {"replicas": counts, "replicas_int8": int8_replicas(card)}
 
 
+# -- phase 22: replicas wider than one device, tenant QoS and the pool -------
+
+#: phase 22's served model: SigLIP-B/16-256 in bf16, the card listed four
+#: times (one entry a device of the plan)
+WIDE_ARGV = ["serve", "--preset", "siglip-base-patch16-256", "--ln-impl",
+             "fused", "--dtype", "bf16", "--device",
+             "cuda:0,cuda:0,cuda:0,cuda:0", "--port", "0", "--buckets",
+             "1,8,32", "--max-delay-ms", "10", "--timeout-s", "120"]
+#: each (replicas, model, seq) plan's launches a served batch, summed over
+#: the replica's positions (PERF.md §6's kernel table): under ``model``
+#: every position runs the 12 blocks and the MAP probe on 6 of 12 heads and
+#: every LayerNorm; under ``seq`` each block's attention is two ring hops on
+#: a position's 128 of 256 tokens, the probe once on the gathered tokens
+WIDE_PLANS = {(1, 2, 1): {"flash_attention": 26, "layer_norm": 48},
+              (1, 1, 2): {"flash_attention": 50, "layer_norm": 48},
+              (1, 2, 2): {"flash_attention": 100, "layer_norm": 96}}
+#: phase 22(b)'s policy: two classes, an unlimited interactive tenant and
+#: a rate-limited batch one
+QOS_POLICY = {"classes": {"interactive": {"weight": 8},
+                          "batch": {"weight": 2}},
+              "tenants": {"vip": {"class": "interactive"},
+                          "bulk": {"class": "batch", "rate": 2, "burst": 4}},
+              "default": {"class": "batch"},
+              "slo": {"vip": {"availability": 0.99, "latency_ms": 5000}}}
+
+
+def _cosines(got: np.ndarray, want: np.ndarray) -> np.ndarray:
+    return (got * want).sum(1) / (np.linalg.norm(got, axis=1)
+                                  * np.linalg.norm(want, axis=1))
+
+
+def wide_serving(card: str) -> dict[str, dict]:
+    """22(a): ``serve --device cuda:0,cuda:0,cuda:0,cuda:0 --model-parallel
+    k --seq-parallel s`` through ``cli.build_server`` at (1, 2, 1), (1, 1,
+    2) and (1, 2, 2), phase 4's traffic by the stdlib client: phase 4's
+    gates against the plain-version forward, WIDE_PLANS' launches a batch
+    summed over the positions, every answer at cosine >= SERVE_MIN_COS
+    against the single-device model's kernels on the same weights; a copy
+    and a stream per position. Returns each plan's counts (``wide_RKS``)."""
+    out: dict[str, dict] = {}
+    single = None
+    for (r, k, s), per_batch in WIDE_PLANS.items():
+        t0 = time.perf_counter()
+        server, model, ready = cli.build_server(cli.build_parser().parse_args(
+            WIDE_ARGV + ["--replicas", str(r), "--model-parallel", str(k),
+                         "--seq-parallel", str(s)]))
+        label = f"wide {r}x{k}x{s}"
+        try:
+            fwd, = server.engine.forwards
+            check(ready["topology"]["model_parallel"] == k
+                  and ready["topology"]["seq_parallel"] == s
+                  and len(fwd.models) == k * s
+                  and len({id(st) for st in fwd.streams}) == k * s
+                  and all(d == torch.device("cuda", 0) for d in fwd.devices),
+                  f"{label}: ready line {ready}")
+            print(f"{label}: SigLIP-B/16-256 bf16, {k * s} positions on "
+                  f"cuda:0 (a copy, a stream and a thread each), built and "
+                  f"warmed in {time.perf_counter() - t0:.1f} s", flush=True)
+            traffic = served_traffic(
+                server, model, "encode_image", label, per_batch,
+                model.config.projection_dim, card,
+                client=ServeClient(port=server.port, timeout_s=300.0),
+                keep=True)
+        finally:
+            server.stop()
+        features, batch = traffic.pop("features"), traffic.pop("batch")
+        if single is None:
+            single = encode_all(model, batch)
+        cos = _cosines(features, single)
+        check(bool((cos >= SERVE_MIN_COS).all()),
+              f"{label}: cosine against one device {cos.min()}")
+        print(f"{label}: against the single-device model's kernels min "
+              f"cosine {cos.min():.6f} | {card}", flush=True)
+        out[f"wide_{r}{k}{s}"] = traffic
+        del server, model, fwd
+    return out
+
+
+def wide_heal_drill(card: str) -> None:
+    """22(a), the drill: two (1, 2, 1)-wide replicas on the card listed four
+    times; position 1 of replica 1 fails for good (a forward pre-hook that
+    raises). The call raises at once (its peer's collective aborts), the
+    watchdog restarts then fences the lane (healthz degraded), the probe
+    fails, the heal factory rebuilds both replicas over the same plan and
+    the replan serves on them: the requests sent meanwhile are answered
+    (phase 4's gate), both lanes dispatch after, the journal chains the
+    incident on one cid."""
+    journal = obs.configure_journal(None)
+    cfg = configs.with_runtime(configs.preset("siglip-base-patch16-256"),
+                               ln_impl="fused")
+    model, _ = cli.serving_model(cfg, "bf16", "cuda")
+    cuda0 = torch.device("cuda", 0)
+    plan = plan_topology(2, 2, 1, devices=[cuda0] * 4)
+    forwards = build_replica_forwards(model, plan, method="encode_image",
+                                      timeout_s=60.0)
+
+    def fault(module, args):
+        raise RuntimeError("injected position fault")
+
+    size = cfg.vision.image_size
+    engine = InferenceEngine(
+        forwards, item_shape=(size, size, 3),
+        buckets=BucketTable((1, 8, 32)), max_delay_ms=10.0,
+        policy=AdmissionPolicy(max_queue=256, default_timeout_s=120.0))
+    engine.set_heal(lambda: build_replica_forwards(
+        model, plan, method="encode_image", timeout_s=60.0))
+    images = np.random.default_rng(22).uniform(
+        -1, 1, (DRILL_BURST + 1, size, size, 3)).astype(np.float32)
+    server = ServingServer(engine, port=0, request_timeout_s=300.0)
+    server.start()
+    client = ServeClient(port=server.port, timeout_s=300.0)
+    statuses = []
+    try:
+        # the fault from here on: the warm-up ran every bucket on both lanes
+        forwards[1].models[1].vision.encoder.blocks[0] \
+            .register_forward_pre_hook(fault)
+        t0 = time.perf_counter()
+        try:
+            forwards[1](images[:1])
+        except RuntimeError as e:
+            raised_s = time.perf_counter() - t0
+            check("injected position fault" in str(e),
+                  f"drill: raised {e!r}")
+        else:
+            check(False, "drill: the failing position's call did not raise")
+        end = time.monotonic() + 120
+        while engine.metrics.count("replans_total") < 1:
+            check(time.monotonic() < end, "drill: no replan in 120 s")
+            try:
+                client.embed(images[0])
+                statuses.append(200)
+            except ServeClientError as e:
+                statuses.append(e.status)
+        answers = np.asarray(client.embed_many(images[1:]), np.float32)
+        health = client.healthz()
+        check(health["status"] == "ok" and health["replans"] == 1
+              and forwards[1] not in engine.forwards,
+              f"drill: after the heal, healthz {health}")
+        before = _dispatched(server)
+        with ThreadPoolExecutor(8) as burst:
+            list(burst.map(client.embed, images))
+        check(all(a > b for a, b in zip(_dispatched(server), before)),
+              "drill: a replica idle after the replan")
+    finally:
+        server.stop()
+    ref = encode_all(model, torch.from_numpy(images[1:]).to(
+        "cuda", torch.bfloat16), plain=True)
+    cos, _ = served_gate(answers, ref, "drill: answers after the heal")
+    events = journal.events()
+    fenced = [e["cid"] for e in events if e["event"] == "replica_fenced"]
+    check(len(fenced) == 1, f"drill: {len(fenced)} fences")
+    incident = [e["event"] for e in obs.chain(events, fenced[0])]
+    check(incident == ["replica_fault", "replica_fenced", "heal_probe",
+                       "heal_rebuilt", "replan_started", "replan_done"],
+          f"drill: journal {incident}")
+    durations = {e["event"]: e["dur_s"] for e in obs.chain(events, fenced[0])
+                 if "dur_s" in e}
+    print(f"drill: position 1 of replica 1 failing raised in "
+          f"{raised_s * 1e3:.1f} ms; statuses "
+          f"{ {c: statuses.count(c) for c in sorted(set(statuses))} } "
+          f"until the replan; "
+          f"{' -> '.join(incident)} on one cid; heal (probe + rebuild of "
+          f"both wide replicas) {durations['heal_rebuilt']:.3f} s, replan "
+          f"(warm 3 buckets on 2 lanes, drain, swap) "
+          f"{durations['replan_done']:.3f} s; {DRILL_BURST} answers after "
+          f"it min cosine {cos.min():.6f} | {card}", flush=True)
+
+
+def qos_pool(card: str, root: pathlib.Path) -> dict:
+    """22(b): ``serve --qos-policy P --pool-model
+    twin=siglip-base-patch16-256@int8`` (bf16 default, one card): the
+    rate-limited tenant alone gets 429 with Retry-After; the twin answers
+    through row 11 (INT8_MATMUL_PER_BATCH launches a batch, no batch on
+    the default engine meanwhile) at cosine >= SERVE_MIN_COS against the
+    f32 model of the same weights; /metrics carries the tenant, class and
+    model series. Returns the twin's counts (``pool_twin``)."""
+    policy = root / "qos.json"
+    policy.write_text(json.dumps(QOS_POLICY))
+    t0 = time.perf_counter()
+    server, model, ready = cli.build_server(cli.build_parser().parse_args(
+        ["serve", "--preset", "siglip-base-patch16-256", "--ln-impl",
+         "fused", "--dtype", "bf16", "--device", "cuda:0", "--port", "0",
+         "--buckets", "1,8,32", "--max-delay-ms", "10", "--timeout-s", "120",
+         "--qos-policy", str(policy), "--pool-model",
+         "twin=siglip-base-patch16-256@int8"]))
+    try:
+        check(ready["qos"]["tenants"] == ["bulk", "vip"]
+              and ready["models"]["twin"]["dtype"] == "int8",
+              f"qos: ready line {ready}")
+        print(f"qos: bf16 default and int8 twin built and warmed in "
+              f"{time.perf_counter() - t0:.1f} s: qos {ready['qos']}",
+              flush=True)
+        size = model.config.vision.image_size
+        images = np.random.default_rng(23).uniform(
+            -1, 1, (48, size, size, 3)).astype(np.float32)
+
+        def send(tenant: str, image, model_name=None):
+            c = ServeClient(port=server.port, tenant=tenant,
+                            model=model_name, timeout_s=300.0)
+            try:
+                c.embed(image)
+            except ServeClientError as e:
+                return e.status, getattr(e, "retry_after_s", None)
+            return 200, None
+
+        with ThreadPoolExecutor(8) as pool:
+            bulk = list(pool.map(lambda im: send("bulk", im), images[:12]))
+            vip = list(pool.map(lambda im: send("vip", im), images[:12]))
+        throttled = [r for s, r in bulk if s == 429]
+        check(len(throttled) >= 4 and all(r is not None and r > 0
+                                          for r in throttled)
+              and all(s in (200, 429) for s, _ in bulk)
+              and all(s == 200 for s, _ in vip),
+              f"qos: bulk {bulk}, vip {vip}")
+        print(f"qos: 12 requests each at once: bulk (rate 2/s, burst 4) "
+              f"{sum(s == 200 for s, _ in bulk)} answered, {len(throttled)} "
+              f"429 (Retry-After {min(throttled):.3f}-{max(throttled):.3f} "
+              f"s); vip 12 answered", flush=True)
+        twin_client = ServeClient(port=server.port, tenant="vip",
+                                  model="twin", timeout_s=300.0)
+        batches_before = server.metrics.count("batches_total")
+        zero_counts()
+        with ThreadPoolExecutor(8) as pool:
+            singles = list(pool.map(twin_client.embed, images[:16]))
+        bulk_out = twin_client.embed_many(images[16:])
+        counts = read_counts()
+        batches = int(server.metrics.count("batches_total") - batches_before)
+        per_batch = {"int8_matmul": INT8_MATMUL_PER_BATCH,
+                     "flash_attention": FLASH_PER_BATCH,
+                     "layer_norm": LN_PER_BATCH}
+        check(batches > 0 and all(counts[k] == n * batches
+                                  for k, n in per_batch.items())
+              and sum(n for k, n in counts.items()
+                      if k not in per_batch) == 0,
+              f"qos: the twin's launches over {batches} batches: {counts}")
+        features = np.asarray(list(singles) + list(bulk_out), np.float32)
+        text = ServeClient(port=server.port).metrics_text()
+        series = obs.parse_prometheus_text(text)
+        check(series.get("jimm_serve_tenant_bulk_throttled_total", 0)
+              == len(throttled)
+              and series.get("jimm_serve_tenant_vip_throttled_total") == 0
+              # 16 singles and one bulk request
+              and series.get("jimm_serve_model_twin_requests_total") == 17
+              and "jimm_serve_class_interactive_dispatched_total" in series
+              and "jimm_serve_class_batch_requests_total" in series,
+              "qos: /metrics lacks the QoS series")
+        health = ServeClient(port=server.port).healthz()
+        check(sorted(health["models"]) == ["default", "twin"]
+              and health["qos"]["tenants"]["bulk"]["throttled"]
+              == len(throttled), f"qos: healthz {health.get('qos')}")
+    finally:
+        server.stop()
+    del model
+    cfg = configs.with_runtime(configs.preset("siglip-base-patch16-256"),
+                               ln_impl="fused")
+    full, _ = cli.serving_model(cfg, "f32", "cuda")
+    want = encode_all(full, torch.from_numpy(images[:48]).to("cuda"))
+    del full
+    cos = _cosines(features, want)
+    check(bool((cos >= SERVE_MIN_COS).all()),
+          f"qos: the twin's cosine against f32 {cos.min()}")
+    print(f"qos: the int8 twin by X-Jimm-Model: {batches} batches, "
+          + ", ".join(f"{k} {counts[k]} = {n}/batch"
+                      for k, n in per_batch.items())
+          + f"; cosine against the f32 model min {cos.min():.6f}; /metrics "
+          f"tenant_bulk_throttled_total "
+          f"{series['jimm_serve_tenant_bulk_throttled_total']}, "
+          f"model_twin_requests_total "
+          f"{series['jimm_serve_model_twin_requests_total']} | {card}",
+          flush=True)
+    return dict(counts, batches=batches)
+
+
+def wide_qos_phase(card: str) -> dict[str, dict]:
+    """Phase 22: (a) wide replicas and their heal drill, (b) tenant QoS
+    and the int8 pool twin; the record's ``wide_*`` and ``pool_twin``
+    paths."""
+    t0 = time.perf_counter()
+    counts = wide_serving(card)
+    wide_heal_drill(card)
+    print(f"phase 22(a) {time.perf_counter() - t0:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        counts["pool_twin"] = qos_pool(card, pathlib.Path(tmp))
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -6481,6 +6786,8 @@ def main() -> int:
             done("quantized mesh and drills")
         replica_counts = replicas_phase(card)
         done("serving replicas")
+        wide_counts = wide_qos_phase(card)
+        done("wide replicas and QoS")
         check(all(math.isfinite(timed[k]["ms"]) for k in timed), "bad timing")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
@@ -6497,7 +6804,9 @@ def main() -> int:
     # ("profile_serve"), phase 18's mesh runs and phase 19's runs under the
     # model and stage axes and phase 20's (rank 0's launches), and phase
     # 21's first two-replica run ("replicas") and int8 replicas' traffic
-    # ("replicas_int8"), summed over both replicas
+    # ("replicas_int8"), summed over both replicas, and phase 22's wide
+    # replicas ("wide_121", "wide_112", "wide_122", summed over each
+    # replica's positions) and the int8 pool twin's traffic ("pool_twin")
     paths = {"serve": serve_counts, "train": train_counts,
              "naflex": naflex_counts, "int8_serve": int8_serve_counts,
              "int8_qk": int8_qk_counts, "fp8_hybrid": fp8_counts,
@@ -6505,7 +6814,7 @@ def main() -> int:
              **ckpt_counts, **zero_shot_counts, **rest_counts,
              "resilience": resilience_counts, "data": data_counts,
              **profile_counts, **mesh_counts, **axes_counts, **quant_counts,
-             **replica_counts}
+             **replica_counts, **wide_counts}
     steps = {"train": CLI_STEPS, "naflex": CLI_STEPS, "int8_qk": CLI_STEPS,
              "fp8_hybrid": CLI_STEPS, "sigmoid": TRAIN_STEPS}
     main_path = {"flash_attention_masked": "naflex",
@@ -6596,10 +6905,11 @@ def main() -> int:
 
 
 def phase_alone(phase: str) -> int:
-    """``python3 chip_smoke.py --phase 20|21``: the build, then that phase
-    alone (20: its two-rank launch, the batch-32 single-process references
-    and its gates; 21: serving replicas and health); for iterating on one
-    path. Prints no record."""
+    """``python3 chip_smoke.py --phase 20|21|22``: the build, then that
+    phase alone (20: its two-rank launch, the batch-32 single-process
+    references and its gates; 21: serving replicas and health; 22: wide
+    replicas, tenant QoS and the pool); for iterating on one path. Prints
+    no record."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
@@ -6614,6 +6924,8 @@ def phase_alone(phase: str) -> int:
     try:
         if phase == "21":
             replicas_phase(card)
+        elif phase == "22":
+            wide_qos_phase(card)
         else:
             with tempfile.TemporaryDirectory() as tmp:
                 root = pathlib.Path(tmp)
@@ -6632,6 +6944,7 @@ def phase_alone(phase: str) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank-task"]:
         sys.exit(rank_main(sys.argv[1:]))
-    if sys.argv[1:2] == ["--phase"] and sys.argv[2:] in (["20"], ["21"]):
+    if sys.argv[1:2] == ["--phase"] and sys.argv[2:] in (["20"], ["21"],
+                                                         ["22"]):
         sys.exit(phase_alone(sys.argv[2]))
     sys.exit(main())

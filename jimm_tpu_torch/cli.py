@@ -10,9 +10,17 @@ head) behind the micro-batching engine and the HTTP front end, warms every
 bucket, and prints one JSON ready line with ``"status": "serving"``.
 ``--replicas R`` partitions the ``--device`` list (a card may be listed more
 than once) into R replicas, each with its own model copy, stream and
-executor, balanced behind the one queue; ``--self-heal`` rebuilds and
-replans around a fenced replica. The server also answers ``/metrics``,
-``/debug/traces`` and ``POST /admin/revive``.
+executor, balanced behind the one queue; ``--model-parallel k`` and
+``--seq-parallel s`` make each replica ``k * s`` devices wide (an in-process
+mesh: the model sliced Megatron-style over ``model``, the tokens over
+``seq``; ``serve/topology.py``); ``--self-heal`` rebuilds and replans
+around a fenced replica. ``--qos-policy FILE`` turns on tenant QoS (token
+buckets, quotas, weighted-fair classes, class-ordered shedding; the
+policy's ``slo`` section feeds the burn-rate engine) and ``--pool-model
+NAME=PRESET[@DTYPE]`` makes more models resident over the same plan,
+routed by ``X-Jimm-Model``; ``qos ls|validate`` reads policy files. The
+server also answers ``/metrics``, ``/debug/traces`` and ``POST
+/admin/revive``.
 ``--dtype int8`` builds or loads the model in f32 and swaps every eligible
 Linear for a W8A8 ``QuantLinear`` before any forward
 (``jimm_tpu_torch.quant``). A CLIP or SigLIP server also answers
@@ -108,6 +116,7 @@ from jimm_tpu_torch.obs.prof.memory import MemoryMonitor, module_bytes
 from jimm_tpu_torch.obs.prof.opstats import (capture_summary,
                                              load_trace_events,
                                              render_summary)
+from jimm_tpu_torch.obs.slo import SloEngine
 from jimm_tpu_torch.ops.attention import INT8_NO_MASK
 from jimm_tpu_torch.parallel import comm
 from jimm_tpu_torch.parallel.mesh import (check_max_devices,
@@ -131,6 +140,8 @@ from jimm_tpu_torch.serve.buckets import BucketTable, default_buckets
 from jimm_tpu_torch.serve.engine import InferenceEngine, image_forward
 from jimm_tpu_torch.serve.cache import (EmbeddingCache, class_embedding_cache,
                                         prompt_set_key)
+from jimm_tpu_torch.serve.qos import ModelPool, QosScheduler, load_policy
+from jimm_tpu_torch.serve.qos.cli import add_qos_parser
 from jimm_tpu_torch.serve.server import ServingServer, ZeroShotService
 from jimm_tpu_torch.serve.topology import (build_replica_forwards,
                                            plan_topology, visible_devices)
@@ -200,12 +211,26 @@ def serving_model(cfg, dtype: str, device,
     return _ready_to_serve(model, dtype)
 
 
-#: ``serve --model-parallel/--seq-parallel`` above 1
-_MODEL_PARALLEL_NOT_PORTED = (
-    "--model-parallel and --seq-parallel above 1 are not ported yet: a "
-    "replica wider than one device needs an in-process tensor- and "
-    "sequence-parallel forward, ROADMAP.md queue 1 item 8(a) part 2; "
-    "serve replicas of the whole model with --replicas")
+#: the bucket tables' names of the serving dtypes
+_BUCKET_DTYPES = {"f32": "float32", "bf16": "bfloat16", "int8": "int8"}
+
+
+def parse_pool_model(spec: str) -> tuple[str, str, str]:
+    """One ``--pool-model NAME=PRESET[@DTYPE]`` as ``(name, preset,
+    dtype)``; DTYPE defaults to f32 (the JAX CLI's parser and words)."""
+    name, sep, rest = spec.partition("=")
+    if not sep or not name or not rest:
+        raise SystemExit(f"--pool-model {spec!r}: expected "
+                         "NAME=PRESET[@DTYPE]")
+    if name == "default":
+        raise SystemExit("--pool-model: 'default' names the primary model; "
+                         "pick another name")
+    preset_name, _, dtype = rest.partition("@")
+    dtype = dtype or "f32"
+    if dtype not in ("f32", "bf16", "int8"):
+        raise SystemExit(f"--pool-model {spec!r}: dtype must be "
+                         "f32|bf16|int8")
+    return name, preset_name, dtype
 
 
 def serve_dtype(args: argparse.Namespace) -> str:
@@ -231,17 +256,17 @@ def serve_devices(spec: str) -> list[torch.device]:
 def build_server(args: argparse.Namespace
                  ) -> tuple[ServingServer, torch.nn.Module, dict]:
     """The ``serve`` command up to its ready line: the model built or
-    loaded, its replicas (``--replicas``) and engine, the HTTP server
-    started (every bucket warmed on every replica); the server, the model
-    it serves and the ready line's fields. The caller stops the server."""
+    loaded, its replicas (``--replicas``, each ``--model-parallel *
+    --seq-parallel`` devices wide) and engine, the QoS scheduler and the
+    model pool, the HTTP server started (every bucket warmed on every
+    replica of every model); the server, the default model and the ready
+    line's fields. The caller stops the server."""
     runtime = {"ln_impl": args.ln_impl} if args.ln_impl else None
     dtype = serve_dtype(args)
     if dtype == "int8" and args.model_parallel > 1:
         raise SystemExit("--dtype int8 does not support --model-parallel > 1 "
                          "yet (QuantLinear params carry no logical sharding "
                          "axes); use data replicas")
-    if args.model_parallel > 1 or args.seq_parallel > 1:
-        raise SystemExit(_MODEL_PARALLEL_NOT_PORTED)
     plan = plan_topology(args.replicas, args.model_parallel,
                          args.seq_parallel, devices=serve_devices(args.device))
     if args.self_heal and plan.is_trivial:
@@ -277,39 +302,95 @@ def build_server(args: argparse.Namespace
     method = SERVED_METHOD[fam]
     zero_shot = (ZeroShotService(model, model_key=f"{name}:{dtype}")
                  if fam in ("clip", "siglip") else None)
-    buckets = (BucketTable(tuple(int(s) for s in args.buckets.split(",")))
-               if args.buckets else default_buckets(device))
-    # the trivial plan serves the model itself; replicas get their own
-    # copies, streams and executors
-    forward = (image_forward(model, method) if plan.is_trivial
-               else build_replica_forwards(model, plan, method=method))
+    buckets = (BucketTable(tuple(int(s) for s in args.buckets.split(",")),
+                           dtype=_BUCKET_DTYPES[dtype])
+               if args.buckets
+               else default_buckets(device, dtype=_BUCKET_DTYPES[dtype]))
+
+    def build_forward(mdl: torch.nn.Module, mdl_method: str):
+        # the trivial plan serves the model itself; replicas get their own
+        # copies (sliced, for a replica wider than one device), streams and
+        # executors
+        if plan.is_trivial:
+            return image_forward(mdl, mdl_method)
+        return build_replica_forwards(mdl, plan, method=mdl_method)
+
+    policy = AdmissionPolicy(max_queue=args.queue_size,
+                             default_timeout_s=args.timeout_s,
+                             shed_fraction=args.shed_fraction)
+    # tenant admission and weighted-fair classes; without a policy the
+    # engine keeps its single FIFO
+    qos = QosScheduler(load_policy(args.qos_policy)) if args.qos_policy \
+        else None
     engine = InferenceEngine(
-        forward, item_shape=(vision.image_size, vision.image_size,
-                             vision.channels),
-        buckets=buckets, max_delay_ms=args.max_delay_ms,
-        policy=AdmissionPolicy(max_queue=args.queue_size,
-                               default_timeout_s=args.timeout_s,
-                               shed_fraction=args.shed_fraction))
+        build_forward(model, method),
+        item_shape=(vision.image_size, vision.image_size, vision.channels),
+        buckets=buckets, max_delay_ms=args.max_delay_ms, policy=policy,
+        qos=qos)
+    if qos is not None and qos.registry.slo:
+        # the policy's slo section: per-tenant burn rates; a fast burn
+        # escalates into the self-heal path and degrades /healthz
+        engine.attach_slo(SloEngine.from_objective_dicts(qos.registry.slo))
     if args.self_heal:
         # fence -> probe/revive -> rebuild the replica set over the same
         # plan and replan around the dead lane
-        engine.set_heal(
-            lambda: build_replica_forwards(model, plan, method=method))
+        engine.set_heal(lambda: build_forward(model, method))
+    pool, pool_models = None, [model]
+    if args.pool_model:
+        # more resident models, each built as the default one is over the
+        # same plan, with its own engine behind the same metrics and QoS
+        # scheduler; requests name one with X-Jimm-Model
+        engines = {"default": engine}
+        for spec in args.pool_model:
+            pname, ppreset, pdtype = parse_pool_model(spec)
+            if pname in engines:
+                raise SystemExit(f"--pool-model: duplicate name {pname!r}")
+            if pdtype == "int8" and args.model_parallel > 1:
+                raise SystemExit(
+                    f"--pool-model {pname}: int8 does not support "
+                    "--model-parallel > 1 (same constraint as --dtype "
+                    "int8); use data replicas")
+            pfam = family(ppreset)
+            pcfg = preset(ppreset)
+            if args.tiny:
+                pcfg = tiny_override(pcfg)
+            if runtime:
+                pcfg = with_runtime(pcfg, **runtime)
+            pmodel, _ = serving_model(pcfg, pdtype, device)
+            pvision = pmodel.config.vision
+            engines[pname] = InferenceEngine(
+                build_forward(pmodel, SERVED_METHOD[pfam]),
+                item_shape=(pvision.image_size, pvision.image_size,
+                            pvision.channels),
+                buckets=BucketTable(buckets.sizes,
+                                    dtype=_BUCKET_DTYPES[pdtype]),
+                max_delay_ms=args.max_delay_ms, policy=policy,
+                metrics=engine.metrics, qos=qos)
+            pool_models.append(pmodel)
+        pool = ModelPool(engines, default="default")
+        # each engine bound queue_depth_now to its own queue (the last
+        # wins): the default model's again
+        engine.metrics.bind_gauge(
+            "queue_depth_now", lambda: float(engine._queue.qsize())
+            if engine._queue is not None else 0.0)
     capture = monitor = None
     if args.prof_dir:
         # the capture ring (heal, replan and SLO-burn incidents and POST
         # /admin/prof/trigger deep-capture onto their cids) and the
-        # device-memory gauges: the served model and every replica copy
-        # under model_pool, the trace ring under serve_buffers
+        # device-memory gauges: every resident model and every replica or
+        # position copy of it under model_pool, the trace ring under
+        # serve_buffers
         capture = configure_capture(args.prof_dir)
         monitor = MemoryMonitor()
 
         def model_pool_bytes() -> float:
-            models = {id(model): model}
-            for fwd in engine.forwards:
-                m = getattr(fwd, "model", None)
-                if m is not None:
-                    models[id(m)] = m
+            models = {id(m): m for m in pool_models}
+            for eng in (pool.engines() if pool is not None else [engine]):
+                for fwd in eng.forwards:
+                    for m in getattr(fwd, "models", [getattr(fwd, "model",
+                                                             None)]):
+                        if m is not None:
+                            models[id(m)] = m
             return float(sum(module_bytes(m) for m in models.values()))
 
         monitor.register_subsystem("model_pool", model_pool_bytes)
@@ -320,7 +401,7 @@ def build_server(args: argparse.Namespace
     logger = (MetricsLogger(path=args.metrics_file, print_every=10**9)
               if args.metrics_file else None)
     server = ServingServer(engine, host=args.host, port=args.port,
-                           zero_shot=zero_shot, capture=capture,
+                           zero_shot=zero_shot, pool=pool, capture=capture,
                            monitor=monitor, metrics_logger=logger,
                            metrics_log_every_s=args.metrics_every_s)
     t0 = time.monotonic()
@@ -333,6 +414,14 @@ def build_server(args: argparse.Namespace
              "buckets": list(buckets.sizes),
              "zero_shot": zero_shot is not None,
              "warmup_s": round(time.monotonic() - t0, 3)}
+    if qos is not None:
+        ready["qos"] = {"policy": args.qos_policy,
+                        "classes": list(qos.registry.class_order),
+                        "tenants": sorted(qos.registry.tenants)}
+        if qos.registry.slo:
+            ready["qos"]["slo"] = sorted(qos.registry.slo)
+    if pool is not None:
+        ready["models"] = pool.describe()
     if not plan.is_trivial:
         ready["topology"] = plan.describe()
     return server, model, ready
@@ -1908,10 +1997,25 @@ def build_parser() -> argparse.ArgumentParser:
                          "balanced across them (1 = classic single-device "
                          "serve)")
     sp.add_argument("--model-parallel", type=int, default=1,
-                    help="devices per replica (above 1 not ported yet)")
+                    help="devices per replica the model is sliced over "
+                         "(Megatron tensor parallelism, in process)")
     sp.add_argument("--seq-parallel", type=int, default=1,
-                    help="sequence-parallel ways per replica (above 1 not "
-                         "ported yet)")
+                    help="sequence-parallel ways per replica: a tower whose "
+                         "tokens divide runs on each device's chunk, "
+                         "attention on the ring")
+    sp.add_argument("--qos-policy", default=None, metavar="FILE",
+                    help="tenant QoS policy (JSON/TOML): priority classes, "
+                         "per-tenant token-bucket rate limits and queue "
+                         "quotas; enables weighted-fair scheduling and "
+                         "class-ordered shedding. Without it the engine "
+                         "keeps its single FIFO")
+    sp.add_argument("--pool-model", action="append", default=None,
+                    metavar="NAME=PRESET[@DTYPE]",
+                    help="additional resident model (repeatable): "
+                         "random-init PRESET at DTYPE (f32|bf16|int8, "
+                         "default f32) over the same replica plan, with its "
+                         "own engine; requests naming model=NAME route to "
+                         "it. Inherits --tiny, --ln-impl and --buckets")
     sp.add_argument("--self-heal", action="store_true",
                     help="escalate a watchdog fence: probe the fenced "
                          "replica (transient fault -> revive in place), "
@@ -2259,6 +2363,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.set_defaults(func=cmd_profile_analyze)
 
     add_obs_parser(sub)
+    add_qos_parser(sub)
 
     sp = sub.add_parser("build-native",
                         help="compile the native host-preprocessing library "

@@ -18,7 +18,13 @@ losses; averaging the parameter gradients over the ranks
 of the loss itself.
 
 Transport: the backend is fixed when the group is made
-(``mesh.initialize_distributed``), never on a failure. ``ppermute`` is an
+(``mesh.initialize_distributed``), never on a failure. On an in-process
+mesh (`parallel/local.py`: a serving replica wider than one device, one
+thread per position) the group is a ``local.LocalGroup``, and the
+collectives of a forward (``ppermute``, ``all_gather``, ``all_to_all``,
+``psum`` and the row-parallel sum) are exchanges between the positions'
+threads (``all_gather``'s reduce-scatter backward and the mean and max
+all-reduces of training run over ranks only). ``ppermute`` is an
 ``all_to_all_single`` with per-peer split sizes, not ``send``/``recv``:
 on the H100's machine gloo carries every collective used here on CUDA
 tensors except the point-to-point ones (``python -m
@@ -37,6 +43,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from jimm_tpu_torch.parallel.local import LocalGroup, ShardMesh
+
 __all__ = ["AxisGroup", "all_gather", "all_reduce_max_",
            "all_reduce_mean_", "all_to_all", "axis_group", "axis_names",
            "ppermute", "prepare_groups", "psum", "ring_perm", "tp_copy",
@@ -49,11 +57,12 @@ AxisName = str | tuple[str, ...]
 class AxisGroup:
     """This rank's group along one (product) mesh axis: the global ranks in
     the axis's linear order, this rank's position among them, and the
-    process group (None when the axis has one rank)."""
+    process group (None when the axis has one rank; a ``LocalGroup`` on an
+    in-process mesh)."""
 
     ranks: tuple[int, ...]
     index: int
-    pg: dist.ProcessGroup | None
+    pg: dist.ProcessGroup | LocalGroup | None
 
     @property
     def size(self) -> int:
@@ -92,6 +101,8 @@ def _process_group(mesh: DeviceMesh, row: list[int]
     asking such a mesh for another raises rather than hang."""
     if len(row) < 2:
         return None
+    if isinstance(mesh, ShardMesh):
+        return mesh.local.group(row)
     made = mesh.__dict__.setdefault("_jimm_process_groups", {})
     key = tuple(sorted(row))
     if key not in made:
@@ -136,7 +147,7 @@ def axis_group(axis: AxisName | AxisGroup,
     made = mesh.__dict__.setdefault("_jimm_axis_groups", {})
     if names in made:
         return made[names]
-    me = dist.get_rank()
+    me = mesh.position if isinstance(mesh, ShardMesh) else dist.get_rank()
     mine = None
     for row in _rows(mesh, names):
         # every rank makes every group, in the same order
@@ -161,6 +172,8 @@ def _ppermute(x: torch.Tensor, grp: AxisGroup,
     src = [s for s, d in perm if d == me]
     if grp.pg is None:
         return x.clone() if src else torch.zeros_like(x)
+    if isinstance(grp.pg, LocalGroup):
+        return grp.pg.permute(x, me, src[0] if src else None)
     flat = x.contiguous().view(-1)
     n = flat.numel()
     send = [0] * grp.size
@@ -198,6 +211,8 @@ def ppermute(x: torch.Tensor, axis: AxisName | AxisGroup,
 
 
 def _gather(x: torch.Tensor, grp: AxisGroup, dim: int) -> torch.Tensor:
+    if isinstance(grp.pg, LocalGroup):
+        return grp.pg.gather(x, grp.index, dim)
     xt = x.movedim(dim, 0).contiguous()
     out = torch.empty((grp.size * xt.shape[0], *xt.shape[1:]),
                       dtype=x.dtype, device=x.device)
@@ -251,6 +266,8 @@ def _all_to_all(x: torch.Tensor, grp: AxisGroup, split_dim: int,
     if len(chunks) != grp.size or chunks[0].shape != chunks[-1].shape:
         raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
                          f"does not split {grp.size} ways")
+    if isinstance(grp.pg, LocalGroup):
+        return grp.pg.all_to_all(x, grp.index, split_dim, concat_dim)
     by_rank = [0] * grp.size
     for p in range(grp.size):
         by_rank[grp.group_rank(p)] = p
@@ -287,10 +304,17 @@ def all_to_all(x: torch.Tensor, axis: AxisName | AxisGroup, split_dim: int,
     return _AllToAll.apply(x, grp, split_dim % x.ndim, concat_dim % x.ndim)
 
 
+def _sum(x: torch.Tensor, grp: AxisGroup) -> torch.Tensor:
+    """The sum of ``x`` over the group: ``x`` itself summed in place over a
+    process group; a new tensor, added in position order, in process."""
+    if isinstance(grp.pg, LocalGroup):
+        return grp.pg.sum(x, grp.index)
+    dist.all_reduce(x, group=grp.pg)
+    return x
+
+
 def _psum(x: torch.Tensor, grp: AxisGroup) -> torch.Tensor:
-    out = x.clone()
-    dist.all_reduce(out, group=grp.pg)
-    return out
+    return _sum(x if isinstance(grp.pg, LocalGroup) else x.clone(), grp)
 
 
 class _PSum(torch.autograd.Function):
@@ -370,7 +394,7 @@ class _TpRowLinear(torch.autograd.Function):
             y = torch.mm(flat, weight.t(), out_dtype=torch.float32)
         else:
             y = flat.float() @ weight.float().t()
-        dist.all_reduce(y, group=grp.pg)
+        y = _sum(y, grp)
         if bias is not None:
             y += bias.float()
         return y.to(x.dtype).reshape(*x.shape[:-1], y.shape[-1])

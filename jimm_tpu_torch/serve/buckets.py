@@ -17,18 +17,27 @@ DEFAULT_BATCH_BUCKETS: tuple[int, ...] = (1, 2, 4, 8)
 #: `chip_smoke.py` serves and measures (not tuned)
 CUDA_BATCH_BUCKETS: tuple[int, ...] = (1, 8, 32)
 
+#: the precisions a served model computes in (batches are assembled in f32
+#: either way); "int8" is quantized weights with int8 activations
+SERVE_DTYPES: tuple[str, ...] = ("float32", "bfloat16", "int8")
+
 
 @dataclasses.dataclass(frozen=True)
 class BucketTable:
-    """An ascending, de-duplicated set of allowed batch sizes."""
+    """An ascending, de-duplicated set of allowed batch sizes, tagged with
+    the serving precision (reported by a model pool's ``describe``)."""
 
     sizes: tuple[int, ...]
+    dtype: str = "float32"
 
     def __post_init__(self) -> None:
         sizes = tuple(sorted(set(int(s) for s in self.sizes)))
         if not sizes or sizes[0] < 1:
             raise ValueError(f"bucket sizes must be >= 1, got {self.sizes}")
         object.__setattr__(self, "sizes", sizes)
+        if self.dtype not in SERVE_DTYPES:
+            raise ValueError(f"unknown serve dtype {self.dtype!r}; "
+                             f"known: {SERVE_DTYPES}")
 
     @property
     def max_size(self) -> int:
@@ -70,8 +79,8 @@ def pad_batch(rows: Sequence[np.ndarray], bucket: int) -> np.ndarray:
     return np.concatenate([stacked, pad])
 
 
-def default_buckets(device) -> BucketTable:
+def default_buckets(device, dtype: str = "float32") -> BucketTable:
     """The bucket table for ``device`` (a ``torch.device`` or its string)."""
     kind = str(device).split(":")[0]
     return BucketTable(CUDA_BATCH_BUCKETS if kind == "cuda"
-                       else DEFAULT_BATCH_BUCKETS)
+                       else DEFAULT_BATCH_BUCKETS, dtype=dtype)

@@ -26,6 +26,11 @@ with a heal factory installed (:meth:`InferenceEngine.set_heal`) a fence
 escalates to a probe (revive in place) or a rebuild and a live
 :meth:`InferenceEngine.replan`, during which queued requests wait and are
 then answered by the new replicas.
+
+With a QoS scheduler (``qos=``, `serve/qos/`) a submission carries its
+tenant through token-bucket and quota admission, the FIFO queue becomes
+the per-class weighted-fair queue, and overload sheds class-ordered.
+Without one the engine keeps its single FIFO.
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ from jimm_tpu_torch.serve.admission import (AdmissionController,
                                             AdmissionPolicy,
                                             DeadlineExceededError,
                                             EngineClosedError, RequestError,
-                                            ServeMetrics)
+                                            ServeMetrics, ShedError)
 from jimm_tpu_torch.serve.buckets import BucketTable, default_buckets, pad_batch
 
 _STOP = object()
@@ -96,15 +101,21 @@ def _to_host(forward, out) -> np.ndarray:
 
 
 class _Request:
-    __slots__ = ("item", "future", "deadline", "t0", "rid")
+    # tenant/klass are QoS annotations (the scheduler's tenant state and
+    # the priority-class name); both stay None without a policy
+    __slots__ = ("item", "future", "deadline", "t0", "rid", "tenant",
+                 "klass")
 
     def __init__(self, item: np.ndarray, future: asyncio.Future,
-                 deadline: float, t0: float, rid: str):
+                 deadline: float, t0: float, rid: str, tenant=None,
+                 klass: str | None = None):
         self.item = item
         self.future = future
         self.deadline = deadline
         self.t0 = t0
         self.rid = rid
+        self.tenant = tenant
+        self.klass = klass
 
 
 class _Replica:
@@ -157,6 +168,9 @@ class InferenceEngine:
         policy: admission policy (queue bound, default deadline, shed
             watermark).
         metrics: shared :class:`ServeMetrics` (one per server).
+        qos: optional :class:`~jimm_tpu_torch.serve.qos.QosScheduler`:
+            tenant admission, the weighted-fair queue and class-ordered
+            shedding. None keeps the single FIFO.
         recent_traces_entries, recent_traces_max_bytes: the bounds of the
             per-request trace ring (``/debug/traces``).
     """
@@ -169,7 +183,7 @@ class InferenceEngine:
                  buckets: BucketTable | None = None,
                  max_delay_ms: float = 5.0,
                  policy: AdmissionPolicy | None = None,
-                 metrics: ServeMetrics | None = None,
+                 metrics: ServeMetrics | None = None, qos=None,
                  recent_traces_entries: int = 64,
                  recent_traces_max_bytes: int = 64 << 10):
         self._multi = isinstance(forward, (list, tuple))
@@ -183,6 +197,9 @@ class InferenceEngine:
         self.max_delay_s = max_delay_ms / 1e3
         self.metrics = metrics or ServeMetrics()
         self.admission = AdmissionController(policy, self.metrics)
+        self.qos = qos
+        if qos is not None:
+            qos.bind_metrics(self.metrics)
         self.metrics.bind_gauge("queue_depth_now",
                                 lambda: float(self._queue.qsize())
                                 if self._queue is not None else 0.0)
@@ -192,7 +209,9 @@ class InferenceEngine:
             self._bind_replica_set_metrics()
             # pre-created at zero so "never replanned" shows in scrapes
             self.metrics.inc("replans_total", 0)
-        self._queue: asyncio.Queue | None = None
+        # an asyncio.Queue, or with a policy a qos.WeightedFairQueue (the
+        # same surface)
+        self._queue = None
         self._task: asyncio.Task | None = None
         self._capacity: asyncio.Semaphore | None = None
         self._dispatch_tasks: set[asyncio.Task] = set()
@@ -361,10 +380,12 @@ class InferenceEngine:
         _prof_trigger(dead[0].incident_cid if dead else None,
                       "slo_fast_burn")
 
-    def _observe_slo(self, ok: bool, latency_s: float | None) -> None:
-        # no QoS scheduler (item 8(b)): every request is the default tenant
-        if self.slo is not None:
-            self.slo.observe(None, ok, latency_s)
+    def _observe_slo(self, req: _Request, ok: bool,
+                     latency_s: float | None) -> None:
+        if self.slo is None:
+            return
+        tenant = req.tenant.spec.name if req.tenant is not None else None
+        self.slo.observe(tenant, ok, latency_s)
 
     def _slo_check_escalate(self) -> None:
         """After bad observations: when a tenant enters fast burn, journal
@@ -576,7 +597,13 @@ class InferenceEngine:
     async def start(self) -> None:
         if self._running:
             return
-        self._queue = asyncio.Queue()
+        if self.qos is not None:
+            # per-class deques drained by deficit round robin, with the
+            # asyncio.Queue surface the batcher uses
+            from jimm_tpu_torch.serve.qos.scheduler import WeightedFairQueue
+            self._queue = WeightedFairQueue(self.qos)
+        else:
+            self._queue = asyncio.Queue()
         # one permit per replica: the next batch forms only when a replica
         # can take it, so waiting requests stay visible to the queue bound
         self._capacity = asyncio.Semaphore(len(self._replicas))
@@ -610,12 +637,21 @@ class InferenceEngine:
     # -- submission -------------------------------------------------------
 
     async def submit(self, item: np.ndarray, timeout_s: float | None = None,
-                     trace_id: str | None = None) -> np.ndarray:
+                     trace_id: str | None = None,
+                     tenant: str | None = None) -> np.ndarray:
         """One request in, one output row out. Raises
         :class:`~jimm_tpu_torch.serve.admission.QueueFullError`,
         :class:`RequestError` or :class:`DeadlineExceededError`.
         ``trace_id`` (the client's, or minted here) keys the request's
-        phase decomposition in ``recent_traces``."""
+        phase decomposition in ``recent_traces``.
+
+        With a QoS scheduler ``tenant`` selects the policy: its token
+        bucket and quota may raise
+        :class:`~jimm_tpu_torch.serve.admission.ThrottledError` (429), its
+        deadline applies when ``timeout_s`` is None, and on a full queue a
+        queued request of a lower class is shed
+        (:class:`~jimm_tpu_torch.serve.admission.ShedError`, 503) to admit
+        it. Without one ``tenant`` is ignored."""
         if not self._accepting or self._queue is None:
             raise EngineClosedError("engine is not running; call start()")
         arr = np.asarray(item, self.dtype)
@@ -624,22 +660,47 @@ class InferenceEngine:
             raise RequestError(f"item shape {arr.shape} != engine shape "
                                f"{self.item_shape}")
         self.metrics.inc("requests_total")
+        tenant_state = klass = None
+        if self.qos is not None:
+            tenant_state = self.qos.resolve(tenant)
+            klass = tenant_state.spec.klass
+            self.qos.admit(tenant_state)
+            timeout_s = self.qos.timeout_for(tenant_state, timeout_s)
+            if self._queue.qsize() >= self.admission.policy.max_queue:
+                self._shed_for(klass)
         self.admission.admit(self._queue.qsize())
         now = time.monotonic()
         deadline = self.admission.deadline_for(timeout_s, now)
         future = asyncio.get_running_loop().create_future()
         self._queue.put_nowait(_Request(arr, future, deadline, now,
-                                        trace_id or new_trace_id()))
+                                        trace_id or new_trace_id(),
+                                        tenant_state, klass))
+        if tenant_state is not None:
+            self.qos.on_enqueue(tenant_state)
         self.metrics.set_queue_depth(self._queue.qsize())
         try:
             return await asyncio.wait_for(future, timeout=deadline - now)
         except asyncio.TimeoutError:
             self.metrics.inc("timeouts_total")
             if self.slo is not None:
-                self.slo.observe(None, False, deadline - now)
+                self.slo.observe(tenant_state.spec.name
+                                 if tenant_state is not None else None,
+                                 False, deadline - now)
                 self._slo_check_escalate()
             raise DeadlineExceededError(
                 f"request deadline ({deadline - now:.3f}s) exceeded") from None
+
+    def _shed_for(self, klass: str) -> None:
+        """Class-ordered shedding: evict the newest queued request of the
+        lowest class strictly below ``klass``; when every lower class is
+        empty nothing is evicted and the arrival takes the queue-full
+        refusal, so a class never preempts its peers or its betters."""
+        victim = self._queue.shed_lower(self.qos.rank_of(klass))
+        if victim is not None and not victim.future.done():
+            victim.future.set_exception(ShedError(
+                f"shed under overload to admit class {klass!r} traffic; "
+                "retry with backoff",
+                retry_after_s=round(self.max_delay_s * 4, 4)))
 
     # -- batching loop ----------------------------------------------------
 
@@ -740,7 +801,7 @@ class InferenceEngine:
             for req in live:
                 if not req.future.done():
                     req.future.set_exception(e)
-                self._observe_slo(False, t_err - req.t0)
+                self._observe_slo(req, False, t_err - req.t0)
             self._slo_check_escalate()
             return
         replica.dispatched += 1
@@ -756,7 +817,7 @@ class InferenceEngine:
                 req.future.set_result(out[i])
                 self.metrics.inc("responses_total")
                 self.metrics.observe_latency(done - req.t0)
-                self._observe_slo(True, done - req.t0)
+                self._observe_slo(req, True, done - req.t0)
                 self._record_trace({
                     "trace_id": req.rid, "replica": replica.index,
                     "bucket": bucket,

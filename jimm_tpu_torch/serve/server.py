@@ -32,7 +32,11 @@ Endpoints::
 
 ``/v1/search`` answers 404 until retrieval is ported (ROADMAP.md queue 1
 item 9). A client's ``X-Jimm-Trace-Id`` header names the request in the
-trace ring. Images ride as nested JSON lists or as ``{"image_b64":
+trace ring; ``X-Jimm-Tenant`` and ``X-Jimm-Model`` (or the payload's
+``tenant`` and ``model`` fields, which win) name the QoS tenant and the
+pool model (`serve/qos/`). With a QoS scheduler or a model pool,
+``/healthz`` carries a ``qos`` or ``models`` block; without, neither.
+Images ride as nested JSON lists or as ``{"image_b64":
 base64(raw float32), "shape": [H, W, C]}``. Typed
 :class:`~jimm_tpu_torch.serve.admission.ServeError`\\ s map to their HTTP
 status with a machine-readable ``error`` code in the JSON body (and a
@@ -211,11 +215,15 @@ class _Handler(BaseHTTPRequestHandler):
         app = self.server.app
         try:
             payload = self._read_body()
-            # the client's trace id follows the request into the trace ring
-            # (an explicit payload field wins)
-            trace_id = self.headers.get("X-Jimm-Trace-Id")
-            if trace_id is not None:
-                payload.setdefault("trace_id", trace_id)
+            # identity and routing headers fold into the payload (an
+            # explicit payload field wins); the client's trace id follows
+            # the request into the trace ring
+            for header, field in (("X-Jimm-Tenant", "tenant"),
+                                  ("X-Jimm-Model", "model"),
+                                  ("X-Jimm-Trace-Id", "trace_id")):
+                value = self.headers.get(header)
+                if value is not None:
+                    payload.setdefault(field, value)
             if self.path == "/v1/embed":
                 self._send_json(200, app.embed(payload))
             elif self.path == "/v1/classify":
@@ -250,14 +258,20 @@ class ServingServer:
     **metrics)``, e.g. :class:`~jimm_tpu_torch.train.metrics
     .MetricsLogger`) gets a metrics snapshot every ``metrics_log_every_s``.
     ``stop()`` also stops a device-memory ``monitor`` and commits the open
-    capture of a ``capture`` manager."""
+    capture of a ``capture`` manager. ``pool`` (a
+    :class:`~jimm_tpu_torch.serve.qos.ModelPool` whose default entry is
+    ``engine``) routes each request's ``model`` to its engine; every pool
+    engine shares this server's loop, warm-up and metrics."""
 
     def __init__(self, engine: InferenceEngine, *, host: str = "127.0.0.1",
                  port: int = 0, request_timeout_s: float = 30.0,
-                 zero_shot: ZeroShotService | None = None,
+                 zero_shot: ZeroShotService | None = None, pool=None,
                  capture: CaptureManager | None = None,
                  monitor: MemoryMonitor | None = None, warmup: bool = True,
                  metrics_logger=None, metrics_log_every_s: float = 10.0):
+        if pool is not None and engine is not pool.default:
+            raise ValueError("engine must be the pool's default entry")
+        self.pool = pool
         self.engine = engine
         self.zero_shot = zero_shot
         self.capture = capture
@@ -282,11 +296,17 @@ class ServingServer:
 
     # -- lifecycle --------------------------------------------------------
 
+    def _engines(self) -> list[InferenceEngine]:
+        return self.pool.engines() if self.pool is not None else [self.engine]
+
     def start(self) -> None:
         if self._loop is not None:
             return
         if self._warmup:
-            self.warmup_s = self.engine.warmup_blocking()
+            for engine in self._engines():
+                warmed = engine.warmup_blocking()
+                if engine is self.engine:
+                    self.warmup_s = warmed
         loop = asyncio.new_event_loop()
         started = threading.Event()
 
@@ -300,7 +320,8 @@ class ServingServer:
         self._loop_thread.start()
         started.wait()
         self._loop = loop
-        asyncio.run_coroutine_threadsafe(self.engine.start(), loop).result(10)
+        for engine in self._engines():
+            asyncio.run_coroutine_threadsafe(engine.start(), loop).result(10)
         self._httpd = _Server((self.host, self._requested_port), _Handler)
         self._httpd.app = self
         self._http_thread = threading.Thread(
@@ -339,8 +360,9 @@ class ServingServer:
             self._http_thread.join(timeout=10)
             self._http_thread = None
         if self._loop is not None:
-            asyncio.run_coroutine_threadsafe(self.engine.stop(),
-                                             self._loop).result(30)
+            for engine in self._engines():
+                asyncio.run_coroutine_threadsafe(engine.stop(),
+                                                 self._loop).result(30)
             self._loop.call_soon_threadsafe(self._loop.stop)
             if self._loop_thread is not None:
                 self._loop_thread.join(timeout=10)
@@ -369,34 +391,45 @@ class ServingServer:
 
     # -- request handling (called from HTTP handler threads) --------------
 
+    def _engine_for(self, model: str | None) -> InferenceEngine:
+        """The engine serving a request's ``model`` field (without a pool
+        the field is ignored)."""
+        if self.pool is None:
+            return self.engine
+        return self.pool.get(model)
+
     def _submit_many(self, images: list[np.ndarray], timeout_s: float | None,
-                     trace_id: str) -> list[np.ndarray]:
+                     trace_id: str, *, engine: InferenceEngine,
+                     tenant: str | None) -> list[np.ndarray]:
         """Submit every image at once, so the engine's batcher coalesces
         them; a burst's requests are ``{trace_id}.{i}``."""
         assert self._loop is not None
         ids = ([trace_id] if len(images) == 1
                else [f"{trace_id}.{i}" for i in range(len(images))])
         futures = [asyncio.run_coroutine_threadsafe(
-            self.engine.submit(image, timeout_s=timeout_s, trace_id=tid),
+            engine.submit(image, timeout_s=timeout_s, trace_id=tid,
+                          tenant=tenant),
             self._loop) for image, tid in zip(images, ids)]
         return [f.result(timeout=self.request_timeout_s) for f in futures]
 
     def embed(self, payload: dict) -> dict:
         rid = request_trace_id(payload)
         timeout_s = payload.get("timeout_s")
+        engine = self._engine_for(payload.get("model"))
+        route = {"engine": engine, "tenant": payload.get("tenant")}
         if "images" in payload:
             raw = payload["images"]
             if not isinstance(raw, list) or not raw:
                 raise RequestError("'images' must be a non-empty list")
             images = [decode_image_payload(
                 item if isinstance(item, dict) else {"image": item},
-                dtype=self.engine.dtype) for item in raw]
-            features = self._submit_many(images, timeout_s, rid)
+                dtype=engine.dtype) for item in raw]
+            features = self._submit_many(images, timeout_s, rid, **route)
             return {"features": [f.tolist() for f in features],
                     "count": len(features), "trace_id": rid}
-        image = decode_image_payload(payload, dtype=self.engine.dtype)
-        return {"features": self._submit_many([image], timeout_s,
-                                              rid)[0].tolist(),
+        image = decode_image_payload(payload, dtype=engine.dtype)
+        return {"features": self._submit_many([image], timeout_s, rid,
+                                              **route)[0].tolist(),
                 "trace_id": rid}
 
     def classify(self, payload: dict) -> dict:
@@ -409,45 +442,51 @@ class ServingServer:
             raise RequestError("classify needs 'tokens': {label: [ids]}")
         labels, weights, cached = \
             self.zero_shot.class_weights_blocking(tokens)
-        image = decode_image_payload(payload, dtype=self.engine.dtype)
-        features = self._submit_many([image], payload.get("timeout_s"),
-                                     rid)[0]
+        engine = self._engine_for(payload.get("model"))
+        image = decode_image_payload(payload, dtype=engine.dtype)
+        features = self._submit_many([image], payload.get("timeout_s"), rid,
+                                     engine=engine,
+                                     tenant=payload.get("tenant"))[0]
         scores = self.zero_shot.scores(np.asarray(features), weights)
         return {"scores": {label: round(float(s), 6)
                            for label, s in zip(labels, scores)},
                 "cached": cached}
 
     def revive(self, payload: dict) -> dict:
-        """``POST /admin/revive {"replica": N}``: un-fence lane N with a
-        fresh executor and a re-armed restart. A bad index or a replica
-        that is not fenced is a 400. The engine's replica state belongs to
-        its loop, so the revive runs there (on a short-lived loop when the
-        server was never started)."""
+        """``POST /admin/revive {"replica": N}`` (and ``"model"`` in a
+        pool): un-fence lane N with a fresh executor and a re-armed
+        restart. A bad index or a replica that is not fenced is a 400. The
+        engine's replica state belongs to its loop, so the revive runs
+        there (on a short-lived loop when the server was never started)."""
         index = payload.get("replica")
         if not isinstance(index, int) or isinstance(index, bool):
             raise RequestError("revive needs 'replica': <int index>")
+        engine = self._engine_for(payload.get("model"))
         try:
             if self._loop is None:
-                stats = self._revive_on_disposable_loop(index)
+                stats = self._revive_on_disposable_loop(engine, index)
             else:
                 stats = asyncio.run_coroutine_threadsafe(
-                    self._revive_on_loop(index), self._loop).result(30.0)
+                    self._revive_on_loop(engine, index),
+                    self._loop).result(30.0)
         except ValueError as e:
             raise RequestError(str(e)) from None
         return {"revived": index, "replica_stats": stats,
-                "dead_replicas": self.engine.dead_replicas()}
+                "dead_replicas": engine.dead_replicas()}
 
-    async def _revive_on_loop(self, index: int) -> dict:
-        return self.engine.revive(index)
+    async def _revive_on_loop(self, engine: InferenceEngine,
+                              index: int) -> dict:
+        return engine.revive(index)
 
-    def _revive_on_disposable_loop(self, index: int) -> dict:
+    def _revive_on_disposable_loop(self, engine: InferenceEngine,
+                                   index: int) -> dict:
         loop = asyncio.new_event_loop()
         thread = threading.Thread(target=loop.run_forever,
                                   name="jimm-serve-loop", daemon=True)
         thread.start()
         try:
             return asyncio.run_coroutine_threadsafe(
-                self._revive_on_loop(index), loop).result(30.0)
+                self._revive_on_loop(engine, index), loop).result(30.0)
         finally:
             loop.call_soon_threadsafe(loop.stop)
             thread.join(timeout=5.0)
@@ -517,6 +556,11 @@ class ServingServer:
         if dead:
             out["status"] = "degraded"
             out["dead_replicas"] = dead
+        # the qos and models blocks exist only with a policy or a pool
+        if self.engine.qos is not None:
+            out["qos"] = self.engine.qos.snapshot()
+        if self.pool is not None:
+            out["models"] = self.pool.describe()
         slo = self.engine.slo
         if slo is not None:
             out["slo"] = slo.snapshot()

@@ -81,6 +81,14 @@ def test_importing_the_port_loads_no_jax():
     # client and the SLO engine
     assert {"jimm_tpu_torch.serve.topology", "jimm_tpu_torch.serve.client",
             "jimm_tpu_torch.obs.slo"} <= set(MODULES)
+    # and the wide replicas and QoS slice's: the in-process mesh and the
+    # copies of the reference's QoS package (policy and cli stdlib-only)
+    assert {"jimm_tpu_torch.parallel.local",
+            "jimm_tpu_torch.serve.qos.__init__",
+            "jimm_tpu_torch.serve.qos.policy",
+            "jimm_tpu_torch.serve.qos.scheduler",
+            "jimm_tpu_torch.serve.qos.pool",
+            "jimm_tpu_torch.serve.qos.cli"} <= set(MODULES)
 
 
 def test_the_indexed_loader_loads_neither_jax_nor_grain():

@@ -125,12 +125,17 @@ def test_default_devices_are_the_visible_cards(monkeypatch):
 
 
 def test_wider_replicas_name_part_2():
-    model = torch.nn.Linear(2, 2)
+    """Replicas wider than one device (ROADMAP.md item 8(a) part 2) build:
+    one sharded forward per group, a model copy per position."""
+    cfg = cli.tiny_override(cli.preset("siglip-base-patch16-256"))
+    model, _ = cli.serving_model(cfg, "f32", CPU)
     for split in ((1, 2, 1), (1, 1, 2)):
         plan = plan_topology(*split, devices=[CPU] * 2)
-        with pytest.raises(NotImplementedError,
-                           match=r"item 8\(a\) part 2"):
-            build_replica_forwards(model, plan, method="forward")
+        forwards = build_replica_forwards(model, plan, method="forward")
+        assert len(forwards) == 1
+        assert isinstance(forwards[0], topology.ShardedReplicaForward)
+        assert len(forwards[0].models) == 2
+        assert all(m is not model for m in forwards[0].models)
 
 
 # -- the engine (JAX's TestMultiReplicaEngine, case for case) ------------------
@@ -473,9 +478,21 @@ def test_refusals_are_the_jax_clis():
 
 @pytest.mark.parametrize("flag", ["--model-parallel", "--seq-parallel"])
 def test_wider_replicas_are_refused_naming_part_2(flag):
-    message = _port_exit(TINY + ["--device", "cpu,cpu", flag, "2"])
-    assert message == cli._MODEL_PARALLEL_NOT_PORTED
-    assert "ROADMAP.md queue 1 item 8(a) part 2" in message
+    """Item 8(a) part 2 is ported: a two-device replica serves, and
+    answers as the model does."""
+    assert not hasattr(cli, "_MODEL_PARALLEL_NOT_PORTED")
+    server, model, ready = cli.build_server(cli.build_parser().parse_args(
+        TINY + ["--device", "cpu,cpu", flag, "2", "--buckets", "1"]))
+    try:
+        image = np.random.default_rng(0).uniform(
+            -1, 1, (32, 32, 3)).astype(np.float32)
+        got = ServeClient(port=server.port).embed(image)
+    finally:
+        server.stop()
+    assert ready["topology"]["devices_used"] == 2
+    with torch.inference_mode():
+        want = model.encode_image(torch.from_numpy(image[None]))[0].numpy()
+    np.testing.assert_allclose(np.asarray(got), want, **TOL)
 
 
 def test_two_replicas_on_one_card_are_refused_as_jax_does(monkeypatch):
