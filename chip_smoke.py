@@ -453,6 +453,35 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                ``wide_122`` and ``pool_twin`` paths. ``python3
                chip_smoke.py --phase 22`` runs the build and this phase
                alone.
+23. aot      -- the AOT store and the confidence cascade, SigLIP-B/16-256
+               at full width, fused LayerNorm, buckets (1, 8): (a) ``aot
+               warmup --bf16`` into a fresh store (``torch.export``
+               programs that name the ``jimm::`` ops), then ``serve
+               --aot-store`` on it: every bucket loaded (the store's hits
+               equal the buckets, no fallback, ``compile_count`` 0),
+               phase 4's gates on a third of its traffic (13 flash and 24
+               LayerNorm launches a batch), each bucket at cosine >= 0.9999
+               against the model's own forward on the same weights and
+               batch; the same for
+               ``--dtype int8`` (78 int8-matmul launches a batch, through
+               ``jimm::int8_matmul``) and for ``--model-parallel 2`` on the
+               card listed twice (26 and 48 a batch over both positions),
+               each store warmed by a first server's write-through; a
+               corrupted store served through the model's own forward,
+               launches unchanged, its entries quarantined; cold and warm
+               seconds to ready printed; (b) the int8 twin as a cascade's
+               cheap stage before the bf16 model, a calibration fitted by
+               ``cascade calibrate`` from both models' score rows over 128
+               seeded images: the holdout replayed through the router
+               escalates the calibration's fraction to within one row, the
+               accepted answers' disagreement stays at the target, the
+               int8 matmul launches on every request and the bf16 stage's
+               only for escalated ones; one autoscaler tick under a forced
+               burn shifts a replica with no fresh export. The record gains
+               the ``aot_bf16``, ``aot_int8``, ``aot_wide_121``,
+               ``aot_fallback`` and ``cascade`` paths. ``python3
+               chip_smoke.py --phase 23`` runs the build and this phase
+               alone.
 
 Phase 3's flash cases include row 3's causal kind at CLIP-B/16's text
 shapes, (32, 77, 8, 64) and the 70 prompt rows of one label set (70, 77,
@@ -490,6 +519,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import asyncio
 import base64
 import copy
 import contextlib
@@ -521,6 +551,9 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 
 from jimm_tpu_torch import _build, cli, configs, obs
+from jimm_tpu_torch.aot import cli as aot_cli
+from jimm_tpu_torch.aot.store import ArtifactStore
+from jimm_tpu_torch.aot.warmup import aot_metrics
 from jimm_tpu_torch.data import native, preprocess, records
 from jimm_tpu_torch.data.clip_tokenizer import CLIPTokenizer, bytes_to_unicode
 from jimm_tpu_torch.data.grain_pipeline import grain_batches, make_grain_loader
@@ -550,10 +583,16 @@ from jimm_tpu_torch.resilience import PreemptedError
 from jimm_tpu_torch.serve.admission import AdmissionPolicy
 from jimm_tpu_torch.serve.buckets import BucketTable
 from jimm_tpu_torch.serve.cache import EmbeddingCache
+from jimm_tpu_torch.serve.cascade import (CascadeAutoscaler, CascadeRouter,
+                                          ScaleTarget, load_calibration)
+from jimm_tpu_torch.serve.cascade import cli as cascade_cli
 from jimm_tpu_torch.serve.client import ServeClient, ServeClientError
 from jimm_tpu_torch.serve.engine import InferenceEngine, image_forward
 from jimm_tpu_torch.serve.server import ServingServer
-from jimm_tpu_torch.serve.topology import build_replica_forwards, plan_topology
+from jimm_tpu_torch.obs.slo import SloEngine
+from jimm_tpu_torch.serve.topology import (build_replica_forwards,
+                                           plan_topology,
+                                           replica_trace_count)
 from jimm_tpu_torch.obs.timeline import validate_chrome_trace
 from jimm_tpu_torch.train.metrics import (mfu, read_event_file,
                                           train_step_flops)
@@ -2284,11 +2323,12 @@ def serve_phase(card: str, dtype: str = "bf16") -> dict:
 
 def served_traffic(server: ServingServer, model, method: str, label: str,
                    per_batch: dict[str, int], out_dim: int, card: str,
-                   client: ServeClient | None = None, keep: bool = False
-                   ) -> dict:
+                   client: ServeClient | None = None, keep: bool = False,
+                   singles: int = 48, bulk: int = 32) -> dict:
     """Phase 4's traffic against a started server (stopped here unless
-    ``keep``): 48 /v1/embed requests from 16 client threads, then one bulk
-    request of 32, base64 bodies (by urllib, or by the stdlib ``client``),
+    ``keep``): ``singles`` /v1/embed requests from 16 client threads, then
+    one bulk request of ``bulk``, base64 bodies (by urllib, or by the
+    stdlib ``client``),
     every kernel counter set to 0 just before and read just after. Fails
     unless each counter of ``per_batch`` shows that many launches per batch
     dispatched meanwhile and no other kernel launched, and every answer, a
@@ -2299,21 +2339,22 @@ def served_traffic(server: ServingServer, model, method: str, label: str,
     engine = server.engine
     size = engine.item_shape[0]
     rng = np.random.default_rng(0)
-    images = rng.uniform(-1, 1, (80, size, size, 3)).astype(np.float32)
+    total = singles + bulk
+    images = rng.uniform(-1, 1, (total, size, size, 3)).astype(np.float32)
     if client is None:
         # base64 bodies: a JSON list of 196,608 floats per image is parsed
         # in Python on the server side and would dominate the timed traffic
         # (the list form is covered by the CPU tests)
-        singles = [_b64(img) for img in images[:48]]
-        bulk = {"images": [_b64(img) for img in images[48:]]}
+        requests = [_b64(img) for img in images[:singles]]
+        bulk_body = {"images": [_b64(img) for img in images[singles:]]}
 
         def single(payload):
             return _post(server.port, payload)
 
         def bulk_post():
-            return _post(server.port, bulk)
+            return _post(server.port, bulk_body)
     else:
-        singles = list(images[:48])
+        requests = list(images[:singles])
 
         def single(image):
             t0 = time.perf_counter()
@@ -2322,7 +2363,7 @@ def served_traffic(server: ServingServer, model, method: str, label: str,
 
         def bulk_post():
             t0 = time.perf_counter()
-            out = client.embed_many(images[48:])
+            out = client.embed_many(images[singles:])
             return time.perf_counter() - t0, {"features": out}
     try:
         torch.cuda.reset_peak_memory_stats()
@@ -2330,7 +2371,7 @@ def served_traffic(server: ServingServer, model, method: str, label: str,
         zero_counts()
         t_start = time.perf_counter()
         with ThreadPoolExecutor(16) as pool:
-            answers = list(pool.map(single, singles))
+            answers = list(pool.map(single, requests))
         t_bulk = time.perf_counter()
         bulk_s, bulk_out = bulk_post()
         t_end = time.perf_counter()
@@ -2342,7 +2383,8 @@ def served_traffic(server: ServingServer, model, method: str, label: str,
             server.stop()
     features = np.asarray([out["features"] for _, out in answers]
                           + bulk_out["features"], np.float32)
-    check(features.shape == (80, out_dim), f"features shape {features.shape}")
+    check(features.shape == (total, out_dim),
+          f"features shape {features.shape}")
     check(bool(np.isfinite(features).all()), "non-finite features")
     check(batches > 0 and all(counts[k] == n * batches
                               for k, n in per_batch.items()),
@@ -2359,13 +2401,16 @@ def served_traffic(server: ServingServer, model, method: str, label: str,
     check(read_counts() == counts, "the reference forward launched a kernel")
     cos, norm_err = served_gate(features, ref, f"{label}: served features")
     lat = np.asarray([s for s, _ in answers]) * 1e3
-    print(f"{label}: 80 answers match the plain-version forward, min cosine "
+    print(f"{label}: {total} answers match the plain-version forward, min "
+          f"cosine "
           f"{cos.min():.6f}, norms within {norm_err.max():.2e}", flush=True)
     print(f"{label}: /v1/embed single-request latency p50 "
           f"{np.percentile(lat, 50):.2f} ms p99 {np.percentile(lat, 99):.2f}"
-          f" ms (48 requests, 16 client threads) | {card}", flush=True)
-    print(f"{label}: {48 / (t_bulk - t_start):.1f} images/s over the singles, "
-          f"{32 / bulk_s:.1f} images/s for the bulk request of 32, "
+          f" ms ({singles} requests, 16 client threads) | {card}",
+          flush=True)
+    print(f"{label}: {singles / (t_bulk - t_start):.1f} images/s over the "
+          f"singles, {bulk / bulk_s:.1f} images/s for the bulk request of "
+          f"{bulk}, "
           f"{images_per_s:.1f} images/s overall | {card}", flush=True)
     print(f"{label}: torch.cuda.max_memory_allocated {peak} bytes "
           f"({peak / 2**30:.2f} GiB) | {card}", flush=True)
@@ -6683,6 +6728,404 @@ def wide_qos_phase(card: str) -> dict[str, dict]:
     return counts
 
 
+# -- phase 23: the AOT store and the confidence cascade ----------------------
+
+#: phase 23's served model: SigLIP-B/16-256, fused LayerNorm, buckets 1 and 8
+AOT_ARGV = ["serve", "--preset", "siglip-base-patch16-256", "--ln-impl",
+            "fused", "--port", "0", "--buckets", "1,8", "--max-delay-ms",
+            "10", "--timeout-s", "120"]
+AOT_BUCKETS = ("1", "8")
+#: phase 4's traffic at a third of its size: 16 singles and a bulk of 8
+AOT_SINGLES, AOT_BULK = 16, 8
+#: a loaded program against the model's own forward on the same weights
+AOT_MIN_COS = 0.9999
+#: the cascade's holdout: seeded images, a fixed projection of the
+#: embedding onto class scores, the calibration's disagreement target
+CASCADE_HOLDOUT = 128
+CASCADE_CLASSES = 16
+CASCADE_TARGET = 0.01
+
+
+def _aot_counters() -> dict[str, float]:
+    return {name: c.value for name, c in
+            zip(("hit", "miss", "fallback"), aot_metrics())}
+
+
+def _quiet_cli(main, argv: list[str]) -> tuple[int, str]:
+    """A command's exit code and what it printed."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    return rc, out.getvalue()
+
+
+def loaded_against_eager(fwd, images: np.ndarray) -> tuple[float, float]:
+    """A store-backed forward's answers at each bucket against the model's
+    own forward (every position's, for a wide replica) on the same padded
+    batch, its loaded programs set aside: the least cosine and the largest
+    absolute difference."""
+    inner = [getattr(f, "_forward", f)
+             for f in getattr(fwd, "_forwards", [fwd])]
+    cos, diff = 1.0, 0.0
+    for b in AOT_BUCKETS:
+        batch = images[:int(b)]
+        outs = []
+        for loaded in (True, False):
+            saved = [dict(f._loaded) for f in inner]
+            if not loaded:
+                for f in inner:
+                    f._loaded.clear()
+            try:
+                with torch.inference_mode():
+                    out = fwd(batch)
+                outs.append(fwd.to_host(out) if hasattr(fwd, "to_host")
+                            else out.float().cpu().numpy())
+            finally:
+                for f, programs in zip(inner, saved):
+                    f._loaded.update(programs)
+        cos = min(cos, float(_cosines(*outs).min()))
+        diff = max(diff, float(np.abs(outs[0] - outs[1]).max()))
+    return cos, diff
+
+
+def aot_server(card: str, label: str, argv: list[str],
+               store: pathlib.Path, source: str, per_batch: dict[str, int],
+               positions: int = 1) -> dict:
+    """``serve ARGV --aot-store STORE`` through ``cli.build_server``: every
+    bucket's warm-up source must be ``source`` (``aot``: as many store
+    hits as buckets times positions, no fallback, ``compile_count`` 0;
+    ``fallback``: as many fallbacks, the model's own forward for each);
+    phase 4's traffic (AOT_SINGLES singles, a bulk of AOT_BULK) by the
+    stdlib client with ``per_batch`` launches a batch; each bucket's answers at cosine >= AOT_MIN_COS against the
+    model's own forward on the same weights and batch (the largest absolute
+    difference printed). Returns the traffic's counts and the seconds to
+    ready."""
+    before = _aot_counters()
+    t0 = time.perf_counter()
+    server, model, ready = cli.build_server(cli.build_parser().parse_args(
+        AOT_ARGV + argv + ["--aot-store", str(store)]))
+    ready_s = time.perf_counter() - t0
+    try:
+        delta = {k: v - before[k] for k, v in _aot_counters().items()}
+        n = len(AOT_BUCKETS) * positions
+        snap = server.engine.metrics.snapshot()
+        check(ready["aot"] == {b: source for b in AOT_BUCKETS},
+              f"{label}: ready line aot {ready.get('aot')}")
+        if source == "aot":
+            check(delta == {"hit": n, "miss": 0, "fallback": 0}
+                  and snap["compile_count"] == 0,
+                  f"{label}: store counters {delta}, compile_count "
+                  f"{snap['compile_count']}")
+        else:
+            check(delta["fallback"] == n and delta["hit"] == 0
+                  and snap["compile_count"] == len(AOT_BUCKETS),
+                  f"{label}: store counters {delta}, compile_count "
+                  f"{snap['compile_count']}")
+        print(f"{label}: ready in {ready_s:.1f} s, every bucket from "
+              f"{source!r}: store {delta}, compile_count "
+              f"{snap['compile_count']}", flush=True)
+        traffic = served_traffic(
+            server, model, "encode_image", label, per_batch,
+            model.config.projection_dim, card,
+            client=ServeClient(port=server.port, timeout_s=300.0),
+            keep=True, singles=AOT_SINGLES, bulk=AOT_BULK)
+        traffic.pop("features")
+        batch = traffic.pop("batch").float().cpu().numpy()
+        fwd, = server.engine.forwards
+        cos, diff = loaded_against_eager(fwd, batch)
+        after = _aot_counters()
+        check(after["fallback"] == before["fallback"] + delta["fallback"],
+              f"{label}: a loaded program fell back under traffic")
+    finally:
+        server.stop()
+    check(cos >= AOT_MIN_COS,
+          f"{label}: cosine against the model's own forward {cos}")
+    print(f"{label}: each bucket against the model's own forward on the "
+          f"same weights and batch: min cosine {cos:.7f}, max abs "
+          f"difference {diff:.3e} | {card}", flush=True)
+    return dict(traffic, ready_s=ready_s)
+
+
+def aot_store_phase(card: str, root: pathlib.Path) -> dict[str, dict]:
+    """23(a): ``aot warmup`` of SigLIP-B/16-256 bf16 at buckets 1 and 8
+    into a fresh store, then ``serve --aot-store`` on it; ``--dtype int8``
+    and ``--model-parallel 2`` on the card listed twice, each warmed by a
+    first server's write-through, then served warm; a corrupted copy of
+    the bf16 store served through the fallback. Returns the counts of the
+    ``aot_bf16``, ``aot_int8``, ``aot_wide_121`` and ``aot_fallback``
+    paths."""
+    out: dict[str, dict] = {}
+    bf16 = root / "bf16"
+    t0 = time.perf_counter()
+    rc, text = _quiet_cli(aot_cli.main, [
+        "aot", "warmup", "--preset", "siglip-base-patch16-256", "--ln-impl",
+        "fused", "--bf16", "--buckets", ",".join(AOT_BUCKETS), "--store",
+        str(bf16), "--device", "cuda:0"])
+    report = json.loads(text)
+    check(rc == 0 and {b: r["action"] for b, r in report["buckets"].items()}
+          == {b: "compiled" for b in AOT_BUCKETS},
+          f"aot warmup: {report}")
+    print(f"aot warmup: {report['label']} buckets "
+          + ", ".join(f"{b}: {r['seconds']:.2f} s, {r['bytes']} bytes"
+                      for b, r in report["buckets"].items())
+          + f" (the whole command {time.perf_counter() - t0:.1f} s) | "
+          f"{card}", flush=True)
+    flash_ln = {"flash_attention": FLASH_PER_BATCH,
+                "layer_norm": LN_PER_BATCH}
+    out["aot_bf16"] = aot_server(card, "aot bf16", [
+        "--dtype", "bf16", "--device", "cuda:0"], bf16, "aot", flash_ln)
+    int8 = {"int8_matmul": INT8_MATMUL_PER_BATCH, **flash_ln}
+    wide = WIDE_PLANS[(1, 2, 1)]
+    for label, argv, per_batch, positions in (
+            ("aot int8", ["--dtype", "int8", "--device", "cuda:0"], int8, 1),
+            ("aot wide 1x2x1", ["--dtype", "bf16", "--device",
+                                "cuda:0,cuda:0", "--model-parallel", "2"],
+             wide, 2)):
+        store = root / label.replace(" ", "_")
+        t0 = time.perf_counter()
+        server, _, ready = cli.build_server(cli.build_parser().parse_args(
+            AOT_ARGV + argv + ["--aot-store", str(store)]))
+        cold_s = time.perf_counter() - t0
+        server.stop()
+        check(ready["aot"] == {b: "miss" for b in AOT_BUCKETS}
+              and len(ArtifactStore(store).entries())
+              == len(AOT_BUCKETS) * positions,
+              f"{label}: the cold server's write-through {ready['aot']}")
+        traffic = aot_server(card, label, argv, store, "aot", per_batch,
+                             positions)
+        print(f"{label}: time to ready cold (empty store: exported and "
+              f"written through) {cold_s:.1f} s, warm {traffic['ready_s']:.1f}"
+              f" s | {card}", flush=True)
+        out["aot_int8" if "int8" in label else "aot_wide_121"] = traffic
+    # the drill: every artifact of a copy of the bf16 store corrupted
+    broken = root / "corrupt"
+    shutil.copytree(bf16, broken)
+    for entry in ArtifactStore(broken).entries():
+        (entry.path / "artifact.bin").write_bytes(b"garbage")
+    out["aot_fallback"] = aot_server(card, "aot drill", [
+        "--dtype", "bf16", "--device", "cuda:0"], broken, "fallback",
+        flash_ln)
+    quarantined = sorted(p.name for p in
+                         ArtifactStore(broken).quarantine_dir.iterdir())
+    check(len(quarantined) == len(AOT_BUCKETS),
+          f"aot drill: quarantine holds {quarantined}")
+    print(f"aot drill: a corrupted store served every bucket through the "
+          f"model's own forward, launches unchanged; {len(quarantined)} "
+          f"entries quarantined", flush=True)
+    return out
+
+
+def _score_rows(features: np.ndarray, proj: np.ndarray) -> np.ndarray:
+    e = features / np.linalg.norm(features, axis=1, keepdims=True)
+    return e @ proj
+
+
+def cascade_phase(card: str, root: pathlib.Path, store: pathlib.Path
+                  ) -> dict[str, dict]:
+    """23(b): ``serve --dtype bf16 --pool-model q8=...@int8 --aot-store``
+    on 23(a)'s store (both models' buckets from it), a calibration fitted
+    by ``cascade calibrate`` from both models' score rows (a fixed
+    projection of the embedding onto CASCADE_CLASSES classes) over a seeded
+    holdout of CASCADE_HOLDOUT images, and the router over the pool: the
+    holdout replayed through it escalates the calibration's
+    ``escalation_fraction`` to within one row, disagreement among the
+    accepted answers is at or below the target, every request launches the
+    int8 matmul on the cheap stage and only escalated ones reach the bf16
+    stage; then one autoscaler tick under a forced burn shifts a replica
+    from the cheap stage to the bf16 one with no fresh export. Returns the
+    ``cascade`` path's counts."""
+    t0 = time.perf_counter()
+    # bucket 8 alone: every batch, holdout and replay, at one shape, so
+    # that a row's scores do not depend on the bucket it rode in
+    server, model, ready = cli.build_server(cli.build_parser().parse_args(
+        AOT_ARGV + ["--dtype", "bf16", "--device", "cuda:0", "--aot-store",
+                    str(store), "--pool-model",
+                    "q8=siglip-base-patch16-256@int8", "--buckets", "8"]))
+    try:
+        pool = server.pool
+        cheap, wide = pool.get("q8"), pool.get("default")
+        sources = {b: r["source"] for e in (cheap, wide)
+                   for b, r in e.warmup_report.items()}
+        check(set(sources.values()) == {"aot"},
+              f"cascade: warm-up sources {cheap.warmup_report} "
+              f"{wide.warmup_report}")
+        print(f"cascade: bf16 default and int8 q8 ready off the store in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        size = model.config.vision.image_size
+        images = np.random.default_rng(230).uniform(
+            -1, 1, (CASCADE_HOLDOUT, size, size, 3)).astype(np.float32)
+        proj = np.random.default_rng(231).standard_normal(
+            (model.config.projection_dim, CASCADE_CLASSES)).astype(np.float32)
+        # each stage's rows through its loaded programs at the one bucket,
+        # as the replay's batches will reach them
+        rows = {}
+        for name, engine in (("q8", cheap), ("default", wide)):
+            fwd, = engine.forwards
+            with torch.inference_mode():
+                rows[name] = np.concatenate([
+                    fwd(images[i:i + 8]).float().cpu().numpy()
+                    for i in range(0, len(images), 8)])
+        holdout = root / "holdout.npz"
+        np.savez(holdout, cheap=_score_rows(rows["q8"], proj),
+                 reference=_score_rows(rows["default"], proj))
+        rc, text = _quiet_cli(cascade_cli.main, [
+            "cascade", "calibrate", str(holdout), "--cheap-model", "q8",
+            "--reference-model", "default", "--target-disagreement",
+            str(CASCADE_TARGET), "--store", str(store), "--json"])
+        check(rc == 0, f"cascade calibrate exited {rc}")
+        fitted = json.loads(text)
+        calib = load_calibration(ArtifactStore(store), fitted["fingerprint"])
+        print(f"cascade: calibrated over {calib.holdout} rows: temperature "
+              f"{calib.temperature:.6g}, threshold {calib.threshold:.6g}, "
+              f"measured disagreement {calib.measured_disagreement:.4f} "
+              f"(target {calib.target_disagreement}), escalation fraction "
+              f"{calib.escalation_fraction:.4f}", flush=True)
+        router = CascadeRouter.from_pool(
+            pool, ["q8", "default"], {"q8": calib},
+            score_fn=lambda out: _score_rows(
+                np.asarray(out, np.float32)[None], proj)[0])
+        server.cascade = router
+        client = ServeClient(port=server.port, timeout_s=300.0)
+        before = {n: e.replica_stats()[0]["dispatched"]
+                  for n, e in (("q8", cheap), ("default", wide))}
+        zero_counts()
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(16) as burst:
+            answers = list(burst.map(client.embed, images))
+        replay_s = time.perf_counter() - t1
+        counts = read_counts()
+        batches = {n: e.replica_stats()[0]["dispatched"] - before[n]
+                   for n, e in (("q8", cheap), ("default", wide))}
+        escalated = [i for i, a in enumerate(answers)
+                     if a.cascade.models_tried == ("q8", "default")]
+        accepted = [i for i, a in enumerate(answers)
+                    if a.cascade.models_tried == ("q8",)]
+        check(len(escalated) + len(accepted) == CASCADE_HOLDOUT,
+              "cascade: an answer without the cascade headers")
+        want_escalated = calib.escalation_fraction * CASCADE_HOLDOUT
+        check(abs(len(escalated) - want_escalated) <= 1,
+              f"cascade: {len(escalated)} escalated, the calibration "
+              f"{want_escalated}")
+        got = np.asarray(answers, np.float32)
+        ref_top = _score_rows(rows["default"], proj).argmax(1)
+        got_top = _score_rows(got, proj).argmax(1)
+        disagree = int(sum(got_top[i] != ref_top[i] for i in accepted))
+        check(disagree / CASCADE_HOLDOUT <= calib.target_disagreement,
+              f"cascade: {disagree} accepted answers disagree")
+        for name, idx in (("q8", accepted), ("default", escalated)):
+            if idx:
+                cos = _cosines(got[idx], rows[name][idx])
+                check(bool((cos >= AOT_MIN_COS).all()),
+                      f"cascade: {name}'s answers against its holdout "
+                      f"rows {cos.min()}")
+        total = batches["q8"] + batches["default"]
+        check(counts["int8_matmul"] == INT8_MATMUL_PER_BATCH * batches["q8"]
+              and counts["flash_attention"] == FLASH_PER_BATCH * total
+              and counts["layer_norm"] == LN_PER_BATCH * total
+              and (batches["default"] > 0) == bool(escalated)
+              and batches["default"] <= len(escalated)
+              and router.metrics.count("cascade_escalations_total")
+              == len(escalated),
+              f"cascade: launches {counts} over batches {batches}, "
+              f"{len(escalated)} escalated")
+        print(f"cascade: {CASCADE_HOLDOUT} holdout images replayed through "
+              f"the router in {replay_s:.2f} s: {len(escalated)} escalated "
+              f"(calibration {want_escalated:.1f}), {disagree} accepted "
+              f"answers disagree with the bf16 top-1; batches {batches}; "
+              f"launches int8_matmul {counts['int8_matmul']}, flash "
+              f"{counts['flash_attention']}, LayerNorm "
+              f"{counts['layer_norm']} | {card}", flush=True)
+        cascade_counts = dict(counts, batches=total)
+        auto = _autoscaler_tick(card, server, store)
+        health = client.healthz()
+        check(health["cascade"]["requests"] == CASCADE_HOLDOUT
+              and health["autoscale"]["replicas"] == auto,
+              f"cascade: healthz {health.get('cascade')} "
+              f"{health.get('autoscale')}")
+    finally:
+        server.stop()
+    return {"cascade": cascade_counts}
+
+
+def _autoscaler_tick(card: str, server: ServingServer,
+                     store: pathlib.Path) -> dict[str, int]:
+    """23(b), the autoscaler: the cheap stage replanned onto two replicas
+    (a one-device replica loads the single-device model's programs), then
+    one tick under a forced burn (every observation of the SLO engine a
+    failure) shifts a replica from the cheap stage to the bf16 one; both
+    replans load every bucket from the store: no miss, the store
+    unchanged, ``compile_count`` 0. Returns the replicas after the
+    tick."""
+    pool, loop = server.pool, server._loop
+    artifacts = ArtifactStore(store)
+    cuda0 = torch.device("cuda", 0)
+
+    def stage_build(name: str):
+        model = pool.get(name).forwards[0].model
+
+        def build(n: int):
+            forwards = build_replica_forwards(
+                model, plan_topology(n, devices=[cuda0] * n),
+                method="encode_image", store=artifacts, label=name)
+            return forwards, replica_trace_count(forwards)
+        return build
+
+    builds = {"q8": stage_build("q8"), "default": stage_build("default")}
+
+    def replan(name: str, n: int) -> None:
+        forwards, traces = builds[name](n)
+        asyncio.run_coroutine_threadsafe(
+            pool.get(name).replan(forwards, trace_count=traces),
+            loop).result(600)
+
+    replan("q8", 2)
+    slo = SloEngine.from_objective_dicts({"default": {"availability": 0.99}})
+    for _ in range(20):
+        slo.observe(None, False, 1.0)
+    auto = CascadeAutoscaler(
+        cheap=ScaleTarget("q8", pool.get("q8"), builds["q8"], replicas=2),
+        expensive=ScaleTarget("default", pool.get("default"),
+                              builds["default"], replicas=1),
+        slo=slo, window=1, cooldown=0, metrics=pool.metrics)
+    server.autoscaler = auto
+    entries, before = len(artifacts.entries()), _aot_counters()
+    decision = auto.tick()
+    check(decision is not None and decision["action"] == "shift_replica"
+          and decision["replicas"] == {"q8": 1, "default": 2},
+          f"autoscale: decision {decision}")
+    t0 = time.perf_counter()
+    asyncio.run_coroutine_threadsafe(auto.apply(decision), loop).result(600)
+    apply_s = time.perf_counter() - t0
+    delta = {k: v - before[k] for k, v in _aot_counters().items()}
+    snaps = {n: pool.get(n).trace_count() for n in ("q8", "default")}
+    check(delta["miss"] == 0 and delta["fallback"] == 0
+          and len(artifacts.entries()) == entries
+          and pool.get("q8").n_replicas == 1
+          and pool.get("default").n_replicas == 2
+          and snaps == {"q8": 0, "default": 0},
+          f"autoscale: store counters {delta}, compile_count {snaps}")
+    print(f"autoscale: a forced burn shifted a replica q8 -> default; both "
+          f"replans off the store in {apply_s:.2f} s: {delta['hit']:.0f} "
+          f"hits, no miss, no export, compile_count 0 | {card}", flush=True)
+    return {"q8": 1, "default": 2}
+
+
+def aot_cascade_phase(card: str) -> dict[str, dict]:
+    """Phase 23: (a) the AOT store, (b) the confidence cascade and its
+    autoscaler; the record's ``aot_*`` and ``cascade`` paths."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        counts = aot_store_phase(card, root)
+        print(f"phase 23(a) {time.perf_counter() - t0:.1f} s", flush=True)
+        # 23(a)'s bf16 store holds the int8 twin's programs too
+        shutil.copytree(root / "aot_int8", root / "bf16",
+                        dirs_exist_ok=True)
+        counts.update(cascade_phase(card, root, root / "bf16"))
+    print(f"phase 23 {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -6788,6 +7231,8 @@ def main() -> int:
         done("serving replicas")
         wide_counts = wide_qos_phase(card)
         done("wide replicas and QoS")
+        aot_counts = aot_cascade_phase(card)
+        done("AOT store and cascade")
         check(all(math.isfinite(timed[k]["ms"]) for k in timed), "bad timing")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
@@ -6806,7 +7251,10 @@ def main() -> int:
     # 21's first two-replica run ("replicas") and int8 replicas' traffic
     # ("replicas_int8"), summed over both replicas, and phase 22's wide
     # replicas ("wide_121", "wide_112", "wide_122", summed over each
-    # replica's positions) and the int8 pool twin's traffic ("pool_twin")
+    # replica's positions) and the int8 pool twin's traffic ("pool_twin"),
+    # and phase 23's servers off the AOT store ("aot_bf16", "aot_int8",
+    # "aot_wide_121" summed over its positions, "aot_fallback" the drill)
+    # and the cascade's replay of its holdout ("cascade", both stages)
     paths = {"serve": serve_counts, "train": train_counts,
              "naflex": naflex_counts, "int8_serve": int8_serve_counts,
              "int8_qk": int8_qk_counts, "fp8_hybrid": fp8_counts,
@@ -6814,7 +7262,7 @@ def main() -> int:
              **ckpt_counts, **zero_shot_counts, **rest_counts,
              "resilience": resilience_counts, "data": data_counts,
              **profile_counts, **mesh_counts, **axes_counts, **quant_counts,
-             **replica_counts, **wide_counts}
+             **replica_counts, **wide_counts, **aot_counts}
     steps = {"train": CLI_STEPS, "naflex": CLI_STEPS, "int8_qk": CLI_STEPS,
              "fp8_hybrid": CLI_STEPS, "sigmoid": TRAIN_STEPS}
     main_path = {"flash_attention_masked": "naflex",
@@ -6905,11 +7353,11 @@ def main() -> int:
 
 
 def phase_alone(phase: str) -> int:
-    """``python3 chip_smoke.py --phase 20|21|22``: the build, then that
+    """``python3 chip_smoke.py --phase 20|21|22|23``: the build, then that
     phase alone (20: its two-rank launch, the batch-32 single-process
     references and its gates; 21: serving replicas and health; 22: wide
-    replicas, tenant QoS and the pool); for iterating on one path. Prints
-    no record."""
+    replicas, tenant QoS and the pool; 23: the AOT store and the
+    cascade); for iterating on one path. Prints no record."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
@@ -6926,6 +7374,8 @@ def phase_alone(phase: str) -> int:
             replicas_phase(card)
         elif phase == "22":
             wide_qos_phase(card)
+        elif phase == "23":
+            aot_cascade_phase(card)
         else:
             with tempfile.TemporaryDirectory() as tmp:
                 root = pathlib.Path(tmp)
@@ -6945,6 +7395,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank-task"]:
         sys.exit(rank_main(sys.argv[1:]))
     if sys.argv[1:2] == ["--phase"] and sys.argv[2:] in (["20"], ["21"],
-                                                         ["22"]):
+                                                         ["22"], ["23"]):
         sys.exit(phase_alone(sys.argv[2]))
     sys.exit(main())

@@ -1,6 +1,6 @@
 """Command line: ``python -m jimm_tpu_torch
 serve|train|supervise|classify|evaluate|export-run|prepare-data|
-build-native|profile-analyze|obs``.
+build-native|profile-analyze|obs|qos|aot|cascade``.
 
 ``serve`` loads an HF checkpoint (``--ckpt DIR --model
 vit|clip|siglip``) or builds a preset of any family (randomly initialised
@@ -18,8 +18,13 @@ around a fenced replica. ``--qos-policy FILE`` turns on tenant QoS (token
 buckets, quotas, weighted-fair classes, class-ordered shedding; the
 policy's ``slo`` section feeds the burn-rate engine) and ``--pool-model
 NAME=PRESET[@DTYPE]`` makes more models resident over the same plan,
-routed by ``X-Jimm-Model``; ``qos ls|validate`` reads policy files. The
-server also answers ``/metrics``, ``/debug/traces`` and ``POST
+routed by ``X-Jimm-Model``; ``qos ls|validate`` reads policy files.
+``--aot-store DIR`` serves every bucket of every model (and every replica
+and position) from ``torch.export`` programs in an AOT store, exporting and
+writing through what it misses; ``aot warmup|ls|gc|verify`` manage stores
+(``jimm_tpu_torch.aot``) and ``cascade calibrate|ls`` fits and lists the
+cascade router's calibrations on one (``jimm_tpu_torch.serve.cascade``).
+The server also answers ``/metrics``, ``/debug/traces`` and ``POST
 /admin/revive``.
 ``--dtype int8`` builds or loads the model in f32 and swaps every eligible
 Linear for a W8A8 ``QuantLinear`` before any forward
@@ -110,6 +115,7 @@ from jimm_tpu_torch.models.clip import CLIP
 from jimm_tpu_torch.models.common import resolve_device
 from jimm_tpu_torch.models.siglip import SigLIP
 from jimm_tpu_torch.models.vit import VisionTransformer
+from jimm_tpu_torch.aot.cli import add_aot_parser
 from jimm_tpu_torch.obs.cli import add_obs_parser
 from jimm_tpu_torch.obs.prof.capture import configure_capture
 from jimm_tpu_torch.obs.prof.memory import MemoryMonitor, module_bytes
@@ -135,16 +141,20 @@ from jimm_tpu_torch.resilience import (BackoffPolicy, FaultPlan, GiveUpError,
                                        GoodputAdvisor, PreemptedError,
                                        PreemptionGuard, PreemptionHandler,
                                        Supervisor, plan_data_axis)
+from jimm_tpu_torch.aot.store import ArtifactStore
 from jimm_tpu_torch.serve.admission import AdmissionPolicy
 from jimm_tpu_torch.serve.buckets import BucketTable, default_buckets
 from jimm_tpu_torch.serve.engine import InferenceEngine, image_forward
 from jimm_tpu_torch.serve.cache import (EmbeddingCache, class_embedding_cache,
                                         prompt_set_key)
 from jimm_tpu_torch.serve.qos import ModelPool, QosScheduler, load_policy
+from jimm_tpu_torch.serve.cascade.cli import add_cascade_parser
 from jimm_tpu_torch.serve.qos.cli import add_qos_parser
 from jimm_tpu_torch.serve.server import ServingServer, ZeroShotService
 from jimm_tpu_torch.serve.topology import (build_replica_forwards,
-                                           plan_topology, visible_devices)
+                                           plan_topology,
+                                           replica_trace_count,
+                                           visible_devices)
 from jimm_tpu_torch.train.checkpoint import (CheckpointManager,
                                               CheckpointMismatchError)
 from jimm_tpu_torch.train.metrics import (MetricsLogger, StepTimer,
@@ -196,6 +206,16 @@ def _ready_to_serve(model: torch.nn.Module, dtype: str
                     ) -> tuple[torch.nn.Module, int]:
     model.eval()
     return model, quantize_model(model) if dtype == "int8" else 0
+
+
+def load_checkpoint(fam: str, ckpt: str, dtype: str, device,
+                    runtime: dict | None = None
+                    ) -> tuple[torch.nn.Module, int]:
+    """An HF checkpoint as ``serve --ckpt`` serves it, and the number of
+    Linears quantized (int8: loaded in f32, then quantized)."""
+    return _ready_to_serve(MODELS[fam].from_pretrained(
+        ckpt, device=device, dtype=_serving_dtype(dtype), runtime=runtime),
+        dtype)
 
 
 def serving_model(cfg, dtype: str, device,
@@ -283,10 +303,8 @@ def build_server(args: argparse.Namespace
             raise SystemExit("--tiny shrinks a preset; it does not apply "
                              "to --ckpt")
         fam = args.model
-        # int8: loaded in f32, then quantized
-        model, quantized = _ready_to_serve(MODELS[fam].from_pretrained(
-            args.ckpt, device=device, dtype=_serving_dtype(dtype),
-            runtime=runtime), dtype)
+        model, quantized = load_checkpoint(fam, args.ckpt, dtype, device,
+                                           runtime)
         name = f"{fam}:{args.ckpt}"
     else:
         fam = family(args.preset)
@@ -307,13 +325,28 @@ def build_server(args: argparse.Namespace
                if args.buckets
                else default_buckets(device, dtype=_BUCKET_DTYPES[dtype]))
 
-    def build_forward(mdl: torch.nn.Module, mdl_method: str):
-        # the trivial plan serves the model itself; replicas get their own
-        # copies (sliced, for a replica wider than one device), streams and
-        # executors
-        if plan.is_trivial:
-            return image_forward(mdl, mdl_method)
-        return build_replica_forwards(mdl, plan, method=mdl_method)
+    # store-first warm start: buckets exported by `aot warmup` load instead
+    # of running the model's own forward; misses are written through
+    store = ArtifactStore(args.aot_store) if args.aot_store else None
+
+    def build_forward(mdl: torch.nn.Module, mdl_method: str, key: str):
+        """``(forward(s), trace_count)``: the trivial plan serves the model
+        itself; replicas get their own copies (sliced, for a replica wider
+        than one device), streams and executors; with a store each is
+        store-backed, labelled ``key``."""
+        if not plan.is_trivial:
+            forwards = build_replica_forwards(mdl, plan, method=mdl_method,
+                                              store=store, label=key)
+            return forwards, replica_trace_count(forwards)
+        if store is not None:
+            from jimm_tpu_torch.aot.warmup import AotForward
+            vis = mdl.config.vision
+            fwd = AotForward(mdl, method=mdl_method,
+                             item_shape=(vis.image_size, vis.image_size,
+                                         vis.channels),
+                             store=store, label=key)
+            return fwd, fwd.trace_count
+        return image_forward(mdl, mdl_method), None
 
     policy = AdmissionPolicy(max_queue=args.queue_size,
                              default_timeout_s=args.timeout_s,
@@ -322,11 +355,13 @@ def build_server(args: argparse.Namespace
     # engine keeps its single FIFO
     qos = QosScheduler(load_policy(args.qos_policy)) if args.qos_policy \
         else None
+    model_key = f"{name}:{dtype}"
+    forward, trace_count = build_forward(model, method, model_key)
     engine = InferenceEngine(
-        build_forward(model, method),
+        forward,
         item_shape=(vision.image_size, vision.image_size, vision.channels),
         buckets=buckets, max_delay_ms=args.max_delay_ms, policy=policy,
-        qos=qos)
+        qos=qos, trace_count=trace_count)
     if qos is not None and qos.registry.slo:
         # the policy's slo section: per-tenant burn rates; a fast burn
         # escalates into the self-heal path and degrades /healthz
@@ -334,7 +369,7 @@ def build_server(args: argparse.Namespace
     if args.self_heal:
         # fence -> probe/revive -> rebuild the replica set over the same
         # plan and replan around the dead lane
-        engine.set_heal(lambda: build_forward(model, method))
+        engine.set_heal(lambda: build_forward(model, method, model_key))
     pool, pool_models = None, [model]
     if args.pool_model:
         # more resident models, each built as the default one is over the
@@ -358,14 +393,20 @@ def build_server(args: argparse.Namespace
                 pcfg = with_runtime(pcfg, **runtime)
             pmodel, _ = serving_model(pcfg, pdtype, device)
             pvision = pmodel.config.vision
+            # each pool model has its own fingerprints (config and
+            # parameter dtypes), and its own label
+            pkey = f"{pfam}:{ppreset}" + (":tiny" if args.tiny else "") \
+                + f":{pdtype}"
+            pforward, ptraces = build_forward(pmodel, SERVED_METHOD[pfam],
+                                              pkey)
             engines[pname] = InferenceEngine(
-                build_forward(pmodel, SERVED_METHOD[pfam]),
+                pforward,
                 item_shape=(pvision.image_size, pvision.image_size,
                             pvision.channels),
                 buckets=BucketTable(buckets.sizes,
                                     dtype=_BUCKET_DTYPES[pdtype]),
                 max_delay_ms=args.max_delay_ms, policy=policy,
-                metrics=engine.metrics, qos=qos)
+                metrics=engine.metrics, qos=qos, trace_count=ptraces)
             pool_models.append(pmodel)
         pool = ModelPool(engines, default="default")
         # each engine bound queue_depth_now to its own queue (the last
@@ -424,6 +465,9 @@ def build_server(args: argparse.Namespace
         ready["models"] = pool.describe()
     if not plan.is_trivial:
         ready["topology"] = plan.describe()
+    if store is not None:
+        ready["aot"] = {str(k): v["source"]
+                        for k, v in sorted(engine.warmup_report.items())}
     return server, model, ready
 
 
@@ -2016,6 +2060,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "default f32) over the same replica plan, with its "
                          "own engine; requests naming model=NAME route to "
                          "it. Inherits --tiny, --ln-impl and --buckets")
+    sp.add_argument("--aot-store", default=None, metavar="DIR",
+                    help="consult this AOT artifact store before running "
+                         "the model's own forward (populate with `aot "
+                         "warmup`); misses are exported and written "
+                         "through")
     sp.add_argument("--self-heal", action="store_true",
                     help="escalate a watchdog fence: probe the fenced "
                          "replica (transient fault -> revive in place), "
@@ -2364,6 +2413,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     add_obs_parser(sub)
     add_qos_parser(sub)
+    add_aot_parser(sub)
+    add_cascade_parser(sub)
 
     sp = sub.add_parser("build-native",
                         help="compile the native host-preprocessing library "

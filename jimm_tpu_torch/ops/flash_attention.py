@@ -70,7 +70,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from jimm_tpu_torch import _build
-from jimm_tpu_torch.ops.library import define_op
+from jimm_tpu_torch.ops.library import define_op, stats_dtype
 
 NEG_INF = -1e30
 #: largest head dim the kernels take (they pad D to 64/128/256 in shared
@@ -316,18 +316,31 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+def _o_fake(q: torch.Tensor) -> torch.Tensor:
+    return q.new_empty(q.shape)
+
+
+def _fwd_fake(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: torch.Tensor | None, is_causal: bool
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    b, sq, n, _ = q.shape
+    return _o_fake(q), q.new_empty((b, n, sq), dtype=stats_dtype(q))
+
+
 #: the forwards as ops a remat policy can save, their o and lse being the
-#: JAX kernels' ``flash_o`` / ``flash_lse`` (`ops/library.py`); each looks
-#: its wrapper up when called
+#: JAX kernels' ``flash_o`` / ``flash_lse``, and an exported program names
+#: (`ops/library.py`); each looks its wrapper up when called
 fwd_op = define_op(
     "flash_fwd(Tensor q, Tensor k, Tensor v, Tensor? mask, bool is_causal) "
     "-> (Tensor, Tensor)",
-    lambda q, k, v, mask, is_causal: _fwd(q, k, v, is_causal, mask))
+    lambda q, k, v, mask, is_causal: _fwd(q, k, v, is_causal, mask),
+    _fwd_fake)
 sigmoid_fwd_op = define_op(
     "sigmoid_fwd(Tensor q, Tensor k, Tensor v, Tensor? mask, bool is_causal, "
     "float logit_bias) -> Tensor",
     lambda q, k, v, mask, is_causal, logit_bias: sigmoid_attention_fwd(
-        q, k, v, is_causal=is_causal, mask=mask, logit_bias=logit_bias))
+        q, k, v, is_causal=is_causal, mask=mask, logit_bias=logit_bias),
+    lambda q, k, v, mask, is_causal, logit_bias: _o_fake(q))
 
 
 class FlashAttentionFn(torch.autograd.Function):

@@ -211,13 +211,21 @@ def flash_attention_int8_bwd(qq: torch.Tensor, qs: torch.Tensor,
     return dq, dk, dv
 
 
+def _fwd_fake(qq: torch.Tensor, qs: torch.Tensor, kq: torch.Tensor,
+              ks: torch.Tensor, v: torch.Tensor, is_causal: bool
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    b, sq, n, d = qq.shape
+    return (v.new_empty((b, sq, n, d)),
+            v.new_empty((b, n, sq), dtype=torch.float32))
+
+
 #: the forward as the op ``jimm::flash_int8_fwd``, which a remat policy can
-#: save (`ops/library.py`)
+#: save and an exported program names (`ops/library.py`)
 fwd_op = define_op(
     "flash_int8_fwd(Tensor qq, Tensor qs, Tensor kq, Tensor ks, Tensor v, "
     "bool is_causal) -> (Tensor, Tensor)",
     lambda qq, qs, kq, ks, v, is_causal: flash_attention_int8_fwd(
-        qq, qs, kq, ks, v, is_causal=is_causal))
+        qq, qs, kq, ks, v, is_causal=is_causal), _fwd_fake)
 
 
 class FlashAttentionInt8Fn(torch.autograd.Function):

@@ -19,9 +19,10 @@ reads; TMA needs K a multiple of 16 and 16-byte aligned bases, so the
 wrapper zero-pads K of both copies otherwise (:func:`tma_operands`, shared
 with the fp8 GEMM; a zero product adds nothing).
 
-:func:`int8_matmul` launches the kernel for CUDA tensors and runs
-:func:`int8_matmul_plain` for CPU tensors; any other device raises. The
-module-level ``launches`` counts kernel launches.
+:func:`int8_matmul` goes through the op ``jimm::int8_matmul``, which
+launches the kernel for CUDA tensors and runs :func:`int8_matmul_plain` for
+CPU tensors; any other device raises. The module-level ``launches`` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -31,12 +32,14 @@ import torch.nn.functional as F
 
 from jimm_tpu_torch import _build
 from jimm_tpu_torch.ops.fp8_matmul import tma_operands
+from jimm_tpu_torch.ops.library import define_op
 
 #: kernel launches since the count was last set to 0
 launches = 0
 
 #: the C interface's activation codes (csrc/int8_matmul.cu ``Activation``)
 _ACTIVATIONS = {None: 0, "relu": 1, "gelu": 2}
+_ACTIVATION_NAMES = {code: name for name, code in _ACTIVATIONS.items()}
 
 
 def _check_activation(activation: str | None) -> int:
@@ -104,22 +107,12 @@ def _check(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
         raise ValueError(f"bias {tuple(bias.shape)} is not (N,)=({n},)")
 
 
-def int8_matmul(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
-                w_scale: torch.Tensor, bias: torch.Tensor | None = None, *,
-                activation: str | None = None) -> torch.Tensor:
-    """Fused dequantizing matmul ``(x_q * x_scale[:, None]) @ (w_q *
-    w_scale[:, None]).T + bias`` with an optional fused activation, f32 out.
-
-    Args:
-        x_q: ``(M, K)`` int8 activations (see :func:`quantize_rows`).
-        x_scale: ``(M,)`` f32 per-row activation scales.
-        w_q: ``(N, K)`` int8 weights (per-output-channel symmetric).
-        w_scale: ``(N,)`` f32 per-output-channel weight scales.
-        bias: optional ``(N,)`` bias added in f32 after dequantization.
-        activation: ``None`` / ``"relu"`` / ``"gelu"`` fused epilogue.
-    """
-    _check(x_q, x_scale, w_q, w_scale, bias)
-    code = _check_activation(activation)
+def _matmul(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
+            w_scale: torch.Tensor, bias: torch.Tensor | None,
+            code: int) -> torch.Tensor:
+    """The kernel on a CUDA tensor, the plain version on a CPU one (the
+    op's impl; ``code`` is the C interface's activation code)."""
+    activation = _ACTIVATION_NAMES[code]
     if x_q.device.type == "cpu":
         return int8_matmul_plain(x_q, x_scale, w_q, w_scale, bias,
                                  activation=activation)
@@ -148,6 +141,37 @@ def int8_matmul(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
     _build.check(rc, "jimm_int8_matmul")
     _build.count_launch(__name__, "launches")
     return out
+
+
+#: :func:`_matmul` as the op ``jimm::int8_matmul``, which an exported
+#: program names (`ops/library.py`)
+matmul_op = define_op(
+    "int8_matmul(Tensor x_q, Tensor x_scale, Tensor w_q, Tensor w_scale, "
+    "Tensor? bias, int activation) -> Tensor",
+    lambda x_q, x_scale, w_q, w_scale, bias, activation: _matmul(
+        x_q, x_scale, w_q, w_scale, bias, activation),
+    lambda x_q, x_scale, w_q, w_scale, bias, activation: x_q.new_empty(
+        (x_q.shape[0], w_q.shape[0]), dtype=torch.float32))
+
+
+def int8_matmul(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
+                w_scale: torch.Tensor, bias: torch.Tensor | None = None, *,
+                activation: str | None = None) -> torch.Tensor:
+    """Fused dequantizing matmul ``(x_q * x_scale[:, None]) @ (w_q *
+    w_scale[:, None]).T + bias`` with an optional fused activation, f32 out,
+    through :data:`matmul_op`.
+
+    Args:
+        x_q: ``(M, K)`` int8 activations (see :func:`quantize_rows`).
+        x_scale: ``(M,)`` f32 per-row activation scales.
+        w_q: ``(N, K)`` int8 weights (per-output-channel symmetric).
+        w_scale: ``(N,)`` f32 per-output-channel weight scales.
+        bias: optional ``(N,)`` bias added in f32 after dequantization.
+        activation: ``None`` / ``"relu"`` / ``"gelu"`` fused epilogue.
+    """
+    _check(x_q, x_scale, w_q, w_scale, bias)
+    return matmul_op(x_q, x_scale, w_q, w_scale, bias,
+                     _check_activation(activation))
 
 
 class QuantizedLinearFn(torch.autograd.Function):

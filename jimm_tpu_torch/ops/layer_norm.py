@@ -33,7 +33,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from jimm_tpu_torch import _build
-from jimm_tpu_torch.ops.library import define_op
+from jimm_tpu_torch.ops.library import define_op, stats_dtype
 
 #: forward / backward kernel launches since the count was last set to 0
 launches = 0
@@ -216,12 +216,21 @@ def layer_norm_bwd(x: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
     return dx, dscale, dbias
 
 
+def _fwd_fake(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    rows = x.shape[0]
+    dtype = stats_dtype(x)
+    return (torch.empty_like(x, memory_format=torch.contiguous_format),
+            x.new_empty((rows,), dtype=dtype),
+            x.new_empty((rows,), dtype=dtype))
+
+
 #: :func:`_fwd` as the op ``jimm::layer_norm_fwd``, which a remat policy
-#: can save (`jimm_tpu_torch/ops/library.py`)
+#: can save and an exported program names (`jimm_tpu_torch/ops/library.py`)
 fwd_op = define_op(
     "layer_norm_fwd(Tensor x, Tensor scale, Tensor bias, float eps) "
     "-> (Tensor, Tensor, Tensor)",
-    lambda x, scale, bias, eps: _fwd(x, scale, bias, eps))
+    lambda x, scale, bias, eps: _fwd(x, scale, bias, eps), _fwd_fake)
 
 
 class LayerNormFn(torch.autograd.Function):

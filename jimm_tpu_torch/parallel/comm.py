@@ -24,7 +24,12 @@ thread per position) the group is a ``local.LocalGroup``, and the
 collectives of a forward (``ppermute``, ``all_gather``, ``all_to_all``,
 ``psum`` and the row-parallel sum) are exchanges between the positions'
 threads (``all_gather``'s reduce-scatter backward and the mean and max
-all-reduces of training run over ranks only). ``ppermute`` is an
+all-reduces of training run over ranks only). Each such exchange is a
+``jimm::local_*`` op that names its mesh axis, not a group: its impl finds
+the group in the calling thread's ambient ``use_sharding`` mesh when it
+runs, and its fake only gives the output's shape. An exported program
+(`jimm_tpu_torch/aot/export.py`) then keeps every exchange as a node, and
+pins the mesh's shape, never a set of devices or threads. ``ppermute`` is an
 ``all_to_all_single`` with per-peer split sizes, not ``send``/``recv``:
 on the H100's machine gloo carries every collective used here on CUDA
 tensors except the point-to-point ones (``python -m
@@ -43,11 +48,13 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from jimm_tpu_torch.ops.library import define_op
 from jimm_tpu_torch.parallel.local import LocalGroup, ShardMesh
 
 __all__ = ["AxisGroup", "all_gather", "all_reduce_max_",
            "all_reduce_mean_", "all_to_all", "axis_group", "axis_names",
-           "ppermute", "prepare_groups", "psum", "ring_perm", "tp_copy",
+           "ppermute", "prepare_axis_groups", "prepare_groups", "psum",
+           "ring_perm", "tp_copy",
            "tp_gather", "tp_reduce", "tp_row_linear"]
 
 AxisName = str | tuple[str, ...]
@@ -63,6 +70,8 @@ class AxisGroup:
     ranks: tuple[int, ...]
     index: int
     pg: dist.ProcessGroup | LocalGroup | None
+    #: the mesh axis names the group lies along
+    axis: tuple[str, ...] = ()
 
     @property
     def size(self) -> int:
@@ -153,16 +162,88 @@ def axis_group(axis: AxisName | AxisGroup,
         # every rank makes every group, in the same order
         pg = _process_group(mesh, row)
         if me in row:
-            mine = AxisGroup(tuple(row), row.index(me), pg)
+            mine = AxisGroup(tuple(row), row.index(me), pg, names)
     if mine is None:
         raise ValueError(f"rank {me} is not in mesh {mesh}")
     made[names] = mine
     return mine
 
 
+def prepare_axis_groups(mesh: ShardMesh) -> None:
+    """Resolve a position's group along every ordered combination of its
+    mesh's axes now, so that a later :func:`axis_group` is a cache hit:
+    the row arithmetic reads the mesh's position tensor, which an exporter
+    tracing the forward would turn into symbols."""
+    dims = tuple(mesh.mesh_dim_names)
+    for r in range(1, len(dims) + 1):
+        for names in itertools.permutations(dims, r):
+            axis_group(names, mesh)
+
+
 def ring_perm(size: int, shift: int = 1) -> list[tuple[int, int]]:
     """JAX's ring permutation: position i sends to i + shift."""
     return [(i, (i + shift) % size) for i in range(size)]
+
+
+# -- the in-process exchanges as ops ---------------------------------------
+
+def _local(axis: list[str]) -> AxisGroup:
+    """The calling thread's group along ``axis`` of its ambient
+    (in-process) mesh."""
+    grp = axis_group(tuple(axis))
+    if not isinstance(grp.pg, LocalGroup):
+        raise RuntimeError(f"jimm::local_* collectives run on an in-process "
+                           f"mesh; axis {axis} of the ambient mesh has "
+                           f"{grp.pg!r}")
+    return grp
+
+
+def _local_permute(x: torch.Tensor, axis: list[str],
+                   perm: list[int]) -> torch.Tensor:
+    grp = _local(axis)
+    src = [s for s, d in zip(perm[::2], perm[1::2]) if d == grp.index]
+    return grp.pg.permute(x, grp.index, src[0] if src else None)
+
+
+def _local_sum(x: torch.Tensor, axis: list[str]) -> torch.Tensor:
+    grp = _local(axis)
+    return grp.pg.sum(x, grp.index)
+
+
+def _local_gather(x: torch.Tensor, axis: list[str], size: int,
+                  dim: int) -> torch.Tensor:
+    grp = _local(axis)
+    return grp.pg.gather(x, grp.index, dim)
+
+
+def _local_all_to_all(x: torch.Tensor, axis: list[str], size: int,
+                      split_dim: int, concat_dim: int) -> torch.Tensor:
+    grp = _local(axis)
+    return grp.pg.all_to_all(x, grp.index, split_dim, concat_dim)
+
+
+def _scaled(shape, dim: int, factor: float) -> list[int]:
+    out = list(shape)
+    out[dim] = int(out[dim] * factor)
+    return out
+
+
+local_permute_op = define_op(
+    "local_permute(Tensor x, str[] axis, int[] perm) -> Tensor",
+    _local_permute, lambda x, axis, perm: x.new_empty(x.shape))
+local_sum_op = define_op(
+    "local_sum(Tensor x, str[] axis) -> Tensor",
+    _local_sum, lambda x, axis: x.new_empty(x.shape))
+local_gather_op = define_op(
+    "local_gather(Tensor x, str[] axis, int size, int dim) -> Tensor",
+    _local_gather,
+    lambda x, axis, size, dim: x.new_empty(_scaled(x.shape, dim, size)))
+local_all_to_all_op = define_op(
+    "local_all_to_all(Tensor x, str[] axis, int size, int split_dim, "
+    "int concat_dim) -> Tensor",
+    _local_all_to_all,
+    lambda x, axis, size, split_dim, concat_dim: x.new_empty(_scaled(
+        _scaled(x.shape, split_dim, 1 / size), concat_dim, size)))
 
 
 def _ppermute(x: torch.Tensor, grp: AxisGroup,
@@ -173,7 +254,8 @@ def _ppermute(x: torch.Tensor, grp: AxisGroup,
     if grp.pg is None:
         return x.clone() if src else torch.zeros_like(x)
     if isinstance(grp.pg, LocalGroup):
-        return grp.pg.permute(x, me, src[0] if src else None)
+        return local_permute_op(x, list(grp.axis),
+                                [i for pair in perm for i in pair])
     flat = x.contiguous().view(-1)
     n = flat.numel()
     send = [0] * grp.size
@@ -212,7 +294,7 @@ def ppermute(x: torch.Tensor, axis: AxisName | AxisGroup,
 
 def _gather(x: torch.Tensor, grp: AxisGroup, dim: int) -> torch.Tensor:
     if isinstance(grp.pg, LocalGroup):
-        return grp.pg.gather(x, grp.index, dim)
+        return local_gather_op(x, list(grp.axis), grp.size, dim)
     xt = x.movedim(dim, 0).contiguous()
     out = torch.empty((grp.size * xt.shape[0], *xt.shape[1:]),
                       dtype=x.dtype, device=x.device)
@@ -267,7 +349,8 @@ def _all_to_all(x: torch.Tensor, grp: AxisGroup, split_dim: int,
         raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
                          f"does not split {grp.size} ways")
     if isinstance(grp.pg, LocalGroup):
-        return grp.pg.all_to_all(x, grp.index, split_dim, concat_dim)
+        return local_all_to_all_op(x, list(grp.axis), grp.size, split_dim,
+                                   concat_dim)
     by_rank = [0] * grp.size
     for p in range(grp.size):
         by_rank[grp.group_rank(p)] = p
@@ -308,7 +391,7 @@ def _sum(x: torch.Tensor, grp: AxisGroup) -> torch.Tensor:
     """The sum of ``x`` over the group: ``x`` itself summed in place over a
     process group; a new tensor, added in position order, in process."""
     if isinstance(grp.pg, LocalGroup):
-        return grp.pg.sum(x, grp.index)
+        return local_sum_op(x, list(grp.axis))
     dist.all_reduce(x, group=grp.pg)
     return x
 

@@ -17,6 +17,10 @@ DEFAULT_BATCH_BUCKETS: tuple[int, ...] = (1, 2, 4, 8)
 #: `chip_smoke.py` serves and measures (not tuned)
 CUDA_BATCH_BUCKETS: tuple[int, ...] = (1, 8, 32)
 
+#: NaFlex sequence buckets (tokens a sample, padded): the reference's
+#: table, 16x16, 24x24 and 32x32 patch grids (`aot.warmup.warmup_naflex`)
+DEFAULT_NAFLEX_SEQ_BUCKETS: tuple[int, ...] = (256, 576, 1024)
+
 #: the precisions a served model computes in (batches are assembled in f32
 #: either way); "int8" is quantized weights with int8 activations
 SERVE_DTYPES: tuple[str, ...] = ("float32", "bfloat16", "int8")

@@ -34,8 +34,8 @@ def client_trace_id() -> str:
         n = next(_trace_counter)
     return f"tc{os.getpid():x}-{n:06x}"
 
-#: cascade response headers (a confidence-cascade router's, ROADMAP.md
-#: queue 1 item 8(b); spelled out here so this module stays stdlib-only)
+#: cascade response headers (`serve/cascade/router.py`'s; spelled out here
+#: so this module stays stdlib-only)
 CASCADE_HEADER_MODELS = "X-Jimm-Cascade-Models"
 CASCADE_HEADER_MODEL = "X-Jimm-Cascade-Model"
 CASCADE_HEADER_CONFIDENCE = "X-Jimm-Cascade-Confidence"

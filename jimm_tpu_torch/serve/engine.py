@@ -173,6 +173,10 @@ class InferenceEngine:
             shedding. None keeps the single FIFO.
         recent_traces_entries, recent_traces_max_bytes: the bounds of the
             per-request trace ring (``/debug/traces``).
+        trace_count: optional getter exported as the ``compile_count``
+            gauge: the buckets a store-backed forward
+            (:class:`~jimm_tpu_torch.aot.warmup.AotForward`) ran through the
+            model's own Python instead of a loaded program (JAX's name).
     """
 
     #: batches are assembled in f32 (requests are cast); the forward casts
@@ -185,7 +189,8 @@ class InferenceEngine:
                  policy: AdmissionPolicy | None = None,
                  metrics: ServeMetrics | None = None, qos=None,
                  recent_traces_entries: int = 64,
-                 recent_traces_max_bytes: int = 64 << 10):
+                 recent_traces_max_bytes: int = 64 << 10,
+                 trace_count: Callable[[], int] | None = None):
         self._multi = isinstance(forward, (list, tuple))
         forwards = list(forward) if self._multi else [forward]
         if not forwards:
@@ -241,6 +246,9 @@ class InferenceEngine:
         # bucket -> {"seconds", "source"} filled by warmup_blocking; with
         # replicas a per-replica breakdown under "replicas"
         self.warmup_report: dict = {}
+        self.trace_count = trace_count
+        if trace_count is not None:
+            self.metrics.bind_gauge("compile_count", trace_count)
 
     # -- replicas ---------------------------------------------------------
 
@@ -449,20 +457,21 @@ class InferenceEngine:
                                replica=replica.index,
                                error=self.last_heal_error)
             return
-        forwards = self._normalize_built(built)
+        forwards, trace_count = self._normalize_built(built)
         heal_s = time.perf_counter() - t_heal
         self.metrics.inc("goodput_heal_seconds_total", heal_s)
         get_journal().emit("heal_rebuilt", cid=cid, replica=replica.index,
                            replicas=len(forwards), dur_s=round(heal_s, 6))
-        await self.replan(forwards, cid=cid)
+        await self.replan(forwards, trace_count=trace_count, cid=cid)
 
     @staticmethod
-    def _normalize_built(built) -> list:
-        """A forward list from ``(forwards, x)`` or a bare list."""
+    def _normalize_built(built) -> tuple[list, Callable[[], int] | None]:
+        """``(forwards, trace_count)`` from ``(forwards, trace_count)`` or a
+        bare list (trace_count None)."""
         if (isinstance(built, tuple) and len(built) == 2
                 and isinstance(built[0], (list, tuple))):
-            return list(built[0])
-        return list(built)
+            return list(built[0]), built[1]
+        return list(built), None
 
     def _probe_blocking(self, replica: _Replica) -> bool:
         """One smallest-bucket forward on a fenced replica, off its
@@ -475,13 +484,15 @@ class InferenceEngine:
             return False
         return True
 
-    async def replan(self, forward, *, warm: bool = True,
-                     cid: str | None = None) -> dict:
+    async def replan(self, forward, *,
+                     trace_count: Callable[[], int] | None = None,
+                     warm: bool = True, cid: str | None = None) -> dict:
         """Swap the live replica set for a new one (grow, shrink, or heal)
         without dropping queued work: (1) warm every bucket of every new
         forward off-loop while the old replicas serve; (2) pause the
         batcher with ``_STOP`` and await the in-flight dispatches; (3) swap
-        replicas, semaphore and gauges; (4) restart the batcher.
+        replicas, semaphore and gauges (``compile_count`` rebinds to
+        ``trace_count`` when one is given); (4) restart the batcher.
         ``submit()`` keeps accepting throughout. ``cid`` threads the
         triggering incident's correlation id (a fresh one otherwise)."""
         new_multi = isinstance(forward, (list, tuple))
@@ -516,6 +527,9 @@ class InferenceEngine:
             self._rr = 0
             if new_multi:
                 self._bind_replica_set_metrics()
+            if trace_count is not None:
+                self.trace_count = trace_count
+                self.metrics.bind_gauge("compile_count", trace_count)
             # a shrink leaves higher-index gauges bound to dropped lanes:
             # freeze them at zero
             for i in range(len(forwards), len(old)):
@@ -579,7 +593,8 @@ class InferenceEngine:
                 prepare = getattr(replica.forward, "prepare_bucket", None)
                 source = prepare(size) if prepare is not None else "compile"
                 t0 = time.monotonic()
-                with span("serve_warmup_compile"):
+                with span("serve_warmup_aot" if source == "aot"
+                          else "serve_warmup_compile"):
                     self._forward_blocking(zeros, replica)
                 per_replica.append(
                     {"seconds": round(time.monotonic() - t0, 4),
@@ -638,7 +653,8 @@ class InferenceEngine:
 
     async def submit(self, item: np.ndarray, timeout_s: float | None = None,
                      trace_id: str | None = None,
-                     tenant: str | None = None) -> np.ndarray:
+                     tenant: str | None = None,
+                     escalated: bool = False) -> np.ndarray:
         """One request in, one output row out. Raises
         :class:`~jimm_tpu_torch.serve.admission.QueueFullError`,
         :class:`RequestError` or :class:`DeadlineExceededError`.
@@ -651,7 +667,13 @@ class InferenceEngine:
         deadline applies when ``timeout_s`` is None, and on a full queue a
         queued request of a lower class is shed
         (:class:`~jimm_tpu_torch.serve.admission.ShedError`, 503) to admit
-        it. Without one ``tenant`` is ignored."""
+        it. Without one ``tenant`` is ignored.
+
+        ``escalated=True`` marks a cascade re-submit
+        (`serve/cascade/router.py`): the request counter and the tenant's
+        token bucket were charged at the cheap stage, so the escalation
+        skips both and counts under ``escalated_submits_total``; it still
+        honors the queue bound (capacity is physical)."""
         if not self._accepting or self._queue is None:
             raise EngineClosedError("engine is not running; call start()")
         arr = np.asarray(item, self.dtype)
@@ -659,12 +681,14 @@ class InferenceEngine:
             self.metrics.inc("errors_total")
             raise RequestError(f"item shape {arr.shape} != engine shape "
                                f"{self.item_shape}")
-        self.metrics.inc("requests_total")
+        self.metrics.inc("escalated_submits_total" if escalated
+                         else "requests_total")
         tenant_state = klass = None
         if self.qos is not None:
             tenant_state = self.qos.resolve(tenant)
             klass = tenant_state.spec.klass
-            self.qos.admit(tenant_state)
+            if not escalated:
+                self.qos.admit(tenant_state)
             timeout_s = self.qos.timeout_for(tenant_state, timeout_s)
             if self._queue.qsize() >= self.admission.policy.max_queue:
                 self._shed_for(klass)

@@ -34,8 +34,8 @@ objectives (availability as a success-rate fraction, optional latency
 target in ms). Names must be declared tenants or ``default``; the serve
 CLI feeds the parsed objectives into the burn-rate engine
 (:class:`jimm_tpu_torch.obs.slo.SloEngine`). The ``cascade`` and
-``autoscale`` sections are parsed and validated as the reference does; the
-cascade router that reads them waits in ROADMAP.md queue 1 item 8(b).
+``autoscale`` sections configure the cascade router and its autoscaler
+(`serve/cascade/`), parsed and validated as the reference does.
 """
 
 from __future__ import annotations

@@ -225,7 +225,11 @@ class _Handler(BaseHTTPRequestHandler):
                 if value is not None:
                     payload.setdefault(field, value)
             if self.path == "/v1/embed":
-                self._send_json(200, app.embed(payload))
+                out = app.embed(payload)
+                # cascade routing metadata travels as response headers, so
+                # the body keeps its shape
+                cascade_headers = out.pop("_cascade", None)
+                self._send_json(200, out, extra_headers=cascade_headers)
             elif self.path == "/v1/classify":
                 self._send_json(200, app.classify(payload))
             elif self.path == "/admin/revive":
@@ -261,17 +265,28 @@ class ServingServer:
     capture of a ``capture`` manager. ``pool`` (a
     :class:`~jimm_tpu_torch.serve.qos.ModelPool` whose default entry is
     ``engine``) routes each request's ``model`` to its engine; every pool
-    engine shares this server's loop, warm-up and metrics."""
+    engine shares this server's loop, warm-up and metrics. ``cascade`` (a
+    :class:`~jimm_tpu_torch.serve.cascade.CascadeRouter`, which needs a
+    pool) routes every single-image embed that names no ``model`` through
+    its stages, cheapest first, and answers with the ``X-Jimm-Cascade-*``
+    headers; it and an ``autoscaler``
+    (:class:`~jimm_tpu_torch.serve.cascade.CascadeAutoscaler`, whose
+    control loop its caller drives) show in ``/healthz``."""
 
     def __init__(self, engine: InferenceEngine, *, host: str = "127.0.0.1",
                  port: int = 0, request_timeout_s: float = 30.0,
                  zero_shot: ZeroShotService | None = None, pool=None,
+                 cascade=None, autoscaler=None,
                  capture: CaptureManager | None = None,
                  monitor: MemoryMonitor | None = None, warmup: bool = True,
                  metrics_logger=None, metrics_log_every_s: float = 10.0):
         if pool is not None and engine is not pool.default:
             raise ValueError("engine must be the pool's default entry")
+        if cascade is not None and pool is None:
+            raise ValueError("cascade routing requires a model pool")
         self.pool = pool
+        self.cascade = cascade
+        self.autoscaler = autoscaler
         self.engine = engine
         self.zero_shot = zero_shot
         self.capture = capture
@@ -428,9 +443,28 @@ class ServingServer:
             return {"features": [f.tolist() for f in features],
                     "count": len(features), "trace_id": rid}
         image = decode_image_payload(payload, dtype=engine.dtype)
+        if self.cascade is not None and payload.get("model") is None:
+            result = self._submit_cascade(image, timeout_s, rid,
+                                          payload.get("tenant"))
+            return {"features": np.asarray(result.output,
+                                           np.float32).tolist(),
+                    "trace_id": rid,
+                    # popped into the response headers by the handler
+                    "_cascade": result.headers()}
         return {"features": self._submit_many([image], timeout_s, rid,
                                               **route)[0].tolist(),
                 "trace_id": rid}
+
+    def _submit_cascade(self, image: np.ndarray, timeout_s: float | None,
+                        trace_id: str, tenant: str | None):
+        """One request through the cascade router on the serving loop: the
+        router's ``CascadeResult`` (output and routing metadata)."""
+        assert self._loop is not None and self.cascade is not None
+        future = asyncio.run_coroutine_threadsafe(
+            self.cascade.submit(image, timeout_s=timeout_s,
+                                trace_id=trace_id, tenant=tenant),
+            self._loop)
+        return future.result(timeout=self.request_timeout_s)
 
     def classify(self, payload: dict) -> dict:
         if self.zero_shot is None:
@@ -561,6 +595,11 @@ class ServingServer:
             out["qos"] = self.engine.qos.snapshot()
         if self.pool is not None:
             out["models"] = self.pool.describe()
+        # as are the cascade and autoscale blocks, with a router or a loop
+        if self.cascade is not None:
+            out["cascade"] = self.cascade.describe()
+        if self.autoscaler is not None:
+            out["autoscale"] = self.autoscaler.describe()
         slo = self.engine.slo
         if slo is not None:
             out["slo"] = slo.snapshot()

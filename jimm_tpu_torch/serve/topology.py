@@ -29,6 +29,13 @@ is the output.
 Plans are revisable at runtime: :meth:`TopologyPlan.revise` derives a new
 plan, and the forwards built over it are what ``InferenceEngine.replan``
 swaps in live.
+
+With an AOT store (``store=``, `jimm_tpu_torch/aot/`) every replica's
+forward, and every position's of a wide one, is an ``AotForward``: a wide
+replica's positions keyed on its mesh and their position, a one-device
+replica as the single-device model (its program names no device and no
+mesh). Replicas of one shape share their artifacts, so one write-through
+warms every replica and the next process.
 """
 
 from __future__ import annotations
@@ -36,9 +43,10 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 from concurrent.futures import ThreadPoolExecutor
 from concurrent.futures import wait as wait_futures
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -51,7 +59,8 @@ from jimm_tpu_torch.parallel.sharding import (TENSOR_PARALLEL,
 from jimm_tpu_torch.serve.engine import image_forward
 
 __all__ = ["ReplicaForward", "ShardedReplicaForward", "TopologyPlan",
-           "build_replica_forwards", "plan_topology", "visible_devices"]
+           "build_replica_forwards", "plan_topology", "replica_trace_count",
+           "visible_devices"]
 
 #: how long a position of a wide replica waits at a collective for its
 #: peers before the call gives up
@@ -191,13 +200,25 @@ class ReplicaForward:
     (:meth:`synchronize`), so replicas sharing a card overlap."""
 
     def __init__(self, model: torch.nn.Module, method: str,
-                 device: torch.device):
+                 device: torch.device, forward=None):
         self.model = model
         self.method = method
         self.device = torch.device(device)
         self.stream = (torch.cuda.Stream(self.device)
                        if self.device.type == "cuda" else None)
-        self._forward = image_forward(model, method)
+        # an AotForward with a store, else the model's own
+        self._forward = forward or image_forward(model, method)
+
+    def prepare_bucket(self, bucket: int) -> str:
+        """The store's answer for one bucket (``"aot"``, ``"miss"``,
+        ``"fallback"``), or ``"compile"`` without a store."""
+        prepare = getattr(self._forward, "prepare_bucket", None)
+        return prepare(bucket) if prepare is not None else "compile"
+
+    def trace_count(self) -> int:
+        """Buckets the model's own forward ran (0 without a store)."""
+        count = getattr(self._forward, "trace_count", None)
+        return count() if count is not None else 0
 
     def _on_stream(self):
         if self.stream is None:
@@ -239,7 +260,7 @@ class ShardedReplicaForward:
     forward (the engine's heal factory) serves again."""
 
     def __init__(self, model: torch.nn.Module, mesh: LocalMesh, rules, *,
-                 method: str):
+                 method: str, store=None, label: str = ""):
         if len({d.type for d in mesh.devices}) > 1:
             raise ValueError(f"a replica's positions are on one kind of "
                              f"device: {mesh!r}")
@@ -250,6 +271,8 @@ class ShardedReplicaForward:
         specs = (partition_specs(model, sizes, rules)
                  if sizes.get("model", 1) > 1 else None)
         self.views = [mesh.shard(p) for p in range(mesh.size)]
+        for view in self.views:
+            comm.prepare_axis_groups(view)
         self.models: list[torch.nn.Module] = []
         for view in self.views:
             piece = copy.deepcopy(model)
@@ -261,9 +284,48 @@ class ShardedReplicaForward:
         self.streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
                         for d in self.devices]
         self.stream = self.streams[0]
-        self._forwards = [image_forward(m, method) for m in self.models]
+        if store is None:
+            self._forwards = [image_forward(m, method) for m in self.models]
+        else:
+            from jimm_tpu_torch.aot.warmup import AotForward
+            self._forwards = [
+                AotForward(m, method=method, item_shape=_item_shape(m),
+                           store=store, label=label, mesh=mesh, position=p,
+                           context=functools.partial(self._context, p))
+                for p, m in enumerate(self.models)]
         self._threads = self._fresh_threads()
         self._broken: str | None = None
+
+    def _context(self, position: int) -> contextlib.ExitStack:
+        """The position's device, stream and ``use_sharding`` scope."""
+        stack = contextlib.ExitStack()
+        device, stream = self.devices[position], self.streams[position]
+        if stream is not None:
+            stack.enter_context(torch.cuda.device(device))
+            stack.enter_context(torch.cuda.stream(stream))
+        stack.enter_context(use_sharding(self.views[position], self.rules))
+        return stack
+
+    def prepare_bucket(self, bucket: int) -> str:
+        """Every position's store answer for one bucket, as one: the worst
+        of them (``"fallback"`` over ``"miss"`` over ``"aot"``), or
+        ``"compile"`` without a store. A missed position exports under its
+        own scope (its fakes never exchange)."""
+        sources = set()
+        for forward in self._forwards:
+            prepare = getattr(forward, "prepare_bucket", None)
+            sources.add(prepare(bucket) if prepare is not None
+                        else "compile")
+        for worst in ("compile", "fallback", "miss", "aot"):
+            if worst in sources:
+                return worst
+        raise AssertionError(sources)
+
+    def trace_count(self) -> int:
+        """Buckets a position ran through its model's own forward (the most
+        of any position; 0 without a store)."""
+        return max(getattr(f, "trace_count", lambda: 0)()
+                   for f in self._forwards)
 
     def _fresh_threads(self) -> list[ThreadPoolExecutor]:
         return [ThreadPoolExecutor(max_workers=1,
@@ -271,14 +333,8 @@ class ShardedReplicaForward:
                 for p in range(self.mesh.size)]
 
     def _run(self, position: int, padded: np.ndarray) -> torch.Tensor:
-        device, stream = self.devices[position], self.streams[position]
         try:
-            with contextlib.ExitStack() as stack:
-                if stream is not None:
-                    stack.enter_context(torch.cuda.device(device))
-                    stack.enter_context(torch.cuda.stream(stream))
-                stack.enter_context(use_sharding(self.views[position],
-                                                 self.rules))
+            with self._context(position):
                 return self._forwards[position](padded)
         except BaseException:
             self.mesh.abort()
@@ -323,21 +379,37 @@ class ShardedReplicaForward:
             return out.float().cpu().numpy()
 
 
+def _item_shape(model: torch.nn.Module) -> tuple[int, int, int]:
+    vision = model.config.vision
+    return (vision.image_size, vision.image_size, vision.channels)
+
+
+def replica_trace_count(forwards: Sequence) -> Callable[[], int]:
+    """The engine's ``compile_count`` getter over a replica set: the sum of
+    every replica's :meth:`ReplicaForward.trace_count`."""
+    return lambda: sum(f.trace_count() for f in forwards)
+
+
 def build_replica_forwards(model: torch.nn.Module, plan: TopologyPlan, *,
-                           method: str, timeout_s: float = SHARD_TIMEOUT_S
-                           ) -> list:
+                           method: str, timeout_s: float = SHARD_TIMEOUT_S,
+                           store=None, label: str = "") -> list:
     """One model copy and forward per replica group of ``plan``.
 
     One device a group: the first replica on the model's own device serves
     ``model`` itself; every other replica gets a deep copy moved to its
     device, bit-equal to ``model``. Wider groups: a
     :class:`ShardedReplicaForward` over each group's mesh (``timeout_s``:
-    how long its collectives wait), its copies sliced from ``model``."""
+    how long its collectives wait), its copies sliced from ``model``. With
+    ``store`` (an AOT ``ArtifactStore``) each forward, or each position's,
+    is store-backed (``label`` goes into the store's metadata), a position
+    keyed on its mesh and place in it; :func:`replica_trace_count` is then
+    the set's ``compile_count``."""
     if plan.model_parallel * plan.seq_parallel > 1:
         # tp; with a seq axis the sequence and the position table on it too
         rules = (dataclasses.replace(TENSOR_PARALLEL, seq="seq", pos="seq")
                  if plan.seq_parallel > 1 else TENSOR_PARALLEL)
-        forwards = [ShardedReplicaForward(model, mesh, rules, method=method)
+        forwards = [ShardedReplicaForward(model, mesh, rules, method=method,
+                                          store=store, label=label)
                     for mesh in plan.meshes(timeout_s=timeout_s)]
         if any(d.type == "cuda" for f in forwards for d in f.devices):
             # the copies were made on the default stream; the positions'
@@ -353,7 +425,16 @@ def build_replica_forwards(model: torch.nn.Module, plan: TopologyPlan, *,
             replica, used_home = model, True
         else:
             replica = copy.deepcopy(model).to(device)
-        forwards.append(ReplicaForward(replica, method, device))
+        forward = None
+        if store is not None:
+            from jimm_tpu_torch.aot.warmup import AotForward
+            # a one-device replica's program names no device and no mesh:
+            # the single-device model's (JAX keys its sharded program on
+            # the replica's submesh)
+            forward = AotForward(replica, method=method,
+                                 item_shape=_item_shape(replica), store=store,
+                                 label=label)
+        forwards.append(ReplicaForward(replica, method, device, forward))
     if any(f.stream is not None for f in forwards):
         # the copies were made on the default stream; the replicas' own
         # streams read them

@@ -89,6 +89,17 @@ def test_importing_the_port_loads_no_jax():
             "jimm_tpu_torch.serve.qos.scheduler",
             "jimm_tpu_torch.serve.qos.pool",
             "jimm_tpu_torch.serve.qos.cli"} <= set(MODULES)
+    # and the cascade and AOT slice's: copies of the reference's AOT store
+    # and cascade package (keys, store, calibrate, router, autoscale and
+    # the clis numpy and stdlib only)
+    assert {"jimm_tpu_torch.aot.__init__", "jimm_tpu_torch.aot.keys",
+            "jimm_tpu_torch.aot.store", "jimm_tpu_torch.aot.export",
+            "jimm_tpu_torch.aot.warmup", "jimm_tpu_torch.aot.cli",
+            "jimm_tpu_torch.serve.cascade.__init__",
+            "jimm_tpu_torch.serve.cascade.calibrate",
+            "jimm_tpu_torch.serve.cascade.router",
+            "jimm_tpu_torch.serve.cascade.autoscale",
+            "jimm_tpu_torch.serve.cascade.cli"} <= set(MODULES)
 
 
 def test_the_indexed_loader_loads_neither_jax_nor_grain():
@@ -97,6 +108,29 @@ def test_the_indexed_loader_loads_neither_jax_nor_grain():
             "import jimm_tpu_torch.data.pipeline\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'grain'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("argv", [["aot", "ls"], ["aot", "verify"],
+                                  ["aot", "gc"], ["cascade", "ls"]],
+                         ids=" ".join)
+def test_the_host_tools_import_no_torch(argv, tmp_path):
+    """``aot ls|gc|verify`` and ``cascade ls`` through ``python -m
+    jimm_tpu_torch`` load neither torch nor an op module."""
+    code = ("import runpy, sys\n"
+            f"sys.argv = ['jimm_tpu_torch', *{argv!r}, '--store', "
+            f"{str(tmp_path / 'store')!r}]\n"
+            "try:\n"
+            "    runpy.run_module('jimm_tpu_torch', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert not e.code, e.code\n"
+            "bad = sorted(m for m in sys.modules if m == 'torch'\n"
+            "             or m.startswith(('torch.', 'jimm_tpu_torch.ops',\n"
+            "                              'jimm_tpu_torch.models')))\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
