@@ -482,6 +482,30 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                ``aot_fallback`` and ``cascade`` paths. ``python3
                chip_smoke.py --phase 23`` runs the build and this phase
                alone.
+24. tune     -- the tune cache and exact retrieval: (a) ``tune run`` into
+               a fresh store at the train shapes of rows 2, 8 and 12
+               (LayerNorm 32768 x 768 bf16, the bias flash at (128, 256,
+               12, 64), the fp8 GEMMs of fc1), the retrieval scan at (b)'s
+               corpus for batches of 64 and 1, and the compiled-tile flash
+               kernel, each point's default and winner printed and on the
+               record; the same commands again give hits only, with
+               ``jimm_tune_measure_total`` unchanged; an empty cache
+               resolves every knob to today's heuristic (the C entry's
+               LayerNorm grid is ``bwd_grid_rule``), and each kernel
+               launched at its tuned config keeps phase 3's gate, the hot
+               path's lookup launching the same bits; (b) ``index build
+               --random 262144 --dim 768`` plus three copies of 32 rows
+               (exact ties), the scan's device time for a batch of 64,
+               ``serve --index --search-k 10 --tune-cache`` on one replica
+               and on two sharing the card: 64 vector queries (32 beside a
+               tied triple) and 8 images (through SigLIP-B/16-256 bf16,
+               fused LayerNorm) answered with the host oracle's exact
+               top-10, ties in its order, scores within 1e-5; queries/s
+               and p50 printed. The record gains the ``tune`` and
+               ``search`` paths (the image queries' 13 flash and 24
+               LayerNorm launches each) and each tuned kernel's ``tune``
+               entry. ``python3 chip_smoke.py --phase 24`` runs the build
+               and this phase alone.
 
 Phase 3's flash cases include row 3's causal kind at CLIP-B/16's text
 shapes, (32, 77, 8, 64) and the 70 prompt rows of one label set (70, 77,
@@ -580,6 +604,9 @@ from jimm_tpu_torch.quant import policy as fp8_policy
 from jimm_tpu_torch.quant.policy import apply_precision_policy
 from jimm_tpu_torch.parallel import comm
 from jimm_tpu_torch.resilience import PreemptedError
+from jimm_tpu_torch.retrieval import IndexSearcher, VectorStore, normalize_rows
+from jimm_tpu_torch.retrieval import cli as index_cli
+from jimm_tpu_torch.retrieval import topk
 from jimm_tpu_torch.serve.admission import AdmissionPolicy
 from jimm_tpu_torch.serve.buckets import BucketTable
 from jimm_tpu_torch.serve.cache import EmbeddingCache
@@ -597,6 +624,8 @@ from jimm_tpu_torch.obs.timeline import validate_chrome_trace
 from jimm_tpu_torch.train.metrics import (mfu, read_event_file,
                                           train_step_flops)
 from jimm_tpu_torch.train.profile import annotate, op_stats
+from jimm_tpu_torch import tune
+from jimm_tpu_torch.tune import cli as tune_cli
 from jimm_tpu_torch.train.trainer import (OptimizerConfig, contrastive_loss_fn,
                                           make_contrastive_train_step,
                                           make_optimizer)
@@ -2474,8 +2503,12 @@ def plain_versions(keep_flash: bool = False):
         return fa.flash_attention_plain(q, k, v, is_causal=is_causal,
                                         mask=mask)
 
-    def plain_fp8(a_q, b_q, scale, bias=None, *, backward=False):
+    def plain_fp8(a_q, b_q, scale, bias=None, *, backward=False,
+                  k_split=None):
         return fp8.fp8_gemm_plain(a_q, b_q, scale, bias)
+
+    def plain_dbias(*args, batch_range=None, **kwargs):
+        return fa.flash_attention_dbias_plain(*args, **kwargs)
 
     flash = ([(fa, "_fwd", plain_flash_fwd),
               (fa, "flash_attention_bwd", fa.flash_attention_bwd_plain)]
@@ -2499,8 +2532,7 @@ def plain_versions(keep_flash: bool = False):
                  fa.flash_attention_bias_plain),
                 (fa, "flash_attention_bias_bwd",
                  fa.flash_attention_bias_bwd_plain),
-                (fa, "flash_attention_dbias",
-                 fa.flash_attention_dbias_plain)]:
+                (fa, "flash_attention_dbias", plain_dbias)]:
             stack.enter_context(mock.patch.object(module, name, plain))
         yield
 
@@ -7126,6 +7158,415 @@ def aot_cascade_phase(card: str) -> dict[str, dict]:
     return counts
 
 
+
+# -- phase 24: the tune cache and exact retrieval ----------------------------
+
+#: 24(b)'s corpus: ``index build --random`` rows, then three copies of each
+#: of SEARCH_TIES more rows (added in one batch, so the copies are equal to
+#: the bit and their scores tie exactly)
+SEARCH_ROWS = 262144
+SEARCH_DIM = 768
+SEARCH_TIES = 32
+SEARCH_CORPUS = SEARCH_ROWS + 3 * SEARCH_TIES
+SEARCH_K = 10
+SEARCH_QUERIES = 64
+SEARCH_IMAGES = 8
+_Q = "128x256x12x64"
+#: 24(a)'s points: (label, kernel, --shapes, --dtype): the train shapes of
+#: rows 2, 8 and 12 (LayerNorm 32768 x 768, the image tower's q/k/v, fc1),
+#: the scan at 24(b)'s corpus for a batch of 64, for the server's one query
+#: and for one query over half the corpus (a partition of two replicas),
+#: and one kernel whose tile is compiled in
+TUNE_POINTS = (
+    ("layer_norm", "layer_norm", "32768x768", "bfloat16"),
+    ("flash_attention_bias", "flash_attention_bias", f"{_Q},{_Q},{_Q}",
+     "bfloat16"),
+    ("fp8_matmul", "fp8_matmul", "32768x768,3072x768", "bfloat16"),
+    ("retrieval_topk", "retrieval_topk",
+     f"64x{SEARCH_DIM},{SEARCH_CORPUS}x{SEARCH_DIM}", "float32"),
+    ("retrieval_topk_1", "retrieval_topk",
+     f"1x{SEARCH_DIM},{SEARCH_CORPUS}x{SEARCH_DIM}", "float32"),
+    ("retrieval_topk_half", "retrieval_topk",
+     f"1x{SEARCH_DIM},{SEARCH_CORPUS // 2}x{SEARCH_DIM}", "float32"),
+    ("flash_attention", "flash_attention", f"{_Q},{_Q},{_Q}", "bfloat16"),
+)
+SEARCH_ARGV = ["serve", "--preset", "siglip-base-patch16-256", "--dtype",
+               "bf16", "--ln-impl", "fused", "--buckets", "1,8", "--port",
+               "0", "--search-k", str(SEARCH_K)]
+
+
+def _tune_run(store: pathlib.Path) -> list[dict]:
+    """``tune run`` of every TUNE_POINTS point; each point's row."""
+    rows = []
+    for _, kernel, shapes, dtype in TUNE_POINTS:
+        rc, out = _quiet_cli(tune_cli.main, [
+            "tune", "run", "--store", str(store), "--device", "cuda",
+            "--kernel", kernel, "--shapes", shapes, "--dtype", dtype])
+        check(rc == 0, f"tune run {kernel} {shapes}: exit {rc}")
+        rows.append(json.loads(out)["tuned"][0])
+    return rows
+
+
+def _fp8_tuned_gate(m: int, k: int, n: int, a_dtype: torch.dtype,
+                    k_split: int, label: str) -> None:
+    """Row 12 at an explicit K range, held to phase 3's bound against its
+    plain version (the epilogue check is left out: it relaunches at the
+    default range)."""
+    g = torch.Generator(device="cuda").manual_seed(m + k + n)
+    a, b = (torch.randn(r, k, generator=g, device="cuda") for r in (m, n))
+    sa, sb = fp8.dynamic_scale(a, a_dtype), fp8.dynamic_scale(b, fp8.E4M3)
+    a_q = fp8.quantize_tensor(a, sa, a_dtype)
+    b_q = fp8.quantize_tensor(b, sb, fp8.E4M3)
+    del a, b
+    got = fp8.fp8_gemm(a_q, b_q, sa * sb, k_split=k_split, backward=True)
+    want = fp8.fp8_gemm_plain(a_q, b_q, sa * sb)
+    excess = fp8.gate_excess(got, want, fp8.gemm_error_bound(
+        a_q, b_q, sa * sb, want))
+    check(excess <= 0, f"fp8_gemm {label} at K range {k_split}: beyond the "
+          f"bound by {excess}")
+
+
+def tuned_knob_gates(card: str, root: pathlib.Path,
+                     won: dict[str, dict]) -> None:
+    """24(a): an empty cache resolves every knob to today's heuristic (the
+    C entry's LayerNorm grid is its Python rule), and each kernel launched
+    at its tuned config (explicitly, then through the hot path's lookup,
+    bit for bit the same) keeps phase 3's gate against its plain version."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g = torch.Generator(device="cuda").manual_seed(24)
+    x = (torch.randn(32768, 768, generator=g, device="cuda") * 2 + 0.5).to(
+        torch.bfloat16)
+    w = torch.randn(768, generator=g, device="cuda").to(torch.bfloat16)
+    dy = torch.randn(32768, 768, generator=g, device="cuda").to(torch.bfloat16)
+    _, mu, rstd = ln.layer_norm_plain(x, w, w, 1e-6)
+    grid = ln.bwd_grid(x, w, dy)
+    resident = ln.bwd_grid(x, w, dy, rows=2 ** 31 - 1)
+    check(grid == ln.bwd_grid_rule(
+        32768, 768, torch.bfloat16,
+        register=ln.backward_body(x, w, dy) == "register", sms=sms,
+        resident=resident), f"LN grid {grid} is not the Python rule "
+        f"(resident {resident}, {sms} SMs)")
+    q, kb, do, bias = _bias_tuned_inputs()
+    tune.configure(root / "empty")
+    check(ln.tuned_bwd_ctas(x, lambda: ln.bwd_grid(x, w, dy)) == grid
+          and fa.tuned_batch_range(q, q, q, sms) == fa.dbias_batch_range(
+              128, 12, 256, 256, 64, sms)
+          and fp8.tuned_k_ranges(torch.empty_like(x), torch.empty(
+              (3072, 768), dtype=torch.bfloat16, device="cuda"), sms)
+          == fp8.default_k_ranges(32768, 3072, 768, sms),
+          "an empty tune cache changed a knob")
+    tune.configure(root / "tune")
+    ctas = won["layer_norm"]["ctas"]
+    got = ln.layer_norm_bwd(x, w, mu, rstd, dy, ctas=ctas)
+    want = ln.layer_norm_bwd_plain(x, w, mu, rstd, dy)
+    errs = [compare(a, b) for a, b in zip(got, want)]
+    check(all(within(torch.bfloat16, *e, relative=True) for e in errs),
+          f"layer_norm_bwd at {ctas} CTAs: {errs}")
+    looked_up = ln.layer_norm_bwd(x, w, mu, rstd, dy)
+    check(all(torch.equal(a, b) for a, b in zip(got, looked_up)),
+          "layer_norm_bwd: the lookup did not launch the tuned CTAs")
+    o, lse = fa.flash_attention_bias_plain(q, kb, kb, bias)
+    br = won["flash_attention_bias"]["batch_range"]
+    got = fa.flash_attention_dbias(q, kb, kb, bias, o, lse, do,
+                                   batch_range=br)
+    want = fa.flash_attention_dbias_plain(q, kb, kb, bias, o, lse, do)
+    err, cos, peak = compare(got, want)
+    check(within(torch.float32, err, cos, peak, relative=True),
+          f"flash_dbias at batch range {br}: err {err} cos {cos}")
+    check(torch.equal(got, fa.flash_attention_dbias(q, kb, kb, bias, o, lse,
+                                                    do)),
+          "flash_dbias: the lookup did not launch the tuned range")
+    ranges = won["fp8_matmul"]
+    for (m, k, n, a_dtype), knob in (
+            ((32768, 768, 3072, fp8.E4M3), "k_range_fwd"),
+            ((32768, 3072, 768, fp8.E5M2), "k_range_dx"),
+            ((3072, 32768, 768, fp8.E5M2), "k_range_dw")):
+        _fp8_tuned_gate(m, k, n, a_dtype, ranges[knob], knob)
+    xs = torch.randn(32768, 768, generator=g, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    ws = torch.randn(3072, 768, generator=g, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    outs = []
+    for explicit in (ranges, None):
+        y = fp8.fp8_matmul(xs, ws, k_ranges=explicit)
+        outs.append((y, *torch.autograd.grad(y.sum(), (xs, ws))))
+    check(all(torch.equal(a, b) for a, b in zip(*outs)),
+          "fp8_matmul: the lookup did not launch the tuned K ranges")
+    check(won["flash_attention"] == {"block_q": 64, "block_k": 64},
+          f"flash_attention's one candidate: {won['flash_attention']}")
+    print(f"24(a): every knob at its tuned config within phase 3's gates, "
+          f"an empty cache at today's heuristic | {card}", flush=True)
+
+
+def _bias_tuned_inputs():
+    """Row 8's train-shape operands, bf16 q/k/do and an f32 (12, 256, 256)
+    bias."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    q, kb, do = (torch.randn(128, 256, 12, 64, generator=g,
+                             device="cuda").to(torch.bfloat16)
+                 for _ in range(3))
+    bias = torch.randn(12, 256, 256, generator=g, device="cuda")
+    return q, kb, do, bias
+
+
+def tune_phase(card: str, root: pathlib.Path
+               ) -> tuple[dict[str, int], dict[str, dict]]:
+    """24(a): ``tune run`` into a fresh store at TUNE_POINTS, each point's
+    default and winner printed (both on the record); the same commands
+    again: hits only, ``jimm_tune_measure_total`` unchanged; then
+    :func:`tuned_knob_gates`. Returns the first run's launches (the
+    record's ``tune`` path) and each point's row by its label."""
+    store = root / "tune"
+    t0 = time.perf_counter()
+    measured0 = obs.snapshot().get("jimm_tune_measure_total", 0)
+    zero_counts()
+    rows = _tune_run(store)
+    counts = read_counts()
+    first_s = time.perf_counter() - t0
+    measured = obs.snapshot()["jimm_tune_measure_total"] - measured0
+    check(all(r["source"] == "measured" for r in rows)
+          and measured == sum(r["candidates"] for r in rows),
+          f"tune run: {measured} measurements for "
+          f"{[r['candidates'] for r in rows]} candidates")
+    for (_, kernel, shapes, dtype), r in zip(TUNE_POINTS, rows):
+        print(f"tune {kernel} {shapes} {dtype}: default {r['default']} "
+              f"{r['default_time_s'] * 1e3:.4f} ms (spread "
+              f"{r['default_spread_s'] * 1e3:.4f}), winner {r['config']} "
+              f"{r['time_s'] * 1e3:.4f} ms (spread "
+              f"{r['spread_s'] * 1e3:.4f}) ({r['candidates']} candidates, "
+              f"device time) | {card}", flush=True)
+        check(r["config"] == r["default"] or r["time_s"] + max(
+            r["spread_s"], r["default_spread_s"]) < r["default_time_s"],
+            f"tune {kernel}: a winner inside the default's noise {r}")
+    t1 = time.perf_counter()
+    again = _tune_run(store)
+    check(all(a["source"] == "hit" and a["config"] == r["config"]
+              for a, r in zip(again, rows))
+          and obs.snapshot()["jimm_tune_measure_total"]
+          == measured0 + measured,
+          f"tune run again: {[a['source'] for a in again]}")
+    print(f"24(a) tune run {first_s:.1f} s ({measured} measurements), the "
+          f"second run {time.perf_counter() - t1:.1f} s (hits only)",
+          flush=True)
+    won = {point[0]: r for point, r in zip(TUNE_POINTS, rows)}
+    tuned_knob_gates(card, root, {k: r["config"] for k, r in won.items()})
+    return counts, won
+
+
+def search_oracle(queries: np.ndarray, corpus: np.ndarray
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """The exact top-k of unit queries on the host: f64 scores (in row
+    chunks) rounded to f32, a stable argsort (ties: the lowest row)."""
+    q = normalize_rows(queries).astype(np.float64)
+    scores = np.empty((q.shape[0], corpus.shape[0]), np.float32)
+    for i in range(0, corpus.shape[0], 32768):
+        scores[:, i:i + 32768] = q @ corpus[i:i + 32768].astype(
+            np.float64).T
+    order = np.argsort(-scores, axis=1, kind="stable")[:, :SEARCH_K]
+    return np.take_along_axis(scores, order, axis=1), order
+
+
+def _scan_variant(rows32, block_n: int, queries, score: str):
+    """The scan of ``topk.scan_partition`` over an f32 copy of the rows,
+    scoring each block in f32 (``score="f32"``, TF32 off) or casting it to
+    f64 a query (``"f64_cast"``, the scan's earlier design): the two
+    designs the resident f64 rows are measured against."""
+    dev = rows32.device
+    q = queries.to(dev, torch.float64 if score == "f64_cast" else
+                   torch.float32)
+    cols = torch.arange(block_n, device=dev, dtype=torch.int64)
+    carry = torch.full((q.shape[0], SEARCH_K), topk._EMPTY_KEY,
+                       dtype=torch.int64, device=dev)
+    for lo in range(0, rows32.shape[0], block_n):
+        block = rows32[lo:lo + block_n]
+        if score == "f64_cast":
+            scores = (q @ block.to(torch.float64).T).to(torch.float32)
+        else:
+            scores = q @ block.T
+        keys = topk._keys(scores, (topk._IDX_MAX - lo)
+                          - cols[:block.shape[0]])
+        carry = torch.cat([carry, keys], dim=1).topk(SEARCH_K, dim=1).values
+    return topk._decode(carry)
+
+
+def score_precision_phase(card: str, part, index, queries, want) -> None:
+    """24(b): the resident f64 scan against an f32 scan (TF32 off) and a
+    per-query f64 cast of f32 blocks, at batches 1 and 64 and the searcher's
+    block: device time each, and for the f32 scan the queries whose ids or
+    scores leave the host oracle's."""
+    unit = torch.from_numpy(normalize_rows(queries)).cuda()
+    rows64 = part._rows[0]
+    rows32 = torch.from_numpy(index.matrix_f32()).cuda()
+    bn = part.block_n
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.get_float32_matmul_precision())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        v32, i32 = (t.cpu().numpy() for t in _scan_variant(
+            rows32, bn, unit, "f32"))
+        off_ids = int((i32 != want[1]).any(axis=1).sum())
+        off_score = float(np.abs(v32 - want[0]).max())
+        for batch in (1, SEARCH_QUERIES):
+            q = unit[:batch]
+            ms = {
+                "f64 resident": device_ms(lambda: topk.scan_partition(
+                    rows64, 0, bn, q, SEARCH_K), iters=5),
+                "f32 (TF32 off)": device_ms(lambda: _scan_variant(
+                    rows32, bn, q, "f32"), iters=5),
+                "f64 cast a query": device_ms(lambda: _scan_variant(
+                    rows32, bn, q, "f64_cast"), iters=5)}
+            print(f"24(b) scan scores, batch {batch}, block {bn}: "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+                  + f" of device time | {card}", flush=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+        del rows32
+    print(f"24(b) the f32 scan against the f64 host oracle: {off_ids} of "
+          f"{SEARCH_QUERIES} queries' ids differ, scores up to {off_score:.3e}"
+          f" away; the resident f64 scan's are the oracle's", flush=True)
+
+
+def _search_server(card: str, label: str, argv: list[str], queries,
+                   want: tuple, index, block_n: int) -> dict:
+    """``serve --index`` over 24(b)'s store: every vector query's ids the
+    oracle's, its scores within 1e-5; queries/s and p50 printed. With
+    ``images``, the image queries' launches and answers too."""
+    t0 = time.perf_counter()
+    server, _, ready = cli.build_server(cli.build_parser().parse_args(argv))
+    ready_s = time.perf_counter() - t0
+    out = {"ready_s": ready_s}
+    try:
+        info = ready["retrieval"]
+        check(info["rows"] == SEARCH_CORPUS and info["k"] == SEARCH_K,
+              f"{label}: ready line {info}")
+        check(info["block_n"] == block_n,
+              f"{label}: block_n {info['block_n']}, the tuned {block_n}")
+        client = ServeClient(port=server.port, timeout_s=300.0)
+        lat = []
+        for i, q in enumerate(queries):
+            t = time.perf_counter()
+            res = client.search(vector=q)
+            lat.append(time.perf_counter() - t)
+            check(res["ids"] == [index.ids[j] for j in want[1][i]],
+                  f"{label}: query {i} ids {res['ids']}, the oracle's "
+                  f"{[index.ids[j] for j in want[1][i]]}")
+            check(np.abs(np.array(res["scores"]) - want[0][i]).max()
+                  <= 1e-5, f"{label}: query {i} scores {res['scores']}")
+        out.update(partitions=info["partitions"],
+                   queries_per_s=len(lat) / sum(lat),
+                   p50_ms=statistics.median(lat) * 1e3)
+        print(f"{label}: {len(lat)} vector queries, the oracle's top-"
+              f"{SEARCH_K} (recall 1.0), {out['queries_per_s']:.1f} "
+              f"queries/s, p50 {out['p50_ms']:.2f} ms; ready in "
+              f"{ready_s:.1f} s; {info['partitions']} partitions, block "
+              f"{info['block_n']} | {card}", flush=True)
+        if label.startswith("search_1"):
+            rng = np.random.default_rng(25)
+            images = rng.random((SEARCH_IMAGES, 256, 256, 3), np.float32)
+            zero_counts()
+            answers = [client.search(image=img) for img in images]
+            out["counts"] = read_counts()
+            feats = normalize_rows(np.stack(
+                [np.asarray(client.embed(img), np.float32)
+                 for img in images]))
+            iv, ii = search_oracle(feats, index.matrix_f32())
+            for i, res in enumerate(answers):
+                check(res["ids"] == [index.ids[j] for j in ii[i]]
+                      and np.abs(np.array(res["scores"]) - iv[i]).max()
+                      <= 1e-5, f"{label}: image {i} {res['ids']}")
+            c = out["counts"]
+            check(c["flash_attention"] == SEARCH_IMAGES * FLASH_PER_BATCH
+                  and c["layer_norm"] == SEARCH_IMAGES * LN_PER_BATCH,
+                  f"{label}: image queries launched {c}")
+            print(f"{label}: {SEARCH_IMAGES} image queries through the "
+                  f"engine, the oracle's top-{SEARCH_K} of their "
+                  f"embeddings; {c['flash_attention']} flash and "
+                  f"{c['layer_norm']} LayerNorm launches", flush=True)
+    finally:
+        server.stop()
+    return out
+
+
+def search_phase(card: str, root: pathlib.Path,
+                 won: dict[str, dict]) -> dict[str, int]:
+    """24(b): ``index build --random``, three copies of SEARCH_TIES rows,
+    ``serve --index`` on one replica and on two sharing the card, SigLIP-
+    B/16-256 bf16 for the image queries; the exact top-10 of 64 vector
+    queries (half of them beside a tied triple) and 8 images against the
+    host oracle; the scan's device time for a batch of 64, and its f64
+    scores against f32 ones (:func:`score_precision_phase`). Returns the
+    image queries' launches (the record's ``search`` path)."""
+    t0 = time.perf_counter()
+    store = root / "index"
+    rc, _ = _quiet_cli(index_cli.main, [
+        "index", "build", "--store", str(store), "corpus", "--dim",
+        str(SEARCH_DIM), "--random", str(SEARCH_ROWS), "--seed", "0"])
+    check(rc == 0, f"index build: exit {rc}")
+    vs = VectorStore(store)
+    rng = np.random.default_rng(24)
+    tied = rng.standard_normal((SEARCH_TIES, SEARCH_DIM), dtype=np.float32)
+    vs.add("corpus", [f"tie{c}:{i}" for c in range(3)
+                      for i in range(SEARCH_TIES)], np.concatenate([tied] * 3))
+    index = vs.load("corpus")
+    check(len(index) == SEARCH_CORPUS, f"index rows {len(index)}")
+    near = tied + 0.05 * rng.standard_normal(tied.shape, dtype=np.float32)
+    queries = np.concatenate([near, rng.standard_normal(
+        (SEARCH_QUERIES - SEARCH_TIES, SEARCH_DIM), dtype=np.float32)])
+    want = search_oracle(queries, index.matrix_f32())
+    check(all(len({round(float(v), 7) for v in want[0][i, :3]}) == 1
+              for i in range(SEARCH_TIES)), "the tied triples do not tie")
+    print(f"24(b) index of {len(index)} x {SEARCH_DIM} f32 built and the "
+          f"oracle's top-{SEARCH_K} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    searcher = IndexSearcher(index, k=SEARCH_K, buckets=(SEARCH_QUERIES,),
+                             device="cuda")
+    check(searcher.block_n == won["retrieval_topk"]["config"]["block_n"],
+          f"the batch-64 scan's block {searcher.block_n}")
+    vals, idx, _ = searcher.search(queries)
+    check(np.array_equal(idx, want[1])
+          and np.abs(vals - want[0]).max() <= 1e-5,
+          "the batch-64 scan is not the oracle's top-k")
+    part = searcher.searchers[0]
+    unit = normalize_rows(queries)
+    scan_ms = device_ms(lambda: part.search_partial(unit), iters=5)
+    scan_wall = cuda_ms(lambda: part.search_partial(unit), iters=5)
+    print(f"24(b) scan of {len(index)} rows for a batch of "
+          f"{SEARCH_QUERIES}: {scan_ms:.4f} ms of device time, "
+          f"{scan_wall:.4f} ms a call, block {searcher.block_n}, "
+          f"{searcher.resident_bytes()} bytes resident | {card}", flush=True)
+    score_precision_phase(card, part, index, queries, want)
+    del searcher, part
+    block_1 = won["retrieval_topk_1"]["config"]["block_n"]
+    base = SEARCH_ARGV + ["--index-store", str(store), "--index", "corpus",
+                          "--tune-cache", str(root / "tune")]
+    one = _search_server(card, "search_1", base + ["--device", "cuda"],
+                         queries, want, index, block_1)
+    two = _search_server(card, "search_2x", base + [
+        "--device", "cuda:0,cuda:0", "--replicas", "2"], queries, want,
+        index, won["retrieval_topk_half"]["config"]["block_n"])
+    check(two["partitions"] == 2, f"two replicas: {two['partitions']}")
+    print(f"phase 24(b) {time.perf_counter() - t0:.1f} s", flush=True)
+    return one["counts"]
+
+
+def tune_search_phase(card: str) -> tuple[dict[str, dict], dict[str, dict]]:
+    """Phase 24: (a) the tune cache, (b) exact retrieval; the record's
+    ``tune`` and ``search`` paths, and 24(a)'s rows by kernel."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        try:
+            tune_counts, won = tune_phase(card, root)
+            print(f"phase 24(a) {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            search_counts = search_phase(card, root, won)
+        finally:
+            tune.configure(None)  # the default cache again
+    print(f"phase 24 {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"tune": tune_counts, "search": search_counts}, won
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -7233,6 +7674,8 @@ def main() -> int:
         done("wide replicas and QoS")
         aot_counts = aot_cascade_phase(card)
         done("AOT store and cascade")
+        search_counts, tuned = tune_search_phase(card)
+        done("tune cache and retrieval")
         check(all(math.isfinite(timed[k]["ms"]) for k in timed), "bad timing")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
@@ -7254,7 +7697,9 @@ def main() -> int:
     # replica's positions) and the int8 pool twin's traffic ("pool_twin"),
     # and phase 23's servers off the AOT store ("aot_bf16", "aot_int8",
     # "aot_wide_121" summed over its positions, "aot_fallback" the drill)
-    # and the cascade's replay of its holdout ("cascade", both stages)
+    # and the cascade's replay of its holdout ("cascade", both stages), and
+    # phase 24's first `tune run` ("tune") and image queries of /v1/search
+    # ("search")
     paths = {"serve": serve_counts, "train": train_counts,
              "naflex": naflex_counts, "int8_serve": int8_serve_counts,
              "int8_qk": int8_qk_counts, "fp8_hybrid": fp8_counts,
@@ -7262,7 +7707,8 @@ def main() -> int:
              **ckpt_counts, **zero_shot_counts, **rest_counts,
              "resilience": resilience_counts, "data": data_counts,
              **profile_counts, **mesh_counts, **axes_counts, **quant_counts,
-             **replica_counts, **wide_counts, **aot_counts}
+             **replica_counts, **wide_counts, **aot_counts,
+             **search_counts}
     steps = {"train": CLI_STEPS, "naflex": CLI_STEPS, "int8_qk": CLI_STEPS,
              "fp8_hybrid": CLI_STEPS, "sigmoid": TRAIN_STEPS}
     main_path = {"flash_attention_masked": "naflex",
@@ -7334,6 +7780,18 @@ def main() -> int:
                  "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                  "library_ms": c["library_ms"], "shape": c["shape"],
                  "dtype": c["dtype"]}
+        point = {"layer_norm_bwd": "layer_norm",
+                 "flash_attention_dbias": "flash_attention_bias",
+                 "fp8_matmul": "fp8_matmul", "fp8_matmul_bwd": "fp8_matmul",
+                 "flash_attention": "flash_attention"}.get(kernel)
+        if point is not None:
+            # 24(a)'s point of the kernel's knob: default and winner
+            r = tuned[point]
+            entry["tune"] = {"default": r["default"],
+                             "default_ms": r["default_time_s"] * 1e3,
+                             "config": r["config"],
+                             "ms": r["time_s"] * 1e3,
+                             "candidates": r["candidates"]}
         if kernel == "layer_norm_bwd":
             # both bodies: the kernel each launches, its launches in a
             # traced step of the train path, its first phase-3 case
@@ -7353,11 +7811,12 @@ def main() -> int:
 
 
 def phase_alone(phase: str) -> int:
-    """``python3 chip_smoke.py --phase 20|21|22|23``: the build, then that
-    phase alone (20: its two-rank launch, the batch-32 single-process
+    """``python3 chip_smoke.py --phase 20|21|22|23|24``: the build, then
+    that phase alone (20: its two-rank launch, the batch-32 single-process
     references and its gates; 21: serving replicas and health; 22: wide
     replicas, tenant QoS and the pool; 23: the AOT store and the
-    cascade); for iterating on one path. Prints no record."""
+    cascade; 24: the tune cache and exact retrieval); for iterating on one
+    path. Prints no record."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
@@ -7376,6 +7835,8 @@ def phase_alone(phase: str) -> int:
             wide_qos_phase(card)
         elif phase == "23":
             aot_cascade_phase(card)
+        elif phase == "24":
+            tune_search_phase(card)
         else:
             with tempfile.TemporaryDirectory() as tmp:
                 root = pathlib.Path(tmp)
@@ -7394,7 +7855,7 @@ def phase_alone(phase: str) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank-task"]:
         sys.exit(rank_main(sys.argv[1:]))
-    if sys.argv[1:2] == ["--phase"] and sys.argv[2:] in (["20"], ["21"],
-                                                         ["22"], ["23"]):
+    if sys.argv[1:2] == ["--phase"] and sys.argv[2:] in (
+            ["20"], ["21"], ["22"], ["23"], ["24"]):
         sys.exit(phase_alone(sys.argv[2]))
     sys.exit(main())

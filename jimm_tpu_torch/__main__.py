@@ -1,14 +1,17 @@
 """``python -m jimm_tpu_torch serve|train ...``
 
-``aot`` and ``cascade`` go to their own parsers, which import torch only for
-``aot warmup``: the host tools (``aot ls|gc|verify``, ``cascade
-calibrate|ls``) then run without it."""
+``aot``, ``cascade``, ``index`` and ``tune`` go to their own parsers, which
+import torch only for ``aot warmup`` and ``tune run``: the host tools
+(``aot ls|gc|verify``, ``cascade calibrate|ls``, ``index ...``, ``tune
+ls``) then run without it."""
 
 import sys
 
 #: the commands whose parsers load torch only where a verb needs it
 _HOST_TOOLS = {"aot": "jimm_tpu_torch.aot.cli",
-               "cascade": "jimm_tpu_torch.serve.cascade.cli"}
+               "cascade": "jimm_tpu_torch.serve.cascade.cli",
+               "index": "jimm_tpu_torch.retrieval.cli",
+               "tune": "jimm_tpu_torch.tune.cli"}
 
 
 def main(argv: list[str] | None = None) -> int:

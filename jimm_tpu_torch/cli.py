@@ -281,6 +281,20 @@ def build_server(args: argparse.Namespace
     model pool, the HTTP server started (every bucket warmed on every
     replica of every model); the server, the default model and the ready
     line's fields. The caller stops the server."""
+    if args.tune_cache:
+        # the kernels' launch knobs resolve from an offline-tuned cache,
+        # pointed at before the first forward (lookup only: populate it
+        # with `tune run`)
+        from jimm_tpu_torch.tune import configure as tune_configure
+        tune_configure(args.tune_cache)
+    if args.index_mode != "exact":
+        from jimm_tpu_torch.retrieval.api import ModeNotPorted
+        raise SystemExit(str(ModeNotPorted(args.index_mode)))
+    if args.index and not args.index_store:
+        raise SystemExit("--index needs --index-store (the vector store "
+                         "root)")
+    if args.index_store and not args.index:
+        raise SystemExit("--index-store needs --index (the index name)")
     runtime = {"ln_impl": args.ln_impl} if args.ln_impl else None
     dtype = serve_dtype(args)
     if dtype == "int8" and args.model_parallel > 1:
@@ -414,6 +428,14 @@ def build_server(args: argparse.Namespace
         engine.metrics.bind_gauge(
             "queue_depth_now", lambda: float(engine._queue.qsize())
             if engine._queue is not None else 0.0)
+    retrieval = None
+    if args.index:
+        # /v1/search: the named index's snapshot, its corpus split over
+        # the same plan as the engine's replicas
+        from jimm_tpu_torch.retrieval import RetrievalService, VectorStore
+        retrieval = RetrievalService.from_store(
+            VectorStore(args.index_store), args.index, k=args.search_k,
+            plan=plan, device=device)
     capture = monitor = None
     if args.prof_dir:
         # the capture ring (heal, replan and SLO-burn incidents and POST
@@ -437,12 +459,18 @@ def build_server(args: argparse.Namespace
         monitor.register_subsystem("model_pool", model_pool_bytes)
         monitor.register_subsystem("serve_buffers",
                                    lambda: float(engine.traces_bytes))
+        if retrieval is not None:
+            # the shards' rows resident on the devices, in f64
+            monitor.register_subsystem(
+                "retrieval_index",
+                lambda: float(retrieval.searcher.resident_bytes()))
         monitor.sample()
         monitor.start()
     logger = (MetricsLogger(path=args.metrics_file, print_every=10**9)
               if args.metrics_file else None)
     server = ServingServer(engine, host=args.host, port=args.port,
                            zero_shot=zero_shot, pool=pool, capture=capture,
+                           retrieval=retrieval,
                            monitor=monitor, metrics_logger=logger,
                            metrics_log_every_s=args.metrics_every_s)
     t0 = time.monotonic()
@@ -468,6 +496,15 @@ def build_server(args: argparse.Namespace
     if store is not None:
         ready["aot"] = {str(k): v["source"]
                         for k, v in sorted(engine.warmup_report.items())}
+    if retrieval is not None:
+        info = retrieval.describe()
+        ready["retrieval"] = {key: info[key] for key in (
+            "index", "rows", "dim", "k", "block_n", "partitions", "mode")}
+        if store is not None:
+            # no retrieval artifact: each bucket ran eagerly at warm-up
+            ready["retrieval"]["aot"] = {
+                str(b): src for b, src in sorted(
+                    retrieval.searcher.warmup_report.items())}
     return server, model, ready
 
 
@@ -1455,12 +1492,6 @@ def cmd_export_run(args: argparse.Namespace) -> int:
 
 # -- file datasets, zero-shot classification, evaluation ----------------------
 
-#: options of the JAX commands that need parts the port does not have yet ->
-#: where the ROADMAP queues them
-_INDEX_NOT_PORTED = ("--index is not ported yet: the retrieval vector store, "
-                     "ROADMAP.md queue 1, item 9 (retrieval)")
-
-
 
 def _model_dtype(bf16: bool) -> torch.dtype:
     return torch.bfloat16 if bf16 else torch.float32
@@ -1590,8 +1621,6 @@ def classify_image(args: argparse.Namespace, image: np.ndarray, *,
     Returns the labels, the (C,) f32 logits and scores (CLIP: a softmax
     over the labels; SigLIP: a sigmoid per label) and whether the weights
     were cached."""
-    if args.index:
-        raise SystemExit(_INDEX_NOT_PORTED)
     model = _load(args.model, args)
     cfg = model.config
     labels, text, owner = _prompt_rows(args, cfg.text.context_length)
@@ -1600,6 +1629,11 @@ def classify_image(args: argparse.Namespace, image: np.ndarray, *,
                          "--model siglip")
     model_key = (f"{args.model}:{args.ckpt}:"
                  f"{'bf16' if args.bf16 else 'f32'}")
+    if cache is None and args.index:
+        # the store's persistent prompt cache: repeat classify processes
+        # skip the text tower (JAX's entries, the same keys)
+        from jimm_tpu_torch.retrieval import VectorStore
+        cache = VectorStore(args.index).prompt_cache()
     cache = class_embedding_cache() if cache is None else cache
     key = prompt_set_key(model_key, text)
     weights = cache.get(key)
@@ -2065,6 +2099,23 @@ def build_parser() -> argparse.ArgumentParser:
                          "the model's own forward (populate with `aot "
                          "warmup`); misses are exported and written "
                          "through")
+    sp.add_argument("--tune-cache", default=None, metavar="DIR",
+                    help="resolve the kernels' launch knobs from this tune "
+                         "cache (populate with `tune run`; default: "
+                         "JIMM_TUNE_CACHE or ~/.cache/jimm_tpu_torch/tune)")
+    sp.add_argument("--index-store", default=None, metavar="DIR",
+                    help="vector store root for /v1/search (with --index)")
+    sp.add_argument("--index", default=None, metavar="NAME",
+                    help="serve /v1/search over this index of "
+                         "--index-store, its corpus split over the replica "
+                         "plan")
+    sp.add_argument("--search-k", type=int, default=10,
+                    help="top-k carry width of /v1/search (requests may "
+                         "ask for fewer)")
+    sp.add_argument("--index-mode", default="exact",
+                    choices=["exact", "ivf", "tiered"],
+                    help="exact streaming scan; ivf and tiered are not "
+                         "ported yet (ROADMAP.md queue 1 item 9)")
     sp.add_argument("--self-heal", action="store_true",
                     help="escalate a watchdog fence: probe the fenced "
                          "replica (transient fault -> revive in place), "
@@ -2356,7 +2407,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="encoder LayerNorm (fused = the LayerNorm kernels)")
     sp.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' must be asked for explicitly")
-    sp.add_argument("--index", default=None, help=argparse.SUPPRESS)
+    sp.add_argument("--index", default=None, metavar="STORE",
+                    help="vector store root whose persistent prompt cache "
+                         "keeps the class weights across processes")
     sp.set_defaults(func=cmd_classify)
 
     sp = sub.add_parser("export-run",

@@ -774,16 +774,34 @@ def dbias_batch_range(b: int, n: int, sq: int, sk: int, d: int,
     return -(-b // ranges)
 
 
+def tuned_batch_range(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      sms: int) -> int:
+    """Row 8's samples a batch range for these operands: the tune cache's
+    ``flash_attention_bias`` record at their shapes and dtypes, else
+    :func:`dbias_batch_range` on ``sms`` SMs (today's heuristic). The
+    lookup is memoized a shape a process
+    (`jimm_tpu_torch/tune/api.py::best_config`)."""
+    from jimm_tpu_torch.tune.api import best_config
+    b, sq, n, d = q.shape
+    return int(best_config(
+        "flash_attention_bias", (q.shape, k.shape, v.shape),
+        (q.dtype, k.dtype, v.dtype), device=q.device,
+        default=lambda: {"batch_range": dbias_batch_range(
+            b, n, sq, k.shape[1], d, sms)})["batch_range"])
+
+
 def flash_attention_dbias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: torch.Tensor, o: torch.Tensor,
                           lse: torch.Tensor, do: torch.Tensor, *,
                           is_causal: bool = False,
-                          delta: torch.Tensor | None = None) -> torch.Tensor:
+                          delta: torch.Tensor | None = None,
+                          batch_range: int | None = None) -> torch.Tensor:
     """The bias's gradient, ``(N, Sq, Sk)`` f32: the row-8 kernel on CUDA
-    tensors (the batch summed in :func:`dbias_batch_range` ranges, the
+    tensors (the batch summed in ranges of ``batch_range`` samples, the
     ranges added in order by a second kernel),
     :func:`flash_attention_dbias_plain` on CPU tensors. ``delta`` as in
-    :func:`flash_attention_bias_bwd`."""
+    :func:`flash_attention_bias_bwd`; ``batch_range`` 1 to B (default:
+    :func:`tuned_batch_range`; an explicit value skips the lookup)."""
     if q.device.type == "cpu":
         return flash_attention_dbias_plain(q, k, v, bias, o, lse, do,
                                            is_causal=is_causal, delta=delta)
@@ -791,9 +809,12 @@ def flash_attention_dbias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                   delta)
     b, sq, n, d = q.shape
     sk = k.shape[1]
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    b_range = dbias_batch_range(b, n, sq, sk, d, sms)
-    ranges = -(-b // b_range)
+    if batch_range is None:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        batch_range = tuned_batch_range(q, k, v, sms)
+    if not 1 <= batch_range <= b:
+        raise ValueError(f"batch_range {batch_range} outside 1..{b}")
+    ranges = -(-b // batch_range)
     dbias = torch.empty((n, sq, sk), dtype=torch.float32, device=q.device)
     workspace = (None if ranges == 1 else torch.empty(
         (ranges, n, sq, sk), dtype=torch.float32, device=q.device))
@@ -803,7 +824,7 @@ def flash_attention_dbias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = lib.jimm_flash_attention_dbias(
             *(t.data_ptr() for t in inputs), dbias.data_ptr(),
             None if workspace is None else workspace.data_ptr(), *args[:5],
-            b_range, *args[5:], stream)
+            batch_range, *args[5:], stream)
     _build.check(rc, "jimm_flash_attention_dbias")
     _build.count_launch(__name__, "dbias_launches")
     return dbias
@@ -817,10 +838,11 @@ class FlashAttentionBiasFn(torch.autograd.Function):
     bias needs a gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, is_causal):
+    def forward(ctx, q, k, v, bias, is_causal, batch_range):
         o, lse = flash_attention_bias_fwd(q, k, v, bias, is_causal=is_causal)
         ctx.save_for_backward(q, k, v, bias, o, lse)
         ctx.is_causal = is_causal
+        ctx.batch_range = batch_range
         return o
 
     @staticmethod
@@ -832,27 +854,29 @@ class FlashAttentionBiasFn(torch.autograd.Function):
                                               is_causal=ctx.is_causal,
                                               delta=delta)
         dbias = (flash_attention_dbias(q, k, v, bias, o, lse, do,
-                                       is_causal=ctx.is_causal, delta=delta)
+                                       is_causal=ctx.is_causal, delta=delta,
+                                       batch_range=ctx.batch_range)
                  if ctx.needs_input_grad[3] else None)
-        return dq, dk, dv, dbias, None
+        return dq, dk, dv, dbias, None, None
 
 
 def flash_attention_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         bias: torch.Tensor, *, is_causal: bool = False
-                         ) -> torch.Tensor:
+                         bias: torch.Tensor, *, is_causal: bool = False,
+                         batch_range: int | None = None) -> torch.Tensor:
     """Flash attention with an additive logits bias broadcastable to
     ``(N, Sq, Sk)`` (relative-position style; shared by the batch), the
     counterpart of ``jimm_tpu/ops/flash_attention.py::flash_attention_bias``.
     Differentiable in the bias: the bias is broadcast to ``(N, Sq, Sk)`` f32
     as ``_canon_bias`` does, so its gradient (the row-8 kernel's batch sum)
     flows back to the caller's shape and dtype, summed over heads for a
-    ``(Sq, Sk)`` bias."""
+    ``(Sq, Sk)`` bias. ``batch_range``: row 8's samples a batch range
+    (:func:`flash_attention_dbias`)."""
     _check(q, k, v)
     if bias.device != q.device:
         raise ValueError(f"bias on {bias.device}, q on {q.device}")
     n, sq, sk = q.shape[2], q.shape[1], k.shape[1]
     bias3 = bias.float().expand(n, sq, sk)
-    return FlashAttentionBiasFn.apply(q, k, v, bias3, is_causal)
+    return FlashAttentionBiasFn.apply(q, k, v, bias3, is_causal, batch_range)
 
 
 # ---------------------------------------------------------------------------

@@ -150,6 +150,34 @@ def k_range(m: int, n: int, k: int, sms: int) -> int:
     return -(-steps // ranges) * _RANGE_STEP
 
 
+def default_k_ranges(m: int, n: int, k: int, sms: int) -> dict[str, int]:
+    """The K-range lengths :func:`fp8_gemm` picks by :func:`k_range` for the
+    three GEMMs of one ``x (M, K) . w (N, K)^T`` call: the forward sums K,
+    dx (``dy_q . w_q``, ``(M, N) x (N, K)``) sums N, dw (``dy_q^T . x_q``,
+    ``(N, M) x (M, K)``) sums M, each padded to 16 as
+    :func:`tma_operands` pads it."""
+    def pad(x: int) -> int:
+        return -(-x // _TMA_ALIGN) * _TMA_ALIGN
+
+    return {"k_range_fwd": k_range(m, n, pad(k), sms),
+            "k_range_dx": k_range(m, k, pad(n), sms),
+            "k_range_dw": k_range(n, k, pad(m), sms)}
+
+
+def tuned_k_ranges(x: torch.Tensor, w: torch.Tensor,
+                   sms: int) -> dict[str, int]:
+    """The three GEMMs' K-range lengths for ``x (M, K)`` and ``w (N, K)``:
+    the tune cache's ``fp8_matmul`` record at their shapes and dtypes, else
+    :func:`default_k_ranges` on ``sms`` SMs (today's heuristic). The lookup
+    is memoized a shape a process
+    (`jimm_tpu_torch/tune/api.py::best_config`)."""
+    from jimm_tpu_torch.tune.api import best_config
+    (m, k), n = x.shape, w.shape[0]
+    return best_config("fp8_matmul", (x.shape, w.shape), (x.dtype, w.dtype),
+                       device=x.device,
+                       default=lambda: default_k_ranges(m, n, k, sms))
+
+
 def tma_operands(a_q: torch.Tensor, b_q: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """The operands as the kernel takes them: unchanged when K is a multiple
@@ -252,7 +280,8 @@ def _check(a_q: torch.Tensor, b_q: torch.Tensor, scale: torch.Tensor,
 
 def fp8_gemm(a_q: torch.Tensor, b_q: torch.Tensor, scale: torch.Tensor,
              bias: torch.Tensor | None = None, *,
-             backward: bool = False) -> torch.Tensor:
+             backward: bool = False,
+             k_split: int | None = None) -> torch.Tensor:
     """``(a_q . b_q^T) * scale + bias``, f32 ``(M, N)``.
 
     Args:
@@ -263,6 +292,8 @@ def fp8_gemm(a_q: torch.Tensor, b_q: torch.Tensor, scale: torch.Tensor,
         bias: optional ``(N,)`` bias added in f32 after the rescale.
         backward: count the launch in ``bwd_launches`` (the backward's dx
             and dw GEMMs) instead of ``launches``.
+        k_split: the length of the K ranges summed apart, a multiple of 128
+            (default: :func:`k_range`'s; one range when it is at least K).
     """
     _check(a_q, b_q, scale, bias)
     if a_q.device.type == "cpu":
@@ -286,8 +317,12 @@ def fp8_gemm(a_q: torch.Tensor, b_q: torch.Tensor, scale: torch.Tensor,
     m, k = a_q.shape
     n = b_q.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=a_q.device)
-    k_split = k_range(m, n, k, torch.cuda.get_device_properties(
-        a_q.device).multi_processor_count)
+    if k_split is None:
+        k_split = k_range(m, n, k, torch.cuda.get_device_properties(
+            a_q.device).multi_processor_count)
+    if k_split < _RANGE_STEP or k_split % _RANGE_STEP:
+        raise ValueError(f"k_split {k_split} is not a positive multiple of "
+                         f"{_RANGE_STEP}")
     ranges = -(-k // k_split)
     workspace = (None if ranges == 1 else torch.empty(
         (ranges, m, n), dtype=torch.float32, device=a_q.device))
@@ -328,15 +363,20 @@ class Fp8MatmulFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, bias, x_scale, w_scale, amax_group=None,
-                sum_group=None):
+                sum_group=None, k_ranges=None):
+        if k_ranges is None and x.device.type == "cuda":
+            k_ranges = tuned_k_ranges(x, w, torch.cuda.get_device_properties(
+                x.device).multi_processor_count)
+        ranges = k_ranges or {}
         x_q = quantize_tensor(x, x_scale, E4M3)
         w_q = quantize_tensor(w, w_scale, E4M3)
         # the bias joins the f32 epilogue in f32, as in JAX's _fp8_gemm
         b = None if bias is None else bias.float()
+        k_fwd = ranges.get("k_range_fwd")
         if sum_group is None or sum_group.pg is None:
-            y = fp8_gemm(x_q, w_q, x_scale * w_scale, b)
+            y = fp8_gemm(x_q, w_q, x_scale * w_scale, b, k_split=k_fwd)
         else:
-            y = fp8_gemm(x_q, w_q, torch.ones_like(x_scale))
+            y = fp8_gemm(x_q, w_q, torch.ones_like(x_scale), k_split=k_fwd)
             torch.distributed.all_reduce(y, group=sum_group.pg)
             y = y * (x_scale * w_scale)
             if b is not None:
@@ -344,6 +384,7 @@ class Fp8MatmulFn(torch.autograd.Function):
         ctx.save_for_backward(x_q, w_q, x_scale, w_scale)
         ctx.dtypes = (x.dtype, w.dtype, None if bias is None else bias.dtype)
         ctx.amax_group = amax_group
+        ctx.k_ranges = ranges
         return y
 
     @staticmethod
@@ -364,20 +405,23 @@ class Fp8MatmulFn(torch.autograd.Function):
         dx = dw = dbias = None
         if ctx.needs_input_grad[0]:
             dx = fp8_gemm(dy_q, w_q.T.contiguous(), dy_scale * w_scale,
-                          backward=True).to(x_dtype)
+                          backward=True,
+                          k_split=ctx.k_ranges.get("k_range_dx")).to(x_dtype)
         if ctx.needs_input_grad[1]:
             dw = fp8_gemm(dy_q.T.contiguous(), x_q.T.contiguous(),
-                          x_scale * dy_scale, backward=True).to(w_dtype)
+                          x_scale * dy_scale, backward=True,
+                          k_split=ctx.k_ranges.get("k_range_dw")).to(w_dtype)
         if b_dtype is not None and ctx.needs_input_grad[2]:
             dbias = dy.float().sum(dim=0).to(b_dtype)
-        return dx, dw, dbias, None, None, None, None
+        return dx, dw, dbias, None, None, None, None, None
 
 
 def fp8_matmul(x: torch.Tensor, w: torch.Tensor,
                bias: torch.Tensor | None = None, *,
                x_scale: torch.Tensor | None = None,
                w_scale: torch.Tensor | None = None, amax_group=None,
-               sum_group=None) -> torch.Tensor:
+               sum_group=None,
+               k_ranges: dict[str, int] | None = None) -> torch.Tensor:
     """Differentiable fp8 matmul ``x @ w.T + bias``, f32 ``(M, N)``.
 
     Args:
@@ -390,7 +434,11 @@ def fp8_matmul(x: torch.Tensor, w: torch.Tensor,
         amax_group, sum_group: on a mesh, the ranks the gradient's amax is
             taken over, and a row-parallel product's ``model`` group (see
             :class:`Fp8MatmulFn`).
+        k_ranges: the three GEMMs' K-range lengths, ``{"k_range_fwd",
+            "k_range_dx", "k_range_dw"}`` (default on the card:
+            :func:`tuned_k_ranges`; explicit values skip the lookup).
     """
     xs = dynamic_scale(x, E4M3) if x_scale is None else x_scale.float()
     ws = dynamic_scale(w, E4M3) if w_scale is None else w_scale.float()
-    return Fp8MatmulFn.apply(x, w, bias, xs, ws, amax_group, sum_group)
+    return Fp8MatmulFn.apply(x, w, bias, xs, ws, amax_group, sum_group,
+                             k_ranges)

@@ -41,7 +41,7 @@ bwd_launches = 0
 
 #: the register bodies, forward and backward, take rows up to this wide
 #: (csrc/layer_norm.cuh ``kRegisterMaxF``)
-_REGISTER_MAX_F = 2048
+REGISTER_MAX_F = 2048
 #: the two forward bodies' kernel names, by :func:`forward_body`'s answer
 FORWARD_KERNELS = {"register": "layer_norm_fwd_register_kernel",
                    "cta": "layer_norm_fwd_kernel"}
@@ -108,7 +108,7 @@ def forward_body(x: torch.Tensor, scale: torch.Tensor,
     (8 bf16, 4 f32), F <= 2048 and x, scale and bias start on 16-byte
     boundaries (y is a fresh allocation, always aligned); else ``"cta"``
     (one CTA a row)."""
-    return ("register" if _register_body(x, _REGISTER_MAX_F, scale, bias)
+    return ("register" if _register_body(x, REGISTER_MAX_F, scale, bias)
             else "cta")
 
 
@@ -120,7 +120,7 @@ def backward_body(x: torch.Tensor, scale: torch.Tensor,
     is a multiple of a 16-byte vector's elements, F <= 2048 and x, scale and
     dy start on 16-byte boundaries (dx and the partial rows are fresh
     allocations, always aligned); else ``"cta"`` (one CTA a row)."""
-    return ("register" if _register_body(x, _REGISTER_MAX_F, scale, dy)
+    return ("register" if _register_body(x, REGISTER_MAX_F, scale, dy)
             else "cta")
 
 
@@ -173,12 +173,62 @@ def _fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y, mu, rstd
 
 
+#: the register body's rows in flight a CTA (csrc/layer_norm_bwd.cu
+#: ``kWarps``) and the CTA body's CTAs an SM (``kCtaBodyCtasPerSm``)
+_BWD_WARPS = 8
+_BWD_CTA_BODY_CTAS_PER_SM = 8
+
+
+def bwd_grid_rule(rows: int, f: int, dtype: torch.dtype, *, register: bool,
+                  sms: int, resident: int) -> int:
+    """The CTAs the C entry gives the backward (csrc/layer_norm_bwd.cu
+    ``grid``), in Python: the register body (``register``, as
+    :func:`backward_body` answers) takes the CTAs the card holds at once,
+    ``resident`` (an occupancy query on the C side), at most one for every
+    eight rows; the CTA body eight CTAs an SM, at most one a row. ``dtype``
+    is x's; ``f`` and it only check the register body applies."""
+    if register:
+        if f % (16 // dtype.itemsize) or f > REGISTER_MAX_F:
+            raise ValueError(f"the register body does not take F = {f}")
+        return min(-(-rows // _BWD_WARPS), resident)
+    return min(rows, _BWD_CTA_BODY_CTAS_PER_SM * sms)
+
+
+def bwd_grid(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+             rows: int | None = None) -> int:
+    """The C entry's answer (``jimm_layer_norm_bwd_grid``) for CUDA operands:
+    the CTAs today's heuristic gives the backward of ``rows`` rows (default:
+    x's). It reads the pointers' alignment only, so ``rows`` may exceed x's
+    (a large one returns the register body's ``resident``)."""
+    rows = x.shape[0] if rows is None else int(rows)
+    ctas = ctypes.c_int()
+    with torch.cuda.device(x.device):
+        _build.check(_build.load().jimm_layer_norm_bwd_grid(
+            x.data_ptr(), scale.data_ptr(), dy.data_ptr(), rows, x.shape[1],
+            _kernel_dtype(x), ctypes.byref(ctas)), "jimm_layer_norm_bwd_grid")
+    return ctas.value
+
+
+def tuned_bwd_ctas(x: torch.Tensor, grid) -> int:
+    """The backward's CTAs for x ``(rows, F)``: the tune cache's
+    ``layer_norm`` record at this shape and dtype, else ``grid()`` (today's
+    heuristic, evaluated only then). The lookup is memoized a shape a
+    process (`jimm_tpu_torch/tune/api.py::best_config`)."""
+    from jimm_tpu_torch.tune.api import best_config
+    return int(best_config("layer_norm", (x.shape,), (x.dtype,),
+                           device=x.device,
+                           default=lambda: {"ctas": grid()})["ctas"])
+
+
 def layer_norm_bwd(x: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
-                   rstd: torch.Tensor, dy: torch.Tensor
+                   rstd: torch.Tensor, dy: torch.Tensor, *,
+                   ctas: int | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dx, dscale, dbias)``: the backward kernel on CUDA tensors (then a
     second kernel that sums its per-CTA partial rows in a fixed order),
-    :func:`layer_norm_bwd_plain` on CPU tensors."""
+    :func:`layer_norm_bwd_plain` on CPU tensors. ``ctas``: the kernel's
+    grid, 1 to rows (default: :func:`tuned_bwd_ctas`, the tune cache's
+    record or the C entry's rule; an explicit value skips the lookup)."""
     if x.device.type == "cpu":
         return layer_norm_bwd_plain(x, scale, mean, rstd, dy)
     code = _kernel_dtype(x)
@@ -194,23 +244,23 @@ def layer_norm_bwd(x: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
     if scale.dtype != x.dtype or scale.shape != (f,):
         raise ValueError(f"scale {scale.dtype} {tuple(scale.shape)} does not "
                          f"match x {x.dtype} (F = {f})")
+    if ctas is None:
+        # the C side sizes the grid: one partial row of dscale and of dbias
+        # a CTA, which it then sums in a fixed order
+        ctas = tuned_bwd_ctas(x, lambda: bwd_grid(x, scale, dy))
+    if not 1 <= ctas <= rows:
+        raise ValueError(f"ctas {ctas} outside 1..{rows}")
     dx = torch.empty_like(x)
     dscale, dbias = torch.empty_like(scale), torch.empty_like(scale)
     lib = _build.load()
-    ctas = ctypes.c_int()
     with torch.cuda.device(x.device):
-        # the C side sizes the grid: one partial row of dscale and of dbias
-        # a CTA, which it then sums in a fixed order
-        _build.check(lib.jimm_layer_norm_bwd_grid(
-            x.data_ptr(), scale.data_ptr(), dy.data_ptr(), rows, f, code,
-            ctypes.byref(ctas)), "jimm_layer_norm_bwd_grid")
-        part = torch.empty((2, ctas.value, f), dtype=torch.float32,
+        part = torch.empty((2, ctas, f), dtype=torch.float32,
                            device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.jimm_layer_norm_bwd(
             x.data_ptr(), scale.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
             dy.data_ptr(), dx.data_ptr(), part.data_ptr(), dscale.data_ptr(),
-            dbias.data_ptr(), rows, f, ctas.value, code, stream)
+            dbias.data_ptr(), rows, f, ctas, code, stream)
     _build.check(rc, "jimm_layer_norm_bwd")
     _build.count_launch(__name__, "bwd_launches")
     return dx, dscale, dbias
@@ -239,30 +289,33 @@ class LayerNormFn(torch.autograd.Function):
     The forward goes through :data:`fwd_op`."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps):
+    def forward(ctx, x, scale, bias, eps, ctas):
         y, mu, rstd = fwd_op(x, scale, bias, eps)
         ctx.save_for_backward(x, scale, mu, rstd)
         ctx.mark_non_differentiable(mu, rstd)
+        ctx.ctas = ctas
         return y, mu, rstd
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy, _dmu, _drstd):
         x, scale, mu, rstd = ctx.saved_tensors
-        dx, dscale, dbias = layer_norm_bwd(x, scale, mu, rstd, dy)
-        return dx, dscale, dbias, None
+        dx, dscale, dbias = layer_norm_bwd(x, scale, mu, rstd, dy,
+                                           ctas=ctx.ctas)
+        return dx, dscale, dbias, None, None
 
 
 def layer_norm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                   eps: float = 1e-6
+                   eps: float = 1e-6, *, ctas: int | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(y, mean, rstd)``: y in the dtype of x, mean and rstd ``(rows,)``
-    f32 (the residuals the backward reads). Differentiable through y."""
+    f32 (the residuals the backward reads). Differentiable through y;
+    ``ctas`` is the backward's grid (:func:`layer_norm_bwd`)."""
     _check(x, scale, bias)
-    return LayerNormFn.apply(x, scale, bias, eps)
+    return LayerNormFn.apply(x, scale, bias, eps, ctas)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-6) -> torch.Tensor:
+               eps: float = 1e-6, *, ctas: int | None = None) -> torch.Tensor:
     """Fused LayerNorm over the last axis of ``(rows, F)`` input."""
-    return layer_norm_fwd(x, scale, bias, eps)[0]
+    return layer_norm_fwd(x, scale, bias, eps, ctas=ctas)[0]

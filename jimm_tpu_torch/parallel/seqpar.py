@@ -19,9 +19,10 @@ hop's k/v chunk is saved.
 through ``ring_hop_fwd`` / ``ring_hop_bwd`` (rows 3/4/6 forward, row 7
 backward), ``impl="einsum"`` in plain f32 math (causal too); ``"auto"``
 picks flash on CUDA tensors for the non-causal kinds. The hops use the
-kernels' own tiles: JAX's ``_resolve_ring_blocks`` looks block sizes up in
-its tune cache, which the port does not have (ROADMAP.md queue 1, item 8),
-and the port's kernels choose their tiles themselves.
+kernels' compiled tiles: JAX's ``_resolve_ring_blocks`` looks block sizes
+up in its tune cache; the port's tune cache (`jimm_tpu_torch/tune/`) keeps
+for ``ring_attention`` the one compiled tile, so there is nothing to
+resolve here.
 
 Observability: every hop runs under a ``ring_hop`` span and a
 ``ring_hop{j}`` profiler range, and ``jimm_ring_bytes_permuted_total``

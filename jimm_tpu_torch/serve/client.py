@@ -337,9 +337,7 @@ class ServeClient:
         (searched directly) or an ``image`` (embedded through the engine
         first). ``nprobe`` widens/narrows the probe per request when the
         server runs ``--index-mode ivf`` (rejected in exact mode).
-        Returns ``{"ids", "scores", "index", "k", "trace_id"}``. The port's
-        server answers 404 until retrieval is ported (ROADMAP.md queue 1
-        item 9)."""
+        Returns ``{"ids", "scores", "index", "k", "trace_id"}``."""
         if (vector is None) == (image is None):
             raise ValueError("search needs exactly one of vector= or "
                              "image=")

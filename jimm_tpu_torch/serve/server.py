@@ -24,14 +24,19 @@ Endpoints::
                      scores against the label set's class weights, built by
                      the text tower on a cache miss (a CLIP or SigLIP server
                      only: :class:`ZeroShotService`)
+    POST /v1/search  {"vector": [...]} or {"image": ...} (embedded through
+                     the engine first), optional "k" -> {"index", "k",
+                     "ids", "scores"} from the server's retrieval index
+                     (``serve --index``: :class:`~jimm_tpu_torch.retrieval
+                     .RetrievalService`); a bulk ``/v1/embed`` counts its
+                     rows in ``jimm_retrieval_embed_total``
     POST /admin/revive  {"replica": N} un-fences a watchdog-fenced replica
     POST /admin/prof/trigger  {"cid"?, "reason"?, "window_s"?} -> a deep
                      profiler capture on the caller's cid
                      ({"triggered": bool, ...}); 400 without a capture
                      manager (``serve --prof-dir`` or ``JIMM_PROF_DIR``)
 
-``/v1/search`` answers 404 until retrieval is ported (ROADMAP.md queue 1
-item 9). A client's ``X-Jimm-Trace-Id`` header names the request in the
+A client's ``X-Jimm-Trace-Id`` header names the request in the
 trace ring; ``X-Jimm-Tenant`` and ``X-Jimm-Model`` (or the payload's
 ``tenant`` and ``model`` fields, which win) name the QoS tenant and the
 pool model (`serve/qos/`). With a QoS scheduler or a model pool,
@@ -65,11 +70,6 @@ from jimm_tpu_torch.serve.cache import (EmbeddingCache, class_embedding_cache,
                                         prompt_set_key)
 from jimm_tpu_torch.serve.engine import InferenceEngine
 from jimm_tpu_torch.utils.zero_shot import token_table_rows, weights_from_rows
-
-
-#: /v1/search until retrieval is ported
-_SEARCH_NOT_PORTED = ("/v1/search: retrieval is not ported yet (ROADMAP.md "
-                      "queue 1 item 9)")
 
 
 def request_trace_id(payload: dict) -> str:
@@ -237,8 +237,7 @@ class _Handler(BaseHTTPRequestHandler):
             elif self.path == "/admin/prof/trigger":
                 self._send_json(200, app.prof_trigger(payload))
             elif self.path == "/v1/search":
-                self._send_json(404, {"error": "not_found",
-                                      "message": _SEARCH_NOT_PORTED})
+                self._send_json(200, app.search(payload))
             else:
                 self._send_json(404, {"error": "not_found",
                                       "message": self.path})
@@ -271,12 +270,15 @@ class ServingServer:
     its stages, cheapest first, and answers with the ``X-Jimm-Cascade-*``
     headers; it and an ``autoscaler``
     (:class:`~jimm_tpu_torch.serve.cascade.CascadeAutoscaler`, whose
-    control loop its caller drives) show in ``/healthz``."""
+    control loop its caller drives) show in ``/healthz``. ``retrieval`` (a
+    :class:`~jimm_tpu_torch.retrieval.RetrievalService`) answers
+    ``/v1/search``, is warmed with the engines and shows in
+    ``/healthz``."""
 
     def __init__(self, engine: InferenceEngine, *, host: str = "127.0.0.1",
                  port: int = 0, request_timeout_s: float = 30.0,
                  zero_shot: ZeroShotService | None = None, pool=None,
-                 cascade=None, autoscaler=None,
+                 cascade=None, autoscaler=None, retrieval=None,
                  capture: CaptureManager | None = None,
                  monitor: MemoryMonitor | None = None, warmup: bool = True,
                  metrics_logger=None, metrics_log_every_s: float = 10.0):
@@ -289,6 +291,7 @@ class ServingServer:
         self.autoscaler = autoscaler
         self.engine = engine
         self.zero_shot = zero_shot
+        self.retrieval = retrieval
         self.capture = capture
         self.monitor = monitor
         self.metrics = engine.metrics
@@ -322,6 +325,8 @@ class ServingServer:
                 warmed = engine.warmup_blocking()
                 if engine is self.engine:
                     self.warmup_s = warmed
+            if self.retrieval is not None:
+                self.retrieval.warmup()
         loop = asyncio.new_event_loop()
         started = threading.Event()
 
@@ -440,6 +445,8 @@ class ServingServer:
                 item if isinstance(item, dict) else {"image": item},
                 dtype=engine.dtype) for item in raw]
             features = self._submit_many(images, timeout_s, rid, **route)
+            from jimm_tpu_torch.retrieval.api import retrieval_metrics
+            retrieval_metrics()[1].inc(len(images))
             return {"features": [f.tolist() for f in features],
                     "count": len(features), "trace_id": rid}
         image = decode_image_payload(payload, dtype=engine.dtype)
@@ -465,6 +472,41 @@ class ServingServer:
                                 trace_id=trace_id, tenant=tenant),
             self._loop)
         return future.result(timeout=self.request_timeout_s)
+
+    def search(self, payload: dict) -> dict:
+        """Top-k over the retrieval index: a raw query ``vector`` searches
+        directly; an image embeds through the engine first (the same
+        buckets, admission and replica dispatch as ``/v1/embed``)."""
+        if self.retrieval is None:
+            raise RequestError("this server has no retrieval index "
+                               "(start with serve --index)")
+        rid = request_trace_id(payload)
+        if "vector" in payload:
+            try:
+                query = np.asarray(payload["vector"], np.float32)
+            except (TypeError, ValueError) as e:
+                raise RequestError(f"bad 'vector' payload: {e}") from None
+        else:
+            engine = self._engine_for(payload.get("model"))
+            image = decode_image_payload(payload, dtype=engine.dtype)
+            query = np.asarray(self._submit_many(
+                [image], payload.get("timeout_s"), rid, engine=engine,
+                tenant=payload.get("tenant"))[0], np.float32)
+        nprobe = payload.get("nprobe")
+        if nprobe is not None:
+            try:
+                nprobe = int(nprobe)
+            except (TypeError, ValueError):
+                raise RequestError(
+                    f"'nprobe' must be an integer; got {nprobe!r}") \
+                    from None
+        values, ids = self.retrieval.search_blocking(
+            query, k=payload.get("k"), nprobe=nprobe)
+        return {"index": self.retrieval.index.name, "k": len(ids[0]),
+                "ids": ids[0],
+                "scores": [round(float(v), 6)
+                           for v in values[0][:len(ids[0])]],
+                "trace_id": rid}
 
     def classify(self, payload: dict) -> dict:
         if self.zero_shot is None:
@@ -590,6 +632,8 @@ class ServingServer:
         if dead:
             out["status"] = "degraded"
             out["dead_replicas"] = dead
+        if self.retrieval is not None:
+            out["retrieval"] = self.retrieval.describe()
         # the qos and models blocks exist only with a policy or a pool
         if self.engine.qos is not None:
             out["qos"] = self.engine.qos.snapshot()

@@ -163,10 +163,27 @@ def test_classify_refusals_match_jax(ckpts, image_file, tmp_path, case):
     assert str(ours.value) == str(theirs.value)
 
 
-def test_classify_refuses_index_citing_its_roadmap_item(ckpts, image_file):
-    with pytest.raises(SystemExit, match="item 9 \\(retrieval\\)"):
-        cli.main(["classify", str(image_file), "--ckpt", str(ckpts["clip"]),
-                  "--labels", "a", "--index", "store", "--device", "cpu"])
+def test_classify_refuses_index_citing_its_roadmap_item(ckpts, image_file,
+                                                        tmp_path, capsys):
+    """``--index`` was refused until retrieval was ported (ROADMAP.md queue
+    1 item 9); it now keeps the class weights in the store's persistent
+    prompt cache, under JAX's keys: weights JAX's ``classify --index``
+    stored are found by the port's, which then runs no text tower and
+    prints JAX's scores."""
+    store = str(tmp_path / "store")
+    argv = ["classify", str(image_file), *_argv(
+        "siglip", ["--tokens-file", {"a": [3, 4], "b": [5, 6, 7]}], ckpts,
+        tmp_path), "--index", store]
+    assert jax_cli.main(argv + ["--platform", "cpu"]) == 0
+    theirs = capsys.readouterr().out
+    args = cli.build_parser().parse_args(argv + ["--device", "cpu"])
+    image = records.decode_image(image_file.read_bytes())
+    out = cli.classify_image(args, image)
+    assert out["cached"]
+    want = _printed(theirs)
+    got = dict(zip(out["labels"], out["scores"]))
+    assert want.keys() == got.keys()
+    assert all(abs(got[k] - want[k]) <= PRINTED_TOL for k in want)
 
 
 # -- /v1/classify ----------------------------------------------------------

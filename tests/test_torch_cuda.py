@@ -1260,3 +1260,116 @@ def test_dbias_is_the_same_in_every_run(card, dtype):
                 for _ in range(2)]
         torch.cuda.synchronize()
         assert torch.equal(runs[0], runs[1])
+
+
+# -- the tune cache's knobs (rows 2, 8 and 12) --------------------------------
+
+def _sms(card) -> int:
+    return torch.cuda.get_device_properties(card).multi_processor_count
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,f", [(32768, 768), (8192, 768), (3, 5000)])
+def test_layer_norm_backward_at_every_ctas_candidate(card, rows, f, dtype):
+    """Row 2 at every CTA count `tune run` tries, against the plain
+    version; the C entry's grid is the Python rule
+    (``layer_norm.bwd_grid_rule``) and an empty cache keeps it."""
+    from jimm_tpu_torch.tune import space
+    x, w, mu, rstd, dy = _ln_bwd_inputs(rows, f, dtype, card)
+    register = ln.backward_body(x, w, dy) == "register"
+    resident = ln.bwd_grid(x, w, dy, rows=2 ** 31 - 1)
+    grid = ln.bwd_grid(x, w, dy)
+    assert grid == ln.bwd_grid_rule(rows, f, dtype, register=register,
+                                    sms=_sms(card), resident=resident)
+    want = ln.layer_norm_bwd_plain(x, w, mu, rstd, dy)
+    for cand in space.ln_space(((rows, f),), (), default={"ctas": grid},
+                               sms=_sms(card)):
+        got = ln.layer_norm_bwd(x, w, mu, rstd, dy, ctas=cand["ctas"])
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            top = max(1.0, b.float().abs().max().item())
+            _close(a / top, b / top, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dbias_at_every_batch_range(card, dtype):
+    """Row 8 at every batch range `tune run` tries (the train shape's
+    batch cut into 1 to 32 ranges), against the plain version."""
+    from jimm_tpu_torch.tune import space
+    qshape, sk = (128, 256, 12, 64), 256
+    q, k, v, do, bias, _ = _bias_inputs(qshape, sk, "full", dtype, card, 7)
+    o, lse = fa.flash_attention_bias_plain(q, k, v, bias)
+    want = fa.flash_attention_dbias_plain(q, k, v, bias, o, lse, do)
+    top = max(1.0, want.abs().max().item())
+    default = fa.dbias_batch_range(128, 12, 256, sk, 64, _sms(card))
+    for cand in space.bias_space((qshape,) * 3, (),
+                                 default={"batch_range": default},
+                                 sms=_sms(card)):
+        got = fa.flash_attention_dbias(q, k, v, bias, o, lse, do,
+                                       batch_range=cand["batch_range"])
+        torch.cuda.synchronize()
+        _close(got / top, want / top, torch.float32)
+
+
+@pytest.mark.parametrize("m,k,n", [(32768, 768, 3072), (3072, 32768, 768),
+                                   (100, 1000, 36)])
+def test_fp8_gemm_at_every_k_range(card, m, k, n):
+    """Row 12 at every K-range length `tune run` tries for this GEMM, held
+    to ``gemm_error_bound`` against the plain version."""
+    from jimm_tpu_torch.ops import fp8_matmul as fp8
+    from jimm_tpu_torch.tune import space
+    a_q, b_q, scale, bias = _fp8_operands(m, k, n, fp8.E4M3, card)
+    want = fp8.fp8_gemm_plain(a_q, b_q, scale, bias)
+    bound = fp8.gemm_error_bound(a_q, b_q, scale, want)
+    for length in space.pow2_splits(-(-k // 16) * 16, 128):
+        got = fp8.fp8_gemm(a_q, b_q, scale, bias, k_split=length)
+        torch.cuda.synchronize()
+        assert fp8.gate_excess(got, want, bound) <= 0, length
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fp8.fp8_gemm(a_q, b_q, scale, bias, k_split=192)
+
+
+def test_jimm_tune_measures_on_a_miss_inside_the_main_path(card, monkeypatch,
+                                                           tmp_path):
+    """``JIMM_TUNE=1`` over an empty cache: the lookups inside
+    ``LayerNormFn``'s backward, ``FlashAttentionBiasFn``'s backward (row 8)
+    and ``Fp8MatmulFn``'s forward, all with grad mode off, measure every
+    candidate of their knob once and store the record; the steps' gradients
+    are finite, and a second step measures nothing."""
+    from jimm_tpu_torch import obs, tune
+    from jimm_tpu_torch.ops import fp8_matmul as fp8
+    from jimm_tpu_torch.tune import api
+    monkeypatch.setenv("JIMM_TUNE", "1")
+    monkeypatch.setattr(api, "_cache", None)
+    cache = tune.configure(tmp_path / "tune")
+    g = torch.Generator(device=card).manual_seed(24)
+
+    def leaf(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device=card).to(
+            dtype).requires_grad_()
+
+    x, w, b = leaf(4096, 768), leaf(768), leaf(768)
+    q, k, v = (leaf(8, 256, 12, 64) for _ in range(3))
+    bias = leaf(12, 256, 256, dtype=torch.float32)
+    xf, wf = leaf(4096, 768), leaf(3072, 768)
+    steps = [
+        ("layer_norm", (x.shape,), (x.dtype,),
+         lambda: ln.layer_norm(x, w, b, 1e-6).float().sum(), (x, w, b)),
+        ("flash_attention_bias", (q.shape,) * 3, (q.dtype,) * 3,
+         lambda: fa.flash_attention_bias(q, k, v, bias).float().sum(),
+         (q, k, v, bias)),
+        ("fp8_matmul", (xf.shape, wf.shape), (xf.dtype, wf.dtype),
+         lambda: fp8.fp8_matmul(xf, wf).sum(), (xf, wf)),
+    ]
+    for kernel, shapes, dtypes, loss, leaves in steps:
+        for run in range(2):
+            before = obs.snapshot().get("jimm_tune_measure_total", 0)
+            grads = torch.autograd.grad(loss(), leaves)
+            torch.cuda.synchronize()
+            measured = obs.snapshot()["jimm_tune_measure_total"] - before
+            rec = cache.get(api._key_for(kernel, shapes, dtypes, card))
+            assert rec is not None, kernel
+            want = len(rec["metrics"]["trials"]) if run == 0 else 0
+            assert measured == want, (kernel, run, measured)
+            assert all(torch.isfinite(t).all() for t in grads), kernel
+

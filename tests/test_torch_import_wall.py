@@ -100,6 +100,16 @@ def test_importing_the_port_loads_no_jax():
             "jimm_tpu_torch.serve.cascade.router",
             "jimm_tpu_torch.serve.cascade.autoscale",
             "jimm_tpu_torch.serve.cascade.cli"} <= set(MODULES)
+    # and the tune and exact-retrieval slice's: copies of the reference's
+    # tune cache and cli and of its vector store and index cli (the tune
+    # space is the port's own), none of them loading JAX
+    assert {"jimm_tpu_torch.tune.__init__", "jimm_tpu_torch.tune.cache",
+            "jimm_tpu_torch.tune.measure", "jimm_tpu_torch.tune.space",
+            "jimm_tpu_torch.tune.api", "jimm_tpu_torch.tune.cli",
+            "jimm_tpu_torch.retrieval.__init__",
+            "jimm_tpu_torch.retrieval.store",
+            "jimm_tpu_torch.retrieval.topk", "jimm_tpu_torch.retrieval.api",
+            "jimm_tpu_torch.retrieval.cli"} <= set(MODULES)
 
 
 def test_the_indexed_loader_loads_neither_jax_nor_grain():
@@ -116,11 +126,14 @@ def test_the_indexed_loader_loads_neither_jax_nor_grain():
 
 
 @pytest.mark.parametrize("argv", [["aot", "ls"], ["aot", "verify"],
-                                  ["aot", "gc"], ["cascade", "ls"]],
+                                  ["aot", "gc"], ["cascade", "ls"],
+                                  ["tune", "ls"], ["index", "ls"],
+                                  ["index", "verify"], ["index", "stats"]],
                          ids=" ".join)
 def test_the_host_tools_import_no_torch(argv, tmp_path):
-    """``aot ls|gc|verify`` and ``cascade ls`` through ``python -m
-    jimm_tpu_torch`` load neither torch nor an op module."""
+    """``aot ls|gc|verify``, ``cascade ls``, ``tune ls`` and ``index
+    ls|verify|stats`` through ``python -m jimm_tpu_torch`` load neither
+    torch nor an op module."""
     code = ("import runpy, sys\n"
             f"sys.argv = ['jimm_tpu_torch', *{argv!r}, '--store', "
             f"{str(tmp_path / 'store')!r}]\n"
